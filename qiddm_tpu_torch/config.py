@@ -1,0 +1,58 @@
+"""Numeric configuration and device selection for qiddm_tpu_torch.
+
+Counterpart of ``qiddm_tpu/config.py:150-208``: the complex/real dtype
+switch (complex64 by default, complex128 for tight parity work) and the
+width cap of the hand-written gate-chain kernel.
+
+TF32 is switched off for every float32 product this package issues. The
+JAX simulator pins ``precision="highest"`` on its contractions because
+reduced-precision passes let probability sums drift by ~1e-3; TF32 keeps
+about three decimal digits, so the port pins full float32 the same way:
+
+* ``torch.backends.cuda.matmul.allow_tf32 = False`` (already PyTorch's
+  default, stated here so that no other import can leave it on);
+* ``torch.backends.cudnn.allow_tf32 = False`` (PyTorch's default is True).
+
+Both are process-wide PyTorch settings, set when this module is imported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+_X64 = False
+
+# Widest circuit the gate-chain kernel takes: the JAX package's
+# pallas_max_wires (qiddm_tpu/config.py:199). At w=10 one sample's state is
+# 8 KB of shared memory.
+KERNEL_MAX_WIRES = 10
+
+
+def enable_x64(on: bool = True) -> None:
+    """Switch the simulator's dtypes to float64/complex128."""
+    global _X64
+    _X64 = on
+
+
+def real_dtype() -> torch.dtype:
+    return torch.float64 if _X64 else torch.float32
+
+
+def complex_dtype() -> torch.dtype:
+    return torch.complex128 if _X64 else torch.complex64
+
+
+def resolve_device(name) -> torch.device:
+    """The ``torch.device`` for ``name``; raises when CUDA is asked for and
+    this process has none. Nothing in the package falls back to the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but torch.cuda.is_available() is "
+            f"False (torch {torch.__version__}, CUDA "
+            f"{torch.version.cuda}); pass a CPU device explicitly to run the "
+            f"plain PyTorch path")
+    return device

@@ -1,0 +1,94 @@
+"""The reference's dense quantum models by public name (counterpart of
+``qiddm_tpu/nn/qdense.py``). Same constructor signatures and byte-identical
+``save_name()`` strings as the JAX package. Ported so far:
+``QIDDM_LL_noise``; the rest of the zoo is ROADMAP Queue 1 item 7.
+"""
+
+from __future__ import annotations
+
+import ast
+import math
+import operator as _op
+
+import torch
+
+from .core import Reupload as _ReuploadModule
+from .shim import DenoiserShim, _square_or_flat
+
+_ALLOWED_OPS = {
+    ast.Add: _op.add, ast.Sub: _op.sub, ast.Mult: _op.mul,
+    ast.FloorDiv: _op.floordiv, ast.Pow: _op.pow,
+}
+
+
+def _int_arg(v) -> int:
+    """Parse int args that may arrive as arithmetic strings like "28 * 28"
+    (the reference evals these; parsed safely here)."""
+    if isinstance(v, int):
+        return v
+    if isinstance(v, str):
+        node = ast.parse(v.strip(), mode="eval").body
+
+        def ev(n):
+            if isinstance(n, ast.Constant) and isinstance(n.value, int):
+                return n.value
+            if isinstance(n, ast.BinOp) and type(n.op) in _ALLOWED_OPS:
+                return _ALLOWED_OPS[type(n.op)](ev(n.left), ev(n.right))
+            raise ValueError(f"cannot parse int expression {v!r}")
+
+        return ev(node)
+    return int(v)
+
+
+def _shape_arg(shape):
+    if isinstance(shape, (int, str)):
+        s = _int_arg(shape)
+        return (s, s)
+    return tuple(shape)
+
+
+def _wires_for(pixels: int) -> int:
+    return math.ceil(math.log2(pixels))
+
+
+class _ReuploadShim(DenoiserShim):
+    def __init__(self, module, shape, save_name_str, *, device, **attrs):
+        super().__init__(module, shape, save_name_str=save_name_str,
+                         device=device)
+        for k, v in attrs.items():
+            setattr(self, k, v)
+
+
+def _qiddm(input_dim, hidden, L, N, *, down, up, save, seed, encode="rz",
+           k=2, add_noise=0, noise_intensity=None):
+    """The QIDDM-L family: PauliZ readout between two projections."""
+    input_dim, hidden = _int_arg(input_dim), _int_arg(hidden)
+    L, N, add_noise = _int_arg(L), _int_arg(N), _int_arg(add_noise)
+    if add_noise != 0 or noise_intensity is not None:
+        raise NotImplementedError(
+            f"add_noise={add_noise}, noise_intensity={noise_intensity}: "
+            f"noise is ROADMAP Queue 1 item 8")
+    shape = _square_or_flat(input_dim)
+    module = _ReuploadModule(
+        hidden, L, N, generator=torch.Generator().manual_seed(seed),
+        input_dim=input_dim, shape=shape, k=k, down=down, up=up,
+        readout="expvalz", encode=encode)
+    return module, shape, save.format(h=hidden, L=L, N=N), dict(
+        hidden_features=hidden, spectrum_layer=L, N=N, add_noise=add_noise)
+
+
+class QIDDM_LL_noise(_ReuploadShim):
+    """Reference nn/qdense.py:1567-1660 (default model of the mnist driver
+    and the Ray sweep): Linear down, N x L re-uploading blocks, PauliZ
+    readout, Linear up."""
+
+    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
+                 add_noise=0, device_type="lightning.qubit", seed: int = 0,
+                 noise_intensity=None, *, device="cpu"):
+        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
+                                       spectrum_layer, N, down="linear",
+                                       up="linear", add_noise=add_noise,
+                                       noise_intensity=noise_intensity,
+                                       seed=seed,
+                                       save="QIDDM_LL_noise={h}_L={L}_N={N}")
+        super().__init__(m, shape, name, device=device, **attrs)

@@ -1,0 +1,50 @@
+"""The reference's model surface on an ``nn.Module`` (counterpart of
+``qiddm_tpu/nn/shim.py``): construct with the reference's ctor arguments
+and a seed, call on images, ``save_name()``, ``num_params()``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+
+def _square_or_flat(input_dim: int) -> Tuple[int, int]:
+    side = int(math.isqrt(input_dim))
+    if side * side == input_dim:
+        return (side, side)
+    return (input_dim, 1)
+
+
+class DenoiserShim(torch.nn.Module):
+    """Holds the denoiser as ``self.module``, moved to ``device``.
+
+    Subclasses build the module on the CPU from a ``torch.Generator``
+    seeded with their ``seed``, so one seed gives the same weights on every
+    device.
+    """
+
+    def __init__(self, module: torch.nn.Module, img_shape: Tuple[int, int],
+                 *, save_name_str: str, device):
+        super().__init__()
+        self.module = module.to(device)
+        self.img_shape = tuple(img_shape)
+        self._save_name = save_name_str
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.module(x)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def save_name(self) -> str:
+        return self._save_name
+
+    def extra_repr(self) -> str:
+        return self._save_name

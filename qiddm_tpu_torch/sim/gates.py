@@ -1,0 +1,33 @@
+"""Parameterized gate matrices (counterpart of ``qiddm_tpu/sim/gates.py``).
+
+Conventions are the JAX package's: wire 0 is the most significant bit of the
+basis index, and ``Rot(phi, theta, omega) = RZ(omega) @ RY(theta) @ RZ(phi)``
+(the ZYZ decomposition of the entangling-layer template).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _unit(angle):
+    """``exp(1j * angle)`` for a real tensor."""
+    return torch.complex(torch.cos(angle), torch.sin(angle))
+
+
+def rot_matrix(phi, theta, omega):
+    """General single-qubit rotation ``Rot(phi, theta, omega)``.
+
+    Real tensors of any common leading shape -> (..., 2, 2) complex::
+
+        [[e^{-i(phi+omega)/2} cos(t/2), -e^{i(phi-omega)/2} sin(t/2)],
+         [e^{-i(phi-omega)/2} sin(t/2),  e^{i(phi+omega)/2} cos(t/2)]]
+    """
+    c = torch.cos(theta / 2)
+    s = torch.sin(theta / 2)
+    a = _unit(-0.5 * (phi + omega)) * c
+    b = -_unit(0.5 * (phi - omega)) * s
+    cc = _unit(-0.5 * (phi - omega)) * s
+    d = _unit(0.5 * (phi + omega)) * c
+    return torch.stack(
+        [torch.stack([a, b], dim=-1), torch.stack([cc, d], dim=-1)], dim=-2)

@@ -1,0 +1,100 @@
+"""QIDDM_LL_noise in qiddm_tpu_torch against the JAX shim, with the JAX
+weights carried across, and checkpoints shared between the two packages.
+
+On the CPU the JAX engine takes its per-layer-unitary route
+(qiddm_tpu/sim/engine.py:522-549) and the port its plain gate chain, so the
+forward pass compares two independent formulations. Tolerance: <= 1e-4 on
+the output images — 784 outputs of a 6 -> 784 linear over N=2 blocks of
+28 gate layers in float32.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from qiddm_tpu import ckpt as jckpt
+from qiddm_tpu import nn as jnn
+from qiddm_tpu_torch import ckpt as tckpt
+from qiddm_tpu_torch.nn import QIDDM_LL_noise
+
+TOL = 1e-4
+
+
+def _jax_tree(net):
+    return jax.tree_util.tree_map(np.asarray, net.variables)
+
+
+def _trees_equal(a, b):
+    return (jax.tree_util.tree_structure(a) == jax.tree_util.tree_structure(b)
+            and all(np.array_equal(x, y) for x, y in
+                    zip(jax.tree_util.tree_leaves(a),
+                        jax.tree_util.tree_leaves(b))))
+
+
+@pytest.mark.parametrize("args", [(784, 6, 14, 2), (64, 4, 3, 2)])
+def test_forward_matches_jax(args):
+    jnet = jnn.QIDDM_LL_noise(*args, seed=3)
+    tnet = QIDDM_LL_noise(*args, seed=5)
+    tckpt.load_jax_variables(tnet, _jax_tree(jnet))
+    side = int(np.sqrt(args[0]))
+    img = np.random.default_rng(0).uniform(
+        size=(5, 1, side, side)).astype(np.float32)
+    want = np.asarray(jnet(img))
+    with torch.no_grad():
+        got = tnet(torch.as_tensor(img)).numpy()
+    assert got.shape == want.shape == (5, 1, side, side)
+    np.testing.assert_allclose(got, want, atol=TOL)
+
+
+@pytest.mark.parametrize("args", [(784, 6, 14, 2), ("8 * 8", 4, 3, "2")])
+def test_save_name_and_param_count_match_jax(args):
+    jnet = jnn.QIDDM_LL_noise(*args)
+    tnet = QIDDM_LL_noise(*args)
+    assert tnet.save_name() == jnet.save_name()
+    assert tnet.num_params() == jnet.num_params()
+
+
+def test_seed_fixes_weights():
+    a = tckpt.export_jax_variables(QIDDM_LL_noise(64, 4, 3, 2, seed=1))
+    b = tckpt.export_jax_variables(QIDDM_LL_noise(64, 4, 3, 2, seed=1))
+    c = tckpt.export_jax_variables(QIDDM_LL_noise(64, 4, 3, 2, seed=2))
+    assert _trees_equal(a, b)
+    assert not _trees_equal(a, c)
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="item 8"):
+        QIDDM_LL_noise(64, 4, 3, 2, 1)
+
+
+def test_jax_checkpoint_round_trips_through_port(tmp_path):
+    jnet = jnn.QIDDM_LL_noise(784, 6, 14, 2, seed=7)
+    path = jckpt.save_checkpoint(tmp_path / "jax.pt", jnet.variables,
+                                 [0.5, 0.25], 4)
+    tnet = QIDDM_LL_noise(784, 6, 14, 2)
+    blob = tckpt.load_checkpoint(path)
+    assert blob["loss_values"] == [0.5, 0.25] and blob["epochs"] == 4
+    tckpt.load_jax_variables(tnet, blob["model_state_dict"])
+    back = tckpt.export_jax_variables(tnet)
+    assert _trees_equal(back, _jax_tree(jnet))
+    # and the port's file reads in the JAX package
+    out = tckpt.save_checkpoint(tmp_path / "torch.pt", back, [0.1], 1)
+    reread = jckpt.load_checkpoint(out)
+    assert reread["loss_values"] == [0.1] and reread["epochs"] == 1
+    assert _trees_equal(reread["model_state_dict"], _jax_tree(jnet))
+
+
+def test_load_rejects_unknown_missing_and_misshapen_keys():
+    tnet = QIDDM_LL_noise(64, 4, 3, 2)
+    good = tckpt.export_jax_variables(tnet)
+    extra = {"params": {**good["params"], "bn": {"scale": np.ones(4)}}}
+    with pytest.raises(ValueError, match="unknown"):
+        tckpt.load_jax_variables(tnet, extra)
+    missing = {"params": {k: v for k, v in good["params"].items()
+                          if k != "linear_up"}}
+    with pytest.raises(ValueError, match="missing"):
+        tckpt.load_jax_variables(tnet, missing)
+    bad = {"params": {**good["params"], "qweights": np.zeros((2, 3, 2, 5, 3))}}
+    with pytest.raises(ValueError, match="does not fit"):
+        tckpt.load_jax_variables(tnet, bad)
