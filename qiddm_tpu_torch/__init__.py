@@ -8,7 +8,8 @@ kernel, the port runs a CUDA kernel written for ``sm_90a``
 never imports JAX.
 
 What is ported so far is the ``QIDDM_LL_noise`` sampling path
-(``python -m qiddm_tpu_torch.cli.sample``); ROADMAP.md lists the rest.
+(``python -m qiddm_tpu_torch.cli.sample``) and its training path
+(``python -m qiddm_tpu_torch.cli.mnist_exm``); ROADMAP.md lists the rest.
 """
 
 from . import config  # noqa: F401

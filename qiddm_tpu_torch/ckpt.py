@@ -1,5 +1,5 @@
 """Checkpoints in the JAX package's layout (counterpart of
-``qiddm_tpu/ckpt.py:24-46``).
+``qiddm_tpu/ckpt.py:24-64, 368-404``).
 
 A checkpoint is a pickle of ``{"model_state_dict": <numpy tree of the flax
 variables>, "loss_values": [...], "epochs": int}`` under a ``.pt`` name, so
@@ -15,7 +15,7 @@ from __future__ import annotations
 import pathlib
 import pickle
 from collections.abc import Mapping
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,3 +108,45 @@ def export_jax_variables(net) -> Dict[str, Any]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(value.T if transpose else value)
     return tree
+
+
+_ORBAX = "the orbax checkpoint backend is ROADMAP Queue 1 item 10"
+
+
+def save_diffusion(diff, save_path, label, loss_values, epochs,
+                   backend: str = "pt"):
+    """Driver-level save (reference src/mnist_exm.py:189-201):
+    ``<save_path>/<save_name>_<label>.pt`` in the shared pickle layout."""
+    if backend != "pt":
+        raise NotImplementedError(f"backend={backend!r}: {_ORBAX}")
+    sp = pathlib.Path(save_path) / f"{diff.save_name()}_{label}.pt"
+    return save_checkpoint(sp, export_jax_variables(diff.net),
+                           [float(v) for v in loss_values], epochs)
+
+
+def load_diffusion(diff, load_path, label,
+                   backend: str = "auto") -> Tuple[List[float], int]:
+    """Driver-level load; returns (loss_values, start_epoch) and keeps the
+    fresh model when the file is missing (reference
+    src/mnist_exm.py:294-323). ``load_path`` is a directory, or a ``.pt``
+    file."""
+    if backend not in ("auto", "pt"):
+        raise NotImplementedError(f"backend={backend!r}: {_ORBAX}")
+    if str(load_path).endswith(".pt"):
+        lp = pathlib.Path(load_path)
+    else:
+        base = pathlib.Path(load_path)
+        op = base / f"{diff.save_name()}_{label}.orbax"
+        if op.exists():
+            raise NotImplementedError(f"{op} is an orbax checkpoint: "
+                                      f"{_ORBAX}")
+        lp = base / f"{diff.save_name()}_{label}.pt"
+    print(lp)
+    try:
+        ckpt = load_checkpoint(lp)
+    except FileNotFoundError:
+        print("Failed to load model: File not found.\n")
+        return [], 0
+    load_jax_variables(diff.net, ckpt["model_state_dict"])
+    print("Model loaded successfully.\n")
+    return ckpt.get("loss_values", []), ckpt.get("epochs", 0)

@@ -1,8 +1,13 @@
 """qiddm_tpu_torch.sim — batched statevector simulation in PyTorch, with the
-re-uploading gate chain as a hand-written CUDA kernel (``gate_kernel``)."""
+re-uploading gate chain and its adjoint backward as hand-written CUDA
+kernels (``gate_kernel``)."""
 
 from .engine import reupload_block  # noqa: F401
-from .gate_kernel import gate_chain_planes, gate_chain_planes_plain  # noqa: F401
+from .gate_kernel import (  # noqa: F401
+    gate_chain_bwd_plain,
+    gate_chain_planes,
+    gate_chain_planes_plain,
+)
 from .gates import rot_matrix  # noqa: F401
 from .sel import cz_ring_signs, sel_ranges, sel_unitaries  # noqa: F401
 from .statevector import (  # noqa: F401

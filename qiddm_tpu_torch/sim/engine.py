@@ -5,11 +5,11 @@ A block is L x [RZ encode -> SEL(k, CZ ring)] followed by a readout. Two
 routes, chosen from the batch size:
 
 * batch < 2**wires: the gate chain (``gate_kernel.gate_chain_planes``) on
-  (d, B) float32 planes — the CUDA kernel on the card, its plain version on
-  the CPU;
+  (d, B) float32 planes — the CUDA kernels on the card (forward, and the
+  adjoint backward under autograd), their plain versions on the CPU;
 * batch >= 2**wires: each block of k layers composed into one unitary and
   applied with complex matmuls, which pays once the batch exceeds the
-  state dimension.
+  state dimension; autograd differentiates it, as XLA does in JAX.
 
 Noise channels, trajectories, the mesh-sharded statevector, the RY encode,
 the CNOT ring and the wide routes beyond the kernel's width raise
