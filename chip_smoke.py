@@ -11,34 +11,51 @@ caught:
 
 1. device: a CUDA device must be present; prints torch, CUDA, the card and
    its power limit (nvidia-smi);
-2. build: compiles qiddm_tpu_torch/csrc/gate_chain.cu (both kernels) with
-   nvcc (sm_90a) into build/qiddm_tpu_torch/ and loads it;
-3. forward kernel against plain: the gate-chain kernel against its plain
-   PyTorch version on the card, at w in {1, 4, 6, 8, 10} x B in {1, 16, 80}
-   (L*k = 28, k = 2) and (w=6, B=16, L*k=42, k=3), max |diff| <= 1e-5;
-4. backward kernel against plain: the adjoint kernel against its plain
+2. build: compiles qiddm_tpu_torch/csrc/*.cu (all four kernels; one nvcc
+   per source, started together, then one link) for sm_90a into
+   build/qiddm_tpu_torch/ and loads the library;
+3. gate-chain forward kernel against plain: kernel #1 against its plain
+   PyTorch version on the card, at w in {1, 4, 6, 8, 10} x B in
+   {1, 16, 80} (L*k = 28, k = 2) and (w=6, B=16, L*k=42, k=3),
+   max |diff| <= 1e-5;
+4. gate-chain backward kernel against plain: kernel #2 against its plain
    version at the same shapes with N(0, 1) cotangents, dpr, dpi and dg each
    within 1e-5 * max(1, max|plain|); at one shape also dg against torch
    autograd through the plain forward;
-5. the sampling slice: QIDDM_LL_noise(784, 6, 14, 2) with seeded random
-   weights, saved as a checkpoint and sampled through
-   qiddm_tpu_torch.cli.sample (16 images x 15 iterations x 3 batches on
-   cuda): 48 finite 28x28 images, at least 90 forward launches, and the
-   last batch within 1e-4 of the same weights and start images run on the
-   CPU plain path;
-6. the training slice: a seeded mnist_28.npz (500 images, 50 per label) in
-   a temporary data directory, then qiddm_tpu_torch.cli.mnist_exm with
-   --model QIDDM_LL_noise 784 6 14 2 --epochs 2 --checkpoint-every 1
+5. SEL-chain forward kernel against plain: kernel #5 at w in
+   {1, 2, 4, 6, 8, 10} x B in {1, 10, 16, 80} x ring in {cz, cnot}, depth
+   14, and (w=6, B=16, depth 60, cnot), from random normalized start
+   states, max |diff| <= 1e-5;
+6. SEL-chain backward kernel against plain: kernel #6 at the same shapes
+   with N(0, 1) cotangents, dsr, dsi and dg each within
+   1e-5 * max(1, max|plain|); at one shape per ring also against torch
+   autograd through the plain forward;
+7. sampling: QIDDM_LL_noise(784, 6, 14, 2), QNN_noise(784, 8, 14) and
+   QDenseUndirected_old_noise(60, 8) with seeded random weights, each saved
+   as a checkpoint and sampled through qiddm_tpu_torch.cli.sample (16
+   images x 15 iterations x 3 batches on cuda): finite images, at least 90
+   gate-chain launches (QIDDM, two blocks) or 45 SEL-chain launches
+   (QNN, Qdense), and the last batch within 1e-4 of the same weights and
+   start images run on the CPU plain path;
+8. training: a seeded mnist_28.npz (500 images, 50 per label) in a
+   temporary data directory, then qiddm_tpu_torch.cli.mnist_exm with no
+   --model, so both default models, QIDDM_LL_noise 784 6 14 2 and
+   QNN_noise 784 8 14, train in turn, with --epochs 2 --checkpoint-every 1
    --device cuda and mnist_exm's defaults otherwise (batch 1, tau 10,
-   label 4): finite epoch losses, at least 2 forward and 2 backward
-   launches per step, and a checkpoint that the sampling CLI serves; then
-   3 training steps on the card from seeded weights, each step's loss and
-   gradients within 1e-4 (relative) of the CPU plain path at the same
-   weights, batch and noise;
-7. times: median of 20 runs of each kernel and of its plain version (the
-   forward at w=6, B=16, L*k=28; the backward at B=10 and B=16), the
-   sampling slice's steady images/s and the training slice's images/s in
-   its second epoch.
+   label 4): finite epoch losses for both, at least 2 forward and 2
+   backward gate-chain launches per QIDDM step and 1 forward and 1
+   backward SEL-chain launch per QNN step, and both checkpoints served by
+   the sampling CLI; then, for each model, 3 training steps on the card
+   from seeded weights, each step's loss and gradients within 1e-4 of the
+   CPU plain path at the same weights, batch and noise (gradients relative
+   to their own max norm, or to the model's largest where a gradient is
+   zero up to rounding, as QNN's linear_down);
+9. times: median of 20 runs of each kernel and of its plain version (the
+   gate-chain forward at w=6, B=16, L*k=28 and its backward at B=10 and
+   B=16; the SEL chain forward and backward at w=8, depth 14, B=10 and 16,
+   CZ, and at w=6, depth 60, B=10, CNOT), the sampling images/s of each
+   model and the training images/s of both default models in their second
+   epoch.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -63,28 +80,48 @@ import torch
 from qiddm_tpu_torch.ckpt import (export_jax_variables, load_checkpoint,
                                   load_jax_variables, save_checkpoint)
 from qiddm_tpu_torch import data as data_mod
+from qiddm_tpu_torch.cli import common
 from qiddm_tpu_torch.cli import mnist_exm
 from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
-from qiddm_tpu_torch.nn import QIDDM_LL_noise
-from qiddm_tpu_torch.sim import gate_kernel
+from qiddm_tpu_torch.sim import gate_kernel, sel_kernel
 from qiddm_tpu_torch.sim.gates import rot_matrix
 
 SEED = 0
-KERNEL_TOL = 1e-5   # unit-norm f32 states over up to 42 layers
+KERNEL_TOL = 1e-5   # unit-norm f32 states over up to 60 layers
 BWD_TOL = 1e-5      # relative to max(1, max|plain|): dg sums over rows and B
-SAMPLE_TOL = 1e-4   # 15 iterations of a 6 -> 784 linear over the chain
+SAMPLE_TOL = 1e-4   # 15 iterations of a linear or pixel scaling over a chain
 TRAIN_TOL = 1e-4    # relative; one float32 step's loss and gradients
+GRAD_FLOOR = 1e-6   # below this share of the largest, a gradient is ~zero
 MODEL = ["QIDDM_LL_noise", "784", "6", "14", "2"]
+QNN_MODEL = ["QNN_noise", "784", "8", "14"]
+QDENSE_MODEL = ["QDenseUndirected_old_noise", "60", "8"]
+# (model, image side, launch counter, launches per denoise iteration)
+SAMPLED = [(MODEL, 28, "gate", 2), (QNN_MODEL, 28, "sel", 1),
+           (QDENSE_MODEL, 8, "sel", 1)]
 N, ITERS, BATCHES = 16, 15, 3
-EPOCHS, TAU, LR, LABEL = 2, 10, 0.0255, 4  # mnist_exm's defaults but epochs
+EPOCHS, TAU, LABEL = 2, 10, 4  # mnist_exm's defaults but epochs
 CASES = ([(w, b, 28, 2) for w in (1, 4, 6, 8, 10) for b in (1, 16, 80)]
          + [(6, 16, 42, 3)])
+SEL_CASES = ([(w, b, 14, ring) for w in (1, 2, 4, 6, 8, 10)
+              for b in (1, 10, 16, 80) for ring in ("cz", "cnot")]
+             + [(6, 16, 60, "cnot")])
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def reset_counts() -> None:
+    gate_kernel.LAUNCHES = gate_kernel.BWD_LAUNCHES = 0
+    sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {"gate": gate_kernel.LAUNCHES, "gate_bwd": gate_kernel.BWD_LAUNCHES,
+            "sel": sel_kernel.SEL_LAUNCHES,
+            "sel_bwd": sel_kernel.SEL_BWD_LAUNCHES}
 
 
 def chain_inputs(rng, wires: int, batch: int, n_layers: int, device):
@@ -195,51 +232,136 @@ def phase_bwd_vs_plain(dev) -> float:
     return worst
 
 
-def phase_slice(tmp: pathlib.Path) -> tuple[int, float]:
-    net = QIDDM_LL_noise(*MODEL[1:], seed=SEED, device="cuda")
+def sel_inputs(rng, wires: int, batch: int, depth: int, dev):
+    """Random normalized start-state planes (d, B) and per-wire rotations
+    for one SEL-chain call: (sr, si, mats)."""
+    st = rng.normal(size=(2, 2**wires, batch))
+    st /= np.sqrt((st ** 2).sum(axis=(0, 1), keepdims=True))
+    ang = torch.as_tensor(rng.normal(size=(depth, wires, 3)),
+                          dtype=torch.float32, device=dev)
+    sr, si = (torch.as_tensor(p, dtype=torch.float32, device=dev)
+              for p in st)
+    return sr, si, rot_matrix(ang[..., 0], ang[..., 1], ang[..., 2])
+
+
+def sel_bwd_inputs(rng, wires: int, batch: int, depth: int, ring: str, dev):
+    """Gates, forward output and N(0, 1) cotangents for one SEL backward
+    call, (g8, fr, fi, gr, gi), and the start planes (sr, si)."""
+    sr, si, mats = sel_inputs(rng, wires, batch, depth, dev)
+    g8 = gate_kernel._to_g8(mats)
+    fr, fi = sel_kernel._sel_plain(sr, si, g8, wires, ring)
+    gr, gi = (torch.as_tensor(rng.normal(size=(2**wires, batch)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    return (g8, fr, fi, gr, gi), (sr, si)
+
+
+def phase_sel_vs_plain(dev) -> float:
+    rng = np.random.default_rng(SEED + 3)
+    worst = 0.0
+    for w, b, depth, ring in SEL_CASES:
+        sr, si, mats = sel_inputs(rng, w, b, depth, dev)
+        kr, ki = sel_kernel.sel_chain_planes(sr, si, mats, w, ring)
+        qr, qi = sel_kernel.sel_chain_planes_plain(sr, si, mats, w, ring)
+        torch.cuda.synchronize()
+        err = max((kr - qr).abs().max().item(), (ki - qi).abs().max().item())
+        worst = max(worst, err)
+        print(f"SEL kernel vs plain w={w} B={b} depth={depth} {ring}: "
+              f"max|diff| {err:.3e}")
+        if not err <= KERNEL_TOL:
+            fail(f"SEL kernel disagrees with plain at w={w} B={b} "
+                 f"depth={depth} {ring}: {err:.3e} > {KERNEL_TOL}")
+    return worst
+
+
+def phase_sel_bwd_vs_plain(dev) -> float:
+    """Returns the worst max |kernel - plain| over the shapes."""
+    rng = np.random.default_rng(SEED + 4)
+    worst = 0.0
+    for w, b, depth, ring in SEL_CASES:
+        args, _ = sel_bwd_inputs(rng, w, b, depth, ring, dev)
+        with torch.no_grad():
+            got = sel_kernel._sel_chain_bwd_cuda(*args, w, ring)
+            want = sel_kernel.sel_chain_bwd_plain(*args, w, ring)
+        torch.cuda.synchronize()
+        errs = [_rel(g, p) for g, p in zip(got, want)]
+        worst = max(worst, *((g - p).abs().max().item()
+                             for g, p in zip(got, want)))
+        print(f"SEL backward kernel vs plain w={w} B={b} depth={depth} "
+              f"{ring}: dsr, dsi, dg max|diff| / max(1, max|plain|) "
+              + ", ".join(f"{e:.3e}" for e in errs))
+        if not max(errs) <= BWD_TOL:
+            fail(f"SEL backward kernel disagrees with plain at w={w} B={b} "
+                 f"depth={depth} {ring}: {max(errs):.3e} > {BWD_TOL}")
+    # a third formulation: autograd through the plain forward
+    for ring in ("cz", "cnot"):
+        (g8, _, _, gr, gi), (sr, si) = sel_bwd_inputs(rng, 8, 10, 14, ring,
+                                                      dev)
+        leaves = [t.clone().requires_grad_(True) for t in (sr, si, g8)]
+        out_r, out_i = sel_kernel._sel_plain(*leaves, 8, ring)
+        (out_r * gr + out_i * gi).sum().backward()
+        with torch.no_grad():
+            fr, fi = sel_kernel._sel_chain_cuda(sr, si, g8, 8, ring)
+            got = sel_kernel._sel_chain_bwd_cuda(g8, fr, fi, gr, gi, 8, ring)
+        err = max(_rel(g, leaf.grad) for g, leaf in zip(got, leaves))
+        print(f"SEL backward kernel vs autograd of the plain forward w=8 "
+              f"B=10 depth=14 {ring}: {err:.3e}")
+        if not err <= BWD_TOL:
+            fail(f"SEL backward kernel disagrees with autograd ({ring}): "
+                 f"{err:.3e} > {BWD_TOL}")
+    return worst
+
+
+def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
+                 per_iter: int) -> tuple[dict, float]:
+    """Sample ``margs`` through the sampling CLI on cuda; returns the launch
+    counts of the run and the steady images/s."""
+    net = common.build_model(margs, seed=SEED, device="cuda")
     ckpt = save_checkpoint(tmp / f"{net.save_name()}.pt",
                            export_jax_variables(net), [], 0)
-    out = tmp / "samples"
-    argv = ["--ckpt", str(ckpt), "--model", *MODEL, "--img_size", "28",
+    out = tmp / f"samples_{margs[0]}"
+    argv = ["--ckpt", str(ckpt), "--model", *margs, "--img_size", str(side),
             "--n", str(N), "--iters", str(ITERS), "--batches", str(BATCHES),
             "--device", "cuda", "--format", "npz", "--seed", str(SEED),
             "--out", str(out)]
     printed = io.StringIO()
-    gate_kernel.LAUNCHES = 0
+    reset_counts()
     with contextlib.redirect_stdout(printed):
         imgs = sample_cli.main(argv)
-    launches = gate_kernel.LAUNCHES
+    counts = read_counts()
     print(printed.getvalue().strip())
-    print(f"slice: {launches} gate-chain kernel launches")
-    if imgs.shape != (N * BATCHES, 1, 28, 28):
-        fail(f"samples have shape {imgs.shape}")
+    print(f"sample {margs[0]}: launches {counts}")
+    if imgs.shape != (N * BATCHES, 1, side, side):
+        fail(f"{margs[0]} samples have shape {imgs.shape}")
     if not np.isfinite(imgs).all():
-        fail("samples are not finite")
+        fail(f"{margs[0]} samples are not finite")
     saved = np.load(out / "samples.npz")["images"]
     if not np.array_equal(saved, imgs):
         fail("samples.npz does not hold the returned images")
-    if launches < 2 * ITERS * BATCHES:
-        fail(f"{launches} kernel launches < {2 * ITERS * BATCHES}: the "
-             f"sampling path did not run the kernel")
+    want = per_iter * ITERS * BATCHES
+    if counts[counter] < want:
+        fail(f"{margs[0]}: {counts[counter]} {counter} kernel launches < "
+             f"{want}: the sampling path did not run the kernel")
 
     # the same weights and start images on the CPU plain path
-    cpu_net = QIDDM_LL_noise(*MODEL[1:], seed=SEED, device="cpu")
+    cpu_net = common.build_model(margs, seed=SEED, device="cpu")
     load_jax_variables(cpu_net, load_checkpoint(ckpt)["model_state_dict"])
     gen = torch.Generator().manual_seed(SEED)
     for _ in range(BATCHES):
-        first_x = torch.rand((N, 1, 28, 28), generator=gen) * 0.75 + 0.5
-    ref = Diffusion(cpu_net, prediction_goal="data", shape=(28, 28)).sample(
+        first_x = torch.rand((N, 1, side, side), generator=gen) * 0.75 + 0.5
+    ref = Diffusion(cpu_net, prediction_goal="data",
+                    shape=(side, side)).sample(
         n_iters=ITERS, first_x=first_x, only_last=True).numpy()
     err = float(np.abs(ref - imgs[-N:]).max())
-    print(f"slice: last batch against the CPU plain path max|diff| "
-          f"{err:.3e}")
+    print(f"sample {margs[0]}: last batch against the CPU plain path "
+          f"max|diff| {err:.3e}")
     if not err <= SAMPLE_TOL:
-        fail(f"cuda samples differ from the CPU plain path: {err:.3e} > "
-             f"{SAMPLE_TOL}")
+        fail(f"{margs[0]} cuda samples differ from the CPU plain path: "
+             f"{err:.3e} > {SAMPLE_TOL}")
     m = re.search(r"steady ([0-9.]+) images/s", printed.getvalue())
     if m is None:
         fail("the sampler printed no steady images/s")
-    return launches, float(m.group(1))
+    return counts, float(m.group(1))
 
 
 def write_dataset(data_dir: pathlib.Path) -> int:
@@ -255,51 +377,83 @@ def write_dataset(data_dir: pathlib.Path) -> int:
     return int((y == LABEL).sum() * 0.8)
 
 
-def phase_train(tmp: pathlib.Path) -> tuple[int, int, float]:
+def phase_train(tmp: pathlib.Path) -> tuple[dict, dict]:
+    """mnist_exm with its default model list; returns the launch counts
+    and each model's training images/s in its second epoch."""
     n_train = write_dataset(tmp / "data")
-    argv = ["--model", *MODEL, "--epochs", str(EPOCHS), "--checkpoint-every",
-            "1", "--device", "cuda", "--save-path", f"{tmp}/",
-            "--load-path", f"{tmp}/"]
+    argv = ["--epochs", str(EPOCHS), "--checkpoint-every", "1", "--device",
+            "cuda", "--save-path", f"{tmp}/", "--load-path", f"{tmp}/"]
     printed = io.StringIO()
-    gate_kernel.LAUNCHES = gate_kernel.BWD_LAUNCHES = 0
+    reset_counts()
     with contextlib.redirect_stdout(printed), contextlib.chdir(tmp):
         results = mnist_exm.main(argv)
-    fwd, bwd = gate_kernel.LAUNCHES, gate_kernel.BWD_LAUNCHES
+    counts = read_counts()
     print(printed.getvalue().strip())
     steps = EPOCHS * n_train
-    print(f"train: {steps} steps, {fwd} forward and {bwd} backward "
-          f"gate-chain kernel launches")
-    losses = results[MODEL[0]]["loss"][0]
-    print(f"train: epoch losses {losses}")
-    if len(losses) != EPOCHS or not all(math.isfinite(v) for v in losses):
-        fail(f"epoch losses {losses} are not {EPOCHS} finite values")
-    if fwd < 2 * steps or bwd < 2 * steps:
-        fail(f"{fwd} forward / {bwd} backward launches < {2 * steps}: the "
-             f"training path did not run the kernels")
-    ckpt = tmp / f"{LABEL}/noise_0/QIDDM_LL_noise=6_L=14_N=2_{LABEL}.pt"
-    if not ckpt.exists():
-        fail(f"no checkpoint at {ckpt}")
-    with contextlib.redirect_stdout(io.StringIO()):
-        imgs = sample_cli.main(["--ckpt", str(ckpt), "--model", *MODEL,
-                                "--n", "4", "--iters", "3", "--device",
-                                "cuda", "--out", str(tmp / "served")])
-    if imgs.shape != (4, 1, 28, 28) or not np.isfinite(imgs).all():
-        fail("the trained checkpoint did not serve 4 finite images")
+    print(f"train: {steps} steps per model, launches {counts}")
+    names = [MODEL[0], QNN_MODEL[0]]
+    if sorted(results) != sorted(names):
+        fail(f"mnist_exm trained {sorted(results)}, not the default models "
+             f"{names}")
+    for name in names:
+        losses = results[name]["loss"][0]
+        print(f"train: {name} epoch losses {losses}")
+        if len(losses) != EPOCHS or not all(math.isfinite(v) for v in losses):
+            fail(f"{name} epoch losses {losses} are not {EPOCHS} finite "
+                 f"values")
+    if counts["gate"] < 2 * steps or counts["gate_bwd"] < 2 * steps:
+        fail(f"{counts}: fewer than {2 * steps} gate-chain launches each "
+             f"way: QIDDM_LL_noise did not train through the kernels")
+    if counts["sel"] < steps or counts["sel_bwd"] < steps:
+        fail(f"{counts}: fewer than {steps} SEL-chain launches each way: "
+             f"QNN_noise did not train through the kernels")
+    ckpts = {MODEL[0]: "QIDDM_LL_noise=6_L=14_N=2",
+             QNN_MODEL[0]: "QNN_linear_features=8_qdepth=14_add_noise=0"}
+    for margs in (MODEL, QNN_MODEL):
+        ckpt = tmp / f"{LABEL}/noise_0/{ckpts[margs[0]]}_{LABEL}.pt"
+        if not ckpt.exists():
+            fail(f"no checkpoint at {ckpt}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            imgs = sample_cli.main(["--ckpt", str(ckpt), "--model", *margs,
+                                    "--n", "4", "--iters", "3", "--device",
+                                    "cuda", "--out", str(tmp / "served")])
+        if imgs.shape != (4, 1, 28, 28) or not np.isfinite(imgs).all():
+            fail(f"the trained {margs[0]} checkpoint did not serve 4 finite "
+                 f"images")
     walls = re.findall(r"trained 1 epochs in ([0-9.]+)s", printed.getvalue())
-    if len(walls) != EPOCHS:
-        fail(f"mnist_exm printed {len(walls)} epoch times, not {EPOCHS}")
-    return fwd, bwd, n_train / float(walls[-1])
+    if len(walls) != 2 * EPOCHS:
+        fail(f"mnist_exm printed {len(walls)} epoch times, not {2 * EPOCHS}")
+    # the models train in turn: QIDDM's epochs, then QNN's
+    rates = {name: n_train / float(walls[(i + 1) * EPOCHS - 1])
+             for i, name in enumerate(names)}
+    return counts, rates
 
 
 def _grads(net) -> dict:
     return {n: p.grad.detach().cpu().clone() for n, p in net.named_parameters()}
 
 
-def phase_train_parity(tmp: pathlib.Path) -> None:
-    """Three Adam steps of the slice's model on the card, one image per
-    step, from seeded weights and noise. Before each step the CPU plain
-    path takes the card's current weights and evaluates the same batch
-    with the same noise; the loss and every gradient must agree.
+def _grad_err(got: dict, want: dict) -> float:
+    """Max over parameters of |got - want|, relative to the parameter's
+    own max norm, or to the model's largest gradient norm where the
+    parameter's is below GRAD_FLOOR of it. QNN's linear_down gradient is
+    zero up to rounding on both devices (its circuit RZ-encodes |0...0>,
+    so the input is a global phase): relative to its own ~1e-9 norm the
+    rounding would read as a disagreement."""
+    top = max(g.abs().max().item() for g in want.values())
+    errs = []
+    for n, w in want.items():
+        scale = w.abs().max().item()
+        errs.append((got[n] - w).abs().max().item()
+                    / (scale if scale >= GRAD_FLOOR * top else top))
+    return max(errs)
+
+
+def phase_train_parity(tmp: pathlib.Path, margs: list) -> None:
+    """Three Adam steps of ``margs`` on the card, one image per step, from
+    seeded weights and noise. Before each step the CPU plain path takes the
+    card's current weights and evaluates the same batch with the same
+    noise; the loss and every gradient must agree.
 
     Two independent trajectories are not compared: Adam's first steps
     move each weight by about lr * sign(g), so a gradient entry within
@@ -307,12 +461,13 @@ def phase_train_parity(tmp: pathlib.Path) -> None:
     z = np.load(tmp / "data" / "mnist_28.npz")
     x = torch.as_tensor(z["x"][z["y"] == LABEL][:3] / 255.0,
                         dtype=torch.float32).reshape(3, -1)
-    nets = {d: QIDDM_LL_noise(*MODEL[1:], seed=SEED, device=d)
+    nets = {d: common.build_model(margs, seed=SEED, device=d)
             for d in ("cuda", "cpu")}
     diffs = {d: Diffusion(net).train() for d, net in nets.items()}
     gens = {d: torch.Generator().manual_seed(SEED) for d in nets}
+    lr = common.DEFAULT_LRS[margs[0]]
     step = diffs["cuda"].make_train_step(
-        torch.optim.Adam(diffs["cuda"].parameters(), lr=LR), TAU)
+        torch.optim.Adam(diffs["cuda"].parameters(), lr=lr), TAU)
     loss_err = grad_err = 0.0
     for i in range(3):
         nets["cpu"].load_state_dict(nets["cuda"].state_dict())
@@ -320,19 +475,19 @@ def phase_train_parity(tmp: pathlib.Path) -> None:
         want, _ = diffs["cpu"].loss_fn(x[i:i + 1], TAU, generator=gens["cpu"])
         want.backward()
         got = step(x[i:i + 1].to("cuda"), gens["cuda"]).item()
-        got_g, want_g = _grads(nets["cuda"]), _grads(nets["cpu"])
         loss_err = max(loss_err, abs(got - want.item()) / abs(want.item()))
-        grad_err = max(grad_err, *(((got_g[n] - want_g[n]).abs().max()
-                                    / want_g[n].abs().max()).item()
-                                   for n in want_g))
-        print(f"train: step {i + 1} loss on cuda {got:.8f}, on the CPU "
-              f"plain path {want.item():.8f}")
-    print(f"train: 3 steps, cuda against the CPU plain path at the same "
-          f"weights: losses max relative {loss_err:.3e}; gradients max "
-          f"relative (max norm, per parameter) {grad_err:.3e}")
+        grad_err = max(grad_err, _grad_err(_grads(nets["cuda"]),
+                                           _grads(nets["cpu"])))
+        print(f"train {margs[0]}: step {i + 1} loss on cuda {got:.8f}, on "
+              f"the CPU plain path {want.item():.8f}")
+    print(f"train {margs[0]}: 3 steps, cuda against the CPU plain path at "
+          f"the same weights: losses max relative {loss_err:.3e}; gradients "
+          f"max relative (max norm, per parameter; floored at "
+          f"{GRAD_FLOOR} of the largest) {grad_err:.3e}")
     if not (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL):
-        fail(f"training on cuda differs from the CPU plain path: losses "
-             f"{loss_err:.3e}, gradients {grad_err:.3e} > {TRAIN_TOL}")
+        fail(f"training {margs[0]} on cuda differs from the CPU plain path: "
+             f"losses {loss_err:.3e}, gradients {grad_err:.3e} > "
+             f"{TRAIN_TOL}")
 
 
 def _median_ms(fn, runs: int = 20) -> float:
@@ -361,6 +516,9 @@ def _paired_ms(kernel, plain) -> tuple[float, float]:
     return kernel_ms, plain_ms
 
 
+_HOW = "median of 20, better of two rounds, plain-kernel-kernel-plain"
+
+
 def phase_times(dev, smi: str) -> dict:
     rng = np.random.default_rng(SEED + 1)
     w, b, n_layers, k = 6, 16, 28, 2
@@ -372,7 +530,7 @@ def phase_times(dev, smi: str) -> dict:
         lambda: gate_kernel.gate_chain_planes_plain(pr, pi, mats, k, w))}
     print(f"times at w={w} B={b} L*k={n_layers} ({smi}): forward kernel "
           f"{times['fwd'][0]:.4f} ms, plain {times['fwd'][1]:.4f} ms "
-          f"(median of 20, better of two rounds, plain-kernel-kernel-plain)")
+          f"({_HOW})")
     for b in (10, 16):
         args = bwd_inputs(rng, w, b, n_layers, k, dev)
         times[f"bwd{b}"] = _paired_ms(
@@ -380,37 +538,68 @@ def phase_times(dev, smi: str) -> dict:
             lambda: gate_kernel.gate_chain_bwd_plain(*args, k, w))
         print(f"times at w={w} B={b} L*k={n_layers} ({smi}): backward "
               f"kernel {times[f'bwd{b}'][0]:.4f} ms, plain "
-              f"{times[f'bwd{b}'][1]:.4f} ms (median of 20, better of two "
-              f"rounds, plain-kernel-kernel-plain)")
+              f"{times[f'bwd{b}'][1]:.4f} ms ({_HOW})")
+    for w, depth, b, ring in ((8, 14, 10, "cz"), (8, 14, 16, "cz"),
+                              (6, 60, 10, "cnot")):
+        (g8, fr, fi, gr, gi), (sr, si) = sel_bwd_inputs(rng, w, b, depth,
+                                                        ring, dev)
+        key = f"{w}_{depth}_{b}_{ring}"
+        times[f"sel_fwd{key}"] = _paired_ms(
+            lambda: sel_kernel._sel_chain_cuda(sr, si, g8, w, ring),
+            lambda: sel_kernel._sel_plain(sr, si, g8, w, ring))
+        times[f"sel_bwd{key}"] = _paired_ms(
+            lambda: sel_kernel._sel_chain_bwd_cuda(g8, fr, fi, gr, gi, w,
+                                                   ring),
+            lambda: sel_kernel.sel_chain_bwd_plain(g8, fr, fi, gr, gi, w,
+                                                   ring))
+        for way in ("fwd", "bwd"):
+            kern, plain = times[f"sel_{way}{key}"]
+            print(f"times SEL {way} at w={w} depth={depth} B={b} {ring} "
+                  f"({smi}): kernel {kern:.4f} ms, plain {plain:.4f} ms "
+                  f"({_HOW})")
     return times
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     kind, smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     with torch.no_grad():
         max_err = phase_kernel_vs_plain(dev)
     bwd_err = phase_bwd_vs_plain(dev)
+    with torch.no_grad():
+        sel_err = phase_sel_vs_plain(dev)
+    sel_bwd_err = phase_sel_bwd_vs_plain(dev)
     with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        sampled, rates = {}, {}
         with torch.no_grad():
-            sample_launches, rate = phase_slice(pathlib.Path(tmp))
-        fwd, bwd, train_rate = phase_train(pathlib.Path(tmp))
-        phase_train_parity(pathlib.Path(tmp))
+            for margs, side, counter, per_iter in SAMPLED:
+                sampled[margs[0]], rates[margs[0]] = phase_sample(
+                    tmp, margs, side, counter, per_iter)
+        trained, train_rates = phase_train(tmp)
+        for margs in (MODEL, QNN_MODEL):
+            phase_train_parity(tmp, margs)
     with torch.no_grad():
         times = phase_times(dev, smi)
-    print(f"slice: steady sampling {rate:.1f} images/s "
-          f"({N} images x {ITERS} iterations per batch; {smi})")
-    print(f"train: {train_rate:.1f} training images/s in epoch 2 "
-          f"(batch 1, tau {TAU}; {smi})")
-    print(f"launches: forward {sample_launches} (sampling) + {fwd} "
-          f"(training), backward {bwd} (training)")
+    for name, rate in rates.items():
+        print(f"sample {name}: steady sampling {rate:.1f} images/s ({N} "
+              f"images x {ITERS} iterations per batch; {smi})")
+    for name, rate in train_rates.items():
+        print(f"train {name}: {rate:.1f} training images/s in epoch 2 "
+              f"(batch 1, tau {TAU}; {smi})")
+    launches = {c: sum(s[c] for s in sampled.values()) + trained[c]
+                for c in trained}
+    print(f"launches: sampling {sampled}, training {trained}")
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
+    qnn_key = "8_14_10_cz"
     print(json.dumps({"kernels": [{
         "name": "gate_chain_fwd",
         "route": "cuda",
         "source": "qiddm_tpu_torch/csrc/gate_chain.cu",
         "replaces": "qiddm_tpu/sim/pallas_gate_kernel.py:130",
-        "launches": sample_launches + fwd,
+        "launches": launches["gate"],
         "max_abs_err": max_err,
         "ms": times["fwd"][0],
         "plain_ms": times["fwd"][1],
@@ -419,10 +608,28 @@ def main() -> None:
         "route": "cuda",
         "source": "qiddm_tpu_torch/csrc/gate_chain.cu",
         "replaces": "qiddm_tpu/sim/pallas_gate_kernel.py:197",
-        "launches": bwd,
+        "launches": launches["gate_bwd"],
         "max_abs_err": bwd_err,
         "ms": times["bwd10"][0],
         "plain_ms": times["bwd10"][1],
+    }, {
+        "name": "sel_chain_fwd",
+        "route": "cuda",
+        "source": "qiddm_tpu_torch/csrc/sel_chain.cu",
+        "replaces": "qiddm_tpu/sim/pallas_gate_kernel.py:365",
+        "launches": launches["sel"],
+        "max_abs_err": sel_err,
+        "ms": times[f"sel_fwd{qnn_key}"][0],
+        "plain_ms": times[f"sel_fwd{qnn_key}"][1],
+    }, {
+        "name": "sel_chain_bwd",
+        "route": "cuda",
+        "source": "qiddm_tpu_torch/csrc/sel_chain.cu",
+        "replaces": "qiddm_tpu/sim/pallas_gate_kernel.py:384",
+        "launches": launches["sel_bwd"],
+        "max_abs_err": sel_bwd_err,
+        "ms": times[f"sel_bwd{qnn_key}"][0],
+        "plain_ms": times[f"sel_bwd{qnn_key}"][1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

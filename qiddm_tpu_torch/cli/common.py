@@ -128,7 +128,8 @@ def build_parser(description: str, *, default_models, default_data: str,
 
 def validate_args(args) -> None:
     """Fail fast, before any data or device work: unported flags, unknown
-    or unported models and datasets, and ``--device cuda`` on a host
+    or unported models (each is built once on the CPU, so an unported
+    option raises here) and datasets, and ``--device cuda`` on a host
     without CUDA."""
     unported = {
         "--vmap-labels": (args.vmap_labels, "ROADMAP Queue 1 item 11"),
@@ -149,6 +150,11 @@ def validate_args(args) -> None:
             raise SystemExit(f"model {m[0]!r} is not ported to "
                              f"qiddm_tpu_torch yet (ROADMAP Queue 1); "
                              f"ported: " + ", ".join(sorted(MODEL_REGISTRY)))
+        try:  # a ported name with an unported option (e.g. add_noise)
+            build_model(m)
+        except NotImplementedError as err:
+            raise SystemExit(f"model {' '.join(map(str, m))} is not ported "
+                             f"to qiddm_tpu_torch yet: {err}") from err
     if args.data not in DATA_REGISTRY:
         raise SystemExit(f"dataset {args.data!r} is not ported to "
                          f"qiddm_tpu_torch yet ({_NOT_PORTED}); ported: "

@@ -1,12 +1,13 @@
 """MNIST experiment driver (counterpart of ``qiddm_tpu/cli/mnist_exm.py``,
 reference src/mnist_exm.py).
 
-    python -m qiddm_tpu_torch.cli.mnist_exm \\
-        --model QIDDM_LL_noise 784 6 14 2 --device cuda
+    python -m qiddm_tpu_torch.cli.mnist_exm --device cuda
 
 Same flags and defaults as the JAX driver; trains label 4 like the
-reference main (src/mnist_exm.py:354). The default model list names
-``QNN_noise``, which is not ported, so pass ``--model``.
+reference main (src/mnist_exm.py:354). Without ``--model`` it trains both
+default models in turn, ``QIDDM_LL_noise 784 6 14 2`` and ``QNN_noise 784
+8 14``, each at its own default learning rate and into its own checkpoint;
+``--model NAME ARGS...`` (repeatable) replaces the list.
 """
 
 from __future__ import annotations

@@ -15,6 +15,9 @@
 // Inputs and outputs keep the JAX entry's (d, B) float32 plane layout,
 // d = 2^w, so the kernel and its plain PyTorch version take the same tensors.
 //
+// The gate update, the adjoint step with its dg reduction and the batch sum
+// of dg are shared with sel_chain.cu through chain_common.cuh.
+//
 // Forward design. One thread block per sample with max(d/2, 32) threads; the
 // sample's state (2 x d floats, 8 KB at w=10), its phase column, the k sign
 // planes and all n_layers*w*8 gate scalars sit in shared memory for the
@@ -53,7 +56,7 @@
 // between. dg sums over rows and over the batch: a warp-shuffle reduction,
 // then one across warps through shared memory (double-buffered by gate
 // parity, so one barrier per gate suffices), gives each block's partial
-// dg[b] in a (B, L*k, w, 8) workspace; gate_chain_dg_sum_kernel then sums
+// dg[b] in a (B, L*k, w, 8) workspace; dg_batch_sum_kernel then sums
 // it over b in a fixed order. No atomics: a seeded run gives the same bits
 // every time.
 //
@@ -69,6 +72,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "chain_common.cuh"
 
 namespace {
 
@@ -113,19 +118,7 @@ __global__ void gate_chain_fwd_kernel(const float* __restrict__ pr,
       __syncthreads();
     }
     for (int j = 0; j < wires; ++j) {
-      const float* m = g + (l * wires + j) * 8;
-      const int bit = 1 << (wires - 1 - j);
-      for (int p = tid; p < half; p += nt) {
-        const int lo = p & (bit - 1);
-        const int i0 = ((p - lo) << 1) | lo;  // p with a 0 inserted at `bit`
-        const int i1 = i0 | bit;
-        const float s0r = sr[i0], s0i = si[i0];
-        const float s1r = sr[i1], s1i = si[i1];
-        sr[i0] = m[0] * s0r - m[1] * s0i + m[2] * s1r - m[3] * s1i;
-        si[i0] = m[0] * s0i + m[1] * s0r + m[2] * s1i + m[3] * s1r;
-        sr[i1] = m[4] * s0r - m[5] * s0i + m[6] * s1r - m[7] * s1i;
-        si[i1] = m[4] * s0i + m[5] * s0r + m[6] * s1i + m[7] * s1r;
-      }
+      gate_pairs(sr, si, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half);
       __syncthreads();
     }
     const float* sgl = sg + (l % k) * d;
@@ -140,12 +133,6 @@ __global__ void gate_chain_fwd_kernel(const float* __restrict__ pr,
     out_r[static_cast<size_t>(i) * batch + b] = sr[i];
     out_i[static_cast<size_t>(i) * batch + b] = si[i];
   }
-}
-
-// Threads per block: one per amplitude pair, at least one warp.
-int threads_for(int wires) {
-  const int half = (1 << wires) / 2;
-  return half > 32 ? half : 32;
 }
 
 __global__ void gate_chain_bwd_kernel(const float* __restrict__ pr,
@@ -167,8 +154,6 @@ __global__ void gate_chain_bwd_kernel(const float* __restrict__ pr,
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int nwarps = nt >> 5;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   float* sr = smem;            // state, real
   float* si = sr + d;          // state, imaginary
   float* cr = si + d;          // cotangent, real
@@ -207,65 +192,11 @@ __global__ void gate_chain_bwd_kernel(const float* __restrict__ pr,
     }
     __syncthreads();
     for (int j = wires - 1; j >= 0; --j) {
-      const float* m = g + (l * wires + j) * 8;
-      // the adjoint gate: a_xy = conj(g_yx)
-      const float a00r = m[0], a00i = -m[1], a01r = m[4], a01i = -m[5];
-      const float a10r = m[2], a10i = -m[3], a11r = m[6], a11i = -m[7];
-      const int bit = 1 << (wires - 1 - j);
-      float part[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) part[t] = 0.0f;
-      if (tid < half) {
-        const int lo = tid & (bit - 1);
-        const int i0 = ((tid - lo) << 1) | lo;  // tid with a 0 at `bit`
-        const int i1 = i0 | bit;
-        const float s0r = sr[i0], s0i = si[i0];
-        const float s1r = sr[i1], s1i = si[i1];
-        // the gate's input state
-        const float t0r = a00r * s0r - a00i * s0i + a01r * s1r - a01i * s1i;
-        const float t0i = a00r * s0i + a00i * s0r + a01r * s1i + a01i * s1r;
-        const float t1r = a10r * s0r - a10i * s0i + a11r * s1r - a11i * s1i;
-        const float t1i = a10r * s0i + a10i * s0r + a11r * s1i + a11i * s1r;
-        sr[i0] = t0r;
-        si[i0] = t0i;
-        sr[i1] = t1r;
-        si[i1] = t1i;
-        const float c0r = cr[i0], c0i = ci[i0];
-        const float c1r = cr[i1], c1i = ci[i1];
-        part[0] = c0r * t0r + c0i * t0i;  // dg00
-        part[1] = c0i * t0r - c0r * t0i;
-        part[2] = c0r * t1r + c0i * t1i;  // dg01
-        part[3] = c0i * t1r - c0r * t1i;
-        part[4] = c1r * t0r + c1i * t0i;  // dg10
-        part[5] = c1i * t0r - c1r * t0i;
-        part[6] = c1r * t1r + c1i * t1i;  // dg11
-        part[7] = c1i * t1r - c1r * t1i;
-        cr[i0] = a00r * c0r - a00i * c0i + a01r * c1r - a01i * c1i;
-        ci[i0] = a00r * c0i + a00i * c0r + a01r * c1i + a01i * c1r;
-        cr[i1] = a10r * c0r - a10i * c0i + a11r * c1r - a11i * c1i;
-        ci[i1] = a10r * c0i + a10i * c0r + a11r * c1i + a11i * c1r;
-      }
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        float v = part[t];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_down_sync(0xffffffffu, v, off);
-        part[t] = v;
-      }
-      float* rb = red + parity * nwarps * 8;
-      if (lane == 0) {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) rb[warp * 8 + t] = part[t];
-      }
-      // also the barrier between gates: the next gate pairs other rows
-      __syncthreads();
-      if (tid < 8) {
-        float s = 0.0f;
-        for (int w8 = 0; w8 < nwarps; ++w8) s += rb[w8 * 8 + tid];
-        dg_part[(static_cast<size_t>(b) * n_layers + l) * wires * 8 +
-                j * 8 + tid] = s;
-      }
+      adjoint_gate_step(
+          sr, si, cr, ci, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half,
+          red + parity * nwarps * 8,
+          dg_part + (static_cast<size_t>(b) * n_layers + l) * wires * 8 +
+              j * 8);
       parity ^= 1;
     }
     if (l % k == 0) {
@@ -293,17 +224,6 @@ __global__ void gate_chain_bwd_kernel(const float* __restrict__ pr,
   }
 }
 
-// dg[t] = sum over b of dg_part[b, t], b in increasing order.
-__global__ void gate_chain_dg_sum_kernel(const float* __restrict__ dg_part,
-                                         float* __restrict__ dg, int n,
-                                         int batch) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  float s = 0.0f;
-  for (int b = 0; b < batch; ++b) s += dg_part[static_cast<size_t>(b) * n + t];
-  dg[t] = s;
-}
-
 }  // namespace
 
 extern "C" {
@@ -323,12 +243,8 @@ int gate_chain_fwd(const void* pr, const void* pi, const void* g8,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = gate_chain_fwd_smem_bytes(wires, n_layers, k);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(gate_chain_fwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = allow_smem(gate_chain_fwd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   gate_chain_fwd_kernel<<<batch, threads_for(wires), smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pr), static_cast<const float*>(pi),
@@ -357,12 +273,8 @@ int gate_chain_bwd(const void* pr, const void* pi, const void* g8,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = gate_chain_bwd_smem_bytes(wires, n_layers, k);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(gate_chain_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = allow_smem(gate_chain_bwd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   gate_chain_bwd_kernel<<<batch, threads_for(wires), smem, s>>>(
       static_cast<const float*>(pr), static_cast<const float*>(pi),
@@ -373,10 +285,9 @@ int gate_chain_bwd(const void* pr, const void* pi, const void* g8,
       static_cast<float*>(dpi), wires, batch, n_layers, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = n_layers * wires * 8;
-  gate_chain_dg_sum_kernel<<<(n + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(dg_part), static_cast<float*>(dg), n, batch);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dg_batch_sum(
+      static_cast<const float*>(dg_part), static_cast<float*>(dg),
+      n_layers * wires * 8, batch, s));
 }
 
 const char* gate_chain_error_string(int code) {

@@ -1,0 +1,288 @@
+// SEL chain (StronglyEntanglingLayers on arbitrary start states), forward
+// pass and its adjoint backward, for NVIDIA Hopper (sm_90a).
+//
+// sel_chain_fwd_kernel replaces
+// qiddm_tpu/sim/pallas_gate_kernel.py::_sel_fwd_kernel (entry
+// sel_chain_pallas -> _sel_chain_fwd_call). For every sample b it starts
+// from the sample's own state column (sr0, si0)[:, b] and runs `depth`
+// layers:
+//   * a 2x2 complex gate on each wire j = 0..w-1 (as in gate_chain.cu);
+//   * the layer's ring of range q + 1, q = l % (w-1), cycling over the full
+//     depth (not per block of k layers as in gate_chain.cu); none at w = 1.
+//     A CZ ring multiplies by the sign plane ring[q]. A CNOT ring is a basis
+//     permutation: one gather new[i] = old[ring[q][i]] into a second buffer,
+//     instead of w sequential CNOTs.
+// The ring tables come from the wrapper (qiddm_tpu_torch/sim/sel_kernel.py),
+// built from the ported cz_ring_signs and cnot_ring_perm: (p, d) 32-bit
+// words, p = max(w-1, 1), float signs for CZ and int32 rows for CNOT.
+//
+// sel_chain_bwd_kernel replaces _sel_bwd_kernel (entry _sel_chain_bwd).
+// From the forward output (fr, fi) and its cotangent (gr, gi) it walks the
+// chain in reverse, l = depth-1 .. 0:
+//   * the inverse ring on the state and on the cotangent: the same signs for
+//     CZ (self-inverse); for CNOT the inverse permutation, a gather through
+//     the forward map f (the wrapper passes f, not the forward's table);
+//   * for j = w-1 .. 0 the adjoint step of chain_common.cuh: the gate's
+//     input state, dg[l, j], and the cotangent carried to the gate's input.
+// The cotangent left at the start is (dsr, dsi). No per-layer state is
+// stored: states are rebuilt through inverse gates and rings, as on the TPU.
+//
+// Design. One thread block per sample with max(d/2, 32) threads, a thread
+// per amplitude pair per gate, a barrier between gates, as gate_chain.cu.
+// The state (and for the backward the cotangent), a second buffer of each
+// for the CNOT gather, the p ring tables and all depth*w*8 gate scalars sit
+// in shared memory for the whole chain: at w=10, depth 60, 71 KB forward
+// and 90 KB backward. dg: each block's partials go to a (B, depth, w, 8)
+// workspace that dg_batch_sum_kernel sums over b in a fixed order, so two
+// calls give the same bits.
+//
+// What bounds it on this card. At QNN's shape (w=8, depth 14, B=10) a
+// forward is 14*8*128*10 pair updates (~143k, ~2 MFLOP): neither FLOPs nor
+// bandwidth matter. Launch latency and the chain of block-wide barriers
+// (~126 forward, ~126 backward) do, and only B of the 132 SMs get a block.
+// Reading a column of a (d, B) plane with stride B is uncoalesced; at these
+// sizes it is accepted. Several samples per block and a sample-major
+// layout are later work.
+//
+// Plain C interface (bound with ctypes): each launch goes on the caller's
+// stream, allocates nothing, does not synchronise, and returns
+// cudaGetLastError(); gate_chain_error_string in gate_chain.cu names it.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "chain_common.cuh"
+
+namespace {
+
+int ring_planes(int wires) { return wires > 1 ? wires - 1 : 1; }
+
+__global__ void sel_chain_fwd_kernel(const float* __restrict__ sr0,
+                                     const float* __restrict__ si0,
+                                     const float* __restrict__ g8,
+                                     const unsigned* __restrict__ ring,
+                                     float* __restrict__ out_r,
+                                     float* __restrict__ out_i, int wires,
+                                     int batch, int depth, int is_cz) {
+  extern __shared__ float smem[];
+  const int d = 1 << wires;
+  const int half = d >> 1;
+  const int p = wires > 1 ? wires - 1 : 1;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  float* sr = smem;            // state, real
+  float* si = sr + d;          // state, imaginary
+  float* tr = si + d;          // gather buffer, real
+  float* ti = tr + d;          // gather buffer, imaginary
+  float* sg = ti + d;          // p ring tables: CZ signs ...
+  int* rows = reinterpret_cast<int*>(sg);  // ... or CNOT gather rows
+  float* g = sg + p * d;       // depth * wires * 8 gate scalars
+
+  for (int i = tid; i < d; i += nt) {
+    sr[i] = sr0[static_cast<size_t>(i) * batch + b];
+    si[i] = si0[static_cast<size_t>(i) * batch + b];
+  }
+  unsigned* ring_s = reinterpret_cast<unsigned*>(sg);
+  for (int i = tid; i < p * d; i += nt) ring_s[i] = ring[i];
+  for (int i = tid; i < depth * wires * 8; i += nt) g[i] = g8[i];
+  __syncthreads();
+
+  for (int l = 0; l < depth; ++l) {
+    for (int j = 0; j < wires; ++j) {
+      gate_pairs(sr, si, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half);
+      __syncthreads();
+    }
+    if (wires == 1) continue;
+    const int q = l % (wires - 1);
+    if (is_cz) {
+      const float* sgl = sg + q * d;
+      for (int i = tid; i < d; i += nt) {
+        sr[i] *= sgl[i];
+        si[i] *= sgl[i];
+      }
+    } else {
+      const int* rl = rows + q * d;
+      for (int i = tid; i < d; i += nt) {
+        tr[i] = sr[rl[i]];
+        ti[i] = si[rl[i]];
+      }
+      float* t = sr;  // every thread swaps alike
+      sr = tr;
+      tr = t;
+      t = si;
+      si = ti;
+      ti = t;
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < d; i += nt) {
+    out_r[static_cast<size_t>(i) * batch + b] = sr[i];
+    out_i[static_cast<size_t>(i) * batch + b] = si[i];
+  }
+}
+
+__global__ void sel_chain_bwd_kernel(const float* __restrict__ g8,
+                                     const unsigned* __restrict__ ring,
+                                     const float* __restrict__ fr,
+                                     const float* __restrict__ fi,
+                                     const float* __restrict__ gr,
+                                     const float* __restrict__ gi,
+                                     float* __restrict__ dg_part,
+                                     float* __restrict__ dsr,
+                                     float* __restrict__ dsi, int wires,
+                                     int batch, int depth, int is_cz) {
+  extern __shared__ float smem[];
+  const int d = 1 << wires;
+  const int half = d >> 1;
+  const int p = wires > 1 ? wires - 1 : 1;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int nwarps = nt >> 5;
+  float* sr = smem;            // state, real
+  float* si = sr + d;          // state, imaginary
+  float* cr = si + d;          // cotangent, real
+  float* ci = cr + d;          // cotangent, imaginary
+  float* tsr = ci + d;         // gather buffers of the four
+  float* tsi = tsr + d;
+  float* tcr = tsi + d;
+  float* tci = tcr + d;
+  float* sg = tci + d;         // p ring tables: CZ signs ...
+  int* rows = reinterpret_cast<int*>(sg);  // ... or inverse CNOT rows
+  float* g = sg + p * d;       // depth * wires * 8 gate scalars
+  float* red = g + depth * wires * 8;  // 2 x nwarps x 8 warp partials
+
+  for (int i = tid; i < d; i += nt) {
+    const size_t at = static_cast<size_t>(i) * batch + b;
+    sr[i] = fr[at];
+    si[i] = fi[at];
+    cr[i] = gr[at];
+    ci[i] = gi[at];
+  }
+  unsigned* ring_s = reinterpret_cast<unsigned*>(sg);
+  for (int i = tid; i < p * d; i += nt) ring_s[i] = ring[i];
+  for (int i = tid; i < depth * wires * 8; i += nt) g[i] = g8[i];
+  __syncthreads();
+
+  int parity = 0;
+  for (int l = depth - 1; l >= 0; --l) {
+    if (wires > 1) {
+      const int q = l % (wires - 1);
+      if (is_cz) {
+        const float* sgl = sg + q * d;
+        for (int i = tid; i < d; i += nt) {
+          sr[i] *= sgl[i];
+          si[i] *= sgl[i];
+          cr[i] *= sgl[i];
+          ci[i] *= sgl[i];
+        }
+      } else {
+        const int* rl = rows + q * d;
+        for (int i = tid; i < d; i += nt) {
+          const int from = rl[i];
+          tsr[i] = sr[from];
+          tsi[i] = si[from];
+          tcr[i] = cr[from];
+          tci[i] = ci[from];
+        }
+        float* t = sr;  // every thread swaps alike
+        sr = tsr;
+        tsr = t;
+        t = si;
+        si = tsi;
+        tsi = t;
+        t = cr;
+        cr = tcr;
+        tcr = t;
+        t = ci;
+        ci = tci;
+        tci = t;
+      }
+      __syncthreads();
+    }
+    for (int j = wires - 1; j >= 0; --j) {
+      adjoint_gate_step(
+          sr, si, cr, ci, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half,
+          red + parity * nwarps * 8,
+          dg_part + (static_cast<size_t>(b) * depth + l) * wires * 8 + j * 8);
+      parity ^= 1;
+    }
+  }
+
+  for (int i = tid; i < d; i += nt) {
+    const size_t at = static_cast<size_t>(i) * batch + b;
+    dsr[at] = cr[i];
+    dsi[at] = ci[i];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared-memory bytes one forward block needs; the wrapper checks it
+// against the card's per-block limit before launching.
+size_t sel_chain_fwd_smem_bytes(int wires, int depth) {
+  const size_t d = size_t{1} << wires;
+  return (4 * d + static_cast<size_t>(ring_planes(wires)) * d +
+          static_cast<size_t>(depth) * wires * 8) * sizeof(float);
+}
+
+// sr0, si0, out_r, out_i are (d, batch); g8 is (depth, wires, 8); ring is
+// (max(wires-1, 1), d) 32-bit words (float signs if is_cz, else int32 rows).
+int sel_chain_fwd(const void* sr0, const void* si0, const void* g8,
+                  const void* ring, void* out_r, void* out_i, int wires,
+                  int batch, int depth, int is_cz, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sel_chain_fwd_smem_bytes(wires, depth);
+  err = allow_smem(sel_chain_fwd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sel_chain_fwd_kernel<<<batch, threads_for(wires), smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sr0), static_cast<const float*>(si0),
+      static_cast<const float*>(g8), static_cast<const unsigned*>(ring),
+      static_cast<float*>(out_r), static_cast<float*>(out_i), wires, batch,
+      depth, is_cz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared-memory bytes one backward block needs.
+size_t sel_chain_bwd_smem_bytes(int wires, int depth) {
+  const size_t d = size_t{1} << wires;
+  const size_t nwarps = threads_for(wires) / 32;
+  return (8 * d + static_cast<size_t>(ring_planes(wires)) * d +
+          static_cast<size_t>(depth) * wires * 8 + 2 * nwarps * 8) *
+         sizeof(float);
+}
+
+// ring holds the inverse rings (CNOT: the forward map f); dg_part is
+// (batch, depth, wires, 8) scratch; dg is (depth, wires, 8); fr, fi, gr, gi,
+// dsr, dsi are (d, batch).
+int sel_chain_bwd(const void* g8, const void* ring, const void* fr,
+                  const void* fi, const void* gr, const void* gi,
+                  void* dg_part, void* dg, void* dsr, void* dsi, int wires,
+                  int batch, int depth, int is_cz, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sel_chain_bwd_smem_bytes(wires, depth);
+  err = allow_smem(sel_chain_bwd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  sel_chain_bwd_kernel<<<batch, threads_for(wires), smem, s>>>(
+      static_cast<const float*>(g8), static_cast<const unsigned*>(ring),
+      static_cast<const float*>(fr), static_cast<const float*>(fi),
+      static_cast<const float*>(gr), static_cast<const float*>(gi),
+      static_cast<float*>(dg_part), static_cast<float*>(dsr),
+      static_cast<float*>(dsi), wires, batch, depth, is_cz);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dg_batch_sum(
+      static_cast<const float*>(dg_part), static_cast<float*>(dg),
+      depth * wires * 8, batch, s));
+}
+
+}  // extern "C"

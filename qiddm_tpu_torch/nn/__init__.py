@@ -2,5 +2,11 @@
 names (counterpart of ``qiddm_tpu/nn``)."""
 
 from .core import Reupload as ReuploadModule  # noqa: F401
-from .qdense import QIDDM_LL_noise  # noqa: F401
+from .qdense import (  # noqa: F401
+    QIDDM_LL_noise,
+    QNN,
+    QNN_noise,
+    QDenseUndirected_old,
+    QDenseUndirected_old_noise,
+)
 from .shim import DenoiserShim  # noqa: F401

@@ -1,16 +1,23 @@
-"""The re-uploading denoiser family (counterpart of
-``qiddm_tpu/nn/core.py::Reupload``).
+"""The denoiser families (counterpart of ``qiddm_tpu/nn/core.py``):
 
-N blocks of [L x (per-wire encode -> SEL(k, CZ))] between a linear
-down-projection and a linear up-projection (or the probability
-post-processing). Modules take NCHW images ``(b, 1, w, h)`` and return the
-same shape. Only the options the ported models use exist; the PCA and conv
+* ``QDense`` — amplitude embedding -> SEL(depth, CNOT) -> probabilities
+  scaled back to pixel space (the Qdense baseline);
+* ``QNNDense`` — a linear sandwich around one RZ encode -> SEL(depth, CZ)
+  -> PauliZ expectations (QNN);
+* ``Reupload`` — N blocks of [L x (per-wire encode -> SEL(k, CZ))] between
+  a linear down-projection and a linear up-projection (or the probability
+  post-processing) (QIDDM).
+
+Modules take NCHW images ``(b, 1, w, h)`` and return the same shape.
+Parameters carry the flax names, so ``ckpt._flax_paths`` maps them. Only
+the options the ported models use exist; ``QNNA``, the PCA and conv
 projections, shared weights, per-block post-processing, BatchNorm and noise
 are ROADMAP Queue 1 items 5, 7 and 8.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -18,6 +25,58 @@ import torch
 from ..sim import engine
 from .initializers import qweight_init
 from .layers import TorchDense, flatten_img, postprocess_probs, unflatten_img
+
+
+class QDense(torch.nn.Module):
+    """Amplitude-embedded dense variational circuit (reference
+    ``QDenseUndirected_old``, nn/qdense.py:15-68, and its noise variant,
+    :71-125): wires = ceil(log2(pixels)), ``qweights`` (qdepth, wires, 3)
+    through ``weight_map``, CNOT ring, probabilities post-processed to
+    pixels."""
+
+    def __init__(self, qdepth: int, shape: Tuple[int, int], *,
+                 generator: torch.Generator, weight_map: str = "qw_tanh"):
+        super().__init__()
+        self.shape = tuple(shape)
+        self.weight_map = weight_map
+        self.wires = max(1, math.ceil(math.log2(shape[0] * shape[1])))
+        self.qweights = torch.nn.Parameter(
+            qweight_init((qdepth, self.wires, 3), generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        width, height = self.shape
+        p = engine.qdense_circuit(flatten_img(x), self.qweights,
+                                  wires=self.wires, pad_with=0.1,
+                                  weight_map=self.weight_map,
+                                  imprimitive="cnot")
+        return unflatten_img(postprocess_probs(p, width * height), width,
+                             height)
+
+
+class QNNDense(torch.nn.Module):
+    """Linear sandwich around a single-encode CZ circuit (reference
+    ``QNN`` / ``QNN_noise``, nn/qdense.py:219-386): ``linear_down``
+    (input_dim -> hidden), ``qweights`` (qdepth, hidden, 3), ``linear_up``
+    (hidden -> input_dim). The circuit RZ-encodes the fresh |0..0> state,
+    so its output does not depend on the input (kept, as in the JAX
+    package)."""
+
+    def __init__(self, input_dim: int, hidden_features: int, qdepth: int, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.linear_down = TorchDense(input_dim, hidden_features,
+                                      generator=generator)
+        self.qweights = torch.nn.Parameter(
+            qweight_init((qdepth, hidden_features, 3), generator))
+        self.linear_up = TorchDense(hidden_features, input_dim,
+                                    generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.linear_down(flatten_img(x))
+        q = engine.qnn_circuit(h, self.qweights, encode="rz",
+                               imprimitive="cz", readout="expvalz")
+        return self.linear_up(q).reshape(x.shape)
+
 
 _OPTIONS = {"down": ("linear",), "up": ("linear", "none"),
             "readout": ("expvalz", "probs"), "encode": ("rz", "rz_halfpi")}

@@ -1,17 +1,20 @@
 """The reference's dense quantum models by public name (counterpart of
 ``qiddm_tpu/nn/qdense.py``). Same constructor signatures and byte-identical
-``save_name()`` strings as the JAX package. Ported so far:
-``QIDDM_LL_noise``; the rest of the zoo is ROADMAP Queue 1 item 7.
+``save_name()`` strings as the JAX package. Ported so far: the Qdense
+baseline (``QDenseUndirected_old``, ``QDenseUndirected_old_noise``), the
+QNN pair (``QNN_noise``, ``QNN``) and ``QIDDM_LL_noise``, each at
+``add_noise=0``; the rest of the zoo is ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
 
 import ast
-import math
 import operator as _op
 
 import torch
 
+from .core import QDense as _QDenseModule
+from .core import QNNDense as _QNNDenseModule
 from .core import Reupload as _ReuploadModule
 from .shim import DenoiserShim, _square_or_flat
 
@@ -47,9 +50,106 @@ def _shape_arg(shape):
     return tuple(shape)
 
 
-def _wires_for(pixels: int) -> int:
-    return math.ceil(math.log2(pixels))
+def _no_noise(add_noise: int, noise_intensity=None) -> None:
+    if add_noise != 0 or noise_intensity is not None:
+        raise NotImplementedError(
+            f"add_noise={add_noise}, noise_intensity={noise_intensity}: "
+            f"noise is ROADMAP Queue 1 item 8")
 
+
+def _generator(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
+# ---------------------------------------------------------------------------
+# Qdense family
+# ---------------------------------------------------------------------------
+# ``init_batch`` is the JAX package's flax-init sample; the port's modules
+# need none and ignore it.
+
+class QDenseUndirected_old(DenoiserShim):
+    """Reference nn/qdense.py:15-68: qw_map.tanh weights."""
+
+    def __init__(self, qdepth, shape, seed: int = 0, init_batch=None, *,
+                 device="cpu"):
+        qdepth, shape = _int_arg(qdepth), _shape_arg(shape)
+        self.qdepth, (self.width, self.height) = qdepth, shape
+        module = _QDenseModule(qdepth, shape, generator=_generator(seed),
+                               weight_map="qw_tanh")
+        self.wires = module.wires
+        super().__init__(
+            module, shape, device=device,
+            save_name_str=f"QDenseUndirected_old{qdepth}_w{shape[0]}"
+                          f"_h{shape[1]}")
+
+
+class QDenseUndirected_old_noise(DenoiserShim):
+    """Reference nn/qdense.py:71-125 (the papers' "Qdense" baseline):
+    torch.tanh weights."""
+
+    def __init__(self, qdepth, shape, add_noise=0,
+                 device_type="default.qubit.torch", seed: int = 0,
+                 init_batch=None, *, device="cpu"):
+        qdepth, add_noise = _int_arg(qdepth), _int_arg(add_noise)
+        _no_noise(add_noise)
+        shape = _shape_arg(shape)
+        self.qdepth, self.add_noise = qdepth, add_noise
+        self.width, self.height = shape
+        module = _QDenseModule(qdepth, shape, generator=_generator(seed),
+                               weight_map="tanh")
+        self.wires = module.wires
+        super().__init__(
+            module, shape, device=device,
+            save_name_str=(f"QDenseUndirected_old_noise{qdepth}"
+                           f"_w{shape[0]}_h{shape[1]}_noise{add_noise}"))
+
+
+# ---------------------------------------------------------------------------
+# QNN family
+# ---------------------------------------------------------------------------
+
+def _qnn(input_dim, hidden_features, qdepth, seed):
+    input_dim, hidden = _int_arg(input_dim), _int_arg(hidden_features)
+    qdepth = _int_arg(qdepth)
+    module = _QNNDenseModule(input_dim, hidden, qdepth,
+                             generator=_generator(seed))
+    return module, _square_or_flat(input_dim), hidden, qdepth
+
+
+class QNN_noise(DenoiserShim):
+    """Reference nn/qdense.py:219-307 (mnist_exm's second default
+    model, ``QNN_noise 784 8 14``)."""
+
+    def __init__(self, input_dim, hidden_features, qdepth, add_noise=0,
+                 seed: int = 0, init_batch=None, *, device="cpu"):
+        add_noise = _int_arg(add_noise)
+        _no_noise(add_noise)
+        module, shape, hidden, qdepth = _qnn(input_dim, hidden_features,
+                                             qdepth, seed)
+        self.hidden_features, self.qdepth = hidden, qdepth
+        self.add_noise = add_noise
+        super().__init__(
+            module, shape, device=device,
+            save_name_str=(f"QNN_linear_features={hidden}"
+                           f"_qdepth={qdepth}_add_noise={add_noise}"))
+
+
+class QNN(DenoiserShim):
+    """Reference nn/qdense.py:310-386."""
+
+    def __init__(self, input_dim, hidden_features, qdepth, seed: int = 0,
+                 init_batch=None, *, device="cpu"):
+        module, shape, hidden, qdepth = _qnn(input_dim, hidden_features,
+                                             qdepth, seed)
+        self.hidden_features, self.qdepth = hidden, qdepth
+        super().__init__(
+            module, shape, device=device,
+            save_name_str=f"QNN_linear_features={hidden}_qdepth={qdepth}")
+
+
+# ---------------------------------------------------------------------------
+# re-uploading (QIDDM) family
+# ---------------------------------------------------------------------------
 
 class _ReuploadShim(DenoiserShim):
     def __init__(self, module, shape, save_name_str, *, device, **attrs):
@@ -64,13 +164,10 @@ def _qiddm(input_dim, hidden, L, N, *, down, up, save, seed, encode="rz",
     """The QIDDM-L family: PauliZ readout between two projections."""
     input_dim, hidden = _int_arg(input_dim), _int_arg(hidden)
     L, N, add_noise = _int_arg(L), _int_arg(N), _int_arg(add_noise)
-    if add_noise != 0 or noise_intensity is not None:
-        raise NotImplementedError(
-            f"add_noise={add_noise}, noise_intensity={noise_intensity}: "
-            f"noise is ROADMAP Queue 1 item 8")
+    _no_noise(add_noise, noise_intensity)
     shape = _square_or_flat(input_dim)
     module = _ReuploadModule(
-        hidden, L, N, generator=torch.Generator().manual_seed(seed),
+        hidden, L, N, generator=_generator(seed),
         input_dim=input_dim, shape=shape, k=k, down=down, up=up,
         readout="expvalz", encode=encode)
     return module, shape, save.format(h=hidden, L=L, N=N), dict(

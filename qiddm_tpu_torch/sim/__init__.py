@@ -1,16 +1,30 @@
 """qiddm_tpu_torch.sim — batched statevector simulation in PyTorch, with the
-re-uploading gate chain and its adjoint backward as hand-written CUDA
-kernels (``gate_kernel``)."""
+re-uploading gate chain (``gate_kernel``) and the SEL chain
+(``sel_kernel``), each with its adjoint backward, as hand-written CUDA
+kernels."""
 
-from .engine import reupload_block  # noqa: F401
+from .engine import qdense_circuit, qnn_circuit, reupload_block  # noqa: F401
 from .gate_kernel import (  # noqa: F401
     gate_chain_bwd_plain,
     gate_chain_planes,
     gate_chain_planes_plain,
 )
-from .gates import rot_matrix  # noqa: F401
-from .sel import cz_ring_signs, sel_ranges, sel_unitaries  # noqa: F401
+from .gates import WEIGHT_MAPS, plain_tanh, qw_tanh, rot_matrix  # noqa: F401
+from .sel import (  # noqa: F401
+    cnot_ring_perm,
+    cz_ring_signs,
+    sel_ranges,
+    sel_unitaries,
+    sel_unitary,
+)
+from .sel_kernel import (  # noqa: F401
+    sel_chain,
+    sel_chain_bwd_plain,
+    sel_chain_planes,
+    sel_chain_planes_plain,
+)
 from .statevector import (  # noqa: F401
+    amplitude_embed,
     apply_unitary,
     bit_table,
     expval_z,

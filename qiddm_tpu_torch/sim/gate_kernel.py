@@ -11,10 +11,11 @@ plain versions (:func:`gate_chain_planes_plain`,
 plain version.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, from
-the source in this checkout, into ``build/qiddm_tpu_torch/`` next to the
-package; the library's file name carries a hash of the source and the
-flags, so an edit rebuilds it. It has a plain C interface and is bound with
-``ctypes``.
+the sources in this checkout, into ``build/qiddm_tpu_torch/`` next to the
+package. One library holds every kernel of the port (this chain's and the
+SEL chain's of ``sel_kernel.py``); its file name carries a hash of all the
+sources and the flags, so an edit of any of them rebuilds it. It has a
+plain C interface and is bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -40,10 +41,13 @@ from .sel import cz_ring_signs, sel_ranges
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-_SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "gate_chain.cu"
+_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+# compiled together into one library; the header is hashed, not compiled
+_SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu")
+_HEADERS = (_CSRC / "chain_common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Opt-in shared memory per block on Hopper (H100/H200).
 _MAX_SMEM_BYTES = 232448
 
@@ -182,28 +186,45 @@ def _nvcc() -> str:
         return str(cand)
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin "
                        "(default /usr/local/cuda): cannot build "
-                       f"{_SOURCE.name}")
+                       + ", ".join(p.name for p in _SOURCES))
 
 
 def build_library() -> pathlib.Path:
-    """Compile ``csrc/gate_chain.cu`` unless a library from the same source
-    and flags is already built; returns its path. The compiler's output
-    (``-Xptxas -v``: registers, shared memory, spills) is kept beside it
-    with the suffix ``.log``."""
-    key = hashlib.sha256(_SOURCE.read_bytes()
-                         + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"gate_chain_{key}.so"
+    """Compile ``csrc/*.cu`` into one library unless one from the same
+    sources, header and flags is already built; returns its path. One nvcc
+    per source, all started together, then one link. The compilers' output
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
+    library with the suffix ``.log``."""
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in (*_SOURCES, *_HEADERS):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    lib = BUILD_DIR / f"chain_kernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                           str(_SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in _SOURCES]
+    try:
+        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        log = "".join(proc.communicate()[0] for proc in procs)
+        codes = [proc.returncode for proc in procs]
+        if not any(codes):
+            link = subprocess.run([nvcc, *_NVCC_FLAGS[:2], "-shared", "-o",
+                                   str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            codes = [link.returncode]
+        if any(codes):
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed with code {max(codes)}:\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text(log)
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     return lib
 
@@ -224,45 +245,58 @@ def _library():
                    lib.gate_chain_bwd_smem_bytes):
             fn.argtypes = [ctypes.c_int] * 3
             fn.restype = ctypes.c_size_t
+        lib.sel_chain_fwd.argtypes = ([ctypes.c_void_p] * 6
+                                      + [ctypes.c_int] * 5
+                                      + [ctypes.c_void_p])
+        lib.sel_chain_fwd.restype = ctypes.c_int
+        lib.sel_chain_bwd.argtypes = ([ctypes.c_void_p] * 10
+                                      + [ctypes.c_int] * 5
+                                      + [ctypes.c_void_p])
+        lib.sel_chain_bwd.restype = ctypes.c_int
+        for fn in (lib.sel_chain_fwd_smem_bytes,
+                   lib.sel_chain_bwd_smem_bytes):
+            fn.argtypes = [ctypes.c_int] * 2
+            fn.restype = ctypes.c_size_t
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _check_cuda_inputs(planes, g8, signs, k: int, wires: int):
-    """Raise unless every tensor is contiguous float32 on one CUDA device
-    and the shapes fit; returns (d, B, n_layers)."""
-    tensors = (*planes, g8, signs)
+def _check_cuda_inputs(what: str, planes, g8, table, table_shape,
+                       wires: int):
+    """Raise unless every tensor is contiguous on one CUDA device, the
+    planes and gates float32 (the table float32 or int32), and the shapes
+    fit: planes (2**wires, B), g8 (n_layers, wires, 8), the sign or ring
+    table ``table_shape``. Returns (d, B, n_layers)."""
+    tensors = (*planes, g8, table)
     dev = planes[0].device
     if any(t.device != dev or t.device.type != "cuda" for t in tensors):
-        raise ValueError("gate-chain kernel: every input must be on the "
-                         "same CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           for t in tensors):
-        raise ValueError("gate-chain kernel: inputs must be contiguous "
-                         "float32, got "
+        raise ValueError(f"{what}: every input must be on the same CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if (any(t.dtype != torch.float32 for t in (*planes, g8))
+            or table.dtype not in (torch.float32, torch.int32)
+            or not all(t.is_contiguous() for t in tensors)):
+        raise ValueError(f"{what}: inputs must be contiguous float32, got "
                          f"{[(t.dtype, t.is_contiguous()) for t in tensors]}")
     if not 1 <= wires <= _config.KERNEL_MAX_WIRES:
-        raise ValueError("gate-chain kernel takes "
-                         f"1..{_config.KERNEL_MAX_WIRES} wires, "
+        raise ValueError(f"{what} takes 1..{_config.KERNEL_MAX_WIRES} wires, "
                          f"got {wires}")
     d, B = planes[0].shape
     n_layers = g8.shape[0]
-    if (any(t.shape != (d, B) for t in planes) or B < 1 or k < 1
-            or n_layers < 1 or g8.shape != (n_layers, wires, 8)
-            or signs.shape != (k, d, 1)):
+    if (any(t.shape != (d, B) for t in planes) or B < 1 or n_layers < 1
+            or d != 2**wires or g8.shape != (n_layers, wires, 8)
+            or table.shape != tuple(table_shape)):
         raise ValueError(
-            "gate-chain kernel: bad shapes "
-            f"{[tuple(t.shape) for t in planes]}, g8 {tuple(g8.shape)}, "
-            f"signs {tuple(signs.shape)} for wires={wires}, k={k}")
+            f"{what}: bad shapes {[tuple(t.shape) for t in planes]}, g8 "
+            f"{tuple(g8.shape)}, table {tuple(table.shape)} for "
+            f"wires={wires}")
     return d, B, n_layers
 
 
 def _check_smem(smem: int, n_layers: int, wires: int) -> None:
     if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"gate-chain kernel needs {smem} B of shared "
+        raise ValueError(f"chain kernel needs {smem} B of shared "
                          f"memory per block (limit {_MAX_SMEM_BYTES}): "
                          f"{n_layers} layers x {wires} wires is too deep")
 
@@ -278,7 +312,8 @@ def _gate_chain_cuda(pr, pi, g8, signs, k: int, wires: int):
     """Launch the forward kernel on PyTorch's current stream; (sr, si) are
     new (d, B) float32 tensors."""
     global LAUNCHES
-    d, B, n_layers = _check_cuda_inputs((pr, pi), g8, signs, k, wires)
+    d, B, n_layers = _check_cuda_inputs("gate-chain kernel", (pr, pi), g8,
+                                        signs, (k, 2**wires, 1), wires)
     lib = _library()
     _check_smem(lib.gate_chain_fwd_smem_bytes(wires, n_layers, k), n_layers,
                 wires)
@@ -299,8 +334,9 @@ def _gate_chain_bwd_cuda(pr, pi, g8, signs, fr, fi, gr, gi, k: int,
     PyTorch's current stream; returns new (dpr, dpi, dg) as
     :func:`gate_chain_bwd_plain` does."""
     global BWD_LAUNCHES
-    d, B, n_layers = _check_cuda_inputs((pr, pi, fr, fi, gr, gi), g8, signs,
-                                        k, wires)
+    d, B, n_layers = _check_cuda_inputs(
+        "gate-chain backward kernel", (pr, pi, fr, fi, gr, gi), g8, signs,
+        (k, 2**wires, 1), wires)
     lib = _library()
     _check_smem(lib.gate_chain_bwd_smem_bytes(wires, n_layers, k), n_layers,
                 wires)

@@ -31,3 +31,23 @@ def rot_matrix(phi, theta, omega):
     d = _unit(0.5 * (phi + omega)) * c
     return torch.stack(
         [torch.stack([a, b], dim=-1), torch.stack([cc, d], dim=-1)], dim=-2)
+
+
+# --- weight re-mappings -----------------------------------------------------
+
+def qw_tanh(w):
+    """``qw_map.tanh``: unbounded weights mapped into ``[-pi, pi]`` (the
+    Qdense circuit's re-mapping, reference nn/qdense.py:45)."""
+    return torch.pi * torch.tanh(w)
+
+
+def plain_tanh(w):
+    """Plain tanh mapping (reference nn/qdense.py:97 uses ``torch.tanh``)."""
+    return torch.tanh(w)
+
+
+WEIGHT_MAPS = {
+    "none": lambda w: w,
+    "qw_tanh": qw_tanh,
+    "tanh": plain_tanh,
+}

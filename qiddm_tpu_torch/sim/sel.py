@@ -1,12 +1,11 @@
 """StronglyEntanglingLayers (SEL) as dense composed unitaries
 (counterpart of ``qiddm_tpu/sim/sel.py``).
 
-Per layer: a 3-parameter rotation on every wire, then a ring of CZ gates
-whose range cycles ``r_l = (l mod (wires-1)) + 1``. A block does not depend
-on the data, so at a batch of at least ``2**wires`` it is composed once into
-a ``(2**w, 2**w)`` unitary and applied with one complex matmul. Only the CZ
-ring of the re-uploading family is ported; the CNOT ring is ROADMAP Queue 1
-item 7.
+Per layer: a 3-parameter rotation on every wire, then a ring of CZ or
+CNOT gates whose range cycles ``r_l = (l mod (wires-1)) + 1``. A CZ ring is
+a diagonal of signs, a CNOT ring a basis permutation. A block does not
+depend on the data, so at a batch of at least ``2**wires`` it is composed
+once into a ``(2**w, 2**w)`` unitary and applied with one complex matmul.
 """
 
 from __future__ import annotations
@@ -44,6 +43,31 @@ def cz_ring_signs(wires: int, rng: int) -> np.ndarray:
     return signs.astype(np.float64)
 
 
+@functools.lru_cache(maxsize=None)
+def cnot_ring_perm(wires: int, rng: int) -> np.ndarray:
+    """Row-gather indices realizing the sequential CNOT ring.
+
+    The ring applies ``CNOT(j, (j+rng) % wires)`` for j = 0..wires-1 *in
+    order* (later gates see earlier gates' flips). Each basis state maps to
+    exactly one basis state: target_bit ^= control_bit sequentially.
+
+    Returns ``inv`` such that ``(U_ring @ M) == M[inv, :]`` for any matrix M.
+    """
+    dim = 2**wires
+    if wires == 1 or rng == 0:
+        return np.arange(dim)
+    f = np.empty(dim, dtype=np.int64)
+    for i in range(dim):
+        b = [(i >> (wires - 1 - j)) & 1 for j in range(wires)]
+        for j in range(wires):
+            k = (j + rng) % wires
+            b[k] ^= b[j]
+        f[i] = sum(bj << (wires - 1 - j) for j, bj in enumerate(b))
+    inv = np.empty(dim, dtype=np.int64)
+    inv[f] = np.arange(dim)
+    return inv
+
+
 def _batched_kron_chain(mats: torch.Tensor) -> torch.Tensor:
     """Batched Kronecker product over the wire axis.
 
@@ -67,22 +91,39 @@ def _entangled_layers(weights: torch.Tensor,
 
     weights: (..., layers, wires, 3) -> (..., layers, d, d). The range cycle
     runs over the ``layers`` axis, so a (n_blocks, k, wires, 3) input gives
-    the re-uploading family's per-block cycle.
+    the re-uploading family's per-block cycle, and a (depth, wires, 3)
+    input the SEL chain's cycle over its full depth.
     """
-    if imprimitive != "cz":
-        raise NotImplementedError(
-            f"imprimitive={imprimitive!r}: only the CZ ring is ported "
-            f"(CNOT ring: ROADMAP Queue 1 item 7)")
+    if imprimitive not in ("cz", "cnot"):
+        raise ValueError(f"unknown imprimitive {imprimitive!r}")
     layers, wires = weights.shape[-3], weights.shape[-2]
     mats = rot_matrix(weights[..., 0], weights[..., 1], weights[..., 2])
     layer_u = _batched_kron_chain(mats)
     if wires == 1:
         return layer_u
-    signs = np.stack([cz_ring_signs(wires, r)
-                      for r in sel_ranges(layers, wires)])
-    signs = torch.as_tensor(signs[:, :, None], dtype=layer_u.real.dtype,
-                            device=layer_u.device)
-    return signs * layer_u
+    ranges = sel_ranges(layers, wires)
+    if imprimitive == "cz":
+        signs = np.stack([cz_ring_signs(wires, r) for r in ranges])
+        signs = torch.as_tensor(signs[:, :, None], dtype=layer_u.real.dtype,
+                                device=layer_u.device)
+        return signs * layer_u
+    inv = np.stack([cnot_ring_perm(wires, r) for r in ranges])
+    rows = torch.as_tensor(inv[:, :, None], device=layer_u.device)
+    return torch.gather(layer_u, -2, rows.expand(layer_u.shape))
+
+
+def sel_unitary(weights: torch.Tensor,
+                imprimitive: str = "cnot") -> torch.Tensor:
+    """Compose an SEL block into a dense unitary.
+
+    weights: (depth, wires, 3) -> (2**wires, 2**wires), ``U = U_{depth-1}
+    ... U_1 U_0``, with the range cycling over the full depth.
+    """
+    lus = _entangled_layers(weights, imprimitive)
+    acc = lus[0]
+    for u in lus[1:]:
+        acc = u @ acc
+    return acc
 
 
 def sel_unitaries(weights: torch.Tensor,

@@ -50,6 +50,29 @@ def zero_state(batch: int, wires: int, *, dtype: torch.dtype,
     return state
 
 
+def amplitude_rows(x: torch.Tensor, wires: int,
+                   pad_with: float = 0.0) -> torch.Tensor:
+    """The real amplitudes of :func:`amplitude_embed`: ``x`` padded with
+    the constant ``pad_with`` to ``2**wires`` features, then each row
+    L2-normalized (norm floored at 1e-12). (batch, n) -> (batch, 2**wires)."""
+    b, n = x.shape
+    dim = 2**wires
+    if n > dim:
+        raise ValueError(f"{n} features do not fit in {wires} wires")
+    if n < dim:
+        x = torch.cat([x, x.new_full((b, dim - n), pad_with)], dim=-1)
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=1e-12)
+
+
+def amplitude_embed(x: torch.Tensor, wires: int, pad_with: float = 0.0, *,
+                    dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    """AmplitudeEmbedding with constant padding and L2 normalization:
+    (batch, n_features <= 2**wires) real -> (batch, 2**wires) complex
+    states (reference nn/qdense.py:41-43 pads with 0.1)."""
+    return amplitude_rows(x, wires, pad_with).to(dtype)
+
+
 def rz_phases(x: torch.Tensor, wires: int) -> torch.Tensor:
     """Diagonal of ``prod_j RZ_j(x[:, j])`` over the full space.
 

@@ -174,7 +174,7 @@ def test_checkpoint_every_saves_each_segment(driver_env, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--ckpt-backend", "orbax"],
-    ["--model", "QNN_noise", "784", "8", "14"],
+    ["--model", "QNN_noise", "784", "8", "14", "1"],  # add_noise=1
     ["--vmap-labels"],
     ["--profile", "trace"],
     ["--noise-backend", "traj"],
@@ -198,14 +198,54 @@ def test_unported_runs_are_rejected_before_any_work(driver_env, monkeypatch,
 
 
 def test_default_models_name_an_unported_one():
+    """The default model list and flags are the JAX mnist_exm's; both default
+    models are ported now, so the defaults pass validation on the CPU, and
+    each model keeps its own default learning rate."""
     args = tmnist.parse_args([])
     assert [m[0] for m in args.model] == ["QIDDM_LL_noise", "QNN_noise"]
     assert args.device == "cuda" and args.batch_size == 1
     assert args.tau == 10 and args.ds_size == 500 and args.epochs == 50
     assert tcommon.model_lr(args, "QIDDM_LL_noise") == 0.0255
+    assert tcommon.model_lr(args, "QNN_noise") == 0.01011
     args.device = "cpu"
-    with pytest.raises(SystemExit, match="QNN_noise"):
-        tcommon.validate_args(args)
+    tcommon.validate_args(args)
+
+
+def test_mnist_exm_without_model_trains_both_default_models(
+        driver_env, monkeypatch):
+    """No --model: QIDDM_LL_noise(784, 6, 14, 2) and QNN_noise(784, 8, 14)
+    train in turn on a seeded 28x28 set, each at its own rate, and each
+    writes its own checkpoint."""
+    tmp = driver_env
+    _hide_disk_data(monkeypatch, tmp)
+    rng = np.random.default_rng(5)
+    (tmp / "data").mkdir()
+    np.savez(tmp / "data" / "mnist_28.npz",
+             x=rng.integers(0, 256, size=(40, 28, 28), dtype=np.uint8),
+             y=np.arange(40) % 10)
+    rates = []
+    real_train = tcommon.train_diffusion_scan
+
+    def spy(diff, x, **kw):
+        rates.append((diff.net.save_name(), kw["lr"]))
+        return real_train(diff, x, **kw)
+
+    monkeypatch.setattr(tcommon, "train_diffusion_scan", spy)
+    out = tmnist.main(["--ds-size", "20", "--epochs", "1", "--device", "cpu",
+                       "--save-path", f"{tmp}/run_",
+                       "--load-path", f"{tmp}/run_"])
+    assert set(out) == {"QIDDM_LL_noise", "QNN_noise"}
+    for entry in out.values():
+        assert len(entry["loss"][0]) == 1 and np.isfinite(entry["loss"][0])
+        assert entry["generated"][0].shape == (16, 10, 1, 28, 28)
+    assert rates == [("QIDDM_LL_noise=6_L=14_N=2", 0.0255),
+                     ("QNN_linear_features=8_qdepth=14_add_noise=0", 0.01011)]
+    ckpt_dir = tmp / "run_4" / "noise_0"
+    assert sorted(p.name for p in ckpt_dir.glob("*.pt")) == [
+        "QIDDM_LL_noise=6_L=14_N=2_4.pt",
+        "QNN_linear_features=8_qdepth=14_add_noise=0_4.pt"]
+    jdiff = JDiffusion(jnn.QNN_noise(784, 8, 14, seed=2))
+    assert jckpt.load_diffusion(jdiff, ckpt_dir, 4)[1] == 1
 
 
 def test_cuda_without_a_card_raises_before_training(driver_env):
