@@ -7,9 +7,10 @@ kernel, the port runs a CUDA kernel written for ``sm_90a``
 (``qiddm_tpu_torch/csrc``); everything else is plain PyTorch. The package
 never imports JAX.
 
-What is ported so far is the ``QIDDM_LL_noise`` sampling path
-(``python -m qiddm_tpu_torch.cli.sample``) and its training path
-(``python -m qiddm_tpu_torch.cli.mnist_exm``); ROADMAP.md lists the rest.
+What is ported so far is sampling (``python -m qiddm_tpu_torch.cli.sample``)
+and training (``python -m qiddm_tpu_torch.cli.mnist_exm``) of the
+re-uploading models with a linear or PCA down-projection (RZ or RY encode),
+the QNN family and the Qdense baseline; ROADMAP.md lists the rest.
 """
 
 from . import config  # noqa: F401

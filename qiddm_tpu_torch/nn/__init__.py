@@ -4,7 +4,12 @@ names (counterpart of ``qiddm_tpu/nn``)."""
 from .core import Reupload as ReuploadModule  # noqa: F401
 from .qdense import (  # noqa: F401
     QIDDM_LL_noise,
+    QIDDM_PL,
+    QIDDM_PL_noise,
+    QIDDM_PL_noise1,
+    QIDDM_PL_old,
     QNN,
+    QNN_A,
     QNN_noise,
     QDenseUndirected_old,
     QDenseUndirected_old_noise,

@@ -2,15 +2,17 @@
 
 * ``QDense`` — amplitude embedding -> SEL(depth, CNOT) -> probabilities
   scaled back to pixel space (the Qdense baseline);
+* ``QNNA`` — a linear down-projection, the RY product state -> SEL(depth,
+  CNOT) -> probabilities scaled back to pixel space (QNN_A);
 * ``QNNDense`` — a linear sandwich around one RZ encode -> SEL(depth, CZ)
   -> PauliZ expectations (QNN);
-* ``Reupload`` — N blocks of [L x (per-wire encode -> SEL(k, CZ))] between
-  a linear down-projection and a linear up-projection (or the probability
-  post-processing) (QIDDM).
+* ``Reupload`` — N blocks of [L x (per-wire RZ or RY encode -> SEL(k,
+  CZ))] between a linear or PCA down-projection and a linear up-projection
+  (or the probability post-processing) (QIDDM).
 
 Modules take NCHW images ``(b, 1, w, h)`` and return the same shape.
 Parameters carry the flax names, so ``ckpt._flax_paths`` maps them. Only
-the options the ported models use exist; ``QNNA``, the PCA and conv
+the options the ported models use exist; the lazily fitted PCA, the conv
 projections, shared weights, per-block post-processing, BatchNorm and noise
 are ROADMAP Queue 1 items 5, 7 and 8.
 """
@@ -22,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..pca import pca_fit_transform
 from ..sim import engine
 from .initializers import qweight_init
 from .layers import TorchDense, flatten_img, postprocess_probs, unflatten_img
@@ -53,6 +56,31 @@ class QDense(torch.nn.Module):
                              height)
 
 
+class QNNA(torch.nn.Module):
+    """Angle(Y)-embedded circuit (reference ``QNN_A``, nn/qdense.py:128-210):
+    ``linear_down`` (pixels -> wires), wires = ceil(log2(pixels)), the RY
+    product state, ``qweights`` (qdepth, wires, 3) unmapped, CNOT ring,
+    probabilities post-processed to pixels."""
+
+    def __init__(self, qdepth: int, shape: Tuple[int, int], *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.shape = tuple(shape)
+        pixels = shape[0] * shape[1]
+        self.wires = max(1, math.ceil(math.log2(pixels)))
+        self.linear_down = TorchDense(pixels, self.wires, generator=generator)
+        self.qweights = torch.nn.Parameter(
+            qweight_init((qdepth, self.wires, 3), generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        width, height = self.shape
+        h = self.linear_down(flatten_img(x))
+        p = engine.qnn_circuit(h, self.qweights, encode="ry",
+                               imprimitive="cnot", readout="probs")
+        return unflatten_img(postprocess_probs(p, width * height), width,
+                             height)
+
+
 class QNNDense(torch.nn.Module):
     """Linear sandwich around a single-encode CZ circuit (reference
     ``QNN`` / ``QNN_noise``, nn/qdense.py:219-386): ``linear_down``
@@ -78,32 +106,38 @@ class QNNDense(torch.nn.Module):
         return self.linear_up(q).reshape(x.shape)
 
 
-_OPTIONS = {"down": ("linear",), "up": ("linear", "none"),
-            "readout": ("expvalz", "probs"), "encode": ("rz", "rz_halfpi")}
+_OPTIONS = {"down": ("linear", "pca"), "up": ("linear", "none"),
+            "readout": ("expvalz", "probs"),
+            "encode": ("rz", "rz_halfpi", "ry"), "pca_lazy": (False,)}
 
 
 class Reupload(torch.nn.Module):
-    """Parameters carry the flax names: ``linear_down``, ``qweights``
-    (N, L, k, hidden, 3) and ``linear_up``."""
+    """Parameters carry the flax names: ``linear_down`` (down="linear"
+    only: the PCA is refitted on every forward batch and has none),
+    ``qweights`` (N, L, k, hidden, 3) and ``linear_up``."""
 
     def __init__(self, hidden: int, L: int, N: int, *,
                  generator: torch.Generator,
                  input_dim: Optional[int] = None,
                  shape: Tuple[int, int] = (28, 28), k: int = 2,
                  down: str = "linear", up: str = "linear",
-                 readout: str = "expvalz", encode: str = "rz"):
+                 readout: str = "expvalz", encode: str = "rz",
+                 pca_lazy: bool = False):
         super().__init__()
         for name, value in (("down", down), ("up", up),
-                            ("readout", readout), ("encode", encode)):
+                            ("readout", readout), ("encode", encode),
+                            ("pca_lazy", pca_lazy)):
             if value not in _OPTIONS[name]:
                 raise NotImplementedError(
                     f"Reupload {name}={value!r} is not ported (ported: "
-                    f"{_OPTIONS[name]}); see ROADMAP Queue 1")
+                    f"{_OPTIONS[name]}); ROADMAP Queue 1 item 7")
         self.hidden, self.L, self.N, self.k = hidden, L, N, k
         self.shape = tuple(shape)
-        self.up, self.readout, self.encode = up, readout, encode
+        self.down, self.up = down, up
+        self.readout, self.encode = readout, encode
         pixels = self.shape[0] * self.shape[1]
-        self.linear_down = TorchDense(pixels, hidden, generator=generator)
+        if down == "linear":
+            self.linear_down = TorchDense(pixels, hidden, generator=generator)
         self.qweights = torch.nn.Parameter(
             qweight_init((N, L, k, hidden, 3), generator))
         if up == "linear":
@@ -113,7 +147,12 @@ class Reupload(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         width, height = self.shape
-        cur = self.linear_down(flatten_img(x))
+        if self.down == "linear":
+            cur = self.linear_down(flatten_img(x))
+        else:
+            # the reference refits the PCA on every forward batch
+            # (nn/qdense.py:456)
+            _, cur = pca_fit_transform(flatten_img(x), self.hidden)
         for n in range(self.N):
             # each block re-encodes the first `hidden` outputs of the last
             cur = engine.reupload_block(

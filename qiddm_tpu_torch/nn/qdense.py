@@ -1,9 +1,11 @@
 """The reference's dense quantum models by public name (counterpart of
 ``qiddm_tpu/nn/qdense.py``). Same constructor signatures and byte-identical
 ``save_name()`` strings as the JAX package. Ported so far: the Qdense
-baseline (``QDenseUndirected_old``, ``QDenseUndirected_old_noise``), the
-QNN pair (``QNN_noise``, ``QNN``) and ``QIDDM_LL_noise``, each at
-``add_noise=0``; the rest of the zoo is ROADMAP Queue 1 item 7.
+baseline (``QDenseUndirected_old``, ``QDenseUndirected_old_noise``),
+``QNN_A``, the QNN pair (``QNN_noise``, ``QNN``), ``QIDDM_LL_noise`` and
+the PCA-down family (``QIDDM_PL``, ``QIDDM_PL_old``, ``QIDDM_PL_noise``,
+``QIDDM_PL_noise1``), each at ``add_noise=0``; the rest of the zoo is
+ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import operator as _op
 import torch
 
 from .core import QDense as _QDenseModule
+from .core import QNNA as _QNNAModule
 from .core import QNNDense as _QNNDenseModule
 from .core import Reupload as _ReuploadModule
 from .shim import DenoiserShim, _square_or_flat
@@ -104,6 +107,24 @@ class QDenseUndirected_old_noise(DenoiserShim):
                            f"_w{shape[0]}_h{shape[1]}_noise{add_noise}"))
 
 
+class QNN_A(DenoiserShim):
+    """Reference nn/qdense.py:128-210: RY product state, CNOT ring."""
+
+    def __init__(self, qdepth, shape, add_noise=0,
+                 device_type="default.qubit.torch", diff_method="backprop",
+                 seed: int = 0, init_batch=None, *, device="cpu"):
+        qdepth, add_noise = _int_arg(qdepth), _int_arg(add_noise)
+        _no_noise(add_noise)
+        shape = _shape_arg(shape)
+        self.qdepth, self.add_noise = qdepth, add_noise
+        self.width, self.height = shape
+        module = _QNNAModule(qdepth, shape, generator=_generator(seed))
+        super().__init__(
+            module, shape, device=device,
+            save_name_str=(f"QNN_A{qdepth}_w{shape[0]}_h{shape[1]}"
+                           f"_noise{add_noise}"))
+
+
 # ---------------------------------------------------------------------------
 # QNN family
 # ---------------------------------------------------------------------------
@@ -161,17 +182,21 @@ class _ReuploadShim(DenoiserShim):
 
 def _qiddm(input_dim, hidden, L, N, *, down, up, save, seed, encode="rz",
            k=2, add_noise=0, noise_intensity=None):
-    """The QIDDM-L family: PauliZ readout between two projections."""
+    """The QIDDM-L family: PauliZ readout between two projections. The
+    attributes are the JAX shim's, ``add_noise`` where the class takes
+    it."""
     input_dim, hidden = _int_arg(input_dim), _int_arg(hidden)
-    L, N, add_noise = _int_arg(L), _int_arg(N), _int_arg(add_noise)
-    _no_noise(add_noise, noise_intensity)
+    L, N = _int_arg(L), _int_arg(N)
+    attrs = dict(hidden_features=hidden, spectrum_layer=L, N=N)
+    if add_noise is not None:
+        attrs["add_noise"] = add_noise = _int_arg(add_noise)
+    _no_noise(add_noise or 0, noise_intensity)
     shape = _square_or_flat(input_dim)
     module = _ReuploadModule(
         hidden, L, N, generator=_generator(seed),
         input_dim=input_dim, shape=shape, k=k, down=down, up=up,
         readout="expvalz", encode=encode)
-    return module, shape, save.format(h=hidden, L=L, N=N), dict(
-        hidden_features=hidden, spectrum_layer=L, N=N, add_noise=add_noise)
+    return module, shape, save.format(h=hidden, L=L, N=N), attrs
 
 
 class QIDDM_LL_noise(_ReuploadShim):
@@ -188,4 +213,68 @@ class QIDDM_LL_noise(_ReuploadShim):
                                        noise_intensity=noise_intensity,
                                        seed=seed,
                                        save="QIDDM_LL_noise={h}_L={L}_N={N}")
+        super().__init__(m, shape, name, device=device, **attrs)
+
+
+class QIDDM_PL(_ReuploadShim):
+    """Reference nn/qdense.py:1271-1368 (the papers' "QIDDM-L" flagship):
+    PCA down, linear up, PauliZ readout."""
+
+    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
+                 seed: int = 0, init_batch=None, *, device="cpu"):
+        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
+                                       spectrum_layer, N, down="pca",
+                                       up="linear", add_noise=None,
+                                       seed=seed,
+                                       save="QIDDM_PL={h}_L={L}_N={N}")
+        super().__init__(m, shape, name, device=device, **attrs)
+
+
+class QIDDM_PL_old(_ReuploadShim):
+    """Reference nn/qdense.py:1176-1250."""
+
+    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
+                 seed: int = 0, init_batch=None, *, device="cpu"):
+        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
+                                       spectrum_layer, N, down="pca",
+                                       up="linear", add_noise=None,
+                                       seed=seed,
+                                       save="QIDDM_PL_old_q={h}_L={L}_N={N}")
+        super().__init__(m, shape, name, device=device, **attrs)
+
+
+class QIDDM_PL_noise(_ReuploadShim):
+    """Reference nn/qdense.py:1371-1466 (a default model of the noise
+    driver, ``QIDDM_PL_noise 64 4 2 1``)."""
+
+    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
+                 add_noise=0, device_type="lightning.qubit", seed: int = 0,
+                 noise_intensity=None, init_batch=None, *, device="cpu"):
+        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
+                                       spectrum_layer, N, down="pca",
+                                       up="linear", add_noise=add_noise,
+                                       noise_intensity=noise_intensity,
+                                       seed=seed,
+                                       save="QIDDM_PL_noise={h}_L={L}_N={N}")
+        super().__init__(m, shape, name, device=device, **attrs)
+
+
+class QIDDM_PL_noise1(_ReuploadShim):
+    """Reference nn/qdense.py:565-667: PCA down, RY re-upload, PauliZ
+    readout, linear up.
+
+    Faithful quirk: the reference gives this class the same ``save_name``
+    format as ``QIDDM_PL_noise`` (reference :646 and :1466), so checkpoints
+    of the RY and the RZ circuit collide on disk; use distinct save paths
+    when training both.
+    """
+
+    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
+                 add_noise=0, device_type="lightning.qubit", seed: int = 0,
+                 init_batch=None, *, device="cpu"):
+        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
+                                       spectrum_layer, N, down="pca",
+                                       up="linear", encode="ry",
+                                       add_noise=add_noise, seed=seed,
+                                       save="QIDDM_PL_noise={h}_L={L}_N={N}")
         super().__init__(m, shape, name, device=device, **attrs)

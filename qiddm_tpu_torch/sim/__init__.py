@@ -1,7 +1,7 @@
 """qiddm_tpu_torch.sim — batched statevector simulation in PyTorch, with the
-re-uploading gate chain (``gate_kernel``) and the SEL chain
-(``sel_kernel``), each with its adjoint backward, as hand-written CUDA
-kernels."""
+re-uploading gate chains (``gate_kernel``: RZ encode; ``ry_kernel``: RY
+encode) and the SEL chain (``sel_kernel``), each with its adjoint backward,
+as hand-written CUDA kernels."""
 
 from .engine import qdense_circuit, qnn_circuit, reupload_block  # noqa: F401
 from .gate_kernel import (  # noqa: F401
@@ -9,7 +9,19 @@ from .gate_kernel import (  # noqa: F401
     gate_chain_planes,
     gate_chain_planes_plain,
 )
-from .gates import WEIGHT_MAPS, plain_tanh, qw_tanh, rot_matrix  # noqa: F401
+from .gates import (  # noqa: F401
+    WEIGHT_MAPS,
+    plain_tanh,
+    qw_tanh,
+    rot_matrix,
+    ry_matrix,
+)
+from .ry_kernel import (  # noqa: F401
+    ry_chain,
+    ry_chain_bwd_plain,
+    ry_chain_planes,
+    ry_chain_planes_plain,
+)
 from .sel import (  # noqa: F401
     cnot_ring_perm,
     cz_ring_signs,
@@ -25,12 +37,16 @@ from .sel_kernel import (  # noqa: F401
 )
 from .statevector import (  # noqa: F401
     amplitude_embed,
+    apply_1q,
+    apply_ry_all,
     apply_unitary,
     bit_table,
     expval_z,
     expval_z_from_planes,
     probs,
     probs_from_planes,
+    ry_gates,
+    ry_product_state,
     rz_phase_planes,
     rz_phases,
     z_sign_table,

@@ -2,26 +2,27 @@
 ``qiddm_tpu/sim/engine.py``: ``reupload_block``, ``qdense_circuit``,
 ``qnn_circuit``).
 
-* ``reupload_block`` (QIDDM family): L x [RZ encode -> SEL(k, CZ ring)]
-  followed by a readout.
+* ``reupload_block`` (QIDDM family): L x [RZ or RY encode -> SEL(k, CZ
+  ring)] followed by a readout.
 * ``qdense_circuit`` (Qdense family): amplitude embedding -> SEL(depth),
   CNOT ring by default -> probabilities.
-* ``qnn_circuit`` (QNN family): one RZ encode of |0...0> -> SEL(depth), CZ
-  ring by default -> PauliZ expectations or probabilities.
+* ``qnn_circuit`` (QNN family): one RZ encode of |0...0>, or the RY product
+  state (QNN_A) -> SEL(depth), CZ ring by default -> PauliZ expectations or
+  probabilities.
 
 Each takes one of two routes, chosen from the batch size:
 
 * batch < 2**wires: a gate chain on (d, B) float32 planes —
-  ``gate_kernel.gate_chain_planes`` for the re-uploading blocks,
-  ``sel_kernel.sel_chain_planes`` for the SEL chains (both rings); the
-  CUDA kernels on the card (forward, and the adjoint backward under
-  autograd), their plain versions on the CPU;
+  ``gate_kernel.gate_chain_planes`` (RZ) and ``ry_kernel.ry_chain_planes``
+  (RY) for the re-uploading blocks, ``sel_kernel.sel_chain_planes`` for
+  the SEL chains (both rings); the CUDA kernels on the card (forward, and
+  the adjoint backward under autograd), their plain versions on the CPU;
 * batch >= 2**wires: the layers composed into one unitary per block and
   applied with complex matmuls, which pays once the batch exceeds the
   state dimension; autograd differentiates it, as XLA does in JAX.
 
-Noise channels, trajectories, the mesh-sharded statevector, the RY encode,
-the re-uploading blocks' CNOT ring and the wide routes beyond the kernels'
+Noise channels, trajectories, the mesh-sharded statevector, the
+re-uploading blocks' CNOT ring and the wide routes beyond the kernels'
 width raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -34,22 +35,31 @@ import torch
 from .. import config as _config
 from .gate_kernel import gate_chain_planes
 from .gates import WEIGHT_MAPS, rot_matrix
+from .ry_kernel import ry_chain_planes
 from .sel import sel_unitaries, sel_unitary
 from .sel_kernel import sel_chain_planes
 from .statevector import (
     amplitude_embed,
     amplitude_rows,
+    apply_ry_all,
     apply_unitary,
     expval_z,
     expval_z_from_planes,
     probs,
     probs_from_planes,
+    ry_product_state,
     rz_phase_planes,
     rz_phases,
     zero_state,
 )
 
 _NOISE = "noise channels and trajectories: ROADMAP Queue 1 item 8"
+_ENCODES = ("rz", "rz_halfpi", "ry")
+
+
+def _check_encode(encode: str) -> None:
+    if encode not in _ENCODES:
+        raise ValueError(f"unknown encode {encode!r} (known: {_ENCODES})")
 
 
 def _check_chain_route(wires: int, batch: int, cdtype) -> None:
@@ -80,9 +90,7 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
             "mesh-sharded statevector: ROADMAP Queue 1 item 11")
     if noise is not None or n_traj:
         raise NotImplementedError(_NOISE)
-    if encode not in ("rz", "rz_halfpi"):
-        raise NotImplementedError(
-            f"encode={encode!r}: ROADMAP Queue 1 item 7")
+    _check_encode(encode)
     if imprimitive != "cz":
         raise NotImplementedError(
             f"imprimitive={imprimitive!r}: ROADMAP Queue 1 item 7")
@@ -99,18 +107,24 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
         _check_chain_route(wires, batch, cdtype)
         flat = block_weights.reshape(L * k, wires, 3)
         mats = rot_matrix(flat[..., 0], flat[..., 1], flat[..., 2])
-        pr, pi = rz_phase_planes(x_enc, wires)
-        sr, si = gate_chain_planes(pr, pi, mats, k, wires)
+        if encode == "ry":
+            sr, si = ry_chain_planes(x_enc, mats, k, wires)
+        else:
+            pr, pi = rz_phase_planes(x_enc, wires)
+            sr, si = gate_chain_planes(pr, pi, mats, k, wires)
         if readout == "probs":
             return probs_from_planes(sr, si)
         return expval_z_from_planes(sr, si)
 
     rdtype = cdtype.to_real()
     us = sel_unitaries(block_weights.to(rdtype), imprimitive)
-    phases = rz_phases(x_enc.to(rdtype), wires)
+    x_enc = x_enc.to(rdtype)
+    phases = None if encode == "ry" else rz_phases(x_enc, wires)
     states = zero_state(batch, wires, dtype=cdtype, device=x_enc.device)
     for u in us:
-        states = apply_unitary(states * phases, u)
+        states = (apply_ry_all(states, x_enc) if phases is None
+                  else states * phases)
+        states = apply_unitary(states, u)
     if readout == "probs":
         return probs(states)
     return expval_z(states)
@@ -182,9 +196,7 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
     """
     if noise is not None or n_traj:
         raise NotImplementedError(_NOISE)
-    if encode not in ("rz", "rz_halfpi"):
-        raise NotImplementedError(
-            f"encode={encode!r}: ROADMAP Queue 1 item 7")
+    _check_encode(encode)
     if readout not in ("probs", "expvalz"):
         raise ValueError(f"unknown readout {readout!r}")
     if cdtype is None:
@@ -194,17 +206,26 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
     if encode == "rz_halfpi":
         x = (math.pi * 0.5) * x
     if batch >= 2**wires:
-        states = zero_state(batch, wires, dtype=cdtype, device=x.device)
-        states = states * rz_phases(x.to(cdtype.to_real()), wires)
-        states = apply_unitary(states, sel_unitary(
-            w.to(cdtype.to_real()), imprimitive))
+        rdtype = cdtype.to_real()
+        if encode == "ry":
+            states = ry_product_state(x.to(rdtype), wires, dtype=cdtype)
+        else:
+            states = zero_state(batch, wires, dtype=cdtype, device=x.device)
+            states = states * rz_phases(x.to(rdtype), wires)
+        states = apply_unitary(states, sel_unitary(w.to(rdtype), imprimitive))
         return probs(states) if readout == "probs" else expval_z(states)
-    # |0...0> times the RZ phases keeps only row 0, whose phase angle is
-    # -sum_j x_j / 2: the start planes are built directly
-    angle = -0.5 * x.to(torch.float32).sum(dim=1)
-    rest = angle.new_zeros((2**wires - 1, batch))
-    sr = torch.cat([torch.cos(angle)[None], rest])
-    si = torch.cat([torch.sin(angle)[None], rest])
+    if encode == "ry":
+        # the RY product state is real
+        sr = ry_product_state(x.to(torch.float32), wires,
+                              dtype=torch.float32).T.contiguous()
+        si = torch.zeros_like(sr)
+    else:
+        # |0...0> times the RZ phases keeps only row 0, whose phase angle
+        # is -sum_j x_j / 2: the start planes are built directly
+        angle = -0.5 * x.to(torch.float32).sum(dim=1)
+        rest = angle.new_zeros((2**wires - 1, batch))
+        sr = torch.cat([torch.cos(angle)[None], rest])
+        si = torch.cat([torch.sin(angle)[None], rest])
     sr, si = _sel_small_batch(sr, si, w, imprimitive, cdtype)
     if readout == "probs":
         return probs_from_planes(sr, si)

@@ -12,10 +12,11 @@ plain version.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, from
 the sources in this checkout, into ``build/qiddm_tpu_torch/`` next to the
-package. One library holds every kernel of the port (this chain's and the
-SEL chain's of ``sel_kernel.py``); its file name carries a hash of all the
-sources and the flags, so an edit of any of them rebuilds it. It has a
-plain C interface and is bound with ``ctypes``.
+package. One library holds every kernel of the port (this chain's, the SEL
+chain's of ``sel_kernel.py`` and the RY chain's of ``ry_kernel.py``); its
+file name carries a hash of all the sources and the flags, so an edit of
+any of them rebuilds it. It has a plain C interface and is bound with
+``ctypes``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ BWD_LAUNCHES = 0
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # compiled together into one library; the header is hashed, not compiled
-_SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu")
+_SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu",
+            _CSRC / "ry_chain.cu")
 _HEADERS = (_CSRC / "chain_common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -257,6 +259,17 @@ def _library():
                    lib.sel_chain_bwd_smem_bytes):
             fn.argtypes = [ctypes.c_int] * 2
             fn.restype = ctypes.c_size_t
+        lib.ry_chain_fwd.argtypes = ([ctypes.c_void_p] * 5
+                                     + [ctypes.c_int] * 5
+                                     + [ctypes.c_void_p])
+        lib.ry_chain_fwd.restype = ctypes.c_int
+        lib.ry_chain_bwd.argtypes = ([ctypes.c_void_p] * 10
+                                     + [ctypes.c_int] * 5
+                                     + [ctypes.c_void_p])
+        lib.ry_chain_bwd.restype = ctypes.c_int
+        for fn in (lib.ry_chain_fwd_smem_bytes, lib.ry_chain_bwd_smem_bytes):
+            fn.argtypes = [ctypes.c_int] * 3
+            fn.restype = ctypes.c_size_t
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -264,11 +277,12 @@ def _library():
 
 
 def _check_cuda_inputs(what: str, planes, g8, table, table_shape,
-                       wires: int):
+                       wires: int, rows: int = 0):
     """Raise unless every tensor is contiguous on one CUDA device, the
     planes and gates float32 (the table float32 or int32), and the shapes
-    fit: planes (2**wires, B), g8 (n_layers, wires, 8), the sign or ring
-    table ``table_shape``. Returns (d, B, n_layers)."""
+    fit: planes (rows, B) with ``rows`` 2**wires unless given, g8
+    (n_layers, wires, 8), the sign or ring table ``table_shape``. Returns
+    (rows, B, n_layers)."""
     tensors = (*planes, g8, table)
     dev = planes[0].device
     if any(t.device != dev or t.device.type != "cuda" for t in tensors):
@@ -285,7 +299,7 @@ def _check_cuda_inputs(what: str, planes, g8, table, table_shape,
     d, B = planes[0].shape
     n_layers = g8.shape[0]
     if (any(t.shape != (d, B) for t in planes) or B < 1 or n_layers < 1
-            or d != 2**wires or g8.shape != (n_layers, wires, 8)
+            or d != (rows or 2**wires) or g8.shape != (n_layers, wires, 8)
             or table.shape != tuple(table_shape)):
         raise ValueError(
             f"{what}: bad shapes {[tuple(t.shape) for t in planes]}, g8 "

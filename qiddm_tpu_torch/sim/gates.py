@@ -15,6 +15,17 @@ def _unit(angle):
     return torch.complex(torch.cos(angle), torch.sin(angle))
 
 
+def ry_matrix(theta):
+    """``RY(t) = [[cos t/2, -sin t/2], [sin t/2, cos t/2]]``: a real tensor
+    of any shape -> (..., 2, 2) complex."""
+    c = torch.cos(theta / 2)
+    s = torch.sin(theta / 2)
+    m = torch.stack([torch.stack([c, -s], dim=-1),
+                     torch.stack([s, c], dim=-1)], dim=-2)
+    return m.to(torch.complex128 if m.dtype == torch.float64
+                else torch.complex64)
+
+
 def rot_matrix(phi, theta, omega):
     """General single-qubit rotation ``Rot(phi, theta, omega)``.
 

@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from .gates import ry_matrix
+
 
 @functools.lru_cache(maxsize=None)
 def bit_table(wires: int) -> np.ndarray:
@@ -90,6 +92,46 @@ def rz_phase_planes(x: torch.Tensor, wires: int):
     signs = _z_signs_on(wires, torch.float32, x.device)  # (d, w)
     angles = -0.5 * (signs @ x.to(torch.float32).T)
     return torch.cos(angles), torch.sin(angles)
+
+
+def ry_product_state(x: torch.Tensor, wires: int, *,
+                     dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    """``prod_j RY_j(x_j) |0...0>`` (AngleEmbedding with rotation 'Y'): the
+    product state whose wire j has amplitudes ``(cos x_j/2, sin x_j/2)``.
+    (batch, wires) -> (batch, 2**wires) of ``dtype``; a real ``dtype``
+    gives the real amplitudes."""
+    bits = _z_signs_on(wires, x.dtype, x.device) < 0  # (d, w): bit is 1
+    c = torch.cos(x / 2)[:, None, :]  # (b, 1, w)
+    s = torch.sin(x / 2)[:, None, :]
+    return torch.prod(torch.where(bits[None], s, c), dim=-1).to(dtype)
+
+
+def apply_1q(states: torch.Tensor, gate: torch.Tensor, wire: int,
+             wires: int) -> torch.Tensor:
+    """A single-qubit gate on ``wire`` of (batch, 2**wires) states; ``gate``
+    is (2, 2) or one per sample, (batch, 2, 2)."""
+    b = states.shape[0]
+    st = states.reshape(b, 2**wire, 2, 2 ** (wires - wire - 1))
+    if gate.ndim == 2:
+        out = torch.einsum("xy,blyr->blxr", gate, st)
+    else:
+        out = torch.einsum("bxy,blyr->blxr", gate, st)
+    return out.reshape(b, -1)
+
+
+def ry_gates(x: torch.Tensor, dtype: torch.dtype = torch.complex64):
+    """Per-sample RY matrices: (B, wires) angles -> (B, wires, 2, 2)."""
+    return ry_matrix(x).to(dtype)
+
+
+def apply_ry_all(states: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """RY(x[:, j]) on every wire j of (batch, 2**w) states (the mid-circuit
+    Y re-upload, reference nn/qdense.py:602)."""
+    wires = int(math.log2(states.shape[-1]))
+    gates = ry_gates(x, dtype=states.dtype)
+    for j in range(wires):
+        states = apply_1q(states, gates[:, j], j, wires)
+    return states
 
 
 def probs_from_planes(sr: torch.Tensor, si: torch.Tensor) -> torch.Tensor:

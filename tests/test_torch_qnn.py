@@ -1,6 +1,6 @@
 """The SEL-chain model families of qiddm_tpu_torch — Qdense
-(``QDenseUndirected_old``, ``QDenseUndirected_old_noise``) and QNN
-(``QNN_noise``, ``QNN``) — and the engine circuits beneath them
+(``QDenseUndirected_old``, ``QDenseUndirected_old_noise``), ``QNN_A`` and
+QNN (``QNN_noise``, ``QNN``) — and the engine circuits beneath them
 (``qdense_circuit``, ``qnn_circuit``) against qiddm_tpu on the CPU, with
 the JAX weights carried across by ``load_jax_variables``.
 
@@ -60,6 +60,8 @@ MODELS = [
     ("QDenseUndirected_old_noise", (60, 8), 5),
     ("QDenseUndirected_old", (5, 4), 5),
     ("QDenseUndirected_old", (5, 4), 20),
+    ("QNN_A", (6, 8), 5),
+    ("QNN_A", (4, 4), 16),
 ]
 
 
@@ -126,7 +128,8 @@ def test_qdense_circuit_matches_jax(batch, ring, weight_map):
 @pytest.mark.parametrize("batch", [3, 20], ids=["chain", "composed"])
 @pytest.mark.parametrize("readout,encode,ring", [
     ("expvalz", "rz", "cz"), ("probs", "rz", "cz"),
-    ("expvalz", "rz_halfpi", "cnot"), ("probs", "rz", "cnot")])
+    ("expvalz", "rz_halfpi", "cnot"), ("probs", "rz", "cnot"),
+    ("probs", "ry", "cnot"), ("expvalz", "ry", "cz")])
 def test_qnn_circuit_matches_jax(batch, readout, encode, ring):
     wires, depth = 4, 7
     rng = _rng(3)
@@ -162,7 +165,7 @@ def test_small_batch_circuits_run_the_sel_chain_entry(monkeypatch):
 @pytest.mark.parametrize("call,kwargs,match", [
     ("qnn", {"noise": object()}, "item 8"),
     ("qnn", {"n_traj": 4}, "item 8"),
-    ("qnn", {"encode": "ry"}, "item 7"),
+    ("qnn", {"encode": "ry", "n_traj": 4}, "item 8"),
     ("qdense", {"noise": object()}, "item 8"),
     ("qdense", {"n_traj": 4}, "item 8"),
 ])
@@ -204,7 +207,8 @@ def test_forward_matches_jax(name, args, batch):
 @pytest.mark.parametrize("name,args", [
     ("QNN_noise", (784, 8, 14)), ("QNN_noise", ("28 * 28", 8, 14, "0")),
     ("QNN", (64, 4, 3)), ("QDenseUndirected_old_noise", (60, 8)),
-    ("QDenseUndirected_old", (5, "4")), ("QDenseUndirected_old", (2, 28))])
+    ("QDenseUndirected_old", (5, "4")), ("QDenseUndirected_old", (2, 28)),
+    ("QNN_A", (6, 8)), ("QNN_A", ("3", 28, "0"))])
 def test_save_name_and_param_count_match_jax(name, args):
     jnet = getattr(jnn, name)(*args)
     tnet = getattr(tnn, name)(*args)
@@ -227,10 +231,13 @@ def test_seed_fixes_weights_and_noise_raises():
         tnn.QNN_noise(784, 8, 14, 1)
     with pytest.raises(NotImplementedError, match="item 8"):
         tnn.QDenseUndirected_old_noise(60, 8, 2)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tnn.QNN_A(6, 8, 1)
 
 
 @pytest.mark.parametrize("name,args", [("QNN_noise", (784, 8, 14)),
-                                       ("QDenseUndirected_old_noise", (60, 8))])
+                                       ("QDenseUndirected_old_noise", (60, 8)),
+                                       ("QNN_A", (6, 28))])
 def test_jax_checkpoint_round_trips_through_port(tmp_path, name, args):
     jnet = getattr(jnn, name)(*args, seed=7)
     path = jckpt.save_checkpoint(tmp_path / "jax.pt", jnet.variables,
@@ -283,7 +290,7 @@ def assert_grads_close(got: dict, want: dict, tol=GRAD_TOL,
     ("QNN", (64, 4, 3), 1), ("QNN", (64, 4, 3), 6),
     ("QNN_noise", (64, 6, 5), 2),
     ("QDenseUndirected_old", (5, 4), 1), ("QDenseUndirected_old", (5, 4), 6),
-    ("QDenseUndirected_old_noise", (4, 8), 2)])
+    ("QDenseUndirected_old_noise", (4, 8), 2), ("QNN_A", (5, 8), 1)])
 def test_training_step_matches_jax_grad(name, args, batch):
     """batch x T=3 rows below 2^w run the SEL chain (its autograd Function
     on the CPU), at or above it the composed unitary."""

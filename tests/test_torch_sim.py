@@ -2,11 +2,11 @@
 inputs through both packages.
 
 Tolerances: the closed forms (gates, tables, phases, readouts, composed
-unitaries) agree to <= 1e-6 at float32 — a few ulp of cos/sin/exp and of
-64-term sums. ``reupload_block`` runs up to 28 gate layers through
-different formulations in the two packages (gate chain or composed
-unitaries here, per-layer unitaries or composed unitaries in JAX), so it is
-held to <= 1e-5.
+unitaries, the RY product state and RY gates) agree to <= 1e-6 at float32
+— a few ulp of cos/sin/exp and of 64-term sums. ``reupload_block`` runs up
+to 28 gate layers through different formulations in the two packages (the
+RZ or RY gate chain or composed unitaries here, per-layer unitaries or
+composed unitaries in JAX), so it is held to <= 1e-5.
 """
 
 import jax.numpy as jnp
@@ -92,7 +92,9 @@ def test_sel_unitaries_match_jax(wires, k):
 @pytest.mark.parametrize("batch", [5, 20])
 @pytest.mark.parametrize("readout,encode", [("probs", "rz"),
                                             ("expvalz", "rz"),
-                                            ("expvalz", "rz_halfpi")])
+                                            ("expvalz", "rz_halfpi"),
+                                            ("expvalz", "ry"),
+                                            ("probs", "ry")])
 def test_reupload_block_matches_jax(batch, readout, encode):
     wires, L, k = 4, 3, 2
     rng = _rng(4)
@@ -111,7 +113,7 @@ def test_reupload_block_matches_jax(batch, readout, encode):
     ({"noise": object()}, "item 8"),
     ({"n_traj": 4}, "item 8"),
     ({"mesh": object()}, "item 11"),
-    ({"encode": "ry"}, "item 7"),
+    ({"encode": "ry", "noise": object()}, "item 8"),
     ({"imprimitive": "cnot"}, "item 7"),
 ])
 def test_reupload_block_unported_options_raise(kwargs, item):
@@ -119,6 +121,49 @@ def test_reupload_block_unported_options_raise(kwargs, item):
     w = torch.zeros(1, 2, 3, 3)
     with pytest.raises(NotImplementedError, match=item):
         tengine.reupload_block(x, w, **kwargs)
+
+
+def test_reupload_block_ry_runs_the_ry_chain_below_2_to_the_w(monkeypatch):
+    from qiddm_tpu_torch.sim import ry_kernel
+
+    calls = []
+    real = ry_kernel._RyChain.apply
+
+    def spy(*a):
+        calls.append(a[2:])
+        return real(*a)
+
+    monkeypatch.setattr(ry_kernel._RyChain, "apply", spy)
+    w = torch.rand(2, 3, 4, 3)
+    tsim.reupload_block(torch.rand(5, 4), w, encode="ry")
+    tsim.reupload_block(torch.rand(16, 4), w, encode="ry")  # composed
+    assert calls == [(3, 4)]
+    with pytest.raises(ValueError, match="unknown encode"):
+        tsim.reupload_block(torch.rand(5, 4), w, encode="rx")
+
+
+def test_ry_pieces_match_jax():
+    rng = _rng(6)
+    x = rng.normal(size=(5, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        tsim.ry_matrix(torch.as_tensor(x)).numpy(),
+        np.asarray(jsim.ry_matrix(jnp.asarray(x))), atol=CLOSED_FORM_TOL)
+    np.testing.assert_allclose(
+        tsv.ry_product_state(torch.as_tensor(x), 3).numpy(),
+        np.asarray(jsv.ry_product_state(jnp.asarray(x), 3)),
+        atol=CLOSED_FORM_TOL)
+    st = rng.normal(size=(2, 5, 8)).astype(np.float32)
+    states = st[0] + 1j * st[1]
+    np.testing.assert_allclose(
+        tsv.apply_ry_all(torch.as_tensor(states), torch.as_tensor(x)).numpy(),
+        np.asarray(jsv.apply_ry_all(jnp.asarray(states), jnp.asarray(x))),
+        atol=CLOSED_FORM_TOL)
+    gate = tsim.ry_matrix(torch.as_tensor(x[0, 0]))
+    np.testing.assert_allclose(
+        tsv.apply_1q(torch.as_tensor(states), gate, 1, 3).numpy(),
+        np.asarray(jsv.apply_1q(jnp.asarray(states),
+                                jnp.asarray(gate.numpy()), 1, 3)),
+        atol=CLOSED_FORM_TOL)
 
 
 def test_x64_switch_runs_composed_route_in_complex128():
