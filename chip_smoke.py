@@ -11,8 +11,8 @@ caught:
 
 1. device: a CUDA device must be present; prints torch, CUDA, the card and
    its power limit (nvidia-smi);
-2. build: compiles qiddm_tpu_torch/csrc/*.cu (all six kernels; one nvcc
-   per source, started together, then one link) for sm_90a into
+2. build: compiles qiddm_tpu_torch/csrc/*.cu (all seven kernels; one
+   nvcc per source, started together, then one link) for sm_90a into
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
    PyTorch version on the card, at w in {1, 4, 6, 8, 10} x B in
@@ -75,15 +75,42 @@ caught:
    under torch.profiler: device events, busy time and idle share per step,
    the RY kernels' share; the step, the PCA fit and eigh alone on the host
    clock;
-12. times: median of 20 runs of each kernel and of its plain version (the
+12. density-matrix kernel against plain: kernel #8 against its plain
+   PyTorch version at w in {1, 2, 4, 6, 7, 8} x B in {1, 10} x channel
+   kinds {amplitude damping, depolarizing, phase damping} x encodes {RZ, RY}
+   x strengths {0.05, 0.8}, (L, k) = (6, 2), and at the two QIDDM shapes of
+   the sweep, (w=6, B=10, L=14, RZ) and (w=8, B=10, L=6, RY), at strength
+   0.3: max |rho_kernel - rho_plain| <= 1e-5, rho Hermitian and of trace 1
+   within 1e-5;
+13. the noisy sweep: a seeded fashion_28.npz (500 images, 50 per label) in
+   the temporary data directory, then qiddm_tpu_torch.cli.fashion_noise
+   --all-noise-types --device cuda with QIDDM_LL_noise 784 6 14 2,
+   QIDDM_PL_noise1 784 8 6 2 and QNN_noise 784 8 6, --epochs 1 and a fresh
+   save path: each model trains clean, then samples 10 start images x 20
+   iterations under phase damping, amplitude damping and depolarizing at
+   intensities 0.1, 0.2, 0.3, 0.5, 0.8 on the density-matrix backend, and
+   each grid is scored (SSIM, PSNR, cosine, FID). Every score must be
+   finite, and each QIDDM model must launch kernel #8 at least 600 times
+   (2 blocks x 20 iterations x 15 settings), QNN_noise the SEL chain at
+   least 600 times (both sides of rho x 20 x 15). Then, at intensity 0.3 of
+   each channel, the first 3 iterations from the same trained weights and
+   start images on the CPU plain path, within 1e-4 of the card's
+   (QIDDM_PL_noise1 step by step, as in phase 9);
+14. profile: 5 steady noisy QIDDM_PL_noise1 denoise iterations (10 images,
+   amplitude damping at 0.3, seeded weights) under torch.profiler: device
+   events, busy time and idle share per iteration, kernel #8's share of the
+   busy time; the iteration on the host clock;
+15. times: median of 20 runs of each kernel and of its plain version (the
    gate-chain forward at w=6, B=16, L*k=28 and its backward at B=10 and
    B=16; the SEL chain forward and backward at w=8, depth 14, B=10 and 16,
    CZ, and at w=6, depth 60, B=10, CNOT; the RY chain forward and backward
-   at w=8, B=10, L*k=12 and at w=6, B=11, L*k=28), each beside its bound
-   (the larger of its arithmetic over 67 TFLOP/s and its bytes, each input
-   read once and each output written once, over 3.35 TB/s), the sampling
-   images/s of each model and the training images/s of each trained model
-   in its second epoch.
+   at w=8, B=10, L*k=12 and at w=6, B=11, L*k=28; the density-matrix
+   block, depolarizing, at the sweep's two QIDDM shapes), each beside its
+   bound (the larger of its arithmetic over 67 TFLOP/s and its bytes, each
+   input read once and each output written once, over 3.35 TB/s), the
+   sampling images/s of each model, the training images/s of each trained
+   model in its second epoch, and the sweep's noisy sampling images/s per
+   model and its wall split into training, sampling and scoring.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -109,12 +136,13 @@ from qiddm_tpu_torch.ckpt import (export_jax_variables, load_checkpoint,
                                   load_jax_variables, save_checkpoint)
 from qiddm_tpu_torch import data as data_mod
 from qiddm_tpu_torch.cli import common
-from qiddm_tpu_torch.cli import mnist_exm
+from qiddm_tpu_torch.cli import fashion_noise, mnist_exm, noise_common
 from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
 from qiddm_tpu_torch.pca import pca_fit_transform
-from qiddm_tpu_torch.sim import gate_kernel, ry_kernel, sel_kernel
+from qiddm_tpu_torch.sim import dm_kernel, gate_kernel, ry_kernel, sel_kernel
 from qiddm_tpu_torch.sim.gates import rot_matrix
+from qiddm_tpu_torch.sim.statevector import rz_phases
 
 SEED = 0
 KERNEL_TOL = 1e-5   # unit-norm f32 states over up to 60 layers
@@ -141,6 +169,16 @@ RY_CASES = ([(w, b, n, k) for w in (1, 3, 6) for b in (1, 5)
              for n, k in ((4, 2), (12, 3), (12, 2))]
             + [(8, 10, 12, 2), (8, 16, 12, 2), (10, 80, 28, 2),
                (6, 11, 28, 2)])
+DM_KINDS = ("amplitude_damping", "depolarizing", "phase_damping")
+# (w, B, L, k, RY encode, strengths)
+DM_CASES = ([(w, b, 6, 2, ry, (0.05, 0.8)) for w in (1, 2, 4, 6, 7, 8)
+             for b in (1, 10) for ry in (False, True)]
+            + [(6, 10, 14, 2, False, (0.3,)), (8, 10, 6, 2, True, (0.3,))])
+DM_TOL = 1e-5       # rho of trace 1 through up to 14 spectrum layers
+SWEEP_MODELS = [MODEL, PL_MODEL, ["QNN_noise", "784", "8", "6"]]
+SWEEP_TYPES = (1, 2, 3)
+SWEEP_ITERS = 20    # tau_test = 2 tau
+SWEEP_CHECK = 0.3   # the intensity held against the CPU
 # the card's published peaks (H100 SXM, 700 W): float32 outside the tensor
 # cores, and device memory
 PEAK_FLOPS = 67e12
@@ -156,13 +194,15 @@ def reset_counts() -> None:
     gate_kernel.LAUNCHES = gate_kernel.BWD_LAUNCHES = 0
     sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
     ry_kernel.RY_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
+    dm_kernel.DM_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     return {"gate": gate_kernel.LAUNCHES, "gate_bwd": gate_kernel.BWD_LAUNCHES,
             "sel": sel_kernel.SEL_LAUNCHES,
             "sel_bwd": sel_kernel.SEL_BWD_LAUNCHES,
-            "ry": ry_kernel.RY_LAUNCHES, "ry_bwd": ry_kernel.RY_BWD_LAUNCHES}
+            "ry": ry_kernel.RY_LAUNCHES, "ry_bwd": ry_kernel.RY_BWD_LAUNCHES,
+            "dm": dm_kernel.DM_LAUNCHES}
 
 
 def chain_inputs(rng, wires: int, batch: int, n_layers: int, device):
@@ -184,8 +224,11 @@ def phase_device() -> tuple[str, str]:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {kind}, count {torch.cuda.device_count()}")
+    import scipy
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, numpy "
+          f"{np.__version__}, scipy {scipy.__version__}, device {kind}, "
+          f"count {torch.cuda.device_count()}")
     print(smi)
     return kind, smi
 
@@ -425,6 +468,47 @@ def phase_ry_bwd_vs_plain(dev) -> float:
     return worst
 
 
+def _density_errors(rho) -> tuple[float, float]:
+    """max |rho - rho^dagger| and max |tr rho - 1| over the batch."""
+    herm = (rho - rho.conj().transpose(-1, -2)).abs().max().item()
+    trace = torch.diagonal(rho, dim1=-2, dim2=-1).sum(-1)
+    return herm, (trace - 1).abs().max().item()
+
+
+def phase_dm_vs_plain(dev) -> float:
+    """Kernel #8 against its plain version; returns the worst max |diff|."""
+    rng = np.random.default_rng(SEED + 7)
+    worst = 0.0
+    for w, b, n_spec, k, ry, strengths in DM_CASES:
+        ang = torch.as_tensor(rng.normal(size=(n_spec * k, w, 3)),
+                              dtype=torch.float32, device=dev)
+        x = torch.as_tensor(2 * rng.normal(size=(b, w)), dtype=torch.float32,
+                            device=dev)
+        mats = rot_matrix(ang[..., 0], ang[..., 1], ang[..., 2])
+        enc = x if ry else rz_phases(x, w)
+        errs = []
+        for kind in DM_KINDS:
+            for g in strengths:
+                got = dm_kernel.dm_chain(enc, mats, k, w, kind, g, ry=ry)
+                want = dm_kernel.dm_chain_plain(enc, mats, k, w, kind, g,
+                                                ry=ry)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                herm, trace = _density_errors(got)
+                errs.append(err)
+                if not (err <= DM_TOL and herm <= DM_TOL
+                        and trace <= DM_TOL):
+                    fail(f"dm kernel at w={w} B={b} L={n_spec} k={k} "
+                         f"{'ry' if ry else 'rz'} {kind} {g}: |diff| "
+                         f"{err:.3e}, Hermitian {herm:.3e}, trace "
+                         f"{trace:.3e} > {DM_TOL}")
+        worst = max(worst, *errs)
+        print(f"dm kernel vs plain w={w} B={b} L={n_spec} k={k} "
+              f"{'ry' if ry else 'rz'}, 3 kinds x {len(strengths)} "
+              f"strengths: max|diff| {max(errs):.3e}")
+    return worst
+
+
 def phase_pca_on_card(side: int) -> None:
     """QIDDM_PL_noise1 refits a PCA on every forward batch: the projection
     of the sampler's first start batch (16 random images, 8 components),
@@ -517,6 +601,139 @@ def write_dataset(data_dir: pathlib.Path) -> int:
     np.savez(data_dir / "mnist_28.npz", x=x, y=y)
     data_mod.DATA_DIR = data_dir
     return int((y == LABEL).sum() * 0.8)
+
+
+def write_fashion(data_dir: pathlib.Path) -> None:
+    """A seeded stand-in for FashionMNIST: 500 28x28 uint8 images, labels
+    0-9 in turn, as ``fashion_28.npz`` beside ``mnist_28.npz``."""
+    rng = np.random.default_rng(SEED + 8)
+    x = (rng.uniform(size=(500, 28, 28)) ** 2 * 255).astype(np.uint8)
+    np.savez(data_dir / "fashion_28.npz", x=x, y=np.arange(500) % 10)
+
+
+_SAMPLED = re.compile(
+    r"noise sweep (\S+): sampled (\d+) intensities x (\d+) images x (\d+) "
+    r"iterations on (\S+) in ([0-9.]+) s \(([0-9.]+) images/s\)")
+_SCORED = re.compile(r"noise sweep (\S+): scored \d+ intensities in "
+                     r"([0-9.]+) s")
+
+
+class _Forward(io.StringIO):
+    """Keeps what a driver prints, and passes its progress lines on."""
+
+    def write(self, text):
+        for line in text.splitlines():
+            if line.startswith(("noise sweep", "trained ")):
+                print(line, file=sys.__stdout__, flush=True)
+        return super().write(text)
+
+
+def phase_sweep(tmp: pathlib.Path) -> tuple[dict, dict, dict]:
+    """fashion_noise --all-noise-types on the card with SWEEP_MODELS;
+    returns the launch counts of the run, each model's launches while it
+    sampled (by save name), and the sweep's rates and walls."""
+    argv = ["--all-noise-types", "--device", "cuda", "--epochs", "1",
+            "--save-path", f"{tmp}/sweep_", "--load-path", f"{tmp}/sweep_"]
+    for margs in SWEEP_MODELS:
+        argv += ["--model", *margs]
+    sampling = {}
+    real = noise_common._sample_grids
+
+    def counted(diff, *args, **kwargs):
+        before = read_counts()
+        out = real(diff, *args, **kwargs)
+        acc = sampling.setdefault(diff.save_name(), {})
+        for c, n in read_counts().items():
+            acc[c] = acc.get(c, 0) + n - before[c]
+        return out
+
+    printed = _Forward()
+    noise_common._sample_grids = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed), contextlib.chdir(tmp):
+            results = fashion_noise.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        noise_common._sample_grids = real
+    text = printed.getvalue()
+    print(f"sweep: launches {counts}; while sampling, by model {sampling}")
+    names = [m[0] for m in SWEEP_MODELS]
+    if sorted(results) != sorted(names):
+        fail(f"fashion_noise scored {sorted(results)}, not {names}")
+    for name, per_type in results.items():
+        if sorted(per_type) != list(SWEEP_TYPES):
+            fail(f"{name}: noise types {sorted(per_type)}")
+        for scores in per_type.values():
+            for metric, values in scores.items():
+                if len(values) != 5 or not np.isfinite(values).all():
+                    fail(f"{name} {metric}: {values} are not 5 finite scores")
+    settings = len(SWEEP_TYPES) * 5
+    for margs in SWEEP_MODELS:
+        key = common.build_model(margs).save_name()
+        counter, per_iter = ("sel", 2) if margs[0] == "QNN_noise" else ("dm",
+                                                                         2)
+        want = per_iter * SWEEP_ITERS * settings
+        got = sampling.get(key, {}).get(counter, 0)
+        if got < want:
+            fail(f"{margs[0]}: {got} {counter} launches while sampling < "
+                 f"{want}: the noisy sweep did not run the kernel")
+    sampled = _SAMPLED.findall(text)
+    if len(sampled) != len(names) * len(SWEEP_TYPES) or not all(
+            m[4].startswith("cuda") for m in sampled):
+        fail(f"the sweep printed {len(sampled)} sampling lines on "
+             f"{sorted(set(m[4] for m in sampled))}")
+    rates = {}
+    for name, *_, rate in sampled:
+        rates.setdefault(name, []).append(float(rate))
+    walls = {"total": wall,
+             "sampling": sum(float(m[5]) for m in sampled),
+             "scoring": sum(float(w) for _, w in _SCORED.findall(text))}
+    return counts, sampling, {"rates": rates, "walls": walls}
+
+
+def phase_sweep_parity(tmp: pathlib.Path) -> None:
+    """At intensity SWEEP_CHECK of each channel, the first 3 iterations of
+    each swept model on the CPU plain path, from the sweep's trained
+    checkpoint and start images, against the card's cached grid."""
+    args = fashion_noise.parse_args([])
+    first_x = common.make_first_x(args)
+    for margs in SWEEP_MODELS:
+        net = common.build_model(margs, device="cpu")
+        name = net.save_name()
+        ckpt = tmp / f"sweep_0/noise_0/{name}_0.pt"
+        load_jax_variables(net, load_checkpoint(ckpt)["model_state_dict"])
+        stepwise = margs[0] == "QIDDM_PL_noise1"
+        for code in SWEEP_TYPES:
+            noisy = common.with_noise(net, code, SWEEP_CHECK)
+            diff = Diffusion(noisy, shape=(28, 28))
+            with contextlib.redirect_stdout(io.StringIO()):
+                grid = common.load_outp(diff, tmp / f"sweep_0/noise_{code}",
+                                        SWEEP_CHECK)
+            if grid is None:
+                fail(f"no cached grid of {name} at add_noise={code}")
+            card = torch.as_tensor(grid).reshape(
+                SWEEP_ITERS + 1, 28, len(first_x), 28).permute(
+                0, 2, 1, 3)[:, :, None]
+            with torch.no_grad():
+                ref = diff.sample_stack_fn(first_x, 3)
+                drift = (ref[1:] - card[1:4]).abs().max().item()
+                if stepwise:
+                    err = max((noisy(card[t]) - card[t + 1]).abs().max().item()
+                              for t in range(3))
+                else:
+                    err = drift
+            print(f"sweep {margs[0]} add_noise={code} at {SWEEP_CHECK}: "
+                  f"3 iterations against the CPU plain path max|diff| "
+                  f"{err:.3e}" + (f" step by step (free-running "
+                                  f"{drift:.3e}, not held)"
+                                  if stepwise else ""))
+            if not err <= SAMPLE_TOL:
+                fail(f"{margs[0]} add_noise={code}: the card's noisy "
+                     f"iterations differ from the CPU plain path: "
+                     f"{err:.3e} > {SAMPLE_TOL}")
 
 
 def phase_train(tmp: pathlib.Path, n_train: int, models: list,
@@ -727,6 +944,48 @@ def phase_profile_pl(tmp: pathlib.Path, smi: str) -> None:
     print(top)
 
 
+def phase_profile_noisy_pl(smi: str) -> None:
+    """Where a noisy QIDDM_PL_noise1 denoise iteration's time goes, at the
+    sweep's shape (10 start images, amplitude damping at SWEEP_CHECK,
+    seeded weights): 5 steady iterations of the sampler under
+    torch.profiler give the device events, the device busy time and the
+    idle share per iteration and kernel #8's share of the busy time; the
+    iteration is also timed on the host clock without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    net = common.build_model(SWEEP_MODELS[1], seed=SEED, device="cuda")
+    diff = Diffusion(common.with_noise(net, 2, SWEEP_CHECK), shape=(28, 28))
+    first_x = common.make_first_x(fashion_noise.parse_args([])).to("cuda")
+    iters = 5
+    diff.sample(first_x=first_x, n_iters=1)  # warm-up
+    iter_ms = _host_ms(lambda: diff.sample(first_x=first_x,
+                                           n_iters=iters)) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        diff.sample(first_x=first_x, n_iters=iters)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    dm = [e.time_range.elapsed_us() for e in dev if "dm_chain" in e.name]
+    if len(dm) < 2 * iters:
+        fail(f"{len(dm)} dm-chain kernels in {iters} profiled noisy "
+             f"QIDDM_PL_noise1 iterations, not {2 * iters}")
+    print(f"profile noisy QIDDM_PL_noise1 sampling ({smi}), {iters} "
+          f"iterations of {len(first_x)} images, amplitude damping at "
+          f"{SWEEP_CHECK}: {len(dev) / iters:.1f} device events per "
+          f"iteration, device busy {busy / iters / 1e3:.4f} ms per "
+          f"iteration, idle share {1 - busy / wall_us:.3f} of "
+          f"{wall_us / iters / 1e3:.3f} ms per profiled iteration; kernel #8 "
+          f"{len(dm) / iters:.1f} calls, {sum(dm) / iters:.1f} us per "
+          f"iteration ({sum(dm) / busy:.3f} of busy); iteration without the "
+          f"profiler {iter_ms:.3f} ms (host clock, median of 20 runs of "
+          f"{iters}, each ending in a synchronise)")
+
+
 def _median_ms(fn, runs: int = 20) -> float:
     times = []
     for _ in range(runs):
@@ -793,6 +1052,27 @@ def bound_ry(w, b, n, k, bwd: bool) -> tuple[float, str]:
                   4 * (2 * w * b + g + k * d + 4 * d * b + g + 2 * w * b))
 
 
+# The density-matrix block, per sample and per d^2 elements of rho, per
+# spectrum layer: a 2x2 complex gate on both sides of one wire is 28 d^2
+# flops (14 an output element a side), the CZ signs 2 d^2 a SEL layer, the
+# RY encode on both sides 12 d^2 a wire, the RZ encode 6 d^2 (one complex
+# multiply; forming the phase products, 6 d^2, once a call), a channel on
+# one wire 2.5 d^2 (amplitude damping), 4.5 d^2 (depolarizing) or d^2
+# (phase damping). Bytes: the encode, the gates and the strength read once,
+# rho (complex64) written once.
+_DM_CHANNEL_FLOPS = {"amplitude_damping": 2.5, "depolarizing": 4.5,
+                     "phase_damping": 1.0}
+
+
+def bound_dm(w, b, n_spec, k, ry, kind) -> tuple[float, str]:
+    dd = 4**w
+    per_layer = ((12 * w if ry else 6) + _DM_CHANNEL_FLOPS[kind] * w
+                 + k * (28 * w + 2))
+    flops = b * dd * (n_spec * per_layer + (0 if ry else 6))
+    enc = 2 * w * b if ry else 2 * 2**w * b
+    return _bound(flops, 4 * (enc + n_spec * k * w * 8 + 1) + 8 * b * dd)
+
+
 def bound_sel(w, b, depth, ring, bwd: bool) -> tuple[float, str]:
     d, g = 2**w, depth * w * 8
     sign = 2 if ring == "cz" else 0  # a CNOT ring moves, it computes nothing
@@ -847,6 +1127,19 @@ def phase_times(dev, smi: str) -> dict:
             lambda: ry_kernel._ry_chain_bwd_cuda(*args, k, w),
             lambda: ry_kernel.ry_chain_bwd_plain(*args, k, w)
         ) + bound_ry(w, b, n_layers, k, True)
+    for w, b, n_spec, ry in ((6, 10, 14, False), (8, 10, 6, True)):
+        ang = torch.as_tensor(rng.normal(size=(n_spec * 2, w, 3)),
+                              dtype=torch.float32, device=dev)
+        x = torch.as_tensor(rng.normal(size=(b, w)), dtype=torch.float32,
+                            device=dev)
+        mats = rot_matrix(ang[..., 0], ang[..., 1], ang[..., 2])
+        enc = x if ry else rz_phases(x, w)
+        g8 = gate_kernel._to_g8(mats)
+        times[f"dm_fwd{w}"] = _paired_ms(
+            lambda: dm_kernel._dm_chain_cuda(enc, g8, 0.3, 2, w, 1, ry),
+            lambda: dm_kernel.dm_chain_plain(enc, mats, 2, w, "depolarizing",
+                                             0.3, ry=ry)
+        ) + bound_dm(w, b, n_spec, 2, ry, "depolarizing")
     for key, (kern, plain, bound, by) in times.items():
         print(f"times {key} ({smi}): kernel {kern:.4f} ms, plain "
               f"{plain:.4f} ms ({_HOW}); bound {bound:.3e} ms ({by}), "
@@ -868,6 +1161,8 @@ def main() -> None:
     with torch.no_grad():
         ry_err = phase_ry_vs_plain(dev)
     ry_bwd_err = phase_ry_bwd_vs_plain(dev)
+    with torch.no_grad():
+        dm_err = phase_dm_vs_plain(dev)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         sampled, rates = {}, {}
@@ -886,6 +1181,10 @@ def main() -> None:
         for margs, images in ((MODEL, 1), (QNN_MODEL, 1), (PL_MODEL, 10)):
             phase_train_parity(tmp, margs, images)
         phase_profile_pl(tmp, smi)
+        write_fashion(tmp / "data")
+        swept, sweep_sampling, sweep = phase_sweep(tmp)
+        phase_sweep_parity(tmp)
+    phase_profile_noisy_pl(smi)
     with torch.no_grad():
         times = phase_times(dev, smi)
     for name, rate in rates.items():
@@ -894,29 +1193,46 @@ def main() -> None:
     for name, rate in train_rates.items():
         print(f"train {name}: {rate:.1f} training images/s in epoch 2 "
               f"(batch 1, tau {TAU}; {smi})")
+    for name, per_type in sweep["rates"].items():
+        print(f"sweep {name}: noisy sampling on the dm backend "
+              f"{np.mean(per_type):.2f} images/s (10 images x {SWEEP_ITERS} "
+              f"iterations x 5 intensities per type; per type "
+              f"{', '.join(f'{r:.2f}' for r in per_type)}; {smi})")
+    walls = sweep["walls"]
+    print(f"sweep wall {walls['total']:.1f} s: sampling "
+          f"{walls['sampling']:.1f} s, scoring on the host "
+          f"{walls['scoring']:.1f} s, the rest (loading, clean training) "
+          f"{walls['total'] - walls['sampling'] - walls['scoring']:.1f} s "
+          f"({smi})")
     launches = {c: sum(s[c] for s in sampled.values()) + trained[c]
-                + pl_trained[c] for c in trained}
+                + pl_trained[c] + swept[c] for c in trained}
     print(f"launches: sampling {sampled}, training {trained}, "
-          f"QIDDM_PL_noise1 training {pl_trained}")
+          f"QIDDM_PL_noise1 training {pl_trained}, noisy sweep {swept} "
+          f"(while sampling, by model {sweep_sampling})")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"
-    rows = [  # name, source, TPU kernel line, counter, error, times key
-        ("gate_chain_fwd", "gate_chain.cu", 130, "gate", max_err, "fwd"),
-        ("gate_chain_bwd", "gate_chain.cu", 197, "gate_bwd", bwd_err,
+    rows = [  # name, source, TPU kernel file:line, counter, error, times key
+        ("gate_chain_fwd", "gate_chain.cu", f"{tpu}130", "gate", max_err,
+         "fwd"),
+        ("gate_chain_bwd", "gate_chain.cu", f"{tpu}197", "gate_bwd", bwd_err,
          "bwd10"),
-        ("sel_chain_fwd", "sel_chain.cu", 365, "sel", sel_err,
+        ("sel_chain_fwd", "sel_chain.cu", f"{tpu}365", "sel", sel_err,
          "sel_fwd8_14_10_cz"),
-        ("sel_chain_bwd", "sel_chain.cu", 384, "sel_bwd", sel_bwd_err,
+        ("sel_chain_bwd", "sel_chain.cu", f"{tpu}384", "sel_bwd", sel_bwd_err,
          "sel_bwd8_14_10_cz"),
-        ("ry_chain_fwd", "ry_chain.cu", 703, "ry", ry_err, "ry_fwd8_10_12"),
-        ("ry_chain_bwd", "ry_chain.cu", 732, "ry_bwd", ry_bwd_err,
+        ("ry_chain_fwd", "ry_chain.cu", f"{tpu}703", "ry", ry_err,
+         "ry_fwd8_10_12"),
+        ("ry_chain_bwd", "ry_chain.cu", f"{tpu}732", "ry_bwd", ry_bwd_err,
          "ry_bwd8_10_12"),
+        ("dm_chain_fwd", "dm_chain.cu",
+         "qiddm_tpu/sim/pallas_dm_kernel.py:167", "dm", dm_err, "dm_fwd8"),
     ]
-    # no single PyTorch call computes a gate chain: library_ms is null
+    # no single PyTorch call computes a gate chain or the dm block:
+    # library_ms is null
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + src,
-        "replaces": f"{tpu}{line}", "launches": launches[counter],
+        "replaces": line, "launches": launches[counter],
         "max_abs_err": err, "ms": times[key][0], "plain_ms": times[key][1],
         "bound_ms": times[key][2], "bound_by": times[key][3],
         "library_ms": None,

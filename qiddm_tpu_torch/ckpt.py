@@ -7,7 +7,9 @@ one file serves both packages: the sampling CLIs of ``qiddm_tpu/`` and
 ``qiddm_tpu_torch/`` read what either one wrote.
 :func:`load_jax_variables` and :func:`export_jax_variables` carry weights
 between the flax tree and a port module: flax Dense kernels are (in, out),
-``nn.Linear`` weights are (out, in).
+``nn.Linear`` weights are (out, in). A noisy model's explicit intensity
+travels as the flax ``noise_cfg/intensity`` variable (a float32 scalar),
+which the port keeps as ``net.module.noise_intensity``.
 """
 
 from __future__ import annotations
@@ -71,11 +73,16 @@ def _flatten(tree, prefix=()) -> Dict[tuple, Any]:
     return {prefix: tree}
 
 
+_NOISE_PATH = ("noise_cfg", "intensity")
+
+
 def load_jax_variables(net, variables) -> None:
     """Copy the JAX model's variables (a numpy tree) into ``net``'s
-    parameters, in place. Raises on unknown or missing keys and on shape
-    mismatches."""
+    parameters, in place, and a ``noise_cfg/intensity`` into
+    ``net.module.noise_intensity`` (a 0-d float32 tensor on the module's
+    device). Raises on unknown or missing keys and on shape mismatches."""
     flat = _flatten(variables)
+    noise = flat.pop(_NOISE_PATH, None)
     paths = _flax_paths(net)
     want = {path for path, _ in paths.values()}
     if set(flat) != want:
@@ -94,11 +101,19 @@ def load_jax_variables(net, variables) -> None:
                     f"{'/'.join(path)}: checkpoint shape {value.shape} "
                     f"does not fit {name} of shape {tuple(p.shape)}")
             p.copy_(torch.tensor(value, dtype=p.dtype))
+    if noise is not None:
+        value = np.asarray(noise, dtype=np.float32)
+        if value.shape != ():
+            raise ValueError(f"{'/'.join(_NOISE_PATH)}: a scalar, got shape "
+                             f"{value.shape}")
+        net.module.noise_intensity = torch.tensor(
+            value, device=next(net.module.parameters()).device)
 
 
 def export_jax_variables(net) -> Dict[str, Any]:
-    """The inverse of :func:`load_jax_variables`: ``net``'s parameters as
-    the JAX model's numpy variables tree."""
+    """The inverse of :func:`load_jax_variables`: ``net``'s parameters, and
+    an explicit noise intensity as ``noise_cfg/intensity``, as the JAX
+    model's numpy variables tree."""
     tree: Dict[str, Any] = {}
     params = dict(net.module.named_parameters())
     for name, (path, transpose) in _flax_paths(net).items():
@@ -107,6 +122,13 @@ def export_jax_variables(net) -> Dict[str, Any]:
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(value.T if transpose else value)
+    # the JAX module makes the variable only for a noisy circuit
+    intensity = getattr(net.module, "noise_intensity", None)
+    if intensity is not None and net.module.add_noise != 0:
+        if torch.is_tensor(intensity):
+            intensity = intensity.detach().cpu().numpy()
+        tree[_NOISE_PATH[0]] = {_NOISE_PATH[1]: np.asarray(intensity,
+                                                           np.float32)}
     return tree
 
 

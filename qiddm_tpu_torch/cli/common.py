@@ -1,19 +1,26 @@
 """Shared driver logic (counterpart of ``qiddm_tpu/cli/common.py``).
 
 The reference drivers' argparse surface and per-label loop: load, split
-80/20, build, resume, train, save, sample (src/mnist_exm.py:334-503).
-Models and datasets resolve by name through registries instead of
-``eval``. Scoring (``metrics.*``), PNG dumps and plots are ROADMAP Queue 1
-item 10; the flags for the vmapped, profiled, orbax, trajectory and
-hardware-noise runs are rejected before any work, naming their ROADMAP item.
+80/20, build, resume, train, save, sample (src/mnist_exm.py:334-503), and
+the noise drivers' pieces: ``with_noise`` (the test-time swap to a noisy
+circuit), the sampler-output caches (``save_outp``/``load_outp``) and the
+scoring protocols of ``test``. Models and datasets resolve by name through
+registries instead of ``eval``. PNG dumps and plots need matplotlib and are
+not ported (ROADMAP Queue 1 item 10); the flags for the vmapped, profiled,
+orbax and trajectory-noise runs are rejected before any work, naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
+import pathlib
+import pickle
 import signal
 import sys
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,7 +78,8 @@ def build_parser(description: str, *, default_models, default_data: str,
     p.add_argument("--label", type=int, default=default_label,
                    help="Label used for training.")
     p.add_argument("--add_noise", type=int, default=0,
-                   help="Hardware-noise channel type (not ported: only 0).")
+                   help="Hardware-noise channel type (1-3; 4 = rotation "
+                        "angle error).")
     if with_noise_intensity:
         p.add_argument("--noise_intensity", type=float, default=0.02,
                        help="Channel strength for the noise sweep (0-1).")
@@ -108,8 +116,9 @@ def build_parser(description: str, *, default_models, default_data: str,
                         "layout); 'orbax' is not ported.")
     p.add_argument("--noise-backend", type=str, default="dm",
                    choices=["dm", "traj"],
-                   help="Channel simulation at noisy test time ('traj' is "
-                        "not ported).")
+                   help="Channel simulation at noisy test time: 'dm' (the "
+                        "exact density matrix); 'traj' (Monte-Carlo "
+                        "trajectories) is not ported.")
     p.add_argument("--n-traj", type=int, default=100,
                    help="Trajectory count for --noise-backend traj.")
 
@@ -130,16 +139,17 @@ def validate_args(args) -> None:
     """Fail fast, before any data or device work: unported flags, unknown
     or unported models (each is built once on the CPU, so an unported
     option raises here) and datasets, and ``--device cuda`` on a host
-    without CUDA."""
+    without CUDA. ``--add_noise`` and ``--noise_intensity`` pass: the JAX
+    drivers read neither (the noise drivers sweep their own settings), and
+    every model takes its ``add_noise`` code as a ctor argument."""
     unported = {
         "--vmap-labels": (args.vmap_labels, "ROADMAP Queue 1 item 11"),
         "--profile": (args.profile, "ROADMAP Queue 1 item 10"),
         "--ckpt-backend orbax": (args.ckpt_backend == "orbax",
                                  "ROADMAP Queue 1 item 10"),
         "--noise-backend traj": (args.noise_backend == "traj",
-                                 "ROADMAP Queue 1 item 8"),
-        f"--add_noise {args.add_noise}": (args.add_noise != 0,
-                                          "ROADMAP Queue 1 item 8"),
+                                 "ROADMAP Queue 1 item 8, the trajectory "
+                                 "slice: kernel #7 and sim/trajectories.py"),
     }
     for flag, (given, item) in unported.items():
         if given:
@@ -150,7 +160,7 @@ def validate_args(args) -> None:
             raise SystemExit(f"model {m[0]!r} is not ported to "
                              f"qiddm_tpu_torch yet (ROADMAP Queue 1); "
                              f"ported: " + ", ".join(sorted(MODEL_REGISTRY)))
-        try:  # a ported name with an unported option (e.g. add_noise)
+        try:  # a ported name with an unported option
             build_model(m)
         except NotImplementedError as err:
             raise SystemExit(f"model {' '.join(map(str, m))} is not ported "
@@ -256,41 +266,137 @@ def train(diff, args, x_train, start_epoch: int, loss_values: List[float]):
     return loss_values
 
 
+def with_noise(net, add_noise: int, noise_intensity=None):
+    """A shim that shares ``net``'s trained parameters but runs its circuit
+    with hardware noise: the test-time swap to a noisy simulation
+    (``qiddm_tpu/cli/common.py:214-254``; reference
+    src/mnist_noise.py:210-230). Non-unitary channels take the
+    density-matrix backend.
+
+    The module is a shallow copy: the same parameter tensors, its own
+    ``add_noise`` and ``noise_intensity``. An explicit intensity becomes a
+    0-d float32 tensor on the module's device (the JAX package's
+    ``noise_cfg`` variable); :func:`set_noise_intensity` changes it in place
+    for the next value of a sweep. A net whose module takes no noise comes
+    back as it is."""
+    module = net.module
+    if not hasattr(module, "add_noise"):
+        return net
+    noisy = copy.copy(module)  # shares _parameters and _modules
+    noisy.add_noise = add_noise
+    noisy.noise_intensity = None
+    if noise_intensity is not None and add_noise != 0:
+        noisy.noise_intensity = torch.tensor(
+            float(noise_intensity), dtype=torch.float32,
+            device=next(module.parameters()).device)
+    clone = copy.copy(net)
+    clone._modules = dict(net._modules, module=noisy)
+    return clone
+
+
+def set_noise_intensity(net, value: float) -> None:
+    """Set the intensity of a :func:`with_noise` net in place: a fill of
+    its device tensor, no new program and no host sync."""
+    net.module.noise_intensity.fill_(float(value))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoreProtocol:
+    """How ``test()`` scales the generated and the real images, per driver
+    (the fields of ``qiddm_tpu/cli/common.py:358-389`` whose values differ
+    between the two ported drivers):
+
+    * mnist_exm (src/mnist_exm.py:206-261): generated min-max renormalized
+      to [0, 1] per step, real (x_test) min-max to [0, 1];
+    * the noise drivers (src/mnist_noise.py:240-262): generated kept in
+      [0, 255], real (x_test) min-max then x255 and clamped.
+    """
+    renorm_generated: bool = True
+    real_255: bool = False
+
+
+MNIST_PROTOCOL = ScoreProtocol()
+NOISE_PROTOCOL = ScoreProtocol(renorm_generated=False, real_255=True)
+
+
 def test(diff, args, x_test, first_x, tau_test: int = 15,
-         save_images: bool = True):
-    """Reference test() (src/mnist_exm.py:206-291) under the MNIST
-    protocol: sample ``tau_test`` iterations, clamp and scale to [0, 255],
-    min-max each step's images to [0, 1], min-max the real images; returns
-    (generated (iters+1, b, 1, h, w), real). PNG dumps are not ported."""
+         save_images: bool = True, grid=None,
+         protocol: ScoreProtocol = MNIST_PROTOCOL):
+    """Reference test() (src/mnist_exm.py:206-291): sample ``tau_test``
+    iterations (or take the sampler's ``grid``, (iters*h, b*w), from a
+    cache), clamp and scale to [0, 255], renormalize as ``protocol`` says;
+    returns (generated (iters+1, b, 1, h, w), real) as numpy. PNG dumps
+    are not ported."""
     print("Testing model")
     s = args.img_size
-    grid = diff.eval().sample(first_x=first_x.to(diff.net.device),
-                              n_iters=tau_test, only_last=False)
+    if grid is None:
+        grid = diff.eval().sample(first_x=first_x.to(diff.net.device),
+                                  n_iters=tau_test, only_last=False)
+    grid = torch.as_tensor(np.asarray(grid.cpu() if torch.is_tensor(grid)
+                                      else grid))
     outp = torch.clamp(torch.clamp(grid, 0.0, 1.0) * 255.0, 0.0, 255.0)
-    outp = outp.cpu().numpy()
+    outp = outp.numpy()
     # "(iters height) (batch width) -> iters batch 1 height width"
     gen = outp.reshape(tau_test + 1, s, -1, s).transpose(0, 2, 1, 3)[
         :, :, None].copy()
-    for step in range(gen.shape[0]):
-        g = gen[step]
-        gmin = g.reshape(len(g), -1).min(1)[:, None, None, None]
-        gmax = g.reshape(len(g), -1).max(1)[:, None, None, None]
-        gen[step] = (g - gmin) / (gmax - gmin + 1e-7)
+    if protocol.renorm_generated:
+        for step in range(gen.shape[0]):
+            g = gen[step]
+            gmin = g.reshape(len(g), -1).min(1)[:, None, None, None]
+            gmax = g.reshape(len(g), -1).max(1)[:, None, None, None]
+            gen[step] = (g - gmin) / (gmax - gmin + 1e-7)
     real = np.asarray(x_test).reshape(-1, 1, s, s)
     rmin = real.reshape(len(real), -1).min(1)[:, None, None, None]
     rmax = real.reshape(len(real), -1).max(1)[:, None, None, None]
     real = (real - rmin) / (rmax - rmin + 1e-7)
+    if protocol.real_255:
+        real = np.clip(real * 255.0, 0.0, 255.0)
     if save_images and args.save_path:
         print(f"PNG dumps are not ported ({_NOT_PORTED})")
     return gen, real
+
+
+def _outp_path(diff, path, noise_intensity) -> pathlib.Path:
+    """The sampler-output cache of one intensity: the JAX package's name,
+    so each package reads the other's (the dm backend's; the trajectory
+    backend's carry a ``_traj`` tag and are not ported)."""
+    return (pathlib.Path(path)
+            / f"{diff.save_name()}_outp_{noise_intensity}.pt")
+
+
+def save_outp(diff, args, outp, noise_intensity) -> pathlib.Path:
+    """Pickle the sampler's grid as a numpy array, as
+    ``qiddm_tpu/cli/common.py:458-467`` does."""
+    sp = _outp_path(diff, args.save_path, noise_intensity)
+    sp.parent.mkdir(parents=True, exist_ok=True)
+    grid = outp.detach().cpu().numpy() if torch.is_tensor(outp) else outp
+    with open(sp, "wb") as f:
+        pickle.dump(np.asarray(grid), f)
+    return sp
+
+
+def load_outp(diff, load_path, noise_intensity):
+    """A cached sampler grid, or None (reference src/mnist_noise.py:285-308).
+    Unpickling runs code: load only caches this project wrote."""
+    lp = _outp_path(diff, load_path, noise_intensity)
+    print(lp)
+    try:
+        with open(lp, "rb") as f:
+            out = pickle.load(f)
+        print("outp loaded successfully.\n")
+        return out
+    except FileNotFoundError:
+        print("Failed to load outp: File not found.\n")
+        return None
 
 
 def run_labels(args, labels, *, tau_test: int = 15):
     """The reference drivers' main loop (src/mnist_exm.py:334-503): per
     label, load, split 80/20, and per model build, resume, train, save and
     sample. Returns ``{model key: {"loss": [...], "generated": [...],
-    "real": [...]}}``, one entry per label in each list. Scores and plots
-    are not ported: one line says so."""
+    "real": [...]}}``, one entry per label in each list. The scores are in
+    ``metrics.py``; the driver's plots need matplotlib and are not ported:
+    one line says so."""
     validate_args(args)
     device = resolve_device(args.device)
     original_save, original_load = args.save_path, args.load_path
@@ -306,7 +412,7 @@ def run_labels(args, labels, *, tau_test: int = 15):
     for label in labels:
         args.label = label
         print(args)
-        # one hardware-noise setting (add_noise 0) is ported
+        # the reference trains clean, under noise_0
         args.save_path = original_save + str(label) + "/noise_0"
         args.load_path = original_load + str(label) + "/noise_0"
 
@@ -349,6 +455,6 @@ def run_labels(args, labels, *, tau_test: int = 15):
             entry["generated"].append(generated)
             entry["real"].append(real)
     args.save_path, args.load_path = original_save, original_load
-    print(f"SSIM/PSNR/cosine scores and plots are not ported "
+    print(f"the SSIM/PSNR/cosine plots and histograms are not ported "
           f"({_NOT_PORTED})")
     return results

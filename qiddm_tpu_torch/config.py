@@ -1,8 +1,9 @@
 """Numeric configuration and device selection for qiddm_tpu_torch.
 
-Counterpart of ``qiddm_tpu/config.py:150-208``: the complex/real dtype
-switch (complex64 by default, complex128 for tight parity work) and the
-width cap of the hand-written gate-chain kernel.
+Counterpart of ``qiddm_tpu/config.py:150-208, 370-414``: the complex/real
+dtype switch (complex64 by default, complex128 for tight parity work), the
+width cap of the hand-written gate-chain kernels and the density-matrix
+backend's two strategy switches.
 
 TF32 is switched off for every float32 product this package issues. The
 JAX simulator pins ``precision="highest"`` on its contractions because
@@ -43,6 +44,40 @@ def real_dtype() -> torch.dtype:
 
 def complex_dtype() -> torch.dtype:
     return torch.complex128 if _X64 else torch.complex64
+
+
+# Density-matrix backend (qiddm_tpu/config.py:370-414). Channel
+# application for amplitude damping and depolarizing: "perwire" closed forms
+# (a masked block pass per wire) or "grouped" superoperator contractions over
+# groups of up to 4 wires. Both are exact.
+_DM_CHANNEL_MODE = "perwire"
+# SEL application on rho: "gates" runs the block through the density-matrix
+# kernel (sim/dm_kernel.py) where it is eligible, else the SEL chain on both
+# sides of rho (density.apply_chain_two_sided); "matmul" sandwiches rho
+# between composed per-layer unitaries.
+_DM_UNITARY_MODE = "gates"
+
+
+def set_dm_channel_mode(mode: str) -> None:
+    if mode not in ("perwire", "grouped"):
+        raise ValueError(mode)
+    global _DM_CHANNEL_MODE
+    _DM_CHANNEL_MODE = mode
+
+
+def dm_channel_mode() -> str:
+    return _DM_CHANNEL_MODE
+
+
+def set_dm_unitary_mode(mode: str) -> None:
+    if mode not in ("gates", "matmul"):
+        raise ValueError(mode)
+    global _DM_UNITARY_MODE
+    _DM_UNITARY_MODE = mode
+
+
+def dm_unitary_mode() -> str:
+    return _DM_UNITARY_MODE
 
 
 def resolve_device(name) -> torch.device:

@@ -1,6 +1,6 @@
 """Dataset loaders with the reference's signatures, offline-safe
-(counterpart of ``qiddm_tpu/data.py:36-189``; ported so far: ``mnist_8x8``
-and ``mnist_28x28``).
+(counterpart of ``qiddm_tpu/data.py:36-204``; ported so far: ``mnist_8x8``,
+``mnist_28x28`` and ``fashion_28x28``).
 
 Every loader returns ``(x_flat float64 (N, pixels), y int64 (N,), height,
 width)``. ``mnist_28x28`` resolves its data in order:
@@ -10,6 +10,10 @@ width)``. ``mnist_28x28`` resolves its data in order:
 2. ``$QIDDM_DATA_DIR/mnist_28.npz`` (default ``~/qiddm_data``) with arrays
    ``x`` (N, H, W [, C]) and ``y`` (N,);
 3. sklearn's 8x8 digits resampled to 28x28, with a warning.
+
+``fashion_28x28`` resolves the same way from FashionMNIST idx files (e.g.
+``~/fashion``) and ``$QIDDM_DATA_DIR/fashion_28.npz``, and falls back to
+deterministic synthetic textures, which need no sklearn.
 
 sklearn is imported only inside the digits paths: a machine without it
 (such as the GPU host) needs 1. or 2., and a missing dataset there raises
@@ -186,4 +190,14 @@ def mnist_28x28(n_classes=10, ds_size=100):
     return _finish(imgs, labels, n_classes, ds_size, 28, 28)
 
 
-ALL_LOADERS = {"mnist_8x8": mnist_8x8, "mnist_28x28": mnist_28x28}
+def fashion_28x28(n_classes=10, ds_size=100):
+    """FashionMNIST (the noise driver ``fashion_noise``'s default)."""
+    imgs, labels = _load_mnist_like(
+        "fashion", ["~/fashion", str(DATA_DIR / "fashion")],
+        ["train-images-idx3-ubyte"], ["train-labels-idx1-ubyte"], 28,
+        fallback="texture")
+    return _finish(imgs, labels, n_classes, ds_size, 28, 28)
+
+
+ALL_LOADERS = {"mnist_8x8": mnist_8x8, "mnist_28x28": mnist_28x28,
+               "fashion_28x28": fashion_28x28}

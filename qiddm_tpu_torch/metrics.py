@@ -1,0 +1,150 @@
+"""Image scores: SSIM, PSNR, cosine and the pixel-space FID (counterpart of
+``qiddm_tpu/metrics.py:28-197``), in numpy on the host.
+
+The reference scores with skimage's ``structural_similarity`` and
+``peak_signal_noise_ratio``, a hand-written cosine mapped to [0, 1], and a
+Fréchet distance of raw pixels (not Inception features; reference
+src/metrics.py:345-356). SSIM keeps skimage's defaults, as the JAX package
+does: a 7x7 uniform window over the valid region, K1 = 0.01, K2 = 0.03, the
+unbiased covariance, and the data range of each generated image. The FID
+runs scipy's ``sqrtm`` on the host, as in the JAX package.
+
+Inputs: generated images (iters, n_gen, 1, H, W) and real images
+(n_real, 1, H, W); each ``*_iterations`` returns one score per iteration,
+the mean over every (generated, real) pair. The plots (``show_metrics``)
+need matplotlib and are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _valid_mean7(img: np.ndarray) -> np.ndarray:
+    """7x7 uniform filter over the valid region (skimage's crop), on the
+    last two axes, through an integral image."""
+    c = np.cumsum(np.cumsum(img, axis=-2), axis=-1)
+    pad = [(0, 0)] * (img.ndim - 2) + [(1, 0), (1, 0)]
+    c = np.pad(c, pad)
+    s = (c[..., 7:, 7:] - c[..., :-7, 7:] - c[..., 7:, :-7]
+         + c[..., :-7, :-7])
+    return s / 49.0
+
+
+def ssim_pair(im1, im2, data_range) -> np.ndarray:
+    """SSIM of two images (or two stacks of them, on the last two axes)
+    with skimage's defaults; ``data_range`` broadcasts over the stack."""
+    im1 = np.asarray(im1, dtype=np.float64)
+    im2 = np.asarray(im2, dtype=np.float64)
+    cov_norm = 49.0 / 48.0
+    ux, uy = _valid_mean7(im1), _valid_mean7(im2)
+    uxx, uyy = _valid_mean7(im1 * im1), _valid_mean7(im2 * im2)
+    uxy = _valid_mean7(im1 * im2)
+    vx = cov_norm * (uxx - ux * ux)
+    vy = cov_norm * (uyy - uy * uy)
+    vxy = cov_norm * (uxy - ux * uy)
+    r = np.asarray(data_range, dtype=np.float64)[..., None, None]
+    c1, c2 = (0.01 * r) ** 2, (0.03 * r) ** 2
+    num = (2.0 * ux * uy + c1) * (2.0 * vxy + c2)
+    den = (ux * ux + uy * uy + c1) * (vx + vy + c2)
+    return (num / den).mean(axis=(-2, -1))
+
+
+def _pairs(generated_images, real_images, gen_img_count, real_img_count):
+    """(I, G, H, W) generated and (R, H, W) real, cut to the counts."""
+    gen = np.asarray(generated_images, dtype=np.float32)[:, :, 0]
+    real = np.asarray(real_images, dtype=np.float32)[:, 0]
+    if gen_img_count is not None:
+        gen = gen[:, :gen_img_count]
+    if real_img_count is not None:
+        real = real[:real_img_count]
+    return gen, real
+
+
+def _gen_range(gen: np.ndarray) -> np.ndarray:
+    """Each generated image's data range, max - min: (I, G)."""
+    return gen.max(axis=(-2, -1)) - gen.min(axis=(-2, -1))
+
+
+def ssim_iterations(generated_images, real_images, gen_img_count=None,
+                    real_img_count=None) -> np.ndarray:
+    """Mean SSIM per denoise iteration over every (generated, real) pair,
+    the data range taken from the generated image (reference
+    src/metrics.py:230-242)."""
+    gen, real = _pairs(generated_images, real_images, gen_img_count,
+                       real_img_count)
+    dr = _gen_range(gen)[:, :, None]                     # (I, G, 1)
+    vals = ssim_pair(gen[:, :, None], real[None, None], dr)
+    return vals.mean(axis=(1, 2))
+
+
+def psnr_iterations(generated_images, real_images, gen_img_count=None,
+                    real_img_count=None) -> np.ndarray:
+    """Mean PSNR per iteration, ``10 log10(R^2 / mse)`` with R the
+    generated image's data range."""
+    gen, real = _pairs(generated_images, real_images, gen_img_count,
+                       real_img_count)
+    g = gen.astype(np.float64)[:, :, None]
+    err = ((real.astype(np.float64)[None, None] - g) ** 2).mean(
+        axis=(-2, -1))
+    r = _gen_range(gen).astype(np.float64)[:, :, None]
+    return (10.0 * np.log10(r * r / err)).mean(axis=(1, 2))
+
+
+def cosine_iterations(generated_images, real_images, gen_img_count=None,
+                      real_img_count=None) -> np.ndarray:
+    """Mean ``0.5 + 0.5 cos`` per iteration (reference
+    src/metrics.py:162-209)."""
+    gen, real = _pairs(generated_images, real_images, gen_img_count,
+                       real_img_count)
+    g = gen.reshape(gen.shape[0], gen.shape[1], -1).astype(np.float64)
+    r = real.reshape(real.shape[0], -1).astype(np.float64)
+    num = np.einsum("igp,rp->igr", g, r)
+    cos = num / (np.linalg.norm(g, axis=-1)[:, :, None]
+                 * np.linalg.norm(r, axis=-1)[None, None, :])
+    return (0.5 + 0.5 * cos).mean(axis=(1, 2))
+
+
+def _cov(act: np.ndarray):
+    """``np.cov(act, rowvar=False)`` as numpy before 2.2 computes it. A
+    single image (one row, as the noise drivers score with one generated
+    image) is there one variable observed at every pixel, so the
+    covariance is the scalar variance of its pixels; numpy 2.2 and later
+    read the row as one observation of every pixel and return a matrix of
+    NaN. The JAX package calls ``np.cov`` directly, so the two agree on a
+    one-image FID only on a numpy before 2.2."""
+    if act.shape[0] == 1:
+        return np.cov(act[0])
+    return np.cov(act, rowvar=False)
+
+
+def calculate_fid(act1, act2, n1=None, n2=None) -> float:
+    """Pixel-space Fréchet distance (reference src/metrics.py:345-356):
+    mean and covariance of the raw flattened pixels, scipy's ``sqrtm`` on
+    the host."""
+    from scipy.linalg import sqrtm
+
+    act1 = np.asarray(act1).reshape(n1 or len(act1), -1)
+    act2 = np.asarray(act2).reshape(n2 or len(act2), -1)
+    mu1, sigma1 = act1.mean(axis=0), _cov(act1)
+    mu2, sigma2 = act2.mean(axis=0), _cov(act2)
+    ssdiff = np.sum((mu1 - mu2) ** 2.0)
+    covmean = sqrtm(sigma1.dot(sigma2))
+    if np.iscomplexobj(covmean):
+        covmean = covmean.real
+    return float(ssdiff + np.trace(sigma1 + sigma2 - 2.0 * covmean))
+
+
+def fid_iterations(generated_images, real_images, gen_img_count=None,
+                   real_img_count=None) -> np.ndarray:
+    """:func:`calculate_fid` of each iteration's generated images against
+    the real ones."""
+    gen = np.asarray(generated_images)
+    real = np.asarray(real_images)
+    if gen_img_count is not None:
+        gen = gen[:, :gen_img_count]
+    if real_img_count is not None:
+        real = real[:real_img_count]
+    return np.asarray([calculate_fid(gen[it], real, gen.shape[1],
+                                     real.shape[0])
+                       for it in range(gen.shape[0])])

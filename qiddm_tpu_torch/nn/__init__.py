@@ -13,5 +13,7 @@ from .qdense import (  # noqa: F401
     QNN_noise,
     QDenseUndirected_old,
     QDenseUndirected_old_noise,
+    differN_noise,
+    differN_noise_befor,
 )
 from .shim import DenoiserShim  # noqa: F401

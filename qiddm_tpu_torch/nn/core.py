@@ -13,8 +13,16 @@
 Modules take NCHW images ``(b, 1, w, h)`` and return the same shape.
 Parameters carry the flax names, so ``ckpt._flax_paths`` maps them. Only
 the options the ported models use exist; the lazily fitted PCA, the conv
-projections, shared weights, per-block post-processing, BatchNorm and noise
-are ROADMAP Queue 1 items 5, 7 and 8.
+projections, shared weights, per-block post-processing and BatchNorm are
+ROADMAP Queue 1 items 5 and 7.
+
+Every family takes ``add_noise`` (the reference's code, 0-4),
+``noise_intensity`` and a noise family (the strength table of
+``engine._FAMILY_NOISE``). ``noise_intensity`` is a plain attribute: None
+(the family's strength), a float, or a 0-d float32 tensor on the module's
+device, which the JAX package keeps in its ``noise_cfg`` variables
+collection; a sweep sets it per intensity (``cli.common.with_noise``) and
+the circuit reads it where it runs, with no host round trip.
 """
 
 from __future__ import annotations
@@ -30,6 +38,14 @@ from .initializers import qweight_init
 from .layers import TorchDense, flatten_img, postprocess_probs, unflatten_img
 
 
+def _resolve_noise(mod, family: str):
+    """The module's NoiseModel, or None at ``add_noise == 0``
+    (``qiddm_tpu/nn/core.py:28-44``)."""
+    if mod.add_noise == 0:
+        return None
+    return engine.noise_from_code(mod.add_noise, family, mod.noise_intensity)
+
+
 class QDense(torch.nn.Module):
     """Amplitude-embedded dense variational circuit (reference
     ``QDenseUndirected_old``, nn/qdense.py:15-68, and its noise variant,
@@ -38,10 +54,12 @@ class QDense(torch.nn.Module):
     pixels."""
 
     def __init__(self, qdepth: int, shape: Tuple[int, int], *,
-                 generator: torch.Generator, weight_map: str = "qw_tanh"):
+                 generator: torch.Generator, weight_map: str = "qw_tanh",
+                 add_noise: int = 0, noise_intensity=None):
         super().__init__()
         self.shape = tuple(shape)
         self.weight_map = weight_map
+        self.add_noise, self.noise_intensity = add_noise, noise_intensity
         self.wires = max(1, math.ceil(math.log2(shape[0] * shape[1])))
         self.qweights = torch.nn.Parameter(
             qweight_init((qdepth, self.wires, 3), generator))
@@ -51,7 +69,8 @@ class QDense(torch.nn.Module):
         p = engine.qdense_circuit(flatten_img(x), self.qweights,
                                   wires=self.wires, pad_with=0.1,
                                   weight_map=self.weight_map,
-                                  imprimitive="cnot")
+                                  imprimitive="cnot",
+                                  noise=_resolve_noise(self, "qdense"))
         return unflatten_img(postprocess_probs(p, width * height), width,
                              height)
 
@@ -63,9 +82,11 @@ class QNNA(torch.nn.Module):
     probabilities post-processed to pixels."""
 
     def __init__(self, qdepth: int, shape: Tuple[int, int], *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, add_noise: int = 0,
+                 noise_intensity=None):
         super().__init__()
         self.shape = tuple(shape)
+        self.add_noise, self.noise_intensity = add_noise, noise_intensity
         pixels = shape[0] * shape[1]
         self.wires = max(1, math.ceil(math.log2(pixels)))
         self.linear_down = TorchDense(pixels, self.wires, generator=generator)
@@ -76,7 +97,8 @@ class QNNA(torch.nn.Module):
         width, height = self.shape
         h = self.linear_down(flatten_img(x))
         p = engine.qnn_circuit(h, self.qweights, encode="ry",
-                               imprimitive="cnot", readout="probs")
+                               imprimitive="cnot", readout="probs",
+                               noise=_resolve_noise(self, "qnn_a"))
         return unflatten_img(postprocess_probs(p, width * height), width,
                              height)
 
@@ -90,8 +112,10 @@ class QNNDense(torch.nn.Module):
     package)."""
 
     def __init__(self, input_dim: int, hidden_features: int, qdepth: int, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, add_noise: int = 0,
+                 noise_intensity=None):
         super().__init__()
+        self.add_noise, self.noise_intensity = add_noise, noise_intensity
         self.linear_down = TorchDense(input_dim, hidden_features,
                                       generator=generator)
         self.qweights = torch.nn.Parameter(
@@ -102,13 +126,15 @@ class QNNDense(torch.nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.linear_down(flatten_img(x))
         q = engine.qnn_circuit(h, self.qweights, encode="rz",
-                               imprimitive="cz", readout="expvalz")
+                               imprimitive="cz", readout="expvalz",
+                               noise=_resolve_noise(self, "qnn"))
         return self.linear_up(q).reshape(x.shape)
 
 
 _OPTIONS = {"down": ("linear", "pca"), "up": ("linear", "none"),
             "readout": ("expvalz", "probs"),
-            "encode": ("rz", "rz_halfpi", "ry"), "pca_lazy": (False,)}
+            "encode": ("rz", "rz_halfpi", "ry"), "pca_lazy": (False,),
+            "noise_family": tuple(engine._FAMILY_NOISE)}
 
 
 class Reupload(torch.nn.Module):
@@ -122,11 +148,13 @@ class Reupload(torch.nn.Module):
                  shape: Tuple[int, int] = (28, 28), k: int = 2,
                  down: str = "linear", up: str = "linear",
                  readout: str = "expvalz", encode: str = "rz",
-                 pca_lazy: bool = False):
+                 pca_lazy: bool = False, add_noise: int = 0,
+                 noise_family: str = "qiddm", noise_intensity=None):
         super().__init__()
         for name, value in (("down", down), ("up", up),
                             ("readout", readout), ("encode", encode),
-                            ("pca_lazy", pca_lazy)):
+                            ("pca_lazy", pca_lazy),
+                            ("noise_family", noise_family)):
             if value not in _OPTIONS[name]:
                 raise NotImplementedError(
                     f"Reupload {name}={value!r} is not ported (ported: "
@@ -135,6 +163,8 @@ class Reupload(torch.nn.Module):
         self.shape = tuple(shape)
         self.down, self.up = down, up
         self.readout, self.encode = readout, encode
+        self.add_noise, self.noise_family = add_noise, noise_family
+        self.noise_intensity = noise_intensity
         pixels = self.shape[0] * self.shape[1]
         if down == "linear":
             self.linear_down = TorchDense(pixels, hidden, generator=generator)
@@ -153,11 +183,12 @@ class Reupload(torch.nn.Module):
             # the reference refits the PCA on every forward batch
             # (nn/qdense.py:456)
             _, cur = pca_fit_transform(flatten_img(x), self.hidden)
+        noise = _resolve_noise(self, self.noise_family)
         for n in range(self.N):
             # each block re-encodes the first `hidden` outputs of the last
             cur = engine.reupload_block(
                 cur[:, :self.hidden], self.qweights[n], encode=self.encode,
-                imprimitive="cz", readout=self.readout)
+                imprimitive="cz", noise=noise, readout=self.readout)
         if self.up == "none":
             out = postprocess_probs(cur, width * height)
         else:

@@ -2,15 +2,18 @@
 ``qiddm_tpu/nn/qdense.py``). Same constructor signatures and byte-identical
 ``save_name()`` strings as the JAX package. Ported so far: the Qdense
 baseline (``QDenseUndirected_old``, ``QDenseUndirected_old_noise``),
-``QNN_A``, the QNN pair (``QNN_noise``, ``QNN``), ``QIDDM_LL_noise`` and
-the PCA-down family (``QIDDM_PL``, ``QIDDM_PL_old``, ``QIDDM_PL_noise``,
-``QIDDM_PL_noise1``), each at ``add_noise=0``; the rest of the zoo is
-ROADMAP Queue 1 item 7.
+``QNN_A``, the QNN pair (``QNN_noise``, ``QNN``), ``QIDDM_LL_noise``, the
+PCA-down family (``QIDDM_PL``, ``QIDDM_PL_old``, ``QIDDM_PL_noise``,
+``QIDDM_PL_noise1``) and the noise drivers' differN pair
+(``differN_noise``, ``differN_noise_befor``), each with every ``add_noise``
+code the reference knows (0-4) and, where the JAX class takes one, a
+``noise_intensity``; the rest of the zoo is ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
 
 import ast
+import math
 import operator as _op
 
 import torch
@@ -53,13 +56,6 @@ def _shape_arg(shape):
     return tuple(shape)
 
 
-def _no_noise(add_noise: int, noise_intensity=None) -> None:
-    if add_noise != 0 or noise_intensity is not None:
-        raise NotImplementedError(
-            f"add_noise={add_noise}, noise_intensity={noise_intensity}: "
-            f"noise is ROADMAP Queue 1 item 8")
-
-
 def _generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
@@ -94,12 +90,11 @@ class QDenseUndirected_old_noise(DenoiserShim):
                  device_type="default.qubit.torch", seed: int = 0,
                  init_batch=None, *, device="cpu"):
         qdepth, add_noise = _int_arg(qdepth), _int_arg(add_noise)
-        _no_noise(add_noise)
         shape = _shape_arg(shape)
         self.qdepth, self.add_noise = qdepth, add_noise
         self.width, self.height = shape
         module = _QDenseModule(qdepth, shape, generator=_generator(seed),
-                               weight_map="tanh")
+                               weight_map="tanh", add_noise=add_noise)
         self.wires = module.wires
         super().__init__(
             module, shape, device=device,
@@ -114,11 +109,11 @@ class QNN_A(DenoiserShim):
                  device_type="default.qubit.torch", diff_method="backprop",
                  seed: int = 0, init_batch=None, *, device="cpu"):
         qdepth, add_noise = _int_arg(qdepth), _int_arg(add_noise)
-        _no_noise(add_noise)
         shape = _shape_arg(shape)
         self.qdepth, self.add_noise = qdepth, add_noise
         self.width, self.height = shape
-        module = _QNNAModule(qdepth, shape, generator=_generator(seed))
+        module = _QNNAModule(qdepth, shape, generator=_generator(seed),
+                             add_noise=add_noise)
         super().__init__(
             module, shape, device=device,
             save_name_str=(f"QNN_A{qdepth}_w{shape[0]}_h{shape[1]}"
@@ -129,11 +124,11 @@ class QNN_A(DenoiserShim):
 # QNN family
 # ---------------------------------------------------------------------------
 
-def _qnn(input_dim, hidden_features, qdepth, seed):
+def _qnn(input_dim, hidden_features, qdepth, seed, add_noise=0):
     input_dim, hidden = _int_arg(input_dim), _int_arg(hidden_features)
     qdepth = _int_arg(qdepth)
     module = _QNNDenseModule(input_dim, hidden, qdepth,
-                             generator=_generator(seed))
+                             generator=_generator(seed), add_noise=add_noise)
     return module, _square_or_flat(input_dim), hidden, qdepth
 
 
@@ -144,9 +139,8 @@ class QNN_noise(DenoiserShim):
     def __init__(self, input_dim, hidden_features, qdepth, add_noise=0,
                  seed: int = 0, init_batch=None, *, device="cpu"):
         add_noise = _int_arg(add_noise)
-        _no_noise(add_noise)
         module, shape, hidden, qdepth = _qnn(input_dim, hidden_features,
-                                             qdepth, seed)
+                                             qdepth, seed, add_noise)
         self.hidden_features, self.qdepth = hidden, qdepth
         self.add_noise = add_noise
         super().__init__(
@@ -180,6 +174,50 @@ class _ReuploadShim(DenoiserShim):
             setattr(self, k, v)
 
 
+def _differn(shape, spectrum_layer, N, add_noise, seed, family):
+    """The differN (QIDDM-A) circuit: PCA down to ``wires`` =
+    ceil(log2(pixels)) components, N re-uploading blocks with the
+    probabilities readout, post-processed to pixels (``up="none"``)."""
+    shape = _shape_arg(shape)
+    L, N = _int_arg(spectrum_layer), _int_arg(N)
+    add_noise = _int_arg(add_noise)
+    wires = math.ceil(math.log2(shape[0] * shape[1]))
+    module = _ReuploadModule(wires, L, N, generator=_generator(seed),
+                             shape=shape, down="pca", up="none",
+                             readout="probs", add_noise=add_noise,
+                             noise_family=family)
+    attrs = dict(spectrum_layer=L, N=N, add_noise=add_noise, wires=wires)
+    return module, shape, attrs
+
+
+class differN_noise(_ReuploadShim):
+    """Reference nn/qdense.py:389-478 (the papers' "QIDDM-A", a default
+    model of the noise driver): the Qdense family's noise, once at the
+    end."""
+
+    def __init__(self, shape, spectrum_layer, N, add_noise=0, seed: int = 0,
+                 init_batch=None, *, device="cpu"):
+        m, shape, attrs = _differn(shape, spectrum_layer, N, add_noise, seed,
+                                   "qdense")
+        name = (f"differN_old_pca={attrs['spectrum_layer']}_N={attrs['N']}"
+                f"_w{shape[0]}_h{shape[1]}_noise{attrs['add_noise']}")
+        super().__init__(m, shape, name, device=device, **attrs)
+
+
+class differN_noise_befor(_ReuploadShim):
+    """Reference nn/qdense.py:481-562: the noise after each encode, inside
+    the re-upload loop."""
+
+    def __init__(self, shape, spectrum_layer, N, add_noise=0,
+                 device_type="default.qubit.torch", seed: int = 0,
+                 init_batch=None, *, device="cpu"):
+        m, shape, attrs = _differn(shape, spectrum_layer, N, add_noise, seed,
+                                   "differn_befor")
+        name = (f"differN_noise={attrs['spectrum_layer']}_N={attrs['N']}"
+                f"_w{shape[0]}_h{shape[1]}")
+        super().__init__(m, shape, name, device=device, **attrs)
+
+
 def _qiddm(input_dim, hidden, L, N, *, down, up, save, seed, encode="rz",
            k=2, add_noise=0, noise_intensity=None):
     """The QIDDM-L family: PauliZ readout between two projections. The
@@ -190,12 +228,12 @@ def _qiddm(input_dim, hidden, L, N, *, down, up, save, seed, encode="rz",
     attrs = dict(hidden_features=hidden, spectrum_layer=L, N=N)
     if add_noise is not None:
         attrs["add_noise"] = add_noise = _int_arg(add_noise)
-    _no_noise(add_noise or 0, noise_intensity)
     shape = _square_or_flat(input_dim)
     module = _ReuploadModule(
         hidden, L, N, generator=_generator(seed),
         input_dim=input_dim, shape=shape, k=k, down=down, up=up,
-        readout="expvalz", encode=encode)
+        readout="expvalz", encode=encode, add_noise=add_noise or 0,
+        noise_family="qiddm", noise_intensity=noise_intensity)
     return module, shape, save.format(h=hidden, L=L, N=N), attrs
 
 

@@ -1,6 +1,6 @@
-"""Circuit engine (counterpart of the clean-statevector branches of
-``qiddm_tpu/sim/engine.py``: ``reupload_block``, ``qdense_circuit``,
-``qnn_circuit``).
+"""Circuit engine (counterpart of ``qiddm_tpu/sim/engine.py``:
+``reupload_block``, ``qdense_circuit``, ``qnn_circuit`` and the noise
+models).
 
 * ``reupload_block`` (QIDDM family): L x [RZ or RY encode -> SEL(k, CZ
   ring)] followed by a readout.
@@ -10,7 +10,8 @@
   state (QNN_A) -> SEL(depth), CZ ring by default -> PauliZ expectations or
   probabilities.
 
-Each takes one of two routes, chosen from the batch size:
+Clean circuits take one of two statevector routes, chosen from the batch
+size:
 
 * batch < 2**wires: a gate chain on (d, B) float32 planes —
   ``gate_kernel.gate_chain_planes`` (RZ) and ``ry_kernel.ry_chain_planes``
@@ -21,20 +22,35 @@ Each takes one of two routes, chosen from the batch size:
   applied with complex matmuls, which pays once the batch exceeds the
   state dimension; autograd differentiates it, as XLA does in JAX.
 
-Noise channels, trajectories, the mesh-sharded statevector, the
+A :class:`NoiseModel` with a non-unitary channel (amplitude damping,
+depolarizing, phase damping) switches the circuit to the density-matrix
+backend (``sim/density.py``): in ``config.dm_unitary_mode()`` "gates" the
+re-uploading block runs whole in the density-matrix kernel
+(``dm_kernel.dm_chain``) where it is eligible, else every SEL block goes
+through the SEL chain on both sides of rho; "matmul" sandwiches rho between
+composed unitaries. The unitary kinds stay on the statevector routes: the
+rotation-angle error shifts the encoding angles, and a trailing phase shift
+leaves the probabilities as they are.
+
+The trajectory backend (``n_traj``), the mesh-sharded statevector, the
 re-uploading blocks' CNOT ring and the wide routes beyond the kernels'
 width raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 from .. import config as _config
+from . import channels as ch
+from . import density as dm
+from .dm_kernel import KIND_IDS, dm_chain
 from .gate_kernel import gate_chain_planes
-from .gates import WEIGHT_MAPS, rot_matrix
+from .gates import WEIGHT_MAPS, rot_matrix, ry_matrix
 from .ry_kernel import ry_chain_planes
 from .sel import sel_unitaries, sel_unitary
 from .sel_kernel import sel_chain_planes
@@ -53,8 +69,125 @@ from .statevector import (
     zero_state,
 )
 
-_NOISE = "noise channels and trajectories: ROADMAP Queue 1 item 8"
+_TRAJ = ("the Monte-Carlo trajectory noise backend (n_traj): ROADMAP "
+         "Queue 1 item 8, the trajectory slice")
 _ENCODES = ("rz", "rz_halfpi", "ry")
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseModel:
+    """A hardware-noise channel injected on every wire.
+
+    placement:
+      * ``"encode"`` — after each data-encoding rotation, inside every
+        spectrum layer (QIDDM family, reference nn/qdense.py:1406-1416);
+      * ``"end"`` — once at the end of the circuit (Qdense/QNN_A family,
+        reference nn/qdense.py:98-104, :174-180).
+
+    ``strength`` is a Python float or a 0-d float32 tensor on the circuit's
+    device; every consumer (Kraus builders, closed forms, the dm kernel,
+    the encode over-rotation) takes either, so a sweep sets one tensor per
+    intensity and nothing reads it back to the host.
+    """
+
+    kind: str
+    strength: object   # float | 0-d tensor
+    placement: str = "end"
+
+    @property
+    def is_unitary(self) -> bool:
+        return self.kind in ("phase_shift", "rot_angle")
+
+
+# (channel kind, strength) per reference family for add_noise codes 1..3
+_FAMILY_NOISE = {
+    # reference nn/qdense.py:98-104 (QDenseUndirected_old_noise) and
+    # :431-439 (differN_noise): noise once at circuit end
+    "qdense": {1: ("phase_shift", 0.05), 2: ("amplitude_damping", 0.1),
+               3: ("depolarizing", 0.02), "placement": "end"},
+    # reference nn/qdense.py:174-180 (QNN_A): end placement
+    "qnn_a": {1: ("phase_damping", 0.05), 2: ("amplitude_damping", 0.05),
+              3: ("depolarizing", 0.02), "placement": "end"},
+    # reference nn/qdense.py:255-261 (QNN_noise): after each encode gate
+    "qnn": {1: ("phase_damping", 0.03), 2: ("amplitude_damping", 0.05),
+            3: ("depolarizing", 0.02), "placement": "encode"},
+    # reference nn/qdense.py:520-526 (differN_noise_befor): encode placement
+    "differn_befor": {1: ("phase_damping", 0.03),
+                      2: ("amplitude_damping", 0.05),
+                      3: ("depolarizing", 0.02), "placement": "encode"},
+    # reference nn/qdense.py:1410-1416 (QIDDM family; the 0.9 depolarizing
+    # strength is the reference's)
+    "qiddm": {1: ("phase_damping", 0.03), 2: ("amplitude_damping", 0.05),
+              3: ("depolarizing", 0.9), "placement": "encode"},
+}
+
+
+def noise_from_code(code: int, family: str,
+                    intensity=None) -> Optional[NoiseModel]:
+    """Map the reference's ``add_noise`` integer to a NoiseModel.
+
+    ``code == 4`` is the rotation-angle error swept by reference
+    src/mnist_noise.py:432, whose circuit branch is missing from the
+    release: a deterministic encoding over-rotation of ``intensity``
+    radians, which must be given. ``intensity`` (a float or a 0-d tensor)
+    also overrides the family's strength for codes 1-3.
+    """
+    if code == 0:
+        return None
+    table = _FAMILY_NOISE[family]
+    placement = table["placement"]
+    if code == 4:
+        if intensity is None:
+            raise ValueError(
+                "add_noise=4 (Rotation Angle error) requires an explicit "
+                "noise intensity — a silent 0.0 would be a no-op labeled "
+                "as a noise run")
+        if isinstance(intensity, (int, float)):
+            intensity = float(intensity)
+        return NoiseModel("rot_angle", intensity, "encode")
+    kind, strength = table[code]
+    if intensity is not None:
+        strength = (float(intensity)
+                    if isinstance(intensity, (int, float)) else intensity)
+    return NoiseModel(kind, strength, placement)
+
+
+def _kraus_array(noise: NoiseModel, dtype, device) -> torch.Tensor:
+    return torch.stack(ch.kraus_for(noise.kind, noise.strength)).to(
+        dtype=dtype, device=device)
+
+
+def _apply_noise_all_wires(rho, noise: NoiseModel, cdtype):
+    """The channel on every wire: the closed forms
+    (``density.apply_channel_all_wires``) for the three reference channel
+    kinds, the generic Kraus sum otherwise."""
+    try:
+        return dm.apply_channel_all_wires(rho, noise.kind, noise.strength)
+    except KeyError:
+        return dm.apply_kraus_all_wires(
+            rho, _kraus_array(noise, cdtype, rho.device))
+
+
+def _needs_dm(noise: Optional[NoiseModel]) -> bool:
+    return noise is not None and not noise.is_unitary
+
+
+def _encode_angles(x, encode: str, noise: Optional[NoiseModel]):
+    """The encoding angles: the halfpi scaling, then the rotation-angle
+    error's over-rotation, in the JAX package's order."""
+    if encode == "rz_halfpi":
+        x = (math.pi * 0.5) * x
+    if (noise is not None and noise.kind == "rot_angle"
+            and noise.placement == "encode"):
+        x = x + noise.strength
+    return x
+
+
+def _records_grad(*xs) -> bool:
+    """Whether autograd records through any of ``xs`` (the JAX package
+    asks whether an AD tracer is present, ``engine._ad_traced``)."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(x) and x.requires_grad for x in xs)
 
 
 def _check_encode(encode: str) -> None:
@@ -77,19 +210,21 @@ def _check_chain_route(wires: int, batch: int, cdtype) -> None:
 
 def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
                    encode: str = "rz", imprimitive: str = "cz",
-                   noise=None, readout: str = "probs", cdtype=None,
-                   mesh=None, n_traj: int = 0) -> torch.Tensor:
+                   noise: Optional[NoiseModel] = None,
+                   readout: str = "probs", cdtype=None, mesh=None,
+                   n_traj: int = 0) -> torch.Tensor:
     """One N-block: L x (encode -> SEL(k)) -> readout.
 
     x_enc: (batch, wires) encoding angles, re-uploaded in every spectrum
     layer; block_weights: (L, k, wires, 3). readout "probs" gives
-    (batch, 2**w), "expvalz" gives (batch, wires).
+    (batch, 2**w), "expvalz" gives (batch, wires). A non-unitary ``noise``
+    takes the density-matrix route (:func:`_reupload_dm`).
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded statevector: ROADMAP Queue 1 item 11")
-    if noise is not None or n_traj:
-        raise NotImplementedError(_NOISE)
+    if n_traj:
+        raise NotImplementedError(_TRAJ)
     _check_encode(encode)
     if imprimitive != "cz":
         raise NotImplementedError(
@@ -100,8 +235,10 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
         cdtype = _config.complex_dtype()
     L, k, wires, _ = block_weights.shape
     batch = x_enc.shape[0]
-    if encode == "rz_halfpi":
-        x_enc = (math.pi * 0.5) * x_enc
+    x_enc = _encode_angles(x_enc, encode, noise)
+    if _needs_dm(noise):
+        return _reupload_dm(x_enc, block_weights, encode=encode, noise=noise,
+                            readout=readout, cdtype=cdtype)
 
     if batch < 2**wires:
         _check_chain_route(wires, batch, cdtype)
@@ -130,6 +267,94 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
     return expval_z(states)
 
 
+def _dm_readout(rho, readout: str):
+    return dm.probs(rho) if readout == "probs" else dm.expval_z(rho)
+
+
+def _two_sided_sel(rho, w, wires: int, imprimitive: str):
+    """U rho U^dagger for the SEL chain of ``w`` (depth, wires, 3): the
+    SEL-chain kernel (its plain version on the CPU) on the b*d column
+    states, twice; differentiable through its adjoint backward."""
+    mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
+    return dm.apply_chain_two_sided(
+        rho, lambda sr, si: sel_chain_planes(sr, si, mats, wires,
+                                             imprimitive))
+
+
+def _apply_1q_batched_unitary(rho, gate, wire: int, wires: int):
+    """rho -> G rho G^dagger with a per-sample (b, 2, 2) single-qubit gate."""
+    r = dm._split(rho, wire)
+    out = torch.einsum("bxy,blyrmzs,bwz->blxrmws", gate, r, gate.conj())
+    return out.reshape(rho.shape)
+
+
+def _reupload_dm(x_enc, block_weights, *, encode: str, noise: NoiseModel,
+                 readout: str, cdtype):
+    """The density-matrix route of :func:`reupload_block` (damping and
+    depolarizing channels inside the loop or at its end).
+
+    In ``dm_unitary_mode`` "gates", the whole block runs in the
+    density-matrix kernel when the noise sits after each encode, its kind
+    has a closed form, the dtype is complex64 and autograd does not record
+    (the kernel has no backward; the JAX package routes by the same
+    condition, ``engine.py:593-599``); otherwise every spectrum layer
+    encodes, applies the channel and runs its SEL chain on both sides of
+    rho through the SEL-chain kernel, which differentiates. "matmul"
+    sandwiches rho between the composed per-layer unitaries.
+
+    Memory: rho is (batch, 4**wires) complex, ``batch * 4**w * 8`` bytes in
+    complex64 on the input's device (0.5 MB a sample at w=8, 8 MB at the
+    kernels' widest, w=10); the two-sided route holds a few such tensors
+    per layer, and autograd keeps each layer's.
+    """
+    L, k, wires, _ = block_weights.shape
+    batch = x_enc.shape[0]
+    dim = 2**wires
+    rdtype = cdtype.to_real()
+    dm_gates = _config.dm_unitary_mode() == "gates"
+    if dm_gates:
+        _check_chain_route(wires, batch, cdtype)
+    x_enc = x_enc.to(rdtype)
+    phases = rz_phases(x_enc, wires) if encode != "ry" else None
+    if (dm_gates and noise.placement == "encode" and noise.kind in KIND_IDS
+            and not _records_grad(x_enc, block_weights, noise.strength)):
+        flat = block_weights.reshape(L * k, wires, 3)
+        mats = rot_matrix(flat[..., 0], flat[..., 1], flat[..., 2])
+        rho = dm_chain(x_enc if phases is None else phases, mats, k, wires,
+                       noise.kind, noise.strength, ry=phases is None)
+        return _dm_readout(rho, readout)
+
+    def encode_rho(rho):
+        if phases is not None:
+            return dm.apply_diag(rho, phases)
+        if dm_gates:
+            x_cols = x_enc.repeat_interleave(dim, dim=0)  # column batch
+
+            def ry_all(sr, si):
+                out = apply_ry_all(torch.complex(sr, si).T, x_cols)
+                return out.real.T, out.imag.T
+
+            return dm.apply_chain_two_sided(rho, ry_all)
+        gates = ry_matrix(x_enc).to(cdtype)  # (b, wires, 2, 2)
+        for j in range(wires):
+            rho = _apply_1q_batched_unitary(rho, gates[:, j], j, wires)
+        return rho
+
+    rho = dm.zero_density(batch, wires, dtype=cdtype, device=x_enc.device)
+    us = None if dm_gates else sel_unitaries(block_weights.to(rdtype), "cz")
+    for l in range(L):
+        rho = encode_rho(rho)
+        if noise.placement == "encode":
+            rho = _apply_noise_all_wires(rho, noise, cdtype)
+        if dm_gates:
+            rho = _two_sided_sel(rho, block_weights[l], wires, "cz")
+        else:
+            rho = dm.apply_unitary(rho, us[l])
+    if noise.placement == "end":
+        rho = _apply_noise_all_wires(rho, noise, cdtype)
+    return _dm_readout(rho, readout)
+
+
 def _sel_small_batch(sr, si, w, imprimitive: str, cdtype):
     """Small-batch SEL application (batch < 2**wires) on (d, B) float32
     start-state planes: the SEL-chain kernel (its plain version on the
@@ -150,28 +375,39 @@ def _sel_small_batch(sr, si, w, imprimitive: str, cdtype):
 
 def qdense_circuit(x: torch.Tensor, weights: torch.Tensor, *, wires: int,
                    pad_with: float = 0.1, weight_map: str = "qw_tanh",
-                   imprimitive: str = "cnot", noise=None, cdtype=None,
+                   imprimitive: str = "cnot",
+                   noise: Optional[NoiseModel] = None, cdtype=None,
                    n_traj: int = 0) -> torch.Tensor:
-    """AmplitudeEmbedding -> SEL -> probs.
+    """AmplitudeEmbedding -> SEL -> (noise) -> probs.
 
     x: (batch, n_features); weights: (depth, wires, 3). Returns (batch,
-    2**w) probabilities. Reference: nn/qdense.py:40-47 / :95-105.
+    2**w) probabilities. Reference: nn/qdense.py:40-47 / :95-105. A
+    non-unitary ``noise`` acts once on |psi><psi| at the end; a phase shift
+    or the rotation-angle error leaves the probabilities as they are.
     """
-    if noise is not None or n_traj:
-        raise NotImplementedError(_NOISE)
+    if n_traj:
+        raise NotImplementedError(_TRAJ)
     if cdtype is None:
         cdtype = _config.complex_dtype()
     w = WEIGHT_MAPS[weight_map](weights)
     if x.shape[0] >= 2**wires:
         states = amplitude_embed(x, wires, pad_with, dtype=cdtype)
         u = sel_unitary(w.to(cdtype.to_real()), imprimitive)
-        return probs(apply_unitary(states, u))
-    # batch < state dim: the gate-level chain, O(depth w B d) against the
-    # composed route's O(depth d^3); the ranges cycle over the full depth
-    sr = amplitude_rows(x.to(torch.float32), wires, pad_with).T.contiguous()
-    sr, si = _sel_small_batch(sr, torch.zeros_like(sr), w, imprimitive,
-                              cdtype)
-    return probs_from_planes(sr, si)
+        states = apply_unitary(states, u)
+        if not _needs_dm(noise):
+            return probs(states)
+    else:
+        # batch < state dim: the gate-level chain, O(depth w B d) against
+        # the composed route's O(depth d^3); the ranges cycle over the
+        # full depth
+        sr = amplitude_rows(x.to(torch.float32), wires, pad_with).T.contiguous()
+        sr, si = _sel_small_batch(sr, torch.zeros_like(sr), w, imprimitive,
+                                  cdtype)
+        if not _needs_dm(noise):
+            return probs_from_planes(sr, si)
+        states = torch.complex(sr, si).T
+    rho = _apply_noise_all_wires(dm.from_statevector(states), noise, cdtype)
+    return dm.probs(rho)
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +416,7 @@ def qdense_circuit(x: torch.Tensor, weights: torch.Tensor, *, wires: int,
 
 def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
                 encode: str = "rz", imprimitive: str = "cz",
-                weight_map: str = "none", noise=None,
+                weight_map: str = "none", noise: Optional[NoiseModel] = None,
                 readout: str = "expvalz", cdtype=None,
                 n_traj: int = 0) -> torch.Tensor:
     """Single encode -> SEL(depth) -> readout.
@@ -193,9 +429,14 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
     QNN circuit output is therefore input-independent; the surrounding
     linear layers do the learning). This reproduces that, so the gradient
     reaching ``x`` is zero up to float rounding.
+
+    A non-unitary ``noise`` takes the density-matrix route: rho from the
+    encoded state, the channel after the encode or at the end, and the SEL
+    chain on both sides of rho ("gates") or the composed unitary
+    ("matmul").
     """
-    if noise is not None or n_traj:
-        raise NotImplementedError(_NOISE)
+    if n_traj:
+        raise NotImplementedError(_TRAJ)
     _check_encode(encode)
     if readout not in ("probs", "expvalz"):
         raise ValueError(f"unknown readout {readout!r}")
@@ -203,10 +444,28 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
         cdtype = _config.complex_dtype()
     batch, wires = x.shape
     w = WEIGHT_MAPS[weight_map](weights)
-    if encode == "rz_halfpi":
-        x = (math.pi * 0.5) * x
+    x = _encode_angles(x, encode, noise)
+    rdtype = cdtype.to_real()
+    if _needs_dm(noise):
+        if encode == "ry":
+            rho = dm.from_statevector(
+                ry_product_state(x.to(rdtype), wires, dtype=cdtype))
+        else:
+            rho = dm.apply_diag(
+                dm.zero_density(batch, wires, dtype=cdtype, device=x.device),
+                rz_phases(x.to(rdtype), wires))
+        if noise.placement == "encode":
+            rho = _apply_noise_all_wires(rho, noise, cdtype)
+        if _config.dm_unitary_mode() == "gates":
+            _check_chain_route(wires, batch, cdtype)
+            rho = _two_sided_sel(rho, w, wires, imprimitive)
+        else:
+            rho = dm.apply_unitary(rho, sel_unitary(w.to(rdtype),
+                                                    imprimitive))
+        if noise.placement == "end":
+            rho = _apply_noise_all_wires(rho, noise, cdtype)
+        return _dm_readout(rho, readout)
     if batch >= 2**wires:
-        rdtype = cdtype.to_real()
         if encode == "ry":
             states = ry_product_state(x.to(rdtype), wires, dtype=cdtype)
         else:

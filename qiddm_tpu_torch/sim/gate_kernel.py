@@ -13,7 +13,8 @@ plain version.
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, from
 the sources in this checkout, into ``build/qiddm_tpu_torch/`` next to the
 package. One library holds every kernel of the port (this chain's, the SEL
-chain's of ``sel_kernel.py`` and the RY chain's of ``ry_kernel.py``); its
+chain's of ``sel_kernel.py``, the RY chain's of ``ry_kernel.py`` and the
+density-matrix block's of ``dm_kernel.py``); its
 file name carries a hash of all the sources and the flags, so an edit of
 any of them rebuilds it. It has a plain C interface and is bound with
 ``ctypes``.
@@ -45,7 +46,7 @@ BWD_LAUNCHES = 0
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # compiled together into one library; the header is hashed, not compiled
 _SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu",
-            _CSRC / "ry_chain.cu")
+            _CSRC / "ry_chain.cu", _CSRC / "dm_chain.cu")
 _HEADERS = (_CSRC / "chain_common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -270,6 +271,12 @@ def _library():
         for fn in (lib.ry_chain_fwd_smem_bytes, lib.ry_chain_bwd_smem_bytes):
             fn.argtypes = [ctypes.c_int] * 3
             fn.restype = ctypes.c_size_t
+        lib.dm_chain_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
+                                     + [ctypes.c_void_p] + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p])
+        lib.dm_chain_fwd.restype = ctypes.c_int
+        lib.dm_chain_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.dm_chain_smem_bytes.restype = ctypes.c_size_t
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -70,7 +70,8 @@ def test_mnist_8x8_and_digits_fallback_match_jax():
         want = jdata._digits_fallback(28, "mnist")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert set(tdata.ALL_LOADERS) == {"mnist_8x8", "mnist_28x28"}
+    assert set(tdata.ALL_LOADERS) == {"mnist_8x8", "mnist_28x28",
+                                      "fashion_28x28"}
 
 
 def _hide_disk_data(monkeypatch, tmp_path):
@@ -79,6 +80,29 @@ def _hide_disk_data(monkeypatch, tmp_path):
     monkeypatch.setenv("HOME", str(tmp_path))
     for mod in (tdata, jdata):
         monkeypatch.setattr(mod, "DATA_DIR", tmp_path / "data")
+
+
+def test_fashion_28x28_matches_jax(tmp_path, monkeypatch):
+    """The noise driver's dataset: the synthetic textures when nothing is
+    on disk, then ``fashion_28.npz`` from the data directory, equal to the
+    JAX package's in both cases."""
+    _hide_disk_data(monkeypatch, tmp_path)
+    with pytest.warns(UserWarning, match="synthetic textures"):
+        got = tdata.fashion_28x28(ds_size=30)
+    with pytest.warns(UserWarning, match="synthetic textures"):
+        want = jdata.fashion_28x28(ds_size=30)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    (tmp_path / "data").mkdir()
+    rng = np.random.default_rng(3)
+    np.savez(tmp_path / "data" / "fashion_28.npz",
+             x=rng.integers(0, 256, size=(50, 28, 28), dtype=np.uint8),
+             y=np.arange(50) % 10)
+    got = tdata.fashion_28x28(n_classes=4, ds_size=30)
+    want = jdata.fashion_28x28(n_classes=4, ds_size=30)
+    assert got[0].shape == (20, 784)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_mnist_28x28_reads_the_npz_cache_like_jax(tmp_path, monkeypatch):
@@ -174,12 +198,14 @@ def test_checkpoint_every_saves_each_segment(driver_env, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--ckpt-backend", "orbax"],
-    ["--model", "QNN_noise", "784", "8", "14", "1"],  # add_noise=1
+    # a noisy model (add_noise=1) under the unported trajectory backend
+    ["--model", "QNN_noise", "784", "8", "14", "1", "--noise-backend",
+     "traj"],
     ["--vmap-labels"],
     ["--profile", "trace"],
     ["--noise-backend", "traj"],
-    ["--add_noise", "1"],
-    ["--data", "fashion_28x28"],
+    ["--add_noise", "1", "--noise-backend", "traj"],
+    ["--data", "emnist_28x28"],
 ], ids=["orbax", "QNN_noise", "vmap", "profile", "traj", "add_noise",
         "dataset"])
 def test_unported_runs_are_rejected_before_any_work(driver_env, monkeypatch,
@@ -195,6 +221,17 @@ def test_unported_runs_are_rejected_before_any_work(driver_env, monkeypatch,
     with pytest.raises(SystemExit, match="not ported"):
         tmnist.main(argv + extra)
     assert not list(driver_env.rglob("*.pt"))
+
+
+def test_noise_flags_and_noisy_models_pass_validation(driver_env):
+    """--add_noise and --noise_intensity are read by no JAX driver and
+    pass, as a model's own add_noise does; the trajectory backend is the
+    noise setting still rejected (above)."""
+    args = tmnist.parse_args(["--add_noise", "2", "--device", "cpu",
+                              "--model", "QNN_noise", "784", "8", "14", "1",
+                              "--model", "QIDDM_PL_noise1", "784", "8", "6",
+                              "2", "4"])
+    tcommon.validate_args(args)
 
 
 def test_default_models_name_an_unported_one():

@@ -64,8 +64,16 @@ def test_seed_fixes_weights():
 
 
 def test_unported_options_raise():
+    """Noise is ported (add_noise 1-4 build and run); the Monte-Carlo
+    trajectory backend is not, and raises naming its ROADMAP item."""
+    from qiddm_tpu_torch.sim import engine as tengine
+
+    net = QIDDM_LL_noise(64, 4, 3, 2, 1)
+    assert net.module.add_noise == 1
+    noise = tengine.noise_from_code(1, "qiddm")
     with pytest.raises(NotImplementedError, match="item 8"):
-        QIDDM_LL_noise(64, 4, 3, 2, 1)
+        tengine.reupload_block(torch.zeros(2, 4), torch.zeros(3, 2, 4, 3),
+                               noise=noise, n_traj=8)
 
 
 def test_jax_checkpoint_round_trips_through_port(tmp_path):

@@ -162,11 +162,14 @@ def test_small_batch_circuits_run_the_sel_chain_entry(monkeypatch):
     assert calls == [(4, "cz"), (4, "cnot")]
 
 
+_DAMPING = tengine.NoiseModel("amplitude_damping", 0.1, "encode")
+
+
 @pytest.mark.parametrize("call,kwargs,match", [
-    ("qnn", {"noise": object()}, "item 8"),
+    ("qnn", {"noise": _DAMPING, "n_traj": 4}, "item 8"),
     ("qnn", {"n_traj": 4}, "item 8"),
     ("qnn", {"encode": "ry", "n_traj": 4}, "item 8"),
-    ("qdense", {"noise": object()}, "item 8"),
+    ("qdense", {"noise": _DAMPING, "n_traj": 4}, "item 8"),
     ("qdense", {"n_traj": 4}, "item 8"),
 ])
 def test_unported_circuit_options_raise(call, kwargs, match):
@@ -227,12 +230,16 @@ def test_seed_fixes_weights_and_noise_raises():
         b = tckpt.export_jax_variables(cls(*args, seed=1))
         c = tckpt.export_jax_variables(cls(*args, seed=2))
         assert _trees_equal(a, b) and not _trees_equal(a, c)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tnn.QNN_noise(784, 8, 14, 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tnn.QDenseUndirected_old_noise(60, 8, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tnn.QNN_A(6, 8, 1)
+    # the noise codes build; the trajectory backend raises where it would
+    # run (the circuits' n_traj)
+    for net, family in ((tnn.QNN_noise(784, 8, 14, 1), "qnn"),
+                        (tnn.QDenseUndirected_old_noise(60, 8, 2), "qdense"),
+                        (tnn.QNN_A(6, 8, 1), "qnn_a")):
+        assert net.module.add_noise == net.add_noise != 0
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tengine.qnn_circuit(torch.zeros(2, 3), torch.zeros(1, 3, 3),
+                                noise=tengine.noise_from_code(2, family),
+                                n_traj=4)
 
 
 @pytest.mark.parametrize("name,args", [("QNN_noise", (784, 8, 14)),

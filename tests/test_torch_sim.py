@@ -109,11 +109,14 @@ def test_reupload_block_matches_jax(batch, readout, encode):
     np.testing.assert_allclose(got, want, atol=CHAIN_TOL)
 
 
+_DAMPING = tengine.NoiseModel("amplitude_damping", 0.1, "encode")
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    ({"noise": object()}, "item 8"),
+    ({"noise": _DAMPING, "n_traj": 4}, "item 8"),
     ({"n_traj": 4}, "item 8"),
     ({"mesh": object()}, "item 11"),
-    ({"encode": "ry", "noise": object()}, "item 8"),
+    ({"encode": "ry", "noise": _DAMPING, "n_traj": 4}, "item 8"),
     ({"imprimitive": "cnot"}, "item 7"),
 ])
 def test_reupload_block_unported_options_raise(kwargs, item):
