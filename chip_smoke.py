@@ -11,7 +11,7 @@ caught:
 
 1. device: a CUDA device must be present; prints torch, CUDA, the card and
    its power limit (nvidia-smi);
-2. build: compiles qiddm_tpu_torch/csrc/*.cu (all seven kernels; one
+2. build: compiles qiddm_tpu_torch/csrc/*.cu (all eight kernels; one
    nvcc per source, started together, then one link) for sm_90a into
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
@@ -24,8 +24,9 @@ caught:
    autograd through the plain forward;
 5. SEL-chain forward kernel against plain: kernel #5 at w in
    {1, 2, 4, 6, 8, 10} x B in {1, 10, 16, 80} x ring in {cz, cnot}, depth
-   14, and (w=6, B=16, depth 60, cnot), from random normalized start
-   states, max |diff| <= 1e-5;
+   14, and (w=6, B=16, depth 60, cnot), and at the trajectory route's
+   widths, w in {11, 12} x B in {1, 10, 1000} x depth in {2, 14} x both
+   rings, from random normalized start states, max |diff| <= 1e-5;
 6. SEL-chain backward kernel against plain: kernel #6 at the same shapes
    with N(0, 1) cotangents, dsr, dsi and dg each within
    1e-5 * max(1, max|plain|); at one shape per ring also against torch
@@ -78,10 +79,11 @@ caught:
 12. density-matrix kernel against plain: kernel #8 against its plain
    PyTorch version at w in {1, 2, 4, 6, 7, 8} x B in {1, 10} x channel
    kinds {amplitude damping, depolarizing, phase damping} x encodes {RZ, RY}
-   x strengths {0.05, 0.8}, (L, k) = (6, 2), and at the two QIDDM shapes of
-   the sweep, (w=6, B=10, L=14, RZ) and (w=8, B=10, L=6, RY), at strength
-   0.3: max |rho_kernel - rho_plain| <= 1e-5, rho Hermitian and of trace 1
-   within 1e-5;
+   x strengths {0.05, 0.8}, (L, k) = (6, 2), at the two QIDDM shapes of
+   the sweep, (w=6, B=10, L=14, RZ) and (w=8, B=10, L=6, RY), and at the
+   kernel's widest, (w=9, B=2, L=2) and (w=10, B=1, L=1), both encodes, at
+   strength 0.3: max |rho_kernel - rho_plain| <= 1e-5, rho Hermitian and
+   of trace 1 within 1e-5;
 13. the noisy sweep: a seeded fashion_28.npz (500 images, 50 per label) in
    the temporary data directory, then qiddm_tpu_torch.cli.fashion_noise
    --all-noise-types --device cuda with QIDDM_LL_noise 784 6 14 2,
@@ -100,17 +102,49 @@ caught:
    amplitude damping at 0.3, seeded weights) under torch.profiler: device
    events, busy time and idle share per iteration, kernel #8's share of the
    busy time; the iteration on the host clock;
-15. times: median of 20 runs of each kernel and of its plain version (the
+15. amplitude-damping kernel against plain: kernel #7 against its plain
+   twin on the same uniforms at w in {1, 2, 4, 6, 8, 10, 12} x N in
+   {1, 10, 1000} states x strengths {0.05, 0.3, 0.8}: max |diff| <= 1e-5,
+   the branch picks equal (the count of differing picks printed, 0
+   required), and the gradient of a weighted readout through the autograd
+   Function (its backward replays the twin with the kernel's picks) with
+   respect to the states and the strength within 1e-5 relative of autograd
+   through the twin;
+16. 12-wire trajectory sampling (path A, the JAX package's
+   bench_traj_noisy_sampling, bench.py:599-632): QIDDM_LL_noise(784, 12,
+   6, 2) with seeded weights under amplitude damping 0.05 on 100
+   Monte-Carlo trajectories, 10 start images x 15 iterations through
+   Diffusion.sample with a generator on the card whose draws are recorded:
+   finite images, kernels #7 and #5 each launched at least 12 times an
+   iteration (2 blocks x 6 spectrum layers), the steady images/s (median
+   of 3 runs after the recorded one), and the first iteration (the first
+   three when the first takes the CPU under 20 s) rerun on the CPU plain
+   path from the card's batch with the card's draws and branch picks,
+   within 1e-4; then 5 steady iterations under torch.profiler: device
+   events, busy time, idle share, and the shares of #7 and #5;
+17. the noisy sweep on the trajectory backend (path B):
+   qiddm_tpu_torch.cli.fashion_noise --all-noise-types --noise-backend traj
+   --n-traj 100 --device cuda with QIDDM_PL_noise1 784 8 6 2 and QNN_noise
+   784 8 6, --epochs 1: finite scores, the *_traj.pt caches, and kernel #7
+   launched while sampling at least 1200 times by QIDDM_PL_noise1 (2 blocks
+   x 6 x 20 iterations x 5 intensities) and 100 times by QNN_noise. Then, at
+   intensity 0.3 of each channel, the first 3 iterations are rerun on the
+   card with the driver's generator, recorded, and held against the cached
+   grid, and on the CPU plain path with those draws and picks within 1e-4
+   (QIDDM_PL_noise1 step by step, as in phase 13);
+18. times: median of 20 runs of each kernel and of its plain version (the
    gate-chain forward at w=6, B=16, L*k=28 and its backward at B=10 and
    B=16; the SEL chain forward and backward at w=8, depth 14, B=10 and 16,
-   CZ, and at w=6, depth 60, B=10, CNOT; the RY chain forward and backward
-   at w=8, B=10, L*k=12 and at w=6, B=11, L*k=28; the density-matrix
-   block, depolarizing, at the sweep's two QIDDM shapes), each beside its
-   bound (the larger of its arithmetic over 67 TFLOP/s and its bytes, each
-   input read once and each output written once, over 3.35 TB/s), the
-   sampling images/s of each model, the training images/s of each trained
-   model in its second epoch, and the sweep's noisy sampling images/s per
-   model and its wall split into training, sampling and scoring.
+   CZ, at w=6, depth 60, B=10, CNOT, and at path A's w=12, depth 2,
+   B=1000, CZ; the RY chain forward and backward at w=8, B=10, L*k=12 and
+   at w=6, B=11, L*k=28; the density-matrix block, depolarizing, at the
+   sweep's two QIDDM shapes and at w=10, B=1, L=1; the amplitude-damping
+   pass at N=1000 and w=12 and 8), each beside its bound (the larger of
+   its arithmetic over 67 TFLOP/s and its bytes, each input read once and
+   each output written once, over 3.35 TB/s), the sampling images/s of
+   each model, the training images/s of each trained model in its second
+   epoch, and each sweep's noisy sampling images/s per model and its wall
+   split into training, sampling and scoring.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -140,9 +174,11 @@ from qiddm_tpu_torch.cli import fashion_noise, mnist_exm, noise_common
 from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
 from qiddm_tpu_torch.pca import pca_fit_transform
-from qiddm_tpu_torch.sim import dm_kernel, gate_kernel, ry_kernel, sel_kernel
+from qiddm_tpu_torch.sim import (amp_damp_kernel, dm_kernel, gate_kernel,
+                                 ry_kernel, sel_kernel)
 from qiddm_tpu_torch.sim.gates import rot_matrix
 from qiddm_tpu_torch.sim.statevector import rz_phases
+from qiddm_tpu_torch.sim.trajectories import RecordedDraws, ReplayDraws
 
 SEED = 0
 KERNEL_TOL = 1e-5   # unit-norm f32 states over up to 60 layers
@@ -165,6 +201,10 @@ CASES = ([(w, b, 28, 2) for w in (1, 4, 6, 8, 10) for b in (1, 16, 80)]
 SEL_CASES = ([(w, b, 14, ring) for w in (1, 2, 4, 6, 8, 10)
               for b in (1, 10, 16, 80) for ring in ("cz", "cnot")]
              + [(6, 16, 60, "cnot")])
+# the trajectory route's widths, at path A's batch (100 trajectories x 10
+# images) and depth (k = 2 a spectrum layer), and at QNN's depth
+WIDE_SEL_CASES = [(w, b, depth, ring) for w in (11, 12) for b in (1, 10, 1000)
+                  for depth in (2, 14) for ring in ("cz", "cnot")]
 RY_CASES = ([(w, b, n, k) for w in (1, 3, 6) for b in (1, 5)
              for n, k in ((4, 2), (12, 3), (12, 2))]
             + [(8, 10, 12, 2), (8, 16, 12, 2), (10, 80, 28, 2),
@@ -173,12 +213,24 @@ DM_KINDS = ("amplitude_damping", "depolarizing", "phase_damping")
 # (w, B, L, k, RY encode, strengths)
 DM_CASES = ([(w, b, 6, 2, ry, (0.05, 0.8)) for w in (1, 2, 4, 6, 7, 8)
              for b in (1, 10) for ry in (False, True)]
-            + [(6, 10, 14, 2, False, (0.3,)), (8, 10, 6, 2, True, (0.3,))])
+            + [(6, 10, 14, 2, False, (0.3,)), (8, 10, 6, 2, True, (0.3,))]
+            + [(w, b, n, 2, ry, (0.3,)) for w, b, n in ((9, 2, 2), (10, 1, 1))
+               for ry in (False, True)])
 DM_TOL = 1e-5       # rho of trace 1 through up to 14 spectrum layers
 SWEEP_MODELS = [MODEL, PL_MODEL, ["QNN_noise", "784", "8", "6"]]
 SWEEP_TYPES = (1, 2, 3)
 SWEEP_ITERS = 20    # tau_test = 2 tau
 SWEEP_CHECK = 0.3   # the intensity held against the CPU
+AMP_CASES = [(w, n) for w in (1, 2, 4, 6, 8, 10, 12) for n in (1, 10, 1000)]
+AMP_STRENGTHS = (0.05, 0.3, 0.8)
+# path A: qiddm_tpu's bench_traj_noisy_sampling (bench.py:599-632)
+TRAJ_MODEL = ["QIDDM_LL_noise", "784", "12", "6", "2"]
+TRAJ_CODE, TRAJ_STRENGTH = 2, 0.05  # amplitude damping
+N_TRAJ, TRAJ_IMAGES, TRAJ_ITERS = 100, 10, 15
+TRAJ_PER_ITER = 12  # #7 and #5 calls an iteration: 2 blocks x 6 layers
+CPU_REPLAY_S = 20   # replay 3 iterations when the first takes under this
+# path B: fashion_noise on the trajectory backend
+TRAJ_SWEEP_MODELS = [PL_MODEL, ["QNN_noise", "784", "8", "6"]]
 # the card's published peaks (H100 SXM, 700 W): float32 outside the tensor
 # cores, and device memory
 PEAK_FLOPS = 67e12
@@ -195,6 +247,7 @@ def reset_counts() -> None:
     sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
     ry_kernel.RY_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
     dm_kernel.DM_LAUNCHES = 0
+    amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -202,7 +255,8 @@ def read_counts() -> dict:
             "sel": sel_kernel.SEL_LAUNCHES,
             "sel_bwd": sel_kernel.SEL_BWD_LAUNCHES,
             "ry": ry_kernel.RY_LAUNCHES, "ry_bwd": ry_kernel.RY_BWD_LAUNCHES,
-            "dm": dm_kernel.DM_LAUNCHES}
+            "dm": dm_kernel.DM_LAUNCHES,
+            "amp": amp_damp_kernel.AMP_DAMP_LAUNCHES}
 
 
 def chain_inputs(rng, wires: int, batch: int, n_layers: int, device):
@@ -340,10 +394,10 @@ def sel_bwd_inputs(rng, wires: int, batch: int, depth: int, ring: str, dev):
     return (g8, fr, fi, gr, gi), (sr, si)
 
 
-def phase_sel_vs_plain(dev) -> float:
-    rng = np.random.default_rng(SEED + 3)
+def phase_sel_vs_plain(dev, cases, seed: int) -> float:
+    rng = np.random.default_rng(seed)
     worst = 0.0
-    for w, b, depth, ring in SEL_CASES:
+    for w, b, depth, ring in cases:
         sr, si, mats = sel_inputs(rng, w, b, depth, dev)
         kr, ki = sel_kernel.sel_chain_planes(sr, si, mats, w, ring)
         qr, qi = sel_kernel.sel_chain_planes_plain(sr, si, mats, w, ring)
@@ -358,11 +412,13 @@ def phase_sel_vs_plain(dev) -> float:
     return worst
 
 
-def phase_sel_bwd_vs_plain(dev) -> float:
-    """Returns the worst max |kernel - plain| over the shapes."""
-    rng = np.random.default_rng(SEED + 4)
+def phase_sel_bwd_vs_plain(dev, cases, seed: int,
+                           check: tuple[int, int, int]) -> float:
+    """Returns the worst max |kernel - plain| over the shapes; ``check``
+    is the (w, B, depth) also held against autograd."""
+    rng = np.random.default_rng(seed)
     worst = 0.0
-    for w, b, depth, ring in SEL_CASES:
+    for w, b, depth, ring in cases:
         args, _ = sel_bwd_inputs(rng, w, b, depth, ring, dev)
         with torch.no_grad():
             got = sel_kernel._sel_chain_bwd_cuda(*args, w, ring)
@@ -378,18 +434,19 @@ def phase_sel_bwd_vs_plain(dev) -> float:
             fail(f"SEL backward kernel disagrees with plain at w={w} B={b} "
                  f"depth={depth} {ring}: {max(errs):.3e} > {BWD_TOL}")
     # a third formulation: autograd through the plain forward
+    w, b, depth = check
     for ring in ("cz", "cnot"):
-        (g8, _, _, gr, gi), (sr, si) = sel_bwd_inputs(rng, 8, 10, 14, ring,
+        (g8, _, _, gr, gi), (sr, si) = sel_bwd_inputs(rng, w, b, depth, ring,
                                                       dev)
         leaves = [t.clone().requires_grad_(True) for t in (sr, si, g8)]
-        out_r, out_i = sel_kernel._sel_plain(*leaves, 8, ring)
+        out_r, out_i = sel_kernel._sel_plain(*leaves, w, ring)
         (out_r * gr + out_i * gi).sum().backward()
         with torch.no_grad():
-            fr, fi = sel_kernel._sel_chain_cuda(sr, si, g8, 8, ring)
-            got = sel_kernel._sel_chain_bwd_cuda(g8, fr, fi, gr, gi, 8, ring)
+            fr, fi = sel_kernel._sel_chain_cuda(sr, si, g8, w, ring)
+            got = sel_kernel._sel_chain_bwd_cuda(g8, fr, fi, gr, gi, w, ring)
         err = max(_rel(g, leaf.grad) for g, leaf in zip(got, leaves))
-        print(f"SEL backward kernel vs autograd of the plain forward w=8 "
-              f"B=10 depth=14 {ring}: {err:.3e}")
+        print(f"SEL backward kernel vs autograd of the plain forward w={w} "
+              f"B={b} depth={depth} {ring}: {err:.3e}")
         if not err <= BWD_TOL:
             fail(f"SEL backward kernel disagrees with autograd ({ring}): "
                  f"{err:.3e} > {BWD_TOL}")
@@ -506,6 +563,54 @@ def phase_dm_vs_plain(dev) -> float:
         print(f"dm kernel vs plain w={w} B={b} L={n_spec} k={k} "
               f"{'ry' if ry else 'rz'}, 3 kinds x {len(strengths)} "
               f"strengths: max|diff| {max(errs):.3e}")
+    return worst
+
+
+def _rel_own(got, want) -> float:
+    """max |got - want| relative to max |want|."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_amp_vs_plain(dev) -> float:
+    """Kernel #7 against its plain twin on the same uniforms; returns the
+    worst max |diff| of the states."""
+    rng = np.random.default_rng(SEED + 9)
+    worst = 0.0
+    for w, n in AMP_CASES:
+        st = rng.normal(size=(n, 2**w)) + 1j * rng.normal(size=(n, 2**w))
+        st /= np.linalg.norm(st, axis=1, keepdims=True)
+        states = torch.as_tensor(st, dtype=torch.complex64, device=dev)
+        u = torch.as_tensor(rng.uniform(size=(w, n)), dtype=torch.float32,
+                            device=dev)
+        wgt = torch.linspace(0, 1, 2**w, device=dev)
+        errs, differ, grad_errs = [], 0, []
+        for g in AMP_STRENGTHS:
+            with torch.no_grad():
+                got, picks = amp_damp_kernel.amp_damp(states, u, g)
+                want, want_picks = amp_damp_kernel.amp_damp_plain(states, u,
+                                                                  g)
+            torch.cuda.synchronize()
+            errs.append((got - want).abs().max().item())
+            differ += int((picks != want_picks).sum().item())
+            grads = []
+            for fn in (amp_damp_kernel.amp_damp,
+                       amp_damp_kernel.amp_damp_plain):
+                leaves = (states.clone().requires_grad_(True),
+                          torch.tensor(g, device=dev, requires_grad=True))
+                out, _ = fn(*leaves[:1], u, leaves[1])
+                ((out.abs() ** 2) * wgt).sum().backward()
+                grads.append([leaf.grad for leaf in leaves])
+            grad_errs.append(max(_rel_own(a, b) for a, b in zip(*grads)))
+        worst = max(worst, *errs)
+        print(f"amp-damp kernel vs plain w={w} N={n}, strengths "
+              f"{AMP_STRENGTHS}: max|diff| {max(errs):.3e}, differing picks "
+              f"{differ}, gradient (states, strength) max|diff| / max|plain| "
+              f"{max(grad_errs):.3e}")
+        if not (max(errs) <= KERNEL_TOL and differ == 0
+                and max(grad_errs) <= BWD_TOL):
+            fail(f"amp-damp kernel disagrees with plain at w={w} N={n}: "
+                 f"{max(errs):.3e}, {differ} picks, gradient "
+                 f"{max(grad_errs):.3e}")
     return worst
 
 
@@ -628,13 +733,17 @@ class _Forward(io.StringIO):
         return super().write(text)
 
 
-def phase_sweep(tmp: pathlib.Path) -> tuple[dict, dict, dict]:
-    """fashion_noise --all-noise-types on the card with SWEEP_MODELS;
-    returns the launch counts of the run, each model's launches while it
-    sampled (by save name), and the sweep's rates and walls."""
+def phase_sweep(tmp: pathlib.Path, prefix: str, models: list, extra: list,
+                wants: dict) -> tuple[dict, dict, dict]:
+    """fashion_noise --all-noise-types on the card with ``models`` and the
+    flags ``extra``, saving under ``tmp/prefix``; returns the launch counts
+    of the run, each model's launches while it sampled (by save name), and
+    the sweep's rates and walls. ``wants`` maps a model's name to the
+    counter and the least launches it must make while sampling."""
     argv = ["--all-noise-types", "--device", "cuda", "--epochs", "1",
-            "--save-path", f"{tmp}/sweep_", "--load-path", f"{tmp}/sweep_"]
-    for margs in SWEEP_MODELS:
+            "--save-path", f"{tmp}/{prefix}", "--load-path", f"{tmp}/{prefix}",
+            *extra]
+    for margs in models:
         argv += ["--model", *margs]
     sampling = {}
     real = noise_common._sample_grids
@@ -659,8 +768,9 @@ def phase_sweep(tmp: pathlib.Path) -> tuple[dict, dict, dict]:
     finally:
         noise_common._sample_grids = real
     text = printed.getvalue()
-    print(f"sweep: launches {counts}; while sampling, by model {sampling}")
-    names = [m[0] for m in SWEEP_MODELS]
+    print(f"sweep {' '.join(extra) or '(dm)'}: launches {counts}; while "
+          f"sampling, by model {sampling}")
+    names = [m[0] for m in models]
     if sorted(results) != sorted(names):
         fail(f"fashion_noise scored {sorted(results)}, not {names}")
     for name, per_type in results.items():
@@ -670,12 +780,9 @@ def phase_sweep(tmp: pathlib.Path) -> tuple[dict, dict, dict]:
             for metric, values in scores.items():
                 if len(values) != 5 or not np.isfinite(values).all():
                     fail(f"{name} {metric}: {values} are not 5 finite scores")
-    settings = len(SWEEP_TYPES) * 5
-    for margs in SWEEP_MODELS:
+    for margs in models:
         key = common.build_model(margs).save_name()
-        counter, per_iter = ("sel", 2) if margs[0] == "QNN_noise" else ("dm",
-                                                                         2)
-        want = per_iter * SWEEP_ITERS * settings
+        counter, want = wants[margs[0]]
         got = sampling.get(key, {}).get(counter, 0)
         if got < want:
             fail(f"{margs[0]}: {got} {counter} launches while sampling < "
@@ -694,42 +801,96 @@ def phase_sweep(tmp: pathlib.Path) -> tuple[dict, dict, dict]:
     return counts, sampling, {"rates": rates, "walls": walls}
 
 
-def phase_sweep_parity(tmp: pathlib.Path) -> None:
+def _grid_stack(grid, iters: int, n: int, side: int) -> torch.Tensor:
+    """A sampler grid ((iters+1)*side, n*side) as its (iters+1, n, 1, side,
+    side) stack."""
+    return torch.as_tensor(grid).reshape(iters + 1, side, n, side).permute(
+        0, 2, 1, 3)[:, :, None]
+
+
+def _replay(rec, iters: int, first: int, last: int):
+    """The card's recorded draws and branch picks of iterations first..last-1
+    (of ``iters`` recorded) for a replay on the CPU; None without a
+    record."""
+    if rec is None:
+        return None
+    nd, npk = len(rec.draws) // iters, len(rec.picks) // iters
+    return ReplayDraws([d.cpu() for d in rec.draws[first * nd:last * nd]],
+                       [p.cpu() for p in rec.picks[first * npk:last * npk]]
+                       if npk else None)
+
+
+def _card_traj_rerun(margs, ckpt, code: int, first_x, args):
+    """The first 3 iterations of a trajectory sweep's sampler on the card,
+    from its checkpoint, with the driver's generator, recording the draws
+    and picks; returns the record and the (4, n, 1, 28, 28) stack."""
+    net = common.build_model(margs, device="cuda")
+    load_jax_variables(net, load_checkpoint(ckpt)["model_state_dict"])
+    noisy = common.with_noise(net, code, SWEEP_CHECK,
+                              noise_trajectories=N_TRAJ)
+    rec = RecordedDraws(noise_common.traj_generator(args, "cuda"))
+    with torch.no_grad():
+        stack = Diffusion(noisy, shape=(28, 28)).sample_stack_fn(
+            first_x.to("cuda"), 3, traj_rng=rec)
+    return rec, stack.cpu()
+
+
+def phase_sweep_parity(tmp: pathlib.Path, prefix: str, models: list,
+                       n_traj: int = 0) -> None:
     """At intensity SWEEP_CHECK of each channel, the first 3 iterations of
     each swept model on the CPU plain path, from the sweep's trained
-    checkpoint and start images, against the card's cached grid."""
+    checkpoint and start images, against the card's cached grid. With
+    ``n_traj`` (the trajectory backend) the card reruns those iterations
+    with the driver's generator, recording its draws and picks, which the
+    CPU then replays."""
     args = fashion_noise.parse_args([])
     first_x = common.make_first_x(args)
-    for margs in SWEEP_MODELS:
+    backend = "traj" if n_traj else "dm"
+    for margs in models:
         net = common.build_model(margs, device="cpu")
         name = net.save_name()
-        ckpt = tmp / f"sweep_0/noise_0/{name}_0.pt"
+        ckpt = tmp / f"{prefix}0/noise_0/{name}_0.pt"
         load_jax_variables(net, load_checkpoint(ckpt)["model_state_dict"])
         stepwise = margs[0] == "QIDDM_PL_noise1"
         for code in SWEEP_TYPES:
-            noisy = common.with_noise(net, code, SWEEP_CHECK)
+            noisy = common.with_noise(net, code, SWEEP_CHECK,
+                                      noise_trajectories=n_traj)
             diff = Diffusion(noisy, shape=(28, 28))
             with contextlib.redirect_stdout(io.StringIO()):
-                grid = common.load_outp(diff, tmp / f"sweep_0/noise_{code}",
-                                        SWEEP_CHECK)
+                grid = common.load_outp(diff, tmp / f"{prefix}0/noise_{code}",
+                                        SWEEP_CHECK, backend)
             if grid is None:
-                fail(f"no cached grid of {name} at add_noise={code}")
-            card = torch.as_tensor(grid).reshape(
-                SWEEP_ITERS + 1, 28, len(first_x), 28).permute(
-                0, 2, 1, 3)[:, :, None]
+                fail(f"no {backend} cached grid of {name} at "
+                     f"add_noise={code}")
+            card = _grid_stack(grid, SWEEP_ITERS, len(first_x), 28)
+            rec = None
+            if n_traj:
+                rec, rerun = _card_traj_rerun(margs, ckpt, code, first_x,
+                                              args)
+                again = (rerun - card[:4]).abs().max().item()
+                print(f"sweep traj {margs[0]} add_noise={code}: the card's "
+                      f"rerun with the driver's generator against its cached "
+                      f"grid max|diff| {again:.3e}")
+                if not again <= SAMPLE_TOL:
+                    fail(f"{margs[0]} add_noise={code}: rerunning the "
+                         f"trajectory sampler on the card does not give the "
+                         f"driver's grid: {again:.3e}")
             with torch.no_grad():
-                ref = diff.sample_stack_fn(first_x, 3)
+                ref = diff.sample_stack_fn(first_x, 3,
+                                           traj_rng=_replay(rec, 3, 0, 3))
                 drift = (ref[1:] - card[1:4]).abs().max().item()
                 if stepwise:
-                    err = max((noisy(card[t]) - card[t + 1]).abs().max().item()
+                    err = max((noisy(card[t], traj_rng=_replay(rec, 3, t,
+                                                               t + 1))
+                               - card[t + 1]).abs().max().item()
                               for t in range(3))
                 else:
                     err = drift
-            print(f"sweep {margs[0]} add_noise={code} at {SWEEP_CHECK}: "
-                  f"3 iterations against the CPU plain path max|diff| "
-                  f"{err:.3e}" + (f" step by step (free-running "
-                                  f"{drift:.3e}, not held)"
-                                  if stepwise else ""))
+            print(f"sweep {backend} {margs[0]} add_noise={code} at "
+                  f"{SWEEP_CHECK}: 3 iterations against the CPU plain path "
+                  f"max|diff| {err:.3e}" + (f" step by step (free-running "
+                                            f"{drift:.3e}, not held)"
+                                            if stepwise else ""))
             if not err <= SAMPLE_TOL:
                 fail(f"{margs[0]} add_noise={code}: the card's noisy "
                      f"iterations differ from the CPU plain path: "
@@ -951,8 +1112,6 @@ def phase_profile_noisy_pl(smi: str) -> None:
     torch.profiler give the device events, the device busy time and the
     idle share per iteration and kernel #8's share of the busy time; the
     iteration is also timed on the host clock without the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     net = common.build_model(SWEEP_MODELS[1], seed=SEED, device="cuda")
     diff = Diffusion(common.with_noise(net, 2, SWEEP_CHECK), shape=(28, 28))
     first_x = common.make_first_x(fashion_noise.parse_args([])).to("cuda")
@@ -960,16 +1119,8 @@ def phase_profile_noisy_pl(smi: str) -> None:
     diff.sample(first_x=first_x, n_iters=1)  # warm-up
     iter_ms = _host_ms(lambda: diff.sample(first_x=first_x,
                                            n_iters=iters)) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        diff.sample(first_x=first_x, n_iters=iters)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    dev, busy, wall_us = _device_profile(
+        lambda: diff.sample(first_x=first_x, n_iters=iters))
     dm = [e.time_range.elapsed_us() for e in dev if "dm_chain" in e.name]
     if len(dm) < 2 * iters:
         fail(f"{len(dm)} dm-chain kernels in {iters} profiled noisy "
@@ -984,6 +1135,134 @@ def phase_profile_noisy_pl(smi: str) -> None:
           f"iteration ({sum(dm) / busy:.3f} of busy); iteration without the "
           f"profiler {iter_ms:.3f} ms (host clock, median of 20 runs of "
           f"{iters}, each ending in a synchronise)")
+
+
+def phase_traj_sample(smi: str) -> tuple[dict, float, float, tuple]:
+    """Path A: the JAX package's 12-wire trajectory noisy sampler on the
+    card through ``Diffusion.sample``, its draws recorded; returns the
+    launch counts of that run, the steady images/s, the worst max |diff|
+    of the CPU plain path's replayed iterations, and the sampler with its
+    start images."""
+    net = common.build_model(TRAJ_MODEL, seed=SEED, device="cuda")
+    noisy = common.with_noise(net, TRAJ_CODE, TRAJ_STRENGTH,
+                              noise_trajectories=N_TRAJ)
+    diff = Diffusion(noisy, prediction_goal="data", shape=(28, 28))
+    gen = torch.Generator().manual_seed(SEED + 3)
+    first_x = (torch.rand((TRAJ_IMAGES, 1, 28, 28), generator=gen) * 0.75
+               + 0.5).to("cuda")
+    rec = RecordedDraws(torch.Generator(device="cuda").manual_seed(SEED + 5))
+    reset_counts()
+    t0 = time.perf_counter()
+    grid = diff.sample(first_x=first_x, n_iters=TRAJ_ITERS, traj_rng=rec)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    stack = _grid_stack(grid.cpu(), TRAJ_ITERS, TRAJ_IMAGES, 28)
+    print(f"traj sample {TRAJ_MODEL}: {TRAJ_IMAGES} images x {TRAJ_ITERS} "
+          f"iterations x {N_TRAJ} trajectories in {first_s:.3f} s (first "
+          f"run); launches {counts}")
+    if not torch.isfinite(stack).all():
+        fail("the 12-wire trajectory samples are not finite")
+    want = TRAJ_PER_ITER * TRAJ_ITERS
+    for counter in ("amp", "sel"):
+        if counts[counter] < want:
+            fail(f"12-wire trajectory sampling: {counts[counter]} {counter} "
+                 f"launches < {want}: the path did not run the kernel")
+    if len(rec.draws) != want or len(rec.picks) != want:
+        fail(f"{len(rec.draws)} draws and {len(rec.picks)} picks recorded, "
+             f"not {want}")
+    walls = []
+    for _ in range(3):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        t0 = time.perf_counter()
+        diff.sample(first_x=first_x, n_iters=TRAJ_ITERS, only_last=True,
+                    traj_rng=g)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rate = TRAJ_IMAGES / float(np.median(walls))
+    print(f"traj sample: steady {rate:.2f} images/s (10 images x "
+          f"{TRAJ_ITERS} iterations, median of 3 walls "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s; {smi})")
+
+    # the CPU plain path from the card's batches, with the card's draws
+    cpu = common.build_model(TRAJ_MODEL, device="cpu")
+    cpu.load_state_dict(net.state_dict())
+    cpu = common.with_noise(cpu, TRAJ_CODE, TRAJ_STRENGTH,
+                            noise_trajectories=N_TRAJ)
+
+    def step_err(t: int) -> float:
+        with torch.no_grad():
+            out = cpu(stack[t], traj_rng=_replay(rec, TRAJ_ITERS, t, t + 1))
+        return (out - stack[t + 1]).abs().max().item()
+
+    t0 = time.perf_counter()
+    err = step_err(0)
+    first_cpu_s = time.perf_counter() - t0
+    steps = 3 if first_cpu_s < CPU_REPLAY_S else 1
+    for t in range(1, steps):
+        err = max(err, step_err(t))
+    print(f"traj sample: {steps} iteration(s) from the card's batch on the "
+          f"CPU plain path with the card's draws and picks max|diff| "
+          f"{err:.3e} (the first took the CPU {first_cpu_s:.1f} s)")
+    if not err <= SAMPLE_TOL:
+        fail(f"12-wire trajectory sampling on the card differs from the "
+             f"CPU plain path: {err:.3e} > {SAMPLE_TOL}")
+    return counts, rate, err, (diff, first_x)
+
+
+def _device_profile(fn) -> tuple[list, float, float]:
+    """Runs ``fn`` under torch.profiler; returns its device events (user
+    annotations dropped), the device busy time (the union of their
+    intervals) and the profiled wall, both in us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    return dev, busy, wall_us
+
+
+def phase_profile_traj(sampler, smi: str) -> None:
+    """Where a path-A denoise iteration's time goes: 5 steady iterations
+    under torch.profiler give the device events, the device busy time and
+    the idle share per iteration, and the shares of kernels #7 and #5 in
+    the busy time; the iteration is also timed on the host clock without
+    the profiler."""
+    diff, first_x = sampler
+    iters = 5
+
+    def run():
+        diff.sample(first_x=first_x, n_iters=iters, only_last=True,
+                    traj_rng=torch.Generator(device="cuda").manual_seed(7))
+
+    iter_ms = _host_ms(run, runs=5) / iters
+    dev, busy, wall_us = _device_profile(run)
+    amp = [e.time_range.elapsed_us() for e in dev if "amp_damp" in e.name]
+    sel = [e.time_range.elapsed_us() for e in dev
+           if "sel_chain_fwd" in e.name]
+    if len(amp) < TRAJ_PER_ITER * iters or len(sel) < TRAJ_PER_ITER * iters:
+        fail(f"{len(amp)} amp-damp and {len(sel)} SEL-chain kernels in "
+             f"{iters} profiled trajectory iterations, not "
+             f"{TRAJ_PER_ITER * iters} each")
+    print(f"profile 12-wire trajectory sampling ({smi}), {iters} iterations "
+          f"of {TRAJ_IMAGES} images x {N_TRAJ} trajectories: "
+          f"{len(dev) / iters:.1f} device events per iteration, device busy "
+          f"{busy / iters / 1e3:.4f} ms per iteration, idle share "
+          f"{1 - busy / wall_us:.3f} of {wall_us / iters / 1e3:.3f} ms per "
+          f"profiled iteration; kernel #7 {len(amp) / iters:.1f} calls, "
+          f"{sum(amp) / iters:.1f} us per iteration ({sum(amp) / busy:.3f} "
+          f"of busy); kernel #5 {len(sel) / iters:.1f} calls, "
+          f"{sum(sel) / iters:.1f} us per iteration ({sum(sel) / busy:.3f} "
+          f"of busy); iteration without the profiler {iter_ms:.3f} ms (host "
+          f"clock, median of 5 runs of {iters}, each ending in a "
+          f"synchronise)")
 
 
 def _median_ms(fn, runs: int = 20) -> float:
@@ -1084,6 +1363,17 @@ def bound_sel(w, b, depth, ring, bwd: bool) -> tuple[float, str]:
                   4 * (4 * d * b + g + table + 2 * d * b + g))
 
 
+# The amplitude-damping pass, per state and wire, on d = 2^w amplitudes:
+# P(wire = 1) is 4 flops a bit-1 amplitude (2 d), the renormalized update 2
+# flops an amplitude (2 d); the sums run in float64, a few percent of the
+# float32 count at a third of its peak, below the bytes either way. Bytes:
+# the states read once and written once (complex64), the (w, N) uniforms
+# (float32) read and the picks (uint8) written once.
+def bound_amp(w, n) -> tuple[float, str]:
+    d = 2**w
+    return _bound(4 * d * w * n, 2 * n * d * 8 + w * n * 5 + 4)
+
+
 def phase_times(dev, smi: str) -> dict:
     """{key: (kernel ms, plain ms, bound ms, bound by)}."""
     rng = np.random.default_rng(SEED + 1)
@@ -1102,7 +1392,7 @@ def phase_times(dev, smi: str) -> dict:
             lambda: gate_kernel.gate_chain_bwd_plain(*args, k, w)
         ) + bound_gate(w, b, n_layers, k, True)
     for w, depth, b, ring in ((8, 14, 10, "cz"), (8, 14, 16, "cz"),
-                              (6, 60, 10, "cnot")):
+                              (6, 60, 10, "cnot"), (12, 2, 1000, "cz")):
         (g8, fr, fi, gr, gi), (sr, si) = sel_bwd_inputs(rng, w, b, depth,
                                                         ring, dev)
         key = f"{w}_{depth}_{b}_{ring}"
@@ -1127,7 +1417,8 @@ def phase_times(dev, smi: str) -> dict:
             lambda: ry_kernel._ry_chain_bwd_cuda(*args, k, w),
             lambda: ry_kernel.ry_chain_bwd_plain(*args, k, w)
         ) + bound_ry(w, b, n_layers, k, True)
-    for w, b, n_spec, ry in ((6, 10, 14, False), (8, 10, 6, True)):
+    for w, b, n_spec, ry in ((6, 10, 14, False), (8, 10, 6, True),
+                             (10, 1, 1, False)):
         ang = torch.as_tensor(rng.normal(size=(n_spec * 2, w, 3)),
                               dtype=torch.float32, device=dev)
         x = torch.as_tensor(rng.normal(size=(b, w)), dtype=torch.float32,
@@ -1140,6 +1431,15 @@ def phase_times(dev, smi: str) -> dict:
             lambda: dm_kernel.dm_chain_plain(enc, mats, 2, w, "depolarizing",
                                              0.3, ry=ry)
         ) + bound_dm(w, b, n_spec, 2, ry, "depolarizing")
+    for w, n in ((12, 1000), (8, 1000)):
+        st = torch.randn((n, 2**w), dtype=torch.complex64, device=dev)
+        st /= st.abs().square().sum(1, keepdim=True).sqrt()
+        u = torch.rand((w, n), device=dev)
+        times[f"amp_fwd{w}"] = _paired_ms(
+            lambda: amp_damp_kernel._amp_damp_cuda(st, u, TRAJ_STRENGTH,
+                                                   None),
+            lambda: amp_damp_kernel.amp_damp_plain(st, u, TRAJ_STRENGTH)
+        ) + bound_amp(w, n)
     for key, (kern, plain, bound, by) in times.items():
         print(f"times {key} ({smi}): kernel {kern:.4f} ms, plain "
               f"{plain:.4f} ms ({_HOW}); bound {bound:.3e} ms ({by}), "
@@ -1156,8 +1456,11 @@ def main() -> None:
         max_err = phase_kernel_vs_plain(dev)
     bwd_err = phase_bwd_vs_plain(dev)
     with torch.no_grad():
-        sel_err = phase_sel_vs_plain(dev)
-    sel_bwd_err = phase_sel_bwd_vs_plain(dev)
+        sel_err = phase_sel_vs_plain(dev, SEL_CASES, SEED + 3)
+        sel_wide_err = phase_sel_vs_plain(dev, WIDE_SEL_CASES, SEED + 10)
+    sel_bwd_err = phase_sel_bwd_vs_plain(dev, SEL_CASES, SEED + 4, (8, 10, 14))
+    sel_bwd_wide_err = phase_sel_bwd_vs_plain(dev, WIDE_SEL_CASES, SEED + 11,
+                                              (12, 10, 2))
     with torch.no_grad():
         ry_err = phase_ry_vs_plain(dev)
     ry_bwd_err = phase_ry_bwd_vs_plain(dev)
@@ -1182,9 +1485,31 @@ def main() -> None:
             phase_train_parity(tmp, margs, images)
         phase_profile_pl(tmp, smi)
         write_fashion(tmp / "data")
-        swept, sweep_sampling, sweep = phase_sweep(tmp)
-        phase_sweep_parity(tmp)
-    phase_profile_noisy_pl(smi)
+        settings = len(SWEEP_TYPES) * 5
+        swept, sweep_sampling, sweep = phase_sweep(
+            tmp, "sweep_", SWEEP_MODELS, [],
+            {"QIDDM_LL_noise": ("dm", 2 * SWEEP_ITERS * settings),
+             "QIDDM_PL_noise1": ("dm", 2 * SWEEP_ITERS * settings),
+             "QNN_noise": ("sel", 2 * SWEEP_ITERS * settings)})
+        phase_sweep_parity(tmp, "sweep_", SWEEP_MODELS)
+        phase_profile_noisy_pl(smi)
+        amp_err = phase_amp_vs_plain(dev)
+        traj_counts, traj_rate, traj_err, sampler = phase_traj_sample(smi)
+        phase_profile_traj(sampler, smi)
+        # kernel #7 only samples amplitude damping: 1 of the 3 types
+        traj_swept, traj_sampling, traj_sweep = phase_sweep(
+            tmp, "traj_", TRAJ_SWEEP_MODELS,
+            ["--noise-backend", "traj", "--n-traj", str(N_TRAJ)],
+            {"QIDDM_PL_noise1": ("amp", 2 * 6 * SWEEP_ITERS * 5),
+             "QNN_noise": ("amp", SWEEP_ITERS * 5)})
+        for margs in TRAJ_SWEEP_MODELS:
+            name = common.build_model(margs).save_name()
+            for code in SWEEP_TYPES:
+                for v in (0.1, 0.2, 0.3, 0.5, 0.8):
+                    cache = tmp / f"traj_0/noise_{code}/{name}_outp_{v}_traj.pt"
+                    if not cache.is_file():
+                        fail(f"no trajectory cache {cache}")
+        phase_sweep_parity(tmp, "traj_", TRAJ_SWEEP_MODELS, N_TRAJ)
     with torch.no_grad():
         times = phase_times(dev, smi)
     for name, rate in rates.items():
@@ -1193,22 +1518,30 @@ def main() -> None:
     for name, rate in train_rates.items():
         print(f"train {name}: {rate:.1f} training images/s in epoch 2 "
               f"(batch 1, tau {TAU}; {smi})")
-    for name, per_type in sweep["rates"].items():
-        print(f"sweep {name}: noisy sampling on the dm backend "
-              f"{np.mean(per_type):.2f} images/s (10 images x {SWEEP_ITERS} "
-              f"iterations x 5 intensities per type; per type "
-              f"{', '.join(f'{r:.2f}' for r in per_type)}; {smi})")
-    walls = sweep["walls"]
-    print(f"sweep wall {walls['total']:.1f} s: sampling "
-          f"{walls['sampling']:.1f} s, scoring on the host "
-          f"{walls['scoring']:.1f} s, the rest (loading, clean training) "
-          f"{walls['total'] - walls['sampling'] - walls['scoring']:.1f} s "
-          f"({smi})")
-    launches = {c: sum(s[c] for s in sampled.values()) + trained[c]
-                + pl_trained[c] + swept[c] for c in trained}
+    print(f"traj sample {TRAJ_MODEL[0]} {' '.join(TRAJ_MODEL[1:])}: 12-wire "
+          f"noisy sampling on the trajectory backend {traj_rate:.2f} images/s "
+          f"({TRAJ_IMAGES} images x {TRAJ_ITERS} iterations, {N_TRAJ} "
+          f"trajectories, amplitude damping {TRAJ_STRENGTH}; {smi})")
+    for backend, run in (("dm", sweep), ("traj", traj_sweep)):
+        for name, per_type in run["rates"].items():
+            print(f"sweep {name}: noisy sampling on the {backend} backend "
+                  f"{np.mean(per_type):.2f} images/s (10 images x "
+                  f"{SWEEP_ITERS} iterations x 5 intensities per type; per "
+                  f"type {', '.join(f'{r:.2f}' for r in per_type)}; {smi})")
+        walls = run["walls"]
+        print(f"sweep ({backend}) wall {walls['total']:.1f} s: sampling "
+              f"{walls['sampling']:.1f} s, scoring on the host "
+              f"{walls['scoring']:.1f} s, the rest (loading, clean training) "
+              f"{walls['total'] - walls['sampling'] - walls['scoring']:.1f} s "
+              f"({smi})")
+    runs = [*sampled.values(), trained, pl_trained, swept, traj_counts,
+            traj_swept]
+    launches = {c: sum(r[c] for r in runs) for c in trained}
     print(f"launches: sampling {sampled}, training {trained}, "
           f"QIDDM_PL_noise1 training {pl_trained}, noisy sweep {swept} "
-          f"(while sampling, by model {sweep_sampling})")
+          f"(while sampling, by model {sweep_sampling}), 12-wire trajectory "
+          f"sampling {traj_counts}, trajectory sweep {traj_swept} (while "
+          f"sampling, by model {traj_sampling})")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"
@@ -1221,15 +1554,21 @@ def main() -> None:
          "sel_fwd8_14_10_cz"),
         ("sel_chain_bwd", "sel_chain.cu", f"{tpu}384", "sel_bwd", sel_bwd_err,
          "sel_bwd8_14_10_cz"),
+        ("sel_chain_fwd_w12", "sel_chain.cu", f"{tpu}365", "sel",
+         sel_wide_err, "sel_fwd12_2_1000_cz"),
+        ("sel_chain_bwd_w12", "sel_chain.cu", f"{tpu}384", "sel_bwd",
+         sel_bwd_wide_err, "sel_bwd12_2_1000_cz"),
         ("ry_chain_fwd", "ry_chain.cu", f"{tpu}703", "ry", ry_err,
          "ry_fwd8_10_12"),
         ("ry_chain_bwd", "ry_chain.cu", f"{tpu}732", "ry_bwd", ry_bwd_err,
          "ry_bwd8_10_12"),
         ("dm_chain_fwd", "dm_chain.cu",
          "qiddm_tpu/sim/pallas_dm_kernel.py:167", "dm", dm_err, "dm_fwd8"),
+        ("amp_damp_fwd", "amp_damp.cu", f"{tpu}521", "amp", amp_err,
+         "amp_fwd12"),
     ]
-    # no single PyTorch call computes a gate chain or the dm block:
-    # library_ms is null
+    # no single PyTorch call computes a gate chain, the dm block or the
+    # amplitude-damping pass: library_ms is null
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + src,
         "replaces": line, "launches": launches[counter],

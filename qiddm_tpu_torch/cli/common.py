@@ -6,9 +6,8 @@ the noise drivers' pieces: ``with_noise`` (the test-time swap to a noisy
 circuit), the sampler-output caches (``save_outp``/``load_outp``) and the
 scoring protocols of ``test``. Models and datasets resolve by name through
 registries instead of ``eval``. PNG dumps and plots need matplotlib and are
-not ported (ROADMAP Queue 1 item 10); the flags for the vmapped, profiled,
-orbax and trajectory-noise runs are rejected before any work, naming their
-ROADMAP item.
+not ported (ROADMAP Queue 1 item 10); the flags for the vmapped, profiled
+and orbax runs are rejected before any work, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -117,8 +116,8 @@ def build_parser(description: str, *, default_models, default_data: str,
     p.add_argument("--noise-backend", type=str, default="dm",
                    choices=["dm", "traj"],
                    help="Channel simulation at noisy test time: 'dm' (the "
-                        "exact density matrix); 'traj' (Monte-Carlo "
-                        "trajectories) is not ported.")
+                        "exact density matrix) or 'traj' (Monte-Carlo "
+                        "trajectories on statevectors).")
     p.add_argument("--n-traj", type=int, default=100,
                    help="Trajectory count for --noise-backend traj.")
 
@@ -147,9 +146,6 @@ def validate_args(args) -> None:
         "--profile": (args.profile, "ROADMAP Queue 1 item 10"),
         "--ckpt-backend orbax": (args.ckpt_backend == "orbax",
                                  "ROADMAP Queue 1 item 10"),
-        "--noise-backend traj": (args.noise_backend == "traj",
-                                 "ROADMAP Queue 1 item 8, the trajectory "
-                                 "slice: kernel #7 and sim/trajectories.py"),
     }
     for flag, (given, item) in unported.items():
         if given:
@@ -266,12 +262,15 @@ def train(diff, args, x_train, start_epoch: int, loss_values: List[float]):
     return loss_values
 
 
-def with_noise(net, add_noise: int, noise_intensity=None):
+def with_noise(net, add_noise: int, noise_intensity=None,
+               noise_trajectories: int = 0):
     """A shim that shares ``net``'s trained parameters but runs its circuit
     with hardware noise: the test-time swap to a noisy simulation
     (``qiddm_tpu/cli/common.py:214-254``; reference
     src/mnist_noise.py:210-230). Non-unitary channels take the
-    density-matrix backend.
+    density-matrix backend, or with ``noise_trajectories > 0`` the
+    Monte-Carlo trajectory backend; sampling then needs
+    ``Diffusion.sample(..., traj_rng=<generator on the net's device>)``.
 
     The module is a shallow copy: the same parameter tensors, its own
     ``add_noise`` and ``noise_intensity``. An explicit intensity becomes a
@@ -284,6 +283,8 @@ def with_noise(net, add_noise: int, noise_intensity=None):
         return net
     noisy = copy.copy(module)  # shares _parameters and _modules
     noisy.add_noise = add_noise
+    if noise_trajectories:
+        noisy.noise_trajectories = noise_trajectories
     noisy.noise_intensity = None
     if noise_intensity is not None and add_noise != 0:
         noisy.noise_intensity = torch.tensor(
@@ -356,18 +357,22 @@ def test(diff, args, x_test, first_x, tau_test: int = 15,
     return gen, real
 
 
-def _outp_path(diff, path, noise_intensity) -> pathlib.Path:
+def _outp_path(diff, path, noise_intensity, backend: str) -> pathlib.Path:
     """The sampler-output cache of one intensity: the JAX package's name,
-    so each package reads the other's (the dm backend's; the trajectory
-    backend's carry a ``_traj`` tag and are not ported)."""
+    so each package reads the other's. The trajectory backend's carry a
+    ``_traj`` tag: its grids are statistical estimates, and a dm run never
+    serves a traj run's cache or the other way round."""
+    tag = "_traj" if backend == "traj" else ""
     return (pathlib.Path(path)
-            / f"{diff.save_name()}_outp_{noise_intensity}.pt")
+            / f"{diff.save_name()}_outp_{noise_intensity}{tag}.pt")
 
 
 def save_outp(diff, args, outp, noise_intensity) -> pathlib.Path:
     """Pickle the sampler's grid as a numpy array, as
-    ``qiddm_tpu/cli/common.py:458-467`` does."""
-    sp = _outp_path(diff, args.save_path, noise_intensity)
+    ``qiddm_tpu/cli/common.py:458-467`` does, tagged by
+    ``args.noise_backend``."""
+    sp = _outp_path(diff, args.save_path, noise_intensity,
+                    getattr(args, "noise_backend", "dm"))
     sp.parent.mkdir(parents=True, exist_ok=True)
     grid = outp.detach().cpu().numpy() if torch.is_tensor(outp) else outp
     with open(sp, "wb") as f:
@@ -375,10 +380,11 @@ def save_outp(diff, args, outp, noise_intensity) -> pathlib.Path:
     return sp
 
 
-def load_outp(diff, load_path, noise_intensity):
-    """A cached sampler grid, or None (reference src/mnist_noise.py:285-308).
-    Unpickling runs code: load only caches this project wrote."""
-    lp = _outp_path(diff, load_path, noise_intensity)
+def load_outp(diff, load_path, noise_intensity, backend: str = "dm"):
+    """A cached sampler grid of ``backend`` ("dm" or "traj"), or None
+    (reference src/mnist_noise.py:285-308). Unpickling runs code: load only
+    caches this project wrote."""
+    lp = _outp_path(diff, load_path, noise_intensity, backend)
     print(lp)
     try:
         with open(lp, "rb") as f:

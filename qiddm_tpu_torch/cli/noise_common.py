@@ -10,13 +10,20 @@ intensity (:285-308) and scoring it (:513-526).
 Here the swap is ``common.with_noise``: the same trained parameters, a
 noisy circuit. One noisy net serves a channel type's whole intensity list:
 its intensity is a device tensor set in place per value, so no program is
-rebuilt and nothing is read back to the host between values. The
-metric-vs-intensity plots need matplotlib and are not ported.
+rebuilt and nothing is read back to the host between values. With
+``--noise-backend traj`` the noisy net estimates the channels with
+``--n-traj`` Monte-Carlo trajectories, drawing from a generator on the
+net's device seeded ``seed + 17`` afresh for every intensity (the JAX
+package passes one key to every intensity's sampler), and the caches carry
+the ``_traj`` tag. The metric-vs-intensity plots need matplotlib and are not
+ported.
 """
 
 from __future__ import annotations
 
 import time
+
+import torch
 
 from .. import metrics
 from ..ckpt import load_diffusion
@@ -57,33 +64,46 @@ def run_noise_sweep(args, *, noise_types, intensities, tau_test=None,
             setattr(args, k, v)
 
 
+def traj_generator(args, device) -> torch.Generator:
+    """The trajectory backend's random source for one intensity's
+    sampling: seeded ``seed + 17`` on the net's device
+    (``qiddm_tpu/cli/noise_common.py:166-168``)."""
+    return torch.Generator(device=device).manual_seed(args.seed + 17)
+
+
 def _sample_grids(diff, args, first_x, tau_test: int, intensities) -> dict:
-    """The sampler grid of every intensity, from the caches under
-    ``args.load_path`` where they exist, else sampled on the net's device
-    and cached under ``args.save_path``. Prints the sampling wall of the
-    values it sampled."""
+    """The sampler grid of every intensity, from the caches of
+    ``args.noise_backend`` under ``args.load_path`` where they exist, else
+    sampled on the net's device and cached under ``args.save_path``. Prints
+    the sampling wall of the values it sampled."""
+    backend = getattr(args, "noise_backend", "dm")
+    device = diff.net.device
+
+    def sample(first_x):
+        rng = traj_generator(args, device) if backend == "traj" else None
+        return diff.eval().sample(first_x=first_x, n_iters=tau_test,
+                                  only_last=False,
+                                  traj_rng=rng).cpu().numpy()
+
     grids, missing = {}, []
     for intensity in intensities:
-        cached = common.load_outp(diff, args.load_path, intensity)
+        cached = common.load_outp(diff, args.load_path, intensity, backend)
         if cached is not None:
             grids[intensity] = cached
         else:
             missing.append(intensity)
     if not missing:
         return grids
-    first_x = first_x.to(diff.net.device)
+    first_x = first_x.to(device)
     t0 = time.perf_counter()
     if getattr(diff.net.module, "noise_intensity", None) is not None:
         for intensity in missing:
             common.set_noise_intensity(diff.net, intensity)
-            grids[intensity] = diff.eval().sample(
-                first_x=first_x, n_iters=tau_test,
-                only_last=False).cpu().numpy()
+            grids[intensity] = sample(first_x)
     else:
         # no intensity to set (a clean code or a net without noise): the
         # sampler's output cannot depend on it, so sample once
-        one = diff.eval().sample(first_x=first_x, n_iters=tau_test,
-                                 only_last=False).cpu().numpy()
+        one = sample(first_x)
         grids.update({intensity: one for intensity in missing})
     wall = time.perf_counter() - t0
     images = len(first_x) * len(missing)
@@ -149,8 +169,10 @@ def _run_noise_sweep(args, *, noise_types, intensities, tau_test,
         args.load_path = noise_load_path + str(add_noise)
         for mi in range(len(args.model)):
             _, diff_clean, _ = trained[mi]
-            noisy_net = common.with_noise(diff_clean.net, add_noise,
-                                          float(intensities[0]))
+            noisy_net = common.with_noise(
+                diff_clean.net, add_noise, float(intensities[0]),
+                noise_trajectories=(args.n_traj if args.noise_backend
+                                    == "traj" else 0))
             diff = Diffusion(noisy_net, add_normal_noise_multiple,
                              args.target, (height, width))
             grids = _sample_grids(diff, args, first_x, tau_test, intensities)

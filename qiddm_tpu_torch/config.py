@@ -26,10 +26,16 @@ torch.backends.cudnn.allow_tf32 = False
 
 _X64 = False
 
-# Widest circuit the gate-chain kernel takes: the JAX package's
-# pallas_max_wires (qiddm_tpu/config.py:199). At w=10 one sample's state is
-# 8 KB of shared memory.
+# Widest circuit the gate-chain kernels (the RZ and RY re-upload chains)
+# and the density-matrix kernel take: the JAX package's pallas_max_wires
+# (qiddm_tpu/config.py:199). At w=10 one sample's state is 8 KB of shared
+# memory.
 KERNEL_MAX_WIRES = 10
+# Widest circuit the SEL-chain kernels and the amplitude-damping trajectory
+# kernel take: the JAX package's traj_pallas_max_wires
+# (qiddm_tpu/config.py:218), the trajectory backend's tiled route. At w=12
+# one sample's state is 32 KB of shared memory.
+SEL_KERNEL_MAX_WIRES = 12
 
 
 def enable_x64(on: bool = True) -> None:

@@ -1,9 +1,11 @@
 // Pieces shared by the gate-chain kernels (gate_chain.cu) and the SEL-chain
-// kernels (sel_chain.cu): the block shape, one 2x2 gate on a state held in
-// shared memory, one step of the adjoint backward walk with its dg
+// kernels (sel_chain.cu), in part by the RY chain, the density-matrix block
+// and the amplitude-damping pass (ry_chain.cu, dm_chain.cu, amp_damp.cu):
+// the block shape, the shared-memory opt-in, one 2x2 gate on a state held
+// in shared memory, one step of the adjoint backward walk with its dg
 // reduction, and the fixed-order batch sum of dg.
 //
-// Conventions of both files: a block holds one sample; wire 0 is the most
+// Conventions of these files: a block holds one sample; wire 0 is the most
 // significant bit of the basis index, d = 2^w; a gate is 8 floats
 // (g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i).
 //
@@ -18,9 +20,11 @@
 
 namespace {
 
-// Threads per block: one per amplitude pair, at least one warp.
+// Threads per block: one per amplitude pair, at least one warp and at most
+// 1024 (the block limit); above 11 wires each thread owns several pairs.
 inline int threads_for(int wires) {
   const int half = (1 << wires) / 2;
+  if (half >= 1024) return 1024;
   return half > 32 ? half : 32;
 }
 
@@ -53,14 +57,16 @@ __device__ __forceinline__ void gate_pairs(float* sr, float* si,
   }
 }
 
-// One step of the adjoint walk for the gate m on the wire of `bit`, with
-// blockDim.x >= half (one amplitude pair per thread):
+// One step of the adjoint walk for the gate m on the wire of `bit`; each
+// thread takes the amplitude pairs p = tid, tid + nt, ... < half (one pair
+// per thread up to 11 wires):
 //   * the adjoint gate turns the state (sr, si) into the gate's input;
 //   * dg pairs the output-side cotangent with that input state,
 //     dg[x, y] = (sum c_x.r s_y.r + c_x.i s_y.i, sum c_x.i s_y.r - c_x.r s_y.i)
 //     over rows whose wire bit is x (cotangent) and y (state);
 //   * the adjoint gate carries the cotangent (cr, ci) to the gate's input.
-// The block's 8 sums go through warp shuffles, then across warps through
+// A thread's pairs add into its 8 partials in pair order; the block's 8
+// sums go through warp shuffles, then across warps through
 // rb (nwarps x 8 floats), and threads 0..7 write them to dg_out. The one
 // barrier inside is also the barrier between gates; the caller alternates
 // rb between two buffers, so a buffer is not rewritten before it is read.
@@ -79,9 +85,9 @@ __device__ __forceinline__ void adjoint_gate_step(float* sr, float* si,
   float part[8];
 #pragma unroll
   for (int t = 0; t < 8; ++t) part[t] = 0.0f;
-  if (tid < half) {
-    const int lo = tid & (bit - 1);
-    const int i0 = ((tid - lo) << 1) | lo;  // tid with a 0 at `bit`
+  for (int p = tid; p < half; p += blockDim.x) {
+    const int lo = p & (bit - 1);
+    const int i0 = ((p - lo) << 1) | lo;  // p with a 0 at `bit`
     const int i1 = i0 | bit;
     const float s0r = sr[i0], s0i = si[i0];
     const float s1r = sr[i1], s1i = si[i1];
@@ -96,14 +102,14 @@ __device__ __forceinline__ void adjoint_gate_step(float* sr, float* si,
     si[i1] = t1i;
     const float c0r = cr[i0], c0i = ci[i0];
     const float c1r = cr[i1], c1i = ci[i1];
-    part[0] = c0r * t0r + c0i * t0i;  // dg00
-    part[1] = c0i * t0r - c0r * t0i;
-    part[2] = c0r * t1r + c0i * t1i;  // dg01
-    part[3] = c0i * t1r - c0r * t1i;
-    part[4] = c1r * t0r + c1i * t0i;  // dg10
-    part[5] = c1i * t0r - c1r * t0i;
-    part[6] = c1r * t1r + c1i * t1i;  // dg11
-    part[7] = c1i * t1r - c1r * t1i;
+    part[0] += c0r * t0r + c0i * t0i;  // dg00
+    part[1] += c0i * t0r - c0r * t0i;
+    part[2] += c0r * t1r + c0i * t1i;  // dg01
+    part[3] += c0i * t1r - c0r * t1i;
+    part[4] += c1r * t0r + c1i * t0i;  // dg10
+    part[5] += c1i * t0r - c1r * t0i;
+    part[6] += c1r * t1r + c1i * t1i;  // dg11
+    part[7] += c1i * t1r - c1r * t1i;
     cr[i0] = a00r * c0r - a00i * c0i + a01r * c1r - a01i * c1i;
     ci[i0] = a00r * c0i + a00i * c0r + a01r * c1i + a01i * c1r;
     cr[i1] = a10r * c0r - a10i * c0i + a11r * c1r - a11i * c1i;

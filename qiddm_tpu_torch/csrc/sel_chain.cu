@@ -27,22 +27,28 @@
 // The cotangent left at the start is (dsr, dsi). No per-layer state is
 // stored: states are rebuilt through inverse gates and rings, as on the TPU.
 //
-// Design. One thread block per sample with max(d/2, 32) threads, a thread
-// per amplitude pair per gate, a barrier between gates, as gate_chain.cu.
-// The state (and for the backward the cotangent), a second buffer of each
-// for the CNOT gather, the p ring tables and all depth*w*8 gate scalars sit
-// in shared memory for the whole chain: at w=10, depth 60, 71 KB forward
-// and 90 KB backward. dg: each block's partials go to a (B, depth, w, 8)
-// workspace that dg_batch_sum_kernel sums over b in a fixed order, so two
-// calls give the same bits.
+// Design. One thread block per sample with min(max(d/2, 32), 1024) threads,
+// a thread per amplitude pair per gate up to 11 wires and two at 12, a
+// barrier between gates, as gate_chain.cu. The state (and for the backward
+// the cotangent), a second buffer of each for the CNOT gather and all
+// depth*w*8 gate scalars sit in shared memory for the whole chain: at w=12,
+// depth 14, 70 KB forward and 135 KB backward. The p ring tables stay in
+// device memory, read through L2 (p*d*4 bytes, 180 KB at w=12, shared by
+// every block): in shared memory they alone would take 180 KB at w=12 and
+// push the backward past the 227 KB a block may have. dg: each block's
+// partials go to a (B, depth, w, 8) workspace that dg_batch_sum_kernel sums
+// over b in a fixed order, so two calls give the same bits.
 //
 // What bounds it on this card. At QNN's shape (w=8, depth 14, B=10) a
 // forward is 14*8*128*10 pair updates (~143k, ~2 MFLOP): neither FLOPs nor
 // bandwidth matter. Launch latency and the chain of block-wide barriers
 // (~126 forward, ~126 backward) do, and only B of the 132 SMs get a block.
 // Reading a column of a (d, B) plane with stride B is uncoalesced; at these
-// sizes it is accepted. Several samples per block and a sample-major
-// layout are later work.
+// sizes it is accepted. At the trajectory route's shape (w=12, depth 2,
+// B = 1,000 states) a forward reads and writes 65.5 MB of planes (~20 us at
+// 3.35 TB/s): there the strided column reads, each touching a 32-byte
+// sector for 4 useful bytes, are what costs. Several samples per block and
+// a sample-major layout are later work.
 //
 // Plain C interface (bound with ctypes): each launch goes on the caller's
 // stream, allocates nothing, does not synchronise, and returns
@@ -56,19 +62,17 @@
 
 namespace {
 
-int ring_planes(int wires) { return wires > 1 ? wires - 1 : 1; }
-
-__global__ void sel_chain_fwd_kernel(const float* __restrict__ sr0,
-                                     const float* __restrict__ si0,
-                                     const float* __restrict__ g8,
-                                     const unsigned* __restrict__ ring,
-                                     float* __restrict__ out_r,
-                                     float* __restrict__ out_i, int wires,
-                                     int batch, int depth, int is_cz) {
+__global__ void __launch_bounds__(1024)
+    sel_chain_fwd_kernel(const float* __restrict__ sr0,
+                         const float* __restrict__ si0,
+                         const float* __restrict__ g8,
+                         const unsigned* __restrict__ ring,
+                         float* __restrict__ out_r,
+                         float* __restrict__ out_i, int wires,
+                         int batch, int depth, int is_cz) {
   extern __shared__ float smem[];
   const int d = 1 << wires;
   const int half = d >> 1;
-  const int p = wires > 1 ? wires - 1 : 1;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -76,16 +80,15 @@ __global__ void sel_chain_fwd_kernel(const float* __restrict__ sr0,
   float* si = sr + d;          // state, imaginary
   float* tr = si + d;          // gather buffer, real
   float* ti = tr + d;          // gather buffer, imaginary
-  float* sg = ti + d;          // p ring tables: CZ signs ...
-  int* rows = reinterpret_cast<int*>(sg);  // ... or CNOT gather rows
-  float* g = sg + p * d;       // depth * wires * 8 gate scalars
+  float* g = ti + d;           // depth * wires * 8 gate scalars
+  // the p ring tables, in device memory: CZ signs or CNOT gather rows
+  const float* sg = reinterpret_cast<const float*>(ring);
+  const int* rows = reinterpret_cast<const int*>(ring);
 
   for (int i = tid; i < d; i += nt) {
     sr[i] = sr0[static_cast<size_t>(i) * batch + b];
     si[i] = si0[static_cast<size_t>(i) * batch + b];
   }
-  unsigned* ring_s = reinterpret_cast<unsigned*>(sg);
-  for (int i = tid; i < p * d; i += nt) ring_s[i] = ring[i];
   for (int i = tid; i < depth * wires * 8; i += nt) g[i] = g8[i];
   __syncthreads();
 
@@ -99,14 +102,16 @@ __global__ void sel_chain_fwd_kernel(const float* __restrict__ sr0,
     if (is_cz) {
       const float* sgl = sg + q * d;
       for (int i = tid; i < d; i += nt) {
-        sr[i] *= sgl[i];
-        si[i] *= sgl[i];
+        const float sign = __ldg(sgl + i);
+        sr[i] *= sign;
+        si[i] *= sign;
       }
     } else {
       const int* rl = rows + q * d;
       for (int i = tid; i < d; i += nt) {
-        tr[i] = sr[rl[i]];
-        ti[i] = si[rl[i]];
+        const int from = __ldg(rl + i);
+        tr[i] = sr[from];
+        ti[i] = si[from];
       }
       float* t = sr;  // every thread swaps alike
       sr = tr;
@@ -124,20 +129,20 @@ __global__ void sel_chain_fwd_kernel(const float* __restrict__ sr0,
   }
 }
 
-__global__ void sel_chain_bwd_kernel(const float* __restrict__ g8,
-                                     const unsigned* __restrict__ ring,
-                                     const float* __restrict__ fr,
-                                     const float* __restrict__ fi,
-                                     const float* __restrict__ gr,
-                                     const float* __restrict__ gi,
-                                     float* __restrict__ dg_part,
-                                     float* __restrict__ dsr,
-                                     float* __restrict__ dsi, int wires,
-                                     int batch, int depth, int is_cz) {
+__global__ void __launch_bounds__(1024)
+    sel_chain_bwd_kernel(const float* __restrict__ g8,
+                         const unsigned* __restrict__ ring,
+                         const float* __restrict__ fr,
+                         const float* __restrict__ fi,
+                         const float* __restrict__ gr,
+                         const float* __restrict__ gi,
+                         float* __restrict__ dg_part,
+                         float* __restrict__ dsr,
+                         float* __restrict__ dsi, int wires,
+                         int batch, int depth, int is_cz) {
   extern __shared__ float smem[];
   const int d = 1 << wires;
   const int half = d >> 1;
-  const int p = wires > 1 ? wires - 1 : 1;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -150,10 +155,11 @@ __global__ void sel_chain_bwd_kernel(const float* __restrict__ g8,
   float* tsi = tsr + d;
   float* tcr = tsi + d;
   float* tci = tcr + d;
-  float* sg = tci + d;         // p ring tables: CZ signs ...
-  int* rows = reinterpret_cast<int*>(sg);  // ... or inverse CNOT rows
-  float* g = sg + p * d;       // depth * wires * 8 gate scalars
+  float* g = tci + d;          // depth * wires * 8 gate scalars
   float* red = g + depth * wires * 8;  // 2 x nwarps x 8 warp partials
+  // the p inverse ring tables, in device memory: CZ signs or CNOT rows
+  const float* sg = reinterpret_cast<const float*>(ring);
+  const int* rows = reinterpret_cast<const int*>(ring);
 
   for (int i = tid; i < d; i += nt) {
     const size_t at = static_cast<size_t>(i) * batch + b;
@@ -162,8 +168,6 @@ __global__ void sel_chain_bwd_kernel(const float* __restrict__ g8,
     cr[i] = gr[at];
     ci[i] = gi[at];
   }
-  unsigned* ring_s = reinterpret_cast<unsigned*>(sg);
-  for (int i = tid; i < p * d; i += nt) ring_s[i] = ring[i];
   for (int i = tid; i < depth * wires * 8; i += nt) g[i] = g8[i];
   __syncthreads();
 
@@ -174,15 +178,16 @@ __global__ void sel_chain_bwd_kernel(const float* __restrict__ g8,
       if (is_cz) {
         const float* sgl = sg + q * d;
         for (int i = tid; i < d; i += nt) {
-          sr[i] *= sgl[i];
-          si[i] *= sgl[i];
-          cr[i] *= sgl[i];
-          ci[i] *= sgl[i];
+          const float sign = __ldg(sgl + i);
+          sr[i] *= sign;
+          si[i] *= sign;
+          cr[i] *= sign;
+          ci[i] *= sign;
         }
       } else {
         const int* rl = rows + q * d;
         for (int i = tid; i < d; i += nt) {
-          const int from = rl[i];
+          const int from = __ldg(rl + i);
           tsr[i] = sr[from];
           tsi[i] = si[from];
           tcr[i] = cr[from];
@@ -227,8 +232,7 @@ extern "C" {
 // against the card's per-block limit before launching.
 size_t sel_chain_fwd_smem_bytes(int wires, int depth) {
   const size_t d = size_t{1} << wires;
-  return (4 * d + static_cast<size_t>(ring_planes(wires)) * d +
-          static_cast<size_t>(depth) * wires * 8) * sizeof(float);
+  return (4 * d + static_cast<size_t>(depth) * wires * 8) * sizeof(float);
 }
 
 // sr0, si0, out_r, out_i are (d, batch); g8 is (depth, wires, 8); ring is
@@ -254,8 +258,7 @@ int sel_chain_fwd(const void* sr0, const void* si0, const void* g8,
 size_t sel_chain_bwd_smem_bytes(int wires, int depth) {
   const size_t d = size_t{1} << wires;
   const size_t nwarps = threads_for(wires) / 32;
-  return (8 * d + static_cast<size_t>(ring_planes(wires)) * d +
-          static_cast<size_t>(depth) * wires * 8 + 2 * nwarps * 8) *
+  return (8 * d + static_cast<size_t>(depth) * wires * 8 + 2 * nwarps * 8) *
          sizeof(float);
 }
 

@@ -13,7 +13,8 @@ The JAX package runs a step as a jitted ``value_and_grad`` and all epochs as
 one ``lax.scan``; here a step is ``loss.backward()`` and an optimizer step,
 and the loops are Python loops. Every random draw (batch order, noise) comes
 from a ``torch.Generator`` on the CPU, so a seed gives the same run on the
-card and on the CPU.
+card and on the CPU. The sampler's trajectory noise draws (``traj_rng``)
+come from a generator on the net's device.
 """
 
 from __future__ import annotations
@@ -166,13 +167,17 @@ class Diffusion:
     # --- sampling -----------------------------------------------------------
     @torch.no_grad()
     def _denoise_scan(self, first_x: torch.Tensor, n_iters: int,
-                      noise_factor: float):
+                      noise_factor: float, traj_rng=None):
         """The denoise loop shared by every sampling entry point; returns
-        (last image batch, list of every iteration's batch)."""
+        (last image batch, list of every iteration's batch). With
+        ``traj_rng`` (the trajectory noise backend's random source, for a
+        net with ``noise_trajectories``) every iteration draws fresh values
+        from it (``qiddm_tpu/diffusion.py:203-230``)."""
         x = first_x
         xs = []
         for _ in range(n_iters):
-            pred = self.net(x)
+            pred = (self.net(x) if traj_rng is None
+                    else self.net(x, traj_rng=traj_rng))
             if self.prediction_goal == "data":
                 x = pred
             else:
@@ -183,11 +188,12 @@ class Diffusion:
 
     def sample_fn(self, first_x: torch.Tensor, n_iters: int, *,
                   only_last: bool = False, step: int = 1,
-                  noise_factor: float = 1.0) -> torch.Tensor:
+                  noise_factor: float = 1.0, traj_rng=None) -> torch.Tensor:
         """first_x: (b, 1, w, h). Returns the last batch (``only_last``) or
         the reference's grid ``(iters*h, b*w)`` of the start and every
         ``step``-th iteration."""
-        last, xs = self._denoise_scan(first_x, n_iters, noise_factor)
+        last, xs = self._denoise_scan(first_x, n_iters, noise_factor,
+                                      traj_rng)
         if only_last:
             return last
         outp = torch.stack([first_x] + xs[::step])  # (I, b, 1, H, W)
@@ -195,25 +201,31 @@ class Diffusion:
         return outp[:, :, 0].permute(0, 2, 1, 3).reshape(i * h, b * w)
 
     def sample_stack_fn(self, first_x: torch.Tensor, n_iters: int, *,
-                        noise_factor: float = 1.0) -> torch.Tensor:
+                        noise_factor: float = 1.0,
+                        traj_rng=None) -> torch.Tensor:
         """The raw (iters+1, b, 1, h, w) stack of the start and every
         iteration."""
-        _, xs = self._denoise_scan(first_x, n_iters, noise_factor)
+        _, xs = self._denoise_scan(first_x, n_iters, noise_factor, traj_rng)
         return torch.stack([first_x] + xs)
 
     def sample(self, n_iters: int, first_x: Optional[torch.Tensor] = None,
                labels=None, show_progress: bool = False,
                only_last: bool = False, step: int = 1,
                noise_factor: float = 1.0,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               traj_rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Sample from ``first_x``, or from 10 uniform images drawn on the
         CPU from ``generator`` (seed 0 if none) and moved to the net's
         device. ``labels`` and ``show_progress`` are the reference's
-        arguments and change nothing, as in the JAX package."""
+        arguments and change nothing, as in the JAX package. ``traj_rng``,
+        a generator on the net's device, feeds the trajectory noise backend
+        of a net with ``noise_trajectories``: the same seed gives the same
+        samples."""
         if first_x is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
             first_x = torch.rand((10, 1, self.width, self.height),
                                  generator=generator).to(self.net.device)
         return self.sample_fn(first_x, n_iters, only_last=only_last,
-                              step=step, noise_factor=noise_factor)
+                              step=step, noise_factor=noise_factor,
+                              traj_rng=traj_rng)

@@ -23,6 +23,13 @@ Every family takes ``add_noise`` (the reference's code, 0-4),
 device, which the JAX package keeps in its ``noise_cfg`` variables
 collection; a sweep sets it per intensity (``cli.common.with_noise``) and
 the circuit reads it where it runs, with no host round trip.
+
+``noise_trajectories > 0`` estimates a non-unitary channel with that many
+Monte-Carlo trajectories (``sim/trajectories.py``) instead of the density
+matrix. ``forward`` then needs ``traj_rng``, a ``torch.Generator`` on the
+module's device (the JAX package's "trajectories" rng stream): every
+circuit call, each block of a re-uploading model and each QDense or QNN
+forward, draws fresh values from it, and a module without one raises.
 """
 
 from __future__ import annotations
@@ -46,6 +53,16 @@ def _resolve_noise(mod, family: str):
     return engine.noise_from_code(mod.add_noise, family, mod.noise_intensity)
 
 
+def _traj_kwargs(mod, noise, traj_rng) -> dict:
+    """Engine kwargs of the trajectory backend
+    (``qiddm_tpu/nn/core.py:47-58``): ``n_traj`` and the random source when
+    the module has ``noise_trajectories`` and a non-unitary channel; the
+    engine raises if the source is missing."""
+    if mod.noise_trajectories and noise is not None and not noise.is_unitary:
+        return {"n_traj": mod.noise_trajectories, "traj_rng": traj_rng}
+    return {}
+
+
 class QDense(torch.nn.Module):
     """Amplitude-embedded dense variational circuit (reference
     ``QDenseUndirected_old``, nn/qdense.py:15-68, and its noise variant,
@@ -55,22 +72,25 @@ class QDense(torch.nn.Module):
 
     def __init__(self, qdepth: int, shape: Tuple[int, int], *,
                  generator: torch.Generator, weight_map: str = "qw_tanh",
-                 add_noise: int = 0, noise_intensity=None):
+                 add_noise: int = 0, noise_intensity=None,
+                 noise_trajectories: int = 0):
         super().__init__()
         self.shape = tuple(shape)
         self.weight_map = weight_map
         self.add_noise, self.noise_intensity = add_noise, noise_intensity
+        self.noise_trajectories = noise_trajectories
         self.wires = max(1, math.ceil(math.log2(shape[0] * shape[1])))
         self.qweights = torch.nn.Parameter(
             qweight_init((qdepth, self.wires, 3), generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, traj_rng=None) -> torch.Tensor:
         width, height = self.shape
+        noise = _resolve_noise(self, "qdense")
         p = engine.qdense_circuit(flatten_img(x), self.qweights,
                                   wires=self.wires, pad_with=0.1,
                                   weight_map=self.weight_map,
-                                  imprimitive="cnot",
-                                  noise=_resolve_noise(self, "qdense"))
+                                  imprimitive="cnot", noise=noise,
+                                  **_traj_kwargs(self, noise, traj_rng))
         return unflatten_img(postprocess_probs(p, width * height), width,
                              height)
 
@@ -83,22 +103,25 @@ class QNNA(torch.nn.Module):
 
     def __init__(self, qdepth: int, shape: Tuple[int, int], *,
                  generator: torch.Generator, add_noise: int = 0,
-                 noise_intensity=None):
+                 noise_intensity=None, noise_trajectories: int = 0):
         super().__init__()
         self.shape = tuple(shape)
         self.add_noise, self.noise_intensity = add_noise, noise_intensity
+        self.noise_trajectories = noise_trajectories
         pixels = shape[0] * shape[1]
         self.wires = max(1, math.ceil(math.log2(pixels)))
         self.linear_down = TorchDense(pixels, self.wires, generator=generator)
         self.qweights = torch.nn.Parameter(
             qweight_init((qdepth, self.wires, 3), generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, traj_rng=None) -> torch.Tensor:
         width, height = self.shape
         h = self.linear_down(flatten_img(x))
+        noise = _resolve_noise(self, "qnn_a")
         p = engine.qnn_circuit(h, self.qweights, encode="ry",
                                imprimitive="cnot", readout="probs",
-                               noise=_resolve_noise(self, "qnn_a"))
+                               noise=noise,
+                               **_traj_kwargs(self, noise, traj_rng))
         return unflatten_img(postprocess_probs(p, width * height), width,
                              height)
 
@@ -113,9 +136,10 @@ class QNNDense(torch.nn.Module):
 
     def __init__(self, input_dim: int, hidden_features: int, qdepth: int, *,
                  generator: torch.Generator, add_noise: int = 0,
-                 noise_intensity=None):
+                 noise_intensity=None, noise_trajectories: int = 0):
         super().__init__()
         self.add_noise, self.noise_intensity = add_noise, noise_intensity
+        self.noise_trajectories = noise_trajectories
         self.linear_down = TorchDense(input_dim, hidden_features,
                                       generator=generator)
         self.qweights = torch.nn.Parameter(
@@ -123,11 +147,13 @@ class QNNDense(torch.nn.Module):
         self.linear_up = TorchDense(hidden_features, input_dim,
                                     generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, traj_rng=None) -> torch.Tensor:
         h = self.linear_down(flatten_img(x))
+        noise = _resolve_noise(self, "qnn")
         q = engine.qnn_circuit(h, self.qweights, encode="rz",
                                imprimitive="cz", readout="expvalz",
-                               noise=_resolve_noise(self, "qnn"))
+                               noise=noise,
+                               **_traj_kwargs(self, noise, traj_rng))
         return self.linear_up(q).reshape(x.shape)
 
 
@@ -149,7 +175,8 @@ class Reupload(torch.nn.Module):
                  down: str = "linear", up: str = "linear",
                  readout: str = "expvalz", encode: str = "rz",
                  pca_lazy: bool = False, add_noise: int = 0,
-                 noise_family: str = "qiddm", noise_intensity=None):
+                 noise_family: str = "qiddm", noise_intensity=None,
+                 noise_trajectories: int = 0):
         super().__init__()
         for name, value in (("down", down), ("up", up),
                             ("readout", readout), ("encode", encode),
@@ -165,6 +192,7 @@ class Reupload(torch.nn.Module):
         self.readout, self.encode = readout, encode
         self.add_noise, self.noise_family = add_noise, noise_family
         self.noise_intensity = noise_intensity
+        self.noise_trajectories = noise_trajectories
         pixels = self.shape[0] * self.shape[1]
         if down == "linear":
             self.linear_down = TorchDense(pixels, hidden, generator=generator)
@@ -175,7 +203,7 @@ class Reupload(torch.nn.Module):
             self.linear_up = TorchDense(feat, input_dim or pixels,
                                         generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, traj_rng=None) -> torch.Tensor:
         width, height = self.shape
         if self.down == "linear":
             cur = self.linear_down(flatten_img(x))
@@ -184,11 +212,13 @@ class Reupload(torch.nn.Module):
             # (nn/qdense.py:456)
             _, cur = pca_fit_transform(flatten_img(x), self.hidden)
         noise = _resolve_noise(self, self.noise_family)
+        traj = _traj_kwargs(self, noise, traj_rng)
         for n in range(self.N):
             # each block re-encodes the first `hidden` outputs of the last
+            # (and draws its own trajectories)
             cur = engine.reupload_block(
                 cur[:, :self.hidden], self.qweights[n], encode=self.encode,
-                imprimitive="cz", noise=noise, readout=self.readout)
+                imprimitive="cz", noise=noise, readout=self.readout, **traj)
         if self.up == "none":
             out = postprocess_probs(cur, width * height)
         else:

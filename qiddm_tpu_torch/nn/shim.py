@@ -33,8 +33,10 @@ class DenoiserShim(torch.nn.Module):
         self.img_shape = tuple(img_shape)
         self._save_name = save_name_str
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.module(x)
+    def forward(self, x: torch.Tensor, traj_rng=None) -> torch.Tensor:
+        """The denoiser on ``x``; ``traj_rng`` is the trajectory noise
+        backend's random source (``nn/core.py``)."""
+        return self.module(x, traj_rng=traj_rng)
 
     @property
     def device(self) -> torch.device:

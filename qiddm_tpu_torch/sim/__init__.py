@@ -1,8 +1,11 @@
 """qiddm_tpu_torch.sim — batched statevector simulation in PyTorch, with the
 re-uploading gate chains (``gate_kernel``: RZ encode; ``ry_kernel``: RY
 encode) and the SEL chain (``sel_kernel``), each with its adjoint backward,
-as hand-written CUDA kernels."""
+the density-matrix block (``dm_kernel``) and the amplitude-damping
+trajectory pass (``amp_damp_kernel``) as hand-written CUDA kernels, and the
+Monte-Carlo trajectory noise backend (``trajectories``)."""
 
+from .amp_damp_kernel import amp_damp, amp_damp_plain  # noqa: F401
 from .engine import qdense_circuit, qnn_circuit, reupload_block  # noqa: F401
 from .gate_kernel import (  # noqa: F401
     gate_chain_bwd_plain,
@@ -51,4 +54,14 @@ from .statevector import (  # noqa: F401
     rz_phases,
     z_sign_table,
     zero_state,
+)
+from .trajectories import (  # noqa: F401
+    RecordedDraws,
+    ReplayDraws,
+    TrajDraws,
+    apply_channel_trajectory,
+    qdense_circuit_trajectories,
+    qnn_circuit_trajectories,
+    reupload_block_trajectories,
+    wire_one_prob,
 )

@@ -32,9 +32,16 @@ composed unitaries. The unitary kinds stay on the statevector routes: the
 rotation-angle error shifts the encoding angles, and a trailing phase shift
 leaves the probabilities as they are.
 
-The trajectory backend (``n_traj``), the mesh-sharded statevector, the
-re-uploading blocks' CNOT ring and the wide routes beyond the kernels'
-width raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+With ``n_traj`` and a random source ``traj_rng`` (a ``torch.Generator`` on
+the circuit's device), a non-unitary channel takes the Monte-Carlo
+trajectory backend instead (``sim/trajectories.py``): ``n_traj`` statevector
+trajectories per sample, the amplitude-damping pass in its kernel, the SEL
+layers through the SEL-chain kernel or composed unitaries; without a
+non-unitary channel ``n_traj`` changes nothing, as in the JAX package.
+
+The mesh-sharded statevector, the re-uploading blocks' CNOT ring and the
+wide routes beyond the kernels' width raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -68,9 +75,12 @@ from .statevector import (
     rz_phases,
     zero_state,
 )
+from .trajectories import (
+    qdense_circuit_trajectories,
+    qnn_circuit_trajectories,
+    reupload_block_trajectories,
+)
 
-_TRAJ = ("the Monte-Carlo trajectory noise backend (n_traj): ROADMAP "
-         "Queue 1 item 8, the trajectory slice")
 _ENCODES = ("rz", "rz_halfpi", "ry")
 
 
@@ -195,10 +205,12 @@ def _check_encode(encode: str) -> None:
         raise ValueError(f"unknown encode {encode!r} (known: {_ENCODES})")
 
 
-def _check_chain_route(wires: int, batch: int, cdtype) -> None:
-    """The plane kernels' limits: at most ``KERNEL_MAX_WIRES`` wires, and
+def _check_chain_route(wires: int, batch: int, cdtype,
+                       max_wires: int = _config.KERNEL_MAX_WIRES) -> None:
+    """The plane kernels' limits: at most ``max_wires`` wires (the gate
+    chains' and the dm kernel's ``KERNEL_MAX_WIRES`` unless given), and
     float32 planes (complex64)."""
-    if wires > _config.KERNEL_MAX_WIRES:
+    if wires > max_wires:
         raise NotImplementedError(
             f"{wires} wires at batch {batch}: the wide gate-level "
             f"routes are ROADMAP Queue 1 item 5")
@@ -212,19 +224,18 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
                    encode: str = "rz", imprimitive: str = "cz",
                    noise: Optional[NoiseModel] = None,
                    readout: str = "probs", cdtype=None, mesh=None,
-                   n_traj: int = 0) -> torch.Tensor:
+                   n_traj: int = 0, traj_rng=None) -> torch.Tensor:
     """One N-block: L x (encode -> SEL(k)) -> readout.
 
     x_enc: (batch, wires) encoding angles, re-uploaded in every spectrum
     layer; block_weights: (L, k, wires, 3). readout "probs" gives
     (batch, 2**w), "expvalz" gives (batch, wires). A non-unitary ``noise``
-    takes the density-matrix route (:func:`_reupload_dm`).
+    takes the density-matrix route (:func:`_reupload_dm`), or with
+    ``n_traj`` the trajectory backend, drawing from ``traj_rng``.
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded statevector: ROADMAP Queue 1 item 11")
-    if n_traj:
-        raise NotImplementedError(_TRAJ)
     _check_encode(encode)
     if imprimitive != "cz":
         raise NotImplementedError(
@@ -236,6 +247,12 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
     L, k, wires, _ = block_weights.shape
     batch = x_enc.shape[0]
     x_enc = _encode_angles(x_enc, encode, noise)
+    if n_traj and _needs_dm(noise):
+        # x_enc carries the halfpi and rotation-angle transforms already
+        return reupload_block_trajectories(
+            x_enc, block_weights, rng=traj_rng, n_traj=n_traj, noise=noise,
+            encode=encode, imprimitive=imprimitive, readout=readout,
+            cdtype=cdtype)
     if _needs_dm(noise):
         return _reupload_dm(x_enc, block_weights, encode=encode, noise=noise,
                             readout=readout, cdtype=cdtype)
@@ -358,13 +375,14 @@ def _reupload_dm(x_enc, block_weights, *, encode: str, noise: NoiseModel,
 def _sel_small_batch(sr, si, w, imprimitive: str, cdtype):
     """Small-batch SEL application (batch < 2**wires) on (d, B) float32
     start-state planes: the SEL-chain kernel (its plain version on the
-    CPU), complex64 only, up to ``KERNEL_MAX_WIRES`` wires. Returns the
+    CPU), complex64 only, up to ``SEL_KERNEL_MAX_WIRES`` wires. Returns the
     output planes.
 
     The JAX package picks among the Pallas kernel, the grouped-Kronecker
     and per-gate adjoint chains and a gate-by-gate ``lax.scan`` by backend
     and width; the port has the kernel route only, and the others raise."""
-    _check_chain_route(w.shape[1], sr.shape[1], cdtype)
+    _check_chain_route(w.shape[1], sr.shape[1], cdtype,
+                       _config.SEL_KERNEL_MAX_WIRES)
     mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
     return sel_chain_planes(sr, si, mats, w.shape[1], imprimitive)
 
@@ -377,18 +395,22 @@ def qdense_circuit(x: torch.Tensor, weights: torch.Tensor, *, wires: int,
                    pad_with: float = 0.1, weight_map: str = "qw_tanh",
                    imprimitive: str = "cnot",
                    noise: Optional[NoiseModel] = None, cdtype=None,
-                   n_traj: int = 0) -> torch.Tensor:
+                   n_traj: int = 0, traj_rng=None) -> torch.Tensor:
     """AmplitudeEmbedding -> SEL -> (noise) -> probs.
 
     x: (batch, n_features); weights: (depth, wires, 3). Returns (batch,
     2**w) probabilities. Reference: nn/qdense.py:40-47 / :95-105. A
-    non-unitary ``noise`` acts once on |psi><psi| at the end; a phase shift
-    or the rotation-angle error leaves the probabilities as they are.
+    non-unitary ``noise`` acts once on |psi><psi| at the end (with
+    ``n_traj``, on ``n_traj`` trajectories drawn from ``traj_rng``); a phase
+    shift or the rotation-angle error leaves the probabilities as they are.
     """
-    if n_traj:
-        raise NotImplementedError(_TRAJ)
     if cdtype is None:
         cdtype = _config.complex_dtype()
+    if n_traj and _needs_dm(noise):
+        return qdense_circuit_trajectories(
+            x, weights, rng=traj_rng, n_traj=n_traj, noise=noise,
+            wires=wires, pad_with=pad_with, weight_map=weight_map,
+            imprimitive=imprimitive, cdtype=cdtype)
     w = WEIGHT_MAPS[weight_map](weights)
     if x.shape[0] >= 2**wires:
         states = amplitude_embed(x, wires, pad_with, dtype=cdtype)
@@ -418,7 +440,7 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
                 encode: str = "rz", imprimitive: str = "cz",
                 weight_map: str = "none", noise: Optional[NoiseModel] = None,
                 readout: str = "expvalz", cdtype=None,
-                n_traj: int = 0) -> torch.Tensor:
+                n_traj: int = 0, traj_rng=None) -> torch.Tensor:
     """Single encode -> SEL(depth) -> readout.
 
     x: (batch, wires); weights: (depth, wires, 3). readout "expvalz" gives
@@ -433,10 +455,9 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
     A non-unitary ``noise`` takes the density-matrix route: rho from the
     encoded state, the channel after the encode or at the end, and the SEL
     chain on both sides of rho ("gates") or the composed unitary
-    ("matmul").
+    ("matmul"); with ``n_traj``, the trajectory backend, drawing from
+    ``traj_rng``.
     """
-    if n_traj:
-        raise NotImplementedError(_TRAJ)
     _check_encode(encode)
     if readout not in ("probs", "expvalz"):
         raise ValueError(f"unknown readout {readout!r}")
@@ -446,6 +467,11 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
     w = WEIGHT_MAPS[weight_map](weights)
     x = _encode_angles(x, encode, noise)
     rdtype = cdtype.to_real()
+    if n_traj and _needs_dm(noise):
+        return qnn_circuit_trajectories(
+            x, weights, rng=traj_rng, n_traj=n_traj, noise=noise,
+            encode=encode, imprimitive=imprimitive, weight_map=weight_map,
+            readout=readout, cdtype=cdtype)
     if _needs_dm(noise):
         if encode == "ry":
             rho = dm.from_statevector(

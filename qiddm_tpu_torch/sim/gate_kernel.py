@@ -13,8 +13,9 @@ plain version.
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, from
 the sources in this checkout, into ``build/qiddm_tpu_torch/`` next to the
 package. One library holds every kernel of the port (this chain's, the SEL
-chain's of ``sel_kernel.py``, the RY chain's of ``ry_kernel.py`` and the
-density-matrix block's of ``dm_kernel.py``); its
+chain's of ``sel_kernel.py``, the RY chain's of ``ry_kernel.py``, the
+density-matrix block's of ``dm_kernel.py`` and the amplitude-damping
+trajectory pass of ``amp_damp_kernel.py``); its
 file name carries a hash of all the sources and the flags, so an edit of
 any of them rebuilds it. It has a plain C interface and is bound with
 ``ctypes``.
@@ -46,7 +47,8 @@ BWD_LAUNCHES = 0
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # compiled together into one library; the header is hashed, not compiled
 _SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu",
-            _CSRC / "ry_chain.cu", _CSRC / "dm_chain.cu")
+            _CSRC / "ry_chain.cu", _CSRC / "dm_chain.cu",
+            _CSRC / "amp_damp.cu")
 _HEADERS = (_CSRC / "chain_common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -277,6 +279,11 @@ def _library():
         lib.dm_chain_fwd.restype = ctypes.c_int
         lib.dm_chain_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.dm_chain_smem_bytes.restype = ctypes.c_size_t
+        lib.amp_damp_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
+                                     + [ctypes.c_void_p] * 3
+                                     + [ctypes.c_int] * 3
+                                     + [ctypes.c_void_p])
+        lib.amp_damp_fwd.restype = ctypes.c_int
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -284,12 +291,13 @@ def _library():
 
 
 def _check_cuda_inputs(what: str, planes, g8, table, table_shape,
-                       wires: int, rows: int = 0):
+                       wires: int, rows: int = 0,
+                       max_wires: int = _config.KERNEL_MAX_WIRES):
     """Raise unless every tensor is contiguous on one CUDA device, the
-    planes and gates float32 (the table float32 or int32), and the shapes
-    fit: planes (rows, B) with ``rows`` 2**wires unless given, g8
-    (n_layers, wires, 8), the sign or ring table ``table_shape``. Returns
-    (rows, B, n_layers)."""
+    planes and gates float32 (the table float32 or int32), 1 <= wires <=
+    ``max_wires``, and the shapes fit: planes (rows, B) with ``rows``
+    2**wires unless given, g8 (n_layers, wires, 8), the sign or ring table
+    ``table_shape``. Returns (rows, B, n_layers)."""
     tensors = (*planes, g8, table)
     dev = planes[0].device
     if any(t.device != dev or t.device.type != "cuda" for t in tensors):
@@ -300,9 +308,8 @@ def _check_cuda_inputs(what: str, planes, g8, table, table_shape,
             or not all(t.is_contiguous() for t in tensors)):
         raise ValueError(f"{what}: inputs must be contiguous float32, got "
                          f"{[(t.dtype, t.is_contiguous()) for t in tensors]}")
-    if not 1 <= wires <= _config.KERNEL_MAX_WIRES:
-        raise ValueError(f"{what} takes 1..{_config.KERNEL_MAX_WIRES} wires, "
-                         f"got {wires}")
+    if not 1 <= wires <= max_wires:
+        raise ValueError(f"{what} takes 1..{max_wires} wires, got {wires}")
     d, B = planes[0].shape
     n_layers = g8.shape[0]
     if (any(t.shape != (d, B) for t in planes) or B < 1 or n_layers < 1

@@ -14,7 +14,11 @@ input, in the forward and in the backward pass alike: a CPU tensor runs the
 plain versions (:func:`sel_chain_planes_plain`, :func:`sel_chain_bwd_plain`);
 a CUDA tensor launches the kernels of ``csrc/sel_chain.cu`` or raises.
 Nothing falls back from a kernel to its plain version. The kernels are
-built into the one library of ``gate_kernel.py``.
+built into the one library of ``gate_kernel.py`` and take up to
+``config.SEL_KERNEL_MAX_WIRES`` (12) wires: the QNN/Qdense chains and the
+trajectory backend's SEL route, which the JAX package serves at 11-12 wires
+with ``sel_chain_pallas_tiled`` (one ``sel_chain_pallas`` call per 128-lane
+chunk of the batch; on the card the whole batch is one launch).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import config as _config
 from . import gate_kernel as _gk
 from .gate_kernel import _ADJ_ORDER, _ADJ_SIGNS, _gate_apply, _plane_dg, _to_g8
 from .sel import cnot_ring_perm, cz_ring_signs
@@ -132,8 +137,9 @@ def _sel_chain_cuda(sr, si, g8, wires: int, imprimitive: str):
     new (d, B) float32 tensors."""
     global SEL_LAUNCHES
     ring = _ring_on(wires, imprimitive, False, sr.device)
-    d, B, depth = _gk._check_cuda_inputs("SEL-chain kernel", (sr, si), g8,
-                                         ring, _ring_shape(wires), wires)
+    d, B, depth = _gk._check_cuda_inputs(
+        "SEL-chain kernel", (sr, si), g8, ring, _ring_shape(wires), wires,
+        max_wires=_config.SEL_KERNEL_MAX_WIRES)
     lib = _gk._library()
     _gk._check_smem(lib.sel_chain_fwd_smem_bytes(wires, depth), depth, wires)
     out_r = torch.empty_like(sr)
@@ -156,7 +162,7 @@ def _sel_chain_bwd_cuda(g8, fr, fi, gr, gi, wires: int, imprimitive: str):
     ring = _ring_on(wires, imprimitive, True, fr.device)
     d, B, depth = _gk._check_cuda_inputs(
         "SEL-chain backward kernel", (fr, fi, gr, gi), g8, ring,
-        _ring_shape(wires), wires)
+        _ring_shape(wires), wires, max_wires=_config.SEL_KERNEL_MAX_WIRES)
     lib = _gk._library()
     _gk._check_smem(lib.sel_chain_bwd_smem_bytes(wires, depth), depth, wires)
     dg_part = torch.empty((B, depth, wires, 8), dtype=torch.float32,

@@ -198,7 +198,8 @@ def test_checkpoint_every_saves_each_segment(driver_env, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--ckpt-backend", "orbax"],
-    # a noisy model (add_noise=1) under the unported trajectory backend
+    # a noisy model (add_noise=1) under the trajectory backend: ported, so
+    # the flag passes validation (as do the two other traj cases)
     ["--model", "QNN_noise", "784", "8", "14", "1", "--noise-backend",
      "traj"],
     ["--vmap-labels"],
@@ -218,6 +219,11 @@ def test_unported_runs_are_rejected_before_any_work(driver_env, monkeypatch,
     if extra[0] == "--model":  # replaces the one model instead of adding
         i = argv.index("--model")
         argv = argv[:i] + argv[i + 1 + len(MODEL):]
+    if "traj" in extra:
+        args = tmnist.parse_args(argv + extra)
+        tcommon.validate_args(args)
+        assert args.noise_backend == "traj" and args.n_traj == 100
+        return
     with pytest.raises(SystemExit, match="not ported"):
         tmnist.main(argv + extra)
     assert not list(driver_env.rglob("*.pt"))
@@ -225,8 +231,8 @@ def test_unported_runs_are_rejected_before_any_work(driver_env, monkeypatch,
 
 def test_noise_flags_and_noisy_models_pass_validation(driver_env):
     """--add_noise and --noise_intensity are read by no JAX driver and
-    pass, as a model's own add_noise does; the trajectory backend is the
-    noise setting still rejected (above)."""
+    pass, as a model's own add_noise does, and so does the trajectory
+    backend (above)."""
     args = tmnist.parse_args(["--add_noise", "2", "--device", "cpu",
                               "--model", "QNN_noise", "784", "8", "14", "1",
                               "--model", "QIDDM_PL_noise1", "784", "8", "6",

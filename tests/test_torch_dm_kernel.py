@@ -10,7 +10,7 @@ both sides, each step adding a few ulp; rho Hermitian and of trace 1 within
 1e-5 (every step is CPTP); and the channel must act: rho differs from the
 clean block (strength 0) by more than 1e-4. On the card the kernel is held
 to its plain version by the same 1e-5 at the chip_smoke.py shapes (up to 8
-wires and 6 spectrum layers).
+wires and 6 spectrum layers, and at 9 and 10 wires).
 
 The CUDA tests carry the ``cuda`` marker and skip without a card. This file
 imports JAX only inside the tests that compare with it, so that on a machine
@@ -189,6 +189,24 @@ def test_kernel_matches_plain_on_card_at_the_model_shapes(cuda, w, B, L, ry):
         got = dm_kernel.dm_chain(*args, 2, w, kind, 0.3, ry=ry)
         want = dm_kernel.dm_chain_plain(*args, 2, w, kind, 0.3, ry=ry)
         assert (got - want).abs().max().item() <= TOL, kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,B,L", [(9, 2, 2), (10, 1, 1)])
+def test_kernel_matches_plain_on_card_at_9_and_10_wires(cuda, w, B, L):
+    """The kernel's widest shapes, where rho (2 MB and 8 MB a sample) does
+    not fit in shared memory and the passes go through L2 and device
+    memory: every channel and both encodes against the plain version."""
+    ang, x = _inputs(w, L, 2, B, seed=w)
+    for ry in (False, True):
+        args = _torch_args(ang, x, ry, cuda)
+        for kind in KINDS:
+            got = dm_kernel.dm_chain(*args, 2, w, kind, 0.3, ry=ry)
+            want = dm_kernel.dm_chain_plain(*args, 2, w, kind, 0.3, ry=ry)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            assert err <= TOL, (ry, kind, err)
+            _check_density(got.cpu())
 
 
 @pytest.mark.cuda

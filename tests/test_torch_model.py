@@ -64,16 +64,24 @@ def test_seed_fixes_weights():
 
 
 def test_unported_options_raise():
-    """Noise is ported (add_noise 1-4 build and run); the Monte-Carlo
-    trajectory backend is not, and raises naming its ROADMAP item."""
+    """Noise is ported (add_noise 1-4 build and run), and so is the
+    Monte-Carlo trajectory backend, which raises without a random source
+    and above 12 wires, naming the wide routes' ROADMAP item."""
     from qiddm_tpu_torch.sim import engine as tengine
 
     net = QIDDM_LL_noise(64, 4, 3, 2, 1)
     assert net.module.add_noise == 1
     noise = tengine.noise_from_code(1, "qiddm")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="random source"):
         tengine.reupload_block(torch.zeros(2, 4), torch.zeros(3, 2, 4, 3),
                                noise=noise, n_traj=8)
+    gen = torch.Generator().manual_seed(0)
+    out = tengine.reupload_block(torch.zeros(2, 4), torch.zeros(3, 2, 4, 3),
+                                 noise=noise, n_traj=8, traj_rng=gen)
+    assert out.shape == (2, 16) and torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tengine.reupload_block(torch.zeros(2, 13), torch.zeros(1, 2, 13, 3),
+                               noise=noise, n_traj=8, traj_rng=gen)
 
 
 def test_jax_checkpoint_round_trips_through_port(tmp_path):

@@ -260,16 +260,30 @@ def test_qdense_circuit_dm_matches_jax(kind, batch):
 
 
 def test_trajectory_backend_raises():
+    """The trajectory backend runs with a random source up to 12 wires; it
+    raises without one, and above 12 wires naming the wide routes."""
     noise = tengine.NoiseModel("amplitude_damping", 0.1, "encode")
-    for fn, args in ((tengine.reupload_block,
-                      (torch.zeros(2, 3), torch.zeros(1, 2, 3, 3))),
-                     (tengine.qnn_circuit,
-                      (torch.zeros(2, 3), torch.zeros(1, 3, 3))),
-                     (tengine.qdense_circuit,
-                      (torch.zeros(2, 8), torch.zeros(1, 3, 3)))):
-        kw = {"wires": 3} if fn is tengine.qdense_circuit else {}
-        with pytest.raises(NotImplementedError, match="trajectory"):
+    for fn, wires in ((tengine.reupload_block, 3), (tengine.qnn_circuit, 3),
+                      (tengine.qdense_circuit, 3),
+                      (tengine.reupload_block, 13),
+                      (tengine.qnn_circuit, 13),
+                      (tengine.qdense_circuit, 13)):
+        if fn is tengine.reupload_block:
+            args = (torch.zeros(2, wires), torch.zeros(1, 2, wires, 3))
+        elif fn is tengine.qnn_circuit:
+            args = (torch.zeros(2, wires), torch.zeros(1, wires, 3))
+        else:
+            args = (torch.zeros(2, 8), torch.zeros(1, wires, 3))
+        kw = {"wires": wires} if fn is tengine.qdense_circuit else {}
+        with pytest.raises(ValueError, match="random source"):
             fn(*args, noise=noise, n_traj=4, **kw)
+        gen = torch.Generator().manual_seed(0)
+        if wires > 12:
+            with pytest.raises(NotImplementedError, match="item 5"):
+                fn(*args, noise=noise, n_traj=4, traj_rng=gen, **kw)
+        else:
+            out = fn(*args, noise=noise, n_traj=4, traj_rng=gen, **kw)
+            assert torch.isfinite(out).all()
 
 
 # --- models ------------------------------------------------------------------

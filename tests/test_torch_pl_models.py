@@ -132,14 +132,15 @@ def test_jax_checkpoint_round_trips_through_port(tmp_path, name):
 
 
 def test_unported_options_raise():
-    """The noise codes build (the density-matrix backend is ported); the
-    trajectory backend and the remaining Reupload options raise."""
+    """The noise codes build (the density-matrix and trajectory backends
+    are ported; the trajectory backend raises without a random source);
+    the remaining Reupload options raise."""
     from qiddm_tpu_torch.sim import engine as tengine
 
     assert tnn.QIDDM_PL_noise1(64, 4, 2, 2, 1).module.add_noise == 1
     net = tnn.QIDDM_PL_noise(64, 4, 2, 2, 2, noise_intensity=0.1)
     assert net.module.noise_intensity == 0.1
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="random source"):
         tengine.reupload_block(torch.zeros(2, 4), torch.zeros(2, 2, 4, 3),
                                encode="ry", n_traj=8,
                                noise=tengine.noise_from_code(2, "qiddm"))

@@ -166,24 +166,39 @@ _DAMPING = tengine.NoiseModel("amplitude_damping", 0.1, "encode")
 
 
 @pytest.mark.parametrize("call,kwargs,match", [
-    ("qnn", {"noise": _DAMPING, "n_traj": 4}, "item 8"),
-    ("qnn", {"n_traj": 4}, "item 8"),
-    ("qnn", {"encode": "ry", "n_traj": 4}, "item 8"),
-    ("qdense", {"noise": _DAMPING, "n_traj": 4}, "item 8"),
-    ("qdense", {"n_traj": 4}, "item 8"),
+    # a channel with n_traj takes the trajectory backend, which needs a
+    # random source; without a channel n_traj changes nothing
+    ("qnn", {"noise": _DAMPING, "n_traj": 4}, "random source"),
+    ("qnn", {"n_traj": 4}, None),
+    ("qnn", {"encode": "ry", "n_traj": 4}, None),
+    ("qdense", {"noise": _DAMPING, "n_traj": 4}, "random source"),
+    ("qdense", {"n_traj": 4}, None),
 ])
 def test_unported_circuit_options_raise(call, kwargs, match):
-    w = torch.zeros(2, 3, 3)
-    with pytest.raises(NotImplementedError, match=match):
-        if call == "qnn":
-            tengine.qnn_circuit(torch.zeros(2, 3), w, **kwargs)
-        else:
-            tengine.qdense_circuit(torch.zeros(2, 8), w, wires=3, **kwargs)
+    w = torch.rand(2, 3, 3, generator=torch.Generator().manual_seed(0))
+    if call == "qnn":
+        def run(**kw):
+            return tengine.qnn_circuit(torch.ones(2, 3), w, **kw)
+    else:
+        def run(**kw):
+            return tengine.qdense_circuit(torch.ones(2, 8), w, wires=3, **kw)
+    if match is None:
+        clean = {k: v for k, v in kwargs.items() if k != "n_traj"}
+        assert torch.equal(run(**kwargs), run(**clean))
+        return
+    with pytest.raises(ValueError, match=match):
+        run(**kwargs)
+    out = run(traj_rng=torch.Generator().manual_seed(1), **kwargs)
+    assert torch.isfinite(out).all()
 
 
 def test_chain_route_limits_raise():
+    """The SEL chain takes up to 12 wires (the trajectory route's width);
+    wider circuits at a small batch raise naming the wide routes."""
+    out = tengine.qnn_circuit(torch.zeros(2, 11), torch.zeros(1, 11, 3))
+    assert out.shape == (2, 11) and torch.isfinite(out).all()
     with pytest.raises(NotImplementedError, match="item 5"):
-        tengine.qnn_circuit(torch.zeros(2, 11), torch.zeros(1, 11, 3))
+        tengine.qnn_circuit(torch.zeros(2, 13), torch.zeros(1, 13, 3))
     tconfig.enable_x64(True)
     try:
         with pytest.raises(NotImplementedError, match="float32 planes"):
@@ -230,13 +245,13 @@ def test_seed_fixes_weights_and_noise_raises():
         b = tckpt.export_jax_variables(cls(*args, seed=1))
         c = tckpt.export_jax_variables(cls(*args, seed=2))
         assert _trees_equal(a, b) and not _trees_equal(a, c)
-    # the noise codes build; the trajectory backend raises where it would
-    # run (the circuits' n_traj)
+    # the noise codes build; the trajectory backend (the circuits' n_traj)
+    # raises without a random source
     for net, family in ((tnn.QNN_noise(784, 8, 14, 1), "qnn"),
                         (tnn.QDenseUndirected_old_noise(60, 8, 2), "qdense"),
                         (tnn.QNN_A(6, 8, 1), "qnn_a")):
         assert net.module.add_noise == net.add_noise != 0
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="random source"):
             tengine.qnn_circuit(torch.zeros(2, 3), torch.zeros(1, 3, 3),
                                 noise=tengine.noise_from_code(2, family),
                                 n_traj=4)

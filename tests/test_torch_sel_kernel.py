@@ -13,6 +13,10 @@ cotangent planes have norm ~sqrt(d B), and dg sums products over all d rows
 and the batch. The composed unitary agrees to <= 1e-6 (a few ulp of up to 7
 64x64 complex products).
 
+At 11 and 12 wires, the trajectory route's widths, the plain chain is held
+to the JAX package's gate-by-gate route (``sel_apply_gates``) by the same
+tolerances, forward and gradients.
+
 The CUDA tests carry the ``cuda`` marker and skip without a card. This file
 imports JAX only inside the tests that compare with it, so that on a machine
 without JAX the card tests run with
@@ -38,6 +42,10 @@ JAX_CASES = [(w, ring, B, depth) for w in (1, 2, 3, 4) for ring in RINGS
 CARD_CASES = ([(w, ring, B, 14) for w in (1, 2, 4, 6, 8, 10)
                for ring in RINGS for B in (1, 10, 16, 80)]
               + [(6, "cnot", 16, 60)])
+# the trajectory route's widths, at its batch (100 trajectories x 10
+# images) and depth (k = 2 a spectrum layer) and at QNN's depth
+WIDE_CARD_CASES = [(w, ring, B, depth) for w in (11, 12) for ring in RINGS
+                   for B in (1, 10, 1000) for depth in (2, 14)]
 
 
 def _inputs(w, B, depth, seed=0):
@@ -120,6 +128,42 @@ def test_bwd_plain_matches_pallas_vjp(w, ring, B, depth):
     got = sel_kernel.sel_chain_bwd_plain(*args, w, ring)
     for g, w_ in zip(got, want):
         _assert_rel(g.numpy(), w_)
+
+
+@pytest.mark.parametrize("w,ring", [(11, "cz"), (12, "cnot")])
+def test_plain_matches_jax_gate_route_at_11_and_12_wires(w, ring):
+    """The trajectory route's widths, where the JAX package runs
+    ``sel_apply_gates`` off the TPU: the forward and the gradients of a
+    readout with respect to the start state and the angles."""
+    import jax
+    import jax.numpy as jnp
+
+    from qiddm_tpu.sim.sel import sel_apply_gates
+
+    ang, st = _inputs(w, 3, 2, seed=w)
+    wgt = np.linspace(0, 1, 2**w).astype(np.float32)
+
+    def jloss(re, im, a):
+        out = sel_apply_gates(re + 1j * im, a, imprimitive=ring)
+        return jnp.sum(jnp.abs(out) ** 2 * wgt), out
+
+    (_, want), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(st.real), jnp.asarray(st.imag), jnp.asarray(ang))
+    sr, si, _ = _torch_args(ang, st)
+    sr.requires_grad_(True)
+    si.requires_grad_(True)
+    a = torch.as_tensor(ang).requires_grad_(True)
+    mats = rot_matrix(a[..., 0], a[..., 1], a[..., 2])
+    out_r, out_i = sel_kernel.sel_chain_planes(sr, si, mats, w, ring)
+    np.testing.assert_allclose(out_r.detach().numpy().T, np.real(want),
+                               atol=TOL)
+    np.testing.assert_allclose(out_i.detach().numpy().T, np.imag(want),
+                               atol=TOL)
+    ((out_r ** 2 + out_i ** 2) * torch.as_tensor(wgt)[:, None]).sum(
+    ).backward()
+    for got, want_g in zip((sr.grad.T, si.grad.T, a.grad), jgrads):
+        _assert_rel(got.numpy(), want_g)
 
 
 @pytest.mark.parametrize("w,ring,B,depth", [(1, "cz", 3, 4), (2, "cnot", 3, 5),
@@ -223,7 +267,7 @@ def test_other_devices_and_wrong_shapes_raise():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,ring,B,depth", CARD_CASES)
+@pytest.mark.parametrize("w,ring,B,depth", CARD_CASES + WIDE_CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda, w, ring, B, depth):
     ang, st = _inputs(w, B, depth)
     args = _torch_args(ang, st, cuda)
@@ -238,7 +282,7 @@ def test_kernel_matches_plain_on_card(cuda, w, ring, B, depth):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,ring,B,depth", CARD_CASES)
+@pytest.mark.parametrize("w,ring,B,depth", CARD_CASES + WIDE_CARD_CASES)
 def test_bwd_kernel_matches_plain_on_card(cuda, w, ring, B, depth):
     args, _, _ = _bwd_args(w, B, depth, ring, cuda)
     before = sel_kernel.SEL_BWD_LAUNCHES
@@ -317,6 +361,6 @@ def test_kernel_rejects_unsupported_inputs(cuda):
     with pytest.raises(ValueError, match="bad shapes"):
         sel_kernel._sel_chain_bwd_cuda(*args[:3], args[3][:, :3].contiguous(),
                                        args[4][:, :3].contiguous(), 4, "cz")
-    ang11, st11 = _inputs(11, 2, 1)
-    with pytest.raises(ValueError, match="1..10 wires"):
-        sel_kernel.sel_chain_planes(*_torch_args(ang11, st11, cuda), 11, "cz")
+    ang13, st13 = _inputs(13, 2, 1)
+    with pytest.raises(ValueError, match="1..12 wires"):
+        sel_kernel.sel_chain_planes(*_torch_args(ang13, st13, cuda), 13, "cz")

@@ -113,17 +113,33 @@ _DAMPING = tengine.NoiseModel("amplitude_damping", 0.1, "encode")
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"noise": _DAMPING, "n_traj": 4}, "item 8"),
-    ({"n_traj": 4}, "item 8"),
+    # the trajectory backend: a channel with n_traj needs a random source
+    # and runs up to 12 wires; without a channel n_traj changes nothing
+    ({"noise": _DAMPING, "n_traj": 4}, "random source"),
+    ({"n_traj": 4}, None),
     ({"mesh": object()}, "item 11"),
-    ({"encode": "ry", "noise": _DAMPING, "n_traj": 4}, "item 8"),
+    ({"encode": "ry", "noise": _DAMPING, "n_traj": 4, "wires": 13},
+     "item 5"),
     ({"imprimitive": "cnot"}, "item 7"),
 ])
 def test_reupload_block_unported_options_raise(kwargs, item):
-    x = torch.zeros(2, 3)
-    w = torch.zeros(1, 2, 3, 3)
-    with pytest.raises(NotImplementedError, match=item):
-        tengine.reupload_block(x, w, **kwargs)
+    kwargs = dict(kwargs)
+    wires = kwargs.pop("wires", 3)
+    x = torch.zeros(2, wires)
+    w = torch.zeros(1, 2, wires, 3)
+    if item is None:
+        clean = tengine.reupload_block(x, w)
+        assert torch.equal(tengine.reupload_block(x, w, **kwargs), clean)
+    elif item == "random source":
+        with pytest.raises(ValueError, match=item):
+            tengine.reupload_block(x, w, **kwargs)
+        out = tengine.reupload_block(
+            x, w, traj_rng=torch.Generator().manual_seed(0), **kwargs)
+        assert out.shape == (2, 8) and torch.isfinite(out).all()
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            tengine.reupload_block(
+                x, w, traj_rng=torch.Generator().manual_seed(0), **kwargs)
 
 
 def test_reupload_block_ry_runs_the_ry_chain_below_2_to_the_w(monkeypatch):
