@@ -6,12 +6,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and no phase's failure is
-caught:
+Phases (numbered by the slice that added them; main() runs each kernel's
+check before the paths that use it); any failure exits non-zero and no
+phase's failure is caught:
 
 1. device: a CUDA device must be present; prints torch, CUDA, the card and
    its power limit (nvidia-smi);
-2. build: compiles qiddm_tpu_torch/csrc/*.cu (all eight kernels; one
+2. build: compiles qiddm_tpu_torch/csrc/*.cu (all ten kernels; one
    nvcc per source, started together, then one link) for sm_90a into
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
@@ -144,10 +145,44 @@ caught:
    each output written once, over 3.35 TB/s), the sampling images/s of
    each model, the training images/s of each trained model in its second
    epoch, and each sweep's noisy sampling images/s per model and its wall
-   split into training, sampling and scoring.
+   split into training, sampling and scoring;
+19. wide kernels against plain: kernels #11 (the grouped sublayer) and #12
+   (its adjoint backward) against their plain versions at (w, B, L*k) in
+   WIDE_CASES, k = 2, up to w = 20: forwards max |diff| <= 1e-5, backwards
+   (dpr, dpi, each group's dG) within WIDE_BWD_TOL = 2e-5 of
+   max(1, max|plain|); at (11, 10, 4) also against torch autograd through
+   the plain forward;
+20. 16-wire sampling: QIDDM_LL_noise(784, 16, 14, 2) through
+   qiddm_tpu_torch.cli.sample as in phase 9: finite images, at least 168
+   #11 launches an iteration (one per wire group (6, 5, 5) of 2 blocks x
+   14 x 2 sublayers), and the first 3 iterations
+   of the last batch, rerun on the card, held step by step against the CPU
+   plain path within 1e-4 (a CPU iteration of 16 images at 16 wires is
+   ~60 GFLOP, so not all 15);
+21. 16-wire training: mnist_exm --model QIDDM_LL_noise 784 16 14 2 as in
+   phase 10: at least 168 #11 and 168 #12 launches a step, every checkpoint
+   served, and 3 steps' loss and gradients within 1e-4 of the CPU; then 10
+   steady steps profiled: device busy time, idle share, #11's and #12's
+   shares;
+22. the JAX benchmark's bare block (bench.py's bench_wide_reupload) at
+   w = 16 (50 steps) and w = 20 (5 steps) through engine.reupload_block:
+   fwd+bwd+SGD steps/s, finite losses, 84 #11 and 84 #12 launches a step
+   (28 sublayers x 3 wire groups at both widths);
+23. times of #11 and #12 at the model's (w=16, B=10, L*k=28) and at
+   (w=20, B=8, L*k=4), beside the plain versions, the bound and the
+   library yardstick (the group products as complex64 torch.matmul calls,
+   cuBLAS); and ROADMAP item 5's crossover, printed only: the gate chain
+   #1/#2 against the wide chain #11/#12 at w = 9 and 10, B = 80, L*k = 28,
+   whose outputs must agree within 1e-5.
 
 The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. In the record, a wide row's
+``launches`` counts the runs at its width (the 16-wire model and bench
+block, or the 20-wire bench block): launches of the group kernel, once per
+wire group of each sublayer (the backward's dG sums and un-encodes are
+helpers and not counted, as #2's dg sum is not). Its ``max_abs_err`` is
+the error checked at its shape: max |diff| forward, max |diff| /
+max(1, max|plain|) backward.
 """
 
 from __future__ import annotations
@@ -174,8 +209,9 @@ from qiddm_tpu_torch.cli import fashion_noise, mnist_exm, noise_common
 from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
 from qiddm_tpu_torch.pca import pca_fit_transform
-from qiddm_tpu_torch.sim import (amp_damp_kernel, dm_kernel, gate_kernel,
-                                 ry_kernel, sel_kernel)
+from qiddm_tpu_torch.sim import (amp_damp_kernel, dm_kernel, engine,
+                                 gate_kernel, ry_kernel, sel_kernel, wide,
+                                 wide_kernel)
 from qiddm_tpu_torch.sim.gates import rot_matrix
 from qiddm_tpu_torch.sim.statevector import rz_phases
 from qiddm_tpu_torch.sim.trajectories import RecordedDraws, ReplayDraws
@@ -190,11 +226,17 @@ MODEL = ["QIDDM_LL_noise", "784", "6", "14", "2"]
 QNN_MODEL = ["QNN_noise", "784", "8", "14"]
 QDENSE_MODEL = ["QDenseUndirected_old_noise", "60", "8"]
 PL_MODEL = ["QIDDM_PL_noise1", "784", "8", "6", "2"]
-# (model, image side, launch counter, launches per denoise iteration,
-# held step by step)
-SAMPLED = [(MODEL, 28, "gate", 2, False), (QNN_MODEL, 28, "sel", 1, False),
-           (QDENSE_MODEL, 8, "sel", 1, False), (PL_MODEL, 28, "ry", 2, True)]
+# the wide chain (kernels #11/#12): mnist_exm's first model at 16 wires
+WIDE_MODEL = ["QIDDM_LL_noise", "784", "16", "14", "2"]
+# #11 (and, training, #12) launches an iteration or step: one per wire
+# group (6, 5, 5) of each of the 2 blocks x 14 x 2 sublayers
+WIDE_PER_ITER = 2 * 14 * 2 * len(wide.group_sizes(16))
 N, ITERS, BATCHES = 16, 15, 3
+# (model, image side, launch counter, launches per denoise iteration,
+# iterations held step by step: 0 holds the free-running last batch)
+SAMPLED = [(MODEL, 28, "gate", 2, 0), (QNN_MODEL, 28, "sel", 1, 0),
+           (QDENSE_MODEL, 8, "sel", 1, 0), (PL_MODEL, 28, "ry", 2, ITERS),
+           (WIDE_MODEL, 28, "wide", WIDE_PER_ITER, 3)]
 EPOCHS, TAU, LABEL = 2, 10, 4  # mnist_exm's defaults but epochs
 CASES = ([(w, b, 28, 2) for w in (1, 4, 6, 8, 10) for b in (1, 16, 80)]
          + [(6, 16, 42, 3)])
@@ -231,6 +273,17 @@ TRAJ_PER_ITER = 12  # #7 and #5 calls an iteration: 2 blocks x 6 layers
 CPU_REPLAY_S = 20   # replay 3 iterations when the first takes under this
 # path B: fashion_noise on the trajectory backend
 TRAJ_SWEEP_MODELS = [PL_MODEL, ["QNN_noise", "784", "8", "6"]]
+# #11/#12 against plain, (w, B, L*k) at k = 2: a one-group width, the
+# crossover widths at the bench batch, 11-13 wires, the model's shape and
+# the widest
+WIDE_CASES = [(4, 16, 4), (9, 80, 28), (10, 80, 28), (11, 10, 4),
+              (13, 10, 4), (16, 10, 28), (20, 8, 4)]
+# relative to max(1, max|plain|): dG sums 2^w B / 2^s products a sublayer
+# (164k at w=20, B=8, s=6) in column tiles and splits on the card, in
+# cuBLAS's order in the plain version; ~1e-6 relative apart at that length
+WIDE_BWD_TOL = 2e-5
+# bench.py's bench_wide_reupload: (wires, steps) at L=14, k=2, batch 8
+WIDE_BENCH = ((16, 50), (20, 5))
 # the card's published peaks (H100 SXM, 700 W): float32 outside the tensor
 # cores, and device memory
 PEAK_FLOPS = 67e12
@@ -248,6 +301,7 @@ def reset_counts() -> None:
     ry_kernel.RY_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
     dm_kernel.DM_LAUNCHES = 0
     amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
+    wide_kernel.WIDE_LAUNCHES = wide_kernel.WIDE_BWD_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -256,7 +310,9 @@ def read_counts() -> dict:
             "sel_bwd": sel_kernel.SEL_BWD_LAUNCHES,
             "ry": ry_kernel.RY_LAUNCHES, "ry_bwd": ry_kernel.RY_BWD_LAUNCHES,
             "dm": dm_kernel.DM_LAUNCHES,
-            "amp": amp_damp_kernel.AMP_DAMP_LAUNCHES}
+            "amp": amp_damp_kernel.AMP_DAMP_LAUNCHES,
+            "wide": wide_kernel.WIDE_LAUNCHES,
+            "wide_bwd": wide_kernel.WIDE_BWD_LAUNCHES}
 
 
 def chain_inputs(rng, wires: int, batch: int, n_layers: int, device):
@@ -614,6 +670,172 @@ def phase_amp_vs_plain(dev) -> float:
     return worst
 
 
+def wide_inputs(rng, wires: int, batch: int, n_layers: int, dev):
+    """Phase planes, group planes, the plain forward's output and N(0, 1)
+    cotangents for one wide-chain call at k = 2: (pr, pi, gplanes, fr, fi,
+    gr, gi)."""
+    pr, pi, mats = chain_inputs(rng, wires, batch, n_layers, dev)
+    gplanes = wide_kernel._planes_of(
+        wide.group_gates(mats, wide.group_sizes(wires)))
+    fr, fi = wide_kernel._chain_plain(
+        pr, pi, gplanes, gate_kernel._sign_planes_on(2, wires, dev), 2,
+        wires)
+    gr, gi = (torch.as_tensor(rng.normal(size=(2**wires, batch)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    return pr, pi, gplanes, fr, fi, gr, gi
+
+
+def _flat(bwd) -> tuple:
+    """(dpr, dpi, dgplanes) -> (dpr, dpi, dg0r, dg0i, ...)."""
+    return (bwd[0], bwd[1], *bwd[2])
+
+
+def phase_wide_vs_plain(dev) -> dict:
+    """Kernels #11 and #12 against their plain versions at WIDE_CASES, and
+    #12 once against autograd through the plain forward; returns, by
+    (w, B, L*k), the forward's max |diff| and the backward's largest
+    max |diff| / max(1, max|plain|), the values checked."""
+    rng = np.random.default_rng(SEED + 12)
+    by_shape = {}
+    for w, b, n in WIDE_CASES:
+        pr, pi, gplanes, fr, fi, gr, gi = wide_inputs(rng, w, b, n, dev)
+        with torch.no_grad():
+            kr, ki = wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w)
+            got = _flat(wide_kernel._wide_chain_bwd_cuda(
+                pr, pi, gplanes, fr, fi, gr, gi, 2, w))
+            want = _flat(wide_kernel.wide_chain_bwd_plain(
+                pr, pi, gplanes, fr, fi, gr, gi, 2, w))
+        torch.cuda.synchronize()
+        err = max((kr - fr).abs().max().item(), (ki - fi).abs().max().item())
+        errs = [_rel(g, q) for g, q in zip(got, want)]
+        by_shape[(w, b, n)] = (err, max(errs))
+        print(f"wide kernels vs plain w={w} B={b} L*k={n} groups "
+              f"{wide.group_sizes(w)}: forward max|diff| {err:.3e}; backward "
+              f"dpr, dpi, dG max|diff| / max(1, max|plain|) "
+              + ", ".join(f"{e:.3e}" for e in errs))
+        if not (err <= KERNEL_TOL and max(errs) <= WIDE_BWD_TOL):
+            fail(f"wide kernels disagree with plain at w={w} B={b} L*k={n}: "
+                 f"forward {err:.3e} > {KERNEL_TOL} or backward "
+                 f"{max(errs):.3e} > {WIDE_BWD_TOL}")
+    # a third formulation: autograd through the plain forward
+    w, b, n = 11, 10, 4
+    pr, pi, gplanes, _, _, gr, gi = wide_inputs(rng, w, b, n, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (pr, pi, *gplanes)]
+    sr, si = wide_kernel._chain_plain(
+        leaves[0], leaves[1], leaves[2:],
+        gate_kernel._sign_planes_on(2, w, dev), 2, w)
+    (sr * gr + si * gi).sum().backward()
+    with torch.no_grad():
+        fr, fi = wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w)
+        got = _flat(wide_kernel._wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi,
+                                                     gr, gi, 2, w))
+    err = max(_rel(g, leaf.grad) for g, leaf in zip(got, leaves))
+    print(f"wide backward kernel vs autograd of the plain forward w={w} "
+          f"B={b} L*k={n}: {err:.3e}")
+    if not err <= WIDE_BWD_TOL:
+        fail(f"wide backward kernel disagrees with autograd: {err:.3e} > "
+             f"{WIDE_BWD_TOL}")
+    return by_shape
+
+
+def phase_wide_bench(smi: str) -> tuple[dict, dict]:
+    """bench.py's bench_wide_reupload on the card through the engine's
+    entry: reupload_block at L=14, k=2, batch 8, RZ encode, CZ ring, PauliZ
+    readout, the MSE to a target, autograd and an SGD step (lr 0.01) per
+    step, host-looped after a warm step; returns the launch counts of the
+    timed steps and the steps/s, by width."""
+    rates, counts = {}, {}
+    for wires, steps in WIDE_BENCH:
+        gen = torch.Generator().manual_seed(SEED)
+        w = (torch.randn((14, 2, wires, 3), generator=gen) * 0.4).to("cuda")
+        x = torch.rand((8, wires), generator=gen).to("cuda")
+        tgt = torch.rand((8, wires), generator=gen).to("cuda")
+
+        def step(w):
+            w = w.detach().requires_grad_(True)
+            out = engine.reupload_block(x, w, encode="rz", imprimitive="cz",
+                                        readout="expvalz")
+            loss = ((out - tgt) ** 2).mean()
+            loss.backward()
+            return (w - 0.01 * w.grad).detach(), loss.detach()
+
+        w, _ = step(w)  # warm-up
+        torch.cuda.synchronize()
+        losses = []
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            w, loss = step(w)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[wires] = read_counts()
+        losses = [v.item() for v in losses]
+        rates[wires] = steps / wall
+        print(f"wide bench w={wires}: {steps} fwd+bwd steps (L=14, k=2, "
+              f"batch 8) in {wall:.4f} s, {rates[wires]:.3f} steps/s; loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches "
+              f"{counts[wires]} ({smi})")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"the {wires}-wire bench block's losses are not finite")
+        want = 28 * len(wide.group_sizes(wires)) * steps
+        for c in ("wide", "wide_bwd"):
+            if counts[wires][c] != want:
+                fail(f"{wires}-wire bench block: {counts[wires][c]} {c} "
+                     f"launches, not {want}")
+    return counts, rates
+
+
+def _is_wide_fwd(name: str) -> bool:
+    """Kernel #11's launches: the one-right-hand-side group product
+    (templated, as the profiler demangles it or not)."""
+    return ("wide_group_kernel<1," in name
+            or "wide_group_kernelILi1E" in name)
+
+
+def phase_profile_wide(tmp: pathlib.Path, smi: str) -> None:
+    """Where a 16-wire training step's time goes (batch 1, tau 10): 10
+    steady Adam steps under torch.profiler give the device events, busy
+    time and idle share per step and the device time of #11 and #12 (the
+    backward's group products, dG products and sums, and un-encodes); the
+    step is also timed on the host clock without the profiler."""
+    z = np.load(tmp / "data" / "mnist_28.npz")
+    x = torch.as_tensor(z["x"][z["y"] == LABEL][:1] / 255.0,
+                        dtype=torch.float32, device="cuda").reshape(1, -1)
+    net = common.build_model(WIDE_MODEL, seed=SEED, device="cuda")
+    diff = Diffusion(net).train()
+    step = diff.make_train_step(
+        torch.optim.Adam(diff.parameters(), lr=common.FALLBACK_LR), TAU)
+    gen = torch.Generator().manual_seed(SEED)
+    step_ms = _host_ms(lambda: step(x, gen))
+    steps = 10
+
+    def run():
+        for _ in range(steps):
+            step(x, gen)
+
+    dev, busy, wall_us, counts = _device_profile(run)
+    fwd = sum(e.time_range.elapsed_us() for e in dev if _is_wide_fwd(e.name))
+    bwd = sum(e.time_range.elapsed_us() for e in dev
+              if "wide_" in e.name and not _is_wide_fwd(e.name))
+    want = WIDE_PER_ITER * steps
+    if (counts["wide"] < want or counts["wide_bwd"] < want or not fwd
+            or not bwd):
+        fail(f"{counts['wide']} #11 and {counts['wide_bwd']} #12 launches "
+             f"in {steps} profiled 16-wire training steps, not {want} each, "
+             f"or no wide-chain kernel among the profiled events: "
+             f"{sorted({e.name for e in dev})[:20]}")
+    print(f"profile {' '.join(WIDE_MODEL)} training ({smi}), {steps} steps: "
+          f"{len(dev) / steps:.1f} device events per step, device busy "
+          f"{busy / steps / 1e3:.4f} ms per step, idle share "
+          f"{1 - busy / wall_us:.3f} of {wall_us / steps / 1e3:.3f} ms per "
+          f"profiled step; #11 {fwd / steps:.1f} us per step ({fwd / busy:.3f} "
+          f"of busy), #12 {bwd / steps:.1f} us per step ({bwd / busy:.3f} of "
+          f"busy); step without the profiler {step_ms:.3f} ms (host clock, "
+          f"median of 20, each ending in a synchronise)")
+
+
 def phase_pca_on_card(side: int) -> None:
     """QIDDM_PL_noise1 refits a PCA on every forward batch: the projection
     of the sampler's first start batch (16 random images, 8 components),
@@ -631,11 +853,12 @@ def phase_pca_on_card(side: int) -> None:
 
 
 def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
-                 per_iter: int, stepwise: bool) -> tuple[dict, float]:
+                 per_iter: int, held: int) -> tuple[dict, float]:
     """Sample ``margs`` through the sampling CLI on cuda; returns the launch
-    counts of the run and the steady images/s. With ``stepwise`` the CPU
-    plain path is held to each iteration from the card's batch instead of
-    to the last batch from the start images."""
+    counts of the run and the steady images/s. With ``held`` = 0 the CPU
+    plain path is held to the last batch from the start images; otherwise
+    to each of the first ``held`` iterations from the card's batch (and the
+    free-running drift is printed when that is all of them)."""
     net = common.build_model(margs, seed=SEED, device="cuda")
     ckpt = save_checkpoint(tmp / f"{net.save_name()}.pt",
                            export_jax_variables(net), [], 0)
@@ -669,23 +892,25 @@ def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
     gen = torch.Generator().manual_seed(SEED)
     for _ in range(BATCHES):
         first_x = torch.rand((N, 1, side, side), generator=gen) * 0.75 + 0.5
-    ref = Diffusion(cpu_net, prediction_goal="data",
-                    shape=(side, side)).sample(
-        n_iters=ITERS, first_x=first_x, only_last=True).numpy()
-    err = float(np.abs(ref - imgs[-N:]).max())
-    print(f"sample {margs[0]}: last batch against the CPU plain path "
-          f"max|diff| {err:.3e}" + (" (free-running, not held)" if stepwise
-                                    else ""))
-    if stepwise:
+    if held in (0, ITERS):
+        ref = Diffusion(cpu_net, prediction_goal="data",
+                        shape=(side, side)).sample(
+            n_iters=ITERS, first_x=first_x, only_last=True).numpy()
+        err = float(np.abs(ref - imgs[-N:]).max())
+        print(f"sample {margs[0]}: last batch against the CPU plain path "
+              f"max|diff| {err:.3e}" + (" (free-running, not held)" if held
+                                        else ""))
+    if held:
         stack = Diffusion(net, shape=(side, side)).sample_stack_fn(
             first_x.to("cuda"), ITERS).cpu()
         if not np.array_equal(stack[-1].numpy(), imgs[-N:]):
             fail(f"{margs[0]}: rerunning the last batch on the card does not "
                  f"give the CLI's images")
         err = max((cpu_net(stack[t]) - stack[t + 1]).abs().max().item()
-                  for t in range(ITERS))
-        print(f"sample {margs[0]}: each of {ITERS} iterations from the card's "
-              f"batch against the CPU plain path max|diff| {err:.3e}")
+                  for t in range(held))
+        print(f"sample {margs[0]}: each of the first {held} iterations from "
+              f"the card's batch against the CPU plain path max|diff| "
+              f"{err:.3e}")
     if not err <= SAMPLE_TOL:
         fail(f"{margs[0]} cuda samples differ from the CPU plain path: "
              f"{err:.3e} > {SAMPLE_TOL}")
@@ -1119,19 +1344,21 @@ def phase_profile_noisy_pl(smi: str) -> None:
     diff.sample(first_x=first_x, n_iters=1)  # warm-up
     iter_ms = _host_ms(lambda: diff.sample(first_x=first_x,
                                            n_iters=iters)) / iters
-    dev, busy, wall_us = _device_profile(
+    dev, busy, wall_us, counts = _device_profile(
         lambda: diff.sample(first_x=first_x, n_iters=iters))
     dm = [e.time_range.elapsed_us() for e in dev if "dm_chain" in e.name]
-    if len(dm) < 2 * iters:
-        fail(f"{len(dm)} dm-chain kernels in {iters} profiled noisy "
-             f"QIDDM_PL_noise1 iterations, not {2 * iters}")
+    if counts["dm"] < 2 * iters or not dm:
+        fail(f"{counts['dm']} dm-chain launches ({len(dm)} profiled) in "
+             f"{iters} profiled noisy QIDDM_PL_noise1 iterations, not "
+             f"{2 * iters}")
     print(f"profile noisy QIDDM_PL_noise1 sampling ({smi}), {iters} "
           f"iterations of {len(first_x)} images, amplitude damping at "
           f"{SWEEP_CHECK}: {len(dev) / iters:.1f} device events per "
           f"iteration, device busy {busy / iters / 1e3:.4f} ms per "
           f"iteration, idle share {1 - busy / wall_us:.3f} of "
           f"{wall_us / iters / 1e3:.3f} ms per profiled iteration; kernel #8 "
-          f"{len(dm) / iters:.1f} calls, {sum(dm) / iters:.1f} us per "
+          f"{counts['dm'] / iters:.1f} calls ({len(dm)} of {counts['dm']} "
+          f"profiled), {sum(dm) / iters:.1f} us per "
           f"iteration ({sum(dm) / busy:.3f} of busy); iteration without the "
           f"profiler {iter_ms:.3f} ms (host clock, median of 20 runs of "
           f"{iters}, each ending in a synchronise)")
@@ -1210,23 +1437,28 @@ def phase_traj_sample(smi: str) -> tuple[dict, float, float, tuple]:
     return counts, rate, err, (diff, first_x)
 
 
-def _device_profile(fn) -> tuple[list, float, float]:
-    """Runs ``fn`` under torch.profiler; returns its device events (user
-    annotations dropped), the device busy time (the union of their
-    intervals) and the profiled wall, both in us."""
+def _device_profile(fn) -> tuple[list, float, float, dict]:
+    """Runs ``fn`` under torch.profiler with the launch counters set to 0
+    just before it; returns its device events (user annotations dropped),
+    the device busy time (the union of their intervals), the profiled wall,
+    both in us, and the launch counts of the run. The counters, not the
+    profiler, show what launched: the profiler can lose a device record
+    (it kept 59 of 60 #7 launches in one run on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    counts = read_counts()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
-    return dev, busy, wall_us
+    return dev, busy, wall_us, counts
 
 
 def phase_profile_traj(sampler, smi: str) -> None:
@@ -1243,22 +1475,26 @@ def phase_profile_traj(sampler, smi: str) -> None:
                     traj_rng=torch.Generator(device="cuda").manual_seed(7))
 
     iter_ms = _host_ms(run, runs=5) / iters
-    dev, busy, wall_us = _device_profile(run)
+    dev, busy, wall_us, counts = _device_profile(run)
     amp = [e.time_range.elapsed_us() for e in dev if "amp_damp" in e.name]
     sel = [e.time_range.elapsed_us() for e in dev
            if "sel_chain_fwd" in e.name]
-    if len(amp) < TRAJ_PER_ITER * iters or len(sel) < TRAJ_PER_ITER * iters:
-        fail(f"{len(amp)} amp-damp and {len(sel)} SEL-chain kernels in "
-             f"{iters} profiled trajectory iterations, not "
-             f"{TRAJ_PER_ITER * iters} each")
+    want = TRAJ_PER_ITER * iters
+    if (counts["amp"] < want or counts["sel"] < want or not amp
+            or not sel):
+        fail(f"{counts['amp']} amp-damp and {counts['sel']} SEL-chain "
+             f"launches ({len(amp)} and {len(sel)} profiled) in {iters} "
+             f"profiled trajectory iterations, not {want} each")
     print(f"profile 12-wire trajectory sampling ({smi}), {iters} iterations "
           f"of {TRAJ_IMAGES} images x {N_TRAJ} trajectories: "
           f"{len(dev) / iters:.1f} device events per iteration, device busy "
           f"{busy / iters / 1e3:.4f} ms per iteration, idle share "
           f"{1 - busy / wall_us:.3f} of {wall_us / iters / 1e3:.3f} ms per "
-          f"profiled iteration; kernel #7 {len(amp) / iters:.1f} calls, "
+          f"profiled iteration; kernel #7 {counts['amp'] / iters:.1f} calls "
+          f"({len(amp)} of {counts['amp']} profiled), "
           f"{sum(amp) / iters:.1f} us per iteration ({sum(amp) / busy:.3f} "
-          f"of busy); kernel #5 {len(sel) / iters:.1f} calls, "
+          f"of busy); kernel #5 {counts['sel'] / iters:.1f} calls "
+          f"({len(sel)} of {counts['sel']} profiled), "
           f"{sum(sel) / iters:.1f} us per iteration ({sum(sel) / busy:.3f} "
           f"of busy); iteration without the profiler {iter_ms:.3f} ms (host "
           f"clock, median of 5 runs of {iters}, each ending in a "
@@ -1374,8 +1610,69 @@ def bound_amp(w, n) -> tuple[float, str]:
     return _bound(4 * d * w * n, 2 * n * d * 8 + w * n * 5 + 4)
 
 
-def phase_times(dev, smi: str) -> dict:
-    """{key: (kernel ms, plain ms, bound ms, bound by)}."""
+# The wide chain, per sample and per amplitude, at k = 2 (n = L*k
+# sublayers, L phases): a group of s bits is a complex (2^s x 2^s) product,
+# 8 * 2^s flops an amplitude; a sublayer's ring signs 2, the phase 6. The
+# backward does three products a group (the state's rebuild, the
+# cotangent's push, dG), the signs on state and cotangent (4) and the
+# un-encode (20). Bytes: each input read once and each output written once,
+# float32: the (d, B) planes and the group planes (2 sum 4^s floats a
+# sublayer).
+def bound_wide(w, b, n, bwd: bool) -> tuple[float, str]:
+    d, sizes = 2**w, wide.group_sizes(w)
+    mac = 8 * sum(2**s for s in sizes)
+    g = 2 * n * sum(4**s for s in sizes)
+    if not bwd:
+        return _bound(b * d * (n * (mac + 2) + 6 * (n // 2)),
+                      4 * (2 * d * b + g + 2 * d * b))
+    return _bound(b * d * (n * (3 * mac + 4) + 20 * (n // 2)),
+                  4 * (6 * d * b + g + 2 * d * b + g))
+
+
+def _library_wide_fwd(p, gs, signs, w):
+    """The forward chain (k = 2) by PyTorch calls on complex64 (d, B)
+    states: one torch.matmul (cuBLAS, TF32 off) per group, the phase and
+    the signs elementwise. Timed as kernel #11's library yardstick, used nowhere in
+    the port."""
+    sizes = wide.group_sizes(w)
+    d, b = p.shape
+    s = torch.zeros_like(p)
+    s[0] = 1
+    for l in range(gs[0].shape[0]):
+        if l % 2 == 0:
+            s = s * p
+        for g, (off, sz) in enumerate(zip(wide._offsets(sizes), sizes)):
+            s = torch.matmul(gs[g][l], s.view(2**off, 2**sz, -1)).view(d, b)
+        s = s * signs[l % 2]
+    return s
+
+
+def _library_wide_bwd(p, gs, signs, f, c, w):
+    """Kernel #12's yardstick in the same calls: G^H on state and
+    cotangent and dG = c s^H, one batched torch.matmul each per group."""
+    sizes = wide.group_sizes(w)
+    offs = wide._offsets(sizes)
+    d, b = p.shape
+    s, dp = f, torch.zeros_like(p)
+    dg = []
+    for l in range(gs[0].shape[0] - 1, -1, -1):
+        s, c = s * signs[l % 2], c * signs[l % 2]
+        for g in range(len(sizes) - 1, -1, -1):
+            view = (2**offs[g], 2**sizes[g], -1)
+            gh = gs[g][l].mH
+            s = torch.matmul(gh, s.view(view)).view(d, b)
+            dg.append(torch.matmul(c.view(view), s.view(view).mH).sum(0))
+            c = torch.matmul(gh, c.view(view)).view(d, b)
+        if l % 2 == 0:
+            s = s * p.conj()
+            dp = dp + c * s.conj()
+            c = c * p.conj()
+    return dp, dg
+
+
+def phase_times(dev, smi: str) -> tuple[dict, dict]:
+    """{key: (kernel ms, plain ms, bound ms, bound by)} and, for the wide
+    chain, {key: library ms}."""
     rng = np.random.default_rng(SEED + 1)
     w, b, n_layers, k = 6, 16, 28, 2
     pr, pi, mats = chain_inputs(rng, w, b, n_layers, dev)
@@ -1440,11 +1737,77 @@ def phase_times(dev, smi: str) -> dict:
                                                    None),
             lambda: amp_damp_kernel.amp_damp_plain(st, u, TRAJ_STRENGTH)
         ) + bound_amp(w, n)
+    library = {}
+    for w, b, n in ((16, 10, 28), (20, 8, 4)):
+        pr, pi, gplanes, fr, fi, gr, gi = wide_inputs(rng, w, b, n, dev)
+        signs = gate_kernel._sign_planes_on(2, w, dev)
+        p, f, c = (torch.complex(r, i) for r, i in ((pr, pi), (fr, fi),
+                                                    (gr, gi)))
+        gs = [torch.complex(gplanes[j], gplanes[j + 1])
+              for j in range(0, len(gplanes), 2)]
+        lib_f = _library_wide_fwd(p, gs, signs, w)
+        err = (lib_f - f).abs().max().item()
+        if not err <= KERNEL_TOL:
+            fail(f"the wide chain's library formulation is not the chain: "
+                 f"{err:.3e}")
+        key = f"{w}_{b}_{n}"
+        times[f"wide_fwd{key}"] = _paired_ms(
+            lambda: wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w),
+            lambda: wide_kernel._chain_plain(pr, pi, gplanes, signs, 2, w)
+        ) + bound_wide(w, b, n, False)
+        times[f"wide_bwd{key}"] = _paired_ms(
+            lambda: wide_kernel._wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi,
+                                                     gr, gi, 2, w),
+            lambda: wide_kernel.wide_chain_bwd_plain(pr, pi, gplanes, fr, fi,
+                                                     gr, gi, 2, w)
+        ) + bound_wide(w, b, n, True)
+        library[f"wide_fwd{key}"] = min(
+            _median_ms(lambda: _library_wide_fwd(p, gs, signs, w))
+            for _ in range(2))
+        library[f"wide_bwd{key}"] = min(
+            _median_ms(lambda: _library_wide_bwd(p, gs, signs, f, c, w))
+            for _ in range(2))
     for key, (kern, plain, bound, by) in times.items():
+        lib = (f", library {library[key]:.4f} ms (median of 20, better of "
+               f"two rounds)" if key in library else "")
         print(f"times {key} ({smi}): kernel {kern:.4f} ms, plain "
-              f"{plain:.4f} ms ({_HOW}); bound {bound:.3e} ms ({by}), "
+              f"{plain:.4f} ms ({_HOW}){lib}; bound {bound:.3e} ms ({by}), "
               f"kernel at {bound / kern:.2e} of it")
-    return times
+    return times, library
+
+
+def phase_crossover(dev, smi: str) -> None:
+    """ROADMAP item 5's crossover, printed only (routing at w <= 10 stays
+    on the gate chain): the gate chain #1/#2 against the wide chain
+    #11/#12 at w = 9 and 10, B = 80, L*k = 28, in turns in one call."""
+    rng = np.random.default_rng(SEED + 13)
+    for w in (9, 10):
+        pr, pi, mats = chain_inputs(rng, w, 80, 28, dev)
+        g8 = gate_kernel._to_g8(mats)
+        gplanes = wide_kernel._planes_of(
+            wide.group_gates(mats, wide.group_sizes(w)))
+        signs = gate_kernel._sign_planes_on(2, w, dev)
+        fr, fi = wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w)
+        qr, qi = gate_kernel._gate_chain_cuda(pr, pi, g8, signs, 2, w)
+        gr, gi = (torch.as_tensor(rng.normal(size=(2**w, 80)),
+                                  dtype=torch.float32, device=dev)
+                  for _ in range(2))
+        same = max((fr - qr).abs().max().item(), (fi - qi).abs().max().item())
+        if not same <= KERNEL_TOL:
+            fail(f"the gate chain and the wide chain differ at w={w}: "
+                 f"{same:.3e}")
+        gate_f, wide_f = _paired_ms(
+            lambda: gate_kernel._gate_chain_cuda(pr, pi, g8, signs, 2, w),
+            lambda: wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w))
+        gate_b, wide_b = _paired_ms(
+            lambda: gate_kernel._gate_chain_bwd_cuda(pr, pi, g8, signs, fr,
+                                                     fi, gr, gi, 2, w),
+            lambda: wide_kernel._wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi,
+                                                     gr, gi, 2, w))
+        print(f"crossover w={w} B=80 L*k=28 ({smi}), outputs {same:.3e} "
+              f"apart: gate chain #1 "
+              f"{gate_f:.4f} ms, #2 {gate_b:.4f} ms; wide chain #11 "
+              f"{wide_f:.4f} ms, #12 {wide_b:.4f} ms ({_HOW})")
 
 
 def main() -> None:
@@ -1466,14 +1829,16 @@ def main() -> None:
     ry_bwd_err = phase_ry_bwd_vs_plain(dev)
     with torch.no_grad():
         dm_err = phase_dm_vs_plain(dev)
+    wide_errs = phase_wide_vs_plain(dev)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         sampled, rates = {}, {}
         with torch.no_grad():
             phase_pca_on_card(28)
-            for margs, side, counter, per_iter, stepwise in SAMPLED:
-                sampled[margs[0]], rates[margs[0]] = phase_sample(
-                    tmp, margs, side, counter, per_iter, stepwise)
+            for margs, side, counter, per_iter, held in SAMPLED:
+                key = " ".join(margs)
+                sampled[key], rates[key] = phase_sample(
+                    tmp, margs, side, counter, per_iter, held)
         n_train = write_dataset(tmp / "data")
         trained, train_rates = phase_train(
             tmp, n_train, [MODEL, QNN_MODEL],
@@ -1481,9 +1846,17 @@ def main() -> None:
         pl_trained, pl_rates = phase_train(
             tmp, n_train, [PL_MODEL], {"ry": 2, "ry_bwd": 2}, default=False)
         train_rates.update(pl_rates)
-        for margs, images in ((MODEL, 1), (QNN_MODEL, 1), (PL_MODEL, 10)):
+        wide_trained, wide_rates = phase_train(
+            tmp, n_train, [WIDE_MODEL],
+            {"wide": WIDE_PER_ITER, "wide_bwd": WIDE_PER_ITER},
+            default=False)
+        train_rates.update({" ".join(WIDE_MODEL): r
+                            for r in wide_rates.values()})
+        for margs, images in ((MODEL, 1), (QNN_MODEL, 1), (PL_MODEL, 10),
+                              (WIDE_MODEL, 1)):
             phase_train_parity(tmp, margs, images)
         phase_profile_pl(tmp, smi)
+        phase_profile_wide(tmp, smi)
         write_fashion(tmp / "data")
         settings = len(SWEEP_TYPES) * 5
         swept, sweep_sampling, sweep = phase_sweep(
@@ -1510,8 +1883,10 @@ def main() -> None:
                     if not cache.is_file():
                         fail(f"no trajectory cache {cache}")
         phase_sweep_parity(tmp, "traj_", TRAJ_SWEEP_MODELS, N_TRAJ)
+    bench_counts, bench_rates = phase_wide_bench(smi)
     with torch.no_grad():
-        times = phase_times(dev, smi)
+        times, library = phase_times(dev, smi)
+        phase_crossover(dev, smi)
     for name, rate in rates.items():
         print(f"sample {name}: steady sampling {rate:.1f} images/s ({N} "
               f"images x {ITERS} iterations per batch; {smi})")
@@ -1522,6 +1897,9 @@ def main() -> None:
           f"noisy sampling on the trajectory backend {traj_rate:.2f} images/s "
           f"({TRAJ_IMAGES} images x {TRAJ_ITERS} iterations, {N_TRAJ} "
           f"trajectories, amplitude damping {TRAJ_STRENGTH}; {smi})")
+    for wires, rate in bench_rates.items():
+        print(f"wide bench {wires} wires: {rate:.3f} training steps/s "
+              f"(reupload_block L=14, k=2, batch 8, fwd+bwd; {smi})")
     for backend, run in (("dm", sweep), ("traj", traj_sweep)):
         for name, per_type in run["rates"].items():
             print(f"sweep {name}: noisy sampling on the {backend} backend "
@@ -1534,17 +1912,25 @@ def main() -> None:
               f"{walls['scoring']:.1f} s, the rest (loading, clean training) "
               f"{walls['total'] - walls['sampling'] - walls['scoring']:.1f} s "
               f"({smi})")
-    runs = [*sampled.values(), trained, pl_trained, swept, traj_counts,
-            traj_swept]
+    runs = [*sampled.values(), trained, pl_trained, wide_trained, swept,
+            traj_counts, traj_swept, *bench_counts.values()]
     launches = {c: sum(r[c] for r in runs) for c in trained}
+    # each wide row counts its own width's runs: the 16-wire model and
+    # bench block, and the 20-wire bench block
+    wide16 = (sampled[" ".join(WIDE_MODEL)], wide_trained, bench_counts[16])
+    for c in ("wide", "wide_bwd"):
+        launches[f"{c}16"] = sum(r[c] for r in wide16)
+        launches[f"{c}20"] = bench_counts[20][c]
     print(f"launches: sampling {sampled}, training {trained}, "
-          f"QIDDM_PL_noise1 training {pl_trained}, noisy sweep {swept} "
+          f"QIDDM_PL_noise1 training {pl_trained}, 16-wire training "
+          f"{wide_trained}, wide bench {bench_counts}, noisy sweep {swept} "
           f"(while sampling, by model {sweep_sampling}), 12-wire trajectory "
           f"sampling {traj_counts}, trajectory sweep {traj_swept} (while "
           f"sampling, by model {traj_sampling})")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"
+    wide_tpu = "qiddm_tpu/sim/pallas_wide_kernel.py:"
     rows = [  # name, source, TPU kernel file:line, counter, error, times key
         ("gate_chain_fwd", "gate_chain.cu", f"{tpu}130", "gate", max_err,
          "fwd"),
@@ -1566,15 +1952,25 @@ def main() -> None:
          "qiddm_tpu/sim/pallas_dm_kernel.py:167", "dm", dm_err, "dm_fwd8"),
         ("amp_damp_fwd", "amp_damp.cu", f"{tpu}521", "amp", amp_err,
          "amp_fwd12"),
+        # the backward rows carry the error relative to max(1, max|plain|)
+        ("wide_chain_fwd", "wide_chain.cu", f"{wide_tpu}313", "wide16",
+         wide_errs[(16, 10, 28)][0], "wide_fwd16_10_28"),
+        ("wide_chain_bwd", "wide_chain.cu", f"{wide_tpu}332", "wide_bwd16",
+         wide_errs[(16, 10, 28)][1], "wide_bwd16_10_28"),
+        ("wide_chain_fwd_w20", "wide_chain.cu", f"{wide_tpu}313", "wide20",
+         wide_errs[(20, 8, 4)][0], "wide_fwd20_8_4"),
+        ("wide_chain_bwd_w20", "wide_chain.cu", f"{wide_tpu}332",
+         "wide_bwd20", wide_errs[(20, 8, 4)][1], "wide_bwd20_8_4"),
     ]
     # no single PyTorch call computes a gate chain, the dm block or the
-    # amplitude-damping pass: library_ms is null
+    # amplitude-damping pass: their library_ms is null. The wide chain's
+    # is its group products as complex64 torch.matmul calls (cuBLAS).
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + src,
         "replaces": line, "launches": launches[counter],
         "max_abs_err": err, "ms": times[key][0], "plain_ms": times[key][1],
         "bound_ms": times[key][2], "bound_by": times[key][3],
-        "library_ms": None,
+        "library_ms": library.get(key),
     } for name, src, line, counter, err, key in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

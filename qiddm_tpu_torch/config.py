@@ -2,8 +2,8 @@
 
 Counterpart of ``qiddm_tpu/config.py:150-208, 370-414``: the complex/real
 dtype switch (complex64 by default, complex128 for tight parity work), the
-width cap of the hand-written gate-chain kernels and the density-matrix
-backend's two strategy switches.
+width caps of the hand-written kernels (and the wide chain's group width)
+and the density-matrix backend's two strategy switches.
 
 TF32 is switched off for every float32 product this package issues. The
 JAX simulator pins ``precision="highest"`` on its contractions because
@@ -36,6 +36,24 @@ KERNEL_MAX_WIRES = 10
 # (qiddm_tpu/config.py:218), the trajectory backend's tiled route. At w=12
 # one sample's state is 32 KB of shared memory.
 SEL_KERNEL_MAX_WIRES = 12
+# Widest circuit the wide chain kernels take (sim/wide_kernel.py, kernels
+# #11/#12): the JAX package's superstate width, TOTAL_BITS
+# (qiddm_tpu/sim/pallas_wide_kernel.py:74). At w=20 one state plane pair is
+# 8 MB a sample, held in device memory between the per-group launches.
+WIDE_KERNEL_MAX_WIRES = 20
+# Largest group of wires whose per-wire rotations compose into one group
+# matrix: 7 bits, 128 x 128 (qiddm_tpu/sim/wide.py:366-370). The kernels of
+# csrc/wide_chain.cu are written for it: at most 3 groups (20 wires) of at
+# most 128 rows.
+MAX_GROUP_BITS = 7
+# The engine's wide route starts at KERNEL_MAX_WIRES + 1 = 11, not at the
+# JAX kernel's MIN_WIRES = 13. On the TPU, widths 11-12 stay on the XLA
+# grouped chain and the kernel packs 2**(20 - w) samples into one
+# 2**20-amplitude superstate behind identity groups. The port keeps the
+# (d, B) planes and applies the balanced groups group_sizes(w) directly,
+# with no packing and no padding, so the same kernels serve 11-12 wires
+# where the gate chains stop (at w=16 the groups (6, 5, 5) do 128 complex
+# MACs an amplitude against 320 for the packed (7, 7, 6)).
 
 
 def enable_x64(on: bool = True) -> None:

@@ -2,8 +2,9 @@
 re-uploading gate chains (``gate_kernel``: RZ encode; ``ry_kernel``: RY
 encode) and the SEL chain (``sel_kernel``), each with its adjoint backward,
 the density-matrix block (``dm_kernel``) and the amplitude-damping
-trajectory pass (``amp_damp_kernel``) as hand-written CUDA kernels, and the
-Monte-Carlo trajectory noise backend (``trajectories``)."""
+trajectory pass (``amp_damp_kernel``) and the wide (11-20 wire) chain's
+grouped sublayer (``wide_kernel``, with ``wide``) as hand-written CUDA
+kernels, and the Monte-Carlo trajectory noise backend (``trajectories``)."""
 
 from .amp_damp_kernel import amp_damp, amp_damp_plain  # noqa: F401
 from .engine import qdense_circuit, qnn_circuit, reupload_block  # noqa: F401
@@ -64,4 +65,13 @@ from .trajectories import (  # noqa: F401
     qnn_circuit_trajectories,
     reupload_block_trajectories,
     wire_one_prob,
+)
+from .wide import group_gates, group_sizes  # noqa: F401
+# the launch counters are read from the module, wide_kernel.WIDE_LAUNCHES
+# and wide_kernel.WIDE_BWD_LAUNCHES: a name imported here would keep the
+# value it had at import
+from .wide_kernel import (  # noqa: F401
+    wide_chain_bwd_plain,
+    wide_chain_planes,
+    wide_chain_planes_plain,
 )

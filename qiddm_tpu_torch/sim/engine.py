@@ -15,9 +15,11 @@ size:
 
 * batch < 2**wires: a gate chain on (d, B) float32 planes —
   ``gate_kernel.gate_chain_planes`` (RZ) and ``ry_kernel.ry_chain_planes``
-  (RY) for the re-uploading blocks, ``sel_kernel.sel_chain_planes`` for
-  the SEL chains (both rings); the CUDA kernels on the card (forward, and
-  the adjoint backward under autograd), their plain versions on the CPU;
+  (RY) for the re-uploading blocks up to 10 wires,
+  ``wide_kernel.wide_chain_planes`` (the grouped chain, RZ) for 11-20
+  wires, ``sel_kernel.sel_chain_planes`` for the SEL chains (both rings);
+  the CUDA kernels on the card (forward, and the adjoint backward under
+  autograd), their plain versions on the CPU;
 * batch >= 2**wires: the layers composed into one unitary per block and
   applied with complex matmuls, which pays once the batch exceeds the
   state dimension; autograd differentiates it, as XLA does in JAX.
@@ -39,9 +41,10 @@ trajectories per sample, the amplitude-damping pass in its kernel, the SEL
 layers through the SEL-chain kernel or composed unitaries; without a
 non-unitary channel ``n_traj`` changes nothing, as in the JAX package.
 
-The mesh-sharded statevector, the re-uploading blocks' CNOT ring and the
-wide routes beyond the kernels' width raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+The mesh-sharded statevector, the re-uploading blocks' CNOT ring, and the
+wide routes the kernels do not take (an RY encode above 10 wires, any block
+above 20, the SEL chains above 12, complex128) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ from .trajectories import (
     qnn_circuit_trajectories,
     reupload_block_trajectories,
 )
+from .wide_kernel import wide_chain_planes
 
 _ENCODES = ("rz", "rz_halfpi", "ry")
 
@@ -258,14 +262,19 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
                             readout=readout, cdtype=cdtype)
 
     if batch < 2**wires:
-        _check_chain_route(wires, batch, cdtype)
+        # RZ above the gate chain's 10 wires: the grouped wide chain
+        wide = encode != "ry" and wires > _config.KERNEL_MAX_WIRES
+        _check_chain_route(wires, batch, cdtype,
+                           _config.WIDE_KERNEL_MAX_WIRES if wide
+                           else _config.KERNEL_MAX_WIRES)
         flat = block_weights.reshape(L * k, wires, 3)
         mats = rot_matrix(flat[..., 0], flat[..., 1], flat[..., 2])
         if encode == "ry":
             sr, si = ry_chain_planes(x_enc, mats, k, wires)
         else:
             pr, pi = rz_phase_planes(x_enc, wires)
-            sr, si = gate_chain_planes(pr, pi, mats, k, wires)
+            chain = wide_chain_planes if wide else gate_chain_planes
+            sr, si = chain(pr, pi, mats, k, wires)
         if readout == "probs":
             return probs_from_planes(sr, si)
         return expval_z_from_planes(sr, si)

@@ -14,8 +14,9 @@ The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, from
 the sources in this checkout, into ``build/qiddm_tpu_torch/`` next to the
 package. One library holds every kernel of the port (this chain's, the SEL
 chain's of ``sel_kernel.py``, the RY chain's of ``ry_kernel.py``, the
-density-matrix block's of ``dm_kernel.py`` and the amplitude-damping
-trajectory pass of ``amp_damp_kernel.py``); its
+density-matrix block's of ``dm_kernel.py``, the amplitude-damping
+trajectory pass of ``amp_damp_kernel.py`` and the wide chain's grouped
+sublayer and its backward of ``wide_kernel.py``); its
 file name carries a hash of all the sources and the flags, so an edit of
 any of them rebuilds it. It has a plain C interface and is bound with
 ``ctypes``.
@@ -48,7 +49,7 @@ _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # compiled together into one library; the header is hashed, not compiled
 _SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu",
             _CSRC / "ry_chain.cu", _CSRC / "dm_chain.cu",
-            _CSRC / "amp_damp.cu")
+            _CSRC / "amp_damp.cu", _CSRC / "wide_chain.cu")
 _HEADERS = (_CSRC / "chain_common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -284,6 +285,13 @@ def _library():
                                      + [ctypes.c_int] * 3
                                      + [ctypes.c_void_p])
         lib.amp_damp_fwd.restype = ctypes.c_int
+        ptr, num = ctypes.c_void_p, ctypes.c_int
+        lib.wide_chain_fwd.argtypes = [ptr] * 10 + [num] * 8 + [ptr]
+        lib.wide_chain_fwd.restype = num
+        lib.wide_chain_bwd.argtypes = [ptr] * 23 + [num] * 8 + [ptr]
+        lib.wide_chain_bwd.restype = num
+        lib.wide_chain_bwd_part_floats.argtypes = [num] * 5
+        lib.wide_chain_bwd_part_floats.restype = ctypes.c_size_t
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -18,7 +18,8 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_out():
     mods = list(_modules())
-    assert "qiddm_tpu_torch.sim.gate_kernel" in mods
+    assert {"qiddm_tpu_torch.sim.gate_kernel", "qiddm_tpu_torch.sim.wide",
+            "qiddm_tpu_torch.sim.wide_kernel"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
