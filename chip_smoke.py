@@ -7,12 +7,12 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (numbered by the slice that added them; main() runs each kernel's
-check before the paths that use it); any failure exits non-zero and no
-phase's failure is caught:
+check before the paths that use it, so phases 24-25 run after 19 and 21);
+any failure exits non-zero and no phase's failure is caught:
 
 1. device: a CUDA device must be present; prints torch, CUDA, the card and
    its power limit (nvidia-smi);
-2. build: compiles qiddm_tpu_torch/csrc/*.cu (all ten kernels; one
+2. build: compiles qiddm_tpu_torch/csrc/*.cu (all twelve kernels; one
    nvcc per source, started together, then one link) for sm_90a into
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
@@ -148,7 +148,9 @@ phase's failure is caught:
    split into training, sampling and scoring;
 19. wide kernels against plain: kernels #11 (the grouped sublayer) and #12
    (its adjoint backward) against their plain versions at (w, B, L*k) in
-   WIDE_CASES, k = 2, up to w = 20: forwards max |diff| <= 1e-5, backwards
+   WIDE_CASES, k = 2, up to w = 20, and at the main path's full-depth
+   shapes (16, 16, 28), (16, 8, 28) and (20, 8, 28): forwards
+   max |diff| <= 1e-5, backwards
    (dpr, dpi, each group's dG) within WIDE_BWD_TOL = 2e-5 of
    max(1, max|plain|); at (11, 10, 4) also against torch autograd through
    the plain forward;
@@ -165,29 +167,52 @@ phase's failure is caught:
    steady steps profiled: device busy time, idle share, #11's and #12's
    shares;
 22. the JAX benchmark's bare block (bench.py's bench_wide_reupload) at
-   w = 16 (50 steps) and w = 20 (5 steps) through engine.reupload_block:
-   fwd+bwd+SGD steps/s, finite losses, 84 #11 and 84 #12 launches a step
-   (28 sublayers x 3 wire groups at both widths);
-23. times of #11 and #12 at the model's (w=16, B=10, L*k=28) and at
-   (w=20, B=8, L*k=4), beside the plain versions, the bound and the
-   library yardstick (the group products as complex64 torch.matmul calls,
-   cuBLAS); and ROADMAP item 5's crossover, printed only: the gate chain
-   #1/#2 against the wide chain #11/#12 at w = 9 and 10, B = 80, L*k = 28,
-   whose outputs must agree within 1e-5.
+   w = 16 (50 steps) and w = 20 (5 steps) through engine.reupload_block,
+   under both kernel variants in turn from the same seeded weights (the
+   card's tools/bench_wide_kernel_ab.py): fwd+bwd+SGD steps/s, finite
+   losses, with "scan" 84 #11 and 84 #12 launches a step (28 sublayers x 3
+   wire groups at both widths) and no #9/#10, with "monolith" one #9 and
+   one #10 a step and no group kernel, and the two variants' losses within
+   1e-5 step for step;
+23. times of #11 and #12, and of #9 and #10, at the model's (w=16, B=10,
+   L*k=28) and at (w=20, B=8, L*k=4), beside the plain versions, the bound
+   and the library yardstick (the group products as complex64
+   torch.matmul calls, cuBLAS); and ROADMAP item 5's crossover, printed
+   only: the gate chain #1/#2 against the wide chain #11/#12 at w = 9 and
+   10, B = 80, L*k = 28, whose outputs must agree within 1e-5;
+24. monolithic wide kernels against plain: kernels #9 (the whole chain in
+   one cooperative launch) and #10 (its adjoint walk in one launch) at
+   phase 19's shapes, forwards max |diff| <= 1e-5, backwards within
+   WIDE_BWD_TOL of max(1, max|plain|), and their largest difference from
+   #11/#12 on the same inputs printed; then each kernel's grid and
+   co-resident blocks at (16, 10) and (20, 8), as its launch plans them,
+   and ptxas's report on their registers and spills from the build log;
+25. the 16-wire model with config.set_wide_kernel_variant("monolith"):
+   sampling as in phase 20 (the first 3 iterations of the last batch step
+   by step against the CPU within 1e-4) and 3 training steps (batch 1, tau
+   10) against the CPU within 1e-4 as in phase 10, each at exactly 2 #9
+   launches an iteration or step, 2 #10 a training step and no
+   group-kernel launch; then mnist_exm trains it for 2 epochs as in phase
+   21, at exactly 2 #9 and 2 #10 launches a step (and 2 #9 for each of its
+   15 closing sampling iterations) and no group-kernel launch, and its
+   checkpoint is served; then the training step on the host clock under
+   each variant in turns (scan, monolith, monolith, scan).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
 ``launches`` counts the runs at its width (the 16-wire model and bench
-block, or the 20-wire bench block): launches of the group kernel, once per
-wire group of each sublayer (the backward's dG sums and un-encodes are
-helpers and not counted, as #2's dg sum is not). Its ``max_abs_err`` is
-the error checked at its shape: max |diff| forward, max |diff| /
-max(1, max|plain|) backward.
+block, or the 20-wire bench block): for #11/#12 launches of the group
+kernel, once per wire group of each sublayer (the backward's dG sums and
+un-encodes are helpers and not counted, as #2's dg sum is not); for #9/#10
+one a chain call. Its ``max_abs_err`` is the largest error checked at its
+width in phase 19 (#11/#12) or 24 (#9/#10): max |diff| forward,
+max |diff| / max(1, max|plain|) backward.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -201,6 +226,7 @@ import time
 import numpy as np
 import torch
 
+from qiddm_tpu_torch import config
 from qiddm_tpu_torch.ckpt import (export_jax_variables, load_checkpoint,
                                   load_jax_variables, save_checkpoint)
 from qiddm_tpu_torch import data as data_mod
@@ -284,6 +310,19 @@ WIDE_CASES = [(4, 16, 4), (9, 80, 28), (10, 80, 28), (11, 10, 4),
 WIDE_BWD_TOL = 2e-5
 # bench.py's bench_wide_reupload: (wires, steps) at L=14, k=2, batch 8
 WIDE_BENCH = ((16, 50), (20, 5))
+# the wide kernels against plain also at the main path's full-depth shapes:
+# the 16-wire model's sampling batch and the bench blocks, where the
+# backward rebuilds the state through 28 sublayers
+WIDE_PATH_CASES = [(16, 16, 28), *((w, 8, 28) for w, _ in WIDE_BENCH)]
+# the wide chain's kernel variants (config.set_wide_kernel_variant):
+# #11/#12 a wire group a launch, #9/#10 a whole chain a launch
+VARIANTS = ("scan", "monolith")
+# #9 and #10 launches an iteration or step of the 16-wire model: one
+# chain call of each of its 2 blocks
+MONO_PER_ITER = 2
+# the sampling iterations mnist_exm runs after training (run_labels'
+# tau_test), one forward each
+TAU_TEST = 15
 # the card's published peaks (H100 SXM, 700 W): float32 outside the tensor
 # cores, and device memory
 PEAK_FLOPS = 67e12
@@ -302,6 +341,7 @@ def reset_counts() -> None:
     dm_kernel.DM_LAUNCHES = 0
     amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
     wide_kernel.WIDE_LAUNCHES = wide_kernel.WIDE_BWD_LAUNCHES = 0
+    wide_kernel.WIDE_MONO_LAUNCHES = wide_kernel.WIDE_MONO_BWD_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -312,7 +352,9 @@ def read_counts() -> dict:
             "dm": dm_kernel.DM_LAUNCHES,
             "amp": amp_damp_kernel.AMP_DAMP_LAUNCHES,
             "wide": wide_kernel.WIDE_LAUNCHES,
-            "wide_bwd": wide_kernel.WIDE_BWD_LAUNCHES}
+            "wide_bwd": wide_kernel.WIDE_BWD_LAUNCHES,
+            "wide_mono": wide_kernel.WIDE_MONO_LAUNCHES,
+            "wide_mono_bwd": wide_kernel.WIDE_MONO_BWD_LAUNCHES}
 
 
 def chain_inputs(rng, wires: int, batch: int, n_layers: int, device):
@@ -692,13 +734,14 @@ def _flat(bwd) -> tuple:
 
 
 def phase_wide_vs_plain(dev) -> dict:
-    """Kernels #11 and #12 against their plain versions at WIDE_CASES, and
-    #12 once against autograd through the plain forward; returns, by
-    (w, B, L*k), the forward's max |diff| and the backward's largest
-    max |diff| / max(1, max|plain|), the values checked."""
+    """Kernels #11 and #12 against their plain versions at WIDE_CASES and
+    WIDE_PATH_CASES, and #12 once against autograd through the plain
+    forward; returns, by (w, B, L*k), the forward's max |diff| and the
+    backward's largest max |diff| / max(1, max|plain|), the values
+    checked."""
     rng = np.random.default_rng(SEED + 12)
     by_shape = {}
-    for w, b, n in WIDE_CASES:
+    for w, b, n in WIDE_CASES + WIDE_PATH_CASES:
         pr, pi, gplanes, fr, fi, gr, gi = wide_inputs(rng, w, b, n, dev)
         with torch.no_grad():
             kr, ki = wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w)
@@ -739,52 +782,214 @@ def phase_wide_vs_plain(dev) -> dict:
     return by_shape
 
 
+@contextlib.contextmanager
+def wide_variant(name: str):
+    """Run the block with the wide chain's kernel variant ``name``, then
+    restore the one before."""
+    prev = config.wide_kernel_variant()
+    config.set_wide_kernel_variant(name)
+    try:
+        yield
+    finally:
+        config.set_wide_kernel_variant(prev)
+
+
 def phase_wide_bench(smi: str) -> tuple[dict, dict]:
     """bench.py's bench_wide_reupload on the card through the engine's
     entry: reupload_block at L=14, k=2, batch 8, RZ encode, CZ ring, PauliZ
     readout, the MSE to a target, autograd and an SGD step (lr 0.01) per
-    step, host-looped after a warm step; returns the launch counts of the
-    timed steps and the steps/s, by width."""
-    rates, counts = {}, {}
+    step, host-looped after a warm step; at each width under both kernel
+    variants in turn, from the same seeded weights (the card's counterpart
+    of the JAX package's tools/bench_wide_kernel_ab.py). Returns the launch
+    counts of the timed steps and the steps/s, by variant and width; fails
+    if the two variants' losses part by more than KERNEL_TOL."""
+    rates = {v: {} for v in VARIANTS}
+    counts = {v: {} for v in VARIANTS}
     for wires, steps in WIDE_BENCH:
-        gen = torch.Generator().manual_seed(SEED)
-        w = (torch.randn((14, 2, wires, 3), generator=gen) * 0.4).to("cuda")
-        x = torch.rand((8, wires), generator=gen).to("cuda")
-        tgt = torch.rand((8, wires), generator=gen).to("cuda")
+        losses = {}
+        for variant in VARIANTS:
+            gen = torch.Generator().manual_seed(SEED)
+            w = (torch.randn((14, 2, wires, 3), generator=gen) * 0.4).to(
+                "cuda")
+            x = torch.rand((8, wires), generator=gen).to("cuda")
+            tgt = torch.rand((8, wires), generator=gen).to("cuda")
 
-        def step(w):
-            w = w.detach().requires_grad_(True)
-            out = engine.reupload_block(x, w, encode="rz", imprimitive="cz",
-                                        readout="expvalz")
-            loss = ((out - tgt) ** 2).mean()
-            loss.backward()
-            return (w - 0.01 * w.grad).detach(), loss.detach()
+            def step(w):
+                w = w.detach().requires_grad_(True)
+                out = engine.reupload_block(x, w, encode="rz",
+                                            imprimitive="cz",
+                                            readout="expvalz")
+                loss = ((out - tgt) ** 2).mean()
+                loss.backward()
+                return (w - 0.01 * w.grad).detach(), loss.detach()
 
-        w, _ = step(w)  # warm-up
-        torch.cuda.synchronize()
-        losses = []
-        reset_counts()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            w, loss = step(w)
-            losses.append(loss)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts[wires] = read_counts()
-        losses = [v.item() for v in losses]
-        rates[wires] = steps / wall
-        print(f"wide bench w={wires}: {steps} fwd+bwd steps (L=14, k=2, "
-              f"batch 8) in {wall:.4f} s, {rates[wires]:.3f} steps/s; loss "
-              f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches "
-              f"{counts[wires]} ({smi})")
-        if not all(math.isfinite(v) for v in losses):
-            fail(f"the {wires}-wire bench block's losses are not finite")
-        want = 28 * len(wide.group_sizes(wires)) * steps
-        for c in ("wide", "wide_bwd"):
-            if counts[wires][c] != want:
-                fail(f"{wires}-wire bench block: {counts[wires][c]} {c} "
-                     f"launches, not {want}")
+            with wide_variant(variant):
+                w, _ = step(w)  # warm-up
+                torch.cuda.synchronize()
+                run = []
+                reset_counts()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    w, loss = step(w)
+                    run.append(loss)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = read_counts()
+            losses[variant] = [v.item() for v in run]
+            counts[variant][wires] = got
+            rates[variant][wires] = steps / wall
+            print(f"wide bench w={wires} {variant}: {steps} fwd+bwd steps "
+                  f"(L=14, k=2, batch 8) in {wall:.4f} s, "
+                  f"{rates[variant][wires]:.3f} steps/s; loss "
+                  f"{losses[variant][0]:.6f} -> {losses[variant][-1]:.6f}; "
+                  f"launches {got} ({smi})")
+            if not all(math.isfinite(v) for v in losses[variant]):
+                fail(f"the {wires}-wire bench block's losses are not finite "
+                     f"({variant})")
+            # scan: a group-kernel launch per wire group of each of the 28
+            # sublayers; monolith: one launch a chain call
+            groups = 28 * len(wide.group_sizes(wires)) * steps
+            want = ({"wide": groups, "wide_bwd": groups, "wide_mono": 0,
+                     "wide_mono_bwd": 0} if variant == "scan" else
+                    {"wide": 0, "wide_bwd": 0, "wide_mono": steps,
+                     "wide_mono_bwd": steps})
+            if any(got[c] != n for c, n in want.items()):
+                fail(f"{wires}-wire bench block ({variant}): launches {got}, "
+                     f"not {want}")
+        apart = max(abs(a - b) for a, b in zip(*losses.values()))
+        print(f"wide bench w={wires}: scan against monolith, {steps} steps' "
+              f"losses max|diff| {apart:.3e}")
+        if not apart <= KERNEL_TOL:
+            fail(f"the {wires}-wire bench block's losses differ between the "
+                 f"kernel variants: {apart:.3e} > {KERNEL_TOL}")
     return counts, rates
+
+
+def phase_mono_vs_plain(dev) -> dict:
+    """Kernels #9 and #10 against their plain versions at WIDE_CASES and
+    WIDE_PATH_CASES, and against #11/#12 on the same inputs; returns, by
+    (w, B, L*k), the forward's max |diff| and the backward's largest
+    max |diff| / max(1, max|plain|) against plain, the values checked."""
+    rng = np.random.default_rng(SEED + 14)
+    by_shape = {}
+    for w, b, n in WIDE_CASES + WIDE_PATH_CASES:
+        args = wide_inputs(rng, w, b, n, dev)
+        pr, pi, gplanes, fr, fi = args[:5]
+        with torch.no_grad():
+            mr, mi = wide_kernel._wide_mono_cuda(pr, pi, gplanes, 2, w)
+            got = _flat(wide_kernel._wide_mono_bwd_cuda(*args, 2, w))
+            sr, si = wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w)
+            scan = _flat(wide_kernel._wide_chain_bwd_cuda(*args, 2, w))
+            want = _flat(wide_kernel.wide_chain_bwd_plain(*args, 2, w))
+        torch.cuda.synchronize()
+        err = max((mr - fr).abs().max().item(), (mi - fi).abs().max().item())
+        errs = [_rel(g, q) for g, q in zip(got, want)]
+        vs_scan = max((mr - sr).abs().max().item(),
+                      (mi - si).abs().max().item())
+        vs_scan_bwd = max((g - q).abs().max().item()
+                          for g, q in zip(got, scan))
+        by_shape[(w, b, n)] = (err, max(errs))
+        print(f"monolith kernels vs plain w={w} B={b} L*k={n} groups "
+              f"{wide.group_sizes(w)}: forward max|diff| {err:.3e}; backward "
+              f"dpr, dpi, dG max|diff| / max(1, max|plain|) "
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f"; against #11/#12 max|diff| forward {vs_scan:.3e}, "
+              f"backward {vs_scan_bwd:.3e}")
+        if not (err <= KERNEL_TOL and max(errs) <= WIDE_BWD_TOL):
+            fail(f"monolith kernels disagree with plain at w={w} B={b} "
+                 f"L*k={n}: forward {err:.3e} > {KERNEL_TOL} or backward "
+                 f"{max(errs):.3e} > {WIDE_BWD_TOL}")
+    return by_shape
+
+
+def _at_width(errs: dict, wires: int) -> tuple[float, float]:
+    """The largest forward and backward errors of a wide-kernel phase's
+    result among its shapes of ``wires`` wires."""
+    return tuple(max(e[i] for (w, _, _), e in errs.items() if w == wires)
+                 for i in (0, 1))
+
+
+def phase_mono_config() -> None:
+    """The grids of the cooperative launches #9 and #10 at the model's and
+    the widest shapes, as their launches plan them, and the kernels'
+    registers and spills from ptxas's report in the build log."""
+    lib = gate_kernel._library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for w, b in ((16, 10), (20, 8)):
+        _, sizes = wide_kernel._group_args((), wide.group_sizes(w))
+        for bwd in (False, True):
+            out = (ctypes.c_int * 2)()
+            gate_kernel._raise_on(
+                lib.wide_mono_plan(int(bwd), *sizes, w, b, 0, out), lib,
+                "wide-chain monolith plan")
+            print(f"monolith #{10 if bwd else 9} at w={w} B={b}: grid "
+                  f"{out[0]} blocks, {out[1]} co-resident blocks an SM x "
+                  f"{sms} SMs")
+    log = gate_kernel.build_library().with_suffix(".log").read_text()
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "wide_mono" in line:
+            print("ptxas " + " | ".join(t.strip() for t in lines[i:i + 4]))
+
+
+def phase_mono_model(tmp: pathlib.Path, n_train: int,
+                     smi: str) -> tuple[dict, float, float]:
+    """The 16-wire model under the "monolith" variant: sampling through the
+    sampling CLI as phase 20 does (the first 3 iterations of the last batch
+    held step by step against the CPU), 3 training steps (batch 1, tau 10)
+    held against the CPU at the card's weights as phase 21 does, and
+    mnist_exm's 2 epochs with its checkpoint served as phase 21 does; each
+    run at exactly MONO_PER_ITER #9 launches an iteration or step,
+    MONO_PER_ITER #10 a training step, and no group-kernel launch. Then
+    the host-clock training step under each variant in turns (scan,
+    monolith, monolith, scan). Returns the launch counts of the three runs
+    summed, the steady sampling images/s and mnist_exm's training images/s
+    in its second epoch."""
+    with wide_variant("monolith"):
+        with torch.no_grad():
+            sampled, rate = phase_sample(tmp, WIDE_MODEL, 28, "wide_mono",
+                                         MONO_PER_ITER, 3)
+        reset_counts()
+        phase_train_parity(tmp, WIDE_MODEL, 1)
+        trained = read_counts()
+        per_step = {"wide_mono": MONO_PER_ITER, "wide_mono_bwd": MONO_PER_ITER}
+        driven, train_rate = phase_train(tmp, n_train, [WIDE_MODEL], per_step,
+                                         default=False, prefix="mono_")
+    iters = ITERS * BATCHES
+    steps = EPOCHS * n_train
+    want = ({"wide": 0, "wide_bwd": 0, "wide_mono": MONO_PER_ITER * iters,
+             "wide_mono_bwd": 0},
+            {"wide": 0, "wide_bwd": 0, "wide_mono": MONO_PER_ITER * 3,
+             "wide_mono_bwd": MONO_PER_ITER * 3},
+            {"wide": 0, "wide_bwd": 0,
+             "wide_mono": MONO_PER_ITER * (steps + TAU_TEST),
+             "wide_mono_bwd": MONO_PER_ITER * steps})
+    for what, got, need in (("sampling", sampled, want[0]),
+                            ("training", trained, want[1]),
+                            ("mnist_exm training", driven, want[2])):
+        print(f"monolith 16-wire {what}: launches {got}")
+        if any(got[c] != n for c, n in need.items()):
+            fail(f"16-wire {what} under the monolith variant: launches "
+                 f"{got}, not {need}")
+    z = np.load(tmp / "data" / "mnist_28.npz")
+    x = torch.as_tensor(z["x"][z["y"] == LABEL][:1] / 255.0,
+                        dtype=torch.float32, device="cuda").reshape(1, -1)
+    net = common.build_model(WIDE_MODEL, seed=SEED, device="cuda")
+    diff = Diffusion(net).train()
+    step = diff.make_train_step(
+        torch.optim.Adam(diff.parameters(), lr=common.FALLBACK_LR), TAU)
+    gen = torch.Generator().manual_seed(SEED)
+    ms = {v: [] for v in VARIANTS}
+    for variant in (*VARIANTS, *VARIANTS[::-1]):
+        with wide_variant(variant):
+            step(x, gen)  # warm-up
+            ms[variant].append(_host_ms(lambda: step(x, gen)))
+    print(f"16-wire training step (batch 1, tau {TAU}; {smi}), host clock, "
+          f"median of 20 each ending in a synchronise, in turns: "
+          + "; ".join(f"{v} {', '.join(f'{t:.3f}' for t in ms[v])} ms"
+                      for v in VARIANTS))
+    return ({c: sampled[c] + trained[c] + driven[c] for c in sampled}, rate,
+            train_rate[WIDE_MODEL[0]])
 
 
 def _is_wide_fwd(name: str) -> bool:
@@ -1006,7 +1211,7 @@ def phase_sweep(tmp: pathlib.Path, prefix: str, models: list, extra: list,
                 if len(values) != 5 or not np.isfinite(values).all():
                     fail(f"{name} {metric}: {values} are not 5 finite scores")
     for margs in models:
-        key = common.build_model(margs).save_name()
+        key = common.build_model(margs, device="cpu").save_name()
         counter, want = wants[margs[0]]
         got = sampling.get(key, {}).get(counter, 0)
         if got < want:
@@ -1123,13 +1328,16 @@ def phase_sweep_parity(tmp: pathlib.Path, prefix: str, models: list,
 
 
 def phase_train(tmp: pathlib.Path, n_train: int, models: list,
-                per_step: dict, default: bool) -> tuple[dict, dict]:
+                per_step: dict, default: bool,
+                prefix: str = "") -> tuple[dict, dict]:
     """mnist_exm on ``models`` (its default model list with ``default``,
-    else given with --model); returns the launch counts and each model's
-    training images/s in its second epoch. ``per_step`` is the least
-    number of launches of each counter per training step."""
+    else given with --model), saving under ``tmp``/``prefix``; returns the
+    launch counts of the training run and each model's training images/s
+    in its second epoch. ``per_step`` is the least number of launches of
+    each counter per training step."""
     argv = ["--epochs", str(EPOCHS), "--checkpoint-every", "1", "--device",
-            "cuda", "--save-path", f"{tmp}/", "--load-path", f"{tmp}/"]
+            "cuda", "--save-path", f"{tmp}/{prefix}", "--load-path",
+            f"{tmp}/{prefix}"]
     if not default:
         for margs in models:
             argv += ["--model", *margs]
@@ -1155,8 +1363,8 @@ def phase_train(tmp: pathlib.Path, n_train: int, models: list,
             fail(f"{counts}: fewer than {per * steps} {counter} launches in "
                  f"{steps} steps: {names} did not train through the kernels")
     for margs in models:
-        name = common.build_model(margs).save_name()
-        ckpt = tmp / f"{LABEL}/noise_0/{name}_{LABEL}.pt"
+        name = common.build_model(margs, device="cpu").save_name()
+        ckpt = tmp / f"{prefix}{LABEL}/noise_0/{name}_{LABEL}.pt"
         if not ckpt.exists():
             fail(f"no checkpoint at {ckpt}")
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1761,12 +1969,25 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
             lambda: wide_kernel.wide_chain_bwd_plain(pr, pi, gplanes, fr, fi,
                                                      gr, gi, 2, w)
         ) + bound_wide(w, b, n, True)
+        # #9/#10 do #11/#12's work in one launch: the same bound
+        times[f"wide_mono_fwd{key}"] = _paired_ms(
+            lambda: wide_kernel._wide_mono_cuda(pr, pi, gplanes, 2, w),
+            lambda: wide_kernel._chain_plain(pr, pi, gplanes, signs, 2, w)
+        ) + bound_wide(w, b, n, False)
+        times[f"wide_mono_bwd{key}"] = _paired_ms(
+            lambda: wide_kernel._wide_mono_bwd_cuda(pr, pi, gplanes, fr, fi,
+                                                    gr, gi, 2, w),
+            lambda: wide_kernel.wide_chain_bwd_plain(pr, pi, gplanes, fr, fi,
+                                                     gr, gi, 2, w)
+        ) + bound_wide(w, b, n, True)
         library[f"wide_fwd{key}"] = min(
             _median_ms(lambda: _library_wide_fwd(p, gs, signs, w))
             for _ in range(2))
         library[f"wide_bwd{key}"] = min(
             _median_ms(lambda: _library_wide_bwd(p, gs, signs, f, c, w))
             for _ in range(2))
+        library[f"wide_mono_fwd{key}"] = library[f"wide_fwd{key}"]
+        library[f"wide_mono_bwd{key}"] = library[f"wide_bwd{key}"]
     for key, (kern, plain, bound, by) in times.items():
         lib = (f", library {library[key]:.4f} ms (median of 20, better of "
                f"two rounds)" if key in library else "")
@@ -1830,6 +2051,8 @@ def main() -> None:
     with torch.no_grad():
         dm_err = phase_dm_vs_plain(dev)
     wide_errs = phase_wide_vs_plain(dev)
+    mono_errs = phase_mono_vs_plain(dev)
+    phase_mono_config()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         sampled, rates = {}, {}
@@ -1857,6 +2080,8 @@ def main() -> None:
             phase_train_parity(tmp, margs, images)
         phase_profile_pl(tmp, smi)
         phase_profile_wide(tmp, smi)
+        mono_model, mono_rate, mono_train_rate = phase_mono_model(
+            tmp, n_train, smi)
         write_fashion(tmp / "data")
         settings = len(SWEEP_TYPES) * 5
         swept, sweep_sampling, sweep = phase_sweep(
@@ -1876,7 +2101,7 @@ def main() -> None:
             {"QIDDM_PL_noise1": ("amp", 2 * 6 * SWEEP_ITERS * 5),
              "QNN_noise": ("amp", SWEEP_ITERS * 5)})
         for margs in TRAJ_SWEEP_MODELS:
-            name = common.build_model(margs).save_name()
+            name = common.build_model(margs, device="cpu").save_name()
             for code in SWEEP_TYPES:
                 for v in (0.1, 0.2, 0.3, 0.5, 0.8):
                     cache = tmp / f"traj_0/noise_{code}/{name}_outp_{v}_traj.pt"
@@ -1897,9 +2122,16 @@ def main() -> None:
           f"noisy sampling on the trajectory backend {traj_rate:.2f} images/s "
           f"({TRAJ_IMAGES} images x {TRAJ_ITERS} iterations, {N_TRAJ} "
           f"trajectories, amplitude damping {TRAJ_STRENGTH}; {smi})")
-    for wires, rate in bench_rates.items():
-        print(f"wide bench {wires} wires: {rate:.3f} training steps/s "
-              f"(reupload_block L=14, k=2, batch 8, fwd+bwd; {smi})")
+    print(f"sample {' '.join(WIDE_MODEL)} (monolith): steady sampling "
+          f"{mono_rate:.1f} images/s ({N} images x {ITERS} iterations per "
+          f"batch; {smi})")
+    print(f"train {' '.join(WIDE_MODEL)} (monolith): {mono_train_rate:.1f} "
+          f"training images/s in epoch 2 (batch 1, tau {TAU}; {smi})")
+    for variant, by_width in bench_rates.items():
+        for wires, rate in by_width.items():
+            print(f"wide bench {wires} wires ({variant}): {rate:.3f} training "
+                  f"steps/s (reupload_block L=14, k=2, batch 8, fwd+bwd; "
+                  f"{smi})")
     for backend, run in (("dm", sweep), ("traj", traj_sweep)):
         for name, per_type in run["rates"].items():
             print(f"sweep {name}: noisy sampling on the {backend} backend "
@@ -1913,17 +2145,22 @@ def main() -> None:
               f"{walls['total'] - walls['sampling'] - walls['scoring']:.1f} s "
               f"({smi})")
     runs = [*sampled.values(), trained, pl_trained, wide_trained, swept,
-            traj_counts, traj_swept, *bench_counts.values()]
+            traj_counts, traj_swept, mono_model,
+            *(c for by_width in bench_counts.values()
+              for c in by_width.values())]
     launches = {c: sum(r[c] for r in runs) for c in trained}
     # each wide row counts its own width's runs: the 16-wire model and
     # bench block, and the 20-wire bench block
-    wide16 = (sampled[" ".join(WIDE_MODEL)], wide_trained, bench_counts[16])
-    for c in ("wide", "wide_bwd"):
+    wide16 = (sampled[" ".join(WIDE_MODEL)], wide_trained, mono_model,
+              *(by_width[16] for by_width in bench_counts.values()))
+    for c in ("wide", "wide_bwd", "wide_mono", "wide_mono_bwd"):
         launches[f"{c}16"] = sum(r[c] for r in wide16)
-        launches[f"{c}20"] = bench_counts[20][c]
+        launches[f"{c}20"] = sum(by_width[20][c]
+                                 for by_width in bench_counts.values())
     print(f"launches: sampling {sampled}, training {trained}, "
           f"QIDDM_PL_noise1 training {pl_trained}, 16-wire training "
-          f"{wide_trained}, wide bench {bench_counts}, noisy sweep {swept} "
+          f"{wide_trained}, 16-wire monolith sampling and training "
+          f"{mono_model}, wide bench {bench_counts}, noisy sweep {swept} "
           f"(while sampling, by model {sweep_sampling}), 12-wire trajectory "
           f"sampling {traj_counts}, trajectory sweep {traj_swept} (while "
           f"sampling, by model {traj_sampling})")
@@ -1954,13 +2191,23 @@ def main() -> None:
          "amp_fwd12"),
         # the backward rows carry the error relative to max(1, max|plain|)
         ("wide_chain_fwd", "wide_chain.cu", f"{wide_tpu}313", "wide16",
-         wide_errs[(16, 10, 28)][0], "wide_fwd16_10_28"),
+         _at_width(wide_errs, 16)[0], "wide_fwd16_10_28"),
         ("wide_chain_bwd", "wide_chain.cu", f"{wide_tpu}332", "wide_bwd16",
-         wide_errs[(16, 10, 28)][1], "wide_bwd16_10_28"),
+         _at_width(wide_errs, 16)[1], "wide_bwd16_10_28"),
         ("wide_chain_fwd_w20", "wide_chain.cu", f"{wide_tpu}313", "wide20",
-         wide_errs[(20, 8, 4)][0], "wide_fwd20_8_4"),
+         _at_width(wide_errs, 20)[0], "wide_fwd20_8_4"),
         ("wide_chain_bwd_w20", "wide_chain.cu", f"{wide_tpu}332",
-         "wide_bwd20", wide_errs[(20, 8, 4)][1], "wide_bwd20_8_4"),
+         "wide_bwd20", _at_width(wide_errs, 20)[1], "wide_bwd20_8_4"),
+        ("wide_mono_fwd_w16", "wide_mono.cu", f"{wide_tpu}143", "wide_mono16",
+         _at_width(mono_errs, 16)[0], "wide_mono_fwd16_10_28"),
+        ("wide_mono_bwd_w16", "wide_mono.cu", f"{wide_tpu}206",
+         "wide_mono_bwd16", _at_width(mono_errs, 16)[1],
+         "wide_mono_bwd16_10_28"),
+        ("wide_mono_fwd_w20", "wide_mono.cu", f"{wide_tpu}143", "wide_mono20",
+         _at_width(mono_errs, 20)[0], "wide_mono_fwd20_8_4"),
+        ("wide_mono_bwd_w20", "wide_mono.cu", f"{wide_tpu}206",
+         "wide_mono_bwd20", _at_width(mono_errs, 20)[1],
+         "wide_mono_bwd20_8_4"),
     ]
     # no single PyTorch call computes a gate chain, the dm block or the
     # amplitude-damping pass: their library_ms is null. The wide chain's

@@ -157,7 +157,7 @@ def validate_args(args) -> None:
                              f"qiddm_tpu_torch yet (ROADMAP Queue 1); "
                              f"ported: " + ", ".join(sorted(MODEL_REGISTRY)))
         try:  # a ported name with an unported option
-            build_model(m)
+            build_model(m, device="cpu")
         except NotImplementedError as err:
             raise SystemExit(f"model {' '.join(map(str, m))} is not ported "
                              f"to qiddm_tpu_torch yet: {err}") from err
@@ -176,16 +176,19 @@ def model_lr(args, model_name: str) -> float:
     return getattr(args, f"{model_name}_lr", FALLBACK_LR)
 
 
-def build_model(model_args: Sequence, seed: int = 0, device="cpu"):
+def build_model(model_args: Sequence, seed: int = 0, device="cuda"):
     """Instantiate a registered model from a ['Name', arg, ...] list on
-    ``device``."""
+    ``device``: the card by default, through ``resolve_device``, which
+    raises without CUDA; pass ``device="cpu"`` for the plain PyTorch
+    path."""
     name = model_args[0]
     if name not in MODEL_REGISTRY:
         raise SystemExit(f"unknown model {name!r}; ported: "
                          + ", ".join(sorted(MODEL_REGISTRY)))
     params = [int(a) if isinstance(a, str) and a.isdigit() else a
               for a in model_args[1:]]
-    return MODEL_REGISTRY[name](*params, seed=seed, device=device)
+    return MODEL_REGISTRY[name](*params, seed=seed,
+                                device=resolve_device(device))
 
 
 def load_dataset(args):

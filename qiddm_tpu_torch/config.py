@@ -1,9 +1,10 @@
 """Numeric configuration and device selection for qiddm_tpu_torch.
 
-Counterpart of ``qiddm_tpu/config.py:150-208, 370-414``: the complex/real
+Counterpart of ``qiddm_tpu/config.py:150-208, 343-414``: the complex/real
 dtype switch (complex64 by default, complex128 for tight parity work), the
-width caps of the hand-written kernels (and the wide chain's group width)
-and the density-matrix backend's two strategy switches.
+width caps of the hand-written kernels (and the wide chain's group width),
+the wide chain's kernel variant and the density-matrix backend's two
+strategy switches.
 
 TF32 is switched off for every float32 product this package issues. The
 JAX simulator pins ``precision="highest"`` on its contractions because
@@ -37,14 +38,14 @@ KERNEL_MAX_WIRES = 10
 # one sample's state is 32 KB of shared memory.
 SEL_KERNEL_MAX_WIRES = 12
 # Widest circuit the wide chain kernels take (sim/wide_kernel.py, kernels
-# #11/#12): the JAX package's superstate width, TOTAL_BITS
+# #9-#12): the JAX package's superstate width, TOTAL_BITS
 # (qiddm_tpu/sim/pallas_wide_kernel.py:74). At w=20 one state plane pair is
-# 8 MB a sample, held in device memory between the per-group launches.
+# 8 MB a sample, held in device memory between the group passes.
 WIDE_KERNEL_MAX_WIRES = 20
 # Largest group of wires whose per-wire rotations compose into one group
 # matrix: 7 bits, 128 x 128 (qiddm_tpu/sim/wide.py:366-370). The kernels of
-# csrc/wide_chain.cu are written for it: at most 3 groups (20 wires) of at
-# most 128 rows.
+# csrc/wide_chain.cu and csrc/wide_mono.cu are written for it: at most 3
+# groups (20 wires) of at most 128 rows.
 MAX_GROUP_BITS = 7
 # The engine's wide route starts at KERNEL_MAX_WIRES + 1 = 11, not at the
 # JAX kernel's MIN_WIRES = 13. On the TPU, widths 11-12 stay on the XLA
@@ -68,6 +69,33 @@ def real_dtype() -> torch.dtype:
 
 def complex_dtype() -> torch.dtype:
     return torch.complex128 if _X64 else torch.complex64
+
+
+# Which hand-written kernels serve the wide chain on the card
+# (qiddm_tpu/config.py:343-362, wide_kernel_variant):
+# * "scan" (the default, as in the JAX package): kernel #11 for each wire
+#   group of each sublayer and #12 for its adjoint (csrc/wide_chain.cu);
+# * "monolith": the whole L*k chain in one cooperative launch, #9 forward
+#   and #10 backward (csrc/wide_mono.cu).
+# Both compute the same function; on a CPU tensor both run the plain
+# versions. The JAX package's set_wide_kernel_mode is not ported: its "off"
+# is the XLA grouped chain, and on the card #11/#12 stand in for that route,
+# so a mode that turned the kernels off would put a plain version on the main
+# path. Nor is its depth guard (qiddm_tpu/sim/wide.py:260-279): it guards a
+# Mosaic compile that failed beyond L = 1, and nvcc compiles #9/#10 at any
+# depth.
+_WIDE_KERNEL_VARIANT = "scan"
+
+
+def set_wide_kernel_variant(variant: str) -> None:
+    if variant not in ("scan", "monolith"):
+        raise ValueError(variant)
+    global _WIDE_KERNEL_VARIANT
+    _WIDE_KERNEL_VARIANT = variant
+
+
+def wide_kernel_variant() -> str:
+    return _WIDE_KERNEL_VARIANT
 
 
 # Density-matrix backend (qiddm_tpu/config.py:370-414). Channel

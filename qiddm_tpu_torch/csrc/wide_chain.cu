@@ -59,6 +59,11 @@
 // wide_unencode_kernel undoes the phase on state and cotangent and adds the
 // phase gradient.
 //
+// The kernels here are thin: each runs one device function of
+// wide_common.cuh (group_tile, dg_unit, dg_reduce_at, unencode_at) on its
+// block's tile. The monolithic chain of wide_mono.cu (#9/#10) runs the same
+// functions on the same tiles in one cooperative launch.
+//
 // What bounds it on this card. Per sublayer the groups do
 // 8 ncols D^2 = 8 B 2^w sum_g 2^(s_g) flops: 671 MFLOP at w=16, B=10
 // (groups 6, 5, 5), 21.5 GFLOP at w=20, B=8 (7, 7, 6), bound by the float32
@@ -82,49 +87,11 @@
 #include <cstddef>
 
 #include "chain_common.cuh"
+#include "wide_common.cuh"
 
 namespace {
 
-constexpr int kTile = 32;      // columns per block of the group product
-constexpr int kChunk = 16;     // rows of op(G) staged at a time
-constexpr int kDgK = 16;       // columns per step of the dG product
-constexpr int kMaxGroups = 3;  // ceil(20 / 7)
-
-// +1 or -1: the CZ ring of range r on basis row `row` of w wires; r = 0 is
-// no ring.
-__device__ __forceinline__ float ring_sign(unsigned row, int r, int wires) {
-  if (r == 0) return 1.0f;
-  const unsigned mask = (1u << wires) - 1u;
-  const unsigned rot = ((row << r) | (row >> (wires - r))) & mask;
-  return (__popc(row & rot) & 1) ? -1.0f : 1.0f;
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// Where column `col` of a group view lives: the flat offset of its row
-// y = 0 and the basis row of that entry; row y adds y * postB to the offset
-// and y * post to the basis row.
-struct Column {
-  long long base;      // (p D) postB + q
-  unsigned row0;       // (p D) post + q / batch
-};
-
-__device__ __forceinline__ Column column_at(long long col, int dim,
-                                            long long post_b, int batch) {
-  const long long p = col / post_b;
-  const long long q = col - p * post_b;
-  const long long post = post_b / batch;
-  Column c;
-  c.base = p * dim * post_b + q;
-  c.row0 = static_cast<unsigned>(p * dim * post + q / batch);
-  return c;
-}
-
-// out_j = op(G) in_j on one group's axis, j < NRHS, op(G) = G or G^H.
-// RX = D / (blockDim.x / 32) rows per thread. in0 may equal out0 (and in1
-// out1): a block reads all of its columns before it writes any.
+// One 32-column tile of out_j = op(G) in_j a block (group_tile).
 template <int NRHS, int RX>
 __global__ void __launch_bounds__(256)
     wide_group_kernel(const float* in0r, const float* in0i, float* out0r,
@@ -138,102 +105,13 @@ __global__ void __launch_bounds__(256)
                       int wires, long long post_b, int batch,
                       long long ncols) {
   extern __shared__ float2 smem2[];
-  const int dim = 1 << size;
-  const int nw = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int chunk = dim < kChunk ? dim : kChunk;
-  float2* tile = smem2;                         // NRHS x [dim][kTile]
-  float2* gch = smem2 + NRHS * dim * kTile;     // [chunk][dim]
-
-  const long long col = static_cast<long long>(blockIdx.x) * kTile + lane;
-  const bool valid = col < ncols;
-  const Column c = column_at(valid ? col : 0, dim, post_b, batch);
-  const long long post = post_b / batch;
-
-  for (int y = warp; y < dim; y += nw) {
-    const long long at = c.base + static_cast<long long>(y) * post_b;
-    const unsigned row = c.row0 + static_cast<unsigned>(y * post);
-    const float sg = ring_sign(row, sign_in, wires);
-    float2 v = make_float2(0.0f, 0.0f);
-    if (valid) {
-      if (zero_in) {
-        v.x = row == 0 ? 1.0f : 0.0f;
-      } else {
-        v = make_float2(in0r[at], in0i[at]);
-      }
-      if (phr != nullptr) v = cmul(v, make_float2(phr[at], phi[at]));
-    }
-    tile[y * kTile + lane] = make_float2(sg * v.x, sg * v.y);
-    if (NRHS == 2) {
-      const float2 w = valid ? make_float2(in1r[at], in1i[at])
-                             : make_float2(0.0f, 0.0f);
-      tile[(dim + y) * kTile + lane] = make_float2(sg * w.x, sg * w.y);
-    }
-  }
-
-  float2 acc[NRHS][RX];
-#pragma unroll
-  for (int j = 0; j < NRHS; ++j)
-#pragma unroll
-    for (int i = 0; i < RX; ++i) acc[j][i] = make_float2(0.0f, 0.0f);
-
-  for (int y0 = 0; y0 < dim; y0 += chunk) {
-    __syncthreads();  // the tile is loaded; the last chunk is consumed
-    for (int e = threadIdx.x; e < chunk * dim; e += blockDim.x) {
-      int yy, x;
-      float2 g;
-      if (!adjoint) {  // op(G)[x][y] = G[x][y]
-        yy = e % chunk;
-        x = e / chunk;
-        const int at = x * dim + y0 + yy;
-        g = make_float2(gr[at], gi[at]);
-      } else {         // op(G)[x][y] = conj(G[y][x])
-        x = e % dim;
-        yy = e / dim;
-        const int at = (y0 + yy) * dim + x;
-        g = make_float2(gr[at], -gi[at]);
-      }
-      gch[yy * dim + x] = g;
-    }
-    __syncthreads();
-    for (int yy = 0; yy < chunk; ++yy) {
-      float2 v[NRHS];
-#pragma unroll
-      for (int j = 0; j < NRHS; ++j)
-        v[j] = tile[(j * dim + y0 + yy) * kTile + lane];
-#pragma unroll
-      for (int i = 0; i < RX; ++i) {
-        const float2 g = gch[yy * dim + warp + nw * i];
-#pragma unroll
-        for (int j = 0; j < NRHS; ++j) {
-          acc[j][i].x += g.x * v[j].x - g.y * v[j].y;
-          acc[j][i].y += g.x * v[j].y + g.y * v[j].x;
-        }
-      }
-    }
-  }
-
-  if (!valid) return;
-#pragma unroll
-  for (int i = 0; i < RX; ++i) {
-    const int x = warp + nw * i;
-    const long long at = c.base + static_cast<long long>(x) * post_b;
-    const unsigned row = c.row0 + static_cast<unsigned>(x * post);
-    const float sg = ring_sign(row, sign_out, wires);
-    out0r[at] = sg * acc[0][i].x;
-    out0i[at] = sg * acc[0][i].y;
-    if (NRHS == 2) {
-      out1r[at] = acc[1][i].x;
-      out1i[at] = acc[1][i].y;
-    }
-  }
+  group_tile<NRHS, RX>(blockIdx.x, smem2, in0r, in0i, out0r, out0i, in1r,
+                       in1i, out1r, out1i, gr, gi, phr, phi, zero_in,
+                       adjoint, sign_in, sign_out, size, wires, post_b, batch,
+                       ncols);
 }
 
-// Partial dG[x][y] = sum over the split's columns of c[x] conj(s[y]), c
-// times the ring signs of range sign_c. M x M complex sums per thread, a
-// (16 M)-wide tile of dG per block (16 M <= 64; the whole of dG below 16
-// rows, where the surplus threads idle). Block (tile, split) writes
+// One unit of the dG product a block (dg_unit): block (tile, split) writes
 // part[split][x][y][re, im].
 template <int M>
 __global__ void __launch_bounds__(256)
@@ -244,80 +122,10 @@ __global__ void __launch_bounds__(256)
                          float* __restrict__ part, int sign_c, int size,
                          int wires, long long post_b, int batch,
                          long long ncols, long long per_split) {
-  __shared__ float2 cs[kDgK][16 * M];
-  __shared__ float2 ss[kDgK][16 * M];
-  const int dim = 1 << size;
-  const int tw = dim < 16 * M ? dim : 16 * M;  // tile edge
-  const int tiles = dim / tw;
-  const int t = blockIdx.x % (tiles * tiles);
-  const long long split = blockIdx.x / (tiles * tiles);
-  const int x0 = (t % tiles) * tw;
-  const int y0 = (t / tiles) * tw;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const long long k_begin = split * per_split;
-  long long k_end = k_begin + per_split;
-  if (k_end > ncols) k_end = ncols;
-  const long long post = post_b / batch;
-
-  float2 acc[M][M];
-#pragma unroll
-  for (int a = 0; a < M; ++a)
-#pragma unroll
-    for (int b = 0; b < M; ++b) acc[a][b] = make_float2(0.0f, 0.0f);
-
-  for (long long k0 = k_begin; k0 < k_end; k0 += kDgK) {
-    for (int e = threadIdx.x; e < kDgK * tw; e += blockDim.x) {
-      const int kk = e % kDgK;
-      const int r = e / kDgK;
-      const long long col = k0 + kk;
-      float2 cv = make_float2(0.0f, 0.0f), sv = cv;
-      if (col < k_end) {
-        const Column c = column_at(col, dim, post_b, batch);
-        const long long atx = c.base + static_cast<long long>(x0 + r) * post_b;
-        const long long aty = c.base + static_cast<long long>(y0 + r) * post_b;
-        const unsigned row =
-            c.row0 + static_cast<unsigned>((x0 + r) * post);
-        const float sg = ring_sign(row, sign_c, wires);
-        cv = make_float2(sg * cr[atx], sg * ci[atx]);
-        sv = make_float2(sr[aty], si[aty]);
-      }
-      cs[kk][r] = cv;
-      ss[kk][r] = sv;
-    }
-    __syncthreads();
-    if (tx < tw && ty < tw) {
-      for (int kk = 0; kk < kDgK; ++kk) {
-        float2 cv[M], sv[M];
-#pragma unroll
-        for (int a = 0; a < M; ++a) cv[a] = cs[kk][tx + 16 * a];
-#pragma unroll
-        for (int b = 0; b < M; ++b) sv[b] = ss[kk][ty + 16 * b];
-#pragma unroll
-        for (int a = 0; a < M; ++a)
-#pragma unroll
-          for (int b = 0; b < M; ++b) {  // c conj(s)
-            acc[a][b].x += cv[a].x * sv[b].x + cv[a].y * sv[b].y;
-            acc[a][b].y += cv[a].y * sv[b].x - cv[a].x * sv[b].y;
-          }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (tx >= tw || ty >= tw) return;
-  float* out = part + split * dim * dim * 2;
-#pragma unroll
-  for (int a = 0; a < M; ++a)
-#pragma unroll
-    for (int b = 0; b < M; ++b) {
-      const int x = x0 + tx + 16 * a;
-      const int y = y0 + ty + 16 * b;
-      if (x < x0 + tw && y < y0 + tw) {
-        out[(x * dim + y) * 2] = acc[a][b].x;
-        out[(x * dim + y) * 2 + 1] = acc[a][b].y;
-      }
-    }
+  __shared__ float2 cs[kDgK * 16 * M];
+  __shared__ float2 ss[kDgK * 16 * M];
+  dg_unit<M>(blockIdx.x, cs, ss, cr, ci, sr, si, part, sign_c, size, wires,
+             post_b, batch, ncols, per_split);
 }
 
 // dg[t] = sum over the splits of part[split][t], splits in increasing order.
@@ -327,14 +135,7 @@ __global__ void wide_dg_reduce_kernel(const float* __restrict__ part,
                                       int nsplit) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  float re = 0.0f, im = 0.0f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float* p = part + (static_cast<size_t>(s) * n + t) * 2;
-    re += p[0];
-    im += p[1];
-  }
-  dgr[t] = re;
-  dgi[t] = im;
+  dg_reduce_at(t, part, dgr, dgi, n, nsplit);
 }
 
 // Undo the RZ phase on the state and the cotangent (both in place) and add
@@ -351,54 +152,7 @@ __global__ void wide_unencode_kernel(const float* __restrict__ pr,
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= n) return;
-  const float p_r = pr[i], p_i = pi[i];
-  const float a = sr[i], b = si[i];
-  const float x = cr[i], y = ci[i];
-  const float s_r = a * p_r + b * p_i;  // state before the phase
-  const float s_i = b * p_r - a * p_i;
-  const float g_r = x * s_r + y * s_i;
-  const float g_i = y * s_r - x * s_i;
-  dpr[i] = first ? g_r : dpr[i] + g_r;
-  dpi[i] = first ? g_i : dpi[i] + g_i;
-  sr[i] = s_r;
-  si[i] = s_i;
-  cr[i] = x * p_r + y * p_i;
-  ci[i] = y * p_r - x * p_i;
-}
-
-// Group geometry of one chain.
-struct Groups {
-  int n;
-  int size[kMaxGroups];
-  long long post_b[kMaxGroups];
-  long long ncols[kMaxGroups];
-};
-
-Groups make_groups(const int* sizes, int wires, int batch) {
-  Groups g;
-  g.n = 0;
-  int off = 0;
-  for (int i = 0; i < kMaxGroups && sizes[i] > 0; ++i) {
-    const int s = sizes[i];
-    g.size[g.n] = s;
-    g.post_b[g.n] = (1LL << (wires - off - s)) * batch;
-    g.ncols[g.n] = (1LL << (wires - s)) * batch;
-    off += s;
-    ++g.n;
-  }
-  return g;
-}
-
-int ring_range(int li, int wires) {
-  return wires > 1 ? li % (wires - 1) + 1 : 0;
-}
-
-int warps_for(int dim) { return dim < 8 ? dim : 8; }
-
-size_t group_smem(int nrhs, int dim) {
-  const int chunk = dim < kChunk ? dim : kChunk;
-  return (static_cast<size_t>(nrhs) * dim * kTile +
-          static_cast<size_t>(chunk) * dim) * sizeof(float2);
+  unencode_at(i, pr, pi, sr, si, cr, ci, dpr, dpi, first);
 }
 
 template <int NRHS, int RX>
@@ -450,31 +204,6 @@ cudaError_t launch_group(const float* in0r, const float* in0i, float* out0r,
   }
 }
 
-// The dG product's split: nsplit column ranges of per_split columns (a
-// multiple of kDgK), about two blocks an SM over the tiles.
-struct DgSplit {
-  int tile_edge;
-  int tiles;       // tiles of dG (tiles_per_edge^2)
-  long long per_split;
-  int nsplit;
-};
-
-DgSplit dg_split(int size, long long ncols) {
-  const int dim = 1 << size;
-  DgSplit d;
-  d.tile_edge = dim < 64 ? dim : 64;
-  d.tiles = (dim / d.tile_edge) * (dim / d.tile_edge);
-  long long want = (264 + d.tiles - 1) / d.tiles;
-  const long long most = (ncols + 63) / 64;  // at least 64 columns a split
-  if (want > most) want = most;
-  if (want < 1) want = 1;
-  long long per = (ncols + want - 1) / want;
-  per = (per + kDgK - 1) / kDgK * kDgK;
-  d.per_split = per;
-  d.nsplit = static_cast<int>((ncols + per - 1) / per);
-  return d;
-}
-
 cudaError_t launch_dg(const float* cr, const float* ci, const float* sr,
                       const float* si, float* part, float* dgr, float* dgi,
                       int sign_c, int size, int wires, long long post_b,
@@ -484,11 +213,12 @@ cudaError_t launch_dg(const float* cr, const float* ci, const float* sr,
   const long long blocks = static_cast<long long>(d.tiles) * d.nsplit;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const unsigned grid = static_cast<unsigned>(blocks);
-  if (dim >= 64) {
+  const int m = dg_m(dim);
+  if (m == 4) {
     wide_group_dg_kernel<4><<<grid, 256, 0, stream>>>(
         cr, ci, sr, si, part, sign_c, size, wires, post_b, batch, ncols,
         d.per_split);
-  } else if (dim >= 32) {
+  } else if (m == 2) {
     wide_group_dg_kernel<2><<<grid, 256, 0, stream>>>(
         cr, ci, sr, si, part, sign_c, size, wires, post_b, batch, ncols,
         d.per_split);

@@ -17,7 +17,9 @@ size:
   ``gate_kernel.gate_chain_planes`` (RZ) and ``ry_kernel.ry_chain_planes``
   (RY) for the re-uploading blocks up to 10 wires,
   ``wide_kernel.wide_chain_planes`` (the grouped chain, RZ) for 11-20
-  wires, ``sel_kernel.sel_chain_planes`` for the SEL chains (both rings);
+  wires, whose kernels ``config.wide_kernel_variant()`` picks (#11/#12 a
+  wire group at a time, or #9/#10 a whole chain in one launch),
+  ``sel_kernel.sel_chain_planes`` for the SEL chains (both rings);
   the CUDA kernels on the card (forward, and the adjoint backward under
   autograd), their plain versions on the CPU;
 * batch >= 2**wires: the layers composed into one unitary per block and

@@ -15,8 +15,9 @@ the sources in this checkout, into ``build/qiddm_tpu_torch/`` next to the
 package. One library holds every kernel of the port (this chain's, the SEL
 chain's of ``sel_kernel.py``, the RY chain's of ``ry_kernel.py``, the
 density-matrix block's of ``dm_kernel.py``, the amplitude-damping
-trajectory pass of ``amp_damp_kernel.py`` and the wide chain's grouped
-sublayer and its backward of ``wide_kernel.py``); its
+trajectory pass of ``amp_damp_kernel.py``, and the wide chain's grouped
+sublayer and its backward and its monolithic forward and backward of
+``wide_kernel.py``); its
 file name carries a hash of all the sources and the flags, so an edit of
 any of them rebuilds it. It has a plain C interface and is bound with
 ``ctypes``.
@@ -46,11 +47,12 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-# compiled together into one library; the header is hashed, not compiled
+# compiled together into one library; the headers are hashed, not compiled
 _SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu",
             _CSRC / "ry_chain.cu", _CSRC / "dm_chain.cu",
-            _CSRC / "amp_damp.cu", _CSRC / "wide_chain.cu")
-_HEADERS = (_CSRC / "chain_common.cuh",)
+            _CSRC / "amp_damp.cu", _CSRC / "wide_chain.cu",
+            _CSRC / "wide_mono.cu")
+_HEADERS = (_CSRC / "chain_common.cuh", _CSRC / "wide_common.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -292,6 +294,12 @@ def _library():
         lib.wide_chain_bwd.restype = num
         lib.wide_chain_bwd_part_floats.argtypes = [num] * 5
         lib.wide_chain_bwd_part_floats.restype = ctypes.c_size_t
+        lib.wide_mono_fwd.argtypes = [ptr] * 10 + [num] * 8 + [ptr]
+        lib.wide_mono_fwd.restype = num
+        lib.wide_mono_bwd.argtypes = [ptr] * 23 + [num] * 8 + [ptr]
+        lib.wide_mono_bwd.restype = num
+        lib.wide_mono_plan.argtypes = [num] * 7 + [ptr]
+        lib.wide_mono_plan.restype = num
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib

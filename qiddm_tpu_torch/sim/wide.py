@@ -9,8 +9,10 @@ chain's autograd Function (``sel._batched_kron_chain`` on the (2, 2)
 gates: tiny tensors), so plain autograd carries ``dG`` back to the
 rotation angles, as ``_make_wide_chain`` leaves it to JAX's autodiff.
 
-The chain itself is :func:`wide_kernel.wide_chain_planes`: kernels #11 and
-#12 on the card, their plain versions on the CPU. The engine's
+The chain itself is :func:`wide_kernel.wide_chain_planes`: on the card
+kernels #11 and #12 (one launch per wire group) or, with
+``config.set_wide_kernel_variant("monolith")``, #9 and #10 (the whole
+chain in one launch); their plain versions on the CPU. The engine's
 ``reupload_block`` calls it for RZ-encoded blocks with a CZ ring; the
 routes it does not take (an RY encode or a CNOT ring above 10 wires, the
 SEL chain of the QNN/Qdense families above 12) raise there, naming

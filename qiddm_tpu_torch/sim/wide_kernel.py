@@ -1,8 +1,10 @@
-"""The wide re-uploading chain's grouped sublayer and its adjoint backward:
-hand-written CUDA kernels and their plain PyTorch versions (counterpart of
+"""The wide re-uploading chain on the card: the grouped sublayer and its
+adjoint backward, the whole chain and its adjoint in one launch each, and
+their plain PyTorch versions (counterpart of
 ``qiddm_tpu/sim/pallas_wide_kernel.py``: ``_sub_fwd_kernel`` (#11) and
 ``_sub_bwd_kernel`` (#12), reached from ``wide_fwd_scan`` and
-``wide_bwd_scan``).
+``wide_bwd_scan``; ``_fwd_kernel`` (#9) and ``_bwd_kernel`` (#10), reached
+from ``wide_fwd_planes`` and ``wide_bwd_planes``).
 
 A sublayer applies, for each wire group of ``wide.group_sizes(w)`` in
 order, the group's (2^s x 2^s) matrix on the group's bit axis of the
@@ -11,13 +13,17 @@ layer is the RZ phase followed by k sublayers, from |0...0>.
 
 ``wide_chain_planes`` is the entry the engine calls. It runs the
 ``_WideChain`` autograd Function, which picks the path by the device of its
-input, in the forward and in the backward pass alike: a CPU tensor runs the
-plain versions (:func:`wide_chain_planes_plain`,
+input (:func:`_route`), in the forward and in the backward pass alike: a CPU
+tensor runs the plain versions (:func:`wide_chain_planes_plain`,
 :func:`wide_chain_bwd_plain`), grouped matrix products on planes as
 ``_make_wide_chain`` does with einsums in the JAX package; a CUDA tensor
-launches the kernels of ``csrc/wide_chain.cu`` (built into the one library
-of ``gate_kernel.py``) or raises. Nothing falls back from a kernel to its
-plain version.
+launches the kernels that ``config.wide_kernel_variant()`` names, or
+raises: ``"scan"`` (the default) the per-group kernels #11/#12 of
+``csrc/wide_chain.cu``, ``"monolith"`` the cooperative kernels #9/#10 of
+``csrc/wide_mono.cu``, all built into the one library of ``gate_kernel.py``.
+Both variants compute the same function, whose plain version is the one
+above. Nothing falls back from a kernel to another or to its plain
+version.
 
 The Function takes and returns real planes. JAX transposes a complex-linear
 map without conjugating it (cotangents go through ``G^T``); PyTorch hands
@@ -44,6 +50,10 @@ from .wide import _offsets, group_gates, group_sizes
 # 11-20-wire paths went through the kernels.
 WIDE_LAUNCHES = 0
 WIDE_BWD_LAUNCHES = 0
+# Launches of the monolithic chain since the last reset, forward (#9) and
+# backward (#10): one a chain call.
+WIDE_MONO_LAUNCHES = 0
+WIDE_MONO_BWD_LAUNCHES = 0
 
 
 def _planes_of(gs) -> tuple[torch.Tensor, ...]:
@@ -202,35 +212,32 @@ def _group_args(tensors, sizes):
             list(sizes) + [0] * (3 - len(sizes)))
 
 
-def _wide_chain_cuda(pr, pi, gplanes, k: int, wires: int):
-    """Launch the forward chain (kernel #11 for each group of each
-    sublayer) on
-    PyTorch's current stream; (sr, si) are new (d, B) float32 tensors."""
-    global WIDE_LAUNCHES
-    B, n_layers, sizes = _check_wide_inputs("wide-chain kernel", (pr, pi),
-                                            gplanes, k, wires)
+def _launch_fwd(entry, what: str, pr, pi, gplanes, k: int, wires: int):
+    """Check the inputs and launch a forward ``entry`` (``wide_chain_fwd``
+    or ``wide_mono_fwd``) on PyTorch's current stream; returns the new
+    (d, B) float32 state planes and the sublayer and group counts."""
+    B, n_layers, sizes = _check_wide_inputs(what, (pr, pi), gplanes, k,
+                                            wires)
     lib = _gk._library()
     sr = torch.empty_like(pr)
     si = torch.empty_like(pi)
     gptrs, s = _group_args(gplanes, sizes)
     stream = torch.cuda.current_stream(pr.device).cuda_stream
-    err = lib.wide_chain_fwd(pr.data_ptr(), pi.data_ptr(), *gptrs,
-                             sr.data_ptr(), si.data_ptr(), *s, wires, B,
-                             n_layers, k, pr.device.index, stream)
-    _gk._raise_on(err, lib, "wide-chain kernel")
-    WIDE_LAUNCHES += n_layers * len(sizes)
-    return sr, si
+    err = getattr(lib, entry)(pr.data_ptr(), pi.data_ptr(), *gptrs,
+                              sr.data_ptr(), si.data_ptr(), *s, wires, B,
+                              n_layers, k, pr.device.index, stream)
+    _gk._raise_on(err, lib, what)
+    return sr, si, n_layers, len(sizes)
 
 
-def _wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi, gr, gi, k: int,
-                         wires: int):
-    """Launch the backward chain (kernel #12 for each group of each
-    sublayer, with its fixed-order sums of dG) on PyTorch's current stream; returns new
-    ``(dpr, dpi, dgplanes)`` as :func:`wide_chain_bwd_plain` does."""
-    global WIDE_BWD_LAUNCHES
+def _launch_bwd(entry, what: str, pr, pi, gplanes, fr, fi, gr, gi, k: int,
+                wires: int):
+    """Check the inputs, allocate the work planes and the dG partials, and
+    launch a backward ``entry`` (``wide_chain_bwd`` or ``wide_mono_bwd``)
+    on PyTorch's current stream; returns ``(dpr, dpi, dgplanes)`` as
+    :func:`wide_chain_bwd_plain` does, and the sublayer and group counts."""
     B, n_layers, sizes = _check_wide_inputs(
-        "wide-chain backward kernel", (pr, pi, fr, fi, gr, gi), gplanes, k,
-        wires)
+        what, (pr, pi, fr, fi, gr, gi), gplanes, k, wires)
     lib = _gk._library()
     gptrs, s = _group_args(gplanes, sizes)
     part = torch.empty(lib.wide_chain_bwd_part_floats(*s, wires, B),
@@ -243,13 +250,69 @@ def _wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi, gr, gi, k: int,
     dpi = torch.empty_like(pi)
     dptrs, _ = _group_args(dg, sizes)
     stream = torch.cuda.current_stream(pr.device).cuda_stream
-    err = lib.wide_chain_bwd(pr.data_ptr(), pi.data_ptr(), *gptrs,
-                             *(t.data_ptr() for t in work), part.data_ptr(),
-                             *dptrs, dpr.data_ptr(), dpi.data_ptr(), *s,
-                             wires, B, n_layers, k, pr.device.index, stream)
-    _gk._raise_on(err, lib, "wide-chain backward kernel")
-    WIDE_BWD_LAUNCHES += n_layers * len(sizes)
-    return dpr, dpi, dg
+    err = getattr(lib, entry)(pr.data_ptr(), pi.data_ptr(), *gptrs,
+                              *(t.data_ptr() for t in work), part.data_ptr(),
+                              *dptrs, dpr.data_ptr(), dpi.data_ptr(), *s,
+                              wires, B, n_layers, k, pr.device.index, stream)
+    _gk._raise_on(err, lib, what)
+    return (dpr, dpi, dg), n_layers, len(sizes)
+
+
+def _wide_chain_cuda(pr, pi, gplanes, k: int, wires: int):
+    """Launch the forward chain (kernel #11 for each group of each
+    sublayer) on PyTorch's current stream; (sr, si) are new (d, B) float32
+    tensors."""
+    global WIDE_LAUNCHES
+    sr, si, n_layers, n_groups = _launch_fwd(
+        "wide_chain_fwd", "wide-chain kernel", pr, pi, gplanes, k, wires)
+    WIDE_LAUNCHES += n_layers * n_groups
+    return sr, si
+
+
+def _wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi, gr, gi, k: int,
+                         wires: int):
+    """Launch the backward chain (kernel #12 for each group of each
+    sublayer, with its fixed-order sums of dG) on PyTorch's current stream;
+    returns new ``(dpr, dpi, dgplanes)`` as :func:`wide_chain_bwd_plain`
+    does."""
+    global WIDE_BWD_LAUNCHES
+    out, n_layers, n_groups = _launch_bwd(
+        "wide_chain_bwd", "wide-chain backward kernel", pr, pi, gplanes, fr,
+        fi, gr, gi, k, wires)
+    WIDE_BWD_LAUNCHES += n_layers * n_groups
+    return out
+
+
+def _wide_mono_cuda(pr, pi, gplanes, k: int, wires: int):
+    """Launch the whole forward chain in one cooperative launch (kernel #9)
+    on PyTorch's current stream; (sr, si) are new (d, B) float32 tensors."""
+    global WIDE_MONO_LAUNCHES
+    sr, si, _, _ = _launch_fwd("wide_mono_fwd", "wide-chain monolith kernel",
+                               pr, pi, gplanes, k, wires)
+    WIDE_MONO_LAUNCHES += 1
+    return sr, si
+
+
+def _wide_mono_bwd_cuda(pr, pi, gplanes, fr, fi, gr, gi, k: int,
+                        wires: int):
+    """Launch the whole adjoint walk in one cooperative launch (kernel #10)
+    on PyTorch's current stream; returns new ``(dpr, dpi, dgplanes)`` as
+    :func:`wide_chain_bwd_plain` does."""
+    global WIDE_MONO_BWD_LAUNCHES
+    out, _, _ = _launch_bwd("wide_mono_bwd",
+                            "wide-chain monolith backward kernel", pr, pi,
+                            gplanes, fr, fi, gr, gi, k, wires)
+    WIDE_MONO_BWD_LAUNCHES += 1
+    return out
+
+
+def _route(device: torch.device) -> str:
+    """The wide chain's path for tensors on ``device``: ``"plain"`` off
+    the card; on it the kernels of ``config.wide_kernel_variant()``,
+    ``"scan"`` (#11/#12) or ``"monolith"`` (#9/#10)."""
+    if device.type != "cuda":
+        return "plain"
+    return _config.wide_kernel_variant()
 
 
 class _WideChain(torch.autograd.Function):
@@ -258,18 +321,22 @@ class _WideChain(torch.autograd.Function):
     matrices' ``.real``/``.imag`` and no conjugation is written by hand.
     Saves the phases, the group planes and the final state, O(1) in the
     depth, as ``wide_bwd_scan`` does on the TPU; the backward rebuilds the
-    per-sublayer states through ``G^H``."""
+    per-sublayer states through ``G^H``. The backward takes the route the
+    forward took (:func:`_route`)."""
 
     @staticmethod
     def forward(ctx, k: int, wires: int, pr, pi, *gplanes):
-        if pr.device.type == "cuda":
+        route = _route(pr.device)
+        if route == "monolith":
+            sr, si = _wide_mono_cuda(pr, pi, gplanes, k, wires)
+        elif route == "scan":
             sr, si = _wide_chain_cuda(pr, pi, gplanes, k, wires)
         else:
             sr, si = _chain_plain(pr, pi, gplanes,
                                   _gk._sign_planes_on(k, wires, pr.device),
                                   k, wires)
         ctx.save_for_backward(pr, pi, sr, si, *gplanes)
-        ctx.k, ctx.wires = k, wires
+        ctx.k, ctx.wires, ctx.route = k, wires, route
         return sr, si
 
     @staticmethod
@@ -280,12 +347,13 @@ class _WideChain(torch.autograd.Function):
         # readouts hand back transposed views; an unused output gives None
         gr = torch.zeros_like(fr) if gr is None else gr.contiguous()
         gi = torch.zeros_like(fi) if gi is None else gi.contiguous()
-        if pr.device.type == "cuda":
-            dpr, dpi, dg = _wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi, gr,
-                                                gi, k, wires)
+        if ctx.route == "monolith":
+            bwd = _wide_mono_bwd_cuda
+        elif ctx.route == "scan":
+            bwd = _wide_chain_bwd_cuda
         else:
-            dpr, dpi, dg = wide_chain_bwd_plain(pr, pi, gplanes, fr, fi, gr,
-                                                gi, k, wires)
+            bwd = wide_chain_bwd_plain
+        dpr, dpi, dg = bwd(pr, pi, gplanes, fr, fi, gr, gi, k, wires)
         return (None, None, dpr, dpi, *dg)
 
 
@@ -298,8 +366,10 @@ def wide_chain_planes(pr, pi, rot_mats, k: int, wires: int):
     CZ ring after each sublayer uses range ``sel_ranges(k, wires)[l % k]``.
     Returns the state planes ``(sr, si)``, each (d, B) float32.
 
-    Differentiable in ``pr``, ``pi`` and ``rot_mats``: the backward runs
-    kernel #12 on a CUDA tensor, its plain version on a CPU one.
+    Differentiable in ``pr``, ``pi`` and ``rot_mats``: on a CUDA tensor
+    the forward and backward run kernels #11/#12 or, with
+    ``config.set_wide_kernel_variant("monolith")``, #9/#10; on a CPU tensor
+    their plain versions.
     """
     if pr.shape[0] != 2**wires:
         raise ValueError(f"planes of {pr.shape[0]} rows do not hold "

@@ -302,6 +302,39 @@ def test_cuda_without_a_card_raises_before_training(driver_env):
     assert not list(driver_env.rglob("*.pt"))
 
 
+def test_build_model_defaults_to_the_card():
+    """``build_model`` is the library entry: without a device it builds on
+    the card, and on a host without CUDA it raises rather than fall back to
+    the CPU; ``device="cpu"`` builds there."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the no-fallback check needs a "
+                    "host without it")
+    margs = ["QIDDM_LL_noise", "64", "3", "2", "2"]
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        tcommon.build_model(margs)
+    net = tcommon.build_model(margs, seed=1, device="cpu")
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+
+
+def test_cpu_runs_pass_the_option_check_on_the_cpu(monkeypatch):
+    """The option check builds every model before the device is resolved,
+    and builds it on the CPU: a ``--device cpu`` run passes it on a host
+    without CUDA."""
+    devices = []
+    real = tcommon.build_model
+
+    def spy(margs, seed=0, device="cuda"):
+        devices.append(device)
+        return real(margs, seed=seed, device=device)
+
+    monkeypatch.setattr(tcommon, "build_model", spy)
+    args = tmnist.parse_args(["--device", "cpu", "--model", "QIDDM_LL_noise",
+                              "784", "16", "14", "2", "--model", "QNN_noise",
+                              "784", "8", "14"])
+    tcommon.validate_args(args)
+    assert devices == ["cpu", "cpu"]
+
+
 def test_make_first_x_is_seeded_and_scaled():
     args = tmnist.parse_args(["--img_size", "8", "--seed", "3"])
     a, b = tcommon.make_first_x(args), tcommon.make_first_x(args)

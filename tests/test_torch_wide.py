@@ -3,9 +3,11 @@ qiddm_tpu on the CPU: the group partition and the group matrices, the
 port's chain (its plain versions, run by ``wide_chain_planes`` on CPU
 tensors) against the JAX package's XLA grouped chain
 (``wide.reupload_chain_wide`` with ``wide_mode("on")``,
-``wide_kernel_mode("off")``) and against its Pallas scan kernel in
-interpret mode (``wide_kernel_mode("on")``, variant ``"scan"``), and the
-real-plane backward against torch autograd through the plain forward.
+``wide_kernel_mode("off")``) and against its Pallas kernels in interpret
+mode (``wide_kernel_mode("on")``, variants ``"scan"`` and ``"monolith"``,
+the port's variant set the same), the variant switch against the JAX
+package's, and the real-plane backward against torch autograd through the
+plain forward.
 
 Tolerances: final states <= 1e-5 and the gradients of a weighted
 probability sum in ``x_enc`` and the weights <= 2e-5, both absolute, the
@@ -71,19 +73,22 @@ def _torch_run(x, wq):
 
 @pytest.fixture
 def jax_modes():
-    """Set the JAX wide routes for one test and restore them after."""
+    """Set the JAX wide routes, and the same kernel variant in the port,
+    for one test and restore them after."""
     prev = (jconfig.wide_mode(), jconfig.wide_kernel_mode(),
-            jconfig.wide_kernel_variant())
+            jconfig.wide_kernel_variant(), tconfig.wide_kernel_variant())
 
-    def set_modes(kernel: str):
+    def set_modes(kernel: str, variant: str = "scan"):
         jconfig.set_wide_mode("on")
         jconfig.set_wide_kernel_mode(kernel)
-        jconfig.set_wide_kernel_variant("scan")
+        jconfig.set_wide_kernel_variant(variant)
+        tconfig.set_wide_kernel_variant(variant)
 
     yield set_modes
     jconfig.set_wide_mode(prev[0])
     jconfig.set_wide_kernel_mode(prev[1])
     jconfig.set_wide_kernel_variant(prev[2])
+    tconfig.set_wide_kernel_variant(prev[3])
 
 
 @pytest.mark.parametrize("wires", list(range(1, 21)))
@@ -132,11 +137,36 @@ def test_chain_matches_jax_xla_grouped_chain(jax_modes, w, L, k, b):
     _check_against_jax(w, L, k, b)
 
 
+@pytest.mark.parametrize("variant", ["scan", "monolith"])
 @pytest.mark.parametrize("w,L,k,b", [(13, 2, 1, 3), (15, 1, 2, 2)])
-def test_chain_matches_jax_pallas_scan_interpret(jax_modes, w, L, k, b):
-    jax_modes("on")
+def test_chain_matches_jax_pallas_scan_interpret(jax_modes, w, L, k, b,
+                                                 variant):
+    """The port's chain, with its kernel variant set as the JAX package's,
+    against the JAX Pallas kernels in interpret mode: the per-sublayer
+    scan (#11/#12) and the monolith (#9/#10), which the JAX package runs
+    at any depth off the TPU."""
+    jax_modes("on", variant)
     assert jwide._use_wide_kernel(w, "rz", "cz", jnp.complex64)
+    assert tconfig.wide_kernel_variant() == variant
     _check_against_jax(w, L, k, b)
+
+
+@pytest.mark.parametrize("variant", ["scan", "monolith", "off", "auto", "",
+                                     "Monolith"])
+def test_variant_switch_mirrors_jax(jax_modes, variant):
+    """``set_wide_kernel_variant`` takes and refuses what the JAX package's
+    takes and refuses, with a ValueError, and keeps its value on a
+    refusal."""
+    jax_modes("off")
+    try:
+        jconfig.set_wide_kernel_variant(variant)
+    except ValueError:
+        with pytest.raises(ValueError):
+            tconfig.set_wide_kernel_variant(variant)
+        assert tconfig.wide_kernel_variant() == "scan"
+    else:
+        tconfig.set_wide_kernel_variant(variant)
+        assert tconfig.wide_kernel_variant() == variant
 
 
 def _bwd_args(w, B, n_layers, k, seed=0):

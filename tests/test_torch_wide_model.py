@@ -147,13 +147,13 @@ def test_clis_take_the_16_wire_model(tmp_path):
     margs = ["QIDDM_LL_noise", "784", "16", "14", "2"]
     common.validate_args(mnist_exm.parse_args(
         ["--model", *margs, "--device", "cpu"]))
-    net = common.build_model(margs, seed=3)
+    net = common.build_model(margs, seed=3, device="cpu")
     assert net.save_name() == "QIDDM_LL_noise=16_L=14_N=2"
     assert tuple(net.module.qweights.shape) == (2, 14, 2, 16, 3)
     ck = tckpt.save_checkpoint(tmp_path / f"{net.save_name()}_4.pt",
                                tckpt.export_jax_variables(net), [0.5], 1)
     blob = jckpt.load_checkpoint(ck)
-    back = common.build_model(margs, seed=4)
+    back = common.build_model(margs, seed=4, device="cpu")
     tckpt.load_jax_variables(back, blob["model_state_dict"])
     for (name, p), (_, q) in zip(net.named_parameters(),
                                  back.named_parameters()):
