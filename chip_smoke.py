@@ -12,7 +12,7 @@ any failure exits non-zero and no phase's failure is caught:
 
 1. device: a CUDA device must be present; prints torch, CUDA, the card and
    its power limit (nvidia-smi);
-2. build: compiles qiddm_tpu_torch/csrc/*.cu (all twelve kernels; one
+2. build: compiles qiddm_tpu_torch/csrc/*.cu (all fourteen kernels; one
    nvcc per source, started together, then one link) for sm_90a into
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
@@ -196,7 +196,34 @@ any failure exits non-zero and no phase's failure is caught:
    21, at exactly 2 #9 and 2 #10 launches a step (and 2 #9 for each of its
    15 closing sampling iterations) and no group-kernel launch, and its
    checkpoint is served; then the training step on the host clock under
-   each variant in turns (scan, monolith, monolith, scan).
+   each variant in turns (scan, monolith, monolith, scan);
+26. unitary-streaming kernels against plain: kernels #13 (the re-upload
+   chain through dense layer unitaries) and #14 (its adjoint walk and the
+   fixed-order dU product) at w in {1, 3, 6, 8} x B in {1, 16, 80}
+   (L*k = 28, k = 2), (w=8, B=255, L*k=28), (w=6, B=16, L*k=42, k=3) and
+   (w=3, B=4, L*k=4, k=1), each with both rings' unitaries: forwards
+   max |diff| <= 1e-5, backwards (dpr, dpi, dur, dui) within 1e-5 of
+   max(1, max|plain|); at (6, 16, 28) also #14 against torch autograd
+   through the plain forward; where the worst errors land against the
+   reference's on-chip bar (6.1e-6 relative);
+27. the CNOT-ring route (the slice's main path): the library entry
+   engine.reupload_block(..., imprimitive="cnot") at (w, L, k, B) =
+   (8, 14, 2, 80) and (6, 14, 2, 16), rz (expvalz) and rz_halfpi (probs),
+   forward and backward on the card with the counts set to 0 just before:
+   exactly one #13 and one #14 launch a call and no other kernel; each
+   call's values within 1e-5 and gradients within 1e-4 relative of the
+   same inputs on the CPU. Then an RY-encoded CNOT block at (8, 80) on the
+   per-layer route in complex matmuls (no launch), a damped CNOT block at
+   w = 6 with and without autograd (the SEL chain #5, and #6 under
+   autograd; no #8), and complex128 at (8, 80) with both rings (no
+   launch), each against the CPU (1e-5, 1e-5, 1e-10);
+28. times of #13 and #14 at (8, 80, 28) and (6, 16, 28) beside the plain
+   versions, the bound and the library yardstick (the chain as one
+   complex64 torch.matmul a layer with the phase multiplies, and autograd's
+   backward of it); printed only: both kernels at tiles of 1 and 2
+   samples a block at (8, 80) and (8, 255), and a CZ chain at (8, 80, 28)
+   on the gate chain #1/#2 against #13/#14, whose outputs must agree
+   within 1e-5.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -206,7 +233,10 @@ kernel, once per wire group of each sublayer (the backward's dG sums and
 un-encodes are helpers and not counted, as #2's dg sum is not); for #9/#10
 one a chain call. Its ``max_abs_err`` is the largest error checked at its
 width in phase 19 (#11/#12) or 24 (#9/#10): max |diff| forward,
-max |diff| / max(1, max|plain|) backward.
+max |diff| / max(1, max|plain|) backward. The unitary rows' launches are
+phase 27's (one a chain call; #14's dU product is a helper and not
+counted), their errors phase 26's worst, their times phase 28's at
+(8, 80, 28).
 """
 
 from __future__ import annotations
@@ -236,10 +266,11 @@ from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
 from qiddm_tpu_torch.pca import pca_fit_transform
 from qiddm_tpu_torch.sim import (amp_damp_kernel, dm_kernel, engine,
-                                 gate_kernel, ry_kernel, sel_kernel, wide,
-                                 wide_kernel)
+                                 gate_kernel, ry_kernel, sel_kernel,
+                                 unitary_kernel, wide, wide_kernel)
 from qiddm_tpu_torch.sim.gates import rot_matrix
-from qiddm_tpu_torch.sim.statevector import rz_phases
+from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
+from qiddm_tpu_torch.sim.statevector import rz_phase_planes, rz_phases
 from qiddm_tpu_torch.sim.trajectories import RecordedDraws, ReplayDraws
 
 SEED = 0
@@ -323,6 +354,21 @@ MONO_PER_ITER = 2
 # the sampling iterations mnist_exm runs after training (run_labels'
 # tau_test), one forward each
 TAU_TEST = 15
+# kernels #13/#14 against plain, (w, B, L, k): L*k = 28 at k = 2 over the
+# widths to the kernels' 8, the route's largest batch at 8 wires (255 <
+# 2^8), and k = 3 and k = 1; each with both rings
+UNITARY_CASES = ([(w, b, 14, 2) for w in (1, 3, 6, 8) for b in (1, 16, 80)]
+                 + [(8, 255, 14, 2), (6, 16, 14, 3), (3, 4, 4, 1)])
+RINGS = ("cz", "cnot")
+# the per-layer-unitary route's main path: reupload_block(...,
+# imprimitive="cnot") at (w, L, k, B): its widest block on #13/#14 at the
+# mnist driver's depth and the JAX bench's batch (8 images x tau 10), and
+# QIDDM_LL_noise 784 6 14 2's width at the sampling batch
+UNITARY_PATH = [(8, 14, 2, 80), (6, 14, 2, 16)]
+# the reference's on-chip bar for its Mosaic kernels against their plain
+# versions, relative (results/onchip_parity.json)
+ONCHIP_BAR = 6.1e-6
+X64_TOL = 1e-10     # complex128 on the card against the CPU
 # the card's published peaks (H100 SXM, 700 W): float32 outside the tensor
 # cores, and device memory
 PEAK_FLOPS = 67e12
@@ -342,6 +388,8 @@ def reset_counts() -> None:
     amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
     wide_kernel.WIDE_LAUNCHES = wide_kernel.WIDE_BWD_LAUNCHES = 0
     wide_kernel.WIDE_MONO_LAUNCHES = wide_kernel.WIDE_MONO_BWD_LAUNCHES = 0
+    unitary_kernel.UNITARY_LAUNCHES = 0
+    unitary_kernel.UNITARY_BWD_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -354,7 +402,9 @@ def read_counts() -> dict:
             "wide": wide_kernel.WIDE_LAUNCHES,
             "wide_bwd": wide_kernel.WIDE_BWD_LAUNCHES,
             "wide_mono": wide_kernel.WIDE_MONO_LAUNCHES,
-            "wide_mono_bwd": wide_kernel.WIDE_MONO_BWD_LAUNCHES}
+            "wide_mono_bwd": wide_kernel.WIDE_MONO_BWD_LAUNCHES,
+            "unitary": unitary_kernel.UNITARY_LAUNCHES,
+            "unitary_bwd": unitary_kernel.UNITARY_BWD_LAUNCHES}
 
 
 def chain_inputs(rng, wires: int, batch: int, n_layers: int, device):
@@ -2031,6 +2081,315 @@ def phase_crossover(dev, smi: str) -> None:
               f"{wide_f:.4f} ms, #12 {wide_b:.4f} ms ({_HOW})")
 
 
+def unitary_inputs(rng, wires: int, batch: int, L: int, k: int, ring: str,
+                   dev):
+    """Block weights (L, k, w, 3) and encoding angles (B, w), and from them
+    one chain call's planes: (pr, pi, ur, ui), the RZ phases and the flat
+    per-layer unitaries of sel_layer_unitaries."""
+    weights = torch.as_tensor(rng.normal(size=(L, k, wires, 3)) * 0.4,
+                              dtype=torch.float32, device=dev)
+    x = torch.as_tensor(rng.normal(size=(batch, wires)), dtype=torch.float32,
+                        device=dev)
+    pr, pi = rz_phase_planes(x, wires)
+    lus = sel_layer_unitaries(weights, ring).reshape(L * k, 2**wires,
+                                                     2**wires)
+    return weights, x, (pr, pi, lus.real.contiguous(),
+                        lus.imag.contiguous())
+
+
+def unitary_bwd_inputs(rng, wires, batch, L, k, ring, dev):
+    """(pr, pi, ur, ui, fr, fi, gr, gi) with N(0, 1) cotangents."""
+    planes = unitary_inputs(rng, wires, batch, L, k, ring, dev)[2]
+    fr, fi = unitary_kernel.unitary_chain_planes_plain(*planes, k)
+    gr, gi = (torch.as_tensor(rng.normal(size=(2**wires, batch)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    return (*planes, fr, fi, gr, gi)
+
+
+def phase_unitary_vs_plain(dev) -> tuple[float, float]:
+    """Kernels #13 and #14 against their plain versions at UNITARY_CASES,
+    both rings; at one shape #14 also against torch autograd through the
+    plain forward. Returns the forward's worst max |diff| and the
+    backward's worst max |diff| / max(1, max|plain|), the values checked."""
+    rng = np.random.default_rng(SEED + 20)
+    worst_f = worst_b = 0.0
+    for w, b, L, k in UNITARY_CASES:
+        for ring in RINGS:
+            args = unitary_bwd_inputs(rng, w, b, L, k, ring, dev)
+            with torch.no_grad():
+                kr, ki = unitary_kernel._unitary_chain_cuda(*args[:4], k)
+                got = unitary_kernel._unitary_chain_bwd_cuda(*args, k)
+                want = unitary_kernel.unitary_chain_bwd_plain(*args, k)
+            torch.cuda.synchronize()
+            err = max((kr - args[4]).abs().max().item(),
+                      (ki - args[5]).abs().max().item())
+            errs = [_rel(g, q) for g, q in zip(got, want)]
+            worst_f, worst_b = max(worst_f, err), max(worst_b, *errs)
+            print(f"unitary kernels vs plain w={w} B={b} L*k={L * k} k={k} "
+                  f"{ring}: forward max|diff| {err:.3e}; backward dpr, dpi, "
+                  f"dur, dui max|diff| / max(1, max|plain|) "
+                  + ", ".join(f"{e:.3e}" for e in errs))
+            if not (err <= KERNEL_TOL and max(errs) <= BWD_TOL):
+                fail(f"unitary kernels disagree with plain at w={w} B={b} "
+                     f"L*k={L * k} {ring}: forward {err:.3e} > {KERNEL_TOL} "
+                     f"or backward {max(errs):.3e} > {BWD_TOL}")
+    # a third formulation: autograd through the plain forward
+    args = unitary_bwd_inputs(rng, 6, 16, 14, 2, "cnot", dev)
+    leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+    sr, si = unitary_kernel.unitary_chain_planes_plain(*leaves, 2)
+    (sr * args[6] + si * args[7]).sum().backward()
+    with torch.no_grad():
+        got = unitary_kernel._unitary_chain_bwd_cuda(*args, 2)
+    err = max(_rel(g, leaf.grad) for g, leaf in zip(got, leaves))
+    print(f"unitary backward kernel vs autograd of the plain forward w=6 "
+          f"B=16 L*k=28 cnot: {err:.3e}")
+    if not err <= BWD_TOL:
+        fail(f"unitary backward kernel disagrees with autograd: {err:.3e} "
+             f"> {BWD_TOL}")
+    print(f"unitary kernels against the reference's on-chip bar "
+          f"{ONCHIP_BAR:.1e} relative: forward {worst_f:.3e}, backward "
+          f"{worst_b:.3e}")
+    return worst_f, worst_b
+
+
+def _route_call(x, weights, encode, readout, coeff, **kw):
+    """reupload_block and the gradients of sum(coeff * out) in the angles
+    and the block weights."""
+    x = x.detach().clone().requires_grad_(True)
+    weights = weights.detach().clone().requires_grad_(True)
+    out = engine.reupload_block(x, weights, encode=encode, readout=readout,
+                                **kw)
+    (coeff * out).sum().backward()
+    return out.detach(), x.grad, weights.grad
+
+
+def _route_errs(card, cpu) -> tuple[float, float]:
+    """The forward's max |diff| and the gradients' worst max |diff|
+    relative to the CPU gradient's max."""
+    fwd = (card[0].cpu() - cpu[0]).abs().max().item()
+    grad = max(_rel_own(g.cpu(), q) for g, q in zip(card[1:], cpu[1:]))
+    return fwd, grad
+
+
+def phase_unitary_route(dev) -> dict:
+    """The slice's main path: the library entry reupload_block(...,
+    imprimitive="cnot") at UNITARY_PATH with the rz and rz_halfpi encodes,
+    forward and backward on the card, counted from zero: exactly one #13
+    launch a forward and one #14 a backward, no gate-chain launch; each
+    call's values within KERNEL_TOL and its gradients within TRAIN_TOL
+    relative of the same inputs on the CPU. Then the route's other
+    blocks: RY with a CNOT ring at w = 8 (the per-layer route in complex
+    matmuls, no #13), a damped CNOT block at w = 6 (the SEL chain #5/#6 on
+    both sides of rho, no #8), and complex128 at (8, 80) with both rings
+    (no kernel), each against the CPU. Returns the main path's counts."""
+    rng = np.random.default_rng(SEED + 21)
+    calls = []
+    for w, L, k, b in UNITARY_PATH:
+        for encode, readout in (("rz", "expvalz"), ("rz_halfpi", "probs")):
+            weights, x, _ = unitary_inputs(rng, w, b, L, k, "cnot", dev)
+            width = 2**w if readout == "probs" else w
+            coeff = torch.as_tensor(rng.normal(size=(b, width)),
+                                    dtype=torch.float32, device=dev)
+            calls.append((w, L, k, b, encode, readout, x, weights, coeff))
+    reset_counts()
+    results = []
+    for w, L, k, b, encode, readout, x, weights, coeff in calls:
+        before = read_counts()
+        card = _route_call(x, weights, encode, readout, coeff,
+                           imprimitive="cnot")
+        torch.cuda.synchronize()
+        after = read_counts()
+        delta = {c: n - before[c] for c, n in after.items()
+                 if n != before[c]}
+        if delta != {"unitary": 1, "unitary_bwd": 1}:
+            fail(f"reupload_block(imprimitive='cnot') at w={w} B={b} "
+                 f"launched {delta}, not one #13 and one #14")
+        results.append(card)
+    counts = read_counts()
+    for (w, L, k, b, encode, readout, x, weights, coeff), card in zip(
+            calls, results):
+        cpu = _route_call(x.cpu(), weights.cpu(), encode, readout,
+                          coeff.cpu(), imprimitive="cnot")
+        fwd, grad = _route_errs(card, cpu)
+        print(f"unitary route on the card vs the CPU w={w} L={L} k={k} B={b} "
+              f"{encode} {readout}: forward max|diff| {fwd:.3e}, gradients "
+              f"{grad:.3e} relative")
+        if not (fwd <= KERNEL_TOL and grad <= TRAIN_TOL):
+            fail(f"the unitary route disagrees with the CPU at w={w} B={b} "
+                 f"{encode}: forward {fwd:.3e} > {KERNEL_TOL} or gradients "
+                 f"{grad:.3e} > {TRAIN_TOL}")
+    print(f"unitary route launches (main path, {len(calls)} forward and "
+          f"backward calls): {counts}")
+
+    def held(what, out_card, out_cpu, tol, want_delta, before):
+        after = read_counts()
+        delta = {c: n - before[c] for c, n in after.items()
+                 if n != before[c]}
+        err = (out_card.cpu() - out_cpu).abs().max().item()
+        print(f"{what}: launches {delta}, max|diff| vs the CPU {err:.3e}")
+        if not err <= tol or not want_delta(delta):
+            fail(f"{what}: launches {delta} or max|diff| {err:.3e} > {tol}")
+
+    weights, x, _ = unitary_inputs(rng, 8, 80, 14, 2, "cnot", dev)
+    before = read_counts()
+    with torch.no_grad():
+        out = engine.reupload_block(x, weights, encode="ry",
+                                    imprimitive="cnot")
+        want = engine.reupload_block(x.cpu(), weights.cpu(), encode="ry",
+                                     imprimitive="cnot")
+    held("RY encode, CNOT ring, w=8 B=80 L=14 (per-layer route in complex "
+         "matmuls)", out, want, KERNEL_TOL, lambda d: not d, before)
+    weights, x, _ = unitary_inputs(rng, 6, 4, 14, 2, "cnot", dev)
+    damped = engine.NoiseModel("amplitude_damping", 0.05, "encode")
+    for grad in (True, False):
+        before = read_counts()
+        with torch.set_grad_enabled(grad):
+            wt = weights.clone().requires_grad_(grad)
+            out = engine.reupload_block(x, wt, imprimitive="cnot",
+                                        noise=damped)
+            if grad:
+                out.square().sum().backward()
+            want = engine.reupload_block(x.cpu(), weights.cpu(),
+                                         imprimitive="cnot", noise=damped)
+        held(f"damped CNOT block w=6 B=4 L=14 ({'with' if grad else 'no'} "
+             f"autograd)", out.detach(), want.detach(), DM_TOL,
+             lambda d, g=grad: (d.get("sel", 0) > 0 and "dm" not in d
+                                and (d.get("sel_bwd", 0) > 0) == g),
+             before)
+    config.enable_x64(True)
+    try:
+        for ring in RINGS:
+            weights, x, _ = unitary_inputs(rng, 8, 80, 14, 2, ring, dev)
+            weights, x = weights.double(), x.double()
+            before = read_counts()
+            with torch.no_grad():
+                out = engine.reupload_block(x, weights, imprimitive=ring)
+                want = engine.reupload_block(x.cpu(), weights.cpu(),
+                                             imprimitive=ring)
+            if out.dtype != torch.float64:
+                fail(f"complex128 block gave {out.dtype}")
+            held(f"complex128 {ring} ring w=8 B=80 L=14 (per-layer route)",
+                 out, want, X64_TOL, lambda d: not d, before)
+    finally:
+        config.enable_x64(False)
+    return counts
+
+
+def bound_unitary(w, b, n, bwd: bool) -> tuple[float, str]:
+    """The unitary-streaming chain, n = L*k layers at k = 2: a dense
+    complex (d, d) product is 8 d^2 flops a sample, the phase 6 d; the
+    backward does three products a layer (the state's rebuild, the
+    cotangent's push, dU) and the un-encode, 20 d. Bytes: each input read
+    once and each output written once, float32: the (L*k, d, d) unitary
+    planes (and, backward, dU's), the (d, B) planes."""
+    d, re = 2**w, n // 2
+    u = 2 * n * d * d
+    if not bwd:
+        return _bound(b * (8 * n * d * d + 6 * re * d), 4 * (u + 4 * d * b))
+    return _bound(b * (24 * n * d * d + 20 * re * d),
+                  4 * (2 * u + 8 * d * b))
+
+
+def _library_unitary(p, us, k):
+    """The chain by PyTorch calls on complex64 (d, B) states: one
+    torch.matmul (cuBLAS, TF32 off) a layer and the phase multiplies, the
+    JAX package's own XLA route for this function. Timed as the kernels'
+    library yardstick, used nowhere in the port."""
+    s = torch.zeros_like(p)
+    s[0] = 1
+    for l in range(us.shape[0]):
+        if l % k == 0:
+            s = s * p
+        s = torch.matmul(us[l], s)
+    return s
+
+
+def phase_unitary_times(dev, smi: str) -> tuple[dict, dict]:
+    """#13/#14 against plain and the library yardstick at (8, 80, 28) and
+    (6, 16, 28), each beside its bound; printed only: the tiles of
+    _tile_for's choice against the others at (8, 80) and (8, 255), and CZ
+    chains at (8, 80, 28) on the gate chain #1/#2 against #13/#14 (routing
+    stays on #1/#2), whose outputs must agree."""
+    rng = np.random.default_rng(SEED + 22)
+    times, library = {}, {}
+    for w, b in ((8, 80), (6, 16)):
+        args = unitary_bwd_inputs(rng, w, b, 14, 2, "cnot", dev)
+        key = f"{w}_{b}_28"
+        times[f"unitary_fwd{key}"] = _paired_ms(
+            lambda: unitary_kernel._unitary_chain_cuda(*args[:4], 2),
+            lambda: unitary_kernel.unitary_chain_planes_plain(*args[:4], 2)
+        ) + bound_unitary(w, b, 28, False)
+        times[f"unitary_bwd{key}"] = _paired_ms(
+            lambda: unitary_kernel._unitary_chain_bwd_cuda(*args, 2),
+            lambda: unitary_kernel.unitary_chain_bwd_plain(*args, 2)
+        ) + bound_unitary(w, b, 28, True)
+        p = torch.complex(args[0], args[1]).requires_grad_(True)
+        us = torch.complex(args[2], args[3]).requires_grad_(True)
+        out = _library_unitary(p, us, 2)
+        err = max((out.real - args[4]).abs().max().item(),
+                  (out.imag - args[5]).abs().max().item())
+        if not err <= KERNEL_TOL:
+            fail(f"the unitary chain's library formulation is not the "
+                 f"chain: {err:.3e}")
+        cot = torch.complex(args[6], args[7])
+        with torch.no_grad():
+            library[f"unitary_fwd{key}"] = min(
+                _median_ms(lambda: _library_unitary(p, us, 2))
+                for _ in range(2))
+        library[f"unitary_bwd{key}"] = min(
+            _median_ms(lambda: torch.autograd.grad(out, (p, us), cot,
+                                                   retain_graph=True))
+            for _ in range(2))
+    for w, b in ((8, 80), (8, 255)):
+        args = unitary_bwd_inputs(rng, w, b, 14, 2, "cnot", dev)
+        row = []
+        for tile in (1, 2):
+            row.append((tile, _median_ms(
+                lambda: unitary_kernel._unitary_chain_cuda(*args[:4], 2,
+                                                           tile)),
+                _median_ms(lambda: unitary_kernel._unitary_chain_bwd_cuda(
+                    *args, 2, tile))))
+        print(f"unitary tiles w={w} B={b} L*k=28 ({smi}; default "
+              f"{unitary_kernel._tile_for(b)}): "
+              + "; ".join(f"R={t} #13 {f:.4f} ms, #14 {g:.4f} ms"
+                          for t, f, g in row) + " (median of 20)")
+    # CZ chains: the gate chain #1/#2 against #13/#14, printed only
+    w, b, L, k = 8, 80, 14, 2
+    weights, x, planes = unitary_inputs(rng, w, b, L, k, "cz", dev)
+    flat = weights.reshape(L * k, w, 3)
+    g8 = gate_kernel._to_g8(rot_matrix(flat[..., 0], flat[..., 1],
+                                       flat[..., 2]))
+    signs = gate_kernel._sign_planes_on(k, w, dev)
+    pr, pi = planes[:2]
+    qr, qi = gate_kernel._gate_chain_cuda(pr, pi, g8, signs, k, w)
+    ur_, ui_ = unitary_kernel._unitary_chain_cuda(*planes, k)
+    same = max((qr - ur_).abs().max().item(), (qi - ui_).abs().max().item())
+    if not same <= KERNEL_TOL:
+        fail(f"the gate chain and the unitary chain differ on a CZ block: "
+             f"{same:.3e}")
+    gr, gi = (torch.as_tensor(rng.normal(size=(2**w, b)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    gate_f, uni_f = _paired_ms(
+        lambda: gate_kernel._gate_chain_cuda(pr, pi, g8, signs, k, w),
+        lambda: unitary_kernel._unitary_chain_cuda(*planes, k))
+    gate_b, uni_b = _paired_ms(
+        lambda: gate_kernel._gate_chain_bwd_cuda(pr, pi, g8, signs, qr, qi,
+                                                 gr, gi, k, w),
+        lambda: unitary_kernel._unitary_chain_bwd_cuda(*planes, qr, qi, gr,
+                                                       gi, k))
+    print(f"CZ chain w={w} B={b} L*k=28 ({smi}), outputs {same:.3e} apart: "
+          f"gate chain #1 {gate_f:.4f} ms, #2 {gate_b:.4f} ms; unitary chain "
+          f"#13 {uni_f:.4f} ms, #14 {uni_b:.4f} ms ({_HOW})")
+    for key, (kern, plain, bound, by) in times.items():
+        print(f"times {key} ({smi}): kernel {kern:.4f} ms, plain "
+              f"{plain:.4f} ms ({_HOW}), library {library[key]:.4f} ms "
+              f"(median of 20, better of two rounds); bound {bound:.3e} ms "
+              f"({by}), kernel at {bound / kern:.2e} of it")
+    return times, library
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -2112,6 +2471,11 @@ def main() -> None:
     with torch.no_grad():
         times, library = phase_times(dev, smi)
         phase_crossover(dev, smi)
+    uni_err, uni_bwd_err = phase_unitary_vs_plain(dev)
+    unitary_counts = phase_unitary_route(dev)
+    uni_times, uni_library = phase_unitary_times(dev, smi)
+    times.update(uni_times)
+    library.update(uni_library)
     for name, rate in rates.items():
         print(f"sample {name}: steady sampling {rate:.1f} images/s ({N} "
               f"images x {ITERS} iterations per batch; {smi})")
@@ -2145,7 +2509,7 @@ def main() -> None:
               f"{walls['total'] - walls['sampling'] - walls['scoring']:.1f} s "
               f"({smi})")
     runs = [*sampled.values(), trained, pl_trained, wide_trained, swept,
-            traj_counts, traj_swept, mono_model,
+            traj_counts, traj_swept, mono_model, unitary_counts,
             *(c for by_width in bench_counts.values()
               for c in by_width.values())]
     launches = {c: sum(r[c] for r in runs) for c in trained}
@@ -2163,7 +2527,8 @@ def main() -> None:
           f"{mono_model}, wide bench {bench_counts}, noisy sweep {swept} "
           f"(while sampling, by model {sweep_sampling}), 12-wire trajectory "
           f"sampling {traj_counts}, trajectory sweep {traj_swept} (while "
-          f"sampling, by model {traj_sampling})")
+          f"sampling, by model {traj_sampling}), the CNOT-ring route "
+          f"{unitary_counts}")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"
@@ -2208,10 +2573,18 @@ def main() -> None:
         ("wide_mono_bwd_w20", "wide_mono.cu", f"{wide_tpu}206",
          "wide_mono_bwd20", _at_width(mono_errs, 20)[1],
          "wide_mono_bwd20_8_4"),
+        ("unitary_chain_fwd", "unitary_chain.cu",
+         "qiddm_tpu/sim/pallas_kernels.py:36", "unitary", uni_err,
+         "unitary_fwd8_80_28"),
+        ("unitary_chain_bwd", "unitary_chain.cu",
+         "qiddm_tpu/sim/pallas_kernels.py:72", "unitary_bwd", uni_bwd_err,
+         "unitary_bwd8_80_28"),
     ]
     # no single PyTorch call computes a gate chain, the dm block or the
     # amplitude-damping pass: their library_ms is null. The wide chain's
-    # is its group products as complex64 torch.matmul calls (cuBLAS).
+    # is its group products as complex64 torch.matmul calls (cuBLAS), the
+    # unitary chain's its layer products (torch.matmul) with the phase
+    # multiplies, and autograd's backward of those.
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + src,
         "replaces": line, "launches": launches[counter],

@@ -70,7 +70,7 @@ class QDenseUndirected_old(DenoiserShim):
     """Reference nn/qdense.py:15-68: qw_map.tanh weights."""
 
     def __init__(self, qdepth, shape, seed: int = 0, init_batch=None, *,
-                 device="cpu"):
+                 device=None):
         qdepth, shape = _int_arg(qdepth), _shape_arg(shape)
         self.qdepth, (self.width, self.height) = qdepth, shape
         module = _QDenseModule(qdepth, shape, generator=_generator(seed),
@@ -88,7 +88,7 @@ class QDenseUndirected_old_noise(DenoiserShim):
 
     def __init__(self, qdepth, shape, add_noise=0,
                  device_type="default.qubit.torch", seed: int = 0,
-                 init_batch=None, *, device="cpu"):
+                 init_batch=None, *, device=None):
         qdepth, add_noise = _int_arg(qdepth), _int_arg(add_noise)
         shape = _shape_arg(shape)
         self.qdepth, self.add_noise = qdepth, add_noise
@@ -107,7 +107,7 @@ class QNN_A(DenoiserShim):
 
     def __init__(self, qdepth, shape, add_noise=0,
                  device_type="default.qubit.torch", diff_method="backprop",
-                 seed: int = 0, init_batch=None, *, device="cpu"):
+                 seed: int = 0, init_batch=None, *, device=None):
         qdepth, add_noise = _int_arg(qdepth), _int_arg(add_noise)
         shape = _shape_arg(shape)
         self.qdepth, self.add_noise = qdepth, add_noise
@@ -137,7 +137,7 @@ class QNN_noise(DenoiserShim):
     model, ``QNN_noise 784 8 14``)."""
 
     def __init__(self, input_dim, hidden_features, qdepth, add_noise=0,
-                 seed: int = 0, init_batch=None, *, device="cpu"):
+                 seed: int = 0, init_batch=None, *, device=None):
         add_noise = _int_arg(add_noise)
         module, shape, hidden, qdepth = _qnn(input_dim, hidden_features,
                                              qdepth, seed, add_noise)
@@ -153,7 +153,7 @@ class QNN(DenoiserShim):
     """Reference nn/qdense.py:310-386."""
 
     def __init__(self, input_dim, hidden_features, qdepth, seed: int = 0,
-                 init_batch=None, *, device="cpu"):
+                 init_batch=None, *, device=None):
         module, shape, hidden, qdepth = _qnn(input_dim, hidden_features,
                                              qdepth, seed)
         self.hidden_features, self.qdepth = hidden, qdepth
@@ -196,7 +196,7 @@ class differN_noise(_ReuploadShim):
     end."""
 
     def __init__(self, shape, spectrum_layer, N, add_noise=0, seed: int = 0,
-                 init_batch=None, *, device="cpu"):
+                 init_batch=None, *, device=None):
         m, shape, attrs = _differn(shape, spectrum_layer, N, add_noise, seed,
                                    "qdense")
         name = (f"differN_old_pca={attrs['spectrum_layer']}_N={attrs['N']}"
@@ -210,7 +210,7 @@ class differN_noise_befor(_ReuploadShim):
 
     def __init__(self, shape, spectrum_layer, N, add_noise=0,
                  device_type="default.qubit.torch", seed: int = 0,
-                 init_batch=None, *, device="cpu"):
+                 init_batch=None, *, device=None):
         m, shape, attrs = _differn(shape, spectrum_layer, N, add_noise, seed,
                                    "differn_befor")
         name = (f"differN_noise={attrs['spectrum_layer']}_N={attrs['N']}"
@@ -244,7 +244,7 @@ class QIDDM_LL_noise(_ReuploadShim):
 
     def __init__(self, input_dim, hidden_features, spectrum_layer, N,
                  add_noise=0, device_type="lightning.qubit", seed: int = 0,
-                 noise_intensity=None, *, device="cpu"):
+                 noise_intensity=None, *, device=None):
         m, shape, name, attrs = _qiddm(input_dim, hidden_features,
                                        spectrum_layer, N, down="linear",
                                        up="linear", add_noise=add_noise,
@@ -259,7 +259,7 @@ class QIDDM_PL(_ReuploadShim):
     PCA down, linear up, PauliZ readout."""
 
     def __init__(self, input_dim, hidden_features, spectrum_layer, N,
-                 seed: int = 0, init_batch=None, *, device="cpu"):
+                 seed: int = 0, init_batch=None, *, device=None):
         m, shape, name, attrs = _qiddm(input_dim, hidden_features,
                                        spectrum_layer, N, down="pca",
                                        up="linear", add_noise=None,
@@ -272,7 +272,7 @@ class QIDDM_PL_old(_ReuploadShim):
     """Reference nn/qdense.py:1176-1250."""
 
     def __init__(self, input_dim, hidden_features, spectrum_layer, N,
-                 seed: int = 0, init_batch=None, *, device="cpu"):
+                 seed: int = 0, init_batch=None, *, device=None):
         m, shape, name, attrs = _qiddm(input_dim, hidden_features,
                                        spectrum_layer, N, down="pca",
                                        up="linear", add_noise=None,
@@ -287,7 +287,7 @@ class QIDDM_PL_noise(_ReuploadShim):
 
     def __init__(self, input_dim, hidden_features, spectrum_layer, N,
                  add_noise=0, device_type="lightning.qubit", seed: int = 0,
-                 noise_intensity=None, init_batch=None, *, device="cpu"):
+                 noise_intensity=None, init_batch=None, *, device=None):
         m, shape, name, attrs = _qiddm(input_dim, hidden_features,
                                        spectrum_layer, N, down="pca",
                                        up="linear", add_noise=add_noise,
@@ -309,7 +309,7 @@ class QIDDM_PL_noise1(_ReuploadShim):
 
     def __init__(self, input_dim, hidden_features, spectrum_layer, N,
                  add_noise=0, device_type="lightning.qubit", seed: int = 0,
-                 init_batch=None, *, device="cpu"):
+                 init_batch=None, *, device=None):
         m, shape, name, attrs = _qiddm(input_dim, hidden_features,
                                        spectrum_layer, N, down="pca",
                                        up="linear", encode="ry",

@@ -10,6 +10,8 @@ from typing import Tuple
 
 import torch
 
+from ..config import resolve_device
+
 
 def _square_or_flat(input_dim: int) -> Tuple[int, int]:
     side = int(math.isqrt(input_dim))
@@ -19,7 +21,10 @@ def _square_or_flat(input_dim: int) -> Tuple[int, int]:
 
 
 class DenoiserShim(torch.nn.Module):
-    """Holds the denoiser as ``self.module``, moved to ``device``.
+    """Holds the denoiser as ``self.module``, moved to ``device``: the card
+    (``"cuda"``) unless the caller names another device. The device goes
+    through ``config.resolve_device``, which raises when CUDA is asked for
+    and absent; nothing falls back to the CPU.
 
     Subclasses build the module on the CPU from a ``torch.Generator``
     seeded with their ``seed``, so one seed gives the same weights on every
@@ -27,9 +32,10 @@ class DenoiserShim(torch.nn.Module):
     """
 
     def __init__(self, module: torch.nn.Module, img_shape: Tuple[int, int],
-                 *, save_name_str: str, device):
+                 *, save_name_str: str, device=None):
         super().__init__()
-        self.module = module.to(device)
+        self.module = module.to(
+            resolve_device("cuda" if device is None else device))
         self.img_shape = tuple(img_shape)
         self._save_name = save_name_str
 

@@ -2,9 +2,11 @@
 re-uploading gate chains (``gate_kernel``: RZ encode; ``ry_kernel``: RY
 encode) and the SEL chain (``sel_kernel``), each with its adjoint backward,
 the density-matrix block (``dm_kernel``) and the amplitude-damping
-trajectory pass (``amp_damp_kernel``) and the wide (11-20 wire) chain's
-grouped sublayer (``wide_kernel``, with ``wide``) as hand-written CUDA
-kernels, and the Monte-Carlo trajectory noise backend (``trajectories``)."""
+trajectory pass (``amp_damp_kernel``), the wide (11-20 wire) chain's
+grouped sublayer (``wide_kernel``, with ``wide``) and the chain that streams
+dense layer unitaries (``unitary_kernel``, CNOT-ring re-upload blocks up to
+8 wires) as hand-written CUDA kernels, and the Monte-Carlo trajectory noise
+backend (``trajectories``)."""
 
 from .amp_damp_kernel import amp_damp, amp_damp_plain  # noqa: F401
 from .engine import qdense_circuit, qnn_circuit, reupload_block  # noqa: F401
@@ -29,6 +31,7 @@ from .ry_kernel import (  # noqa: F401
 from .sel import (  # noqa: F401
     cnot_ring_perm,
     cz_ring_signs,
+    sel_layer_unitaries,
     sel_ranges,
     sel_unitaries,
     sel_unitary,
@@ -65,6 +68,13 @@ from .trajectories import (  # noqa: F401
     qnn_circuit_trajectories,
     reupload_block_trajectories,
     wire_one_prob,
+)
+# the launch counters are read from the module, unitary_kernel.
+# UNITARY_LAUNCHES and unitary_kernel.UNITARY_BWD_LAUNCHES
+from .unitary_kernel import (  # noqa: F401
+    unitary_chain_bwd_plain,
+    unitary_chain_planes,
+    unitary_chain_planes_plain,
 )
 from .wide import group_gates, group_sizes  # noqa: F401
 # the launch counters are read from the module, wide_kernel.WIDE_LAUNCHES

@@ -15,13 +15,18 @@ size:
 
 * batch < 2**wires: a gate chain on (d, B) float32 planes —
   ``gate_kernel.gate_chain_planes`` (RZ) and ``ry_kernel.ry_chain_planes``
-  (RY) for the re-uploading blocks up to 10 wires,
+  (RY) for the re-uploading blocks with a CZ ring up to 10 wires,
   ``wide_kernel.wide_chain_planes`` (the grouped chain, RZ) for 11-20
   wires, whose kernels ``config.wide_kernel_variant()`` picks (#11/#12 a
   wire group at a time, or #9/#10 a whole chain in one launch),
   ``sel_kernel.sel_chain_planes`` for the SEL chains (both rings);
   the CUDA kernels on the card (forward, and the adjoint backward under
-  autograd), their plain versions on the CPU;
+  autograd), their plain versions on the CPU. The re-uploading blocks the
+  gate chains do not take up to 8 wires — a CNOT ring, or complex128 —
+  run per-layer unitaries (``sel_layer_unitaries``): a complex64 RZ block
+  through the unitary-streaming chain ``unitary_kernel.
+  unitary_chain_planes`` (#13/#14), an RY block or complex128 by complex
+  matmuls, as the JAX package's XLA scan runs them;
 * batch >= 2**wires: the layers composed into one unitary per block and
   applied with complex matmuls, which pays once the batch exceeds the
   state dimension; autograd differentiates it, as XLA does in JAX.
@@ -43,10 +48,11 @@ trajectories per sample, the amplitude-damping pass in its kernel, the SEL
 layers through the SEL-chain kernel or composed unitaries; without a
 non-unitary channel ``n_traj`` changes nothing, as in the JAX package.
 
-The mesh-sharded statevector, the re-uploading blocks' CNOT ring, and the
-wide routes the kernels do not take (an RY encode above 10 wires, any block
-above 20, the SEL chains above 12, complex128) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The mesh-sharded statevector and the routes the kernels do not take at a
+batch below ``2**wires`` (an RY encode above 10 wires, any block above 20,
+a CNOT ring or complex128 above 8, the SEL chains above 12 or in
+complex128) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ from .dm_kernel import KIND_IDS, dm_chain
 from .gate_kernel import gate_chain_planes
 from .gates import WEIGHT_MAPS, rot_matrix, ry_matrix
 from .ry_kernel import ry_chain_planes
-from .sel import sel_unitaries, sel_unitary
+from .sel import sel_layer_unitaries, sel_unitaries, sel_unitary
 from .sel_kernel import sel_chain_planes
 from .statevector import (
     amplitude_embed,
@@ -85,9 +91,12 @@ from .trajectories import (
     qnn_circuit_trajectories,
     reupload_block_trajectories,
 )
+from .unitary_kernel import MAX_WIRES as UNITARY_MAX_WIRES
+from .unitary_kernel import unitary_chain_planes
 from .wide_kernel import wide_chain_planes
 
 _ENCODES = ("rz", "rz_halfpi", "ry")
+_IMPRIMITIVES = ("cz", "cnot")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,19 +220,83 @@ def _check_encode(encode: str) -> None:
         raise ValueError(f"unknown encode {encode!r} (known: {_ENCODES})")
 
 
-def _check_chain_route(wires: int, batch: int, cdtype,
-                       max_wires: int = _config.KERNEL_MAX_WIRES) -> None:
-    """The plane kernels' limits: at most ``max_wires`` wires (the gate
-    chains' and the dm kernel's ``KERNEL_MAX_WIRES`` unless given), and
+# What each plane-kernel route lacks past its limits: (widest, what a wider
+# call needs, what a complex128 call needs), each naming its ROADMAP step.
+_ROUTE_GAPS = {
+    "gate": (_config.KERNEL_MAX_WIRES,
+             "an RY encode above 10 wires (the wide chain's RY encode) is "
+             "ROADMAP Queue 1 item 5, step 3", None),
+    "wide": (_config.WIDE_KERNEL_MAX_WIRES,
+             "blocks above 20 wires (the per-gate adjoint chain) are ROADMAP "
+             "Queue 1 item 5, step 6", None),
+    "dm": (_config.KERNEL_MAX_WIRES,
+           "density matrices above 10 wires (the gate-by-gate "
+           "sel_apply_gates route) are ROADMAP Queue 1 item 5, step 7",
+           "the dm kernel and the SEL chain run float32 planes; complex128 "
+           "density matrices (sel_apply_gates) are ROADMAP Queue 1 item 5, "
+           "step 7"),
+    "sel": (_config.SEL_KERNEL_MAX_WIRES,
+            "QNN/Qdense above 12 wires (sel_chain_wide) are ROADMAP Queue 1 "
+            "item 5, step 4",
+            "the SEL chain runs float32 planes; complex128 QNN/Qdense "
+            "circuits below 2**wires (sel_apply_gates) are ROADMAP Queue 1 "
+            "item 5, step 7"),
+}
+
+
+def _check_chain_route(route: str, wires: int, batch: int, cdtype) -> None:
+    """Raise ``NotImplementedError`` naming what is missing unless the
+    plane kernels of ``route`` take the call: at most its widest, and
     float32 planes (complex64)."""
-    if wires > max_wires:
-        raise NotImplementedError(
-            f"{wires} wires at batch {batch}: the wide gate-level "
-            f"routes are ROADMAP Queue 1 item 5")
+    widest, wider, x64 = _ROUTE_GAPS[route]
+    if wires > widest:
+        raise NotImplementedError(f"{wires} wires at batch {batch}: {wider}")
     if cdtype != torch.complex64:
+        raise NotImplementedError(x64)
+
+
+def _reupload_per_layer(x_enc, block_weights, *, encode: str,
+                        imprimitive: str, readout: str, cdtype):
+    """The per-layer-unitary route of :func:`reupload_block` (batch below
+    ``2**wires``, up to 8 wires), for the blocks the gate chains do not
+    take: a CNOT ring, or complex128. The layers' dense unitaries
+    (``sel_layer_unitaries``, (L, k, d, d)) are applied one by one, as the
+    JAX package's per-layer branch does (``engine.py:519-551``): a
+    complex64 RZ block through the unitary-streaming chain
+    ``unitary_chain_planes`` (#13/#14 on the card, its plain version on the
+    CPU), an RY block or complex128 by complex matmuls. The latter are not
+    a fallback: they are the counterpart of a JAX route that runs no
+    Pallas kernel either (its XLA scan)."""
+    L, k, wires, _ = block_weights.shape
+    batch = x_enc.shape[0]
+    if wires > UNITARY_MAX_WIRES:
         raise NotImplementedError(
-            "the gate chains run float32 planes; the complex128 "
-            "per-layer-unitary route is ROADMAP Queue 1 item 5")
+            f"{imprimitive} ring, {cdtype}, {wires} wires at batch {batch} "
+            f"< 2**wires: the per-layer-unitary route stops at "
+            f"{UNITARY_MAX_WIRES} wires; a wider CNOT ring (the wide chain's "
+            f"CNOT gathers) and complex128 (sel_apply_gates) are ROADMAP "
+            f"Queue 1 item 5, steps 3 and 7")
+    rdtype = cdtype.to_real()
+    lus = sel_layer_unitaries(block_weights.to(rdtype), imprimitive)
+    if cdtype == torch.complex64 and encode != "ry":
+        pr, pi = rz_phase_planes(x_enc, wires)
+        flat = lus.reshape(L * k, 2**wires, 2**wires)
+        sr, si = unitary_chain_planes(pr, pi, flat.real.contiguous(),
+                                      flat.imag.contiguous(), k)
+        if readout == "probs":
+            return probs_from_planes(sr, si)
+        return expval_z_from_planes(sr, si)
+    x_enc = x_enc.to(rdtype)
+    phases = None if encode == "ry" else rz_phases(x_enc, wires)
+    states = zero_state(batch, wires, dtype=cdtype, device=x_enc.device)
+    for l in range(L):
+        states = (apply_ry_all(states, x_enc) if phases is None
+                  else states * phases)
+        for li in range(k):
+            states = apply_unitary(states, lus[l, li])
+    if readout == "probs":
+        return probs(states)
+    return expval_z(states)
 
 
 def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
@@ -234,18 +307,18 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
     """One N-block: L x (encode -> SEL(k)) -> readout.
 
     x_enc: (batch, wires) encoding angles, re-uploaded in every spectrum
-    layer; block_weights: (L, k, wires, 3). readout "probs" gives
-    (batch, 2**w), "expvalz" gives (batch, wires). A non-unitary ``noise``
-    takes the density-matrix route (:func:`_reupload_dm`), or with
-    ``n_traj`` the trajectory backend, drawing from ``traj_rng``.
+    layer; block_weights: (L, k, wires, 3); ``imprimitive`` the SEL ring,
+    "cz" or "cnot". readout "probs" gives (batch, 2**w), "expvalz" gives
+    (batch, wires). A non-unitary ``noise`` takes the density-matrix route
+    (:func:`_reupload_dm`), or with ``n_traj`` the trajectory backend,
+    drawing from ``traj_rng``.
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded statevector: ROADMAP Queue 1 item 11")
     _check_encode(encode)
-    if imprimitive != "cz":
-        raise NotImplementedError(
-            f"imprimitive={imprimitive!r}: ROADMAP Queue 1 item 7")
+    if imprimitive not in _IMPRIMITIVES:
+        raise ValueError(f"unknown imprimitive {imprimitive!r}")
     if readout not in ("probs", "expvalz"):
         raise ValueError(f"unknown readout {readout!r}")
     if cdtype is None:
@@ -260,15 +333,18 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
             encode=encode, imprimitive=imprimitive, readout=readout,
             cdtype=cdtype)
     if _needs_dm(noise):
-        return _reupload_dm(x_enc, block_weights, encode=encode, noise=noise,
+        return _reupload_dm(x_enc, block_weights, encode=encode,
+                            imprimitive=imprimitive, noise=noise,
                             readout=readout, cdtype=cdtype)
 
     if batch < 2**wires:
+        if imprimitive == "cnot" or cdtype != torch.complex64:
+            return _reupload_per_layer(x_enc, block_weights, encode=encode,
+                                       imprimitive=imprimitive,
+                                       readout=readout, cdtype=cdtype)
         # RZ above the gate chain's 10 wires: the grouped wide chain
         wide = encode != "ry" and wires > _config.KERNEL_MAX_WIRES
-        _check_chain_route(wires, batch, cdtype,
-                           _config.WIDE_KERNEL_MAX_WIRES if wide
-                           else _config.KERNEL_MAX_WIRES)
+        _check_chain_route("wide" if wide else "gate", wires, batch, cdtype)
         flat = block_weights.reshape(L * k, wires, 3)
         mats = rot_matrix(flat[..., 0], flat[..., 1], flat[..., 2])
         if encode == "ry":
@@ -316,19 +392,20 @@ def _apply_1q_batched_unitary(rho, gate, wire: int, wires: int):
     return out.reshape(rho.shape)
 
 
-def _reupload_dm(x_enc, block_weights, *, encode: str, noise: NoiseModel,
-                 readout: str, cdtype):
+def _reupload_dm(x_enc, block_weights, *, encode: str, imprimitive: str,
+                 noise: NoiseModel, readout: str, cdtype):
     """The density-matrix route of :func:`reupload_block` (damping and
     depolarizing channels inside the loop or at its end).
 
     In ``dm_unitary_mode`` "gates", the whole block runs in the
-    density-matrix kernel when the noise sits after each encode, its kind
-    has a closed form, the dtype is complex64 and autograd does not record
-    (the kernel has no backward; the JAX package routes by the same
-    condition, ``engine.py:593-599``); otherwise every spectrum layer
-    encodes, applies the channel and runs its SEL chain on both sides of
-    rho through the SEL-chain kernel, which differentiates. "matmul"
-    sandwiches rho between the composed per-layer unitaries.
+    density-matrix kernel when the ring is CZ, the noise sits after each
+    encode, its kind has a closed form, the dtype is complex64 and autograd
+    does not record (the kernel has no backward; the JAX package routes by
+    the same condition, ``engine.py:593-599``); otherwise every spectrum
+    layer encodes, applies the channel and runs its SEL chain (either ring)
+    on both sides of rho through the SEL-chain kernel, which
+    differentiates. "matmul" sandwiches rho between the composed per-layer
+    unitaries.
 
     Memory: rho is (batch, 4**wires) complex, ``batch * 4**w * 8`` bytes in
     complex64 on the input's device (0.5 MB a sample at w=8, 8 MB at the
@@ -341,10 +418,11 @@ def _reupload_dm(x_enc, block_weights, *, encode: str, noise: NoiseModel,
     rdtype = cdtype.to_real()
     dm_gates = _config.dm_unitary_mode() == "gates"
     if dm_gates:
-        _check_chain_route(wires, batch, cdtype)
+        _check_chain_route("dm", wires, batch, cdtype)
     x_enc = x_enc.to(rdtype)
     phases = rz_phases(x_enc, wires) if encode != "ry" else None
-    if (dm_gates and noise.placement == "encode" and noise.kind in KIND_IDS
+    if (dm_gates and imprimitive == "cz" and noise.placement == "encode"
+            and noise.kind in KIND_IDS
             and not _records_grad(x_enc, block_weights, noise.strength)):
         flat = block_weights.reshape(L * k, wires, 3)
         mats = rot_matrix(flat[..., 0], flat[..., 1], flat[..., 2])
@@ -369,13 +447,14 @@ def _reupload_dm(x_enc, block_weights, *, encode: str, noise: NoiseModel,
         return rho
 
     rho = dm.zero_density(batch, wires, dtype=cdtype, device=x_enc.device)
-    us = None if dm_gates else sel_unitaries(block_weights.to(rdtype), "cz")
+    us = (None if dm_gates
+          else sel_unitaries(block_weights.to(rdtype), imprimitive))
     for l in range(L):
         rho = encode_rho(rho)
         if noise.placement == "encode":
             rho = _apply_noise_all_wires(rho, noise, cdtype)
         if dm_gates:
-            rho = _two_sided_sel(rho, block_weights[l], wires, "cz")
+            rho = _two_sided_sel(rho, block_weights[l], wires, imprimitive)
         else:
             rho = dm.apply_unitary(rho, us[l])
     if noise.placement == "end":
@@ -392,8 +471,7 @@ def _sel_small_batch(sr, si, w, imprimitive: str, cdtype):
     The JAX package picks among the Pallas kernel, the grouped-Kronecker
     and per-gate adjoint chains and a gate-by-gate ``lax.scan`` by backend
     and width; the port has the kernel route only, and the others raise."""
-    _check_chain_route(w.shape[1], sr.shape[1], cdtype,
-                       _config.SEL_KERNEL_MAX_WIRES)
+    _check_chain_route("sel", w.shape[1], sr.shape[1], cdtype)
     mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
     return sel_chain_planes(sr, si, mats, w.shape[1], imprimitive)
 
@@ -494,7 +572,7 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
         if noise.placement == "encode":
             rho = _apply_noise_all_wires(rho, noise, cdtype)
         if _config.dm_unitary_mode() == "gates":
-            _check_chain_route(wires, batch, cdtype)
+            _check_chain_route("dm", wires, batch, cdtype)
             rho = _two_sided_sel(rho, w, wires, imprimitive)
         else:
             rho = dm.apply_unitary(rho, sel_unitary(w.to(rdtype),

@@ -15,9 +15,10 @@ the sources in this checkout, into ``build/qiddm_tpu_torch/`` next to the
 package. One library holds every kernel of the port (this chain's, the SEL
 chain's of ``sel_kernel.py``, the RY chain's of ``ry_kernel.py``, the
 density-matrix block's of ``dm_kernel.py``, the amplitude-damping
-trajectory pass of ``amp_damp_kernel.py``, and the wide chain's grouped
+trajectory pass of ``amp_damp_kernel.py``, the wide chain's grouped
 sublayer and its backward and its monolithic forward and backward of
-``wide_kernel.py``); its
+``wide_kernel.py``, and the unitary-streaming chain and its backward of
+``unitary_kernel.py``); its
 file name carries a hash of all the sources and the flags, so an edit of
 any of them rebuilds it. It has a plain C interface and is bound with
 ``ctypes``.
@@ -51,7 +52,7 @@ _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu",
             _CSRC / "ry_chain.cu", _CSRC / "dm_chain.cu",
             _CSRC / "amp_damp.cu", _CSRC / "wide_chain.cu",
-            _CSRC / "wide_mono.cu")
+            _CSRC / "wide_mono.cu", _CSRC / "unitary_chain.cu")
 _HEADERS = (_CSRC / "chain_common.cuh", _CSRC / "wide_common.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -300,6 +301,14 @@ def _library():
         lib.wide_mono_bwd.restype = num
         lib.wide_mono_plan.argtypes = [num] * 7 + [ptr]
         lib.wide_mono_plan.restype = num
+        lib.unitary_chain_fwd.argtypes = [ptr] * 6 + [num] * 6 + [ptr]
+        lib.unitary_chain_fwd.restype = num
+        lib.unitary_chain_bwd.argtypes = [ptr] * 13 + [num] * 6 + [ptr]
+        lib.unitary_chain_bwd.restype = num
+        for fn in (lib.unitary_chain_fwd_smem_bytes,
+                   lib.unitary_chain_bwd_smem_bytes):
+            fn.argtypes = [num] * 2
+            fn.restype = ctypes.c_size_t
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib

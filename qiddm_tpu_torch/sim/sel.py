@@ -126,6 +126,18 @@ def sel_unitary(weights: torch.Tensor,
     return acc
 
 
+def sel_layer_unitaries(weights: torch.Tensor,
+                        imprimitive: str = "cz") -> torch.Tensor:
+    """Per-layer entangled unitaries without composition, for the
+    re-uploading family's per-layer route.
+
+    weights: (n_blocks, k, wires, 3) -> (n_blocks, k, d, d): each layer's
+    (rotation-kron x ring) unitary, the range cycle restarting every
+    spectrum layer (block of k layers).
+    """
+    return _entangled_layers(weights, imprimitive)
+
+
 def sel_unitaries(weights: torch.Tensor,
                   imprimitive: str = "cz") -> torch.Tensor:
     """Block composition for the re-uploading family.

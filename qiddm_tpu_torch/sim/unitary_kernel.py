@@ -1,0 +1,257 @@
+"""The re-uploading chain that streams dense layer unitaries, and its
+adjoint backward: hand-written CUDA kernels and their plain PyTorch
+versions (counterpart of ``qiddm_tpu/sim/pallas_kernels.py``:
+``fused_reupload_chain``, ``_fwd_kernel``, ``_bwd_kernel``).
+
+From |0...0>, for every layer l of ``L*k``: the RZ phase diagonal at
+``l % k == 0``, then ``s <- U_l s`` with the dense (d, d) layer unitary of
+``sel.sel_layer_unitaries`` (rotations and the CZ or CNOT ring in one
+matrix). The engine takes this route for the re-uploading blocks that the
+gate chains do not serve at a batch below ``2**wires``: a CNOT ring, up to
+``MAX_FUSED_DIM`` = 256 amplitudes (8 wires).
+
+``unitary_chain_planes`` is the entry the engine calls. It runs the
+``_UnitaryChain`` autograd Function, which picks the path by the device of
+its input, in the forward and in the backward pass alike: a CPU tensor runs
+the plain versions (:func:`unitary_chain_planes_plain`,
+:func:`unitary_chain_bwd_plain`); a CUDA tensor launches the kernels of
+``csrc/unitary_chain.cu`` (#13 forward, #14 backward) or raises. Nothing
+falls back from a kernel to its plain version. The kernels are built into
+the one library of ``gate_kernel.py``.
+
+Layout: the phases and the states are (d, B) float32 planes, as for the
+port's other chains (``statevector.rz_phase_planes`` builds the phases,
+``probs_from_planes`` and ``expval_z_from_planes`` read the output); the
+unitaries are (L*k, d, d) float32 planes, row-major. Every input of the
+Function is a real tensor, so its backward is written once, in PyTorch's
+convention, and autograd carries dU to the complex unitaries through
+``.real`` and ``.imag``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import gate_kernel as _gk
+
+# Kernel launches since the last reset, one a chain call each (#14's dU
+# product is a helper and not counted, as #2's dg sum is not);
+# chip_smoke.py reads them to show that the route went through the kernels.
+UNITARY_LAUNCHES = 0
+UNITARY_BWD_LAUNCHES = 0
+
+# Widest state the kernels take: the TPU kernel's MAX_FUSED_DIM
+# (qiddm_tpu/sim/pallas_kernels.py:33), 8 wires.
+MAX_FUSED_DIM = 256
+MAX_WIRES = MAX_FUSED_DIM.bit_length() - 1
+
+
+# --- plain PyTorch version ---------------------------------------------------
+
+def unitary_chain_planes_plain(pr, pi, ur, ui, k: int):
+    """The chain in plain PyTorch, on any device: same arguments and
+    results as :func:`unitary_chain_planes`."""
+    sr = torch.zeros_like(pr)
+    sr[0] = 1.0
+    si = torch.zeros_like(pi)
+    for l in range(ur.shape[0]):
+        if l % k == 0:
+            sr, si = sr * pr - si * pi, sr * pi + si * pr
+        sr, si = ur[l] @ sr - ui[l] @ si, ur[l] @ si + ui[l] @ sr
+    return sr, si
+
+
+def unitary_chain_bwd_plain(pr, pi, ur, ui, fr, fi, gr, gi, k: int):
+    """The adjoint reverse walk in plain PyTorch, on any device.
+
+    From the forward output ``(fr, fi)`` and its cotangent ``(gr, gi)``
+    (all (d, B) float32), rebuild each layer's input as ``U_l^H s``, push
+    the cotangent through ``U_l^H``, and return ``(dpr, dpi, dur, dui)``:
+    the (d, B) phase-plane gradients and the (L*k, d, d) unitary-plane
+    gradients, ``dU_l = c_l t_l^H`` summed over the batch."""
+    sr, si, cr, ci = fr, fi, gr, gi
+    dpr = torch.zeros_like(pr)
+    dpi = torch.zeros_like(pi)
+    dur = torch.empty_like(ur)
+    dui = torch.empty_like(ui)
+    for l in range(ur.shape[0] - 1, -1, -1):
+        a, q = ur[l].T, ui[l].T
+        tr, ti = a @ sr + q @ si, a @ si - q @ sr  # the input of U_l
+        dur[l] = cr @ tr.T + ci @ ti.T
+        dui[l] = ci @ tr.T - cr @ ti.T
+        cr, ci = a @ cr + q @ ci, a @ ci - q @ cr
+        if l % k == 0:
+            sr, si = tr * pr + ti * pi, ti * pr - tr * pi  # before the phase
+            dpr = dpr + cr * sr + ci * si
+            dpi = dpi + ci * sr - cr * si
+            cr, ci = cr * pr + ci * pi, ci * pr - cr * pi
+        else:
+            sr, si = tr, ti
+    return dpr, dpi, dur, dui
+
+
+# --- CUDA kernels ------------------------------------------------------------
+
+# Streaming multiprocessors of the H100, which the tiles of a batch fill.
+_SMS = 132
+
+
+def _tile_for(batch: int) -> int:
+    """Samples a block: 1 while the batch fits the card's 132 SMs a sample
+    a block, else 2. A tile of R samples reads every unitary once for R
+    samples, so the L2 traffic falls as R grows, and so do the blocks and
+    the SMs in use (``chip_smoke.py`` phase 28 times both tiles side by
+    side)."""
+    return 1 if batch <= _SMS else 2
+
+
+def _check_inputs(what: str, planes, ur, ui, k: int):
+    """Raise unless every tensor is a contiguous float32 tensor on one CUDA
+    device, the planes (d, B) with d = 2**wires <= MAX_FUSED_DIM, the
+    unitary planes (n_layers, d, d), and k >= 1. Returns (wires, B,
+    n_layers)."""
+    tensors = (*planes, ur, ui)
+    dev = planes[0].device
+    if any(t.device != dev or t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{what}: every input must be on the same CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if (any(t.dtype != torch.float32 for t in tensors)
+            or not all(t.is_contiguous() for t in tensors)):
+        raise ValueError(f"{what}: inputs must be contiguous float32, got "
+                         f"{[(t.dtype, t.is_contiguous()) for t in tensors]}")
+    return _check_shapes(what, planes, ur, ui, k)
+
+
+def _check_shapes(what: str, planes, ur, ui, k: int):
+    d, B = planes[0].shape
+    n_layers = ur.shape[0] if ur.ndim == 3 else 0
+    if (any(t.shape != (d, B) for t in planes) or B < 1 or n_layers < 1
+            or k < 1 or d < 2 or d & (d - 1)
+            or ur.shape != (n_layers, d, d) or ui.shape != ur.shape):
+        raise ValueError(
+            f"{what}: bad shapes {[tuple(t.shape) for t in planes]}, "
+            f"unitaries {tuple(ur.shape)}, {tuple(ui.shape)}, k={k}")
+    if d > MAX_FUSED_DIM:
+        raise ValueError(f"{what} takes at most {MAX_FUSED_DIM} amplitudes "
+                         f"({MAX_WIRES} wires), got {d}")
+    return d.bit_length() - 1, B, n_layers
+
+
+def _check_tile(smem_fn, wires: int, tile: int) -> None:
+    if tile not in (1, 2):
+        raise ValueError(f"tile must be 1 or 2 samples, got {tile}")
+    smem = smem_fn(wires, tile)
+    if smem > _gk._MAX_SMEM_BYTES:
+        raise ValueError(f"unitary-chain kernel needs {smem} B of shared "
+                         f"memory a block (limit {_gk._MAX_SMEM_BYTES}) at "
+                         f"{wires} wires and a tile of {tile}")
+
+
+def _unitary_chain_cuda(pr, pi, ur, ui, k: int, tile: int = 0):
+    """Launch kernel #13 on PyTorch's current stream (``tile`` samples a
+    block, :func:`_tile_for` by default); (sr, si) are new (d, B) float32
+    tensors."""
+    global UNITARY_LAUNCHES
+    wires, B, n_layers = _check_inputs("unitary-chain kernel", (pr, pi), ur,
+                                       ui, k)
+    tile = tile or _tile_for(B)
+    lib = _gk._library()
+    _check_tile(lib.unitary_chain_fwd_smem_bytes, wires, tile)
+    sr = torch.empty_like(pr)
+    si = torch.empty_like(pi)
+    stream = torch.cuda.current_stream(pr.device).cuda_stream
+    err = lib.unitary_chain_fwd(pr.data_ptr(), pi.data_ptr(), ur.data_ptr(),
+                                ui.data_ptr(), sr.data_ptr(), si.data_ptr(),
+                                wires, B, n_layers, k, tile, pr.device.index,
+                                stream)
+    _gk._raise_on(err, lib, "unitary-chain kernel")
+    UNITARY_LAUNCHES += 1
+    return sr, si
+
+
+def _unitary_chain_bwd_cuda(pr, pi, ur, ui, fr, fi, gr, gi, k: int,
+                            tile: int = 0):
+    """Launch kernel #14 (the adjoint walk, then its fixed-order dU
+    product) on PyTorch's current stream; returns new (dpr, dpi, dur, dui)
+    as :func:`unitary_chain_bwd_plain` does."""
+    global UNITARY_BWD_LAUNCHES
+    wires, B, n_layers = _check_inputs(
+        "unitary-chain backward kernel", (pr, pi, fr, fi, gr, gi), ur, ui, k)
+    tile = tile or _tile_for(B)
+    lib = _gk._library()
+    _check_tile(lib.unitary_chain_bwd_smem_bytes, wires, tile)
+    ws = torch.empty((4, n_layers, B, 2**wires), dtype=torch.float32,
+                     device=pr.device)
+    dur = torch.empty_like(ur)
+    dui = torch.empty_like(ui)
+    dpr = torch.empty_like(pr)
+    dpi = torch.empty_like(pi)
+    stream = torch.cuda.current_stream(pr.device).cuda_stream
+    err = lib.unitary_chain_bwd(pr.data_ptr(), pi.data_ptr(), ur.data_ptr(),
+                                ui.data_ptr(), fr.data_ptr(), fi.data_ptr(),
+                                gr.data_ptr(), gi.data_ptr(), ws.data_ptr(),
+                                dur.data_ptr(), dui.data_ptr(),
+                                dpr.data_ptr(), dpi.data_ptr(), wires, B,
+                                n_layers, k, tile, pr.device.index, stream)
+    _gk._raise_on(err, lib, "unitary-chain backward kernel")
+    UNITARY_BWD_LAUNCHES += 1
+    return dpr, dpi, dur, dui
+
+
+def _on_card(device: torch.device) -> bool:
+    """Whether tensors on ``device`` take the kernels (a CUDA device) or the
+    plain versions (the CPU)."""
+    return device.type == "cuda"
+
+
+class _UnitaryChain(torch.autograd.Function):
+    """``(pr, pi, ur, ui) -> (sr, si)`` on real float32 planes. Saves the
+    inputs and the output, as ``_fused_fwd`` does on the TPU; the backward
+    rebuilds the states from the output."""
+
+    @staticmethod
+    def forward(ctx, pr, pi, ur, ui, k: int):
+        if _on_card(pr.device):
+            sr, si = _unitary_chain_cuda(pr, pi, ur, ui, k)
+        else:
+            sr, si = unitary_chain_planes_plain(pr, pi, ur, ui, k)
+        ctx.save_for_backward(pr, pi, ur, ui, sr, si)
+        ctx.k = k
+        return sr, si
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gi):
+        pr, pi, ur, ui, fr, fi = ctx.saved_tensors
+        # readouts hand back transposed views; an unused output gives None
+        gr = torch.zeros_like(fr) if gr is None else gr.contiguous()
+        gi = torch.zeros_like(fi) if gi is None else gi.contiguous()
+        if _on_card(pr.device):
+            grads = _unitary_chain_bwd_cuda(pr, pi, ur, ui, fr, fi, gr, gi,
+                                            ctx.k)
+        else:
+            grads = unitary_chain_bwd_plain(pr, pi, ur, ui, fr, fi, gr, gi,
+                                            ctx.k)
+        return (*grads, None)
+
+
+def unitary_chain_planes(pr, pi, ur, ui, k: int):
+    """Plane-level re-uploading chain from |0...0> through dense layer
+    unitaries.
+
+    pr, pi: (d, B) float32 phase planes, applied before layers 0, k, 2k,
+    ...; ur, ui: (L*k, d, d) float32 planes of the layer unitaries
+    (``sel_layer_unitaries`` flattened), d = 2**wires <= 256. Returns the
+    state planes ``(sr, si)``, each (d, B) float32.
+
+    Differentiable in all four inputs: the backward runs the adjoint
+    kernel on a CUDA tensor, its plain version on a CPU one.
+    """
+    if any(t.dtype != torch.float32 for t in (pr, pi, ur, ui)):
+        raise ValueError("the unitary chain takes float32 planes, got "
+                         f"{[t.dtype for t in (pr, pi, ur, ui)]}")
+    _check_shapes("unitary chain", (pr, pi), ur, ui, k)
+    if pr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no unitary-chain path for device {pr.device}")
+    return _UnitaryChain.apply(pr, pi, ur, ui, k)

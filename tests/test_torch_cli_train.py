@@ -39,7 +39,7 @@ def test_diffusion_positional_arguments_match_jax():
     sample(n_iters, first_x, labels, show_progress, only_last) mean the
     same in both packages."""
     jnet = jnn.QIDDM_LL_noise(64, 3, 2, 2, seed=1)
-    tnet = QIDDM_LL_noise(64, 3, 2, 2)
+    tnet = QIDDM_LL_noise(64, 3, 2, 2, device="cpu")
     tckpt.load_jax_variables(
         tnet, jax.tree_util.tree_map(np.asarray, jnet.variables))
     jd = JDiffusion(jnet, jnoise.add_normal_noise_multiple, "noise", (8, 6),
@@ -163,7 +163,8 @@ def test_mnist_exm_on_cpu_writes_a_checkpoint_jax_reads_and_resumes(
     jdiff = JDiffusion(jnn.QIDDM_LL_noise(64, 3, 2, 2, seed=9), shape=(8, 8))
     jlosses, jepochs = jckpt.load_diffusion(jdiff, ckpt_dir, 4)
     assert jepochs == 2 and np.allclose(jlosses, losses)
-    tdiff = TDiffusion(QIDDM_LL_noise(64, 3, 2, 2, seed=9), shape=(8, 8))
+    tdiff = TDiffusion(QIDDM_LL_noise(64, 3, 2, 2, seed=9, device="cpu"),
+                       shape=(8, 8))
     assert tckpt.load_diffusion(tdiff, ckpt_dir, 4) == (jlosses, 2)
     img = np.random.default_rng(3).uniform(size=(5, 1, 8, 8)).astype(
         np.float32)

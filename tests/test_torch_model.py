@@ -35,7 +35,7 @@ def _trees_equal(a, b):
 @pytest.mark.parametrize("args", [(784, 6, 14, 2), (64, 4, 3, 2)])
 def test_forward_matches_jax(args):
     jnet = jnn.QIDDM_LL_noise(*args, seed=3)
-    tnet = QIDDM_LL_noise(*args, seed=5)
+    tnet = QIDDM_LL_noise(*args, seed=5, device="cpu")
     tckpt.load_jax_variables(tnet, _jax_tree(jnet))
     side = int(np.sqrt(args[0]))
     img = np.random.default_rng(0).uniform(
@@ -50,15 +50,14 @@ def test_forward_matches_jax(args):
 @pytest.mark.parametrize("args", [(784, 6, 14, 2), ("8 * 8", 4, 3, "2")])
 def test_save_name_and_param_count_match_jax(args):
     jnet = jnn.QIDDM_LL_noise(*args)
-    tnet = QIDDM_LL_noise(*args)
+    tnet = QIDDM_LL_noise(*args, device="cpu")
     assert tnet.save_name() == jnet.save_name()
     assert tnet.num_params() == jnet.num_params()
 
 
 def test_seed_fixes_weights():
-    a = tckpt.export_jax_variables(QIDDM_LL_noise(64, 4, 3, 2, seed=1))
-    b = tckpt.export_jax_variables(QIDDM_LL_noise(64, 4, 3, 2, seed=1))
-    c = tckpt.export_jax_variables(QIDDM_LL_noise(64, 4, 3, 2, seed=2))
+    a, b, c = (tckpt.export_jax_variables(
+        QIDDM_LL_noise(64, 4, 3, 2, seed=s, device="cpu")) for s in (1, 1, 2))
     assert _trees_equal(a, b)
     assert not _trees_equal(a, c)
 
@@ -69,7 +68,7 @@ def test_unported_options_raise():
     and above 12 wires, naming the wide routes' ROADMAP item."""
     from qiddm_tpu_torch.sim import engine as tengine
 
-    net = QIDDM_LL_noise(64, 4, 3, 2, 1)
+    net = QIDDM_LL_noise(64, 4, 3, 2, 1, device="cpu")
     assert net.module.add_noise == 1
     noise = tengine.noise_from_code(1, "qiddm")
     with pytest.raises(ValueError, match="random source"):
@@ -88,7 +87,7 @@ def test_jax_checkpoint_round_trips_through_port(tmp_path):
     jnet = jnn.QIDDM_LL_noise(784, 6, 14, 2, seed=7)
     path = jckpt.save_checkpoint(tmp_path / "jax.pt", jnet.variables,
                                  [0.5, 0.25], 4)
-    tnet = QIDDM_LL_noise(784, 6, 14, 2)
+    tnet = QIDDM_LL_noise(784, 6, 14, 2, device="cpu")
     blob = tckpt.load_checkpoint(path)
     assert blob["loss_values"] == [0.5, 0.25] and blob["epochs"] == 4
     tckpt.load_jax_variables(tnet, blob["model_state_dict"])
@@ -102,7 +101,7 @@ def test_jax_checkpoint_round_trips_through_port(tmp_path):
 
 
 def test_load_rejects_unknown_missing_and_misshapen_keys():
-    tnet = QIDDM_LL_noise(64, 4, 3, 2)
+    tnet = QIDDM_LL_noise(64, 4, 3, 2, device="cpu")
     good = tckpt.export_jax_variables(tnet)
     extra = {"params": {**good["params"], "bn": {"scale": np.ones(4)}}}
     with pytest.raises(ValueError, match="unknown"):
@@ -114,3 +113,40 @@ def test_load_rejects_unknown_missing_and_misshapen_keys():
     bad = {"params": {**good["params"], "qweights": np.zeros((2, 3, 2, 5, 3))}}
     with pytest.raises(ValueError, match="does not fit"):
         tckpt.load_jax_variables(tnet, bad)
+
+
+# a small configuration of every model class of qiddm_tpu_torch.nn
+SMALL_MODELS = {
+    "QDenseUndirected_old": (2, 8), "QDenseUndirected_old_noise": (2, 8),
+    "QNN_A": (2, 8), "QNN_noise": (64, 3, 2), "QNN": (64, 3, 2),
+    "differN_noise": (8, 2, 1), "differN_noise_befor": (8, 2, 1),
+    "QIDDM_LL_noise": (64, 3, 2, 2), "QIDDM_PL": (64, 3, 2, 2),
+    "QIDDM_PL_old": (64, 3, 2, 2), "QIDDM_PL_noise": (64, 3, 2, 2),
+    "QIDDM_PL_noise1": (64, 3, 2, 2)}
+
+
+def test_small_models_cover_every_class():
+    from qiddm_tpu_torch.cli.common import MODEL_REGISTRY
+
+    assert set(SMALL_MODELS) == set(MODEL_REGISTRY)
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_MODELS))
+def test_model_classes_default_to_the_card(name):
+    """Built with no device, a model class goes to the card: on a host
+    without CUDA it raises naming the device rather than fall back to the
+    CPU; with ``device="cpu"`` the same class builds and runs there."""
+    from qiddm_tpu_torch import nn as tnn
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the no-fallback check needs a "
+                    "host without it")
+    cls = getattr(tnn, name)
+    with pytest.raises(RuntimeError, match="device 'cuda' requested"):
+        cls(*SMALL_MODELS[name])
+    net = cls(*SMALL_MODELS[name], device="cpu")
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+    img = torch.rand(10, 1, 8, 8, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = net(img)
+    assert out.shape == img.shape and torch.isfinite(out).all()

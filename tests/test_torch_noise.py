@@ -311,7 +311,7 @@ def _noisy_pair(name, args, code, intensity, use_ctor):
     else:  # at code 4 the JAX ctor's init would need an intensity
         jnet = jcommon.with_noise(getattr(jnn, name)(*args, seed=3), code,
                                   intensity)
-    tnet = getattr(tnn, name)(*args, code, seed=5)
+    tnet = getattr(tnn, name)(*args, code, seed=5, device="cpu")
     tckpt.load_jax_variables(
         tnet, jax.tree_util.tree_map(np.asarray, jnet.variables))
     return jnet, tnet
@@ -338,7 +338,7 @@ def test_noisy_models_match_jax(name, args, batch, use_ctor):
                                        ("differN_noise", (28, 9, 2, 3))])
 def test_differn_save_name_params_and_attributes_match_jax(name, args):
     jnet = getattr(jnn, name)(*args)
-    tnet = getattr(tnn, name)(*args)
+    tnet = getattr(tnn, name)(*args, device="cpu")
     assert tnet.save_name() == jnet.save_name()
     assert tnet.num_params() == jnet.num_params()
     for attr in ("spectrum_layer", "N", "add_noise", "wires"):
@@ -353,7 +353,7 @@ def test_noise_cfg_round_trips_through_the_checkpoint(tmp_path):
 
     jnet = jnn.QIDDM_LL_noise(64, 3, 2, 2, 2, noise_intensity=0.3, seed=1)
     path = jckpt.save_checkpoint(tmp_path / "j.pt", jnet.variables, [1.0], 2)
-    tnet = tnn.QIDDM_LL_noise(64, 3, 2, 2, 2)
+    tnet = tnn.QIDDM_LL_noise(64, 3, 2, 2, 2, device="cpu")
     assert tnet.module.noise_intensity is None
     tckpt.load_jax_variables(tnet,
                              tckpt.load_checkpoint(path)["model_state_dict"])
@@ -371,7 +371,7 @@ def test_noise_cfg_round_trips_through_the_checkpoint(tmp_path):
         np.float32)
     np.testing.assert_allclose(np.asarray(jback(img)), np.asarray(jnet(img)),
                                atol=1e-6)
-    clean = tnn.QIDDM_LL_noise(64, 3, 2, 2)
+    clean = tnn.QIDDM_LL_noise(64, 3, 2, 2, device="cpu")
     assert "noise_cfg" not in tckpt.export_jax_variables(clean)
 
 
@@ -382,7 +382,7 @@ def test_sampling_through_with_noise_matches_jax():
     intensity set in place on one noisy net, against JAX's sampler with
     the intensity in noise_cfg."""
     jnet = jnn.QIDDM_LL_noise(64, 3, 2, 2, seed=2)
-    tnet = tnn.QIDDM_LL_noise(64, 3, 2, 2)
+    tnet = tnn.QIDDM_LL_noise(64, 3, 2, 2, device="cpu")
     tckpt.load_jax_variables(
         tnet, jax.tree_util.tree_map(np.asarray, jnet.variables))
     first_x = (np.random.default_rng(3).uniform(size=(4, 1, 8, 8)) * 0.75
@@ -410,7 +410,7 @@ def test_sampling_through_with_noise_matches_jax():
 
 
 def test_with_noise_leaves_a_net_without_noise_as_it_is():
-    net = tnn.QNN(64, 3, 2)
+    net = tnn.QNN(64, 3, 2, device="cpu")
     assert tcommon.with_noise(net, 2, 0.1).module.add_noise == 2
     net.module.__dict__.pop("add_noise")
     assert tcommon.with_noise(net, 2, 0.1) is net

@@ -64,7 +64,7 @@ def _trees_equal(a, b):
 
 def _pair(name, args, seed=3):
     jnet = getattr(jnn, name)(*args, seed=seed)
-    tnet = getattr(tnn, name)(*args, seed=seed + 2)
+    tnet = getattr(tnn, name)(*args, seed=seed + 2, device="cpu")
     tckpt.load_jax_variables(tnet, _jax_tree(jnet))
     return jnet, tnet
 
@@ -96,7 +96,7 @@ def test_forward_matches_jax(name, args, batch):
                          ids=["full", "small"])
 def test_save_name_param_count_and_attributes_match_jax(name, args):
     jnet = getattr(jnn, name)(*args)
-    tnet = getattr(tnn, name)(*args)
+    tnet = getattr(tnn, name)(*args, device="cpu")
     assert tnet.save_name() == jnet.save_name()
     assert tnet.num_params() == jnet.num_params()
     for attr in ("hidden_features", "spectrum_layer", "N", "add_noise"):
@@ -110,10 +110,11 @@ def test_save_name_param_count_and_attributes_match_jax(name, args):
 def test_ry_and_rz_variants_share_a_save_name():
     """The reference's collision, kept: QIDDM_PL_noise1 (RY) saves under
     QIDDM_PL_noise's name (RZ)."""
-    name = tnn.QIDDM_PL_noise1(784, 8, 6, 2).save_name()
-    assert name == tnn.QIDDM_PL_noise(784, 8, 6, 2).save_name()
+    name = tnn.QIDDM_PL_noise1(784, 8, 6, 2, device="cpu").save_name()
+    assert name == tnn.QIDDM_PL_noise(784, 8, 6, 2, device="cpu").save_name()
     assert name == "QIDDM_PL_noise=8_L=6_N=2"
-    assert tnn.QIDDM_PL_noise1(784, 8, 6, 2).module.encode == "ry"
+    net = tnn.QIDDM_PL_noise1(784, 8, 6, 2, device="cpu")
+    assert net.module.encode == "ry"
 
 
 @pytest.mark.parametrize("name", PL_NAMES)
@@ -121,7 +122,7 @@ def test_jax_checkpoint_round_trips_through_port(tmp_path, name):
     jnet = getattr(jnn, name)(784, 8, 6, 2, seed=7)
     path = jckpt.save_checkpoint(tmp_path / "jax.pt", jnet.variables,
                                  [0.5], 3)
-    tnet = getattr(tnn, name)(784, 8, 6, 2)
+    tnet = getattr(tnn, name)(784, 8, 6, 2, device="cpu")
     tckpt.load_jax_variables(tnet,
                              tckpt.load_checkpoint(path)["model_state_dict"])
     back = tckpt.export_jax_variables(tnet)
@@ -137,8 +138,9 @@ def test_unported_options_raise():
     the remaining Reupload options raise."""
     from qiddm_tpu_torch.sim import engine as tengine
 
-    assert tnn.QIDDM_PL_noise1(64, 4, 2, 2, 1).module.add_noise == 1
-    net = tnn.QIDDM_PL_noise(64, 4, 2, 2, 2, noise_intensity=0.1)
+    net = tnn.QIDDM_PL_noise1(64, 4, 2, 2, 1, device="cpu")
+    assert net.module.add_noise == 1
+    net = tnn.QIDDM_PL_noise(64, 4, 2, 2, 2, noise_intensity=0.1, device="cpu")
     assert net.module.noise_intensity == 0.1
     with pytest.raises(ValueError, match="random source"):
         tengine.reupload_block(torch.zeros(2, 4), torch.zeros(2, 2, 4, 3),

@@ -78,7 +78,7 @@ def _trees_equal(a, b):
 
 def _pair(name, args, seed=3):
     jnet = getattr(jnn, name)(*args, seed=seed)
-    tnet = getattr(tnn, name)(*args, seed=seed + 2)
+    tnet = getattr(tnn, name)(*args, seed=seed + 2, device="cpu")
     tckpt.load_jax_variables(tnet, _jax_tree(jnet))
     return jnet, tnet
 
@@ -229,7 +229,7 @@ def test_forward_matches_jax(name, args, batch):
     ("QNN_A", (6, 8)), ("QNN_A", ("3", 28, "0"))])
 def test_save_name_and_param_count_match_jax(name, args):
     jnet = getattr(jnn, name)(*args)
-    tnet = getattr(tnn, name)(*args)
+    tnet = getattr(tnn, name)(*args, device="cpu")
     assert tnet.save_name() == jnet.save_name()
     assert tnet.num_params() == jnet.num_params()
     for attr in ("qdepth", "hidden_features", "add_noise", "width", "height",
@@ -241,15 +241,17 @@ def test_save_name_and_param_count_match_jax(name, args):
 def test_seed_fixes_weights_and_noise_raises():
     for name, args in (("QNN", (64, 4, 3)), ("QDenseUndirected_old", (5, 4))):
         cls = getattr(tnn, name)
-        a = tckpt.export_jax_variables(cls(*args, seed=1))
-        b = tckpt.export_jax_variables(cls(*args, seed=1))
-        c = tckpt.export_jax_variables(cls(*args, seed=2))
+        a = tckpt.export_jax_variables(cls(*args, seed=1, device="cpu"))
+        b = tckpt.export_jax_variables(cls(*args, seed=1, device="cpu"))
+        c = tckpt.export_jax_variables(cls(*args, seed=2, device="cpu"))
         assert _trees_equal(a, b) and not _trees_equal(a, c)
     # the noise codes build; the trajectory backend (the circuits' n_traj)
     # raises without a random source
-    for net, family in ((tnn.QNN_noise(784, 8, 14, 1), "qnn"),
-                        (tnn.QDenseUndirected_old_noise(60, 8, 2), "qdense"),
-                        (tnn.QNN_A(6, 8, 1), "qnn_a")):
+    cpu = {"device": "cpu"}
+    for net, family in ((tnn.QNN_noise(784, 8, 14, 1, **cpu), "qnn"),
+                        (tnn.QDenseUndirected_old_noise(60, 8, 2, **cpu),
+                         "qdense"),
+                        (tnn.QNN_A(6, 8, 1, **cpu), "qnn_a")):
         assert net.module.add_noise == net.add_noise != 0
         with pytest.raises(ValueError, match="random source"):
             tengine.qnn_circuit(torch.zeros(2, 3), torch.zeros(1, 3, 3),
@@ -264,7 +266,7 @@ def test_jax_checkpoint_round_trips_through_port(tmp_path, name, args):
     jnet = getattr(jnn, name)(*args, seed=7)
     path = jckpt.save_checkpoint(tmp_path / "jax.pt", jnet.variables,
                                  [0.5], 3)
-    tnet = getattr(tnn, name)(*args)
+    tnet = getattr(tnn, name)(*args, device="cpu")
     tckpt.load_jax_variables(tnet,
                              tckpt.load_checkpoint(path)["model_state_dict"])
     back = tckpt.export_jax_variables(tnet)

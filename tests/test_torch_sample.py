@@ -28,7 +28,7 @@ MODEL = (784, 6, 14, 2)
 @pytest.fixture(scope="module")
 def nets():
     jnet = jnn.QIDDM_LL_noise(*MODEL, seed=11)
-    tnet = QIDDM_LL_noise(*MODEL)
+    tnet = QIDDM_LL_noise(*MODEL, device="cpu")
     tckpt.load_jax_variables(
         tnet, jax.tree_util.tree_map(np.asarray, jnet.variables))
     return jnet, tnet

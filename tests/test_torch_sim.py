@@ -120,7 +120,8 @@ _DAMPING = tengine.NoiseModel("amplitude_damping", 0.1, "encode")
     ({"mesh": object()}, "item 11"),
     ({"encode": "ry", "noise": _DAMPING, "n_traj": 4, "wires": 13},
      "item 5"),
-    ({"imprimitive": "cnot"}, "item 7"),
+    # a CNOT ring takes the per-layer-unitary route up to 8 wires
+    ({"imprimitive": "cnot", "wires": 9}, "item 5"),
 ])
 def test_reupload_block_unported_options_raise(kwargs, item):
     kwargs = dict(kwargs)
@@ -186,6 +187,9 @@ def test_ry_pieces_match_jax():
 
 
 def test_x64_switch_runs_composed_route_in_complex128():
+    """complex128 runs the composed route at batch >= 2^w and the
+    per-layer-unitary route below it, up to 8 wires; both agree with the
+    complex64 result, and a 9-wire block below 2^9 raises naming item 5."""
     from qiddm_tpu_torch import config
 
     rng = _rng(5)
@@ -193,14 +197,18 @@ def test_x64_switch_runs_composed_route_in_complex128():
     w = torch.as_tensor(rng.normal(size=(3, 2, 4, 3)) * 0.4,
                         dtype=torch.float32)
     want = tsim.reupload_block(x, w, readout="probs")
+    want_small = tsim.reupload_block(x[:5], w, readout="probs")
     config.enable_x64(True)
     try:
         assert config.complex_dtype() == torch.complex128
         assert config.real_dtype() == torch.float64
         got = tsim.reupload_block(x, w, readout="probs")
-        with pytest.raises(NotImplementedError, match="float32 planes"):
-            tsim.reupload_block(x[:5], w)
+        got_small = tsim.reupload_block(x[:5], w, readout="probs")
+        with pytest.raises(NotImplementedError, match="item 5"):
+            tsim.reupload_block(torch.zeros(5, 9), torch.zeros(1, 2, 9, 3))
     finally:
         config.enable_x64(False)
-    assert got.dtype == torch.float64
+    assert got.dtype == got_small.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=CHAIN_TOL)
+    np.testing.assert_allclose(got_small.numpy(), want_small.numpy(),
+                               atol=CHAIN_TOL)

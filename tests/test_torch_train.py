@@ -124,7 +124,7 @@ def _injecting(draws):
 
 def _pair(goal="data", seed=3):
     jnet = jnn.QIDDM_LL_noise(*MODEL, seed=seed)
-    tnet = QIDDM_LL_noise(*MODEL)
+    tnet = QIDDM_LL_noise(*MODEL, device="cpu")
     tckpt.load_jax_variables(
         tnet, jax.tree_util.tree_map(np.asarray, jnet.variables))
     return (JDiffusion(jnet, prediction_goal=goal, shape=(8, 8)),
@@ -250,7 +250,7 @@ def _row_noise(generator, data, tau, decay_mod):
 
 
 def test_epoch_losses_sum_batch_means_with_a_padded_last_batch():
-    tnet = QIDDM_LL_noise(*MODEL, seed=1)
+    tnet = QIDDM_LL_noise(*MODEL, seed=1, device="cpu")
     diff = TDiffusion(tnet, _row_noise, "data", (8, 8))
     x = torch.as_tensor(_batch(5, seed=3))
     # lr 0: the parameters stay put, so each batch's loss can be recomputed
@@ -270,7 +270,7 @@ def test_epoch_losses_sum_batch_means_with_a_padded_last_batch():
 
 
 def test_padded_rows_carry_no_gradient():
-    tnet = QIDDM_LL_noise(*MODEL, seed=1)
+    tnet = QIDDM_LL_noise(*MODEL, seed=1, device="cpu")
     diff = TDiffusion(tnet, _row_noise, "data", (8, 8))
     x = torch.as_tensor(_batch(2, seed=4))
     grads = []
@@ -287,7 +287,7 @@ def test_train_diffusion_scan_warmup_restarts_from_the_same_state():
     x = _batch(4, seed=5)
     out = []
     for warmup in (False, True):
-        tnet = QIDDM_LL_noise(*MODEL, seed=2)
+        tnet = QIDDM_LL_noise(*MODEL, seed=2, device="cpu")
         diff = TDiffusion(tnet, shape=(8, 8))
         losses, wall, state = ttrain.train_diffusion_scan(
             diff, x, epochs=2, batch_size=2, lr=0.0255, T=3, key=11,
@@ -303,7 +303,7 @@ def test_train_diffusion_scan_warmup_restarts_from_the_same_state():
 
 def test_train_diffusion_resumes_at_start_epoch():
     x = _batch(4, seed=5)
-    tnet = QIDDM_LL_noise(*MODEL, seed=2)
+    tnet = QIDDM_LL_noise(*MODEL, seed=2, device="cpu")
     diff = TDiffusion(tnet, shape=(8, 8))
     losses = ttrain.train_diffusion(diff, x, epochs=3, batch_size=3,
                                     lr=0.0255, T=3, key=1, start_epoch=1)

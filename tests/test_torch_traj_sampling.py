@@ -39,7 +39,7 @@ def _first_x(seed, n=2, side=8):
 
 
 def test_trajectory_sampling_is_consistent_with_the_dm_sampler():
-    net = tnn.QIDDM_LL_noise(64, 4, 2, 1, 0, seed=1)
+    net = tnn.QIDDM_LL_noise(64, 4, 2, 1, 0, seed=1, device="cpu")
     first_x = _first_x(0)
     dm = TDiffusion(tcommon.with_noise(net, 2, 0.05), shape=(8, 8))
     want = dm.sample(first_x=first_x, n_iters=3, only_last=True)
@@ -74,7 +74,7 @@ def test_trajectory_sampling_is_consistent_with_the_dm_sampler():
 def test_traj_sampler_at_intensity_zero_equals_jax_dm_sampler(name, args,
                                                               code):
     jnet = getattr(jnn, name)(*args, seed=2)
-    tnet = getattr(tnn, name)(*args)
+    tnet = getattr(tnn, name)(*args, device="cpu")
     tckpt.load_jax_variables(
         tnet, jax.tree_util.tree_map(np.asarray, jnet.variables))
     side = tnet.img_shape[0]
@@ -134,7 +134,8 @@ def test_mnist_noise_traj_backend_writes_traj_caches(driver_env):
     jdiff = JDiffusion(jnn.QIDDM_LL_noise(64, 4, 2, 1), shape=(8, 8))
     grid = jcommon.load_outp(jdiff, cache_dir, 0.05, backend="traj")
     assert grid.shape == (3 * 8, 10 * 8) and grid.dtype == np.float32
-    tdiff = TDiffusion(tnn.QIDDM_LL_noise(64, 4, 2, 1), shape=(8, 8))
+    tdiff = TDiffusion(tnn.QIDDM_LL_noise(64, 4, 2, 1, device="cpu"),
+                       shape=(8, 8))
     assert np.array_equal(
         tcommon.load_outp(tdiff, cache_dir, 0.05, backend="traj"), grid)
     dm_grid = tcommon.load_outp(tdiff, cache_dir, 0.05)

@@ -72,7 +72,7 @@ def test_reupload_block_matches_jax_engine(w, encode, readout):
 @pytest.fixture(scope="module")
 def nets():
     jnet = jnn.QIDDM_LL_noise(*MODEL, seed=5)
-    tnet = QIDDM_LL_noise(*MODEL)
+    tnet = QIDDM_LL_noise(*MODEL, device="cpu")
     tckpt.load_jax_variables(
         tnet, jax.tree_util.tree_map(np.asarray, jnet.variables))
     return jnet, tnet
