@@ -12,7 +12,8 @@ any failure exits non-zero and no phase's failure is caught:
 
 1. device: a CUDA device must be present; prints torch, CUDA, the card and
    its power limit (nvidia-smi);
-2. build: compiles qiddm_tpu_torch/csrc/*.cu (all fourteen kernels; one
+2. build: compiles qiddm_tpu_torch/csrc/*.cu (all twenty kernels: the
+   fourteen chain kernels and the six probes; one
    nvcc per source, started together, then one link) for sm_90a into
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
@@ -223,7 +224,30 @@ any failure exits non-zero and no phase's failure is caught:
    backward of it); printed only: both kernels at tiles of 1 and 2
    samples a block at (8, 80) and (8, 255), and a CZ chain at (8, 80, 28)
    on the gate chain #1/#2 against #13/#14, whose outputs must agree
-   within 1e-5.
+   within 1e-5;
+29. the ceiling probes' kernels against plain (qiddm_tpu_torch.tools.
+   probe_kernels, csrc/probes.cu) at the tools' default shapes and at a
+   small one: P1 gives exactly 2 x at 48 KB and at the card's opt-in
+   shared memory a block (alone and in a cluster of 2) and is refused 512
+   bytes above it; P2 (128, 8192) and P3 (8192, 128), 50 steps, within
+   1e-6 relative; P5 (128, 128) @ (128, 8192), 50 products, and P4
+   (128, 128, 64), within 1e-5 relative; the FMA
+   probe at (1024, B, 4096) for B in {80, 128} x chains in {1, 4, 8},
+   within 1e-5 relative;
+30. the probe tools (the slice's main path), with the counts set to 0 just
+   before: python -m qiddm_tpu_torch.tools.vpu_ceiling at its defaults and
+   at --iters 8192, and qiddm_tpu_torch.tools.wide_probe at its defaults,
+   through their main(); the largest P1 scratch that runs equals the
+   card's shared_memory_per_block_optin (every smaller size of the sweep
+   runs, every larger one is refused); doubling iters takes 1.8-2.2x the
+   time (the tool's device times) at chains 1, 4 and 8 for both batches;
+   no GFLOP/s above 1.05 x the 67 TFLOP/s float32 peak; P4 ok; every probe
+   counter non-zero;
+31. times of the six probe kernels at the tools' shapes beside their
+   plain versions, the bound and, for P1, P2, P4 and P5, the library
+   yardstick (P1: torch.add(x, x); P2: a strided torch.mul into a
+   transposed buffer and a copy back a step; P4 and P5: torch.matmul, TF32
+   off).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -236,7 +260,8 @@ width in phase 19 (#11/#12) or 24 (#9/#10): max |diff| forward,
 max |diff| / max(1, max|plain|) backward. The unitary rows' launches are
 phase 27's (one a chain call; #14's dU product is a helper and not
 counted), their errors phase 26's worst, their times phase 28's at
-(8, 80, 28).
+(8, 80, 28). The probe rows' launches are phase 30's (one a wrapper
+call), their errors phase 29's largest max |diff|, their times phase 31's.
 """
 
 from __future__ import annotations
@@ -272,6 +297,7 @@ from qiddm_tpu_torch.sim.gates import rot_matrix
 from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
 from qiddm_tpu_torch.sim.statevector import rz_phase_planes, rz_phases
 from qiddm_tpu_torch.sim.trajectories import RecordedDraws, ReplayDraws
+from qiddm_tpu_torch.tools import probe_kernels, vpu_ceiling, wide_probe
 
 SEED = 0
 KERNEL_TOL = 1e-5   # unit-norm f32 states over up to 60 layers
@@ -373,6 +399,17 @@ X64_TOL = 1e-10     # complex128 on the card against the CPU
 # cores, and device memory
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the ceiling probes (rows 15a-15e, 16) at the tools' default shapes
+PROBE_ITERS = 50
+PROBE_SHAPE = (128, 8192)
+DOT3D_SHAPE = (128, 128, 64)
+FMA_SHAPES = [(1024, b, 4096, c) for b in (80, 128) for c in (1, 4, 8)]
+FMA_TIMED = (1024, 80, 4096, 8)
+LAYOUT_TOL = 1e-6   # P2/P3, relative: the same roundings in the same order
+SLAB_TOL = 1e-5     # P4/P5, relative: 128-term float32 sums in two orders
+FMA_TOL = 1e-5      # relative: fmaf against a float64 product and sum, rounded
+PEAK_CAP = 1.05     # no measured rate above 1.05 x PEAK_FLOPS
+FMA_RATIO = (1.8, 2.2)  # time at 2 x iters over time at iters
 
 
 def fail(msg: str) -> None:
@@ -390,6 +427,7 @@ def reset_counts() -> None:
     wide_kernel.WIDE_MONO_LAUNCHES = wide_kernel.WIDE_MONO_BWD_LAUNCHES = 0
     unitary_kernel.UNITARY_LAUNCHES = 0
     unitary_kernel.UNITARY_BWD_LAUNCHES = 0
+    probe_kernels.reset_launches()
 
 
 def read_counts() -> dict:
@@ -2390,6 +2428,183 @@ def phase_unitary_times(dev, smi: str) -> tuple[dict, dict]:
     return times, library
 
 
+def _held(what: str, got, want, tol: float, errs: dict, key: str) -> None:
+    """Fail unless max |diff| / max(1, max|plain|) <= tol; keeps the
+    largest max |diff| of each probe in errs."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / max(1.0, want.abs().max().item())
+    errs[key] = max(errs.get(key, 0.0), err)
+    print(f"{what}: max|diff| {err:.3e} ({rel:.3e} relative)")
+    if not rel <= tol:
+        fail(f"{what} disagrees with its plain version: {rel:.3e} > {tol}")
+
+
+def phase_probes_vs_plain(dev) -> dict:
+    """Each probe kernel against its plain version at the tools' shapes and
+    at a small one; returns each probe's largest max |diff|."""
+    pk = probe_kernels
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    errs = {}
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    top = optin // pk.ROW_BYTES * pk.ROW_BYTES
+    x = torch.rand((8, 128), generator=gen, device=dev)
+    for nbytes, cluster in ((48 * 1024, 1), (top, 1), (top, 2)):
+        out = pk.smem_probe(x, nbytes, cluster)
+        torch.cuda.synchronize()
+        if out is None or not torch.equal(out, pk.smem_probe_plain(x, 0)):
+            fail(f"P1 at {nbytes} B x {cluster} gave "
+                 f"{None if out is None else out.flatten()[:4].tolist()}, "
+                 f"not 2 x")
+        print(f"P1 {nbytes} B x {cluster}: exactly 2 x")
+    errs["smem"] = 0.0
+    if pk.smem_probe(x, top + pk.ROW_BYTES) is not None:
+        fail(f"P1 ran {top + pk.ROW_BYTES} B a block, above the card's "
+             f"opt-in {optin} B")
+    for shape, n in ((PROBE_SHAPE, PROBE_ITERS), ((32, 64), 3)):
+        x = torch.rand(shape, generator=gen, device=dev)
+        _held(f"P2 {shape} x {n}", pk.transpose_probe(x, n),
+              pk.transpose_probe_plain(x, n), LAYOUT_TOL, errs, "transpose")
+        x = torch.rand(shape[::-1], generator=gen, device=dev)
+        _held(f"P3 {shape[::-1]} x {n}", pk.reshape_probe(x, n),
+              pk.reshape_probe_plain(x, n), LAYOUT_TOL, errs, "reshape")
+    for (m, n), iters in ((PROBE_SHAPE, PROBE_ITERS), ((16, 64), 3)):
+        g = wide_probe.orthogonal(m, dev, SEED + 31)
+        x = torch.rand((m, n), generator=gen, device=dev)
+        _held(f"P5 ({m}, {m}) @ ({m}, {n}) x {iters}",
+              pk.matmul2_probe(g, x, iters),
+              pk.matmul2_probe_plain(g, x, iters), SLAB_TOL, errs, "matmul2")
+    for a, m, w in (DOT3D_SHAPE, (4, 16, 8)):
+        g = torch.randn((m, m), generator=gen, device=dev)
+        x = torch.rand((a, m, w), generator=gen, device=dev)
+        _held(f"P4 ({m}, {m}) x ({a}, {m}, {w})", pk.dot3d_probe(g, x),
+              pk.dot3d_probe_plain(g, x), SLAB_TOL, errs, "dot3d")
+    for d, b, iters, chains in [*FMA_SHAPES, (16, 8, 64, 4)]:
+        x = torch.rand((d, b), generator=gen, device=dev)
+        y = torch.rand((d, b), generator=gen, device=dev)
+        _held(f"FMA ({d}, {b}) x {iters}, chains {chains}",
+              pk.fma_ceiling(x, y, iters, chains),
+              pk.fma_ceiling_plain(x, y, iters, chains), FMA_TOL, errs, "fma")
+    return errs
+
+
+def phase_probe_tools() -> dict:
+    """The two probe tools through their main() at their defaults (the
+    FMA tool also at twice the iterations), from counts of 0; returns the
+    probe counts."""
+    reset_counts()
+    fma = {it: vpu_ceiling.main([] if it == 4096 else ["--iters", str(it)])
+           for it in (4096, 8192)}
+    probe = wide_probe.main([])
+    counts = dict(probe_kernels.PROBE_LAUNCHES)
+    print(f"probe tools: launches {counts}; wide_probe {json.dumps(probe)}")
+    if not all(counts.values()):
+        fail(f"a probe kernel was not launched by the tools: {counts}")
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    fits = {kb * 1024: ok for kb, ok in probe["smem_kb"].items()}
+    top = max((b for b, ok in fits.items() if ok), default=None)
+    if top != optin or any(ok != (b <= optin) for b, ok in fits.items()):
+        fail(f"P1's sweep {probe['smem_kb']} does not stop at the card's "
+             f"opt-in {optin} B a block")
+    print(f"P1 boundary {top} B a block = shared_memory_per_block_optin; "
+          f"clusters of {top} B blocks: {probe['cluster']}")
+    if not probe["cluster"].get(1):
+        fail("P1 refused a cluster of one block at the opt-in size")
+    rates = [r["gflops"] for r in fma[4096] + fma[8192]]
+    rates += [probe["matmul_gflops"], probe["library_matmul_gflops"]]
+    if max(rates) > PEAK_CAP * PEAK_FLOPS / 1e9:
+        fail(f"a probe rate {max(rates):.0f} GFLOP/s is above "
+             f"{PEAK_CAP} x the float32 peak: a loop was shortened")
+    for lo, hi in zip(fma[4096], fma[8192]):
+        ratio = hi["wall_us"] / lo["wall_us"]
+        print(f"FMA ({lo['d']}, {lo['batch']}) chains {lo['chains']}: "
+              f"{lo['wall_us']:.3f} us at 4096 iters, {hi['wall_us']:.3f} us "
+              f"at 8192: {ratio:.3f}x")
+        if not FMA_RATIO[0] <= ratio <= FMA_RATIO[1]:
+            fail(f"doubling the FMA iterations took {ratio:.3f}x the time, "
+                 f"outside {FMA_RATIO}")
+    if not probe["dot3d_ok"]:
+        fail(f"P4 disagrees with its plain version: {probe['dot3d_err']:.3e}")
+    return counts
+
+
+def phase_probe_times(dev, smi: str) -> tuple[dict, dict]:
+    """The probe kernels beside their plain versions, their bounds and, for
+    P1, P2, P4 and P5, the library yardstick, at the tools' shapes."""
+    pk = probe_kernels
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    times, library = {}, {}
+    f32 = 4
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    x = torch.rand((8, 128), generator=gen, device=dev)
+    times["smem"] = _paired_ms(
+        lambda: pk.smem_probe(x, optin // pk.ROW_BYTES * pk.ROW_BYTES),
+        lambda: pk.smem_probe_plain(x, optin)) + _bound(
+            x.numel(), 2 * x.numel() * f32)
+    library["smem"] = min(_median_ms(lambda: torch.add(x, x))
+                          for _ in range(2))
+    n = PROBE_ITERS
+    x = torch.rand(PROBE_SHAPE, generator=gen, device=dev)
+    y = torch.empty(PROBE_SHAPE[::-1], device=dev)
+    z = torch.empty_like(x)
+
+    def library_transpose():
+        src = x
+        for _ in range(n):
+            torch.mul(src.t(), 1.000001, out=y)
+            z.copy_(y.t())
+            src = z
+
+    library_transpose()
+    if not torch.equal(z, pk.transpose_probe_plain(x, n)):
+        fail("P2's library formulation is not the probe")
+    times["transpose"] = _paired_ms(
+        lambda: pk.transpose_probe(x, n),
+        lambda: pk.transpose_probe_plain(x, n)) + _bound(
+            n * x.numel(), 2 * x.numel() * f32)
+    library["transpose"] = min(_median_ms(library_transpose)
+                               for _ in range(2))
+    xr = torch.rand(PROBE_SHAPE[::-1], generator=gen, device=dev)
+    times["reshape"] = _paired_ms(
+        lambda: pk.reshape_probe(xr, n),
+        lambda: pk.reshape_probe_plain(xr, n)) + _bound(
+            2 * n * xr.numel(), 2 * xr.numel() * f32)
+    m, cols = PROBE_SHAPE
+    g = wide_probe.orthogonal(m, dev, SEED + 33)
+    xm = torch.rand(PROBE_SHAPE, generator=gen, device=dev)
+    times["matmul2"] = _paired_ms(
+        lambda: pk.matmul2_probe(g, xm, n),
+        lambda: pk.matmul2_probe_plain(g, xm, n)) + _bound(
+            2 * m * m * cols * n, (m * m + 2 * m * cols) * f32)
+    library["matmul2"] = min(
+        _median_ms(lambda: [torch.matmul(g, xm) for _ in range(n)])
+        for _ in range(2))
+    a, m3, w3 = DOT3D_SHAPE
+    g3 = torch.randn((m3, m3), generator=gen, device=dev)
+    x3 = torch.rand(DOT3D_SHAPE, generator=gen, device=dev)
+    times["dot3d"] = _paired_ms(
+        lambda: pk.dot3d_probe(g3, x3),
+        lambda: pk.dot3d_probe_plain(g3, x3)) + _bound(
+            2 * a * m3 * m3 * w3, (m3 * m3 + 2 * x3.numel()) * f32)
+    library["dot3d"] = min(_median_ms(lambda: torch.matmul(g3, x3))
+                           for _ in range(2))
+    d, b, iters, chains = FMA_TIMED
+    xf = torch.rand((d, b), generator=gen, device=dev)
+    yf = torch.rand((d, b), generator=gen, device=dev)
+    # the recurrence's FMAs, the chains' first scales and the fold
+    times["fma"] = _paired_ms(
+        lambda: pk.fma_ceiling(xf, yf, iters, chains),
+        lambda: pk.fma_ceiling_plain(xf, yf, iters, chains)) + _bound(
+            d * b * (2 * iters * chains + 2 * chains - 1), 3 * d * b * f32)
+    for key, (kern, plain, bound, by) in times.items():
+        lib = library.get(key)
+        print(f"times probe {key} ({smi}): kernel {kern:.4f} ms, plain "
+              f"{plain:.4f} ms ({_HOW}), library "
+              f"{'-' if lib is None else f'{lib:.4f} ms'}; bound "
+              f"{bound:.3e} ms ({by}), kernel at {bound / kern:.2e} of it")
+    return times, library
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -2476,6 +2691,12 @@ def main() -> None:
     uni_times, uni_library = phase_unitary_times(dev, smi)
     times.update(uni_times)
     library.update(uni_library)
+    with torch.no_grad():
+        probe_errs = phase_probes_vs_plain(dev)
+        probe_counts = phase_probe_tools()
+        probe_times, probe_library = phase_probe_times(dev, smi)
+    times.update({f"probe_{k}": v for k, v in probe_times.items()})
+    library.update({f"probe_{k}": v for k, v in probe_library.items()})
     for name, rate in rates.items():
         print(f"sample {name}: steady sampling {rate:.1f} images/s ({N} "
               f"images x {ITERS} iterations per batch; {smi})")
@@ -2521,6 +2742,7 @@ def main() -> None:
         launches[f"{c}16"] = sum(r[c] for r in wide16)
         launches[f"{c}20"] = sum(by_width[20][c]
                                  for by_width in bench_counts.values())
+    launches.update({f"probe_{k}": v for k, v in probe_counts.items()})
     print(f"launches: sampling {sampled}, training {trained}, "
           f"QIDDM_PL_noise1 training {pl_trained}, 16-wire training "
           f"{wide_trained}, 16-wire monolith sampling and training "
@@ -2579,12 +2801,22 @@ def main() -> None:
         ("unitary_chain_bwd", "unitary_chain.cu",
          "qiddm_tpu/sim/pallas_kernels.py:72", "unitary_bwd", uni_bwd_err,
          "unitary_bwd8_80_28"),
+        *((f"probe_{key}", "probes.cu", line, f"probe_{key}", probe_errs[key],
+           f"probe_{key}")
+          for key, line in (
+              ("smem", "tools/bench_pallas_wide_probe.py:48"),
+              ("transpose", "tools/bench_pallas_wide_probe.py:81"),
+              ("reshape", "tools/bench_pallas_wide_probe.py:100"),
+              ("matmul2", "tools/bench_pallas_wide_probe.py:124"),
+              ("dot3d", "tools/bench_pallas_wide_probe.py:149"),
+              ("fma", "tools/vpu_ceiling.py:33"))),
     ]
     # no single PyTorch call computes a gate chain, the dm block or the
     # amplitude-damping pass: their library_ms is null. The wide chain's
     # is its group products as complex64 torch.matmul calls (cuBLAS), the
     # unitary chain's its layer products (torch.matmul) with the phase
-    # multiplies, and autograd's backward of those.
+    # multiplies, and autograd's backward of those. The probes' is null for
+    # P3 and the FMA probe (no single PyTorch call computes them).
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + src,
         "replaces": line, "launches": launches[counter],

@@ -17,8 +17,9 @@ chain's of ``sel_kernel.py``, the RY chain's of ``ry_kernel.py``, the
 density-matrix block's of ``dm_kernel.py``, the amplitude-damping
 trajectory pass of ``amp_damp_kernel.py``, the wide chain's grouped
 sublayer and its backward and its monolithic forward and backward of
-``wide_kernel.py``, and the unitary-streaming chain and its backward of
-``unitary_kernel.py``); its
+``wide_kernel.py``, the unitary-streaming chain and its backward of
+``unitary_kernel.py``, and the ceiling probes of
+``tools/probe_kernels.py``); its
 file name carries a hash of all the sources and the flags, so an edit of
 any of them rebuilds it. It has a plain C interface and is bound with
 ``ctypes``.
@@ -52,7 +53,8 @@ _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu",
             _CSRC / "ry_chain.cu", _CSRC / "dm_chain.cu",
             _CSRC / "amp_damp.cu", _CSRC / "wide_chain.cu",
-            _CSRC / "wide_mono.cu", _CSRC / "unitary_chain.cu")
+            _CSRC / "wide_mono.cu", _CSRC / "unitary_chain.cu",
+            _CSRC / "probes.cu")
 _HEADERS = (_CSRC / "chain_common.cuh", _CSRC / "wide_common.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

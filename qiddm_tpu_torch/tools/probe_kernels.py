@@ -1,0 +1,308 @@
+"""The ceiling probes: hand-written CUDA kernels and their plain PyTorch
+versions (counterparts of the six ``pl.pallas_call`` sites of the TPU's
+``tools/bench_pallas_wide_probe.py`` and ``tools/vpu_ceiling.py``).
+
+Each probe has a wrapper and a plain version with the same signature. The
+wrapper picks the path by the device of its input: a CPU tensor runs the
+plain version, a CUDA tensor launches the kernel of ``csrc/probes.cu`` or
+raises. Nothing falls back from a kernel to its plain version. The kernels
+are built into the one library of ``sim/gate_kernel.py``. No probe has a
+gradient.
+
+* P1 :func:`smem_probe` (``probe_vmem``): an (S / 512, 128) float32 scratch
+  of S bytes of shared memory, x written into its first and last 8 rows,
+  ``head + tail`` returned: ``2 x``. The TPU kernel reads a tail it never
+  wrote (its output is undefined); the port defines it. Launched as a
+  cluster of ``cluster`` blocks, block 0 reads the tail of the last
+  block's scratch through distributed shared memory. Returns ``None`` when
+  the card refuses the shape (its only capacity answer).
+* P2 :func:`transpose_probe` (``probe_transpose``): ``n_iters`` x
+  ``x <- transpose(transpose(x) * 1.000001)``.
+* P3 :func:`reshape_probe` (``probe_reshape``): ``n_iters`` x
+  ``x <- reshape(reshape(x, (C, R)) * 1.000001, (R, C)) * 0.999999``.
+* P5 :func:`matmul2_probe` (``probe_matmul2``): ``n_iters`` x ``x <- g @ x``
+  in full float32.
+* P4 :func:`dot3d_probe` (``probe_dot3d``): ``out[a, i, c] = sum_j g[i, j]
+  x[a, j, c]``.
+* :func:`fma_ceiling` (``_fma_kernel``): ``chains`` accumulators
+  ``a_c = x * (1 + 0.1 c)``, ``iters`` x ``a <- a * 1.0000001 + y`` (one
+  FMA, one rounding, on the card and in the plain version), output the
+  left fold ``a_0 + a_1 + ...``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..sim import gate_kernel as _gk
+
+# Kernel launches since the last reset, one a wrapper call; chip_smoke.py
+# reads them to show that the probe tools went through the kernels.
+PROBE_LAUNCHES = {"smem": 0, "transpose": 0, "reshape": 0, "matmul2": 0,
+                  "dot3d": 0, "fma": 0}
+
+# probe_smem's answer when the card cannot hold the scratch or the cluster
+_CAPACITY_REFUSED = -1
+# P1's scratch rows are 128 float32; x fills 8 of them at each end
+ROW_BYTES = 512
+MIN_SMEM_BYTES = 16 * ROW_BYTES
+# P4/P5: each thread of a block owns 8 rows x 4 columns of the product
+SLAB_ROWS, SLAB_COLS, SLAB_MAX_THREADS = 8, 4, 256
+# P5's slab of columns a block (PERF.md: 64 ran faster than 32)
+MATMUL2_COLS = 64
+FMA_CHAINS = (1, 4, 8)
+
+_BOUND = False
+
+
+def reset_launches() -> None:
+    for key in PROBE_LAUNCHES:
+        PROBE_LAUNCHES[key] = 0
+
+
+# --- plain PyTorch versions --------------------------------------------------
+
+def smem_probe_plain(x, smem_bytes: int, cluster: int = 1):
+    """P1 in plain PyTorch: ``2 x`` (head plus the tail it was copied to)."""
+    return x + x
+
+
+def transpose_probe_plain(x, n_iters: int):
+    """P2 in plain PyTorch: two transposes a step, the first scaled."""
+    for _ in range(n_iters):
+        x = (x.t().contiguous() * 1.000001).t().contiguous()
+    return x
+
+
+def reshape_probe_plain(x, n_iters: int):
+    """P3 in plain PyTorch: two reshapes a step, each followed by a scale."""
+    rows, cols = x.shape
+    for _ in range(n_iters):
+        y = x.reshape(cols, rows) * 1.000001
+        x = y.reshape(rows, cols) * 0.999999
+    return x
+
+
+def matmul2_probe_plain(g, x, n_iters: int):
+    """P5 in plain PyTorch: ``n_iters`` x ``x <- g @ x`` (TF32 off, as
+    ``qiddm_tpu_torch.config`` pins it)."""
+    for _ in range(n_iters):
+        x = g @ x
+    return x
+
+
+def dot3d_probe_plain(g, x):
+    """P4 in plain PyTorch: ``g`` (m, m) against each (m, w) slice of ``x``."""
+    return torch.matmul(g, x)
+
+
+def fma_ceiling_plain(x, y, iters: int, chains: int):
+    """The FMA recurrence in plain PyTorch, the chains stacked on a leading
+    axis. Each step is ``a * 1.0000001 + y`` with the FMA's one rounding:
+    the product and the sum in float64 (the product of two float32 is exact
+    there), rounded to float32. A float32 multiply and add round twice and
+    lose the product's increment (1.2e-7 of a) to the first rounding step
+    after step: 8e-5 relative apart from the FMA at (1024, 80) after 4096
+    steps."""
+    scale = torch.tensor([1.0 + 0.1 * c for c in range(chains)],
+                         dtype=x.dtype, device=x.device)
+    accs = x * scale.reshape(chains, *([1] * x.dim()))
+    mult = torch.tensor(1.0000001, dtype=torch.float32).item()
+    y64 = y.double()
+    for _ in range(iters):
+        accs = (accs.double() * mult + y64).to(x.dtype)
+    out = accs[0]
+    for c in range(1, chains):
+        out = out + accs[c]
+    return out
+
+
+# --- CUDA kernels ------------------------------------------------------------
+
+def _library():
+    global _BOUND
+    lib = _gk._library()
+    if not _BOUND:
+        ptr, num, big = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for name, args in (
+                ("probe_smem", [ptr, ptr, num, num, num, ptr]),
+                ("probe_transpose", [ptr, ptr, ptr, num, num, num, num, ptr]),
+                ("probe_reshape", [ptr, ptr, big, num, num, ptr]),
+                ("probe_matmul2", [ptr, ptr, ptr] + [num] * 5 + [ptr]),
+                ("probe_dot3d", [ptr, ptr, ptr] + [num] * 4 + [ptr]),
+                ("fma_ceiling", [ptr, ptr, ptr, big, num, num, num, ptr])):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = num
+        lib.probe_slab_smem_bytes.argtypes = [num, num]
+        lib.probe_slab_smem_bytes.restype = ctypes.c_size_t
+        _BOUND = True
+    return lib
+
+
+def _check(what: str, tensors, shapes) -> torch.device:
+    """Raise unless every tensor is contiguous float32 on one CUDA device
+    with the given shape; returns the device."""
+    dev = tensors[0].device
+    if any(t.device != dev or t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{what}: every input must be on the same CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous float32, got "
+                         f"{[(t.dtype, t.is_contiguous()) for t in tensors]}")
+    got = [tuple(t.shape) for t in tensors]
+    if got != [tuple(s) for s in shapes]:
+        raise ValueError(f"{what}: shapes {got}, expected {shapes}")
+    return dev
+
+
+def _dispatch(what: str, first):
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if first.device.type == "cpu":
+        return False
+    if first.device.type != "cuda":
+        raise ValueError(f"{what}: no path for device {first.device}")
+    return True
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launched(err: int, lib, what: str, key: str) -> None:
+    _gk._raise_on(err, lib, what)
+    PROBE_LAUNCHES[key] += 1
+
+
+def smem_probe(x, smem_bytes: int, cluster: int = 1):
+    """P1: ``2 x`` for x (8, 128) float32 through a scratch of
+    ``smem_bytes`` of shared memory a block (a multiple of 512, at least
+    8 KB), in a cluster of ``cluster`` blocks; ``None`` when the card
+    refuses that shape. Any other error raises."""
+    if smem_bytes % ROW_BYTES or smem_bytes < MIN_SMEM_BYTES or cluster < 1:
+        raise ValueError(f"P1 takes a multiple of {ROW_BYTES} bytes from "
+                         f"{MIN_SMEM_BYTES} and a cluster >= 1, got "
+                         f"{smem_bytes}, {cluster}")
+    if not _dispatch("P1", x):
+        return smem_probe_plain(x, smem_bytes, cluster)
+    dev = _check("P1", (x,), [(8, 128)])
+    lib = _library()
+    out = torch.empty_like(x)
+    err = lib.probe_smem(x.data_ptr(), out.data_ptr(), smem_bytes, cluster,
+                         dev.index, _stream(dev))
+    if err == _CAPACITY_REFUSED:
+        return None
+    _launched(err, lib, "P1 probe_smem kernel", "smem")
+    return out
+
+
+def transpose_probe(x, n_iters: int):
+    """P2 on an (R, C) float32 plane, R and C multiples of 32."""
+    if n_iters < 1:
+        raise ValueError(f"P2 takes n_iters >= 1, got {n_iters}")
+    if not _dispatch("P2", x):
+        return transpose_probe_plain(x, n_iters)
+    rows, cols = x.shape
+    dev = _check("P2", (x,), [(rows, cols)])
+    if rows % 32 or cols % 32:
+        raise ValueError(f"P2 takes sides that are multiples of 32, got "
+                         f"{tuple(x.shape)}")
+    lib = _library()
+    out = torch.empty_like(x)
+    scratch = torch.empty((cols, rows), dtype=x.dtype, device=dev)
+    err = lib.probe_transpose(x.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), rows, cols, n_iters,
+                              dev.index, _stream(dev))
+    _launched(err, lib, "P2 probe_transpose kernel", "transpose")
+    return out
+
+
+def reshape_probe(x, n_iters: int):
+    """P3 on an (R, C) float32 plane."""
+    if n_iters < 0:
+        raise ValueError(f"P3 takes n_iters >= 0, got {n_iters}")
+    if not _dispatch("P3", x):
+        return reshape_probe_plain(x, n_iters)
+    dev = _check("P3", (x,), [tuple(x.shape)])
+    if x.dim() != 2 or x.numel() == 0:
+        raise ValueError(f"P3 takes a 2-D plane, got {tuple(x.shape)}")
+    lib = _library()
+    out = torch.empty_like(x)
+    err = lib.probe_reshape(x.data_ptr(), out.data_ptr(), x.numel(), n_iters,
+                            dev.index, _stream(dev))
+    _launched(err, lib, "P3 probe_reshape kernel", "reshape")
+    return out
+
+
+def _slab_fits(what: str, m: int, w: int, lib, tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the kernel loads 16 bytes at a time; "
+                         f"inputs must start 16-byte aligned")
+    threads = (m // SLAB_ROWS) * (w // SLAB_COLS)
+    if (m < SLAB_ROWS or m % SLAB_ROWS or w < SLAB_COLS or w % SLAB_COLS
+            or threads > SLAB_MAX_THREADS):
+        raise ValueError(f"{what}: rows {m} must be a multiple of "
+                         f"{SLAB_ROWS} and columns {w} of {SLAB_COLS}, at "
+                         f"most {SLAB_MAX_THREADS} threads of 8 x 4")
+    smem = lib.probe_slab_smem_bytes(m, w)
+    if smem > _gk._MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: {smem} B of shared memory a block "
+                         f"(limit {_gk._MAX_SMEM_BYTES}) at m={m}, w={w}")
+
+
+def matmul2_probe(g, x, n_iters: int):
+    """P5: ``n_iters`` x ``x <- g @ x``, g (m, m), x (m, n) float32; on the
+    card a block owns ``MATMUL2_COLS`` columns (n a multiple of it)."""
+    if n_iters < 0:
+        raise ValueError(f"P5 takes n_iters >= 0, got {n_iters}")
+    if not _dispatch("P5", x):
+        return matmul2_probe_plain(g, x, n_iters)
+    cols = MATMUL2_COLS
+    m, n = x.shape
+    dev = _check("P5", (g, x), [(m, m), (m, n)])
+    lib = _library()
+    _slab_fits("P5", m, cols, lib, (g, x))
+    if n % cols:
+        raise ValueError(f"P5: {n} columns are not a multiple of {cols}")
+    out = torch.empty_like(x)
+    err = lib.probe_matmul2(g.data_ptr(), x.data_ptr(), out.data_ptr(), m, n,
+                            cols, n_iters, dev.index, _stream(dev))
+    _launched(err, lib, "P5 probe_matmul2 kernel", "matmul2")
+    return out
+
+
+def dot3d_probe(g, x):
+    """P4: g (m, m) float32 against each (m, w) slice of x (a, m, w)."""
+    if not _dispatch("P4", x):
+        return dot3d_probe_plain(g, x)
+    a, m, w = x.shape
+    dev = _check("P4", (g, x), [(m, m), (a, m, w)])
+    lib = _library()
+    _slab_fits("P4", m, w, lib, (g, x))
+    out = torch.empty_like(x)
+    err = lib.probe_dot3d(g.data_ptr(), x.data_ptr(), out.data_ptr(), a, m,
+                          w, dev.index, _stream(dev))
+    _launched(err, lib, "P4 probe_dot3d kernel", "dot3d")
+    return out
+
+
+def fma_ceiling(x, y, iters: int, chains: int):
+    """The FMA ceiling on (d, B) float32 planes x and y; ``chains`` in
+    1, 4, 8."""
+    if chains not in FMA_CHAINS or iters < 0:
+        raise ValueError(f"the FMA probe takes chains in {FMA_CHAINS} and "
+                         f"iters >= 0, got {chains}, {iters}")
+    if not _dispatch("FMA probe", x):
+        return fma_ceiling_plain(x, y, iters, chains)
+    dev = _check("FMA probe", (x, y), [tuple(x.shape)] * 2)
+    if x.numel() == 0:
+        raise ValueError("the FMA probe takes a non-empty plane")
+    lib = _library()
+    out = torch.empty_like(x)
+    err = lib.fma_ceiling(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                          x.numel(), iters, chains, dev.index, _stream(dev))
+    _launched(err, lib, "FMA ceiling kernel", "fma")
+    return out

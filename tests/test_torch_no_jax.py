@@ -19,7 +19,10 @@ def _modules():
 def test_importing_every_module_leaves_jax_out():
     mods = list(_modules())
     assert {"qiddm_tpu_torch.sim.gate_kernel", "qiddm_tpu_torch.sim.wide",
-            "qiddm_tpu_torch.sim.wide_kernel"} <= set(mods)
+            "qiddm_tpu_torch.sim.wide_kernel",
+            "qiddm_tpu_torch.tools.vpu_ceiling",
+            "qiddm_tpu_torch.tools.wide_probe",
+            "qiddm_tpu_torch.tools.probe_kernels"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

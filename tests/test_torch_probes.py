@@ -1,0 +1,301 @@
+"""The ceiling probes of qiddm_tpu_torch.tools (rows 15a-15e and 16): the
+plain PyTorch versions against the JAX kernel bodies of
+``tools/bench_pallas_wide_probe.py`` and ``tools/vpu_ceiling.py`` run in
+Pallas interpret mode on the CPU, the FMA recurrence also against float64,
+the wrappers' dispatch and guards, and the two tools' entry points.
+
+The TPU tools are imported by path and stay as they are. The FMA body is a
+module function, run as ``functools.partial(_fma_kernel, iters, chains)``.
+P1-P5's bodies are closures built inside the probe functions: a stand-in
+``pl`` set on the imported module records each body and its output shape
+and scratch (dropping the block specs and compiler parameters), and the
+test runs the recorded body under ``pl.pallas_call(..., interpret=True)``
+on seeded inputs.
+
+Tolerances, relative to max(1, max|reference|): P2 and P3 1e-6 (the same
+float32 roundings in the same order); P4 and P5 1e-5 (128-term float32 sums
+in another order); the FMA recurrence 1e-5 against the JAX body and against
+a float64 run. At the tool's 4096 iterations the FMA plain version equals
+the JAX body bit for bit: both round once a step (XLA:CPU contracts the
+body's multiply and add into one FMA), while a float32 multiply then add
+rounds twice and drifts 8.07e-5 relative away. P1's plain version is exactly 2 x: the TPU body reads a tail
+of its scratch it never wrote, so its output is undefined (interpret mode
+fills the unwritten scratch with NaN); the port writes x to the tail too.
+"""
+
+import functools
+import importlib.util
+import pathlib
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from qiddm_tpu_torch.tools import probe_kernels as pk
+from qiddm_tpu_torch.tools import vpu_ceiling, wide_probe
+
+TOOLS = pathlib.Path(__file__).resolve().parents[1] / "tools"
+LAYOUT_TOL = 1e-6
+SLAB_TOL = 1e-5
+FMA_TOL = 1e-5
+
+
+def _load(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"_tpu_{name}", TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jax_probe():
+    return _load("bench_pallas_wide_probe")
+
+
+@pytest.fixture(scope="module")
+def jax_vpu():
+    return _load("vpu_ceiling")
+
+
+def _record(monkeypatch, mod, probe, *args, **kwargs):
+    """The kernel body, output shape and scratch that ``probe`` hands to
+    pl.pallas_call, with the call itself replaced by zeros."""
+    seen = {}
+
+    def pallas_call(kernel, out_shape, scratch_shapes=(), **_):
+        seen.update(kernel=kernel, out_shape=out_shape,
+                    scratch_shapes=scratch_shapes)
+        return lambda *a: jnp.zeros(out_shape.shape, out_shape.dtype)
+
+    stub = types.SimpleNamespace(pallas_call=pallas_call,
+                                 BlockSpec=lambda *a, **k: None)
+    monkeypatch.setattr(mod, "pl", stub)
+    probe(*args, **kwargs)
+    return seen
+
+
+def _interpret(seen, *inputs):
+    return np.asarray(pl.pallas_call(
+        seen["kernel"], out_shape=seen["out_shape"],
+        scratch_shapes=seen.get("scratch_shapes", ()),
+        interpret=True)(*inputs))
+
+
+def _assert_rel(got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want).max()
+    assert err <= tol * max(1.0, np.abs(want).max()), err
+
+
+def _orthogonal(m, seed):
+    q, _ = np.linalg.qr(np.random.default_rng(seed).normal(size=(m, m)))
+    return (q * 0.9999).astype(np.float32)
+
+
+# --- each plain version against the JAX kernel body --------------------------
+
+def test_transpose_plain_matches_jax_body(monkeypatch, jax_probe):
+    seen = _record(monkeypatch, jax_probe, jax_probe.probe_transpose,
+                   n_iters=2)
+    assert seen["out_shape"].shape == (128, 8192)
+    x = np.random.default_rng(0).uniform(size=(128, 8192)).astype(np.float32)
+    want = _interpret(seen, x)
+    got = pk.transpose_probe_plain(torch.as_tensor(x), 2)
+    _assert_rel(got.numpy(), want, LAYOUT_TOL)
+
+
+def test_reshape_plain_matches_jax_body(monkeypatch, jax_probe):
+    seen = _record(monkeypatch, jax_probe, jax_probe.probe_reshape,
+                   n_iters=2)
+    assert seen["out_shape"].shape == (8192, 128)
+    x = np.random.default_rng(1).uniform(size=(8192, 128)).astype(np.float32)
+    want = _interpret(seen, x)
+    got = pk.reshape_probe_plain(torch.as_tensor(x), 2)
+    _assert_rel(got.numpy(), want, LAYOUT_TOL)
+
+
+@pytest.mark.parametrize("m,n", [(16, 64), (128, 8192)])
+def test_matmul2_plain_matches_jax_body(monkeypatch, jax_probe, m, n):
+    seen = _record(monkeypatch, jax_probe, jax_probe.probe_matmul2,
+                   n_iters=3, m=m, n=n)
+    assert seen["out_shape"].shape == (m, n)
+    g = _orthogonal(m, 2)
+    x = np.random.default_rng(3).uniform(size=(m, n)).astype(np.float32)
+    want = _interpret(seen, g, x)
+    got = pk.matmul2_probe_plain(torch.as_tensor(g), torch.as_tensor(x), 3)
+    _assert_rel(got.numpy(), want, SLAB_TOL)
+
+
+def test_dot3d_plain_matches_jax_body(monkeypatch, jax_probe):
+    seen = _record(monkeypatch, jax_probe, jax_probe.probe_dot3d)
+    assert seen["out_shape"].shape == (128, 128, 64)
+    rng = np.random.default_rng(4)
+    g = rng.normal(size=(128, 128)).astype(np.float32)
+    x = rng.uniform(size=(128, 128, 64)).astype(np.float32)
+    want = _interpret(seen, g, x)
+    got = pk.dot3d_probe_plain(torch.as_tensor(g), torch.as_tensor(x))
+    _assert_rel(got.numpy(), want, SLAB_TOL)
+
+
+def _fma_f64(x, y, iters, chains):
+    accs = [x.astype(np.float64) * np.float64(np.float32(1.0 + 0.1 * c))
+            for c in range(chains)]
+    c32 = np.float64(np.float32(1.0000001))
+    for _ in range(iters):
+        accs = [a * c32 + y for a in accs]
+    return functools.reduce(np.add, accs)
+
+
+@pytest.mark.parametrize("chains", [1, 4, 8])
+@pytest.mark.parametrize("iters", [64, 256])
+def test_fma_plain_matches_jax_body_and_float64(jax_vpu, iters, chains):
+    rng = np.random.default_rng(5)
+    x, y = (rng.uniform(size=(16, 8)).astype(np.float32) for _ in range(2))
+    kern = functools.partial(jax_vpu._fma_kernel, iters, chains)
+    want = _interpret({"kernel": kern, "out_shape": jax.ShapeDtypeStruct(
+        (16, 8), jnp.float32)}, x, y)
+    got = pk.fma_ceiling_plain(torch.as_tensor(x), torch.as_tensor(y), iters,
+                               chains).numpy()
+    exact = _fma_f64(x, y.astype(np.float64), iters, chains)
+    _assert_rel(got, want, FMA_TOL)
+    _assert_rel(got, exact, FMA_TOL)
+    _assert_rel(want, exact, FMA_TOL)
+
+
+def _fma_two_roundings(x, y, iters, chains):
+    """The recurrence as float32 multiply then add: two roundings a step."""
+    accs = [x * (1.0 + 0.1 * c) for c in range(chains)]
+    for _ in range(iters):
+        accs = [a * 1.0000001 + y for a in accs]
+    return functools.reduce(torch.add, accs)
+
+
+@pytest.mark.parametrize("chains", [1, 4, 8])
+def test_fma_plain_rounds_once_as_the_jax_body_compiles(jax_vpu, chains):
+    iters = 4096  # the tool's default
+    rng = np.random.default_rng(5)
+    x, y = (rng.uniform(size=(16, 8)).astype(np.float32) for _ in range(2))
+    kern = functools.partial(jax_vpu._fma_kernel, iters, chains)
+    want = _interpret({"kernel": kern, "out_shape": jax.ShapeDtypeStruct(
+        (16, 8), jnp.float32)}, x, y)
+    got = pk.fma_ceiling_plain(torch.as_tensor(x), torch.as_tensor(y), iters,
+                               chains).numpy()
+    np.testing.assert_array_equal(got, want)
+    two = _fma_two_roundings(torch.as_tensor(x), torch.as_tensor(y), iters,
+                             chains).numpy().astype(np.float64)
+    gap = np.abs(two - want).max() / np.abs(want).max()
+    assert 7e-5 <= gap <= 9e-5, gap
+
+
+def test_smem_plain_is_2x_where_the_tpu_tail_is_undefined(monkeypatch,
+                                                          jax_probe):
+    x = np.random.default_rng(6).uniform(size=(8, 128)).astype(np.float32)
+    got = pk.smem_probe_plain(torch.as_tensor(x), 227 * 1024)
+    assert torch.equal(got, torch.as_tensor(2 * x))
+    # the TPU body adds a scratch tail it never wrote: not 2 x
+    seen = _record(monkeypatch, jax_probe, jax_probe.probe_vmem, 1)
+    assert seen["scratch_shapes"][0].shape == (1024 * 1024 // 512, 128)
+    tpu = _interpret(seen, x)
+    assert tpu.shape == (8, 128) and not np.array_equal(tpu, 2 * x)
+
+
+# --- the wrappers on the CPU -------------------------------------------------
+
+def _cases():
+    rng = np.random.default_rng(7)
+    t = lambda *s: torch.as_tensor(rng.uniform(size=s).astype(np.float32))
+    return [
+        ("smem", pk.smem_probe, pk.smem_probe_plain, (t(8, 128), 48 * 1024)),
+        ("transpose", pk.transpose_probe, pk.transpose_probe_plain,
+         (t(32, 64), 3)),
+        ("reshape", pk.reshape_probe, pk.reshape_probe_plain, (t(64, 32), 3)),
+        ("matmul2", pk.matmul2_probe, pk.matmul2_probe_plain,
+         (torch.as_tensor(_orthogonal(16, 8)), t(16, 64), 3)),
+        ("dot3d", pk.dot3d_probe, pk.dot3d_probe_plain,
+         (t(16, 16), t(4, 16, 8))),
+        ("fma", pk.fma_ceiling, pk.fma_ceiling_plain, (t(16, 8), t(16, 8),
+                                                       64, 4)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_wrapper_runs_plain_on_a_cpu_tensor_without_counting(case):
+    key, wrapper, plain, args = _cases()[case]
+    pk.reset_launches()
+    assert torch.equal(wrapper(*args), plain(*args))
+    assert pk.PROBE_LAUNCHES[key] == 0
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_wrapper_refuses_other_devices(case):
+    _, wrapper, _, args = _cases()[case]
+    meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
+    with pytest.raises(ValueError, match="no path for device"):
+        wrapper(*meta)
+
+
+def test_wrappers_reject_bad_arguments():
+    x = torch.zeros(8, 128)
+    with pytest.raises(ValueError):
+        pk.smem_probe(x, 1000)
+    with pytest.raises(ValueError):
+        pk.smem_probe(x, 512)
+    with pytest.raises(ValueError):
+        pk.transpose_probe(torch.zeros(32, 32), 0)
+    with pytest.raises(ValueError):
+        pk.fma_ceiling(x, x, 4, 3)
+    with pytest.raises(ValueError):
+        pk.matmul2_probe(torch.eye(4), torch.zeros(4, 4), -1)
+
+
+def test_counters_cover_every_probe():
+    assert set(pk.PROBE_LAUNCHES) == {"smem", "transpose", "reshape",
+                                      "matmul2", "dot3d", "fma"}
+    pk.PROBE_LAUNCHES["fma"] = 3
+    pk.reset_launches()
+    assert not any(pk.PROBE_LAUNCHES.values())
+
+
+# --- the tools' entry points -------------------------------------------------
+
+def test_vpu_ceiling_main_on_the_cpu(capsys):
+    recs = vpu_ceiling.main(["--device", "cpu", "--d", "16", "--batch", "8",
+                             "--iters", "64"])
+    assert [(r["batch"], r["chains"]) for r in recs] == [
+        (b, c) for b in (8, 128) for c in (1, 4, 8)]
+    for r in recs:
+        assert r["device"] == "cpu" and r["card"] is None
+        assert r["wall_us"] > 0 and r["gflops"] > 0
+    assert capsys.readouterr().out.count('"gflops"') == 6
+
+
+def test_wide_probe_main_on_the_cpu(capsys):
+    res = wide_probe.main(["--device", "cpu", "--n-iters", "2"])
+    out = capsys.readouterr().out
+    assert "not probed on the CPU" in out and "us/transpose" in out
+    assert res["dot3d_ok"] and "smem_kb" not in res
+    for key in ("transpose_us", "reshape_us", "matmul_us", "dot3d_us",
+                "library_matmul_us"):
+        assert res[key] > 0
+
+
+@pytest.mark.parametrize("tool", [vpu_ceiling, wide_probe])
+def test_tools_default_to_the_card(tool, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        tool.main([])
+
+
+def test_wide_probe_helpers_on_the_cpu():
+    assert wide_probe.probe_smem(227, 16, device="cpu")
+    q = wide_probe.orthogonal(16, "cpu").double()
+    torch.testing.assert_close(q @ q.T, torch.eye(16, dtype=torch.float64)
+                               * 0.9999**2, atol=1e-6, rtol=0)
+    g, x, out, t = wide_probe.probe_dot3d(reps=1, device="cpu")
+    assert out.shape == (128, 128, 64) and t > 0
+    torch.testing.assert_close(out, pk.dot3d_probe_plain(g, x))
