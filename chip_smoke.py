@@ -177,10 +177,13 @@ any failure exits non-zero and no phase's failure is caught:
    1e-5 step for step;
 23. times of #11 and #12, and of #9 and #10, at the model's (w=16, B=10,
    L*k=28) and at (w=20, B=8, L*k=4), beside the plain versions, the bound
-   and the library yardstick (the group products as complex64
-   torch.matmul calls, cuBLAS); and ROADMAP item 5's crossover, printed
-   only: the gate chain #1/#2 against the wide chain #11/#12 at w = 9 and
-   10, B = 80, L*k = 28, whose outputs must agree within 1e-5;
+   on each kernel's datapath (#11/#12 3xTF32 on the tensor cores, #9/#10
+   float32 on the CUDA cores) and the library yardstick (the group
+   products as complex64 torch.matmul calls, cuBLAS), all in the same
+   calls; the split of a #11 and a #12 chain call by launch kind at both
+   shapes (phase 32); and ROADMAP item 5's crossover, printed only: the
+   gate chain #1/#2 against the wide chain #11/#12 at w = 9 and 10,
+   B = 80, L*k = 28, whose outputs must agree within 1e-5;
 24. monolithic wide kernels against plain: kernels #9 (the whole chain in
    one cooperative launch) and #10 (its adjoint walk in one launch) at
    phase 19's shapes, forwards max |diff| <= 1e-5, backwards within
@@ -247,7 +250,16 @@ any failure exits non-zero and no phase's failure is caught:
    plain versions, the bound and, for P1, P2, P4 and P5, the library
    yardstick (P1: torch.add(x, x); P2: a strided torch.mul into a
    transposed buffer and a copy back a step; P4 and P5: torch.matmul, TF32
-   off).
+   off);
+32. the split of #11 and #12 (printed only, run with phase 23): 3 chain
+   calls of each at (16, 10, 28) and (20, 8, 4) under torch.profiler, the
+   kernel time a call by wire group (#11) and by launch kind (#12: the
+   two-right-hand-side rebuild and push by wire group, the dG product, its
+   fixed-order sum, the un-encode);
+33. #11/#12's registers and spills from ptxas's report, and the TF32
+   tensor-core instructions in their SASS (cuobjdump -sass of the built
+   library): every group and dG product kernel must hold some (run after
+   phase 24).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -261,7 +273,9 @@ max |diff| / max(1, max|plain|) backward. The unitary rows' launches are
 phase 27's (one a chain call; #14's dU product is a helper and not
 counted), their errors phase 26's worst, their times phase 28's at
 (8, 80, 28). The probe rows' launches are phase 30's (one a wrapper
-call), their errors phase 29's largest max |diff|, their times phase 31's.
+call), their errors phase 29's largest max |diff|, their times phase 31's. Every row names its ``datapath``: ``3xtf32``
+for #11/#12, ``simt`` (float32 on the CUDA cores) for the others; its
+``bound_ms`` is taken at that datapath's peak.
 """
 
 from __future__ import annotations
@@ -396,8 +410,9 @@ UNITARY_PATH = [(8, 14, 2, 80), (6, 14, 2, 16)]
 ONCHIP_BAR = 6.1e-6
 X64_TOL = 1e-10     # complex128 on the card against the CPU
 # the card's published peaks (H100 SXM, 700 W): float32 outside the tensor
-# cores, and device memory
+# cores, TF32 on the tensor cores (dense), and device memory
 PEAK_FLOPS = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # the ceiling probes (rows 15a-15e, 16) at the tools' default shapes
 PROBE_ITERS = 50
@@ -1020,6 +1035,41 @@ def phase_mono_config() -> None:
             print("ptxas " + " | ".join(t.strip() for t in lines[i:i + 4]))
 
 
+def phase_wide_sass() -> None:
+    """#11/#12's registers and spills from ptxas's report in the build log,
+    and the TF32 tensor-core instructions (HMMA ... TF32) in their SASS
+    (cuobjdump -sass of the built library, from nvcc's toolkit); fails if
+    a group or dG product kernel has none."""
+    lib = gate_kernel.build_library()
+    lines = lib.with_suffix(".log").read_text().splitlines()
+    ours = ("wide_group_mma_kernel", "wide_dg_mma_kernel")
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and any(k in line for k in ours):
+            print("ptxas " + " | ".join(t.strip() for t in lines[i:i + 4]))
+    tool = pathlib.Path(gate_kernel._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            if any(k in name for k in ours):
+                counts[name] = 0
+        elif name in counts and "HMMA" in line and "TF32" in line:
+            counts[name] += 1
+
+    def label(mangled: str) -> str:
+        kernel, args = re.search(
+            r"(wide_(?:group|dg)_mma_kernel)I((?:Li\d+E)+)", mangled).groups()
+        return kernel + "<" + ", ".join(re.findall(r"\d+", args)) + ">"
+
+    print("SASS TF32 HMMA instructions by kernel: " + ", ".join(
+        f"{label(n)} {c}" for n, c in counts.items()))
+    if len(counts) < 2 or not all(counts.values()):
+        fail(f"#11/#12 kernels without TF32 HMMA in their SASS: {counts}")
+
+
 def phase_mono_model(tmp: pathlib.Path, n_train: int,
                      smi: str) -> tuple[dict, float, float]:
     """The 16-wire model under the "monolith" variant: sampling through the
@@ -1083,8 +1133,8 @@ def phase_mono_model(tmp: pathlib.Path, n_train: int,
 def _is_wide_fwd(name: str) -> bool:
     """Kernel #11's launches: the one-right-hand-side group product
     (templated, as the profiler demangles it or not)."""
-    return ("wide_group_kernel<1," in name
-            or "wide_group_kernelILi1E" in name)
+    return ("wide_group_mma_kernel<1," in name
+            or "wide_group_mma_kernelILi1E" in name)
 
 
 def phase_profile_wide(tmp: pathlib.Path, smi: str) -> None:
@@ -1458,7 +1508,8 @@ def phase_train(tmp: pathlib.Path, n_train: int, models: list,
         with contextlib.redirect_stdout(io.StringIO()):
             imgs = sample_cli.main(["--ckpt", str(ckpt), "--model", *margs,
                                     "--n", "4", "--iters", "3", "--device",
-                                    "cuda", "--out", str(tmp / "served")])
+                                    "cuda", "--format", "npz", "--out",
+                                    str(tmp / "served")])
         if imgs.shape != (4, 1, 28, 28) or not np.isfinite(imgs).all():
             fail(f"the trained {margs[0]} checkpoint did not serve 4 finite "
                  f"images")
@@ -1911,18 +1962,27 @@ def bound_amp(w, n) -> tuple[float, str]:
 # 8 * 2^s flops an amplitude; a sublayer's ring signs 2, the phase 6. The
 # backward does three products a group (the state's rebuild, the
 # cotangent's push, dG), the signs on state and cotangent (4) and the
-# un-encode (20). Bytes: each input read once and each output written once,
-# float32: the (d, B) planes and the group planes (2 sum 4^s floats a
-# sublayer).
-def bound_wide(w, b, n, bwd: bool) -> tuple[float, str]:
+# un-encode (20). The products run at the kernel's datapath's rate:
+# "simt", float32 FMAs on the CUDA cores at PEAK_FLOPS (#9/#10), or
+# "3xtf32", three TF32 tensor-core products a product at PEAK_TF32
+# (#11/#12); the elementwise work is float32 on the CUDA cores either way.
+# Bytes: each input read once and each output written once, float32: the
+# (d, B) planes and the group planes (2 sum 4^s floats a sublayer).
+def bound_wide(w, b, n, bwd: bool, datapath: str) -> tuple[float, str]:
     d, sizes = 2**w, wide.group_sizes(w)
     mac = 8 * sum(2**s for s in sizes)
     g = 2 * n * sum(4**s for s in sizes)
     if not bwd:
-        return _bound(b * d * (n * (mac + 2) + 6 * (n // 2)),
-                      4 * (2 * d * b + g + 2 * d * b))
-    return _bound(b * d * (n * (3 * mac + 4) + 20 * (n // 2)),
-                  4 * (6 * d * b + g + 2 * d * b + g))
+        prod, elem = b * d * n * mac, b * d * (2 * n + 6 * (n // 2))
+        nbytes = 4 * (2 * d * b + g + 2 * d * b)
+    else:
+        prod, elem = b * d * n * 3 * mac, b * d * (4 * n + 20 * (n // 2))
+        nbytes = 4 * (6 * d * b + g + 2 * d * b + g)
+    rate = {"simt": PEAK_FLOPS, "3xtf32": PEAK_TF32 / 3}[datapath]
+    t_ops = prod / rate + elem / PEAK_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _library_wide_fwd(p, gs, signs, w):
@@ -2050,24 +2110,24 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
         times[f"wide_fwd{key}"] = _paired_ms(
             lambda: wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w),
             lambda: wide_kernel._chain_plain(pr, pi, gplanes, signs, 2, w)
-        ) + bound_wide(w, b, n, False)
+        ) + bound_wide(w, b, n, False, "3xtf32")
         times[f"wide_bwd{key}"] = _paired_ms(
             lambda: wide_kernel._wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi,
                                                      gr, gi, 2, w),
             lambda: wide_kernel.wide_chain_bwd_plain(pr, pi, gplanes, fr, fi,
                                                      gr, gi, 2, w)
-        ) + bound_wide(w, b, n, True)
-        # #9/#10 do #11/#12's work in one launch: the same bound
+        ) + bound_wide(w, b, n, True, "3xtf32")
+        # #9/#10 do #11/#12's work in one launch, on the CUDA cores
         times[f"wide_mono_fwd{key}"] = _paired_ms(
             lambda: wide_kernel._wide_mono_cuda(pr, pi, gplanes, 2, w),
             lambda: wide_kernel._chain_plain(pr, pi, gplanes, signs, 2, w)
-        ) + bound_wide(w, b, n, False)
+        ) + bound_wide(w, b, n, False, "simt")
         times[f"wide_mono_bwd{key}"] = _paired_ms(
             lambda: wide_kernel._wide_mono_bwd_cuda(pr, pi, gplanes, fr, fi,
                                                     gr, gi, 2, w),
             lambda: wide_kernel.wide_chain_bwd_plain(pr, pi, gplanes, fr, fi,
                                                      gr, gi, 2, w)
-        ) + bound_wide(w, b, n, True)
+        ) + bound_wide(w, b, n, True, "simt")
         library[f"wide_fwd{key}"] = min(
             _median_ms(lambda: _library_wide_fwd(p, gs, signs, w))
             for _ in range(2))
@@ -2080,9 +2140,72 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
         lib = (f", library {library[key]:.4f} ms (median of 20, better of "
                f"two rounds)" if key in library else "")
         print(f"times {key} ({smi}): kernel {kern:.4f} ms, plain "
-              f"{plain:.4f} ms ({_HOW}){lib}; bound {bound:.3e} ms ({by}), "
-              f"kernel at {bound / kern:.2e} of it")
+              f"{plain:.4f} ms ({_HOW}){lib}; bound {bound:.3e} ms ({by}, "
+              f"{datapath_of(key)}), kernel at {bound / kern:.2e} of it")
     return times, library
+
+
+def _wide_kind(name: str) -> str:
+    """A wide-chain backward launch's kind, by its kernel's name."""
+    for part, kind in (("reduce", "dG reduce"), ("unencode", "un-encode"),
+                       ("dg", "dG product")):
+        if part in name:
+            return kind
+    return "rebuild and push"
+
+
+def phase_wide_split(dev, smi: str) -> None:
+    """Where a chain call of #11 and of #12 spends its device time, at the
+    16-wire model's training shape and the widest timed one: 3 calls each
+    under torch.profiler after a warm call; #11's launches, and #12's
+    two-right-hand-side rebuild and push, by group width (the kernel's
+    rows, from its template name: the profiler may drop a record, so no
+    launch is placed by its position), #12's others by kind (the dG
+    product, its fixed-order sum, the un-encode). Printed only."""
+    rng = np.random.default_rng(SEED + 15)
+    calls = 3
+    for w, b, n in ((16, 10, 28), (20, 8, 4)):
+        pr, pi, gplanes, fr, fi, gr, gi = wide_inputs(rng, w, b, n, dev)
+
+        def fwd():
+            return wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w)
+
+        def bwd():
+            return wide_kernel._wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi,
+                                                    gr, gi, 2, w)
+
+        for what, fn in (("#11", fwd), ("#12", bwd)):
+            fn()
+            torch.cuda.synchronize()
+            events, busy, _, _ = _device_profile(
+                lambda: [fn() for _ in range(calls)])
+            by = {}
+            for e in events:
+                if "wide_" not in e.name:
+                    continue
+                kind = "group" if what == "#11" else _wide_kind(e.name)
+                rows = re.search(r"group_mma_kernel(?:<\d+, |ILi\dELi)(\d+)",
+                                 e.name)
+                if rows:
+                    kind = f"{kind} D={rows.group(1)}"
+                us, count = by.get(kind, (0.0, 0))
+                by[kind] = (us + e.time_range.elapsed_us(), count + 1)
+            total = sum(us for us, _ in by.values())
+            print(f"split {what} w={w} B={b} L*k={n} groups "
+                  f"{wide.group_sizes(w)} ({smi}), torch.profiler over "
+                  f"{calls} calls: {total / calls / 1e3:.4f} ms of kernels a "
+                  f"call (device busy {busy / calls / 1e3:.4f} ms): "
+                  + "; ".join(
+                      f"{kind} {us / calls / 1e3:.4f} ms ({us / total:.3f}, "
+                      f"{count} records, {us / count:.2f} us each)"
+                      for kind, (us, count) in sorted(by.items())))
+
+
+def datapath_of(key: str) -> str:
+    """The arithmetic datapath of the kernel timed under ``key``: #11/#12
+    multiply on the tensor cores in 3xTF32; every other kernel of the port
+    runs float32 on the CUDA cores."""
+    return "3xtf32" if key.startswith(("wide_fwd", "wide_bwd")) else "simt"
 
 
 def phase_crossover(dev, smi: str) -> None:
@@ -2627,6 +2750,7 @@ def main() -> None:
     wide_errs = phase_wide_vs_plain(dev)
     mono_errs = phase_mono_vs_plain(dev)
     phase_mono_config()
+    phase_wide_sass()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         sampled, rates = {}, {}
@@ -2685,6 +2809,7 @@ def main() -> None:
     bench_counts, bench_rates = phase_wide_bench(smi)
     with torch.no_grad():
         times, library = phase_times(dev, smi)
+        phase_wide_split(dev, smi)
         phase_crossover(dev, smi)
     uni_err, uni_bwd_err = phase_unitary_vs_plain(dev)
     unitary_counts = phase_unitary_route(dev)
@@ -2822,7 +2947,7 @@ def main() -> None:
         "replaces": line, "launches": launches[counter],
         "max_abs_err": err, "ms": times[key][0], "plain_ms": times[key][1],
         "bound_ms": times[key][2], "bound_by": times[key][3],
-        "library_ms": library.get(key),
+        "datapath": datapath_of(key), "library_ms": library.get(key),
     } for name, src, line, counter, err, key in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

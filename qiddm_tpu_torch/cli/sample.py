@@ -6,10 +6,13 @@ and generates images on the chosen device:
 
   python -m qiddm_tpu_torch.cli.sample --ckpt QIDDM_LL_noise=6_L=14_N=2_4.pt \
       --model QIDDM_LL_noise 784 6 14 2 --img_size 28 \
-      --n 16 --iters 15 --device cuda --out samples/
+      --n 16 --iters 15 --device cuda --format npz --out samples/
 
 ``--device`` defaults to ``cuda`` and raises when the process has no CUDA
-device; ``--device cpu`` runs the plain PyTorch path.
+device; ``--device cpu`` runs the plain PyTorch path. ``--format``
+defaults to ``both`` (``samples.npz`` and a PNG an image), as the JAX
+package's sampling CLI does; the PNGs need matplotlib, so a host without
+it passes ``--format npz``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from . import common
 # Flags of the JAX driver that the port does not serve yet.
 _NOT_PORTED = {
     "export": "AOT export (ROADMAP Queue 1 item 11)",
+    "export_platforms": "cross-platform AOT export (ROADMAP Queue 1 item 11)",
     "from_export": "serving from an AOT export (ROADMAP Queue 1 item 11)",
     "export_batches": "bucketed AOT export (ROADMAP Queue 1 item 11)",
     "mesh_devices": "data-parallel serving over a mesh "
@@ -50,13 +54,15 @@ def parse_args(argv):
     p.add_argument("--noise_factor", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", type=str, default="samples")
-    p.add_argument("--format", choices=["png", "npz", "both"], default="npz",
+    p.add_argument("--format", choices=["png", "npz", "both"], default="both",
                    help="png needs matplotlib")
     p.add_argument("--batches", type=int, default=1,
                    help="generate this many batches (throughput reporting)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when none is present")
     p.add_argument("--export", type=str, default=None, help="not ported")
+    p.add_argument("--export-platforms", type=str, default=None,
+                   help="not ported")
     p.add_argument("--from-export", type=str, default=None, help="not ported")
     p.add_argument("--export-batches", type=str, default=None,
                    help="not ported")

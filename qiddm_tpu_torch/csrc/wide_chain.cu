@@ -34,46 +34,73 @@
 // the batch bits and cycles the layout by transposes between groups; that
 // is the TPU's layout, not the function, and is not carried over.
 //
-// Forward design (wide_group_kernel, NRHS = 1). One launch per group. A
-// block owns a tile of 32 consecutive columns and reads its D x 32 complex
-// tile into shared memory (32 KB at D = 128), so it may write its result
-// over its input: no other block touches those columns. op(G) is staged
-// through shared memory 16 rows at a time. Lane = column, warp = rows
-// x = warp + 8 i: each thread keeps D/8 complex sums, reads its column's
-// amplitude once per y and op(G)[x][y] as a broadcast. Prologues: the first
-// group of a chain starts from |0...0> (no input read), the first group of
-// each spectrum layer multiplies in the RZ phase planes, and the backward's
-// first group undoes the ring signs; the ring signs of the last group are
-// its epilogue. The signs come from the parity of row & rotl_w(row, r), so
-// no sign table is read.
+// Forward design (wide_group_mma_kernel, NRHS = 1; group_mma in
+// wide_common.cuh). One launch per group, of persistent blocks: the grid
+// is the blocks the occupancy query lets the card hold at once (one or two
+// an SM), at most one a column tile. Each block stages G into shared
+// memory once (cp.async, in its first tile's copy group; 136 KB at
+// D = 128, 36 KB at D = 64, zero-padded to 16 rows below D = 16; G^H is
+// read from it transposed), then walks its own fixed set of column tiles
+// (blockIdx.x, + gridDim.x, ...). A tile's D rows go through a two-stage
+// cp.async ring, tile t+1 in flight while tile t is multiplied, 16, 8 or 4
+// bytes a copy as the rows' alignment allows (runs of B floats in the last
+// group, 40 bytes at B = 10, which TMA cannot describe). A tile is a
+// segment of one p-row of the view or, where a p-row is shorter than a
+// tile (the last group: post = 1), whole p-blocks, one contiguous run;
+// each tile's column offsets and basis rows are computed once, into a
+// table beside the stage. Tiles are disjoint, so a block writes its result
+// over its input. The product runs on the tensor cores as 3xTF32
+// (mma.sync m16n8k8, see wide_common.cuh): 8 warps, each 16 rows of op(G)
+// against 8-32 columns. Prologues on the staged tile: the first group of a
+// chain starts from |0...0> (no input read), the first group of each
+// spectrum layer multiplies in the RZ phase, and the backward's first
+// group undoes the ring signs; the ring signs of the last group are its
+// epilogue. The signs come from the parity of row & rotl_w(row, r), so no
+// sign table is read.
 //
-// Backward design. Per group, three launches: wide_group_kernel with
+// Backward design. Per group, three launches: wide_group_mma_kernel with
 // NRHS = 2 rebuilds the state in place and writes G^H c into a second
-// cotangent buffer (the same matrix, two right-hand sides); then
-// wide_group_dg_kernel forms dG from the cotangent before the push and the
-// rebuilt state: a (D x D) product over all ncols columns, split into
-// nsplit column ranges, each block one (<= 64 x 64) tile of dG over one
-// range, its partial written to a scratch of (nsplit, D, D, 2) floats; and
-// wide_dg_reduce_kernel sums the partials over the splits in a fixed order.
-// No atomics: a run gives the same bits every time. Between layers
-// wide_unencode_kernel undoes the phase on state and cotangent and adds the
-// phase gradient.
+// cotangent buffer (the same op(G), two right-hand sides, in tiles half as
+// wide as the forward's at D >= 64 to fit beside G); then
+// wide_dg_mma_kernel forms dG from the cotangent before the push and the
+// rebuilt state: a (D x D) product over all ncols columns on the same
+// tensor-core path, each block one (<= 64 x 64) tile of dG over one range
+// of 32-column tiles (split-K, about one block an SM), its partial written
+// to a scratch of (nsplit, D, D, 2) floats; and
+// wide_dg_reduce_kernel sums the partials over the splits in a fixed
+// order. No atomics: a run gives the same bits every time. dG stays a
+// launch of its own: fused into the rebuild, each persistent block would
+// carry a D x D partial over its tiles, 128 registers a thread at D = 128
+// on top of the product's, or G would have to leave shared memory. Between
+// layers wide_unencode_kernel undoes the phase on state and cotangent and
+// adds the phase gradient.
 //
-// The kernels here are thin: each runs one device function of
-// wide_common.cuh (group_tile, dg_unit, dg_reduce_at, unencode_at) on its
-// block's tile. The monolithic chain of wide_mono.cu (#9/#10) runs the same
-// functions on the same tiles in one cooperative launch.
+// Every launch after the first of a chain call is a programmatic
+// dependent launch (Hopper): it starts while the kernel before it drains
+// its last tiles and stages its G, and waits for that kernel's writes
+// before it reads a plane.
+//
+// The monolithic chain of wide_mono.cu (#9/#10) keeps the SIMT units of
+// wide_common.cuh (group_tile, dg_unit): the same function, other sums.
 //
 // What bounds it on this card. Per sublayer the groups do
 // 8 ncols D^2 = 8 B 2^w sum_g 2^(s_g) flops: 671 MFLOP at w=16, B=10
-// (groups 6, 5, 5), 21.5 GFLOP at w=20, B=8 (7, 7, 6), bound by the float32
-// peak (10 us and 320 us at 67 TFLOP/s); the planes move 2 x 8 B per
-// amplitude per group, 31 MB at w=16, B=10. The backward does three such
-// products a group. Arithmetic is float32 FMA on the CUDA cores, no TF32
-// (the JAX kernel pins precision "highest"): each thread's inner step is
-// one shared-memory broadcast per 4 FMAs, so shared-memory bandwidth, not
-// the FMA rate, bounds this simple design. wgmma with 3xTF32, and clusters
-// holding one state in distributed shared memory, are later work.
+// (groups 6, 5, 5), 21.5 GFLOP at w=20, B=8 (7, 7, 6). As 3xTF32 each is
+// three TF32 products, 165 TFLOP/s effective at the 495 TFLOP/s dense TF32
+// rate (a sublayer's 21.5 GFLOP in 130 us). But mma.sync, the warp-level
+// instruction used here, ran at about a quarter of that rate on an H100:
+// the group products and dG product of every shape timed settled at 0.24-
+// 0.26 m16n8k8 TF32 instructions a clock an SM, with no change from more
+// warps, unrolling, fewer instructions or interleaved accumulators. So
+// 3xTF32 over mma.sync is worth about 41 TFLOP/s, near a good SIMT
+// kernel's 37 TFLOP/s (P5, probes.cu), and wgmma (the full TF32 rate) is
+// the next step. The planes move 2 x 8 B per amplitude per group (a
+// 2^20-amplitude state at B = 8 is 64 MB read and 64 MB written a group
+// launch, 38 us from device memory), behind the arithmetic at 20 wires.
+// At 16 wires, B = 10 (5 MB a state, held in L2) a launch is a few
+// microseconds of arithmetic over 160-700 tiles, so the spread of tiles
+// over the 132 SMs and each launch's start set the pace; fusing a
+// sublayer's groups into one launch is the next step there.
 //
 // Indices are 64-bit: d B passes 2^31 at w=20 from B=2048.
 //
@@ -85,57 +112,83 @@
 
 #include <climits>
 #include <cstddef>
+#include <cstdint>
+#include <initializer_list>
+#include <mutex>
+#include <vector>
 
 #include "chain_common.cuh"
 #include "wide_common.cuh"
 
 namespace {
 
-// One 32-column tile of out_j = op(G) in_j a block (group_tile).
-template <int NRHS, int RX>
-__global__ void __launch_bounds__(256)
-    wide_group_kernel(const float* in0r, const float* in0i, float* out0r,
-                      float* out0i, const float* in1r, const float* in1i,
-                      float* out1r, float* out1i,
-                      const float* __restrict__ gr,
-                      const float* __restrict__ gi,
-                      const float* __restrict__ phr,
-                      const float* __restrict__ phi, int zero_in,
-                      int adjoint, int sign_in, int sign_out, int size,
-                      int wires, long long post_b, int batch,
-                      long long ncols) {
-  extern __shared__ float2 smem2[];
-  group_tile<NRHS, RX>(blockIdx.x, smem2, in0r, in0i, out0r, out0i, in1r,
-                       in1i, out1r, out1i, gr, gi, phr, phi, zero_in,
-                       adjoint, sign_in, sign_out, size, wires, post_b, batch,
-                       ncols);
+// Persistent group product blocks (group_mma).
+template <int NRHS, int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+    wide_group_mma_kernel(const float* in0r, const float* in0i, float* out0r,
+                          float* out0i, const float* in1r, const float* in1i,
+                          float* out1r, float* out1i,
+                          const float* __restrict__ gr,
+                          const float* __restrict__ gi,
+                          const float* __restrict__ phr,
+                          const float* __restrict__ phi, int zero_in,
+                          int adjoint, int sign_in, int sign_out, int size,
+                          int wires, long long post_b, int batch,
+                          long long ncols, ColTiles ct, int g_granule) {
+  extern __shared__ float4 smem4[];
+  group_mma<NRHS, DP>(reinterpret_cast<float*>(smem4), in0r, in0i, out0r,
+                      out0i, in1r, in1i, out1r, out1i, gr, gi, phr, phi,
+                      zero_in, adjoint, sign_in, sign_out, size, wires,
+                      post_b, batch, ncols, ct, g_granule);
 }
 
-// One unit of the dG product a block (dg_unit): block (tile, split) writes
+// One unit of the dG product a block (dg_mma): block (tile, split) writes
 // part[split][x][y][re, im].
-template <int M>
-__global__ void __launch_bounds__(256)
-    wide_group_dg_kernel(const float* __restrict__ cr,
-                         const float* __restrict__ ci,
-                         const float* __restrict__ sr,
-                         const float* __restrict__ si,
-                         float* __restrict__ part, int sign_c, int size,
-                         int wires, long long post_b, int batch,
-                         long long ncols, long long per_split) {
-  __shared__ float2 cs[kDgK * 16 * M];
-  __shared__ float2 ss[kDgK * 16 * M];
-  dg_unit<M>(blockIdx.x, cs, ss, cr, ci, sr, si, part, sign_c, size, wires,
-             post_b, batch, ncols, per_split);
+template <int TW>
+__global__ void __launch_bounds__(kMmaThreads)
+    wide_dg_mma_kernel(const float* __restrict__ cr,
+                       const float* __restrict__ ci,
+                       const float* __restrict__ sr,
+                       const float* __restrict__ si, float* __restrict__ part,
+                       int sign_c, int size, int wires, long long post_b,
+                       int batch, long long ncols, ColTiles ct,
+                       long long per_split) {
+  extern __shared__ float4 smem4[];
+  dg_mma<TW>(reinterpret_cast<float*>(smem4), blockIdx.x, cr, ci, sr, si,
+             part, sign_c, size, wires, post_b, batch, ncols, ct, per_split);
 }
 
-// dg[t] = sum over the splits of part[split][t], splits in increasing order.
-__global__ void wide_dg_reduce_kernel(const float* __restrict__ part,
-                                      float* __restrict__ dgr,
-                                      float* __restrict__ dgi, int n,
-                                      int nsplit) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  dg_reduce_at(t, part, dgr, dgi, n, nsplit);
+// dg[t] = sum over the splits of part[split][t]: each of 8 warps sums the
+// splits w, w + 8, ... in order for 32 entries, then the first warp adds
+// the 8 sums in order; the order is fixed, so is every bit.
+__global__ void __launch_bounds__(256)
+    wide_dg_reduce_kernel(const float2* __restrict__ part,
+                          float* __restrict__ dgr, float* __restrict__ dgi,
+                          int n, int nsplit) {
+  __shared__ float2 sums[8][32];
+  dependents_may_start();
+  wait_for_prior_grid();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * 32 + lane;
+  float2 acc = make_float2(0.0f, 0.0f);
+  if (t < n)
+    for (int s = warp; s < nsplit; s += 8) {
+      const float2 p = part[static_cast<size_t>(s) * n + t];
+      acc.x += p.x;
+      acc.y += p.y;
+    }
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp != 0 || t >= n) return;
+  float re = 0.0f, im = 0.0f;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    re += sums[w][lane].x;
+    im += sums[w][lane].y;
+  }
+  dgr[t] = re;
+  dgi[t] = im;
 }
 
 // Undo the RZ phase on the state and the cotangent (both in place) and add
@@ -149,32 +202,101 @@ __global__ void wide_unencode_kernel(const float* __restrict__ pr,
                                      float* __restrict__ dpr,
                                      float* __restrict__ dpi, long long n,
                                      int first) {
+  dependents_may_start();
+  wait_for_prior_grid();
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= n) return;
   unencode_at(i, pr, pi, sr, si, cr, ci, dpr, dpi, first);
 }
 
-template <int NRHS, int RX>
-cudaError_t launch_group_rx(const float* in0r, const float* in0i,
+// Blocks of `kernel` (kMmaThreads threads, `smem` bytes of dynamic shared
+// memory) the card holds at once, asked once a kernel and device, with the
+// shared-memory opt-in set.
+struct Fit {
+  const void* kernel;
+  int device;
+  int blocks;
+};
+std::mutex g_fit_mu;
+std::vector<Fit> g_fit;
+
+cudaError_t resident_blocks(const void* kernel, size_t smem, int device,
+                            int* blocks) {
+  std::lock_guard<std::mutex> lock(g_fit_mu);
+  for (const Fit& f : g_fit)
+    if (f.kernel == kernel && f.device == device) {
+      *blocks = f.blocks;
+      return cudaSuccess;
+    }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kMmaThreads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  g_fit.push_back({kernel, device, per_sm * sms});
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// Launches `kernel` on `stream`; after_own: the stream's last launch is one
+// of this file's, so this one may start early (programmatic dependent
+// launch: the kernels wait for it before touching the planes). The first
+// launch of a chain call follows PyTorch's work and starts after it.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), unsigned grid,
+                   unsigned threads, size_t smem, cudaStream_t stream,
+                   bool after_own, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = after_own ? &attr : nullptr;
+  cfg.numAttrs = after_own ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+bool aligned16(std::initializer_list<const void*> planes) {
+  for (const void* p : planes)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+template <int NRHS, int DP>
+cudaError_t launch_group_dp(const float* in0r, const float* in0i,
                             float* out0r, float* out0i, const float* in1r,
                             const float* in1i, float* out1r, float* out1i,
                             const float* gr, const float* gi,
                             const float* phr, const float* phi, int zero_in,
                             int adjoint, int sign_in, int sign_out, int size,
                             int wires, long long post_b, int batch,
-                            long long ncols, cudaStream_t stream) {
-  const int dim = 1 << size;
-  const size_t smem = group_smem(NRHS, dim);
-  cudaError_t err = allow_smem(wide_group_kernel<NRHS, RX>, smem);
+                            long long ncols, bool aligned, int device,
+                            cudaStream_t stream, bool after_own) {
+  using S = MmaShape<NRHS, DP>;
+  int fit = 0;
+  cudaError_t err = resident_blocks(
+      reinterpret_cast<const void*>(wide_group_mma_kernel<NRHS, DP>),
+      S::kSmem, device, &fit);
   if (err != cudaSuccess) return err;
-  const long long blocks = (ncols + kTile - 1) / kTile;
-  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  wide_group_kernel<NRHS, RX><<<static_cast<unsigned>(blocks),
-                                32 * warps_for(dim), smem, stream>>>(
-      in0r, in0i, out0r, out0i, in1r, in1i, out1r, out1i, gr, gi, phr, phi,
-      zero_in, adjoint, sign_in, sign_out, size, wires, post_b, batch, ncols);
-  return cudaGetLastError();
+  const ColTiles ct = col_tiles(S::kTn, post_b, ncols, aligned);
+  const int dim = 1 << size;
+  const int g_granule = !aligned ? 1 : dim < 4 ? dim : 4;
+  const long long grid = ct.ntiles < fit ? ct.ntiles : fit;
+  return launch(wide_group_mma_kernel<NRHS, DP>,
+                static_cast<unsigned>(grid), kMmaThreads, S::kSmem, stream,
+                after_own, in0r, in0i, out0r, out0i, in1r, in1i, out1r, out1i,
+                gr, gi, phr, phi, zero_in, adjoint, sign_in, sign_out, size,
+                wires, post_b, batch, ncols, ct, g_granule);
 }
 
 template <int NRHS>
@@ -184,55 +306,69 @@ cudaError_t launch_group(const float* in0r, const float* in0i, float* out0r,
                          const float* gi, const float* phr, const float* phi,
                          int zero_in, int adjoint, int sign_in, int sign_out,
                          int size, int wires, long long post_b, int batch,
-                         long long ncols, cudaStream_t stream) {
+                         long long ncols, bool aligned, int device,
+                         cudaStream_t stream, bool after_own) {
   const int dim = 1 << size;
-  switch (dim / warps_for(dim)) {
-#define WIDE_GROUP_CASE(RX)                                                   \
-  case RX:                                                                    \
-    return launch_group_rx<NRHS, RX>(in0r, in0i, out0r, out0i, in1r, in1i,   \
-                                     out1r, out1i, gr, gi, phr, phi, zero_in, \
-                                     adjoint, sign_in, sign_out, size, wires, \
-                                     post_b, batch, ncols, stream);
-    WIDE_GROUP_CASE(1)
-    WIDE_GROUP_CASE(2)
-    WIDE_GROUP_CASE(4)
-    WIDE_GROUP_CASE(8)
+  switch (dim < 16 ? 16 : dim) {
+#define WIDE_GROUP_CASE(DP)                                                  \
+  case DP:                                                                   \
+    return launch_group_dp<NRHS, DP>(                                        \
+        in0r, in0i, out0r, out0i, in1r, in1i, out1r, out1i, gr, gi, phr,     \
+        phi, zero_in, adjoint, sign_in, sign_out, size, wires, post_b,       \
+        batch, ncols, aligned, device, stream, after_own);
     WIDE_GROUP_CASE(16)
+    WIDE_GROUP_CASE(32)
+    WIDE_GROUP_CASE(64)
+    WIDE_GROUP_CASE(128)
 #undef WIDE_GROUP_CASE
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <int TW>
+cudaError_t launch_dg_tw(const float* cr, const float* ci, const float* sr,
+                         const float* si, float* part, int sign_c, int size,
+                         int wires, long long post_b, int batch,
+                         long long ncols, const DgPlan& d, int device,
+                         cudaStream_t stream) {
+  int fit = 0;  // sets the shared-memory opt-in
+  cudaError_t err = resident_blocks(
+      reinterpret_cast<const void*>(wide_dg_mma_kernel<TW>),
+      DgShape<TW>::kSmem, device, &fit);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(d.otiles) * d.nsplit;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  // the dG product and its sum always follow a rebuild and push
+  return launch(wide_dg_mma_kernel<TW>, static_cast<unsigned>(blocks),
+                kMmaThreads, DgShape<TW>::kSmem, stream, true, cr, ci, sr, si,
+                part, sign_c, size, wires, post_b, batch, ncols, d.ct,
+                d.per_split);
+}
+
 cudaError_t launch_dg(const float* cr, const float* ci, const float* sr,
                       const float* si, float* part, float* dgr, float* dgi,
                       int sign_c, int size, int wires, long long post_b,
-                      int batch, long long ncols, cudaStream_t stream) {
+                      int batch, long long ncols, bool aligned, int device,
+                      cudaStream_t stream) {
   const int dim = 1 << size;
-  const DgSplit d = dg_split(size, ncols);
-  const long long blocks = static_cast<long long>(d.tiles) * d.nsplit;
-  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  const unsigned grid = static_cast<unsigned>(blocks);
-  const int m = dg_m(dim);
-  if (m == 4) {
-    wide_group_dg_kernel<4><<<grid, 256, 0, stream>>>(
-        cr, ci, sr, si, part, sign_c, size, wires, post_b, batch, ncols,
-        d.per_split);
-  } else if (m == 2) {
-    wide_group_dg_kernel<2><<<grid, 256, 0, stream>>>(
-        cr, ci, sr, si, part, sign_c, size, wires, post_b, batch, ncols,
-        d.per_split);
+  const DgPlan d = dg_plan(size, post_b, ncols, aligned);
+  cudaError_t err;
+  if (d.tw == 64) {
+    err = launch_dg_tw<64>(cr, ci, sr, si, part, sign_c, size, wires, post_b,
+                           batch, ncols, d, device, stream);
+  } else if (d.tw == 32) {
+    err = launch_dg_tw<32>(cr, ci, sr, si, part, sign_c, size, wires, post_b,
+                           batch, ncols, d, device, stream);
   } else {
-    wide_group_dg_kernel<1><<<grid, 256, 0, stream>>>(
-        cr, ci, sr, si, part, sign_c, size, wires, post_b, batch, ncols,
-        d.per_split);
+    err = launch_dg_tw<16>(cr, ci, sr, si, part, sign_c, size, wires, post_b,
+                           batch, ncols, d, device, stream);
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = dim * dim;
-  wide_dg_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part, dgr, dgi,
-                                                             n, d.nsplit);
-  return cudaGetLastError();
+  return launch(wide_dg_reduce_kernel, (n + 31) / 32, 256, 0, stream, true,
+                reinterpret_cast<const float2*>(part), dgr, dgi, n,
+                d.nsplit);
 }
 
 }  // namespace
@@ -261,6 +397,7 @@ int wide_chain_fwd(const void* pr, const void* pi, const void* g0r,
                                  static_cast<const float*>(g2i)};
   float* out_r = static_cast<float*>(sr);
   float* out_i = static_cast<float*>(si);
+  const bool aligned = aligned16({sr, si, g0r, g0i, g1r, g1i, g2r, g2i});
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int l = 0; l < n_layers; ++l) {
     const int li = l % k;
@@ -275,23 +412,29 @@ int wide_chain_fwd(const void* pr, const void* pi, const void* g0r,
           first ? static_cast<const float*>(pi) : nullptr,
           first && l == 0, 0, 0,
           g == grp.n - 1 ? ring_range(li, wires) : 0, grp.size[g], wires,
-          grp.post_b[g], batch, grp.ncols[g], s);
+          grp.post_b[g], batch, grp.ncols[g], aligned, device, s,
+          l > 0 || g > 0);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
   return static_cast<int>(cudaSuccess);
 }
 
-// Floats of dG partials the backward needs (its `part` scratch).
+// Floats of dG partials the backward needs (its `part` scratch): the most
+// any group takes, under this file's dG split (#12) or the monolith's
+// (#10, wide_mono.cu), which share the wrapper's allocation.
 size_t wide_chain_bwd_part_floats(int s0, int s1, int s2, int wires,
                                   int batch) {
   const int sizes[kMaxGroups] = {s0, s1, s2};
   const Groups grp = make_groups(sizes, wires, batch);
   size_t most = 0;
   for (int g = 0; g < grp.n; ++g) {
-    const DgSplit d = dg_split(grp.size[g], grp.ncols[g]);
     const size_t dim = size_t{1} << grp.size[g];
-    const size_t need = static_cast<size_t>(d.nsplit) * dim * dim * 2;
+    const int mono = dg_split(grp.size[g], grp.ncols[g]).nsplit;
+    const int mma =
+        dg_plan(grp.size[g], grp.post_b[g], grp.ncols[g], true).nsplit;
+    const size_t need =
+        static_cast<size_t>(mono > mma ? mono : mma) * dim * dim * 2;
     if (need > most) most = need;
   }
   return most;
@@ -334,6 +477,8 @@ int wide_chain_bwd(const void* pr, const void* pi, const void* g0r,
   float* t_r = static_cast<float*>(tr);
   float* t_i = static_cast<float*>(ti);
   float* scratch = static_cast<float*>(part);
+  const bool aligned =
+      aligned16({sr, si, cr, ci, tr, ti, g0r, g0i, g1r, g1i, g2r, g2i});
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n = (1LL << wires) * batch;
   bool first_enc = true;
@@ -348,11 +493,12 @@ int wide_chain_bwd(const void* pr, const void* pi, const void* g0r,
       err = launch_group<2>(s_r, s_i, s_r, s_i, c_r, c_i, t_r, t_i,
                             gr[g] + gm, gi[g] + gm, nullptr, nullptr, 0, 1,
                             sign, 0, grp.size[g], wires, grp.post_b[g], batch,
-                            grp.ncols[g], s);
+                            grp.ncols[g], aligned, device, s,
+                            l < n_layers - 1 || g < grp.n - 1);
       if (err != cudaSuccess) return static_cast<int>(err);
       err = launch_dg(c_r, c_i, s_r, s_i, scratch, dgr[g] + gm, dgi[g] + gm,
                       sign, grp.size[g], wires, grp.post_b[g], batch,
-                      grp.ncols[g], s);
+                      grp.ncols[g], aligned, device, s);
       if (err != cudaSuccess) return static_cast<int>(err);
       float* swap_r = c_r;
       float* swap_i = c_i;
@@ -364,11 +510,11 @@ int wide_chain_bwd(const void* pr, const void* pi, const void* g0r,
     if (li == 0) {
       const long long blocks = (n + 255) / 256;
       if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-      wide_unencode_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
-          static_cast<const float*>(pr), static_cast<const float*>(pi), s_r,
-          s_i, c_r, c_i, static_cast<float*>(dpr), static_cast<float*>(dpi),
-          n, first_enc ? 1 : 0);
-      err = cudaGetLastError();
+      err = launch(wide_unencode_kernel, static_cast<unsigned>(blocks), 256, 0,
+                   s, true, static_cast<const float*>(pr),
+                   static_cast<const float*>(pi), s_r, s_i, c_r, c_i,
+                   static_cast<float*>(dpr), static_cast<float*>(dpi), n,
+                   first_enc ? 1 : 0);
       if (err != cudaSuccess) return static_cast<int>(err);
       first_enc = false;
     }

@@ -31,31 +31,34 @@
 // loop over its work units, and cooperative_groups' grid.sync() separates
 // passes that read what another block wrote:
 //   forward, per group: the 32-column tiles of the group product
-//     (group_tile, #11's device function, one right-hand side), written
-//     over their input; the RZ phase is the prologue of a layer's first
-//     group and the ring signs the epilogue of a sublayer's last, as in #11;
+//     (group_tile, the SIMT unit of wide_common.cuh, one right-hand side),
+//     written over their input; the RZ phase is the prologue of a layer's
+//     first group and the ring signs the epilogue of a sublayer's last, as
+//     in #11;
 //   backward, per group: the tiles of the rebuild and push (group_tile with
 //     two right-hand sides: the state in place, G^H c into a second
 //     cotangent buffer) | sync | the units (dG tile, column split) of the dG
-//     product (dg_unit, #12's), each writing its own partial | sync | the
+//     product (dg_unit), each writing its own partial | sync | the
 //     fixed-order sum of the partials over the splits (dg_reduce_at), and
 //     after a layer's first sublayer the un-encode (unencode_at) | sync.
-// So #9/#10 run #11/#12's arithmetic in #11/#12's order on the same tiles
-// and splits, and give their numbers; no float atomics, and the work unit
-// -> partial map does not depend on the grid, so a run gives the same bits
-// every time. A block with no tile in a pass still reaches every grid.sync()
-// (no early return). The kernels read the planes they write only with plain
-// loads (no __restrict__ or read-only cache on them).
+// #11/#12 compute the same function on the tensor cores (group_mma,
+// dg_mma), with other sums and roundings: the two variants agree within
+// the kernels' tolerances, not bit for bit. No float atomics, and the work
+// unit -> partial map does not depend on the grid, so a run gives the same
+// bits every time. A block with no tile in a pass still reaches every
+// grid.sync() (no early return). The kernels read the planes they write
+// only with plain loads (no __restrict__ or read-only cache on them).
 //
 // Groups of different widths (at w=16: 64, 32, 32 rows) run in one kernel:
 // group_tile is instantiated for every RX = D / 8 and chosen per group at
 // run time, so the kernel's registers are its largest branch's. The block
-// has 32 * min(8, smallest D) threads (256 from 3 wires up), as #11's.
+// has 32 * min(8, smallest D) threads (256 from 3 wires up).
 //
-// What bounds it on this card: the same float32 FMA work as #11/#12 (see
-// wide_chain.cu), bound by the float32 peak; the monolith saves the
-// launches and the host's enqueue of L*k*G (forward) or 3 L*k*G + L
-// (backward) kernels, and pays a grid-wide barrier per pass instead.
+// What bounds it on this card: the group products' work of #11/#12 (see
+// wide_chain.cu) as float32 FMAs on the CUDA cores, bound by the float32
+// peak (67 TFLOP/s); the monolith saves the launches and the host's
+// enqueue of L*k*G (forward) or 3 L*k*G + L (backward) kernels, and pays
+// a grid-wide barrier per pass instead.
 //
 // Indices are 64-bit. Plain C interface (bound with ctypes): each entry
 // launches on the caller's stream, allocates nothing, does not synchronise,

@@ -41,7 +41,7 @@ from .. import config as _config
 from . import gate_kernel as _gk
 from .wide import _offsets, group_gates, group_sizes
 
-# Launches of the group kernel (``wide_group_kernel``) since the last
+# Launches of the group kernel (``wide_group_mma_kernel``) since the last
 # reset, forward (#11) and backward (#12): one per wire group of each
 # sublayer, so a chain call of L*k sublayers over G groups adds L*k*G.
 # The backward's helpers (each group's dG product and its fixed-order sum,

@@ -85,6 +85,25 @@ def test_cli_samples_jax_checkpoint_on_cpu(tmp_path, nets):
     np.testing.assert_array_equal(saved, imgs)
 
 
+def test_cli_format_defaults_to_both_as_the_jax_cli(tmp_path, nets):
+    from qiddm_tpu.cli import sample as jsample
+
+    argv = ["--model", "QIDDM_LL_noise", "784", "6", "14", "2", "--ckpt",
+            "x.pt"]
+    assert tsample.parse_args(argv).format == "both"
+    assert jsample.parse_args(argv).format == "both"
+    ck = _jax_ckpt(tmp_path, nets)
+    out = tmp_path / "out"
+    imgs = tsample.main(["--ckpt", str(ck), "--model", "QIDDM_LL_noise",
+                         "784", "6", "14", "2", "--n", "2", "--iters", "1",
+                         "--device", "cpu", "--out", str(out)])
+    np.testing.assert_array_equal(np.load(out / "samples.npz")["images"],
+                                  imgs)
+    pytest.importorskip("matplotlib")
+    assert sorted(p.name for p in out.glob("*.png")) == [
+        "sample_0000.png", "sample_0001.png"]
+
+
 def test_cli_cuda_without_a_card_raises(tmp_path, nets):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the no-fallback check needs a "
@@ -98,6 +117,7 @@ def test_cli_cuda_without_a_card_raises(tmp_path, nets):
 
 
 @pytest.mark.parametrize("flag", [["--export", "s.shlo"],
+                                  ["--export-platforms", "tpu"],
                                   ["--from-export", "s.shlo"],
                                   ["--export-batches", "1,8"],
                                   ["--mesh-devices", "2"]])

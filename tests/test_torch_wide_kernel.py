@@ -10,8 +10,14 @@ adding a few ulp). The backward's outputs are held to <= 2e-5 relative to
 max(1, max|plain|): dG sums 2^w B / 2^s products a sublayer (164k at
 w=20, B=8, s=6) and the kernel sums them in column tiles and splits, the
 plain version in cuBLAS's order, which differs by ~1e-6 relative at that
-length; the JAX package holds its own wide kernel's gradients to 2e-5
-(tests/test_wide_kernel.py).
+length; the kernels multiply in 3xTF32 on the tensor cores, whose
+rounding toward zero shrinks the states by ~2^-25 a product, up to ~8e-6
+relative over the 28-sublayer walks; the JAX package holds its own wide
+kernel's gradients to 2e-5 (tests/test_wide_kernel.py).
+
+The card cases cover each group width, column counts that are not a
+multiple of a tile (B = 3, 5: a ragged last tile, 4-byte copies), B = 10
+(40-byte rows), B = 1, and walks of many tiles a block.
 
 The CUDA tests carry the ``cuda`` marker and skip without a card; this file
 does not import JAX, so on the card they run with
@@ -31,8 +37,8 @@ BWD_TOL = 2e-5
 # (w, B, L*k, k): each width's group shapes, both rings, the models' and
 # the JAX benchmark's shapes
 CASES = [(1, 3, 2, 2), (3, 5, 4, 2), (4, 16, 4, 2), (9, 7, 6, 3),
-         (11, 10, 4, 2), (12, 3, 2, 1), (13, 10, 4, 2), (16, 10, 28, 2),
-         (20, 2, 2, 2)]
+         (11, 10, 4, 2), (11, 3, 4, 2), (12, 3, 2, 1), (13, 10, 4, 2),
+         (13, 5, 4, 2), (16, 10, 28, 2), (16, 1, 4, 2), (20, 2, 2, 2)]
 
 
 def _args(w, B, n_layers, device="cpu", seed=0):
@@ -155,6 +161,32 @@ def test_bwd_kernel_matches_plain_on_card(cuda, w, B, n_layers, k):
     again = wide_kernel._wide_chain_bwd_cuda(*args, k, w)
     again = (again[0], again[1], *again[2])
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_rebuilds_in_place_over_many_tiles(cuda):
+    """At (19, 3): 384 to 820 column tiles a group launch, many a
+    persistent block, odd rows (4-byte copies in the last group); the
+    two-right-hand-side launch rebuilds the state in place over its work
+    copies, so the caller's planes stay as they were, the result holds the
+    plain version, and a second run gives the same bits."""
+    w, B, n_layers, k = 19, 3, 2, 2
+    args = _bwd_args(w, B, n_layers, k, cuda, seed=5)
+    kept = [t.clone() for t in (args[0], args[1], *args[3:])]
+    fr, fi = wide_kernel._wide_chain_cuda(*args[:3], k, w)
+    got = wide_kernel._wide_chain_bwd_cuda(*args, k, w)
+    again = wide_kernel._wide_chain_bwd_cuda(*args, k, w)
+    want = wide_kernel.wide_chain_bwd_plain(*args, k, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in
+               zip(kept, (args[0], args[1], *args[3:])))
+    assert max((fr - args[3]).abs().max().item(),
+               (fi - args[4]).abs().max().item()) <= TOL
+    got, again, want = ((t[0], t[1], *t[2]) for t in (got, again, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w_ in zip(got, want):
+        assert ((g - w_).abs().max().item()
+                <= BWD_TOL * max(1.0, w_.abs().max().item()))
 
 
 @pytest.mark.cuda

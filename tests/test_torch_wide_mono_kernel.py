@@ -11,9 +11,9 @@ Tolerances are test_torch_wide_kernel.py's: <= 1e-5 absolute on the
 forward's (d, B) float32 planes; the backward's outputs <= 2e-5 relative to
 max(1, max|plain|), since dG sums 2^w B / 2^s products a sublayer in column
 tiles and splits on the card and in cuBLAS's order in the plain version.
-#9/#10 run #11/#12's device functions on the same tiles and splits, so
-against #11/#12 they are held to the same bounds (their difference is
-expected to be 0 or a few ulp).
+#9/#10 (float32 FMAs on the CUDA cores) and #11/#12 (3xTF32 on the tensor
+cores) compute the same function with other sums and roundings, so
+against #11/#12 they are held to the same bounds.
 
 The CUDA tests carry the ``cuda`` marker and skip without a card; this file
 does not import JAX, so on the card they run with
