@@ -177,20 +177,21 @@ any failure exits non-zero and no phase's failure is caught:
    1e-5 step for step;
 23. times of #11 and #12, and of #9 and #10, at the model's (w=16, B=10,
    L*k=28) and at (w=20, B=8, L*k=4), beside the plain versions, the bound
-   on each kernel's datapath (#11/#12 3xTF32 on the tensor cores, #9/#10
-   float32 on the CUDA cores) and the library yardstick (the group
-   products as complex64 torch.matmul calls, cuBLAS), all in the same
-   calls; the split of a #11 and a #12 chain call by launch kind at both
+   on their datapath (3xTF32 on the tensor cores) and the library
+   yardstick (the group products as complex64 torch.matmul calls,
+   cuBLAS), all in the same calls; printed only, the four at (w=11, B=1,
+   L*k=28), one column tile a group pass, which shows a pass's fixed
+   cost; the split of a #11 and a #12 chain call by launch kind at both
    shapes (phase 32); and ROADMAP item 5's crossover, printed only: the
    gate chain #1/#2 against the wide chain #11/#12 at w = 9 and 10,
    B = 80, L*k = 28, whose outputs must agree within 1e-5;
 24. monolithic wide kernels against plain: kernels #9 (the whole chain in
    one cooperative launch) and #10 (its adjoint walk in one launch) at
    phase 19's shapes, forwards max |diff| <= 1e-5, backwards within
-   WIDE_BWD_TOL of max(1, max|plain|), and their largest difference from
-   #11/#12 on the same inputs printed; then each kernel's grid and
-   co-resident blocks at (16, 10) and (20, 8), as its launch plans them,
-   and ptxas's report on their registers and spills from the build log;
+   WIDE_BWD_TOL of max(1, max|plain|), and bit for bit equal to #11/#12
+   on the same inputs (they run the same units on the same tiles; the
+   largest difference is printed); then each kernel's grid and
+   co-resident blocks at (16, 10) and (20, 8), as its launch plans them;
 25. the 16-wire model with config.set_wide_kernel_variant("monolith"):
    sampling as in phase 20 (the first 3 iterations of the last batch step
    by step against the CPU within 1e-4) and 3 training steps (batch 1, tau
@@ -256,10 +257,10 @@ any failure exits non-zero and no phase's failure is caught:
    kernel time a call by wire group (#11) and by launch kind (#12: the
    two-right-hand-side rebuild and push by wire group, the dG product, its
    fixed-order sum, the un-encode);
-33. #11/#12's registers and spills from ptxas's report, and the TF32
+33. #9-#12's registers and spills from ptxas's report, and the TF32
    tensor-core instructions in their SASS (cuobjdump -sass of the built
-   library): every group and dG product kernel must hold some (run after
-   phase 24).
+   library): every group and dG product kernel and both monolithic
+   kernels must hold some (run after phase 24).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -274,7 +275,7 @@ phase 27's (one a chain call; #14's dU product is a helper and not
 counted), their errors phase 26's worst, their times phase 28's at
 (8, 80, 28). The probe rows' launches are phase 30's (one a wrapper
 call), their errors phase 29's largest max |diff|, their times phase 31's. Every row names its ``datapath``: ``3xtf32``
-for #11/#12, ``simt`` (float32 on the CUDA cores) for the others; its
+for #9-#12, ``simt`` (float32 on the CUDA cores) for the others; its
 ``bound_ms`` is taken at that datapath's peak.
 """
 
@@ -970,9 +971,10 @@ def phase_wide_bench(smi: str) -> tuple[dict, dict]:
 
 def phase_mono_vs_plain(dev) -> dict:
     """Kernels #9 and #10 against their plain versions at WIDE_CASES and
-    WIDE_PATH_CASES, and against #11/#12 on the same inputs; returns, by
-    (w, B, L*k), the forward's max |diff| and the backward's largest
-    max |diff| / max(1, max|plain|) against plain, the values checked."""
+    WIDE_PATH_CASES, and against #11/#12 on the same inputs, which they
+    must equal bit for bit; returns, by (w, B, L*k), the forward's
+    max |diff| and the backward's largest max |diff| / max(1, max|plain|)
+    against plain, the values checked."""
     rng = np.random.default_rng(SEED + 14)
     by_shape = {}
     for w, b, n in WIDE_CASES + WIDE_PATH_CASES:
@@ -1002,6 +1004,11 @@ def phase_mono_vs_plain(dev) -> dict:
             fail(f"monolith kernels disagree with plain at w={w} B={b} "
                  f"L*k={n}: forward {err:.3e} > {KERNEL_TOL} or backward "
                  f"{max(errs):.3e} > {WIDE_BWD_TOL}")
+        same = (torch.equal(mr, sr) and torch.equal(mi, si),
+                all(torch.equal(g, q) for g, q in zip(got, scan)))
+        if not all(same):
+            fail(f"monolith kernels differ from #11/#12 at w={w} B={b} "
+                 f"L*k={n} (forward, backward bit-equal: {same})")
     return by_shape
 
 
@@ -1014,8 +1021,7 @@ def _at_width(errs: dict, wires: int) -> tuple[float, float]:
 
 def phase_mono_config() -> None:
     """The grids of the cooperative launches #9 and #10 at the model's and
-    the widest shapes, as their launches plan them, and the kernels'
-    registers and spills from ptxas's report in the build log."""
+    the widest shapes, as their launches plan them."""
     lib = gate_kernel._library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for w, b in ((16, 10), (20, 8)):
@@ -1028,23 +1034,24 @@ def phase_mono_config() -> None:
             print(f"monolith #{10 if bwd else 9} at w={w} B={b}: grid "
                   f"{out[0]} blocks, {out[1]} co-resident blocks an SM x "
                   f"{sms} SMs")
-    log = gate_kernel.build_library().with_suffix(".log").read_text()
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "wide_mono" in line:
-            print("ptxas " + " | ".join(t.strip() for t in lines[i:i + 4]))
+
+
+# #9-#12's kernels in the built library: #11/#12's templates with their
+# arguments (mangled: I, then Li<n>E each), #9/#10 as they are
+_WIDE_SASS = re.compile(
+    r"(wide_(?:group_mma|dg_mma|mono_fwd|mono_bwd)_kernel)(?:I((?:Li\d+E)+))?")
 
 
 def phase_wide_sass() -> None:
-    """#11/#12's registers and spills from ptxas's report in the build log,
+    """#9-#12's registers and spills from ptxas's report in the build log,
     and the TF32 tensor-core instructions (HMMA ... TF32) in their SASS
-    (cuobjdump -sass of the built library, from nvcc's toolkit); fails if
-    a group or dG product kernel has none."""
+    (cuobjdump -sass of the built library, from nvcc's toolkit); fails
+    unless each of the four kernels is there and every instance holds
+    some."""
     lib = gate_kernel.build_library()
     lines = lib.with_suffix(".log").read_text().splitlines()
-    ours = ("wide_group_mma_kernel", "wide_dg_mma_kernel")
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and any(k in line for k in ours):
+        if "Compiling entry function" in line and _WIDE_SASS.search(line):
             print("ptxas " + " | ".join(t.strip() for t in lines[i:i + 4]))
     tool = pathlib.Path(gate_kernel._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -1054,20 +1061,21 @@ def phase_wide_sass() -> None:
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = found.group(1)
-            if any(k in name for k in ours):
+            if _WIDE_SASS.search(name):
                 counts[name] = 0
         elif name in counts and "HMMA" in line and "TF32" in line:
             counts[name] += 1
 
     def label(mangled: str) -> str:
-        kernel, args = re.search(
-            r"(wide_(?:group|dg)_mma_kernel)I((?:Li\d+E)+)", mangled).groups()
-        return kernel + "<" + ", ".join(re.findall(r"\d+", args)) + ">"
+        kernel, args = _WIDE_SASS.search(mangled).groups()
+        return kernel + ("<" + ", ".join(re.findall(r"\d+", args)) + ">"
+                         if args else "")
 
     print("SASS TF32 HMMA instructions by kernel: " + ", ".join(
         f"{label(n)} {c}" for n, c in counts.items()))
-    if len(counts) < 2 or not all(counts.values()):
-        fail(f"#11/#12 kernels without TF32 HMMA in their SASS: {counts}")
+    kinds = {_WIDE_SASS.search(n).group(1) for n in counts}
+    if len(kinds) < 4 or not all(counts.values()):
+        fail(f"#9-#12 kernels without TF32 HMMA in their SASS: {counts}")
 
 
 def phase_mono_model(tmp: pathlib.Path, n_train: int,
@@ -1962,13 +1970,12 @@ def bound_amp(w, n) -> tuple[float, str]:
 # 8 * 2^s flops an amplitude; a sublayer's ring signs 2, the phase 6. The
 # backward does three products a group (the state's rebuild, the
 # cotangent's push, dG), the signs on state and cotangent (4) and the
-# un-encode (20). The products run at the kernel's datapath's rate:
-# "simt", float32 FMAs on the CUDA cores at PEAK_FLOPS (#9/#10), or
-# "3xtf32", three TF32 tensor-core products a product at PEAK_TF32
-# (#11/#12); the elementwise work is float32 on the CUDA cores either way.
+# un-encode (20). #9-#12 run the products as three TF32 tensor-core
+# products each, at PEAK_TF32 / 3, and the elementwise work as float32 on
+# the CUDA cores at PEAK_FLOPS.
 # Bytes: each input read once and each output written once, float32: the
 # (d, B) planes and the group planes (2 sum 4^s floats a sublayer).
-def bound_wide(w, b, n, bwd: bool, datapath: str) -> tuple[float, str]:
+def bound_wide(w, b, n, bwd: bool) -> tuple[float, str]:
     d, sizes = 2**w, wide.group_sizes(w)
     mac = 8 * sum(2**s for s in sizes)
     g = 2 * n * sum(4**s for s in sizes)
@@ -1978,8 +1985,7 @@ def bound_wide(w, b, n, bwd: bool, datapath: str) -> tuple[float, str]:
     else:
         prod, elem = b * d * n * 3 * mac, b * d * (4 * n + 20 * (n // 2))
         nbytes = 4 * (6 * d * b + g + 2 * d * b + g)
-    rate = {"simt": PEAK_FLOPS, "3xtf32": PEAK_TF32 / 3}[datapath]
-    t_ops = prod / rate + elem / PEAK_FLOPS
+    t_ops = prod / (PEAK_TF32 / 3) + elem / PEAK_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -2110,24 +2116,24 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
         times[f"wide_fwd{key}"] = _paired_ms(
             lambda: wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w),
             lambda: wide_kernel._chain_plain(pr, pi, gplanes, signs, 2, w)
-        ) + bound_wide(w, b, n, False, "3xtf32")
+        ) + bound_wide(w, b, n, False)
         times[f"wide_bwd{key}"] = _paired_ms(
             lambda: wide_kernel._wide_chain_bwd_cuda(pr, pi, gplanes, fr, fi,
                                                      gr, gi, 2, w),
             lambda: wide_kernel.wide_chain_bwd_plain(pr, pi, gplanes, fr, fi,
                                                      gr, gi, 2, w)
-        ) + bound_wide(w, b, n, True, "3xtf32")
-        # #9/#10 do #11/#12's work in one launch, on the CUDA cores
+        ) + bound_wide(w, b, n, True)
+        # #9/#10 do #11/#12's work on the same units, in one launch
         times[f"wide_mono_fwd{key}"] = _paired_ms(
             lambda: wide_kernel._wide_mono_cuda(pr, pi, gplanes, 2, w),
             lambda: wide_kernel._chain_plain(pr, pi, gplanes, signs, 2, w)
-        ) + bound_wide(w, b, n, False, "simt")
+        ) + bound_wide(w, b, n, False)
         times[f"wide_mono_bwd{key}"] = _paired_ms(
             lambda: wide_kernel._wide_mono_bwd_cuda(pr, pi, gplanes, fr, fi,
                                                     gr, gi, 2, w),
             lambda: wide_kernel.wide_chain_bwd_plain(pr, pi, gplanes, fr, fi,
                                                      gr, gi, 2, w)
-        ) + bound_wide(w, b, n, True, "simt")
+        ) + bound_wide(w, b, n, True)
         library[f"wide_fwd{key}"] = min(
             _median_ms(lambda: _library_wide_fwd(p, gs, signs, w))
             for _ in range(2))
@@ -2136,6 +2142,25 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
             for _ in range(2))
         library[f"wide_mono_fwd{key}"] = library[f"wide_fwd{key}"]
         library[f"wide_mono_bwd{key}"] = library[f"wide_bwd{key}"]
+    # printed only: a call with one column tile a group pass, whose time
+    # is the passes' fixed cost (a barrier or a launch, G and a tile staged
+    # from L2, the product's latency), #9 against #11 and #10 against #12
+    w, b, n = 11, 1, 28
+    pr, pi, gplanes, fr, fi, gr, gi = wide_inputs(rng, w, b, n, dev)
+    bwd = (pr, pi, gplanes, fr, fi, gr, gi, 2, w)
+    passes = n * len(wide.group_sizes(w))
+    mono_f, scan_f = _paired_ms(
+        lambda: wide_kernel._wide_mono_cuda(pr, pi, gplanes, 2, w),
+        lambda: wide_kernel._wide_chain_cuda(pr, pi, gplanes, 2, w))
+    mono_b, scan_b = _paired_ms(
+        lambda: wide_kernel._wide_mono_bwd_cuda(*bwd),
+        lambda: wide_kernel._wide_chain_bwd_cuda(*bwd))
+    print(f"wide pass cost w={w} B={b} L*k={n} ({smi}; {_HOW}, the "
+          f"monolith as kernel), {passes} group products a call: #9 "
+          f"{mono_f:.4f} ms, #11 {scan_f:.4f} ms ({1e3 * mono_f / passes:.2f}"
+          f" / {1e3 * scan_f / passes:.2f} us a group); #10 {mono_b:.4f} ms, "
+          f"#12 {scan_b:.4f} ms ({1e3 * mono_b / passes:.2f} / "
+          f"{1e3 * scan_b / passes:.2f} us a group)")
     for key, (kern, plain, bound, by) in times.items():
         lib = (f", library {library[key]:.4f} ms (median of 20, better of "
                f"two rounds)" if key in library else "")
@@ -2202,10 +2227,10 @@ def phase_wide_split(dev, smi: str) -> None:
 
 
 def datapath_of(key: str) -> str:
-    """The arithmetic datapath of the kernel timed under ``key``: #11/#12
+    """The arithmetic datapath of the kernel timed under ``key``: #9-#12
     multiply on the tensor cores in 3xTF32; every other kernel of the port
     runs float32 on the CUDA cores."""
-    return "3xtf32" if key.startswith(("wide_fwd", "wide_bwd")) else "simt"
+    return "3xtf32" if key.startswith("wide_") else "simt"
 
 
 def phase_crossover(dev, smi: str) -> None:

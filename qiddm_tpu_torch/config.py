@@ -77,8 +77,8 @@ def complex_dtype() -> torch.dtype:
 #   group of each sublayer and #12 for its adjoint (csrc/wide_chain.cu);
 # * "monolith": the whole L*k chain in one cooperative launch, #9 forward
 #   and #10 backward (csrc/wide_mono.cu).
-# Both compute the same function; on a CPU tensor both run the plain
-# versions. The JAX package's set_wide_kernel_mode is not ported: its "off"
+# Both run the same tensor-core units on the same tiles, so they give the
+# same bits; on a CPU tensor both run the plain versions. The JAX package's set_wide_kernel_mode is not ported: its "off"
 # is the XLA grouped chain, and on the card #11/#12 stand in for that route,
 # so a mode that turned the kernels off would put a plain version on the main
 # path. Nor is its depth guard (qiddm_tpu/sim/wide.py:260-279): it guards a

@@ -80,8 +80,9 @@
 // its last tiles and stages its G, and waits for that kernel's writes
 // before it reads a plane.
 //
-// The monolithic chain of wide_mono.cu (#9/#10) keeps the SIMT units of
-// wide_common.cuh (group_tile, dg_unit): the same function, other sums.
+// The monolithic chain of wide_mono.cu (#9/#10) runs the same units
+// (group_mma, dg_mma, dg_reduce_chunk) on the same tiles and splits, pass
+// by pass inside one cooperative launch, so it gives these kernels' bits.
 //
 // What bounds it on this card. Per sublayer the groups do
 // 8 ncols D^2 = 8 B 2^w sum_g 2^(s_g) flops: 671 MFLOP at w=16, B=10
@@ -112,8 +113,6 @@
 
 #include <climits>
 #include <cstddef>
-#include <cstdint>
-#include <initializer_list>
 #include <mutex>
 #include <vector>
 
@@ -158,37 +157,16 @@ __global__ void __launch_bounds__(kMmaThreads)
              part, sign_c, size, wires, post_b, batch, ncols, ct, per_split);
 }
 
-// dg[t] = sum over the splits of part[split][t]: each of 8 warps sums the
-// splits w, w + 8, ... in order for 32 entries, then the first warp adds
-// the 8 sums in order; the order is fixed, so is every bit.
-__global__ void __launch_bounds__(256)
+// dG's fixed-order sum over the splits, one 32-entry chunk a block
+// (dg_reduce_chunk, which #10 runs too).
+__global__ void __launch_bounds__(kMmaThreads)
     wide_dg_reduce_kernel(const float2* __restrict__ part,
                           float* __restrict__ dgr, float* __restrict__ dgi,
                           int n, int nsplit) {
-  __shared__ float2 sums[8][32];
+  __shared__ float2 sums[8 * 32];
   dependents_may_start();
   wait_for_prior_grid();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int t = blockIdx.x * 32 + lane;
-  float2 acc = make_float2(0.0f, 0.0f);
-  if (t < n)
-    for (int s = warp; s < nsplit; s += 8) {
-      const float2 p = part[static_cast<size_t>(s) * n + t];
-      acc.x += p.x;
-      acc.y += p.y;
-    }
-  sums[warp][lane] = acc;
-  __syncthreads();
-  if (warp != 0 || t >= n) return;
-  float re = 0.0f, im = 0.0f;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    re += sums[w][lane].x;
-    im += sums[w][lane].y;
-  }
-  dgr[t] = re;
-  dgi[t] = im;
+  dg_reduce_chunk(blockIdx.x, part, dgr, dgi, n, nsplit, sums);
 }
 
 // Undo the RZ phase on the state and the cotangent (both in place) and add
@@ -266,12 +244,6 @@ cudaError_t launch(void (*kernel)(Params...), unsigned grid,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-bool aligned16(std::initializer_list<const void*> planes) {
-  for (const void* p : planes)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
-}
-
 template <int NRHS, int DP>
 cudaError_t launch_group_dp(const float* in0r, const float* in0i,
                             float* out0r, float* out0i, const float* in1r,
@@ -289,8 +261,7 @@ cudaError_t launch_group_dp(const float* in0r, const float* in0i,
       S::kSmem, device, &fit);
   if (err != cudaSuccess) return err;
   const ColTiles ct = col_tiles(S::kTn, post_b, ncols, aligned);
-  const int dim = 1 << size;
-  const int g_granule = !aligned ? 1 : dim < 4 ? dim : 4;
+  const int g_granule = g_granule_for(1 << size, aligned);
   const long long grid = ct.ntiles < fit ? ct.ntiles : fit;
   return launch(wide_group_mma_kernel<NRHS, DP>,
                 static_cast<unsigned>(grid), kMmaThreads, S::kSmem, stream,
@@ -366,8 +337,8 @@ cudaError_t launch_dg(const float* cr, const float* ci, const float* sr,
   }
   if (err != cudaSuccess) return err;
   const int n = dim * dim;
-  return launch(wide_dg_reduce_kernel, (n + 31) / 32, 256, 0, stream, true,
-                reinterpret_cast<const float2*>(part), dgr, dgi, n,
+  return launch(wide_dg_reduce_kernel, (n + 31) / 32, kMmaThreads, 0, stream,
+                true, reinterpret_cast<const float2*>(part), dgr, dgi, n,
                 d.nsplit);
 }
 
@@ -421,8 +392,8 @@ int wide_chain_fwd(const void* pr, const void* pi, const void* g0r,
 }
 
 // Floats of dG partials the backward needs (its `part` scratch): the most
-// any group takes, under this file's dG split (#12) or the monolith's
-// (#10, wide_mono.cu), which share the wrapper's allocation.
+// any group takes under dg_plan's split, which #12 and #10 (wide_mono.cu)
+// share.
 size_t wide_chain_bwd_part_floats(int s0, int s1, int s2, int wires,
                                   int batch) {
   const int sizes[kMaxGroups] = {s0, s1, s2};
@@ -430,11 +401,9 @@ size_t wide_chain_bwd_part_floats(int s0, int s1, int s2, int wires,
   size_t most = 0;
   for (int g = 0; g < grp.n; ++g) {
     const size_t dim = size_t{1} << grp.size[g];
-    const int mono = dg_split(grp.size[g], grp.ncols[g]).nsplit;
-    const int mma =
+    const int nsplit =
         dg_plan(grp.size[g], grp.post_b[g], grp.ncols[g], true).nsplit;
-    const size_t need =
-        static_cast<size_t>(mono > mma ? mono : mma) * dim * dim * 2;
+    const size_t need = static_cast<size_t>(nsplit) * dim * dim * 2;
     if (need > most) most = need;
   }
   return most;

@@ -2,18 +2,17 @@
 // (wide_chain.cu: #11 and #12, one launch per wire group) and the
 // monolithic chain (wide_mono.cu: #9 and #10, one cooperative launch a
 // chain): the ring signs, the column geometry of a group view, the
-// un-encode of one amplitude, the host-side group geometry, and two
-// generations of product units.
+// un-encode of one amplitude, the host-side group geometry, and the
+// product units all four kernels run.
 //
-// #9/#10 run the SIMT units: one 32-column tile of a group product
-// (group_tile) and one unit of the dG product (dg_unit), float32 FMAs on
-// the CUDA cores, with their dG split (dg_split). #11/#12 run the Hopper
-// units: a persistent group product with op(G) resident in shared memory
-// and the state tiles staged through a cp.async ring (group_mma), and the
-// dG product on the same path (dg_mma), both as 3xTF32 products on the
-// tensor cores (mma.sync m16n8k8). The two generations compute the same
-// function with sums in another order and other roundings, so #9/#10 and
-// #11/#12 agree within the kernels' tolerances, not bit for bit.
+// The units are Hopper's: a persistent group product with op(G) resident
+// in shared memory and the state tiles staged through a cp.async ring
+// (group_mma), the dG product on the same path (dg_mma, under the split of
+// dg_plan), both as 3xTF32 products on the tensor cores (mma.sync
+// m16n8k8), and the fixed-order sum of dG's partials over the splits
+// (dg_reduce_chunk). Both variants call the same units with the same tiles
+// and splits, so a column's or a dG entry's sums run in one order: #9
+// gives #11's bits and #10 gives #12's.
 //
 // Layout (see wide_chain.cu): (d, B) float32 planes, d = 2^w, wire 0 the
 // most significant bit; the group at bit offset `off` and width `s` is the
@@ -29,12 +28,11 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <initializer_list>
 
 namespace {
 
-constexpr int kTile = 32;      // columns per block of the group product
-constexpr int kChunk = 16;     // rows of op(G) staged at a time
-constexpr int kDgK = 16;       // columns per step of the dG product
 constexpr int kMaxGroups = 3;  // ceil(20 / 7)
 
 // +1 or -1: the CZ ring of range r on basis row `row` of w wires; r = 0 is
@@ -67,222 +65,6 @@ __device__ __forceinline__ Column column_at(long long col, int dim,
   c.base = p * dim * post_b + q;
   c.row0 = static_cast<unsigned>(p * dim * post + q / batch);
   return c;
-}
-
-// Tile `tile` (columns tile*32 .. +31) of out_j = op(G) in_j on one group's
-// axis, j < NRHS, op(G) = G or G^H. RX = D / (blockDim.x / 32) rows per
-// thread. in0 may equal out0 (and in1 out1): the block reads all of its
-// columns before it writes any. `smem` holds NRHS D x 32 tiles and a
-// kChunk x D chunk of op(G) (group_smem()). Prologues: zero_in starts from
-// |0...0> (no input read), phr/phi (when not null) multiply in the RZ phase,
-// sign_in applies the ring signs of that range to every right-hand side;
-// epilogue: sign_out on the first right-hand side. A caller that runs
-// several tiles puts a __syncthreads() between them.
-template <int NRHS, int RX>
-__device__ __forceinline__ void group_tile(
-    long long tile, float2* smem, const float* in0r, const float* in0i,
-    float* out0r, float* out0i, const float* in1r, const float* in1i,
-    float* out1r, float* out1i, const float* __restrict__ gr,
-    const float* __restrict__ gi, const float* __restrict__ phr,
-    const float* __restrict__ phi, int zero_in, int adjoint, int sign_in,
-    int sign_out, int size, int wires, long long post_b, int batch,
-    long long ncols) {
-  const int dim = 1 << size;
-  const int nw = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int chunk = dim < kChunk ? dim : kChunk;
-  float2* tl = smem;                          // NRHS x [dim][kTile]
-  float2* gch = smem + NRHS * dim * kTile;    // [chunk][dim]
-
-  const long long col = tile * kTile + lane;
-  const bool valid = col < ncols;
-  const Column c = column_at(valid ? col : 0, dim, post_b, batch);
-  const long long post = post_b / batch;
-
-  for (int y = warp; y < dim; y += nw) {
-    const long long at = c.base + static_cast<long long>(y) * post_b;
-    const unsigned row = c.row0 + static_cast<unsigned>(y * post);
-    const float sg = ring_sign(row, sign_in, wires);
-    float2 v = make_float2(0.0f, 0.0f);
-    if (valid) {
-      if (zero_in) {
-        v.x = row == 0 ? 1.0f : 0.0f;
-      } else {
-        v = make_float2(in0r[at], in0i[at]);
-      }
-      if (phr != nullptr) v = cmul(v, make_float2(phr[at], phi[at]));
-    }
-    tl[y * kTile + lane] = make_float2(sg * v.x, sg * v.y);
-    if (NRHS == 2) {
-      const float2 w = valid ? make_float2(in1r[at], in1i[at])
-                             : make_float2(0.0f, 0.0f);
-      tl[(dim + y) * kTile + lane] = make_float2(sg * w.x, sg * w.y);
-    }
-  }
-
-  float2 acc[NRHS][RX];
-#pragma unroll
-  for (int j = 0; j < NRHS; ++j)
-#pragma unroll
-    for (int i = 0; i < RX; ++i) acc[j][i] = make_float2(0.0f, 0.0f);
-
-  for (int y0 = 0; y0 < dim; y0 += chunk) {
-    __syncthreads();  // the tile is loaded; the last chunk is consumed
-    for (int e = threadIdx.x; e < chunk * dim; e += blockDim.x) {
-      int yy, x;
-      float2 g;
-      if (!adjoint) {  // op(G)[x][y] = G[x][y]
-        yy = e % chunk;
-        x = e / chunk;
-        const int at = x * dim + y0 + yy;
-        g = make_float2(gr[at], gi[at]);
-      } else {         // op(G)[x][y] = conj(G[y][x])
-        x = e % dim;
-        yy = e / dim;
-        const int at = (y0 + yy) * dim + x;
-        g = make_float2(gr[at], -gi[at]);
-      }
-      gch[yy * dim + x] = g;
-    }
-    __syncthreads();
-    for (int yy = 0; yy < chunk; ++yy) {
-      float2 v[NRHS];
-#pragma unroll
-      for (int j = 0; j < NRHS; ++j)
-        v[j] = tl[(j * dim + y0 + yy) * kTile + lane];
-#pragma unroll
-      for (int i = 0; i < RX; ++i) {
-        const float2 g = gch[yy * dim + warp + nw * i];
-#pragma unroll
-        for (int j = 0; j < NRHS; ++j) {
-          acc[j][i].x += g.x * v[j].x - g.y * v[j].y;
-          acc[j][i].y += g.x * v[j].y + g.y * v[j].x;
-        }
-      }
-    }
-  }
-
-  if (!valid) return;
-#pragma unroll
-  for (int i = 0; i < RX; ++i) {
-    const int x = warp + nw * i;
-    const long long at = c.base + static_cast<long long>(x) * post_b;
-    const unsigned row = c.row0 + static_cast<unsigned>(x * post);
-    const float sg = ring_sign(row, sign_out, wires);
-    out0r[at] = sg * acc[0][i].x;
-    out0i[at] = sg * acc[0][i].y;
-    if (NRHS == 2) {
-      out1r[at] = acc[1][i].x;
-      out1i[at] = acc[1][i].y;
-    }
-  }
-}
-
-// Unit `unit` of the dG product: a (16 M)-wide tile of
-// dG[x][y] = sum over one split's columns of c[x] conj(s[y]), c times the
-// ring signs of range sign_c. M x M complex sums per thread on a 16 x 16
-// thread grid (the whole of dG below 16 rows, where the surplus threads
-// idle); `cs` and `ss` are kDgK x 16 M float2 each in shared memory. Unit
-// (tile t, split) = (unit % tiles^2, unit / tiles^2) writes
-// part[split][x][y][re, im]. Ends on a __syncthreads().
-template <int M>
-__device__ __forceinline__ void dg_unit(long long unit, float2* cs,
-                                        float2* ss, const float* cr,
-                                        const float* ci, const float* sr,
-                                        const float* si, float* part,
-                                        int sign_c, int size, int wires,
-                                        long long post_b, int batch,
-                                        long long ncols,
-                                        long long per_split) {
-  constexpr int kW = 16 * M;
-  const int dim = 1 << size;
-  const int tw = dim < kW ? dim : kW;  // tile edge
-  const int tiles = dim / tw;
-  const int t = static_cast<int>(unit % (tiles * tiles));
-  const long long split = unit / (tiles * tiles);
-  const int x0 = (t % tiles) * tw;
-  const int y0 = (t / tiles) * tw;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const long long k_begin = split * per_split;
-  long long k_end = k_begin + per_split;
-  if (k_end > ncols) k_end = ncols;
-  const long long post = post_b / batch;
-
-  float2 acc[M][M];
-#pragma unroll
-  for (int a = 0; a < M; ++a)
-#pragma unroll
-    for (int b = 0; b < M; ++b) acc[a][b] = make_float2(0.0f, 0.0f);
-
-  for (long long k0 = k_begin; k0 < k_end; k0 += kDgK) {
-    for (int e = threadIdx.x; e < kDgK * tw; e += blockDim.x) {
-      const int kk = e % kDgK;
-      const int r = e / kDgK;
-      const long long col = k0 + kk;
-      float2 cv = make_float2(0.0f, 0.0f), sv = cv;
-      if (col < k_end) {
-        const Column c = column_at(col, dim, post_b, batch);
-        const long long atx = c.base + static_cast<long long>(x0 + r) * post_b;
-        const long long aty = c.base + static_cast<long long>(y0 + r) * post_b;
-        const unsigned row =
-            c.row0 + static_cast<unsigned>((x0 + r) * post);
-        const float sg = ring_sign(row, sign_c, wires);
-        cv = make_float2(sg * cr[atx], sg * ci[atx]);
-        sv = make_float2(sr[aty], si[aty]);
-      }
-      cs[kk * kW + r] = cv;
-      ss[kk * kW + r] = sv;
-    }
-    __syncthreads();
-    if (tx < tw && ty < tw) {
-      for (int kk = 0; kk < kDgK; ++kk) {
-        float2 cv[M], sv[M];
-#pragma unroll
-        for (int a = 0; a < M; ++a) cv[a] = cs[kk * kW + tx + 16 * a];
-#pragma unroll
-        for (int b = 0; b < M; ++b) sv[b] = ss[kk * kW + ty + 16 * b];
-#pragma unroll
-        for (int a = 0; a < M; ++a)
-#pragma unroll
-          for (int b = 0; b < M; ++b) {  // c conj(s)
-            acc[a][b].x += cv[a].x * sv[b].x + cv[a].y * sv[b].y;
-            acc[a][b].y += cv[a].y * sv[b].x - cv[a].x * sv[b].y;
-          }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (tx >= tw || ty >= tw) return;
-  float* out = part + split * dim * dim * 2;
-#pragma unroll
-  for (int a = 0; a < M; ++a)
-#pragma unroll
-    for (int b = 0; b < M; ++b) {
-      const int x = x0 + tx + 16 * a;
-      const int y = y0 + ty + 16 * b;
-      if (x < x0 + tw && y < y0 + tw) {
-        out[(x * dim + y) * 2] = acc[a][b].x;
-        out[(x * dim + y) * 2 + 1] = acc[a][b].y;
-      }
-    }
-}
-
-// dg[t] = sum over the splits of part[split][t], splits in increasing
-// order; n = D^2 entries.
-__device__ __forceinline__ void dg_reduce_at(int t, const float* part,
-                                             float* dgr, float* dgi, int n,
-                                             int nsplit) {
-  float re = 0.0f, im = 0.0f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float* p = part + (static_cast<size_t>(s) * n + t) * 2;
-    re += p[0];
-    im += p[1];
-  }
-  dgr[t] = re;
-  dgi[t] = im;
 }
 
 // Undo the RZ phase at amplitude i on the state and the cotangent (both in
@@ -336,46 +118,8 @@ __host__ __device__ inline int ring_range(int li, int wires) {
   return wires > 1 ? li % (wires - 1) + 1 : 0;
 }
 
-inline int warps_for(int dim) { return dim < 8 ? dim : 8; }
-
-inline size_t group_smem(int nrhs, int dim) {
-  const int chunk = dim < kChunk ? dim : kChunk;
-  return (static_cast<size_t>(nrhs) * dim * kTile +
-          static_cast<size_t>(chunk) * dim) * sizeof(float2);
-}
-
-// The dG product's split: nsplit column ranges of per_split columns (a
-// multiple of kDgK), about two blocks an SM over the tiles.
-struct DgSplit {
-  int tile_edge;
-  int tiles;       // tiles of dG (tiles_per_edge^2)
-  long long per_split;
-  int nsplit;
-};
-
-inline DgSplit dg_split(int size, long long ncols) {
-  const int dim = 1 << size;
-  DgSplit d;
-  d.tile_edge = dim < 64 ? dim : 64;
-  d.tiles = (dim / d.tile_edge) * (dim / d.tile_edge);
-  long long want = (264 + d.tiles - 1) / d.tiles;
-  const long long most = (ncols + 63) / 64;  // at least 64 columns a split
-  if (want > most) want = most;
-  if (want < 1) want = 1;
-  long long per = (ncols + want - 1) / want;
-  per = (per + kDgK - 1) / kDgK * kDgK;
-  d.per_split = per;
-  d.nsplit = static_cast<int>((ncols + per - 1) / per);
-  return d;
-}
-
-// M of dg_unit for a group of D = dim rows: 16 M-wide tiles of dG.
-__host__ __device__ inline int dg_m(int dim) {
-  return dim >= 64 ? 4 : dim >= 32 ? 2 : 1;
-}
-
 // ---------------------------------------------------------------------------
-// Hopper units of #11/#12: 3xTF32 products on the tensor cores.
+// The product units: 3xTF32 products on the tensor cores.
 //
 // A complex product out = A B runs in real form, [Ar -Ai; Ai Ar] against
 // [Br; Bi]: out_r += Ar Br - Ai Bi and out_i += Ai Br + Ar Bi, four real
@@ -420,6 +164,19 @@ inline ColTiles col_tiles(int tn, long long post_b, long long ncols,
     c.ntiles = (p_rows + c.ppt - 1) / c.ppt;
   }
   return c;
+}
+
+// Whether every plane starts on 16 bytes, so rows may be copied 16 or 8
+// bytes at a time.
+inline bool aligned16(std::initializer_list<const void*> planes) {
+  for (const void* p : planes)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+// Floats a copy of G's rows into shared memory.
+inline int g_granule_for(int dim, bool aligned) {
+  return !aligned ? 1 : dim < 4 ? dim : 4;
 }
 
 // Tile t's first column (into *col0) and its count of columns.
@@ -524,7 +281,10 @@ __device__ __forceinline__ void stage_rows(float* dst, int plane, int ld,
 // cudaLaunchAttributeProgrammaticStreamSerialization, waits for this
 // grid's completion and memory (wait_for_prior_grid) only before it
 // touches the planes, so its start and its prologue hide behind this
-// grid's tail. Without the attribute both are no-ops.
+// grid's tail. Without the attribute both are no-ops. The units call them
+// where their template flag PDL is set (#11/#12); the monolith's passes,
+// one cooperative launch that is never launched as a dependent, compile
+// them out.
 __device__ __forceinline__ void dependents_may_start() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
@@ -744,8 +504,9 @@ struct MmaShape {
 // out1). Prologues on a tile in shared memory: zero_in starts from
 // |0...0> (no input read), phr/phi (when not null) multiply in the RZ
 // phase, sign_in applies the ring signs of that range to every right-hand
-// side; epilogue: sign_out on the first right-hand side.
-template <int NRHS, int DP>
+// side; epilogue: sign_out on the first right-hand side. A block with no
+// tile stages G and drains its copies all the same.
+template <int NRHS, int DP, bool PDL = true>
 __device__ __forceinline__ void group_mma(
     float* smem, const float* in0r, const float* in0i, float* out0r,
     float* out0i, const float* in1r, const float* in1i, float* out1r,
@@ -823,7 +584,7 @@ __device__ __forceinline__ void group_mma(
     cp_async_commit();
   };
 
-  wait_for_prior_grid();  // G is an input: staged before
+  if constexpr (PDL) wait_for_prior_grid();  // G is an input: staged before
   issue(blockIdx.x, 0);
   issue(blockIdx.x + step, 1);
   const int m0 = (warp % S::kWm) * 16;
@@ -938,7 +699,7 @@ __device__ __forceinline__ void group_mma(
   }
   // the next launch's blocks may take this SM now, not at entry: blocks
   // of waiting launches crowd the SMs and unbalance the next grid
-  dependents_may_start();
+  if constexpr (PDL) dependents_may_start();
   cp_async_wait<0>();
 }
 
@@ -964,8 +725,10 @@ struct DgShape {
 // c times the ring signs of range sign_c; unit (tile o, split) =
 // (unit % tiles, unit / tiles) writes part[split][x][y][re, im]. The
 // split's tiles go through the cp.async ring as in group_mma; columns past
-// a tile's end are zero in both operands.
-template <int TW>
+// a tile's end are zero in both operands. Every thread returns with its
+// copies drained; the unit's last use of shared memory is behind a
+// __syncthreads().
+template <int TW, bool PDL = true>
 __device__ __forceinline__ void dg_mma(float* smem, long long unit,
                                        const float* cr, const float* ci,
                                        const float* sr, const float* si,
@@ -1017,7 +780,7 @@ __device__ __forceinline__ void dg_mma(float* smem, long long unit,
     cp_async_commit();
   };
 
-  wait_for_prior_grid();
+  if constexpr (PDL) wait_for_prior_grid();
   issue(t0, 0);
   issue(t0 + 1, 1);
   const bool active = warp < S::kWm * S::kWn;
@@ -1067,7 +830,7 @@ __device__ __forceinline__ void dg_mma(float* smem, long long unit,
     __syncthreads();  // stage s and its table are free
     issue(t + 2, s);
   }
-  dependents_may_start();
+  if constexpr (PDL) dependents_may_start();
   cp_async_wait<0>();
   if (!active) return;
   add_small<NB>(acr, asr);
@@ -1115,6 +878,41 @@ inline DgPlan dg_plan(int size, long long post_b, long long ncols,
   d.per_split = (d.ct.ntiles + want - 1) / want;
   d.nsplit = static_cast<int>((d.ct.ntiles + d.per_split - 1) / d.per_split);
   return d;
+}
+
+// dg[t] = sum over the splits of part[split][t] for the 32 entries
+// t = 32 chunk + lane of one chunk, by a block of kMmaThreads threads:
+// each of the 8 warps sums the splits w, w + 8, ... in order, then the
+// first warp adds the 8 sums in order; the order is fixed, so is every
+// bit. `sums` holds 8 x 32 float2 of shared memory; a caller that runs
+// several chunks puts a __syncthreads() between them. part is read with
+// plain loads: the monolith wrote it in the same launch.
+__device__ __forceinline__ void dg_reduce_chunk(int chunk, const float2* part,
+                                                float* dgr, float* dgi,
+                                                int n, int nsplit,
+                                                float2* sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = chunk * 32 + lane;
+  float2 acc = make_float2(0.0f, 0.0f);
+  if (t < n)
+    for (int s = warp; s < nsplit; s += 8) {
+      const float2 p = part[static_cast<size_t>(s) * n + t];
+      acc.x += p.x;
+      acc.y += p.y;
+    }
+  sums[warp * 32 + lane] = acc;
+  __syncthreads();
+  if (warp == 0 && t < n) {
+    float re = 0.0f, im = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      re += sums[w * 32 + lane].x;
+      im += sums[w * 32 + lane].y;
+    }
+    dgr[t] = re;
+    dgi[t] = im;
+  }
 }
 
 }  // namespace

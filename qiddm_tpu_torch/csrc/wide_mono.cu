@@ -23,42 +23,60 @@
 // the function, and are not carried over.
 //
 // Design. One cooperative launch (cudaLaunchCooperativeKernel on the
-// caller's stream) of at most as many blocks as are co-resident on the card
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, queried with the
-// kernel's real dynamic shared memory), and no more than the largest pass
-// has work units. The state stays in device memory (8 MB a sample at
-// w = 20): a 2^20 state does not fit one SM. Each pass is a grid-stride
-// loop over its work units, and cooperative_groups' grid.sync() separates
-// passes that read what another block wrote:
-//   forward, per group: the 32-column tiles of the group product
-//     (group_tile, the SIMT unit of wide_common.cuh, one right-hand side),
-//     written over their input; the RZ phase is the prologue of a layer's
+// caller's stream) of 256-thread blocks, at most as many as are co-resident
+// on the card (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, queried
+// with the kernel's real dynamic shared memory) and no more than the
+// largest pass has work units. The state stays in device memory (8 MB a
+// sample at w = 20): a 2^20 state does not fit one SM. Each pass runs one
+// of the units of wide_common.cuh over its work, blockIdx.x, + gridDim.x,
+// ..., and cooperative_groups' grid.sync() separates passes that read what
+// another block wrote:
+//   forward, per group: group_mma<1, DP> (3xTF32 on the tensor cores, G
+//     staged into shared memory by cp.async, the column tiles through a
+//     two-stage ring), written over its input; the first group of the
+//     chain starts from |0...0>, the RZ phase is the prologue of a layer's
 //     first group and the ring signs the epilogue of a sublayer's last, as
 //     in #11;
-//   backward, per group: the tiles of the rebuild and push (group_tile with
-//     two right-hand sides: the state in place, G^H c into a second
-//     cotangent buffer) | sync | the units (dG tile, column split) of the dG
-//     product (dg_unit), each writing its own partial | sync | the
-//     fixed-order sum of the partials over the splits (dg_reduce_at), and
-//     after a layer's first sublayer the un-encode (unencode_at) | sync.
-// #11/#12 compute the same function on the tensor cores (group_mma,
-// dg_mma), with other sums and roundings: the two variants agree within
-// the kernels' tolerances, not bit for bit. No float atomics, and the work
-// unit -> partial map does not depend on the grid, so a run gives the same
-// bits every time. A block with no tile in a pass still reaches every
-// grid.sync() (no early return). The kernels read the planes they write
-// only with plain loads (no __restrict__ or read-only cache on them).
+//   backward, per group: group_mma<2, DP> (the state rebuilt in place, G^H
+//     c into a second cotangent buffer) | sync | the units of dg_mma<TW>
+//     under dg_plan, each writing its own partial | sync | the fixed-order
+//     sum over the splits (dg_reduce_chunk), and after a layer's first
+//     sublayer the un-encode (unencode_at) | sync.
+// DP = max(16, D) is chosen per group at run time, so the kernel holds one
+// branch per DP and its registers are its largest branch's (ptxas: 238
+// forward, 255 backward with 44 bytes spilled; one block an SM). A second
+// build for groups of at most 64 rows, capped at 128 registers for two
+// blocks an SM at 16 wires, took #9 about 3% less time there on an H100
+// and #10 more (it spilled 0.5 KB), so there is one build. Every block
+// restages G on every pass (136 KB at D = 128, from L2); staging the next
+// pass's G before the barrier, or calling the units out of line, did not
+// move the times beyond the spread of in-turn pairs. The units'
+// programmatic-dependent-launch hooks (griddepcontrol) are compiled out
+// (PDL = false): a cooperative launch is never launched as a dependent, so
+// they would only be instructions and compiler barriers in every pass.
 //
-// Groups of different widths (at w=16: 64, 32, 32 rows) run in one kernel:
-// group_tile is instantiated for every RX = D / 8 and chosen per group at
-// run time, so the kernel's registers are its largest branch's. The block
-// has 32 * min(8, smallest D) threads (256 from 3 wires up).
+// Determinism. The passes use #11/#12's column tiles (col_tiles with the
+// same alignment rule), G copy width, dG split (dg_plan) and sum order
+// (dg_reduce_chunk, wide_dg_reduce_kernel's body), and a tile's or unit's
+// sums do not depend on which block runs it: #9 gives #11's bits and #10
+// gives #12's on the same inputs, and a run gives the same bits every time
+// (no float atomics). A block with no tile or unit in a pass still stages
+// G, drains its copies and reaches every grid.sync() (no early return);
+// grid.sync() also keeps the next pass's staging off shared memory the
+// last one still reads. The planes the kernels write are read with plain
+// loads and cp.async only (no __restrict__ or read-only cache on them).
 //
-// What bounds it on this card: the group products' work of #11/#12 (see
-// wide_chain.cu) as float32 FMAs on the CUDA cores, bound by the float32
-// peak (67 TFLOP/s); the monolith saves the launches and the host's
-// enqueue of L*k*G (forward) or 3 L*k*G + L (backward) kernels, and pays
-// a grid-wide barrier per pass instead.
+// What bounds it on this card: #11/#12's work (see wide_chain.cu), the
+// group and dG products as three TF32 tensor-core products each, at 165
+// TFLOP/s effective (495 / 3) on paper and about a quarter of that with
+// mma.sync. The monolith saves the launches and the host's enqueue of
+// L*k*G (forward) or 3 L*k*G + L (backward) kernels, and pays a grid-wide
+// barrier per pass and G's restaging instead. On an H100 a group pass
+// with one column tile took about 7 us forward and 17 us backward in
+// either variant (G and a tile staged from L2, the product's latency, a
+// barrier or a dependent launch): #11/#12's launches already overlap, so
+// the monolith saves no time where passes are short (16 wires), and at
+// 20 wires the products set both.
 //
 // Indices are 64-bit. Plain C interface (bound with ctypes): each entry
 // launches on the caller's stream, allocates nothing, does not synchronise,
@@ -97,73 +115,68 @@ struct MonoArgs {
   float* dpr;
   float* dpi;
   Groups grp;
-  long long per_split[kMaxGroups];  // the dG split of each group
-  long long units[kMaxGroups];      // dG tiles x splits
-  int nsplit[kMaxGroups];
+  ColTiles ct[kMaxGroups];  // each group product's column tiles
+  int g_granule[kMaxGroups];
+  DgPlan dg[kMaxGroups];    // backward: each dG product's split
   int wires, batch, n_layers, k;
 };
 
-// Every 32-column tile of one group product, grid-stride; RX chosen from
-// the group's rows at run time.
+// One group product over every column tile of group g, layer offset gm of
+// its matrices (group_mma; DP from the group's rows).
 template <int NRHS>
-__device__ __forceinline__ void group_pass(
-    float2* smem, const float* in0r, const float* in0i, float* out0r,
-    float* out0i, const float* in1r, const float* in1i, float* out1r,
-    float* out1i, const float* gr, const float* gi, const float* phr,
-    const float* phi, int zero_in, int adjoint, int sign_in, int sign_out,
-    int size, int wires, long long post_b, int batch, long long ncols) {
-  const int rx = (1 << size) / (blockDim.x >> 5);
-  const long long ntiles = (ncols + kTile - 1) / kTile;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    switch (rx) {
-#define WIDE_MONO_CASE(RX)                                                    \
-  case RX:                                                                    \
-    group_tile<NRHS, RX>(t, smem, in0r, in0i, out0r, out0i, in1r, in1i,      \
-                         out1r, out1i, gr, gi, phr, phi, zero_in, adjoint,   \
-                         sign_in, sign_out, size, wires, post_b, batch,      \
-                         ncols);                                             \
+__device__ __forceinline__ void product_pass(
+    float* smem, const MonoArgs& a, int g, size_t gm, const float* in0r,
+    const float* in0i, float* out0r, float* out0i, const float* in1r,
+    const float* in1i, float* out1r, float* out1i, const float* phr,
+    const float* phi, int zero_in, int adjoint, int sign_in, int sign_out) {
+  const int size = a.grp.size[g];
+  switch (size < 4 ? 16 : 1 << size) {
+#define WIDE_MONO_CASE(DP)                                                   \
+  case DP:                                                                   \
+    group_mma<NRHS, DP, false>(                                              \
+        smem, in0r, in0i, out0r, out0i, in1r, in1i, out1r, out1i,            \
+        a.gr[g] + gm, a.gi[g] + gm, phr, phi, zero_in, adjoint, sign_in,     \
+        sign_out, size, a.wires, a.grp.post_b[g], a.batch, a.grp.ncols[g],   \
+        a.ct[g], a.g_granule[g]);                                            \
     break;
-      WIDE_MONO_CASE(1)
-      WIDE_MONO_CASE(2)
-      WIDE_MONO_CASE(4)
-      WIDE_MONO_CASE(8)
-      WIDE_MONO_CASE(16)
+    WIDE_MONO_CASE(16)
+    WIDE_MONO_CASE(32)
+    WIDE_MONO_CASE(64)
+    WIDE_MONO_CASE(128)
 #undef WIDE_MONO_CASE
-      default:
-        break;  // excluded by the host's geometry
-    }
-    __syncthreads();  // the next tile reuses the shared memory
+    default:
+      break;  // excluded by the host's plan
   }
 }
 
-// Every unit (dG tile, column split) of one group's dG product,
-// grid-stride; each writes its partial to part[split].
-__device__ __forceinline__ void dg_pass(float2* smem, const float* cr,
+// Every unit (dG tile, column split) of group g's dG product (dg_mma),
+// each writing its partial to part[split].
+__device__ __forceinline__ void dg_pass(float* smem, const MonoArgs& a,
+                                        int g, const float* cr,
                                         const float* ci, const float* sr,
-                                        const float* si, float* part,
-                                        int sign_c, int size, int wires,
-                                        long long post_b, int batch,
-                                        long long ncols, long long per_split,
-                                        long long units) {
-  const int m = dg_m(1 << size);
+                                        const float* si, int sign) {
+  const DgPlan& d = a.dg[g];
+  const long long units = static_cast<long long>(d.otiles) * d.nsplit;
   for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-    if (m == 4) {
-      dg_unit<4>(u, smem, smem + kDgK * 64, cr, ci, sr, si, part, sign_c,
-                 size, wires, post_b, batch, ncols, per_split);
-    } else if (m == 2) {
-      dg_unit<2>(u, smem, smem + kDgK * 32, cr, ci, sr, si, part, sign_c,
-                 size, wires, post_b, batch, ncols, per_split);
+#define WIDE_DG_ARGS                                                         \
+  smem, u, cr, ci, sr, si, a.part, sign, a.grp.size[g], a.wires,             \
+      a.grp.post_b[g], a.batch, a.grp.ncols[g], d.ct, d.per_split
+    if (d.tw == 64) {
+      dg_mma<64, false>(WIDE_DG_ARGS);
+    } else if (d.tw == 32) {
+      dg_mma<32, false>(WIDE_DG_ARGS);
     } else {
-      dg_unit<1>(u, smem, smem + kDgK * 16, cr, ci, sr, si, part, sign_c,
-                 size, wires, post_b, batch, ncols, per_split);
+      dg_mma<16, false>(WIDE_DG_ARGS);
     }
+#undef WIDE_DG_ARGS
   }
 }
 
 // Kernel #9: the forward chain, one group product a pass.
-__global__ void __launch_bounds__(256, 2)
+__global__ void __launch_bounds__(kMmaThreads)
     wide_mono_fwd_kernel(const MonoArgs a) {
-  extern __shared__ float2 smem2[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
   const Groups& grp = a.grp;
   for (int l = 0; l < a.n_layers; ++l) {
@@ -173,22 +186,21 @@ __global__ void __launch_bounds__(256, 2)
       const int dim = 1 << grp.size[g];
       const size_t gm = static_cast<size_t>(l) * dim * dim;
       const bool first = li == 0 && g == 0;
-      group_pass<1>(smem2, a.sr, a.si, a.sr, a.si, nullptr, nullptr,
-                    nullptr, nullptr, a.gr[g] + gm, a.gi[g] + gm,
-                    first ? a.pr : nullptr, first ? a.pi : nullptr,
-                    first && l == 0, 0, 0,
-                    g == grp.n - 1 ? ring_range(li, a.wires) : 0,
-                    grp.size[g], a.wires, grp.post_b[g], a.batch,
-                    grp.ncols[g]);
+      product_pass<1>(smem, a, g, gm, a.sr, a.si, a.sr, a.si, nullptr,
+                             nullptr, nullptr, nullptr,
+                             first ? a.pr : nullptr, first ? a.pi : nullptr,
+                             first && l == 0, 0, 0,
+                             g == grp.n - 1 ? ring_range(li, a.wires) : 0);
     }
   }
 }
 
 // Kernel #10: the adjoint walk, three passes a group and the un-encode
 // after each spectrum layer's first sublayer.
-__global__ void __launch_bounds__(256, 2)
+__global__ void __launch_bounds__(kMmaThreads)
     wide_mono_bwd_kernel(const MonoArgs a) {
-  extern __shared__ float2 smem2[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
   const Groups& grp = a.grp;
   float* s_r = a.sr;
@@ -210,19 +222,19 @@ __global__ void __launch_bounds__(256, 2)
       const size_t gm = static_cast<size_t>(l) * dim * dim;
       const int sign = g == grp.n - 1 ? r : 0;
       // the state in place: s_in = G^H s; the cotangent into t: G^H c
-      group_pass<2>(smem2, s_r, s_i, s_r, s_i, c_r, c_i, t_r, t_i,
-                    a.gr[g] + gm, a.gi[g] + gm, nullptr, nullptr, 0, 1, sign,
-                    0, grp.size[g], a.wires, grp.post_b[g], a.batch,
-                    grp.ncols[g]);
+      product_pass<2>(smem, a, g, gm, s_r, s_i, s_r, s_i, c_r, c_i,
+                             t_r, t_i, nullptr, nullptr, 0, 1, sign, 0);
       grid.sync();  // every column of s_in is written
-      dg_pass(smem2, c_r, c_i, s_r, s_i, a.part, sign, grp.size[g], a.wires,
-              grp.post_b[g], a.batch, grp.ncols[g], a.per_split[g],
-              a.units[g]);
+      dg_pass(smem, a, g, c_r, c_i, s_r, s_i, sign);
       grid.sync();  // every partial is written; c_out is read for good
       const int nd = dim * dim;
-      for (long long t = tid; t < nd; t += stride)
-        dg_reduce_at(static_cast<int>(t), a.part, a.dgr[g] + gm,
-                     a.dgi[g] + gm, nd, a.nsplit[g]);
+      for (int chunk = blockIdx.x; chunk < (nd + 31) / 32;
+           chunk += gridDim.x) {
+        dg_reduce_chunk(chunk, reinterpret_cast<const float2*>(a.part),
+                        a.dgr[g] + gm, a.dgi[g] + gm, nd, a.dg[g].nsplit,
+                        reinterpret_cast<float2*>(smem));
+        __syncthreads();  // the sums are read; the next pass stages over them
+      }
       float* swap_r = c_r;
       float* swap_i = c_i;
       c_r = t_r;
@@ -244,20 +256,19 @@ __global__ void __launch_bounds__(256, 2)
 
 // Launch geometry of one chain call.
 struct Plan {
+  const void* kernel;
   int grid;
-  int threads;
   size_t smem;
   int blocks_per_sm;
 };
 
-// The card's residency for one kernel, device, block and dynamic shared
-// memory: co-resident blocks an SM times SMs. Queried once each (the
-// attributes and the occupancy do not change), under a lock, since ctypes
-// releases Python's GIL for the call.
+// The card's residency for one kernel, device and dynamic shared memory:
+// co-resident blocks an SM times SMs. Queried once each (the attributes
+// and the occupancy do not change), under a lock, since ctypes releases
+// Python's GIL for the call.
 struct Residency {
   const void* kernel;
   int device;
-  int threads;
   size_t smem;
   int blocks_per_sm;
   int sms;
@@ -273,12 +284,11 @@ std::mutex g_mu;
 std::vector<Residency> g_residency;
 std::vector<SmemLimit> g_limit;
 
-cudaError_t residency(const void* kernel, int device, int threads,
-                      size_t smem, int* blocks_per_sm, int* sms) {
+cudaError_t residency(const void* kernel, int device, size_t smem,
+                      int* blocks_per_sm, int* sms) {
   std::lock_guard<std::mutex> lock(g_mu);
   for (const Residency& r : g_residency)
-    if (r.kernel == kernel && r.device == device && r.threads == threads &&
-        r.smem == smem) {
+    if (r.kernel == kernel && r.device == device && r.smem == smem) {
       *blocks_per_sm = r.blocks_per_sm;
       *sms = r.sms;
       return cudaSuccess;
@@ -288,7 +298,7 @@ cudaError_t residency(const void* kernel, int device, int threads,
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  Residency r = {kernel, device, threads, smem, 0, 0};
+  Residency r = {kernel, device, smem, 0, 0};
   err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   SmemLimit* limit = nullptr;
@@ -306,7 +316,8 @@ cudaError_t residency(const void* kernel, int device, int threads,
   }
   // after the limit is set: the query counts the real shared memory
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r.blocks_per_sm,
-                                                      kernel, threads, smem);
+                                                      kernel, kMmaThreads,
+                                                      smem);
   if (err != cudaSuccess) return err;
   if (r.blocks_per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   g_residency.push_back(r);
@@ -315,56 +326,89 @@ cudaError_t residency(const void* kernel, int device, int threads,
   return cudaSuccess;
 }
 
-// Fills `a`'s dG splits (backward) and plans the cooperative launch of
-// `kernel`: threads, dynamic shared memory, and a grid of at most the
-// co-resident blocks and at most the largest pass's work units.
-cudaError_t plan_launch(const void* kernel, bool bwd, MonoArgs* a, int device,
+// group_mma's column-tile width and shared memory for NRHS right-hand
+// sides at DP rows.
+template <int NRHS>
+void mma_shape(int dp, int* tn, size_t* smem) {
+  switch (dp) {
+#define WIDE_MONO_SHAPE(DP)                  \
+  case DP:                                   \
+    *tn = MmaShape<NRHS, DP>::kTn;           \
+    *smem = MmaShape<NRHS, DP>::kSmem;       \
+    return;
+    WIDE_MONO_SHAPE(16)
+    WIDE_MONO_SHAPE(32)
+    WIDE_MONO_SHAPE(64)
+    WIDE_MONO_SHAPE(128)
+#undef WIDE_MONO_SHAPE
+  }
+}
+
+size_t dg_smem(int tw) {
+  return tw == 64 ? DgShape<64>::kSmem
+                  : tw == 32 ? DgShape<32>::kSmem : DgShape<16>::kSmem;
+}
+
+// Fills `a`'s column tiles, G copy widths and (backward) dG splits as
+// #11/#12 take them for planes of this alignment, and plans the
+// cooperative launch: its dynamic shared memory (the largest pass's) and
+// a grid of at most the co-resident blocks and at most the largest pass's
+// work units.
+cudaError_t plan_launch(bool bwd, MonoArgs* a, bool aligned, int device,
                         Plan* p) {
   const Groups& grp = a->grp;
-  int min_dim = 1 << 30;
+  if (grp.n < 1) return cudaErrorInvalidValue;
   size_t smem = 0;
   long long work = 1;
   for (int g = 0; g < grp.n; ++g) {
     const int dim = 1 << grp.size[g];
-    if (dim < min_dim) min_dim = dim;
-    const size_t tile = group_smem(bwd ? 2 : 1, dim);
-    if (tile > smem) smem = tile;
-    const long long tiles = (grp.ncols[g] + kTile - 1) / kTile;
-    if (tiles > work) work = tiles;
+    const int dp = dim < 16 ? 16 : dim;
+    if (dp > 128) return cudaErrorInvalidValue;
+    int tn = 0;
+    size_t need = 0;
+    if (bwd)
+      mma_shape<2>(dp, &tn, &need);
+    else
+      mma_shape<1>(dp, &tn, &need);
+    a->ct[g] = col_tiles(tn, grp.post_b[g], grp.ncols[g], aligned);
+    a->g_granule[g] = g_granule_for(dim, aligned);
+    if (need > smem) smem = need;
+    if (a->ct[g].ntiles > work) work = a->ct[g].ntiles;
     if (bwd) {
-      const DgSplit d = dg_split(grp.size[g], grp.ncols[g]);
-      a->per_split[g] = d.per_split;
-      a->nsplit[g] = d.nsplit;
-      a->units[g] = static_cast<long long>(d.tiles) * d.nsplit;
-      if (a->units[g] > work) work = a->units[g];
-      const size_t dg = 2 * kDgK * 16 * dg_m(dim) * sizeof(float2);
-      if (dg > smem) smem = dg;
+      const DgPlan d = dg_plan(grp.size[g], grp.post_b[g], grp.ncols[g],
+                               aligned);
+      a->dg[g] = d;
+      const long long units = static_cast<long long>(d.otiles) * d.nsplit;
+      const long long chunks = (static_cast<long long>(dim) * dim + 31) / 32;
+      if (units > work) work = units;
+      if (chunks > work) work = chunks;
+      if (dg_smem(d.tw) > smem) smem = dg_smem(d.tw);
     }
   }
-  if (grp.n < 1 || min_dim < 2) return cudaErrorInvalidValue;
-  p->threads = 32 * warps_for(min_dim);
-  p->smem = smem;
   if (bwd) {
     const long long n = (1LL << a->wires) * a->batch;
-    const long long elems = (n + p->threads - 1) / p->threads;
+    const long long elems = (n + kMmaThreads - 1) / kMmaThreads;
     if (elems > work) work = elems;
   }
+  p->kernel = bwd ? reinterpret_cast<const void*>(wide_mono_bwd_kernel)
+                  : reinterpret_cast<const void*>(wide_mono_fwd_kernel);
+  p->smem = smem;
   int sms = 0;
   const cudaError_t err =
-      residency(kernel, device, p->threads, smem, &p->blocks_per_sm, &sms);
+      residency(p->kernel, device, smem, &p->blocks_per_sm, &sms);
   if (err != cudaSuccess) return err;
   const long long resident = static_cast<long long>(p->blocks_per_sm) * sms;
   p->grid = static_cast<int>(work < resident ? work : resident);
   return cudaSuccess;
 }
 
-cudaError_t launch(const void* kernel, bool bwd, MonoArgs* a, int device,
+cudaError_t launch(bool bwd, MonoArgs* a, bool aligned, int device,
                    cudaStream_t stream) {
   Plan p;
-  cudaError_t err = plan_launch(kernel, bwd, a, device, &p);
+  cudaError_t err = plan_launch(bwd, a, aligned, device, &p);
   if (err != cudaSuccess) return err;
   void* params[] = {a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(p.grid), dim3(p.threads),
+  err = cudaLaunchCooperativeKernel(p.kernel, dim3(p.grid), dim3(kMmaThreads),
                                     params, p.smem, stream);
   const cudaError_t last = cudaGetLastError();  // clears a refused launch
   return err != cudaSuccess ? err : last;
@@ -413,9 +457,9 @@ int wide_mono_fwd(const void* pr, const void* pi, const void* g0r,
                          wires, batch, n_layers, k);
   a.sr = static_cast<float*>(sr);
   a.si = static_cast<float*>(si);
+  const bool aligned = aligned16({sr, si, g0r, g0i, g1r, g1i, g2r, g2i});
   return static_cast<int>(
-      launch(reinterpret_cast<const void*>(wide_mono_fwd_kernel), false, &a,
-             device, static_cast<cudaStream_t>(stream)));
+      launch(false, &a, aligned, device, static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel #10: the adjoint backward of wide_mono_fwd in one cooperative
@@ -452,14 +496,15 @@ int wide_mono_bwd(const void* pr, const void* pi, const void* g0r,
   }
   a.dpr = static_cast<float*>(dpr);
   a.dpi = static_cast<float*>(dpi);
+  const bool aligned =
+      aligned16({sr, si, cr, ci, tr, ti, g0r, g0i, g1r, g1i, g2r, g2i});
   return static_cast<int>(
-      launch(reinterpret_cast<const void*>(wide_mono_bwd_kernel), true, &a,
-             device, static_cast<cudaStream_t>(stream)));
+      launch(true, &a, aligned, device, static_cast<cudaStream_t>(stream)));
 }
 
-// The grid #9 (bwd = 0) or #10 (bwd = 1) takes for one chain call, as its
-// launch plans it: out[0] grid, out[1] co-resident blocks an SM. Returns a
-// cudaError_t.
+// The grid #9 (bwd = 0) or #10 (bwd = 1) takes for one chain call on
+// aligned planes, as its launch plans it: out[0] grid, out[1] co-resident
+// blocks an SM. Returns a cudaError_t.
 int wide_mono_plan(int bwd, int s0, int s1, int s2, int wires, int batch,
                    int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
@@ -468,9 +513,7 @@ int wide_mono_plan(int bwd, int s0, int s1, int s2, int wires, int batch,
                          nullptr, nullptr, nullptr, s0, s1, s2, wires, batch,
                          1, 1);
   Plan p;
-  err = plan_launch(bwd ? reinterpret_cast<const void*>(wide_mono_bwd_kernel)
-                        : reinterpret_cast<const void*>(wide_mono_fwd_kernel),
-                    bwd != 0, &a, device, &p);
+  err = plan_launch(bwd != 0, &a, true, device, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = p.grid;
   out[1] = p.blocks_per_sm;
