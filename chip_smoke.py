@@ -12,8 +12,9 @@ any failure exits non-zero and no phase's failure is caught:
 
 1. device: a CUDA device must be present; prints torch, CUDA, the card and
    its power limit (nvidia-smi);
-2. build: compiles qiddm_tpu_torch/csrc/*.cu (all twenty kernels: the
-   fourteen chain kernels and the six probes; one
+2. build: compiles qiddm_tpu_torch/csrc/*.cu (all twenty-one kernels:
+   the fifteen chain kernels, #5's rows variant among them, and the six
+   probes; one
    nvcc per source, started together, then one link) for sm_90a into
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
@@ -28,7 +29,12 @@ any failure exits non-zero and no phase's failure is caught:
    {1, 2, 4, 6, 8, 10} x B in {1, 10, 16, 80} x ring in {cz, cnot}, depth
    14, and (w=6, B=16, depth 60, cnot), and at the trajectory route's
    widths, w in {11, 12} x B in {1, 10, 1000} x depth in {2, 14} x both
-   rings, from random normalized start states, max |diff| <= 1e-5;
+   rings, from random normalized start states, max |diff| <= 1e-5; then
+   the rows kernel #5 (sel_chain_rows, the trajectory route's (N, d)
+   complex64 entry) at all those shapes against its plain version and
+   against the planes' kernel on the same states, each max |diff| <= 1e-5
+   (the largest difference from the planes' kernel printed: the two give
+   the same bits);
 6. SEL-chain backward kernel against plain: kernel #6 at the same shapes
    with N(0, 1) cotangents, dsr, dsi and dg each within
    1e-5 * max(1, max|plain|); at one shape per ring also against torch
@@ -85,7 +91,10 @@ any failure exits non-zero and no phase's failure is caught:
    the sweep, (w=6, B=10, L=14, RZ) and (w=8, B=10, L=6, RY), and at the
    kernel's widest, (w=9, B=2, L=2) and (w=10, B=1, L=1), both encodes, at
    strength 0.3: max |rho_kernel - rho_plain| <= 1e-5, rho Hermitian and
-   of trace 1 within 1e-5;
+   of trace 1 within 1e-5; each shape's cluster plan printed
+   (dm_kernel.cluster_plan: CTAs a sample, rows a CTA, shared memory a
+   CTA, rho in shared or device memory, and the clusters the card holds
+   at once);
 13. the noisy sweep: a seeded fashion_28.npz (500 images, 50 per label) in
    the temporary data directory, then qiddm_tpu_torch.cli.fashion_noise
    --all-noise-types --device cuda with QIDDM_LL_noise 784 6 14 2,
@@ -117,13 +126,15 @@ any failure exits non-zero and no phase's failure is caught:
    6, 2) with seeded weights under amplitude damping 0.05 on 100
    Monte-Carlo trajectories, 10 start images x 15 iterations through
    Diffusion.sample with a generator on the card whose draws are recorded:
-   finite images, kernels #7 and #5 each launched at least 12 times an
-   iteration (2 blocks x 6 spectrum layers), the steady images/s (median
+   finite images, kernel #7 launched at least 12 times an iteration (2
+   blocks x 6 spectrum layers) and the rows kernel #5 exactly 12 times an
+   iteration with no launch of the planes' #5, the steady images/s (median
    of 3 runs after the recorded one), and the first iteration (the first
    three when the first takes the CPU under 20 s) rerun on the CPU plain
    path from the card's batch with the card's draws and branch picks,
    within 1e-4; then 5 steady iterations under torch.profiler: device
-   events, busy time, idle share, and the shares of #7 and #5;
+   events, busy time, idle share, and the shares of #7 and the rows #5
+   (again exactly 12 rows launches an iteration, no planes' #5);
 17. the noisy sweep on the trajectory backend (path B):
    qiddm_tpu_torch.cli.fashion_noise --all-noise-types --noise-backend traj
    --n-traj 100 --device cuda with QIDDM_PL_noise1 784 8 6 2 and QNN_noise
@@ -138,9 +149,12 @@ any failure exits non-zero and no phase's failure is caught:
    gate-chain forward at w=6, B=16, L*k=28 and its backward at B=10 and
    B=16; the SEL chain forward and backward at w=8, depth 14, B=10 and 16,
    CZ, at w=6, depth 60, B=10, CNOT, and at path A's w=12, depth 2,
-   B=1000, CZ; the RY chain forward and backward at w=8, B=10, L*k=12 and
+   B=1000, CZ and CNOT, there also the rows kernel on the same states;
+   the RY chain forward and backward at w=8, B=10, L*k=12 and
    at w=6, B=11, L*k=28; the density-matrix block, depolarizing, at the
-   sweep's two QIDDM shapes and at w=10, B=1, L=1; the amplitude-damping
+   sweep's two QIDDM shapes and at w=10, B=1, L=1, each with its cluster
+   plan, and at the sweep's shapes (printed only) in turns with every
+   other cluster whose rows fit in shared memory; the amplitude-damping
    pass at N=1000 and w=12 and 8), each beside its bound (the larger of
    its arithmetic over 67 TFLOP/s and its bytes, each input read once and
    each output written once, over 3.35 TB/s), the sampling images/s of
@@ -251,7 +265,9 @@ any failure exits non-zero and no phase's failure is caught:
    plain versions, the bound and, for P1, P2, P4 and P5, the library
    yardstick (P1: torch.add(x, x); P2: a strided torch.mul into a
    transposed buffer and a copy back a step; P4 and P5: torch.matmul, TF32
-   off);
+   off); then P1 against torch.add(x, x) and P4 against torch.matmul in
+   turns, 20 pairs, each call behind the tools' spin kernel: each median
+   and the median kernel / library ratio with its range, printed;
 32. the split of #11 and #12 (printed only, run with phase 23): 3 chain
    calls of each at (16, 10, 28) and (20, 8, 4) under torch.profiler, the
    kernel time a call by wire group (#11) and by launch kind (#12: the
@@ -270,7 +286,10 @@ kernel, once per wire group of each sublayer (the backward's dG sums and
 un-encodes are helpers and not counted, as #2's dg sum is not); for #9/#10
 one a chain call. Its ``max_abs_err`` is the largest error checked at its
 width in phase 19 (#11/#12) or 24 (#9/#10): max |diff| forward,
-max |diff| / max(1, max|plain|) backward. The unitary rows' launches are
+max |diff| / max(1, max|plain|) backward. The rows kernel's row
+(``sel_rows_fwd_w12``) counts its launches in every run (path A's, 12 an
+iteration), its error is phase 5's worst against plain, its times phase
+18's at (12, 1000, 2, CZ). The unitary rows' launches are
 phase 27's (one a chain call; #14's dU product is a helper and not
 counted), their errors phase 26's worst, their times phase 28's at
 (8, 80, 28). The probe rows' launches are phase 30's (one a wrapper
@@ -313,6 +332,7 @@ from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
 from qiddm_tpu_torch.sim.statevector import rz_phase_planes, rz_phases
 from qiddm_tpu_torch.sim.trajectories import RecordedDraws, ReplayDraws
 from qiddm_tpu_torch.tools import probe_kernels, vpu_ceiling, wide_probe
+from qiddm_tpu_torch.tools import common as tools_common
 
 SEED = 0
 KERNEL_TOL = 1e-5   # unit-norm f32 states over up to 60 layers
@@ -426,6 +446,7 @@ SLAB_TOL = 1e-5     # P4/P5, relative: 128-term float32 sums in two orders
 FMA_TOL = 1e-5      # relative: fmaf against a float64 product and sum, rounded
 PEAK_CAP = 1.05     # no measured rate above 1.05 x PEAK_FLOPS
 FMA_RATIO = (1.8, 2.2)  # time at 2 x iters over time at iters
+PAIRS = 20          # P1 and P4 against their library calls, in turns
 
 
 def fail(msg: str) -> None:
@@ -436,6 +457,7 @@ def fail(msg: str) -> None:
 def reset_counts() -> None:
     gate_kernel.LAUNCHES = gate_kernel.BWD_LAUNCHES = 0
     sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
+    sel_kernel.SEL_ROW_LAUNCHES = 0
     ry_kernel.RY_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
     dm_kernel.DM_LAUNCHES = 0
     amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
@@ -450,6 +472,7 @@ def read_counts() -> dict:
     return {"gate": gate_kernel.LAUNCHES, "gate_bwd": gate_kernel.BWD_LAUNCHES,
             "sel": sel_kernel.SEL_LAUNCHES,
             "sel_bwd": sel_kernel.SEL_BWD_LAUNCHES,
+            "sel_rows": sel_kernel.SEL_ROW_LAUNCHES,
             "ry": ry_kernel.RY_LAUNCHES, "ry_bwd": ry_kernel.RY_BWD_LAUNCHES,
             "dm": dm_kernel.DM_LAUNCHES,
             "amp": amp_damp_kernel.AMP_DAMP_LAUNCHES,
@@ -614,6 +637,40 @@ def phase_sel_vs_plain(dev, cases, seed: int) -> float:
     return worst
 
 
+def phase_sel_rows_vs_plain(dev, cases, seed: int) -> tuple[float, float]:
+    """The rows kernel #5 (sel_chain_rows, the trajectory route's entry)
+    against its plain version on (N, d) complex64 rows and against the
+    planes' kernel on the same states as (d, N) planes; returns the worst
+    max |diff| of each. The two kernels do the same 2x2 arithmetic per
+    pair in the same wire order and the rings' signs exactly, so they are
+    expected to give the same bits; the largest difference is printed and
+    held to KERNEL_TOL."""
+    rng = np.random.default_rng(seed)
+    worst, worst_cols = 0.0, 0.0
+    for w, b, depth, ring in cases:
+        sr, si, mats = sel_inputs(rng, w, b, depth, dev)
+        states = torch.complex(sr, si).T.contiguous()
+        got = sel_kernel.sel_chain_rows(states, mats, w, ring)
+        want = sel_kernel.sel_chain_rows_plain(states, mats, w, ring)
+        kr, ki = sel_kernel.sel_chain_planes(sr, si, mats, w, ring)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        cols = max((got.real - kr.T).abs().max().item(),
+                   (got.imag - ki.T).abs().max().item())
+        worst, worst_cols = max(worst, err), max(worst_cols, cols)
+        print(f"SEL rows kernel w={w} N={b} depth={depth} {ring}: max|diff| "
+              f"{err:.3e} against plain, {cols:.3e} against the planes' "
+              f"kernel")
+        if not (err <= KERNEL_TOL and cols <= KERNEL_TOL):
+            fail(f"SEL rows kernel disagrees at w={w} N={b} depth={depth} "
+                 f"{ring}: {err:.3e} (plain), {cols:.3e} (planes' kernel) "
+                 f"> {KERNEL_TOL}")
+    print(f"SEL rows kernel against the planes' kernel: largest difference "
+          f"{worst_cols:.3e} over {len(cases)} shapes"
+          + (" (the same bits)" if worst_cols == 0 else ""))
+    return worst, worst_cols
+
+
 def phase_sel_bwd_vs_plain(dev, cases, seed: int,
                            check: tuple[int, int, int]) -> float:
     """Returns the worst max |kernel - plain| over the shapes; ``check``
@@ -762,10 +819,22 @@ def phase_dm_vs_plain(dev) -> float:
                          f"{err:.3e}, Hermitian {herm:.3e}, trace "
                          f"{trace:.3e} > {DM_TOL}")
         worst = max(worst, *errs)
+        plan = dm_kernel.cluster_plan(w, b, n_spec * k, ry)
         print(f"dm kernel vs plain w={w} B={b} L={n_spec} k={k} "
               f"{'ry' if ry else 'rz'}, 3 kinds x {len(strengths)} "
-              f"strengths: max|diff| {max(errs):.3e}")
+              f"strengths: max|diff| {max(errs):.3e}; {_plan_text(plan, w, n_spec * k, ry)}")
     return worst
+
+
+def _plan_text(plan, w: int, n_layers: int, ry: bool) -> str:
+    """Kernel #8's cluster plan and how many such clusters the card holds
+    at once."""
+    held = gate_kernel._library().dm_chain_active_clusters(
+        w, n_layers, int(ry), plan.cluster, int(plan.rho_in_smem), 0)
+    return (f"plan: cluster {plan.cluster}, {plan.rows_per_cta} rows a CTA, "
+            f"{plan.smem_bytes} B of shared memory a CTA, rho in "
+            f"{'shared' if plan.rho_in_smem else 'device'} memory, "
+            f"{held} clusters resident at once")
 
 
 def _rel_own(got, want) -> float:
@@ -1746,10 +1815,13 @@ def phase_traj_sample(smi: str) -> tuple[dict, float, float, tuple]:
     if not torch.isfinite(stack).all():
         fail("the 12-wire trajectory samples are not finite")
     want = TRAJ_PER_ITER * TRAJ_ITERS
-    for counter in ("amp", "sel"):
+    for counter in ("amp", "sel_rows"):
         if counts[counter] < want:
             fail(f"12-wire trajectory sampling: {counts[counter]} {counter} "
                  f"launches < {want}: the path did not run the kernel")
+    if counts["sel_rows"] != want or counts["sel"]:
+        fail(f"12-wire trajectory sampling: {counts['sel_rows']} rows and "
+             f"{counts['sel']} planes SEL launches, not {want} and 0")
     if len(rec.draws) != want or len(rec.picks) != want:
         fail(f"{len(rec.draws)} draws and {len(rec.picks)} picks recorded, "
              f"not {want}")
@@ -1833,13 +1905,14 @@ def phase_profile_traj(sampler, smi: str) -> None:
     dev, busy, wall_us, counts = _device_profile(run)
     amp = [e.time_range.elapsed_us() for e in dev if "amp_damp" in e.name]
     sel = [e.time_range.elapsed_us() for e in dev
-           if "sel_chain_fwd" in e.name]
+           if "sel_rows_fwd" in e.name]
     want = TRAJ_PER_ITER * iters
-    if (counts["amp"] < want or counts["sel"] < want or not amp
-            or not sel):
-        fail(f"{counts['amp']} amp-damp and {counts['sel']} SEL-chain "
-             f"launches ({len(amp)} and {len(sel)} profiled) in {iters} "
-             f"profiled trajectory iterations, not {want} each")
+    if (counts["amp"] < want or counts["sel_rows"] != want or counts["sel"]
+            or not amp or not sel):
+        fail(f"{counts['amp']} amp-damp, {counts['sel_rows']} SEL rows and "
+             f"{counts['sel']} SEL planes launches ({len(amp)} and "
+             f"{len(sel)} profiled) in {iters} profiled trajectory "
+             f"iterations, not {want}, {want} and 0")
     print(f"profile 12-wire trajectory sampling ({smi}), {iters} iterations "
           f"of {TRAJ_IMAGES} images x {N_TRAJ} trajectories: "
           f"{len(dev) / iters:.1f} device events per iteration, device busy "
@@ -1848,8 +1921,8 @@ def phase_profile_traj(sampler, smi: str) -> None:
           f"profiled iteration; kernel #7 {counts['amp'] / iters:.1f} calls "
           f"({len(amp)} of {counts['amp']} profiled), "
           f"{sum(amp) / iters:.1f} us per iteration ({sum(amp) / busy:.3f} "
-          f"of busy); kernel #5 {counts['sel'] / iters:.1f} calls "
-          f"({len(sel)} of {counts['sel']} profiled), "
+          f"of busy); kernel #5 (rows) {counts['sel_rows'] / iters:.1f} "
+          f"calls ({len(sel)} of {counts['sel_rows']} profiled), "
           f"{sum(sel) / iters:.1f} us per iteration ({sum(sel) / busy:.3f} "
           f"of busy); iteration without the profiler {iter_ms:.3f} ms (host "
           f"clock, median of 5 runs of {iters}, each ending in a "
@@ -1954,6 +2027,17 @@ def bound_sel(w, b, depth, ring, bwd: bool) -> tuple[float, str]:
                   4 * (4 * d * b + g + table + 2 * d * b + g))
 
 
+def bound_sel_rows(w, n, depth, ring) -> tuple[float, str]:
+    """The rows kernel: #5's arithmetic on (N, d) complex64 rows; bytes the
+    rows read and written once, the gates, and for CNOT the rings' (p, w)
+    gather columns (no (p, d) table)."""
+    d, g = 2**w, depth * w * 8
+    sign = 2 if ring == "cz" else 0
+    cols = max(w - 1, 1) * w if ring == "cnot" else 0
+    return _bound(n * d * depth * (14 * w + sign),
+                  4 * (4 * d * n + g + cols))
+
+
 # The amplitude-damping pass, per state and wire, on d = 2^w amplitudes:
 # P(wire = 1) is 4 flops a bit-1 amplitude (2 d), the renormalized update 2
 # flops an amplitude (2 d); the sums run in float64, a few percent of the
@@ -2032,6 +2116,29 @@ def _library_wide_bwd(p, gs, signs, f, c, w):
     return dp, dg
 
 
+def _dm_cluster_sweep(enc, g8, w, b, n_layers, ry, plan, smi) -> None:
+    """Kernel #8 at every cluster size whose rows fit in shared memory,
+    in turns with the plan's (plan, other, other, plan; median of 20 each),
+    printed only: what the plan's choice is worth at this shape."""
+    d = 2**w
+    side = plan.smem_bytes - (d * d * 8 // plan.cluster
+                              if plan.rho_in_smem else 0)
+    for c in (1, 2, 4, 8, 16):
+        if c == plan.cluster or (c > 1 and c > d // 2):
+            continue
+        if side + d * d * 8 // c > gate_kernel._MAX_SMEM_BYTES:
+            continue
+        other = dm_kernel.DmPlan(c, d // c, side + d * d * 8 // c, True)
+        mine, theirs = _paired_ms(
+            lambda: dm_kernel._dm_chain_cuda(enc, g8, 0.3, 2, w, 1, ry,
+                                             plan),
+            lambda: dm_kernel._dm_chain_cuda(enc, g8, 0.3, 2, w, 1, ry,
+                                             other))
+        print(f"dm cluster sweep w={w} B={b} L*k={n_layers} ({smi}; {_HOW}, "
+              f"the plan's as kernel): plan's cluster {plan.cluster} "
+              f"{mine:.4f} ms, cluster {c} {theirs:.4f} ms")
+
+
 def phase_times(dev, smi: str) -> tuple[dict, dict]:
     """{key: (kernel ms, plain ms, bound ms, bound by)} and, for the wide
     chain, {key: library ms}."""
@@ -2051,7 +2158,8 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
             lambda: gate_kernel.gate_chain_bwd_plain(*args, k, w)
         ) + bound_gate(w, b, n_layers, k, True)
     for w, depth, b, ring in ((8, 14, 10, "cz"), (8, 14, 16, "cz"),
-                              (6, 60, 10, "cnot"), (12, 2, 1000, "cz")):
+                              (6, 60, 10, "cnot"), (12, 2, 1000, "cz"),
+                              (12, 2, 1000, "cnot")):
         (g8, fr, fi, gr, gi), (sr, si) = sel_bwd_inputs(rng, w, b, depth,
                                                         ring, dev)
         key = f"{w}_{depth}_{b}_{ring}"
@@ -2065,6 +2173,12 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
             lambda: sel_kernel.sel_chain_bwd_plain(g8, fr, fi, gr, gi, w,
                                                    ring)
         ) + bound_sel(w, b, depth, ring, True)
+        if w == 12:  # path A's shape: the rows kernel on the same states
+            x = torch.view_as_real(torch.complex(sr, si).T.contiguous())
+            times[f"sel_rows_fwd{key}"] = _paired_ms(
+                lambda: sel_kernel._sel_rows_cuda(x, g8, w, ring),
+                lambda: sel_kernel._sel_rows_plain(x, g8, w, ring)
+            ) + bound_sel_rows(w, b, depth, ring)
     for w, b, n_layers, k in ((8, 10, 12, 2), (6, 11, 28, 2)):
         args = ry_bwd_inputs(rng, w, b, n_layers, k, dev)
         key = f"{w}_{b}_{n_layers}"
@@ -2090,6 +2204,11 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
             lambda: dm_kernel.dm_chain_plain(enc, mats, 2, w, "depolarizing",
                                              0.3, ry=ry)
         ) + bound_dm(w, b, n_spec, 2, ry, "depolarizing")
+        plan = dm_kernel.cluster_plan(w, b, n_spec * 2, ry)
+        print(f"times dm_fwd{w} w={w} B={b} L={n_spec}: "
+              f"{_plan_text(plan, w, n_spec * 2, ry)}")
+        if w < 10:  # printed only: the same call at the other clusters
+            _dm_cluster_sweep(enc, g8, w, b, n_spec * 2, ry, plan, smi)
     for w, n in ((12, 1000), (8, 1000)):
         st = torch.randn((n, 2**w), dtype=torch.complex64, device=dev)
         st /= st.abs().square().sum(1, keepdim=True).sqrt()
@@ -2676,6 +2795,34 @@ def phase_probe_tools() -> dict:
     return counts
 
 
+def _spun_ms(fn) -> float:
+    """One call's device time, behind the tools' spin kernel."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(tools_common.SPIN_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _spun_pairs(kernel, library) -> tuple[float, float, list]:
+    """PAIRS pairs of (kernel, library) calls in turns, each behind the
+    spin kernel, after a warm-up: the medians (ms) and each pair's
+    kernel / library ratio."""
+    kernel()
+    library()
+    torch.cuda.synchronize()
+    ks, ls = [], []
+    for i in range(PAIRS):
+        order = ((kernel, ks), (library, ls))
+        for fn, out in (order if i % 2 == 0 else order[::-1]):
+            out.append(_spun_ms(fn))
+    return (float(np.median(ks)), float(np.median(ls)),
+            [k / lib for k, lib in zip(ks, ls)])
+
+
 def phase_probe_times(dev, smi: str) -> tuple[dict, dict]:
     """The probe kernels beside their plain versions, their bounds and, for
     P1, P2, P4 and P5, the library yardstick, at the tools' shapes."""
@@ -2684,7 +2831,7 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict]:
     times, library = {}, {}
     f32 = 4
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    x = torch.rand((8, 128), generator=gen, device=dev)
+    x = x8 = torch.rand((8, 128), generator=gen, device=dev)
     times["smem"] = _paired_ms(
         lambda: pk.smem_probe(x, optin // pk.ROW_BYTES * pk.ROW_BYTES),
         lambda: pk.smem_probe_plain(x, optin)) + _bound(
@@ -2744,6 +2891,21 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict]:
         lambda: pk.fma_ceiling(xf, yf, iters, chains),
         lambda: pk.fma_ceiling_plain(xf, yf, iters, chains)) + _bound(
             d * b * (2 * iters * chains + 2 * chains - 1), 3 * d * b * f32)
+    # P1 and P4 against their library calls in turns, each behind the
+    # tools' spin kernel (so the events time the device's work), 20 pairs
+    rows = optin // pk.ROW_BYTES * pk.ROW_BYTES
+    for key, kern, lib_fn, what in (
+            ("smem", lambda: pk.smem_probe(x8, rows), lambda: torch.add(x8, x8),
+             "torch.add(x, x)"),
+            ("dot3d", lambda: pk.dot3d_probe(g3, x3),
+             lambda: torch.matmul(g3, x3), "torch.matmul")):
+        k_ms, l_ms, ratios = _spun_pairs(kern, lib_fn)
+        print(f"pairs probe {key} against {what} ({smi}; {PAIRS} pairs in "
+              f"turns, each call behind a {tools_common.SPIN_CYCLES}-cycle "
+              f"spin kernel): kernel median {k_ms:.4f} ms, library median "
+              f"{l_ms:.4f} ms; kernel / library median "
+              f"{float(np.median(ratios)):.3f}, range {min(ratios):.3f}-"
+              f"{max(ratios):.3f}")
     for key, (kern, plain, bound, by) in times.items():
         lib = library.get(key)
         print(f"times probe {key} ({smi}): kernel {kern:.4f} ms, plain "
@@ -2764,6 +2926,8 @@ def main() -> None:
     with torch.no_grad():
         sel_err = phase_sel_vs_plain(dev, SEL_CASES, SEED + 3)
         sel_wide_err = phase_sel_vs_plain(dev, WIDE_SEL_CASES, SEED + 10)
+        rows_err, _ = phase_sel_rows_vs_plain(dev, SEL_CASES + WIDE_SEL_CASES,
+                                              SEED + 16)
     sel_bwd_err = phase_sel_bwd_vs_plain(dev, SEL_CASES, SEED + 4, (8, 10, 14))
     sel_bwd_wide_err = phase_sel_bwd_vs_plain(dev, WIDE_SEL_CASES, SEED + 11,
                                               (12, 10, 2))
@@ -2918,6 +3082,8 @@ def main() -> None:
          sel_wide_err, "sel_fwd12_2_1000_cz"),
         ("sel_chain_bwd_w12", "sel_chain.cu", f"{tpu}384", "sel_bwd",
          sel_bwd_wide_err, "sel_bwd12_2_1000_cz"),
+        ("sel_rows_fwd_w12", "sel_chain.cu", f"{tpu}365", "sel_rows",
+         rows_err, "sel_rows_fwd12_2_1000_cz"),
         ("ry_chain_fwd", "ry_chain.cu", f"{tpu}703", "ry", ry_err,
          "ry_fwd8_10_12"),
         ("ry_chain_bwd", "ry_chain.cu", f"{tpu}732", "ry_bwd", ry_bwd_err,

@@ -38,6 +38,20 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// The gate m on one amplitude pair (s0, s1), in place. Each output sums
+// its four products left to right, as fused multiply-adds on the first
+// product, written out so that every kernel that inlines it rounds alike:
+// the SEL chain's planes and rows kernels give the same bits.
+__device__ __forceinline__ void gate_pair(const float* m, float& s0r,
+                                          float& s0i, float& s1r,
+                                          float& s1i) {
+  const float a0r = s0r, a0i = s0i, a1r = s1r, a1i = s1i;
+  s0r = fmaf(-m[3], a1i, fmaf(m[2], a1r, fmaf(-m[1], a0i, m[0] * a0r)));
+  s0i = fmaf(m[3], a1r, fmaf(m[2], a1i, fmaf(m[1], a0r, m[0] * a0i)));
+  s1r = fmaf(-m[7], a1i, fmaf(m[6], a1r, fmaf(-m[5], a0i, m[4] * a0r)));
+  s1i = fmaf(m[7], a1r, fmaf(m[6], a1i, fmaf(m[5], a0r, m[4] * a0i)));
+}
+
 // The gate m on the wire whose basis-index bit is `bit`: each thread
 // updates the amplitude pairs (i0, i0 | bit) p = tid, tid + nt, ... < half.
 // No barrier: the caller puts one between gates.
@@ -48,12 +62,13 @@ __device__ __forceinline__ void gate_pairs(float* sr, float* si,
     const int lo = p & (bit - 1);
     const int i0 = ((p - lo) << 1) | lo;  // p with a 0 inserted at `bit`
     const int i1 = i0 | bit;
-    const float s0r = sr[i0], s0i = si[i0];
-    const float s1r = sr[i1], s1i = si[i1];
-    sr[i0] = m[0] * s0r - m[1] * s0i + m[2] * s1r - m[3] * s1i;
-    si[i0] = m[0] * s0i + m[1] * s0r + m[2] * s1i + m[3] * s1r;
-    sr[i1] = m[4] * s0r - m[5] * s0i + m[6] * s1r - m[7] * s1i;
-    si[i1] = m[4] * s0i + m[5] * s0r + m[6] * s1i + m[7] * s1r;
+    float s0r = sr[i0], s0i = si[i0];
+    float s1r = sr[i1], s1i = si[i1];
+    gate_pair(m, s0r, s0i, s1r, s1i);
+    sr[i0] = s0r;
+    si[i0] = s0i;
+    sr[i1] = s1r;
+    si[i1] = s1i;
   }
 }
 

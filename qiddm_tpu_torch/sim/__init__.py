@@ -37,10 +37,11 @@ from .sel import (  # noqa: F401
     sel_unitary,
 )
 from .sel_kernel import (  # noqa: F401
-    sel_chain,
     sel_chain_bwd_plain,
     sel_chain_planes,
     sel_chain_planes_plain,
+    sel_chain_rows,
+    sel_chain_rows_plain,
 )
 from .statevector import (  # noqa: F401
     amplitude_embed,

@@ -14,13 +14,19 @@ launches the kernel of ``csrc/dm_chain.cu`` or raises. Nothing falls back
 from the kernel to its plain version. The kernel is built into the one
 library of ``gate_kernel.py``.
 
+The kernel spreads each sample's rho over a thread-block cluster of CTAs,
+each holding a block of rows: :func:`cluster_plan` picks the cluster and
+whether rho lives in the CTAs' shared memory (w <= 9) or in the output
+buffer (w = 10) from the shape alone, before the launch.
+
 Memory: rho is (b, 2**w, 2**w) complex64, ``b * 4**w * 8`` bytes of device
 memory (5.2 MB for 10 samples at 8 wires, 84 MB at 10 wires, the kernel's
-widest); at w <= 7 the kernel works each sample's rho in shared memory and
-writes it once.
+widest).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +41,52 @@ from .sel import cz_ring_signs, sel_ranges
 DM_LAUNCHES = 0
 
 KIND_IDS = {"amplitude_damping": 0, "depolarizing": 1, "phase_damping": 2}
+
+# The card the plan is made for (H100 SXM): its SMs, the largest cluster
+# it launches (16, non-portable), and the shared memory a CTA may take.
+SM_COUNT = 132
+MAX_CLUSTER = 16
+# A CTA keeps at least this many elements of rho (a quarter as many
+# quadruples, one a thread, a pass): below it a pass is all barrier.
+MIN_CTA_ELEMENTS = 1024
+
+
+class DmPlan(NamedTuple):
+    """How kernel #8 lays out one call: ``cluster`` CTAs a sample, each
+    owning ``rows_per_cta`` rows of rho, ``smem_bytes`` of shared memory a
+    CTA, and rho in that shared memory or in the output buffer."""
+    cluster: int
+    rows_per_cta: int
+    smem_bytes: int
+    rho_in_smem: bool
+
+
+def cluster_plan(wires: int, batch: int, n_layers: int,
+                 ry: bool = False) -> DmPlan:
+    """The kernel's layout for one call, from the shape alone.
+
+    The cluster doubles while every sample's cluster still finds an SM
+    (``batch * cluster <= SM_COUNT``) and each CTA keeps at least
+    ``MIN_CTA_ELEMENTS`` of rho; then, if the CTAs' rows do not fit in
+    shared memory beside the encode and the gates, it doubles on (up to
+    ``MAX_CLUSTER``) until they do. Where even ``MAX_CLUSTER`` CTAs cannot
+    hold rho (w = 10: 8 MB), rho stays in the output buffer and the
+    cluster only spreads the work."""
+    d = 2**wires
+    side = (wires if ry else d) * 8 + n_layers * wires * 8 * 4
+    spread = 1
+    while (spread < MAX_CLUSTER and batch * spread * 2 <= SM_COUNT
+           and d * d // (spread * 2) >= MIN_CTA_ELEMENTS):
+        spread *= 2
+    cluster = spread
+    while cluster < MAX_CLUSTER and d * d * 8 // cluster + side > (
+            _gk._MAX_SMEM_BYTES):
+        cluster *= 2
+    in_smem = d * d * 8 // cluster + side <= _gk._MAX_SMEM_BYTES
+    if not in_smem:
+        cluster = spread
+    return DmPlan(cluster, d // cluster,
+                  side + (d * d * 8 // cluster if in_smem else 0), in_smem)
 
 
 # --- plain PyTorch version ---------------------------------------------------
@@ -131,9 +183,10 @@ def _kernel_enc(enc, wires: int, ry: bool) -> torch.Tensor:
 
 
 def _dm_chain_cuda(enc, g8, strength, k: int, wires: int, kind_id: int,
-                   ry: bool):
+                   ry: bool, plan: DmPlan | None = None):
     """Launch the kernel on PyTorch's current stream; rho is a new
-    (b, d, d) complex64 tensor."""
+    (b, d, d) complex64 tensor. ``plan`` defaults to :func:`cluster_plan`'s
+    (chip_smoke.py times others beside it)."""
     global DM_LAUNCHES
     what = "dm-chain kernel"
     dev = g8.device
@@ -159,9 +212,14 @@ def _dm_chain_cuda(enc, g8, strength, k: int, wires: int, kind_id: int,
                          f"g8 {tuple(g8.shape)}, k={k} for wires={wires}")
     if kind_id not in KIND_IDS.values():
         raise ValueError(f"{what}: unknown channel id {kind_id}")
+    if plan is None:
+        plan = cluster_plan(wires, b, n_layers, ry)
     lib = _gk._library()
-    _gk._check_smem(lib.dm_chain_smem_bytes(wires, n_layers, int(ry)),
-                    n_layers, wires)
+    smem = lib.dm_chain_smem_bytes(wires, n_layers, int(ry), plan.cluster,
+                                   int(plan.rho_in_smem))
+    if smem != plan.smem_bytes:
+        raise RuntimeError(f"{what}: the kernel needs {smem} B of shared "
+                           f"memory a CTA, its plan {plan}")
     rho = torch.empty((b, 2**wires, 2**wires), dtype=torch.complex64,
                       device=dev)
     ptr = strength.data_ptr() if torch.is_tensor(strength) else None
@@ -169,7 +227,8 @@ def _dm_chain_cuda(enc, g8, strength, k: int, wires: int, kind_id: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.dm_chain_fwd(pairs.data_ptr(), g8.data_ptr(), ptr, value,
                            rho.data_ptr(), wires, b, n_layers, k, kind_id,
-                           int(ry), dev.index, stream)
+                           int(ry), plan.cluster, int(plan.rho_in_smem),
+                           dev.index, stream)
     _gk._raise_on(err, lib, what)
     DM_LAUNCHES += 1
     return rho

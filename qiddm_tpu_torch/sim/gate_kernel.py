@@ -91,20 +91,24 @@ def _sign_planes_on(k: int, wires: int, device: torch.device) -> torch.Tensor:
 
 # --- plain PyTorch version ---------------------------------------------------
 
+def _pair_update(g, s0r, s0i, s1r, s1i):
+    """The packed 2x2 gate g on amplitude pairs (s0, s1): the new pair."""
+    g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i = g.unbind()
+    return (g00r * s0r - g00i * s0i + g01r * s1r - g01i * s1i,
+            g00r * s0i + g00i * s0r + g01r * s1i + g01i * s1r,
+            g10r * s0r - g10i * s0i + g11r * s1r - g11i * s1i,
+            g10r * s0i + g10i * s0r + g11r * s1i + g11i * s1r)
+
+
 def _gate_apply(sr, si, g, j: int):
     """One 2x2 gate on wire j of (d, B) planes: reshape to
     (2^j, 2, d / 2^(j+1), B) and mix the two halves."""
-    g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i = g.unbind()
     d, B = sr.shape
     left = 2**j
     vr = sr.reshape(left, 2, d // (2 * left), B)
     vi = si.reshape(left, 2, d // (2 * left), B)
-    s0r, s1r = vr[:, 0], vr[:, 1]
-    s0i, s1i = vi[:, 0], vi[:, 1]
-    n0r = g00r * s0r - g00i * s0i + g01r * s1r - g01i * s1i
-    n0i = g00r * s0i + g00i * s0r + g01r * s1i + g01i * s1r
-    n1r = g10r * s0r - g10i * s0i + g11r * s1r - g11i * s1i
-    n1i = g10r * s0i + g10i * s0r + g11r * s1i + g11i * s1r
+    n0r, n0i, n1r, n1i = _pair_update(g, vr[:, 0], vi[:, 0], vr[:, 1],
+                                      vi[:, 1])
     return (torch.stack([n0r, n1r], dim=1).reshape(d, B),
             torch.stack([n0i, n1i], dim=1).reshape(d, B))
 
@@ -268,6 +272,12 @@ def _library():
                    lib.sel_chain_bwd_smem_bytes):
             fn.argtypes = [ctypes.c_int] * 2
             fn.restype = ctypes.c_size_t
+        lib.sel_rows_fwd.argtypes = ([ctypes.c_void_p] * 4
+                                     + [ctypes.c_int] * 5
+                                     + [ctypes.c_void_p])
+        lib.sel_rows_fwd.restype = ctypes.c_int
+        lib.sel_rows_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.sel_rows_fwd_smem_bytes.restype = ctypes.c_size_t
         lib.ry_chain_fwd.argtypes = ([ctypes.c_void_p] * 5
                                      + [ctypes.c_int] * 5
                                      + [ctypes.c_void_p])
@@ -280,11 +290,13 @@ def _library():
             fn.argtypes = [ctypes.c_int] * 3
             fn.restype = ctypes.c_size_t
         lib.dm_chain_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
-                                     + [ctypes.c_void_p] + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p] + [ctypes.c_int] * 9
                                      + [ctypes.c_void_p])
         lib.dm_chain_fwd.restype = ctypes.c_int
-        lib.dm_chain_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.dm_chain_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.dm_chain_smem_bytes.restype = ctypes.c_size_t
+        lib.dm_chain_active_clusters.argtypes = [ctypes.c_int] * 6
+        lib.dm_chain_active_clusters.restype = ctypes.c_int
         lib.amp_damp_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
                                      + [ctypes.c_void_p] * 3
                                      + [ctypes.c_int] * 3

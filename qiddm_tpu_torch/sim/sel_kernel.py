@@ -8,17 +8,28 @@ states (amplitude embeddings for Qdense, RZ-phased |0...0> for QNN): per
 layer a 2x2 gate on every wire, then a CZ or CNOT ring whose range cycles
 over the full depth, ``r_l = l % (wires-1) + 1``.
 
-``sel_chain_planes`` is the entry the engine calls. It runs the
-``_SelChain`` autograd Function, which picks the path by the device of its
-input, in the forward and in the backward pass alike: a CPU tensor runs the
-plain versions (:func:`sel_chain_planes_plain`, :func:`sel_chain_bwd_plain`);
-a CUDA tensor launches the kernels of ``csrc/sel_chain.cu`` or raises.
-Nothing falls back from a kernel to its plain version. The kernels are
-built into the one library of ``gate_kernel.py`` and take up to
-``config.SEL_KERNEL_MAX_WIRES`` (12) wires: the QNN/Qdense chains and the
-trajectory backend's SEL route, which the JAX package serves at 11-12 wires
-with ``sel_chain_pallas_tiled`` (one ``sel_chain_pallas`` call per 128-lane
-chunk of the batch; on the card the whole batch is one launch).
+Two entries, one per layout of the states:
+
+* ``sel_chain_planes``, the engine's (QNN/Qdense chains, the two-sided dm
+  route), on (d, B) float32 planes: the ``_SelChain`` autograd Function,
+  kernels ``sel_chain_fwd_kernel`` and ``sel_chain_bwd_kernel``;
+* ``sel_chain_rows``, the trajectory backend's, on (N, d) complex64 rows as
+  ``sel_chain_pallas`` takes them: the ``_SelRows`` Function, whose forward
+  is ``sel_rows_fwd_kernel`` on the rows in place of any transpose, and
+  whose backward transposes to planes and runs the planes' adjoint kernel
+  (the trajectory samplers run under ``no_grad``). The JAX package serves
+  this route at 11-12 wires with ``sel_chain_pallas_tiled`` (one
+  ``sel_chain_pallas`` call per 128-lane chunk of the batch); on the card
+  the whole batch is one launch.
+
+Each Function picks the path by the device of its input, in the forward and
+in the backward pass alike: a CPU tensor runs the plain versions
+(:func:`sel_chain_planes_plain`, :func:`sel_chain_rows_plain`,
+:func:`sel_chain_bwd_plain`); a CUDA tensor launches the kernels of
+``csrc/sel_chain.cu`` or raises. Nothing falls back from a kernel to its
+plain version. The kernels are built into the one library of
+``gate_kernel.py`` and take up to ``config.SEL_KERNEL_MAX_WIRES`` (12)
+wires.
 """
 
 from __future__ import annotations
@@ -31,13 +42,16 @@ from torch.autograd.function import once_differentiable
 
 from .. import config as _config
 from . import gate_kernel as _gk
-from .gate_kernel import _ADJ_ORDER, _ADJ_SIGNS, _gate_apply, _plane_dg, _to_g8
+from .gate_kernel import (_ADJ_ORDER, _ADJ_SIGNS, _gate_apply, _pair_update,
+                          _plane_dg, _to_g8)
 from .sel import cnot_ring_perm, cz_ring_signs
 
-# Kernel launches since the last reset, forward and backward; chip_smoke.py
-# reads them to show that the QNN/Qdense paths went through the kernels.
+# Kernel launches since the last reset: the planes' forward and backward
+# and the rows' forward; chip_smoke.py reads them to show that the
+# QNN/Qdense paths and the trajectory route went through the kernels.
 SEL_LAUNCHES = 0
 SEL_BWD_LAUNCHES = 0
+SEL_ROW_LAUNCHES = 0
 
 _IMPRIMITIVES = ("cz", "cnot")
 
@@ -73,6 +87,20 @@ def _ring_on(wires: int, imprimitive: str, inverse: bool,
                            device=device)
 
 
+def ring_columns(wires: int) -> np.ndarray:
+    """The CNOT rings' gather maps ``inv`` (:func:`ring_tables`) as linear
+    maps over GF(2): a (p, w) int32 table whose column b is ``inv[1 << b]``,
+    so that ``inv[i]`` is the XOR of the columns of i's set bits (every
+    CNOT is linear, and so is their product)."""
+    return np.ascontiguousarray(
+        ring_tables(wires, "cnot")[:, 1 << np.arange(wires)])
+
+
+@functools.lru_cache(maxsize=None)
+def _columns_on(wires: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(ring_columns(wires), device=device)
+
+
 def _ring_plain(sr, si, table, l: int, wires: int, imprimitive: str):
     """Layer l's ring (range ``l % (wires-1) + 1``) on (d, B) planes."""
     if wires == 1:
@@ -94,6 +122,37 @@ def _sel_plain(sr, si, g8, wires: int, imprimitive: str):
             sr, si = _gate_apply(sr, si, g8[l, j], j)
         sr, si = _ring_plain(sr, si, table, l, wires, imprimitive)
     return sr, si
+
+
+def _gate_apply_rows(sr, si, g, j: int):
+    """One 2x2 gate on wire j of (N, d) rows: the view
+    (N, 2^j, 2, d / 2^(j+1)), its two halves mixed."""
+    n, d = sr.shape
+    left = 2**j
+    vr = sr.reshape(n, left, 2, d // (2 * left))
+    vi = si.reshape(n, left, 2, d // (2 * left))
+    n0r, n0i, n1r, n1i = _pair_update(g, vr[:, :, 0], vi[:, :, 0],
+                                      vr[:, :, 1], vi[:, :, 1])
+    return (torch.stack([n0r, n1r], dim=2).reshape(n, d),
+            torch.stack([n0i, n1i], dim=2).reshape(n, d))
+
+
+def _sel_rows_plain(x, g8, wires: int, imprimitive: str):
+    """The forward chain on (N, d, 2) float32 rows (complex64 viewed as
+    real), in plain PyTorch; returns new (N, d, 2) rows."""
+    table = _ring_on(wires, imprimitive, False, x.device)
+    sr, si = x[..., 0], x[..., 1]
+    for l in range(g8.shape[0]):
+        for j in range(wires):
+            sr, si = _gate_apply_rows(sr, si, g8[l, j], j)
+        if wires > 1:
+            t = table[l % (wires - 1)]
+            if imprimitive == "cz":
+                sr, si = sr * t, si * t
+            else:
+                rows = t.long()
+                sr, si = sr[:, rows], si[:, rows]
+    return torch.stack([sr, si], dim=-1)
 
 
 def sel_chain_planes_plain(sr, si, rot_mats, wires: int,
@@ -181,6 +240,41 @@ def _sel_chain_bwd_cuda(g8, fr, fi, gr, gi, wires: int, imprimitive: str):
     return dsr, dsi, dg
 
 
+def _sel_rows_cuda(x, g8, wires: int, imprimitive: str):
+    """Launch the rows kernel on PyTorch's current stream; x is (N, d, 2)
+    float32 (complex64 rows viewed as real); returns new rows alike."""
+    global SEL_ROW_LAUNCHES
+    what = "SEL-rows kernel"
+    cols = _columns_on(wires, x.device)
+    tensors = (x, g8, cols)
+    if any(t.device != x.device or t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{what}: every input must be on the same CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if (x.dtype != torch.float32 or g8.dtype != torch.float32
+            or not all(t.is_contiguous() for t in tensors)):
+        raise ValueError(f"{what}: inputs must be contiguous float32, got "
+                         f"{[(t.dtype, t.is_contiguous()) for t in tensors]}")
+    max_wires = _config.SEL_KERNEL_MAX_WIRES
+    if not 1 <= wires <= max_wires:
+        raise ValueError(f"{what} takes 1..{max_wires} wires, got {wires}")
+    n, depth = x.shape[0], g8.shape[0]
+    if (x.shape != (n, 2**wires, 2) or n < 1 or depth < 1
+            or g8.shape != (depth, wires, 8)):
+        raise ValueError(f"{what}: bad shapes: rows {tuple(x.shape)}, g8 "
+                         f"{tuple(g8.shape)} for wires={wires}")
+    lib = _gk._library()
+    _gk._check_smem(lib.sel_rows_fwd_smem_bytes(wires, n, depth), depth,
+                    wires)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.sel_rows_fwd(x.data_ptr(), g8.data_ptr(), cols.data_ptr(),
+                           out.data_ptr(), wires, n, depth,
+                           int(imprimitive == "cz"), x.device.index, stream)
+    _gk._raise_on(err, lib, what)
+    SEL_ROW_LAUNCHES += 1
+    return out
+
+
 class _SelChain(torch.autograd.Function):
     """``(sr, si, g8) -> (or, oi)`` on real float32 planes, so autograd
     carries ``dg`` back to the complex rotations through :func:`_to_g8`'s
@@ -235,10 +329,66 @@ def sel_chain_planes(sr, si, rot_mats, wires: int,
                            _to_g8(rot_mats), wires, imprimitive)
 
 
-def sel_chain(states, rot_mats, wires: int, imprimitive: str = "cnot"):
-    """:func:`sel_chain_planes` on (B, d) complex states, as
-    ``sel_chain_pallas`` takes them; returns (B, d) complex64."""
-    sr = states.real.to(torch.float32).T
-    si = states.imag.to(torch.float32).T
-    out_r, out_i = sel_chain_planes(sr, si, rot_mats, wires, imprimitive)
-    return torch.complex(out_r, out_i).T
+class _SelRows(torch.autograd.Function):
+    """``(x, g8) -> out`` on (N, d, 2) float32 rows (complex64 viewed as
+    real). Saves ``(g8, out)``; the backward transposes the output and its
+    cotangent to (d, N) planes and runs the planes' adjoint walk (kernel
+    #6 on a CUDA tensor, :func:`sel_chain_bwd_plain` on a CPU one)."""
+
+    @staticmethod
+    def forward(ctx, x, g8, wires: int, imprimitive: str):
+        if x.device.type == "cuda":
+            out = _sel_rows_cuda(x, g8, wires, imprimitive)
+        else:
+            out = _sel_rows_plain(x, g8, wires, imprimitive)
+        ctx.save_for_backward(g8, out)
+        ctx.wires, ctx.imprimitive = wires, imprimitive
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        g8, out = ctx.saved_tensors
+        fr, fi, gr, gi = (t[..., c].T.contiguous()
+                          for t in (out, grad) for c in (0, 1))
+        if out.device.type == "cuda":
+            dsr, dsi, dg = _sel_chain_bwd_cuda(g8, fr, fi, gr, gi, ctx.wires,
+                                               ctx.imprimitive)
+        else:
+            dsr, dsi, dg = sel_chain_bwd_plain(g8, fr, fi, gr, gi, ctx.wires,
+                                               ctx.imprimitive)
+        return torch.stack([dsr.T, dsi.T], dim=-1), dg, None, None
+
+
+def _check_rows(states, wires: int, imprimitive: str) -> None:
+    if imprimitive not in _IMPRIMITIVES:
+        raise ValueError(f"unknown imprimitive {imprimitive!r}")
+    if states.ndim != 2 or states.shape[1] != 2**wires:
+        raise ValueError(f"rows of shape {tuple(states.shape)} do not hold "
+                         f"{wires} wires")
+    if states.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SEL-chain path for device {states.device}")
+
+
+def sel_chain_rows_plain(states, rot_mats, wires: int,
+                         imprimitive: str = "cnot"):
+    """The chain in plain PyTorch, on any device: same arguments and
+    result as :func:`sel_chain_rows`."""
+    _check_rows(states, wires, imprimitive)
+    x = torch.view_as_real(states.to(torch.complex64).contiguous())
+    return torch.view_as_complex(
+        _sel_rows_plain(x, _to_g8(rot_mats), wires, imprimitive))
+
+
+def sel_chain_rows(states, rot_mats, wires: int, imprimitive: str = "cnot"):
+    """SEL chain on (N, d) complex states, as ``sel_chain_pallas`` takes
+    them; returns (N, d) complex64.
+
+    rot_mats: (depth, wires, 2, 2) complex per-wire rotations; after layer
+    l the ring of range ``l % (wires-1) + 1`` (CZ or CNOT). Differentiable
+    in ``states`` and ``rot_mats``.
+    """
+    _check_rows(states, wires, imprimitive)
+    x = torch.view_as_real(states.to(torch.complex64).contiguous())
+    return torch.view_as_complex(
+        _SelRows.apply(x, _to_g8(rot_mats), wires, imprimitive))

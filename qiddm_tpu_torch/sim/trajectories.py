@@ -25,7 +25,8 @@ layers are shared by all trajectories and only the channel draws are
 per-row. The SEL step takes the engine's rule: at ``n_traj * B >= 2**w`` the
 composed per-layer unitaries applied with one complex matmul each (the JAX
 package leaves that product to XLA too), below it the SEL-chain kernel #5
-(``sel_kernel.sel_chain``), one call per spectrum layer, whose ring ranges
+on the (N, d) rows as they are (``sel_kernel.sel_chain_rows``: no
+transpose), one call per spectrum layer, whose ring ranges
 restart at each call as the JAX tiled route relies on. Both stop at
 ``config.SEL_KERNEL_MAX_WIRES`` (12) wires.
 
@@ -55,7 +56,7 @@ from .. import config as _config
 from .amp_damp_kernel import amp_damp
 from .gates import WEIGHT_MAPS, rot_matrix
 from .sel import sel_unitaries, sel_unitary
-from .sel_kernel import sel_chain
+from .sel_kernel import sel_chain_rows
 from .statevector import (
     amplitude_embed,
     apply_1q,
@@ -278,7 +279,7 @@ def _chain_route(n: int, wires: int, cdtype) -> bool:
         return False
     if cdtype != torch.complex64:
         raise NotImplementedError(
-            "the SEL-chain kernel runs float32 planes; the complex128 "
+            "the SEL-chain kernel runs complex64 states; the complex128 "
             "gate-level route is ROADMAP Queue 1 item 5")
     return True
 
@@ -289,7 +290,7 @@ def _sel_chain(states, w, imprimitive: str, cdtype):
     wires = w.shape[1]
     if _chain_route(states.shape[0], wires, cdtype):
         mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
-        return sel_chain(states, mats, wires, imprimitive)
+        return sel_chain_rows(states, mats, wires, imprimitive)
     u = sel_unitary(w.to(cdtype.to_real()), imprimitive).to(cdtype)
     return apply_unitary(states, u)
 
@@ -326,7 +327,7 @@ def reupload_block_trajectories(x_enc, block_weights, *, rng, n_traj: int,
             # as sel_unitaries' do per block
             w_l = block_weights[l]
             mats = rot_matrix(w_l[..., 0], w_l[..., 1], w_l[..., 2])
-            return sel_chain(s, mats, wires, imprimitive)
+            return sel_chain_rows(s, mats, wires, imprimitive)
     else:
         us = sel_unitaries(block_weights.to(rdtype), imprimitive).to(cdtype)
 

@@ -33,6 +33,11 @@ KINDS = ["amplitude_damping", "depolarizing", "phase_damping"]
 SHAPES = [(3, 2, 2, 3), (4, 3, 2, 2), (4, 2, 3, 1)]
 # chip_smoke.py's shapes: (wires, batch), at (L, k) = (6, 2)
 CARD_SHAPES = [(w, b) for w in (1, 2, 4, 6, 7, 8) for b in (1, 10)]
+# every shape chip_smoke.py holds the kernel at: (wires, batch, L, RY)
+SMOKE_SHAPES = ([(w, b, 6, ry) for w, b in CARD_SHAPES for ry in (False, True)]
+                + [(6, 10, 14, False), (8, 10, 6, True)]
+                + [(w, b, n, ry) for w, b, n in ((9, 2, 2), (10, 1, 1))
+                   for ry in (False, True)])
 
 
 def _inputs(w, L, k, B, seed=0):
@@ -152,6 +157,35 @@ def test_other_devices_kinds_and_wrong_shapes_raise():
                                  1, False)
 
 
+@pytest.mark.parametrize("w,B,L,ry", SMOKE_SHAPES)
+def test_cluster_plan_fits_the_card(w, B, L, ry):
+    """The plan for every shape the card runs: a power-of-two cluster of
+    at most 16 CTAs whose rows tile rho, within a CTA's shared memory; rho
+    in shared memory up to 9 wires, in device memory at 10."""
+    plan = dm_kernel.cluster_plan(w, B, 2 * L, ry)
+    c = plan.cluster
+    assert 1 <= c <= dm_kernel.MAX_CLUSTER and c & (c - 1) == 0
+    assert c == 1 or c <= 2**w // 2
+    assert plan.rows_per_cta * c == 2**w
+    assert 0 < plan.smem_bytes <= gate_kernel._MAX_SMEM_BYTES
+    side = (w if ry else 2**w) * 8 + 2 * L * w * 8 * 4
+    rho = 4**w * 8 // c if plan.rho_in_smem else 0
+    assert plan.smem_bytes == side + rho
+    assert plan.rho_in_smem == (w <= 9)
+    # no more clusters than the card has SMs for, unless rho needs them
+    assert B * c <= dm_kernel.SM_COUNT or (w == 9 and c == 16)
+
+
+def test_cluster_plan_spreads_the_sweep_shapes():
+    """The noisy sweep's two dm shapes run a cluster a sample: 80 CTAs at
+    (8, 10), each with 32 rows (64 KB) of rho; 40 at (6, 10)."""
+    assert dm_kernel.cluster_plan(8, 10, 12, True) == dm_kernel.DmPlan(
+        8, 32, 8 * 8 + 12 * 8 * 32 + 256 * 256 * 8 // 8, True)
+    assert dm_kernel.cluster_plan(6, 10, 28, False).cluster == 4
+    assert dm_kernel.cluster_plan(10, 1, 2, False) == dm_kernel.DmPlan(
+        16, 64, 1024 * 8 + 2 * 10 * 32, False)
+
+
 def test_library_build_covers_the_dm_source():
     """The library's hash and its nvcc jobs include csrc/dm_chain.cu, so an
     edit of it rebuilds the library."""
@@ -207,6 +241,47 @@ def test_kernel_matches_plain_on_card_at_9_and_10_wires(cuda, w, B, L):
             err = (got - want).abs().max().item()
             assert err <= TOL, (ry, kind, err)
             _check_density(got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("in_smem", [True, False], ids=["smem", "device"])
+def test_every_cluster_and_route_matches_plain_on_card(cuda, cluster,
+                                                       in_smem):
+    """The kernel at plans other than the default, at w = 8: every cluster
+    size with rho in shared memory (where it fits) and in device memory,
+    the same rho within 1e-5 of plain, and bit for bit from call to
+    call."""
+    w, L, B = 8, 2, 3
+    side = w * 8 + 2 * L * w * 8 * 4
+    rho = 4**w * 8 // cluster
+    if in_smem and side + rho > gate_kernel._MAX_SMEM_BYTES:
+        pytest.skip("rho does not fit in this cluster's shared memory")
+    plan = dm_kernel.DmPlan(cluster, 2**w // cluster,
+                            side + (rho if in_smem else 0), in_smem)
+    ang, x = _inputs(w, L, 2, B, seed=11)
+    enc, mats = _torch_args(ang, x, True, cuda)
+    g8 = gate_kernel._to_g8(mats)
+    got = dm_kernel._dm_chain_cuda(enc, g8, 0.3, 2, w, 0, True, plan)
+    want = dm_kernel.dm_chain_plain(enc, mats, 2, w, "amplitude_damping",
+                                    0.3, ry=True)
+    again = dm_kernel._dm_chain_cuda(enc, g8, 0.3, 2, w, 0, True, plan)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_refused_cluster_raises(cuda):
+    """A plan the kernel cannot launch (a cluster of 32) raises; nothing
+    falls back to another layout."""
+    ang, x = _inputs(6, 2, 2, 2)
+    enc, mats = _torch_args(ang, x, False, cuda)
+    g8 = gate_kernel._to_g8(mats)
+    side = 2**6 * 8 + 4 * 6 * 8 * 4
+    plan = dm_kernel.DmPlan(32, 2, side + 4**6 * 8 // 32, True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dm_kernel._dm_chain_cuda(enc, g8, 0.3, 2, 6, 1, False, plan)
 
 
 @pytest.mark.cuda

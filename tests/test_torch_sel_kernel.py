@@ -107,7 +107,7 @@ def test_plain_matches_pallas_interpret(w, ring, B, depth):
     out_r, out_i = sel_kernel.sel_chain_planes_plain(sr, si, mats, w, ring)
     np.testing.assert_allclose(out_r.numpy().T, want.real, atol=TOL)
     np.testing.assert_allclose(out_i.numpy().T, want.imag, atol=TOL)
-    got = sel_kernel.sel_chain(torch.as_tensor(st), mats, w, ring)
+    got = sel_kernel.sel_chain_rows(torch.as_tensor(st), mats, w, ring)
     assert got.shape == (B, 2**w) and got.dtype == torch.complex64
     np.testing.assert_allclose(got.numpy(), want, atol=TOL)
 
