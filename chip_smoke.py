@@ -245,13 +245,18 @@ any failure exits non-zero and no phase's failure is caught:
    within 1e-5;
 29. the ceiling probes' kernels against plain (qiddm_tpu_torch.tools.
    probe_kernels, csrc/probes.cu) at the tools' default shapes and at a
-   small one: P1 gives exactly 2 x at 48 KB and at the card's opt-in
-   shared memory a block (alone and in a cluster of 2) and is refused 512
-   bytes above it; P2 (128, 8192) and P3 (8192, 128), 50 steps, within
-   1e-6 relative; P5 (128, 128) @ (128, 8192), 50 products, and P4
-   (128, 128, 64), within 1e-5 relative; the FMA
-   probe at (1024, B, 4096) for B in {80, 128} x chains in {1, 4, 8},
-   within 1e-5 relative;
+   small one: P1 gives exactly 2 x at 8 KB, 48 KB and the card's opt-in
+   shared memory a block, alone (a plain launch) and in clusters of 2 and
+   16, and is refused 512 bytes above the opt-in at each; P2 (128, 8192)
+   and P3 (8192, 128), 50 steps, within 1e-6 relative; P5 (128, 128) @
+   (128, 8192), 50 products, and P4 (128, 128, 64) and at every card
+   test's shape (a in {1, 3, 128} x m in {8, 64, 128} x w in {4, 64,
+   128}, m = w = 128 must be refused; and (4, 16, 8), (3, 24, 8),
+   (2, 96, 32), (2, 200, 8): 2, 3, 3 and 25 chunks of k), each with its
+   plan (blocks, threads, shared memory) printed, within 1e-5 relative and
+   equal bit for bit to probe_kernels.in_order_matmul; the FMA probe at
+   (1024, B, 4096) for B in {80, 128} x chains in {1, 4, 8}, within 1e-5
+   relative;
 30. the probe tools (the slice's main path), with the counts set to 0 just
    before: python -m qiddm_tpu_torch.tools.vpu_ceiling at its defaults and
    at --iters 8192, and qiddm_tpu_torch.tools.wide_probe at its defaults,
@@ -265,9 +270,17 @@ any failure exits non-zero and no phase's failure is caught:
    plain versions, the bound and, for P1, P2, P4 and P5, the library
    yardstick (P1: torch.add(x, x); P2: a strided torch.mul into a
    transposed buffer and a copy back a step; P4 and P5: torch.matmul, TF32
-   off); then P1 against torch.add(x, x) and P4 against torch.matmul in
-   turns, 20 pairs, each call behind the tools' spin kernel: each median
-   and the median kernel / library ratio with its range, printed;
+   off); P4 (128, 128, 64) and P5 (128, 8192) x 50 must equal
+   probe_kernels.in_order_matmul bit for bit (the sum in order over k from
+   zero, one FMA a term, as the probes always summed); then every kernel
+   with a library time against its library call in turns, 20 pairs, each
+   call behind a spin kernel that outlasts the host's enqueue of either
+   call (its cycles printed): P1 at the opt-in and at 8 KB against
+   torch.add(x, x), P2, P4 and P5 at the tools' shapes, #9-#12 at
+   (16, 10, 28) against _library_wide_fwd / _library_wide_bwd, #13/#14 at
+   (8, 80, 28) against _library_unitary and autograd's backward of it,
+   and (printed only) P1 at the opt-in in clusters of 2: each median and
+   the median kernel / library ratio with its range, printed;
 32. the split of #11 and #12 (printed only, run with phase 23): 3 chain
    calls of each at (16, 10, 28) and (20, 8, 4) under torch.profiler, the
    kernel time a call by wire group (#11) and by launch kind (#12: the
@@ -302,6 +315,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import io
 import json
 import math
@@ -439,6 +453,13 @@ PEAK_BYTES = 3.35e12
 PROBE_ITERS = 50
 PROBE_SHAPE = (128, 8192)
 DOT3D_SHAPE = (128, 128, 64)
+# P4 also at every card test's shape (tests/test_torch_probe_kernels.py);
+# m = w = 128 is refused (512 threads of 8 x 4); the last four stage k in
+# 2, 3, 3 and 25 chunks
+DOT3D_CARD_SHAPES = [(a, m, w) for a in (1, 3, 128) for m in (8, 64, 128)
+                     for w in (4, 64, 128)] + [
+                         (4, 16, 8), (3, 24, 8), (2, 96, 32), (2, 200, 8)]
+SMEM_CLUSTERS = (1, 2, 16)  # P1's sizes held at each, and its boundary
 FMA_SHAPES = [(1024, b, 4096, c) for b in (80, 128) for c in (1, 4, 8)]
 FMA_TIMED = (1024, 80, 4096, 8)
 LAYOUT_TOL = 1e-6   # P2/P3, relative: the same roundings in the same order
@@ -446,7 +467,8 @@ SLAB_TOL = 1e-5     # P4/P5, relative: 128-term float32 sums in two orders
 FMA_TOL = 1e-5      # relative: fmaf against a float64 product and sum, rounded
 PEAK_CAP = 1.05     # no measured rate above 1.05 x PEAK_FLOPS
 FMA_RATIO = (1.8, 2.2)  # time at 2 x iters over time at iters
-PAIRS = 20          # P1 and P4 against their library calls, in turns
+PAIRS = 20          # each kernel against its library call, in turns
+WIDE_PAIRED = (16, 10, 28)  # #9-#12's (w, B, L*k) in the pairs
 
 
 def fail(msg: str) -> None:
@@ -2139,9 +2161,10 @@ def _dm_cluster_sweep(enc, g8, w, b, n_layers, ry, plan, smi) -> None:
               f"{mine:.4f} ms, cluster {c} {theirs:.4f} ms")
 
 
-def phase_times(dev, smi: str) -> tuple[dict, dict]:
-    """{key: (kernel ms, plain ms, bound ms, bound by)} and, for the wide
-    chain, {key: library ms}."""
+def phase_times(dev, smi: str) -> tuple[dict, dict, dict]:
+    """{key: (kernel ms, plain ms, bound ms, bound by)}, for the wide
+    chain {key: library ms}, and #9-#12's calls at WIDE_PAIRED with their
+    library calls for the pairs of phase 31."""
     rng = np.random.default_rng(SEED + 1)
     w, b, n_layers, k = 6, 16, 28, 2
     pr, pi, mats = chain_inputs(rng, w, b, n_layers, dev)
@@ -2218,7 +2241,7 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
                                                    None),
             lambda: amp_damp_kernel.amp_damp_plain(st, u, TRAJ_STRENGTH)
         ) + bound_amp(w, n)
-    library = {}
+    library, pairs = {}, {}
     for w, b, n in ((16, 10, 28), (20, 8, 4)):
         pr, pi, gplanes, fr, fi, gr, gi = wide_inputs(rng, w, b, n, dev)
         signs = gate_kernel._sign_planes_on(2, w, dev)
@@ -2261,6 +2284,24 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
             for _ in range(2))
         library[f"wide_mono_fwd{key}"] = library[f"wide_fwd{key}"]
         library[f"wide_mono_bwd{key}"] = library[f"wide_bwd{key}"]
+        if (w, b, n) == WIDE_PAIRED:
+            bwd = (pr, pi, gplanes, fr, fi, gr, gi, 2, w)
+            fwd_lib = functools.partial(_library_wide_fwd, p, gs, signs, w)
+            bwd_lib = functools.partial(_library_wide_bwd, p, gs, signs, f,
+                                        c, w)
+            pairs.update({
+                f"#11 wide_fwd{key}": (functools.partial(
+                    wide_kernel._wide_chain_cuda, pr, pi, gplanes, 2, w),
+                    fwd_lib, "_library_wide_fwd"),
+                f"#12 wide_bwd{key}": (functools.partial(
+                    wide_kernel._wide_chain_bwd_cuda, *bwd), bwd_lib,
+                    "_library_wide_bwd"),
+                f"#9 wide_mono_fwd{key}": (functools.partial(
+                    wide_kernel._wide_mono_cuda, pr, pi, gplanes, 2, w),
+                    fwd_lib, "_library_wide_fwd"),
+                f"#10 wide_mono_bwd{key}": (functools.partial(
+                    wide_kernel._wide_mono_bwd_cuda, *bwd), bwd_lib,
+                    "_library_wide_bwd")})
     # printed only: a call with one column tile a group pass, whose time
     # is the passes' fixed cost (a barrier or a launch, G and a tile staged
     # from L2, the product's latency), #9 against #11 and #10 against #12
@@ -2286,7 +2327,7 @@ def phase_times(dev, smi: str) -> tuple[dict, dict]:
         print(f"times {key} ({smi}): kernel {kern:.4f} ms, plain "
               f"{plain:.4f} ms ({_HOW}){lib}; bound {bound:.3e} ms ({by}, "
               f"{datapath_of(key)}), kernel at {bound / kern:.2e} of it")
-    return times, library
+    return times, library, pairs
 
 
 def _wide_kind(name: str) -> str:
@@ -2610,14 +2651,20 @@ def _library_unitary(p, us, k):
     return s
 
 
-def phase_unitary_times(dev, smi: str) -> tuple[dict, dict]:
+@torch.no_grad()
+def _no_grad_library_unitary(p, us, k):
+    return _library_unitary(p, us, k)
+
+
+def phase_unitary_times(dev, smi: str) -> tuple[dict, dict, dict]:
     """#13/#14 against plain and the library yardstick at (8, 80, 28) and
-    (6, 16, 28), each beside its bound; printed only: the tiles of
+    (6, 16, 28), each beside its bound, and their calls at (8, 80, 28) with
+    the library's for the pairs of phase 31; printed only: the tiles of
     _tile_for's choice against the others at (8, 80) and (8, 255), and CZ
     chains at (8, 80, 28) on the gate chain #1/#2 against #13/#14 (routing
     stays on #1/#2), whose outputs must agree."""
     rng = np.random.default_rng(SEED + 22)
-    times, library = {}, {}
+    times, library, pairs = {}, {}, {}
     for w, b in ((8, 80), (6, 16)):
         args = unitary_bwd_inputs(rng, w, b, 14, 2, "cnot", dev)
         key = f"{w}_{b}_28"
@@ -2646,6 +2693,18 @@ def phase_unitary_times(dev, smi: str) -> tuple[dict, dict]:
             _median_ms(lambda: torch.autograd.grad(out, (p, us), cot,
                                                    retain_graph=True))
             for _ in range(2))
+        if (w, b) == (8, 80):
+            pairs[f"#13 unitary_fwd{key}"] = (
+                functools.partial(unitary_kernel._unitary_chain_cuda,
+                                  *args[:4], 2),
+                functools.partial(_no_grad_library_unitary, p, us, 2),
+                "_library_unitary")
+            pairs[f"#14 unitary_bwd{key}"] = (
+                functools.partial(unitary_kernel._unitary_chain_bwd_cuda,
+                                  *args, 2),
+                functools.partial(torch.autograd.grad, out, (p, us), cot,
+                                  retain_graph=True),
+                "autograd through _library_unitary")
     for w, b in ((8, 80), (8, 255)):
         args = unitary_bwd_inputs(rng, w, b, 14, 2, "cnot", dev)
         row = []
@@ -2692,7 +2751,7 @@ def phase_unitary_times(dev, smi: str) -> tuple[dict, dict]:
               f"{plain:.4f} ms ({_HOW}), library {library[key]:.4f} ms "
               f"(median of 20, better of two rounds); bound {bound:.3e} ms "
               f"({by}), kernel at {bound / kern:.2e} of it")
-    return times, library
+    return times, library, pairs
 
 
 def _held(what: str, got, want, tol: float, errs: dict, key: str) -> None:
@@ -2716,18 +2775,21 @@ def phase_probes_vs_plain(dev) -> dict:
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     top = optin // pk.ROW_BYTES * pk.ROW_BYTES
     x = torch.rand((8, 128), generator=gen, device=dev)
-    for nbytes, cluster in ((48 * 1024, 1), (top, 1), (top, 2)):
-        out = pk.smem_probe(x, nbytes, cluster)
-        torch.cuda.synchronize()
-        if out is None or not torch.equal(out, pk.smem_probe_plain(x, 0)):
-            fail(f"P1 at {nbytes} B x {cluster} gave "
-                 f"{None if out is None else out.flatten()[:4].tolist()}, "
-                 f"not 2 x")
-        print(f"P1 {nbytes} B x {cluster}: exactly 2 x")
+    for cluster in SMEM_CLUSTERS:  # 1: a plain launch; above: a cluster
+        for nbytes in (8 * 1024, 48 * 1024, top):
+            out = pk.smem_probe(x, nbytes, cluster)
+            torch.cuda.synchronize()
+            if out is None or not torch.equal(out,
+                                              pk.smem_probe_plain(x, 0)):
+                fail(f"P1 at {nbytes} B x {cluster} gave "
+                     f"{None if out is None else out.flatten()[:4].tolist()}"
+                     f", not 2 x")
+        if pk.smem_probe(x, top + pk.ROW_BYTES, cluster) is not None:
+            fail(f"P1 ran {top + pk.ROW_BYTES} B a block in a cluster of "
+                 f"{cluster}, above the card's opt-in {optin} B")
+        print(f"P1 at 8 KB, 48 KB and {top} B in clusters of {cluster}: "
+              f"exactly 2 x; {top + pk.ROW_BYTES} B refused")
     errs["smem"] = 0.0
-    if pk.smem_probe(x, top + pk.ROW_BYTES) is not None:
-        fail(f"P1 ran {top + pk.ROW_BYTES} B a block, above the card's "
-             f"opt-in {optin} B")
     for shape, n in ((PROBE_SHAPE, PROBE_ITERS), ((32, 64), 3)):
         x = torch.rand(shape, generator=gen, device=dev)
         _held(f"P2 {shape} x {n}", pk.transpose_probe(x, n),
@@ -2741,11 +2803,25 @@ def phase_probes_vs_plain(dev) -> dict:
         _held(f"P5 ({m}, {m}) @ ({m}, {n}) x {iters}",
               pk.matmul2_probe(g, x, iters),
               pk.matmul2_probe_plain(g, x, iters), SLAB_TOL, errs, "matmul2")
-    for a, m, w in (DOT3D_SHAPE, (4, 16, 8)):
+    for a, m, w in (DOT3D_SHAPE, *DOT3D_CARD_SHAPES):
         g = torch.randn((m, m), generator=gen, device=dev)
         x = torch.rand((a, m, w), generator=gen, device=dev)
-        _held(f"P4 ({m}, {m}) x ({a}, {m}, {w})", pk.dot3d_probe(g, x),
-              pk.dot3d_probe_plain(g, x), SLAB_TOL, errs, "dot3d")
+        try:
+            plan = pk.dot3d_plan(a, m, w)
+        except ValueError as exc:  # beyond 256 threads of 8 x 4
+            try:
+                pk.dot3d_probe(g, x)
+            except ValueError:
+                print(f"P4 ({m}, {m}) x ({a}, {m}, {w}): refused ({exc})")
+                continue
+            fail(f"P4 ran ({a}, {m}, {w}), a shape its plan refuses")
+        grid, threads, smem = plan
+        what = (f"P4 ({m}, {m}) x ({a}, {m}, {w}), plan: {grid} blocks of "
+                f"{threads} threads and {smem} B")
+        got = pk.dot3d_probe(g, x)
+        _held(what, got, pk.dot3d_probe_plain(g, x), SLAB_TOL, errs, "dot3d")
+        if not torch.equal(got, pk.in_order_matmul(g, x)):
+            fail(f"{what} is not the in-order FMA sum")
     for d, b, iters, chains in [*FMA_SHAPES, (16, 8, 64, 4)]:
         x = torch.rand((d, b), generator=gen, device=dev)
         y = torch.rand((d, b), generator=gen, device=dev)
@@ -2795,37 +2871,124 @@ def phase_probe_tools() -> dict:
     return counts
 
 
-def _spun_ms(fn) -> float:
-    """One call's device time, behind the tools' spin kernel."""
+def _spin_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep a millisecond of the device's clock
+    (median of 5 spins of the tools' length)."""
+    rates = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(tools_common.SPIN_CYCLES)
+        end.record()
+        end.synchronize()
+        rates.append(tools_common.SPIN_CYCLES / start.elapsed_time(end))
+    return float(np.median(rates))
+
+
+def _enqueue_ms(fn) -> float:
+    """The host's time to enqueue one fn() on an idle stream (the largest of
+    3 calls)."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return max(times)
+
+
+def _spun_ms(fn, cycles: int) -> tuple[float, bool]:
+    """One call's device time behind a spin kernel of ``cycles``, and
+    whether the spin was still running when the host had enqueued the call
+    (else the events may hold host time)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(tools_common.SPIN_CYCLES)
+    torch.cuda._sleep(cycles)
     start.record()
     fn()
     end.record()
+    hidden = not start.query()
     end.synchronize()
-    return start.elapsed_time(end)
+    return start.elapsed_time(end), hidden
 
 
-def _spun_pairs(kernel, library) -> tuple[float, float, list]:
-    """PAIRS pairs of (kernel, library) calls in turns, each behind the
-    spin kernel, after a warm-up: the medians (ms) and each pair's
-    kernel / library ratio."""
-    kernel()
-    library()
-    torch.cuda.synchronize()
-    ks, ls = [], []
+def _spun_pairs(kernel, library, cycles: int) -> tuple[list, list, int]:
+    """PAIRS pairs of (kernel, library) calls in turns, each behind a spin
+    of ``cycles``: each call's ms and the count of calls whose enqueue
+    outlasted the spin."""
+    ks, ls, exposed = [], [], 0
     for i in range(PAIRS):
         order = ((kernel, ks), (library, ls))
         for fn, out in (order if i % 2 == 0 else order[::-1]):
-            out.append(_spun_ms(fn))
-    return (float(np.median(ks)), float(np.median(ls)),
-            [k / lib for k, lib in zip(ks, ls)])
+            ms, hidden = _spun_ms(fn, cycles)
+            out.append(ms)
+            exposed += not hidden
+    return ks, ls, exposed
 
 
-def phase_probe_times(dev, smi: str) -> tuple[dict, dict]:
+def phase_pairs(pairs: dict, smi: str) -> dict:
+    """Each kernel against its library call, PAIRS pairs in turns after a
+    warm-up, each call behind a spin kernel that outlasts the host's
+    enqueue of either call (twice the longer enqueue, at least the tools'
+    SPIN_CYCLES; doubled while any call's enqueue outlasted it, up to 4
+    times); returns {key: (kernel median ms, library median ms, median
+    ratio, least ratio, largest ratio)}."""
+    rate = _spin_cycles_per_ms()
+    out = {}
+    for key, (kernel, library, what) in pairs.items():
+        kernel()
+        library()
+        enqueue = max(_enqueue_ms(kernel), _enqueue_ms(library))
+        cycles = max(tools_common.SPIN_CYCLES, int(2 * enqueue * rate))
+        for _ in range(4):
+            ks, ls, exposed = _spun_pairs(kernel, library, cycles)
+            if not exposed:
+                break
+            cycles *= 2
+        ratios = [k / lib for k, lib in zip(ks, ls)]
+        out[key] = (float(np.median(ks)), float(np.median(ls)),
+                    float(np.median(ratios)), min(ratios), max(ratios))
+        print(f"pairs {key} against {what} ({smi}; {PAIRS} pairs in turns, "
+              f"each call behind a {cycles}-cycle spin, {cycles / rate:.3f} "
+              f"ms at {rate:.0f} cycles a ms; host enqueue up to "
+              f"{enqueue:.3f} ms; {exposed} of {2 * PAIRS} calls enqueued "
+              f"past the spin): kernel median {out[key][0]:.4f} ms, library "
+              f"median {out[key][1]:.4f} ms; kernel / library median "
+              f"{out[key][2]:.3f}, range {out[key][3]:.3f}-{out[key][4]:.3f}")
+    return out
+
+
+def phase_in_order_bits(dev) -> None:
+    """P4 at the tools' shape and P5 at the tools' shape and iterations
+    against in_order_matmul, the sum in order over k from zero with one
+    FMA a term: the bits of the probes' first design, which summed so.
+    Equal, or the run fails."""
+    pk = probe_kernels
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    m = DOT3D_SHAPE[1]
+    g = torch.randn((m, m), generator=gen, device=dev)
+    x = torch.rand(DOT3D_SHAPE, generator=gen, device=dev)
+    want = pk.in_order_matmul(g, x)
+    cases = [("P4", pk.dot3d_probe(g, x), want)]
+    g = wide_probe.orthogonal(PROBE_SHAPE[0], dev, SEED + 35)
+    x = want = torch.rand(PROBE_SHAPE, generator=gen, device=dev)
+    for _ in range(PROBE_ITERS):
+        want = pk.in_order_matmul(g, want)
+    cases.append(("P5", pk.matmul2_probe(g, x, PROBE_ITERS), want))
+    for what, got, want in cases:
+        diff = (got - want).abs().max().item()
+        print(f"{what} at the tools' shape against the in-order FMA sum: "
+              f"{'the same bits' if torch.equal(got, want) else diff}")
+        if not torch.equal(got, want):
+            fail(f"{what} is not the in-order FMA sum: max |diff| {diff:.3e}")
+
+
+def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
     """The probe kernels beside their plain versions, their bounds and, for
-    P1, P2, P4 and P5, the library yardstick, at the tools' shapes."""
+    P1, P2, P4 and P5, the library yardstick, at the tools' shapes; and
+    those four's calls with their library calls for phase_pairs."""
     pk = probe_kernels
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
     times, library = {}, {}
@@ -2891,28 +3054,35 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict]:
         lambda: pk.fma_ceiling(xf, yf, iters, chains),
         lambda: pk.fma_ceiling_plain(xf, yf, iters, chains)) + _bound(
             d * b * (2 * iters * chains + 2 * chains - 1), 3 * d * b * f32)
-    # P1 and P4 against their library calls in turns, each behind the
-    # tools' spin kernel (so the events time the device's work), 20 pairs
-    rows = optin // pk.ROW_BYTES * pk.ROW_BYTES
-    for key, kern, lib_fn, what in (
-            ("smem", lambda: pk.smem_probe(x8, rows), lambda: torch.add(x8, x8),
-             "torch.add(x, x)"),
-            ("dot3d", lambda: pk.dot3d_probe(g3, x3),
-             lambda: torch.matmul(g3, x3), "torch.matmul")):
-        k_ms, l_ms, ratios = _spun_pairs(kern, lib_fn)
-        print(f"pairs probe {key} against {what} ({smi}; {PAIRS} pairs in "
-              f"turns, each call behind a {tools_common.SPIN_CYCLES}-cycle "
-              f"spin kernel): kernel median {k_ms:.4f} ms, library median "
-              f"{l_ms:.4f} ms; kernel / library median "
-              f"{float(np.median(ratios)):.3f}, range {min(ratios):.3f}-"
-              f"{max(ratios):.3f}")
+    # P1 (at the opt-in and at the least scratch), P2, P4 and P5 against
+    # their library calls, paired in phase_pairs
+    top = optin // pk.ROW_BYTES * pk.ROW_BYTES
+    pairs = {
+        f"probe smem {top} B": (lambda: pk.smem_probe(x8, top),
+                                lambda: torch.add(x8, x8), "torch.add(x, x)"),
+        f"probe smem {pk.MIN_SMEM_BYTES} B": (
+            lambda: pk.smem_probe(x8, pk.MIN_SMEM_BYTES),
+            lambda: torch.add(x8, x8), "torch.add(x, x)"),
+        "probe transpose": (lambda: pk.transpose_probe(x, n),
+                            library_transpose,
+                            "a strided torch.mul and a copy a step"),
+        "probe dot3d": (lambda: pk.dot3d_probe(g3, x3),
+                        lambda: torch.matmul(g3, x3), "torch.matmul"),
+        # printed only: the cluster route at the opt-in
+        f"probe smem {top} B in clusters of 2": (
+            lambda: pk.smem_probe(x8, top, 2), lambda: torch.add(x8, x8),
+            "torch.add(x, x)"),
+        "probe matmul2": (lambda: pk.matmul2_probe(g, xm, n),
+                          lambda: [torch.matmul(g, xm) for _ in range(n)],
+                          f"{n} torch.matmul"),
+    }
     for key, (kern, plain, bound, by) in times.items():
         lib = library.get(key)
         print(f"times probe {key} ({smi}): kernel {kern:.4f} ms, plain "
               f"{plain:.4f} ms ({_HOW}), library "
               f"{'-' if lib is None else f'{lib:.4f} ms'}; bound "
               f"{bound:.3e} ms ({by}), kernel at {bound / kern:.2e} of it")
-    return times, library
+    return times, library, pairs
 
 
 def main() -> None:
@@ -2997,18 +3167,21 @@ def main() -> None:
         phase_sweep_parity(tmp, "traj_", TRAJ_SWEEP_MODELS, N_TRAJ)
     bench_counts, bench_rates = phase_wide_bench(smi)
     with torch.no_grad():
-        times, library = phase_times(dev, smi)
+        times, library, pairs = phase_times(dev, smi)
         phase_wide_split(dev, smi)
         phase_crossover(dev, smi)
     uni_err, uni_bwd_err = phase_unitary_vs_plain(dev)
     unitary_counts = phase_unitary_route(dev)
-    uni_times, uni_library = phase_unitary_times(dev, smi)
+    uni_times, uni_library, uni_pairs = phase_unitary_times(dev, smi)
     times.update(uni_times)
     library.update(uni_library)
+    pairs.update(uni_pairs)
     with torch.no_grad():
         probe_errs = phase_probes_vs_plain(dev)
         probe_counts = phase_probe_tools()
-        probe_times, probe_library = phase_probe_times(dev, smi)
+        probe_times, probe_library, probe_pairs = phase_probe_times(dev, smi)
+        phase_in_order_bits(dev)
+    phase_pairs({**probe_pairs, **pairs}, smi)
     times.update({f"probe_{k}": v for k, v in probe_times.items()})
     library.update({f"probe_{k}": v for k, v in probe_library.items()})
     for name, rate in rates.items():

@@ -2,7 +2,8 @@
 // TPU's two probe tools, as kernels that measure this card's own ceilings.
 //
 // They replace, in tools/bench_pallas_wide_probe.py:
-//   P1 probe_vmem (:40, call :48)      -> probe_smem_kernel
+//   P1 probe_vmem (:40, call :48)      -> probe_smem_block_kernel,
+//                                         probe_smem_cluster_kernel
 //   P2 probe_transpose (:74, call :81) -> probe_transpose_kernel
 //   P3 probe_reshape (:93, call :100)  -> probe_reshape_kernel
 //   P5 probe_matmul2 (:112, call :124) -> probe_matmul2_kernel
@@ -16,14 +17,21 @@
 // P1. How much on-chip memory one kernel holds. The TPU probe sizes a VMEM
 // scratch; here the scratch is S bytes of dynamic shared memory, an
 // (S / 512, 128) float32 array. The block writes x (8, 128) into its first
-// and its last 8 rows and writes o = head + tail = 2x. The TPU kernel reads
-// a tail it never wrote, so its output is undefined; this one defines it.
-// The same kernel launches as a thread-block cluster of C blocks
-// (cudaLaunchKernelEx, cluster dimension C, C = 16 non-portable): each block
-// fills its own scratch, and block 0 adds the tail of block C - 1's scratch,
-// read through distributed shared memory (map_shared_rank). A shape the card
-// cannot hold (the attribute refused, or no cluster of that shape fits)
-// returns kCapacityRefused; every other error is returned as it is.
+// and its last 8 rows and writes o = head + tail = 2x, one float4 of each a
+// thread (256 threads). The TPU kernel reads a tail it never wrote, so its
+// output is undefined; this one defines it. The launch is routed by shape:
+// a cluster of one block needs no cluster, so C = 1 is a plain <<<>>>
+// launch of probe_smem_block_kernel, a block barrier between the scratch's
+// stores and the loads of o; C > 1 is a cluster launch of
+// probe_smem_cluster_kernel (cudaLaunchKernelEx, cluster dimension C,
+// C = 16 non-portable): each block fills its own scratch, and block 0 adds
+// the tail of block C - 1's scratch, read through distributed shared
+// memory (map_shared_rank). probe_smem_fits answers, for one (S, C), the
+// capacity question: kCapacityRefused when the card refuses the shape (the
+// attribute refused, or no block or cluster of that shape fits), and any
+// other error as it is; it raises the kernel's shared-memory attribute to S
+// (never lowers it), so the wrapper asks it once a shape and probe_smem
+// only launches.
 //
 // P2. A transpose's cost. The TPU probe loops 50 x
 // x <- transpose(transpose(x) * 1.000001) on a (128, 8192) plane in VMEM.
@@ -43,15 +51,46 @@
 // P5. The group product of a 20-wire state: n_iters x x <- g @ x, g (m, m),
 // x (m, n), in full float32 (FMAs on the CUDA cores, no tensor cores, no
 // TF32: the TPU's Precision.HIGHEST). Columns are independent, so a block
-// owns a slab of W columns and runs every product itself: g (transposed,
-// rows padded by 4) and the slab sit in shared memory, each thread keeps an
-// 8 x 4 register tile of the product, a barrier separates reading the slab
-// from writing it back. Bound by the float32 FMA rate (2 m^2 n n_iters
-// flops).
+// owns a slab of W columns and runs every product itself: g and the slab
+// are staged once into shared memory (stage_chunk, in one cp.async
+// group), each thread keeps an 8 x 4 register tile of the product
+// (chunk_product), a barrier separates reading the slab from writing it
+// back. Bound by the float32 FMA rate (2 m^2 n n_iters flops).
 //
 // P4. The contraction on x's middle axis: out[a, i, c] = sum_j g[i, j]
-// x[a, j, c]. One block a slice a, with P5's slab product (W = x's last
-// axis). The TPU probe asked whether Mosaic lowers it; here it always runs.
+// x[a, j, c]. A block owns one slice a, all of g against its (m, w) slab
+// (the plan of probe_kernels.dot3d_plan): a grid of a blocks, 128 blocks of
+// 256 threads at the tools' (128, 128, 64). g and the slab are staged in
+// chunks of KC k-rows, one cp.async group a chunk, each chunk's copies
+// issued by every thread before the next chunk's (a barrier between): the
+// block multiplies chunk c once it has landed while the later chunks are
+// in flight, 2 chunks of 64 at m = 128. KC is a template argument, the
+// largest of 64, 32, 16 and 8 that divides m, so a chunk's k loop unrolls
+// in full. On the card (PERF.md, P4) the conflict-free staging and the
+// unrolled chunk made the redesign's gain; the overlap of chunks gained
+// nothing measurable, and splitting g's rows over more blocks only lost.
+// The product, not the loads, sets the time: a 16-byte shared load is
+// served a quarter-warp a cycle, so a warp's 12 of them per 4 k (8 of g, 4
+// of the slab) take 48 cycles of the SM's one shared-memory pipe against
+// its 128 FMAs on one of four FMA pipes; 8 warps an SM hold the FMAs to at
+// most 2/3 of their rate. The TPU probe asked whether Mosaic lowers it;
+// here it always runs.
+//
+// Both sum each output over k in order from zero, one fmaf a term
+// (probe_kernels.in_order_matmul emulates it exactly), so the outputs do
+// not depend on the chunks or the tile.
+//
+// Shared memory of both: g chunk-major, [m / KC][m][KC] floats, and the
+// slab row-major, [m][W]; each chunk of either is one
+// dense run. A cp.async copies 16 bytes, thread t of the chunk's copies
+// writing bytes 16 t .. 16 t + 15 of that run, so each quarter-warp (8
+// lanes, the unit a 16-byte shared access is served in) writes 128
+// consecutive bytes: every bank once, conflict-free for every m and W.
+// Reads: the slab row of a k is 4 consecutive floats a lane,
+// conflict-free; a lane reads its 8 rows of g as float4 along k, and the
+// lanes of a quarter-warp share their rows when W >= 32 (a broadcast, as
+// at the tools' shapes); at narrower W a quarter-warp spans 8 / (W / 4)
+// row tiles that lie 8 KC floats apart, on the same banks: that many ways.
 //
 // FMA ceiling. One thread an element of the (d, B) planes, `chains`
 // independent accumulators in registers (a template over 1, 4, 8),
@@ -62,12 +101,14 @@
 //
 // Plain C interface (bound with ctypes): each entry launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns a
-// cudaError_t (or kCapacityRefused from probe_smem).
+// cudaError_t (or kCapacityRefused from probe_smem_fits).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "wide_common.cuh"  // cp_async_n, cp_async_commit, cp_async_wait
 
 namespace cg = cooperative_groups;
 
@@ -77,7 +118,7 @@ constexpr int kLanes = 128;                // P1 scratch row, floats
 constexpr int kHeadRows = 8;               // x is (8, 128)
 constexpr int kHead = kHeadRows * kLanes;  // floats of x
 constexpr int kRowBytes = kLanes * 4;
-constexpr int kSmemThreads = 256;
+constexpr int kSmemThreads = kHead / 4;  // one float4 of x a thread
 constexpr int kCapacityRefused = -1;
 
 constexpr int kT = 32;  // P2 tile side; the block is kT x kTRows threads
@@ -85,30 +126,45 @@ constexpr int kTRows = 8;
 
 constexpr int kRM = 8;  // P4/P5 register tile: rows x columns a thread
 constexpr int kRC = 4;
-constexpr int kPad = 4;  // g's transposed rows are m + kPad floats apart
+constexpr int kMaxChunks = 8;  // P4: chunks whose groups are waited for
+                               // one at a time
 
 constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------- P1
 
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// Thread i writes float4 i of x into the head and the tail of the scratch;
+// the tail starts `tail` float4 in.
 __global__ void __launch_bounds__(kSmemThreads)
-    probe_smem_kernel(const float* __restrict__ x, float* __restrict__ o,
-                      int rows) {
-  extern __shared__ float4 smem4[];
-  float* scratch = reinterpret_cast<float*>(smem4);
+    probe_smem_block_kernel(const float4* __restrict__ x,
+                            float4* __restrict__ o, int tail) {
+  extern __shared__ float4 scratch[];
+  const int i = threadIdx.x;
+  const float4 v = x[i];
+  scratch[i] = v;
+  scratch[tail + i] = v;
+  __syncthreads();
+  o[i] = add4(scratch[i], scratch[tail + i]);
+}
+
+__global__ void __launch_bounds__(kSmemThreads)
+    probe_smem_cluster_kernel(const float4* __restrict__ x,
+                              float4* __restrict__ o, int tail) {
+  extern __shared__ float4 scratch[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int tail = (rows - kHeadRows) * kLanes;
-  for (int i = threadIdx.x; i < kHead; i += blockDim.x) {
-    const float v = x[i];
-    scratch[i] = v;
-    scratch[tail + i] = v;
-  }
+  const int i = threadIdx.x;
+  const float4 v = x[i];
+  scratch[i] = v;
+  scratch[tail + i] = v;
   cluster.sync();  // every block of the cluster has filled its scratch
   if (cluster.block_rank() == 0) {
-    const float* remote =
+    const float4* remote =
         cluster.map_shared_rank(scratch, cluster.num_blocks() - 1);
-    for (int i = threadIdx.x; i < kHead; i += blockDim.x)
-      o[i] = scratch[i] + remote[tail + i];
+    o[i] = add4(scratch[i], remote[tail + i]);
   }
   cluster.sync();  // the last block stays resident until block 0 has read
 }
@@ -169,77 +225,122 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------- P4, P5
 
-// Shared memory of a slab product: g transposed (m rows of m + kPad) and an
-// (m, W) slab.
+// Shared memory of a P4 or P5 block: g and its (m, w) slab.
 size_t slab_smem(int m, int w) {
-  return (static_cast<size_t>(m) * (m + kPad) + static_cast<size_t>(m) * w) *
-         sizeof(float);
+  return (static_cast<size_t>(m) + w) * m * sizeof(float);
 }
 
-// gt[k * (m + kPad) + i] = g[i, k]; slab = src's (m, W) columns, row
-// stride ld. 16-byte loads (m, W and ld are multiples of 4, the pointers
-// 16-byte aligned), so a block has a quarter of the load round trips.
-__device__ __forceinline__ void stage(float* gt, float* slab,
-                                      const float* __restrict__ g,
-                                      const float* __restrict__ src, int m,
-                                      int w, long long ld) {
-  for (int e = 4 * threadIdx.x; e < m * m; e += 4 * blockDim.x) {
-    const float4 v = *reinterpret_cast<const float4*>(g + e);
-    const int i = e / m, k = e % m;
-    gt[k * (m + kPad) + i] = v.x;
-    gt[(k + 1) * (m + kPad) + i] = v.y;
-    gt[(k + 2) * (m + kPad) + i] = v.z;
-    gt[(k + 3) * (m + kPad) + i] = v.w;
+// k-rows a chunk: the largest of 64, 32, 16 and 8 that divides m (m is a
+// multiple of 8).
+int chunk_rows(int m) {
+  for (int kc = 64; kc > 8; kc /= 2)
+    if (m % kc == 0) return kc;
+  return 8;
+}
+
+// Issues this thread's cp.async copies of chunk c: k-rows c KC .. c KC +
+// KC - 1 of g (m, m) into gs, and of the (m, W) source (row stride ld)
+// into the slab. Each chunk of gs and of the slab is dense, and copy p
+// writes its 16 bytes at 16 p: see the header for why that is
+// conflict-free. m, W, ld and KC are multiples of 4 and the pointers
+// 16-byte aligned.
+template <int KC>
+__device__ __forceinline__ void stage_chunk(float* gs, float* slab,
+                                            const float* __restrict__ g,
+                                            const float* __restrict__ src,
+                                            int m, int w, long long ld,
+                                            int c) {
+  constexpr int q = KC / 4;  // copies a row of a g chunk
+  float* gc = gs + c * m * KC;
+  for (int p = threadIdx.x; p < m * q; p += blockDim.x) {
+    const int r = p / q;
+    cp_async_n<16>(gc + 4 * p, g + r * m + c * KC + 4 * (p - r * q));
   }
-  for (int e = 4 * threadIdx.x; e < m * w; e += 4 * blockDim.x) {
-    const int k = e / w, c = e % w;
-    *reinterpret_cast<float4*>(slab + e) =
-        *reinterpret_cast<const float4*>(src + k * ld + c);
+  const int wq = w / 4;
+  float* sc = slab + c * KC * w;
+  for (int p = threadIdx.x; p < KC * wq; p += blockDim.x) {
+    const int k = p / wq;
+    cp_async_n<16>(sc + 4 * p, src + (c * KC + k) * ld + 4 * (p - k * wq));
   }
 }
 
-// acc = (g @ slab) on this thread's rows r0 .. r0 + 7 and columns
-// c0 .. c0 + 3, summed over k in order, one FMA a term.
-__device__ __forceinline__ void slab_product(const float* gt,
-                                             const float* slab, int m, int w,
-                                             int r0, int c0,
-                                             float (&acc)[kRM][kRC]) {
+// acc += (g @ slab) on this thread's rows r0 .. r0 + 7 and
+// columns c0 .. c0 + 3, over the k-rows of chunk c, in order, one fmaf
+// a term.
+template <int KC>
+__device__ __forceinline__ void chunk_product(const float* gs,
+                                              const float* slab, int m,
+                                              int w, int r0, int c0, int c,
+                                              float (&acc)[kRM][kRC]) {
+  const float* gc = gs + (c * m + r0) * KC;
+  const float* sc = slab + c * KC * w + c0;
+#pragma unroll
+  for (int kk = 0; kk < KC; kk += 4) {
+    float4 a[kRM];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(gc + i * KC + kk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(sc + (kk + j) * w);
+      const float bb[kRC] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < kRM; ++i) {
+        const float ak = j == 0 ? a[i].x : j == 1 ? a[i].y
+                       : j == 2 ? a[i].z : a[i].w;
+#pragma unroll
+        for (int jj = 0; jj < kRC; ++jj)
+          acc[i][jj] = fmaf(ak, bb[jj], acc[i][jj]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kRM][kRC]) {
 #pragma unroll
   for (int i = 0; i < kRM; ++i)
 #pragma unroll
     for (int j = 0; j < kRC; ++j) acc[i][j] = 0.0f;
-  const int ldg = m + kPad;
-#pragma unroll 4
-  for (int k = 0; k < m; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(gt + k * ldg + r0);
-    const float4 a1 = *reinterpret_cast<const float4*>(gt + k * ldg + r0 + 4);
-    const float4 b = *reinterpret_cast<const float4*>(slab + k * w + c0);
-    const float a[kRM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bb[kRC] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < kRM; ++i)
-#pragma unroll
-      for (int j = 0; j < kRC; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+}
+
+// Waits until at most n of this thread's newest copy groups are in
+// flight; n above kMaxChunks - 1 waits for more than it must.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n < kMaxChunks - 1 ? n : kMaxChunks - 1) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
   }
 }
 
 // Block b owns columns b W .. b W + W - 1 of the (m, n) plane.
+template <int KC>
 __global__ void __launch_bounds__(kThreads)
     probe_matmul2_kernel(const float* __restrict__ g,
-                                     const float* __restrict__ x,
-                                     float* __restrict__ o, int m, int n,
-                                     int w, int n_iters) {
+                         const float* __restrict__ x, float* __restrict__ o,
+                         int m, int n, int w, int n_iters) {
   extern __shared__ float4 smem4[];
-  float* gt = reinterpret_cast<float*>(smem4);
-  float* slab = gt + m * (m + kPad);
+  float* gs = reinterpret_cast<float*>(smem4);
+  float* slab = gs + m * m;
   const long long col0 = static_cast<long long>(blockIdx.x) * w;
-  stage(gt, slab, g, x + col0, m, w, n);
+  const int chunks = m / KC;
+  for (int c = 0; c < chunks; ++c)
+    stage_chunk<KC>(gs, slab, g, x + col0, m, w, n, c);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
   const int r0 = kRM * (threadIdx.x / (w / kRC));
   const int c0 = kRC * (threadIdx.x % (w / kRC));
   float acc[kRM][kRC];
   for (int it = 0; it < n_iters; ++it) {
-    slab_product(gt, slab, m, w, r0, c0, acc);
+    zero(acc);
+    for (int c = 0; c < chunks; ++c)
+      chunk_product<KC>(gs, slab, m, w, r0, c0, c, acc);
     __syncthreads();  // every thread has read the slab
 #pragma unroll
     for (int i = 0; i < kRM; ++i)
@@ -253,24 +354,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Block a: out[a] = g @ x[a], each x[a] an (m, w) plane.
+// Block b: out[b] = g @ x[b], each x[a] an (m, w) plane.
+template <int KC>
 __global__ void __launch_bounds__(kThreads)
     probe_dot3d_kernel(const float* __restrict__ g,
-                                   const float* __restrict__ x,
-                                   float* __restrict__ o, int m, int w) {
+                       const float* __restrict__ x, float* __restrict__ o,
+                       int m, int w) {
   extern __shared__ float4 smem4[];
-  float* gt = reinterpret_cast<float*>(smem4);
-  float* slab = gt + m * (m + kPad);
+  float* gs = reinterpret_cast<float*>(smem4);
+  float* slab = gs + m * m;
   const long long off = static_cast<long long>(blockIdx.x) * m * w;
-  stage(gt, slab, g, x + off, m, w, w);
-  __syncthreads();
+  const int chunks = m / KC;
+  for (int c = 0; c < chunks; ++c) {
+    stage_chunk<KC>(gs, slab, g, x + off, m, w, w, c);
+    cp_async_commit();
+    if (c + 1 < chunks) __syncthreads();  // chunk c goes out first
+  }
   const int r0 = kRM * (threadIdx.x / (w / kRC));
   const int c0 = kRC * (threadIdx.x % (w / kRC));
   float acc[kRM][kRC];
-  slab_product(gt, slab, m, w, r0, c0, acc);
+  zero(acc);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait_upto(chunks - 1 - c);  // chunk c has landed
+    __syncthreads();                     // for every thread's copies
+    chunk_product<KC>(gs, slab, m, w, r0, c0, c, acc);
+  }
+  float* out = o + off + static_cast<long long>(r0) * w + c0;
 #pragma unroll
   for (int i = 0; i < kRM; ++i)
-    *reinterpret_cast<float4*>(o + off + (r0 + i) * w + c0) =
+    *reinterpret_cast<float4*>(out + i * w) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
@@ -334,37 +446,20 @@ cudaError_t transpose_grid(int rows, int cols, int device, int* grid) {
   return cudaSuccess;
 }
 
-}  // namespace
+// P1's kernel for a cluster of `cluster` blocks.
+const void* smem_kernel(int cluster) {
+  return cluster == 1 ? reinterpret_cast<const void*>(probe_smem_block_kernel)
+                      : reinterpret_cast<const void*>(probe_smem_cluster_kernel);
+}
 
-extern "C" {
-
-// P1: x and o are (8, 128) float32; the scratch is smem_bytes (a multiple
-// of 512, at least 16 rows) a block, in a cluster of `cluster` blocks.
-// Returns kCapacityRefused when the card cannot hold that shape.
-int probe_smem(const void* x, void* o, int smem_bytes, int cluster,
-               int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem_bytes % kRowBytes != 0 || smem_bytes < 2 * kHeadRows * kRowBytes ||
-      cluster < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(probe_smem_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-  if (err == cudaErrorInvalidValue) {
-    cudaGetLastError();
-    return kCapacityRefused;
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(probe_smem_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+// P1's launch configuration for a cluster of `cluster` blocks of
+// smem_bytes; attr must outlive cfg.
+cudaLaunchConfig_t smem_config(int smem_bytes, int cluster, void* stream,
+                               cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster);
   cfg.blockDim = dim3(kSmemThreads);
@@ -372,21 +467,90 @@ int probe_smem(const void* x, void* o, int smem_bytes, int cluster,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool smem_shape_ok(int smem_bytes, int cluster) {
+  return smem_bytes % kRowBytes == 0 &&
+         smem_bytes >= 2 * kHeadRows * kRowBytes && cluster >= 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// P1's capacity answer for a scratch of smem_bytes (a multiple of 512, at
+// least 16 rows) a block in a cluster of `cluster` blocks: cudaSuccess when
+// the card holds it, kCapacityRefused when it does not, any other error as
+// it is. Raises the kernel's dynamic shared-memory attribute to smem_bytes
+// when it is below, never lowers it, so a shape that fitted still launches.
+int probe_smem_fits(int smem_bytes, int cluster, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!smem_shape_ok(smem_bytes, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = smem_kernel(cluster);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fa.maxDynamicSharedSizeBytes < smem_bytes) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+    if (err == cudaErrorInvalidValue) {
+      cudaGetLastError();
+      return kCapacityRefused;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (cluster == 1) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, probe_smem_block_kernel, kSmemThreads, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return per_sm < 1 ? kCapacityRefused : cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(probe_smem_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      smem_config(smem_bytes, cluster, nullptr, &attr);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, probe_smem_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, probe_smem_cluster_kernel,
+                                       &cfg);
   if (err == cudaErrorInvalidClusterSize || err == cudaErrorInvalidValue) {
     cudaGetLastError();
     return kCapacityRefused;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return kCapacityRefused;
-  err = cudaLaunchKernelEx(&cfg, probe_smem_kernel,
-                           static_cast<const float*>(x), static_cast<float*>(o),
-                           smem_bytes / kRowBytes);
-  if (err == cudaErrorInvalidClusterSize) {
-    cudaGetLastError();
-    return kCapacityRefused;
+  return clusters < 1 ? kCapacityRefused : cudaSuccess;
+}
+
+// P1: x and o are (8, 128) float32, 16-byte aligned; a shape
+// probe_smem_fits has accepted. The launch is routed by shape: a plain
+// launch at cluster 1 (the function needs no cluster there), a cluster
+// launch above.
+int probe_smem(const void* x, void* o, int smem_bytes, int cluster,
+               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!smem_shape_ok(smem_bytes, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float4* xp = static_cast<const float4*>(x);
+  float4* op = static_cast<float4*>(o);
+  const int tail = (smem_bytes / kRowBytes - kHeadRows) * kLanes / 4;
+  if (cluster == 1) {
+    probe_smem_block_kernel<<<1, kSmemThreads, smem_bytes,
+                              static_cast<cudaStream_t>(stream)>>>(xp, op,
+                                                                   tail);
+    return static_cast<int>(cudaGetLastError());
   }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      smem_config(smem_bytes, cluster, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, probe_smem_cluster_kernel, xp, op, tail);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -425,9 +589,6 @@ int probe_reshape(const void* x, void* o, long long n, int n_iters,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory a block of P4/P5 needs at (m, w).
-size_t probe_slab_smem_bytes(int m, int w) { return slab_smem(m, w); }
-
 // P5: g (m, m), x and o (m, n); w columns a block (n a multiple of w).
 int probe_matmul2(const void* g, const void* x, void* o, int m, int n,
                   int w, int n_iters, int device, void* stream) {
@@ -437,29 +598,54 @@ int probe_matmul2(const void* g, const void* x, void* o, int m, int n,
   if (threads == 0 || n < w || n % w != 0 || n_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = slab_smem(m, w);
-  err = allow_smem(probe_matmul2_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  probe_matmul2_kernel<<<n / w, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(x),
-      static_cast<float*>(o), m, n, w, n_iters);
-  return static_cast<int>(cudaGetLastError());
+  const float* gp = static_cast<const float*>(g);
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(o);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<n / w, threads, smem, s>>>(gp, xp, op, m, n, w, n_iters);
+    return cudaGetLastError();
+  };
+  switch (chunk_rows(m)) {
+    case 64: return static_cast<int>(launch(probe_matmul2_kernel<64>));
+    case 32: return static_cast<int>(launch(probe_matmul2_kernel<32>));
+    case 16: return static_cast<int>(launch(probe_matmul2_kernel<16>));
+    default: return static_cast<int>(launch(probe_matmul2_kernel<8>));
+  }
 }
 
-// P4: g (m, m), x and o (a, m, w).
+// P4: g (m, m), x and o (a, m, w), under probe_kernels.dot3d_plan's plan
+// (grid, threads, smem_bytes): a blocks, one a slice, of slab_threads(m, w)
+// threads and slab_smem(m, w) bytes. Any other plan is
+// cudaErrorInvalidValue.
 int probe_dot3d(const void* g, const void* x, void* o, int a, int m, int w,
-                int device, void* stream) {
+                int grid, int threads, int smem_bytes, int device,
+                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = slab_threads(m, w);
-  if (threads == 0 || a < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = slab_smem(m, w);
-  err = allow_smem(probe_dot3d_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  probe_dot3d_kernel<<<a, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(x),
-      static_cast<float*>(o), m, w);
-  return static_cast<int>(cudaGetLastError());
+  if (a < 1 || grid != a || slab_threads(m, w) == 0 ||
+      threads != slab_threads(m, w) ||
+      static_cast<size_t>(smem_bytes) != smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* gp = static_cast<const float*>(g);
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(o);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, threads, smem, s>>>(gp, xp, op, m, w);
+    return cudaGetLastError();
+  };
+  switch (chunk_rows(m)) {
+    case 64: return static_cast<int>(launch(probe_dot3d_kernel<64>));
+    case 32: return static_cast<int>(launch(probe_dot3d_kernel<32>));
+    case 16: return static_cast<int>(launch(probe_dot3d_kernel<16>));
+    default: return static_cast<int>(launch(probe_dot3d_kernel<8>));
+  }
 }
 
 // FMA ceiling: x, y and o hold n float32; chains is 1, 4 or 8.

@@ -12,10 +12,11 @@ gradient.
 * P1 :func:`smem_probe` (``probe_vmem``): an (S / 512, 128) float32 scratch
   of S bytes of shared memory, x written into its first and last 8 rows,
   ``head + tail`` returned: ``2 x``. The TPU kernel reads a tail it never
-  wrote (its output is undefined); the port defines it. Launched as a
-  cluster of ``cluster`` blocks, block 0 reads the tail of the last
-  block's scratch through distributed shared memory. Returns ``None`` when
-  the card refuses the shape (its only capacity answer).
+  wrote (its output is undefined); the port defines it. One block is a
+  plain launch; a cluster of ``cluster`` > 1 blocks is a cluster launch in
+  which block 0 reads the tail of the last block's scratch through
+  distributed shared memory. Returns ``None`` when the card refuses the
+  shape (its only capacity answer), asked once a shape and device.
 * P2 :func:`transpose_probe` (``probe_transpose``): ``n_iters`` x
   ``x <- transpose(transpose(x) * 1.000001)``.
 * P3 :func:`reshape_probe` (``probe_reshape``): ``n_iters`` x
@@ -23,11 +24,14 @@ gradient.
 * P5 :func:`matmul2_probe` (``probe_matmul2``): ``n_iters`` x ``x <- g @ x``
   in full float32.
 * P4 :func:`dot3d_probe` (``probe_dot3d``): ``out[a, i, c] = sum_j g[i, j]
-  x[a, j, c]``.
+  x[a, j, c]``, a block a slice (:func:`dot3d_plan`).
 * :func:`fma_ceiling` (``_fma_kernel``): ``chains`` accumulators
   ``a_c = x * (1 + 0.1 c)``, ``iters`` x ``a <- a * 1.0000001 + y`` (one
   FMA, one rounding, on the card and in the plain version), output the
   left fold ``a_0 + a_1 + ...``.
+
+P4 and P5 sum each output over k in order from zero, one float32 FMA a term:
+:func:`in_order_matmul` gives their bits exactly.
 """
 
 from __future__ import annotations
@@ -50,11 +54,17 @@ ROW_BYTES = 512
 MIN_SMEM_BYTES = 16 * ROW_BYTES
 # P4/P5: each thread of a block owns 8 rows x 4 columns of the product
 SLAB_ROWS, SLAB_COLS, SLAB_MAX_THREADS = 8, 4, 256
+# P4/P5 take the (m, w) whose slab_smem_bytes(m, w + 4) fit a block: the
+# shapes the probes always took (their first layout padded g's rows by 4),
+# a little inside what the present layout needs
+SLAB_TAKEN_PAD = 4
 # P5's slab of columns a block (PERF.md: 64 ran faster than 32)
 MATMUL2_COLS = 64
 FMA_CHAINS = (1, 4, 8)
 
 _BOUND = False
+# P1's capacity answers, (device index, bytes, cluster) -> fits
+_SMEM_FITS: dict = {}
 
 
 def reset_launches() -> None:
@@ -98,6 +108,38 @@ def dot3d_probe_plain(g, x):
     return torch.matmul(g, x)
 
 
+def _fma_round(p, c):
+    """float32 ``p + c`` rounded once, for p an exact float64 product of two
+    float32 and c float32: fmaf's result. The float64 sum s is rounded;
+    TwoSum gives its error e, so s + e is the exact sum. Rounding s to
+    float32 errs only where s lies exactly halfway between two float32 and
+    e is not 0: there the exact sum lies on e's side."""
+    c64 = c.double()
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    f = s.float()
+    d = f.double()
+    inf = torch.full_like(f, float("inf"))
+    other = torch.nextafter(f, torch.where(s > d, inf, -inf))
+    tie = (s != d) & (2 * s == d + other.double()) & (e != 0)
+    return torch.where(tie, torch.where(e > 0, torch.maximum(f, other),
+                                        torch.minimum(f, other)), f)
+
+
+def in_order_matmul(g, x):
+    """``g @ x`` (x (m, n) or (a, m, n)) with each output summed over k in
+    order from zero, one float32 FMA (one rounding) a term: the P4 and P5
+    kernels' arithmetic, emulated exactly in float64, so their outputs
+    equal it bit for bit."""
+    g64, x64 = g.double(), x.double()
+    acc = torch.zeros(x.shape[:-2] + (g.shape[0], x.shape[-1]),
+                      dtype=torch.float32, device=x.device)
+    for k in range(g.shape[1]):
+        acc = _fma_round(g64[:, k, None] * x64[..., k, None, :], acc)
+    return acc
+
+
 def fma_ceiling_plain(x, y, iters: int, chains: int):
     """The FMA recurrence in plain PyTorch, the chains stacked on a leading
     axis. Each step is ``a * 1.0000001 + y`` with the FMA's one rounding:
@@ -127,17 +169,16 @@ def _library():
     if not _BOUND:
         ptr, num, big = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for name, args in (
+                ("probe_smem_fits", [num, num, num]),
                 ("probe_smem", [ptr, ptr, num, num, num, ptr]),
                 ("probe_transpose", [ptr, ptr, ptr, num, num, num, num, ptr]),
                 ("probe_reshape", [ptr, ptr, big, num, num, ptr]),
                 ("probe_matmul2", [ptr, ptr, ptr] + [num] * 5 + [ptr]),
-                ("probe_dot3d", [ptr, ptr, ptr] + [num] * 4 + [ptr]),
+                ("probe_dot3d", [ptr, ptr, ptr] + [num] * 7 + [ptr]),
                 ("fma_ceiling", [ptr, ptr, ptr, big, num, num, num, ptr])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = num
-        lib.probe_slab_smem_bytes.argtypes = [num, num]
-        lib.probe_slab_smem_bytes.restype = ctypes.c_size_t
         _BOUND = True
     return lib
 
@@ -189,12 +230,19 @@ def smem_probe(x, smem_bytes: int, cluster: int = 1):
     if not _dispatch("P1", x):
         return smem_probe_plain(x, smem_bytes, cluster)
     dev = _check("P1", (x,), [(8, 128)])
+    _aligned("P1", (x,))
     lib = _library()
+    shape = (dev.index, smem_bytes, cluster)
+    if shape not in _SMEM_FITS:
+        err = lib.probe_smem_fits(smem_bytes, cluster, dev.index)
+        if err != _CAPACITY_REFUSED:
+            _gk._raise_on(err, lib, "P1 probe_smem_fits")
+        _SMEM_FITS[shape] = err != _CAPACITY_REFUSED
+    if not _SMEM_FITS[shape]:
+        return None
     out = torch.empty_like(x)
     err = lib.probe_smem(x.data_ptr(), out.data_ptr(), smem_bytes, cluster,
                          dev.index, _stream(dev))
-    if err == _CAPACITY_REFUSED:
-        return None
     _launched(err, lib, "P1 probe_smem kernel", "smem")
     return out
 
@@ -237,20 +285,44 @@ def reshape_probe(x, n_iters: int):
     return out
 
 
-def _slab_fits(what: str, m: int, w: int, lib, tensors) -> None:
+def _aligned(what: str, tensors) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: the kernel loads 16 bytes at a time; "
                          f"inputs must start 16-byte aligned")
+
+
+def slab_smem_bytes(m: int, w: int) -> int:
+    """Shared memory of a P4 or P5 block: g (m, m) and its (m, w) slab in
+    float32 (``slab_smem`` of ``csrc/probes.cu``)."""
+    return 4 * m * (m + w)
+
+
+def _slab_fits(what: str, m: int, w: int) -> None:
+    """Raise unless P4/P5 take (m, w): m rows of g a multiple of 8, w
+    columns a block a multiple of 4, at most 256 threads of 8 x 4, and
+    ``slab_smem_bytes(m, w + SLAB_TAKEN_PAD)`` within a block's opt-in
+    shared memory."""
     threads = (m // SLAB_ROWS) * (w // SLAB_COLS)
     if (m < SLAB_ROWS or m % SLAB_ROWS or w < SLAB_COLS or w % SLAB_COLS
             or threads > SLAB_MAX_THREADS):
         raise ValueError(f"{what}: rows {m} must be a multiple of "
                          f"{SLAB_ROWS} and columns {w} of {SLAB_COLS}, at "
                          f"most {SLAB_MAX_THREADS} threads of 8 x 4")
-    smem = lib.probe_slab_smem_bytes(m, w)
+    smem = slab_smem_bytes(m, w + SLAB_TAKEN_PAD)
     if smem > _gk._MAX_SMEM_BYTES:
         raise ValueError(f"{what}: {smem} B of shared memory a block "
                          f"(limit {_gk._MAX_SMEM_BYTES}) at m={m}, w={w}")
+
+
+def dot3d_plan(a: int, m: int, w: int) -> tuple[int, int, int]:
+    """P4's launch at x (a, m, w): ``(grid, threads, smem_bytes)``. A block
+    owns one slice: ``a`` blocks of ``(m / 8) (w / 4)`` threads, each
+    holding g and its slice's (m, w) slab in shared memory. Raises for a
+    shape the probes do not take."""
+    _slab_fits("P4", m, w)
+    if a < 1:
+        raise ValueError(f"P4 takes at least one slice, got {a}")
+    return (a, (m // SLAB_ROWS) * (w // SLAB_COLS), slab_smem_bytes(m, w))
 
 
 def matmul2_probe(g, x, n_iters: int):
@@ -263,8 +335,9 @@ def matmul2_probe(g, x, n_iters: int):
     cols = MATMUL2_COLS
     m, n = x.shape
     dev = _check("P5", (g, x), [(m, m), (m, n)])
+    _aligned("P5", (g, x))
+    _slab_fits("P5", m, cols)
     lib = _library()
-    _slab_fits("P5", m, cols, lib, (g, x))
     if n % cols:
         raise ValueError(f"P5: {n} columns are not a multiple of {cols}")
     out = torch.empty_like(x)
@@ -280,11 +353,12 @@ def dot3d_probe(g, x):
         return dot3d_probe_plain(g, x)
     a, m, w = x.shape
     dev = _check("P4", (g, x), [(m, m), (a, m, w)])
+    _aligned("P4", (g, x))
+    grid, threads, smem = dot3d_plan(a, m, w)
     lib = _library()
-    _slab_fits("P4", m, w, lib, (g, x))
     out = torch.empty_like(x)
     err = lib.probe_dot3d(g.data_ptr(), x.data_ptr(), out.data_ptr(), a, m,
-                          w, dev.index, _stream(dev))
+                          w, grid, threads, smem, dev.index, _stream(dev))
     _launched(err, lib, "P4 probe_dot3d kernel", "dot3d")
     return out
 

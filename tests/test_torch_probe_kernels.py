@@ -1,7 +1,11 @@
 """The ceiling probes' CUDA kernels (``csrc/probes.cu``) against their plain
-PyTorch versions on the card, at the tools' default shapes and at a small
-one; P1's boundary against the card's opt-in shared memory; the launch
-counters.
+PyTorch versions on the card, at the tools' default shapes and at small
+ones; P4 at every (a, m, w) of a in {1, 3, 128}, m in {8, 64, 128}, w in
+{4, 64, 128} (m = w = 128 is refused: 512 threads of 8 x 4) and where k is
+staged in 3 and 25 chunks; P4 and P5
+against ``probe_kernels.in_order_matmul`` bit for bit, call after call;
+P1 at 8 KB, 48 KB and the opt-in, alone and in clusters of 2 and 16, and
+its boundary at the card's opt-in shared memory; the launch counters.
 
 Every test here carries the ``cuda`` marker and skips without a card.
 This file does not import JAX, so on the card's machine it runs with
@@ -11,7 +15,8 @@ This file does not import JAX, so on the card's machine it runs with
 Tolerances, relative to max(1, max|plain|): P2 and P3 1e-6 (the same
 roundings in the same order), P4 and P5 1e-5 (128-term float32 sums in
 another order), the FMA probe 1e-5 (the plain version rounds once a step,
-as the FMA does, through float64); P1 exactly 2 x.
+as the FMA does, through float64); P1 exactly 2 x; P4 and P5 exactly the
+in-order FMA sum.
 """
 
 import pytest
@@ -49,14 +54,20 @@ def _optin(dev) -> int:
     return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
 
 
-@pytest.mark.parametrize("kb,cluster", [(8, 1), (48, 1), (48, 4), (100, 2)])
+@pytest.mark.parametrize("kb,cluster", [
+    (8, 1), (48, 1), (48, 4), (100, 2), (8, 2), (8, 16), (48, 2), (48, 16),
+    ("optin", 1), ("optin", 2), ("optin", 16)])
 def test_smem_kernel_gives_2x(cuda, kb, cluster):
-    x = _rand(cuda, 8, 128)
-    out = pk.smem_probe(x, kb * 1024, cluster)
-    assert out is not None and torch.equal(out, x + x)
+    # cluster 1 is a plain launch, above it a cluster launch
+    nbytes = (_optin(cuda) // pk.ROW_BYTES * pk.ROW_BYTES if kb == "optin"
+              else kb * 1024)
+    x = _rand(cuda, 8, 128, seed=cluster)
+    for _ in range(2):  # the second call reuses the shape's capacity answer
+        out = pk.smem_probe(x, nbytes, cluster)
+        assert out is not None and torch.equal(out, x + x)
 
 
-@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("cluster", [1, 2, 16])
 def test_smem_boundary_is_the_cards_optin(cuda, cluster):
     top = _optin(cuda) // pk.ROW_BYTES * pk.ROW_BYTES
     x = _rand(cuda, 8, 128)
@@ -94,15 +105,33 @@ def test_reshape_kernel_matches_plain(cuda, shape, n):
 def test_matmul2_kernel_matches_plain(cuda, m, n, iters):
     g = wide_probe.orthogonal(m, cuda, seed=1)
     x = _rand(cuda, m, n, seed=2)
-    _assert_rel(pk.matmul2_probe(g, x, iters),
-                pk.matmul2_probe_plain(g, x, iters), SLAB_TOL)
+    got = pk.matmul2_probe(g, x, iters)
+    _assert_rel(got, pk.matmul2_probe_plain(g, x, iters), SLAB_TOL)
+    # the sum over k in order from zero, one FMA a term, on every call
+    want = x
+    for _ in range(iters):
+        want = pk.in_order_matmul(g, want)
+    assert torch.equal(got, want)
+    assert torch.equal(pk.matmul2_probe(g, x, iters), got)
 
 
-@pytest.mark.parametrize("a,m,w", [(128, 128, 64), (4, 16, 8)])
+# small shapes whose k is staged in 2, 3, 3 and 25 chunks, and every
+# (a, m, w) of the card's grid, the tools' among them
+@pytest.mark.parametrize("a,m,w", [
+    (4, 16, 8), (3, 24, 8), (2, 96, 32), (2, 200, 8)] + [
+    (a, m, w) for a in (1, 3, 128) for m in (8, 64, 128) for w in (4, 64, 128)])
 def test_dot3d_kernel_matches_plain(cuda, a, m, w):
-    g = torch.randn((m, m), generator=torch.Generator().manual_seed(3))
-    g, x = g.to(cuda), _rand(cuda, a, m, w, seed=4)
-    _assert_rel(pk.dot3d_probe(g, x), pk.dot3d_probe_plain(g, x), SLAB_TOL)
+    g = torch.randn((m, m), generator=torch.Generator().manual_seed(m + w))
+    g, x = g.to(cuda), _rand(cuda, a, m, w, seed=a)
+    if (m // pk.SLAB_ROWS) * (w // pk.SLAB_COLS) > pk.SLAB_MAX_THREADS:
+        with pytest.raises(ValueError, match="at most"):
+            pk.dot3d_probe(g, x)
+        return
+    got = pk.dot3d_probe(g, x)
+    _assert_rel(got, pk.dot3d_probe_plain(g, x), SLAB_TOL)
+    # the sum over k in order from zero, one FMA a term, on every call
+    assert torch.equal(got, pk.in_order_matmul(g, x))
+    assert torch.equal(pk.dot3d_probe(g, x), got)
 
 
 @pytest.mark.parametrize("chains", [1, 4, 8])
@@ -151,6 +180,9 @@ def test_kernels_raise_on_bad_cuda_inputs(cuda):
     shifted = torch.empty(1 + 2 * 16 * 8, device=cuda)[1:].view(2, 16, 8)
     with pytest.raises(ValueError, match="16-byte aligned"):
         pk.dot3d_probe(wide_probe.orthogonal(16, cuda), shifted)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pk.smem_probe(torch.empty(1 + 8 * 128, device=cuda)[1:].view(8, 128),
+                      48 * 1024)
     with pytest.raises(ValueError, match="shared memory a block"):
         pk.dot3d_probe(wide_probe.orthogonal(256, cuda),
                        _rand(cuda, 1, 256, 4))

@@ -2,7 +2,12 @@
 plain PyTorch versions against the JAX kernel bodies of
 ``tools/bench_pallas_wide_probe.py`` and ``tools/vpu_ceiling.py`` run in
 Pallas interpret mode on the CPU, the FMA recurrence also against float64,
-the wrappers' dispatch and guards, and the two tools' entry points.
+the wrappers' dispatch and guards (a CPU tensor runs the plain version
+and reaches no kernel), P4's launch plan (``dot3d_plan``: its blocks and
+thread tiles cover every output once, within the card's limits, and it
+refuses what the probes never took), the in-order FMA emulation
+that P4's and P5's kernels equal bit for bit (``in_order_matmul``, against
+exact rational arithmetic), and the two tools' entry points.
 
 The TPU tools are imported by path and stay as they are. The FMA body is a
 module function, run as ``functools.partial(_fma_kernel, iters, chains)``.
@@ -27,6 +32,7 @@ import functools
 import importlib.util
 import pathlib
 import types
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +41,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from qiddm_tpu_torch.sim import gate_kernel as _gk
 from qiddm_tpu_torch.tools import probe_kernels as pk
 from qiddm_tpu_torch.tools import vpu_ceiling, wide_probe
 
@@ -251,6 +258,130 @@ def test_wrappers_reject_bad_arguments():
         pk.fma_ceiling(x, x, 4, 3)
     with pytest.raises(ValueError):
         pk.matmul2_probe(torch.eye(4), torch.zeros(4, 4), -1)
+
+
+# the card tests' P4 shapes (tests/test_torch_probe_kernels.py) and the
+# tools' (a, m, w)
+CARD_DOT3D = [(a, m, w) for a in (1, 3, 128) for m in (8, 64, 128)
+              for w in (4, 64, 128)] + [
+                  (4, 16, 8), (3, 24, 8), (2, 96, 32), (2, 200, 8)]
+PLANNED = [s for s in CARD_DOT3D + [(128, 128, 64), (2, 24, 8), (5, 72, 12)]
+           if (s[1] // 8) * (s[2] // 4) <= 256]
+
+
+@pytest.mark.parametrize("a,m,w", PLANNED)
+def test_dot3d_plan_tiles_every_output_once(a, m, w):
+    grid, threads, smem = pk.dot3d_plan(a, m, w)
+    assert grid == a
+    assert threads == (m // 8) * (w // 4) <= pk.SLAB_MAX_THREADS
+    assert smem == 4 * (m + w) * m <= _gk._MAX_SMEM_BYTES
+    # each block's threads own 8 x 4 tiles of its slice
+    seen = torch.zeros((a, m, w), dtype=torch.int32)
+    for b in range(grid):
+        for t in range(threads):
+            r0 = 8 * (t // (w // 4))
+            c0 = 4 * (t % (w // 4))
+            seen[b, r0:r0 + 8, c0:c0 + 4] += 1
+    assert torch.equal(seen, torch.ones_like(seen))
+
+
+def test_dot3d_plan_at_the_tools_shape():
+    # one block a slice: 128 blocks of 256 threads and 96 KB
+    assert pk.dot3d_plan(128, 128, 64) == (128, 256, 98304)
+    # above 128 rows too: g and the slab of 200 rows in one block
+    assert pk.dot3d_plan(2, 200, 8) == (2, 50, 4 * 208 * 200)
+
+
+@pytest.mark.parametrize("a,m,w", [
+    (1, 128, 128),   # 512 threads of 8 x 4
+    (3, 12, 8),      # rows not a multiple of 8
+    (3, 16, 6),      # columns not a multiple of 4
+    (1, 8, 0),
+    (1, 224, 32),    # m (m + 4) + m w floats above the opt-in
+    (0, 16, 8),      # no slice
+])
+def test_dot3d_plan_rejects_what_the_probes_never_took(a, m, w):
+    with pytest.raises(ValueError):
+        pk.dot3d_plan(a, m, w)
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """Fail on any attempt to build or load the kernels' library."""
+    def refuse():
+        raise AssertionError("a CPU call reached the CUDA library")
+    monkeypatch.setattr(_gk, "_library", refuse)
+
+
+@pytest.mark.parametrize("a,m,w", [s for s in PLANNED if s[0] < 128])
+def test_dot3d_wrapper_on_the_cpu_is_plain(no_library, a, m, w):
+    rng = np.random.default_rng(a + m + w)
+    g = torch.as_tensor(rng.normal(size=(m, m)).astype(np.float32))
+    x = torch.as_tensor(rng.uniform(size=(a, m, w)).astype(np.float32))
+    pk.reset_launches()
+    assert torch.equal(pk.dot3d_probe(g, x), pk.dot3d_probe_plain(g, x))
+    assert not any(pk.PROBE_LAUNCHES.values())
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 16])
+@pytest.mark.parametrize("nbytes", [8 * 1024, 48 * 1024, 227 * 1024])
+def test_smem_wrapper_on_the_cpu_is_plain(no_library, nbytes, cluster):
+    x = torch.as_tensor(np.random.default_rng(cluster).uniform(
+        size=(8, 128)).astype(np.float32))
+    pk.reset_launches()
+    fits = dict(pk._SMEM_FITS)
+    assert torch.equal(pk.smem_probe(x, nbytes, cluster), x + x)
+    assert not any(pk.PROBE_LAUNCHES.values()) and pk._SMEM_FITS == fits
+
+
+# --- the kernels' arithmetic: in order over k, one rounding a term ----------
+
+def _to_f32(q: Fraction) -> np.float32:
+    """The rational q rounded to the nearest float32, ties to even."""
+    f = np.float32(float(q))
+    cands = (f, np.nextafter(f, np.float32(np.inf)),
+             np.nextafter(f, np.float32(-np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - q),
+                                     int(np.array(v).view(np.int32)) & 1))
+
+
+def test_in_order_matmul_is_the_exact_in_order_fma_sum():
+    rng = np.random.default_rng(9)
+    g = rng.normal(size=(16, 16)).astype(np.float32)
+    x = rng.uniform(-1, 1, size=(2, 16, 8)).astype(np.float32)
+    want = np.zeros((2, 16, 8), np.float32)
+    for idx in np.ndindex(want.shape):
+        acc = np.float32(0)
+        for k in range(16):
+            acc = _to_f32(Fraction(float(g[idx[1], k]))
+                          * Fraction(float(x[idx[0], k, idx[2]]))
+                          + Fraction(float(acc)))
+        want[idx] = acc
+    got = pk.in_order_matmul(torch.as_tensor(g), torch.as_tensor(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+    got2 = pk.in_order_matmul(torch.as_tensor(g), torch.as_tensor(x[1]))
+    np.testing.assert_array_equal(got2.numpy(), want[1])
+
+
+def test_in_order_matmul_rounds_once_where_float64_rounds_twice():
+    # fmaf(a, b, c) with a b = 2^-24 - 2^-70 and c = 1 + 2^-23: the float64
+    # sum lands on the midpoint 1 + 2^-23 + 2^-24 and rounds to even,
+    # 1 + 2^-22; the exact sum lies below it and rounds to 1 + 2^-23
+    a, b = 1 + 2.0**-23, 2.0**-24 * (1 - 2.0**-23)
+    c = 1 + 2.0**-23
+    g = torch.tensor([[1.0, a], [0.0, 0.0]])
+    x = torch.tensor([[c], [b]])
+    assert pk.in_order_matmul(g, x)[0, 0].item() == 1 + 2.0**-23
+    twice = (torch.tensor(a).double() * b + c).float().item()
+    assert twice == 1 + 2.0**-22
+
+
+def test_in_order_matmul_matches_plain_within_the_slab_tolerance():
+    rng = np.random.default_rng(10)
+    g = torch.as_tensor(rng.normal(size=(128, 128)).astype(np.float32))
+    x = torch.as_tensor(rng.uniform(size=(4, 128, 64)).astype(np.float32))
+    _assert_rel(pk.in_order_matmul(g, x).numpy(),
+                pk.dot3d_probe_plain(g, x).numpy(), SLAB_TOL)
 
 
 def test_counters_cover_every_probe():
