@@ -115,9 +115,11 @@ any failure exits non-zero and no phase's failure is caught:
    busy time; the iteration on the host clock;
 15. amplitude-damping kernel against plain: kernel #7 against its plain
    twin on the same uniforms at w in {1, 2, 4, 6, 8, 10, 12} x N in
-   {1, 10, 1000} states x strengths {0.05, 0.3, 0.8}: max |diff| <= 1e-5,
+   {1, 10, 1000} states x strengths {0.05, 0.3, 0.8}, each width's launch
+   plan printed (amp_damp_kernel.amp_damp_plan): max |diff| <= 1e-5,
    the branch picks equal (the count of differing picks printed, 0
-   required), and the gradient of a weighted readout through the autograd
+   required), with the picks forced the same states bit for bit, and the
+   gradient of a weighted readout through the autograd
    Function (its backward replays the twin with the kernel's picks) with
    respect to the states and the strength within 1e-5 relative of autograd
    through the twin;
@@ -155,7 +157,9 @@ any failure exits non-zero and no phase's failure is caught:
    sweep's two QIDDM shapes and at w=10, B=1, L=1, each with its cluster
    plan, and at the sweep's shapes (printed only) in turns with every
    other cluster whose rows fit in shared memory; the amplitude-damping
-   pass at N=1000 and w=12 and 8), each beside its bound (the larger of
+   pass at N=1000 and w=12 and 8, and its device time: the median of 20
+   calls behind a spin kernel, without the host's enqueue), each beside
+   its bound (the larger of
    its arithmetic over 67 TFLOP/s and its bytes, each input read once and
    each output written once, over 3.35 TB/s), the sampling images/s of
    each model, the training images/s of each trained model in its second
@@ -217,10 +221,14 @@ any failure exits non-zero and no phase's failure is caught:
    checkpoint is served; then the training step on the host clock under
    each variant in turns (scan, monolith, monolith, scan);
 26. unitary-streaming kernels against plain: kernels #13 (the re-upload
-   chain through dense layer unitaries) and #14 (its adjoint walk and the
-   fixed-order dU product) at w in {1, 3, 6, 8} x B in {1, 16, 80}
-   (L*k = 28, k = 2), (w=8, B=255, L*k=28), (w=6, B=16, L*k=42, k=3) and
-   (w=3, B=4, L*k=4, k=1), each with both rings' unitaries: forwards
+   chain through dense layer unitaries, a layer one 3xTF32 tensor-core
+   product over the batch, a thread-block cluster a tile of samples) and
+   #14 (its adjoint walk and the fixed-order dU product) at w in
+   {1, 3, 6, 8} x B in {1, 16, 80} (L*k = 28, k = 2), (w=8, B=255,
+   L*k=28), (w=6, B=16, L*k=42, k=3) and (w=3, B=4, L*k=4, k=1), each with
+   both rings' unitaries, each shape's #13 plan printed
+   (unitary_kernel.unitary_plan: CTAs a cluster, samples a tile, tiles,
+   shared memory, and the clusters the card holds at once): forwards
    max |diff| <= 1e-5, backwards (dpr, dpi, dur, dui) within 1e-5 of
    max(1, max|plain|); at (6, 16, 28) also #14 against torch autograd
    through the plain forward; where the worst errors land against the
@@ -237,10 +245,12 @@ any failure exits non-zero and no phase's failure is caught:
    autograd; no #8), and complex128 at (8, 80) with both rings (no
    launch), each against the CPU (1e-5, 1e-5, 1e-10);
 28. times of #13 and #14 at (8, 80, 28) and (6, 16, 28) beside the plain
-   versions, the bound and the library yardstick (the chain as one
-   complex64 torch.matmul a layer with the phase multiplies, and autograd's
-   backward of it); printed only: both kernels at tiles of 1 and 2
-   samples a block at (8, 80) and (8, 255), and a CZ chain at (8, 80, 28)
+   versions, the bound (#13's on its 3xTF32 datapath) and the library
+   yardstick (the chain as one complex64 torch.matmul a layer with the
+   phase multiplies, and autograd's backward of it), and #13's device time
+   behind a spin; printed only: #13 at tiles of 8 and 16 samples and #14
+   at tiles of 1 and 2 samples a block at (8, 80) and (8, 255), and a CZ
+   chain at (8, 80, 28)
    on the gate chain #1/#2 against #13/#14, whose outputs must agree
    within 1e-5;
 29. the ceiling probes' kernels against plain (qiddm_tpu_torch.tools.
@@ -267,16 +277,16 @@ any failure exits non-zero and no phase's failure is caught:
    no GFLOP/s above 1.05 x the 67 TFLOP/s float32 peak; P4 ok; every probe
    counter non-zero;
 31. times of the six probe kernels at the tools' shapes beside their
-   plain versions, the bound and, for P1, P2, P4 and P5, the library
-   yardstick (P1: torch.add(x, x); P2: a strided torch.mul into a
-   transposed buffer and a copy back a step; P4 and P5: torch.matmul, TF32
+   plain versions, the bound and, for P1-P5, the library yardstick (P1: torch.add(x, x); P2: a strided torch.mul into a
+   transposed buffer and a copy back a step; P3: the step as torch.mul
+   on the contiguous views, 100 calls; P4 and P5: torch.matmul, TF32
    off); P4 (128, 128, 64) and P5 (128, 8192) x 50 must equal
    probe_kernels.in_order_matmul bit for bit (the sum in order over k from
    zero, one FMA a term, as the probes always summed); then every kernel
    with a library time against its library call in turns, 20 pairs, each
    call behind a spin kernel that outlasts the host's enqueue of either
    call (its cycles printed): P1 at the opt-in and at 8 KB against
-   torch.add(x, x), P2, P4 and P5 at the tools' shapes, #9-#12 at
+   torch.add(x, x), P2, P3, P4 and P5 at the tools' shapes, #9-#12 at
    (16, 10, 28) against _library_wide_fwd / _library_wide_bwd, #13/#14 at
    (8, 80, 28) against _library_unitary and autograd's backward of it,
    and (printed only) P1 at the opt-in in clusters of 2: each median and
@@ -286,10 +296,11 @@ any failure exits non-zero and no phase's failure is caught:
    kernel time a call by wire group (#11) and by launch kind (#12: the
    two-right-hand-side rebuild and push by wire group, the dG product, its
    fixed-order sum, the un-encode);
-33. #9-#12's registers and spills from ptxas's report, and the TF32
+33. #9-#13's registers and spills from ptxas's report, and the TF32
    tensor-core instructions in their SASS (cuobjdump -sass of the built
-   library): every group and dG product kernel and both monolithic
-   kernels must hold some (run after phase 24).
+   library): every group and dG product kernel, both monolithic kernels
+   and both #13 instances must hold some (run after phase 24); and #7's
+   registers and spills at each width.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -307,8 +318,8 @@ phase 27's (one a chain call; #14's dU product is a helper and not
 counted), their errors phase 26's worst, their times phase 28's at
 (8, 80, 28). The probe rows' launches are phase 30's (one a wrapper
 call), their errors phase 29's largest max |diff|, their times phase 31's. Every row names its ``datapath``: ``3xtf32``
-for #9-#12, ``simt`` (float32 on the CUDA cores) for the others; its
-``bound_ms`` is taken at that datapath's peak.
+for #9-#12 and #13, ``simt`` (float32 on the CUDA cores) for the others;
+its ``bound_ms`` is taken at that datapath's peak.
 """
 
 from __future__ import annotations
@@ -870,6 +881,9 @@ def phase_amp_vs_plain(dev) -> float:
     rng = np.random.default_rng(SEED + 9)
     worst = 0.0
     for w, n in AMP_CASES:
+        if n == AMP_CASES[0][1]:
+            print(f"amp-damp plan w={w} at N=1000: "
+                  f"{amp_damp_kernel.amp_damp_plan(w, 1000)}")
         st = rng.normal(size=(n, 2**w)) + 1j * rng.normal(size=(n, 2**w))
         st /= np.linalg.norm(st, axis=1, keepdims=True)
         states = torch.as_tensor(st, dtype=torch.complex64, device=dev)
@@ -885,6 +899,11 @@ def phase_amp_vs_plain(dev) -> float:
             torch.cuda.synchronize()
             errs.append((got - want).abs().max().item())
             differ += int((picks != want_picks).sum().item())
+            with torch.no_grad():
+                forced, again = amp_damp_kernel.amp_damp(states, u, g, picks)
+            if not (torch.equal(forced, got) and torch.equal(again, picks)):
+                fail(f"amp-damp kernel with its picks forced gives other "
+                     f"states at w={w} N={n} g={g}")
             grads = []
             for fn in (amp_damp_kernel.amp_damp,
                        amp_damp_kernel.amp_damp_plain):
@@ -1130,20 +1149,34 @@ def phase_mono_config() -> None:
 # #9-#12's kernels in the built library: #11/#12's templates with their
 # arguments (mangled: I, then Li<n>E each), #9/#10 as they are
 _WIDE_SASS = re.compile(
-    r"(wide_(?:group_mma|dg_mma|mono_fwd|mono_bwd)_kernel)(?:I((?:Li\d+E)+))?")
+    r"(wide_(?:group_mma|dg_mma|mono_fwd|mono_bwd)_kernel"
+    r"|unitary_chain_fwd_kernel)(?:I((?:Li\d+E)+))?")
+_AMP_PTXAS = re.compile(r"amp_damp_fwd_kernelILi(\d+)E")
 
 
 def phase_wide_sass() -> None:
-    """#9-#12's registers and spills from ptxas's report in the build log,
+    """#9-#13's registers and spills from ptxas's report in the build log,
     and the TF32 tensor-core instructions (HMMA ... TF32) in their SASS
     (cuobjdump -sass of the built library, from nvcc's toolkit); fails
-    unless each of the four kernels is there and every instance holds
-    some."""
+    unless each of the five kernels is there and every instance holds
+    some. Also #7's registers and spills at each width (no tensor
+    cores)."""
     lib = gate_kernel.build_library()
     lines = lib.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and _WIDE_SASS.search(line):
             print("ptxas " + " | ".join(t.strip() for t in lines[i:i + 4]))
+    amp = {}
+    for i, line in enumerate(lines):
+        found = _AMP_PTXAS.search(line)
+        if "Compiling entry function" in line and found:
+            text = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            amp[int(found.group(1))] = (regs and regs.group(1),
+                                        spill and spill.group(1))
+    print("ptxas #7 (amp_damp_fwd_kernel<w>) registers / spill-store bytes: "
+          + ", ".join(f"w={w} {r} / {b}" for w, (r, b) in sorted(amp.items())))
     tool = pathlib.Path(gate_kernel._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=600, check=True).stdout
@@ -1165,8 +1198,8 @@ def phase_wide_sass() -> None:
     print("SASS TF32 HMMA instructions by kernel: " + ", ".join(
         f"{label(n)} {c}" for n, c in counts.items()))
     kinds = {_WIDE_SASS.search(n).group(1) for n in counts}
-    if len(kinds) < 4 or not all(counts.values()):
-        fail(f"#9-#12 kernels without TF32 HMMA in their SASS: {counts}")
+    if len(kinds) < 5 or not all(counts.values()):
+        fail(f"#9-#13 kernels without TF32 HMMA in their SASS: {counts}")
 
 
 def phase_mono_model(tmp: pathlib.Path, n_train: int,
@@ -2241,6 +2274,14 @@ def phase_times(dev, smi: str) -> tuple[dict, dict, dict]:
                                                    None),
             lambda: amp_damp_kernel.amp_damp_plain(st, u, TRAJ_STRENGTH)
         ) + bound_amp(w, n)
+        spun = tools_common.median_ms(
+            lambda: amp_damp_kernel._amp_damp_cuda(st, u, TRAJ_STRENGTH,
+                                                   None), dev)
+        bound = times[f"amp_fwd{w}"][2]
+        print(f"times amp_fwd{w} device ({smi}): {spun:.4f} ms behind a "
+              f"{tools_common.SPIN_CYCLES}-cycle spin (median of 20), "
+              f"{bound / spun:.2e} of the bound; plan "
+              f"{amp_damp_kernel.amp_damp_plan(w, n)}")
     library, pairs = {}, {}
     for w, b, n in ((16, 10, 28), (20, 8, 4)):
         pr, pi, gplanes, fr, fi, gr, gi = wide_inputs(rng, w, b, n, dev)
@@ -2388,9 +2429,10 @@ def phase_wide_split(dev, smi: str) -> None:
 
 def datapath_of(key: str) -> str:
     """The arithmetic datapath of the kernel timed under ``key``: #9-#12
-    multiply on the tensor cores in 3xTF32; every other kernel of the port
-    runs float32 on the CUDA cores."""
-    return "3xtf32" if key.startswith("wide_") else "simt"
+    and #13 multiply on the tensor cores in 3xTF32; every other kernel of
+    the port runs float32 on the CUDA cores."""
+    return ("3xtf32" if key.startswith(("wide_", "unitary_fwd"))
+            else "simt")
 
 
 def phase_crossover(dev, smi: str) -> None:
@@ -2461,6 +2503,7 @@ def phase_unitary_vs_plain(dev) -> tuple[float, float]:
     rng = np.random.default_rng(SEED + 20)
     worst_f = worst_b = 0.0
     for w, b, L, k in UNITARY_CASES:
+        print(f"unitary plan w={w} B={b}: {_unitary_plan_text(w, b)}")
         for ring in RINGS:
             args = unitary_bwd_inputs(rng, w, b, L, k, ring, dev)
             with torch.no_grad():
@@ -2497,6 +2540,20 @@ def phase_unitary_vs_plain(dev) -> tuple[float, float]:
           f"{ONCHIP_BAR:.1e} relative: forward {worst_f:.3e}, backward "
           f"{worst_b:.3e}")
     return worst_f, worst_b
+
+
+def _unitary_plan_text(w: int, b: int, cols: int = 0) -> str:
+    """#13's plan for (w, b) and the clusters of it the card holds at
+    once."""
+    plan = unitary_kernel.unitary_plan(w, b, cols)
+    active = gate_kernel._library().unitary_chain_fwd_active_clusters(
+        w, plan.cols, 0)
+    if active < 1:
+        fail(f"the card holds no cluster of #13's plan {plan}: {active}")
+    return (f"{plan.tiles} clusters of {plan.cluster} CTAs, {plan.cols} "
+            f"samples a tile, {plan.smem_bytes} B of shared memory a CTA, "
+            f"{plan.warps} warps x {plan.steps_per_warp} 8-deep steps a "
+            f"layer; the card holds {active} such clusters at once")
 
 
 def _route_call(x, weights, encode, readout, coeff, **kw):
@@ -2626,13 +2683,20 @@ def bound_unitary(w, b, n, bwd: bool) -> tuple[float, str]:
     """The unitary-streaming chain, n = L*k layers at k = 2: a dense
     complex (d, d) product is 8 d^2 flops a sample, the phase 6 d; the
     backward does three products a layer (the state's rebuild, the
-    cotangent's push, dU) and the un-encode, 20 d. Bytes: each input read
-    once and each output written once, float32: the (L*k, d, d) unitary
-    planes (and, backward, dU's), the (d, B) planes."""
+    cotangent's push, dU) and the un-encode, 20 d. #13 runs its products
+    as three TF32 tensor-core products each, at PEAK_TF32 / 3, and the
+    phase on the CUDA cores; #14 everything in float32 at PEAK_FLOPS.
+    Bytes: each input read once and each output written once, float32:
+    the (L*k, d, d) unitary planes (and, backward, dU's), the (d, B)
+    planes."""
     d, re = 2**w, n // 2
     u = 2 * n * d * d
     if not bwd:
-        return _bound(b * (8 * n * d * d + 6 * re * d), 4 * (u + 4 * d * b))
+        t_ops = (b * 8 * n * d * d / (PEAK_TF32 / 3)
+                 + b * 6 * re * d / PEAK_FLOPS)
+        t_bytes = 4 * (u + 4 * d * b) / PEAK_BYTES
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
     return _bound(b * (24 * n * d * d + 20 * re * d),
                   4 * (2 * u + 8 * d * b))
 
@@ -2658,9 +2722,11 @@ def _no_grad_library_unitary(p, us, k):
 
 def phase_unitary_times(dev, smi: str) -> tuple[dict, dict, dict]:
     """#13/#14 against plain and the library yardstick at (8, 80, 28) and
-    (6, 16, 28), each beside its bound, and their calls at (8, 80, 28) with
-    the library's for the pairs of phase 31; printed only: the tiles of
-    _tile_for's choice against the others at (8, 80) and (8, 255), and CZ
+    (6, 16, 28), each beside its bound, #13's device time behind a spin,
+    and their calls at (8, 80, 28) with the library's for the pairs of
+    phase 31; printed only: #13 at both tiles of samples (unitary_plan's
+    choice and the other) and #14 at both tiles a block (_tile_for's
+    choice and the other) at (8, 80) and (8, 255), and CZ
     chains at (8, 80, 28) on the gate chain #1/#2 against #13/#14 (routing
     stays on #1/#2), whose outputs must agree."""
     rng = np.random.default_rng(SEED + 22)
@@ -2672,6 +2738,13 @@ def phase_unitary_times(dev, smi: str) -> tuple[dict, dict, dict]:
             lambda: unitary_kernel._unitary_chain_cuda(*args[:4], 2),
             lambda: unitary_kernel.unitary_chain_planes_plain(*args[:4], 2)
         ) + bound_unitary(w, b, 28, False)
+        spun = tools_common.median_ms(
+            lambda: unitary_kernel._unitary_chain_cuda(*args[:4], 2), dev)
+        bound = times[f"unitary_fwd{key}"][2]
+        print(f"times unitary_fwd{key} device ({smi}): {spun:.4f} ms behind "
+              f"a {tools_common.SPIN_CYCLES}-cycle spin (median of 20), "
+              f"{bound / spun:.2e} of the bound; plan "
+              f"{_unitary_plan_text(w, b)}")
         times[f"unitary_bwd{key}"] = _paired_ms(
             lambda: unitary_kernel._unitary_chain_bwd_cuda(*args, 2),
             lambda: unitary_kernel.unitary_chain_bwd_plain(*args, 2)
@@ -2707,17 +2780,20 @@ def phase_unitary_times(dev, smi: str) -> tuple[dict, dict, dict]:
                 "autograd through _library_unitary")
     for w, b in ((8, 80), (8, 255)):
         args = unitary_bwd_inputs(rng, w, b, 14, 2, "cnot", dev)
-        row = []
-        for tile in (1, 2):
-            row.append((tile, _median_ms(
-                lambda: unitary_kernel._unitary_chain_cuda(*args[:4], 2,
-                                                           tile)),
-                _median_ms(lambda: unitary_kernel._unitary_chain_bwd_cuda(
-                    *args, 2, tile))))
-        print(f"unitary tiles w={w} B={b} L*k=28 ({smi}; default "
-              f"{unitary_kernel._tile_for(b)}): "
-              + "; ".join(f"R={t} #13 {f:.4f} ms, #14 {g:.4f} ms"
-                          for t, f, g in row) + " (median of 20)")
+        fwd = [(cols, tools_common.median_ms(
+            lambda: unitary_kernel._unitary_chain_cuda(*args[:4], 2, cols),
+            dev)) for cols in unitary_kernel.FWD_COLS]
+        bwd = [(tile, _median_ms(
+            lambda: unitary_kernel._unitary_chain_bwd_cuda(*args, 2, tile)))
+            for tile in (1, 2)]
+        print(f"unitary tiles w={w} B={b} L*k=28 ({smi}): #13 (plan "
+              f"{unitary_kernel.unitary_plan(w, b).cols} samples a tile) "
+              + "; ".join(f"{c} samples a tile {t:.4f} ms ("
+                          f"{_unitary_plan_text(w, b, c)})" for c, t in fwd)
+              + " (device, median of 20 behind a spin); #14 (default "
+              f"{unitary_kernel._tile_for(b)}) "
+              + "; ".join(f"R={t} {g:.4f} ms" for t, g in bwd)
+              + " (median of 20)")
     # CZ chains: the gate chain #1/#2 against #13/#14, printed only
     w, b, L, k = 8, 80, 14, 2
     weights, x, planes = unitary_inputs(rng, w, b, L, k, "cz", dev)
@@ -2987,8 +3063,8 @@ def phase_in_order_bits(dev) -> None:
 
 def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
     """The probe kernels beside their plain versions, their bounds and, for
-    P1, P2, P4 and P5, the library yardstick, at the tools' shapes; and
-    those four's calls with their library calls for phase_pairs."""
+    P1-P5, the library yardstick, at the tools' shapes; and those five's
+    calls with their library calls for phase_pairs."""
     pk = probe_kernels
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
     times, library = {}, {}
@@ -3023,10 +3099,25 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
     library["transpose"] = min(_median_ms(library_transpose)
                                for _ in range(2))
     xr = torch.rand(PROBE_SHAPE[::-1], generator=gen, device=dev)
+    ya = torch.empty(PROBE_SHAPE, device=dev)
+    yb = torch.empty_like(xr)
+
+    def library_reshape():
+        # a step as torch.mul on the contiguous views: 2 n calls
+        src = xr
+        for _ in range(n):
+            torch.mul(src.view(PROBE_SHAPE), 1.000001, out=ya)
+            torch.mul(ya.view(xr.shape), 0.999999, out=yb)
+            src = yb
+
+    library_reshape()
+    if not torch.equal(yb, pk.reshape_probe_plain(xr, n)):
+        fail("P3's library formulation is not the probe")
     times["reshape"] = _paired_ms(
         lambda: pk.reshape_probe(xr, n),
         lambda: pk.reshape_probe_plain(xr, n)) + _bound(
             2 * n * xr.numel(), 2 * xr.numel() * f32)
+    library["reshape"] = min(_median_ms(library_reshape) for _ in range(2))
     m, cols = PROBE_SHAPE
     g = wide_probe.orthogonal(m, dev, SEED + 33)
     xm = torch.rand(PROBE_SHAPE, generator=gen, device=dev)
@@ -3054,8 +3145,8 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
         lambda: pk.fma_ceiling(xf, yf, iters, chains),
         lambda: pk.fma_ceiling_plain(xf, yf, iters, chains)) + _bound(
             d * b * (2 * iters * chains + 2 * chains - 1), 3 * d * b * f32)
-    # P1 (at the opt-in and at the least scratch), P2, P4 and P5 against
-    # their library calls, paired in phase_pairs
+    # P1 (at the opt-in and at the least scratch), P2-P5 against their
+    # library calls, paired in phase_pairs
     top = optin // pk.ROW_BYTES * pk.ROW_BYTES
     pairs = {
         f"probe smem {top} B": (lambda: pk.smem_probe(x8, top),
@@ -3066,6 +3157,8 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
         "probe transpose": (lambda: pk.transpose_probe(x, n),
                             library_transpose,
                             "a strided torch.mul and a copy a step"),
+        "probe reshape": (lambda: pk.reshape_probe(xr, n), library_reshape,
+                          f"{2 * n} torch.mul on the contiguous views"),
         "probe dot3d": (lambda: pk.dot3d_probe(g3, x3),
                         lambda: torch.matmul(g3, x3), "torch.matmul"),
         # printed only: the cluster route at the opt-in
@@ -3305,7 +3398,8 @@ def main() -> None:
     # is its group products as complex64 torch.matmul calls (cuBLAS), the
     # unitary chain's its layer products (torch.matmul) with the phase
     # multiplies, and autograd's backward of those. The probes' is null for
-    # P3 and the FMA probe (no single PyTorch call computes them).
+    # the FMA probe: a chain of 4,096 torch calls would time launches, not
+    # the FMA pipe.
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + src,
         "replaces": line, "launches": launches[counter],

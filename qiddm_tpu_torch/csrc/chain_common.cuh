@@ -1,6 +1,7 @@
 // Pieces shared by the gate-chain kernels (gate_chain.cu) and the SEL-chain
 // kernels (sel_chain.cu), in part by the RY chain, the density-matrix block
-// and the amplitude-damping pass (ry_chain.cu, dm_chain.cu, amp_damp.cu):
+// and the unitary-streaming chain (ry_chain.cu, dm_chain.cu,
+// unitary_chain.cu):
 // the block shape, the shared-memory opt-in, one 2x2 gate on a state held
 // in shared memory, one step of the adjoint backward walk with its dg
 // reduction, and the fixed-order batch sum of dg.

@@ -12,34 +12,43 @@
 // keep the port's (d, B) float32 layout, so the kernels and their plain
 // PyTorch versions take the same tensors.
 //
-// Forward design. A block owns a tile of R consecutive samples (R = 1 up
-// to a batch of 132, the card's SMs, else 2; the wrapper picks it) and
-// runs one thread per output row j (max(d, 32) threads). The tile's state
-// sits in shared memory, double-buffered: 2 x 2 x d x R floats (8 KB at
-// d = 256, R = 2). U_l is staged through shared memory in chunks of ic = min(32, d)
-// columns, double-buffered with asynchronous copies (cp.async): while the
-// block works on one chunk, the next one (of this layer or the next; U
-// does not depend on the state) streams in, so the L2 latency hides
-// behind the arithmetic. Consecutive threads copy consecutive floats of
-// one row of U_l (coalesced) into a transposed chunk with a padded stride
-// of d + 1 (no bank conflicts), so that thread j reads its row's chunk at
-// consecutive addresses while the state values are broadcast, R of them
-// in one vector load. Each U value loaded feeds R complex multiply-adds,
-// summed a chunk at a time into the row's total (32-term partial sums).
-// The phase of a block start is folded into the store of the previous
-// layer's output (and into the start state at l = 0), so a layer costs
-// 2 d / ic barriers and no extra pass.
+// Forward design. Every layer is one product of U_l with the whole batch's
+// state, on the tensor cores. The batch is cut into tiles of `cols` = 8 or
+// 16 samples (unitary_kernel.unitary_plan picks it from the shape), and a
+// tile is worked by a thread-block cluster of C = max(1, d / 16) CTAs (16
+// at 8 wires, a non-portable cluster): CTA r owns rows 16 r .. 16 r + 15
+// of every U_l and of the state. Each CTA keeps a whole copy of its tile's
+// state, (d, cols) complex, double-buffered in shared memory, so a
+// layer's product reads only local shared memory:
+//   * U_l's 16 rows stream in with cp.async (16 bytes a copy) a layer
+//     ahead, double-buffered: U does not depend on the state. A cluster
+//     reads each U_l once, so at (8, 80, 28) the 5 clusters read the 14.7
+//     MB of unitaries 5 times, where a block a sample would read it 80.
+//   * The 8 warps split the product's depth d into 8 runs of 8-deep steps
+//     (d < 64: one step a warp, fewer warps); each warp forms a 16 x cols
+//     partial in 3xTF32 mma.sync m16n8k8 (wide_common.cuh's load_a,
+//     load_b_kn, cmma_step: each large term summed from zero and added in
+//     float32, as #11 does) and leaves it in shared memory; the partials
+//     are summed in warp order (no atomics: the same bits every run).
+//   * The sum of the CTA's 16 rows, times the sample's phase when the next
+//     layer starts a block (the fold of the layer-0 phase is the start
+//     state), is written into the next state buffer of every CTA of the
+//     cluster through distributed shared memory, float2 stores; then one
+//     cluster barrier a layer (its release and acquire order the remote
+//     stores before the next layer's reads). Two buffers make one barrier
+//     enough: a CTA that runs ahead writes the buffer no CTA still reads.
+// Below 16 amplitudes the 16-row tile and the 8-deep step are padded with
+// zero rows and columns (one CTA, one warp with work): the same code path
+// at every width. The last layer writes the CTA's rows to (out_r, out_i).
 //
 // What bounds the forward on this card. At the route's widest block
-// (w = 8, L*k = 28, B = 80) the arithmetic is 8 L k B d^2 = 1.2 GFLOP and
-// the unitaries are 14.7 MB: against the card's peaks both take ~18 us.
-// Every block reads all L*k unitaries once, so the tiles re-read them
-// ceil(B/R) times; 14.7 MB stays in the 50 MB L2, which serves the re-reads.
-// A small R spreads the batch over more SMs but multiplies the L2 traffic;
-// a large R does more arithmetic per value loaded on fewer SMs (on the
-// H100 tiles of 4 and 8 samples ran slower than 1 or 2 at B = 80 and 255).
-// wgmma on TF32 pairs, TMA staging and clusters sharing one U_l are later
-// work.
+// (w = 8, L*k = 28, B = 80) the arithmetic is 8 L k B d^2 = 1.2 GFLOP,
+// three TF32 tensor-core products each (7.1 us at 495 TFLOP/s), and the
+// unitaries are 14.7 MB (4.4 us at 3.35 TB/s). A layer's work is small
+// (a CTA's 16 x 256 by 256 x 16 complex product is 768 mma.sync in 8
+// warps), so what sets the time is the chain of 28 dependent layers: the
+// product's latency, the partials' sum, the remote stores and the
+// cluster barrier each layer.
 //
 // unitary_chain_bwd_kernel replaces qiddm_tpu/sim/pallas_kernels.py::
 // _bwd_kernel (entry _fused_bwd). From the forward output (fr, fi) and its
@@ -74,12 +83,16 @@
 // stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "chain_common.cuh"
+#include "wide_common.cuh"  // the 3xTF32 mma.sync units and cp.async
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -112,144 +125,225 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
   __pipeline_memcpy_async(dst, src, sizeof(float));
 }
 
-template <int R>
-__global__ void __launch_bounds__(kMaxDim)
+// ---------------------------------------------------------------- forward
+
+constexpr int kFwdThreads = 256;  // 8 warps
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kRows = 16;         // rows of U_l and of the state a CTA
+constexpr int kMaxCluster = kMaxDim / kRows;
+
+// The forward's geometry: the product's depth padded to one 8-deep step,
+// the padded row strides of the staged U rows (lda = 4 mod 32: a warp's A
+// fragment loads on 32 banks) and of the state (ldb = 8 or 24 mod 32: its
+// B fragment loads on 32 banks), and the CTAs a cluster.
+__host__ __device__ inline int fwd_depth(int d) { return d < 8 ? 8 : d; }
+__host__ __device__ inline int fwd_lda(int d) { return fwd_depth(d) + 4; }
+__host__ __device__ inline int fwd_ldb(int cols) { return cols | 8; }
+inline int fwd_cluster(int d) { return d > kRows ? d / kRows : 1; }
+
+// Shared memory of a forward CTA: the state [2 buffers][re, im][depth][ldb],
+// U's rows [2 stages][re, im][16][lda] and the warps' partials
+// [8][re, im][16][cols].
+size_t fwd_smem(int d, int cols) {
+  const size_t depth = fwd_depth(d);
+  return (4 * depth * fwd_ldb(cols) + 4 * kRows * fwd_lda(d) +
+          2 * kFwdWarps * kRows * cols) *
+         sizeof(float);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kFwdThreads)
     unitary_chain_fwd_kernel(const float* __restrict__ pr,
                              const float* __restrict__ pi,
                              const float* __restrict__ ur,
                              const float* __restrict__ ui,
                              float* __restrict__ out_r,
                              float* __restrict__ out_i, int d, int batch,
-                             int n_layers, int k) {
-  extern __shared__ float2 smem2[];  // 8-byte aligned for load_row
-  float* smem = reinterpret_cast<float*>(smem2);
-  const int ic = d < kChunk ? d : kChunk;
-  const int ic_shift = __ffs(ic) - 1;  // ic is a power of two
-  const int nc_shift = __ffs(d) - 1 - ic_shift;  // d / ic chunks a layer
-  const int n_chunks = 1 << nc_shift;
-  const int n_total = n_layers << nc_shift;
-  const int stride = d + 1;            // padded row of a staged chunk
-  const int stage = 2 * ic * stride;   // floats of one staged chunk
+                             int n_layers, int k, int granule) {
+  constexpr int N = 8 * NB;                 // samples a tile
+  constexpr int LDB = N | 8;
+  constexpr int PAIRS = kRows * N / 2;      // output pairs (r, c, c + 1)
+  constexpr int SPLIT = kFwdThreads / PAIRS;  // threads a pair's stores
+  static_assert(PAIRS * SPLIT == kFwdThreads, "8 or 16 samples a tile");
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
-  const int j = tid;                   // this thread's output row
-  const bool row = j < d;
-  const int b0 = blockIdx.x * R;
-  // staging: thread tid copies column sc of rows sj, sj + pass, ...
-  const int sc = tid & (ic - 1);
-  const int sj = tid >> ic_shift;
-  const int pass = blockDim.x >> ic_shift;
-  float* st = smem;                    // [buffer][re, im][d][R]
-  float* us = smem + 4 * d * R;        // [stage][re, im][ic][d + 1]
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int depth = fwd_depth(d);
+  const int lda = fwd_lda(d);
+  const int row0 = rank * kRows;
+  const int rows = d < kRows ? d : kRows;   // a power of two
+  const int col0 = (blockIdx.x / n_cta) * N;
+  const int bplane = depth * LDB;
+  const int uplane = kRows * lda;
+  float* st = smem;                 // [buffer][re, im][depth][LDB]
+  float* us = st + 4 * bplane;      // [stage][re, im][16][lda]
+  float* red = us + 4 * uplane;     // [warp][re, im][16][N]
 
-  // chunk g = (layer g / n_chunks, columns (g % n_chunks) ic ...) into
-  // stage g & 1, transposed
-  auto stage_chunk = [&](int g) {
-    const size_t at = static_cast<size_t>(g >> nc_shift) * d * d +
-                      ((g & (n_chunks - 1)) << ic_shift) + sc;
-    float* dst = us + (g & 1) * stage + sc * stride;
-    for (int jj = sj; jj < d; jj += pass) {
-      const size_t src = at + static_cast<size_t>(jj) * d;
-      copy_async(dst + jj, ur + src);
-      copy_async(dst + ic * stride + jj, ui + src);
+  // rows 16 r.. of U_l into stage l & 1, `granule` floats a copy; every
+  // thread commits a group, empty past the last layer
+  const int row_shift = __ffs(rows) - 1;
+  const int per_row_shift = __ffs(d / granule) - 1;
+  auto stage_u = [&](int l) {
+    if (l < n_layers) {
+      const size_t at = (static_cast<size_t>(l) * d + row0) * d;
+      float* dst = us + (l & 1) * 2 * uplane;
+      const int copies = 2 << (row_shift + per_row_shift);
+      for (int e = tid; e < copies; e += kFwdThreads) {
+        const int q = e >> (row_shift + per_row_shift);  // 0: re, 1: im
+        const int r = (e >> per_row_shift) & (rows - 1);
+        const int c = (e & ((1 << per_row_shift) - 1)) * granule;
+        cp_async(dst + q * uplane + r * lda + c,
+                 (q ? ui : ur) + at + static_cast<size_t>(r) * d + c,
+                 granule);
+      }
     }
-    __pipeline_commit();
+    cp_async_commit();
   };
 
-  // this row's phases for the tile's samples; 0 past the batch
-  float ph_r[R], ph_i[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int b = b0 + r;
-    const bool in = row && b < batch;
-    ph_r[r] = in ? pr[static_cast<size_t>(j) * batch + b] : 0.0f;
-    ph_i[r] = in ? pi[static_cast<size_t>(j) * batch + b] : 0.0f;
+  // the start state |0...0> times the layer-0 phase in buffer 0, zeros
+  // elsewhere (the padding rows below 8 amplitudes stay 0); U's padding
+  // rows and columns below 16 amplitudes are 0 in both stages (the copies
+  // write only the rest)
+  for (int e = tid; e < 4 * bplane; e += kFwdThreads) {
+    const int c = e % LDB;
+    const int b = col0 + c;
+    const bool start = e < LDB && c < N && b < batch;  // buffer 0, row 0, re
+    const bool start_i = e >= bplane && e - bplane < LDB && c < N &&
+                         b < batch;                    // buffer 0, row 0, im
+    st[e] = start ? pr[b] : start_i ? pi[b] : 0.0f;
   }
-  // |0...0> times the phase of layer 0
-  if (row) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      st[j * R + r] = (j == 0) ? ph_r[r] : 0.0f;
-      st[(d + j) * R + r] = (j == 0) ? ph_i[r] : 0.0f;
+  if (d < kRows)
+    for (int e = tid; e < 4 * uplane; e += kFwdThreads) {
+      const int r = (e / lda) % kRows;
+      const int c = e % lda;
+      if (r >= d || c >= d) us[e] = 0.0f;
     }
-  }
+  stage_u(0);
+  stage_u(1);
 
-  float acc_r[R], acc_i[R];
+  // this thread's output pair: row r, columns c, c + 1 of the tile; the
+  // threads of a pair share its stores to the cluster's CTAs
+  const int pair = tid % PAIRS;
+  const int part = tid / PAIRS;
+  const int pr_row = pair / (N / 2);
+  const int pc = 2 * (pair % (N / 2));
+  const bool live = pr_row < rows;
+  float2 ph[2] = {make_float2(0.0f, 0.0f), make_float2(0.0f, 0.0f)};
+  if (live)
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc_r[r] = acc_i[r] = 0.0f;
-  int cur = 0;
-  stage_chunk(0);
-  for (int g = 0; g < n_total; ++g) {
-    // the next chunk streams in while this one is used
-    if (g + 1 < n_total) {
-      stage_chunk(g + 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    // chunk g has landed; at a layer's first chunk, its input is written
-    __syncthreads();
-    const int l = g >> nc_shift;
-    const int c0 = (g & (n_chunks - 1)) << ic_shift;
-    if (row) {
-      const float* sr = st + cur * 2 * d * R + c0 * R;
-      const float* si = sr + d * R;
-      const float* u_r = us + (g & 1) * stage + j;
-      const float* u_i = u_r + ic * stride;
-      float par_r[R], par_i[R];  // this chunk's partial sums
-#pragma unroll
-      for (int r = 0; r < R; ++r) par_r[r] = par_i[r] = 0.0f;
-      for (int c = 0; c < ic; ++c) {
-        const float a = u_r[c * stride];
-        const float q = u_i[c * stride];
-        float xr[R], xi[R];
-        load_row<R>(sr + c * R, xr);
-        load_row<R>(si + c * R, xi);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          par_r[r] += a * xr[r] - q * xi[r];
-          par_i[r] += a * xi[r] + q * xr[r];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        acc_r[r] += par_r[r];
-        acc_i[r] += par_i[r];
-      }
-    }
-    if (c0 + ic == d && l + 1 < n_layers) {  // the layer's output
-      cur ^= 1;
-      if (row) {
-        float* nr = st + cur * 2 * d * R;
-        float* ni = nr + d * R;
-        const bool phase = (l + 1) % k == 0;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          float vr = acc_r[r], vi = acc_i[r];
-          if (phase) {
-            const float t = vr * ph_r[r] - vi * ph_i[r];
-            vi = vr * ph_i[r] + vi * ph_r[r];
-            vr = t;
-          }
-          nr[j * R + r] = vr;
-          ni[j * R + r] = vi;
-          acc_r[r] = acc_i[r] = 0.0f;
-        }
-      }
-    }
-    // stage g & 1 is read before chunk g + 2 overwrites it
-    __syncthreads();
-  }
-
-  if (row) {  // the last layer's output
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int b = b0 + r;
+    for (int h = 0; h < 2; ++h) {
+      const int b = col0 + pc + h;
       if (b < batch) {
-        out_r[static_cast<size_t>(j) * batch + b] = acc_r[r];
-        out_i[static_cast<size_t>(j) * batch + b] = acc_i[r];
+        const size_t at = static_cast<size_t>(row0 + pr_row) * batch + b;
+        ph[h] = make_float2(pr[at], pi[at]);
       }
     }
+  // every CTA's buffers are set before any CTA writes into them
+  if (n_cta > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+
+  const int steps = depth >> 3;  // 8-deep steps of the product
+  const int per_warp = steps > kFwdWarps ? steps / kFwdWarps : 1;
+  const int n_warps = steps < kFwdWarps ? steps : kFwdWarps;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  for (int l = 0; l < n_layers; ++l) {
+    cp_async_wait<1>();  // U_l has landed (this thread's copies)
+    __syncthreads();     // and every thread's
+    const float* sb = st + (l & 1) * 2 * bplane;
+    const float* ua = us + (l & 1) * 2 * uplane;
+    if (warp < n_warps) {
+      float cr[NB][4], ci[NB][4], sr[NB][4], si[NB][4];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          cr[b][i] = ci[b][i] = sr[b][i] = si[b][i] = 0.0f;
+      for (int s = 0; s < per_warp; ++s) {
+        const int k0 = (warp * per_warp + s) * 8;
+        FragA ar, ai;
+        load_a(&ar, ua, lda, 0, k0, lane);
+        load_a(&ai, ua + uplane, lda, 0, k0, lane);
+        const FragA nai = negated(ai);
+        FragB br[NB], bi[NB];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          load_b_kn(&br[b], sb, LDB, k0, 8 * b, lane);
+          load_b_kn(&bi[b], sb + bplane, LDB, k0, 8 * b, lane);
+        }
+        cmma_step<NB>(cr, ci, sr, si, ar, ai, nai, br, bi);
+      }
+      add_small<NB>(cr, sr);
+      add_small<NB>(ci, si);
+      // c0 (g, 2 t4), c1 (g, 2 t4 + 1), c2 (g + 8, 2 t4), c3 (g + 8, ...)
+      float* wr = red + warp * 2 * kRows * N;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = (g + 8 * h) * N + 8 * b + 2 * t4;
+          *reinterpret_cast<float2*>(wr + at) =
+              make_float2(cr[b][2 * h], cr[b][2 * h + 1]);
+          *reinterpret_cast<float2*>(wr + kRows * N + at) =
+              make_float2(ci[b][2 * h], ci[b][2 * h + 1]);
+        }
+    }
+    __syncthreads();  // the partials are in; stage l & 1 is free
+    stage_u(l + 2);
+
+    if (live) {
+      float2 vr = make_float2(0.0f, 0.0f), vi = vr;
+      const int at = pr_row * N + pc;
+      for (int w8 = 0; w8 < n_warps; ++w8) {  // in warp order
+        const float2 a = *reinterpret_cast<const float2*>(
+            red + w8 * 2 * kRows * N + at);
+        const float2 q = *reinterpret_cast<const float2*>(
+            red + (w8 * 2 + 1) * kRows * N + at);
+        vr = make_float2(vr.x + a.x, vr.y + a.y);
+        vi = make_float2(vi.x + q.x, vi.y + q.y);
+      }
+      if (l + 1 < n_layers) {
+        if ((l + 1) % k == 0) {  // the next block's phase, folded in
+          const float2 v0 = cmul(make_float2(vr.x, vi.x), ph[0]);
+          const float2 v1 = cmul(make_float2(vr.y, vi.y), ph[1]);
+          vr = make_float2(v0.x, v1.x);
+          vi = make_float2(v0.y, v1.y);
+        }
+        float* nxt = st + ((l + 1) & 1) * 2 * bplane +
+                     (row0 + pr_row) * LDB + pc;
+        for (int q = part; q < n_cta; q += SPLIT) {
+          float* dst = n_cta > 1 ? cluster.map_shared_rank(nxt, q) : nxt;
+          *reinterpret_cast<float2*>(dst) = vr;
+          *reinterpret_cast<float2*>(dst + bplane) = vi;
+        }
+      } else if (part == 0) {
+        const int b = col0 + pc;
+        const size_t o = static_cast<size_t>(row0 + pr_row) * batch + b;
+        if (b < batch) {
+          out_r[o] = vr.x;
+          out_i[o] = vi.x;
+        }
+        if (b + 1 < batch) {
+          out_r[o + 1] = vr.y;
+          out_i[o + 1] = vi.y;
+        }
+      }
+    }
+    // the next state is whole in every CTA, and the partials are read
+    if (l + 1 < n_layers) {
+      if (n_cta > 1)
+        cluster.sync();
+      else
+        __syncthreads();
+    }
   }
+  cp_async_wait<0>();  // nothing left in flight at exit (empty groups)
 }
 
 template <int R>
@@ -471,14 +565,7 @@ __global__ void __launch_bounds__(kTile * 8)
   }
 }
 
-// The state buffers and two staged chunks of U.
-size_t fwd_smem(int d, int tile) {
-  const int ic = chunk_for(d);
-  return (4 * static_cast<size_t>(d) * tile +
-          4 * static_cast<size_t>(ic) * (d + 1)) *
-         sizeof(float);
-}
-
+// The state buffers and two staged chunks of U a backward block.
 size_t bwd_smem(int d, int tile) {
   const int jc = chunk_for(d);
   return (8 * static_cast<size_t>(d) * tile +
@@ -486,17 +573,61 @@ size_t bwd_smem(int d, int tile) {
          sizeof(float);
 }
 
-template <int R>
+// Sets the forward's attributes for a tile of 8 NB samples and fills cfg
+// for `batch` samples: ceil(batch / (8 NB)) clusters of fwd_cluster(d)
+// CTAs; attr (one entry) must outlive cfg.
+template <int NB>
+cudaError_t fwd_config(int d, int batch, cudaStream_t stream,
+                       cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  const int cluster = fwd_cluster(d);
+  const size_t smem = fwd_smem(d, 8 * NB);
+  cudaError_t err = allow_smem(unitary_chain_fwd_kernel<NB>, smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(unitary_chain_fwd_kernel<NB>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((batch + 8 * NB - 1) / (8 * NB) * cluster);
+  cfg->blockDim = dim3(kFwdThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+// How many of the forward's clusters the card holds at once (0: none).
+template <int NB>
+cudaError_t fwd_active(int d, int* clusters) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = fwd_config<NB>(d, 1, nullptr, &attr, &cfg);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters,
+                                        unitary_chain_fwd_kernel<NB>, &cfg);
+}
+
+template <int NB>
 cudaError_t launch_fwd(const float* pr, const float* pi, const float* ur,
                        const float* ui, float* out_r, float* out_i, int d,
                        int batch, int n_layers, int k, cudaStream_t s) {
-  const size_t smem = fwd_smem(d, R);
-  cudaError_t err = allow_smem(unitary_chain_fwd_kernel<R>, smem);
+  int clusters = 0;
+  cudaError_t err = fwd_active<NB>(d, &clusters);
   if (err != cudaSuccess) return err;
-  unitary_chain_fwd_kernel<R><<<(batch + R - 1) / R, unitary_threads(d),
-                                smem, s>>>(pr, pi, ur, ui, out_r, out_i, d,
-                                           batch, n_layers, k);
-  return cudaGetLastError();
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  err = fwd_config<NB>(d, batch, s, &attr, &cfg);
+  if (err != cudaSuccess) return err;
+  const int granule =
+      aligned16({pr, pi, ur, ui}) ? (d < 4 ? d : 4) : 1;
+  err = cudaLaunchKernelEx(&cfg, unitary_chain_fwd_kernel<NB>, pr, pi, ur,
+                           ui, out_r, out_i, d, batch, n_layers, k, granule);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int R>
@@ -519,26 +650,44 @@ cudaError_t launch_bwd(const float* pr, const float* pi, const float* ur,
 
 extern "C" {
 
-// Shared-memory bytes one block of each kernel needs at a tile of `tile`
-// samples; the wrapper checks them against the card's per-block limit.
-size_t unitary_chain_fwd_smem_bytes(int wires, int tile) {
-  return fwd_smem(1 << wires, tile);
+// Shared-memory bytes a forward CTA needs at a tile of `cols` samples, and
+// a backward block at a tile of `tile`; the wrapper checks them against
+// the card's per-block limit.
+size_t unitary_chain_fwd_smem_bytes(int wires, int cols) {
+  return fwd_smem(1 << wires, cols);
 }
 
 size_t unitary_chain_bwd_smem_bytes(int wires, int tile) {
   return bwd_smem(1 << wires, tile);
 }
 
-// pr, pi, out_r, out_i are (d, batch); ur, ui are (n_layers, d, d);
-// tile is 1 or 2 samples a block.
+// How many forward clusters (fwd_cluster(d) CTAs each) the card holds at
+// once at a tile of `cols` samples (0: none, and the launch is refused; a
+// negative cudaError on failure); chip_smoke.py prints it with the plan.
+int unitary_chain_fwd_active_clusters(int wires, int cols, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  const int d = 1 << wires;
+  if (err == cudaSuccess && (d > kMaxDim || (cols != 8 && cols != 16)))
+    err = cudaErrorInvalidValue;
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cols == 8 ? fwd_active<1>(d, &clusters)
+                    : fwd_active<2>(d, &clusters);
+  return err != cudaSuccess ? -static_cast<int>(err) : clusters;
+}
+
+// pr, pi, out_r, out_i are (d, batch); ur, ui are (n_layers, d, d); cols
+// (8 or 16) samples a tile, each tile a cluster of max(1, d / 16) CTAs.
 int unitary_chain_fwd(const void* pr, const void* pi, const void* ur,
                       const void* ui, void* out_r, void* out_i, int wires,
-                      int batch, int n_layers, int k, int tile, int device,
+                      int batch, int n_layers, int k, int cols, int device,
                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int d = 1 << wires;
-  if (d > kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > kMaxDim || fwd_cluster(d) > kMaxCluster || batch < 1 ||
+      n_layers < 1 || k < 1 || (cols != 8 && cols != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* a = static_cast<const float*>(pr);
   const auto* b = static_cast<const float*>(pi);
   const auto* u = static_cast<const float*>(ur);
@@ -546,8 +695,7 @@ int unitary_chain_fwd(const void* pr, const void* pi, const void* ur,
   auto* o = static_cast<float*>(out_r);
   auto* p = static_cast<float*>(out_i);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile != 1 && tile != 2) return static_cast<int>(cudaErrorInvalidValue);
-  err = tile == 1 ? launch_fwd<1>(a, b, u, v, o, p, d, batch, n_layers, k, s)
+  err = cols == 8 ? launch_fwd<1>(a, b, u, v, o, p, d, batch, n_layers, k, s)
                   : launch_fwd<2>(a, b, u, v, o, p, d, batch, n_layers, k, s);
   return static_cast<int>(err);
 }

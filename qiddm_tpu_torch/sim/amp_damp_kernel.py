@@ -32,6 +32,7 @@ the hot path, never differentiates.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -45,8 +46,40 @@ AMP_DAMP_LAUNCHES = 0
 
 # Widest state the kernel takes: the trajectory route's width, whose SEL
 # chain is served by sel_kernel up to the same width. One state sits in
-# shared memory: 32 KB at 12 wires.
+# registers: 32 KB at 12 wires, 16 amplitudes a thread.
 MAX_WIRES = _config.SEL_KERNEL_MAX_WIRES
+
+# The kernel's layout (csrc/amp_damp.cu's AmpShape): up to 9 wires a warp
+# holds a state (below 5 wires, d lanes of one), 4 warps a block; from 9
+# wires a thread holds 16 amplitudes, and from 10 a block holds a state.
+WARP_BLOCK = 128
+MAX_AMPS = 16
+
+
+class AmpPlan(NamedTuple):
+    """How the kernel lays out one pass: ``amps`` amplitudes a thread,
+    ``threads_per_state`` threads (``warps_per_state`` warps, or part of
+    one) a state, ``per_block`` states a block of ``threads`` threads,
+    ``blocks`` blocks."""
+    amps: int
+    threads_per_state: int
+    warps_per_state: int
+    per_block: int
+    threads: int
+    blocks: int
+
+
+def amp_damp_plan(wires: int, n: int) -> AmpPlan:
+    """The kernel's layout for ``n`` states of ``wires`` wires, as
+    ``AmpShape`` computes it: each wire's P(wire = 1) is a sum over a
+    state's threads, by warp shuffles up to 9 wires (a warp or part of one
+    a state) and with one barrier a wire from 10 (a block a state)."""
+    d = 2**wires
+    amps = 1 if wires < 5 else min(d // 32, MAX_AMPS)
+    per_state = d // amps
+    per_block = 1 if per_state > 32 else WARP_BLOCK // per_state
+    return AmpPlan(amps, per_state, max(1, per_state // 32), per_block,
+                   per_block * per_state, -(-n // per_block))
 
 
 def _wires_of(states) -> int:
@@ -102,8 +135,9 @@ def amp_damp_plain(states, u, strength, picks=None):
 # --- CUDA kernel -------------------------------------------------------------
 
 def _amp_damp_cuda(states, u, strength, forced):
-    """Launch the kernel on PyTorch's current stream; returns new (N, d)
-    complex64 states and (w, N) uint8 picks."""
+    """Launch the kernel on PyTorch's current stream under
+    :func:`amp_damp_plan`; returns new (N, d) complex64 states and (w, N)
+    uint8 picks."""
     global AMP_DAMP_LAUNCHES
     what = "amplitude-damping kernel"
     dev = states.device
@@ -128,6 +162,7 @@ def _amp_damp_cuda(states, u, strength, forced):
             or (torch.is_tensor(strength) and strength.numel() != 1)):
         raise ValueError(f"{what}: bad shapes: states {tuple(states.shape)}, "
                          f"u {tuple(u.shape)} for {wires} wires")
+    plan = amp_damp_plan(wires, n)
     lib = _gk._library()
     out = torch.empty_like(states)
     picks = torch.empty((wires, n), dtype=torch.uint8, device=dev)
@@ -137,7 +172,7 @@ def _amp_damp_cuda(states, u, strength, forced):
     err = lib.amp_damp_fwd(states.data_ptr(), u.data_ptr(), ptr, value,
                            None if forced is None else forced.data_ptr(),
                            out.data_ptr(), picks.data_ptr(), wires, n,
-                           dev.index, stream)
+                           plan.threads, plan.per_block, dev.index, stream)
     _gk._raise_on(err, lib, what)
     AMP_DAMP_LAUNCHES += 1
     return out, picks

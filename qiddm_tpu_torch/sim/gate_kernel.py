@@ -299,7 +299,7 @@ def _library():
         lib.dm_chain_active_clusters.restype = ctypes.c_int
         lib.amp_damp_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
                                      + [ctypes.c_void_p] * 3
-                                     + [ctypes.c_int] * 3
+                                     + [ctypes.c_int] * 5
                                      + [ctypes.c_void_p])
         lib.amp_damp_fwd.restype = ctypes.c_int
         ptr, num = ctypes.c_void_p, ctypes.c_int
@@ -323,6 +323,8 @@ def _library():
                    lib.unitary_chain_bwd_smem_bytes):
             fn.argtypes = [num] * 2
             fn.restype = ctypes.c_size_t
+        lib.unitary_chain_fwd_active_clusters.argtypes = [num] * 3
+        lib.unitary_chain_fwd_active_clusters.restype = num
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -30,6 +30,8 @@ convention, and autograd carries dU to the complex unitaries through
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -98,12 +100,66 @@ _SMS = 132
 
 
 def _tile_for(batch: int) -> int:
-    """Samples a block: 1 while the batch fits the card's 132 SMs a sample
-    a block, else 2. A tile of R samples reads every unitary once for R
-    samples, so the L2 traffic falls as R grows, and so do the blocks and
-    the SMs in use (``chip_smoke.py`` phase 28 times both tiles side by
-    side)."""
+    """Samples a block of the backward kernel #14: 1 while the batch fits
+    the card's 132 SMs a sample a block, else 2. A tile of R samples reads
+    every unitary once for R samples, so the L2 traffic falls as R grows,
+    and so do the blocks and the SMs in use (``chip_smoke.py`` phase 28
+    times both tiles side by side)."""
     return 1 if batch <= _SMS else 2
+
+
+# The forward kernel #13: rows of U_l a CTA (one 16-row tensor-core tile),
+# its threads, its tiles of samples, and its warps' share of the product.
+FWD_ROWS = 16
+FWD_THREADS = 256
+FWD_COLS = (8, 16)
+
+
+class UnitaryPlan(NamedTuple):
+    """How kernel #13 lays out one call: ``tiles`` tiles of ``cols``
+    samples, each a thread-block cluster of ``cluster`` CTAs that own
+    ``FWD_ROWS`` rows of every U_l each, ``FWD_THREADS`` threads and
+    ``smem_bytes`` of shared memory a CTA; ``steps_per_warp`` 8-deep steps
+    of a layer's product for each of the ``warps`` warps with work."""
+    cluster: int
+    cols: int
+    tiles: int
+    threads: int
+    smem_bytes: int
+    warps: int
+    steps_per_warp: int
+
+
+def fwd_smem_bytes(wires: int, cols: int) -> int:
+    """Shared memory of a forward CTA, as ``csrc/unitary_chain.cu::
+    fwd_smem`` counts it: the state [2][re, im][depth][cols | 8], U's rows
+    [2][re, im][16][depth + 4] and the warps' partials [8][re, im][16][cols]
+    floats, depth = max(8, 2**wires)."""
+    depth = max(8, 2**wires)
+    return 4 * (4 * depth * (cols | 8) + 4 * FWD_ROWS * (depth + 4)
+                + 2 * (FWD_THREADS // 32) * FWD_ROWS * cols)
+
+
+def unitary_plan(wires: int, batch: int, cols: int = 0) -> UnitaryPlan:
+    """Kernel #13's layout for one call, from the shape alone.
+
+    A cluster of max(1, d / 16) CTAs works a tile of samples; the tile is
+    the smaller of ``FWD_COLS`` whose CTAs all find an SM at once
+    (``tiles * cluster <= 132``), else the larger (a second wave of
+    clusters). ``cols`` forces a tile of 8 or 16 (``chip_smoke.py`` times
+    both)."""
+    d = 2**wires
+    cluster = max(1, d // FWD_ROWS)
+    if cols == 0:
+        cols = next((c for c in FWD_COLS
+                     if -(-batch // c) * cluster <= _SMS), FWD_COLS[-1])
+    if cols not in FWD_COLS:
+        raise ValueError(f"cols must be one of {FWD_COLS} samples, got "
+                         f"{cols}")
+    steps = max(8, d) // 8
+    warps = min(steps, FWD_THREADS // 32)
+    return UnitaryPlan(cluster, cols, -(-batch // cols), FWD_THREADS,
+                       fwd_smem_bytes(wires, cols), warps, steps // warps)
 
 
 def _check_inputs(what: str, planes, ur, ui, k: int):
@@ -148,23 +204,28 @@ def _check_tile(smem_fn, wires: int, tile: int) -> None:
                          f"{wires} wires and a tile of {tile}")
 
 
-def _unitary_chain_cuda(pr, pi, ur, ui, k: int, tile: int = 0):
-    """Launch kernel #13 on PyTorch's current stream (``tile`` samples a
-    block, :func:`_tile_for` by default); (sr, si) are new (d, B) float32
-    tensors."""
+def _unitary_chain_cuda(pr, pi, ur, ui, k: int, cols: int = 0):
+    """Launch kernel #13 on PyTorch's current stream under
+    :func:`unitary_plan` (``cols`` samples a tile, the plan's choice by
+    default); (sr, si) are new (d, B) float32 tensors."""
     global UNITARY_LAUNCHES
     wires, B, n_layers = _check_inputs("unitary-chain kernel", (pr, pi), ur,
                                        ui, k)
-    tile = tile or _tile_for(B)
+    plan = unitary_plan(wires, B, cols)
     lib = _gk._library()
-    _check_tile(lib.unitary_chain_fwd_smem_bytes, wires, tile)
+    smem = lib.unitary_chain_fwd_smem_bytes(wires, plan.cols)
+    if smem != plan.smem_bytes or smem > _gk._MAX_SMEM_BYTES:
+        raise ValueError(f"unitary-chain kernel needs {smem} B of shared "
+                         f"memory a CTA (plan {plan.smem_bytes}, limit "
+                         f"{_gk._MAX_SMEM_BYTES}) at {wires} wires and "
+                         f"{plan.cols} samples a tile")
     sr = torch.empty_like(pr)
     si = torch.empty_like(pi)
     stream = torch.cuda.current_stream(pr.device).cuda_stream
     err = lib.unitary_chain_fwd(pr.data_ptr(), pi.data_ptr(), ur.data_ptr(),
                                 ui.data_ptr(), sr.data_ptr(), si.data_ptr(),
-                                wires, B, n_layers, k, tile, pr.device.index,
-                                stream)
+                                wires, B, n_layers, k, plan.cols,
+                                pr.device.index, stream)
     _gk._raise_on(err, lib, "unitary-chain kernel")
     UNITARY_LAUNCHES += 1
     return sr, si

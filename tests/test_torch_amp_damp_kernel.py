@@ -25,6 +25,11 @@ from qiddm_tpu_torch.sim import amp_damp_kernel, gate_kernel
 TOL = 1e-6
 CARD_TOL = 1e-5
 CARD_SHAPES = [(w, n) for w in (1, 4, 8, 12) for n in (1, 10, 1000)]
+# the kernel's plan boundaries: one state, a warp's worth of states on
+# either side of 32, and the route's batch of 1,000 and one past it
+BOUNDARY_N = (1, 31, 32, 33, 1000, 1001)
+# chip_smoke.py phase 15's shapes
+SMOKE_SHAPES = [(w, n) for w in (1, 2, 4, 6, 8, 10, 12) for n in (1, 10, 1000)]
 
 
 def _inputs(w, n, seed=0, device="cpu"):
@@ -159,6 +164,78 @@ def test_other_devices_and_wrong_inputs_raise():
         amp_damp_kernel._amp_damp_cuda(states, u, 0.1, None)
 
 
+@pytest.mark.parametrize("w,n", sorted(set(
+    CARD_SHAPES + SMOKE_SHAPES
+    + [(w, n) for w in range(1, 13) for n in BOUNDARY_N])))
+def test_plan_at_every_card_shape(w, n):
+    """The kernel's layout (pure Python) at every shape the card runs: the
+    threads of a state hold its 2**w amplitudes once, a warp (or d lanes
+    of one) a state up to 9 wires and a block from 10, whole warps a
+    block, and the blocks cover the n states once."""
+    plan = amp_damp_kernel.amp_damp_plan(w, n)
+    d = 2**w
+    assert plan.amps * plan.threads_per_state == d
+    assert plan.amps == (1 if w < 5 else min(d // 32, 16))
+    assert plan.threads == plan.per_block * plan.threads_per_state
+    assert plan.threads % 32 == 0 and plan.threads <= 256
+    if w <= 9:
+        assert plan.threads_per_state <= 32 and plan.threads == 128
+        assert plan.warps_per_state == 1
+    else:
+        assert plan.per_block == 1 and plan.amps == 16
+        assert plan.warps_per_state == plan.threads_per_state // 32 > 1
+    assert (plan.blocks - 1) * plan.per_block < n <= (plan.blocks
+                                                      * plan.per_block)
+
+
+def _xor_mask_pass(states, u, g: float):
+    """The kernel's algorithm on the CPU: nothing moves while the wires
+    run. Logical amplitude i stays at physical index i ^ F; wire j sums
+    |psi|^2 over the physical indices with its bit set (in float64) and
+    scales every amplitude by a factor of that bit alone (a pick zeroes
+    bit 0 and renormalizes bit 1, then flips the bit in F); the store
+    writes physical p to p ^ F."""
+    n, d = states.shape
+    w = d.bit_length() - 1
+    phys = states.clone()
+    flip = torch.zeros(n, dtype=torch.int64)
+    idx = torch.arange(d)
+    g32 = torch.tensor(g, dtype=torch.float32)
+    sq1g = torch.sqrt(1.0 - g32)
+    picks = []
+    for j in range(w):
+        one = ((idx >> (w - 1 - j)) & 1).bool()
+        prob1 = (phys.real.double() ** 2 + phys.imag.double() ** 2)[
+            :, one].sum(1)
+        p1d = g32.double() * prob1
+        pick = u[j].double() < p1d
+        p1 = p1d.float()
+        c1 = torch.sqrt(g32) * torch.rsqrt(p1.clamp(min=1e-30))
+        c0 = torch.rsqrt((1.0 - p1).clamp(min=1e-30))
+        s0 = torch.where(pick, 0.0, c0)
+        s1 = torch.where(pick, c1, c0 * sq1g)
+        phys = phys * torch.where(one[None, :], s1[:, None], s0[:, None])
+        flip ^= pick.long() << (w - 1 - j)
+        picks.append(pick)
+    out = torch.empty_like(phys)
+    out.scatter_(1, idx[None, :] ^ flip[:, None], phys)
+    return out, torch.stack(picks).to(torch.uint8)
+
+
+@pytest.mark.parametrize("w,n", [(1, 5), (3, 7), (6, 20), (9, 10),
+                                 (12, 4)])
+def test_xor_mask_algorithm_is_the_twin(w, n):
+    """The register design's arithmetic (no amplitude moves, an xor mask
+    of picked wires) gives the twin's states and picks."""
+    states, u = _inputs(w, n, seed=3 * w + n)
+    for g in (0.05, 0.3, 0.8):
+        got, picks = _xor_mask_pass(states, u, g)
+        want, want_picks = amp_damp_kernel.amp_damp_plain(states, u, g)
+        assert torch.equal(picks, want_picks), g
+        assert picks.any() or g == 0.05
+        assert (got - want).abs().max().item() <= TOL, g
+
+
 def test_library_build_covers_the_amp_damp_source():
     assert gate_kernel._CSRC / "amp_damp.cu" in gate_kernel._SOURCES
     assert (gate_kernel._CSRC / "amp_damp.cu").is_file()
@@ -181,6 +258,23 @@ def test_kernel_matches_twin_on_card(cuda, w, n):
         # and with the picks forced, the same states
         forced, _ = amp_damp_kernel.amp_damp(states, u, g, picks=picks)
         assert torch.equal(forced, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BOUNDARY_N)
+@pytest.mark.parametrize("w", range(1, 13))
+def test_kernel_at_plan_boundaries_on_card(cuda, w, n):
+    """The kernel against the twin at the edges of its layout, the picks
+    equal and, forced, the same bits."""
+    states, u = _inputs(w, n, seed=7 * w + n, device=cuda)
+    for g in (0.05, 0.3, 0.8):
+        got, picks = amp_damp_kernel.amp_damp(states, u, g)
+        want, want_picks = amp_damp_kernel.amp_damp_plain(states, u, g)
+        torch.cuda.synchronize()
+        assert torch.equal(picks, want_picks), g
+        assert (got - want).abs().max().item() <= CARD_TOL, g
+        forced, again = amp_damp_kernel.amp_damp(states, u, g, picks=picks)
+        assert torch.equal(forced, got) and torch.equal(again, picks)
 
 
 @pytest.mark.cuda

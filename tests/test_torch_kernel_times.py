@@ -1,0 +1,59 @@
+"""The device-time script of kernels #7 and #13
+(``qiddm_tpu_torch/tools/kernel_times.py``) on the CPU, at small shapes:
+its cases, its output line and the library formulation of the unitary
+chain against the chain. On the card it times the kernels; here the
+plain versions run and nothing is launched."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from qiddm_tpu_torch.sim import unitary_kernel
+from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
+from qiddm_tpu_torch.sim.statevector import rz_phase_planes
+from qiddm_tpu_torch.tools import kernel_times
+
+
+@pytest.fixture
+def small(monkeypatch):
+    monkeypatch.setattr(kernel_times, "AMP_SHAPES", ((3, 5), (2, 4)))
+    monkeypatch.setattr(kernel_times, "UNITARY_SHAPES", ((3, 4, 2, 2),))
+
+
+def test_main_on_the_cpu_prints_every_case(small, capsys):
+    out = kernel_times.main(["--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(out))
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["package"].endswith("qiddm_tpu_torch/__init__.py")
+    assert sorted(out["times_ms"]) == sorted([
+        "amp_damp w=3 N=5", "amp_damp w=2 N=4",
+        "unitary_chain w=3 B=4 L*k=4", "library_unitary w=3 B=4 L*k=4"])
+    assert all(t > 0 for t in out["times_ms"].values())
+    assert out["launches"] == {"amp_damp": 0, "unitary": 0}
+    assert out["kernel_ms"] == {}  # the profiled durations are the card's
+
+
+@pytest.mark.parametrize("ring", ["cz", "cnot"])
+def test_library_formulation_is_the_chain(ring):
+    rng = np.random.default_rng(4)
+    w, b, L, k = 4, 6, 3, 2
+    weights = torch.as_tensor(rng.normal(size=(L, k, w, 3)) * 0.4,
+                              dtype=torch.float32)
+    pr, pi = rz_phase_planes(torch.as_tensor(
+        rng.normal(size=(b, w)), dtype=torch.float32), w)
+    lus = sel_layer_unitaries(weights, ring).reshape(L * k, 2**w, 2**w)
+    got = kernel_times._library_unitary(torch.complex(pr, pi), lus, k)
+    sr, si = unitary_kernel.unitary_chain_planes_plain(
+        pr, pi, lus.real.contiguous(), lus.imag.contiguous(), k)
+    assert (got.real - sr).abs().max().item() <= 1e-6
+    assert (got.imag - si).abs().max().item() <= 1e-6
+
+
+def test_no_card_without_cuda_refuses():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        kernel_times.main([])

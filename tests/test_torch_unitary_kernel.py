@@ -6,7 +6,8 @@ tests/test_pallas.py runs them on the CPU) and against torch autograd, the
 per-layer unitaries against JAX's ``sel_layer_unitaries``, the engine's
 CNOT-ring and complex128 blocks against ``qiddm_tpu.sim.reupload_block``
 (values and gradients), the routing with the card faked, the wrappers'
-guards, and on the card the kernels against their plain versions.
+guards, #13's launch plan at every shape the card runs, and on the card
+the kernels against their plain versions.
 
 Tolerances: the forward's (d, B) float32 planes within 1e-5 absolute (the
 JAX test's bound: unit-norm states through up to 28 dense layers); the
@@ -44,6 +45,9 @@ JAX_CASES = [(3, 2, 2, 8), (4, 5, 2, 16), (5, 3, 3, 8), (3, 4, 1, 4)]
 # largest batch at 8 wires, and k = 3 and k = 1
 CARD_CASES = ([(w, 14, 2, b) for w in (1, 3, 6, 8) for b in (1, 16, 80)]
               + [(8, 14, 2, 255), (6, 14, 3, 16), (3, 4, 1, 4)])
+# #13's plan boundaries: one sample, a tile's edge at 80 (10 tiles of 8
+# or 5 of 16), and the route's largest batch at 8 wires
+BOUNDARY_BATCHES = (1, 79, 80, 81, 255)
 COUNTERS = ("UNITARY_LAUNCHES", "UNITARY_BWD_LAUNCHES")
 
 
@@ -423,10 +427,58 @@ def test_launchers_take_only_card_tensors():
 
 
 def test_tile_rule_spreads_the_batch():
-    """1 sample a block while the batch fits the H100's 132 SMs, else 2."""
+    """#14: 1 sample a block while the batch fits the H100's 132 SMs, else
+    2."""
     assert [unitary_kernel._tile_for(b) for b in (1, 16, 80, 132, 133, 255,
                                                   1000)] == [
         1, 1, 1, 1, 2, 2, 2]
+
+
+def _tiles_cover(plan, w, B):
+    d = 2**w
+    assert plan.cluster * unitary_kernel.FWD_ROWS >= d
+    assert plan.cluster == max(1, d // 16) and plan.cluster <= 16
+    assert plan.cols in (8, 16) and plan.tiles == -(-B // plan.cols)
+    assert (plan.tiles - 1) * plan.cols < B <= plan.tiles * plan.cols
+    assert plan.threads == 256
+    # the warps cover the product's 8-deep steps, each once
+    assert plan.warps * plan.steps_per_warp == max(8, d) // 8
+    assert 1 <= plan.warps <= 8
+
+
+@pytest.mark.parametrize("w,L,k,B", CARD_CASES + [
+    (w, 14, 2, b) for w in range(1, 9) for b in BOUNDARY_BATCHES])
+def test_fwd_plan_at_every_card_shape(w, L, k, B):
+    """#13's plan (pure Python) at every shape the card tests and phase 26
+    run: a cluster of max(1, d / 16) CTAs a tile of 8 or 16 samples, the
+    tiles covering the batch once, the warps the product's depth once, and
+    the shared memory the kernel's formula and within the card's 227 KB."""
+    plan = unitary_kernel.unitary_plan(w, B)
+    _tiles_cover(plan, w, B)
+    # the smaller tile whenever every CTA finds one of the 132 SMs
+    small = -(-B // 8) * plan.cluster <= 132
+    assert plan.cols == (8 if small else 16)
+    depth = max(8, 2**w)
+    assert plan.smem_bytes == 4 * (4 * depth * (plan.cols | 8)
+                                   + 64 * (depth + 4) + 256 * plan.cols)
+    assert plan.smem_bytes <= gate_kernel._MAX_SMEM_BYTES
+    for cols in (8, 16):
+        forced = unitary_kernel.unitary_plan(w, B, cols)
+        _tiles_cover(forced, w, B)
+        assert forced.cols == cols
+        assert forced.smem_bytes <= gate_kernel._MAX_SMEM_BYTES
+
+
+def test_fwd_plan_at_the_timed_shapes():
+    """(8, 80): 5 clusters of 16 CTAs (80 SMs), 16 samples a tile, 4 steps
+    for each of 8 warps; (6, 16): 2 clusters of 4, 8 samples a tile."""
+    assert unitary_kernel.unitary_plan(8, 80) == unitary_kernel.UnitaryPlan(
+        16, 16, 5, 256, 181248, 8, 4)
+    assert unitary_kernel.unitary_plan(6, 16) == unitary_kernel.UnitaryPlan(
+        4, 8, 2, 256, 33792, 8, 1)
+    assert unitary_kernel.unitary_plan(8, 255).tiles == 16
+    with pytest.raises(ValueError, match="cols must be"):
+        unitary_kernel.unitary_plan(8, 80, 32)
 
 
 # --- on the card -------------------------------------------------------------
@@ -458,11 +510,12 @@ def test_kernels_match_plain_on_card(cuda, w, L, k, B, ring):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [1, 2])
-def test_every_tile_matches_plain_on_card(cuda, tile):
+@pytest.mark.parametrize("tile,cols", [(1, 8), (2, 16)])
+def test_every_tile_matches_plain_on_card(cuda, tile, cols):
+    """#13 at both tiles of samples, #14 at both tiles a block."""
     k = 2
     args = _bwd_args(8, 14, k, 80, "cnot", cuda, seed=5)
-    kr, ki = unitary_kernel._unitary_chain_cuda(*args[:4], k, tile)
+    kr, ki = unitary_kernel._unitary_chain_cuda(*args[:4], k, cols)
     got = unitary_kernel._unitary_chain_bwd_cuda(*args, k, tile)
     want = unitary_kernel.unitary_chain_bwd_plain(*args, k)
     torch.cuda.synchronize()
@@ -471,6 +524,25 @@ def test_every_tile_matches_plain_on_card(cuda, tile):
     for g, w_ in zip(got, want):
         assert ((g - w_).abs().max().item()
                 <= TOL * max(1.0, w_.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", BOUNDARY_BATCHES)
+@pytest.mark.parametrize("w", range(1, 9))
+def test_fwd_kernel_at_plan_boundaries_on_card(cuda, w, B):
+    """#13 against plain at its plan's edges, both rings, L*k = 28; the
+    library's shared memory and the card's clusters agree with the plan."""
+    plan = unitary_kernel.unitary_plan(w, B)
+    lib = gate_kernel._library()
+    assert lib.unitary_chain_fwd_smem_bytes(w, plan.cols) == plan.smem_bytes
+    assert lib.unitary_chain_fwd_active_clusters(w, plan.cols, 0) >= 1
+    for ring in RINGS:
+        pr, pi, ur, ui = _planes(w, 14, 2, B, ring, cuda, seed=w + B)
+        kr, ki = unitary_kernel._unitary_chain_cuda(pr, pi, ur, ui, 2)
+        qr, qi = unitary_kernel.unitary_chain_planes_plain(pr, pi, ur, ui, 2)
+        torch.cuda.synchronize()
+        assert (kr - qr).abs().max().item() <= TOL
+        assert (ki - qi).abs().max().item() <= TOL
 
 
 @pytest.mark.cuda
@@ -533,7 +605,7 @@ def test_kernels_reject_unsupported_inputs(cuda):
         launch(pr, pi, ur[:2].contiguous(), ui, 2)
     with pytest.raises(ValueError, match="same CUDA device"):
         launch(pr, pi, ur.cpu(), ui, 2)
-    with pytest.raises(ValueError, match="tile must be"):
+    with pytest.raises(ValueError, match="cols must be"):
         launch(pr, pi, ur, ui, 2, 3)
     with pytest.raises(ValueError, match="same CUDA device"):
         unitary_kernel._unitary_chain_bwd_cuda(*args[:7], args[7].cpu(), 2)
