@@ -22,9 +22,13 @@ any failure exits non-zero and no phase's failure is caught:
    {1, 16, 80} (L*k = 28, k = 2) and (w=6, B=16, L*k=42, k=3),
    max |diff| <= 1e-5;
 4. gate-chain backward kernel against plain: kernel #2 against its plain
-   version at the same shapes with N(0, 1) cotangents, dpr, dpi and dg each
-   within 1e-5 * max(1, max|plain|); at one shape also dg against torch
-   autograd through the plain forward;
+   version at the same shapes and at the edges of its launch plan
+   (BWD_PLAN_EDGES at L*k = 28: gate_kernel.chain_bwd_plan's samples a
+   CTA, the largest batch one cluster sums in the launch and the first
+   that takes a second launch, at every class of its layout) with N(0, 1)
+   cotangents, dpr, dpi and dg each within 1e-5 * max(1, max|plain|), and
+   a second call giving the same bits (each plan printed); at one shape
+   also dg against torch autograd through the plain forward;
 5. SEL-chain forward kernel against plain: kernel #5 at w in
    {1, 2, 4, 6, 8, 10} x B in {1, 10, 16, 80} x ring in {cz, cnot}, depth
    14, and (w=6, B=16, depth 60, cnot), and at the trajectory route's
@@ -44,9 +48,10 @@ any failure exits non-zero and no phase's failure is caught:
    (w=8, L*k=12) at B=10 and 16, (w=10, B=80, L*k=28) and the JAX package's
    A/B shape (w=6, B=11, L*k=28), max |diff| <= 1e-5;
 8. RY-chain backward kernel against plain: kernel #4 at the same shapes
-   with N(0, 1) cotangents, dcs and dg each within
-   1e-5 * max(1, max|plain|); at (w=8, B=10, L*k=12) also against torch
-   autograd through the plain forward;
+   and at the plan's edges (BWD_PLAN_EDGES at L*k = 12) with N(0, 1)
+   cotangents, dcs and dg each within 1e-5 * max(1, max|plain|), and a
+   second call giving the same bits; at (w=8, B=10, L*k=12) also against
+   torch autograd through the plain forward;
 9. sampling: QIDDM_LL_noise(784, 6, 14, 2), QNN_noise(784, 8, 14),
    QDenseUndirected_old_noise(60, 8) and QIDDM_PL_noise1(784, 8, 6, 2)
    with seeded random weights, each saved as a checkpoint and sampled
@@ -80,10 +85,14 @@ any failure exits non-zero and no phase's failure is caught:
    batch and noise (gradients relative to their own max norm, or to the
    model's largest where a gradient is zero up to rounding, as QNN's
    linear_down);
-11. profile: 10 steady QIDDM_PL_noise1 training steps (batch 1, tau 10)
-   under torch.profiler: device events, busy time and idle share per step,
-   the RY kernels' share; the step, the PCA fit and eigh alone on the host
-   clock;
+11. profile: 10 steady QIDDM_LL_noise(784, 6, 14, 2) and then
+   QIDDM_PL_noise1 training steps (batch 1, tau 10) under torch.profiler:
+   device events, busy time and idle share per step, the chain kernels'
+   share and #2's or #4's device time a step (2 backward launches a step,
+   none a second launch for dg's batch sum, by the counters and the
+   profile); the steps, and for QIDDM_PL_noise1 the PCA fit and eigh
+   alone, on the host clock; the training runs of phase 10 also counted
+   no second launch;
 12. density-matrix kernel against plain: kernel #8 against its plain
    PyTorch version at w in {1, 2, 4, 6, 7, 8} x B in {1, 10} x channel
    kinds {amplitude damping, depolarizing, phase damping} x encodes {RZ, RY}
@@ -149,7 +158,8 @@ any failure exits non-zero and no phase's failure is caught:
    (QIDDM_PL_noise1 step by step, as in phase 13);
 18. times: median of 20 runs of each kernel and of its plain version (the
    gate-chain forward at w=6, B=16, L*k=28 and its backward at B=10 and
-   B=16; the SEL chain forward and backward at w=8, depth 14, B=10 and 16,
+   B=16 and at QIDDM-A's w=10, B=80, L*k=28 (#2 and #4 also behind a spin
+   kernel, with their plans); the SEL chain forward and backward at w=8, depth 14, B=10 and 16,
    CZ, at w=6, depth 60, B=10, CNOT, and at path A's w=12, depth 2,
    B=1000, CZ and CNOT, there also the rows kernel on the same states;
    the RY chain forward and backward at w=8, B=10, L*k=12 and
@@ -300,7 +310,9 @@ any failure exits non-zero and no phase's failure is caught:
    tensor-core instructions in their SASS (cuobjdump -sass of the built
    library): every group and dG product kernel, both monolithic kernels
    and both #13 instances must hold some (run after phase 24); and #7's
-   registers and spills at each width.
+   registers and spills at each width;
+34. #2's and #4's registers and spills from ptxas's report at each of
+   their 1-10-wire instances (fails unless all twenty are there).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -383,6 +395,14 @@ SAMPLED = [(MODEL, 28, "gate", 2, 0), (QNN_MODEL, 28, "sel", 1, 0),
 EPOCHS, TAU, LABEL = 2, 10, 4  # mnist_exm's defaults but epochs
 CASES = ([(w, b, 28, 2) for w in (1, 4, 6, 8, 10) for b in (1, 16, 80)]
          + [(6, 16, 42, 3)])
+# the backward walk's launch plan at its edges (gate_kernel.chain_bwd_plan;
+# #2 at L*k = 28, #4 at 12): the last batch of one sample a CTA and the
+# first of two, the largest batch one cluster holds (32 samples up to 7
+# wires, 16 from 8) and the first that takes a second launch, at each class
+# of the layout (lanes only, register bits, two warps, four warps)
+BWD_PLAN_EDGES = [(1, 8), (1, 9), (5, 32), (5, 33), (7, 31), (7, 32),
+                  (7, 33), (8, 8), (8, 9), (8, 16), (8, 17), (9, 16),
+                  (9, 17), (10, 9), (10, 16), (10, 17)]
 SEL_CASES = ([(w, b, 14, ring) for w in (1, 2, 4, 6, 8, 10)
               for b in (1, 10, 16, 80) for ring in ("cz", "cnot")]
              + [(6, 16, 60, "cnot")])
@@ -489,6 +509,7 @@ def fail(msg: str) -> None:
 
 def reset_counts() -> None:
     gate_kernel.LAUNCHES = gate_kernel.BWD_LAUNCHES = 0
+    gate_kernel.BWD_BATCH_SUMS = ry_kernel.RY_BWD_BATCH_SUMS = 0
     sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
     sel_kernel.SEL_ROW_LAUNCHES = 0
     ry_kernel.RY_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
@@ -503,6 +524,8 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {"gate": gate_kernel.LAUNCHES, "gate_bwd": gate_kernel.BWD_LAUNCHES,
+            "gate_bwd_sums": gate_kernel.BWD_BATCH_SUMS,
+            "ry_bwd_sums": ry_kernel.RY_BWD_BATCH_SUMS,
             "sel": sel_kernel.SEL_LAUNCHES,
             "sel_bwd": sel_kernel.SEL_BWD_LAUNCHES,
             "sel_rows": sel_kernel.SEL_ROW_LAUNCHES,
@@ -591,25 +614,41 @@ def _rel(got, want) -> float:
             / max(1.0, want.abs().max().item())).item()
 
 
+def _plan_line(wires: int, batch: int) -> str:
+    plan = gate_kernel.chain_bwd_plan(wires, batch)
+    return (f"plan {plan.warps} warp(s) a sample, {plan.samples} a CTA, "
+            f"{plan.cluster} CTAs a cluster x {plan.clusters}, dg summed "
+            + ("in the launch" if plan.in_launch else "by a second launch"))
+
+
 def phase_bwd_vs_plain(dev) -> float:
-    """Returns the worst max |kernel - plain| over the shapes."""
+    """Returns the worst max |kernel - plain| over the shapes: CASES and the
+    walk's plan edges, each also called twice for the same bits."""
     rng = np.random.default_rng(SEED + 2)
     worst = 0.0
-    for w, b, n_layers, k in CASES:
+    cases = CASES + [(w, b, 28, 2) for w, b in BWD_PLAN_EDGES]
+    for w, b, n_layers, k in cases:
         args = bwd_inputs(rng, w, b, n_layers, k, dev)
         with torch.no_grad():
             got = gate_kernel._gate_chain_bwd_cuda(*args, k, w)
+            again = gate_kernel._gate_chain_bwd_cuda(*args, k, w)
             want = gate_kernel.gate_chain_bwd_plain(*args, k, w)
         torch.cuda.synchronize()
         errs = [_rel(g, p) for g, p in zip(got, want)]
         worst = max(worst, *((g - p).abs().max().item()
                              for g, p in zip(got, want)))
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
         print(f"backward kernel vs plain w={w} B={b} L*k={n_layers} k={k}: "
               f"dpr, dpi, dg max|diff| / max(1, max|plain|) "
-              + ", ".join(f"{e:.3e}" for e in errs))
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f"; two calls {'the same bits' if same else 'DIFFER'}; "
+              + _plan_line(w, b))
         if not max(errs) <= BWD_TOL:
             fail(f"backward kernel disagrees with plain at w={w} B={b} "
                  f"L*k={n_layers} k={k}: {max(errs):.3e} > {BWD_TOL}")
+        if not same:
+            fail(f"backward kernel gave other bits on a second call at w={w} "
+                 f"B={b} L*k={n_layers} k={k}")
     # a third formulation: autograd through the plain forward
     pr, pi, g8, signs, _, _, gr, gi = bwd_inputs(rng, 6, 16, 28, 2, dev)
     g8 = g8.requires_grad_(True)
@@ -781,24 +820,33 @@ def phase_ry_vs_plain(dev) -> float:
 
 
 def phase_ry_bwd_vs_plain(dev) -> float:
-    """Returns the worst max |kernel - plain| over the shapes."""
+    """Returns the worst max |kernel - plain| over the shapes: RY_CASES and
+    the walk's plan edges, each also called twice for the same bits."""
     rng = np.random.default_rng(SEED + 6)
     worst = 0.0
-    for w, b, n_layers, k in RY_CASES:
+    cases = RY_CASES + [(w, b, 12, 2) for w, b in BWD_PLAN_EDGES]
+    for w, b, n_layers, k in cases:
         args = ry_bwd_inputs(rng, w, b, n_layers, k, dev)
         with torch.no_grad():
             got = ry_kernel._ry_chain_bwd_cuda(*args, k, w)
+            again = ry_kernel._ry_chain_bwd_cuda(*args, k, w)
             want = ry_kernel.ry_chain_bwd_plain(*args, k, w)
         torch.cuda.synchronize()
         errs = [_rel(g, p) for g, p in zip(got, want)]
         worst = max(worst, *((g - p).abs().max().item()
                              for g, p in zip(got, want)))
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
         print(f"RY backward kernel vs plain w={w} B={b} L*k={n_layers} "
               f"k={k}: dcs, dg max|diff| / max(1, max|plain|) "
-              + ", ".join(f"{e:.3e}" for e in errs))
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f"; two calls {'the same bits' if same else 'DIFFER'}; "
+              + _plan_line(w, b))
         if not max(errs) <= BWD_TOL:
             fail(f"RY backward kernel disagrees with plain at w={w} B={b} "
                  f"L*k={n_layers} k={k}: {max(errs):.3e} > {BWD_TOL}")
+        if not same:
+            fail(f"RY backward kernel gave other bits on a second call at "
+                 f"w={w} B={b} L*k={n_layers} k={k}")
     # a third formulation: autograd through the plain forward
     cs, g8, signs, _, _, gr, gi = ry_bwd_inputs(rng, 8, 10, 12, 2, dev)
     leaves = [t.clone().requires_grad_(True) for t in (cs, g8)]
@@ -1200,6 +1248,39 @@ def phase_wide_sass() -> None:
     kinds = {_WIDE_SASS.search(n).group(1) for n in counts}
     if len(kinds) < 5 or not all(counts.values()):
         fail(f"#9-#13 kernels without TF32 HMMA in their SASS: {counts}")
+
+
+# #2's and #4's instances in ptxas's report: gate_ or ry_, then the width
+_WALK_PTXAS = re.compile(r"(gate|ry)_chain_bwd_regs_kernelILi(\d+)E")
+
+
+def phase_walk_registers() -> dict:
+    """#2's and #4's registers and spill-store bytes from ptxas's report in
+    the build log, for every width instance (1-10 wires); fails unless all
+    twenty instances are there. Returns {(kernel, wires): (registers,
+    spill-store bytes)}."""
+    lib = gate_kernel.build_library()
+    lines = lib.with_suffix(".log").read_text().splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        match = _WALK_PTXAS.search(line)
+        if "Compiling entry function" in line and match:
+            text = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            if regs and spill:
+                found["#2" if match.group(1) == "gate" else "#4",
+                      int(match.group(2))] = (int(regs.group(1)),
+                                              int(spill.group(1)))
+    for kernel, name in (("#2", "gate"), ("#4", "ry")):
+        print(f"ptxas {kernel} ({name}_chain_bwd_regs_kernel<w>) registers / "
+              f"spill-store bytes: " + ", ".join(
+                  f"w={w} {found[kernel, w][0]} / {found[kernel, w][1]}"
+                  for w in range(1, 11) if (kernel, w) in found))
+    if len(found) != 20:
+        fail(f"ptxas reported {len(found)} of the 20 #2/#4 instances: "
+             f"{sorted(found)}")
+    return found
 
 
 def phase_mono_model(tmp: pathlib.Path, n_train: int,
@@ -1756,26 +1837,74 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def _train_step(tmp: pathlib.Path, margs: list):
+    """A seeded model's training step (batch 1, tau 10, Adam: mnist_exm's
+    defaults) on the first image of LABEL, and the step's arguments."""
+    z = np.load(tmp / "data" / "mnist_28.npz")
+    x = torch.as_tensor(z["x"][z["y"] == LABEL][:1] / 255.0,
+                        dtype=torch.float32, device="cuda").reshape(1, -1)
+    net = common.build_model(margs, seed=SEED, device="cuda")
+    diff = Diffusion(net).train()
+    step = diff.make_train_step(
+        torch.optim.Adam(diff.parameters(), lr=common.FALLBACK_LR), TAU)
+    return step, x, torch.Generator().manual_seed(SEED)
+
+
+def _walk_step_check(name: str, dev: list, counts: dict, counter: str,
+                     sums: str, steps: int) -> None:
+    """Fails unless the profiled steps ran 2 backward walks a step and each
+    summed dg in its own launch: no second launch (counter ``sums``, and no
+    dg_batch_sum_kernel record)."""
+    second = sum(1 for e in dev if "dg_batch_sum" in e.name)
+    if counts[counter] != 2 * steps or counts[sums] or second:
+        fail(f"{name}: {counts[counter]} backward walks in {steps} steps "
+             f"(want {2 * steps}), {counts[sums]} batch sums counted and "
+             f"{second} profiled in a second launch (want 0)")
+
+
+def phase_profile_ll(tmp: pathlib.Path, smi: str) -> None:
+    """Where a QIDDM_LL_noise(784, 6, 14, 2) training step's time goes: 10
+    steady steps under torch.profiler from counts of 0 give the device
+    events, the device busy time and idle share per step, and the gate
+    chain's kernels' time a step, #2's on its own; each backward is one
+    launch (dg summed over the batch in it)."""
+    step, x, gen = _train_step(tmp, MODEL)
+    step_ms = _host_ms(lambda: step(x, gen))
+    steps = 10
+    dev, busy, wall_us, counts = _device_profile(
+        lambda: [step(x, gen) for _ in range(steps)])
+    _walk_step_check("QIDDM_LL_noise training", dev, counts, "gate_bwd",
+                     "gate_bwd_sums", steps)
+    chain_us = sum(e.time_range.elapsed_us() for e in dev
+                   if "gate_chain" in e.name)
+    bwd_us = sum(e.time_range.elapsed_us() for e in dev
+                 if "gate_chain_bwd" in e.name)
+    print(f"profile {' '.join(MODEL)} training ({smi}), {steps} steps: "
+          f"{len(dev) / steps:.1f} device events per step, device busy "
+          f"{busy / steps / 1e3:.4f} ms per step, idle share "
+          f"{1 - busy / wall_us:.3f} of {wall_us / steps / 1e3:.3f} ms per "
+          f"profiled step; gate chain kernels {chain_us / steps:.1f} us per "
+          f"step ({chain_us / busy:.3f} of busy), #2 {bwd_us / steps:.1f} us "
+          f"per step ({bwd_us / busy:.3f} of busy, "
+          f"{counts['gate_bwd'] // steps} launches a step); step without "
+          f"the profiler {step_ms:.3f} ms")
+
+
 def phase_profile_pl(tmp: pathlib.Path, smi: str) -> None:
     """Where a QIDDM_PL_noise1 training step's time goes (batch 1, tau 10,
     the driver's default): 10 steady Adam steps under torch.profiler give
     the device events per step, the device busy time (the union of kernel
     and copy intervals, user annotations dropped), the idle share of the
-    profiled wall and the RY kernels' device time; the step, the PCA fit
-    and ``eigh`` alone are also timed on the host clock without the
-    profiler, each ending in a synchronise."""
+    profiled wall and the RY kernels' device time, #4's on its own (one
+    launch a backward, dg summed in it); the step, the PCA fit and
+    ``eigh`` alone are also timed on the host clock without the profiler,
+    each ending in a synchronise."""
     from torch.profiler import ProfilerActivity, profile
 
-    z = np.load(tmp / "data" / "mnist_28.npz")
-    x = torch.as_tensor(z["x"][z["y"] == LABEL][:1] / 255.0,
-                        dtype=torch.float32, device="cuda").reshape(1, -1)
-    net = common.build_model(PL_MODEL, seed=SEED, device="cuda")
-    diff = Diffusion(net).train()
-    step = diff.make_train_step(
-        torch.optim.Adam(diff.parameters(), lr=common.FALLBACK_LR), TAU)
-    gen = torch.Generator().manual_seed(SEED)
+    step, x, gen = _train_step(tmp, PL_MODEL)
     step_ms = _host_ms(lambda: step(x, gen))
     steps = 10
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1787,8 +1916,12 @@ def phase_profile_pl(tmp: pathlib.Path, smi: str) -> None:
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    _walk_step_check("QIDDM_PL_noise1 training", dev, read_counts(),
+                     "ry_bwd", "ry_bwd_sums", steps)
     ry_us = sum(e.time_range.elapsed_us() for e in dev
                 if "ry_chain" in e.name)
+    ry_bwd_us = sum(e.time_range.elapsed_us() for e in dev
+                    if "ry_chain_bwd" in e.name)
     top = prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12)
     rows = torch.rand((TAU, 784), generator=gen).to("cuda")
@@ -1800,7 +1933,8 @@ def phase_profile_pl(tmp: pathlib.Path, smi: str) -> None:
           f"{busy / steps / 1e3:.4f} ms per step, idle share "
           f"{1 - busy / wall_us:.3f} of {wall_us / steps / 1e3:.3f} ms per "
           f"profiled step; RY kernels {ry_us / steps:.1f} us per step "
-          f"({ry_us / busy:.3f} of busy)")
+          f"({ry_us / busy:.3f} of busy), #4 {ry_bwd_us / steps:.1f} us per "
+          f"step ({ry_bwd_us / busy:.3f} of busy)")
     print(f"profile QIDDM_PL_noise1 ({smi}): step without the profiler "
           f"{step_ms:.3f} ms; PCA fit and projection of {TAU} rows "
           f"{pca_ms:.3f} ms, eigh of their {TAU}x{TAU} Gram matrix alone "
@@ -2207,10 +2341,14 @@ def phase_times(dev, smi: str) -> tuple[dict, dict, dict]:
         lambda: gate_kernel._gate_chain_cuda(pr, pi, g8, signs, k, w),
         lambda: gate_kernel.gate_chain_planes_plain(pr, pi, mats, k, w))
         + bound_gate(w, b, n_layers, k, False)}
-    for b in (10, 16):
+    walks = {}  # #2 and #4: also their device time behind a spin
+    for w, b in ((6, 10), (6, 16), (10, 80)):
         args = bwd_inputs(rng, w, b, n_layers, k, dev)
-        times[f"bwd{b}"] = _paired_ms(
-            lambda: gate_kernel._gate_chain_bwd_cuda(*args, k, w),
+        key = f"bwd{b}" if w == 6 else f"bwd_w{w}_b{b}"
+        walks[key] = (w, b, functools.partial(
+            gate_kernel._gate_chain_bwd_cuda, *args, k, w))
+        times[key] = _paired_ms(
+            walks[key][2],
             lambda: gate_kernel.gate_chain_bwd_plain(*args, k, w)
         ) + bound_gate(w, b, n_layers, k, True)
     for w, depth, b, ring in ((8, 14, 10, "cz"), (8, 14, 16, "cz"),
@@ -2242,10 +2380,18 @@ def phase_times(dev, smi: str) -> tuple[dict, dict, dict]:
             lambda: ry_kernel._ry_chain_cuda(*args[:3], k, w),
             lambda: ry_kernel._ry_plain(*args[:3], k, w)
         ) + bound_ry(w, b, n_layers, k, False)
+        walks[f"ry_bwd{key}"] = (w, b, functools.partial(
+            ry_kernel._ry_chain_bwd_cuda, *args, k, w))
         times[f"ry_bwd{key}"] = _paired_ms(
-            lambda: ry_kernel._ry_chain_bwd_cuda(*args, k, w),
+            walks[f"ry_bwd{key}"][2],
             lambda: ry_kernel.ry_chain_bwd_plain(*args, k, w)
         ) + bound_ry(w, b, n_layers, k, True)
+    for key, (w, b, fn) in walks.items():
+        spun = tools_common.median_ms(fn, dev)
+        bound = times[key][2]
+        print(f"times {key} device ({smi}): {spun:.4f} ms behind a "
+              f"{tools_common.SPIN_CYCLES}-cycle spin (median of 20), "
+              f"{bound / spun:.2e} of the bound; {_plan_line(w, b)}")
     for w, b, n_spec, ry in ((6, 10, 14, False), (8, 10, 6, True),
                              (10, 1, 1, False)):
         ang = torch.as_tensor(rng.normal(size=(n_spec * 2, w, 3)),
@@ -3203,6 +3349,7 @@ def main() -> None:
     mono_errs = phase_mono_vs_plain(dev)
     phase_mono_config()
     phase_wide_sass()
+    phase_walk_registers()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         sampled, rates = {}, {}
@@ -3218,6 +3365,11 @@ def main() -> None:
             {"gate": 2, "gate_bwd": 2, "sel": 1, "sel_bwd": 1}, default=True)
         pl_trained, pl_rates = phase_train(
             tmp, n_train, [PL_MODEL], {"ry": 2, "ry_bwd": 2}, default=False)
+        # the models' batches (tau 10 rows) fit one cluster of #2 and #4:
+        # one launch a backward, no second launch for dg's batch sum
+        if trained["gate_bwd_sums"] or pl_trained["ry_bwd_sums"]:
+            fail(f"a training backward summed dg in a second launch: "
+                 f"{trained}, {pl_trained}")
         train_rates.update(pl_rates)
         wide_trained, wide_rates = phase_train(
             tmp, n_train, [WIDE_MODEL],
@@ -3228,6 +3380,7 @@ def main() -> None:
         for margs, images in ((MODEL, 1), (QNN_MODEL, 1), (PL_MODEL, 10),
                               (WIDE_MODEL, 1)):
             phase_train_parity(tmp, margs, images)
+        phase_profile_ll(tmp, smi)
         phase_profile_pl(tmp, smi)
         phase_profile_wide(tmp, smi)
         mono_model, mono_rate, mono_train_rate = phase_mono_model(

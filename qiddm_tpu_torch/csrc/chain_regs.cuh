@@ -1,0 +1,648 @@
+// The register-resident adjoint walk of the re-uploading chains: the shared
+// body of kernel #2 (gate_chain.cu, RZ phase encode) and kernel #4
+// (ry_chain.cu, RY encode), for NVIDIA Hopper (sm_90a).
+//
+// What it computes is chain_common.cuh's adjoint_gate_step walk: from the
+// forward output and its cotangent, l = n_layers-1 .. 0, the CZ signs of
+// layer l, then for j = w-1 .. 0 the adjoint gate on the state, the gate's
+// dg (output-side cotangent against the gate's input state) and the adjoint
+// gate on the cotangent; at l % k == 0 the encode is undone (RZ: the phase,
+// with the phase gradient; RY: w adjoint encode gates, with the sample's
+// encode gradient dc_j = dg[0] + dg[6], ds_j = dg[4] - dg[2]). dg is summed
+// over the batch. Wire 0 is the most significant bit, d = 2^w.
+//
+// What bounds it. The work is tiny (~40 d flops a gate and sample) and
+// serial: 168 gates in a row at (w=6, L*k=28), each needing the last one's
+// state. So a sample's walk is a chain of short latency-bound steps, and one
+// warp alone on its scheduler issues it: the time is a gate's latency and
+// instruction count. A reduction of dg over the sample's rows at every
+// gate (a shuffle tree and a barrier) would lie on that path, as would
+// state kept in shared memory. The design keeps a gate's critical path to
+// its 2x2 arithmetic and one exchange, takes the dg reduction off that
+// path, and gives each sample its own warp(s):
+//   * Layout. Up to 7 wires a warp owns a sample, at 8 wires two warps, from
+//     9 four. Index i = (h << (LB + WB)) | (warp << LB) | lane: LB =
+//     min(w, 5) lane bits, WB warp bits, the rest register bits, so a
+//     thread holds A = 2^(w - LB - WB) amplitudes (2 at 6 wires, 4 at 7-9,
+//     8 at 10) of the state and of the cotangent (and, for RZ, of the phase
+//     column and its gradient) in registers for the whole walk. Below 5
+//     wires lanes d..31 hold nothing.
+//   * Gates. A register bit pairs amplitudes inside a thread; a lane bit
+//     swaps the partner's values with __shfl_xor_sync; a warp bit swaps
+//     them through a double-buffered shared-memory plane behind a named
+//     barrier over that sample's warps only (bar.sync id, threads). Each
+//     thread of a pair forms only its own new row and the two entries of
+//     dg that pair that row with both rows' cotangents. A gate's 8
+//     scalars are loaded from shared memory one gate ahead. Below 8 wires a
+//     layer's gates are unrolled; from 8 the lane and warp bits run as a
+//     loop over one body, which keeps a layer's code in the instruction
+//     cache (fully unrolled, the 8-wire layer's code outgrew it and ran
+//     slower).
+//   * No reduction a gate. Each thread writes its 8 dg partials of a gate
+//     to its row of a shared-memory strip (two 16-byte stores; a row stride
+//     whose quarter is odd: no bank conflicts) and goes on; once a layer,
+//     between two barriers of the sample (__syncwarp for one warp), thread
+//     c sums dg[l]'s entry c down its strip column over the rows in a fixed
+//     order (walk_flush, walk_column; every load of it in flight) into the
+//     sample's dg[l]. The RY encode's (dc, ds) partials go through the same
+//     strip, once a re-upload.
+//   * Samples and the batch sum. chain_bwd_plan (sim/gate_kernel.py) puts
+//     S <= 4 samples a CTA (2 from 8 wires) and up to 8 CTAs a thread-block
+//     cluster. At the end each CTA sums its samples' dg in increasing b
+//     after one block barrier; after a cluster barrier every CTA adds a
+//     share of the entries over the cluster's CTAs, read from their shared
+//     memory (distributed shared memory), in rank order: for a batch that
+//     one cluster holds (32 samples, 16 from 8 wires) dg is final in the
+//     launch. A larger batch writes one sum a cluster, and the wrapper's
+//     fixed-order dg_batch_sum_kernel adds them. No atomics: two calls give
+//     the same bits.
+//   * Tables. The gate scalars and the k sign planes are copied into each
+//     CTA's shared memory once and read by broadcast (gates) or by lane
+//     (signs). A sample's column of the (d, B) planes is read and written
+//     with each thread's A loads in flight together; with at most 4 samples
+//     a CTA a row of the CTA's samples is one 32-byte sector, so staging the
+//     columns through shared memory would not coalesce further.
+//
+// Everything here sits in an anonymous namespace, as in chain_common.cuh.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+#include "chain_common.cuh"
+
+namespace {
+
+// Warps a sample at `wires` wires: 1 up to 7 wires, 2 at 8, 4 from 9.
+__host__ __device__ constexpr int walk_warps(int wires) {
+  return wires < 8 ? 1 : wires == 8 ? 2 : 4;
+}
+
+// Samples a CTA at most: 4 up to 7 wires, 2 from 8.
+__host__ __device__ constexpr int walk_max_samples(int wires) {
+  return wires < 8 ? 4 : 2;
+}
+
+// The layout at W wires (see the notes above).
+template <int W>
+struct WalkShape {
+  static constexpr int D = 1 << W;
+  static constexpr int LB = W < 5 ? W : 5;   // lane bits of the index
+  static constexpr int WB = walk_warps(W) == 4 ? 2 : walk_warps(W) / 2;
+  static constexpr int A = 1 << (W - LB - WB);  // amplitudes a thread
+  static constexpr int WARPS = 1 << WB;       // warps a sample
+  static constexpr int T = 32 * WARPS;        // threads a sample
+  static constexpr int ROWS = D < T ? D : T;  // threads that hold amplitudes
+  static constexpr int NC = 8 * W;            // dg columns a layer
+  // strip row stride: a multiple of 4 floats whose quarter is odd, so the
+  // 16-byte stores of 8 lanes hit 8 different bank groups
+  static constexpr int STRIDE = NC + 4;
+  static constexpr int MAX_SAMPLES = walk_max_samples(W);
+  static constexpr int MAX_THREADS = MAX_SAMPLES * T;
+};
+
+constexpr int kWalkMaxCluster = 8;  // CTAs a cluster (portable)
+
+// Offsets, in floats, of a CTA's shared-memory regions (the gate scalars at
+// 0), each region a multiple of 4 floats so float4 copies stay aligned.
+struct WalkLayout {
+  size_t sg, enc, strip, dgs, xbuf, floats;
+};
+
+__host__ __device__ inline size_t walk_round4(size_t n) {
+  return (n + 3) & ~static_cast<size_t>(3);
+}
+
+__host__ __device__ inline WalkLayout walk_layout(int wires, int n_layers,
+                                                  int k, int samples,
+                                                  bool ry) {
+  const size_t d = static_cast<size_t>(1) << wires;
+  const size_t t = 32 * walk_warps(wires);
+  const size_t stride = static_cast<size_t>(8 * wires) + 4;
+  const size_t nd = static_cast<size_t>(n_layers) * wires * 8;
+  WalkLayout o;
+  o.sg = walk_round4(nd);
+  o.enc = o.sg + walk_round4(static_cast<size_t>(k) * d);
+  o.strip = o.enc + (ry ? walk_round4(static_cast<size_t>(samples) * 2 *
+                                      wires)
+                        : 0);
+  o.dgs = o.strip + walk_round4(samples * t * stride);
+  o.xbuf = o.dgs + walk_round4(samples * nd);
+  o.floats = o.xbuf + (walk_warps(wires) > 1 ? samples * 8 * d : 0);
+  return o;
+}
+
+// The index of a thread's amplitude h.
+template <int W>
+__device__ __forceinline__ int walk_index(int h, int r) {
+  return (h << (WalkShape<W>::LB + WalkShape<W>::WB)) | r;
+}
+
+// The barrier of one sample's threads: __syncwarp for one warp, else the
+// named barrier 1 + slot over its warps (0 is __syncthreads').
+template <int W>
+__device__ __forceinline__ void walk_sync(int slot) {
+  if constexpr (WalkShape<W>::WARPS == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(slot + 1), "r"(WalkShape<W>::T)
+                 : "memory");
+  }
+}
+
+// Runs step(h, partner's sr, si, cr, ci) for each of a thread's amplitudes
+// h, for a gate on index bit `bit` below the register bits: the partner's
+// values come by warp shuffle for a lane bit, one amplitude at a time, and
+// through the sample's exchange planes (4 x d floats, two sets used in
+// turn, so one barrier an exchange) for a warp bit.
+template <int W, typename Step>
+__device__ __forceinline__ void walk_exchange(
+    const float (&sr)[WalkShape<W>::A], const float (&si)[WalkShape<W>::A],
+    const float (&cr)[WalkShape<W>::A], const float (&ci)[WalkShape<W>::A],
+    int bit, int r, int slot, float* xbuf, int& xpar, Step step) {
+  using Sh = WalkShape<W>;
+  if (Sh::WB == 0 || bit < Sh::LB) {
+#pragma unroll
+    for (int h = 0; h < Sh::A; ++h)
+      step(h, __shfl_xor_sync(0xffffffffu, sr[h], 1 << bit),
+           __shfl_xor_sync(0xffffffffu, si[h], 1 << bit),
+           __shfl_xor_sync(0xffffffffu, cr[h], 1 << bit),
+           __shfl_xor_sync(0xffffffffu, ci[h], 1 << bit));
+  } else {
+    float* xb = xbuf + xpar * 4 * Sh::D;
+    xpar ^= 1;  // the next exchange writes the other set
+#pragma unroll
+    for (int h = 0; h < Sh::A; ++h) {
+      const int i = walk_index<W>(h, r);
+      xb[i] = sr[h];
+      xb[Sh::D + i] = si[h];
+      xb[2 * Sh::D + i] = cr[h];
+      xb[3 * Sh::D + i] = ci[h];
+    }
+    walk_sync<W>(slot);
+#pragma unroll
+    for (int h = 0; h < Sh::A; ++h) {
+      const int i = walk_index<W>(h, r) ^ (1 << bit);
+      step(h, xb[i], xb[Sh::D + i], xb[2 * Sh::D + i], xb[3 * Sh::D + i]);
+    }
+  }
+}
+
+// One adjoint step for the gate (ma, mb) = its 8 scalars on index bit
+// `bit`: the adjoint gate on the state and on the cotangent, and this
+// thread's dg partials written to row[0..7] (16-byte aligned). REG: `bit`
+// is a register bit, known at compile time: the thread holds whole pairs
+// and writes dg's 8 entries in order. Else a lane or warp bit, which may
+// vary at run time (one body serves every such bit): the thread holds row
+// x of each pair and forms only its new row; with the partner's cotangent
+// (which came with the exchange) it writes the two entries of dg that pair
+// both rows' cotangents with that row, (dg[x][x], dg[1-x][x]), to floats
+// 4x..4x+3 and zeros to the other four (walk_flush maps them back).
+template <int W, bool REG>
+__device__ __forceinline__ void walk_gate(
+    float (&sr)[WalkShape<W>::A], float (&si)[WalkShape<W>::A],
+    float (&cr)[WalkShape<W>::A], float (&ci)[WalkShape<W>::A],
+    float4 ma, float4 mb, int bit, int r, int slot, float* xbuf, int& xpar,
+    float* row) {
+  using Sh = WalkShape<W>;
+  constexpr int A = Sh::A;
+  // the adjoint gate: a_xy = conj(g_yx)
+  const float a00r = ma.x, a00i = -ma.y, a10r = ma.z, a10i = -ma.w;
+  const float a01r = mb.x, a01i = -mb.y, a11r = mb.z, a11i = -mb.w;
+  if constexpr (REG) {  // pairs in this thread
+    float p[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) p[e] = 0.0f;
+    const int rb = 1 << (bit - Sh::LB - Sh::WB);
+#pragma unroll
+    for (int h = 0; h < A; ++h) {
+      if (h & rb) continue;
+      const int h1 = h | rb;
+      const float s0r = sr[h], s0i = si[h], s1r = sr[h1], s1i = si[h1];
+      const float c0r = cr[h], c0i = ci[h], c1r = cr[h1], c1i = ci[h1];
+      const float t0r = a00r * s0r - a00i * s0i + a01r * s1r - a01i * s1i;
+      const float t0i = a00r * s0i + a00i * s0r + a01r * s1i + a01i * s1r;
+      const float t1r = a10r * s0r - a10i * s0i + a11r * s1r - a11i * s1i;
+      const float t1i = a10r * s0i + a10i * s0r + a11r * s1i + a11i * s1r;
+      p[0] += c0r * t0r + c0i * t0i;  // dg00
+      p[1] += c0i * t0r - c0r * t0i;
+      p[2] += c0r * t1r + c0i * t1i;  // dg01
+      p[3] += c0i * t1r - c0r * t1i;
+      p[4] += c1r * t0r + c1i * t0i;  // dg10
+      p[5] += c1i * t0r - c1r * t0i;
+      p[6] += c1r * t1r + c1i * t1i;  // dg11
+      p[7] += c1i * t1r - c1r * t1i;
+      sr[h] = t0r;
+      si[h] = t0i;
+      sr[h1] = t1r;
+      si[h1] = t1i;
+      cr[h] = a00r * c0r - a00i * c0i + a01r * c1r - a01i * c1i;
+      ci[h] = a00r * c0i + a00i * c0r + a01r * c1i + a01i * c1r;
+      cr[h1] = a10r * c0r - a10i * c0i + a11r * c1r - a11i * c1i;
+      ci[h1] = a10r * c0i + a10i * c0r + a11r * c1i + a11i * c1r;
+    }
+    reinterpret_cast<float4*>(row)[0] = make_float4(p[0], p[1], p[2], p[3]);
+    reinterpret_cast<float4*>(row)[1] = make_float4(p[4], p[5], p[6], p[7]);
+  } else {  // a lane or warp bit: the partner thread holds the other row
+    const int x = (r >> bit) & 1;  // this thread's bit of the pair
+    // its new row: t_x = a_xx own + a_x(1-x) other
+    const float ur = x ? a11r : a00r, ui = x ? a11i : a00i;
+    const float vr = x ? a10r : a01r, vi = x ? a10i : a01i;
+    float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f, q3 = 0.0f;
+    walk_exchange<W>(sr, si, cr, ci, bit, r, slot, xbuf, xpar,
+                     [&](int h, float osr, float osi, float ocr, float oci) {
+      const float tr = ur * sr[h] - ui * si[h] + vr * osr - vi * osi;
+      const float ti = ur * si[h] + ui * sr[h] + vr * osi + vi * osr;
+      q0 += cr[h] * tr + ci[h] * ti;  // dg[x][x]: its own cotangent
+      q1 += ci[h] * tr - cr[h] * ti;
+      q2 += ocr * tr + oci * ti;      // dg[1-x][x]: the partner's
+      q3 += oci * tr - ocr * ti;
+      const float nr = ur * cr[h] - ui * ci[h] + vr * ocr - vi * oci;
+      const float ni = ur * ci[h] + ui * cr[h] + vr * oci + vi * ocr;
+      sr[h] = tr;
+      si[h] = ti;
+      cr[h] = nr;
+      ci[h] = ni;
+    });
+    reinterpret_cast<float4*>(row)[x] = make_float4(q0, q1, q2, q3);
+    reinterpret_cast<float4*>(row)[x ^ 1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+// One adjoint encode step RY(-x_j) = [[c, s], [-s, c]] on index bit `bit`
+// (a real gate, on the real and the imaginary plane alike): this thread's
+// (dc, ds) partials of the sample's encode gradient go to row[0..1]. REG as
+// for walk_gate.
+template <int W, bool REG>
+__device__ __forceinline__ void walk_encode(
+    float (&sr)[WalkShape<W>::A], float (&si)[WalkShape<W>::A],
+    float (&cr)[WalkShape<W>::A], float (&ci)[WalkShape<W>::A], float c,
+    float s, int bit, int r, int slot, float* xbuf, int& xpar, float* row) {
+  using Sh = WalkShape<W>;
+  constexpr int A = Sh::A;
+  float dc = 0.0f, ds = 0.0f;
+  if constexpr (REG) {
+    const int rb = 1 << (bit - Sh::LB - Sh::WB);
+#pragma unroll
+    for (int h = 0; h < A; ++h) {
+      if (h & rb) continue;
+      const int h1 = h | rb;
+      const float t0r = c * sr[h] + s * sr[h1], t0i = c * si[h] + s * si[h1];
+      const float t1r = c * sr[h1] - s * sr[h], t1i = c * si[h1] - s * si[h];
+      dc += (cr[h] * t0r + ci[h] * t0i) + (cr[h1] * t1r + ci[h1] * t1i);
+      ds += (cr[h1] * t0r + ci[h1] * t0i) - (cr[h] * t1r + ci[h] * t1i);
+      const float n0r = c * cr[h] + s * cr[h1], n0i = c * ci[h] + s * ci[h1];
+      const float n1r = c * cr[h1] - s * cr[h], n1i = c * ci[h1] - s * ci[h];
+      sr[h] = t0r;
+      si[h] = t0i;
+      sr[h1] = t1r;
+      si[h1] = t1i;
+      cr[h] = n0r;
+      ci[h] = n0i;
+      cr[h1] = n1r;
+      ci[h1] = n1i;
+    }
+  } else {
+    const bool x = (r >> bit) & 1;
+    // its new row: c own + so other
+    const float so = x ? -s : s;
+    walk_exchange<W>(sr, si, cr, ci, bit, r, slot, xbuf, xpar,
+                     [&](int h, float osr, float osi, float ocr, float oci) {
+      const float tr = c * sr[h] + so * osr, ti = c * si[h] + so * osi;
+      dc += cr[h] * tr + ci[h] * ti;
+      // the partner's cotangent against this row: ds takes + c1.t0 from
+      // the thread of bit 0 and - c0.t1 from the thread of bit 1
+      ds -= ocr * tr + oci * ti;
+      const float nr = c * cr[h] + so * ocr, ni = c * ci[h] + so * oci;
+      sr[h] = tr;
+      si[h] = ti;
+      cr[h] = nr;
+      ci[h] = ni;
+    });
+    ds = x ? ds : -ds;
+  }
+  *reinterpret_cast<float2*>(row) = make_float2(dc, ds);
+}
+
+// Column c of the strip summed over the sample's rows in a fixed order: four
+// running sums over the rows 4m + u (u = 0..3, m increasing), then
+// (sum0 + sum1) + (sum2 + sum3). Unrolled, so every load is in flight.
+template <int W>
+__device__ __forceinline__ float walk_column(const float* strip, int c) {
+  using Sh = WalkShape<W>;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int row = 0; row < Sh::ROWS; ++row)
+    acc[row & 3] += strip[row * Sh::STRIDE + c];
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// dg[l] from the strip, between two barriers of the sample: out[c] for this
+// thread's entries c = r, r + T, ... < 8W, each a strip column summed over
+// all rows as walk_column sums it, the columns side by side so that all
+// their loads are in flight. Entry e of a register bit's gate j is column
+// 8j + e; a lane or warp bit's gate holds (dg00, dg10) in its floats 0-3
+// and (dg11, dg01) in 4-7, zeros where the thread's bit differs.
+template <int W>
+__device__ __forceinline__ void walk_flush(const float* strip, int r,
+                                           int slot, float* out) {
+  using Sh = WalkShape<W>;
+  constexpr int CR = (Sh::NC + Sh::T - 1) / Sh::T;  // columns a thread
+  walk_sync<W>(slot);  // every row of the strip is written
+  int src[CR];
+#pragma unroll
+  for (int q = 0; q < CR; ++q) {
+    const int c = r + q * Sh::T;
+    src[q] = c;
+    const int j = c >> 3, e = c & 7, x = (e >> 1) & 1;
+    if (W - 1 - j < Sh::LB + Sh::WB)
+      src[q] = j * 8 + x * 4 + ((e & 1) | ((((e >> 2) ^ x) & 1) << 1));
+  }
+  float acc[CR][4];
+#pragma unroll
+  for (int q = 0; q < CR; ++q)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[q][u] = 0.0f;
+#pragma unroll
+  for (int row = 0; row < Sh::ROWS; ++row)
+#pragma unroll
+    for (int q = 0; q < CR; ++q)
+      if (r + q * Sh::T < Sh::NC)
+        acc[q][row & 3] += strip[row * Sh::STRIDE + src[q]];
+#pragma unroll
+  for (int q = 0; q < CR; ++q) {
+    const int c = r + q * Sh::T;
+    if (c < Sh::NC)
+      out[c] = (acc[q][0] + acc[q][1]) + (acc[q][2] + acc[q][3]);
+  }
+  walk_sync<W>(slot);  // every column is read before the strip is rewritten
+}
+
+// The walk of one CTA. RZ (RY false): ea, eb are the phase planes pr, pi
+// (d, B), ga, gb receive dpr, dpi (d, B). RY: ea is cs (2w, B), eb unused,
+// ga receives dcs (2w, B). dg_out receives dg (n_layers, w, 8) summed over
+// this cluster's samples, at dg_out + cluster * n_layers * w * 8.
+template <int W, bool RY>
+__device__ __forceinline__ void adjoint_walk(
+    const float* __restrict__ ea, const float* __restrict__ eb,
+    const float* __restrict__ g8, const float* __restrict__ signs,
+    const float* __restrict__ fr, const float* __restrict__ fi,
+    const float* __restrict__ gr, const float* __restrict__ gi,
+    float* __restrict__ dg_out, float* __restrict__ ga,
+    float* __restrict__ gb, int batch, int n_layers, int k) {
+  namespace cg = cooperative_groups;
+  using Sh = WalkShape<W>;
+  constexpr int D = Sh::D, A = Sh::A, T = Sh::T, NC = Sh::NC;
+  constexpr int XB = Sh::LB + Sh::WB;  // the bits below the register bits
+  // the lane and warp bits' gates unrolled while a layer's code is small;
+  // from 8 wires one body in a loop serves them all, which keeps a layer's
+  // code in the instruction cache
+  constexpr bool UNROLL = W < 8;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int samples = blockDim.x / T;
+  const int slot = threadIdx.x / T;  // the sample's slot in the CTA
+  const int r = threadIdx.x % T;     // the thread's rank in the sample
+  const int b0 = blockIdx.x * samples;
+  const int b = b0 + slot;
+  const bool live = b < batch;
+  const bool holds = live && r < D;  // below 5 wires lanes d..31 hold none
+  const WalkLayout lay = walk_layout(W, n_layers, k, samples, RY);
+  const int nd = n_layers * NC;
+  float* g = smem;
+  float* sg = smem + lay.sg;
+  float* enc = smem + lay.enc + static_cast<size_t>(slot) * 2 * W;
+  float* strip = smem + lay.strip + static_cast<size_t>(slot) * T * Sh::STRIDE;
+  float* dgs = smem + lay.dgs;
+  float* mydg = dgs + static_cast<size_t>(slot) * nd;
+  float* xbuf = smem + lay.xbuf + static_cast<size_t>(slot) * 8 * D;
+
+  // the read-only tables, once a CTA
+  if ((reinterpret_cast<uintptr_t>(g8) & 15) == 0) {
+    const float4* src = reinterpret_cast<const float4*>(g8);
+    float4* dst = reinterpret_cast<float4*>(g);
+    for (int i = threadIdx.x; i < nd / 4; i += blockDim.x) dst[i] = src[i];
+  } else {
+    for (int i = threadIdx.x; i < nd; i += blockDim.x) g[i] = g8[i];
+  }
+  for (int i = threadIdx.x; i < k * D; i += blockDim.x) sg[i] = signs[i];
+  if constexpr (RY) {
+    for (int i = threadIdx.x; i < samples * 2 * W; i += blockDim.x) {
+      const int bb = b0 + i / (2 * W);
+      smem[lay.enc + i] =
+          bb < batch ? ea[static_cast<size_t>(i % (2 * W)) * batch + bb]
+                     : 0.0f;
+    }
+  }
+
+  // the sample's column, in registers for the whole walk
+  float sr[A], si[A], cr[A], ci[A];
+  float phr[A], phi[A], acr[A], aci[A];  // RZ: the phase and its gradient
+#pragma unroll
+  for (int h = 0; h < A; ++h) {
+    const size_t at = static_cast<size_t>(walk_index<W>(h, r)) * batch + b;
+    sr[h] = holds ? fr[at] : 0.0f;
+    si[h] = holds ? fi[at] : 0.0f;
+    cr[h] = holds ? gr[at] : 0.0f;
+    ci[h] = holds ? gi[at] : 0.0f;
+    if constexpr (!RY) {
+      phr[h] = holds ? ea[at] : 0.0f;
+      phi[h] = holds ? eb[at] : 0.0f;
+      acr[h] = 0.0f;
+      aci[h] = 0.0f;
+    }
+  }
+  __syncthreads();  // the tables are in place
+
+  float enc_acc = 0.0f;  // RY: thread r < 2w carries dc (r even) or ds
+  if (live) {
+    int xpar = 0;
+    // the next gate's scalars, loaded one gate ahead
+    float4 na = *reinterpret_cast<const float4*>(g + (nd - 8));
+    float4 nb = *reinterpret_cast<const float4*>(g + (nd - 4));
+    for (int l = n_layers - 1; l >= 0; --l) {
+      const float* sgl = sg + (l % k) * D;
+#pragma unroll
+      for (int h = 0; h < A; ++h) {
+        const float f = sgl[walk_index<W>(h, r) & (D - 1)];
+        sr[h] *= f;
+        si[h] *= f;
+        cr[h] *= f;
+        ci[h] *= f;
+      }
+#pragma unroll
+      // wire j = W-1-bit, last first: the lane and warp bits, then each
+      // register bit
+      auto xgate = [&](int bit) {
+        const int j = W - 1 - bit;
+        const float4 ma = na, mb = nb;
+        // gate (l, j - 1), or at j = 0 the next layer's (l - 1, W - 1)
+        const int next = l * W + j - 1;
+        if (next >= 0) {
+          na = *reinterpret_cast<const float4*>(g + next * 8);
+          nb = *reinterpret_cast<const float4*>(g + next * 8 + 4);
+        }
+        walk_gate<W, false>(sr, si, cr, ci, ma, mb, bit, r, slot, xbuf, xpar,
+                            strip + r * Sh::STRIDE + j * 8);
+      };
+      if constexpr (UNROLL) {
+#pragma unroll
+        for (int bit = 0; bit < XB; ++bit) xgate(bit);
+      } else {
+#pragma unroll 1
+        for (int bit = 0; bit < XB; ++bit) xgate(bit);
+      }
+#pragma unroll
+      for (int bit = XB; bit < W; ++bit) {
+        const int j = W - 1 - bit;
+        const float4 ma = na, mb = nb;
+        const int next = l * W + j - 1;
+        if (next >= 0) {
+          na = *reinterpret_cast<const float4*>(g + next * 8);
+          nb = *reinterpret_cast<const float4*>(g + next * 8 + 4);
+        }
+        walk_gate<W, true>(sr, si, cr, ci, ma, mb, bit, r, slot, xbuf, xpar,
+                           strip + r * Sh::STRIDE + j * 8);
+      }
+      walk_flush<W>(strip, r, slot, mydg + l * NC);
+      if (l % k == 0) {
+        if constexpr (RY) {
+          auto xencode = [&](int bit) {
+            const int j = W - 1 - bit;
+            walk_encode<W, false>(sr, si, cr, ci, enc[j], enc[W + j], bit, r,
+                                  slot, xbuf, xpar,
+                                  strip + r * Sh::STRIDE + 2 * j);
+          };
+          if constexpr (UNROLL) {
+#pragma unroll
+            for (int bit = 0; bit < XB; ++bit) xencode(bit);
+          } else {
+#pragma unroll 1
+            for (int bit = 0; bit < XB; ++bit) xencode(bit);
+          }
+#pragma unroll
+          for (int bit = XB; bit < W; ++bit) {
+            const int j = W - 1 - bit;
+            walk_encode<W, true>(sr, si, cr, ci, enc[j], enc[W + j], bit, r,
+                                 slot, xbuf, xpar,
+                                 strip + r * Sh::STRIDE + 2 * j);
+          }
+          walk_sync<W>(slot);  // every row of the strip is written
+          if (r < 2 * W) enc_acc += walk_column<W>(strip, r);
+          walk_sync<W>(slot);
+        } else {
+#pragma unroll
+          for (int h = 0; h < A; ++h) {
+            const float p_r = phr[h], p_i = phi[h];
+            const float a = sr[h], c = si[h];
+            const float x = cr[h], y = ci[h];
+            const float spr = a * p_r + c * p_i;  // state before the phase
+            const float spi = c * p_r - a * p_i;
+            acr[h] += x * spr + y * spi;
+            aci[h] += y * spr - x * spi;
+            sr[h] = spr;
+            si[h] = spi;
+            cr[h] = x * p_r + y * p_i;
+            ci[h] = y * p_r - x * p_i;
+          }
+        }
+      }
+    }
+    if constexpr (RY) {
+      if (r < 2 * W) {
+        const int j = r >> 1;
+        ga[static_cast<size_t>((r & 1) ? W + j : j) * batch + b] = enc_acc;
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < A; ++h) {
+        const size_t at =
+            static_cast<size_t>(walk_index<W>(h, r)) * batch + b;
+        if (holds) {
+          ga[at] = acr[h];
+          gb[at] = aci[h];
+        }
+      }
+    }
+  }
+
+  // dg over the batch: this CTA's samples in increasing b, then the
+  // cluster's CTAs in rank order, read from their shared memory
+  __syncthreads();
+  const int nlive = min(samples, batch - b0);
+  for (int i = threadIdx.x; i < nd && nlive > 1; i += blockDim.x) {
+    float v = dgs[i];
+    for (int s = 1; s < nlive; ++s) v += dgs[static_cast<size_t>(s) * nd + i];
+    dgs[i] = v;
+  }
+  cluster.sync();  // every CTA's sum is whole
+  {
+    // every CTA adds a share of the entries over the live ranks, in rank
+    // order, with the ranks' loads in flight together
+    const int csize = static_cast<int>(cluster.num_blocks());
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int first = b0 - rank * samples;  // the cluster's first sample
+    const int ranks = min(csize, (batch - first + samples - 1) / samples);
+    float* dst = dg_out + static_cast<size_t>(blockIdx.x / csize) * nd;
+    const float* part[kWalkMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kWalkMaxCluster; ++q)
+      part[q] = cluster.map_shared_rank(dgs, q < ranks ? q : 0);
+    for (int i = rank * blockDim.x + threadIdx.x; i < nd;
+         i += csize * blockDim.x) {
+      float v[kWalkMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kWalkMaxCluster; ++q)
+        v[q] = q < ranks ? part[q][i] : 0.0f;
+      float sum = v[0];
+#pragma unroll
+      for (int q = 1; q < kWalkMaxCluster; ++q)
+        if (q < ranks) sum += v[q];
+      dst[i] = sum;
+    }
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+// Launches `kernel` (a walk instance) on the plan's grid: `samples` samples
+// a CTA of `threads` threads each, clusters of `cluster` CTAs, `clusters`
+// of them.
+template <typename... Params, typename... Args>
+cudaError_t launch_walk(void (*kernel)(Params...), int threads, int samples,
+                        int cluster, int clusters, size_t smem,
+                        cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * clusters);
+  cfg.blockDim = dim3(samples * threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Whether (samples, cluster, clusters) is a plan the walk takes at `wires`
+// for `batch` samples: 1..MAX_SAMPLES samples a CTA, a power of two up to 8
+// CTAs a cluster, and just enough clusters.
+inline bool walk_plan_ok(int wires, int batch, int samples, int cluster,
+                         int clusters) {
+  const int max_samples = walk_max_samples(wires);
+  const long per_cluster = static_cast<long>(samples) * cluster;
+  return wires >= 1 && wires <= 10 && batch >= 1 && samples >= 1 &&
+         samples <= max_samples && cluster >= 1 &&
+         cluster <= kWalkMaxCluster && (cluster & (cluster - 1)) == 0 &&
+         clusters == (batch + per_cluster - 1) / per_cluster;
+}
+
+}  // namespace

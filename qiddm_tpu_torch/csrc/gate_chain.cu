@@ -15,8 +15,9 @@
 // Inputs and outputs keep the JAX entry's (d, B) float32 plane layout,
 // d = 2^w, so the kernel and its plain PyTorch version take the same tensors.
 //
-// The gate update, the adjoint step with its dg reduction and the batch sum
-// of dg are shared with sel_chain.cu through chain_common.cuh.
+// The forward's gate update is shared with sel_chain.cu through
+// chain_common.cuh; the backward's walk with ry_chain.cu through
+// chain_regs.cuh.
 //
 // Forward design. One thread block per sample with max(d/2, 32) threads; the
 // sample's state (2 x d floats, 8 KB at w=10), its phase column, the k sign
@@ -33,7 +34,7 @@
 // sizes it is accepted (d*B*16 bytes per launch). Multi-sample blocks, a
 // sample-major layout and wgmma for wide states are later work.
 //
-// gate_chain_bwd_kernel replaces qiddm_tpu/sim/pallas_gate_kernel.py::
+// gate_chain_bwd_regs_kernel<w> replaces qiddm_tpu/sim/pallas_gate_kernel.py::
 // _bwd_kernel (entry _gate_chain_bwd, gate gradient from _plane_dg). Given
 // the forward output (fr, fi) and the output cotangent (gr, gi), it walks
 // the chain in reverse, l = n_layers-1 .. 0:
@@ -41,29 +42,28 @@
 //   * for j = w-1 .. 0: the adjoint gate turns the state into the gate's
 //     input; dg[l, j] pairs the output-side cotangent with that input state,
 //     dg[x, y] = (sum c_x.r s_y.r + c_x.i s_y.i, sum c_x.i s_y.r - c_x.r s_y.i)
-//     over rows whose wire bit is x (cotangent) and y (state); then the
-//     adjoint gate carries the cotangent to the gate's input;
+//     over rows whose wire bit is x (cotangent) and y (state), summed over
+//     the batch; then the adjoint gate carries the cotangent to the gate's
+//     input;
 //   * at l % k == 0, undo the phase on the state and the cotangent and add
 //     the phase gradient to (dpr, dpi).
 // No per-layer state is stored: the states are rebuilt through inverse
 // gates, as on the TPU.
 //
-// Backward design. The forward's layout: one block per sample, a thread per
-// amplitude pair, and state, cotangent, phase column, dpr/dpi accumulators
-// (8 x d floats, 32 KB at w=10), sign planes and gate scalars in shared
-// memory. A thread undoes the gate on its state pair, forms its 8 dg
-// partial products and updates its cotangent pair with no barrier in
-// between. dg sums over rows and over the batch: a warp-shuffle reduction,
-// then one across warps through shared memory (double-buffered by gate
-// parity, so one barrier per gate suffices), gives each block's partial
-// dg[b] in a (B, L*k, w, 8) workspace; dg_batch_sum_kernel then sums
-// it over b in a fixed order. No atomics: a seeded run gives the same bits
-// every time.
+// Backward design (chain_regs.cuh): a template on the width; state,
+// cotangent, phase column and its gradient in registers, a warp a sample
+// up to 7 wires (two at 8, four from 9), lane-bit partners by shuffle, dg
+// partials through a per-sample shared-memory strip summed once a layer,
+// 1-4 samples a CTA and the batch sum of dg at the end of the launch over a
+// thread-block cluster (chain_bwd_plan in sim/gate_kernel.py). No block
+// barrier a gate.
 //
 // What bounds the backward on this card. At the training shape (w=6, B=10,
 // L*k=28) the work is ~2x the forward's pair updates plus 8 products per
-// pair per gate; as for the forward, launch latency and the ~400
-// block-wide barriers bound it, and B of the 132 SMs are busy.
+// pair per gate (~5 MFLOP): ~1,000x below the float32 peak's time, and the
+// bytes are ~30 KB. The 168 gates run in a row, so a gate's latency sets
+// the time: its 2x2 arithmetic on 2 amplitudes a lane, 4 shuffles an
+// amplitude on a lane bit, 2 strip stores (chain_regs.cuh's notes).
 //
 // Plain C interface (bound with ctypes): each launch goes on the caller's
 // stream, allocates nothing, does not synchronise, and returns
@@ -74,6 +74,7 @@
 #include <cstddef>
 
 #include "chain_common.cuh"
+#include "chain_regs.cuh"
 
 namespace {
 
@@ -135,93 +136,22 @@ __global__ void gate_chain_fwd_kernel(const float* __restrict__ pr,
   }
 }
 
-__global__ void gate_chain_bwd_kernel(const float* __restrict__ pr,
-                                      const float* __restrict__ pi,
-                                      const float* __restrict__ g8,
-                                      const float* __restrict__ signs,
-                                      const float* __restrict__ fr,
-                                      const float* __restrict__ fi,
-                                      const float* __restrict__ gr,
-                                      const float* __restrict__ gi,
-                                      float* __restrict__ dg_part,
-                                      float* __restrict__ dpr,
-                                      float* __restrict__ dpi, int wires,
-                                      int batch, int n_layers, int k) {
-  extern __shared__ float smem[];
-  const int d = 1 << wires;
-  const int half = d >> 1;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int nwarps = nt >> 5;
-  float* sr = smem;            // state, real
-  float* si = sr + d;          // state, imaginary
-  float* cr = si + d;          // cotangent, real
-  float* ci = cr + d;          // cotangent, imaginary
-  float* ph_r = ci + d;        // phase column of sample b
-  float* ph_i = ph_r + d;
-  float* acc_r = ph_i + d;     // dpr[:, b] accumulator
-  float* acc_i = acc_r + d;    // dpi[:, b] accumulator
-  float* sg = acc_i + d;       // k sign planes
-  float* g = sg + k * d;       // n_layers * wires * 8 gate scalars
-  float* red = g + n_layers * wires * 8;  // 2 x nwarps x 8 warp partials
-
-  for (int i = tid; i < d; i += nt) {
-    const size_t at = static_cast<size_t>(i) * batch + b;
-    sr[i] = fr[at];
-    si[i] = fi[at];
-    cr[i] = gr[at];
-    ci[i] = gi[at];
-    ph_r[i] = pr[at];
-    ph_i[i] = pi[at];
-    acc_r[i] = 0.0f;
-    acc_i[i] = 0.0f;
-  }
-  for (int i = tid; i < k * d; i += nt) sg[i] = signs[i];
-  for (int i = tid; i < n_layers * wires * 8; i += nt) g[i] = g8[i];
-  __syncthreads();
-
-  int parity = 0;
-  for (int l = n_layers - 1; l >= 0; --l) {
-    const float* sgl = sg + (l % k) * d;
-    for (int i = tid; i < d; i += nt) {
-      sr[i] *= sgl[i];
-      si[i] *= sgl[i];
-      cr[i] *= sgl[i];
-      ci[i] *= sgl[i];
-    }
-    __syncthreads();
-    for (int j = wires - 1; j >= 0; --j) {
-      adjoint_gate_step(
-          sr, si, cr, ci, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half,
-          red + parity * nwarps * 8,
-          dg_part + (static_cast<size_t>(b) * n_layers + l) * wires * 8 +
-              j * 8);
-      parity ^= 1;
-    }
-    if (l % k == 0) {
-      for (int i = tid; i < d; i += nt) {
-        const float p_r = ph_r[i], p_i = ph_i[i];
-        const float a = sr[i], c = si[i];
-        const float x = cr[i], y = ci[i];
-        const float spr = a * p_r + c * p_i;  // state before the phase
-        const float spi = c * p_r - a * p_i;
-        acc_r[i] += x * spr + y * spi;
-        acc_i[i] += y * spr - x * spi;
-        sr[i] = spr;
-        si[i] = spi;
-        cr[i] = x * p_r + y * p_i;
-        ci[i] = y * p_r - x * p_i;
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int i = tid; i < d; i += nt) {
-    const size_t at = static_cast<size_t>(i) * batch + b;
-    dpr[at] = acc_r[i];
-    dpi[at] = acc_i[i];
-  }
+template <int W>
+__global__ void __launch_bounds__(WalkShape<W>::MAX_THREADS)
+    gate_chain_bwd_regs_kernel(const float* __restrict__ pr,
+                               const float* __restrict__ pi,
+                               const float* __restrict__ g8,
+                               const float* __restrict__ signs,
+                               const float* __restrict__ fr,
+                               const float* __restrict__ fi,
+                               const float* __restrict__ gr,
+                               const float* __restrict__ gi,
+                               float* __restrict__ dg_out,
+                               float* __restrict__ dpr,
+                               float* __restrict__ dpi, int batch,
+                               int n_layers, int k) {
+  adjoint_walk<W, false>(pr, pi, g8, signs, fr, fi, gr, gi, dg_out, dpr, dpi,
+                         batch, n_layers, k);
 }
 
 }  // namespace
@@ -254,40 +184,59 @@ int gate_chain_fwd(const void* pr, const void* pi, const void* g8,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared-memory bytes one backward block needs.
-size_t gate_chain_bwd_smem_bytes(int wires, int n_layers, int k) {
-  const size_t d = size_t{1} << wires;
-  const size_t nwarps = threads_for(wires) / 32;
-  return (8 * d + static_cast<size_t>(k) * d +
-          static_cast<size_t>(n_layers) * wires * 8 + 2 * nwarps * 8) *
+// Shared-memory bytes one backward CTA of `samples` samples needs.
+size_t gate_chain_bwd_smem_bytes(int wires, int n_layers, int k,
+                                 int samples) {
+  return walk_layout(wires, n_layers, k, samples, false).floats *
          sizeof(float);
 }
 
-// dg_part is (batch, n_layers, wires, 8) scratch; dg is (n_layers, wires, 8);
-// dpr, dpi are (d, batch).
+// dg is (n_layers, wires, 8); dpr, dpi are (d, batch). The plan (samples a
+// CTA, CTAs a cluster, clusters) is chain_bwd_plan's; with one cluster dg is
+// summed in the launch and dg_part is unused (it may be dg), else each
+// cluster's sum goes to dg_part (clusters, n_layers, wires, 8) and a second
+// launch adds them in cluster order.
 int gate_chain_bwd(const void* pr, const void* pi, const void* g8,
                    const void* signs, const void* fr, const void* fi,
                    const void* gr, const void* gi, void* dg_part, void* dg,
                    void* dpr, void* dpi, int wires, int batch, int n_layers,
-                   int k, int device, void* stream) {
+                   int k, int samples, int cluster, int clusters, int device,
+                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = gate_chain_bwd_smem_bytes(wires, n_layers, k);
-  err = allow_smem(gate_chain_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!walk_plan_ok(wires, batch, samples, cluster, clusters) || k < 1 ||
+      n_layers < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = gate_chain_bwd_smem_bytes(wires, n_layers, k, samples);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gate_chain_bwd_kernel<<<batch, threads_for(wires), smem, s>>>(
-      static_cast<const float*>(pr), static_cast<const float*>(pi),
-      static_cast<const float*>(g8), static_cast<const float*>(signs),
-      static_cast<const float*>(fr), static_cast<const float*>(fi),
-      static_cast<const float*>(gr), static_cast<const float*>(gi),
-      static_cast<float*>(dg_part), static_cast<float*>(dpr),
-      static_cast<float*>(dpi), wires, batch, n_layers, k);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  float* out = static_cast<float*>(clusters == 1 ? dg : dg_part);
+  const auto* a = static_cast<const float*>(pr);
+  const auto* b = static_cast<const float*>(pi);
+  const auto* g = static_cast<const float*>(g8);
+  const auto* sg = static_cast<const float*>(signs);
+  const auto* xr = static_cast<const float*>(fr);
+  const auto* xi = static_cast<const float*>(fi);
+  const auto* yr = static_cast<const float*>(gr);
+  const auto* yi = static_cast<const float*>(gi);
+  auto* ga = static_cast<float*>(dpr);
+  auto* gb = static_cast<float*>(dpi);
+  switch (wires) {
+#define WALK_CASE(W)                                                       \
+  case W:                                                                  \
+    err = launch_walk(gate_chain_bwd_regs_kernel<W>, WalkShape<W>::T,      \
+                      samples, cluster, clusters, smem, s, a, b, g, sg, xr, \
+                      xi, yr, yi, out, ga, gb, batch, n_layers, k);        \
+    break;
+    WALK_CASE(1) WALK_CASE(2) WALK_CASE(3) WALK_CASE(4) WALK_CASE(5)
+    WALK_CASE(6) WALK_CASE(7) WALK_CASE(8) WALK_CASE(9) WALK_CASE(10)
+#undef WALK_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || clusters == 1) return static_cast<int>(err);
   return static_cast<int>(launch_dg_batch_sum(
       static_cast<const float*>(dg_part), static_cast<float*>(dg),
-      n_layers * wires * 8, batch, s));
+      n_layers * wires * 8, clusters, s));
 }
 
 const char* gate_chain_error_string(int code) {

@@ -29,28 +29,39 @@
 // lane-broadcast (1, B) coefficient rows and its concatenation of dcs rows
 // exist for Mosaic's layout and have no counterpart here.
 //
-// ry_chain_bwd_kernel replaces qiddm_tpu/sim/pallas_gate_kernel.py::
+// ry_chain_bwd_regs_kernel<w> replaces qiddm_tpu/sim/pallas_gate_kernel.py::
 // _ry_bwd_kernel (entry _ry_chain_bwd). Given the forward output (fr, fi)
 // and the output cotangent (gr, gi) it walks the chain in reverse, l =
 // n_layers-1 .. 0, as gate_chain.cu's backward does (signs, then the
-// adjoint step of each rotation, j = w-1 .. 0, with dg[l, j] into the
-// per-sample workspace), and at l % k == 0 un-encodes: for j = w-1 .. 0 the
-// adjoint step of the encode gate, RY(-x_j), turns the state into the
-// encode's input and carries the cotangent back; its 8-scalar dg gives the
-// sample's encode gradient
+// adjoint step of each rotation, j = w-1 .. 0, with dg[l, j] summed over
+// the batch), and at l % k == 0 un-encodes: for j = w-1 .. 0 the adjoint
+// step of the encode gate, RY(-x_j), turns the state into the encode's
+// input and carries the cotangent back; its dg gives the sample's encode
+// gradient
 //   dc_j = dg[0] + dg[6]  (g00r + g11r),  ds_j = dg[4] - dg[2]  (g10r - g01r),
-// which thread j adds into registers over the L re-uploads and writes to
-// dcs[j, b] and dcs[w + j, b] at the end. These sums are per sample: no
-// batch reduction. The rotations' dg is summed over the batch by
-// dg_batch_sum_kernel in a fixed order; no atomics, so two calls give the
-// same bits.
+// summed over the L re-uploads into dcs[j, b] and dcs[w + j, b]. These sums
+// are per sample: no batch reduction.
+//
+// Backward design: gate_chain.cu's walk (chain_regs.cuh) with the RY
+// un-encode in place of the phase: state and cotangent in registers, a
+// warp a sample up to 7 wires (two at 8); each encode gate is a real 2x2
+// update of a thread's pairs, and its (dc, ds) partials go through the
+// sample's shared-memory strip, summed once a re-upload by thread 2j
+// (dc_j) and 2j + 1 (ds_j), which carry them in a register to the end.
+// dg's batch sum ends in the launch for a batch that one cluster holds; no
+// atomics, so two calls give the same bits.
 //
 // What bounds these kernels on this card. At QIDDM_PL_noise1's shape (w=8,
 // L*k=12, B=10 in training, 16 in sampling) the forward does ~120 gate
 // updates of 128 amplitude pairs per sample (~2.6 MFLOP at B=10) and moves
 // ~40 KB: at the card's peaks that is well under a microsecond. What sets
-// the time is the launch, the chain of block-wide barriers (one per gate:
-// ~150 forward, ~200 backward) and that only B of the 132 SMs get a block.
+// the forward's time is the launch, the chain of block-wide barriers (one
+// per gate, ~150) and that only B of the 132 SMs get a block. The
+// backward's 96 rotation and 48 encode steps run in a row, so their
+// latency sets its time: at 8 wires two warps a sample, 4 amplitudes a
+// thread, 2 of 8 wires on register bits (no exchange), 5 on lane bits (4
+// shuffles an amplitude) and 1 on the warp bit (through shared memory),
+// and the sample's barriers twice a layer and once an exchange.
 //
 // Plain C interface (bound with ctypes): each launch goes on the caller's
 // stream, allocates nothing, does not synchronise, and returns
@@ -61,6 +72,7 @@
 #include <cstddef>
 
 #include "chain_common.cuh"
+#include "chain_regs.cuh"
 
 namespace {
 
@@ -135,85 +147,20 @@ __global__ void ry_chain_fwd_kernel(const float* __restrict__ cs,
   }
 }
 
-__global__ void ry_chain_bwd_kernel(const float* __restrict__ cs,
-                                    const float* __restrict__ g8,
-                                    const float* __restrict__ signs,
-                                    const float* __restrict__ fr,
-                                    const float* __restrict__ fi,
-                                    const float* __restrict__ gr,
-                                    const float* __restrict__ gi,
-                                    float* __restrict__ dg_part,
-                                    float* __restrict__ dcs, int wires,
-                                    int batch, int n_layers, int k) {
-  extern __shared__ float smem[];
-  const int d = 1 << wires;
-  const int half = d >> 1;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int nwarps = nt >> 5;
-  float* sr = smem;                 // state, real
-  float* si = sr + d;               // state, imaginary
-  float* cr = si + d;               // cotangent, real
-  float* ci = cr + d;               // cotangent, imaginary
-  float* enc = ci + d;              // wires x 8: the sample's encode gates
-  float* enc_dg = enc + wires * 8;  // wires x 8: their dg in one re-upload
-  float* sg = enc_dg + wires * 8;   // k sign planes
-  float* g = sg + k * d;            // n_layers * wires * 8 gate scalars
-  float* red = g + n_layers * wires * 8;  // 2 x nwarps x 8 warp partials
-
-  for (int i = tid; i < d; i += nt) {
-    const size_t at = static_cast<size_t>(i) * batch + b;
-    sr[i] = fr[at];
-    si[i] = fi[at];
-    cr[i] = gr[at];
-    ci[i] = gi[at];
-  }
-  load_encode_gates(cs, enc, wires, batch, b);
-  for (int i = tid; i < k * d; i += nt) sg[i] = signs[i];
-  for (int i = tid; i < n_layers * wires * 8; i += nt) g[i] = g8[i];
-  __syncthreads();
-
-  // thread j < wires carries (dc_j, ds_j) of this sample over the re-uploads
-  float dc = 0.0f;
-  float ds = 0.0f;
-  int parity = 0;
-  for (int l = n_layers - 1; l >= 0; --l) {
-    const float* sgl = sg + (l % k) * d;
-    for (int i = tid; i < d; i += nt) {
-      sr[i] *= sgl[i];
-      si[i] *= sgl[i];
-      cr[i] *= sgl[i];
-      ci[i] *= sgl[i];
-    }
-    __syncthreads();
-    for (int j = wires - 1; j >= 0; --j) {
-      adjoint_gate_step(
-          sr, si, cr, ci, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half,
-          red + parity * nwarps * 8,
-          dg_part + (static_cast<size_t>(b) * n_layers + l) * wires * 8 +
-              j * 8);
-      parity ^= 1;
-    }
-    if (l % k == 0) {
-      for (int j = wires - 1; j >= 0; --j) {
-        adjoint_gate_step(sr, si, cr, ci, enc + j * 8, 1 << (wires - 1 - j),
-                          half, red + parity * nwarps * 8, enc_dg + j * 8);
-        parity ^= 1;
-      }
-      __syncthreads();  // threads 0..7 wrote enc_dg after the last barrier
-      if (tid < wires) {
-        const float* e = enc_dg + tid * 8;
-        dc += e[0] + e[6];
-        ds += e[4] - e[2];
-      }
-    }
-  }
-
-  if (tid < wires) {
-    dcs[static_cast<size_t>(tid) * batch + b] = dc;
-    dcs[static_cast<size_t>(wires + tid) * batch + b] = ds;
-  }
+template <int W>
+__global__ void __launch_bounds__(WalkShape<W>::MAX_THREADS)
+    ry_chain_bwd_regs_kernel(const float* __restrict__ cs,
+                             const float* __restrict__ g8,
+                             const float* __restrict__ signs,
+                             const float* __restrict__ fr,
+                             const float* __restrict__ fi,
+                             const float* __restrict__ gr,
+                             const float* __restrict__ gi,
+                             float* __restrict__ dg_out,
+                             float* __restrict__ dcs, int batch, int n_layers,
+                             int k) {
+  adjoint_walk<W, true>(cs, nullptr, g8, signs, fr, fi, gr, gi, dg_out, dcs,
+                        nullptr, batch, n_layers, k);
 }
 
 }  // namespace
@@ -247,39 +194,54 @@ int ry_chain_fwd(const void* cs, const void* g8, const void* signs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared-memory bytes one backward block needs.
-size_t ry_chain_bwd_smem_bytes(int wires, int n_layers, int k) {
-  const size_t d = size_t{1} << wires;
-  const size_t nwarps = threads_for(wires) / 32;
-  return (4 * d + static_cast<size_t>(wires) * 16 +
-          static_cast<size_t>(k) * d +
-          static_cast<size_t>(n_layers) * wires * 8 + 2 * nwarps * 8) *
+// Shared-memory bytes one backward CTA of `samples` samples needs.
+size_t ry_chain_bwd_smem_bytes(int wires, int n_layers, int k, int samples) {
+  return walk_layout(wires, n_layers, k, samples, true).floats *
          sizeof(float);
 }
 
-// dg_part is (batch, n_layers, wires, 8) scratch; dg is (n_layers, wires, 8);
-// dcs is (2 * wires, batch).
+// dg is (n_layers, wires, 8); dcs is (2 * wires, batch). The plan and
+// dg_part as for gate_chain_bwd: with one cluster dg is summed in the
+// launch, else each cluster's sum goes to dg_part (clusters, n_layers,
+// wires, 8) and a second launch adds them in cluster order.
 int ry_chain_bwd(const void* cs, const void* g8, const void* signs,
                  const void* fr, const void* fi, const void* gr,
                  const void* gi, void* dg_part, void* dg, void* dcs, int wires,
-                 int batch, int n_layers, int k, int device, void* stream) {
+                 int batch, int n_layers, int k, int samples, int cluster,
+                 int clusters, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = ry_chain_bwd_smem_bytes(wires, n_layers, k);
-  err = allow_smem(ry_chain_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!walk_plan_ok(wires, batch, samples, cluster, clusters) || k < 1 ||
+      n_layers < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ry_chain_bwd_smem_bytes(wires, n_layers, k, samples);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ry_chain_bwd_kernel<<<batch, threads_for(wires), smem, s>>>(
-      static_cast<const float*>(cs), static_cast<const float*>(g8),
-      static_cast<const float*>(signs), static_cast<const float*>(fr),
-      static_cast<const float*>(fi), static_cast<const float*>(gr),
-      static_cast<const float*>(gi), static_cast<float*>(dg_part),
-      static_cast<float*>(dcs), wires, batch, n_layers, k);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  float* out = static_cast<float*>(clusters == 1 ? dg : dg_part);
+  const auto* c = static_cast<const float*>(cs);
+  const auto* g = static_cast<const float*>(g8);
+  const auto* sg = static_cast<const float*>(signs);
+  const auto* xr = static_cast<const float*>(fr);
+  const auto* xi = static_cast<const float*>(fi);
+  const auto* yr = static_cast<const float*>(gr);
+  const auto* yi = static_cast<const float*>(gi);
+  auto* ga = static_cast<float*>(dcs);
+  switch (wires) {
+#define WALK_CASE(W)                                                       \
+  case W:                                                                  \
+    err = launch_walk(ry_chain_bwd_regs_kernel<W>, WalkShape<W>::T,        \
+                      samples, cluster, clusters, smem, s, c, g, sg, xr,   \
+                      xi, yr, yi, out, ga, batch, n_layers, k);            \
+    break;
+    WALK_CASE(1) WALK_CASE(2) WALK_CASE(3) WALK_CASE(4) WALK_CASE(5)
+    WALK_CASE(6) WALK_CASE(7) WALK_CASE(8) WALK_CASE(9) WALK_CASE(10)
+#undef WALK_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || clusters == 1) return static_cast<int>(err);
   return static_cast<int>(launch_dg_batch_sum(
       static_cast<const float*>(dg_part), static_cast<float*>(dg),
-      n_layers * wires * 8, batch, s));
+      n_layers * wires * 8, clusters, s));
 }
 
 }  // extern "C"

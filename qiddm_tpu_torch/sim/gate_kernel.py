@@ -34,6 +34,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,9 +45,11 @@ from .sel import cz_ring_signs, sel_ranges
 
 # Kernel launches since the last reset, forward and backward; chip_smoke.py
 # reads them to show that the sampling and training paths went through the
-# kernels.
+# kernels. BWD_BATCH_SUMS counts the backward calls whose batch did not fit
+# one cluster (chain_bwd_plan), so that a second launch summed dg.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_BATCH_SUMS = 0
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # compiled together into one library; the headers are hashed, not compiled
@@ -55,7 +58,8 @@ _SOURCES = (_CSRC / "gate_chain.cu", _CSRC / "sel_chain.cu",
             _CSRC / "amp_damp.cu", _CSRC / "wide_chain.cu",
             _CSRC / "wide_mono.cu", _CSRC / "unitary_chain.cu",
             _CSRC / "probes.cu")
-_HEADERS = (_CSRC / "chain_common.cuh", _CSRC / "wide_common.cuh")
+_HEADERS = (_CSRC / "chain_common.cuh", _CSRC / "chain_regs.cuh",
+            _CSRC / "wide_common.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "qiddm_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -189,6 +193,49 @@ def gate_chain_bwd_plain(pr, pi, g8, signs, fr, fi, gr, gi, k: int,
     return dpr, dpi, torch.stack([torch.stack(row) for row in dg])
 
 
+# --- the backward kernels' launch plan --------------------------------------
+
+# CTAs a thread-block cluster (portable)
+_WALK_MAX_CLUSTER = 8
+
+
+class ChainBwdPlan(NamedTuple):
+    """How the backward kernels #2 and #4 (``csrc/chain_regs.cuh``) lay out
+    a call: ``warps`` warps a sample, ``samples`` samples a CTA,
+    ``cluster`` CTAs a thread-block cluster, ``clusters`` clusters in the
+    grid (``grid`` CTAs of ``threads`` threads), and whether dg's batch sum
+    ends in the launch (one cluster) or a second launch adds the clusters'
+    sums in order."""
+    warps: int
+    samples: int
+    cluster: int
+    clusters: int
+    grid: int
+    threads: int
+    in_launch: bool
+
+
+def chain_bwd_plan(wires: int, batch: int) -> ChainBwdPlan:
+    """The backward walk's layout for ``batch`` samples at ``wires`` wires,
+    from the shape alone: a warp a sample up to 7 wires, 2 at 8, 4 from 9.
+    A cluster of up to 8 CTAs holds the batch when it can (32 samples, 16
+    from 8 wires): as few samples a CTA as spread it over 8 CTAs. A larger
+    batch takes one sample a CTA, 8 CTAs a cluster, and the clusters' dg
+    sums are added by a second launch."""
+    if not 1 <= wires <= _config.KERNEL_MAX_WIRES or batch < 1:
+        raise ValueError(f"no backward plan for {wires} wires, batch {batch}")
+    # as chain_regs.cuh's walk_warps and walk_max_samples
+    warps = 1 if wires < 8 else 2 if wires == 8 else 4
+    max_samples = 4 if wires < 8 else 2
+    cluster = min(_WALK_MAX_CLUSTER, 1 << (batch - 1).bit_length())
+    samples = -(-batch // cluster)
+    if samples > max_samples:
+        samples = 1
+    clusters = -(-batch // (samples * cluster))
+    return ChainBwdPlan(warps, samples, cluster, clusters, cluster * clusters,
+                        32 * warps * samples, clusters == 1)
+
+
 # --- CUDA kernel -------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -253,13 +300,13 @@ def _library():
                                        + [ctypes.c_void_p])
         lib.gate_chain_fwd.restype = ctypes.c_int
         lib.gate_chain_bwd.argtypes = ([ctypes.c_void_p] * 12
-                                       + [ctypes.c_int] * 5
+                                       + [ctypes.c_int] * 8
                                        + [ctypes.c_void_p])
         lib.gate_chain_bwd.restype = ctypes.c_int
-        for fn in (lib.gate_chain_fwd_smem_bytes,
-                   lib.gate_chain_bwd_smem_bytes):
-            fn.argtypes = [ctypes.c_int] * 3
-            fn.restype = ctypes.c_size_t
+        lib.gate_chain_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.gate_chain_fwd_smem_bytes.restype = ctypes.c_size_t
+        lib.gate_chain_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.gate_chain_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.sel_chain_fwd.argtypes = ([ctypes.c_void_p] * 6
                                       + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p])
@@ -283,12 +330,13 @@ def _library():
                                      + [ctypes.c_void_p])
         lib.ry_chain_fwd.restype = ctypes.c_int
         lib.ry_chain_bwd.argtypes = ([ctypes.c_void_p] * 10
-                                     + [ctypes.c_int] * 5
+                                     + [ctypes.c_int] * 8
                                      + [ctypes.c_void_p])
         lib.ry_chain_bwd.restype = ctypes.c_int
-        for fn in (lib.ry_chain_fwd_smem_bytes, lib.ry_chain_bwd_smem_bytes):
-            fn.argtypes = [ctypes.c_int] * 3
-            fn.restype = ctypes.c_size_t
+        lib.ry_chain_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.ry_chain_fwd_smem_bytes.restype = ctypes.c_size_t
+        lib.ry_chain_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.ry_chain_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.dm_chain_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
                                      + [ctypes.c_void_p] + [ctypes.c_int] * 9
                                      + [ctypes.c_void_p])
@@ -399,19 +447,22 @@ def _gate_chain_cuda(pr, pi, g8, signs, k: int, wires: int):
 
 def _gate_chain_bwd_cuda(pr, pi, g8, signs, fr, fi, gr, gi, k: int,
                          wires: int):
-    """Launch the backward kernel (and its fixed-order batch sum of dg) on
-    PyTorch's current stream; returns new (dpr, dpi, dg) as
+    """Launch the backward kernel on PyTorch's current stream, laid out by
+    :func:`chain_bwd_plan` (and, for a batch larger than one cluster, the
+    fixed-order sum of the clusters' dg); returns new (dpr, dpi, dg) as
     :func:`gate_chain_bwd_plain` does."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_BATCH_SUMS
     d, B, n_layers = _check_cuda_inputs(
         "gate-chain backward kernel", (pr, pi, fr, fi, gr, gi), g8, signs,
         (k, 2**wires, 1), wires)
     lib = _library()
-    _check_smem(lib.gate_chain_bwd_smem_bytes(wires, n_layers, k), n_layers,
-                wires)
-    dg_part = torch.empty((B, n_layers, wires, 8), dtype=torch.float32,
-                          device=pr.device)
+    plan = chain_bwd_plan(wires, B)
+    _check_smem(lib.gate_chain_bwd_smem_bytes(wires, n_layers, k,
+                                              plan.samples), n_layers, wires)
     dg = torch.empty_like(g8)
+    dg_part = dg if plan.in_launch else torch.empty(
+        (plan.clusters, n_layers, wires, 8), dtype=torch.float32,
+        device=pr.device)
     dpr = torch.empty_like(pr)
     dpi = torch.empty_like(pi)
     stream = torch.cuda.current_stream(pr.device).cuda_stream
@@ -419,9 +470,13 @@ def _gate_chain_bwd_cuda(pr, pi, g8, signs, fr, fi, gr, gi, k: int,
                              signs.data_ptr(), fr.data_ptr(), fi.data_ptr(),
                              gr.data_ptr(), gi.data_ptr(), dg_part.data_ptr(),
                              dg.data_ptr(), dpr.data_ptr(), dpi.data_ptr(),
-                             wires, B, n_layers, k, pr.device.index, stream)
+                             wires, B, n_layers, k, plan.samples,
+                             plan.cluster, plan.clusters, pr.device.index,
+                             stream)
     _raise_on(err, lib, "gate-chain backward kernel")
     BWD_LAUNCHES += 1
+    if not plan.in_launch:
+        BWD_BATCH_SUMS += 1
     return dpr, dpi, dg
 
 

@@ -24,12 +24,15 @@ from torch.autograd.function import once_differentiable
 
 from . import gate_kernel as _gk
 from .gate_kernel import (_ADJ_ORDER, _ADJ_SIGNS, _gate_apply, _plane_dg,
-                          _sign_planes_on, _to_g8)
+                          _sign_planes_on, _to_g8, chain_bwd_plan)
 
 # Kernel launches since the last reset, forward and backward; chip_smoke.py
 # reads them to show that the QIDDM_PL_noise1 paths went through the kernels.
+# RY_BWD_BATCH_SUMS counts the backward calls whose batch did not fit one
+# cluster (gate_kernel.chain_bwd_plan), so that a second launch summed dg.
 RY_LAUNCHES = 0
 RY_BWD_LAUNCHES = 0
+RY_BWD_BATCH_SUMS = 0
 
 
 def ry_cs(angles: torch.Tensor) -> torch.Tensor:
@@ -152,10 +155,11 @@ def _ry_chain_cuda(cs, g8, signs, k: int, wires: int):
 
 
 def _ry_chain_bwd_cuda(cs, g8, signs, fr, fi, gr, gi, k: int, wires: int):
-    """Launch the backward kernel (and its fixed-order batch sum of dg) on
-    PyTorch's current stream; returns new (dcs, dg) as
-    :func:`ry_chain_bwd_plain` does."""
-    global RY_BWD_LAUNCHES
+    """Launch the backward kernel on PyTorch's current stream, laid out by
+    ``gate_kernel.chain_bwd_plan`` (and, for a batch larger than one
+    cluster, the fixed-order sum of the clusters' dg); returns new (dcs, dg)
+    as :func:`ry_chain_bwd_plain` does."""
+    global RY_BWD_LAUNCHES, RY_BWD_BATCH_SUMS
     what = "RY-chain backward kernel"
     _, B, n_layers = _gk._check_cuda_inputs(
         what, (fr, fi, gr, gi), g8, signs, (k, 2**wires, 1), wires)
@@ -165,20 +169,26 @@ def _ry_chain_bwd_cuda(cs, g8, signs, fr, fi, gr, gi, k: int, wires: int):
         raise ValueError(f"{what}: cs {tuple(cs.shape)} on {cs.device} does "
                          f"not fit planes of batch {B} on {fr.device}")
     lib = _gk._library()
-    _gk._check_smem(lib.ry_chain_bwd_smem_bytes(wires, n_layers, k),
+    plan = chain_bwd_plan(wires, B)
+    _gk._check_smem(lib.ry_chain_bwd_smem_bytes(wires, n_layers, k,
+                                                plan.samples),
                     n_layers, wires)
-    dg_part = torch.empty((B, n_layers, wires, 8), dtype=torch.float32,
-                          device=cs.device)
     dg = torch.empty_like(g8)
+    dg_part = dg if plan.in_launch else torch.empty(
+        (plan.clusters, n_layers, wires, 8), dtype=torch.float32,
+        device=cs.device)
     dcs = torch.empty_like(cs)
     stream = torch.cuda.current_stream(cs.device).cuda_stream
     err = lib.ry_chain_bwd(cs.data_ptr(), g8.data_ptr(), signs.data_ptr(),
                            fr.data_ptr(), fi.data_ptr(), gr.data_ptr(),
                            gi.data_ptr(), dg_part.data_ptr(), dg.data_ptr(),
                            dcs.data_ptr(), wires, B, n_layers, k,
+                           plan.samples, plan.cluster, plan.clusters,
                            cs.device.index, stream)
     _gk._raise_on(err, lib, what)
     RY_BWD_LAUNCHES += 1
+    if not plan.in_launch:
+        RY_BWD_BATCH_SUMS += 1
     return dcs, dg
 
 

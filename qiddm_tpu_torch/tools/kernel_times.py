@@ -1,18 +1,21 @@
-"""Device times of the amplitude-damping pass (#7) and the unitary-streaming
-chain's forward (#13) at the shapes their kernels are measured at, through
-the public entries ``amp_damp_kernel.amp_damp`` and
-``unitary_kernel.unitary_chain_planes``; beside #13, its library
-formulation (one complex64 ``torch.matmul`` a layer with the phase
-multiplies, cuBLAS with TF32 off).
+"""Device times of the amplitude-damping pass (#7), the unitary-streaming
+chain's forward (#13) and the gate chains' adjoint walks (#2, #4) at the
+shapes their kernels are measured at, through the entries
+``amp_damp_kernel.amp_damp``, ``unitary_kernel.unitary_chain_planes``,
+``gate_kernel._gate_chain_bwd_cuda`` and ``ry_kernel._ry_chain_bwd_cuda``;
+beside #13, its library formulation (one complex64 ``torch.matmul`` a layer
+with the phase multiplies, cuBLAS with TF32 off).
 
 Each time is the median of 20 calls, CUDA events around each call behind a
 spin kernel (``common.median_ms``): the device's time, without the host's
 enqueue, but with the launch's own latency (~5 us: a kernel that does
 nothing reads so). Beside it, each kernel's own duration, the median of
 its 20 launches' device records under ``torch.profiler`` (CUPTI), which
-holds neither. The entries and their arguments are the same in earlier
-checkouts of the port, so the same script times another checkout's
-kernels when that checkout comes first on the path:
+holds neither; for #2 and #4 also the device time of all the kernels of a
+call (a call may end in a second launch that sums dg over the batch). The
+entries and their arguments are the same in earlier checkouts of the port,
+so the same script times another checkout's kernels when that checkout
+comes first on the path:
 
     python -m qiddm_tpu_torch.tools.kernel_times
     PYTHONPATH=<other checkout> python3 qiddm_tpu_torch/tools/kernel_times.py
@@ -34,7 +37,9 @@ import numpy as np
 import torch
 
 import qiddm_tpu_torch
-from qiddm_tpu_torch.sim import amp_damp_kernel, unitary_kernel
+from qiddm_tpu_torch.sim import (amp_damp_kernel, gate_kernel, ry_kernel,
+                                 unitary_kernel)
+from qiddm_tpu_torch.sim.gates import rot_matrix
 from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
 from qiddm_tpu_torch.sim.statevector import rz_phase_planes
 from qiddm_tpu_torch.tools import common
@@ -46,6 +51,12 @@ AMP_STRENGTH = 0.05
 # (wires, batch, L, k): the CNOT-ring route's widest block and
 # QIDDM_LL_noise 784 6 14 2's width, L*k = 28
 UNITARY_SHAPES = ((8, 80, 14, 2), (6, 16, 14, 2))
+# (wires, batch, L*k, k) of #2: QIDDM_LL_noise 784 6 14 2's training step
+# (1 image x tau 10), the sampling batch, and QIDDM-A's 10 wires x 80 rows
+GATE_BWD_SHAPES = ((6, 10, 28, 2), (6, 16, 28, 2), (10, 80, 28, 2))
+# of #4: QIDDM_PL_noise1 784 8 6 2's training step and the JAX package's
+# A/B shape
+RY_BWD_SHAPES = ((8, 10, 12, 2), (6, 11, 28, 2))
 
 
 def _library_unitary(p, us, k: int):
@@ -77,20 +88,59 @@ def profiled_ms(fn, kernel: str, reps: int = 20) -> float | None:
     return float(np.median(durations)) / 1e3 if durations else None
 
 
+def profiled_call_ms(fn, reps: int = 20) -> float | None:
+    """The device time of all the kernels one ``fn()`` launches, in ms:
+    their durations under torch.profiler summed over ``reps`` calls, over
+    ``reps``; None when the profiler kept no device record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durations = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(durations) / reps / 1e3 if durations else None
+
+
+def _bwd_planes(rng, wires: int, batch: int, n_layers: int, k: int,
+                device):
+    """Gates, sign planes and N(0, 1) cotangents of one backward call:
+    (g8, signs, gr, gi)."""
+    ang = torch.as_tensor(rng.normal(size=(n_layers, wires, 3)),
+                          dtype=torch.float32, device=device)
+    g8 = gate_kernel._to_g8(rot_matrix(ang[..., 0], ang[..., 1],
+                                       ang[..., 2]))
+    signs = gate_kernel._sign_planes_on(k, wires, device)
+    gr, gi = (torch.as_tensor(rng.normal(size=(2**wires, batch)),
+                              dtype=torch.float32, device=device)
+              for _ in range(2))
+    return g8, signs, gr, gi
+
+
 def measure(device: torch.device, seed: int = 0) -> dict:
-    """{name: median ms} for every case of ``AMP_SHAPES`` and
-    ``UNITARY_SHAPES``, the kernels' profiled durations on the card, and
-    the launch counts."""
+    """{name: median ms} for every case of ``AMP_SHAPES``,
+    ``UNITARY_SHAPES``, ``GATE_BWD_SHAPES`` and ``RY_BWD_SHAPES``, the
+    kernels' profiled durations on the card (for #2 and #4 also a call's
+    device time over all its kernels), and the launch counts."""
     rng = np.random.default_rng(seed)
     times, kernels = {}, {}
 
-    def timed(name, fn, kernel=None):
+    calls = {}
+
+    def timed(name, fn, kernel=None, call=False):
         times[name] = common.median_ms(fn, device)
         if kernel is not None and device.type == "cuda":
             kernels[name] = profiled_ms(fn, kernel)
+        if call and device.type == "cuda":
+            calls[name] = profiled_call_ms(fn)
 
+    cuda = device.type == "cuda"
     amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
     unitary_kernel.UNITARY_LAUNCHES = 0
+    gate_kernel.BWD_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
     with torch.no_grad():
         for w, n in AMP_SHAPES:
             st = rng.normal(size=(n, 2**w)) + 1j * rng.normal(size=(n, 2**w))
@@ -119,9 +169,33 @@ def measure(device: torch.device, seed: int = 0) -> dict:
             p = torch.complex(pr, pi)
             timed(f"library_unitary {key}",
                   lambda: _library_unitary(p, lus, k))
-    return {"times_ms": times, "kernel_ms": kernels,
+        for w, b, n, k in GATE_BWD_SHAPES:
+            g8, signs, gr, gi = _bwd_planes(rng, w, b, n, k, device)
+            x = torch.as_tensor(rng.normal(size=(2**w, b)),
+                                dtype=torch.float32, device=device)
+            pr, pi = torch.cos(x), torch.sin(x)
+            fr, fi = gate_kernel._chain_plain(pr, pi, g8, signs, k, w)
+            args = (pr, pi, g8, signs, fr, fi, gr, gi, k, w)
+            bwd = (gate_kernel._gate_chain_bwd_cuda if cuda
+                   else gate_kernel.gate_chain_bwd_plain)
+            timed(f"gate_chain_bwd w={w} B={b} L*k={n}", lambda: bwd(*args),
+                  "gate_chain_bwd", call=True)
+        for w, b, n, k in RY_BWD_SHAPES:
+            g8, signs, gr, gi = _bwd_planes(rng, w, b, n, k, device)
+            cs = ry_kernel.ry_cs(torch.as_tensor(
+                2 * rng.normal(size=(b, w)), dtype=torch.float32,
+                device=device))
+            fr, fi = ry_kernel._ry_plain(cs, g8, signs, k, w)
+            args = (cs, g8, signs, fr, fi, gr, gi, k, w)
+            bwd = (ry_kernel._ry_chain_bwd_cuda if cuda
+                   else ry_kernel.ry_chain_bwd_plain)
+            timed(f"ry_chain_bwd w={w} B={b} L*k={n}", lambda: bwd(*args),
+                  "ry_chain_bwd", call=True)
+    return {"times_ms": times, "kernel_ms": kernels, "call_device_ms": calls,
             "launches": {"amp_damp": amp_damp_kernel.AMP_DAMP_LAUNCHES,
-                         "unitary": unitary_kernel.UNITARY_LAUNCHES}}
+                         "unitary": unitary_kernel.UNITARY_LAUNCHES,
+                         "gate_bwd": gate_kernel.BWD_LAUNCHES,
+                         "ry_bwd": ry_kernel.RY_BWD_LAUNCHES}}
 
 
 def main(argv=None) -> dict:

@@ -27,6 +27,15 @@ TOL = 1e-5
 
 CASES = [(1, 3, 2, 2), (4, 6, 3, 2), (6, 16, 14, 2), (6, 5, 3, 3),
          (8, 11, 2, 2)]
+# the backward's launch plan at its edges (gate_kernel.chain_bwd_plan): a
+# batch of one, the largest cluster of 1 sample a CTA and the first of 2,
+# the largest batch one cluster holds (32 samples, 16 at 10 wires) and the
+# first that takes a second launch, at every width class of the layout
+# (lanes only, register bits, the widest warp, four warps a sample)
+PLAN_EDGES = [(1, 1, 2, 2), (3, 8, 2, 2), (3, 9, 2, 2), (5, 32, 2, 2),
+              (5, 33, 2, 2), (6, 10, 14, 2), (7, 31, 2, 2), (9, 32, 2, 2),
+              (9, 33, 2, 2), (10, 1, 2, 2), (10, 15, 2, 2), (10, 16, 2, 2),
+              (10, 17, 2, 2)]
 
 
 def _inputs(w, B, L, k, seed=0):
@@ -233,12 +242,14 @@ def test_kernel_matches_plain_on_card(cuda, w, B, L, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,B,L,k", CASES + [(10, 80, 14, 2)])
+@pytest.mark.parametrize("w,B,L,k", CASES + [(10, 80, 14, 2)] + PLAN_EDGES)
 def test_bwd_kernel_matches_plain_on_card(cuda, w, B, L, k):
     args, _ = _bwd_args(w, B, L, k, cuda)
-    before = gate_kernel.BWD_LAUNCHES
+    before = (gate_kernel.BWD_LAUNCHES, gate_kernel.BWD_BATCH_SUMS)
     got = gate_kernel._gate_chain_bwd_cuda(*args, k, w)
-    assert gate_kernel.BWD_LAUNCHES == before + 1
+    in_launch = gate_kernel.chain_bwd_plan(w, B).in_launch
+    assert (gate_kernel.BWD_LAUNCHES, gate_kernel.BWD_BATCH_SUMS) == (
+        before[0] + 1, before[1] + (not in_launch))
     want = gate_kernel.gate_chain_bwd_plain(*args, k, w)
     torch.cuda.synchronize()
     for g, w_ in zip(got, want):

@@ -33,6 +33,11 @@ CASES = [(1, 1, 2, 2), (1, 5, 4, 3), (3, 5, 2, 2), (3, 1, 4, 3), (6, 5, 6, 2),
 # sampling batch 16), the widest, and the JAX package's A/B shape
 CARD_CASES = CASES + [(8, 10, 6, 2), (8, 16, 6, 2), (10, 80, 14, 2),
                       (6, 11, 14, 2)]
+# the backward's launch plan at its edges (gate_kernel.chain_bwd_plan), as
+# in tests/test_torch_gate_kernel.py
+PLAN_EDGES = [(1, 1, 2, 2), (3, 8, 2, 2), (3, 9, 2, 2), (5, 32, 2, 2),
+              (5, 33, 2, 2), (7, 31, 2, 2), (8, 32, 2, 2), (9, 33, 2, 2),
+              (10, 1, 2, 2), (10, 15, 2, 2), (10, 16, 2, 2), (10, 17, 2, 2)]
 
 
 def _inputs(w, B, L, k, seed=0):
@@ -235,12 +240,14 @@ def test_kernel_matches_plain_on_card(cuda, w, B, L, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,B,L,k", CARD_CASES)
+@pytest.mark.parametrize("w,B,L,k", CARD_CASES + PLAN_EDGES)
 def test_bwd_kernel_matches_plain_on_card(cuda, w, B, L, k):
     args, _ = _bwd_args(w, B, L, k, cuda)
-    before = ry_kernel.RY_BWD_LAUNCHES
+    before = (ry_kernel.RY_BWD_LAUNCHES, ry_kernel.RY_BWD_BATCH_SUMS)
     got = ry_kernel._ry_chain_bwd_cuda(*args, k, w)
-    assert ry_kernel.RY_BWD_LAUNCHES == before + 1
+    in_launch = gate_kernel.chain_bwd_plan(w, B).in_launch
+    assert (ry_kernel.RY_BWD_LAUNCHES, ry_kernel.RY_BWD_BATCH_SUMS) == (
+        before[0] + 1, before[1] + (not in_launch))
     want = ry_kernel.ry_chain_bwd_plain(*args, k, w)
     torch.cuda.synchronize()
     for g, w_ in zip(got, want):
