@@ -19,8 +19,11 @@ any failure exits non-zero and no phase's failure is caught:
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
    PyTorch version on the card, at w in {1, 4, 6, 8, 10} x B in
-   {1, 16, 80} (L*k = 28, k = 2) and (w=6, B=16, L*k=42, k=3),
-   max |diff| <= 1e-5;
+   {1, 16, 80} (L*k = 28, k = 2), (w=6, B=16, L*k=42, k=3) and the edges
+   of its launch plan (FWD_PLAN_EDGES at L*k = 28:
+   gate_kernel.chain_fwd_plan's samples a CTA, up to the engine's largest
+   batch 2^w - 1), max |diff| <= 1e-5, and a second call giving the same
+   bits (each plan printed);
 4. gate-chain backward kernel against plain: kernel #2 against its plain
    version at the same shapes and at the edges of its launch plan
    (BWD_PLAN_EDGES at L*k = 28: gate_kernel.chain_bwd_plan's samples a
@@ -46,7 +49,9 @@ any failure exits non-zero and no phase's failure is caught:
 7. RY-chain forward kernel against plain: kernel #3 at w in {1, 3, 6} x
    B in {1, 5} x (L*k, k) in {(4, 2), (12, 3), (12, 2)}, QIDDM_PL_noise1's
    (w=8, L*k=12) at B=10 and 16, (w=10, B=80, L*k=28) and the JAX package's
-   A/B shape (w=6, B=11, L*k=28), max |diff| <= 1e-5;
+   A/B shape (w=6, B=11, L*k=28), and at the plan's edges
+   (FWD_PLAN_EDGES at L*k = 12), max |diff| <= 1e-5, and a second call
+   giving the same bits;
 8. RY-chain backward kernel against plain: kernel #4 at the same shapes
    and at the plan's edges (BWD_PLAN_EDGES at L*k = 12) with N(0, 1)
    cotangents, dcs and dg each within 1e-5 * max(1, max|plain|), and a
@@ -88,7 +93,8 @@ any failure exits non-zero and no phase's failure is caught:
 11. profile: 10 steady QIDDM_LL_noise(784, 6, 14, 2) and then
    QIDDM_PL_noise1 training steps (batch 1, tau 10) under torch.profiler:
    device events, busy time and idle share per step, the chain kernels'
-   share and #2's or #4's device time a step (2 backward launches a step,
+   share, #1's or #3's and #2's or #4's device time a step, each on its
+   own (2 forward and 2 backward launches a step,
    none a second launch for dg's batch sum, by the counters and the
    profile); the steps, and for QIDDM_PL_noise1 the PCA fit and eigh
    alone, on the host clock; the training runs of phase 10 also counted
@@ -158,7 +164,7 @@ any failure exits non-zero and no phase's failure is caught:
    (QIDDM_PL_noise1 step by step, as in phase 13);
 18. times: median of 20 runs of each kernel and of its plain version (the
    gate-chain forward at w=6, B=16, L*k=28 and its backward at B=10 and
-   B=16 and at QIDDM-A's w=10, B=80, L*k=28 (#2 and #4 also behind a spin
+   B=16 and at QIDDM-A's w=10, B=80, L*k=28 (#1-#4 also behind a spin
    kernel, with their plans); the SEL chain forward and backward at w=8, depth 14, B=10 and 16,
    CZ, at w=6, depth 60, B=10, CNOT, and at path A's w=12, depth 2,
    B=1000, CZ and CNOT, there also the rows kernel on the same states;
@@ -311,8 +317,9 @@ any failure exits non-zero and no phase's failure is caught:
    library): every group and dG product kernel, both monolithic kernels
    and both #13 instances must hold some (run after phase 24); and #7's
    registers and spills at each width;
-34. #2's and #4's registers and spills from ptxas's report at each of
-   their 1-10-wire instances (fails unless all twenty are there).
+34. #1-#4's registers and spills from ptxas's report at each of their
+   1-10-wire instances (fails unless all forty are there, or if #1 or #3
+   spills at 6, 8 or 10 wires).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -403,6 +410,12 @@ CASES = ([(w, b, 28, 2) for w in (1, 4, 6, 8, 10) for b in (1, 16, 80)]
 BWD_PLAN_EDGES = [(1, 8), (1, 9), (5, 32), (5, 33), (7, 31), (7, 32),
                   (7, 33), (8, 8), (8, 9), (8, 16), (8, 17), (9, 16),
                   (9, 17), (10, 9), (10, 16), (10, 17)]
+# the forwards' launch plan at its edges (gate_kernel.chain_fwd_plan; #1 at
+# L*k = 28, #3 at 12): fewer samples than a CTA's slots, a last CTA with
+# one live sample, and the engine's largest batch 2^w - 1 at each class of
+# the layout (lanes only, register bits, the widest warp, two warps, four)
+FWD_PLAN_EDGES = [(1, 1), (2, 3), (3, 5), (5, 31), (6, 133), (7, 127),
+                  (8, 1), (8, 9), (8, 255), (9, 511), (10, 1023)]
 SEL_CASES = ([(w, b, 14, ring) for w in (1, 2, 4, 6, 8, 10)
               for b in (1, 10, 16, 80) for ring in ("cz", "cnot")]
              + [(6, 16, 60, "cnot")])
@@ -578,21 +591,37 @@ def phase_build() -> None:
         print("nvcc -Xptxas -v:\n" + log.read_text().strip())
 
 
+def _fwd_plan_line(wires: int, batch: int) -> str:
+    plan = gate_kernel.chain_fwd_plan(wires, batch)
+    return (f"plan {plan.warps} warp(s) a sample, {plan.samples} a CTA, "
+            f"{plan.grid} CTAs")
+
+
 def phase_kernel_vs_plain(dev) -> float:
+    """Returns the worst max |kernel - plain| over the shapes: CASES and the
+    forward's plan edges, each also called twice for the same bits."""
     rng = np.random.default_rng(SEED)
     worst = 0.0
-    for w, b, n_layers, k in CASES:
+    for w, b, n_layers, k in CASES + [(w, b, 28, 2)
+                                      for w, b in FWD_PLAN_EDGES]:
         pr, pi, mats = chain_inputs(rng, w, b, n_layers, dev)
         kr, ki = gate_kernel.gate_chain_planes(pr, pi, mats, k, w)
+        again = gate_kernel.gate_chain_planes(pr, pi, mats, k, w)
         qr, qi = gate_kernel.gate_chain_planes_plain(pr, pi, mats, k, w)
         torch.cuda.synchronize()
         err = max((kr - qr).abs().max().item(), (ki - qi).abs().max().item())
         worst = max(worst, err)
+        same = torch.equal(kr, again[0]) and torch.equal(ki, again[1])
         print(f"kernel vs plain w={w} B={b} L*k={n_layers} k={k}: "
-              f"max|diff| {err:.3e}")
+              f"max|diff| {err:.3e}; two calls "
+              f"{'the same bits' if same else 'DIFFER'}; "
+              + _fwd_plan_line(w, b))
         if not err <= KERNEL_TOL:
             fail(f"kernel disagrees with plain at w={w} B={b} "
                  f"L*k={n_layers} k={k}: {err:.3e} > {KERNEL_TOL}")
+        if not same:
+            fail(f"kernel gave other bits on a second call at w={w} B={b} "
+                 f"L*k={n_layers} k={k}")
     return worst
 
 
@@ -802,20 +831,30 @@ def ry_bwd_inputs(rng, wires: int, batch: int, n_layers: int, k: int, dev):
 
 
 def phase_ry_vs_plain(dev) -> float:
+    """Returns the worst max |kernel - plain| over the shapes: RY_CASES and
+    the forward's plan edges, each also called twice for the same bits."""
     rng = np.random.default_rng(SEED + 5)
     worst = 0.0
-    for w, b, n_layers, k in RY_CASES:
+    for w, b, n_layers, k in RY_CASES + [(w, b, 12, 2)
+                                         for w, b in FWD_PLAN_EDGES]:
         cs, g8, signs, *_ = ry_bwd_inputs(rng, w, b, n_layers, k, dev)
         kr, ki = ry_kernel._ry_chain_cuda(cs, g8, signs, k, w)
+        again = ry_kernel._ry_chain_cuda(cs, g8, signs, k, w)
         qr, qi = ry_kernel._ry_plain(cs, g8, signs, k, w)
         torch.cuda.synchronize()
         err = max((kr - qr).abs().max().item(), (ki - qi).abs().max().item())
         worst = max(worst, err)
+        same = torch.equal(kr, again[0]) and torch.equal(ki, again[1])
         print(f"RY kernel vs plain w={w} B={b} L*k={n_layers} k={k}: "
-              f"max|diff| {err:.3e}")
+              f"max|diff| {err:.3e}; two calls "
+              f"{'the same bits' if same else 'DIFFER'}; "
+              + _fwd_plan_line(w, b))
         if not err <= KERNEL_TOL:
             fail(f"RY kernel disagrees with plain at w={w} B={b} "
                  f"L*k={n_layers} k={k}: {err:.3e} > {KERNEL_TOL}")
+        if not same:
+            fail(f"RY kernel gave other bits on a second call at w={w} "
+                 f"B={b} L*k={n_layers} k={k}")
     return worst
 
 
@@ -1250,15 +1289,18 @@ def phase_wide_sass() -> None:
         fail(f"#9-#13 kernels without TF32 HMMA in their SASS: {counts}")
 
 
-# #2's and #4's instances in ptxas's report: gate_ or ry_, then the width
-_WALK_PTXAS = re.compile(r"(gate|ry)_chain_bwd_regs_kernelILi(\d+)E")
+# #1-#4's instances in ptxas's report: gate_ or ry_, fwd or bwd, the width
+_WALK_PTXAS = re.compile(r"(gate|ry)_chain_(fwd|bwd)_regs_kernelILi(\d+)E")
+_WALK_KERNELS = {("gate", "fwd"): "#1", ("gate", "bwd"): "#2",
+                 ("ry", "fwd"): "#3", ("ry", "bwd"): "#4"}
+NO_SPILL_WIRES = (6, 8, 10)  # the forwards spill nothing at these widths
 
 
 def phase_walk_registers() -> dict:
-    """#2's and #4's registers and spill-store bytes from ptxas's report in
-    the build log, for every width instance (1-10 wires); fails unless all
-    twenty instances are there. Returns {(kernel, wires): (registers,
-    spill-store bytes)}."""
+    """#1-#4's registers and spill-store bytes from ptxas's report in the
+    build log, for every width instance (1-10 wires); fails unless all
+    forty instances are there, or if a forward (#1, #3) spills at 6, 8 or
+    10 wires. Returns {(kernel, wires): (registers, spill-store bytes)}."""
     lib = gate_kernel.build_library()
     lines = lib.with_suffix(".log").read_text().splitlines()
     found = {}
@@ -1269,17 +1311,22 @@ def phase_walk_registers() -> dict:
             regs = re.search(r"Used (\d+) registers", text)
             spill = re.search(r"(\d+) bytes spill stores", text)
             if regs and spill:
-                found["#2" if match.group(1) == "gate" else "#4",
-                      int(match.group(2))] = (int(regs.group(1)),
+                found[_WALK_KERNELS[match.group(1), match.group(2)],
+                      int(match.group(3))] = (int(regs.group(1)),
                                               int(spill.group(1)))
-    for kernel, name in (("#2", "gate"), ("#4", "ry")):
-        print(f"ptxas {kernel} ({name}_chain_bwd_regs_kernel<w>) registers / "
-              f"spill-store bytes: " + ", ".join(
+    for (name, kind), kernel in _WALK_KERNELS.items():
+        print(f"ptxas {kernel} ({name}_chain_{kind}_regs_kernel<w>) "
+              f"registers / spill-store bytes: " + ", ".join(
                   f"w={w} {found[kernel, w][0]} / {found[kernel, w][1]}"
                   for w in range(1, 11) if (kernel, w) in found))
-    if len(found) != 20:
-        fail(f"ptxas reported {len(found)} of the 20 #2/#4 instances: "
+    if len(found) != 40:
+        fail(f"ptxas reported {len(found)} of the 40 #1-#4 instances: "
              f"{sorted(found)}")
+    spilled = {key: v for key, v in found.items()
+               if key[0] in ("#1", "#3") and key[1] in NO_SPILL_WIRES
+               and v[1]}
+    if spilled:
+        fail(f"forward instances spill registers: {spilled}")
     return found
 
 
@@ -1850,42 +1897,48 @@ def _train_step(tmp: pathlib.Path, margs: list):
     return step, x, torch.Generator().manual_seed(SEED)
 
 
-def _walk_step_check(name: str, dev: list, counts: dict, counter: str,
-                     sums: str, steps: int) -> None:
-    """Fails unless the profiled steps ran 2 backward walks a step and each
-    summed dg in its own launch: no second launch (counter ``sums``, and no
-    dg_batch_sum_kernel record)."""
+def _walk_step_check(name: str, dev: list, counts: dict, fwd: str,
+                     counter: str, sums: str, steps: int) -> None:
+    """Fails unless the profiled steps ran 2 forwards (counter ``fwd``) and
+    2 backward walks a step and each walk summed dg in its own launch: no
+    second launch (counter ``sums``, and no dg_batch_sum_kernel record)."""
     second = sum(1 for e in dev if "dg_batch_sum" in e.name)
-    if counts[counter] != 2 * steps or counts[sums] or second:
-        fail(f"{name}: {counts[counter]} backward walks in {steps} steps "
-             f"(want {2 * steps}), {counts[sums]} batch sums counted and "
-             f"{second} profiled in a second launch (want 0)")
+    if (counts[fwd] != 2 * steps or counts[counter] != 2 * steps
+            or counts[sums] or second):
+        fail(f"{name}: {counts[fwd]} forwards and {counts[counter]} "
+             f"backward walks in {steps} steps (want {2 * steps} each), "
+             f"{counts[sums]} batch sums counted and {second} profiled in a "
+             f"second launch (want 0)")
 
 
 def phase_profile_ll(tmp: pathlib.Path, smi: str) -> None:
     """Where a QIDDM_LL_noise(784, 6, 14, 2) training step's time goes: 10
     steady steps under torch.profiler from counts of 0 give the device
     events, the device busy time and idle share per step, and the gate
-    chain's kernels' time a step, #2's on its own; each backward is one
-    launch (dg summed over the batch in it)."""
+    chain's kernels' time a step, #1's and #2's each on its own; each
+    backward is one launch (dg summed over the batch in it)."""
     step, x, gen = _train_step(tmp, MODEL)
     step_ms = _host_ms(lambda: step(x, gen))
     steps = 10
     dev, busy, wall_us, counts = _device_profile(
         lambda: [step(x, gen) for _ in range(steps)])
-    _walk_step_check("QIDDM_LL_noise training", dev, counts, "gate_bwd",
-                     "gate_bwd_sums", steps)
+    _walk_step_check("QIDDM_LL_noise training", dev, counts, "gate",
+                     "gate_bwd", "gate_bwd_sums", steps)
     chain_us = sum(e.time_range.elapsed_us() for e in dev
                    if "gate_chain" in e.name)
     bwd_us = sum(e.time_range.elapsed_us() for e in dev
                  if "gate_chain_bwd" in e.name)
+    fwd_us = sum(e.time_range.elapsed_us() for e in dev
+                 if "gate_chain_fwd" in e.name)
     print(f"profile {' '.join(MODEL)} training ({smi}), {steps} steps: "
           f"{len(dev) / steps:.1f} device events per step, device busy "
           f"{busy / steps / 1e3:.4f} ms per step, idle share "
           f"{1 - busy / wall_us:.3f} of {wall_us / steps / 1e3:.3f} ms per "
           f"profiled step; gate chain kernels {chain_us / steps:.1f} us per "
-          f"step ({chain_us / busy:.3f} of busy), #2 {bwd_us / steps:.1f} us "
-          f"per step ({bwd_us / busy:.3f} of busy, "
+          f"step ({chain_us / busy:.3f} of busy), #1 {fwd_us / steps:.1f} us "
+          f"per step ({fwd_us / busy:.3f} of busy, "
+          f"{counts['gate'] // steps} launches a step), #2 "
+          f"{bwd_us / steps:.1f} us per step ({bwd_us / busy:.3f} of busy, "
           f"{counts['gate_bwd'] // steps} launches a step); step without "
           f"the profiler {step_ms:.3f} ms")
 
@@ -1895,10 +1948,10 @@ def phase_profile_pl(tmp: pathlib.Path, smi: str) -> None:
     the driver's default): 10 steady Adam steps under torch.profiler give
     the device events per step, the device busy time (the union of kernel
     and copy intervals, user annotations dropped), the idle share of the
-    profiled wall and the RY kernels' device time, #4's on its own (one
-    launch a backward, dg summed in it); the step, the PCA fit and
-    ``eigh`` alone are also timed on the host clock without the profiler,
-    each ending in a synchronise."""
+    profiled wall and the RY kernels' device time, #3's and #4's each on
+    its own (one launch a backward, dg summed in it); the step, the PCA fit
+    and ``eigh`` alone are also timed on the host clock without the
+    profiler, each ending in a synchronise."""
     from torch.profiler import ProfilerActivity, profile
 
     step, x, gen = _train_step(tmp, PL_MODEL)
@@ -1916,12 +1969,15 @@ def phase_profile_pl(tmp: pathlib.Path, smi: str) -> None:
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
-    _walk_step_check("QIDDM_PL_noise1 training", dev, read_counts(),
+    counts = read_counts()
+    _walk_step_check("QIDDM_PL_noise1 training", dev, counts, "ry",
                      "ry_bwd", "ry_bwd_sums", steps)
     ry_us = sum(e.time_range.elapsed_us() for e in dev
                 if "ry_chain" in e.name)
     ry_bwd_us = sum(e.time_range.elapsed_us() for e in dev
                     if "ry_chain_bwd" in e.name)
+    ry_fwd_us = sum(e.time_range.elapsed_us() for e in dev
+                    if "ry_chain_fwd" in e.name)
     top = prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12)
     rows = torch.rand((TAU, 784), generator=gen).to("cuda")
@@ -1933,8 +1989,11 @@ def phase_profile_pl(tmp: pathlib.Path, smi: str) -> None:
           f"{busy / steps / 1e3:.4f} ms per step, idle share "
           f"{1 - busy / wall_us:.3f} of {wall_us / steps / 1e3:.3f} ms per "
           f"profiled step; RY kernels {ry_us / steps:.1f} us per step "
-          f"({ry_us / busy:.3f} of busy), #4 {ry_bwd_us / steps:.1f} us per "
-          f"step ({ry_bwd_us / busy:.3f} of busy)")
+          f"({ry_us / busy:.3f} of busy), #3 {ry_fwd_us / steps:.1f} us per "
+          f"step ({ry_fwd_us / busy:.3f} of busy, "
+          f"{counts['ry'] // steps} launches a step), #4 "
+          f"{ry_bwd_us / steps:.1f} us per step ({ry_bwd_us / busy:.3f} of "
+          f"busy)")
     print(f"profile QIDDM_PL_noise1 ({smi}): step without the profiler "
           f"{step_ms:.3f} ms; PCA fit and projection of {TAU} rows "
           f"{pca_ms:.3f} ms, eigh of their {TAU}x{TAU} Gram matrix alone "
@@ -2337,18 +2396,21 @@ def phase_times(dev, smi: str) -> tuple[dict, dict, dict]:
     pr, pi, mats = chain_inputs(rng, w, b, n_layers, dev)
     g8 = gate_kernel._to_g8(mats)
     signs = gate_kernel._sign_planes_on(k, w, pr.device)
+    # #1-#4: also their device time behind a spin, with their plans
+    walks = {"fwd": (functools.partial(gate_kernel._gate_chain_cuda, pr, pi,
+                                       g8, signs, k, w),
+                     _fwd_plan_line(w, b))}
     times = {"fwd": _paired_ms(
-        lambda: gate_kernel._gate_chain_cuda(pr, pi, g8, signs, k, w),
+        walks["fwd"][0],
         lambda: gate_kernel.gate_chain_planes_plain(pr, pi, mats, k, w))
         + bound_gate(w, b, n_layers, k, False)}
-    walks = {}  # #2 and #4: also their device time behind a spin
     for w, b in ((6, 10), (6, 16), (10, 80)):
         args = bwd_inputs(rng, w, b, n_layers, k, dev)
         key = f"bwd{b}" if w == 6 else f"bwd_w{w}_b{b}"
-        walks[key] = (w, b, functools.partial(
-            gate_kernel._gate_chain_bwd_cuda, *args, k, w))
+        walks[key] = (functools.partial(
+            gate_kernel._gate_chain_bwd_cuda, *args, k, w), _plan_line(w, b))
         times[key] = _paired_ms(
-            walks[key][2],
+            walks[key][0],
             lambda: gate_kernel.gate_chain_bwd_plain(*args, k, w)
         ) + bound_gate(w, b, n_layers, k, True)
     for w, depth, b, ring in ((8, 14, 10, "cz"), (8, 14, 16, "cz"),
@@ -2376,22 +2438,24 @@ def phase_times(dev, smi: str) -> tuple[dict, dict, dict]:
     for w, b, n_layers, k in ((8, 10, 12, 2), (6, 11, 28, 2)):
         args = ry_bwd_inputs(rng, w, b, n_layers, k, dev)
         key = f"{w}_{b}_{n_layers}"
+        walks[f"ry_fwd{key}"] = (functools.partial(
+            ry_kernel._ry_chain_cuda, *args[:3], k, w), _fwd_plan_line(w, b))
         times[f"ry_fwd{key}"] = _paired_ms(
-            lambda: ry_kernel._ry_chain_cuda(*args[:3], k, w),
+            walks[f"ry_fwd{key}"][0],
             lambda: ry_kernel._ry_plain(*args[:3], k, w)
         ) + bound_ry(w, b, n_layers, k, False)
-        walks[f"ry_bwd{key}"] = (w, b, functools.partial(
-            ry_kernel._ry_chain_bwd_cuda, *args, k, w))
+        walks[f"ry_bwd{key}"] = (functools.partial(
+            ry_kernel._ry_chain_bwd_cuda, *args, k, w), _plan_line(w, b))
         times[f"ry_bwd{key}"] = _paired_ms(
-            walks[f"ry_bwd{key}"][2],
+            walks[f"ry_bwd{key}"][0],
             lambda: ry_kernel.ry_chain_bwd_plain(*args, k, w)
         ) + bound_ry(w, b, n_layers, k, True)
-    for key, (w, b, fn) in walks.items():
+    for key, (fn, plan) in walks.items():
         spun = tools_common.median_ms(fn, dev)
         bound = times[key][2]
         print(f"times {key} device ({smi}): {spun:.4f} ms behind a "
               f"{tools_common.SPIN_CYCLES}-cycle spin (median of 20), "
-              f"{bound / spun:.2e} of the bound; {_plan_line(w, b)}")
+              f"{bound / spun:.2e} of the bound; {plan}")
     for w, b, n_spec, ry in ((6, 10, 14, False), (8, 10, 6, True),
                              (10, 1, 1, False)):
         ang = torch.as_tensor(rng.normal(size=(n_spec * 2, w, 3)),

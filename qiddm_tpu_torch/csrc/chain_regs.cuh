@@ -1,6 +1,7 @@
-// The register-resident adjoint walk of the re-uploading chains: the shared
-// body of kernel #2 (gate_chain.cu, RZ phase encode) and kernel #4
-// (ry_chain.cu, RY encode), for NVIDIA Hopper (sm_90a).
+// The register-resident bodies of the re-uploading chains, for NVIDIA
+// Hopper (sm_90a): the adjoint walk of kernel #2 (gate_chain.cu, RZ phase
+// encode) and kernel #4 (ry_chain.cu, RY encode), and the forward of
+// kernels #1 and #3 (chain_fwd, below the walk) on the walk's layout.
 //
 // What it computes is chain_common.cuh's adjoint_gate_step walk: from the
 // forward output and its cotangent, l = n_layers-1 .. 0, the CZ signs of
@@ -62,6 +63,19 @@
 //     with each thread's A loads in flight together; with at most 4 samples
 //     a CTA a row of the CTA's samples is one 32-byte sector, so staging the
 //     columns through shared memory would not coalesce further.
+//
+// The forward (chain_fwd<W, RY>) runs the chain from |0...0> on the same
+// layout, state only: a gate on a register bit is gate_pair on the
+// thread's pairs; on a lane bit 2 shuffles an amplitude (the partner's sr,
+// si), on a warp bit 2 planes through the sample's exchange buffers behind
+// its named barrier; each thread forms only its own new row, in
+// gate_pair's fmaf order. The CZ signs become, once a CTA, one 32-bit mask
+// a rank and sign plane of the rows whose sign is -1, read once a layer and
+// applied as a sign flip (the same bits as the product with -1). The RZ
+// phase is A complex products in registers; the RY encode's coefficients
+// are read by broadcast from shared memory. Samples are independent: no
+// cluster, no reduction, and after the tables are staged no block barrier;
+// chain_fwd_plan (sim/gate_kernel.py) sets the samples a CTA.
 //
 // Everything here sits in an anonymous namespace, as in chain_common.cuh.
 
@@ -154,42 +168,59 @@ __device__ __forceinline__ void walk_sync(int slot) {
   }
 }
 
-// Runs step(h, partner's sr, si, cr, ci) for each of a thread's amplitudes
-// h, for a gate on index bit `bit` below the register bits: the partner's
-// values come by warp shuffle for a lane bit, one amplitude at a time, and
-// through the sample's exchange planes (4 x d floats, two sets used in
-// turn, so one barrier an exchange) for a warp bit.
-template <int W, typename Step>
-__device__ __forceinline__ void walk_exchange(
-    const float (&sr)[WalkShape<W>::A], const float (&si)[WalkShape<W>::A],
-    const float (&cr)[WalkShape<W>::A], const float (&ci)[WalkShape<W>::A],
-    int bit, int r, int slot, float* xbuf, int& xpar, Step step) {
+// Runs step(h, o) for each of a thread's amplitudes h, for a gate on index
+// bit `bit` below the register bits, where v(p, h) is this thread's value
+// of plane p and o[p] its partner's: by warp shuffle for a lane bit, one
+// amplitude at a time, and through the sample's exchange planes (two sets
+// of NP x d floats used in turn, so one barrier an exchange) for a warp bit.
+template <int W, int NP, typename Value, typename Step>
+__device__ __forceinline__ void plane_exchange(Value v, int bit, int r,
+                                               int slot, float* xbuf,
+                                               int& xpar, Step step) {
   using Sh = WalkShape<W>;
   if (Sh::WB == 0 || bit < Sh::LB) {
 #pragma unroll
-    for (int h = 0; h < Sh::A; ++h)
-      step(h, __shfl_xor_sync(0xffffffffu, sr[h], 1 << bit),
-           __shfl_xor_sync(0xffffffffu, si[h], 1 << bit),
-           __shfl_xor_sync(0xffffffffu, cr[h], 1 << bit),
-           __shfl_xor_sync(0xffffffffu, ci[h], 1 << bit));
+    for (int h = 0; h < Sh::A; ++h) {
+      float o[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        o[p] = __shfl_xor_sync(0xffffffffu, v(p, h), 1 << bit);
+      step(h, o);
+    }
   } else {
-    float* xb = xbuf + xpar * 4 * Sh::D;
+    float* xb = xbuf + xpar * NP * Sh::D;
     xpar ^= 1;  // the next exchange writes the other set
 #pragma unroll
     for (int h = 0; h < Sh::A; ++h) {
       const int i = walk_index<W>(h, r);
-      xb[i] = sr[h];
-      xb[Sh::D + i] = si[h];
-      xb[2 * Sh::D + i] = cr[h];
-      xb[3 * Sh::D + i] = ci[h];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) xb[p * Sh::D + i] = v(p, h);
     }
     walk_sync<W>(slot);
 #pragma unroll
     for (int h = 0; h < Sh::A; ++h) {
       const int i = walk_index<W>(h, r) ^ (1 << bit);
-      step(h, xb[i], xb[Sh::D + i], xb[2 * Sh::D + i], xb[3 * Sh::D + i]);
+      float o[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) o[p] = xb[p * Sh::D + i];
+      step(h, o);
     }
   }
+}
+
+// plane_exchange of the walk's four planes: step(h, the partner's sr, si,
+// cr, ci).
+template <int W, typename Step>
+__device__ __forceinline__ void walk_exchange(
+    const float (&sr)[WalkShape<W>::A], const float (&si)[WalkShape<W>::A],
+    const float (&cr)[WalkShape<W>::A], const float (&ci)[WalkShape<W>::A],
+    int bit, int r, int slot, float* xbuf, int& xpar, Step step) {
+  plane_exchange<W, 4>(
+      [&](int p, int h) {
+        return p == 0 ? sr[h] : p == 1 ? si[h] : p == 2 ? cr[h] : ci[h];
+      },
+      bit, r, slot, xbuf, xpar,
+      [&](int h, const float (&o)[4]) { step(h, o[0], o[1], o[2], o[3]); });
 }
 
 // One adjoint step for the gate (ma, mb) = its 8 scalars on index bit
@@ -605,6 +636,284 @@ __device__ __forceinline__ void adjoint_walk(
     }
   }
   cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+// Offsets, in floats, of a forward CTA's shared-memory regions (the gate
+// scalars at 0), each a multiple of 4 floats: the k sign masks of each of
+// the T ranks of a sample (one 32-bit word a rank and plane), the RY encode
+// coefficients of each sample (2w floats), and, from 8 wires, each sample's
+// two sets of exchange planes (2 x 2 x d floats).
+struct FwdLayout {
+  size_t masks, enc, xbuf, floats;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int wires, int n_layers,
+                                                int k, int samples, bool ry) {
+  const size_t d = static_cast<size_t>(1) << wires;
+  const size_t t = 32 * walk_warps(wires);
+  FwdLayout o;
+  o.masks = walk_round4(static_cast<size_t>(n_layers) * wires * 8);
+  o.enc = o.masks + walk_round4(static_cast<size_t>(k) * t);
+  o.xbuf = o.enc + (ry ? walk_round4(static_cast<size_t>(samples) * 2 *
+                                     wires)
+                       : 0);
+  o.floats = o.xbuf + (walk_warps(wires) > 1 ? samples * 4 * d : 0);
+  return o;
+}
+
+// The 2x2 gate (ma, mb) = (g00, g01 | g10, g11) on this thread's row x of a
+// pair, (orr, oi) the partner's row: t_x = g_x0 b0 + g_x1 b1, (b0, b1) the
+// pair's rows of bit 0 and 1, each output's products summed in gate_pair's
+// fmaf order, so the rounding is that of the other chain kernels.
+__device__ __forceinline__ void fwd_row(float4 ma, float4 mb, bool x,
+                                        float& sr, float& si, float orr,
+                                        float oi) {
+  const float4 q = x ? mb : ma;
+  const float b0r = x ? orr : sr, b0i = x ? oi : si;
+  const float b1r = x ? sr : orr, b1i = x ? si : oi;
+  sr = fmaf(-q.w, b1i, fmaf(q.z, b1r, fmaf(-q.y, b0i, q.x * b0r)));
+  si = fmaf(q.w, b1r, fmaf(q.z, b1i, fmaf(q.y, b0r, q.x * b0i)));
+}
+
+// The forward gate (ma, mb) on index bit `bit`. REG: a register bit, whose
+// pairs lie in the thread (gate_pair on each); else a lane or warp bit, the
+// partner's row fetched by plane_exchange and only this thread's new row
+// formed.
+template <int W, bool REG>
+__device__ __forceinline__ void fwd_gate(float (&sr)[WalkShape<W>::A],
+                                         float (&si)[WalkShape<W>::A],
+                                         float4 ma, float4 mb, int bit, int r,
+                                         int slot, float* xbuf, int& xpar) {
+  using Sh = WalkShape<W>;
+  if constexpr (REG) {
+    const float m[8] = {ma.x, ma.y, ma.z, ma.w, mb.x, mb.y, mb.z, mb.w};
+    const int rb = 1 << (bit - Sh::LB - Sh::WB);
+#pragma unroll
+    for (int h = 0; h < Sh::A; ++h)
+      if (!(h & rb)) gate_pair(m, sr[h], si[h], sr[h | rb], si[h | rb]);
+  } else {
+    const bool x = (r >> bit) & 1;
+    plane_exchange<W, 2>(
+        [&](int p, int h) { return p == 0 ? sr[h] : si[h]; }, bit, r, slot,
+        xbuf, xpar, [&](int h, const float (&o)[2]) {
+          fwd_row(ma, mb, x, sr[h], si[h], o[0], o[1]);
+        });
+  }
+}
+
+// The encode RY(x) = [[c, -s], [s, c]] on index bit `bit`, a real gate on
+// both planes, in gate_pair's order for the 8-float gate (c, 0, -s, 0, s, 0,
+// c, 0) less its zero products: row 0 gets fmaf(-s, b1, c b0), row 1
+// fmaf(c, b1, s b0). REG as for fwd_gate.
+template <int W, bool REG>
+__device__ __forceinline__ void fwd_encode(float (&sr)[WalkShape<W>::A],
+                                           float (&si)[WalkShape<W>::A],
+                                           float c, float s, int bit, int r,
+                                           int slot, float* xbuf, int& xpar) {
+  using Sh = WalkShape<W>;
+  if constexpr (REG) {
+    const int rb = 1 << (bit - Sh::LB - Sh::WB);
+#pragma unroll
+    for (int h = 0; h < Sh::A; ++h) {
+      if (h & rb) continue;
+      const int h1 = h | rb;
+      const float a0r = sr[h], a0i = si[h], a1r = sr[h1], a1i = si[h1];
+      sr[h] = fmaf(-s, a1r, c * a0r);
+      si[h] = fmaf(-s, a1i, c * a0i);
+      sr[h1] = fmaf(c, a1r, s * a0r);
+      si[h1] = fmaf(c, a1i, s * a0i);
+    }
+  } else {
+    const bool x = (r >> bit) & 1;
+    const float q0 = x ? s : c, q1 = x ? c : -s;
+    plane_exchange<W, 2>(
+        [&](int p, int h) { return p == 0 ? sr[h] : si[h]; }, bit, r, slot,
+        xbuf, xpar, [&](int h, const float (&o)[2]) {
+          const float b0r = x ? o[0] : sr[h], b0i = x ? o[1] : si[h];
+          const float b1r = x ? sr[h] : o[0], b1i = x ? si[h] : o[1];
+          sr[h] = fmaf(q1, b1r, q0 * b0r);
+          si[h] = fmaf(q1, b1i, q0 * b0i);
+        });
+  }
+}
+
+// The forward chain of one CTA's samples, from |0...0>: for each layer l,
+// at l % k == 0 the encode (RZ, RY false: ea, eb are the phase planes pr,
+// pi (d, B); RY: ea is cs (2w, B), eb unused), then the gate g8[l, j] on
+// each wire j = 0..w-1 (index bits w-1 .. 0), then the CZ signs of plane
+// l % k. out_r, out_i receive the (d, B) state planes. A sample's threads
+// sync only among themselves, and only for a warp bit's exchange.
+template <int W, bool RY>
+__device__ __forceinline__ void chain_fwd(const float* __restrict__ ea,
+                                          const float* __restrict__ eb,
+                                          const float* __restrict__ g8,
+                                          const float* __restrict__ signs,
+                                          float* __restrict__ out_r,
+                                          float* __restrict__ out_i,
+                                          int batch, int n_layers, int k) {
+  using Sh = WalkShape<W>;
+  constexpr int D = Sh::D, A = Sh::A, T = Sh::T;
+  constexpr int XB = Sh::LB + Sh::WB;  // the bits below the register bits
+  extern __shared__ __align__(16) float smem[];
+  const int samples = blockDim.x / T;
+  const int slot = threadIdx.x / T;  // the sample's slot in the CTA
+  const int r = threadIdx.x % T;     // the thread's rank in the sample
+  const int b0 = blockIdx.x * samples;
+  const int b = b0 + slot;
+  const bool live = b < batch;
+  const bool holds = live && r < D;  // below 5 wires lanes d..31 hold none
+  const FwdLayout lay = fwd_layout(W, n_layers, k, samples, RY);
+  const int nd = n_layers * W * 8;
+  const float* g = smem;
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + lay.masks);
+  const float* enc = smem + lay.enc + static_cast<size_t>(slot) * 2 * W;
+  float* xbuf = smem + lay.xbuf + static_cast<size_t>(slot) * 4 * D;
+
+  // the read-only tables, once a CTA: the gate scalars by cp.async (16
+  // bytes a copy, every copy in flight while the masks are built), and for
+  // each rank and sign plane the bit mask of the rank's rows whose sign is
+  // -1
+  const bool aligned = (reinterpret_cast<uintptr_t>(g8) & 15) == 0;
+  if (aligned) {
+    const unsigned base =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    for (int i = threadIdx.x; i < nd / 4; i += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       base + 16 * i),
+                   "l"(g8 + 4 * i)
+                   : "memory");
+  } else {
+    for (int i = threadIdx.x; i < nd; i += blockDim.x) smem[i] = g8[i];
+  }
+  for (int i = threadIdx.x; i < k * T; i += blockDim.x) {
+    const int plane = i / T, rank = i % T;
+    unsigned m = 0;
+#pragma unroll
+    for (int h = 0; h < A; ++h) {
+      const int row = walk_index<W>(h, rank);
+      if (row < D && signs[static_cast<size_t>(plane) * D + row] < 0.0f)
+        m |= 1u << h;
+    }
+    masks[i] = m;
+  }
+  if constexpr (RY) {
+    for (int i = threadIdx.x; i < samples * 2 * W; i += blockDim.x) {
+      const int bb = b0 + i / (2 * W);
+      smem[lay.enc + i] =
+          bb < batch ? ea[static_cast<size_t>(i % (2 * W)) * batch + bb]
+                     : 0.0f;
+    }
+  }
+  // RZ: the sample's phase column, in registers for the whole chain
+  float phr[A], phi[A];
+  if constexpr (!RY) {
+#pragma unroll
+    for (int h = 0; h < A; ++h) {
+      const size_t at = static_cast<size_t>(walk_index<W>(h, r)) * batch + b;
+      phr[h] = holds ? ea[at] : 0.0f;
+      phi[h] = holds ? eb[at] : 0.0f;
+    }
+  }
+  if (aligned) asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();  // the tables are in place; no block barrier follows
+  if (!live) return;  // a sample's threads leave together
+
+  float sr[A], si[A];  // |0...0>: row 0 is amplitude 0 of rank 0
+#pragma unroll
+  for (int h = 0; h < A; ++h) {
+    sr[h] = (h == 0 && r == 0) ? 1.0f : 0.0f;
+    si[h] = 0.0f;
+  }
+  int xpar = 0;
+  // the next gate's scalars, loaded one gate ahead
+  float4 na = *reinterpret_cast<const float4*>(g);
+  float4 nb = *reinterpret_cast<const float4*>(g + 4);
+  for (int l = 0; l < n_layers; ++l) {
+    const unsigned flip = masks[(l % k) * T + r];
+    if (l % k == 0) {
+      if constexpr (RY) {
+        // wire j = W-1-bit, from wire 0: each register bit, then the lane
+        // and warp bits
+#pragma unroll
+        for (int bit = W - 1; bit >= XB; --bit)
+          fwd_encode<W, true>(sr, si, enc[W - 1 - bit], enc[2 * W - 1 - bit],
+                              bit, r, slot, xbuf, xpar);
+#pragma unroll
+        for (int bit = XB - 1; bit >= 0; --bit)
+          fwd_encode<W, false>(sr, si, enc[W - 1 - bit],
+                               enc[2 * W - 1 - bit], bit, r, slot, xbuf,
+                               xpar);
+      } else {
+#pragma unroll
+        for (int h = 0; h < A; ++h) {
+          const float a = sr[h], c = si[h];
+          sr[h] = a * phr[h] - c * phi[h];
+          si[h] = a * phi[h] + c * phr[h];
+        }
+      }
+    }
+    // gate (l, j), and the scalars of the gate after it
+    auto next = [&](int j, float4& ma, float4& mb) {
+      ma = na;
+      mb = nb;
+      const int n = l * W + j + 1;
+      if (n * 8 < nd) {
+        na = *reinterpret_cast<const float4*>(g + n * 8);
+        nb = *reinterpret_cast<const float4*>(g + n * 8 + 4);
+      }
+    };
+    // the layer unrolled at every width: without the cotangent and dg its
+    // code is small enough that unrolling pays at 8-10 wires too, where the
+    // walk's loop over one body is faster
+#pragma unroll
+    for (int bit = W - 1; bit >= XB; --bit) {
+      float4 ma, mb;
+      next(W - 1 - bit, ma, mb);
+      fwd_gate<W, true>(sr, si, ma, mb, bit, r, slot, xbuf, xpar);
+    }
+#pragma unroll
+    for (int bit = XB - 1; bit >= 0; --bit) {
+      float4 ma, mb;
+      next(W - 1 - bit, ma, mb);
+      fwd_gate<W, false>(sr, si, ma, mb, bit, r, slot, xbuf, xpar);
+    }
+    // the CZ signs: a sign flip where the mask says -1, the same bits as a
+    // product with -1.0f
+#pragma unroll
+    for (int h = 0; h < A; ++h) {
+      const unsigned neg = ((flip >> h) & 1u) << 31;
+      sr[h] = __uint_as_float(__float_as_uint(sr[h]) ^ neg);
+      si[h] = __uint_as_float(__float_as_uint(si[h]) ^ neg);
+    }
+  }
+  if (holds) {
+#pragma unroll
+    for (int h = 0; h < A; ++h) {
+      const size_t at = static_cast<size_t>(walk_index<W>(h, r)) * batch + b;
+      out_r[at] = sr[h];
+      out_i[at] = si[h];
+    }
+  }
+}
+
+// Whether (samples, grid) is a plan the forward takes at `wires` for `batch`
+// samples: 1..MAX_SAMPLES samples a CTA and just enough CTAs.
+inline bool fwd_plan_ok(int wires, int batch, int samples, int grid) {
+  return wires >= 1 && wires <= 10 && batch >= 1 && samples >= 1 &&
+         samples <= walk_max_samples(wires) &&
+         grid == (batch + samples - 1) / samples;
+}
+
+// Launches `kernel` (a forward instance) on `grid` CTAs of `samples`
+// samples of `threads` threads each: a plain launch, no cluster.
+template <typename... Params, typename... Args>
+cudaError_t launch_fwd(void (*kernel)(Params...), int threads, int samples,
+                       int grid, size_t smem, cudaStream_t stream,
+                       Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, samples * threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 // Launches `kernel` (a walk instance) on the plan's grid: `samples` samples

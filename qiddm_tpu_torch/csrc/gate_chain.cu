@@ -1,7 +1,7 @@
 // Re-uploading gate chain, forward pass and its adjoint backward, for NVIDIA
 // Hopper (sm_90a).
 //
-// gate_chain_fwd_kernel replaces
+// gate_chain_fwd_regs_kernel<w> replaces
 // qiddm_tpu/sim/pallas_gate_kernel.py::_fwd_kernel (entry gate_chain_planes
 // -> _gate_chain_fwd_call). For every sample b it runs, from |0...0>,
 // n_layers = L*k layers:
@@ -15,24 +15,25 @@
 // Inputs and outputs keep the JAX entry's (d, B) float32 plane layout,
 // d = 2^w, so the kernel and its plain PyTorch version take the same tensors.
 //
-// The forward's gate update is shared with sel_chain.cu through
-// chain_common.cuh; the backward's walk with ry_chain.cu through
-// chain_regs.cuh.
+// Forward and backward share chain_regs.cuh (with ry_chain.cu): the
+// forward's body is chain_fwd<W, false>, the backward's adjoint_walk.
 //
-// Forward design. One thread block per sample with max(d/2, 32) threads; the
-// sample's state (2 x d floats, 8 KB at w=10), its phase column, the k sign
-// planes and all n_layers*w*8 gate scalars sit in shared memory for the
-// whole chain, so the state is read from and written to device memory once.
-// Each thread updates one amplitude pair (i0, i0 | bit) per gate, with a
-// __syncthreads() between gates.
+// Forward design (chain_regs.cuh): a template on the width; the sample's
+// state and phase column in registers for the whole chain, laid out as the
+// walk's (a warp a sample up to 7 wires, two at 8, four from 9; a lane
+// bit's partner by shuffle, a warp bit's through shared memory behind the
+// sample's named barrier); each thread forms only its own new row; the CZ
+// signs a per-thread bit mask applied as a sign flip. No block barrier
+// after the tables are staged; 1-4 samples a CTA (chain_fwd_plan in
+// sim/gate_kernel.py), a plain launch.
 //
 // What bounds the forward on this card. At the sampling shape (w=6, B=16,
-// L*k=28) the work is 28*6*32*16 pair updates (~86k, ~1 MFLOP) per launch:
-// neither FLOPs nor bandwidth matter. The launch latency and the chain of
-// ~210 block-wide barriers do, and only B of the 132 SMs get a block.
-// Reading a column of a (d, B) plane with stride B is uncoalesced; at these
-// sizes it is accepted (d*B*16 bytes per launch). Multi-sample blocks, a
-// sample-major layout and wgmma for wide states are later work.
+// L*k=28) the work is 168 gates of 32 pairs a sample (~1 MFLOP a launch)
+// and ~16 KB: well under a microsecond at the card's peaks. The gates run
+// in a row, each needing the last one's state, so a gate's latency (its
+// 2x2 arithmetic and, on a lane bit, 2 shuffles an amplitude) sets the
+// time. Tensor cores, TMA and wgmma do not fit: a few KB of 2x2 products a
+// sample, latency-bound, with nothing to stream.
 //
 // gate_chain_bwd_regs_kernel<w> replaces qiddm_tpu/sim/pallas_gate_kernel.py::
 // _bwd_kernel (entry _gate_chain_bwd, gate gradient from _plane_dg). Given
@@ -78,62 +79,16 @@
 
 namespace {
 
-__global__ void gate_chain_fwd_kernel(const float* __restrict__ pr,
-                                      const float* __restrict__ pi,
-                                      const float* __restrict__ g8,
-                                      const float* __restrict__ signs,
-                                      float* __restrict__ out_r,
-                                      float* __restrict__ out_i,
-                                      int wires, int batch, int n_layers,
-                                      int k) {
-  extern __shared__ float smem[];
-  const int d = 1 << wires;
-  const int half = d >> 1;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  float* sr = smem;            // state, real
-  float* si = sr + d;          // state, imaginary
-  float* ph_r = si + d;        // phase column of sample b
-  float* ph_i = ph_r + d;
-  float* sg = ph_i + d;        // k sign planes
-  float* g = sg + k * d;       // n_layers * wires * 8 gate scalars
-
-  for (int i = tid; i < d; i += nt) {
-    sr[i] = (i == 0) ? 1.0f : 0.0f;
-    si[i] = 0.0f;
-    ph_r[i] = pr[static_cast<size_t>(i) * batch + b];
-    ph_i[i] = pi[static_cast<size_t>(i) * batch + b];
-  }
-  for (int i = tid; i < k * d; i += nt) sg[i] = signs[i];
-  for (int i = tid; i < n_layers * wires * 8; i += nt) g[i] = g8[i];
-  __syncthreads();
-
-  for (int l = 0; l < n_layers; ++l) {
-    if (l % k == 0) {
-      for (int i = tid; i < d; i += nt) {
-        const float a = sr[i], c = si[i];
-        sr[i] = a * ph_r[i] - c * ph_i[i];
-        si[i] = a * ph_i[i] + c * ph_r[i];
-      }
-      __syncthreads();
-    }
-    for (int j = 0; j < wires; ++j) {
-      gate_pairs(sr, si, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half);
-      __syncthreads();
-    }
-    const float* sgl = sg + (l % k) * d;
-    for (int i = tid; i < d; i += nt) {
-      sr[i] *= sgl[i];
-      si[i] *= sgl[i];
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < d; i += nt) {
-    out_r[static_cast<size_t>(i) * batch + b] = sr[i];
-    out_i[static_cast<size_t>(i) * batch + b] = si[i];
-  }
+template <int W>
+__global__ void __launch_bounds__(WalkShape<W>::MAX_THREADS)
+    gate_chain_fwd_regs_kernel(const float* __restrict__ pr,
+                               const float* __restrict__ pi,
+                               const float* __restrict__ g8,
+                               const float* __restrict__ signs,
+                               float* __restrict__ out_r,
+                               float* __restrict__ out_i, int batch,
+                               int n_layers, int k) {
+  chain_fwd<W, false>(pr, pi, g8, signs, out_r, out_i, batch, n_layers, k);
 }
 
 template <int W>
@@ -158,30 +113,46 @@ __global__ void __launch_bounds__(WalkShape<W>::MAX_THREADS)
 
 extern "C" {
 
-// Shared-memory bytes one block needs; the wrapper checks it against the
-// card's per-block limit before launching.
-size_t gate_chain_fwd_smem_bytes(int wires, int n_layers, int k) {
-  const size_t d = size_t{1} << wires;
-  return (4 * d + static_cast<size_t>(k) * d +
-          static_cast<size_t>(n_layers) * wires * 8) * sizeof(float);
+// Shared-memory bytes one forward CTA of `samples` samples needs; the
+// wrapper checks it against the card's per-block limit before launching.
+size_t gate_chain_fwd_smem_bytes(int wires, int n_layers, int k,
+                                 int samples) {
+  return fwd_layout(wires, n_layers, k, samples, false).floats *
+         sizeof(float);
 }
 
+// pr, pi, out_r, out_i are (d, batch). The plan (samples a CTA, CTAs) is
+// chain_fwd_plan's.
 int gate_chain_fwd(const void* pr, const void* pi, const void* g8,
                    const void* signs, void* out_r, void* out_i, int wires,
-                   int batch, int n_layers, int k, int device,
-                   void* stream) {
+                   int batch, int n_layers, int k, int samples, int grid,
+                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = gate_chain_fwd_smem_bytes(wires, n_layers, k);
-  err = allow_smem(gate_chain_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gate_chain_fwd_kernel<<<batch, threads_for(wires), smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pr), static_cast<const float*>(pi),
-      static_cast<const float*>(g8), static_cast<const float*>(signs),
-      static_cast<float*>(out_r), static_cast<float*>(out_i), wires, batch,
-      n_layers, k);
-  return static_cast<int>(cudaGetLastError());
+  if (!fwd_plan_ok(wires, batch, samples, grid) || k < 1 || n_layers < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = gate_chain_fwd_smem_bytes(wires, n_layers, k, samples);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const float*>(pr);
+  const auto* c = static_cast<const float*>(pi);
+  const auto* g = static_cast<const float*>(g8);
+  const auto* sg = static_cast<const float*>(signs);
+  auto* yr = static_cast<float*>(out_r);
+  auto* yi = static_cast<float*>(out_i);
+  switch (wires) {
+#define FWD_CASE(W)                                                         \
+  case W:                                                                   \
+    err = launch_fwd(gate_chain_fwd_regs_kernel<W>, WalkShape<W>::T,        \
+                     samples, grid, smem, s, a, c, g, sg, yr, yi, batch,    \
+                     n_layers, k);                                          \
+    break;
+    FWD_CASE(1) FWD_CASE(2) FWD_CASE(3) FWD_CASE(4) FWD_CASE(5)
+    FWD_CASE(6) FWD_CASE(7) FWD_CASE(8) FWD_CASE(9) FWD_CASE(10)
+#undef FWD_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 // Shared-memory bytes one backward CTA of `samples` samples needs.

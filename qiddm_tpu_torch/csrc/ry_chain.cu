@@ -1,7 +1,7 @@
 // RY-encoded re-uploading chain, forward pass and its adjoint backward, for
 // NVIDIA Hopper (sm_90a).
 //
-// ry_chain_fwd_kernel replaces
+// ry_chain_fwd_regs_kernel<w> replaces
 // qiddm_tpu/sim/pallas_gate_kernel.py::_ry_fwd_kernel (entry
 // ry_chain_planes -> _ry_chain_fwd_call). It is gate_chain.cu's forward with
 // another encode: for every sample b it runs, from |0...0>, n_layers = L*k
@@ -20,14 +20,13 @@
 // Inputs and outputs keep the JAX entry's layout: cs (2w, B), states (d, B)
 // float32 planes, d = 2^w.
 //
-// Design. The forward is gate_chain.cu's: one thread block per sample with
-// max(d/2, 32) threads, state, sign planes and gate scalars in shared
-// memory for the whole chain, one amplitude pair per thread per gate. The
-// sample's w encode gates are built once, as 8-float gates
-// (c, 0, -s, 0, s, 0, c, 0), so the encode runs through the same
-// gate_pairs() update as the rotations (chain_common.cuh). The TPU kernel's
-// lane-broadcast (1, B) coefficient rows and its concatenation of dcs rows
-// exist for Mosaic's layout and have no counterpart here.
+// Design: gate_chain.cu's forward (chain_regs.cuh's chain_fwd<W, true>):
+// the state in registers, a warp a sample up to 7 wires (two at 8, four
+// from 9), no block barrier after the tables are staged. Each encode gate
+// is a real 2x2 on both planes with the sample's (c_j, s_j), read by
+// broadcast from the sample's 2w coefficients in shared memory. The TPU
+// kernel's lane-broadcast (1, B) coefficient rows and its concatenation of
+// dcs rows exist for Mosaic's layout and have no counterpart here.
 //
 // ry_chain_bwd_regs_kernel<w> replaces qiddm_tpu/sim/pallas_gate_kernel.py::
 // _ry_bwd_kernel (entry _ry_chain_bwd). Given the forward output (fr, fi)
@@ -54,14 +53,15 @@
 // What bounds these kernels on this card. At QIDDM_PL_noise1's shape (w=8,
 // L*k=12, B=10 in training, 16 in sampling) the forward does ~120 gate
 // updates of 128 amplitude pairs per sample (~2.6 MFLOP at B=10) and moves
-// ~40 KB: at the card's peaks that is well under a microsecond. What sets
-// the forward's time is the launch, the chain of block-wide barriers (one
-// per gate, ~150) and that only B of the 132 SMs get a block. The
-// backward's 96 rotation and 48 encode steps run in a row, so their
-// latency sets its time: at 8 wires two warps a sample, 4 amplitudes a
-// thread, 2 of 8 wires on register bits (no exchange), 5 on lane bits (4
-// shuffles an amplitude) and 1 on the warp bit (through shared memory),
-// and the sample's barriers twice a layer and once an exchange.
+// ~40 KB: at the card's peaks that is well under a microsecond. Its 96
+// rotations and 48 encode gates run in a row, so their latency sets its
+// time: at 8 wires two warps a sample, 4 amplitudes a thread, 2 of 8 wires
+// on register bits, 5 on lane bits (2 shuffles an amplitude) and 1 on the
+// warp bit (through shared memory, one named barrier of the sample). The
+// backward's 96 rotation and 48 encode steps run in a row as well: 4
+// shuffles an amplitude on a lane bit, and the sample's barriers twice a
+// layer and once an exchange. Tensor cores, TMA and wgmma do not fit
+// either: 2x2 products on a few KB a sample, latency-bound.
 //
 // Plain C interface (bound with ctypes): each launch goes on the caller's
 // stream, allocates nothing, does not synchronise, and returns
@@ -76,75 +76,16 @@
 
 namespace {
 
-// The sample's w encode gates RY(x_j) as 8-float gates, from column b of cs.
-__device__ __forceinline__ void load_encode_gates(const float* __restrict__ cs,
-                                                  float* enc, int wires,
-                                                  int batch, int b) {
-  for (int j = threadIdx.x; j < wires; j += blockDim.x) {
-    const float c = cs[static_cast<size_t>(j) * batch + b];
-    const float s = cs[static_cast<size_t>(wires + j) * batch + b];
-    float* m = enc + j * 8;
-    m[0] = c;
-    m[1] = 0.0f;
-    m[2] = -s;
-    m[3] = 0.0f;
-    m[4] = s;
-    m[5] = 0.0f;
-    m[6] = c;
-    m[7] = 0.0f;
-  }
-}
-
-__global__ void ry_chain_fwd_kernel(const float* __restrict__ cs,
-                                    const float* __restrict__ g8,
-                                    const float* __restrict__ signs,
-                                    float* __restrict__ out_r,
-                                    float* __restrict__ out_i, int wires,
-                                    int batch, int n_layers, int k) {
-  extern __shared__ float smem[];
-  const int d = 1 << wires;
-  const int half = d >> 1;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  float* sr = smem;            // state, real
-  float* si = sr + d;          // state, imaginary
-  float* enc = si + d;         // wires x 8: the sample's encode gates
-  float* sg = enc + wires * 8; // k sign planes
-  float* g = sg + k * d;       // n_layers * wires * 8 gate scalars
-
-  for (int i = tid; i < d; i += nt) {
-    sr[i] = (i == 0) ? 1.0f : 0.0f;
-    si[i] = 0.0f;
-  }
-  load_encode_gates(cs, enc, wires, batch, b);
-  for (int i = tid; i < k * d; i += nt) sg[i] = signs[i];
-  for (int i = tid; i < n_layers * wires * 8; i += nt) g[i] = g8[i];
-  __syncthreads();
-
-  for (int l = 0; l < n_layers; ++l) {
-    if (l % k == 0) {
-      for (int j = 0; j < wires; ++j) {
-        gate_pairs(sr, si, enc + j * 8, 1 << (wires - 1 - j), half);
-        __syncthreads();
-      }
-    }
-    for (int j = 0; j < wires; ++j) {
-      gate_pairs(sr, si, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half);
-      __syncthreads();
-    }
-    const float* sgl = sg + (l % k) * d;
-    for (int i = tid; i < d; i += nt) {
-      sr[i] *= sgl[i];
-      si[i] *= sgl[i];
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < d; i += nt) {
-    out_r[static_cast<size_t>(i) * batch + b] = sr[i];
-    out_i[static_cast<size_t>(i) * batch + b] = si[i];
-  }
+template <int W>
+__global__ void __launch_bounds__(WalkShape<W>::MAX_THREADS)
+    ry_chain_fwd_regs_kernel(const float* __restrict__ cs,
+                             const float* __restrict__ g8,
+                             const float* __restrict__ signs,
+                             float* __restrict__ out_r,
+                             float* __restrict__ out_i, int batch,
+                             int n_layers, int k) {
+  chain_fwd<W, true>(cs, nullptr, g8, signs, out_r, out_i, batch, n_layers,
+                     k);
 }
 
 template <int W>
@@ -167,31 +108,42 @@ __global__ void __launch_bounds__(WalkShape<W>::MAX_THREADS)
 
 extern "C" {
 
-// Shared-memory bytes one forward block needs; the wrapper checks it against
-// the card's per-block limit before launching.
-size_t ry_chain_fwd_smem_bytes(int wires, int n_layers, int k) {
-  const size_t d = size_t{1} << wires;
-  return (2 * d + static_cast<size_t>(wires) * 8 +
-          static_cast<size_t>(k) * d +
-          static_cast<size_t>(n_layers) * wires * 8) *
+// Shared-memory bytes one forward CTA of `samples` samples needs; the
+// wrapper checks it against the card's per-block limit before launching.
+size_t ry_chain_fwd_smem_bytes(int wires, int n_layers, int k, int samples) {
+  return fwd_layout(wires, n_layers, k, samples, true).floats *
          sizeof(float);
 }
 
-// cs is (2 * wires, batch); out_r, out_i are (d, batch).
+// cs is (2 * wires, batch); out_r, out_i are (d, batch). The plan (samples
+// a CTA, CTAs) is chain_fwd_plan's.
 int ry_chain_fwd(const void* cs, const void* g8, const void* signs,
                  void* out_r, void* out_i, int wires, int batch, int n_layers,
-                 int k, int device, void* stream) {
+                 int k, int samples, int grid, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = ry_chain_fwd_smem_bytes(wires, n_layers, k);
-  err = allow_smem(ry_chain_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ry_chain_fwd_kernel<<<batch, threads_for(wires), smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cs), static_cast<const float*>(g8),
-      static_cast<const float*>(signs), static_cast<float*>(out_r),
-      static_cast<float*>(out_i), wires, batch, n_layers, k);
-  return static_cast<int>(cudaGetLastError());
+  if (!fwd_plan_ok(wires, batch, samples, grid) || k < 1 || n_layers < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ry_chain_fwd_smem_bytes(wires, n_layers, k, samples);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const float*>(cs);
+  const auto* g = static_cast<const float*>(g8);
+  const auto* sg = static_cast<const float*>(signs);
+  auto* yr = static_cast<float*>(out_r);
+  auto* yi = static_cast<float*>(out_i);
+  switch (wires) {
+#define FWD_CASE(W)                                                         \
+  case W:                                                                   \
+    err = launch_fwd(ry_chain_fwd_regs_kernel<W>, WalkShape<W>::T, samples, \
+                     grid, smem, s, c, g, sg, yr, yi, batch, n_layers, k);  \
+    break;
+    FWD_CASE(1) FWD_CASE(2) FWD_CASE(3) FWD_CASE(4) FWD_CASE(5)
+    FWD_CASE(6) FWD_CASE(7) FWD_CASE(8) FWD_CASE(9) FWD_CASE(10)
+#undef FWD_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 // Shared-memory bytes one backward CTA of `samples` samples needs.

@@ -193,7 +193,39 @@ def gate_chain_bwd_plain(pr, pi, g8, signs, fr, fi, gr, gi, k: int,
     return dpr, dpi, torch.stack([torch.stack(row) for row in dg])
 
 
-# --- the backward kernels' launch plan --------------------------------------
+# --- the kernels' launch plans -----------------------------------------------
+
+def _walk_shape(wires: int) -> tuple[int, int]:
+    """Warps a sample and samples a CTA at most, as chain_regs.cuh's
+    walk_warps and walk_max_samples: a warp up to 7 wires, 2 at 8, 4 from
+    9; 4 samples a CTA up to 7 wires, 2 from 8."""
+    return (1 if wires < 8 else 2 if wires == 8 else 4,
+            4 if wires < 8 else 2)
+
+
+class ChainFwdPlan(NamedTuple):
+    """How the forward kernels #1 and #3 (``csrc/chain_regs.cuh``'s
+    ``chain_fwd``) lay out a call: ``warps`` warps a sample, ``samples``
+    samples a CTA, ``grid`` CTAs of ``threads`` threads, a plain launch."""
+    warps: int
+    samples: int
+    grid: int
+    threads: int
+
+
+def chain_fwd_plan(wires: int, batch: int) -> ChainFwdPlan:
+    """The forward's layout for ``batch`` samples at ``wires`` wires, from
+    the shape alone: a CTA of four warps, one for each of an SM's
+    schedulers (4 samples up to 7 wires, 2 at 8, 1 from 9), or of the
+    batch's samples if fewer. The forward issues as fast as a warp alone
+    on its scheduler can; a second warp on one halves both."""
+    if not 1 <= wires <= _config.KERNEL_MAX_WIRES or batch < 1:
+        raise ValueError(f"no forward plan for {wires} wires, batch {batch}")
+    warps = _walk_shape(wires)[0]
+    samples = min(4 // warps, batch)
+    return ChainFwdPlan(warps, samples, -(-batch // samples),
+                        32 * warps * samples)
+
 
 # CTAs a thread-block cluster (portable)
 _WALK_MAX_CLUSTER = 8
@@ -224,9 +256,7 @@ def chain_bwd_plan(wires: int, batch: int) -> ChainBwdPlan:
     sums are added by a second launch."""
     if not 1 <= wires <= _config.KERNEL_MAX_WIRES or batch < 1:
         raise ValueError(f"no backward plan for {wires} wires, batch {batch}")
-    # as chain_regs.cuh's walk_warps and walk_max_samples
-    warps = 1 if wires < 8 else 2 if wires == 8 else 4
-    max_samples = 4 if wires < 8 else 2
+    warps, max_samples = _walk_shape(wires)
     cluster = min(_WALK_MAX_CLUSTER, 1 << (batch - 1).bit_length())
     samples = -(-batch // cluster)
     if samples > max_samples:
@@ -296,17 +326,19 @@ def _library():
     if _LIB is None:
         lib = ctypes.CDLL(str(build_library()))
         lib.gate_chain_fwd.argtypes = ([ctypes.c_void_p] * 6
-                                       + [ctypes.c_int] * 5
+                                       + [ctypes.c_int] * 7
                                        + [ctypes.c_void_p])
         lib.gate_chain_fwd.restype = ctypes.c_int
         lib.gate_chain_bwd.argtypes = ([ctypes.c_void_p] * 12
                                        + [ctypes.c_int] * 8
                                        + [ctypes.c_void_p])
         lib.gate_chain_bwd.restype = ctypes.c_int
-        lib.gate_chain_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.gate_chain_fwd_smem_bytes.restype = ctypes.c_size_t
-        lib.gate_chain_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.gate_chain_bwd_smem_bytes.restype = ctypes.c_size_t
+        for fn in (lib.gate_chain_fwd_smem_bytes,
+                   lib.gate_chain_bwd_smem_bytes,
+                   lib.ry_chain_fwd_smem_bytes,
+                   lib.ry_chain_bwd_smem_bytes):
+            fn.argtypes = [ctypes.c_int] * 4
+            fn.restype = ctypes.c_size_t
         lib.sel_chain_fwd.argtypes = ([ctypes.c_void_p] * 6
                                       + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p])
@@ -326,17 +358,13 @@ def _library():
         lib.sel_rows_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.sel_rows_fwd_smem_bytes.restype = ctypes.c_size_t
         lib.ry_chain_fwd.argtypes = ([ctypes.c_void_p] * 5
-                                     + [ctypes.c_int] * 5
+                                     + [ctypes.c_int] * 7
                                      + [ctypes.c_void_p])
         lib.ry_chain_fwd.restype = ctypes.c_int
         lib.ry_chain_bwd.argtypes = ([ctypes.c_void_p] * 10
                                      + [ctypes.c_int] * 8
                                      + [ctypes.c_void_p])
         lib.ry_chain_bwd.restype = ctypes.c_int
-        lib.ry_chain_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.ry_chain_fwd_smem_bytes.restype = ctypes.c_size_t
-        lib.ry_chain_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.ry_chain_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.dm_chain_fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
                                      + [ctypes.c_void_p] + [ctypes.c_int] * 9
                                      + [ctypes.c_void_p])
@@ -426,20 +454,22 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 def _gate_chain_cuda(pr, pi, g8, signs, k: int, wires: int):
-    """Launch the forward kernel on PyTorch's current stream; (sr, si) are
-    new (d, B) float32 tensors."""
+    """Launch the forward kernel on PyTorch's current stream, laid out by
+    :func:`chain_fwd_plan`; (sr, si) are new (d, B) float32 tensors."""
     global LAUNCHES
     d, B, n_layers = _check_cuda_inputs("gate-chain kernel", (pr, pi), g8,
                                         signs, (k, 2**wires, 1), wires)
     lib = _library()
-    _check_smem(lib.gate_chain_fwd_smem_bytes(wires, n_layers, k), n_layers,
-                wires)
+    plan = chain_fwd_plan(wires, B)
+    _check_smem(lib.gate_chain_fwd_smem_bytes(wires, n_layers, k,
+                                              plan.samples), n_layers, wires)
     sr = torch.empty_like(pr)
     si = torch.empty_like(pi)
     stream = torch.cuda.current_stream(pr.device).cuda_stream
     err = lib.gate_chain_fwd(pr.data_ptr(), pi.data_ptr(), g8.data_ptr(),
                              signs.data_ptr(), sr.data_ptr(), si.data_ptr(),
-                             wires, B, n_layers, k, pr.device.index, stream)
+                             wires, B, n_layers, k, plan.samples, plan.grid,
+                             pr.device.index, stream)
     _raise_on(err, lib, "gate-chain kernel")
     LAUNCHES += 1
     return sr, si

@@ -134,21 +134,25 @@ def ry_chain_bwd_plain(cs, g8, signs, fr, fi, gr, gi, k: int, wires: int):
 # --- CUDA kernel -------------------------------------------------------------
 
 def _ry_chain_cuda(cs, g8, signs, k: int, wires: int):
-    """Launch the forward kernel on PyTorch's current stream; (sr, si) are
-    new (d, B) float32 tensors."""
+    """Launch the forward kernel on PyTorch's current stream, laid out by
+    ``gate_kernel.chain_fwd_plan``; (sr, si) are new (d, B) float32
+    tensors."""
     global RY_LAUNCHES
     _, B, n_layers = _gk._check_cuda_inputs(
         "RY-chain kernel", (cs,), g8, signs, (k, 2**wires, 1), wires,
         rows=2 * wires)
     lib = _gk._library()
-    _gk._check_smem(lib.ry_chain_fwd_smem_bytes(wires, n_layers, k),
+    plan = _gk.chain_fwd_plan(wires, B)
+    _gk._check_smem(lib.ry_chain_fwd_smem_bytes(wires, n_layers, k,
+                                                plan.samples),
                     n_layers, wires)
     sr = torch.empty((2**wires, B), dtype=torch.float32, device=cs.device)
     si = torch.empty_like(sr)
     stream = torch.cuda.current_stream(cs.device).cuda_stream
     err = lib.ry_chain_fwd(cs.data_ptr(), g8.data_ptr(), signs.data_ptr(),
                            sr.data_ptr(), si.data_ptr(), wires, B, n_layers,
-                           k, cs.device.index, stream)
+                           k, plan.samples, plan.grid, cs.device.index,
+                           stream)
     _gk._raise_on(err, lib, "RY-chain kernel")
     RY_LAUNCHES += 1
     return sr, si

@@ -1,7 +1,8 @@
 """Device times of the amplitude-damping pass (#7), the unitary-streaming
-chain's forward (#13) and the gate chains' adjoint walks (#2, #4) at the
-shapes their kernels are measured at, through the entries
-``amp_damp_kernel.amp_damp``, ``unitary_kernel.unitary_chain_planes``,
+chain's forward (#13), the gate chains' forwards (#1, #3) and their adjoint
+walks (#2, #4) at the shapes their kernels are measured at, through the
+entries ``amp_damp_kernel.amp_damp``, ``unitary_kernel.unitary_chain_planes``,
+``gate_kernel._gate_chain_cuda``, ``ry_kernel._ry_chain_cuda``,
 ``gate_kernel._gate_chain_bwd_cuda`` and ``ry_kernel._ry_chain_bwd_cuda``;
 beside #13, its library formulation (one complex64 ``torch.matmul`` a layer
 with the phase multiplies, cuBLAS with TF32 off).
@@ -51,6 +52,12 @@ AMP_STRENGTH = 0.05
 # (wires, batch, L, k): the CNOT-ring route's widest block and
 # QIDDM_LL_noise 784 6 14 2's width, L*k = 28
 UNITARY_SHAPES = ((8, 80, 14, 2), (6, 16, 14, 2))
+# (wires, batch, L*k, k) of #1: QIDDM_LL_noise 784 6 14 2's training step
+# (1 image x tau 10), the sampling batch, and QIDDM-A's 10 wires x 80 rows
+GATE_FWD_SHAPES = ((6, 10, 28, 2), (6, 16, 28, 2), (10, 80, 28, 2))
+# of #3: QIDDM_PL_noise1 784 8 6 2's training step and the JAX package's
+# A/B shape
+RY_FWD_SHAPES = ((8, 10, 12, 2), (6, 11, 28, 2))
 # (wires, batch, L*k, k) of #2: QIDDM_LL_noise 784 6 14 2's training step
 # (1 image x tau 10), the sampling batch, and QIDDM-A's 10 wires x 80 rows
 GATE_BWD_SHAPES = ((6, 10, 28, 2), (6, 16, 28, 2), (10, 80, 28, 2))
@@ -122,9 +129,10 @@ def _bwd_planes(rng, wires: int, batch: int, n_layers: int, k: int,
 
 def measure(device: torch.device, seed: int = 0) -> dict:
     """{name: median ms} for every case of ``AMP_SHAPES``,
-    ``UNITARY_SHAPES``, ``GATE_BWD_SHAPES`` and ``RY_BWD_SHAPES``, the
-    kernels' profiled durations on the card (for #2 and #4 also a call's
-    device time over all its kernels), and the launch counts."""
+    ``UNITARY_SHAPES``, ``GATE_FWD_SHAPES``, ``RY_FWD_SHAPES``,
+    ``GATE_BWD_SHAPES`` and ``RY_BWD_SHAPES``, the kernels' profiled
+    durations on the card (for #2 and #4 also a call's device time over all
+    its kernels), and the launch counts."""
     rng = np.random.default_rng(seed)
     times, kernels = {}, {}
 
@@ -140,6 +148,7 @@ def measure(device: torch.device, seed: int = 0) -> dict:
     cuda = device.type == "cuda"
     amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
     unitary_kernel.UNITARY_LAUNCHES = 0
+    gate_kernel.LAUNCHES = ry_kernel.RY_LAUNCHES = 0
     gate_kernel.BWD_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
     with torch.no_grad():
         for w, n in AMP_SHAPES:
@@ -169,6 +178,25 @@ def measure(device: torch.device, seed: int = 0) -> dict:
             p = torch.complex(pr, pi)
             timed(f"library_unitary {key}",
                   lambda: _library_unitary(p, lus, k))
+        for w, b, n, k in GATE_FWD_SHAPES:
+            g8, signs, _, _ = _bwd_planes(rng, w, b, n, k, device)
+            x = torch.as_tensor(rng.normal(size=(2**w, b)),
+                                dtype=torch.float32, device=device)
+            pr, pi = torch.cos(x), torch.sin(x)
+            fwd = (gate_kernel._gate_chain_cuda if cuda
+                   else gate_kernel._chain_plain)
+            args = (pr, pi, g8, signs, k, w)
+            timed(f"gate_chain_fwd w={w} B={b} L*k={n}", lambda: fwd(*args),
+                  "gate_chain_fwd")
+        for w, b, n, k in RY_FWD_SHAPES:
+            g8, signs, _, _ = _bwd_planes(rng, w, b, n, k, device)
+            cs = ry_kernel.ry_cs(torch.as_tensor(
+                2 * rng.normal(size=(b, w)), dtype=torch.float32,
+                device=device))
+            fwd = ry_kernel._ry_chain_cuda if cuda else ry_kernel._ry_plain
+            args = (cs, g8, signs, k, w)
+            timed(f"ry_chain_fwd w={w} B={b} L*k={n}", lambda: fwd(*args),
+                  "ry_chain_fwd")
         for w, b, n, k in GATE_BWD_SHAPES:
             g8, signs, gr, gi = _bwd_planes(rng, w, b, n, k, device)
             x = torch.as_tensor(rng.normal(size=(2**w, b)),
@@ -194,6 +222,8 @@ def measure(device: torch.device, seed: int = 0) -> dict:
     return {"times_ms": times, "kernel_ms": kernels, "call_device_ms": calls,
             "launches": {"amp_damp": amp_damp_kernel.AMP_DAMP_LAUNCHES,
                          "unitary": unitary_kernel.UNITARY_LAUNCHES,
+                         "gate": gate_kernel.LAUNCHES,
+                         "ry": ry_kernel.RY_LAUNCHES,
                          "gate_bwd": gate_kernel.BWD_LAUNCHES,
                          "ry_bwd": ry_kernel.RY_BWD_LAUNCHES}}
 

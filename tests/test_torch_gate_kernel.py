@@ -36,6 +36,14 @@ PLAN_EDGES = [(1, 1, 2, 2), (3, 8, 2, 2), (3, 9, 2, 2), (5, 32, 2, 2),
               (5, 33, 2, 2), (6, 10, 14, 2), (7, 31, 2, 2), (9, 32, 2, 2),
               (9, 33, 2, 2), (10, 1, 2, 2), (10, 15, 2, 2), (10, 16, 2, 2),
               (10, 17, 2, 2)]
+# the forward's launch plan at its edges (gate_kernel.chain_fwd_plan): fewer
+# samples than a CTA's slots, a last CTA with one live sample, and the
+# engine's largest batch 2^w - 1 at each class of the layout (lanes only,
+# register bits, the widest warp, two warps, four)
+FWD_PLAN_EDGES = [(1, 1, 2, 2), (2, 3, 2, 2), (3, 5, 2, 2), (5, 31, 2, 2),
+                  (6, 133, 2, 2), (7, 127, 2, 2), (8, 1, 2, 2),
+                  (8, 9, 2, 2), (8, 255, 2, 2), (9, 511, 2, 2),
+                  (10, 1023, 2, 2)]
 
 
 def _inputs(w, B, L, k, seed=0):
@@ -227,7 +235,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w,B,L,k", CASES + [(10, 80, 14, 2),
-                                              (6, 16, 21, 2)])
+                                              (6, 16, 21, 2)]
+                         + FWD_PLAN_EDGES)
 def test_kernel_matches_plain_on_card(cuda, w, B, L, k):
     ang, x = _inputs(w, B, L, k)
     args = _torch_args(ang, x, cuda)
@@ -239,6 +248,9 @@ def test_kernel_matches_plain_on_card(cuda, w, B, L, k):
     assert kr.device == cuda and kr.dtype == torch.float32
     assert (kr - qr).abs().max().item() <= TOL
     assert (ki - qi).abs().max().item() <= TOL
+    # no atomics: a second call gives the same bits
+    again = gate_kernel.gate_chain_planes(*args, k, w)
+    assert torch.equal(kr, again[0]) and torch.equal(ki, again[1])
 
 
 @pytest.mark.cuda

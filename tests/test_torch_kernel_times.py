@@ -1,4 +1,4 @@
-"""The device-time script of kernels #7, #13, #2 and #4
+"""The device-time script of kernels #7, #13, #1, #3, #2 and #4
 (``qiddm_tpu_torch/tools/kernel_times.py``) on the CPU, at small shapes:
 its cases, its output line and the library formulation of the unitary
 chain against the chain. On the card it times the kernels; here the
@@ -20,6 +20,9 @@ from qiddm_tpu_torch.tools import kernel_times
 def small(monkeypatch):
     monkeypatch.setattr(kernel_times, "AMP_SHAPES", ((3, 5), (2, 4)))
     monkeypatch.setattr(kernel_times, "UNITARY_SHAPES", ((3, 4, 2, 2),))
+    monkeypatch.setattr(kernel_times, "GATE_FWD_SHAPES",
+                        ((3, 3, 4, 2), (8, 1, 2, 2)))
+    monkeypatch.setattr(kernel_times, "RY_FWD_SHAPES", ((9, 2, 4, 2),))
     monkeypatch.setattr(kernel_times, "GATE_BWD_SHAPES",
                         ((3, 5, 4, 2), (1, 2, 2, 2)))
     monkeypatch.setattr(kernel_times, "RY_BWD_SHAPES", ((2, 3, 4, 2),))
@@ -34,11 +37,13 @@ def test_main_on_the_cpu_prints_every_case(small, capsys):
     assert sorted(out["times_ms"]) == sorted([
         "amp_damp w=3 N=5", "amp_damp w=2 N=4",
         "unitary_chain w=3 B=4 L*k=4", "library_unitary w=3 B=4 L*k=4",
+        "gate_chain_fwd w=3 B=3 L*k=4", "gate_chain_fwd w=8 B=1 L*k=2",
+        "ry_chain_fwd w=9 B=2 L*k=4",
         "gate_chain_bwd w=3 B=5 L*k=4", "gate_chain_bwd w=1 B=2 L*k=2",
         "ry_chain_bwd w=2 B=3 L*k=4"])
     assert all(t > 0 for t in out["times_ms"].values())
-    assert out["launches"] == {"amp_damp": 0, "unitary": 0, "gate_bwd": 0,
-                               "ry_bwd": 0}
+    assert out["launches"] == {"amp_damp": 0, "unitary": 0, "gate": 0,
+                               "ry": 0, "gate_bwd": 0, "ry_bwd": 0}
     # the profiled durations are the card's
     assert out["kernel_ms"] == {} and out["call_device_ms"] == {}
 

@@ -38,6 +38,12 @@ CARD_CASES = CASES + [(8, 10, 6, 2), (8, 16, 6, 2), (10, 80, 14, 2),
 PLAN_EDGES = [(1, 1, 2, 2), (3, 8, 2, 2), (3, 9, 2, 2), (5, 32, 2, 2),
               (5, 33, 2, 2), (7, 31, 2, 2), (8, 32, 2, 2), (9, 33, 2, 2),
               (10, 1, 2, 2), (10, 15, 2, 2), (10, 16, 2, 2), (10, 17, 2, 2)]
+# the forward's launch plan at its edges (gate_kernel.chain_fwd_plan), as in
+# tests/test_torch_gate_kernel.py
+FWD_PLAN_EDGES = [(1, 1, 2, 2), (2, 3, 2, 2), (3, 5, 2, 2), (5, 31, 2, 2),
+                  (6, 133, 2, 2), (7, 127, 2, 2), (8, 1, 2, 2),
+                  (8, 9, 2, 2), (8, 255, 2, 2), (9, 511, 2, 2),
+                  (10, 1023, 2, 2)]
 
 
 def _inputs(w, B, L, k, seed=0):
@@ -225,7 +231,7 @@ def test_library_build_covers_the_ry_source():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,B,L,k", CARD_CASES)
+@pytest.mark.parametrize("w,B,L,k", CARD_CASES + FWD_PLAN_EDGES)
 def test_kernel_matches_plain_on_card(cuda, w, B, L, k):
     ang, x = _inputs(w, B, L, k)
     args = _torch_args(ang, x, cuda)
@@ -237,6 +243,9 @@ def test_kernel_matches_plain_on_card(cuda, w, B, L, k):
     assert kr.device == cuda and kr.dtype == torch.float32
     assert (kr - qr).abs().max().item() <= TOL
     assert (ki - qi).abs().max().item() <= TOL
+    # no atomics: a second call gives the same bits
+    again = ry_kernel.ry_chain_planes(*args, k, w)
+    assert torch.equal(kr, again[0]) and torch.equal(ki, again[1])
 
 
 @pytest.mark.cuda
