@@ -34,18 +34,23 @@ any failure exits non-zero and no phase's failure is caught:
    also dg against torch autograd through the plain forward;
 5. SEL-chain forward kernel against plain: kernel #5 at w in
    {1, 2, 4, 6, 8, 10} x B in {1, 10, 16, 80} x ring in {cz, cnot}, depth
-   14, and (w=6, B=16, depth 60, cnot), and at the trajectory route's
+   14, and (w=6, B=16, depth 60, cnot), at the trajectory route's
    widths, w in {11, 12} x B in {1, 10, 1000} x depth in {2, 14} x both
-   rings, from random normalized start states, max |diff| <= 1e-5; then
-   the rows kernel #5 (sel_chain_rows, the trajectory route's (N, d)
-   complex64 entry) at all those shapes against its plain version and
-   against the planes' kernel on the same states, each max |diff| <= 1e-5
-   (the largest difference from the planes' kernel printed: the two give
-   the same bits);
+   rings, and at the edges of its and #6's launch plans (SEL_PLAN_EDGES,
+   WIDE_SEL_PLAN_EDGES: sel_kernel.sel_fwd_plan / sel_bwd_plan at each
+   class of the layout, 1 to 16 warps a sample, to 2^w - 1 samples), from
+   random normalized start states, max |diff| <= 1e-5, and a second call
+   giving the same bits (each shape's plans printed); then the rows
+   kernel #5 (sel_chain_rows, the trajectory route's (N, d) complex64
+   entry) at all those shapes against its plain version (max |diff| <=
+   1e-5) and against the planes' kernel on the same states, which must
+   give the same bits;
 6. SEL-chain backward kernel against plain: kernel #6 at the same shapes
    with N(0, 1) cotangents, dsr, dsi and dg each within
-   1e-5 * max(1, max|plain|); at one shape per ring also against torch
-   autograd through the plain forward;
+   1e-5 * max(1, max|plain|), a second call giving the same bits, and one
+   launch a call with a second for dg's batch sum only where the plan says
+   the batch outgrows a cluster (sel_kernel.SEL_BWD_BATCH_SUMS); at one
+   shape per ring also against torch autograd through the plain forward;
 7. RY-chain forward kernel against plain: kernel #3 at w in {1, 3, 6} x
    B in {1, 5} x (L*k, k) in {(4, 2), (12, 3), (12, 2)}, QIDDM_PL_noise1's
    (w=8, L*k=12) at B=10 and 16, (w=10, B=80, L*k=28) and the JAX package's
@@ -90,15 +95,15 @@ any failure exits non-zero and no phase's failure is caught:
    batch and noise (gradients relative to their own max norm, or to the
    model's largest where a gradient is zero up to rounding, as QNN's
    linear_down);
-11. profile: 10 steady QIDDM_LL_noise(784, 6, 14, 2) and then
-   QIDDM_PL_noise1 training steps (batch 1, tau 10) under torch.profiler:
-   device events, busy time and idle share per step, the chain kernels'
-   share, #1's or #3's and #2's or #4's device time a step, each on its
-   own (2 forward and 2 backward launches a step,
-   none a second launch for dg's batch sum, by the counters and the
-   profile); the steps, and for QIDDM_PL_noise1 the PCA fit and eigh
-   alone, on the host clock; the training runs of phase 10 also counted
-   no second launch;
+11. profile: 10 steady QIDDM_LL_noise(784, 6, 14, 2), then
+   QNN_noise(784, 8, 14), then QIDDM_PL_noise1 training steps (batch 1,
+   tau 10) under torch.profiler: device events, busy time and idle share
+   per step, the chain kernels' share, #1's, #5's or #3's and #2's, #6's or
+   #4's device time a step, each on its own (2 forward and 2 backward
+   launches a step, 1 and 1 for QNN_noise, none a second launch for dg's
+   batch sum, by the counters and the profile); the steps, and for
+   QIDDM_PL_noise1 the PCA fit and eigh alone, on the host clock; the
+   training runs of phase 10 also counted no second launch;
 12. density-matrix kernel against plain: kernel #8 against its plain
    PyTorch version at w in {1, 2, 4, 6, 7, 8} x B in {1, 10} x channel
    kinds {amplitude damping, depolarizing, phase damping} x encodes {RZ, RY}
@@ -317,9 +322,10 @@ any failure exits non-zero and no phase's failure is caught:
    library): every group and dG product kernel, both monolithic kernels
    and both #13 instances must hold some (run after phase 24); and #7's
    registers and spills at each width;
-34. #1-#4's registers and spills from ptxas's report at each of their
-   1-10-wire instances (fails unless all forty are there, or if #1 or #3
-   spills at 6, 8 or 10 wires).
+34. #1-#6's registers and spills from ptxas's report at each of their
+   1-10-wire instances, 1-12 for #5/#6 (fails unless all sixty-four are
+   there, if #1 or #3 spills at 6, 8 or 10 wires, or if #5 or #6 spills
+   at 6 or 8 wires).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -423,6 +429,17 @@ SEL_CASES = ([(w, b, 14, ring) for w in (1, 2, 4, 6, 8, 10)
 # images) and depth (k = 2 a spectrum layer), and at QNN's depth
 WIDE_SEL_CASES = [(w, b, depth, ring) for w in (11, 12) for b in (1, 10, 1000)
                   for depth in (2, 14) for ring in ("cz", "cnot")]
+# #5's and #6's launch plans at their edges (sel_kernel.sel_fwd_plan,
+# sel_bwd_plan; depth 14), at each class of the layout (lanes only, a warp,
+# 2, 4, 8 and 16 warps a sample): fewer samples than a CTA's slots, a last
+# CTA with one live sample, the largest batch one cluster sums in the
+# launch and the first that takes a second launch, and the engine's
+# largest batch 2^w - 1; up to 10 wires, and at 11-12
+SEL_PLAN_EDGES = [(w, b, 14, ring) for w, b in (
+    (1, 1), (3, 5), (5, 32), (5, 33), (7, 127), (8, 9), (8, 16), (8, 17),
+    (9, 511), (10, 17), (10, 1023)) for ring in ("cz", "cnot")]
+WIDE_SEL_PLAN_EDGES = [(w, b, 14, ring) for w, b in (
+    (11, 8), (11, 9), (12, 8), (12, 9)) for ring in ("cz", "cnot")]
 RY_CASES = ([(w, b, n, k) for w in (1, 3, 6) for b in (1, 5)
              for n, k in ((4, 2), (12, 3), (12, 2))]
             + [(8, 10, 12, 2), (8, 16, 12, 2), (10, 80, 28, 2),
@@ -523,6 +540,7 @@ def fail(msg: str) -> None:
 def reset_counts() -> None:
     gate_kernel.LAUNCHES = gate_kernel.BWD_LAUNCHES = 0
     gate_kernel.BWD_BATCH_SUMS = ry_kernel.RY_BWD_BATCH_SUMS = 0
+    sel_kernel.SEL_BWD_BATCH_SUMS = 0
     sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
     sel_kernel.SEL_ROW_LAUNCHES = 0
     ry_kernel.RY_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
@@ -539,6 +557,7 @@ def read_counts() -> dict:
     return {"gate": gate_kernel.LAUNCHES, "gate_bwd": gate_kernel.BWD_LAUNCHES,
             "gate_bwd_sums": gate_kernel.BWD_BATCH_SUMS,
             "ry_bwd_sums": ry_kernel.RY_BWD_BATCH_SUMS,
+            "sel_bwd_sums": sel_kernel.SEL_BWD_BATCH_SUMS,
             "sel": sel_kernel.SEL_LAUNCHES,
             "sel_bwd": sel_kernel.SEL_BWD_LAUNCHES,
             "sel_rows": sel_kernel.SEL_ROW_LAUNCHES,
@@ -720,21 +739,39 @@ def sel_bwd_inputs(rng, wires: int, batch: int, depth: int, ring: str, dev):
     return (g8, fr, fi, gr, gi), (sr, si)
 
 
+def _sel_plan_line(wires: int, batch: int) -> str:
+    fwd = sel_kernel.sel_fwd_plan(wires, batch)
+    bwd = sel_kernel.sel_bwd_plan(wires, batch)
+    return (f"plans {fwd.warps} warp(s) a sample, {fwd.samples} a CTA x "
+            f"{fwd.grid} forward, {bwd.samples} a CTA, {bwd.cluster} CTAs "
+            f"a cluster x {bwd.clusters} backward, dg summed "
+            + ("in the launch" if bwd.in_launch else "by a second launch"))
+
+
 def phase_sel_vs_plain(dev, cases, seed: int) -> float:
+    """Returns the worst max |kernel - plain| over the shapes, each also
+    called twice for the same bits."""
     rng = np.random.default_rng(seed)
     worst = 0.0
     for w, b, depth, ring in cases:
         sr, si, mats = sel_inputs(rng, w, b, depth, dev)
         kr, ki = sel_kernel.sel_chain_planes(sr, si, mats, w, ring)
+        again = sel_kernel.sel_chain_planes(sr, si, mats, w, ring)
         qr, qi = sel_kernel.sel_chain_planes_plain(sr, si, mats, w, ring)
         torch.cuda.synchronize()
         err = max((kr - qr).abs().max().item(), (ki - qi).abs().max().item())
         worst = max(worst, err)
+        same = torch.equal(kr, again[0]) and torch.equal(ki, again[1])
         print(f"SEL kernel vs plain w={w} B={b} depth={depth} {ring}: "
-              f"max|diff| {err:.3e}")
+              f"max|diff| {err:.3e}; two calls "
+              f"{'the same bits' if same else 'DIFFER'}; "
+              + _sel_plan_line(w, b))
         if not err <= KERNEL_TOL:
             fail(f"SEL kernel disagrees with plain at w={w} B={b} "
                  f"depth={depth} {ring}: {err:.3e} > {KERNEL_TOL}")
+        if not same:
+            fail(f"SEL kernel gave other bits on a second call at w={w} "
+                 f"B={b} depth={depth} {ring}")
     return worst
 
 
@@ -743,9 +780,9 @@ def phase_sel_rows_vs_plain(dev, cases, seed: int) -> tuple[float, float]:
     against its plain version on (N, d) complex64 rows and against the
     planes' kernel on the same states as (d, N) planes; returns the worst
     max |diff| of each. The two kernels do the same 2x2 arithmetic per
-    pair in the same wire order and the rings' signs exactly, so they are
-    expected to give the same bits; the largest difference is printed and
-    held to KERNEL_TOL."""
+    pair (gate_pair's fmaf order) in the same wire order and the rings
+    exactly, so they give the same bits: the largest difference is printed
+    and must be 0."""
     rng = np.random.default_rng(seed)
     worst, worst_cols = 0.0, 0.0
     for w, b, depth, ring in cases:
@@ -762,37 +799,53 @@ def phase_sel_rows_vs_plain(dev, cases, seed: int) -> tuple[float, float]:
         print(f"SEL rows kernel w={w} N={b} depth={depth} {ring}: max|diff| "
               f"{err:.3e} against plain, {cols:.3e} against the planes' "
               f"kernel")
-        if not (err <= KERNEL_TOL and cols <= KERNEL_TOL):
+        if not (err <= KERNEL_TOL and cols == 0):
             fail(f"SEL rows kernel disagrees at w={w} N={b} depth={depth} "
-                 f"{ring}: {err:.3e} (plain), {cols:.3e} (planes' kernel) "
-                 f"> {KERNEL_TOL}")
+                 f"{ring}: {err:.3e} against plain (bar {KERNEL_TOL}), "
+                 f"{cols:.3e} against the planes' kernel (bar 0: the same "
+                 f"bits)")
     print(f"SEL rows kernel against the planes' kernel: largest difference "
-          f"{worst_cols:.3e} over {len(cases)} shapes"
-          + (" (the same bits)" if worst_cols == 0 else ""))
+          f"{worst_cols:.3e} over {len(cases)} shapes (the same bits)")
     return worst, worst_cols
 
 
 def phase_sel_bwd_vs_plain(dev, cases, seed: int,
                            check: tuple[int, int, int]) -> float:
-    """Returns the worst max |kernel - plain| over the shapes; ``check``
-    is the (w, B, depth) also held against autograd."""
+    """Returns the worst max |kernel - plain| over the shapes, each also
+    called twice for the same bits, and each taking one launch (and a
+    second for dg's batch sum only past one cluster, SEL_BWD_BATCH_SUMS);
+    ``check`` is the (w, B, depth) also held against autograd."""
     rng = np.random.default_rng(seed)
     worst = 0.0
     for w, b, depth, ring in cases:
         args, _ = sel_bwd_inputs(rng, w, b, depth, ring, dev)
         with torch.no_grad():
+            sums = sel_kernel.SEL_BWD_BATCH_SUMS
             got = sel_kernel._sel_chain_bwd_cuda(*args, w, ring)
+            sums = sel_kernel.SEL_BWD_BATCH_SUMS - sums
+            again = sel_kernel._sel_chain_bwd_cuda(*args, w, ring)
             want = sel_kernel.sel_chain_bwd_plain(*args, w, ring)
         torch.cuda.synchronize()
         errs = [_rel(g, p) for g, p in zip(got, want)]
         worst = max(worst, *((g - p).abs().max().item()
                              for g, p in zip(got, want)))
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        in_launch = sel_kernel.sel_bwd_plan(w, b).in_launch
         print(f"SEL backward kernel vs plain w={w} B={b} depth={depth} "
               f"{ring}: dsr, dsi, dg max|diff| / max(1, max|plain|) "
-              + ", ".join(f"{e:.3e}" for e in errs))
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f"; two calls {'the same bits' if same else 'DIFFER'}; "
+              f"{sums} second launch(es); " + _sel_plan_line(w, b))
         if not max(errs) <= BWD_TOL:
             fail(f"SEL backward kernel disagrees with plain at w={w} B={b} "
                  f"depth={depth} {ring}: {max(errs):.3e} > {BWD_TOL}")
+        if not same:
+            fail(f"SEL backward kernel gave other bits on a second call at "
+                 f"w={w} B={b} depth={depth} {ring}")
+        if sums != (0 if in_launch else 1):
+            fail(f"SEL backward kernel at w={w} B={b}: {sums} second "
+                 f"launches for dg's batch sum, want "
+                 f"{0 if in_launch else 1}")
     # a third formulation: autograd through the plain forward
     w, b, depth = check
     for ring in ("cz", "cnot"):
@@ -1289,18 +1342,25 @@ def phase_wide_sass() -> None:
         fail(f"#9-#13 kernels without TF32 HMMA in their SASS: {counts}")
 
 
-# #1-#4's instances in ptxas's report: gate_ or ry_, fwd or bwd, the width
-_WALK_PTXAS = re.compile(r"(gate|ry)_chain_(fwd|bwd)_regs_kernelILi(\d+)E")
+# #1-#6's instances in ptxas's report: gate_, ry_ or sel_, fwd or bwd, the
+# width
+_WALK_PTXAS = re.compile(
+    r"(gate|ry|sel)_chain_(fwd|bwd)_regs_kernelILi(\d+)E")
 _WALK_KERNELS = {("gate", "fwd"): "#1", ("gate", "bwd"): "#2",
-                 ("ry", "fwd"): "#3", ("ry", "bwd"): "#4"}
+                 ("ry", "fwd"): "#3", ("ry", "bwd"): "#4",
+                 ("sel", "fwd"): "#5", ("sel", "bwd"): "#6"}
 NO_SPILL_WIRES = (6, 8, 10)  # the forwards spill nothing at these widths
+SEL_NO_SPILL_WIRES = (6, 8)  # #5 and #6 at the models' widths
+# the width instances of each: 1-10 wires, 1-12 for the SEL chain
+WALK_WIDTHS = {"#1": 10, "#2": 10, "#3": 10, "#4": 10, "#5": 12, "#6": 12}
 
 
 def phase_walk_registers() -> dict:
-    """#1-#4's registers and spill-store bytes from ptxas's report in the
-    build log, for every width instance (1-10 wires); fails unless all
-    forty instances are there, or if a forward (#1, #3) spills at 6, 8 or
-    10 wires. Returns {(kernel, wires): (registers, spill-store bytes)}."""
+    """#1-#6's registers and spill-store bytes from ptxas's report in the
+    build log, for every width instance (1-10 wires, 1-12 for #5/#6); fails
+    unless all sixty-four instances are there, if a forward (#1, #3) spills
+    at 6, 8 or 10 wires, or if #5 or #6 spills at 6 or 8 wires. Returns
+    {(kernel, wires): (registers, spill-store bytes)}."""
     lib = gate_kernel.build_library()
     lines = lib.with_suffix(".log").read_text().splitlines()
     found = {}
@@ -1318,15 +1378,18 @@ def phase_walk_registers() -> dict:
         print(f"ptxas {kernel} ({name}_chain_{kind}_regs_kernel<w>) "
               f"registers / spill-store bytes: " + ", ".join(
                   f"w={w} {found[kernel, w][0]} / {found[kernel, w][1]}"
-                  for w in range(1, 11) if (kernel, w) in found))
-    if len(found) != 40:
-        fail(f"ptxas reported {len(found)} of the 40 #1-#4 instances: "
-             f"{sorted(found)}")
-    spilled = {key: v for key, v in found.items()
-               if key[0] in ("#1", "#3") and key[1] in NO_SPILL_WIRES
-               and v[1]}
+                  for w in range(1, WALK_WIDTHS[kernel] + 1)
+                  if (kernel, w) in found))
+    want = {(kernel, w) for kernel, top in WALK_WIDTHS.items()
+            for w in range(1, top + 1)}
+    if set(found) != want:
+        fail(f"ptxas reported {len(found)} of the {len(want)} #1-#6 "
+             f"instances; missing {sorted(want - set(found))}")
+    spilled = {key: v for key, v in found.items() if v[1] and (
+        (key[0] in ("#1", "#3") and key[1] in NO_SPILL_WIRES)
+        or (key[0] in ("#5", "#6") and key[1] in SEL_NO_SPILL_WIRES))}
     if spilled:
-        fail(f"forward instances spill registers: {spilled}")
+        fail(f"instances spill registers: {spilled}")
     return found
 
 
@@ -1898,15 +1961,18 @@ def _train_step(tmp: pathlib.Path, margs: list):
 
 
 def _walk_step_check(name: str, dev: list, counts: dict, fwd: str,
-                     counter: str, sums: str, steps: int) -> None:
-    """Fails unless the profiled steps ran 2 forwards (counter ``fwd``) and
-    2 backward walks a step and each walk summed dg in its own launch: no
-    second launch (counter ``sums``, and no dg_batch_sum_kernel record)."""
+                     counter: str, sums: str, steps: int,
+                     per_step: int = 2) -> None:
+    """Fails unless the profiled steps ran ``per_step`` forwards (counter
+    ``fwd``) and backward walks a step and each walk summed dg in its own
+    launch: no second launch (counter ``sums``, and no dg_batch_sum_kernel
+    record)."""
     second = sum(1 for e in dev if "dg_batch_sum" in e.name)
-    if (counts[fwd] != 2 * steps or counts[counter] != 2 * steps
-            or counts[sums] or second):
+    want = per_step * steps
+    if (counts[fwd] != want or counts[counter] != want or counts[sums]
+            or second):
         fail(f"{name}: {counts[fwd]} forwards and {counts[counter]} "
-             f"backward walks in {steps} steps (want {2 * steps} each), "
+             f"backward walks in {steps} steps (want {want} each), "
              f"{counts[sums]} batch sums counted and {second} profiled in a "
              f"second launch (want 0)")
 
@@ -1940,6 +2006,38 @@ def phase_profile_ll(tmp: pathlib.Path, smi: str) -> None:
           f"{counts['gate'] // steps} launches a step), #2 "
           f"{bwd_us / steps:.1f} us per step ({bwd_us / busy:.3f} of busy, "
           f"{counts['gate_bwd'] // steps} launches a step); step without "
+          f"the profiler {step_ms:.3f} ms")
+
+
+def phase_profile_qnn(tmp: pathlib.Path, smi: str) -> None:
+    """Where a QNN_noise(784, 8, 14) training step's time goes (batch 1, tau
+    10, the driver's default): 10 steady steps under torch.profiler from
+    counts of 0 give the device events, the device busy time and idle
+    share per step, and the SEL chain's kernels' time a step, #5's and
+    #6's each on its own; one forward and one backward launch a step, the
+    backward's dg summed over the batch in it (no second launch)."""
+    step, x, gen = _train_step(tmp, QNN_MODEL)
+    step_ms = _host_ms(lambda: step(x, gen))
+    steps = 10
+    dev, busy, wall_us, counts = _device_profile(
+        lambda: [step(x, gen) for _ in range(steps)])
+    _walk_step_check("QNN_noise training", dev, counts, "sel", "sel_bwd",
+                     "sel_bwd_sums", steps, per_step=1)
+    fwd_us = sum(e.time_range.elapsed_us() for e in dev
+                 if "sel_chain_fwd" in e.name)
+    bwd_us = sum(e.time_range.elapsed_us() for e in dev
+                 if "sel_chain_bwd" in e.name)
+    chain_us = fwd_us + bwd_us
+    print(f"profile {' '.join(QNN_MODEL)} training ({smi}), {steps} steps: "
+          f"{len(dev) / steps:.1f} device events per step, device busy "
+          f"{busy / steps / 1e3:.4f} ms per step, idle share "
+          f"{1 - busy / wall_us:.3f} of {wall_us / steps / 1e3:.3f} ms per "
+          f"profiled step; SEL chain kernels {chain_us / steps:.1f} us per "
+          f"step ({chain_us / busy:.3f} of busy), #5 {fwd_us / steps:.1f} us "
+          f"per step ({fwd_us / busy:.3f} of busy, "
+          f"{counts['sel'] // steps} launch a step), #6 "
+          f"{bwd_us / steps:.1f} us per step ({bwd_us / busy:.3f} of busy, "
+          f"{counts['sel_bwd'] // steps} launch a step); step without "
           f"the profiler {step_ms:.3f} ms")
 
 
@@ -2265,9 +2363,11 @@ def bound_dm(w, b, n_spec, k, ry, kind) -> tuple[float, str]:
 
 
 def bound_sel(w, b, depth, ring, bwd: bool) -> tuple[float, str]:
+    """#5 / #6 on (d, B) planes: the CZ signs are computed from the index
+    (no table); a CNOT ring reads its (p, w) gather columns."""
     d, g = 2**w, depth * w * 8
     sign = 2 if ring == "cz" else 0  # a CNOT ring moves, it computes nothing
-    table = max(w - 1, 1) * d
+    table = max(w - 1, 1) * w if ring == "cnot" else 0
     if not bwd:
         return _bound(b * d * depth * (14 * w + sign),
                       4 * (2 * d * b + g + table + 2 * d * b))
@@ -3397,13 +3497,17 @@ def main() -> None:
         max_err = phase_kernel_vs_plain(dev)
     bwd_err = phase_bwd_vs_plain(dev)
     with torch.no_grad():
-        sel_err = phase_sel_vs_plain(dev, SEL_CASES, SEED + 3)
-        sel_wide_err = phase_sel_vs_plain(dev, WIDE_SEL_CASES, SEED + 10)
-        rows_err, _ = phase_sel_rows_vs_plain(dev, SEL_CASES + WIDE_SEL_CASES,
-                                              SEED + 16)
-    sel_bwd_err = phase_sel_bwd_vs_plain(dev, SEL_CASES, SEED + 4, (8, 10, 14))
-    sel_bwd_wide_err = phase_sel_bwd_vs_plain(dev, WIDE_SEL_CASES, SEED + 11,
-                                              (12, 10, 2))
+        sel_err = phase_sel_vs_plain(dev, SEL_CASES + SEL_PLAN_EDGES,
+                                     SEED + 3)
+        sel_wide_err = phase_sel_vs_plain(
+            dev, WIDE_SEL_CASES + WIDE_SEL_PLAN_EDGES, SEED + 10)
+        rows_err, _ = phase_sel_rows_vs_plain(
+            dev, SEL_CASES + WIDE_SEL_CASES + SEL_PLAN_EDGES
+            + WIDE_SEL_PLAN_EDGES, SEED + 16)
+    sel_bwd_err = phase_sel_bwd_vs_plain(dev, SEL_CASES + SEL_PLAN_EDGES,
+                                         SEED + 4, (8, 10, 14))
+    sel_bwd_wide_err = phase_sel_bwd_vs_plain(
+        dev, WIDE_SEL_CASES + WIDE_SEL_PLAN_EDGES, SEED + 11, (12, 10, 2))
     with torch.no_grad():
         ry_err = phase_ry_vs_plain(dev)
     ry_bwd_err = phase_ry_bwd_vs_plain(dev)
@@ -3429,9 +3533,10 @@ def main() -> None:
             {"gate": 2, "gate_bwd": 2, "sel": 1, "sel_bwd": 1}, default=True)
         pl_trained, pl_rates = phase_train(
             tmp, n_train, [PL_MODEL], {"ry": 2, "ry_bwd": 2}, default=False)
-        # the models' batches (tau 10 rows) fit one cluster of #2 and #4:
-        # one launch a backward, no second launch for dg's batch sum
-        if trained["gate_bwd_sums"] or pl_trained["ry_bwd_sums"]:
+        # the models' batches (tau 10 rows) fit one cluster of #2, #4 and
+        # #6: one launch a backward, no second launch for dg's batch sum
+        if (trained["gate_bwd_sums"] or trained["sel_bwd_sums"]
+                or pl_trained["ry_bwd_sums"]):
             fail(f"a training backward summed dg in a second launch: "
                  f"{trained}, {pl_trained}")
         train_rates.update(pl_rates)
@@ -3445,6 +3550,7 @@ def main() -> None:
                               (WIDE_MODEL, 1)):
             phase_train_parity(tmp, margs, images)
         phase_profile_ll(tmp, smi)
+        phase_profile_qnn(tmp, smi)
         phase_profile_pl(tmp, smi)
         phase_profile_wide(tmp, smi)
         mono_model, mono_rate, mono_train_rate = phase_mono_model(

@@ -105,8 +105,8 @@ size_t smem_bytes(int wires, int n_layers, int ry, int cluster, int in_smem) {
          (in_smem ? d * d / cluster * sizeof(float2) : 0);
 }
 
-// The 2x2 complex gate m on the pair (a, b) = (bit 0, bit 1), term order as
-// chain_common.cuh's gate_pairs.
+// The 2x2 complex gate m on the pair (a, b) = (bit 0, bit 1), in the term
+// order of chain_common.cuh's gate_pair.
 __device__ __forceinline__ void mix(const float* m, float2& a, float2& b) {
   const float2 na = make_float2(m[0] * a.x - m[1] * a.y + m[2] * b.x - m[3] * b.y,
                                 m[0] * a.y + m[1] * a.x + m[2] * b.y + m[3] * b.x);

@@ -1,7 +1,7 @@
 // SEL chain (StronglyEntanglingLayers on arbitrary start states), forward
 // pass and its adjoint backward, for NVIDIA Hopper (sm_90a).
 //
-// sel_chain_fwd_kernel replaces
+// sel_chain_fwd_regs_kernel<w> replaces
 // qiddm_tpu/sim/pallas_gate_kernel.py::_sel_fwd_kernel (entry
 // sel_chain_pallas -> _sel_chain_fwd_call). For every sample b it starts
 // from the sample's own state column (sr0, si0)[:, b] and runs `depth`
@@ -9,42 +9,54 @@
 //   * a 2x2 complex gate on each wire j = 0..w-1 (as in gate_chain.cu);
 //   * the layer's ring of range q + 1, q = l % (w-1), cycling over the full
 //     depth (not per block of k layers as in gate_chain.cu); none at w = 1.
-//     A CZ ring multiplies by the sign plane ring[q]. A CNOT ring is a basis
-//     permutation: one gather new[i] = old[ring[q][i]] into a second buffer,
-//     instead of w sequential CNOTs.
-// The ring tables come from the wrapper (qiddm_tpu_torch/sim/sel_kernel.py),
-// built from the ported cz_ring_signs and cnot_ring_perm: (p, d) 32-bit
-// words, p = max(w-1, 1), float signs for CZ and int32 rows for CNOT.
+//     A CZ ring multiplies by (-1)^popc(i & rotl_w(i, q + 1)). A CNOT ring
+//     is a basis permutation, new[i] = old[inv(i)], instead of w sequential
+//     CNOTs; inv is linear over GF(2), so the wrapper
+//     (qiddm_tpu_torch/sim/sel_kernel.py) passes its (p, w) int32 columns
+//     inv(1 << b), p = max(w-1, 1).
 //
-// sel_chain_bwd_kernel replaces _sel_bwd_kernel (entry _sel_chain_bwd).
-// From the forward output (fr, fi) and its cotangent (gr, gi) it walks the
-// chain in reverse, l = depth-1 .. 0:
+// sel_chain_bwd_regs_kernel<w> replaces _sel_bwd_kernel (entry
+// _sel_chain_bwd). From the forward output (fr, fi) and its cotangent
+// (gr, gi) it walks the chain in reverse, l = depth-1 .. 0:
 //   * the inverse ring on the state and on the cotangent: the same signs for
-//     CZ (self-inverse); for CNOT the inverse permutation, a gather through
-//     the forward map f (the wrapper passes f, not the forward's table);
-//   * for j = w-1 .. 0 the adjoint step of chain_common.cuh: the gate's
-//     input state, dg[l, j], and the cotangent carried to the gate's input.
-// The cotangent left at the start is (dsr, dsi). No per-layer state is
-// stored: states are rebuilt through inverse gates and rings, as on the TPU.
+//     CZ (self-inverse); for CNOT the gather through the forward map f
+//     (f(inv(i)) = i; the wrapper passes f's columns);
+//   * for j = w-1 .. 0 the adjoint gate on the state, the gate's dg (the
+//     output-side cotangent against the gate's input state) and the adjoint
+//     gate on the cotangent.
+// The cotangent left at the start is (dsr, dsi); dg (depth, w, 8) is summed
+// over the batch. No per-layer state is stored: states are rebuilt through
+// inverse gates and rings, as on the TPU.
 //
-// Design. One thread block per sample with min(max(d/2, 32), 1024) threads,
-// a thread per amplitude pair per gate up to 11 wires and two at 12, a
-// barrier between gates, as gate_chain.cu. The state (and for the backward
-// the cotangent), a second buffer of each for the CNOT gather and all
-// depth*w*8 gate scalars sit in shared memory for the whole chain: at w=12,
-// depth 14, 70 KB forward and 135 KB backward. The p ring tables stay in
-// device memory, read through L2 (p*d*4 bytes, 180 KB at w=12, shared by
-// every block): in shared memory they alone would take 180 KB at w=12 and
-// push the backward past the 227 KB a block may have. dg: each block's
-// partials go to a (B, depth, w, 8) workspace that dg_batch_sum_kernel sums
-// over b in a fixed order, so two calls give the same bits.
+// Design: both kernels are chain_regs.cuh's bodies (sel_fwd, sel_walk), a
+// template on the width, on the layout of the gate chains' kernels #1-#4:
+// the sample's state (and, backward, its cotangent) in registers for the
+// whole chain, a warp a sample up to 7 wires, 2 at 8, 4 at 9-10, 8 at 11
+// and 16 at 12; a lane bit's partner by shuffle, a warp bit's through the
+// sample's exchange planes behind a named barrier of its warps; each thread
+// forms only its own new row, in gate_pair's fmaf order (so the planes'
+// forward gives the rows kernel's bits). A CZ ring is a sign flip computed
+// from each row's index, with no table; a CNOT ring goes through the
+// exchange planes behind one barrier of the sample, each thread reading the
+// rows of the map from the columns (staged once a CTA). The backward's dg
+// partials go to a shared-memory strip summed once a layer (from 11 wires
+// first over each warp's lanes), and dg's batch sum ends in the launch over
+// a thread-block cluster of up to 8 CTAs; past one cluster (16 samples at 8
+// wires) each cluster's sum goes to a scratch that a second, fixed-order
+// launch adds: no atomics, so two calls give the same bits. The gate table
+// is staged by cp.async. No block-wide barrier runs after the tables are
+// staged, but the walk's closing batch sum. sel_kernel.sel_fwd_plan and
+// sel_bwd_plan set the samples a CTA and the clusters, from the shape alone;
+// the launchers check them (fwd_plan_ok, walk_plan_ok).
 //
-// What bounds it on this card. At QNN's shape (w=8, depth 14, B=10) a
-// forward is 14*8*128*10 pair updates (~143k, ~2 MFLOP): neither FLOPs nor
-// bandwidth matter. Launch latency and the chain of block-wide barriers
-// (~126 forward, ~126 backward) do, and only B of the 132 SMs get a block.
-// Reading a column of a (d, B) plane with stride B is uncoalesced; at these
-// sizes it is accepted.
+// What bounds them on this card. At QNN's shape (w=8, depth 14, B=10) a
+// forward is 112 gates of 128 amplitude pairs a sample (~2 MFLOP a launch)
+// and a backward ~3x that: ~1,000x below the float32 peak's time, and the
+// bytes are ~40-80 KB. The gates run in a row, each needing the last one's
+// state, so a gate's latency (its 2x2 arithmetic and one exchange) sets the
+// time, with a latency-bound chain per sample. Tensor cores, TMA and wgmma do
+// not fit: a chain of 2x2 complex products on at most 4,096 amplitudes a
+// sample, with nothing to stream and no product large enough for a tile.
 //
 // sel_rows_fwd_kernel is the same forward for the trajectory route, whose
 // states are (N, d) complex64 rows (sel_kernel.sel_chain_rows). At its
@@ -59,7 +71,7 @@
 //   * a layer's wires are taken R at a time, in order j = 0..w-1: the
 //     window holds the group's bits and the group's gates run in
 //     registers, chain_common.cuh's gate_pair on each pair in the same wire
-//     order as sel_chain_fwd_kernel (so the same bits);
+//     order as sel_chain_fwd_regs_kernel (so the same bits);
 //   * between groups the amplitudes change windows through shared memory:
 //     each thread writes its A, one barrier, each reads its next A. Two
 //     buffers alternate, so one barrier an exchange; a float2 of padding
@@ -83,169 +95,36 @@
 #include <cstddef>
 
 #include "chain_common.cuh"
+#include "chain_regs.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
-    sel_chain_fwd_kernel(const float* __restrict__ sr0,
-                         const float* __restrict__ si0,
-                         const float* __restrict__ g8,
-                         const unsigned* __restrict__ ring,
-                         float* __restrict__ out_r,
-                         float* __restrict__ out_i, int wires,
-                         int batch, int depth, int is_cz) {
-  extern __shared__ float smem[];
-  const int d = 1 << wires;
-  const int half = d >> 1;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  float* sr = smem;            // state, real
-  float* si = sr + d;          // state, imaginary
-  float* tr = si + d;          // gather buffer, real
-  float* ti = tr + d;          // gather buffer, imaginary
-  float* g = ti + d;           // depth * wires * 8 gate scalars
-  // the p ring tables, in device memory: CZ signs or CNOT gather rows
-  const float* sg = reinterpret_cast<const float*>(ring);
-  const int* rows = reinterpret_cast<const int*>(ring);
-
-  for (int i = tid; i < d; i += nt) {
-    sr[i] = sr0[static_cast<size_t>(i) * batch + b];
-    si[i] = si0[static_cast<size_t>(i) * batch + b];
-  }
-  for (int i = tid; i < depth * wires * 8; i += nt) g[i] = g8[i];
-  __syncthreads();
-
-  for (int l = 0; l < depth; ++l) {
-    for (int j = 0; j < wires; ++j) {
-      gate_pairs(sr, si, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half);
-      __syncthreads();
-    }
-    if (wires == 1) continue;
-    const int q = l % (wires - 1);
-    if (is_cz) {
-      const float* sgl = sg + q * d;
-      for (int i = tid; i < d; i += nt) {
-        const float sign = __ldg(sgl + i);
-        sr[i] *= sign;
-        si[i] *= sign;
-      }
-    } else {
-      const int* rl = rows + q * d;
-      for (int i = tid; i < d; i += nt) {
-        const int from = __ldg(rl + i);
-        tr[i] = sr[from];
-        ti[i] = si[from];
-      }
-      float* t = sr;  // every thread swaps alike
-      sr = tr;
-      tr = t;
-      t = si;
-      si = ti;
-      ti = t;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < d; i += nt) {
-    out_r[static_cast<size_t>(i) * batch + b] = sr[i];
-    out_i[static_cast<size_t>(i) * batch + b] = si[i];
-  }
+template <int W>
+__global__ void __launch_bounds__(WalkShape<W>::MAX_THREADS)
+    sel_chain_fwd_regs_kernel(const float* __restrict__ sr0,
+                              const float* __restrict__ si0,
+                              const float* __restrict__ g8,
+                              const int* __restrict__ cols,
+                              float* __restrict__ out_r,
+                              float* __restrict__ out_i, int batch, int depth,
+                              int is_cz) {
+  sel_fwd<W>(sr0, si0, g8, cols, out_r, out_i, batch, depth, is_cz);
 }
 
-__global__ void __launch_bounds__(1024)
-    sel_chain_bwd_kernel(const float* __restrict__ g8,
-                         const unsigned* __restrict__ ring,
-                         const float* __restrict__ fr,
-                         const float* __restrict__ fi,
-                         const float* __restrict__ gr,
-                         const float* __restrict__ gi,
-                         float* __restrict__ dg_part,
-                         float* __restrict__ dsr,
-                         float* __restrict__ dsi, int wires,
-                         int batch, int depth, int is_cz) {
-  extern __shared__ float smem[];
-  const int d = 1 << wires;
-  const int half = d >> 1;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int nwarps = nt >> 5;
-  float* sr = smem;            // state, real
-  float* si = sr + d;          // state, imaginary
-  float* cr = si + d;          // cotangent, real
-  float* ci = cr + d;          // cotangent, imaginary
-  float* tsr = ci + d;         // gather buffers of the four
-  float* tsi = tsr + d;
-  float* tcr = tsi + d;
-  float* tci = tcr + d;
-  float* g = tci + d;          // depth * wires * 8 gate scalars
-  float* red = g + depth * wires * 8;  // 2 x nwarps x 8 warp partials
-  // the p inverse ring tables, in device memory: CZ signs or CNOT rows
-  const float* sg = reinterpret_cast<const float*>(ring);
-  const int* rows = reinterpret_cast<const int*>(ring);
-
-  for (int i = tid; i < d; i += nt) {
-    const size_t at = static_cast<size_t>(i) * batch + b;
-    sr[i] = fr[at];
-    si[i] = fi[at];
-    cr[i] = gr[at];
-    ci[i] = gi[at];
-  }
-  for (int i = tid; i < depth * wires * 8; i += nt) g[i] = g8[i];
-  __syncthreads();
-
-  int parity = 0;
-  for (int l = depth - 1; l >= 0; --l) {
-    if (wires > 1) {
-      const int q = l % (wires - 1);
-      if (is_cz) {
-        const float* sgl = sg + q * d;
-        for (int i = tid; i < d; i += nt) {
-          const float sign = __ldg(sgl + i);
-          sr[i] *= sign;
-          si[i] *= sign;
-          cr[i] *= sign;
-          ci[i] *= sign;
-        }
-      } else {
-        const int* rl = rows + q * d;
-        for (int i = tid; i < d; i += nt) {
-          const int from = __ldg(rl + i);
-          tsr[i] = sr[from];
-          tsi[i] = si[from];
-          tcr[i] = cr[from];
-          tci[i] = ci[from];
-        }
-        float* t = sr;  // every thread swaps alike
-        sr = tsr;
-        tsr = t;
-        t = si;
-        si = tsi;
-        tsi = t;
-        t = cr;
-        cr = tcr;
-        tcr = t;
-        t = ci;
-        ci = tci;
-        tci = t;
-      }
-      __syncthreads();
-    }
-    for (int j = wires - 1; j >= 0; --j) {
-      adjoint_gate_step(
-          sr, si, cr, ci, g + (l * wires + j) * 8, 1 << (wires - 1 - j), half,
-          red + parity * nwarps * 8,
-          dg_part + (static_cast<size_t>(b) * depth + l) * wires * 8 + j * 8);
-      parity ^= 1;
-    }
-  }
-
-  for (int i = tid; i < d; i += nt) {
-    const size_t at = static_cast<size_t>(i) * batch + b;
-    dsr[at] = cr[i];
-    dsi[at] = ci[i];
-  }
+template <int W>
+__global__ void __launch_bounds__(WalkShape<W>::MAX_THREADS)
+    sel_chain_bwd_regs_kernel(const float* __restrict__ g8,
+                              const int* __restrict__ cols,
+                              const float* __restrict__ fr,
+                              const float* __restrict__ fi,
+                              const float* __restrict__ gr,
+                              const float* __restrict__ gi,
+                              float* __restrict__ dg_out,
+                              float* __restrict__ dsr,
+                              float* __restrict__ dsi, int batch, int depth,
+                              int is_cz) {
+  sel_walk<W>(g8, cols, fr, fi, gr, gi, dg_out, dsr, dsi, batch, depth,
+              is_cz);
 }
 
 // ------------------------------------------------------------ rows kernel
@@ -414,64 +293,102 @@ cudaError_t launch_rows(const RowsShape& sh, size_t smem, int blocks,
 
 extern "C" {
 
-// Shared-memory bytes one forward block needs; the wrapper checks it
-// against the card's per-block limit before launching.
-size_t sel_chain_fwd_smem_bytes(int wires, int depth) {
-  const size_t d = size_t{1} << wires;
-  return (4 * d + static_cast<size_t>(depth) * wires * 8) * sizeof(float);
-}
-
-// sr0, si0, out_r, out_i are (d, batch); g8 is (depth, wires, 8); ring is
-// (max(wires-1, 1), d) 32-bit words (float signs if is_cz, else int32 rows).
-int sel_chain_fwd(const void* sr0, const void* si0, const void* g8,
-                  const void* ring, void* out_r, void* out_i, int wires,
-                  int batch, int depth, int is_cz, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sel_chain_fwd_smem_bytes(wires, depth);
-  err = allow_smem(sel_chain_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sel_chain_fwd_kernel<<<batch, threads_for(wires), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sr0), static_cast<const float*>(si0),
-      static_cast<const float*>(g8), static_cast<const unsigned*>(ring),
-      static_cast<float*>(out_r), static_cast<float*>(out_i), wires, batch,
-      depth, is_cz);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Shared-memory bytes one backward block needs.
-size_t sel_chain_bwd_smem_bytes(int wires, int depth) {
-  const size_t d = size_t{1} << wires;
-  const size_t nwarps = threads_for(wires) / 32;
-  return (8 * d + static_cast<size_t>(depth) * wires * 8 + 2 * nwarps * 8) *
+// Shared-memory bytes one forward CTA of `samples` samples needs; the
+// wrapper checks it against the card's per-block limit before launching.
+size_t sel_chain_fwd_smem_bytes(int wires, int depth, int samples,
+                                int is_cz) {
+  return sel_layout(wires, depth, samples, false, is_cz).floats *
          sizeof(float);
 }
 
-// ring holds the inverse rings (CNOT: the forward map f); dg_part is
-// (batch, depth, wires, 8) scratch; dg is (depth, wires, 8); fr, fi, gr, gi,
-// dsr, dsi are (d, batch).
-int sel_chain_bwd(const void* g8, const void* ring, const void* fr,
-                  const void* fi, const void* gr, const void* gi,
-                  void* dg_part, void* dg, void* dsr, void* dsi, int wires,
-                  int batch, int depth, int is_cz, int device, void* stream) {
+// sr0, si0, out_r, out_i are (d, batch); g8 is (depth, wires, 8); cols is
+// the CNOT rings' (max(wires-1, 1), wires) int32 columns of inv (read only
+// when !is_cz). The plan (samples a CTA, CTAs) is sel_fwd_plan's.
+int sel_chain_fwd(const void* sr0, const void* si0, const void* g8,
+                  const void* cols, void* out_r, void* out_i, int wires,
+                  int batch, int depth, int is_cz, int samples, int grid,
+                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sel_chain_bwd_smem_bytes(wires, depth);
-  err = allow_smem(sel_chain_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!fwd_plan_ok(wires, batch, samples, grid, 12) || depth < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sel_chain_fwd_smem_bytes(wires, depth, samples, is_cz);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sel_chain_bwd_kernel<<<batch, threads_for(wires), smem, s>>>(
-      static_cast<const float*>(g8), static_cast<const unsigned*>(ring),
-      static_cast<const float*>(fr), static_cast<const float*>(fi),
-      static_cast<const float*>(gr), static_cast<const float*>(gi),
-      static_cast<float*>(dg_part), static_cast<float*>(dsr),
-      static_cast<float*>(dsi), wires, batch, depth, is_cz);
-  err = cudaGetLastError();
+  const auto* a = static_cast<const float*>(sr0);
+  const auto* c = static_cast<const float*>(si0);
+  const auto* g = static_cast<const float*>(g8);
+  const auto* cs = static_cast<const int*>(cols);
+  auto* yr = static_cast<float*>(out_r);
+  auto* yi = static_cast<float*>(out_i);
+  switch (wires) {
+#define FWD_CASE(W)                                                          \
+  case W:                                                                    \
+    err = launch_fwd(sel_chain_fwd_regs_kernel<W>, WalkShape<W>::T, samples, \
+                     grid, smem, s, a, c, g, cs, yr, yi, batch, depth,       \
+                     is_cz);                                                 \
+    break;
+    FWD_CASE(1) FWD_CASE(2) FWD_CASE(3) FWD_CASE(4) FWD_CASE(5) FWD_CASE(6)
+    FWD_CASE(7) FWD_CASE(8) FWD_CASE(9) FWD_CASE(10) FWD_CASE(11)
+    FWD_CASE(12)
+#undef FWD_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Shared-memory bytes one backward CTA of `samples` samples needs.
+size_t sel_chain_bwd_smem_bytes(int wires, int depth, int samples,
+                                int is_cz) {
+  return sel_layout(wires, depth, samples, true, is_cz).floats *
+         sizeof(float);
+}
+
+// cols holds f's columns, the forward map that undoes each CNOT ring; dg is
+// (depth, wires, 8); fr, fi, gr, gi, dsr, dsi are (d, batch). The plan
+// (samples a CTA, CTAs a cluster, clusters) is sel_bwd_plan's; with one
+// cluster dg is summed in the launch and dg_part is unused (it may be dg),
+// else each cluster's sum goes to dg_part (clusters, depth, wires, 8) and a
+// second launch adds them in cluster order.
+int sel_chain_bwd(const void* g8, const void* cols, const void* fr,
+                  const void* fi, const void* gr, const void* gi,
+                  void* dg_part, void* dg, void* dsr, void* dsi, int wires,
+                  int batch, int depth, int is_cz, int samples, int cluster,
+                  int clusters, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!walk_plan_ok(wires, batch, samples, cluster, clusters, 12) ||
+      depth < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sel_chain_bwd_smem_bytes(wires, depth, samples, is_cz);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(clusters == 1 ? dg : dg_part);
+  const auto* g = static_cast<const float*>(g8);
+  const auto* cs = static_cast<const int*>(cols);
+  const auto* xr = static_cast<const float*>(fr);
+  const auto* xi = static_cast<const float*>(fi);
+  const auto* yr = static_cast<const float*>(gr);
+  const auto* yi = static_cast<const float*>(gi);
+  auto* ga = static_cast<float*>(dsr);
+  auto* gb = static_cast<float*>(dsi);
+  switch (wires) {
+#define WALK_CASE(W)                                                        \
+  case W:                                                                   \
+    err = launch_walk(sel_chain_bwd_regs_kernel<W>, WalkShape<W>::T,        \
+                      samples, cluster, clusters, smem, s, g, cs, xr, xi,   \
+                      yr, yi, out, ga, gb, batch, depth, is_cz);            \
+    break;
+    WALK_CASE(1) WALK_CASE(2) WALK_CASE(3) WALK_CASE(4) WALK_CASE(5)
+    WALK_CASE(6) WALK_CASE(7) WALK_CASE(8) WALK_CASE(9) WALK_CASE(10)
+    WALK_CASE(11) WALK_CASE(12)
+#undef WALK_CASE
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || clusters == 1) return static_cast<int>(err);
   return static_cast<int>(launch_dg_batch_sum(
       static_cast<const float*>(dg_part), static_cast<float*>(dg),
-      depth * wires * 8, batch, s));
+      depth * wires * 8, clusters, s));
 }
 
 // Shared-memory bytes one rows block needs for n states.

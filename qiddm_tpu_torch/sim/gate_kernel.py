@@ -197,20 +197,33 @@ def gate_chain_bwd_plain(pr, pi, g8, signs, fr, fi, gr, gi, k: int,
 
 def _walk_shape(wires: int) -> tuple[int, int]:
     """Warps a sample and samples a CTA at most, as chain_regs.cuh's
-    walk_warps and walk_max_samples: a warp up to 7 wires, 2 at 8, 4 from
-    9; 4 samples a CTA up to 7 wires, 2 from 8."""
-    return (1 if wires < 8 else 2 if wires == 8 else 4,
-            4 if wires < 8 else 2)
+    walk_warps and walk_max_samples: a warp up to 7 wires, 2 at 8, 4 at
+    9-10, 8 at 11 and 16 at 12 (the SEL chain's widths); 4 samples a CTA up
+    to 7 wires, 2 at 8-10, 1 from 11."""
+    warps = (1 if wires < 8 else 2 if wires == 8 else 4 if wires <= 10
+             else 8 if wires == 11 else 16)
+    return warps, 4 if wires < 8 else 2 if wires <= 10 else 1
 
 
 class ChainFwdPlan(NamedTuple):
-    """How the forward kernels #1 and #3 (``csrc/chain_regs.cuh``'s
-    ``chain_fwd``) lay out a call: ``warps`` warps a sample, ``samples``
-    samples a CTA, ``grid`` CTAs of ``threads`` threads, a plain launch."""
+    """How the register forwards (``csrc/chain_regs.cuh``'s ``chain_fwd``,
+    kernels #1 and #3, and ``sel_fwd``, #5) lay out a call: ``warps`` warps
+    a sample, ``samples`` samples a CTA, ``grid`` CTAs of ``threads``
+    threads, a plain launch."""
     warps: int
     samples: int
     grid: int
     threads: int
+
+
+def _fwd_layout(wires: int, batch: int) -> ChainFwdPlan:
+    """A CTA of four warps, one for each of an SM's schedulers (4 samples
+    up to 7 wires, 2 at 8, 1 from 9; from 11 wires a sample's own 8 or 16
+    warps), or of the batch's samples if fewer."""
+    warps = _walk_shape(wires)[0]
+    samples = max(1, min(4 // warps, batch))
+    return ChainFwdPlan(warps, samples, -(-batch // samples),
+                        32 * warps * samples)
 
 
 def chain_fwd_plan(wires: int, batch: int) -> ChainFwdPlan:
@@ -221,10 +234,7 @@ def chain_fwd_plan(wires: int, batch: int) -> ChainFwdPlan:
     on its scheduler can; a second warp on one halves both."""
     if not 1 <= wires <= _config.KERNEL_MAX_WIRES or batch < 1:
         raise ValueError(f"no forward plan for {wires} wires, batch {batch}")
-    warps = _walk_shape(wires)[0]
-    samples = min(4 // warps, batch)
-    return ChainFwdPlan(warps, samples, -(-batch // samples),
-                        32 * warps * samples)
+    return _fwd_layout(wires, batch)
 
 
 # CTAs a thread-block cluster (portable)
@@ -232,12 +242,12 @@ _WALK_MAX_CLUSTER = 8
 
 
 class ChainBwdPlan(NamedTuple):
-    """How the backward kernels #2 and #4 (``csrc/chain_regs.cuh``) lay out
-    a call: ``warps`` warps a sample, ``samples`` samples a CTA,
-    ``cluster`` CTAs a thread-block cluster, ``clusters`` clusters in the
-    grid (``grid`` CTAs of ``threads`` threads), and whether dg's batch sum
-    ends in the launch (one cluster) or a second launch adds the clusters'
-    sums in order."""
+    """How the register walks (``csrc/chain_regs.cuh``: the backward
+    kernels #2 and #4, and #6) lay out a call: ``warps`` warps a sample,
+    ``samples`` samples a CTA, ``cluster`` CTAs a thread-block cluster,
+    ``clusters`` clusters in the grid (``grid`` CTAs of ``threads``
+    threads), and whether dg's batch sum ends in the launch (one cluster)
+    or a second launch adds the clusters' sums in order."""
     warps: int
     samples: int
     cluster: int
@@ -245,6 +255,21 @@ class ChainBwdPlan(NamedTuple):
     grid: int
     threads: int
     in_launch: bool
+
+
+def _bwd_layout(wires: int, batch: int) -> ChainBwdPlan:
+    """A cluster of up to 8 CTAs holds the batch when it can: as few
+    samples a CTA as spread it over 8 CTAs. A larger batch takes one sample
+    a CTA, 8 CTAs a cluster, and the clusters' dg sums are added by a
+    second launch."""
+    warps, max_samples = _walk_shape(wires)
+    cluster = min(_WALK_MAX_CLUSTER, 1 << (batch - 1).bit_length())
+    samples = -(-batch // cluster)
+    if samples > max_samples:
+        samples = 1
+    clusters = -(-batch // (samples * cluster))
+    return ChainBwdPlan(warps, samples, cluster, clusters, cluster * clusters,
+                        32 * warps * samples, clusters == 1)
 
 
 def chain_bwd_plan(wires: int, batch: int) -> ChainBwdPlan:
@@ -256,14 +281,7 @@ def chain_bwd_plan(wires: int, batch: int) -> ChainBwdPlan:
     sums are added by a second launch."""
     if not 1 <= wires <= _config.KERNEL_MAX_WIRES or batch < 1:
         raise ValueError(f"no backward plan for {wires} wires, batch {batch}")
-    warps, max_samples = _walk_shape(wires)
-    cluster = min(_WALK_MAX_CLUSTER, 1 << (batch - 1).bit_length())
-    samples = -(-batch // cluster)
-    if samples > max_samples:
-        samples = 1
-    clusters = -(-batch // (samples * cluster))
-    return ChainBwdPlan(warps, samples, cluster, clusters, cluster * clusters,
-                        32 * warps * samples, clusters == 1)
+    return _bwd_layout(wires, batch)
 
 
 # --- CUDA kernel -------------------------------------------------------------
@@ -340,16 +358,16 @@ def _library():
             fn.argtypes = [ctypes.c_int] * 4
             fn.restype = ctypes.c_size_t
         lib.sel_chain_fwd.argtypes = ([ctypes.c_void_p] * 6
-                                      + [ctypes.c_int] * 5
+                                      + [ctypes.c_int] * 7
                                       + [ctypes.c_void_p])
         lib.sel_chain_fwd.restype = ctypes.c_int
         lib.sel_chain_bwd.argtypes = ([ctypes.c_void_p] * 10
-                                      + [ctypes.c_int] * 5
+                                      + [ctypes.c_int] * 8
                                       + [ctypes.c_void_p])
         lib.sel_chain_bwd.restype = ctypes.c_int
         for fn in (lib.sel_chain_fwd_smem_bytes,
                    lib.sel_chain_bwd_smem_bytes):
-            fn.argtypes = [ctypes.c_int] * 2
+            fn.argtypes = [ctypes.c_int] * 4
             fn.restype = ctypes.c_size_t
         lib.sel_rows_fwd.argtypes = ([ctypes.c_void_p] * 4
                                      + [ctypes.c_int] * 5

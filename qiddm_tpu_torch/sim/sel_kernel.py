@@ -12,7 +12,9 @@ Two entries, one per layout of the states:
 
 * ``sel_chain_planes``, the engine's (QNN/Qdense chains, the two-sided dm
   route), on (d, B) float32 planes: the ``_SelChain`` autograd Function,
-  kernels ``sel_chain_fwd_kernel`` and ``sel_chain_bwd_kernel``;
+  kernels ``sel_chain_fwd_regs_kernel<w>`` and ``sel_chain_bwd_regs_kernel<w>``
+  (``csrc/chain_regs.cuh``'s register layout, launched as
+  :func:`sel_fwd_plan` and :func:`sel_bwd_plan` lay them out);
 * ``sel_chain_rows``, the trajectory backend's, on (N, d) complex64 rows as
   ``sel_chain_pallas`` takes them: the ``_SelRows`` Function, whose forward
   is ``sel_rows_fwd_kernel`` on the rows in place of any transpose, and
@@ -49,9 +51,12 @@ from .sel import cnot_ring_perm, cz_ring_signs
 # Kernel launches since the last reset: the planes' forward and backward
 # and the rows' forward; chip_smoke.py reads them to show that the
 # QNN/Qdense paths and the trajectory route went through the kernels.
+# SEL_BWD_BATCH_SUMS counts the backward calls whose batch did not fit one
+# cluster (sel_bwd_plan), so that a second launch summed dg.
 SEL_LAUNCHES = 0
 SEL_BWD_LAUNCHES = 0
 SEL_ROW_LAUNCHES = 0
+SEL_BWD_BATCH_SUMS = 0
 
 _IMPRIMITIVES = ("cz", "cnot")
 
@@ -87,18 +92,21 @@ def _ring_on(wires: int, imprimitive: str, inverse: bool,
                            device=device)
 
 
-def ring_columns(wires: int) -> np.ndarray:
+def ring_columns(wires: int, inverse: bool = False) -> np.ndarray:
     """The CNOT rings' gather maps ``inv`` (:func:`ring_tables`) as linear
     maps over GF(2): a (p, w) int32 table whose column b is ``inv[1 << b]``,
     so that ``inv[i]`` is the XOR of the columns of i's set bits (every
-    CNOT is linear, and so is their product)."""
+    CNOT is linear, and so is their product). With ``inverse`` the columns
+    of the forward map ``f``, which undoes the ring (linear too, as the
+    inverse of a linear map): the backward's gather."""
     return np.ascontiguousarray(
-        ring_tables(wires, "cnot")[:, 1 << np.arange(wires)])
+        ring_tables(wires, "cnot", inverse)[:, 1 << np.arange(wires)])
 
 
 @functools.lru_cache(maxsize=None)
-def _columns_on(wires: int, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(ring_columns(wires), device=device)
+def _columns_on(wires: int, device: torch.device,
+                inverse: bool = False) -> torch.Tensor:
+    return torch.as_tensor(ring_columns(wires, inverse), device=device)
 
 
 def _ring_plain(sr, si, table, l: int, wires: int, imprimitive: str):
@@ -185,58 +193,96 @@ def sel_chain_bwd_plain(g8, fr, fi, gr, gi, wires: int,
     return cr, ci, torch.stack([torch.stack(row) for row in dg])
 
 
+# --- the kernels' launch plans -----------------------------------------------
+
+def sel_fwd_plan(wires: int, batch: int) -> _gk.ChainFwdPlan:
+    """The planes' forward's layout for ``batch`` samples at ``wires``
+    wires, from the shape alone: the register layout of the gate chains'
+    forwards (``gate_kernel.chain_fwd_plan``: a CTA of four warps, 4
+    samples up to 7 wires, 2 at 8, 1 from 9), widened to 12 wires, where a
+    sample takes 8 (11 wires) or 16 (12) warps, a CTA of its own."""
+    if not 1 <= wires <= _config.SEL_KERNEL_MAX_WIRES or batch < 1:
+        raise ValueError(f"no SEL forward plan for {wires} wires, batch "
+                         f"{batch}")
+    return _gk._fwd_layout(wires, batch)
+
+
+def sel_bwd_plan(wires: int, batch: int) -> _gk.ChainBwdPlan:
+    """The planes' adjoint walk's layout for ``batch`` samples at ``wires``
+    wires, from the shape alone, as ``gate_kernel.chain_bwd_plan`` lays out
+    the gate chains' walks, widened to 12 wires (a sample a CTA from 11): a
+    cluster of up to 8 CTAs holds the batch when it can (32 samples up to 7
+    wires, 16 at 8-10, 8 from 11) and dg's batch sum ends in the launch;
+    past that each cluster writes its sum and a second launch adds them."""
+    if not 1 <= wires <= _config.SEL_KERNEL_MAX_WIRES or batch < 1:
+        raise ValueError(f"no SEL backward plan for {wires} wires, batch "
+                         f"{batch}")
+    return _gk._bwd_layout(wires, batch)
+
+
 # --- CUDA kernel -------------------------------------------------------------
 
-def _ring_shape(wires: int) -> tuple:
-    return (max(wires - 1, 1), 2**wires)
+def _cols_shape(wires: int) -> tuple:
+    return (max(wires - 1, 1), wires)
 
 
 def _sel_chain_cuda(sr, si, g8, wires: int, imprimitive: str):
-    """Launch the forward kernel on PyTorch's current stream; (or, oi) are
-    new (d, B) float32 tensors."""
+    """Launch the forward kernel on PyTorch's current stream, laid out by
+    :func:`sel_fwd_plan`; (or, oi) are new (d, B) float32 tensors."""
     global SEL_LAUNCHES
-    ring = _ring_on(wires, imprimitive, False, sr.device)
+    cols = _columns_on(wires, sr.device)
     d, B, depth = _gk._check_cuda_inputs(
-        "SEL-chain kernel", (sr, si), g8, ring, _ring_shape(wires), wires,
+        "SEL-chain kernel", (sr, si), g8, cols, _cols_shape(wires), wires,
         max_wires=_config.SEL_KERNEL_MAX_WIRES)
     lib = _gk._library()
-    _gk._check_smem(lib.sel_chain_fwd_smem_bytes(wires, depth), depth, wires)
+    plan = sel_fwd_plan(wires, B)
+    cz = int(imprimitive == "cz")
+    _gk._check_smem(lib.sel_chain_fwd_smem_bytes(wires, depth, plan.samples,
+                                                 cz), depth, wires)
     out_r = torch.empty_like(sr)
     out_i = torch.empty_like(si)
     stream = torch.cuda.current_stream(sr.device).cuda_stream
     err = lib.sel_chain_fwd(sr.data_ptr(), si.data_ptr(), g8.data_ptr(),
-                            ring.data_ptr(), out_r.data_ptr(),
-                            out_i.data_ptr(), wires, B, depth,
-                            int(imprimitive == "cz"), sr.device.index, stream)
+                            cols.data_ptr(), out_r.data_ptr(),
+                            out_i.data_ptr(), wires, B, depth, cz,
+                            plan.samples, plan.grid, sr.device.index, stream)
     _gk._raise_on(err, lib, "SEL-chain kernel")
     SEL_LAUNCHES += 1
     return out_r, out_i
 
 
 def _sel_chain_bwd_cuda(g8, fr, fi, gr, gi, wires: int, imprimitive: str):
-    """Launch the backward kernel (and its fixed-order batch sum of dg) on
-    PyTorch's current stream; returns new (dsr, dsi, dg) as
+    """Launch the backward kernel on PyTorch's current stream, laid out by
+    :func:`sel_bwd_plan` (and, for a batch larger than one cluster, the
+    fixed-order sum of the clusters' dg); returns new (dsr, dsi, dg) as
     :func:`sel_chain_bwd_plain` does."""
-    global SEL_BWD_LAUNCHES
-    ring = _ring_on(wires, imprimitive, True, fr.device)
+    global SEL_BWD_LAUNCHES, SEL_BWD_BATCH_SUMS
+    cols = _columns_on(wires, fr.device, inverse=True)
     d, B, depth = _gk._check_cuda_inputs(
-        "SEL-chain backward kernel", (fr, fi, gr, gi), g8, ring,
-        _ring_shape(wires), wires, max_wires=_config.SEL_KERNEL_MAX_WIRES)
+        "SEL-chain backward kernel", (fr, fi, gr, gi), g8, cols,
+        _cols_shape(wires), wires, max_wires=_config.SEL_KERNEL_MAX_WIRES)
     lib = _gk._library()
-    _gk._check_smem(lib.sel_chain_bwd_smem_bytes(wires, depth), depth, wires)
-    dg_part = torch.empty((B, depth, wires, 8), dtype=torch.float32,
-                          device=fr.device)
+    plan = sel_bwd_plan(wires, B)
+    cz = int(imprimitive == "cz")
+    _gk._check_smem(lib.sel_chain_bwd_smem_bytes(wires, depth, plan.samples,
+                                                 cz), depth, wires)
     dg = torch.empty_like(g8)
+    dg_part = dg if plan.in_launch else torch.empty(
+        (plan.clusters, depth, wires, 8), dtype=torch.float32,
+        device=fr.device)
     dsr = torch.empty_like(fr)
     dsi = torch.empty_like(fi)
     stream = torch.cuda.current_stream(fr.device).cuda_stream
-    err = lib.sel_chain_bwd(g8.data_ptr(), ring.data_ptr(), fr.data_ptr(),
+    err = lib.sel_chain_bwd(g8.data_ptr(), cols.data_ptr(), fr.data_ptr(),
                             fi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
                             dg_part.data_ptr(), dg.data_ptr(), dsr.data_ptr(),
-                            dsi.data_ptr(), wires, B, depth,
-                            int(imprimitive == "cz"), fr.device.index, stream)
+                            dsi.data_ptr(), wires, B, depth, cz,
+                            plan.samples, plan.cluster, plan.clusters,
+                            fr.device.index, stream)
     _gk._raise_on(err, lib, "SEL-chain backward kernel")
     SEL_BWD_LAUNCHES += 1
+    if not plan.in_launch:
+        SEL_BWD_BATCH_SUMS += 1
     return dsr, dsi, dg
 
 

@@ -1,19 +1,23 @@
 """Device times of the amplitude-damping pass (#7), the unitary-streaming
 chain's forward (#13), the gate chains' forwards (#1, #3) and their adjoint
-walks (#2, #4) at the shapes their kernels are measured at, through the
-entries ``amp_damp_kernel.amp_damp``, ``unitary_kernel.unitary_chain_planes``,
+walks (#2, #4), and the SEL chain's forward on planes (#5) and its adjoint
+(#6) at the shapes their kernels are measured at, through the entries
+``amp_damp_kernel.amp_damp``, ``unitary_kernel.unitary_chain_planes``,
 ``gate_kernel._gate_chain_cuda``, ``ry_kernel._ry_chain_cuda``,
-``gate_kernel._gate_chain_bwd_cuda`` and ``ry_kernel._ry_chain_bwd_cuda``;
+``gate_kernel._gate_chain_bwd_cuda``, ``ry_kernel._ry_chain_bwd_cuda``,
+``sel_kernel._sel_chain_cuda`` and ``sel_kernel._sel_chain_bwd_cuda``;
 beside #13, its library formulation (one complex64 ``torch.matmul`` a layer
-with the phase multiplies, cuBLAS with TF32 off).
+with the phase multiplies, cuBLAS with TF32 off). On the card it also
+profiles 10 steady ``QNN_noise(784, 8, 14)`` training steps (#5 and #6's
+model; ``qnn_step``).
 
 Each time is the median of 20 calls, CUDA events around each call behind a
 spin kernel (``common.median_ms``): the device's time, without the host's
 enqueue, but with the launch's own latency (~5 us: a kernel that does
 nothing reads so). Beside it, each kernel's own duration, the median of
 its 20 launches' device records under ``torch.profiler`` (CUPTI), which
-holds neither; for #2 and #4 also the device time of all the kernels of a
-call (a call may end in a second launch that sums dg over the batch). The
+holds neither; for #2, #4 and #6 also the device time of all the kernels of
+a call (a call may end in a second launch that sums dg over the batch). The
 entries and their arguments are the same in earlier checkouts of the port,
 so the same script times another checkout's kernels when that checkout
 comes first on the path:
@@ -22,8 +26,8 @@ comes first on the path:
     PYTHONPATH=<other checkout> python3 qiddm_tpu_torch/tools/kernel_times.py
 
 It prints one JSON line: the package it timed, the card and its power
-limit, the kernels' launch counts (one a call each), the times and the
-kernels' profiled durations.
+limit, the kernels' launch counts (one a call each), the times, the
+kernels' profiled durations and the training step's profile.
 ``--device cpu`` runs the plain versions on the host clock (a check that
 the script runs, not a device time).
 """
@@ -38,8 +42,10 @@ import numpy as np
 import torch
 
 import qiddm_tpu_torch
+from qiddm_tpu_torch.cli import common as cli_common
+from qiddm_tpu_torch.diffusion import Diffusion
 from qiddm_tpu_torch.sim import (amp_damp_kernel, gate_kernel, ry_kernel,
-                                 unitary_kernel)
+                                 sel_kernel, unitary_kernel)
 from qiddm_tpu_torch.sim.gates import rot_matrix
 from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
 from qiddm_tpu_torch.sim.statevector import rz_phase_planes
@@ -64,6 +70,20 @@ GATE_BWD_SHAPES = ((6, 10, 28, 2), (6, 16, 28, 2), (10, 80, 28, 2))
 # of #4: QIDDM_PL_noise1 784 8 6 2's training step and the JAX package's
 # A/B shape
 RY_BWD_SHAPES = ((8, 10, 12, 2), (6, 11, 28, 2))
+# (wires, batch, depth, ring) of #5: QNN_noise 784 8 14's training step (1
+# image x tau 10) and sampling batch, QDenseUndirected_old_noise 60 8's
+# sampling chain (6 wires, depth 60, CNOT), the dm route's 2,560 columns
+# (QNN_noise 784 8 6 on the sweep's 10 images: 256 rows of rho a side), and
+# the trajectory route's 12 wires at QNN's depth
+SEL_FWD_SHAPES = ((8, 10, 14, "cz"), (8, 16, 14, "cz"), (6, 16, 60, "cnot"),
+                  (8, 2560, 6, "cz"), (12, 10, 14, "cnot"))
+# of #6: QNN_noise's training step, Qdense's chain at a batch of 10, and 12
+# wires past one cluster
+SEL_BWD_SHAPES = ((8, 10, 14, "cz"), (6, 10, 60, "cnot"), (12, 10, 14, "cz"))
+# the profiled training step: mnist_exm's defaults (batch 1, tau 10, Adam)
+QNN_MODEL = ["QNN_noise", "784", "8", "14"]
+QNN_TAU = 10
+QNN_STEPS = 10
 
 
 def _library_unitary(p, us, k: int):
@@ -127,12 +147,89 @@ def _bwd_planes(rng, wires: int, batch: int, n_layers: int, k: int,
     return g8, signs, gr, gi
 
 
+def _sel_inputs(rng, wires: int, batch: int, depth: int, device):
+    """Normalized start planes, gates and N(0, 1) cotangents of one SEL
+    call: (sr, si, g8, gr, gi)."""
+    st = rng.normal(size=(2, 2**wires, batch))
+    st /= np.sqrt((st ** 2).sum(axis=(0, 1), keepdims=True))
+    sr, si = (torch.as_tensor(p, dtype=torch.float32, device=device)
+              for p in st)
+    g8, _, gr, gi = _bwd_planes(rng, wires, batch, depth, 1, device)
+    return sr, si, g8, gr, gi
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, reach = 0.0, -float("inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy
+
+
+def qnn_step(device: torch.device, seed: int = 0) -> dict:
+    """``QNN_STEPS`` steady ``QNN_noise(784, 8, 14)`` training steps
+    (seeded weights and image, batch 1 x tau 10, Adam) under
+    ``torch.profiler``: device events a step, device busy ms a step (the
+    union of kernel and copy intervals), its idle share of the profiled
+    wall, #5's and #6's own us a step and their launches a step, and the
+    step without the profiler (host clock, median of 20, each ending in a
+    synchronise)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    net = cli_common.build_model(QNN_MODEL, seed=seed, device=device.type)
+    diff = Diffusion(net).train()
+    step = diff.make_train_step(
+        torch.optim.Adam(diff.parameters(), lr=cli_common.FALLBACK_LR),
+        QNN_TAU)
+    x = torch.rand((1, 784), generator=torch.Generator().manual_seed(seed))
+    x = x.to(device)
+    gen = torch.Generator().manual_seed(seed)
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        step(x, gen)
+        torch.cuda.synchronize(device)
+        host.append(1e3 * (time.perf_counter() - t0))
+    before = (sel_kernel.SEL_LAUNCHES, sel_kernel.SEL_BWD_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(QNN_STEPS):
+            step(x, gen)
+        torch.cuda.synchronize(device)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+
+    def own(name):
+        return sum(e.time_range.elapsed_us() for e in dev
+                   if name in e.name) / QNN_STEPS
+
+    return {"events": len(dev) / QNN_STEPS,
+            "busy_ms": busy / QNN_STEPS / 1e3,
+            "idle_share": 1 - busy / wall_us,
+            "sel_fwd_us": own("sel_chain_fwd"),
+            "sel_bwd_us": own("sel_chain_bwd"),
+            "dg_batch_sum_us": own("dg_batch_sum"),
+            "launches_per_step": [
+                (sel_kernel.SEL_LAUNCHES - before[0]) / QNN_STEPS,
+                (sel_kernel.SEL_BWD_LAUNCHES - before[1]) / QNN_STEPS],
+            "step_ms": float(np.median(host))}
+
+
 def measure(device: torch.device, seed: int = 0) -> dict:
     """{name: median ms} for every case of ``AMP_SHAPES``,
     ``UNITARY_SHAPES``, ``GATE_FWD_SHAPES``, ``RY_FWD_SHAPES``,
-    ``GATE_BWD_SHAPES`` and ``RY_BWD_SHAPES``, the kernels' profiled
-    durations on the card (for #2 and #4 also a call's device time over all
-    its kernels), and the launch counts."""
+    ``GATE_BWD_SHAPES``, ``RY_BWD_SHAPES``, ``SEL_FWD_SHAPES`` and
+    ``SEL_BWD_SHAPES``, the kernels' profiled durations on the card (for
+    #2, #4 and #6 also a call's device time over all its kernels), and the
+    launch counts."""
     rng = np.random.default_rng(seed)
     times, kernels = {}, {}
 
@@ -150,6 +247,7 @@ def measure(device: torch.device, seed: int = 0) -> dict:
     unitary_kernel.UNITARY_LAUNCHES = 0
     gate_kernel.LAUNCHES = ry_kernel.RY_LAUNCHES = 0
     gate_kernel.BWD_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
+    sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
     with torch.no_grad():
         for w, n in AMP_SHAPES:
             st = rng.normal(size=(n, 2**w)) + 1j * rng.normal(size=(n, 2**w))
@@ -219,13 +317,29 @@ def measure(device: torch.device, seed: int = 0) -> dict:
                    else ry_kernel.ry_chain_bwd_plain)
             timed(f"ry_chain_bwd w={w} B={b} L*k={n}", lambda: bwd(*args),
                   "ry_chain_bwd", call=True)
+        for w, b, depth, ring in SEL_FWD_SHAPES:
+            sr, si, g8, _, _ = _sel_inputs(rng, w, b, depth, device)
+            fwd = sel_kernel._sel_chain_cuda if cuda else sel_kernel._sel_plain
+            args = (sr, si, g8, w, ring)
+            timed(f"sel_chain_fwd w={w} B={b} depth={depth} {ring}",
+                  lambda: fwd(*args), "sel_chain_fwd")
+        for w, b, depth, ring in SEL_BWD_SHAPES:
+            sr, si, g8, gr, gi = _sel_inputs(rng, w, b, depth, device)
+            fr, fi = sel_kernel._sel_plain(sr, si, g8, w, ring)
+            args = (g8, fr, fi, gr, gi, w, ring)
+            bwd = (sel_kernel._sel_chain_bwd_cuda if cuda
+                   else sel_kernel.sel_chain_bwd_plain)
+            timed(f"sel_chain_bwd w={w} B={b} depth={depth} {ring}",
+                  lambda: bwd(*args), "sel_chain_bwd", call=True)
     return {"times_ms": times, "kernel_ms": kernels, "call_device_ms": calls,
             "launches": {"amp_damp": amp_damp_kernel.AMP_DAMP_LAUNCHES,
                          "unitary": unitary_kernel.UNITARY_LAUNCHES,
                          "gate": gate_kernel.LAUNCHES,
                          "ry": ry_kernel.RY_LAUNCHES,
                          "gate_bwd": gate_kernel.BWD_LAUNCHES,
-                         "ry_bwd": ry_kernel.RY_BWD_LAUNCHES}}
+                         "ry_bwd": ry_kernel.RY_BWD_LAUNCHES,
+                         "sel": sel_kernel.SEL_LAUNCHES,
+                         "sel_bwd": sel_kernel.SEL_BWD_LAUNCHES}}
 
 
 def main(argv=None) -> dict:
@@ -241,6 +355,8 @@ def main(argv=None) -> dict:
         device = torch.device("cuda", device.index or 0)
     out = {"package": qiddm_tpu_torch.__file__, "device": str(device),
            "card": common.card(device), **measure(device, args.seed)}
+    if device.type == "cuda":
+        out["qnn_step"] = qnn_step(device, args.seed)
     print(json.dumps(out))
     return out
 

@@ -1,4 +1,4 @@
-"""The device-time script of kernels #7, #13, #1, #3, #2 and #4
+"""The device-time script of kernels #7, #13, #1, #3, #2, #4, #5 and #6
 (``qiddm_tpu_torch/tools/kernel_times.py``) on the CPU, at small shapes:
 its cases, its output line and the library formulation of the unitary
 chain against the chain. On the card it times the kernels; here the
@@ -26,6 +26,9 @@ def small(monkeypatch):
     monkeypatch.setattr(kernel_times, "GATE_BWD_SHAPES",
                         ((3, 5, 4, 2), (1, 2, 2, 2)))
     monkeypatch.setattr(kernel_times, "RY_BWD_SHAPES", ((2, 3, 4, 2),))
+    monkeypatch.setattr(kernel_times, "SEL_FWD_SHAPES",
+                        ((3, 2, 3, "cz"), (2, 3, 2, "cnot")))
+    monkeypatch.setattr(kernel_times, "SEL_BWD_SHAPES", ((3, 2, 3, "cnot"),))
 
 
 def test_main_on_the_cpu_prints_every_case(small, capsys):
@@ -40,12 +43,17 @@ def test_main_on_the_cpu_prints_every_case(small, capsys):
         "gate_chain_fwd w=3 B=3 L*k=4", "gate_chain_fwd w=8 B=1 L*k=2",
         "ry_chain_fwd w=9 B=2 L*k=4",
         "gate_chain_bwd w=3 B=5 L*k=4", "gate_chain_bwd w=1 B=2 L*k=2",
-        "ry_chain_bwd w=2 B=3 L*k=4"])
+        "ry_chain_bwd w=2 B=3 L*k=4",
+        "sel_chain_fwd w=3 B=2 depth=3 cz",
+        "sel_chain_fwd w=2 B=3 depth=2 cnot",
+        "sel_chain_bwd w=3 B=2 depth=3 cnot"])
     assert all(t > 0 for t in out["times_ms"].values())
     assert out["launches"] == {"amp_damp": 0, "unitary": 0, "gate": 0,
-                               "ry": 0, "gate_bwd": 0, "ry_bwd": 0}
-    # the profiled durations are the card's
+                               "ry": 0, "gate_bwd": 0, "ry_bwd": 0,
+                               "sel": 0, "sel_bwd": 0}
+    # the profiled durations and the training step's profile are the card's
     assert out["kernel_ms"] == {} and out["call_device_ms"] == {}
+    assert "qnn_step" not in out
 
 
 @pytest.mark.parametrize("ring", ["cz", "cnot"])

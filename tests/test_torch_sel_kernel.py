@@ -3,7 +3,9 @@
 ``_sel_fwd_kernel`` and ``_sel_bwd_kernel`` (interpret mode, as
 tests/test_gate_kernel.py runs them on the CPU), the ring tables and the
 composed unitary against JAX's, the device dispatch and the autograd
-Function, and the CUDA kernels against the plain versions on the card.
+Function, and the CUDA kernels against the plain versions on the card
+(also at their launch plans' edges; two calls give the same bits, and the
+planes' forward the rows kernel's bits).
 
 Tolerances: <= 1e-5 absolute on the forward's (d, B) float32 planes —
 unit-norm start states through up to 60 layers of 2x2 gates and rings,
@@ -46,6 +48,15 @@ CARD_CASES = ([(w, ring, B, 14) for w in (1, 2, 4, 6, 8, 10)
 # images) and depth (k = 2 a spectrum layer) and at QNN's depth
 WIDE_CARD_CASES = [(w, ring, B, depth) for w in (11, 12) for ring in RINGS
                    for B in (1, 10, 1000) for depth in (2, 14)]
+# the edges of the kernels' launch plans (sel_fwd_plan, sel_bwd_plan) at
+# each class of the layout (a warp a sample below 5 wires and to 7, 2, 4, 8
+# and 16 warps): fewer samples than a CTA's slots, a last CTA with one live
+# sample, the largest batch one cluster sums in the launch and the first
+# that takes a second launch, and the engine's largest batch 2^w - 1
+PLAN_EDGE_CASES = [(w, ring, B, 14) for w, B in (
+    (1, 1), (3, 5), (5, 32), (5, 33), (7, 127), (8, 9), (8, 16), (8, 17),
+    (9, 511), (10, 17), (10, 1023), (11, 8), (11, 9), (12, 8), (12, 9))
+                   for ring in RINGS]
 
 
 def _inputs(w, B, depth, seed=0):
@@ -267,7 +278,8 @@ def test_other_devices_and_wrong_shapes_raise():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,ring,B,depth", CARD_CASES + WIDE_CARD_CASES)
+@pytest.mark.parametrize("w,ring,B,depth",
+                         CARD_CASES + WIDE_CARD_CASES + PLAN_EDGE_CASES)
 def test_kernel_matches_plain_on_card(cuda, w, ring, B, depth):
     ang, st = _inputs(w, B, depth)
     args = _torch_args(ang, st, cuda)
@@ -279,15 +291,26 @@ def test_kernel_matches_plain_on_card(cuda, w, ring, B, depth):
     assert kr.device == cuda and kr.dtype == torch.float32
     assert (kr - qr).abs().max().item() <= TOL
     assert (ki - qi).abs().max().item() <= TOL
+    # samples are independent and their rings exact: the same bits on a
+    # second call, and the rows kernel #5's bits on the same states
+    again = sel_kernel.sel_chain_planes(*args, w, ring)
+    assert torch.equal(kr, again[0]) and torch.equal(ki, again[1])
+    rows = sel_kernel.sel_chain_rows(
+        torch.complex(args[0], args[1]).T.contiguous(), args[2], w, ring)
+    assert torch.equal(rows.real, kr.T) and torch.equal(rows.imag, ki.T)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,ring,B,depth", CARD_CASES + WIDE_CARD_CASES)
+@pytest.mark.parametrize("w,ring,B,depth",
+                         CARD_CASES + WIDE_CARD_CASES + PLAN_EDGE_CASES)
 def test_bwd_kernel_matches_plain_on_card(cuda, w, ring, B, depth):
     args, _, _ = _bwd_args(w, B, depth, ring, cuda)
-    before = sel_kernel.SEL_BWD_LAUNCHES
+    before = (sel_kernel.SEL_BWD_LAUNCHES, sel_kernel.SEL_BWD_BATCH_SUMS)
     got = sel_kernel._sel_chain_bwd_cuda(*args, w, ring)
-    assert sel_kernel.SEL_BWD_LAUNCHES == before + 1
+    # one launch a call; a second one for dg's batch sum only past a cluster
+    second = not sel_kernel.sel_bwd_plan(w, B).in_launch
+    assert (sel_kernel.SEL_BWD_LAUNCHES, sel_kernel.SEL_BWD_BATCH_SUMS) == (
+        before[0] + 1, before[1] + second)
     want = sel_kernel.sel_chain_bwd_plain(*args, w, ring)
     torch.cuda.synchronize()
     for g, w_ in zip(got, want):
