@@ -244,14 +244,17 @@ any failure exits non-zero and no phase's failure is caught:
 26. unitary-streaming kernels against plain: kernels #13 (the re-upload
    chain through dense layer unitaries, a layer one 3xTF32 tensor-core
    product over the batch, a thread-block cluster a tile of samples) and
-   #14 (its adjoint walk and the fixed-order dU product) at w in
+   #14 (its adjoint walk on the same units, a layer one 3xTF32 product of
+   U_l^H with the state and the cotangent side by side, then dU_l = C_l
+   T_l^H as a fixed-order 3xTF32 product over the batch) at w in
    {1, 3, 6, 8} x B in {1, 16, 80} (L*k = 28, k = 2), (w=8, B=255,
    L*k=28), (w=6, B=16, L*k=42, k=3) and (w=3, B=4, L*k=4, k=1), each with
-   both rings' unitaries, each shape's #13 plan printed
-   (unitary_kernel.unitary_plan: CTAs a cluster, samples a tile, tiles,
-   shared memory, and the clusters the card holds at once): forwards
-   max |diff| <= 1e-5, backwards (dpr, dpi, dur, dui) within 1e-5 of
-   max(1, max|plain|); at (6, 16, 28) also #14 against torch autograd
+   both rings' unitaries, each shape's #13 and #14 plans printed
+   (unitary_kernel.unitary_plan, unitary_bwd_plan: CTAs a cluster, samples
+   a tile, tiles, shared memory, and the clusters the card holds at
+   once): forwards max |diff| <= 1e-5, backwards (dpr, dpi, dur, dui)
+   within 1e-5 of max(1, max|plain|), each call twice with the same bits;
+   at (6, 16, 28) also #14 against torch autograd
    through the plain forward; where the worst errors land against the
    reference's on-chip bar (6.1e-6 relative);
 27. the CNOT-ring route (the slice's main path): the library entry
@@ -266,12 +269,12 @@ any failure exits non-zero and no phase's failure is caught:
    autograd; no #8), and complex128 at (8, 80) with both rings (no
    launch), each against the CPU (1e-5, 1e-5, 1e-10);
 28. times of #13 and #14 at (8, 80, 28) and (6, 16, 28) beside the plain
-   versions, the bound (#13's on its 3xTF32 datapath) and the library
-   yardstick (the chain as one complex64 torch.matmul a layer with the
-   phase multiplies, and autograd's backward of it), and #13's device time
-   behind a spin; printed only: #13 at tiles of 8 and 16 samples and #14
-   at tiles of 1 and 2 samples a block at (8, 80) and (8, 255), and a CZ
-   chain at (8, 80, 28)
+   versions, the bound (on their 3xTF32 datapath; #14's earlier float32
+   bound printed beside it) and the library yardstick (the chain as one
+   complex64 torch.matmul a layer with the phase multiplies, and
+   autograd's backward of it), and their device times behind a spin;
+   printed only: #13 and #14 at tiles of 8 and 16 samples, each with its
+   plan, at (8, 80) and (8, 255), and a CZ chain at (8, 80, 28)
    on the gate chain #1/#2 against #13/#14, whose outputs must agree
    within 1e-5;
 29. the ceiling probes' kernels against plain (qiddm_tpu_torch.tools.
@@ -279,7 +282,9 @@ any failure exits non-zero and no phase's failure is caught:
    small one: P1 gives exactly 2 x at 8 KB, 48 KB and the card's opt-in
    shared memory a block, alone (a plain launch) and in clusters of 2 and
    16, and is refused 512 bytes above the opt-in at each; P2 (128, 8192)
-   and P3 (8192, 128), 50 steps, within 1e-6 relative; P5 (128, 128) @
+   and P3 (8192, 128), 50 steps, within 1e-6 relative, P2 bit for bit
+   (also at its plan's edges: the tallest strip, 132 strips and more
+   strips than SMs, each plan printed); P5 (128, 128) @
    (128, 8192), 50 products, and P4 (128, 128, 64) and at every card
    test's shape (a in {1, 3, 128} x m in {8, 64, 128} x w in {4, 64,
    128}, m = w = 128 must be refused; and (4, 16, 8), (3, 24, 8),
@@ -301,8 +306,11 @@ any failure exits non-zero and no phase's failure is caught:
    plain versions, the bound and, for P1-P5, the library yardstick (P1: torch.add(x, x); P2: a strided torch.mul into a
    transposed buffer and a copy back a step; P3: the step as torch.mul
    on the contiguous views, 100 calls; P4 and P5: torch.matmul, TF32
-   off); P4 (128, 128, 64) and P5 (128, 8192) x 50 must equal
-   probe_kernels.in_order_matmul bit for bit (the sum in order over k from
+   off), and P2's device time behind a spin beside its shared-memory
+   floor (2 x 50 transposes of 8 MB at 128 B a clock an SM, at the card's
+   clocks.max.sm) and its DRAM bound; P4 (128, 128, 64) and P5 (128,
+   8192) x 50 must equal probe_kernels.in_order_matmul bit for bit (the
+   sum in order over k from
    zero, one FMA a term, as the probes always summed); then every kernel
    with a library time against its library call in turns, 20 pairs, each
    call behind a spin kernel that outlasts the host's enqueue of either
@@ -317,10 +325,11 @@ any failure exits non-zero and no phase's failure is caught:
    kernel time a call by wire group (#11) and by launch kind (#12: the
    two-right-hand-side rebuild and push by wire group, the dG product, its
    fixed-order sum, the un-encode);
-33. #9-#13's registers and spills from ptxas's report, and the TF32
+33. #9-#14's registers and spills from ptxas's report, and the TF32
    tensor-core instructions in their SASS (cuobjdump -sass of the built
-   library): every group and dG product kernel, both monolithic kernels
-   and both #13 instances must hold some (run after phase 24); and #7's
+   library): every group and dG product kernel, both monolithic kernels,
+   both #13 instances, both #14 walk instances and #14's dU product must
+   hold some, and no #14 instance may spill (run after phase 24); and #7's
    registers and spills at each width;
 34. #1-#6's registers and spills from ptxas's report at each of their
    1-10-wire instances, 1-12 for #5/#6 (fails unless all sixty-four are
@@ -524,6 +533,9 @@ SMEM_CLUSTERS = (1, 2, 16)  # P1's sizes held at each, and its boundary
 FMA_SHAPES = [(1024, b, 4096, c) for b in (80, 128) for c in (1, 4, 8)]
 FMA_TIMED = (1024, 80, 4096, 8)
 LAYOUT_TOL = 1e-6   # P2/P3, relative: the same roundings in the same order
+# P2's plan edges (shape, iterations): the tallest strip that fits, exactly
+# 132 strips, more strips than SMs; held bit for bit
+P2_EDGES = [((864, 64), 2), ((32, 32 * 264), 3), ((256, 64 * 396), 2)]
 SLAB_TOL = 1e-5     # P4/P5, relative: 128-term float32 sums in two orders
 FMA_TOL = 1e-5      # relative: fmaf against a float64 product and sum, rounded
 PEAK_CAP = 1.05     # no measured rate above 1.05 x PEAK_FLOPS
@@ -1286,26 +1298,35 @@ def phase_mono_config() -> None:
                   f"{sms} SMs")
 
 
-# #9-#12's kernels in the built library: #11/#12's templates with their
-# arguments (mangled: I, then Li<n>E each), #9/#10 as they are
+# #9-#14's kernels in the built library: #11/#12's templates with their
+# arguments (mangled: I, then Li<n>E each), #9/#10 as they are; #13, and
+# #14's walk and its dU product
 _WIDE_SASS = re.compile(
     r"(wide_(?:group_mma|dg_mma|mono_fwd|mono_bwd)_kernel"
-    r"|unitary_chain_fwd_kernel)(?:I((?:Li\d+E)+))?")
+    r"|unitary_chain_(?:fwd|bwd|du)_kernel)(?:I((?:Li\d+E)+))?")
+_UNITARY_BWD = re.compile(r"unitary_chain_(?:bwd|du)_kernel")
 _AMP_PTXAS = re.compile(r"amp_damp_fwd_kernelILi(\d+)E")
 
 
 def phase_wide_sass() -> None:
-    """#9-#13's registers and spills from ptxas's report in the build log,
+    """#9-#14's registers and spills from ptxas's report in the build log,
     and the TF32 tensor-core instructions (HMMA ... TF32) in their SASS
     (cuobjdump -sass of the built library, from nvcc's toolkit); fails
-    unless each of the five kernels is there and every instance holds
-    some. Also #7's registers and spills at each width (no tensor
+    unless each of the seven kernels (#14's walk and its dU product
+    apart) is there and every instance holds some, or if an instance of
+    #14 spills. Also #7's registers and spills at each width (no tensor
     cores)."""
     lib = gate_kernel.build_library()
     lines = lib.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and _WIDE_SASS.search(line):
             print("ptxas " + " | ".join(t.strip() for t in lines[i:i + 4]))
+            spill = re.search(r"(\d+) bytes spill stores",
+                              " ".join(lines[i + 1:i + 4]))
+            if _UNITARY_BWD.search(line) and (not spill
+                                             or int(spill.group(1))):
+                fail(f"#14 spills registers (or ptxas did not say): "
+                     f"{lines[i:i + 4]}")
     amp = {}
     for i, line in enumerate(lines):
         found = _AMP_PTXAS.search(line)
@@ -1338,8 +1359,8 @@ def phase_wide_sass() -> None:
     print("SASS TF32 HMMA instructions by kernel: " + ", ".join(
         f"{label(n)} {c}" for n, c in counts.items()))
     kinds = {_WIDE_SASS.search(n).group(1) for n in counts}
-    if len(kinds) < 5 or not all(counts.values()):
-        fail(f"#9-#13 kernels without TF32 HMMA in their SASS: {counts}")
+    if len(kinds) < 7 or not all(counts.values()):
+        fail(f"#9-#14 kernels without TF32 HMMA in their SASS: {counts}")
 
 
 # #1-#6's instances in ptxas's report: gate_, ry_ or sel_, fwd or bwd, the
@@ -2738,11 +2759,10 @@ def phase_wide_split(dev, smi: str) -> None:
 
 
 def datapath_of(key: str) -> str:
-    """The arithmetic datapath of the kernel timed under ``key``: #9-#12
-    and #13 multiply on the tensor cores in 3xTF32; every other kernel of
-    the port runs float32 on the CUDA cores."""
-    return ("3xtf32" if key.startswith(("wide_", "unitary_fwd"))
-            else "simt")
+    """The arithmetic datapath of the kernel timed under ``key``: #9-#12,
+    #13 and #14 multiply on the tensor cores in 3xTF32; every other kernel
+    of the port runs float32 on the CUDA cores."""
+    return "3xtf32" if key.startswith(("wide_", "unitary_")) else "simt"
 
 
 def phase_crossover(dev, smi: str) -> None:
@@ -2807,32 +2827,43 @@ def unitary_bwd_inputs(rng, wires, batch, L, k, ring, dev):
 
 def phase_unitary_vs_plain(dev) -> tuple[float, float]:
     """Kernels #13 and #14 against their plain versions at UNITARY_CASES,
-    both rings; at one shape #14 also against torch autograd through the
-    plain forward. Returns the forward's worst max |diff| and the
-    backward's worst max |diff| / max(1, max|plain|), the values checked."""
+    both rings, each call twice (the same bits both times: fixed-order
+    sums, no atomics); at one shape #14 also against torch autograd
+    through the plain forward. Returns the forward's worst max |diff| and
+    the backward's worst max |diff| / max(1, max|plain|), the values
+    checked."""
     rng = np.random.default_rng(SEED + 20)
     worst_f = worst_b = 0.0
     for w, b, L, k in UNITARY_CASES:
-        print(f"unitary plan w={w} B={b}: {_unitary_plan_text(w, b)}")
+        print(f"unitary plan w={w} B={b}: {_unitary_plan_text(w, b)}; "
+              f"#14: {_unitary_bwd_plan_text(w, b)}")
         for ring in RINGS:
             args = unitary_bwd_inputs(rng, w, b, L, k, ring, dev)
             with torch.no_grad():
                 kr, ki = unitary_kernel._unitary_chain_cuda(*args[:4], k)
                 got = unitary_kernel._unitary_chain_bwd_cuda(*args, k)
+                again_f = unitary_kernel._unitary_chain_cuda(*args[:4], k)
+                again_b = unitary_kernel._unitary_chain_bwd_cuda(*args, k)
                 want = unitary_kernel.unitary_chain_bwd_plain(*args, k)
             torch.cuda.synchronize()
             err = max((kr - args[4]).abs().max().item(),
                       (ki - args[5]).abs().max().item())
             errs = [_rel(g, q) for g, q in zip(got, want)]
             worst_f, worst_b = max(worst_f, err), max(worst_b, *errs)
+            same = (torch.equal(kr, again_f[0]) and torch.equal(ki, again_f[1])
+                    and all(torch.equal(g, a) for g, a in zip(got, again_b)))
             print(f"unitary kernels vs plain w={w} B={b} L*k={L * k} k={k} "
                   f"{ring}: forward max|diff| {err:.3e}; backward dpr, dpi, "
                   f"dur, dui max|diff| / max(1, max|plain|) "
-                  + ", ".join(f"{e:.3e}" for e in errs))
+                  + ", ".join(f"{e:.3e}" for e in errs)
+                  + f"; two calls {'the same bits' if same else 'DIFFER'}")
             if not (err <= KERNEL_TOL and max(errs) <= BWD_TOL):
                 fail(f"unitary kernels disagree with plain at w={w} B={b} "
                      f"L*k={L * k} {ring}: forward {err:.3e} > {KERNEL_TOL} "
                      f"or backward {max(errs):.3e} > {BWD_TOL}")
+            if not same:
+                fail(f"#13 or #14 gave other bits on a second call at w={w} "
+                     f"B={b} {ring}")
     # a third formulation: autograd through the plain forward
     args = unitary_bwd_inputs(rng, 6, 16, 14, 2, "cnot", dev)
     leaves = [t.clone().requires_grad_(True) for t in args[:4]]
@@ -2864,6 +2895,23 @@ def _unitary_plan_text(w: int, b: int, cols: int = 0) -> str:
             f"samples a tile, {plan.smem_bytes} B of shared memory a CTA, "
             f"{plan.warps} warps x {plan.steps_per_warp} 8-deep steps a "
             f"layer; the card holds {active} such clusters at once")
+
+
+def _unitary_bwd_plan_text(w: int, b: int, cols: int = 0) -> str:
+    """#14's plan for (w, b) and the clusters of it the card holds at
+    once."""
+    plan = unitary_kernel.unitary_bwd_plan(w, b, cols)
+    active = gate_kernel._library().unitary_chain_bwd_active_clusters(
+        w, plan.cols, 0)
+    if active < 1:
+        fail(f"the card holds no cluster of #14's plan {plan}: {active}")
+    return (f"{plan.tiles} clusters of {plan.cluster} CTAs, {plan.cols} "
+            f"samples a tile, {plan.smem_bytes} B of shared memory a CTA, "
+            f"{plan.warps} warps x {plan.steps_per_warp} 8-deep steps a "
+            f"layer, {plan.resident} clusters resident by the plan and "
+            f"{active} by the card, {plan.waves} wave(s); dU "
+            f"{plan.du_blocks} blocks a layer over {plan.ws_samples} "
+            f"samples")
 
 
 def _route_call(x, weights, encode, readout, coeff, **kw):
@@ -2993,9 +3041,9 @@ def bound_unitary(w, b, n, bwd: bool) -> tuple[float, str]:
     """The unitary-streaming chain, n = L*k layers at k = 2: a dense
     complex (d, d) product is 8 d^2 flops a sample, the phase 6 d; the
     backward does three products a layer (the state's rebuild, the
-    cotangent's push, dU) and the un-encode, 20 d. #13 runs its products
-    as three TF32 tensor-core products each, at PEAK_TF32 / 3, and the
-    phase on the CUDA cores; #14 everything in float32 at PEAK_FLOPS.
+    cotangent's push, dU) and the un-encode, 20 d. #13 and #14 run their
+    products as three TF32 tensor-core products each, at PEAK_TF32 / 3,
+    and the phase and the un-encode on the CUDA cores at PEAK_FLOPS.
     Bytes: each input read once and each output written once, float32:
     the (L*k, d, d) unitary planes (and, backward, dU's), the (d, B)
     planes."""
@@ -3005,10 +3053,20 @@ def bound_unitary(w, b, n, bwd: bool) -> tuple[float, str]:
         t_ops = (b * 8 * n * d * d / (PEAK_TF32 / 3)
                  + b * 6 * re * d / PEAK_FLOPS)
         t_bytes = 4 * (u + 4 * d * b) / PEAK_BYTES
-        return (1e3 * max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes")
+    else:
+        t_ops = (b * 24 * n * d * d / (PEAK_TF32 / 3)
+                 + b * 20 * re * d / PEAK_FLOPS)
+        t_bytes = 4 * (2 * u + 8 * d * b) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_unitary_f32(w, b, n) -> tuple[float, str]:
+    """#14's bound on its earlier datapath, everything float32 at
+    PEAK_FLOPS (printed beside the tensor cores' bound)."""
+    d, re = 2**w, n // 2
     return _bound(b * (24 * n * d * d + 20 * re * d),
-                  4 * (2 * u + 8 * d * b))
+                  4 * (4 * n * d * d + 8 * d * b))
 
 
 def _library_unitary(p, us, k):
@@ -3032,13 +3090,13 @@ def _no_grad_library_unitary(p, us, k):
 
 def phase_unitary_times(dev, smi: str) -> tuple[dict, dict, dict]:
     """#13/#14 against plain and the library yardstick at (8, 80, 28) and
-    (6, 16, 28), each beside its bound, #13's device time behind a spin,
-    and their calls at (8, 80, 28) with the library's for the pairs of
-    phase 31; printed only: #13 at both tiles of samples (unitary_plan's
-    choice and the other) and #14 at both tiles a block (_tile_for's
-    choice and the other) at (8, 80) and (8, 255), and CZ
-    chains at (8, 80, 28) on the gate chain #1/#2 against #13/#14 (routing
-    stays on #1/#2), whose outputs must agree."""
+    (6, 16, 28), each beside its bound (#14's also on its earlier float32
+    datapath), their device times behind a spin, and their calls at (8,
+    80, 28) with the library's for the pairs of phase 31; printed only:
+    #13 and #14 at both tiles of samples (their plans' choice and the
+    other) at (8, 80) and (8, 255), and CZ chains at (8, 80, 28) on the
+    gate chain #1/#2 against #13/#14 (routing stays on #1/#2), whose
+    outputs must agree."""
     rng = np.random.default_rng(SEED + 22)
     times, library, pairs = {}, {}, {}
     for w, b in ((8, 80), (6, 16)):
@@ -3059,6 +3117,15 @@ def phase_unitary_times(dev, smi: str) -> tuple[dict, dict, dict]:
             lambda: unitary_kernel._unitary_chain_bwd_cuda(*args, 2),
             lambda: unitary_kernel.unitary_chain_bwd_plain(*args, 2)
         ) + bound_unitary(w, b, 28, True)
+        spun = tools_common.median_ms(
+            lambda: unitary_kernel._unitary_chain_bwd_cuda(*args, 2), dev)
+        bound = times[f"unitary_bwd{key}"][2]
+        f32, f32_by = bound_unitary_f32(w, b, 28)
+        print(f"times unitary_bwd{key} device ({smi}): {spun:.4f} ms behind "
+              f"a {tools_common.SPIN_CYCLES}-cycle spin (median of 20), "
+              f"{bound / spun:.2e} of the 3xTF32 bound {bound:.3e} ms "
+              f"(earlier float32 bound {f32:.3e} ms, {f32_by}); plan "
+              f"{_unitary_bwd_plan_text(w, b)}")
         p = torch.complex(args[0], args[1]).requires_grad_(True)
         us = torch.complex(args[2], args[3]).requires_grad_(True)
         out = _library_unitary(p, us, 2)
@@ -3093,17 +3160,19 @@ def phase_unitary_times(dev, smi: str) -> tuple[dict, dict, dict]:
         fwd = [(cols, tools_common.median_ms(
             lambda: unitary_kernel._unitary_chain_cuda(*args[:4], 2, cols),
             dev)) for cols in unitary_kernel.FWD_COLS]
-        bwd = [(tile, _median_ms(
-            lambda: unitary_kernel._unitary_chain_bwd_cuda(*args, 2, tile)))
-            for tile in (1, 2)]
+        bwd = [(cols, tools_common.median_ms(
+            lambda: unitary_kernel._unitary_chain_bwd_cuda(*args, 2, cols),
+            dev)) for cols in unitary_kernel.FWD_COLS]
         print(f"unitary tiles w={w} B={b} L*k=28 ({smi}): #13 (plan "
               f"{unitary_kernel.unitary_plan(w, b).cols} samples a tile) "
               + "; ".join(f"{c} samples a tile {t:.4f} ms ("
                           f"{_unitary_plan_text(w, b, c)})" for c, t in fwd)
-              + " (device, median of 20 behind a spin); #14 (default "
-              f"{unitary_kernel._tile_for(b)}) "
-              + "; ".join(f"R={t} {g:.4f} ms" for t, g in bwd)
-              + " (median of 20)")
+              + "; #14 (plan "
+              f"{unitary_kernel.unitary_bwd_plan(w, b).cols} samples a tile) "
+              + "; ".join(f"{c} samples a tile {t:.4f} ms ("
+                          f"{_unitary_bwd_plan_text(w, b, c)})"
+                          for c, t in bwd)
+              + " (device, median of 20 behind a spin)")
     # CZ chains: the gate chain #1/#2 against #13/#14, printed only
     w, b, L, k = 8, 80, 14, 2
     weights, x, planes = unitary_inputs(rng, w, b, L, k, "cz", dev)
@@ -3176,10 +3245,23 @@ def phase_probes_vs_plain(dev) -> dict:
         print(f"P1 at 8 KB, 48 KB and {top} B in clusters of {cluster}: "
               f"exactly 2 x; {top + pk.ROW_BYTES} B refused")
     errs["smem"] = 0.0
+    for shape, n in P2_EDGES:  # the tallest strip, 132 strips, more
+        x = torch.rand(shape, generator=gen, device=dev)
+        same = torch.equal(pk.transpose_probe(x, n),
+                           pk.transpose_probe_plain(x, n))
+        print(f"P2 {shape} x {n}, plan {pk.transpose_plan(*shape)}: "
+              f"{'the plain bits' if same else 'OTHER BITS'}")
+        if not same:
+            fail(f"P2 {shape} x {n} is not the plain version's bits")
     for shape, n in ((PROBE_SHAPE, PROBE_ITERS), ((32, 64), 3)):
         x = torch.rand(shape, generator=gen, device=dev)
-        _held(f"P2 {shape} x {n}", pk.transpose_probe(x, n),
-              pk.transpose_probe_plain(x, n), LAYOUT_TOL, errs, "transpose")
+        got = pk.transpose_probe(x, n)
+        want = pk.transpose_probe_plain(x, n)
+        _held(f"P2 {shape} x {n}, plan (strip, blocks, smem bytes) "
+              f"{pk.transpose_plan(*shape)}", got, want, LAYOUT_TOL, errs,
+              "transpose")
+        if not torch.equal(got, want):
+            fail(f"P2 {shape} x {n} is not the plain version's bits")
         x = torch.rand(shape[::-1], generator=gen, device=dev)
         _held(f"P3 {shape[::-1]} x {n}", pk.reshape_probe(x, n),
               pk.reshape_probe_plain(x, n), LAYOUT_TOL, errs, "reshape")
@@ -3408,6 +3490,20 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
             n * x.numel(), 2 * x.numel() * f32)
     library["transpose"] = min(_median_ms(library_transpose)
                                for _ in range(2))
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    moved = 2 * n * 2 * x.numel() * f32  # each transpose reads and writes
+    floor = 1e3 * moved / (sms * 128 * clock * 1e6)
+    spun = tools_common.median_ms(lambda: pk.transpose_probe(x, n), dev)
+    print(f"P2 ({smi}): {spun:.4f} ms behind a spin (median of 20); "
+          f"shared-memory floor {floor:.4f} ms (2 x {n} transposes x "
+          f"{moved / (2 * n) / 1e6:.2f} MB at 128 B a clock on {sms} SMs at "
+          f"{clock:.0f} MHz, clocks.max.sm), {floor / spun:.2f} of it; DRAM "
+          f"bound {times['transpose'][2]:.3e} ms; plan (strip, blocks, "
+          f"smem bytes) {pk.transpose_plan(*PROBE_SHAPE)}")
     xr = torch.rand(PROBE_SHAPE[::-1], generator=gen, device=dev)
     ya = torch.empty(PROBE_SHAPE, device=dev)
     yb = torch.empty_like(xr)

@@ -35,12 +35,26 @@
 //
 // P2. A transpose's cost. The TPU probe loops 50 x
 // x <- transpose(transpose(x) * 1.000001) on a (128, 8192) plane in VMEM.
-// No SM holds 4 MiB, so the plane and its transpose live in device memory
-// (the 50 MB L2 holds both) and one cooperative launch loops n_iters times:
-// y[c, r] = x[r, c] * 1.000001f through 32 x 33 shared-memory tiles,
-// grid.sync(), x[r, c] = y[c, r], grid.sync(). The grid is at most the
-// co-resident blocks (the occupancy query); no fit is an error, never a
-// hang. Every grid.sync() sits outside the tile loops.
+// No SM holds the 4 MiB plane, but the grid's shared memory does (132 x
+// 227 KB), and a transpose never has to leave a block: the transpose of a
+// column strip x[:, c0:c0+w] is the row strip x^T[c0:c0+w, :]. So block b
+// owns the strip of columns w b .. w b + w - 1 (64 at the tools' shape: 128
+// blocks, each 32 KB of strip and 32 KB of its transpose), reads it once,
+// runs both transposes of all n_iters iterations in its own shared memory,
+// and writes it once: a plain launch, no grid-wide barrier, no plane in
+// device memory between the passes. Each pass is a real transpose: every
+// element goes through shared memory into another thread's row (t[c][r] =
+// s[r][c] * 1.000001f, one __fmul_rn an iteration, then s[r][c] = t[c][r]),
+// a warp reading 32 consecutive floats and writing them down a column;
+// each row is padded by one float, so no bank is hit twice. 1,024 threads
+// a block; where each owns the same few elements (rows w = 1,024 E, E <=
+// 8; E = 8 at the tools' shape) their offsets are worked out once and a
+// pass is E loads, then E stores. The strip width comes from the shape
+// (probe_kernels.transpose_plan). What bounds
+// it: 2 n_iters transposes of 8 MB each (a read and a write of 4 MB)
+// through shared memory at 128 bytes a clock an SM, about 27 us at the
+// tools' shape; the plane's one read and one write from device memory are
+// 2.5 us.
 //
 // P3. A relayout's cost. A row-major reshape of a contiguous plane is the
 // identity on the flat index, so the relayout the TPU probe costs does not
@@ -121,8 +135,10 @@ constexpr int kRowBytes = kLanes * 4;
 constexpr int kSmemThreads = kHead / 4;  // one float4 of x a thread
 constexpr int kCapacityRefused = -1;
 
-constexpr int kT = 32;  // P2 tile side; the block is kT x kTRows threads
-constexpr int kTRows = 8;
+constexpr int kT = 32;  // P2: a strip's width and the plane's rows are
+                        // multiples of a warp
+constexpr int kTThreads = 1024;  // P2's block: 32 warps hide the passes'
+                                 // load-to-store latency
 
 constexpr int kRM = 8;  // P4/P5 register tile: rows x columns a thread
 constexpr int kRC = 4;
@@ -171,42 +187,122 @@ __global__ void __launch_bounds__(kSmemThreads)
 
 // ---------------------------------------------------------------- P2
 
-// dst (src_cols, src_rows) = src (src_rows, src_cols) transposed, times
-// 1.000001f when kScale; every 32 x 32 tile, grid-stride.
-template <bool kScale>
-__device__ __forceinline__ void transpose_pass(const float* src, float* dst,
-                                               int src_rows, int src_cols,
-                                               float (*tile)[kT + 1]) {
-  const int tiles_c = src_cols / kT;
-  const int ntiles = (src_rows / kT) * tiles_c;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int r0 = (t / tiles_c) * kT;
-    const int c0 = (t % tiles_c) * kT;
-    for (int j = threadIdx.y; j < kT; j += kTRows)
-      tile[j][threadIdx.x] =
-          src[static_cast<size_t>(r0 + j) * src_cols + c0 + threadIdx.x];
-    __syncthreads();
-    for (int j = threadIdx.y; j < kT; j += kTRows) {
-      float v = tile[threadIdx.x][j];
-      if (kScale) v = __fmul_rn(v, 1.000001f);
-      dst[static_cast<size_t>(c0 + j) * src_rows + r0 + threadIdx.x] = v;
+// Shared memory of P2's block: the strip [rows][w + 1] and its transpose
+// [w][rows + 1], float32.
+size_t transpose_smem(int rows, int w) {
+  return (static_cast<size_t>(rows) * (w + 1) +
+          static_cast<size_t>(w) * (rows + 1)) *
+         sizeof(float);
+}
+
+// One pass: dst[i][o] = src[o][i] (times 1.000001f when kScale) for the
+// n_out rows o and n_in columns i of src. Warp y takes rows y, y + 32, ..,
+// lane x columns x, x + 32, ..: a warp reads 32 consecutive floats of a
+// row of src and writes them down a column of dst. With row strides ld_src
+// and ld_dst of 1 mod 32 (a float of padding on a multiple of 32), both
+// sides hit 32 banks: x + o and x + i. A thread's NO x NI loads (all of
+// its pass at the tools' shape) are issued before its stores, so each warp
+// keeps them in flight.
+template <int NO, int NI, bool kScale>
+__device__ __forceinline__ void strip_pass(const float* src, float* dst,
+                                           int n_out, int n_in, int ld_src,
+                                           int ld_dst) {
+  constexpr int kWarps = kTThreads / kT;
+  const int x = threadIdx.x & (kT - 1);
+  const int y = threadIdx.x / kT;
+  for (int o0 = y; o0 < n_out; o0 += kWarps * NO)
+    for (int i0 = x; i0 < n_in; i0 += kT * NI) {
+      float v[NO][NI];
+#pragma unroll
+      for (int m = 0; m < NO; ++m)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int o = o0 + kWarps * m;
+          const int i = i0 + kT * j;
+          v[m][j] = o < n_out && i < n_in ? src[o * ld_src + i] : 0.0f;
+        }
+#pragma unroll
+      for (int m = 0; m < NO; ++m)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int o = o0 + kWarps * m;
+          const int i = i0 + kT * j;
+          if (o < n_out && i < n_in)
+            dst[i * ld_dst + o] =
+                kScale ? __fmul_rn(v[m][j], 1.000001f) : v[m][j];
+        }
     }
+}
+
+// The passes when each thread owns exactly E elements of the strip (rows w
+// = 1024 E, E <= 8; the tools' shape: E = 8): element f = 1024 e + tid is
+// (f / w, f % w) of s in the first pass and (f / rows, f % rows) of t in
+// the second, a warp on 32 consecutive floats of a row either way, so the
+// banks are those of strip_pass. The 4 E offsets are worked out once, so
+// a pass is E loads, then E stores (and E multiplies), nothing else.
+template <int E>
+__device__ __forceinline__ void owned_passes(float* s, float* t, int rows,
+                                             int w, int n_iters) {
+  const int ls = w + 1;
+  const int lt = rows + 1;
+  int s_rd[E], t_wr[E], t_rd[E], s_wr[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int f = e * kTThreads + static_cast<int>(threadIdx.x);
+    s_rd[e] = (f / w) * ls + f % w;
+    t_wr[e] = (f % w) * lt + f / w;
+    t_rd[e] = (f / rows) * lt + f % rows;
+    s_wr[e] = (f % rows) * ls + f / rows;
+  }
+  for (int it = 0; it < n_iters; ++it) {
+    float v[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = s[s_rd[e]];
+#pragma unroll
+    for (int e = 0; e < E; ++e) t[t_wr[e]] = __fmul_rn(v[e], 1.000001f);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = t[t_rd[e]];
+#pragma unroll
+    for (int e = 0; e < E; ++e) s[s_wr[e]] = v[e];
     __syncthreads();
   }
 }
 
-// o and y are written and read back in the same launch: plain loads only.
-__global__ void __launch_bounds__(kT * kTRows)
-    probe_transpose_kernel(const float* __restrict__ x, float* o, float* y,
-                           int rows, int cols, int n_iters) {
-  __shared__ float tile[kT][kT + 1];
-  cg::grid_group grid = cg::this_grid();
-  for (int it = 0; it < n_iters; ++it) {
-    transpose_pass<true>(it == 0 ? x : o, y, rows, cols, tile);
-    grid.sync();
-    transpose_pass<false>(y, o, cols, rows, tile);
-    grid.sync();
+// Block b: columns w b .. w b + w - 1 of x (rows, cols) through n_iters
+// iterations of t = s^T * 1.000001f, s = t^T, into the same columns of o;
+// E > 0: each thread owns E elements (owned_passes), else strip_pass.
+template <int E>
+__global__ void __launch_bounds__(kTThreads)
+    probe_transpose_kernel(const float* __restrict__ x,
+                           float* __restrict__ o, int rows, int cols, int w,
+                           int n_iters) {
+  extern __shared__ float strip[];
+  const int ls = w + 1;
+  const int lt = rows + 1;
+  float* s = strip;          // [rows][w + 1]
+  float* t = s + rows * ls;  // [w][rows + 1]
+  const int tx = threadIdx.x & (kT - 1);
+  const int ty = threadIdx.x / kT;
+  constexpr int kWarps = kTThreads / kT;
+  const size_t c0 = static_cast<size_t>(blockIdx.x) * w;
+  for (int r = ty; r < rows; r += kWarps)
+    for (int c = tx; c < w; c += kT)
+      s[r * ls + c] = x[static_cast<size_t>(r) * cols + c0 + c];
+  __syncthreads();
+  if constexpr (E > 0) {
+    owned_passes<E>(s, t, rows, w, n_iters);
+  } else {
+    for (int it = 0; it < n_iters; ++it) {
+      strip_pass<4, 2, true>(s, t, rows, w, ls, lt);   // t = s^T * 1.000001
+      __syncthreads();
+      strip_pass<2, 4, false>(t, s, w, rows, lt, ls);  // s = t^T
+      __syncthreads();
+    }
   }
+  for (int r = ty; r < rows; r += kWarps)
+    for (int c = tx; c < w; c += kT)
+      o[static_cast<size_t>(r) * cols + c0 + c] = s[r * ls + c];
 }
 
 // ---------------------------------------------------------------- P3
@@ -425,27 +521,6 @@ int slab_threads(int m, int w) {
   return threads <= kThreads ? threads : 0;
 }
 
-// The cooperative grid of P2: co-resident blocks, at most one a tile.
-cudaError_t transpose_grid(int rows, int cols, int device, int* grid) {
-  int coop = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, probe_transpose_kernel, kT * kTRows, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const long long tiles = static_cast<long long>(rows / kT) * (cols / kT);
-  const long long fit = static_cast<long long>(per_sm) * sms;
-  *grid = static_cast<int>(tiles < fit ? tiles : fit);
-  return cudaSuccess;
-}
-
 // P1's kernel for a cluster of `cluster` blocks.
 const void* smem_kernel(int cluster) {
   return cluster == 1 ? reinterpret_cast<const void*>(probe_smem_block_kernel)
@@ -554,26 +629,35 @@ int probe_smem(const void* x, void* o, int smem_bytes, int cluster,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// P2: x and o are (rows, cols), y (cols, rows) scratch; rows and cols
-// multiples of 32, n_iters >= 1. One cooperative launch.
-int probe_transpose(const void* x, void* o, void* y, int rows, int cols,
+// P2's shared memory a block at a strip of w columns.
+size_t probe_transpose_smem_bytes(int rows, int w) {
+  return transpose_smem(rows, w);
+}
+
+// P2: x and o are (rows, cols), rows and cols multiples of 32; a block a
+// strip of w columns (a multiple of 32 that divides cols), n_iters >= 1.
+// One plain launch.
+int probe_transpose(const void* x, void* o, int rows, int cols, int w,
                     int n_iters, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows < kT || cols < kT || rows % kT != 0 || cols % kT != 0 ||
-      n_iters < 1)
+  if (rows < kT || rows % kT != 0 || w < kT || w % kT != 0 ||
+      cols % w != 0 || n_iters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int grid = 0;
-  err = transpose_grid(rows, cols, device, &grid);
+  const size_t smem = transpose_smem(rows, w);
+  const int per = rows * w % kTThreads == 0 ? rows * w / kTThreads : 0;
+  void (*kernel)(const float*, float*, int, int, int, int) =
+      per == 8   ? probe_transpose_kernel<8>
+      : per == 4 ? probe_transpose_kernel<4>
+      : per == 2 ? probe_transpose_kernel<2>
+      : per == 1 ? probe_transpose_kernel<1>
+                 : probe_transpose_kernel<0>;
+  err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* xp = static_cast<const float*>(x);
-  float* op = static_cast<float*>(o);
-  float* yp = static_cast<float*>(y);
-  void* args[] = {&xp, &op, &yp, &rows, &cols, &n_iters};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(probe_transpose_kernel), dim3(grid),
-      dim3(kT, kTRows), args, 0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  kernel<<<cols / w, kTThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(o), rows, cols, w,
+      n_iters);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // P3: x and o hold n float32.

@@ -62,29 +62,62 @@
 //       dpr += n_r s_r + n_i s_i, dpi += n_i s_r - n_r s_i
 //     with s = t conj(p) the state before the phase.
 // No state is stored by the forward: the walk rebuilds them through U^H, as
-// on the TPU. A thread owns input row i of the tile and reads U_l[j, i] for
-// j = 0..d-1: rows of U_l, which the block stages as they lie in memory,
-// 32 rows a chunk, double-buffered with cp.async as in the forward. A block
-// owns its samples, so dpr and dpi need no cross-block sum.
+// on the TPU.
 //
-// unitary_chain_du_kernel, a helper of #14 (counted with it, as #2's dg sum
-// is): dU_l[j, i] = sum_b c_l[b, j] conj(t_l[b, i]) over the whole batch,
-//   dur = sum_b c_r[j] t_r[i] + c_i[j] t_i[i],
-//   dui = sum_b c_i[j] t_r[i] - c_r[j] t_i[i],
-// over a grid of (32 x 32 tile of dU_l, layer l), each output summing b in
-// increasing order: no atomics, the same bits on every run. The workspace
-// is (4, n_layers, B, d) floats, 9.2 MB at w = 8, L*k = 28, B = 80.
+// Backward design: the forward's units, over the same tiles of 8 or 16
+// samples and the same clusters of C = max(1, d / 16) CTAs
+// (unitary_kernel.unitary_bwd_plan picks the tile). CTA r owns rows 16 r ..
+// 16 r + 15 of t and n, which are rows of U_l^H: the columns 16 r.. of U_l,
+// conjugated. Each CTA keeps the tile's whole state and cotangent, side by
+// side, double-buffered in shared memory, and each layer runs:
+//   * one 3xTF32 mma.sync product of the CTA's 16 x d strip of U_l^H with
+//     the d x 2N operand [s | c]: each A fragment is loaded and split once
+//     and serves both halves of the walk (cmma_step over 2 N / 8 column
+//     blocks; the 8 warps split the depth and sum their partials in warp
+//     order, as the forward does);
+//   * the strip is staged a layer ahead with cp.async, double-buffered: a
+//     row of U_l gives the strip 64 contiguous bytes a plane, four 16-byte
+//     copies. The strip is read column-wise into A fragments, so its rows
+//     of 16 floats are swizzled (the two 32-byte halves swap on rows whose
+//     bit 1 is set) and a warp's fragment loads hit 32 banks; the state
+//     planes at 16 samples are swizzled alike, and the warps' partials by
+//     row, so no load or store of the product is a bank conflict;
+//   * the epilogue on the CUDA cores, for the CTA's 16 rows: 4 threads (8
+//     at 8 samples) a (row, 4 samples) unit, each summing one of t_r, t_i,
+//     n_r, n_i over the warps and trading them by shuffles; at l % k == 0
+//     the phase is undone and its gradient accumulated in registers
+//       dpr += n_r s_r + n_i s_i, dpi += n_i s_r - n_r s_i,
+//     s = t conj(p) the state before the phase (a cluster owns its samples,
+//     so no sum crosses clusters); the new s and c rows go into every CTA's
+//     next buffer through distributed shared memory, a float4 a store, each
+//     thread storing its one quantity; then one cluster barrier a layer.
+//   * The same threads write the CTA's rows of t_l and of c_l (the
+//     cotangent after U_l) to a workspace (4, n_layers, d, Bp), Bp the
+//     tiles' samples: t to the first two planes, c to the last two, no row
+//     twice, a float4 a store.
 //
-// What bounds the backward. Three times the forward's products (the state's
-// rebuild, the cotangent's push, dU), the unitaries read once and dU
-// written once (29 MB at w = 8, L*k = 28), and the workspace round trip.
+// unitary_chain_du_kernel, a helper of #14 (not counted, as #2's dg sum is
+// not): dU_l = C_l T_l^H over the batch, dU_l[j, i] = sum_b c_l[j, b]
+// conj(t_l[i, b]), as a 3xTF32 tensor-core product over a grid of (64 x 64
+// tile of dU_l, layer l): its 8 warps own 16 x 32 of the tile each and sum
+// b in increasing order in 8-deep steps (each large term summed from zero
+// and added in float32, cmma_step), the samples staged 32 at a time with
+// cp.async, double-buffered. No atomics: the same bits on every run. The
+// workspace is 9.2 MB at w = 8, L*k = 28, B = 80.
+//
+// What bounds the backward on this card. Three complex products a layer
+// (the state's rebuild, the cotangent's push, dU), 24 L k B d^2 = 3.5 GFLOP
+// at (8, 80, 28), three TF32 products each (21 us at 495 TFLOP/s), against
+// 30 MB of unitaries read and dU written (9 us at 3.35 TB/s). As in the
+// forward, the chain of 28 dependent layers sets the walk's time: the
+// product's latency, the partials' sum, the remote stores (twice the
+// forward's: state and cotangent) and the cluster barrier each layer.
 //
 // Plain C interface (bound with ctypes): each launch goes on the caller's
 // stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError().
 
 #include <cooperative_groups.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -97,33 +130,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxDim = 256;  // MAX_FUSED_DIM
-constexpr int kChunk = 32;    // columns of U staged at a time
-constexpr int kTile = 32;     // dU tile edge
-constexpr int kRowsPerThread = 4;  // dU rows a thread of the 32 x 8 block
-
-inline int unitary_threads(int d) { return d > 32 ? d : 32; }
-
-inline int chunk_for(int d) { return d < kChunk ? d : kChunk; }
-
-// The R values of one row of a [d][R] shared-memory plane in one load
-// (R floats at a multiple of R).
-template <int R>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[R]) {
-  static_assert(R == 1 || R == 2, "tiles of 1 or 2 samples");
-  if constexpr (R == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
-// Async copy of 4 bytes from global to shared memory (cp.async); the
-// copies a thread issues between two commits form one group.
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  __pipeline_memcpy_async(dst, src, sizeof(float));
-}
 
 // ---------------------------------------------------------------- forward
 
@@ -346,8 +352,77 @@ __global__ void __launch_bounds__(kFwdThreads)
   cp_async_wait<0>();  // nothing left in flight at exit (empty groups)
 }
 
-template <int R>
-__global__ void __launch_bounds__(kMaxDim)
+// ---------------------------------------------------------------- backward
+
+constexpr int kBwdThreads = 256;  // 8 warps
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+// The swizzle of a row of 16 floats: its two 32-byte halves swap on rows
+// whose bit 1 is set. A warp's fragment loads of rows k0 + t (t = 0..3,
+// and t + 4) at columns n0 + g (g = 0..7) then hit 32 banks.
+__host__ __device__ inline int swz16(int row) { return ((row >> 1) & 1) << 3; }
+
+// Where column c of row `row` of a [rows][LD] plane lives: swizzled at 16
+// floats a row, as it is at 8 (8 floats a row already spread a fragment's
+// loads over 32 banks).
+template <int LD>
+__device__ __forceinline__ int at_sw(int row, int c) {
+  return row * LD + (LD == 16 ? c ^ swz16(row) : c);
+}
+
+// The A fragment of rows m = 0..15, columns k0..k0+7 of the transpose of a
+// swizzled [depth][16] plane (element (m, k) at at_sw<16>(k, m)).
+__device__ __forceinline__ void load_a_strip(FragA* f, const float* s,
+                                             int k0, int lane) {
+  const int g = lane >> 2;
+  const int k = k0 + (lane & 3);
+  const int x = swz16(k);  // row k + 4 swizzles alike
+  const float* p = s + k * 16;
+  split_tf32(p[g ^ x], &f->hi[0], &f->lo[0]);
+  split_tf32(p[(g + 8) ^ x], &f->hi[1], &f->lo[1]);
+  split_tf32(p[64 + (g ^ x)], &f->hi[2], &f->lo[2]);
+  split_tf32(p[64 + ((g + 8) ^ x)], &f->hi[3], &f->lo[3]);
+}
+
+// The B fragment of rows k0.., columns n0..n0+7 of a [depth][LD] plane laid
+// out by at_sw<LD>.
+template <int LD>
+__device__ __forceinline__ void load_b_sw(FragB* f, const float* s, int k0,
+                                          int n0, int lane) {
+  const int k = k0 + (lane & 3);
+  const int n = n0 + (lane >> 2);
+  split_tf32(s[at_sw<LD>(k, n)], &f->hi[0], &f->lo[0]);
+  split_tf32(s[at_sw<LD>(k + 4, n)], &f->hi[1], &f->lo[1]);
+}
+
+// The warps' partials: [warp][re, im][16 rows][2 N columns], a row's
+// columns swizzled by 8 (row & 3) floats at 16 samples (by 8 (row >> 1 & 1)
+// at 8), so that a warp's float2 stores of its mma fragment hit 32 banks;
+// the im plane starts 8 floats on at 16 samples (16 at 8), so that the
+// epilogue's float4 loads of t_r, t_i, n_r and n_i (two units a quarter
+// warp at 16 samples, one at 8) do too.
+__host__ __device__ constexpr int red_plane(int n) {
+  return kRows * 2 * n + (n == 16 ? 8 : 16);
+}
+
+template <int N>
+__device__ __forceinline__ int red_at(int row, int c) {
+  return row * 2 * N +
+         (c ^ (N == 16 ? (row & 3) << 3 : ((row >> 1) & 1) << 3));
+}
+
+// Shared memory of a backward CTA: the state and cotangent [2 buffers][s_r,
+// s_i, c_r, c_i][depth][cols], U's strip [2 stages][re, im][depth][16] and
+// the warps' partials [8][re, im] of red_plane floats.
+size_t bwd_smem(int d, int cols) {
+  const size_t depth = fwd_depth(d);
+  const size_t red = red_plane(cols);
+  return (8 * depth * cols + 4 * depth * kRows + 2 * kBwdWarps * red) *
+         sizeof(float);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kBwdThreads)
     unitary_chain_bwd_kernel(const float* __restrict__ pr,
                              const float* __restrict__ pi,
                              const float* __restrict__ ur,
@@ -359,231 +434,370 @@ __global__ void __launch_bounds__(kMaxDim)
                              float* __restrict__ ws,
                              float* __restrict__ dpr,
                              float* __restrict__ dpi, int d, int batch,
-                             int n_layers, int k) {
-  extern __shared__ float2 smem2[];  // 8-byte aligned for load_row
-  float* smem = reinterpret_cast<float*>(smem2);
-  const int jc = d < kChunk ? d : kChunk;  // rows of U a chunk
-  const int jc_shift = __ffs(jc) - 1;
-  const int nc_shift = __ffs(d) - 1 - jc_shift;
-  const int n_chunks = 1 << nc_shift;
-  const int n_total = n_layers << nc_shift;
-  const int stage = 2 * jc * d;      // floats of one staged chunk
-  const int i = threadIdx.x;         // this thread's input row
-  const int nt = blockDim.x;
-  const bool row = i < d;
-  const int b0 = blockIdx.x * R;
-  const int plane = d * R;
-  float* us = smem + 8 * plane;      // [stage][re, im][jc][d]
-  // one workspace plane: (n_layers, batch, d)
-  const size_t wsp = static_cast<size_t>(n_layers) * batch * d;
+                             int n_layers, int k, int granule) {
+  constexpr int N = 8 * NB;         // samples a tile
+  constexpr int M = 2 * NB;         // 8-column blocks of [s | c]
+  constexpr int QUADS = N / 4;      // 4-sample groups of a row
+  constexpr int SPLIT = kBwdThreads / (kRows * QUADS);  // threads a unit
+  constexpr int HALVES = SPLIT / 4;  // ways the remote stores are split
+  constexpr int RED = red_plane(N);
+  static_assert(SPLIT == 4 || SPLIT == 8, "8 or 16 samples a tile");
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int depth = fwd_depth(d);
+  const int row0 = rank * kRows;
+  const int rows = d < kRows ? d : kRows;  // a power of two
+  const int col0 = (blockIdx.x / n_cta) * N;
+  const int bp = gridDim.x / n_cta * N;    // the workspace's samples
+  const int bplane = depth * N;
+  const int uplane = depth * kRows;
+  float* st = smem;                 // [buffer][s_r, s_i, c_r, c_i][depth][N]
+  float* us = st + 8 * bplane;      // [stage][re, im][depth][16]
+  float* red = us + 4 * uplane;     // [warp][re, im] of RED floats
+  const size_t wsp = static_cast<size_t>(n_layers) * d * bp;
 
-  // chunk g = (layer n_layers - 1 - g / n_chunks, rows (g % n_chunks) jc
-  // ...) into stage g & 1, as it lies in U (rows contiguous)
-  auto stage_chunk = [&](int g) {
-    const int l = n_layers - 1 - (g >> nc_shift);
-    const size_t at = (static_cast<size_t>(l) * d +
-                       ((g & (n_chunks - 1)) << jc_shift)) * d;
-    float* dst = us + (g & 1) * stage;
-    for (int e = i; e < jc * d; e += nt) {
-      copy_async(dst + e, ur + at + e);
-      copy_async(dst + jc * d + e, ui + at + e);
+  // walk step g (layer n_layers - 1 - g): columns row0.. of every row of
+  // U_l into stage g & 1, `granule` floats a copy; every thread commits a
+  // group, empty past the last layer
+  const int d_shift = __ffs(d) - 1;
+  const int per_row_shift = __ffs(rows / granule) - 1;
+  auto stage_u = [&](int g) {
+    if (g < n_layers) {
+      const size_t at =
+          static_cast<size_t>(n_layers - 1 - g) * d * d + row0;
+      float* dst = us + (g & 1) * 2 * uplane;
+      const int copies = 2 << (d_shift + per_row_shift);
+      for (int e = tid; e < copies; e += kBwdThreads) {
+        const int q = e >> (d_shift + per_row_shift);  // 0: re, 1: im
+        const int j = (e >> per_row_shift) & (d - 1);
+        const int c = (e & ((1 << per_row_shift) - 1)) * granule;
+        cp_async(dst + q * uplane + at_sw<kRows>(j, c),
+                 (q ? ui : ur) + at + static_cast<size_t>(j) * d + c,
+                 granule);
+      }
     }
-    __pipeline_commit();
+    cp_async_commit();
   };
 
-  float ph_r[R], ph_i[R], dp_r[R], dp_i[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int b = b0 + r;
-    const bool in = row && b < batch;
-    const size_t at = static_cast<size_t>(i) * batch + b;
-    ph_r[r] = in ? pr[at] : 0.0f;
-    ph_i[r] = in ? pi[at] : 0.0f;
-    dp_r[r] = 0.0f;
-    dp_i[r] = 0.0f;
-    if (row) {  // [buffer][s_r, s_i, c_r, c_i][d][R]
-      smem[i * R + r] = in ? fr[at] : 0.0f;
-      smem[plane + i * R + r] = in ? fi[at] : 0.0f;
-      smem[2 * plane + i * R + r] = in ? gr[at] : 0.0f;
-      smem[3 * plane + i * R + r] = in ? gi[at] : 0.0f;
+  // the output f and its cotangent g in buffer 0, zeros in buffer 1 and in
+  // the padding (rows past d below 8 amplitudes, samples past the batch);
+  // U's padding rows and columns below 16 amplitudes are 0 in both stages
+  // (the copies write only the rest)
+  for (int e = tid; e < 8 * bplane; e += kBwdThreads) {
+    const int q = e / bplane;  // buffer 1 from q = 4
+    const int j = (e - q * bplane) / N;
+    const int x = e % N;
+    const int b = col0 + (N == 16 ? x ^ swz16(j) : x);
+    float v = 0.0f;
+    if (q < 4 && j < d && b < batch) {
+      const float* src = q == 0 ? fr : q == 1 ? fi : q == 2 ? gr : gi;
+      v = src[static_cast<size_t>(j) * batch + b];
     }
+    st[e] = v;
   }
-
-  float t_r[R], t_i[R], n_r[R], n_i[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) t_r[r] = t_i[r] = n_r[r] = n_i[r] = 0.0f;
-  int cur = 0;
-  stage_chunk(0);
-  for (int g = 0; g < n_total; ++g) {
-    if (g + 1 < n_total) {
-      stage_chunk(g + 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
+  if (d < kRows)
+    for (int e = tid; e < 4 * uplane; e += kBwdThreads) {
+      const int j = (e / kRows) % depth;
+      const int c = (e % kRows) ^ swz16(j);
+      if (j >= d || c >= rows) us[e] = 0.0f;
     }
-    // chunk g has landed; at a layer's first chunk, the state and
-    // cotangent after the layer are written
+  stage_u(0);
+  stage_u(1);
+
+  // this thread's unit: row `urow`, samples c4 .. c4 + 3 of the tile; its
+  // quantity qty (0 t_r, 1 t_i, 2 n_r, 3 n_i; the stores: s_r, s_i, c_r,
+  // c_i), and its share `half` of the remote stores
+  const int unit = tid / SPLIT;
+  const int part = tid % SPLIT;
+  const int qty = part & 3;
+  const int half = part >> 2;
+  const int urow = unit / QUADS;
+  const int c4 = 4 * (unit % QUADS);
+  const bool live = urow < rows;
+  float ph_r[4], ph_i[4], dp_r[4], dp_i[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int b = col0 + c4 + h;
+    const bool in = live && b < batch;
+    const size_t at = static_cast<size_t>(row0 + urow) * batch + b;
+    ph_r[h] = in ? pr[at] : 0.0f;
+    ph_i[h] = in ? pi[at] : 0.0f;
+    dp_r[h] = dp_i[h] = 0.0f;
+  }
+  // every CTA's buffers are set before any CTA writes into them
+  if (n_cta > 1)
+    cluster.sync();
+  else
     __syncthreads();
-    const int l = n_layers - 1 - (g >> nc_shift);
-    const int j0 = (g & (n_chunks - 1)) << jc_shift;
-    const float* s_r = smem + cur * 4 * plane;
-    const float* s_i = s_r + plane;
-    const float* c_r = s_i + plane;
-    const float* c_i = c_r + plane;
-    if (row) {
-      // rows j0.. of U_l: conj(U_l[j, i]) = a - i q
-      const float* u_r = us + (g & 1) * stage + i;
-      const float* u_i = u_r + jc * d;
-      float pt_r[R], pt_i[R], pn_r[R], pn_i[R];  // this chunk's partials
+
+  const int steps = depth >> 3;  // 8-deep steps of the product
+  const int per_warp = steps > kBwdWarps ? steps / kBwdWarps : 1;
+  const int n_warps = steps < kBwdWarps ? steps : kBwdWarps;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  const int src_lane = lane - qty;  // this unit's lane of quantity 0
+  for (int g = 0; g < n_layers; ++g) {
+    const int l = n_layers - 1 - g;
+    cp_async_wait<1>();  // the strip of U_l has landed (this thread's)
+    __syncthreads();     // and every thread's
+    const float* sb = st + (g & 1) * 4 * bplane;
+    const float* ua = us + (g & 1) * 2 * uplane;
+    if (warp < n_warps) {
+      float cr[M][4], ci[M][4], sr[M][4], si[M][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) pt_r[r] = pt_i[r] = pn_r[r] = pn_i[r] = 0.0f;
-      for (int jj = 0; jj < jc; ++jj) {
-        const float a = u_r[jj * d];
-        const float q = u_i[jj * d];
-        const int at = (j0 + jj) * R;
-        float xr[R], xi[R], yr[R], yi[R];
-        load_row<R>(s_r + at, xr);
-        load_row<R>(s_i + at, xi);
-        load_row<R>(c_r + at, yr);
-        load_row<R>(c_i + at, yi);
+      for (int b = 0; b < M; ++b)
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          pt_r[r] += a * xr[r] + q * xi[r];
-          pt_i[r] += a * xi[r] - q * xr[r];
-          pn_r[r] += a * yr[r] + q * yi[r];
-          pn_i[r] += a * yi[r] - q * yr[r];
+        for (int i = 0; i < 4; ++i)
+          cr[b][i] = ci[b][i] = sr[b][i] = si[b][i] = 0.0f;
+      for (int s = 0; s < per_warp; ++s) {
+        const int k0 = (warp * per_warp + s) * 8;
+        // U_l^H = ur^T - i ui^T: ai = -(ui^T), nai = ui^T
+        FragA ar, nai;
+        load_a_strip(&ar, ua, k0, lane);
+        load_a_strip(&nai, ua + uplane, k0, lane);
+        const FragA ai = negated(nai);
+        FragB br[M], bi[M];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          load_b_sw<N>(&br[b], sb, k0, 8 * b, lane);
+          load_b_sw<N>(&bi[b], sb + bplane, k0, 8 * b, lane);
+          load_b_sw<N>(&br[NB + b], sb + 2 * bplane, k0, 8 * b, lane);
+          load_b_sw<N>(&bi[NB + b], sb + 3 * bplane, k0, 8 * b, lane);
+        }
+        cmma_step<M>(cr, ci, sr, si, ar, ai, nai, br, bi);
+      }
+      add_small<M>(cr, sr);
+      add_small<M>(ci, si);
+      // c0 (g, 2 t4), c1 (g, 2 t4 + 1), c2 (g + 8, 2 t4), c3 (g + 8, ...)
+      float* wr = red + warp * 2 * RED;
+#pragma unroll
+      for (int b = 0; b < M; ++b)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = red_at<N>(g8 + 8 * h, 8 * b + 2 * t4);
+          *reinterpret_cast<float2*>(wr + at) =
+              make_float2(cr[b][2 * h], cr[b][2 * h + 1]);
+          *reinterpret_cast<float2*>(wr + RED + at) =
+              make_float2(ci[b][2 * h], ci[b][2 * h + 1]);
+        }
+    }
+    __syncthreads();  // the partials are in; stage g & 1 is free
+    stage_u(g + 2);
+
+    // this thread's quantity summed over the warps, in warp order
+    const float* rq = red + (qty & 1) * RED +
+                      red_at<N>(urow, c4 + (qty >> 1) * N);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (live)
+      for (int w8 = 0; w8 < n_warps; ++w8) {
+        const float4 a = *reinterpret_cast<const float4*>(rq + w8 * 2 * RED);
+        v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
+      }
+    // the unit's four quantities from its lanes (the whole warp takes
+    // part): t_r, t_i, n_r, n_i
+    float4 q4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      q4[q] = make_float4(__shfl_sync(0xffffffffu, v.x, src_lane + q),
+                          __shfl_sync(0xffffffffu, v.y, src_lane + q),
+                          __shfl_sync(0xffffffffu, v.z, src_lane + q),
+                          __shfl_sync(0xffffffffu, v.w, src_lane + q));
+    if (live) {
+      const int at = at_sw<N>(row0 + urow, c4);
+      if (half == 0)  // t_l and the cotangent after U_l, for dU_l
+        *reinterpret_cast<float4*>(
+            ws + qty * wsp +
+            (static_cast<size_t>(l) * d + row0 + urow) * bp + col0 + c4) =
+            qty < 2 ? v
+                    : *reinterpret_cast<const float4*>(sb + qty * bplane +
+                                                       at);
+      // the state before U_l and the cotangent pushed through it (s_r,
+      // s_i, c_r, c_i), of which this thread stores its quantity
+      float o[4][4];
+      const float tr[4] = {q4[0].x, q4[0].y, q4[0].z, q4[0].w};
+      const float ti[4] = {q4[1].x, q4[1].y, q4[1].z, q4[1].w};
+      const float nr[4] = {q4[2].x, q4[2].y, q4[2].z, q4[2].w};
+      const float ni[4] = {q4[3].x, q4[3].y, q4[3].z, q4[3].w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        if (l % k == 0) {  // undo the phase; its gradient
+          const float p = ph_r[h], q = ph_i[h];
+          const float sr = tr[h] * p + ti[h] * q;  // the state before it
+          const float si = ti[h] * p - tr[h] * q;
+          dp_r[h] = dp_r[h] + nr[h] * sr + ni[h] * si;
+          dp_i[h] = dp_i[h] + ni[h] * sr - nr[h] * si;
+          o[0][h] = sr;
+          o[1][h] = si;
+          o[2][h] = nr[h] * p + ni[h] * q;
+          o[3][h] = ni[h] * p - nr[h] * q;
+        } else {
+          o[0][h] = tr[h];
+          o[1][h] = ti[h];
+          o[2][h] = nr[h];
+          o[3][h] = ni[h];
         }
       }
+      float mine[4];  // selected, not indexed: the arrays stay in registers
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        t_r[r] += pt_r[r];
-        t_i[r] += pt_i[r];
-        n_r[r] += pn_r[r];
-        n_i[r] += pn_i[r];
-      }
-    }
-    if (j0 + jc == d) {  // layer l is done
-      if (row) {
-        float* nxt = smem + (cur ^ 1) * 4 * plane;
+      for (int h = 0; h < 4; ++h)
+        mine[h] = qty == 0   ? o[0][h]
+                  : qty == 1 ? o[1][h]
+                  : qty == 2 ? o[2][h]
+                             : o[3][h];
+      if (l > 0) {
+        float* nxt = st + ((g + 1) & 1) * 4 * bplane + qty * bplane + at;
+        const float4 val = make_float4(mine[0], mine[1], mine[2], mine[3]);
+        for (int r = half; r < n_cta; r += HALVES) {
+          float* dst = n_cta > 1 ? cluster.map_shared_rank(nxt, r) : nxt;
+          *reinterpret_cast<float4*>(dst) = val;
+        }
+      } else if (half == 0 && qty < 2) {
+        float* out = qty == 0 ? dpr : dpi;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int b = b0 + r;
-          if (b < batch) {  // dU_l's inputs: t_l and the cotangent after U_l
-            const size_t at = (static_cast<size_t>(l) * batch + b) * d + i;
-            ws[at] = t_r[r];
-            ws[wsp + at] = t_i[r];
-            ws[2 * wsp + at] = c_r[i * R + r];
-            ws[3 * wsp + at] = c_i[i * R + r];
-          }
-          float sr = t_r[r], si = t_i[r], cr = n_r[r], ci = n_i[r];
-          if (l % k == 0) {
-            const float p = ph_r[r], q = ph_i[r];
-            sr = t_r[r] * p + t_i[r] * q;  // the state before the phase
-            si = t_i[r] * p - t_r[r] * q;
-            dp_r[r] += n_r[r] * sr + n_i[r] * si;
-            dp_i[r] += n_i[r] * sr - n_r[r] * si;
-            cr = n_r[r] * p + n_i[r] * q;
-            ci = n_i[r] * p - n_r[r] * q;
-          }
-          nxt[i * R + r] = sr;
-          nxt[plane + i * R + r] = si;
-          nxt[2 * plane + i * R + r] = cr;
-          nxt[3 * plane + i * R + r] = ci;
-          t_r[r] = t_i[r] = n_r[r] = n_i[r] = 0.0f;
+        for (int h = 0; h < 4; ++h) {
+          const int b = col0 + c4 + h;
+          if (b < batch)
+            out[static_cast<size_t>(row0 + urow) * batch + b] =
+                qty == 0 ? dp_r[h] : dp_i[h];
         }
       }
-      cur ^= 1;
     }
-    // stage g & 1 is read before chunk g + 2 overwrites it
-    __syncthreads();
-  }
-
-  if (row) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int b = b0 + r;
-      if (b < batch) {
-        dpr[static_cast<size_t>(i) * batch + b] = dp_r[r];
-        dpi[static_cast<size_t>(i) * batch + b] = dp_i[r];
-      }
+    // the next state is whole in every CTA, and the partials are read
+    if (l > 0) {
+      if (n_cta > 1)
+        cluster.sync();
+      else
+        __syncthreads();
     }
   }
+  cp_async_wait<0>();  // nothing left in flight at exit (empty groups)
 }
 
-// Block (32, 8): thread (x, y) forms dU_l[j0 + y + 8 m, i0 + x], m = 0..3.
-__global__ void __launch_bounds__(kTile * 8)
+constexpr int kDuTile = 64;      // rows j and columns i of dU_l a block
+constexpr int kDuK = 32;         // samples a staged chunk
+constexpr int kDuLd = kDuK + 4;  // its row stride: 4 mod 32, so the
+                                 // fragment loads (g ld + t) hit 32 banks
+
+size_t du_smem() {
+  return 2 * 4 * static_cast<size_t>(kDuTile) * kDuLd * sizeof(float);
+}
+
+// dU_l's (64 x 64) tile (j0.., i0..) of layer blockIdx.z: warp w owns rows
+// 16 (w & 3).. and columns 32 (w >> 2).. of it. Rows past d are never
+// staged: they feed only outputs past d, which are not stored.
+__global__ void __launch_bounds__(kBwdThreads)
     unitary_chain_du_kernel(const float* __restrict__ ws,
                             float* __restrict__ dur, float* __restrict__ dui,
-                            int d, int batch, int n_layers) {
-  __shared__ float ts_r[kTile][kTile], ts_i[kTile][kTile];
-  __shared__ float cs_r[kTile][kTile], cs_i[kTile][kTile];
-  const int x = threadIdx.x, y = threadIdx.y;
-  const int i0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
+                            int d, int bp, int n_layers) {
+  extern __shared__ __align__(16) float smem[];  // [stage][t_r, t_i, c_r,
+                                                 // c_i][64][kDuLd]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int i0 = blockIdx.x * kDuTile;
+  const int j0 = blockIdx.y * kDuTile;
   const int l = blockIdx.z;
-  const size_t wsp = static_cast<size_t>(n_layers) * batch * d;
-  const float* t_r = ws + static_cast<size_t>(l) * batch * d;
-  const float* t_i = t_r + wsp;
-  const float* c_r = t_r + 2 * wsp;
-  const float* c_i = t_r + 3 * wsp;
-  float acc_r[kRowsPerThread], acc_i[kRowsPerThread];
-#pragma unroll
-  for (int m = 0; m < kRowsPerThread; ++m) acc_r[m] = acc_i[m] = 0.0f;
-  for (int bb = 0; bb < batch; bb += kTile) {
-#pragma unroll
-    for (int m = 0; m < kRowsPerThread; ++m) {
-      const int q = y + 8 * m;
-      const int b = bb + q;
-      const size_t at = static_cast<size_t>(b) * d;
-      const bool ti_in = b < batch && i0 + x < d;
-      const bool cj_in = b < batch && j0 + x < d;
-      ts_r[q][x] = ti_in ? t_r[at + i0 + x] : 0.0f;
-      ts_i[q][x] = ti_in ? t_i[at + i0 + x] : 0.0f;
-      cs_r[q][x] = cj_in ? c_r[at + j0 + x] : 0.0f;
-      cs_i[q][x] = cj_in ? c_i[at + j0 + x] : 0.0f;
-    }
-    __syncthreads();
-    const int nb = batch - bb < kTile ? batch - bb : kTile;
-    for (int q = 0; q < nb; ++q) {  // b in increasing order
-      const float a = ts_r[q][x], e = ts_i[q][x];
-#pragma unroll
-      for (int m = 0; m < kRowsPerThread; ++m) {
-        const float u = cs_r[q][y + 8 * m], v = cs_i[q][y + 8 * m];
-        acc_r[m] += u * a + v * e;
-        acc_i[m] += v * a - u * e;
+  const int plane = kDuTile * kDuLd;
+  const size_t wsp = static_cast<size_t>(n_layers) * d * bp;
+  const size_t at = static_cast<size_t>(l) * d * bp;
+  const int chunks = (bp + kDuK - 1) / kDuK;
+
+  // samples 32 c.. of the tile's rows of t (i) and c (j) into stage c & 1,
+  // 16 bytes a copy (bp and the chunks are multiples of 8 samples)
+  auto stage = [&](int c) {
+    if (c < chunks) {
+      const int b0 = c * kDuK;
+      const int per = (bp - b0 < kDuK ? bp - b0 : kDuK) / 4;
+      float* dst = smem + (c & 1) * 4 * plane;
+      for (int e = tid; e < 4 * kDuTile * per; e += kBwdThreads) {
+        const int q = e / (kDuTile * per);
+        const int r = (e / per) % kDuTile;
+        const int x = (e % per) * 4;
+        const int row = (q < 2 ? i0 : j0) + r;
+        if (row < d)
+          cp_async(dst + q * plane + r * kDuLd + x,
+                   ws + q * wsp + at + static_cast<size_t>(row) * bp + b0 + x,
+                   4);
       }
     }
-    __syncthreads();
-  }
+    cp_async_commit();
+  };
+
+  const int m0 = 16 * (warp & 3);
+  const int n0 = 32 * (warp >> 2);
+  const bool work = j0 + m0 < d && i0 + n0 < d;
+  float cr[4][4], ci[4][4], sr[4][4], si[4][4];
 #pragma unroll
-  for (int m = 0; m < kRowsPerThread; ++m) {
-    const int jr = j0 + y + 8 * m, ic = i0 + x;
-    if (jr < d && ic < d) {
-      const size_t at = (static_cast<size_t>(l) * d + jr) * d + ic;
-      dur[at] = acc_r[m];
-      dui[at] = acc_i[m];
-    }
+  for (int b = 0; b < 4; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cr[b][i] = ci[b][i] = sr[b][i] = si[b][i] = 0.0f;
+  stage(0);
+  stage(1);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* s = smem + (c & 1) * 4 * plane;
+    const int kc = bp - c * kDuK < kDuK ? bp - c * kDuK : kDuK;
+    if (work)
+      for (int k0 = 0; k0 < kc; k0 += 8) {  // b in increasing order
+        // C_l (j, b) against T_l^H (b, i) = t_r - i t_i
+        FragA ar, ai;
+        load_a(&ar, s + 2 * plane, kDuLd, m0, k0, lane);
+        load_a(&ai, s + 3 * plane, kDuLd, m0, k0, lane);
+        const FragA nai = negated(ai);
+        FragB br[4], bi[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          FragB t;
+          load_b_nk(&br[n], s, kDuLd, k0, n0 + 8 * n, lane);
+          load_b_nk(&t, s + plane, kDuLd, k0, n0 + 8 * n, lane);
+          bi[n] = negated(t);
+        }
+        cmma_step<4>(cr, ci, sr, si, ar, ai, nai, br, bi);
+      }
+    __syncthreads();  // stage c & 1 is read before chunk c + 2 lands
+    stage(c + 2);
   }
+  cp_async_wait<0>();
+  if (!work) return;
+  add_small<4>(cr, sr);
+  add_small<4>(ci, si);
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + m0 + g + 8 * h;
+      const int i = i0 + n0 + 8 * n + 2 * t4;
+      if (j < d && i < d) {  // d is even: i + 1 < d too
+        const size_t o = (static_cast<size_t>(l) * d + j) * d + i;
+        *reinterpret_cast<float2*>(dur + o) =
+            make_float2(cr[n][2 * h], cr[n][2 * h + 1]);
+        *reinterpret_cast<float2*>(dui + o) =
+            make_float2(ci[n][2 * h], ci[n][2 * h + 1]);
+      }
+    }
 }
 
-// The state buffers and two staged chunks of U a backward block.
-size_t bwd_smem(int d, int tile) {
-  const int jc = chunk_for(d);
-  return (8 * static_cast<size_t>(d) * tile +
-          4 * static_cast<size_t>(jc) * d) *
-         sizeof(float);
-}
-
-// Sets the forward's attributes for a tile of 8 NB samples and fills cfg
-// for `batch` samples: ceil(batch / (8 NB)) clusters of fwd_cluster(d)
-// CTAs; attr (one entry) must outlive cfg.
-template <int NB>
-cudaError_t fwd_config(int d, int batch, cudaStream_t stream,
-                       cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+// Sets a cluster kernel's attributes (smem bytes a CTA, the non-portable
+// cluster of 16 CTAs) and fills cfg for `tiles` tiles of samples, each a
+// cluster of fwd_cluster(d) CTAs of `threads`; attr (one entry) must
+// outlive cfg.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, size_t smem, int threads, int d,
+                           int tiles, cudaStream_t stream,
+                           cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
   const int cluster = fwd_cluster(d);
-  const size_t smem = fwd_smem(d, 8 * NB);
-  cudaError_t err = allow_smem(unitary_chain_fwd_kernel<NB>, smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(unitary_chain_fwd_kernel<NB>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -591,13 +805,32 @@ cudaError_t fwd_config(int d, int batch, cudaStream_t stream,
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3((batch + 8 * NB - 1) / (8 * NB) * cluster);
-  cfg->blockDim = dim3(kFwdThreads);
+  cfg->gridDim = dim3(tiles * cluster);
+  cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   return err;
+}
+
+// The forward's configuration for a tile of 8 NB samples and `batch`
+// samples: ceil(batch / (8 NB)) clusters.
+template <int NB>
+cudaError_t fwd_config(int d, int batch, cudaStream_t stream,
+                       cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  return cluster_config(unitary_chain_fwd_kernel<NB>, fwd_smem(d, 8 * NB),
+                        kFwdThreads, d, (batch + 8 * NB - 1) / (8 * NB),
+                        stream, attr, cfg);
+}
+
+// The backward's, alike.
+template <int NB>
+cudaError_t bwd_config(int d, int batch, cudaStream_t stream,
+                       cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  return cluster_config(unitary_chain_bwd_kernel<NB>, bwd_smem(d, 8 * NB),
+                        kBwdThreads, d, (batch + 8 * NB - 1) / (8 * NB),
+                        stream, attr, cfg);
 }
 
 // How many of the forward's clusters the card holds at once (0: none).
@@ -609,6 +842,17 @@ cudaError_t fwd_active(int d, int* clusters) {
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(clusters,
                                         unitary_chain_fwd_kernel<NB>, &cfg);
+}
+
+// And of the backward's.
+template <int NB>
+cudaError_t bwd_active(int d, int* clusters) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = bwd_config<NB>(d, 1, nullptr, &attr, &cfg);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters,
+                                        unitary_chain_bwd_kernel<NB>, &cfg);
 }
 
 template <int NB>
@@ -630,19 +874,34 @@ cudaError_t launch_fwd(const float* pr, const float* pi, const float* ur,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int R>
+// The walk, then dU_l's product: two launches on the stream.
+template <int NB>
 cudaError_t launch_bwd(const float* pr, const float* pi, const float* ur,
                        const float* ui, const float* fr, const float* fi,
                        const float* gr, const float* gi, float* ws,
-                       float* dpr, float* dpi, int d, int batch,
-                       int n_layers, int k, cudaStream_t s) {
-  const size_t smem = bwd_smem(d, R);
-  cudaError_t err = allow_smem(unitary_chain_bwd_kernel<R>, smem);
+                       float* dur, float* dui, float* dpr, float* dpi,
+                       int d, int batch, int n_layers, int k,
+                       cudaStream_t s) {
+  int clusters = 0;
+  cudaError_t err = bwd_active<NB>(d, &clusters);
   if (err != cudaSuccess) return err;
-  unitary_chain_bwd_kernel<R><<<(batch + R - 1) / R, unitary_threads(d),
-                                smem, s>>>(pr, pi, ur, ui, fr, fi, gr, gi,
-                                           ws, dpr, dpi, d, batch, n_layers,
-                                           k);
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  err = bwd_config<NB>(d, batch, s, &attr, &cfg);
+  if (err != cudaSuccess) return err;
+  const int rows = d < kRows ? d : kRows;
+  const int granule = aligned16({ur, ui}) ? (rows < 4 ? rows : 4) : 1;
+  err = cudaLaunchKernelEx(&cfg, unitary_chain_bwd_kernel<NB>, pr, pi, ur,
+                           ui, fr, fi, gr, gi, ws, dpr, dpi, d, batch,
+                           n_layers, k, granule);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) err = allow_smem(unitary_chain_du_kernel, du_smem());
+  if (err != cudaSuccess) return err;
+  const int tiles = (d + kDuTile - 1) / kDuTile;
+  const int bp = (batch + 8 * NB - 1) / (8 * NB) * (8 * NB);
+  unitary_chain_du_kernel<<<dim3(tiles, tiles, n_layers), kBwdThreads,
+                            du_smem(), s>>>(ws, dur, dui, d, bp, n_layers);
   return cudaGetLastError();
 }
 
@@ -651,19 +910,20 @@ cudaError_t launch_bwd(const float* pr, const float* pi, const float* ur,
 extern "C" {
 
 // Shared-memory bytes a forward CTA needs at a tile of `cols` samples, and
-// a backward block at a tile of `tile`; the wrapper checks them against
-// the card's per-block limit.
+// a backward CTA at a tile of `cols`; the wrapper checks them against its
+// plan and the card's per-block limit.
 size_t unitary_chain_fwd_smem_bytes(int wires, int cols) {
   return fwd_smem(1 << wires, cols);
 }
 
-size_t unitary_chain_bwd_smem_bytes(int wires, int tile) {
-  return bwd_smem(1 << wires, tile);
+size_t unitary_chain_bwd_smem_bytes(int wires, int cols) {
+  return bwd_smem(1 << wires, cols);
 }
 
-// How many forward clusters (fwd_cluster(d) CTAs each) the card holds at
-// once at a tile of `cols` samples (0: none, and the launch is refused; a
-// negative cudaError on failure); chip_smoke.py prints it with the plan.
+// How many forward (backward) clusters, fwd_cluster(d) CTAs each, the card
+// holds at once at a tile of `cols` samples (0: none, and the launch is
+// refused; a negative cudaError on failure); chip_smoke.py prints it with
+// the plan.
 int unitary_chain_fwd_active_clusters(int wires, int cols, int device) {
   cudaError_t err = cudaSetDevice(device);
   const int d = 1 << wires;
@@ -673,6 +933,18 @@ int unitary_chain_fwd_active_clusters(int wires, int cols, int device) {
   if (err == cudaSuccess)
     err = cols == 8 ? fwd_active<1>(d, &clusters)
                     : fwd_active<2>(d, &clusters);
+  return err != cudaSuccess ? -static_cast<int>(err) : clusters;
+}
+
+int unitary_chain_bwd_active_clusters(int wires, int cols, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  const int d = 1 << wires;
+  if (err == cudaSuccess && (d > kMaxDim || (cols != 8 && cols != 16)))
+    err = cudaErrorInvalidValue;
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cols == 8 ? bwd_active<1>(d, &clusters)
+                    : bwd_active<2>(d, &clusters);
   return err != cudaSuccess ? -static_cast<int>(err) : clusters;
 }
 
@@ -700,18 +972,21 @@ int unitary_chain_fwd(const void* pr, const void* pi, const void* ur,
   return static_cast<int>(err);
 }
 
-// ws is (4, n_layers, batch, d) scratch; dur, dui are (n_layers, d, d);
-// dpr, dpi are (d, batch).
+// ws is (4, n_layers, d, Bp) scratch, Bp = batch rounded up to `cols`;
+// dur, dui are (n_layers, d, d); dpr, dpi are (d, batch); cols (8 or 16)
+// samples a tile, as in the forward.
 int unitary_chain_bwd(const void* pr, const void* pi, const void* ur,
                       const void* ui, const void* fr, const void* fi,
                       const void* gr, const void* gi, void* ws, void* dur,
                       void* dui, void* dpr, void* dpi, int wires, int batch,
-                      int n_layers, int k, int tile, int device,
+                      int n_layers, int k, int cols, int device,
                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int d = 1 << wires;
-  if (d > kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 2 || d > kMaxDim || batch < 1 || n_layers < 1 || k < 1 ||
+      (cols != 8 && cols != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* a = static_cast<const float*>(pr);
   const auto* b = static_cast<const float*>(pi);
   const auto* u = static_cast<const float*>(ur);
@@ -721,21 +996,16 @@ int unitary_chain_bwd(const void* pr, const void* pi, const void* ur,
   const auto* g0 = static_cast<const float*>(gr);
   const auto* g1 = static_cast<const float*>(gi);
   auto* w = static_cast<float*>(ws);
+  auto* du0 = static_cast<float*>(dur);
+  auto* du1 = static_cast<float*>(dui);
   auto* q0 = static_cast<float*>(dpr);
   auto* q1 = static_cast<float*>(dpi);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile != 1 && tile != 2) return static_cast<int>(cudaErrorInvalidValue);
-  err = tile == 1 ? launch_bwd<1>(a, b, u, v, f0, f1, g0, g1, w, q0, q1, d,
-                                  batch, n_layers, k, s)
-                  : launch_bwd<2>(a, b, u, v, f0, f1, g0, g1, w, q0, q1, d,
-                                  batch, n_layers, k, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (d + kTile - 1) / kTile;
-  unitary_chain_du_kernel<<<dim3(tiles, tiles, n_layers), dim3(kTile, 8), 0,
-                            s>>>(w, static_cast<float*>(dur),
-                                 static_cast<float*>(dui), d, batch,
-                                 n_layers);
-  return static_cast<int>(cudaGetLastError());
+  err = cols == 8 ? launch_bwd<1>(a, b, u, v, f0, f1, g0, g1, w, du0, du1,
+                                  q0, q1, d, batch, n_layers, k, s)
+                  : launch_bwd<2>(a, b, u, v, f0, f1, g0, g1, w, du0, du1,
+                                  q0, q1, d, batch, n_layers, k, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -417,8 +417,10 @@ def _library():
                    lib.unitary_chain_bwd_smem_bytes):
             fn.argtypes = [num] * 2
             fn.restype = ctypes.c_size_t
-        lib.unitary_chain_fwd_active_clusters.argtypes = [num] * 3
-        lib.unitary_chain_fwd_active_clusters.restype = num
+        for fn in (lib.unitary_chain_fwd_active_clusters,
+                   lib.unitary_chain_bwd_active_clusters):
+            fn.argtypes = [num] * 3
+            fn.restype = num
         lib.gate_chain_error_string.argtypes = [ctypes.c_int]
         lib.gate_chain_error_string.restype = ctypes.c_char_p
         _LIB = lib

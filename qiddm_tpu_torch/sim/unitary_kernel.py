@@ -95,17 +95,13 @@ def unitary_chain_bwd_plain(pr, pi, ur, ui, fr, fi, gr, gi, k: int):
 
 # --- CUDA kernels ------------------------------------------------------------
 
-# Streaming multiprocessors of the H100, which the tiles of a batch fill.
+# Streaming multiprocessors of the H100, which the tiles of a batch fill,
+# and the shared memory (each resident CTA also takes 1 KB of it) and the
+# threads of one.
 _SMS = 132
-
-
-def _tile_for(batch: int) -> int:
-    """Samples a block of the backward kernel #14: 1 while the batch fits
-    the card's 132 SMs a sample a block, else 2. A tile of R samples reads
-    every unitary once for R samples, so the L2 traffic falls as R grows,
-    and so do the blocks and the SMs in use (``chip_smoke.py`` phase 28
-    times both tiles side by side)."""
-    return 1 if batch <= _SMS else 2
+_SM_SMEM_BYTES = 233472
+_CTA_RESERVED_BYTES = 1024
+_SM_THREADS = 2048
 
 
 # The forward kernel #13: rows of U_l a CTA (one 16-row tensor-core tile),
@@ -162,6 +158,90 @@ def unitary_plan(wires: int, batch: int, cols: int = 0) -> UnitaryPlan:
                        fwd_smem_bytes(wires, cols), warps, steps // warps)
 
 
+# The backward kernel #14: the forward's clusters and tiles of samples, its
+# threads, and the tile of its dU product (a block a 64 x 64 tile of dU_l).
+BWD_THREADS = 256
+DU_TILE = 64
+
+
+class UnitaryBwdPlan(NamedTuple):
+    """How kernel #14 lays out one call: ``tiles`` tiles of ``cols``
+    samples, each a thread-block cluster of ``cluster`` CTAs (``FWD_ROWS``
+    rows of t and n each) of ``threads`` threads and ``smem_bytes`` of
+    shared memory; ``steps_per_warp`` 8-deep steps of a layer's product
+    for each of ``warps`` warps; ``resident`` clusters on the card at once
+    by shared memory and threads, so ``waves`` waves of clusters (the
+    card's own count, ``unitary_chain_bwd_active_clusters``, can be lower:
+    a cluster's CTAs must share a GPC); the workspace's ``ws_samples``
+    (tiles x cols) and the dU product's ``du_blocks`` blocks a layer."""
+    cluster: int
+    cols: int
+    tiles: int
+    threads: int
+    smem_bytes: int
+    warps: int
+    steps_per_warp: int
+    resident: int
+    waves: int
+    ws_samples: int
+    du_blocks: int
+
+
+def bwd_smem_bytes(wires: int, cols: int) -> int:
+    """Shared memory of a backward CTA, as ``csrc/unitary_chain.cu::
+    bwd_smem`` counts it: state and cotangent [2][4][depth][cols], U's
+    strip [2][re, im][depth][16] and the warps' partials [8][re, im] of 16
+    x 2 cols floats and a pad (8 at 16 samples, 16 at 8), depth = max(8,
+    2**wires)."""
+    depth = max(8, 2**wires)
+    red = FWD_ROWS * 2 * cols + (8 if cols == 16 else 16)
+    return 4 * (8 * depth * cols + 4 * depth * FWD_ROWS
+                + 2 * (BWD_THREADS // 32) * red)
+
+
+def _resident(cluster: int, smem: int) -> int:
+    """Clusters of ``cluster`` CTAs of ``smem`` bytes that the 132 SMs hold
+    at once, by shared memory and threads alone."""
+    per_sm = min(_SM_THREADS // BWD_THREADS,
+                 _SM_SMEM_BYTES // (smem + _CTA_RESERVED_BYTES))
+    return _SMS * per_sm // cluster
+
+
+def unitary_bwd_plan(wires: int, batch: int, cols: int = 0) -> UnitaryBwdPlan:
+    """Kernel #14's layout for one call, from the shape alone.
+
+    A cluster of max(1, d / 16) CTAs walks a tile of samples, as #13's
+    forward does; the tile is 8 samples when their clusters all fit the
+    card at once (``resident``), else 16 (fewer clusters, each holding
+    twice the samples). ``cols`` forces a tile of 8 or 16 (``chip_smoke.py``
+    times both). Raises for a width past ``MAX_WIRES``, an empty batch, or
+    a tile whose shared memory the card does not hold."""
+    if not 1 <= wires <= MAX_WIRES or batch < 1:
+        raise ValueError(f"no backward plan for {wires} wires, batch "
+                         f"{batch} (1-{MAX_WIRES} wires)")
+    d = 2**wires
+    cluster = max(1, d // FWD_ROWS)
+    if cols == 0:
+        cols = next((c for c in FWD_COLS
+                     if -(-batch // c) <= _resident(
+                         cluster, bwd_smem_bytes(wires, c))), FWD_COLS[-1])
+    if cols not in FWD_COLS:
+        raise ValueError(f"cols must be one of {FWD_COLS} samples, got "
+                         f"{cols}")
+    smem = bwd_smem_bytes(wires, cols)
+    if smem > _gk._MAX_SMEM_BYTES:
+        raise ValueError(f"unitary-chain backward kernel needs {smem} B of "
+                         f"shared memory a CTA (limit {_gk._MAX_SMEM_BYTES})"
+                         f" at {wires} wires and {cols} samples a tile")
+    tiles = -(-batch // cols)
+    resident = _resident(cluster, smem)
+    steps = max(8, d) // 8
+    warps = min(steps, BWD_THREADS // 32)
+    return UnitaryBwdPlan(cluster, cols, tiles, BWD_THREADS, smem, warps,
+                          steps // warps, resident, -(-tiles // resident),
+                          tiles * cols, (-(-d // DU_TILE))**2)
+
+
 def _check_inputs(what: str, planes, ur, ui, k: int):
     """Raise unless every tensor is a contiguous float32 tensor on one CUDA
     device, the planes (d, B) with d = 2**wires <= MAX_FUSED_DIM, the
@@ -194,16 +274,6 @@ def _check_shapes(what: str, planes, ur, ui, k: int):
     return d.bit_length() - 1, B, n_layers
 
 
-def _check_tile(smem_fn, wires: int, tile: int) -> None:
-    if tile not in (1, 2):
-        raise ValueError(f"tile must be 1 or 2 samples, got {tile}")
-    smem = smem_fn(wires, tile)
-    if smem > _gk._MAX_SMEM_BYTES:
-        raise ValueError(f"unitary-chain kernel needs {smem} B of shared "
-                         f"memory a block (limit {_gk._MAX_SMEM_BYTES}) at "
-                         f"{wires} wires and a tile of {tile}")
-
-
 def _unitary_chain_cuda(pr, pi, ur, ui, k: int, cols: int = 0):
     """Launch kernel #13 on PyTorch's current stream under
     :func:`unitary_plan` (``cols`` samples a tile, the plan's choice by
@@ -232,18 +302,23 @@ def _unitary_chain_cuda(pr, pi, ur, ui, k: int, cols: int = 0):
 
 
 def _unitary_chain_bwd_cuda(pr, pi, ur, ui, fr, fi, gr, gi, k: int,
-                            tile: int = 0):
-    """Launch kernel #14 (the adjoint walk, then its fixed-order dU
-    product) on PyTorch's current stream; returns new (dpr, dpi, dur, dui)
-    as :func:`unitary_chain_bwd_plain` does."""
+                            cols: int = 0):
+    """Launch kernel #14 (the adjoint walk over :func:`unitary_bwd_plan`'s
+    clusters, ``cols`` samples a tile, the plan's choice by default; then
+    its fixed-order dU product) on PyTorch's current stream; returns new
+    (dpr, dpi, dur, dui) as :func:`unitary_chain_bwd_plain` does."""
     global UNITARY_BWD_LAUNCHES
     wires, B, n_layers = _check_inputs(
         "unitary-chain backward kernel", (pr, pi, fr, fi, gr, gi), ur, ui, k)
-    tile = tile or _tile_for(B)
+    plan = unitary_bwd_plan(wires, B, cols)
     lib = _gk._library()
-    _check_tile(lib.unitary_chain_bwd_smem_bytes, wires, tile)
-    ws = torch.empty((4, n_layers, B, 2**wires), dtype=torch.float32,
-                     device=pr.device)
+    smem = lib.unitary_chain_bwd_smem_bytes(wires, plan.cols)
+    if smem != plan.smem_bytes:
+        raise ValueError(f"unitary-chain backward kernel needs {smem} B of "
+                         f"shared memory a CTA, its plan {plan.smem_bytes}, "
+                         f"at {wires} wires and {plan.cols} samples a tile")
+    ws = torch.empty((4, n_layers, 2**wires, plan.ws_samples),
+                     dtype=torch.float32, device=pr.device)
     dur = torch.empty_like(ur)
     dui = torch.empty_like(ui)
     dpr = torch.empty_like(pr)
@@ -254,7 +329,8 @@ def _unitary_chain_bwd_cuda(pr, pi, ur, ui, fr, fi, gr, gi, k: int,
                                 gr.data_ptr(), gi.data_ptr(), ws.data_ptr(),
                                 dur.data_ptr(), dui.data_ptr(),
                                 dpr.data_ptr(), dpi.data_ptr(), wires, B,
-                                n_layers, k, tile, pr.device.index, stream)
+                                n_layers, k, plan.cols, pr.device.index,
+                                stream)
     _gk._raise_on(err, lib, "unitary-chain backward kernel")
     UNITARY_BWD_LAUNCHES += 1
     return dpr, dpi, dur, dui

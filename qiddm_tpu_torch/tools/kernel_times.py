@@ -1,23 +1,26 @@
 """Device times of the amplitude-damping pass (#7), the unitary-streaming
-chain's forward (#13), the gate chains' forwards (#1, #3) and their adjoint
-walks (#2, #4), and the SEL chain's forward on planes (#5) and its adjoint
-(#6) at the shapes their kernels are measured at, through the entries
+chain's forward (#13) and its adjoint (#14), the gate chains' forwards
+(#1, #3) and their adjoint walks (#2, #4), the SEL chain's forward on
+planes (#5) and its adjoint (#6), and the transpose probe (P2) at the
+shapes their kernels are measured at, through the entries
 ``amp_damp_kernel.amp_damp``, ``unitary_kernel.unitary_chain_planes``,
+``unitary_kernel._unitary_chain_bwd_cuda``,
 ``gate_kernel._gate_chain_cuda``, ``ry_kernel._ry_chain_cuda``,
 ``gate_kernel._gate_chain_bwd_cuda``, ``ry_kernel._ry_chain_bwd_cuda``,
-``sel_kernel._sel_chain_cuda`` and ``sel_kernel._sel_chain_bwd_cuda``;
-beside #13, its library formulation (one complex64 ``torch.matmul`` a layer
-with the phase multiplies, cuBLAS with TF32 off). On the card it also
-profiles 10 steady ``QNN_noise(784, 8, 14)`` training steps (#5 and #6's
-model; ``qnn_step``).
+``sel_kernel._sel_chain_cuda``, ``sel_kernel._sel_chain_bwd_cuda`` and
+``probe_kernels.transpose_probe``; beside #13, its library formulation
+(one complex64 ``torch.matmul`` a layer with the phase multiplies, cuBLAS
+with TF32 off). On the card it also profiles 10 steady ``QNN_noise(784,
+8, 14)`` training steps (#5 and #6's model; ``qnn_step``).
 
 Each time is the median of 20 calls, CUDA events around each call behind a
 spin kernel (``common.median_ms``): the device's time, without the host's
 enqueue, but with the launch's own latency (~5 us: a kernel that does
 nothing reads so). Beside it, each kernel's own duration, the median of
 its 20 launches' device records under ``torch.profiler`` (CUPTI), which
-holds neither; for #2, #4 and #6 also the device time of all the kernels of
-a call (a call may end in a second launch that sums dg over the batch). The
+holds neither; for #2, #4, #6 and #14 also the device time of all the
+kernels of a call (a call may end in a second launch that sums dg over
+the batch; #14's ends in its dU product). The
 entries and their arguments are the same in earlier checkouts of the port,
 so the same script times another checkout's kernels when that checkout
 comes first on the path:
@@ -49,7 +52,7 @@ from qiddm_tpu_torch.sim import (amp_damp_kernel, gate_kernel, ry_kernel,
 from qiddm_tpu_torch.sim.gates import rot_matrix
 from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
 from qiddm_tpu_torch.sim.statevector import rz_phase_planes
-from qiddm_tpu_torch.tools import common
+from qiddm_tpu_torch.tools import common, probe_kernels
 
 # (wires, states): path A's pass (100 trajectories x 10 images at 12
 # wires) and path B's (QIDDM_PL_noise1 at 8 wires)
@@ -80,6 +83,8 @@ SEL_FWD_SHAPES = ((8, 10, 14, "cz"), (8, 16, 14, "cz"), (6, 16, 60, "cnot"),
 # of #6: QNN_noise's training step, Qdense's chain at a batch of 10, and 12
 # wires past one cluster
 SEL_BWD_SHAPES = ((8, 10, 14, "cz"), (6, 10, 60, "cnot"), (12, 10, 14, "cz"))
+# (rows, cols, n_iters) of P2: the TPU tool's plane and iterations
+TRANSPOSE_SHAPES = ((128, 8192, 50),)
 # the profiled training step: mnist_exm's defaults (batch 1, tau 10, Adam)
 QNN_MODEL = ["QNN_noise", "784", "8", "14"]
 QNN_TAU = 10
@@ -225,11 +230,11 @@ def qnn_step(device: torch.device, seed: int = 0) -> dict:
 
 def measure(device: torch.device, seed: int = 0) -> dict:
     """{name: median ms} for every case of ``AMP_SHAPES``,
-    ``UNITARY_SHAPES``, ``GATE_FWD_SHAPES``, ``RY_FWD_SHAPES``,
-    ``GATE_BWD_SHAPES``, ``RY_BWD_SHAPES``, ``SEL_FWD_SHAPES`` and
-    ``SEL_BWD_SHAPES``, the kernels' profiled durations on the card (for
-    #2, #4 and #6 also a call's device time over all its kernels), and the
-    launch counts."""
+    ``UNITARY_SHAPES`` (forward and backward), ``GATE_FWD_SHAPES``,
+    ``RY_FWD_SHAPES``, ``GATE_BWD_SHAPES``, ``RY_BWD_SHAPES``,
+    ``SEL_FWD_SHAPES``, ``SEL_BWD_SHAPES`` and ``TRANSPOSE_SHAPES``, the
+    kernels' profiled durations on the card (for #2, #4, #6 and #14 also a
+    call's device time over all its kernels), and the launch counts."""
     rng = np.random.default_rng(seed)
     times, kernels = {}, {}
 
@@ -244,7 +249,8 @@ def measure(device: torch.device, seed: int = 0) -> dict:
 
     cuda = device.type == "cuda"
     amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
-    unitary_kernel.UNITARY_LAUNCHES = 0
+    unitary_kernel.UNITARY_LAUNCHES = unitary_kernel.UNITARY_BWD_LAUNCHES = 0
+    probe_kernels.PROBE_LAUNCHES["transpose"] = 0
     gate_kernel.LAUNCHES = ry_kernel.RY_LAUNCHES = 0
     gate_kernel.BWD_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
     sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
@@ -276,6 +282,16 @@ def measure(device: torch.device, seed: int = 0) -> dict:
             p = torch.complex(pr, pi)
             timed(f"library_unitary {key}",
                   lambda: _library_unitary(p, lus, k))
+            fr, fi = unitary_kernel.unitary_chain_planes_plain(pr, pi, ur,
+                                                               ui, k)
+            gr, gi = (torch.as_tensor(rng.normal(size=(2**w, b)),
+                                      dtype=torch.float32, device=device)
+                      for _ in range(2))
+            bwd = (unitary_kernel._unitary_chain_bwd_cuda if cuda
+                   else unitary_kernel.unitary_chain_bwd_plain)
+            args = (pr, pi, ur, ui, fr, fi, gr, gi, k)
+            timed(f"unitary_chain_bwd {key}", lambda: bwd(*args),
+                  "unitary_chain_bwd_kernel", call=True)
         for w, b, n, k in GATE_FWD_SHAPES:
             g8, signs, _, _ = _bwd_planes(rng, w, b, n, k, device)
             x = torch.as_tensor(rng.normal(size=(2**w, b)),
@@ -331,9 +347,18 @@ def measure(device: torch.device, seed: int = 0) -> dict:
                    else sel_kernel.sel_chain_bwd_plain)
             timed(f"sel_chain_bwd w={w} B={b} depth={depth} {ring}",
                   lambda: bwd(*args), "sel_chain_bwd", call=True)
+        for rows, cols, n in TRANSPOSE_SHAPES:
+            x = torch.as_tensor(rng.random((rows, cols)),
+                                dtype=torch.float32, device=device)
+            timed(f"transpose_probe ({rows}, {cols}) x {n}",
+                  lambda: probe_kernels.transpose_probe(x, n),
+                  "probe_transpose_kernel")
     return {"times_ms": times, "kernel_ms": kernels, "call_device_ms": calls,
             "launches": {"amp_damp": amp_damp_kernel.AMP_DAMP_LAUNCHES,
                          "unitary": unitary_kernel.UNITARY_LAUNCHES,
+                         "unitary_bwd": unitary_kernel.UNITARY_BWD_LAUNCHES,
+                         "transpose": probe_kernels.PROBE_LAUNCHES[
+                             "transpose"],
                          "gate": gate_kernel.LAUNCHES,
                          "ry": ry_kernel.RY_LAUNCHES,
                          "gate_bwd": gate_kernel.BWD_LAUNCHES,

@@ -18,7 +18,9 @@ gradient.
   distributed shared memory. Returns ``None`` when the card refuses the
   shape (its only capacity answer), asked once a shape and device.
 * P2 :func:`transpose_probe` (``probe_transpose``): ``n_iters`` x
-  ``x <- transpose(transpose(x) * 1.000001)``.
+  ``x <- transpose(transpose(x) * 1.000001)``, a block a column strip held
+  in shared memory with its transpose through every iteration
+  (:func:`transpose_plan`).
 * P3 :func:`reshape_probe` (``probe_reshape``): ``n_iters`` x
   ``x <- reshape(reshape(x, (C, R)) * 1.000001, (R, C)) * 0.999999``.
 * P5 :func:`matmul2_probe` (``probe_matmul2``): ``n_iters`` x ``x <- g @ x``
@@ -61,6 +63,9 @@ SLAB_TAKEN_PAD = 4
 # P5's slab of columns a block (PERF.md: 64 ran faster than 32)
 MATMUL2_COLS = 64
 FMA_CHAINS = (1, 4, 8)
+
+# Streaming multiprocessors of the H100, which P2's strips fill
+_SMS = 132
 
 _BOUND = False
 # P1's capacity answers, (device index, bytes, cluster) -> fits
@@ -171,7 +176,7 @@ def _library():
         for name, args in (
                 ("probe_smem_fits", [num, num, num]),
                 ("probe_smem", [ptr, ptr, num, num, num, ptr]),
-                ("probe_transpose", [ptr, ptr, ptr, num, num, num, num, ptr]),
+                ("probe_transpose", [ptr, ptr] + [num] * 5 + [ptr]),
                 ("probe_reshape", [ptr, ptr, big, num, num, ptr]),
                 ("probe_matmul2", [ptr, ptr, ptr] + [num] * 5 + [ptr]),
                 ("probe_dot3d", [ptr, ptr, ptr] + [num] * 7 + [ptr]),
@@ -179,6 +184,8 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = num
+        lib.probe_transpose_smem_bytes.argtypes = [num, num]
+        lib.probe_transpose_smem_bytes.restype = ctypes.c_size_t
         _BOUND = True
     return lib
 
@@ -247,6 +254,37 @@ def smem_probe(x, smem_bytes: int, cluster: int = 1):
     return out
 
 
+def transpose_smem_bytes(rows: int, w: int) -> int:
+    """Shared memory of a P2 block at a strip of ``w`` columns: the strip
+    [rows][w + 1] and its transpose [w][rows + 1] in float32
+    (``transpose_smem`` of ``csrc/probes.cu``)."""
+    return 4 * (rows * (w + 1) + w * (rows + 1))
+
+
+def transpose_plan(rows: int, cols: int) -> tuple[int, int, int]:
+    """P2's layout for an (R, C) plane: (w, blocks, smem_bytes), a block
+    the column strip of w columns. w is 32 times a power of two that
+    divides C and whose strip and transpose fit a block's shared memory:
+    the narrowest whose blocks all find one of the card's 132 SMs, else
+    the widest (then some SMs take two strips in turn). Raises for sides
+    that are not multiples of 32 or a strip of 32 that does not fit."""
+    if rows < 32 or cols < 32 or rows % 32 or cols % 32:
+        raise ValueError(f"P2 takes sides that are multiples of 32, got "
+                         f"({rows}, {cols})")
+    widths = []
+    w = 32
+    while cols % w == 0:
+        if transpose_smem_bytes(rows, w) <= _gk._MAX_SMEM_BYTES:
+            widths.append(w)
+        w *= 2
+    if not widths:
+        raise ValueError(f"P2: a strip of 32 columns of {rows} rows needs "
+                         f"{transpose_smem_bytes(rows, 32)} B of shared "
+                         f"memory a block (limit {_gk._MAX_SMEM_BYTES})")
+    w = next((w for w in widths if cols // w <= _SMS), widths[-1])
+    return w, cols // w, transpose_smem_bytes(rows, w)
+
+
 def transpose_probe(x, n_iters: int):
     """P2 on an (R, C) float32 plane, R and C multiples of 32."""
     if n_iters < 1:
@@ -255,15 +293,14 @@ def transpose_probe(x, n_iters: int):
         return transpose_probe_plain(x, n_iters)
     rows, cols = x.shape
     dev = _check("P2", (x,), [(rows, cols)])
-    if rows % 32 or cols % 32:
-        raise ValueError(f"P2 takes sides that are multiples of 32, got "
-                         f"{tuple(x.shape)}")
+    w, _, smem = transpose_plan(rows, cols)
     lib = _library()
+    if lib.probe_transpose_smem_bytes(rows, w) != smem:
+        raise ValueError(f"P2: the kernel's shared memory at {rows} rows "
+                         f"and {w} columns is not its plan's {smem} B")
     out = torch.empty_like(x)
-    scratch = torch.empty((cols, rows), dtype=x.dtype, device=dev)
-    err = lib.probe_transpose(x.data_ptr(), out.data_ptr(),
-                              scratch.data_ptr(), rows, cols, n_iters,
-                              dev.index, _stream(dev))
+    err = lib.probe_transpose(x.data_ptr(), out.data_ptr(), rows, cols, w,
+                              n_iters, dev.index, _stream(dev))
     _launched(err, lib, "P2 probe_transpose kernel", "transpose")
     return out
 

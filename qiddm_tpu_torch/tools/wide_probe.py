@@ -6,9 +6,11 @@ per-sample kernels depend on:
 
   P1. How much shared memory can one block hold, and one thread-block
       cluster (distributed shared memory)? The TPU asked the same of VMEM.
-  P2. What does a transpose of a (128, 8192) float32 plane cost? Here the
-      plane lives in device memory (L2), since no SM holds 4 MiB; one
-      cooperative launch loops the transposes with grid-wide barriers.
+  P2. What does a transpose of a (128, 8192) float32 plane cost? No SM
+      holds the 4 MiB plane, but the grid's shared memory does: each block
+      holds a column strip and its transpose and runs every transpose of
+      the loop in its own shared memory (one plain launch, no grid-wide
+      barrier), as the TPU runs them in VMEM.
   P3. What does a relayout reshape (8192, 128) -> (128, 8192) cost? On the
       card a row-major reshape of a contiguous plane is free (the flat index
       does not change), so the kernel does what remains, the two scales a

@@ -12,8 +12,9 @@ This file does not import JAX, so on the card's machine it runs with
 ``python -m pytest tests/test_torch_probe_kernels.py -m cuda
 --noconftest``.
 
-Tolerances, relative to max(1, max|plain|): P2 and P3 1e-6 (the same
-roundings in the same order), P4 and P5 1e-5 (128-term float32 sums in
+Tolerances, relative to max(1, max|plain|): P2 exactly the plain
+version's bits (one __fmul_rn an iteration, nothing else rounds), P3 1e-6
+(the same roundings in the same order), P4 and P5 1e-5 (128-term float32 sums in
 another order), the FMA probe 1e-5 (the plain version rounds once a step,
 as the FMA does, through float64); P1 exactly 2 x; P4 and P5 exactly the
 in-order FMA sum.
@@ -85,11 +86,17 @@ def test_smem_sweep_stops_at_the_optin(cuda):
 
 
 @pytest.mark.parametrize("shape,n", [((128, 8192), 50), ((32, 64), 3),
-                                     ((64, 32), 1)])
+                                     ((64, 32), 1), ((96, 96), 2),
+                                     ((864, 64), 2), ((32, 32 * 264), 3),
+                                     ((256, 64 * 396), 2)])
 def test_transpose_kernel_matches_plain(cuda, shape, n):
+    """P2 at the tools' shape and at its plan's edges (the tallest strip
+    that fits, exactly 132 strips, more strips than SMs): the plain
+    version's bits."""
     x = _rand(cuda, *shape)
-    _assert_rel(pk.transpose_probe(x, n), pk.transpose_probe_plain(x, n),
-                LAYOUT_TOL)
+    got = pk.transpose_probe(x, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pk.transpose_probe_plain(x, n))
 
 
 @pytest.mark.parametrize("shape,n", [((8192, 128), 50), ((64, 32), 3),
@@ -170,6 +177,8 @@ def test_kernels_raise_on_bad_cuda_inputs(cuda):
     x = _rand(cuda, 64, 32)
     with pytest.raises(ValueError, match="multiples of 32"):
         pk.transpose_probe(_rand(cuda, 48, 32), 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.transpose_probe(_rand(cuda, 1024, 64), 1)
     with pytest.raises(ValueError, match="contiguous float32"):
         pk.reshape_probe(x.t(), 1)
     with pytest.raises(ValueError, match="same CUDA device"):

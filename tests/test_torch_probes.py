@@ -3,7 +3,9 @@ plain PyTorch versions against the JAX kernel bodies of
 ``tools/bench_pallas_wide_probe.py`` and ``tools/vpu_ceiling.py`` run in
 Pallas interpret mode on the CPU, the FMA recurrence also against float64,
 the wrappers' dispatch and guards (a CPU tensor runs the plain version
-and reaches no kernel), P4's launch plan (``dot3d_plan``: its blocks and
+and reaches no kernel), P2's plan (``transpose_plan``: its strips own every
+element once, and their transposes, each in its own block, compose to the
+plain version's bits), P4's launch plan (``dot3d_plan``: its blocks and
 thread tiles cover every output once, within the card's limits, and it
 refuses what the probes never took), the in-order FMA emulation
 that P4's and P5's kernels equal bit for bit (``in_order_matmul``, against
@@ -303,6 +305,72 @@ def test_dot3d_plan_at_the_tools_shape():
 def test_dot3d_plan_rejects_what_the_probes_never_took(a, m, w):
     with pytest.raises(ValueError):
         pk.dot3d_plan(a, m, w)
+
+
+# P2's plan: the tools' plane, the card tests' shapes and more
+P2_SHAPES = [(128, 8192), (32, 64), (64, 32), (96, 96), (256, 1024),
+             (32, 32 * 264), (864, 64)]
+
+
+@pytest.mark.parametrize("rows,cols", P2_SHAPES)
+def test_transpose_plan_owns_every_element_once(rows, cols):
+    """A block a strip of w columns: the strips own every element of the
+    plane once; w is 32 times a power of two and the narrowest whose
+    blocks all find one of 132 SMs, among those whose strip and transpose
+    fit a block's shared memory."""
+    w, blocks, smem = pk.transpose_plan(rows, cols)
+    assert w % 32 == 0 and (w // 32) & (w // 32 - 1) == 0
+    assert smem == 4 * (rows * (w + 1) + w * (rows + 1))
+    assert smem <= _gk._MAX_SMEM_BYTES
+    owner = torch.full((rows, cols), -1)
+    for b in range(blocks):
+        strip = owner[:, b * w:(b + 1) * w]
+        assert strip.shape == (rows, w) and (strip == -1).all()
+        strip.fill_(b)
+    assert (owner >= 0).all()
+    narrower = w // 2
+    assert (narrower < 32 or cols // narrower > 132
+            or 4 * (rows * (narrower + 1) + narrower * (rows + 1))
+            > _gk._MAX_SMEM_BYTES)
+
+
+def test_transpose_plan_at_the_tools_shape():
+    # 128 blocks of 64 columns: 32 KB of strip and 32 KB of its transpose
+    assert pk.transpose_plan(128, 8192) == (64, 128, 66304)
+    # more strips than SMs: the widest that fits, 3 x 132 blocks of 64
+    assert pk.transpose_plan(256, 64 * 396) == (64, 396, 4 * (256 * 65
+                                                              + 64 * 257))
+
+
+@pytest.mark.parametrize("rows,cols,n", [(128, 8192, 3), (32, 64, 3),
+                                         (64, 32, 1), (96, 96, 2)])
+def test_strip_transposes_compose_to_the_plain_bits(rows, cols, n):
+    """Each block's n iterations of t = s^T * 1.000001, s = t^T on its own
+    strip, put side by side, are the plain version's bits: a strip never
+    needs another strip."""
+    x = torch.as_tensor(np.random.default_rng(9).random((rows, cols)),
+                        dtype=torch.float32)
+    w, blocks, _ = pk.transpose_plan(rows, cols)
+    out = torch.empty_like(x)
+    for b in range(blocks):
+        s = x[:, b * w:(b + 1) * w].contiguous()
+        for _ in range(n):
+            t = torch.empty((w, rows))
+            for c in range(w):  # column c of the strip is row c of t
+                t[c] = s[:, c] * 1.000001
+            s = torch.empty((rows, w))
+            for c in range(w):
+                s[:, c] = t[c]
+        out[:, b * w:(b + 1) * w] = s
+    assert torch.equal(out, pk.transpose_probe_plain(x, n))
+
+
+@pytest.mark.parametrize("rows,cols,match", [
+    (48, 32, "multiples of 32"), (32, 40, "multiples of 32"),
+    (16, 64, "multiples of 32"), (1024, 64, "shared memory")])
+def test_transpose_plan_refusals(rows, cols, match):
+    with pytest.raises(ValueError, match=match):
+        pk.transpose_plan(rows, cols)
 
 
 @pytest.fixture

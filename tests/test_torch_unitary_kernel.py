@@ -6,8 +6,9 @@ tests/test_pallas.py runs them on the CPU) and against torch autograd, the
 per-layer unitaries against JAX's ``sel_layer_unitaries``, the engine's
 CNOT-ring and complex128 blocks against ``qiddm_tpu.sim.reupload_block``
 (values and gradients), the routing with the card faked, the wrappers'
-guards, #13's launch plan at every shape the card runs, and on the card
-the kernels against their plain versions.
+guards, #13's launch plan at every shape the card runs, #14's
+(``unitary_bwd_plan``) at 1-8 wires and its refusals, and on the card the
+kernels against their plain versions, #14 also at its plan's edges.
 
 Tolerances: the forward's (d, B) float32 planes within 1e-5 absolute (the
 JAX test's bound: unit-norm states through up to 28 dense layers); the
@@ -426,14 +427,6 @@ def test_launchers_take_only_card_tensors():
         unitary_kernel._unitary_chain_bwd_cuda(*args, 2)
 
 
-def test_tile_rule_spreads_the_batch():
-    """#14: 1 sample a block while the batch fits the H100's 132 SMs, else
-    2."""
-    assert [unitary_kernel._tile_for(b) for b in (1, 16, 80, 132, 133, 255,
-                                                  1000)] == [
-        1, 1, 1, 1, 2, 2, 2]
-
-
 def _tiles_cover(plan, w, B):
     d = 2**w
     assert plan.cluster * unitary_kernel.FWD_ROWS >= d
@@ -481,6 +474,63 @@ def test_fwd_plan_at_the_timed_shapes():
         unitary_kernel.unitary_plan(8, 80, 32)
 
 
+# #14's plan: every width at one sample, the sampling batch, the route's
+# widest batch, the card's SM count and the largest batch at 8 wires
+BWD_PLAN_BATCHES = (1, 16, 80, 132, 255)
+
+
+@pytest.mark.parametrize("B", BWD_PLAN_BATCHES)
+@pytest.mark.parametrize("w", range(1, 9))
+def test_bwd_plan_at_every_width(w, B):
+    """#14's plan (pure Python): #13's clusters and tiles covering the batch
+    once, the warps the product's depth once, the shared memory the
+    kernel's formula and within the card's 227 KB, the clusters resident
+    and the waves they make, the workspace's samples and the dU blocks."""
+    plan = unitary_kernel.unitary_bwd_plan(w, B)
+    _tiles_cover(plan, w, B)
+    depth, d = max(8, 2**w), 2**w
+    for cols in (8, 16):
+        forced = unitary_kernel.unitary_bwd_plan(w, B, cols)
+        _tiles_cover(forced, w, B)
+        red = 16 * 2 * cols + (8 if cols == 16 else 16)
+        assert forced.smem_bytes == 4 * (8 * depth * cols + 64 * depth
+                                         + 16 * red)
+        assert forced.smem_bytes <= gate_kernel._MAX_SMEM_BYTES
+        # one CTA an SM from 16 samples at 8 wires: 132 SMs / 16 CTAs
+        per_sm = min(8, 233472 // (forced.smem_bytes + 1024))
+        assert forced.resident == 132 * per_sm // forced.cluster >= 1
+        assert forced.waves == -(-forced.tiles // forced.resident)
+        assert forced.ws_samples == forced.tiles * cols
+        assert forced.ws_samples % 8 == 0 and forced.ws_samples >= B
+        assert forced.du_blocks == (-(-d // 64))**2
+    # 8 samples a tile when its clusters all fit at once, else 16
+    eight = unitary_kernel.unitary_bwd_plan(w, B, 8)
+    assert plan.cols == (8 if eight.tiles <= eight.resident else 16)
+
+
+def test_bwd_plan_at_the_timed_shapes():
+    """(8, 80): 5 clusters of 16 CTAs in one wave at 16 samples a tile
+    (at 8, 10 clusters and 8 resident: two waves); (6, 16): 2 clusters of
+    4 CTAs, 8 samples a tile; (8, 255): 16 clusters in two waves."""
+    plan = unitary_kernel.unitary_bwd_plan
+    assert plan(8, 80) == unitary_kernel.UnitaryBwdPlan(
+        16, 16, 5, 256, 229888, 8, 4, 8, 1, 80, 16)
+    assert plan(8, 80, 8) == unitary_kernel.UnitaryBwdPlan(
+        16, 8, 10, 256, 148480, 8, 4, 8, 2, 80, 16)
+    assert plan(6, 16) == unitary_kernel.UnitaryBwdPlan(
+        4, 8, 2, 256, 50176, 8, 1, 132, 1, 16, 1)
+    assert plan(8, 255)[:3] == (16, 16, 16) and plan(8, 255).waves == 2
+
+
+@pytest.mark.parametrize("args,match", [
+    ((0, 4), "no backward plan"), ((9, 4), "no backward plan"),
+    ((4, 0), "no backward plan"), ((8, 80, 32), "cols must be"),
+    ((3, 5, 4), "cols must be")])
+def test_bwd_plan_refusals(args, match):
+    with pytest.raises(ValueError, match=match):
+        unitary_kernel.unitary_bwd_plan(*args)
+
+
 # --- on the card -------------------------------------------------------------
 
 @pytest.mark.cuda
@@ -510,20 +560,48 @@ def test_kernels_match_plain_on_card(cuda, w, L, k, B, ring):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile,cols", [(1, 8), (2, 16)])
-def test_every_tile_matches_plain_on_card(cuda, tile, cols):
-    """#13 at both tiles of samples, #14 at both tiles a block."""
+@pytest.mark.parametrize("cols", [8, 16])
+def test_every_tile_matches_plain_on_card(cuda, cols):
+    """#13 and #14 at both tiles of samples: each sample's arithmetic is
+    the same in either tile, so #14 gives the same bits at both."""
     k = 2
     args = _bwd_args(8, 14, k, 80, "cnot", cuda, seed=5)
     kr, ki = unitary_kernel._unitary_chain_cuda(*args[:4], k, cols)
-    got = unitary_kernel._unitary_chain_bwd_cuda(*args, k, tile)
+    got = unitary_kernel._unitary_chain_bwd_cuda(*args, k, cols)
+    other = unitary_kernel._unitary_chain_bwd_cuda(*args, k, 24 - cols)
     want = unitary_kernel.unitary_chain_bwd_plain(*args, k)
     torch.cuda.synchronize()
     assert (kr - args[4]).abs().max().item() <= TOL
     assert (ki - args[5]).abs().max().item() <= TOL
-    for g, w_ in zip(got, want):
+    for g, w_, o in zip(got, want, other):
         assert ((g - w_).abs().max().item()
                 <= TOL * max(1.0, w_.abs().max().item()))
+        assert torch.equal(g, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", BOUNDARY_BATCHES)
+@pytest.mark.parametrize("w", range(1, 9))
+def test_bwd_kernel_at_plan_boundaries_on_card(cuda, w, B):
+    """#14 against plain at its plan's edges, both rings, L*k = 28; the
+    library's shared memory agrees with the plan at both tiles and the card
+    holds the plan's clusters; two calls give the same bits."""
+    plan = unitary_kernel.unitary_bwd_plan(w, B)
+    lib = gate_kernel._library()
+    for cols in (8, 16):
+        assert (lib.unitary_chain_bwd_smem_bytes(w, cols)
+                == unitary_kernel.unitary_bwd_plan(w, B, cols).smem_bytes)
+    assert lib.unitary_chain_bwd_active_clusters(w, plan.cols, 0) >= 1
+    for ring in RINGS:
+        args = _bwd_args(w, 14, 2, B, ring, cuda, seed=w + B)
+        got = unitary_kernel._unitary_chain_bwd_cuda(*args, 2)
+        again = unitary_kernel._unitary_chain_bwd_cuda(*args, 2)
+        want = unitary_kernel.unitary_chain_bwd_plain(*args, 2)
+        torch.cuda.synchronize()
+        for g, w_, a in zip(got, want, again):
+            assert ((g - w_).abs().max().item()
+                    <= TOL * max(1.0, w_.abs().max().item()))
+            assert torch.equal(g, a)
 
 
 @pytest.mark.cuda
@@ -609,6 +687,8 @@ def test_kernels_reject_unsupported_inputs(cuda):
         launch(pr, pi, ur, ui, 2, 3)
     with pytest.raises(ValueError, match="same CUDA device"):
         unitary_kernel._unitary_chain_bwd_cuda(*args[:7], args[7].cpu(), 2)
+    with pytest.raises(ValueError, match="cols must be"):
+        unitary_kernel._unitary_chain_bwd_cuda(*args, 2, 4)
     with pytest.raises(ValueError, match="bad shapes"):
         unitary_kernel._unitary_chain_bwd_cuda(
             *args[:6], args[6][:, :3].contiguous(),

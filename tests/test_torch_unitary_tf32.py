@@ -17,6 +17,18 @@ float32. The emulation must stay within 1e-5 of the plain chain and of
 ``fused_reupload_chain(..., interpret=True)`` (the card's ``KERNEL_TOL``)
 at the route's two timed shapes, (w, B, L*k) = (8, 80, 28) and
 (6, 16, 28), with both rings.
+
+The adjoint walk #14 runs on the same units: each layer one product of
+U_l^H (real part ur^T, imaginary part -ui^T, split as the forward splits
+U) with the state and the cotangent side by side, [s | c], its depth
+split among ``unitary_bwd_plan``'s warps and their partials summed in
+warp order; the phase undone and its gradient accumulated in float32.
+dU_l = C_l T_l^H is one product over the batch (padded with zero samples
+to the plan's ``ws_samples``) in 8-deep steps in increasing order, each
+large term summed from zero and added in float32. The emulation must stay
+within 1e-5 of max(1, max|reference|) (the card's ``BWD_TOL``) of
+``unitary_chain_bwd_plain`` and of the JAX package's ``_fused_bwd`` in
+interpret mode, on the same output and cotangent.
 """
 
 import jax.numpy as jnp
@@ -87,6 +99,55 @@ def chain_3xtf32(pr, pi, ur, ui, k: int):
     return sr, si
 
 
+def bwd_3xtf32(pr, pi, ur, ui, fr, fi, gr, gi, k: int):
+    """The backward of kernel #14 with its 3xTF32 products, on the CPU:
+    (dpr, dpi, dur, dui) as ``unitary_chain_bwd_plain`` returns them."""
+    d, B = pr.shape
+    plan = unitary_kernel.unitary_bwd_plan(d.bit_length() - 1, B)
+    pad = plan.ws_samples - B
+    sr, si, cr, ci = fr, fi, gr, gi
+    dpr = torch.zeros_like(pr)
+    dpi = torch.zeros_like(pi)
+    dur = torch.empty_like(ur)
+    dui = torch.empty_like(ui)
+    for l in range(ur.shape[0] - 1, -1, -1):
+        # one product of U_l^H with [s | c]: one split of each A operand
+        out_r, out_i = _layer_3xtf32(
+            ur[l].T, -ui[l].T, torch.cat([sr, cr], 1), torch.cat([si, ci], 1),
+            plan.warps, plan.steps_per_warp)
+        tr, ti, nr, ni = out_r[:, :B], out_i[:, :B], out_r[:, B:], out_i[:, B:]
+        # dU_l = C_l T_l^H over the zero-padded batch, one run of steps
+        zeros = torch.zeros(d, pad)
+        c_r, c_i, t_r, t_i = (torch.cat([x, zeros], 1)
+                              for x in (cr, ci, tr, ti))
+        dur[l], dui[l] = _layer_3xtf32(c_r, c_i, t_r.T, -t_i.T, 1,
+                                       plan.ws_samples // 8)
+        if l % k == 0:
+            sr, si = tr * pr + ti * pi, ti * pr - tr * pi
+            dpr = dpr + nr * sr + ni * si
+            dpi = dpi + ni * sr - nr * si
+            cr, ci = nr * pr + ni * pi, ni * pr - nr * pi
+        else:
+            sr, si, cr, ci = tr, ti, nr, ni
+    return dpr, dpi, dur, dui
+
+
+def _bwd_inputs(w, B, L, k, ring, seed=0):
+    """(pr, pi, ur, ui, fr, fi, gr, gi): the plain chain's output and
+    N(0, 1) cotangents from numpy."""
+    pr, pi, ur, ui = _inputs(w, B, L, k, ring, seed)
+    fr, fi = unitary_kernel.unitary_chain_planes_plain(pr, pi, ur, ui, k)
+    cot = np.random.default_rng(seed + 1).normal(size=(2, 2**w, B))
+    gr, gi = (torch.as_tensor(c, dtype=torch.float32) for c in cot)
+    return pr, pi, ur, ui, fr, fi, gr, gi
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want)
+    return (np.abs(np.asarray(got) - want).max()
+            / max(1.0, np.abs(want).max()))
+
+
 def _inputs(w, B, L, k, ring, seed=0):
     rng = np.random.default_rng(seed)
     weights = (rng.normal(size=(L, k, w, 3)) * 0.4).astype(np.float32)
@@ -138,3 +199,43 @@ def test_emulation_is_not_the_float32_chain(w, B, L, k):
     qr, qi = unitary_kernel.unitary_chain_planes_plain(pr, pi, ur, ui, k)
     assert max((sr - qr).abs().max().item(),
                (si - qi).abs().max().item()) > 10 * TOL
+
+
+@pytest.mark.parametrize("ring", RINGS)
+@pytest.mark.parametrize("w,B,L,k", SHAPES)
+def test_emulated_bwd_matches_plain_and_pallas(w, B, L, k, ring):
+    from qiddm_tpu.sim.pallas_kernels import _fused_bwd
+
+    args = _bwd_inputs(w, B, L, k, ring)
+    got = bwd_3xtf32(*args, k)
+    want = unitary_kernel.unitary_chain_bwd_plain(*args, k)
+    for g, q in zip(got, want):
+        assert _rel(g.numpy(), q.numpy()) <= TOL
+    pr, pi, ur, ui, fr, fi, gr, gi = (jnp.asarray(t.numpy()) for t in args)
+    jdpr, jdpi, jdur, jdui = _fused_bwd(
+        k, True, (pr.T, pi.T, ur, ui, fr.T, fi.T), (gr.T, gi.T))
+    for g, q in zip(got, (jdpr.T, jdpi.T, jdur, jdui)):
+        assert _rel(g.numpy(), q) <= TOL
+
+
+@pytest.mark.parametrize("w,B,L,k", SHAPES)
+def test_emulated_bwd_is_not_the_float32_walk(w, B, L, k):
+    """One TF32 product a layer (hi terms only) drifts well past the
+    tolerance, so the agreement above is the 3xTF32 sums'."""
+    pr, pi, ur, ui, fr, fi, gr, gi = _bwd_inputs(w, B, L, k, "cnot")
+    sr, si, cr, ci = fr, fi, gr, gi
+    dur = torch.empty_like(ur)
+    for l in range(ur.shape[0] - 1, -1, -1):
+        a, q = _tf32(ur[l].T), _tf32(ui[l].T)
+        b, c, e, f = (_tf32(t) for t in (sr, si, cr, ci))
+        tr, ti = a @ b + q @ c, a @ c - q @ b
+        dur[l] = _tf32(cr) @ _tf32(tr).T + _tf32(ci) @ _tf32(ti).T
+        nr, ni = a @ e + q @ f, a @ f - q @ e
+        if l % k == 0:
+            sr, si = tr * pr + ti * pi, ti * pr - tr * pi
+            cr, ci = nr * pr + ni * pi, ni * pr - nr * pi
+        else:
+            sr, si, cr, ci = tr, ti, nr, ni
+    want = unitary_kernel.unitary_chain_bwd_plain(pr, pi, ur, ui, fr, fi, gr,
+                                                  gi, k)[2]
+    assert _rel(dur.numpy(), want.numpy()) > 10 * TOL
