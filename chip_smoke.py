@@ -282,15 +282,20 @@ any failure exits non-zero and no phase's failure is caught:
    small one: P1 gives exactly 2 x at 8 KB, 48 KB and the card's opt-in
    shared memory a block, alone (a plain launch) and in clusters of 2 and
    16, and is refused 512 bytes above the opt-in at each; P2 (128, 8192)
-   and P3 (8192, 128), 50 steps, within 1e-6 relative, P2 bit for bit
-   (also at its plan's edges: the tallest strip, 132 strips and more
-   strips than SMs, each plan printed); P5 (128, 128) @
-   (128, 8192), 50 products, and P4 (128, 128, 64) and at every card
-   test's shape (a in {1, 3, 128} x m in {8, 64, 128} x w in {4, 64,
-   128}, m = w = 128 must be refused; and (4, 16, 8), (3, 24, 8),
-   (2, 96, 32), (2, 200, 8): 2, 3, 3 and 25 chunks of k), each with its
-   plan (blocks, threads, shared memory) printed, within 1e-5 relative and
-   equal bit for bit to probe_kernels.in_order_matmul; the FMA probe at
+   and P3 (8192, 128), 50 steps, bit for bit (P2 also at its plan's
+   edges: the tallest strip, 132 strips and more strips than SMs; P3 also
+   at (1001, 13) x 7 and (5, 7) x 4, with a tail past the last float4;
+   each plan printed); P5 (3xTF32 wgmma) (128, 128) @ (128, 8192), 50
+   products, and at every card test's shape ((64, 1024) x 10, (16, 64) x
+   3, (8, 64) x 2, (100, 128) x 5, (1, 64) x 2, (128, 128) x 0), each with
+   its plan (columns a block, blocks, threads, shared memory) printed,
+   within 5e-5 relative and the same bits on a second call; P4 (128, 128,
+   64) and at every card test's shape (a in {1, 3, 128} x m in {8, 64,
+   128} x w in {4, 64, 128}, m = w = 128 must be refused; and (4, 16, 8),
+   (3, 24, 8), (2, 96, 32), (2, 200, 8): 2, 3, 3 and 25 chunks of k), each
+   with its plan (blocks, threads, shared memory) printed, within 1e-5
+   relative and equal bit for bit to probe_kernels.in_order_matmul; the
+   FMA probe at
    (1024, B, 4096) for B in {80, 128} x chains in {1, 4, 8}, within 1e-5
    relative;
 30. the probe tools (the slice's main path), with the counts set to 0 just
@@ -300,18 +305,24 @@ any failure exits non-zero and no phase's failure is caught:
    card's shared_memory_per_block_optin (every smaller size of the sweep
    runs, every larger one is refused); doubling iters takes 1.8-2.2x the
    time (the tool's device times) at chains 1, 4 and 8 for both batches;
-   no GFLOP/s above 1.05 x the 67 TFLOP/s float32 peak; P4 ok; every probe
-   counter non-zero;
+   no GFLOP/s above 1.05 x the 67 TFLOP/s float32 peak (P5's three TF32
+   products: none above 1.05 x the 495 TFLOP/s TF32 peak); P4 ok; every
+   probe counter non-zero;
 31. times of the six probe kernels at the tools' shapes beside their
    plain versions, the bound and, for P1-P5, the library yardstick (P1: torch.add(x, x); P2: a strided torch.mul into a
    transposed buffer and a copy back a step; P3: the step as torch.mul
    on the contiguous views, 100 calls; P4 and P5: torch.matmul, TF32
    off), and P2's device time behind a spin beside its shared-memory
    floor (2 x 50 transposes of 8 MB at 128 B a clock an SM, at the card's
-   clocks.max.sm) and its DRAM bound; P4 (128, 128, 64) and P5 (128,
-   8192) x 50 must equal probe_kernels.in_order_matmul bit for bit (the
-   sum in order over k from
-   zero, one FMA a term, as the probes always summed); then every kernel
+   clocks.max.sm) and its DRAM bound; P3's bound counts each of its 100
+   multiplies an element as one FMA lane-slot (two flops of the float32
+   peak), printed with the same floor at clocks.max.sm; P5's bound is its
+   three TF32 products at the TF32 peak, the float32 one printed beside
+   it, with its plan; P4 (128, 128, 64) must
+   equal probe_kernels.in_order_matmul bit for bit (the sum in order over
+   k from zero, one FMA a term, as P4 always summed; P5 left that sum for
+   the tensor cores, so it is held to its tolerance in phase 29 instead);
+   then every kernel
    with a library time against its library call in turns, 20 pairs, each
    call behind a spin kernel that outlasts the host's enqueue of either
    call (its cycles printed): P1 at the opt-in and at 8 KB against
@@ -329,8 +340,10 @@ any failure exits non-zero and no phase's failure is caught:
    tensor-core instructions in their SASS (cuobjdump -sass of the built
    library): every group and dG product kernel, both monolithic kernels,
    both #13 instances, both #14 walk instances and #14's dU product must
-   hold some, and no #14 instance may spill (run after phase 24); and #7's
-   registers and spills at each width;
+   hold some, and no #14 instance may spill (run after phase 24); #7's
+   registers and spills at each width; P5's and P3's registers and spills,
+   and the TF32 wgmma instructions (HGMMA ... TF32) in every P5 instance's
+   SASS (fails on none);
 34. #1-#6's registers and spills from ptxas's report at each of their
    1-10-wire instances, 1-12 for #5/#6 (fails unless all sixty-four are
    there, if #1 or #3 spills at 6, 8 or 10 wires, or if #5 or #6 spills
@@ -532,11 +545,21 @@ DOT3D_CARD_SHAPES = [(a, m, w) for a in (1, 3, 128) for m in (8, 64, 128)
 SMEM_CLUSTERS = (1, 2, 16)  # P1's sizes held at each, and its boundary
 FMA_SHAPES = [(1024, b, 4096, c) for b in (80, 128) for c in (1, 4, 8)]
 FMA_TIMED = (1024, 80, 4096, 8)
-LAYOUT_TOL = 1e-6   # P2/P3, relative: the same roundings in the same order
+# P3's shapes held bit for bit besides the tools': a tail of 1 and of 3
+# elements past the last float4
+P3_SHAPES = [((1001, 13), 7), ((5, 7), 4)]
 # P2's plan edges (shape, iterations): the tallest strip that fits, exactly
 # 132 strips, more strips than SMs; held bit for bit
 P2_EDGES = [((864, 64), 2), ((32, 32 * 264), 3), ((256, 64 * 396), 2)]
-SLAB_TOL = 1e-5     # P4/P5, relative: 128-term float32 sums in two orders
+SLAB_TOL = 1e-5     # P4, relative: 128-term float32 sums in two orders
+# P5, relative: 3xTF32 products whose large terms the tensor cores sum
+# toward zero (its CPU emulation, tests/test_torch_probe_tf32.py, lies
+# 9.7e-6 from plain at the tools' shape cut to 512 columns)
+TF32_TOL = 5e-5
+# P5 at every card test's (m, n, n_iters) besides the tools'
+# (tests/test_torch_probe_kernels.py)
+P5_CARD_SHAPES = [(64, 1024, 10), (16, 64, 3), (8, 64, 2), (100, 128, 5),
+                  (1, 64, 2), (128, 128, 0)]
 FMA_TOL = 1e-5      # relative: fmaf against a float64 product and sum, rounded
 PEAK_CAP = 1.05     # no measured rate above 1.05 x PEAK_FLOPS
 FMA_RATIO = (1.8, 2.2)  # time at 2 x iters over time at iters
@@ -1305,6 +1328,8 @@ _WIDE_SASS = re.compile(
     r"(wide_(?:group_mma|dg_mma|mono_fwd|mono_bwd)_kernel"
     r"|unitary_chain_(?:fwd|bwd|du)_kernel)(?:I((?:Li\d+E)+))?")
 _UNITARY_BWD = re.compile(r"unitary_chain_(?:bwd|du)_kernel")
+# P5's instances (row tiles, strip width) and P3's kernel
+_PROBE_SASS = re.compile(r"probe_(?:matmul2_kernelILi(\d)E|reshape_kernel)")
 _AMP_PTXAS = re.compile(r"amp_damp_fwd_kernelILi(\d+)E")
 
 
@@ -1315,7 +1340,9 @@ def phase_wide_sass() -> None:
     unless each of the seven kernels (#14's walk and its dU product
     apart) is there and every instance holds some, or if an instance of
     #14 spills. Also #7's registers and spills at each width (no tensor
-    cores)."""
+    cores), P5's and P3's registers and spills, and the TF32 wgmma
+    instructions (HGMMA ... TF32) in each of P5's two instances (fails
+    unless both are there, each with some)."""
     lib = gate_kernel.build_library()
     lines = lib.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(lines):
@@ -1338,18 +1365,33 @@ def phase_wide_sass() -> None:
                                         spill and spill.group(1))
     print("ptxas #7 (amp_damp_fwd_kernel<w>) registers / spill-store bytes: "
           + ", ".join(f"w={w} {r} / {b}" for w, (r, b) in sorted(amp.items())))
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and _PROBE_SASS.search(line):
+            print("ptxas P5/P3 " + " | ".join(t.strip()
+                                              for t in lines[i:i + 4]))
     tool = pathlib.Path(gate_kernel._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=600, check=True).stdout
-    counts, name = {}, None
+    counts, p5, name = {}, {}, None
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = found.group(1)
             if _WIDE_SASS.search(name):
                 counts[name] = 0
+            probe = _PROBE_SASS.search(name)
+            if probe and probe.group(1):
+                p5[name] = 0
         elif name in counts and "HMMA" in line and "TF32" in line:
             counts[name] += 1
+        elif name in p5 and "HGMMA" in line and "TF32" in line:
+            p5[name] += 1
+    print("SASS TF32 HGMMA (wgmma) instructions by P5 instance "
+          "(probe_matmul2_kernel<row tiles>): " + ", ".join(
+              f"<{_PROBE_SASS.search(n).group(1)}> {c}"
+              for n, c in p5.items()))
+    if len(p5) != 2 or not all(p5.values()):
+        fail(f"P5 instances without TF32 HGMMA in their SASS: {p5}")
 
     def label(mangled: str) -> str:
         kernel, args = _WIDE_SASS.search(mangled).groups()
@@ -2342,6 +2384,14 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_tf32(flops: float, nbytes: float) -> tuple[float, str]:
+    """_bound for a product of ``flops`` run as three TF32 tensor-core
+    products at PEAK_TF32."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def bound_gate(w, b, n, k, bwd: bool) -> tuple[float, str]:
     d, re = 2**w, n // k  # n = L*k layers, re = L encodes
     g = n * w * 8
@@ -2760,9 +2810,10 @@ def phase_wide_split(dev, smi: str) -> None:
 
 def datapath_of(key: str) -> str:
     """The arithmetic datapath of the kernel timed under ``key``: #9-#12,
-    #13 and #14 multiply on the tensor cores in 3xTF32; every other kernel
-    of the port runs float32 on the CUDA cores."""
-    return "3xtf32" if key.startswith(("wide_", "unitary_")) else "simt"
+    #13, #14 and P5 multiply on the tensor cores in 3xTF32; every other
+    kernel of the port runs float32 on the CUDA cores."""
+    return ("3xtf32" if key.startswith(("wide_", "unitary_", "probe_matmul2"))
+            else "simt")
 
 
 def phase_crossover(dev, smi: str) -> None:
@@ -3221,6 +3272,16 @@ def _held(what: str, got, want, tol: float, errs: dict, key: str) -> None:
         fail(f"{what} disagrees with its plain version: {rel:.3e} > {tol}")
 
 
+def _bits(what: str, got, want, errs: dict, key: str) -> None:
+    """Fail unless got is want's bits; the probe's error is then 0."""
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    print(f"{what}: {'the plain bits' if same else 'OTHER BITS'}")
+    if not same:
+        fail(f"{what} is not the plain version's bits")
+    errs.setdefault(key, 0.0)
+
+
 def phase_probes_vs_plain(dev) -> dict:
     """Each probe kernel against its plain version at the tools' shapes and
     at a small one; returns each probe's largest max |diff|."""
@@ -3255,22 +3316,26 @@ def phase_probes_vs_plain(dev) -> dict:
             fail(f"P2 {shape} x {n} is not the plain version's bits")
     for shape, n in ((PROBE_SHAPE, PROBE_ITERS), ((32, 64), 3)):
         x = torch.rand(shape, generator=gen, device=dev)
-        got = pk.transpose_probe(x, n)
-        want = pk.transpose_probe_plain(x, n)
-        _held(f"P2 {shape} x {n}, plan (strip, blocks, smem bytes) "
-              f"{pk.transpose_plan(*shape)}", got, want, LAYOUT_TOL, errs,
-              "transpose")
-        if not torch.equal(got, want):
-            fail(f"P2 {shape} x {n} is not the plain version's bits")
-        x = torch.rand(shape[::-1], generator=gen, device=dev)
-        _held(f"P3 {shape[::-1]} x {n}", pk.reshape_probe(x, n),
-              pk.reshape_probe_plain(x, n), LAYOUT_TOL, errs, "reshape")
-    for (m, n), iters in ((PROBE_SHAPE, PROBE_ITERS), ((16, 64), 3)):
+        _bits(f"P2 {shape} x {n}, plan (strip, blocks, smem bytes) "
+              f"{pk.transpose_plan(*shape)}", pk.transpose_probe(x, n),
+              pk.transpose_probe_plain(x, n), errs, "transpose")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape, n in ((PROBE_SHAPE[::-1], PROBE_ITERS), *P3_SHAPES):
+        x = torch.rand(shape, generator=gen, device=dev)
+        _bits(f"P3 {shape} x {n}, plan (elements a thread, blocks, threads) "
+              f"{pk.reshape_plan(x.numel(), sms)}", pk.reshape_probe(x, n),
+              pk.reshape_probe_plain(x, n), errs, "reshape")
+    for m, n, iters in ((*PROBE_SHAPE, PROBE_ITERS), *P5_CARD_SHAPES):
         g = wide_probe.orthogonal(m, dev, SEED + 31)
         x = torch.rand((m, n), generator=gen, device=dev)
-        _held(f"P5 ({m}, {m}) @ ({m}, {n}) x {iters}",
-              pk.matmul2_probe(g, x, iters),
-              pk.matmul2_probe_plain(g, x, iters), SLAB_TOL, errs, "matmul2")
+        what = (f"P5 ({m}, {m}) @ ({m}, {n}) x {iters}, plan (columns a "
+                f"block, blocks, threads, smem bytes) "
+                f"{pk.matmul2_plan(m, n)}")
+        got = pk.matmul2_probe(g, x, iters)
+        _held(what, got, pk.matmul2_probe_plain(g, x, iters), TF32_TOL,
+              errs, "matmul2")
+        if not torch.equal(pk.matmul2_probe(g, x, iters), got):
+            fail(f"{what}: a second call gave other bits")
     for a, m, w in (DOT3D_SHAPE, *DOT3D_CARD_SHAPES):
         g = torch.randn((m, m), generator=gen, device=dev)
         x = torch.rand((a, m, w), generator=gen, device=dev)
@@ -3322,10 +3387,14 @@ def phase_probe_tools() -> dict:
     if not probe["cluster"].get(1):
         fail("P1 refused a cluster of one block at the opt-in size")
     rates = [r["gflops"] for r in fma[4096] + fma[8192]]
-    rates += [probe["matmul_gflops"], probe["library_matmul_gflops"]]
+    rates += [probe["library_matmul_gflops"]]
     if max(rates) > PEAK_CAP * PEAK_FLOPS / 1e9:
         fail(f"a probe rate {max(rates):.0f} GFLOP/s is above "
              f"{PEAK_CAP} x the float32 peak: a loop was shortened")
+    # P5 runs three TF32 products for each float32-accurate one
+    if 3 * probe["matmul_gflops"] > PEAK_CAP * PEAK_TF32 / 1e9:
+        fail(f"P5's TF32 rate {3 * probe['matmul_gflops']:.0f} GFLOP/s is "
+             f"above {PEAK_CAP} x the TF32 peak: a loop was shortened")
     for lo, hi in zip(fma[4096], fma[8192]):
         ratio = hi["wall_us"] / lo["wall_us"]
         print(f"FMA ({lo['d']}, {lo['batch']}) chains {lo['chains']}: "
@@ -3429,28 +3498,22 @@ def phase_pairs(pairs: dict, smi: str) -> dict:
 
 
 def phase_in_order_bits(dev) -> None:
-    """P4 at the tools' shape and P5 at the tools' shape and iterations
-    against in_order_matmul, the sum in order over k from zero with one
-    FMA a term: the bits of the probes' first design, which summed so.
-    Equal, or the run fails."""
+    """P4 at the tools' shape against in_order_matmul, the sum in order
+    over k from zero with one FMA a term: the bits of P4's first design,
+    which summed so. Equal, or the run fails. P5 no longer sums so: its
+    products run on the tensor cores as 3xTF32, held to plain within
+    TF32_TOL and to its own bits call after call in phase 29."""
     pk = probe_kernels
     gen = torch.Generator(device=dev).manual_seed(SEED + 34)
     m = DOT3D_SHAPE[1]
     g = torch.randn((m, m), generator=gen, device=dev)
     x = torch.rand(DOT3D_SHAPE, generator=gen, device=dev)
-    want = pk.in_order_matmul(g, x)
-    cases = [("P4", pk.dot3d_probe(g, x), want)]
-    g = wide_probe.orthogonal(PROBE_SHAPE[0], dev, SEED + 35)
-    x = want = torch.rand(PROBE_SHAPE, generator=gen, device=dev)
-    for _ in range(PROBE_ITERS):
-        want = pk.in_order_matmul(g, want)
-    cases.append(("P5", pk.matmul2_probe(g, x, PROBE_ITERS), want))
-    for what, got, want in cases:
-        diff = (got - want).abs().max().item()
-        print(f"{what} at the tools' shape against the in-order FMA sum: "
-              f"{'the same bits' if torch.equal(got, want) else diff}")
-        if not torch.equal(got, want):
-            fail(f"{what} is not the in-order FMA sum: max |diff| {diff:.3e}")
+    got, want = pk.dot3d_probe(g, x), pk.in_order_matmul(g, x)
+    diff = (got - want).abs().max().item()
+    print(f"P4 at the tools' shape against the in-order FMA sum: "
+          f"{'the same bits' if torch.equal(got, want) else diff}")
+    if not torch.equal(got, want):
+        fail(f"P4 is not the in-order FMA sum: max |diff| {diff:.3e}")
 
 
 def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
@@ -3490,10 +3553,7 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
             n * x.numel(), 2 * x.numel() * f32)
     library["transpose"] = min(_median_ms(library_transpose)
                                for _ in range(2))
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0])
+    clock = tools_common.max_sm_clock_mhz(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     moved = 2 * n * 2 * x.numel() * f32  # each transpose reads and writes
     floor = 1e3 * moved / (sms * 128 * clock * 1e6)
@@ -3519,21 +3579,36 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
     library_reshape()
     if not torch.equal(yb, pk.reshape_probe_plain(xr, n)):
         fail("P3's library formulation is not the probe")
+    # 2 n multiplies an element, each one lane-slot of the FMA pipes, which
+    # the float32 peak counts as an FMA's two flops
+    muls = 2 * n * xr.numel()
     times["reshape"] = _paired_ms(
         lambda: pk.reshape_probe(xr, n),
         lambda: pk.reshape_probe_plain(xr, n)) + _bound(
-            2 * n * xr.numel(), 2 * xr.numel() * f32)
+            2 * muls, 2 * xr.numel() * f32)
     library["reshape"] = min(_median_ms(library_reshape) for _ in range(2))
+    print(f"P3 bound ({smi}): {muls:.4e} multiplies ({2 * n} an element), "
+          f"each one FMA lane-slot, two flops of the {PEAK_FLOPS / 1e12:.0f}"
+          f" TFLOP/s float32 peak: {times['reshape'][2]:.4e} ms; at "
+          f"{clock:.0f} MHz clocks.max.sm, 128 lanes x {sms} SMs: "
+          f"{1e3 * muls / (128 * sms * clock * 1e6):.4e} ms; plan (elements "
+          f"a thread, blocks, threads) {pk.reshape_plan(xr.numel(), sms)}")
     m, cols = PROBE_SHAPE
     g = wide_probe.orthogonal(m, dev, SEED + 33)
     xm = torch.rand(PROBE_SHAPE, generator=gen, device=dev)
+    flops = 2 * m * m * cols * n
     times["matmul2"] = _paired_ms(
         lambda: pk.matmul2_probe(g, xm, n),
-        lambda: pk.matmul2_probe_plain(g, xm, n)) + _bound(
-            2 * m * m * cols * n, (m * m + 2 * m * cols) * f32)
+        lambda: pk.matmul2_probe_plain(g, xm, n)) + bound_tf32(
+            flops, (m * m + 2 * m * cols) * f32)
     library["matmul2"] = min(
         _median_ms(lambda: [torch.matmul(g, xm) for _ in range(n)])
         for _ in range(2))
+    print(f"P5 bound ({smi}): three TF32 products of {flops:.4e} flops at "
+          f"{PEAK_TF32 / 1e12:.0f} TFLOP/s: {times['matmul2'][2]:.4e} ms; "
+          f"float32 on the CUDA cores at {PEAK_FLOPS / 1e12:.0f}: "
+          f"{_bound(flops, 0)[0]:.4e} ms; plan (columns a block, blocks, "
+          f"threads, smem bytes) {pk.matmul2_plan(m, cols)}")
     a, m3, w3 = DOT3D_SHAPE
     g3 = torch.randn((m3, m3), generator=gen, device=dev)
     x3 = torch.rand(DOT3D_SHAPE, generator=gen, device=dev)

@@ -60,16 +60,59 @@
 // identity on the flat index, so the relayout the TPU probe costs does not
 // exist here. What remains, per element, n_iters times:
 // v = (v * 1.000001f) * 0.999999f, written with __fmul_rn so that nvcc
-// cannot fold the two constants.
+// cannot fold the two constants: 2 n_iters dependent multiplies an element,
+// each taking one lane-slot of the FMA pipes, so the card's floor is the
+// multiplies over 128 lanes an SM a clock (3.1 us at (8192, 128) x 50).
+// One wave (probe_kernels.reshape_plan): 4 blocks of 256 threads an SM,
+// block b owning one contiguous run of float4s; a thread brings in its
+// float4s (two at the tools' shape) with 16-byte loads before any
+// arithmetic, then runs one float4's elements as independent chains
+// interleaved (the multiplies' 4-clock latency hidden by the thread's own
+// chains, not by more warps), stores it 16 bytes at a time and goes on to
+// the next, so its first store drains under its second float4's
+// multiplies; the loop over the iterations is unrolled by 4 (on an H100
+// each of the two ran a little faster than all 8 elements interleaved at
+// once and an unrolling by 2, in a side-by-side build). The n % 4 elements
+// past the last float4 are the first threads' tail. Each element keeps its
+// roundings in order, so the output is the plain version's bits.
 //
 // P5. The group product of a 20-wire state: n_iters x x <- g @ x, g (m, m),
-// x (m, n), in full float32 (FMAs on the CUDA cores, no tensor cores, no
-// TF32: the TPU's Precision.HIGHEST). Columns are independent, so a block
-// owns a slab of W columns and runs every product itself: g and the slab
-// are staged once into shared memory (stage_chunk, in one cp.async
-// group), each thread keeps an 8 x 4 register tile of the product
-// (chunk_product), a barrier separates reading the slab from writing it
-// back. Bound by the float32 FMA rate (2 m^2 n n_iters flops).
+// x (m, n), to float32 accuracy (the TPU's Precision.HIGHEST) as 3xTF32 on
+// the tensor cores, wgmma (sm_90a). Each operand v is split into hi =
+// tf32(v) and lo = tf32(v - hi) (round to nearest, ties away), and g x is
+// summed as (g_hi x_hi) + (g_lo x_hi + g_hi x_lo); the dropped g_lo x_lo is
+// below 2^-22 |g x|. The tensor cores round their sums toward zero, so the
+// large term g_hi x_hi is chained over runs of kRun 8-deep k-steps in
+// accumulators of its own, each run from zero, and the runs are added in
+// float32 outside the product, then the small terms (chained over all of
+// k); the run's length is set by the CPU emulation
+// (tests/test_torch_probe_tf32.py) against P5's tolerance. Columns are
+// independent: a block owns a strip of kCols = 64 columns (the plan of
+// probe_kernels.matmul2_plan) across all rows and runs every product
+// itself, reading its strip once and writing it once. Warpgroup r owns
+// rows 64 r .. 64 r + 63 of g (one warpgroup for m <= 64, two to 128,
+// rows and k zero-padded): its hi and lo halves stay in registers as
+// wgmma's A fragments through all iterations. The strip is wgmma's B,
+// K-major: [column][k], hi and lo planes, double-buffered in shared memory
+// in the no-swizzle core-matrix layout (8 columns x 4 k, 128 contiguous
+// bytes; a column group's k-chunks adjacent, so LBO = 128 B and SBO = 32 K
+// B). Each iteration issues 3 K / 8 wgmma m64n64k8 a warpgroup in one commit
+// group, waits, sums, and writes the product back transposed as the next
+// buffer's hi and lo planes: four lanes of a quad trade their values by two
+// shuffles each so that every lane stores a float4 along k, a warp on 512
+// contiguous bytes, conflict-free; then fence.proxy.async (the async proxy
+// sees the generic stores) and one block barrier. The last iteration
+// stores to the output instead. Bound: 3 x 2 m^2 n n_iters TF32 flops at
+// 495 TFLOP/s (81 us at the tools' shape); shared memory carries B three
+// times a k-step (6 KB a warpgroup, below the tensor cores' time) and the
+// epilogue's 2 m W floats a block an iteration. g's halves take 128
+// registers a thread at m = 128 (254 in all, no spill). Three other
+// layouts were built side by side on an H100 and dropped: a strip of 32
+// columns a block (twice the blocks, m64n32k8; 7.5% slower), a product as
+// two commit groups of 32 columns with the first half's epilogue under the
+// second's products (no faster: m64n32k8 ran less efficiently than
+// m64n64k8), and each warpgroup running its own half of k first behind
+// named barriers (it spilled, and ran slower).
 //
 // P4. The contraction on x's middle axis: out[a, i, c] = sum_j g[i, j]
 // x[a, j, c]. A block owns one slice a, all of g against its (m, w) slab
@@ -90,11 +133,11 @@
 // most 2/3 of their rate. The TPU probe asked whether Mosaic lowers it;
 // here it always runs.
 //
-// Both sum each output over k in order from zero, one fmaf a term
-// (probe_kernels.in_order_matmul emulates it exactly), so the outputs do
+// It sums each output over k in order from zero, one fmaf a term
+// (probe_kernels.in_order_matmul emulates it exactly), so the output does
 // not depend on the chunks or the tile.
 //
-// Shared memory of both: g chunk-major, [m / KC][m][KC] floats, and the
+// Shared memory: g chunk-major, [m / KC][m][KC] floats, and the
 // slab row-major, [m][W]; each chunk of either is one
 // dense run. A cp.async copies 16 bytes, thread t of the chunk's copies
 // writing bytes 16 t .. 16 t + 15 of that run, so each quarter-warp (8
@@ -121,8 +164,10 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
-#include "wide_common.cuh"  // cp_async_n, cp_async_commit, cp_async_wait
+#include "wide_common.cuh"  // cp_async_n, cp_async_commit, cp_async_wait,
+                            // tf32_bits
 
 namespace cg = cooperative_groups;
 
@@ -140,12 +185,21 @@ constexpr int kT = 32;  // P2: a strip's width and the plane's rows are
 constexpr int kTThreads = 1024;  // P2's block: 32 warps hide the passes'
                                  // load-to-store latency
 
-constexpr int kRM = 8;  // P4/P5 register tile: rows x columns a thread
+constexpr int kRM = 8;  // P4 register tile: rows x columns a thread
 constexpr int kRC = 4;
 constexpr int kMaxChunks = 8;  // P4: chunks whose groups are waited for
                                // one at a time
 
 constexpr int kThreads = 256;
+
+constexpr int kReshapeVec = 2;  // P3: float4s a thread a round
+
+constexpr int kWarpgroup = 128;  // P5: threads of a warpgroup
+constexpr int kRowTile = 64;     // P5: wgmma's M; rows a warpgroup
+constexpr int kCols = 64;        // P5: wgmma's N; a block's strip
+constexpr int kMaxRowTiles = 2;  // P5: m <= 128
+constexpr int kRun = 8;  // P5: 8-deep k-steps the large term chains in one
+                         // accumulator (tests/test_torch_probe_tf32.py)
 
 // ---------------------------------------------------------------- P1
 
@@ -307,21 +361,59 @@ __global__ void __launch_bounds__(kTThreads)
 
 // ---------------------------------------------------------------- P3
 
+// Block b owns float4s b per .. b per + per - 1 (per = ceil(n4 / blocks));
+// a thread takes kReshapeVec of them a round, kThreads apart, and loads
+// them all before any arithmetic; then, one float4 after the other, it runs
+// its 4 elements as independent chains interleaved and stores it, so the
+// first float4's multiplies start while the second's load is in flight and
+// its store drains under the second's multiplies. Threads 0 .. n % 4 - 1
+// of block 0 also take the tail.
 __global__ void __launch_bounds__(kThreads)
     probe_reshape_kernel(const float* __restrict__ x, float* __restrict__ o,
                          long long n, int n_iters) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= n) return;
-  float v = x[i];
-  for (int it = 0; it < n_iters; ++it)
-    v = __fmul_rn(__fmul_rn(v, 1.000001f), 0.999999f);
-  o[i] = v;
+  const long long n4 = n / 4;
+  const long long per = (n4 + gridDim.x - 1) / gridDim.x;
+  const long long begin = blockIdx.x * per;
+  const long long end = begin + per < n4 ? begin + per : n4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(o);
+  for (long long i0 = begin + threadIdx.x; i0 < end;
+       i0 += kReshapeVec * kThreads) {
+    float e[kReshapeVec][4];
+#pragma unroll
+    for (int j = 0; j < kReshapeVec; ++j) {
+      const long long i = i0 + j * kThreads;
+      const float4 v = i < end ? x4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      e[j][0] = v.x;
+      e[j][1] = v.y;
+      e[j][2] = v.z;
+      e[j][3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < kReshapeVec; ++j) {
+#pragma unroll 4
+      for (int it = 0; it < n_iters; ++it) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) e[j][q] = __fmul_rn(e[j][q], 1.000001f);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) e[j][q] = __fmul_rn(e[j][q], 0.999999f);
+      }
+      const long long i = i0 + j * kThreads;
+      if (i < end) o4[i] = make_float4(e[j][0], e[j][1], e[j][2], e[j][3]);
+    }
+  }
+  const long long tail = 4 * n4 + threadIdx.x;
+  if (blockIdx.x == 0 && tail < n) {
+    float v = x[tail];
+    for (int it = 0; it < n_iters; ++it)
+      v = __fmul_rn(__fmul_rn(v, 1.000001f), 0.999999f);
+    o[tail] = v;
+  }
 }
 
-// ---------------------------------------------------------------- P4, P5
+// ---------------------------------------------------------------- P4
 
-// Shared memory of a P4 or P5 block: g and its (m, w) slab.
+// Shared memory of a P4 block: g and its (m, w) slab.
 size_t slab_smem(int m, int w) {
   return (static_cast<size_t>(m) + w) * m * sizeof(float);
 }
@@ -414,42 +506,6 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
   }
 }
 
-// Block b owns columns b W .. b W + W - 1 of the (m, n) plane.
-template <int KC>
-__global__ void __launch_bounds__(kThreads)
-    probe_matmul2_kernel(const float* __restrict__ g,
-                         const float* __restrict__ x, float* __restrict__ o,
-                         int m, int n, int w, int n_iters) {
-  extern __shared__ float4 smem4[];
-  float* gs = reinterpret_cast<float*>(smem4);
-  float* slab = gs + m * m;
-  const long long col0 = static_cast<long long>(blockIdx.x) * w;
-  const int chunks = m / KC;
-  for (int c = 0; c < chunks; ++c)
-    stage_chunk<KC>(gs, slab, g, x + col0, m, w, n, c);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int r0 = kRM * (threadIdx.x / (w / kRC));
-  const int c0 = kRC * (threadIdx.x % (w / kRC));
-  float acc[kRM][kRC];
-  for (int it = 0; it < n_iters; ++it) {
-    zero(acc);
-    for (int c = 0; c < chunks; ++c)
-      chunk_product<KC>(gs, slab, m, w, r0, c0, c, acc);
-    __syncthreads();  // every thread has read the slab
-#pragma unroll
-    for (int i = 0; i < kRM; ++i)
-      *reinterpret_cast<float4*>(slab + (r0 + i) * w + c0) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < m * w; e += blockDim.x) {
-    const int k = e / w, c = e % w;
-    o[k * static_cast<long long>(n) + col0 + c] = slab[e];
-  }
-}
-
 // Block b: out[b] = g @ x[b], each x[a] an (m, w) plane.
 template <int KC>
 __global__ void __launch_bounds__(kThreads)
@@ -480,6 +536,254 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRM; ++i)
     *reinterpret_cast<float4*>(out + i * w) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// ---------------------------------------------------------------- P5
+
+// Shared memory of a P5 block: two buffers of the strip's hi and lo planes,
+// kCols columns x K = 64 row_tiles k each, float32.
+size_t matmul2_smem(int row_tiles) {
+  return static_cast<size_t>(2) * 2 * kCols * kRowTile * row_tiles *
+         sizeof(float);
+}
+
+// v's TF32 halves as bit patterns: hi = tf32(v), lo = tf32(v - hi), each
+// rounded to nearest, ties away from zero, low 13 bits clear.
+__device__ __forceinline__ void split_tf32_rn(float v, unsigned* hi,
+                                              unsigned* lo) {
+  *hi = tf32_bits(v);
+  *lo = tf32_bits(v - __uint_as_float(*hi));
+}
+
+// The hi halves of a, b, c, d; their lo halves into *lo.
+__device__ __forceinline__ float4 hi_lo4(float a, float b, float c, float d,
+                                         float4* lo) {
+  unsigned h[4], l[4];
+  split_tf32_rn(a, &h[0], &l[0]);
+  split_tf32_rn(b, &h[1], &l[1]);
+  split_tf32_rn(c, &h[2], &l[2]);
+  split_tf32_rn(d, &h[3], &l[3]);
+  *lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                    __uint_as_float(l[2]), __uint_as_float(l[3]));
+  return make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                     __uint_as_float(h[2]), __uint_as_float(h[3]));
+}
+
+// The wgmma descriptor of a K-major operand in shared memory, no swizzle:
+// 8-row x 16-byte core matrices of 128 contiguous bytes, `lbo` bytes
+// between the two k-chunks of an 8-deep step, `sbo` bytes between 8-row
+// groups.
+__device__ __forceinline__ uint64_t wgmma_desc(const float* p, int lbo,
+                                               int sbo) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// The async proxy (wgmma's operand reads) sees this thread's generic
+// shared-memory stores from here on, once a barrier has passed.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads of an accumulator across the wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a b on a 64 x 64 x 8 TF32 step: a the warpgroup's A fragment in
+// registers (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of
+// the warp's 16 rows, g = lane / 4, t = lane % 4), b a descriptor of the
+// K-major B; scale_d 0 starts d from zero. d: per 8-column block c,
+// d[4c] (g, 8c + 2t), d[4c + 1] (g, 8c + 2t + 1), d[4c + 2] (g + 8, 8c +
+// 2t), d[4c + 3] (g + 8, 8c + 2t + 1).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const unsigned (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Lanes 4 apart (g, g ^ 1, g ^ 2, g ^ 3 at one t) hold v[j] of rows g and
+// g + 8 (j >> 1), columns 2t + (j & 1); after two butterfly exchanges the
+// lane with i = g % 4 holds, in v[0..3], rows 4 (g / 4) + 8 (i >> 1) +
+// 0..3 of column 2t + (i & 1): a 4 x 4 transpose across the quad.
+__device__ __forceinline__ void quad_transpose(float (&v)[4], int i) {
+  const unsigned all = 0xffffffffu;
+  const bool odd = i & 1;
+  float r0 = __shfl_xor_sync(all, odd ? v[0] : v[1], 4);
+  float r1 = __shfl_xor_sync(all, odd ? v[2] : v[3], 4);
+  if (odd) {
+    v[0] = r0;
+    v[2] = r1;
+  } else {
+    v[1] = r0;
+    v[3] = r1;
+  }
+  const bool high = i & 2;
+  r0 = __shfl_xor_sync(all, high ? v[0] : v[2], 8);
+  r1 = __shfl_xor_sync(all, high ? v[1] : v[3], 8);
+  if (high) {
+    v[0] = r0;
+    v[1] = r1;
+  } else {
+    v[2] = r0;
+    v[3] = r1;
+  }
+}
+
+// Block b: columns W b .. W b + W - 1 of x (m, n), W = kCols, through
+// n_iters products with g (m, m), into the same columns of o. MT
+// warpgroups, warpgroup r the rows 64 r ..; K = 64 MT (rows and k past m
+// are zero).
+template <int MT>
+__global__ void __launch_bounds__(MT * kWarpgroup, 1)
+    probe_matmul2_kernel(const float* __restrict__ g,
+                         const float* __restrict__ x, float* __restrict__ o,
+                         int m, int n, int n_iters) {
+  constexpr int W = kCols;
+  constexpr int K = kRowTile * MT;
+  constexpr int KS = K / 8;         // 8-deep k-steps
+  constexpr int kRuns = KS / kRun;  // the large term's accumulators
+  constexpr int R = W / 2;          // accumulator registers
+  constexpr int kPlane = W * K;     // floats of a plane
+  constexpr int kGroup = 8 * K;     // floats of 8 columns' k
+  extern __shared__ float4 smem4[];
+  float* strip = reinterpret_cast<float*>(smem4);  // [2][hi, lo][W/8][K]
+  const int tid = threadIdx.x;
+  const long long col0 = static_cast<long long>(blockIdx.x) * W;
+  if (n_iters == 0) {
+    for (int e = tid; e < m * W; e += MT * kWarpgroup) {
+      const long long at = (e / W) * static_cast<long long>(n) + col0 + e % W;
+      o[at] = x[at];
+    }
+    return;
+  }
+  // The strip into buffer 0: a thread a column and 4 rows, 16 bytes a
+  // plane (each 8 columns' 4 k a 128-byte core matrix, k-chunks adjacent).
+  for (int e = tid; e < W * (K / 4); e += MT * kWarpgroup) {
+    const int c = e % W, kc = e / W;
+    float v[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 4 * kc + r;
+      v[r] = k < m ? x[k * static_cast<long long>(n) + col0 + c] : 0.0f;
+    }
+    const int at = (c / 8) * kGroup + kc * 32 + (c % 8) * 4;
+    float4 lo;
+    *reinterpret_cast<float4*>(strip + at) = hi_lo4(v[0], v[1], v[2], v[3],
+                                                   &lo);
+    *reinterpret_cast<float4*>(strip + kPlane + at) = lo;
+  }
+  // This warpgroup's rows of g, split, as A fragments for every k-step.
+  const int wg = tid / kWarpgroup;
+  const int warp = (tid / 32) % 4;
+  const int lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int row0 = kRowTile * wg + 16 * warp + gq;
+  unsigned ahi[KS][4], alo[KS][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = row0 + 8 * (j & 1);
+      const int k = 8 * s + tq + 4 * (j >> 1);
+      split_tf32_rn(row < m && k < m ? g[row * m + k] : 0.0f, &ahi[s][j],
+                    &alo[s][j]);
+    }
+  fence_async_smem();
+  __syncthreads();
+  const int qi = gq & 3;
+  // this lane's float4 along k after the quad transpose, within each
+  // 8-column group: its k-chunk, then its column
+  const int chunk = (kRowTile * wg + 16 * warp + 4 * (gq >> 2) +
+                     8 * (qi >> 1)) / 4;
+  const int store_at = chunk * 32 + (2 * tq + (qi & 1)) * 4;
+  int buf = 0;
+  for (int it = 0;; ++it) {
+    const float* bh = strip + buf * 2 * kPlane;
+    const uint64_t dh = wgmma_desc(bh, 128, 32 * K);
+    const uint64_t dl = wgmma_desc(bh + kPlane, 128, 32 * K);
+    float small[R], large[kRuns][R];
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const uint64_t step = 16 * s;  // 256 bytes a k-step, in 16-byte units
+      wgmma_tf32(small, alo[s], dh + step, s > 0);
+      wgmma_tf32(small, ahi[s], dl + step, 1);
+      wgmma_tf32(large[s / kRun], ahi[s], dh + step, s % kRun != 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(small);
+#pragma unroll
+    for (int r = 0; r < kRuns; ++r) fence_regs(large[r]);
+    // the runs in order, in float32, then the small terms
+    float* d = large[0];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float sum = large[0][i];
+#pragma unroll
+      for (int r = 1; r < kRuns; ++r) sum = sum + large[r][i];
+      d[i] = sum + small[i];
+    }
+    if (it + 1 == n_iters) {
+#pragma unroll
+      for (int c = 0; c < W / 8; ++c) {
+        const long long col = col0 + 8 * c + 2 * tq;
+        if (row0 < m)
+          *reinterpret_cast<float2*>(o + row0 * static_cast<long long>(n) +
+                                     col) = make_float2(d[4 * c],
+                                                        d[4 * c + 1]);
+        if (row0 + 8 < m)
+          *reinterpret_cast<float2*>(
+              o + (row0 + 8) * static_cast<long long>(n) + col) =
+              make_float2(d[4 * c + 2], d[4 * c + 3]);
+      }
+      return;
+    }
+    buf ^= 1;
+    float* wh = strip + buf * 2 * kPlane;
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c) {
+      float v[4] = {d[4 * c], d[4 * c + 1], d[4 * c + 2], d[4 * c + 3]};
+      quad_transpose(v, qi);
+      float4 lo;
+      const int at = c * kGroup + store_at;
+      *reinterpret_cast<float4*>(wh + at) = hi_lo4(v[0], v[1], v[2], v[3],
+                                                   &lo);
+      *reinterpret_cast<float4*>(wh + kPlane + at) = lo;
+    }
+    fence_async_smem();
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------- FMA
@@ -660,28 +964,41 @@ int probe_transpose(const void* x, void* o, int rows, int cols, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P3: x and o hold n float32.
+// P3: x and o hold n float32, 16-byte aligned; `blocks` blocks (the plan
+// of probe_kernels.reshape_plan), each a contiguous run of float4s.
 int probe_reshape(const void* x, void* o, long long n, int n_iters,
-                  int device, void* stream) {
+                  int blocks, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n < 1 || n_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  probe_reshape_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  if (n < 1 || n_iters < 0 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  probe_reshape_kernel<<<blocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o), n, n_iters);
   return static_cast<int>(cudaGetLastError());
 }
 
-// P5: g (m, m), x and o (m, n); w columns a block (n a multiple of w).
+// P5's shared memory a block at m rows (0 for a shape it does not take).
+size_t probe_matmul2_smem_bytes(int m) {
+  if (m < 1 || m > kRowTile * kMaxRowTiles) return 0;
+  return matmul2_smem((m + kRowTile - 1) / kRowTile);
+}
+
+// P5: g (m, m), x and o (m, n), 16-byte aligned, under
+// probe_kernels.matmul2_plan's plan (blocks, threads, smem_bytes): n / 64
+// blocks of 128 ceil(m / 64) threads, a strip of 64 columns each. Any
+// other plan is cudaErrorInvalidValue.
 int probe_matmul2(const void* g, const void* x, void* o, int m, int n,
-                  int w, int n_iters, int device, void* stream) {
+                  int blocks, int threads, int smem_bytes, int n_iters,
+                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = slab_threads(m, w);
-  if (threads == 0 || n < w || n % w != 0 || n_iters < 0)
+  const size_t smem = probe_matmul2_smem_bytes(m);
+  const int mt = (m + kRowTile - 1) / kRowTile;
+  if (smem == 0 || n < kCols || n % kCols != 0 || blocks != n / kCols ||
+      threads != mt * kWarpgroup ||
+      static_cast<size_t>(smem_bytes) != smem || n_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = slab_smem(m, w);
   const float* gp = static_cast<const float*>(g);
   const float* xp = static_cast<const float*>(x);
   float* op = static_cast<float*>(o);
@@ -689,15 +1006,11 @@ int probe_matmul2(const void* g, const void* x, void* o, int m, int n,
   auto launch = [&](auto kernel) {
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    kernel<<<n / w, threads, smem, s>>>(gp, xp, op, m, n, w, n_iters);
+    kernel<<<blocks, threads, smem, s>>>(gp, xp, op, m, n, n_iters);
     return cudaGetLastError();
   };
-  switch (chunk_rows(m)) {
-    case 64: return static_cast<int>(launch(probe_matmul2_kernel<64>));
-    case 32: return static_cast<int>(launch(probe_matmul2_kernel<32>));
-    case 16: return static_cast<int>(launch(probe_matmul2_kernel<16>));
-    default: return static_cast<int>(launch(probe_matmul2_kernel<8>));
-  }
+  return static_cast<int>(mt == 1 ? launch(probe_matmul2_kernel<1>)
+                                  : launch(probe_matmul2_kernel<2>));
 }
 
 // P4: g (m, m), x and o (a, m, w), under probe_kernels.dot3d_plan's plan

@@ -94,8 +94,10 @@
 // 0.26 m16n8k8 TF32 instructions a clock an SM, with no change from more
 // warps, unrolling, fewer instructions or interleaved accumulators. So
 // 3xTF32 over mma.sync is worth about 41 TFLOP/s, near a good SIMT
-// kernel's 37 TFLOP/s (P5, probes.cu), and wgmma (the full TF32 rate) is
-// the next step. The planes move 2 x 8 B per amplitude per group (a
+// kernel's 37 TFLOP/s (P5's first, SIMT design), and wgmma (the full TF32
+// rate) is the next step: P5 (probes.cu) now runs its 3xTF32 products on
+// wgmma, and tools/wide_probe.py prints the rate it issues them at, in
+// m16n8k8 instructions of the same work a clock an SM beside this 0.25. The planes move 2 x 8 B per amplitude per group (a
 // 2^20-amplitude state at B = 8 is 64 MB read and 64 MB written a group
 // launch, 38 us from device memory), behind the arithmetic at 20 wires.
 // At 16 wires, B = 10 (5 MB a state, held in L2) a launch is a few

@@ -1,5 +1,5 @@
-"""What the probe tools share: the card's name and power limit, and the
-timing rule."""
+"""What the probe tools share: the card's name, power limit and SM clock,
+and the timing rule."""
 
 from __future__ import annotations
 
@@ -20,6 +20,15 @@ def card(device: torch.device) -> str | None:
          "--format=csv,noheader", f"--id={device.index or 0}"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip()
+
+
+def max_sm_clock_mhz(device: torch.device) -> float:
+    """``nvidia-smi``'s clocks.max.sm of the card, MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", f"--id={device.index or 0}"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0])
 
 
 # Cycles of torch.cuda._sleep ahead of each timed call (~1 ms at the

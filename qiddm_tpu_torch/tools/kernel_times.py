@@ -1,14 +1,16 @@
 """Device times of the amplitude-damping pass (#7), the unitary-streaming
 chain's forward (#13) and its adjoint (#14), the gate chains' forwards
 (#1, #3) and their adjoint walks (#2, #4), the SEL chain's forward on
-planes (#5) and its adjoint (#6), and the transpose probe (P2) at the
-shapes their kernels are measured at, through the entries
+planes (#5) and its adjoint (#6), and the transpose, relayout and
+group-product probes (P2, P3, P5) at the shapes their kernels are
+measured at, through the entries
 ``amp_damp_kernel.amp_damp``, ``unitary_kernel.unitary_chain_planes``,
 ``unitary_kernel._unitary_chain_bwd_cuda``,
 ``gate_kernel._gate_chain_cuda``, ``ry_kernel._ry_chain_cuda``,
 ``gate_kernel._gate_chain_bwd_cuda``, ``ry_kernel._ry_chain_bwd_cuda``,
-``sel_kernel._sel_chain_cuda``, ``sel_kernel._sel_chain_bwd_cuda`` and
-``probe_kernels.transpose_probe``; beside #13, its library formulation
+``sel_kernel._sel_chain_cuda``, ``sel_kernel._sel_chain_bwd_cuda``,
+``probe_kernels.transpose_probe``, ``probe_kernels.reshape_probe`` and
+``probe_kernels.matmul2_probe``; beside #13, its library formulation
 (one complex64 ``torch.matmul`` a layer with the phase multiplies, cuBLAS
 with TF32 off). On the card it also profiles 10 steady ``QNN_noise(784,
 8, 14)`` training steps (#5 and #6's model; ``qnn_step``).
@@ -85,6 +87,9 @@ SEL_FWD_SHAPES = ((8, 10, 14, "cz"), (8, 16, 14, "cz"), (6, 16, 60, "cnot"),
 SEL_BWD_SHAPES = ((8, 10, 14, "cz"), (6, 10, 60, "cnot"), (12, 10, 14, "cz"))
 # (rows, cols, n_iters) of P2: the TPU tool's plane and iterations
 TRANSPOSE_SHAPES = ((128, 8192, 50),)
+# of P3 and of P5's x (g is (rows, rows)): the TPU tool's
+RESHAPE_SHAPES = ((8192, 128, 50),)
+MATMUL2_SHAPES = ((128, 8192, 50),)
 # the profiled training step: mnist_exm's defaults (batch 1, tau 10, Adam)
 QNN_MODEL = ["QNN_noise", "784", "8", "14"]
 QNN_TAU = 10
@@ -232,7 +237,8 @@ def measure(device: torch.device, seed: int = 0) -> dict:
     """{name: median ms} for every case of ``AMP_SHAPES``,
     ``UNITARY_SHAPES`` (forward and backward), ``GATE_FWD_SHAPES``,
     ``RY_FWD_SHAPES``, ``GATE_BWD_SHAPES``, ``RY_BWD_SHAPES``,
-    ``SEL_FWD_SHAPES``, ``SEL_BWD_SHAPES`` and ``TRANSPOSE_SHAPES``, the
+    ``SEL_FWD_SHAPES``, ``SEL_BWD_SHAPES``, ``TRANSPOSE_SHAPES``,
+    ``RESHAPE_SHAPES`` and ``MATMUL2_SHAPES``, the
     kernels' profiled durations on the card (for #2, #4, #6 and #14 also a
     call's device time over all its kernels), and the launch counts."""
     rng = np.random.default_rng(seed)
@@ -250,7 +256,7 @@ def measure(device: torch.device, seed: int = 0) -> dict:
     cuda = device.type == "cuda"
     amp_damp_kernel.AMP_DAMP_LAUNCHES = 0
     unitary_kernel.UNITARY_LAUNCHES = unitary_kernel.UNITARY_BWD_LAUNCHES = 0
-    probe_kernels.PROBE_LAUNCHES["transpose"] = 0
+    probe_kernels.reset_launches()
     gate_kernel.LAUNCHES = ry_kernel.RY_LAUNCHES = 0
     gate_kernel.BWD_LAUNCHES = ry_kernel.RY_BWD_LAUNCHES = 0
     sel_kernel.SEL_LAUNCHES = sel_kernel.SEL_BWD_LAUNCHES = 0
@@ -353,12 +359,29 @@ def measure(device: torch.device, seed: int = 0) -> dict:
             timed(f"transpose_probe ({rows}, {cols}) x {n}",
                   lambda: probe_kernels.transpose_probe(x, n),
                   "probe_transpose_kernel")
+        for rows, cols, n in RESHAPE_SHAPES:
+            xr = torch.as_tensor(rng.random((rows, cols)),
+                                 dtype=torch.float32, device=device)
+            timed(f"reshape_probe ({rows}, {cols}) x {n}",
+                  lambda: probe_kernels.reshape_probe(xr, n),
+                  "probe_reshape_kernel")
+        for rows, cols, n in MATMUL2_SHAPES:
+            q, _ = np.linalg.qr(rng.normal(size=(rows, rows)))
+            g = torch.as_tensor(q * 0.9999, dtype=torch.float32,
+                                device=device)
+            xm = torch.as_tensor(rng.random((rows, cols)),
+                                 dtype=torch.float32, device=device)
+            timed(f"matmul2_probe ({rows}, {rows}) @ ({rows}, {cols}) x {n}",
+                  lambda: probe_kernels.matmul2_probe(g, xm, n),
+                  "probe_matmul2_kernel")
     return {"times_ms": times, "kernel_ms": kernels, "call_device_ms": calls,
             "launches": {"amp_damp": amp_damp_kernel.AMP_DAMP_LAUNCHES,
                          "unitary": unitary_kernel.UNITARY_LAUNCHES,
                          "unitary_bwd": unitary_kernel.UNITARY_BWD_LAUNCHES,
                          "transpose": probe_kernels.PROBE_LAUNCHES[
                              "transpose"],
+                         "reshape": probe_kernels.PROBE_LAUNCHES["reshape"],
+                         "matmul2": probe_kernels.PROBE_LAUNCHES["matmul2"],
                          "gate": gate_kernel.LAUNCHES,
                          "ry": ry_kernel.RY_LAUNCHES,
                          "gate_bwd": gate_kernel.BWD_LAUNCHES,

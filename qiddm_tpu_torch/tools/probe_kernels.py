@@ -22,9 +22,14 @@ gradient.
   in shared memory with its transpose through every iteration
   (:func:`transpose_plan`).
 * P3 :func:`reshape_probe` (``probe_reshape``): ``n_iters`` x
-  ``x <- reshape(reshape(x, (C, R)) * 1.000001, (R, C)) * 0.999999``.
+  ``x <- reshape(reshape(x, (C, R)) * 1.000001, (R, C)) * 0.999999``, in
+  one wave of blocks that each own a contiguous run of float4s
+  (:func:`reshape_plan`); the plain version's bits.
 * P5 :func:`matmul2_probe` (``probe_matmul2``): ``n_iters`` x ``x <- g @ x``
-  in full float32.
+  to float32 accuracy as 3xTF32 ``wgmma`` products on the tensor cores
+  (sm_90a), a block a strip of columns held in shared memory through every
+  product (:func:`matmul2_plan`); within its stated tolerance of the plain
+  version, the same bits call after call.
 * P4 :func:`dot3d_probe` (``probe_dot3d``): ``out[a, i, c] = sum_j g[i, j]
   x[a, j, c]``, a block a slice (:func:`dot3d_plan`).
 * :func:`fma_ceiling` (``_fma_kernel``): ``chains`` accumulators
@@ -32,8 +37,8 @@ gradient.
   FMA, one rounding, on the card and in the plain version), output the
   left fold ``a_0 + a_1 + ...``.
 
-P4 and P5 sum each output over k in order from zero, one float32 FMA a term:
-:func:`in_order_matmul` gives their bits exactly.
+P4 sums each output over k in order from zero, one float32 FMA a term:
+:func:`in_order_matmul` gives its bits exactly.
 """
 
 from __future__ import annotations
@@ -54,14 +59,24 @@ _CAPACITY_REFUSED = -1
 # P1's scratch rows are 128 float32; x fills 8 of them at each end
 ROW_BYTES = 512
 MIN_SMEM_BYTES = 16 * ROW_BYTES
-# P4/P5: each thread of a block owns 8 rows x 4 columns of the product
+# P4: each thread of a block owns 8 rows x 4 columns of the product
 SLAB_ROWS, SLAB_COLS, SLAB_MAX_THREADS = 8, 4, 256
-# P4/P5 take the (m, w) whose slab_smem_bytes(m, w + 4) fit a block: the
-# shapes the probes always took (their first layout padded g's rows by 4),
+# P4 takes the (m, w) whose slab_smem_bytes(m, w + 4) fit a block: the
+# shapes the probe always took (its first layout padded g's rows by 4),
 # a little inside what the present layout needs
 SLAB_TAKEN_PAD = 4
-# P5's slab of columns a block (PERF.md: 64 ran faster than 32)
+# P5: a block's strip of columns (wgmma's N, ``kCols``), a warpgroup's rows (wgmma's M), the rows a block takes at most (two
+# warpgroups, g's hi and lo halves in registers), and the 8-deep k-steps the
+# large term g_hi x_hi chains in one accumulator before it is added in
+# float32 (``kRun`` of csrc/probes.cu; set against P5's tolerance by
+# tests/test_torch_probe_tf32.py)
 MATMUL2_COLS = 64
+MATMUL2_ROW_TILE = 64
+MATMUL2_MAX_ROWS = 128
+MATMUL2_RUN = 8
+# P3: 256-thread blocks (``kThreads`` of csrc/probes.cu), at most 4 an SM
+# (one wave)
+RESHAPE_THREADS, RESHAPE_BLOCKS_PER_SM = 256, 4
 FMA_CHAINS = (1, 4, 8)
 
 # Streaming multiprocessors of the H100, which P2's strips fill
@@ -101,8 +116,8 @@ def reshape_probe_plain(x, n_iters: int):
 
 
 def matmul2_probe_plain(g, x, n_iters: int):
-    """P5 in plain PyTorch: ``n_iters`` x ``x <- g @ x`` (TF32 off, as
-    ``qiddm_tpu_torch.config`` pins it)."""
+    """P5 in plain PyTorch: ``n_iters`` x ``x <- g @ x`` in float32 (TF32
+    off, as ``qiddm_tpu_torch.config`` pins it)."""
     for _ in range(n_iters):
         x = g @ x
     return x
@@ -134,9 +149,9 @@ def _fma_round(p, c):
 
 def in_order_matmul(g, x):
     """``g @ x`` (x (m, n) or (a, m, n)) with each output summed over k in
-    order from zero, one float32 FMA (one rounding) a term: the P4 and P5
-    kernels' arithmetic, emulated exactly in float64, so their outputs
-    equal it bit for bit."""
+    order from zero, one float32 FMA (one rounding) a term: the P4
+    kernel's arithmetic, emulated exactly in float64, so its outputs equal
+    it bit for bit."""
     g64, x64 = g.double(), x.double()
     acc = torch.zeros(x.shape[:-2] + (g.shape[0], x.shape[-1]),
                       dtype=torch.float32, device=x.device)
@@ -177,15 +192,17 @@ def _library():
                 ("probe_smem_fits", [num, num, num]),
                 ("probe_smem", [ptr, ptr, num, num, num, ptr]),
                 ("probe_transpose", [ptr, ptr] + [num] * 5 + [ptr]),
-                ("probe_reshape", [ptr, ptr, big, num, num, ptr]),
-                ("probe_matmul2", [ptr, ptr, ptr] + [num] * 5 + [ptr]),
+                ("probe_reshape", [ptr, ptr, big, num, num, num, ptr]),
+                ("probe_matmul2", [ptr, ptr, ptr] + [num] * 7 + [ptr]),
                 ("probe_dot3d", [ptr, ptr, ptr] + [num] * 7 + [ptr]),
                 ("fma_ceiling", [ptr, ptr, ptr, big, num, num, num, ptr])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = num
-        lib.probe_transpose_smem_bytes.argtypes = [num, num]
-        lib.probe_transpose_smem_bytes.restype = ctypes.c_size_t
+        for name, args in (("probe_transpose_smem_bytes", [num, num]),
+                           ("probe_matmul2_smem_bytes", [num])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_size_t
         _BOUND = True
     return lib
 
@@ -305,6 +322,25 @@ def transpose_probe(x, n_iters: int):
     return out
 
 
+def reshape_plan(n: int, sms: int = _SMS) -> tuple[int, int, int]:
+    """P3's launch for a plane of n float32: ``(elements a thread, blocks,
+    threads)``. One wave of ``RESHAPE_BLOCKS_PER_SM`` blocks of
+    ``RESHAPE_THREADS`` an SM (fewer where a thread would not get a
+    float4), so every SM gets the same work; block b owns the b-th of
+    ``blocks`` equal contiguous runs of the n // 4 float4s, and a thread
+    takes every 256th float4 of its run, loaded before any arithmetic. The
+    n % 4 elements past the last float4 are a tail that block 0's first
+    threads take. Elements a thread: 4 for each float4 of the run a thread
+    takes at most. Raises for an empty plane."""
+    if n < 1:
+        raise ValueError(f"P3 takes a non-empty plane, got {n} elements")
+    n4 = n // 4
+    blocks = max(1, min(RESHAPE_BLOCKS_PER_SM * sms,
+                        -(-n4 // RESHAPE_THREADS)))
+    run = -(-n4 // blocks)
+    return 4 * max(1, -(-run // RESHAPE_THREADS)), blocks, RESHAPE_THREADS
+
+
 def reshape_probe(x, n_iters: int):
     """P3 on an (R, C) float32 plane."""
     if n_iters < 0:
@@ -314,10 +350,13 @@ def reshape_probe(x, n_iters: int):
     dev = _check("P3", (x,), [tuple(x.shape)])
     if x.dim() != 2 or x.numel() == 0:
         raise ValueError(f"P3 takes a 2-D plane, got {tuple(x.shape)}")
+    _aligned("P3", (x,))
     lib = _library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, blocks, _ = reshape_plan(x.numel(), sms)
     out = torch.empty_like(x)
     err = lib.probe_reshape(x.data_ptr(), out.data_ptr(), x.numel(), n_iters,
-                            dev.index, _stream(dev))
+                            blocks, dev.index, _stream(dev))
     _launched(err, lib, "P3 probe_reshape kernel", "reshape")
     return out
 
@@ -329,13 +368,13 @@ def _aligned(what: str, tensors) -> None:
 
 
 def slab_smem_bytes(m: int, w: int) -> int:
-    """Shared memory of a P4 or P5 block: g (m, m) and its (m, w) slab in
+    """Shared memory of a P4 block: g (m, m) and its (m, w) slab in
     float32 (``slab_smem`` of ``csrc/probes.cu``)."""
     return 4 * m * (m + w)
 
 
 def _slab_fits(what: str, m: int, w: int) -> None:
-    """Raise unless P4/P5 take (m, w): m rows of g a multiple of 8, w
+    """Raise unless P4 takes (m, w): m rows of g a multiple of 8, w
     columns a block a multiple of 4, at most 256 threads of 8 x 4, and
     ``slab_smem_bytes(m, w + SLAB_TAKEN_PAD)`` within a block's opt-in
     shared memory."""
@@ -362,24 +401,51 @@ def dot3d_plan(a: int, m: int, w: int) -> tuple[int, int, int]:
     return (a, (m // SLAB_ROWS) * (w // SLAB_COLS), slab_smem_bytes(m, w))
 
 
+def matmul2_smem_bytes(m: int) -> int:
+    """Shared memory of a P5 block: two buffers of its strip's TF32 hi and
+    lo planes, ``MATMUL2_COLS`` columns by the k of ceil(m / 64) row tiles
+    of 64, float32 (``matmul2_smem`` of ``csrc/probes.cu``)."""
+    return (2 * 2 * MATMUL2_COLS * MATMUL2_ROW_TILE
+            * -(-m // MATMUL2_ROW_TILE) * 4)
+
+
+def matmul2_plan(m: int, n: int) -> tuple[int, int, int, int]:
+    """P5's launch at g (m, m), x (m, n): ``(columns a block, blocks,
+    threads, smem_bytes)``. A block owns a strip of ``MATMUL2_COLS``
+    columns across all rows: one warpgroup of 128 threads a 64-row tile of
+    g, one tile for m <= 64 and two to 128 (rows and k past m
+    zero-padded), and the strip's hi and lo planes twice in shared memory.
+    Raises for m outside 1..128 or n not a positive multiple of the
+    strip."""
+    w = MATMUL2_COLS
+    if not 1 <= m <= MATMUL2_MAX_ROWS:
+        raise ValueError(f"P5 takes 1..{MATMUL2_MAX_ROWS} rows (g's hi and "
+                         f"lo halves in two warpgroups' registers), got {m}")
+    if n < w or n % w:
+        raise ValueError(f"P5: {n} columns are not a multiple of {w}")
+    tiles = -(-m // MATMUL2_ROW_TILE)
+    return w, n // w, 128 * tiles, matmul2_smem_bytes(m)
+
+
 def matmul2_probe(g, x, n_iters: int):
     """P5: ``n_iters`` x ``x <- g @ x``, g (m, m), x (m, n) float32; on the
-    card a block owns ``MATMUL2_COLS`` columns (n a multiple of it)."""
+    card under :func:`matmul2_plan`."""
     if n_iters < 0:
         raise ValueError(f"P5 takes n_iters >= 0, got {n_iters}")
     if not _dispatch("P5", x):
         return matmul2_probe_plain(g, x, n_iters)
-    cols = MATMUL2_COLS
     m, n = x.shape
     dev = _check("P5", (g, x), [(m, m), (m, n)])
     _aligned("P5", (g, x))
-    _slab_fits("P5", m, cols)
+    _, blocks, threads, smem = matmul2_plan(m, n)
     lib = _library()
-    if n % cols:
-        raise ValueError(f"P5: {n} columns are not a multiple of {cols}")
+    if lib.probe_matmul2_smem_bytes(m) != smem:
+        raise ValueError(f"P5: the kernel's shared memory at {m} rows is "
+                         f"not its plan's {smem} B")
     out = torch.empty_like(x)
     err = lib.probe_matmul2(g.data_ptr(), x.data_ptr(), out.data_ptr(), m, n,
-                            cols, n_iters, dev.index, _stream(dev))
+                            blocks, threads, smem, n_iters, dev.index,
+                            _stream(dev))
     _launched(err, lib, "P5 probe_matmul2 kernel", "matmul2")
     return out
 

@@ -18,9 +18,12 @@ per-sample kernels depend on:
   P4. Does a contraction on the middle axis of a 3-D operand run (on the
       TPU a question of Mosaic's lowering)? Here it always runs; ``ok``
       means its output matched the plain version.
-  P5. The group product of a 20-wire state: (128, 128) @ (128, 8192) in
-      full float32 on the CUDA cores, beside cuBLAS (``torch.matmul``, TF32
-      off) on the same inputs.
+  P5. The group product of a 20-wire state: (128, 128) @ (128, 8192) to
+      float32 accuracy as 3xTF32 on the tensor cores (wgmma), beside cuBLAS
+      (``torch.matmul``, TF32 off) on the same inputs; on the card also the
+      rate at which the kernel issues its TF32 wgmma instructions, a clock
+      an SM, and that rate in mma.sync m16n8k8 instructions of the same
+      work (the unit of ``csrc/wide_chain.cu``'s measured 0.25).
 
 Times are medians of CUDA-event times of one call over 20 calls, after a
 warm-up, each behind a spin kernel that hides the host's enqueue
@@ -115,6 +118,21 @@ def probe_matmul2(n_iters: int = 50, m: int = 128, n: int = 8192,
     return 1e-3 * ms / n_iters, 1e-3 * lib_ms / n_iters
 
 
+def wgmma_rate(seconds: float, m: int = 128, n: int = 8192,
+               clock_mhz: float = 1980.0, sms: int = 132) -> tuple[float,
+                                                                   float]:
+    """P5's TF32 wgmma instructions issued a clock an SM at ``seconds`` a
+    product, over the SMs that run a block (one block an SM), and the
+    same work in mma.sync m16n8k8 instructions a clock an SM. Each
+    warpgroup issues 3 wgmma m64nWk8 an 8-deep k-step of its 64
+    ceil(m / 64) k (``probe_kernels.matmul2_plan``)."""
+    w, blocks, threads, _ = pk.matmul2_plan(m, n)
+    k = pk.MATMUL2_ROW_TILE * (threads // 128)
+    issued = blocks * (threads // 128) * 3 * (k // 8)
+    rate = issued / (seconds * clock_mhz * 1e6 * min(blocks, sms))
+    return rate, rate * (64 * w) / (16 * 8)
+
+
 def probe_dot3d(reps: int = 20, device=None):
     """P4: (g, x, out, seconds of one call) on seeded inputs."""
     dev = _device(device)
@@ -165,15 +183,25 @@ def main(argv=None) -> dict:
     t = probe_reshape(args.n_iters, device=dev)
     res["reshape_us"] = 1e6 * t
     print(f"    {t * 1e6:8.1f} us/reshape ({4 * MiB / t / 1e9:.0f} GB/s eff)")
-    print(f"P5: in-kernel matmul (128,128)@{SHAPE} f32 highest")
+    print(f"P5: in-kernel matmul (128,128)@{SHAPE} f32 highest, 3xTF32 on "
+          f"the tensor cores (wgmma)")
     t, t_lib = probe_matmul2(args.n_iters, device=dev)
     flops = 2 * 128 * 128 * 8192
     res.update(matmul_us=1e6 * t, matmul_gflops=flops / t / 1e9,
                library_matmul_us=1e6 * t_lib,
                library_matmul_gflops=flops / t_lib / 1e9)
-    print(f"    {t * 1e6:8.1f} us/matmul ({flops / t / 1e9:.0f} GFLOP/s); "
+    print(f"    {t * 1e6:8.1f} us/matmul ({flops / t / 1e9:.0f} GFLOP/s of "
+          f"float32-accurate product, {3 * flops / t / 1e9:.0f} of TF32); "
           f"torch.matmul {t_lib * 1e6:8.1f} us/matmul "
           f"({flops / t_lib / 1e9:.0f} GFLOP/s)")
+    if dev.type == "cuda":
+        clock = common.max_sm_clock_mhz(dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rate, mma = wgmma_rate(t, clock_mhz=clock, sms=sms)
+        res.update(wgmma_per_clock_sm=rate, mma_sync_equiv_per_clock_sm=mma)
+        print(f"    {rate:.4f} TF32 wgmma m64n{pk.MATMUL2_COLS}k8 "
+              f"instructions a clock an SM ({mma:.2f} mma.sync m16n8k8 of "
+              f"the same work; {clock:.0f} MHz clocks.max.sm)")
     print("P4: batched 3D contraction (middle axis)")
     g, x, out, t = probe_dot3d(device=dev)
     want = pk.dot3d_probe_plain(g, x)

@@ -1,5 +1,5 @@
-"""The device-time script of kernels #7, #13, #14, #1, #3, #2, #4, #5, #6
-and P2
+"""The device-time script of kernels #7, #13, #14, #1, #3, #2, #4, #5, #6,
+P2, P3 and P5
 (``qiddm_tpu_torch/tools/kernel_times.py``) on the CPU, at small shapes:
 its cases, its output line and the library formulation of the unitary
 chain against the chain. On the card it times the kernels; here the
@@ -31,6 +31,8 @@ def small(monkeypatch):
                         ((3, 2, 3, "cz"), (2, 3, 2, "cnot")))
     monkeypatch.setattr(kernel_times, "SEL_BWD_SHAPES", ((3, 2, 3, "cnot"),))
     monkeypatch.setattr(kernel_times, "TRANSPOSE_SHAPES", ((32, 64, 3),))
+    monkeypatch.setattr(kernel_times, "RESHAPE_SHAPES", ((5, 7, 2),))
+    monkeypatch.setattr(kernel_times, "MATMUL2_SHAPES", ((16, 64, 3),))
 
 
 def test_main_on_the_cpu_prints_every_case(small, capsys):
@@ -43,7 +45,8 @@ def test_main_on_the_cpu_prints_every_case(small, capsys):
         "amp_damp w=3 N=5", "amp_damp w=2 N=4",
         "unitary_chain w=3 B=4 L*k=4", "library_unitary w=3 B=4 L*k=4",
         "unitary_chain_bwd w=3 B=4 L*k=4",
-        "transpose_probe (32, 64) x 3",
+        "transpose_probe (32, 64) x 3", "reshape_probe (5, 7) x 2",
+        "matmul2_probe (16, 16) @ (16, 64) x 3",
         "gate_chain_fwd w=3 B=3 L*k=4", "gate_chain_fwd w=8 B=1 L*k=2",
         "ry_chain_fwd w=9 B=2 L*k=4",
         "gate_chain_bwd w=3 B=5 L*k=4", "gate_chain_bwd w=1 B=2 L*k=2",
@@ -53,7 +56,8 @@ def test_main_on_the_cpu_prints_every_case(small, capsys):
         "sel_chain_bwd w=3 B=2 depth=3 cnot"])
     assert all(t > 0 for t in out["times_ms"].values())
     assert out["launches"] == {"amp_damp": 0, "unitary": 0,
-                               "unitary_bwd": 0, "transpose": 0, "gate": 0,
+                               "unitary_bwd": 0, "transpose": 0,
+                               "reshape": 0, "matmul2": 0, "gate": 0,
                                "ry": 0, "gate_bwd": 0, "ry_bwd": 0,
                                "sel": 0, "sel_bwd": 0}
     # the profiled durations and the training step's profile are the card's

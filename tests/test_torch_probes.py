@@ -7,9 +7,15 @@ and reaches no kernel), P2's plan (``transpose_plan``: its strips own every
 element once, and their transposes, each in its own block, compose to the
 plain version's bits), P4's launch plan (``dot3d_plan``: its blocks and
 thread tiles cover every output once, within the card's limits, and it
-refuses what the probes never took), the in-order FMA emulation
-that P4's and P5's kernels equal bit for bit (``in_order_matmul``, against
-exact rational arithmetic), and the two tools' entry points.
+refuses what the probes never took), P5's plan (``matmul2_plan``: its
+strips own every column once, a warpgroup a 64-row tile, the shared memory
+of two buffers of hi and lo planes; what it refuses) and P3's
+(``reshape_plan``: one wave of equal contiguous runs that own every
+element once, the tail included), the in-order FMA emulation that P4's
+kernel equals bit for bit (``in_order_matmul``, against exact rational
+arithmetic; P5's kernel no longer sums in that order: its 3xTF32
+arithmetic is emulated in ``tests/test_torch_probe_tf32.py``), and the two
+tools' entry points.
 
 The TPU tools are imported by path and stay as they are. The FMA body is a
 module function, run as ``functools.partial(_fma_kernel, iters, chains)``.
@@ -373,6 +379,92 @@ def test_transpose_plan_refusals(rows, cols, match):
         pk.transpose_plan(rows, cols)
 
 
+# P5's plan at the tools' shape, the card tests' shapes and the row counts
+# on either side of a 64-row tile: (m, n)
+P5_PLANNED = [(128, 8192), (64, 1024), (16, 64), (8, 64), (100, 128),
+              (1, 64), (128, 128), (64, 64), (65, 192), (63, 320)]
+
+
+@pytest.mark.parametrize("m,n", P5_PLANNED)
+def test_matmul2_plan_owns_every_column_once(m, n):
+    """A block a strip of w columns across all rows: the strips own every
+    column once; a warpgroup of 128 threads a 64-row tile of g, rows and
+    k zero-padded to the tiles; two buffers of the strip's hi and lo
+    planes within a block's shared memory."""
+    w, blocks, threads, smem = pk.matmul2_plan(m, n)
+    assert w == pk.MATMUL2_COLS and blocks * w == n
+    tiles = -(-m // 64)
+    assert threads == 128 * tiles and tiles * 64 >= m > (tiles - 1) * 64
+    assert smem == 2 * 2 * w * 64 * tiles * 4 <= _gk._MAX_SMEM_BYTES
+    owner = torch.full((n,), -1)
+    for b in range(blocks):
+        assert (owner[b * w:(b + 1) * w] == -1).all()
+        owner[b * w:(b + 1) * w] = b
+    assert (owner >= 0).all()
+
+
+def test_matmul2_plan_at_the_tools_shape():
+    # 128 blocks of two warpgroups on 64 columns: 128 KB of strip planes
+    assert pk.matmul2_plan(128, 8192) == (64, 128, 256, 131072)
+    # m <= 64: one warpgroup, k padded to 64
+    assert pk.matmul2_plan(16, 64) == (64, 1, 128, 65536)
+
+
+@pytest.mark.parametrize("m,n,match", [
+    (129, 64, "rows"), (0, 64, "rows"), (256, 64, "rows"), (-1, 64, "rows"),
+    (16, 40, "not a multiple"), (16, 32, "not a multiple"),
+    (16, 0, "not a multiple"), (16, 96, "not a multiple"),
+    (128, 8160, "not a multiple")])
+def test_matmul2_plan_refusals(m, n, match):
+    with pytest.raises(ValueError, match=match):
+        pk.matmul2_plan(m, n)
+
+
+# P3's plan: the tools' plane, the card tests' shapes, one past a wave
+P3_PLANNED = [(8192, 128), (64, 32), (5, 7), (1001, 13), (3, 1), (1, 1),
+              (4, 4), (1024, 1025)]
+
+
+@pytest.mark.parametrize("rows,cols", P3_PLANNED)
+@pytest.mark.parametrize("sms", [132, 7])
+def test_reshape_plan_owns_every_element_once(rows, cols, sms):
+    """At most 4 blocks an SM (one wave), no block without a float4 to
+    take but the one a tail-only plane needs; block b owns the b-th of
+    equal contiguous runs of the float4s, a thread every 256th float4 of
+    its run; the tail past the last float4 is block 0's first threads'.
+    Each element is owned once, and a thread takes at most the plan's
+    elements."""
+    n = rows * cols
+    per_thread, blocks, threads = pk.reshape_plan(n, sms)
+    n4 = n // 4
+    assert threads == 256 and 1 <= blocks <= 4 * sms
+    assert blocks == 1 or (blocks - 1) * 256 < n4
+    run = -(-n4 // blocks)
+    owned = torch.zeros(n, dtype=torch.int32)
+    most = 0
+    for b in range(blocks):
+        first, end = b * run, min((b + 1) * run, n4)
+        # thread t takes first + t, first + t + 256, ...: each float4 of the
+        # run once, at most ceil(run / 256) a thread
+        most = max(most, -(-max(0, end - first) // threads))
+        owned[4 * first:4 * max(first, end)] += 1
+    owned[4 * n4:] += 1  # the tail, block 0's threads 0 .. n % 4 - 1
+    assert (owned == 1).all()
+    assert per_thread == 4 * max(1, most)
+
+
+def test_reshape_plan_at_the_tools_shape():
+    # 4 blocks on each of 132 SMs, 497 float4s a block: 2 a thread
+    assert pk.reshape_plan(8192 * 128) == (8, 528, 256)
+    assert pk.reshape_plan(8192 * 128, 66) == (16, 264, 256)
+
+
+@pytest.mark.parametrize("n", [0, -4])
+def test_reshape_plan_refuses_an_empty_plane(n):
+    with pytest.raises(ValueError, match="non-empty"):
+        pk.reshape_plan(n)
+
+
 @pytest.fixture
 def no_library(monkeypatch):
     """Fail on any attempt to build or load the kernels' library."""
@@ -488,6 +580,17 @@ def test_tools_default_to_the_card(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         tool.main([])
+
+
+def test_wgmma_rate_counts_the_plans_instructions():
+    # the tools' shape: 128 blocks of two warpgroups, each 3 wgmma
+    # m64n64k8 for each of 16 k-steps: 12,288 a product, one block an SM
+    t = 12288 / (1980e6 * 128)
+    rate, mma = wide_probe.wgmma_rate(t, clock_mhz=1980.0, sms=132)
+    assert rate == pytest.approx(1.0) and mma == pytest.approx(32.0)
+    # on fewer SMs than blocks the blocks share them
+    rate, _ = wide_probe.wgmma_rate(t, clock_mhz=1980.0, sms=64)
+    assert rate == pytest.approx(2.0)
 
 
 def test_wide_probe_helpers_on_the_cpu():
