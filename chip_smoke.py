@@ -19,7 +19,10 @@ any failure exits non-zero and no phase's failure is caught:
    build/qiddm_tpu_torch/ and loads the library;
 3. gate-chain forward kernel against plain: kernel #1 against its plain
    PyTorch version on the card, at w in {1, 4, 6, 8, 10} x B in
-   {1, 16, 80} (L*k = 28, k = 2), (w=6, B=16, L*k=42, k=3) and the edges
+   {1, 16, 80} (L*k = 28, k = 2), (w=6, B=16, L*k=42, k=3), the slice's
+   shapes (w=10, B in {80, 16}, L*k=18: QIDDM-A's training and sampling
+   batches; w=8, B=10, L*k=18, k=3: QIDDM_bias_false and QIDDM_L_B) and
+   the edges
    of its launch plan (FWD_PLAN_EDGES at L*k = 28:
    gate_kernel.chain_fwd_plan's samples a CTA, up to the engine's largest
    batch 2^w - 1), max |diff| <= 1e-5, and a second call giving the same
@@ -347,7 +350,36 @@ any failure exits non-zero and no phase's failure is caught:
 34. #1-#6's registers and spills from ptxas's report at each of their
    1-10-wire instances, 1-12 for #5/#6 (fails unless all sixty-four are
    there, if #1 or #3 spills at 6, 8 or 10 wires, or if #5 or #6 spills
-   at 6 or 8 wires).
+   at 6 or 8 wires);
+35. QIDDM-A (run after phase 11): differN_noise 28 9 2, the JAX bench's
+   reference model (qiddm_tpu's bench_qiddm_a: 10 wires, 2 blocks of
+   L*k = 18), through qiddm_tpu_torch.cli.mnist_exm --device cuda at the
+   bench's configuration (label 4, batch 8, tau 10, lr 0.0459, 30 epochs,
+   here in 2 segments of 15 for a steady wall) on the seeded mnist_28.npz:
+   30 finite epoch losses, exactly 2 #1 and 2 #2 launches a step and 2 #1
+   an iteration of the driver's 15 sampling iterations, no other kernel;
+   its checkpoint sampled through the sampling CLI as in phase 9 (16
+   images x 15 iterations x 3 batches, each iteration of the last batch
+   held against the CPU plain path within 1e-4); 3 training steps of 8
+   images held against the CPU as in phase 10; 10 steady steps profiled
+   as in phase 11 (#2's dg summed by a second launch: 80 rows outgrow a
+   cluster); training and sampling images/s with the card's name and
+   power limit;
+36. the zoo (run after phase 35): the other 16 dense classes built on cuda
+   at full width, the differN family, QIDDM_A_sameN and the two
+   QIDDM_A_differN classes at (28, 9, 2) (10 wires) and the QIDDM-L, CL
+   and PP families at (784, 8, 6, 2) (8 wires; k = 3 for QIDDM_bias_false
+   and QIDDM_L_B): for each, 3 training steps of 8 images held against
+   the CPU as in phase 10, BatchNorm running statistics included; then a
+   batch of 16 sampled for 15 iterations from the trained weights, each
+   iteration held against the CPU plain path from the card's batch within
+   1e-4; exactly 2 #1 and 2 #2 launches a step, 2 #1 an iteration, no
+   other kernel. The classes that refit a PCA on every batch are held at
+   each iteration with the card's fit of the batch given to the CPU (the
+   CPU's own fit printed beside); the gradients of the classes that
+   post-process after each block, and the sampled iterations of the three
+   that also refit a PCA, are printed beside their float32 floor, not
+   held (phase_zoo says why).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -395,7 +427,9 @@ from qiddm_tpu_torch.cli import common
 from qiddm_tpu_torch.cli import fashion_noise, mnist_exm, noise_common
 from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
-from qiddm_tpu_torch.pca import pca_fit_transform
+from qiddm_tpu_torch.nn import core as nn_core
+from qiddm_tpu_torch.pca import (PCAState, pca_fit, pca_fit_transform,
+                                 pca_transform)
 from qiddm_tpu_torch.sim import (amp_damp_kernel, dm_kernel, engine,
                                  gate_kernel, ry_kernel, sel_kernel,
                                  unitary_kernel, wide, wide_kernel)
@@ -429,7 +463,11 @@ SAMPLED = [(MODEL, 28, "gate", 2, 0), (QNN_MODEL, 28, "sel", 1, 0),
            (WIDE_MODEL, 28, "wide", WIDE_PER_ITER, 3)]
 EPOCHS, TAU, LABEL = 2, 10, 4  # mnist_exm's defaults but epochs
 CASES = ([(w, b, 28, 2) for w in (1, 4, 6, 8, 10) for b in (1, 16, 80)]
-         + [(6, 16, 42, 3)])
+         + [(6, 16, 42, 3)]
+         # QIDDM-A's (10 wires, L*k = 9 x 2) at its training batch (8
+         # images x tau 10) and sampling batch, and the k = 3 classes'
+         # (QIDDM_bias_false, QIDDM_L_B at 784 8 6 2) at batch 1 x tau 10
+         + [(10, 80, 18, 2), (10, 16, 18, 2), (8, 10, 18, 3)])
 # the backward walk's launch plan at its edges (gate_kernel.chain_bwd_plan;
 # #2 at L*k = 28, #4 at 12): the last batch of one sample a CTA and the
 # first of two, the largest batch one cluster holds (32 samples up to 7
@@ -512,6 +550,27 @@ MONO_PER_ITER = 2
 # the sampling iterations mnist_exm runs after training (run_labels'
 # tau_test), one forward each
 TAU_TEST = 15
+# QIDDM-A, qiddm_tpu's bench_qiddm_a (bench.py:118-149): differN_noise
+# 28 9 2 (10 wires, 2 blocks of L*k = 18) at its batch, tau, rate and
+# epochs; 15 epochs a segment, so the second segment's wall is steady
+QIDDM_A = ["differN_noise", "28", "9", "2"]
+QIDDM_A_BATCH, QIDDM_A_LR, QIDDM_A_EPOCHS, QIDDM_A_SEGMENT = 8, 0.0459, 30, 15
+QIDDM_A_FLAGS = ["--label", str(LABEL), "--batch_size", str(QIDDM_A_BATCH),
+                 "--tau", str(TAU), "--lr", str(QIDDM_A_LR), "--epochs",
+                 str(QIDDM_A_EPOCHS)]
+# the rest of the dense zoo at full width: the differN family at QIDDM-A's
+# (28, 9, 2), 10 wires; the QIDDM-L, CL and PP families at
+# QIDDM_PL_noise1's (784, 8, 6, 2), 8 wires. Each trains 3 steps of
+# ZOO_IMAGES images (x tau 10 rows) and samples a batch of N.
+ZOO = ([[name, "28", "9", "2"] for name in (
+    "differN_old_pca", "differN_new_pca", "differN_new_conv",
+    "differN_old_conv", "QIDDM_A_sameN", "QIDDM_A_differN_basePL",
+    "QIDDM_A_differN_NEW")]
+       + [[name, "784", "8", "6", "2"] for name in (
+           "QIDDM_LL_relu_noise", "QIDDM_LL_old", "QIDDM_L",
+           "QIDDM_bias_false", "QIDDM_L_B", "QIDDM_CL_new", "QIDDM_CL_old",
+           "QIDDM_PP_noise", "QIDDM_PP_old")])
+ZOO_IMAGES = 8
 # kernels #13/#14 against plain, (w, B, L, k): L*k = 28 at k = 2 over the
 # widths to the kernels' 8, the route's largest batch at 8 wires (255 <
 # 2^8), and k = 3 and k = 1; each with both rings
@@ -1582,15 +1641,20 @@ def phase_pca_on_card(side: int) -> None:
 
 
 def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
-                 per_iter: int, held: int) -> tuple[dict, float]:
-    """Sample ``margs`` through the sampling CLI on cuda; returns the launch
-    counts of the run and the steady images/s. With ``held`` = 0 the CPU
-    plain path is held to the last batch from the start images; otherwise
-    to each of the first ``held`` iterations from the card's batch (and the
-    free-running drift is printed when that is all of them)."""
+                 per_iter: int, held: int,
+                 ckpt: pathlib.Path | None = None) -> tuple[dict, float]:
+    """Sample ``margs`` through the sampling CLI on cuda, from ``ckpt`` or
+    from the seeded model's weights; returns the launch counts of the run
+    and the steady images/s. With ``held`` = 0 the CPU plain path is held
+    to the last batch from the start images; otherwise to each of the
+    first ``held`` iterations from the card's batch (and the free-running
+    drift is printed when that is all of them)."""
     net = common.build_model(margs, seed=SEED, device="cuda")
-    ckpt = save_checkpoint(tmp / f"{net.save_name()}.pt",
-                           export_jax_variables(net), [], 0)
+    if ckpt is None:
+        ckpt = save_checkpoint(tmp / f"{net.save_name()}.pt",
+                               export_jax_variables(net), [], 0)
+    else:
+        load_jax_variables(net, load_checkpoint(ckpt)["model_state_dict"])
     out = tmp / f"samples_{margs[0]}"
     argv = ["--ckpt", str(ckpt), "--model", *margs, "--img_size", str(side),
             "--n", str(N), "--iters", str(ITERS), "--batches", str(BATCHES),
@@ -1940,12 +2004,28 @@ def _grad_err(got: dict, want: dict) -> float:
     return max(errs)
 
 
-def phase_train_parity(tmp: pathlib.Path, margs: list,
-                       images: int = 1) -> None:
+def _ulp(x: torch.Tensor) -> torch.Tensor:
+    """``x`` moved by one float32 ulp, up or down at random (seeded): the
+    size of the rounding that two float32 implementations differ by."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    sign = torch.where(torch.rand(x.shape, generator=gen) < 0.5, -1.0, 1.0)
+    return x * (1.0 + 2.0**-23 * sign.to(x.device))
+
+
+def phase_train_parity(tmp: pathlib.Path, margs: list, images: int = 1,
+                       lr: float | None = None,
+                       held_grads: bool = True) -> tuple:
     """Three Adam steps of ``margs`` on the card, ``images`` images per
-    step, from seeded weights and noise. Before each step the CPU plain
-    path takes the card's current weights and evaluates the same batch with
-    the same noise; the loss and every gradient must agree.
+    step, from seeded weights and noise, at ``lr`` (the driver's rate for
+    the model if None). Before each step the CPU plain path takes the
+    card's current weights and buffers and evaluates the same batch with
+    the same noise; the loss, every gradient and every buffer after the
+    step (a BatchNorm's running statistics) must agree. With
+    ``held_grads`` False the gradients are printed beside their float32
+    floor (the CPU's own gradients moved by one ulp of the batch,
+    ``_ulp``), not held: a model whose gradients float32 cannot hold to
+    TRAIN_TOL (phase_zoo). Returns the card's net and the launch counts of
+    its 3 steps.
 
     Two independent trajectories are not compared: Adam's first steps
     move each weight by about lr * sign(g), so a gradient entry within
@@ -1963,30 +2043,54 @@ def phase_train_parity(tmp: pathlib.Path, margs: list,
             for d in ("cuda", "cpu")}
     diffs = {d: Diffusion(net).train() for d, net in nets.items()}
     gens = {d: torch.Generator().manual_seed(SEED) for d in nets}
-    lr = common.DEFAULT_LRS.get(margs[0], common.FALLBACK_LR)
+    if lr is None:
+        lr = common.DEFAULT_LRS.get(margs[0], common.FALLBACK_LR)
     step = diffs["cuda"].make_train_step(
         torch.optim.Adam(diffs["cuda"].parameters(), lr=lr), TAU)
-    loss_err = grad_err = 0.0
+    loss_err = grad_err = buf_err = floor = 0.0
+    reset_counts()
     for i in range(3):
+        if not held_grads:
+            nets["cpu"].load_state_dict(nets["cuda"].state_dict())
+            nets["cpu"].zero_grad()
+            same_noise = torch.Generator().set_state(gens["cpu"].get_state())
+            moved, _ = diffs["cpu"].loss_fn(_ulp(x[i]), TAU,
+                                            generator=same_noise)
+            moved.backward()
+            moved_grads = _grads(nets["cpu"])
         nets["cpu"].load_state_dict(nets["cuda"].state_dict())
         nets["cpu"].zero_grad()
         want, _ = diffs["cpu"].loss_fn(x[i], TAU, generator=gens["cpu"])
         want.backward()
+        if not held_grads:
+            floor = max(floor, _grad_err(moved_grads, _grads(nets["cpu"])))
         got = step(x[i].to("cuda"), gens["cuda"]).item()
         loss_err = max(loss_err, abs(got - want.item()) / abs(want.item()))
         grad_err = max(grad_err, _grad_err(_grads(nets["cuda"]),
                                            _grads(nets["cpu"])))
+        cpu_bufs = dict(nets["cpu"].named_buffers())
+        for name, b in nets["cuda"].named_buffers():
+            buf_err = max(buf_err, _rel(b.cpu(), cpu_bufs[name]))
         print(f"train {margs[0]}: step {i + 1} loss on cuda {got:.8f}, on "
               f"the CPU plain path {want.item():.8f}")
+    counts = read_counts()
+    bufs = [n for n, _ in nets["cuda"].named_buffers()]
     print(f"train {margs[0]}: 3 steps of {images} image(s), cuda against the "
           f"CPU plain path at the same weights: losses max relative "
           f"{loss_err:.3e}; gradients max relative (max norm, per parameter "
           f"and per qweights block; floored at {GRAD_FLOOR} of the largest) "
-          f"{grad_err:.3e}")
-    if not (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL):
+          f"{grad_err:.3e}" + ("" if held_grads else
+                               f" (not held: their float32 floor, the CPU's "
+                               f"own gradients at one ulp of the batch, is "
+                               f"{floor:.3e})")
+          + (f"; buffers after each step ({', '.join(bufs)}) max|diff| / "
+             f"max(1, max|cpu|) {buf_err:.3e}" if bufs else ""))
+    if not (loss_err <= TRAIN_TOL and buf_err <= TRAIN_TOL
+            and (grad_err <= TRAIN_TOL or not held_grads)):
         fail(f"training {margs[0]} on cuda differs from the CPU plain path: "
-             f"losses {loss_err:.3e}, gradients {grad_err:.3e} > "
-             f"{TRAIN_TOL}")
+             f"losses {loss_err:.3e}, gradients {grad_err:.3e}, buffers "
+             f"{buf_err:.3e} > {TRAIN_TOL}")
+    return nets["cuda"], counts
 
 
 def _host_ms(fn, runs: int = 20) -> float:
@@ -2010,16 +2114,19 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _train_step(tmp: pathlib.Path, margs: list):
-    """A seeded model's training step (batch 1, tau 10, Adam: mnist_exm's
-    defaults) on the first image of LABEL, and the step's arguments."""
+def _train_step(tmp: pathlib.Path, margs: list, images: int = 1,
+                lr: float = common.FALLBACK_LR):
+    """A seeded model's training step (tau 10, Adam; batch 1 by default,
+    mnist_exm's) on the first ``images`` images of LABEL, and the step's
+    arguments."""
     z = np.load(tmp / "data" / "mnist_28.npz")
-    x = torch.as_tensor(z["x"][z["y"] == LABEL][:1] / 255.0,
-                        dtype=torch.float32, device="cuda").reshape(1, -1)
+    x = torch.as_tensor(z["x"][z["y"] == LABEL][:images] / 255.0,
+                        dtype=torch.float32,
+                        device="cuda").reshape(images, -1)
     net = common.build_model(margs, seed=SEED, device="cuda")
     diff = Diffusion(net).train()
     step = diff.make_train_step(
-        torch.optim.Adam(diff.parameters(), lr=common.FALLBACK_LR), TAU)
+        torch.optim.Adam(diff.parameters(), lr=lr), TAU)
     return step, x, torch.Generator().manual_seed(SEED)
 
 
@@ -2161,6 +2268,211 @@ def phase_profile_pl(tmp: pathlib.Path, smi: str) -> None:
           f"{eigh_ms:.3f} ms (host clock, median of 20, each ending in a "
           f"synchronise)")
     print(top)
+
+
+def _only_gate(counts: dict, fwd: int, bwd: int, what: str) -> None:
+    """Fails unless ``counts`` hold exactly ``fwd`` #1 and ``bwd`` #2
+    launches and no other kernel's: the re-uploading models run the gate
+    chain and nothing else. dg's batch sum (a helper launch after #2 where
+    the batch outgrows a cluster: 80 rows at 8 and 10 wires) may run."""
+    others = {c: n for c, n in counts.items()
+              if n and c not in ("gate", "gate_bwd", "gate_bwd_sums")}
+    if counts["gate"] != fwd or counts["gate_bwd"] != bwd or others:
+        fail(f"{what}: {counts['gate']} #1 and {counts['gate_bwd']} #2 "
+             f"launches (want {fwd} and {bwd}), other counters {others}")
+
+
+def phase_qiddm_a(tmp: pathlib.Path, n_train: int, smi: str) -> tuple:
+    """QIDDM-A (differN_noise 28 9 2) through mnist_exm on cuda at the JAX
+    bench's configuration (QIDDM_A_FLAGS, 2 segments of 15 epochs): 30
+    finite epoch losses, exactly 2 #1 and 2 #2 launches a step (N = 2
+    blocks) and 2 #1 an iteration of the driver's sampling, a checkpoint
+    the sampling CLI serves (N images x ITERS iterations x BATCHES, each
+    iteration of the last batch held against the CPU step by step), 3
+    training steps held against the CPU, and a steady step profiled (10
+    steps from counts of 0). Returns the launch counts of the driver's and
+    the CLI's runs, and the training and sampling images/s."""
+    name = common.build_model(QIDDM_A, device="cpu").save_name()
+    argv = ["--model", *QIDDM_A, *QIDDM_A_FLAGS, "--checkpoint-every",
+            str(QIDDM_A_SEGMENT), "--device", "cuda", "--save-path",
+            f"{tmp}/qa_", "--load-path", f"{tmp}/qa_"]
+    printed = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(printed), contextlib.chdir(tmp):
+        results = mnist_exm.main(argv)
+    counts = read_counts()
+    print(printed.getvalue().strip())
+    losses = results[QIDDM_A[0]]["loss"][0]
+    print(f"QIDDM-A {' '.join(QIDDM_A)}: epoch losses {losses}")
+    if (len(losses) != QIDDM_A_EPOCHS
+            or not all(math.isfinite(v) for v in losses)):
+        fail(f"QIDDM-A epoch losses {losses} are not {QIDDM_A_EPOCHS} "
+             f"finite values")
+    steps = QIDDM_A_EPOCHS * -(-n_train // QIDDM_A_BATCH)
+    _only_gate(counts, 2 * steps + 2 * TAU_TEST, 2 * steps,
+               f"QIDDM-A: {steps} training steps and {TAU_TEST} sampling "
+               f"iterations")
+    walls = re.findall(rf"trained {QIDDM_A_SEGMENT} epochs in ([0-9.]+)s",
+                       printed.getvalue())
+    if len(walls) != QIDDM_A_EPOCHS // QIDDM_A_SEGMENT:
+        fail(f"mnist_exm printed the walls {walls}")
+    train_rate = n_train * QIDDM_A_SEGMENT / float(walls[-1])
+    ckpt = tmp / f"qa_{LABEL}/noise_0/{name}_{LABEL}.pt"
+    if not ckpt.exists():
+        fail(f"no checkpoint at {ckpt}")
+    with torch.no_grad():
+        sampled, sample_rate = phase_sample(tmp, QIDDM_A, 28, "gate", 2,
+                                            ITERS, ckpt=ckpt)
+    _only_gate(sampled, 2 * ITERS * BATCHES, 0, "QIDDM-A sampling")
+    _, parity = phase_train_parity(tmp, QIDDM_A, QIDDM_A_BATCH, QIDDM_A_LR)
+    _only_gate(parity, 6, 6, "QIDDM-A's 3 held steps")
+    step, x, gen = _train_step(tmp, QIDDM_A, QIDDM_A_BATCH, QIDDM_A_LR)
+    step_ms = _host_ms(lambda: step(x, gen))
+    n = 10
+    dev, busy, wall_us, prof_counts = _device_profile(
+        lambda: [step(x, gen) for _ in range(n)])
+    _only_gate(prof_counts, 2 * n, 2 * n, f"QIDDM-A's {n} profiled steps")
+    # 80 rows outgrow one cluster of #2: dg is summed by a second launch
+    plan = gate_kernel.chain_bwd_plan(10, QIDDM_A_BATCH * TAU)
+    sums = sum(1 for e in dev if "dg_batch_sum" in e.name)
+    if prof_counts["gate_bwd_sums"] != (0 if plan.in_launch else 2 * n):
+        fail(f"QIDDM-A: {prof_counts['gate_bwd_sums']} dg batch sums in "
+             f"{n} steps, against the plan {plan}")
+    fwd_us = sum(e.time_range.elapsed_us() for e in dev
+                 if "gate_chain_fwd" in e.name)
+    bwd_us = sum(e.time_range.elapsed_us() for e in dev
+                 if "gate_chain_bwd" in e.name)
+    print(f"profile QIDDM-A {' '.join(QIDDM_A)} training ({smi}), {n} steps "
+          f"of batch {QIDDM_A_BATCH} x tau {TAU} (80 rows): "
+          f"{len(dev) / n:.1f} device events per step, device busy "
+          f"{busy / n / 1e3:.4f} ms per step, idle share "
+          f"{1 - busy / wall_us:.3f} of {wall_us / n / 1e3:.3f} ms per "
+          f"profiled step; #1 {fwd_us / n:.1f} us per step "
+          f"({fwd_us / busy:.3f} of busy, {prof_counts['gate'] // n} "
+          f"launches a step), #2 {bwd_us / n:.1f} us per step "
+          f"({bwd_us / busy:.3f} of busy, {prof_counts['gate_bwd'] // n} "
+          f"launches a step), dg's batch sum {sums / n:.1f} profiled "
+          f"launches a step ({_plan_line(10, QIDDM_A_BATCH * TAU)}); step "
+          f"without the profiler {step_ms:.3f} ms")
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile QIDDM-A: the device time a step by kernel, largest "
+          f"first: " + "; ".join(f"{name[:60]} {us / n:.1f} us "
+                                 f"({us / busy:.3f})" for name, us in top))
+    print(f"QIDDM-A {' '.join(QIDDM_A)}: training {train_rate:.1f} images/s "
+          f"in epochs 16-30 (batch {QIDDM_A_BATCH}, tau {TAU}, "
+          f"{n_train} images an epoch; {smi}); sampling {sample_rate:.1f} "
+          f"images/s ({N} images x {ITERS} iterations per batch; {smi})")
+    return ({c: counts[c] + sampled[c] for c in counts}, train_rate,
+            sample_rate)
+
+
+@contextlib.contextmanager
+def _shared_pca(state):
+    """Inside, every per-batch PCA refit of a model (``nn/core.py``'s
+    ``pca_fit_transform``) takes ``state``, a fit made elsewhere, and
+    projects on it."""
+    orig = nn_core.pca_fit_transform
+    nn_core.pca_fit_transform = lambda x, n: (state,
+                                              pca_transform(state, x))
+    try:
+        yield
+    finally:
+        nn_core.pca_fit_transform = orig
+
+
+def phase_zoo(tmp: pathlib.Path) -> dict:
+    """The 16 classes of ZOO built on cuda at full width: for each, 3
+    training steps of ZOO_IMAGES images held against the CPU (loss,
+    gradients and BatchNorm statistics: phase_train_parity), then a batch
+    of N sampled for ITERS iterations from the trained weights, each
+    iteration held against the CPU from the card's batch; exactly 2 #1 and
+    2 #2 launches a step and 2 #1 an iteration (N = 2 blocks), no other
+    kernel. Returns the launch counts of the card's counted runs (not the
+    refit classes' comparison steps below).
+
+    Float32 cannot make three kinds of comparison at 1e-4 (ROADMAP Queue
+    3; my chip runs of PR 21 on an NVIDIA H100 80GB HBM3, 700.00 W):
+    - A class that refits a PCA on every batch: cuSOLVER's and LAPACK's
+      float32 ``eigh`` of a 16-row batch differ where its spectrum is
+      close, and the circuits amplify that to 5.8e-4 (differN_old_pca)
+      and 2.4e-1 (QIDDM_PP_noise) by the 15th iteration. Each iteration
+      is held with the card's fit of the batch given to the CPU
+      (``_shared_pca``), against the card's step from the same contiguous
+      batch; the images from the CPU's own fit are printed beside.
+    - A class that post-processes after each block (clamp(784 p) between
+      the blocks): its gradients switch at the clamp's edges and carry
+      the probabilities' rounding times 784, twice. They are printed
+      beside their float32 floor (the CPU's own at one ulp of the batch),
+      not held; its losses are held.
+    - Both at once (differN_new_pca, QIDDM_A_differN_basePL and _NEW):
+      even with the shared fit, the kernels' ~1e-7 rounding of the
+      probabilities reaches 2.4e-4-1.2e-3 in the images. Their sampled
+      iterations are printed beside the same floor at one ulp of the
+      batch, not held; the launch counts and finite images are held."""
+    total = {}
+    for margs in ZOO:
+        module = common.build_model(margs, device="cpu").module
+        refit = module.down == "pca" and not module.pca_lazy
+        net, counts = phase_train_parity(
+            tmp, margs, ZOO_IMAGES, held_grads=not module.post_each_block)
+        _only_gate(counts, 6, 6, f"{margs[0]}'s 3 steps")
+        side = net.img_shape[0]
+        cpu_net = common.build_model(margs, seed=SEED, device="cpu")
+        cpu_net.load_state_dict(net.state_dict())
+        gen = torch.Generator().manual_seed(SEED)
+        first_x = torch.rand((N, 1, side, side), generator=gen) * 0.75 + 0.5
+        reset_counts()
+        with torch.no_grad():
+            stack = Diffusion(net, shape=(side, side)).sample_stack_fn(
+                first_x.to("cuda"), ITERS).cpu()
+        sampled = read_counts()
+        _only_gate(sampled, 2 * ITERS, 0, f"{margs[0]}'s sampling")
+        if not torch.isfinite(stack).all():
+            fail(f"{margs[0]}: sampled images are not finite")
+        cpu = Diffusion(cpu_net, shape=(side, side))
+        card = Diffusion(net, shape=(side, side))
+        held = not (refit and module.post_each_block)
+        err = own = floor = 0.0
+        with torch.no_grad():
+            for t in range(ITERS):
+                want = cpu.sample_stack_fn(stack[t], 1)[1]
+                own = max(own, (want - stack[t + 1]).abs().max().item())
+                got = stack[t + 1]
+                if refit:
+                    # the card's step and fit from the same (contiguous)
+                    # batch, so the fit is the one its step used
+                    x = stack[t].to("cuda")
+                    got = card.sample_stack_fn(x, 1)[1].cpu()
+                    fit = pca_fit(x.reshape(N, -1), module.hidden)
+                    with _shared_pca(PCAState(fit.mean.cpu(),
+                                              fit.components.cpu())):
+                        want = cpu.sample_stack_fn(stack[t], 1)[1]
+                        if not held:
+                            moved = cpu.sample_stack_fn(_ulp(stack[t]), 1)
+                            floor = max(floor, (moved[1] - want).abs()
+                                        .max().item())
+                err = max(err, (want - got).abs().max().item())
+        print(f"zoo {' '.join(margs)}: sampled {N} images x {ITERS} "
+              f"iterations from the trained weights, each iteration from "
+              f"the card's batch against the CPU plain path"
+              + (" given the card's PCA fit of the batch" if refit else "")
+              + f": max|diff| {err:.3e}"
+              + ("" if held else f" (not held: the float32 floor, the "
+                 f"CPU's own images at one ulp of the batch with the same "
+                 f"fit, is {floor:.3e})")
+              + (f"; from the CPU's own fit {own:.3e}, not held" if refit
+                 else "")
+              + f"; launches: 3 steps {counts['gate']} #1, "
+              f"{counts['gate_bwd']} #2; sampling {sampled['gate']} #1")
+        if held and not err <= SAMPLE_TOL:
+            fail(f"{margs[0]} cuda samples differ from the CPU plain path: "
+                 f"{err:.3e} > {SAMPLE_TOL}")
+        for c in counts:
+            total[c] = total.get(c, 0) + counts[c] + sampled[c]
+    return total
 
 
 def phase_profile_noisy_pl(smi: str) -> None:
@@ -3724,6 +4036,9 @@ def main() -> None:
         phase_profile_qnn(tmp, smi)
         phase_profile_pl(tmp, smi)
         phase_profile_wide(tmp, smi)
+        qa_counts, qa_train_rate, qa_sample_rate = phase_qiddm_a(
+            tmp, n_train, smi)
+        zoo_counts = phase_zoo(tmp)
         mono_model, mono_rate, mono_train_rate = phase_mono_model(
             tmp, n_train, smi)
         write_fashion(tmp / "data")
@@ -3803,8 +4118,11 @@ def main() -> None:
               f"{walls['scoring']:.1f} s, the rest (loading, clean training) "
               f"{walls['total'] - walls['sampling'] - walls['scoring']:.1f} s "
               f"({smi})")
-    runs = [*sampled.values(), trained, pl_trained, wide_trained, swept,
-            traj_counts, traj_swept, mono_model, unitary_counts,
+    print(f"QIDDM-A {' '.join(QIDDM_A)}: {qa_train_rate:.1f} training "
+          f"images/s, {qa_sample_rate:.1f} sampled images/s ({smi})")
+    runs = [*sampled.values(), trained, pl_trained, wide_trained, qa_counts,
+            zoo_counts, swept, traj_counts, traj_swept, mono_model,
+            unitary_counts,
             *(c for by_width in bench_counts.values()
               for c in by_width.values())]
     launches = {c: sum(r[c] for r in runs) for c in trained}
@@ -3820,7 +4138,9 @@ def main() -> None:
     print(f"launches: sampling {sampled}, training {trained}, "
           f"QIDDM_PL_noise1 training {pl_trained}, 16-wire training "
           f"{wide_trained}, 16-wire monolith sampling and training "
-          f"{mono_model}, wide bench {bench_counts}, noisy sweep {swept} "
+          f"{mono_model}, QIDDM-A training and sampling {qa_counts}, the "
+          f"zoo's steps and sampling {zoo_counts}, wide bench "
+          f"{bench_counts}, noisy sweep {swept} "
           f"(while sampling, by model {sweep_sampling}), 12-wire trajectory "
           f"sampling {traj_counts}, trajectory sweep {traj_swept} (while "
           f"sampling, by model {traj_sampling}), the CNOT-ring route "

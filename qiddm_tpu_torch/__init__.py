@@ -8,9 +8,10 @@ kernel, the port runs a CUDA kernel written for ``sm_90a``
 never imports JAX.
 
 What is ported so far is sampling (``python -m qiddm_tpu_torch.cli.sample``)
-and training (``python -m qiddm_tpu_torch.cli.mnist_exm``) of the
-re-uploading models with a linear or PCA down-projection (RZ or RY encode),
-the QNN family and the Qdense baseline; ROADMAP.md lists the rest.
+and training (``python -m qiddm_tpu_torch.cli.mnist_exm``) of all 28 dense
+models of ``qiddm_tpu/nn/qdense.py`` (the re-uploading QIDDM-L and differN
+families with every projection option, the QNN family and the Qdense
+baseline) and the noise drivers; ROADMAP.md lists the rest.
 """
 
 from . import config  # noqa: F401

@@ -6,8 +6,9 @@ variables>, "loss_values": [...], "epochs": int}`` under a ``.pt`` name, so
 one file serves both packages: the sampling CLIs of ``qiddm_tpu/`` and
 ``qiddm_tpu_torch/`` read what either one wrote.
 :func:`load_jax_variables` and :func:`export_jax_variables` carry weights
-between the flax tree and a port module: flax Dense kernels are (in, out),
-``nn.Linear`` weights are (out, in). A noisy model's explicit intensity
+and state between the flax tree and a port module (``_flax_paths`` maps
+each by layer kind: Dense kernels, conv kernels, BatchNorm scales and
+statistics, a lazy PCA). A noisy model's explicit intensity
 travels as the flax ``noise_cfg/intensity`` variable (a float32 scalar),
 which the port keeps as ``net.module.noise_intensity``.
 """
@@ -21,6 +22,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .nn.core import LazyPCA
+from .nn.layers import FlaxBatchNorm
 
 
 def save_checkpoint(path, variables, loss_values: List[float], epochs: int,
@@ -49,19 +53,61 @@ def load_checkpoint(path) -> Dict[str, Any]:
 
 
 def _flax_paths(net) -> Dict[str, tuple]:
-    """{port parameter name: (flax path, transpose?)} for ``net.module``.
+    """{port state name: (flax path, layout)} for ``net.module``'s
+    parameters and buffers, by layer kind:
 
-    ``linear_down.weight`` <-> params/linear_down/kernel (transposed),
-    ``linear_down.bias`` <-> params/linear_down/bias, ``qweights`` <->
-    params/qweights."""
+    * a ``Linear`` weight (out, in) <-> params/<name>/kernel (in, out),
+      layout "linear" (transposed);
+    * a ``Conv2d`` weight (O, I, kh, kw) <-> params/<name>/Conv_0/kernel
+      (kh, kw, I, O), layout "conv"; its bias <-> params/<name>/Conv_0/bias;
+    * a BatchNorm's weight and bias <-> params/<name>/{scale,bias}, its
+      running statistics <-> batch_stats/<name>/{mean,var};
+    * a lazy PCA's buffers <-> pca_state/{mean,components};
+    * anything else (``qweights``, a Linear's bias) under its own name,
+      layout None."""
     out = {}
-    for name, _ in net.module.named_parameters():
-        *mods, leaf = name.split(".")
-        if mods and leaf == "weight":
-            out[name] = (("params", *mods, "kernel"), True)
-        else:
-            out[name] = (("params", *mods, leaf), False)
+    for mname, mod in net.module.named_modules():
+        mods = tuple(mname.split(".")) if mname else ()
+        for leaf, _ in mod.named_parameters(recurse=False):
+            name = f"{mname}.{leaf}" if mname else leaf
+            layout = None
+            if isinstance(mod, torch.nn.Conv2d):
+                path = (*mods, "Conv_0",
+                        "kernel" if leaf == "weight" else leaf)
+                layout = "conv" if leaf == "weight" else None
+            elif isinstance(mod, torch.nn.Linear) and leaf == "weight":
+                path, layout = (*mods, "kernel"), "linear"
+            elif isinstance(mod, FlaxBatchNorm) and leaf == "weight":
+                path = (*mods, "scale")
+            else:
+                path = (*mods, leaf)
+            out[name] = (("params", *path), layout)
+        for leaf, _ in mod.named_buffers(recurse=False):
+            name = f"{mname}.{leaf}" if mname else leaf
+            if isinstance(mod, FlaxBatchNorm):
+                stat = {"running_mean": "mean", "running_var": "var"}[leaf]
+                out[name] = (("batch_stats", *mods, stat), None)
+            elif isinstance(mod, LazyPCA):
+                out[name] = (("pca_state", *mods[:-1], leaf), None)
+            else:
+                raise ValueError(f"{name}: a buffer with no flax variable")
     return out
+
+
+def _to_port(value: np.ndarray, layout) -> np.ndarray:
+    if layout == "linear":
+        return value.T
+    if layout == "conv":
+        return value.transpose(3, 2, 0, 1)
+    return value
+
+
+def _to_flax(value: np.ndarray, layout) -> np.ndarray:
+    if layout == "linear":
+        return value.T
+    if layout == "conv":
+        return value.transpose(2, 3, 1, 0)
+    return value
 
 
 def _flatten(tree, prefix=()) -> Dict[tuple, Any]:
@@ -78,7 +124,8 @@ _NOISE_PATH = ("noise_cfg", "intensity")
 
 def load_jax_variables(net, variables) -> None:
     """Copy the JAX model's variables (a numpy tree) into ``net``'s
-    parameters, in place, and a ``noise_cfg/intensity`` into
+    parameters and buffers (``params``, ``batch_stats`` and ``pca_state``),
+    in place, and a ``noise_cfg/intensity`` into
     ``net.module.noise_intensity`` (a 0-d float32 tensor on the module's
     device). Raises on unknown or missing keys and on shape mismatches."""
     flat = _flatten(variables)
@@ -89,13 +136,12 @@ def load_jax_variables(net, variables) -> None:
         raise ValueError(
             f"checkpoint does not match {net.save_name()}: unknown "
             f"{sorted(set(flat) - want)}, missing {sorted(want - set(flat))}")
-    params = dict(net.module.named_parameters())
+    state = {**dict(net.module.named_parameters()),
+             **dict(net.module.named_buffers())}
     with torch.no_grad():
-        for name, (path, transpose) in paths.items():
-            value = np.asarray(flat[path])
-            if transpose:
-                value = value.T
-            p = params[name]
+        for name, (path, layout) in paths.items():
+            value = _to_port(np.asarray(flat[path]), layout)
+            p = state[name]
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(
                     f"{'/'.join(path)}: checkpoint shape {value.shape} "
@@ -111,17 +157,18 @@ def load_jax_variables(net, variables) -> None:
 
 
 def export_jax_variables(net) -> Dict[str, Any]:
-    """The inverse of :func:`load_jax_variables`: ``net``'s parameters, and
-    an explicit noise intensity as ``noise_cfg/intensity``, as the JAX
-    model's numpy variables tree."""
+    """The inverse of :func:`load_jax_variables`: ``net``'s parameters and
+    buffers, and an explicit noise intensity as ``noise_cfg/intensity``,
+    as the JAX model's numpy variables tree."""
     tree: Dict[str, Any] = {}
-    params = dict(net.module.named_parameters())
-    for name, (path, transpose) in _flax_paths(net).items():
-        value = params[name].detach().cpu().numpy()
+    state = {**dict(net.module.named_parameters()),
+             **dict(net.module.named_buffers())}
+    for name, (path, layout) in _flax_paths(net).items():
+        value = state[name].detach().cpu().numpy()
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(value.T if transpose else value)
+        node[path[-1]] = np.ascontiguousarray(_to_flax(value, layout))
     # the JAX module makes the variable only for a noisy circuit
     intensity = getattr(net.module, "noise_intensity", None)
     if intensity is not None and net.module.add_noise != 0:

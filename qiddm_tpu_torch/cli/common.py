@@ -176,18 +176,21 @@ def model_lr(args, model_name: str) -> float:
     return getattr(args, f"{model_name}_lr", FALLBACK_LR)
 
 
-def build_model(model_args: Sequence, seed: int = 0, device="cuda"):
+def build_model(model_args: Sequence, seed: int = 0, device="cuda",
+                init_batch=None):
     """Instantiate a registered model from a ['Name', arg, ...] list on
     ``device``: the card by default, through ``resolve_device``, which
-    raises without CUDA; pass ``device="cpu"`` for the plain PyTorch
-    path."""
+    raises without CUDA; pass ``device="cpu"`` for the plain PyTorch path.
+    ``init_batch`` (training images, (b, 1, h, w)) reaches every model:
+    the lazily fitted PCA (``QIDDM_PP_old``) fits on it, as the JAX
+    drivers' models do (``qiddm_tpu/cli/common.py:161-180``)."""
     name = model_args[0]
     if name not in MODEL_REGISTRY:
         raise SystemExit(f"unknown model {name!r}; ported: "
                          + ", ".join(sorted(MODEL_REGISTRY)))
     params = [int(a) if isinstance(a, str) and a.isdigit() else a
               for a in model_args[1:]]
-    return MODEL_REGISTRY[name](*params, seed=seed,
+    return MODEL_REGISTRY[name](*params, seed=seed, init_batch=init_batch,
                                 device=resolve_device(device))
 
 
@@ -442,9 +445,11 @@ def run_labels(args, labels, *, tau_test: int = 15):
                   f"data size.")
             args.batch_size = max(len(x_train), 1)
 
+        init_batch = x_train[:32].reshape(-1, 1, height, width)
         for mi, model_args in enumerate(args.model):
             model_name = model_args[0]
-            net = build_model(model_args, seed=args.seed, device=device)
+            net = build_model(model_args, seed=args.seed, device=device,
+                              init_batch=init_batch)
             args.lr = model_lr(args, model_name)
             print(f"Initialized {model_name} with parameters "
                   f"{model_args[1:]}, with {args.lr}")

@@ -141,9 +141,11 @@ def _run_noise_sweep(args, *, noise_types, intensities, tau_test,
 
     # --- train clean ------------------------------------------------------
     trained = {}
+    init_batch = x_train[:32].reshape(-1, 1, height, width)
     for mi, model_args in enumerate(args.model):
         model_name = model_args[0]
-        net = common.build_model(model_args, seed=args.seed, device=device)
+        net = common.build_model(model_args, seed=args.seed, device=device,
+                                 init_batch=init_batch)
         args.lr = common.model_lr(args, model_name)
         diff = Diffusion(net, add_normal_noise_multiple, args.target,
                          (height, width))

@@ -19,11 +19,27 @@ come from a generator on the net's device.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 
 from .noise import add_normal_noise_multiple
+
+
+@contextlib.contextmanager
+def _net_mode(net, train: bool):
+    """Run ``net`` in train or eval mode, as the JAX package passes
+    ``train=True`` to every training loss and ``train=False`` to every
+    sampling forward (``qiddm_tpu/diffusion.py:96, :221``), whatever mode
+    the caller left it in; the caller's mode comes back afterwards. Only a
+    BatchNorm model's output depends on it."""
+    was = net.training
+    net.train(train)
+    try:
+        yield
+    finally:
+        net.train(was)
 
 
 class Diffusion:
@@ -82,7 +98,8 @@ class Diffusion:
         img = (-1, 1, self.width, self.height)  # "(w h)" pixel order
         noisy = c[:, 1:, :].reshape(img)
         clean = c[:, :-1, :].reshape(img)
-        recon = self.net(noisy)
+        with _net_mode(self.net, True):
+            recon = self.net(noisy)
         if self.prediction_goal == "data":
             per_elem = (recon - clean) ** 2
         else:
@@ -175,15 +192,16 @@ class Diffusion:
         from it (``qiddm_tpu/diffusion.py:203-230``)."""
         x = first_x
         xs = []
-        for _ in range(n_iters):
-            pred = (self.net(x) if traj_rng is None
-                    else self.net(x, traj_rng=traj_rng))
-            if self.prediction_goal == "data":
-                x = pred
-            else:
-                x = torch.clamp(x - (pred - 0.5) * 0.1 * noise_factor,
-                                0.0, 1.0)
-            xs.append(x)
+        with _net_mode(self.net, False):
+            for _ in range(n_iters):
+                pred = (self.net(x) if traj_rng is None
+                        else self.net(x, traj_rng=traj_rng))
+                if self.prediction_goal == "data":
+                    x = pred
+                else:
+                    x = torch.clamp(x - (pred - 0.5) * 0.1 * noise_factor,
+                                    0.0, 1.0)
+                xs.append(x)
         return x, xs
 
     def sample_fn(self, first_x: torch.Tensor, n_iters: int, *,

@@ -7,14 +7,17 @@
 * ``QNNDense`` — a linear sandwich around one RZ encode -> SEL(depth, CZ)
   -> PauliZ expectations (QNN);
 * ``Reupload`` — N blocks of [L x (per-wire RZ or RY encode -> SEL(k,
-  CZ))] between a linear or PCA down-projection and a linear up-projection
-  (or the probability post-processing) (QIDDM).
+  CZ))] between a linear, PCA, conv or no down-projection and a linear or
+  inverse-PCA up-projection (or the probability post-processing), with
+  shared weights, per-block post-processing and BatchNorm as options
+  (QIDDM, differN).
 
 Modules take NCHW images ``(b, 1, w, h)`` and return the same shape.
-Parameters carry the flax names, so ``ckpt._flax_paths`` maps them. Only
-the options the ported models use exist; the lazily fitted PCA, the conv
-projections, shared weights, per-block post-processing and BatchNorm are
-ROADMAP Queue 1 items 5 and 7.
+Parameters and buffers carry the flax names, so ``ckpt._flax_paths`` maps
+them. A BatchNorm normalises by the batch in training mode and by its
+running statistics in eval mode; ``Diffusion`` sets the mode (training
+losses train, sampling evaluates), as the JAX package's ``train`` flag
+does.
 
 Every family takes ``add_noise`` (the reference's code, 0-4),
 ``noise_intensity`` and a noise family (the strength table of
@@ -39,10 +42,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..pca import pca_fit_transform
+from ..pca import (PCAState, pca_fit, pca_fit_transform,
+                   pca_inverse_transform, pca_transform)
 from ..sim import engine
 from .initializers import qweight_init
-from .layers import TorchDense, flatten_img, postprocess_probs, unflatten_img
+from .layers import (FlaxBatchNorm, TorchConv, TorchDense, flatten_img,
+                     postprocess_probs, unflatten_img)
 
 
 def _resolve_noise(mod, family: str):
@@ -157,16 +162,54 @@ class QNNDense(torch.nn.Module):
         return self.linear_up(q).reshape(x.shape)
 
 
-_OPTIONS = {"down": ("linear", "pca"), "up": ("linear", "none"),
+_OPTIONS = {"down": ("linear", "pca", "conv", "none", "pca2_bn_linear"),
+            "up": ("linear", "pca_inverse", "linear_then_pca_inverse",
+                   "none"),
             "readout": ("expvalz", "probs"),
-            "encode": ("rz", "rz_halfpi", "ry"), "pca_lazy": (False,),
+            "encode": ("rz", "rz_halfpi", "ry"),
             "noise_family": tuple(engine._FAMILY_NOISE)}
 
 
+class LazyPCA(torch.nn.Module):
+    """A PCA fitted once, on the init batch, and frozen (the JAX package's
+    ``pca_state`` collection, ``qiddm_tpu/nn/core.py:299-311``): the
+    buffers ``mean`` (D,) and ``components`` (n, D), which training leaves
+    alone and checkpoints carry."""
+
+    def __init__(self, n_components: int, dim: int):
+        super().__init__()
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("components", torch.zeros(n_components, dim))
+
+    @torch.no_grad()
+    def fit(self, x_flat: torch.Tensor) -> None:
+        st = pca_fit(x_flat.to(self.mean), self.components.shape[0])
+        self.mean.copy_(st.mean)
+        self.components.copy_(st.components)
+
+    def state(self) -> PCAState:
+        return PCAState(mean=self.mean, components=self.components)
+
+
 class Reupload(torch.nn.Module):
-    """Parameters carry the flax names: ``linear_down`` (down="linear"
-    only: the PCA is refitted on every forward batch and has none),
-    ``qweights`` (N, L, k, hidden, 3) and ``linear_up``."""
+    """N blocks of [L x (per-wire encode -> SEL(k, CZ))] between a down-
+    and an up-projection (``qiddm_tpu/nn/core.py:148-311``).
+
+    down: "linear" | "pca" (refitted on every forward batch, or with
+    ``pca_lazy`` fitted once by :meth:`fit_lazy_pca`) | "conv" (3x3,
+    stride 2, then the spatial mean) | "none" (the first ``hidden`` pixels)
+    | "pca2_bn_linear" (lazy PCA(2h) -> BatchNorm -> Linear(h));
+    up: "linear" | "pca_inverse" | "linear_then_pca_inverse" (Linear(2h)
+    -> inverse PCA) | "none" (the probabilities post-processed to pixels).
+    ``shared_weights`` gives every block one ``qweights`` (L, k, hidden,
+    3); ``post_each_block`` post-processes a probabilities readout after
+    each block; ``batchnorm_pre_block`` applies ONE BatchNorm (``bn``)
+    before every block; ``bias`` is ``linear_down``'s only. An unknown
+    option raises ``ValueError``.
+
+    Parameters and buffers carry the flax names (``linear_down``,
+    ``conv_down``, ``pca_bn``, ``bn``, ``qweights``, ``linear_up``,
+    ``pca_state``), so ``ckpt._flax_paths`` maps them."""
 
     def __init__(self, hidden: int, L: int, N: int, *,
                  generator: torch.Generator,
@@ -174,53 +217,114 @@ class Reupload(torch.nn.Module):
                  shape: Tuple[int, int] = (28, 28), k: int = 2,
                  down: str = "linear", up: str = "linear",
                  readout: str = "expvalz", encode: str = "rz",
+                 shared_weights: bool = False, post_each_block: bool = False,
+                 batchnorm_pre_block: bool = False, bias: bool = True,
                  pca_lazy: bool = False, add_noise: int = 0,
                  noise_family: str = "qiddm", noise_intensity=None,
                  noise_trajectories: int = 0):
         super().__init__()
         for name, value in (("down", down), ("up", up),
                             ("readout", readout), ("encode", encode),
-                            ("pca_lazy", pca_lazy),
                             ("noise_family", noise_family)):
             if value not in _OPTIONS[name]:
-                raise NotImplementedError(
-                    f"Reupload {name}={value!r} is not ported (ported: "
-                    f"{_OPTIONS[name]}); ROADMAP Queue 1 item 7")
+                raise ValueError(f"unknown {name}={value!r} (known: "
+                                 f"{_OPTIONS[name]})")
         self.hidden, self.L, self.N, self.k = hidden, L, N, k
         self.shape = tuple(shape)
         self.down, self.up = down, up
         self.readout, self.encode = readout, encode
+        self.shared_weights = shared_weights
+        self.post_each_block = post_each_block
+        self.batchnorm_pre_block = batchnorm_pre_block
+        self.pca_lazy = pca_lazy
         self.add_noise, self.noise_family = add_noise, noise_family
         self.noise_intensity = noise_intensity
         self.noise_trajectories = noise_trajectories
         pixels = self.shape[0] * self.shape[1]
         if down == "linear":
-            self.linear_down = TorchDense(pixels, hidden, generator=generator)
-        self.qweights = torch.nn.Parameter(
-            qweight_init((N, L, k, hidden, 3), generator))
-        if up == "linear":
-            feat = hidden if readout == "expvalz" else 2**hidden
-            self.linear_up = TorchDense(feat, input_dim or pixels,
-                                        generator=generator)
+            self.linear_down = TorchDense(pixels, hidden, bias=bias,
+                                          generator=generator)
+        elif down == "conv":
+            self.conv_down = TorchConv(1, hidden, kernel_size=(3, 3),
+                                       stride=(2, 2), padding=(1, 1),
+                                       generator=generator)
+        elif down == "pca" and pca_lazy:
+            self.pca_state = LazyPCA(hidden, pixels)
+        elif down == "pca2_bn_linear":
+            self.pca_state = LazyPCA(2 * hidden, pixels)
+            self.pca_bn = FlaxBatchNorm(2 * hidden)
+            self.linear_down = TorchDense(2 * hidden, hidden,
+                                          generator=generator)
+        qshape = (L, k, hidden, 3) if shared_weights else (N, L, k, hidden, 3)
+        self.qweights = torch.nn.Parameter(qweight_init(qshape, generator))
+        if batchnorm_pre_block:
+            self.bn = FlaxBatchNorm(pixels if down == "none" else hidden)
+        if up in ("linear", "linear_then_pca_inverse"):
+            if readout == "expvalz":
+                feat = hidden
+            else:
+                feat = (min(2**hidden, pixels) if post_each_block
+                        else 2**hidden)
+            out = (input_dim or pixels) if up == "linear" else 2 * hidden
+            self.linear_up = TorchDense(feat, out, generator=generator)
+
+    @property
+    def needs_init_batch(self) -> bool:
+        return hasattr(self, "pca_state")
+
+    def fit_lazy_pca(self, init_batch: torch.Tensor) -> None:
+        """Fit the lazy PCA on ``init_batch`` (b, 1, w, h), as the JAX
+        module's init does."""
+        self.pca_state.fit(flatten_img(init_batch))
+
+    def _block_weights(self, n: int) -> torch.Tensor:
+        return self.qweights if self.shared_weights else self.qweights[n]
 
     def forward(self, x: torch.Tensor, traj_rng=None) -> torch.Tensor:
         width, height = self.shape
+        pixels = width * height
+        x_flat = flatten_img(x)
+        pca = None
         if self.down == "linear":
-            cur = self.linear_down(flatten_img(x))
-        else:
-            # the reference refits the PCA on every forward batch
-            # (nn/qdense.py:456)
-            _, cur = pca_fit_transform(flatten_img(x), self.hidden)
+            cur = self.linear_down(x_flat)
+        elif self.down == "pca":
+            if self.pca_lazy:
+                pca = self.pca_state.state()
+                cur = pca_transform(pca, x_flat)
+            else:
+                # the reference refits the PCA on every forward batch
+                # (nn/qdense.py:456)
+                pca, cur = pca_fit_transform(x_flat, self.hidden)
+        elif self.down == "conv":
+            c = self.conv_down(x)
+            cur = c.reshape(x.shape[0], self.hidden, -1).mean(dim=2)
+        elif self.down == "none":
+            cur = x_flat
+        else:  # pca2_bn_linear
+            pca = self.pca_state.state()
+            cur = self.linear_down(self.pca_bn(pca_transform(pca, x_flat)))
         noise = _resolve_noise(self, self.noise_family)
         traj = _traj_kwargs(self, noise, traj_rng)
         for n in range(self.N):
+            if self.batchnorm_pre_block:
+                # one BatchNorm for every block: its statistics move once a
+                # block, N times a training forward, as flax's do
+                cur = self.bn(cur)
             # each block re-encodes the first `hidden` outputs of the last
             # (and draws its own trajectories)
             cur = engine.reupload_block(
-                cur[:, :self.hidden], self.qweights[n], encode=self.encode,
-                imprimitive="cz", noise=noise, readout=self.readout, **traj)
+                cur[:, :self.hidden], self._block_weights(n),
+                encode=self.encode, imprimitive="cz", noise=noise,
+                readout=self.readout, **traj)
+            if self.readout == "probs" and self.post_each_block:
+                cur = postprocess_probs(cur, pixels)
         if self.up == "none":
-            out = postprocess_probs(cur, width * height)
-        else:
+            out = cur if self.post_each_block else postprocess_probs(cur,
+                                                                     pixels)
+        elif self.up == "linear":
             out = self.linear_up(cur)
+        elif self.up == "pca_inverse":
+            out = pca_inverse_transform(pca, cur)
+        else:  # linear_then_pca_inverse
+            out = pca_inverse_transform(pca, self.linear_up(cur))
         return unflatten_img(out, width, height)

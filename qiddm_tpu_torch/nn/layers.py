@@ -1,6 +1,6 @@
 """Shared building blocks (counterpart of ``qiddm_tpu/nn/layers.py``):
-the torch-initialized dense layer, probability post-processing and the
-image flatten/unflatten helpers."""
+the torch-initialized dense and conv layers, flax's BatchNorm, probability
+post-processing and the image flatten/unflatten helpers."""
 
 from __future__ import annotations
 
@@ -23,6 +23,67 @@ class TorchDense(torch.nn.Linear):
             if bias:
                 self.bias.copy_(torch_uniform((out_features,), in_features,
                                               generator))
+
+
+class TorchConv(torch.nn.Conv2d):
+    """``nn.Conv2d`` on NCHW images with torch's default
+    ``U(+-1/sqrt(fan_in))`` init (fan_in = in_channels * kh * kw) for
+    weight and bias, drawn from an explicit generator. The weight is
+    (out, in, kh, kw); the JAX package's flax kernel is (kh, kw, in, out)
+    under ``<name>/Conv_0``."""
+
+    def __init__(self, in_channels: int, out_channels: int, *,
+                 generator: torch.Generator, kernel_size=(3, 3),
+                 stride=(1, 1), padding=(1, 1), bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding, bias=bias)
+        shape = tuple(self.weight.shape)
+        fan_in = shape[1] * shape[2] * shape[3]
+        with torch.no_grad():
+            self.weight.copy_(torch_uniform(shape, fan_in, generator))
+            if bias:
+                self.bias.copy_(torch_uniform((out_channels,), fan_in,
+                                              generator))
+
+
+class FlaxBatchNorm(torch.nn.Module):
+    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the batch
+    axis of (batch, features).
+
+    In training it normalises by the batch's mean and *biased* variance,
+    computed as flax does (E[x^2] - E[x]^2, clipped at 0), and moves the
+    running statistics ``ra = 0.9 ra + 0.1 batch`` with that same biased
+    variance, once a call; in eval it normalises by the running statistics.
+    ``torch.nn.BatchNorm1d`` is not this: its running variance takes the
+    unbiased estimate. ``weight``/``bias`` are flax's ``scale``/``bias``,
+    the buffers ``running_mean``/``running_var`` its ``batch_stats``
+    ``mean``/``var``."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = torch.nn.Parameter(torch.ones(features))
+        self.bias = torch.nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=0)
+            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+    def extra_repr(self) -> str:
+        return (f"{self.weight.shape[0]}, momentum={self.momentum}, "
+                f"eps={self.eps}")
 
 
 def flatten_img(x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,18 @@
 """The reference's dense quantum models by public name (counterpart of
-``qiddm_tpu/nn/qdense.py``). Same constructor signatures and byte-identical
-``save_name()`` strings as the JAX package. Ported so far: the Qdense
-baseline (``QDenseUndirected_old``, ``QDenseUndirected_old_noise``),
-``QNN_A``, the QNN pair (``QNN_noise``, ``QNN``), ``QIDDM_LL_noise``, the
-PCA-down family (``QIDDM_PL``, ``QIDDM_PL_old``, ``QIDDM_PL_noise``,
-``QIDDM_PL_noise1``) and the noise drivers' differN pair
-(``differN_noise``, ``differN_noise_befor``), each with every ``add_noise``
-code the reference knows (0-4) and, where the JAX class takes one, a
-``noise_intensity``; the rest of the zoo is ROADMAP Queue 1 item 7.
+``qiddm_tpu/nn/qdense.py``): all 28 classes, with the JAX package's
+constructor signatures, byte-identical ``save_name()`` strings and
+attributes. The Qdense baseline, ``QNN_A``, the QNN pair, and the
+re-uploading families on ``core.Reupload``: differN (QIDDM-A: PCA, conv or
+no down-projection, probabilities readout), QIDDM-L (PauliZ readout
+between linear, PCA or conv down and linear or inverse-PCA up), with
+their shared-weight, per-block, BatchNorm and bias-free options, each
+noisy class with every ``add_noise`` code the reference knows (0-4).
+
+A model with a lazily fitted PCA (``QIDDM_PP_old``) fits it on
+``init_batch`` (real training images, (b, 1, w, h)) when the caller
+passes one, as the drivers do; otherwise on 32 uniform images drawn from
+a CPU generator seeded ``seed + 1``, where the JAX package draws from
+``PRNGKey(seed + 1)``: the same rule, other draws.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import ast
 import math
 import operator as _op
 
+import numpy as np
 import torch
 
 from .core import QDense as _QDenseModule
@@ -63,8 +69,8 @@ def _generator(seed: int) -> torch.Generator:
 # ---------------------------------------------------------------------------
 # Qdense family
 # ---------------------------------------------------------------------------
-# ``init_batch`` is the JAX package's flax-init sample; the port's modules
-# need none and ignore it.
+# ``init_batch`` is the JAX package's flax-init sample; only a lazily
+# fitted PCA reads it (``_ReuploadShim``).
 
 class QDenseUndirected_old(DenoiserShim):
     """Reference nn/qdense.py:15-68: qw_map.tanh weights."""
@@ -166,28 +172,49 @@ class QNN(DenoiserShim):
 # re-uploading (QIDDM) family
 # ---------------------------------------------------------------------------
 
+def _init_batch(init_batch, shape, seed: int) -> torch.Tensor:
+    """The lazy PCA's fit batch on the CPU: ``init_batch`` as float32, or
+    32 uniform images from a generator seeded ``seed + 1`` (the JAX shim
+    draws them from ``PRNGKey(seed + 1)``)."""
+    if init_batch is None:
+        return torch.rand((32, 1, *shape), generator=_generator(seed + 1))
+    if torch.is_tensor(init_batch):
+        return init_batch.detach().to("cpu", torch.float32)
+    return torch.as_tensor(np.asarray(init_batch, dtype=np.float32))
+
+
 class _ReuploadShim(DenoiserShim):
-    def __init__(self, module, shape, save_name_str, *, device, **attrs):
+    def __init__(self, module, shape, save_name_str, *, device, seed=0,
+                 init_batch=None, **attrs):
+        if module.needs_init_batch:
+            # fitted on the CPU before the move, so every device holds the
+            # same PCA
+            module.fit_lazy_pca(_init_batch(init_batch, shape, seed))
         super().__init__(module, shape, save_name_str=save_name_str,
                          device=device)
         for k, v in attrs.items():
             setattr(self, k, v)
 
 
-def _differn(shape, spectrum_layer, N, add_noise, seed, family):
-    """The differN (QIDDM-A) circuit: PCA down to ``wires`` =
-    ceil(log2(pixels)) components, N re-uploading blocks with the
-    probabilities readout, post-processed to pixels (``up="none"``)."""
+def _differn(shape, spectrum_layer, N, seed, *, add_noise=None,
+             family="qiddm", **options):
+    """The differN (QIDDM-A) circuit: ``wires`` = ceil(log2(pixels)), N
+    re-uploading blocks with the probabilities readout, post-processed to
+    pixels (``up="none"``), down to ``wires`` by a PCA unless ``options``
+    say otherwise. The attributes are the JAX shim's, ``add_noise`` where
+    the class takes it."""
     shape = _shape_arg(shape)
     L, N = _int_arg(spectrum_layer), _int_arg(N)
-    add_noise = _int_arg(add_noise)
     wires = math.ceil(math.log2(shape[0] * shape[1]))
+    attrs = dict(spectrum_layer=L, N=N)
+    if add_noise is not None:
+        attrs["add_noise"] = add_noise = _int_arg(add_noise)
+    options.setdefault("down", "pca")
     module = _ReuploadModule(wires, L, N, generator=_generator(seed),
-                             shape=shape, down="pca", up="none",
-                             readout="probs", add_noise=add_noise,
-                             noise_family=family)
-    attrs = dict(spectrum_layer=L, N=N, add_noise=add_noise, wires=wires)
-    return module, shape, attrs
+                             shape=shape, up="none", readout="probs",
+                             add_noise=add_noise or 0, noise_family=family,
+                             **options)
+    return module, shape, wires, attrs
 
 
 class differN_noise(_ReuploadShim):
@@ -197,11 +224,13 @@ class differN_noise(_ReuploadShim):
 
     def __init__(self, shape, spectrum_layer, N, add_noise=0, seed: int = 0,
                  init_batch=None, *, device=None):
-        m, shape, attrs = _differn(shape, spectrum_layer, N, add_noise, seed,
-                                   "qdense")
+        m, shape, wires, attrs = _differn(shape, spectrum_layer, N, seed,
+                                          add_noise=add_noise,
+                                          family="qdense")
         name = (f"differN_old_pca={attrs['spectrum_layer']}_N={attrs['N']}"
                 f"_w{shape[0]}_h{shape[1]}_noise{attrs['add_noise']}")
-        super().__init__(m, shape, name, device=device, **attrs)
+        super().__init__(m, shape, name, device=device, wires=wires,
+                         **attrs)
 
 
 class differN_noise_befor(_ReuploadShim):
@@ -211,18 +240,108 @@ class differN_noise_befor(_ReuploadShim):
     def __init__(self, shape, spectrum_layer, N, add_noise=0,
                  device_type="default.qubit.torch", seed: int = 0,
                  init_batch=None, *, device=None):
-        m, shape, attrs = _differn(shape, spectrum_layer, N, add_noise, seed,
-                                   "differn_befor")
+        m, shape, wires, attrs = _differn(shape, spectrum_layer, N, seed,
+                                          add_noise=add_noise,
+                                          family="differn_befor")
         name = (f"differN_noise={attrs['spectrum_layer']}_N={attrs['N']}"
                 f"_w{shape[0]}_h{shape[1]}")
-        super().__init__(m, shape, name, device=device, **attrs)
+        super().__init__(m, shape, name, device=device, wires=wires,
+                         **attrs)
+
+
+class _DifferN(_ReuploadShim):
+    """A differN-family class without noise, ``(shape, spectrum_layer, N,
+    seed=0, init_batch=None)``: the circuit of :func:`_differn` with the
+    class's ``_options``, saved under ``_save`` (formatted with L, N and
+    the shape's w and h)."""
+
+    _save = ""
+    _options: dict = {}
+
+    def __init__(self, shape, spectrum_layer, N, seed: int = 0,
+                 init_batch=None, *, device=None):
+        m, shape, wires, attrs = _differn(shape, spectrum_layer, N, seed,
+                                          **self._options)
+        name = self._save.format(L=attrs["spectrum_layer"], N=attrs["N"],
+                                 w=shape[0], h=shape[1])
+        super().__init__(m, shape, name, device=device, seed=seed,
+                         init_batch=init_batch, wires=wires, **attrs)
+
+
+class differN_old_pca(_DifferN):
+    """Reference nn/qdense.py:671-743."""
+
+    _save = "differN_old_pca={L}_N={N}_w{w}_h{h}"
+
+
+class differN_new_pca(_DifferN):
+    """Reference nn/qdense.py:747-835: the probabilities post-processed
+    after each block."""
+
+    _save = "differN_new_pca={L}_N={N}_w{w}_h{h}"
+    _options = dict(post_each_block=True)
+
+
+class differN_new_conv(_DifferN):
+    """Reference nn/qdense.py:838-935: conv down, post-processed after each
+    block."""
+
+    _save = "differN_new_conv={L}_N={N}_w{w}_h{h}"
+    _options = dict(down="conv", post_each_block=True)
+
+
+class differN_old_conv(_DifferN):
+    """Reference nn/qdense.py:939-1011: conv down."""
+
+    _save = "differN_old_conv={L}_N={N}_w{w}_h{h}"
+    _options = dict(down="conv")
+
+
+class QIDDM_A_sameN(_DifferN):
+    """Reference nn/qdense.py:2276-2342: no projection (the block encodes
+    the first pixels) and one set of block weights shared by every
+    block."""
+
+    _save = "QIDDM_A_sameN={L}_N={N}_w{w}_h{h}"
+    _options = dict(down="none", shared_weights=True)
+
+
+class _QIDDMA(_ReuploadShim):
+    """The pi/2-scaled RZ differN circuit, post-processed after each block
+    (``input_dim`` is the image SIDE, not the pixel count), saved under
+    ``_save`` (formatted with ``wires``, L and N)."""
+
+    _save = ""
+
+    def __init__(self, input_dim, spectrum_layer, N, seed: int = 0,
+                 init_batch=None, *, device=None):
+        m, shape, wires, attrs = _differn(
+            (_int_arg(input_dim),) * 2, spectrum_layer, N, seed,
+            encode="rz_halfpi", post_each_block=True)
+        name = self._save.format(wires=wires, L=attrs["spectrum_layer"],
+                                 N=attrs["N"])
+        super().__init__(m, shape, name, device=device, seed=seed,
+                         init_batch=init_batch, hidden_features=wires,
+                         **attrs)
+
+
+class QIDDM_A_differN_basePL(_QIDDMA):
+    """Reference nn/qdense.py:2182-2273."""
+
+    _save = "QIDDM_pca_features={wires}_L={L}_N={N}"
+
+
+class QIDDM_A_differN_NEW(_QIDDMA):
+    """Reference nn/qdense.py:2345-2437 (the same circuit as basePL)."""
+
+    _save = "QIDDM_pca_new={wires}_L={L}_N={N}"
 
 
 def _qiddm(input_dim, hidden, L, N, *, down, up, save, seed, encode="rz",
-           k=2, add_noise=0, noise_intensity=None):
-    """The QIDDM-L family: PauliZ readout between two projections. The
-    attributes are the JAX shim's, ``add_noise`` where the class takes
-    it."""
+           k=2, add_noise=0, noise_intensity=None, **options):
+    """The QIDDM-L family: PauliZ readout between two projections, with
+    ``Reupload``'s ``options``. The attributes are the JAX shim's,
+    ``add_noise`` where the class takes it."""
     input_dim, hidden = _int_arg(input_dim), _int_arg(hidden)
     L, N = _int_arg(L), _int_arg(N)
     attrs = dict(hidden_features=hidden, spectrum_layer=L, N=N)
@@ -233,8 +352,45 @@ def _qiddm(input_dim, hidden, L, N, *, down, up, save, seed, encode="rz",
         hidden, L, N, generator=_generator(seed),
         input_dim=input_dim, shape=shape, k=k, down=down, up=up,
         readout="expvalz", encode=encode, add_noise=add_noise or 0,
-        noise_family="qiddm", noise_intensity=noise_intensity)
+        noise_family="qiddm", noise_intensity=noise_intensity, **options)
     return module, shape, save.format(h=hidden, L=L, N=N), attrs
+
+
+class _QIDDM(_ReuploadShim):
+    """A QIDDM-L-family class without noise, ``(input_dim,
+    hidden_features, spectrum_layer, N, seed=0, init_batch=None)``: the
+    circuit of :func:`_qiddm` with the class's ``_options``, saved under
+    ``_save`` (formatted with h, L and N)."""
+
+    _save = ""
+    _options: dict = {}
+
+    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
+                 seed: int = 0, init_batch=None, *, device=None):
+        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
+                                       spectrum_layer, N, add_noise=None,
+                                       seed=seed, save=self._save,
+                                       **self._options)
+        super().__init__(m, shape, name, device=device, seed=seed,
+                         init_batch=init_batch, **attrs)
+
+
+class _NoisyQIDDM(_ReuploadShim):
+    """A QIDDM-L-family class with the reference's ``add_noise`` and
+    ``device_type`` arguments and no ``noise_intensity``."""
+
+    _save = ""
+    _options: dict = {}
+
+    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
+                 add_noise=0, device_type="lightning.qubit", seed: int = 0,
+                 init_batch=None, *, device=None):
+        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
+                                       spectrum_layer, N,
+                                       add_noise=add_noise, seed=seed,
+                                       save=self._save, **self._options)
+        super().__init__(m, shape, name, device=device, seed=seed,
+                         init_batch=init_batch, **attrs)
 
 
 class QIDDM_LL_noise(_ReuploadShim):
@@ -244,7 +400,7 @@ class QIDDM_LL_noise(_ReuploadShim):
 
     def __init__(self, input_dim, hidden_features, spectrum_layer, N,
                  add_noise=0, device_type="lightning.qubit", seed: int = 0,
-                 noise_intensity=None, *, device=None):
+                 noise_intensity=None, init_batch=None, *, device=None):
         m, shape, name, attrs = _qiddm(input_dim, hidden_features,
                                        spectrum_layer, N, down="linear",
                                        up="linear", add_noise=add_noise,
@@ -254,31 +410,19 @@ class QIDDM_LL_noise(_ReuploadShim):
         super().__init__(m, shape, name, device=device, **attrs)
 
 
-class QIDDM_PL(_ReuploadShim):
+class QIDDM_PL(_QIDDM):
     """Reference nn/qdense.py:1271-1368 (the papers' "QIDDM-L" flagship):
     PCA down, linear up, PauliZ readout."""
 
-    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
-                 seed: int = 0, init_batch=None, *, device=None):
-        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
-                                       spectrum_layer, N, down="pca",
-                                       up="linear", add_noise=None,
-                                       seed=seed,
-                                       save="QIDDM_PL={h}_L={L}_N={N}")
-        super().__init__(m, shape, name, device=device, **attrs)
+    _save = "QIDDM_PL={h}_L={L}_N={N}"
+    _options = dict(down="pca", up="linear")
 
 
-class QIDDM_PL_old(_ReuploadShim):
+class QIDDM_PL_old(_QIDDM):
     """Reference nn/qdense.py:1176-1250."""
 
-    def __init__(self, input_dim, hidden_features, spectrum_layer, N,
-                 seed: int = 0, init_batch=None, *, device=None):
-        m, shape, name, attrs = _qiddm(input_dim, hidden_features,
-                                       spectrum_layer, N, down="pca",
-                                       up="linear", add_noise=None,
-                                       seed=seed,
-                                       save="QIDDM_PL_old_q={h}_L={L}_N={N}")
-        super().__init__(m, shape, name, device=device, **attrs)
+    _save = "QIDDM_PL_old_q={h}_L={L}_N={N}"
+    _options = dict(down="pca", up="linear")
 
 
 class QIDDM_PL_noise(_ReuploadShim):
@@ -316,3 +460,74 @@ class QIDDM_PL_noise1(_ReuploadShim):
                                        add_noise=add_noise, seed=seed,
                                        save="QIDDM_PL_noise={h}_L={L}_N={N}")
         super().__init__(m, shape, name, device=device, **attrs)
+
+
+class QIDDM_LL_relu_noise(_NoisyQIDDM):
+    """Reference nn/qdense.py:1469-1564: its ReLU is built and never
+    applied, and it saves under ``QIDDM_LL_noise``'s name; reproduced as
+    the plain LL circuit."""
+
+    _save = "QIDDM_LL_noise={h}_L={L}_N={N}"
+    _options = dict(down="linear", up="linear")
+
+
+class QIDDM_LL_old(_QIDDM):
+    """Reference nn/qdense.py:1873-1968."""
+
+    _save = "QIDDM_linear_features={h}_L={L}_N={N}"
+    _options = dict(down="linear", up="linear")
+
+
+class QIDDM_L(QIDDM_LL_old):
+    """Missing from the reference release though imported by its drivers:
+    the linear-down / linear-up QIDDM variant, as the JAX package
+    provides it."""
+
+
+class QIDDM_bias_false(_QIDDM):
+    """Reference nn/qdense.py:1971-2074: ``linear_down`` without a bias
+    (``linear_up`` keeps its own), k = 3 SEL layers."""
+
+    _save = "QIDDM_linear_features={h}_L={L}_N={N}"
+    _options = dict(down="linear", up="linear", bias=False, k=3)
+
+
+class QIDDM_L_B(_QIDDM):
+    """Reference nn/qdense.py:2077-2179: ONE BatchNorm before every block,
+    k = 3."""
+
+    _save = "QIDDM_linear_batch_features={h}_L={L}_N={N}"
+    _options = dict(down="linear", up="linear", k=3,
+                    batchnorm_pre_block=True)
+
+
+class QIDDM_CL_new(_QIDDM):
+    """Reference nn/qdense.py:1014-1100: conv down, linear up."""
+
+    _save = "QIDDM_CL_new_q={h}_L={L}_N={N}"
+    _options = dict(down="conv", up="linear")
+
+
+class QIDDM_CL_old(_QIDDM):
+    """Reference nn/qdense.py:1104-1173."""
+
+    _save = "QIDDM_CL_old_q={h}_L={L}_N={N}"
+    _options = dict(down="conv", up="linear")
+
+
+class QIDDM_PP_noise(_NoisyQIDDM):
+    """Reference nn/qdense.py:1663-1753: PCA down (refitted on every
+    batch), inverse PCA up."""
+
+    _save = "QIDDM_PP_noise={h}_L={L}_N={N}"
+    _options = dict(down="pca", up="pca_inverse")
+
+
+class QIDDM_PP_old(_QIDDM):
+    """Reference nn/qdense.py:1756-1870: a lazily fitted PCA(2h) ->
+    BatchNorm (``pca_bn``) -> Linear(h) down, Linear(2h) -> inverse PCA
+    up; the PCA travels in the checkpoint (``pca_state``)."""
+
+    _save = "QIDDM_PP_features={h}_L={L}_N={N}"
+    _options = dict(down="pca2_bn_linear", up="linear_then_pca_inverse",
+                    pca_lazy=True)

@@ -28,7 +28,9 @@ class DenoiserShim(torch.nn.Module):
 
     Subclasses build the module on the CPU from a ``torch.Generator``
     seeded with their ``seed``, so one seed gives the same weights on every
-    device.
+    device. The shim starts in eval mode, as the JAX shim's call defaults
+    to ``train=False``: a BatchNorm model normalises by its running
+    statistics until ``train()`` (``Diffusion``'s training loss sets it).
     """
 
     def __init__(self, module: torch.nn.Module, img_shape: Tuple[int, int],
@@ -38,6 +40,7 @@ class DenoiserShim(torch.nn.Module):
             resolve_device("cuda" if device is None else device))
         self.img_shape = tuple(img_shape)
         self._save_name = save_name_str
+        self.eval()
 
     def forward(self, x: torch.Tensor, traj_rng=None) -> torch.Tensor:
         """The denoiser on ``x``; ``traj_rng`` is the trajectory noise
@@ -49,6 +52,9 @@ class DenoiserShim(torch.nn.Module):
         return next(self.parameters()).device
 
     def num_params(self) -> int:
+        """The trainable parameters' count, as the JAX shim's (its
+        ``params`` collection); buffers (BatchNorm statistics, a lazy PCA)
+        are not counted."""
         return sum(p.numel() for p in self.parameters())
 
     def save_name(self) -> str:

@@ -122,7 +122,15 @@ SMALL_MODELS = {
     "differN_noise": (8, 2, 1), "differN_noise_befor": (8, 2, 1),
     "QIDDM_LL_noise": (64, 3, 2, 2), "QIDDM_PL": (64, 3, 2, 2),
     "QIDDM_PL_old": (64, 3, 2, 2), "QIDDM_PL_noise": (64, 3, 2, 2),
-    "QIDDM_PL_noise1": (64, 3, 2, 2)}
+    "QIDDM_PL_noise1": (64, 3, 2, 2),
+    "differN_old_pca": (8, 2, 1), "differN_new_pca": (8, 2, 1),
+    "differN_new_conv": (8, 2, 1), "differN_old_conv": (8, 2, 1),
+    "QIDDM_A_sameN": (8, 2, 1), "QIDDM_A_differN_basePL": (8, 2, 1),
+    "QIDDM_A_differN_NEW": (8, 2, 1), "QIDDM_LL_relu_noise": (64, 3, 2, 2),
+    "QIDDM_LL_old": (64, 3, 2, 2), "QIDDM_L": (64, 3, 2, 2),
+    "QIDDM_bias_false": (64, 3, 2, 2), "QIDDM_L_B": (64, 3, 2, 2),
+    "QIDDM_CL_new": (64, 3, 2, 2), "QIDDM_CL_old": (64, 3, 2, 2),
+    "QIDDM_PP_noise": (64, 3, 2, 2), "QIDDM_PP_old": (64, 3, 2, 2)}
 
 
 def test_small_models_cover_every_class():

@@ -135,7 +135,8 @@ def test_jax_checkpoint_round_trips_through_port(tmp_path, name):
 def test_unported_options_raise():
     """The noise codes build (the density-matrix and trajectory backends
     are ported; the trajectory backend raises without a random source);
-    the remaining Reupload options raise."""
+    every Reupload option is ported, and an unknown ``down`` or ``up``
+    raises ``ValueError``, as the JAX module does."""
     from qiddm_tpu_torch.sim import engine as tengine
 
     net = tnn.QIDDM_PL_noise1(64, 4, 2, 2, 1, device="cpu")
@@ -149,7 +150,9 @@ def test_unported_options_raise():
     gen = torch.Generator().manual_seed(0)
     for kw in ({"down": "pca2_bn_linear"}, {"down": "conv"},
                {"pca_lazy": True}):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        tcore.Reupload(4, 2, 1, generator=gen, shape=(8, 8), **kw)
+    for kw in ({"down": "pca3"}, {"up": "conv"}):
+        with pytest.raises(ValueError, match="unknown"):
             tcore.Reupload(4, 2, 1, generator=gen, shape=(8, 8), **kw)
 
 
