@@ -379,7 +379,36 @@ any failure exits non-zero and no phase's failure is caught:
    CPU's own fit printed beside); the gradients of the classes that
    post-process after each block, and the sampled iterations of the three
    that also refit a PCA, are printed beside their float32 floor, not
-   held (phase_zoo says why).
+   held (phase_zoo says why);
+37. the quantum U-Net (run after phase 36): UNetUndirected 3 8 3, the JAX
+   bench's quantum-convolution U-Net (qiddm_tpu's bench_unet at qdepth 3:
+   13 QConv2d sites of 3 to 9 wires, each composing its SEL unitary every
+   forward), through qiddm_tpu_torch.cli.mnist_exm --device cuda at the
+   bench's configuration (label 4, batch 8, tau 10, lr 0.01, 5 epochs, a
+   checkpoint each epoch) on the seeded mnist_28.npz: 5 finite epoch
+   losses; its checkpoint sampled through the sampling CLI as in phase 9
+   (16 images x 15 iterations x 3 batches, each iteration of the last
+   batch from the card's batch against the CPU plain path, printed, and
+   held against its float64 step within the larger of 1e-4 and 8 times
+   the iterations' float32 floor, the CPU's float32 step's distance from
+   that float64 step, printed beside, the card's steps with TF32 on
+   found outside that limit, and the card's float64 steps within 1e-10
+   of the CPU's: phase_unet says why); 3 training steps
+   of 8 images against the CPU as in phase 10
+   (losses and BatchNorm statistics held; the card's float64 gradients
+   held against the CPU's within 1e-8 relative; the float32 gradients
+   printed beside their float32 floor, the CPU's float32 step's distance
+   from its float64 step, which must exceed 1e-4: phase_unet says why);
+   TF32 still off for
+   cuBLAS and cuDNN; no kernel of the port launched in any of it (every counter
+   of read_counts() 0: the U-Net runs plain torch ops); 10 steady steps
+   profiled (device events, busy ms, idle share, the largest device ops
+   by name, peak device memory); training and sampling images/s with the
+   card's name and power limit;
+38. the classical U-Net (run after phase 37): UNetUndirected 3 8 0, the
+   reference's strongest classical baseline (bench_unet's default, cuDNN
+   convolutions), as phase 37 at 10 epochs, but with the sampled
+   iterations held against the CPU's float32 step within 1e-4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -404,6 +433,7 @@ its ``bound_ms`` is taken at that datapath's peak.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import functools
 import io
@@ -427,6 +457,7 @@ from qiddm_tpu_torch.cli import common
 from qiddm_tpu_torch.cli import fashion_noise, mnist_exm, noise_common
 from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
+from qiddm_tpu_torch.noise import add_normal_noise_multiple
 from qiddm_tpu_torch.nn import core as nn_core
 from qiddm_tpu_torch.pca import (PCAState, pca_fit, pca_fit_transform,
                                  pca_transform)
@@ -444,7 +475,18 @@ SEED = 0
 KERNEL_TOL = 1e-5   # unit-norm f32 states over up to 60 layers
 BWD_TOL = 1e-5      # relative to max(1, max|plain|): dg sums over rows and B
 SAMPLE_TOL = 1e-4   # 15 iterations of a linear or pixel scaling over a chain
+# the quantum U-Net's sampled iterations against the CPU's float64 step: at
+# most this many times the CPU's own float32 distance from it (phase_sample's
+# floor64). Over 24 checkpoints trained on the card its float32 steps lay
+# 0.680-2.298 times as far from it as the CPU's (median 1.502), and its TF32
+# steps at least 562.9 times (qiddm_tpu_torch/tools/unet_precision.py on an
+# H100); one run of this script read 3.56
+FLOOR_FACTOR = 8
 TRAIN_TOL = 1e-4    # relative; one float32 step's loss and gradients
+# relative; the quantum U-Net's float64 gradients, the card against the CPU:
+# its float32 floor (~3e-2) is ~5e5 float32 unit roundoffs, which in float64
+# come to ~6e-11
+GRAD64_TOL = 1e-8
 GRAD_FLOOR = 1e-6   # below this share of the largest, a gradient is ~zero
 MODEL = ["QIDDM_LL_noise", "784", "6", "14", "2"]
 QNN_MODEL = ["QNN_noise", "784", "8", "14"]
@@ -571,6 +613,12 @@ ZOO = ([[name, "28", "9", "2"] for name in (
            "QIDDM_bias_false", "QIDDM_L_B", "QIDDM_CL_new", "QIDDM_CL_old",
            "QIDDM_PP_noise", "QIDDM_PP_old")])
 ZOO_IMAGES = 8
+# the U-Nets, qiddm_tpu's bench_unet (bench.py:558-596, :752-755): the
+# quantum-convolution U-Net at 5 epochs and the classical one at 10, both
+# at batch 8, tau 10, lr 0.01 (the drivers' UNetUndirected rate)
+UNETS = [(["UNetUndirected", "3", "8", "3"], 5),
+         (["UNetUndirected", "3", "8", "0"], 10)]
+UNET_BATCH, UNET_LR = 8, 0.01
 # kernels #13/#14 against plain, (w, B, L, k): L*k = 28 at k = 2 over the
 # widths to the kernels' 8, the route's largest batch at 8 wires (255 <
 # 2^8), and k = 3 and k = 1; each with both rings
@@ -1640,15 +1688,36 @@ def phase_pca_on_card(side: int) -> None:
              f"{err:.3e} > {SAMPLE_TOL}")
 
 
+@contextlib.contextmanager
+def _tf32():
+    """TF32 on for cuBLAS and cuDNN (a float32 hold's control), then off
+    again, as qiddm_tpu_torch.config sets it."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
                  per_iter: int, held: int,
-                 ckpt: pathlib.Path | None = None) -> tuple[dict, float]:
+                 ckpt: pathlib.Path | None = None,
+                 floor64: bool = False) -> tuple[dict, float]:
     """Sample ``margs`` through the sampling CLI on cuda, from ``ckpt`` or
     from the seeded model's weights; returns the launch counts of the run
     and the steady images/s. With ``held`` = 0 the CPU plain path is held
     to the last batch from the start images; otherwise to each of the
     first ``held`` iterations from the card's batch (and the free-running
-    drift is printed when that is all of them)."""
+    drift is printed when that is all of them). With ``floor64`` the
+    card's iterations are held against the CPU plain path's float64 step
+    from the same batch, within the larger of SAMPLE_TOL and FLOOR_FACTOR
+    times their float32 floor (the CPU's float32 step's distance from that
+    float64 step), and the free-running drift is not computed; the same
+    steps on the card with TF32 on must lie outside that limit, and the
+    card's float64 steps within X64_TOL of the CPU's: the card runs the same
+    function, and float32 rounding is all that parts the two."""
     net = common.build_model(margs, seed=SEED, device="cuda")
     if ckpt is None:
         ckpt = save_checkpoint(tmp / f"{net.save_name()}.pt",
@@ -1685,7 +1754,7 @@ def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
     gen = torch.Generator().manual_seed(SEED)
     for _ in range(BATCHES):
         first_x = torch.rand((N, 1, side, side), generator=gen) * 0.75 + 0.5
-    if held in (0, ITERS):
+    if held == 0 or (held == ITERS and not floor64):
         ref = Diffusion(cpu_net, prediction_goal="data",
                         shape=(side, side)).sample(
             n_iters=ITERS, first_x=first_x, only_last=True).numpy()
@@ -1699,14 +1768,44 @@ def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
         if not np.array_equal(stack[-1].numpy(), imgs[-N:]):
             fail(f"{margs[0]}: rerunning the last batch on the card does not "
                  f"give the CLI's images")
-        err = max((cpu_net(stack[t]) - stack[t + 1]).abs().max().item()
-                  for t in range(held))
+        cpu_steps = [cpu_net(stack[t]) for t in range(held)]
+        err = max((want - stack[t + 1]).abs().max().item()
+                  for t, want in enumerate(cpu_steps))
         print(f"sample {margs[0]}: each of the first {held} iterations from "
               f"the card's batch against the CPU plain path max|diff| "
               f"{err:.3e}")
-    if not err <= SAMPLE_TOL:
+    tol = SAMPLE_TOL
+    if floor64:
+        cpu64 = copy.deepcopy(cpu_net).double()
+        card64 = copy.deepcopy(net).double()
+        exact = [cpu64(stack[t].double()) for t in range(held)]
+        same = max((e - card64(stack[t].to("cuda").double()).cpu()).abs()
+                   .max().item() for t, e in enumerate(exact))
+        floor = max((e - want).abs().max().item()
+                    for e, want in zip(exact, cpu_steps))
+        err = max((e - stack[t + 1]).abs().max().item()
+                  for t, e in enumerate(exact))
+        tol = max(SAMPLE_TOL, FLOOR_FACTOR * floor)
+        with _tf32():
+            control = max((e - net(stack[t].to("cuda")).cpu()).abs().max()
+                          .item() for t, e in enumerate(exact))
+        print(f"sample {margs[0]}: the same iterations in float64, the card "
+              f"against the CPU plain path, max|diff| {same:.3e} (held "
+              f"within {X64_TOL}); in float32, the card against the CPU's "
+              f"float64 step max|diff| {err:.3e}, held within {tol:.3e}: "
+              f"{FLOOR_FACTOR} x their float32 floor (the CPU's float32 step "
+              f"against its float64 step) {floor:.3e} (the card at "
+              f"{err / floor:.3f} x), or {SAMPLE_TOL}; control, the card's "
+              f"steps with TF32 on for cuBLAS and cuDNN, {control:.3e}")
+        if not same <= X64_TOL:
+            fail(f"{margs[0]}: the card's float64 steps differ from the CPU's: "
+                 f"{same:.3e} > {X64_TOL}")
+        if not control > tol:
+            fail(f"{margs[0]}: the float64 hold does not tell TF32 from "
+                 f"float32: {control:.3e} <= {tol:.3e}")
+    if not err <= tol:
         fail(f"{margs[0]} cuda samples differ from the CPU plain path: "
-             f"{err:.3e} > {SAMPLE_TOL}")
+             f"{err:.3e} > {tol:.3e}")
     m = re.search(r"steady ([0-9.]+) images/s", printed.getvalue())
     if m is None:
         fail("the sampler printed no steady images/s")
@@ -1995,13 +2094,18 @@ def _grad_err(got: dict, want: dict) -> float:
     zero up to rounding on both devices (its circuit RZ-encodes |0...0>,
     so the input is a global phase): relative to its own ~1e-9 norm the
     rounding would read as a disagreement."""
+    return max(_grad_errs(got, want).values())
+
+
+def _grad_errs(got: dict, want: dict) -> dict:
+    """:func:`_grad_err`'s terms, one a parameter."""
     top = max(g.abs().max().item() for g in want.values())
-    errs = []
+    errs = {}
     for n, w in want.items():
         scale = w.abs().max().item()
-        errs.append((got[n] - w).abs().max().item()
-                    / (scale if scale >= GRAD_FLOOR * top else top))
-    return max(errs)
+        errs[n] = ((got[n] - w).abs().max().item()
+                   / (scale if scale >= GRAD_FLOOR * top else top))
+    return errs
 
 
 def _ulp(x: torch.Tensor) -> torch.Tensor:
@@ -2012,20 +2116,52 @@ def _ulp(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 + 2.0**-23 * sign.to(x.device))
 
 
+def _grads64(net, x: torch.Tensor, state: torch.Tensor,
+             device: str = "cpu") -> dict:
+    """:func:`_grads` of ``net``'s training loss in float64 on ``device``
+    (the CPU plain path by default), on the batch ``x`` and the noise image
+    that a generator at ``state`` draws (drawn in float32 on the CPU, as the
+    float32 steps draw it)."""
+    net64 = copy.deepcopy(net).to(device, torch.float64)
+
+    def noise_f(gen, data, tau, decay_mod):
+        draw = 0.5 + 0.2 * torch.randn(data.shape, generator=gen)
+        return add_normal_noise_multiple(
+            gen, data, tau, decay_mod, noise=draw.to(data.device,
+                                                     torch.float64))
+
+    config.enable_x64(True)
+    try:
+        net64.zero_grad()
+        loss, _ = Diffusion(net64, noise_f=noise_f).train().loss_fn(
+            x.to(device, torch.float64), TAU,
+            generator=torch.Generator().set_state(state))
+        loss.backward()
+    finally:
+        config.enable_x64(False)
+    return _grads(net64)
+
+
 def phase_train_parity(tmp: pathlib.Path, margs: list, images: int = 1,
-                       lr: float | None = None,
-                       held_grads: bool = True) -> tuple:
+                       lr: float | None = None, held_grads: bool = True,
+                       exact: bool = False) -> tuple:
     """Three Adam steps of ``margs`` on the card, ``images`` images per
     step, from seeded weights and noise, at ``lr`` (the driver's rate for
     the model if None). Before each step the CPU plain path takes the
     card's current weights and buffers and evaluates the same batch with
     the same noise; the loss, every gradient and every buffer after the
-    step (a BatchNorm's running statistics) must agree. With
-    ``held_grads`` False the gradients are printed beside their float32
-    floor (the CPU's own gradients moved by one ulp of the batch,
-    ``_ulp``), not held: a model whose gradients float32 cannot hold to
-    TRAIN_TOL (phase_zoo). Returns the card's net and the launch counts of
-    its 3 steps.
+    step (a BatchNorm's running statistics) must agree. With ``exact`` the
+    gradients are held against the CPU plain path's float64 step on the
+    same weights, batch and noise (``_grads64``) instead, and the CPU's
+    own float32 distance from it, their float32 floor, is printed beside.
+    With ``held_grads`` False the gradients are printed beside their
+    float32 floor, not held: a model whose gradients float32 cannot hold
+    to TRAIN_TOL (phase_zoo, and the U-Nets: phase_unet). Without
+    ``exact`` that floor is the CPU's own gradients moved by one ulp of
+    the batch (``_ulp``); with it, the run fails if the floor is within
+    TRAIN_TOL, where float32 could hold them, and the card's own float64
+    step is held against the CPU's within GRAD64_TOL. Returns the card's
+    net and the launch counts of its 3 steps.
 
     Two independent trajectories are not compared: Adam's first steps
     move each weight by about lr * sign(g), so a gradient entry within
@@ -2047,10 +2183,17 @@ def phase_train_parity(tmp: pathlib.Path, margs: list, images: int = 1,
         lr = common.DEFAULT_LRS.get(margs[0], common.FALLBACK_LR)
     step = diffs["cuda"].make_train_step(
         torch.optim.Adam(diffs["cuda"].parameters(), lr=lr), TAU)
-    loss_err = grad_err = buf_err = floor = 0.0
+    loss_err = grad_err = buf_err = floor = err32 = err64 = 0.0
+    grad_worst = ""
     reset_counts()
     for i in range(3):
-        if not held_grads:
+        if exact:
+            state = gens["cpu"].get_state()
+            grads64 = _grads64(nets["cuda"], x[i], state)
+            if not held_grads:
+                err64 = max(err64, _grad_err(
+                    _grads64(nets["cuda"], x[i], state, "cuda"), grads64))
+        elif not held_grads:
             nets["cpu"].load_state_dict(nets["cuda"].state_dict())
             nets["cpu"].zero_grad()
             same_noise = torch.Generator().set_state(gens["cpu"].get_state())
@@ -2062,12 +2205,20 @@ def phase_train_parity(tmp: pathlib.Path, margs: list, images: int = 1,
         nets["cpu"].zero_grad()
         want, _ = diffs["cpu"].loss_fn(x[i], TAU, generator=gens["cpu"])
         want.backward()
-        if not held_grads:
+        if exact:
+            floor = max(floor, _grad_err(_grads(nets["cpu"]), grads64))
+        elif not held_grads:
             floor = max(floor, _grad_err(moved_grads, _grads(nets["cpu"])))
         got = step(x[i].to("cuda"), gens["cuda"]).item()
         loss_err = max(loss_err, abs(got - want.item()) / abs(want.item()))
-        grad_err = max(grad_err, _grad_err(_grads(nets["cuda"]),
-                                           _grads(nets["cpu"])))
+        if exact:
+            err32 = max(err32, _grad_err(_grads(nets["cuda"]),
+                                         _grads(nets["cpu"])))
+        errs = _grad_errs(_grads(nets["cuda"]),
+                          grads64 if exact else _grads(nets["cpu"]))
+        worst = max(errs, key=errs.get)
+        if errs[worst] >= grad_err:
+            grad_err, grad_worst = errs[worst], worst
         cpu_bufs = dict(nets["cpu"].named_buffers())
         for name, b in nets["cuda"].named_buffers():
             buf_err = max(buf_err, _rel(b.cpu(), cpu_bufs[name]))
@@ -2075,14 +2226,24 @@ def phase_train_parity(tmp: pathlib.Path, margs: list, images: int = 1,
               f"the CPU plain path {want.item():.8f}")
     counts = read_counts()
     bufs = [n for n, _ in nets["cuda"].named_buffers()]
+    if exact:
+        against = (f"against the CPU plain path's float64 step "
+                   f"{grad_err:.3e} ({grad_worst}), against its float32 "
+                   f"step {err32:.3e}; the float32 floor, the CPU's float32 "
+                   f"step against its float64 step, is {floor:.3e}") + (
+            "" if held_grads else f"; the card's float64 step against the "
+                                  f"CPU's {err64:.3e} (held within "
+                                  f"{GRAD64_TOL})")
+    else:
+        against = f"{grad_err:.3e} ({grad_worst})" + (
+            "" if held_grads else f"; their float32 floor, the CPU's own "
+                                  f"gradients at one ulp of the batch, is "
+                                  f"{floor:.3e}")
     print(f"train {margs[0]}: 3 steps of {images} image(s), cuda against the "
           f"CPU plain path at the same weights: losses max relative "
           f"{loss_err:.3e}; gradients max relative (max norm, per parameter "
           f"and per qweights block; floored at {GRAD_FLOOR} of the largest) "
-          f"{grad_err:.3e}" + ("" if held_grads else
-                               f" (not held: their float32 floor, the CPU's "
-                               f"own gradients at one ulp of the batch, is "
-                               f"{floor:.3e})")
+          f"{against}" + ("" if held_grads else " (gradients not held)")
           + (f"; buffers after each step ({', '.join(bufs)}) max|diff| / "
              f"max(1, max|cpu|) {buf_err:.3e}" if bufs else ""))
     if not (loss_err <= TRAIN_TOL and buf_err <= TRAIN_TOL
@@ -2090,6 +2251,13 @@ def phase_train_parity(tmp: pathlib.Path, margs: list, images: int = 1,
         fail(f"training {margs[0]} on cuda differs from the CPU plain path: "
              f"losses {loss_err:.3e}, gradients {grad_err:.3e}, buffers "
              f"{buf_err:.3e} > {TRAIN_TOL}")
+    if not err64 <= GRAD64_TOL:
+        fail(f"{margs[0]}'s float64 gradients on cuda differ from the CPU "
+             f"plain path's: {err64:.3e} > {GRAD64_TOL}")
+    if exact and not held_grads and floor <= TRAIN_TOL:
+        fail(f"{margs[0]}'s gradients are not held, but float32 holds them: "
+             f"the CPU's float32 step lies {floor:.3e} <= {TRAIN_TOL} from "
+             f"its float64 step")
     return nets["cuda"], counts
 
 
@@ -2473,6 +2641,120 @@ def phase_zoo(tmp: pathlib.Path) -> dict:
         for c in counts:
             total[c] = total.get(c, 0) + counts[c] + sampled[c]
     return total
+
+
+def _no_kernel(counts: dict, what: str) -> None:
+    """Fails unless no kernel of the port launched: the U-Net runs plain
+    torch ops (unfold, matmul, cuDNN convolutions, pooling, interpolation),
+    as the JAX package runs it in XLA outside any Pallas kernel."""
+    launched = {c: n for c, n in counts.items() if n}
+    if launched:
+        fail(f"{what}: port kernels launched on the U-Net's path: {launched}")
+
+
+def phase_unet(tmp: pathlib.Path, n_train: int, margs: list, epochs: int,
+               smi: str) -> tuple:
+    """A U-Net through mnist_exm on cuda at the JAX bench's configuration
+    (batch UNET_BATCH, tau 10, UNET_LR, ``epochs`` epochs, a checkpoint
+    each epoch, so the last epoch's wall is steady): finite epoch losses,
+    a checkpoint the sampling CLI serves (N images x ITERS iterations x
+    BATCHES, each iteration of the last batch held against the CPU step by
+    step), 3 training steps held against the CPU, no port kernel launched
+    anywhere, and a steady step profiled (10 steps). Returns the training
+    and sampling images/s.
+
+    The classical U-Net's sampled iterations are held against the CPU's
+    float32 step within SAMPLE_TOL. The quantum U-Net's are held against
+    the CPU's float64 step within the larger of SAMPLE_TOL and FLOOR_FACTOR
+    times their float32 floor (phase_sample's ``floor64``, with its TF32
+    control), and the card's float64 steps against the CPU's within
+    X64_TOL: a trained U-Net's BatchNorms divide by running variances far
+    below 1, which scales float32 rounding up, and the trained quantum
+    U-Net's floor reaches ~1e-4 (printed beside), where two float32
+    implementations, each about that far from the float64 step, cannot be
+    held to 1e-4 of each other.
+
+    The 3 steps hold losses and BatchNorm statistics against the CPU's
+    float32 step, and the card's float64 gradients against the CPU's
+    float64 step within GRAD64_TOL (phase_train_parity's ``exact``). The
+    float32 gradients are printed beside their floor, the CPU's float32
+    step's distance from its float64 step, not held: each BatchNorm makes
+    its input's gradient sum to zero over 6,272-62,720 positions a
+    channel, and a weight's gradient is what is left of such sums, so it
+    depends on the order of float32 sums. The CPU's float32 step lies
+    ~1e-3 (classical) and ~3e-2 (quantum) from float64 here, and the
+    card's float32 step up to 4e-3 and 7e-2 over 12 seeded weights
+    (qiddm_tpu_torch/tools/unet_precision.py), so float32 cannot hold
+    them to TRAIN_TOL (the run fails if the floor says it could)."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        fail(f"TF32 is on (cuBLAS {torch.backends.cuda.matmul.allow_tf32}, "
+             f"cuDNN {torch.backends.cudnn.allow_tf32}): qiddm_tpu_torch's "
+             f"config pins full float32")
+    t_phase = time.perf_counter()
+    label = " ".join(margs)
+    name = common.build_model(margs, device="cpu").save_name()
+    prefix = f"unet{margs[-1]}_"
+    argv = ["--model", *margs, "--label", str(LABEL), "--batch_size",
+            str(UNET_BATCH), "--tau", str(TAU), "--lr", str(UNET_LR),
+            "--epochs", str(epochs), "--checkpoint-every", "1", "--device",
+            "cuda", "--save-path", f"{tmp}/{prefix}", "--load-path",
+            f"{tmp}/{prefix}"]
+    printed = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(printed), contextlib.chdir(tmp):
+        results = mnist_exm.main(argv)
+    counts = read_counts()
+    print(printed.getvalue().strip())
+    _no_kernel(counts, f"{label}'s training and sampling in mnist_exm")
+    losses = results[margs[0]]["loss"][0]
+    print(f"U-Net {label}: epoch losses {losses}")
+    if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
+        fail(f"U-Net {label} epoch losses {losses} are not {epochs} finite "
+             f"values")
+    walls = re.findall(r"trained 1 epochs in ([0-9.]+)s", printed.getvalue())
+    if len(walls) != epochs:
+        fail(f"mnist_exm printed the walls {walls}")
+    train_rate = n_train / float(walls[-1])
+    ckpt = tmp / f"{prefix}{LABEL}/noise_0/{name}_{LABEL}.pt"
+    if not ckpt.exists():
+        fail(f"no checkpoint at {ckpt}")
+    classical = margs[-1] == "0"
+    with torch.no_grad():
+        sampled, sample_rate = phase_sample(tmp, margs, 28, "gate", 0, ITERS,
+                                            ckpt=ckpt,
+                                            floor64=not classical)
+    _no_kernel(sampled, f"{label}'s sampling CLI")
+    _, parity = phase_train_parity(tmp, margs, UNET_BATCH, UNET_LR,
+                                   held_grads=False, exact=True)
+    _no_kernel(parity, f"{label}'s 3 held steps")
+    step, x, gen = _train_step(tmp, margs, UNET_BATCH, UNET_LR)
+    step_ms = _host_ms(lambda: step(x, gen))
+    torch.cuda.reset_peak_memory_stats()
+    n = 10
+    dev, busy, wall_us, prof_counts = _device_profile(
+        lambda: [step(x, gen) for _ in range(n)])
+    peak = torch.cuda.max_memory_allocated()
+    _no_kernel(prof_counts, f"{label}'s {n} profiled steps")
+    print(f"profile U-Net {label} training ({smi}), {n} steps of batch "
+          f"{UNET_BATCH} x tau {TAU} (80 rows): {len(dev) / n:.1f} device "
+          f"events per step, device busy {busy / n / 1e3:.4f} ms per step, "
+          f"idle share {1 - busy / wall_us:.3f} of {wall_us / n / 1e3:.3f} "
+          f"ms per profiled step; step without the profiler {step_ms:.3f} "
+          f"ms; peak device memory {peak / 2**20:.1f} MiB")
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile U-Net {label}: the device time a step by op, largest "
+          f"first: " + "; ".join(f"{op[:60]} {us / n:.1f} us "
+                                 f"({us / busy:.3f})" for op, us in top))
+    print(f"U-Net {label}: training {train_rate:.1f} images/s in epoch "
+          f"{epochs} (batch {UNET_BATCH}, tau {TAU}, {n_train} images an "
+          f"epoch; {smi}); sampling {sample_rate:.1f} images/s ({N} images "
+          f"x {ITERS} iterations per batch; {smi}); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return train_rate, sample_rate
 
 
 def phase_profile_noisy_pl(smi: str) -> None:
@@ -4039,6 +4321,9 @@ def main() -> None:
         qa_counts, qa_train_rate, qa_sample_rate = phase_qiddm_a(
             tmp, n_train, smi)
         zoo_counts = phase_zoo(tmp)
+        unet_rates = {" ".join(margs): phase_unet(tmp, n_train, margs,
+                                                  epochs, smi)
+                      for margs, epochs in UNETS}
         mono_model, mono_rate, mono_train_rate = phase_mono_model(
             tmp, n_train, smi)
         write_fashion(tmp / "data")
@@ -4120,6 +4405,9 @@ def main() -> None:
               f"({smi})")
     print(f"QIDDM-A {' '.join(QIDDM_A)}: {qa_train_rate:.1f} training "
           f"images/s, {qa_sample_rate:.1f} sampled images/s ({smi})")
+    for label, (train_rate, sample_rate) in unet_rates.items():
+        print(f"U-Net {label}: {train_rate:.1f} training images/s, "
+              f"{sample_rate:.1f} sampled images/s, no port kernel ({smi})")
     runs = [*sampled.values(), trained, pl_trained, wide_trained, qa_counts,
             zoo_counts, swept, traj_counts, traj_swept, mono_model,
             unitary_counts,

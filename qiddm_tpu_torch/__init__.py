@@ -11,7 +11,10 @@ What is ported so far is sampling (``python -m qiddm_tpu_torch.cli.sample``)
 and training (``python -m qiddm_tpu_torch.cli.mnist_exm``) of all 28 dense
 models of ``qiddm_tpu/nn/qdense.py`` (the re-uploading QIDDM-L and differN
 families with every projection option, the QNN family and the Qdense
-baseline) and the noise drivers; ROADMAP.md lists the rest.
+baseline), the U-Nets with quantum or classical convolutions and the
+DeepConv baselines (``nn/unet.py``, ``nn/qconv.py``, ``nn/conv.py``; plain
+PyTorch, as the JAX package computes them outside any Pallas kernel), and
+the noise drivers; ROADMAP.md lists the rest.
 """
 
 from . import config  # noqa: F401

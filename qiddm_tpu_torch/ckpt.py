@@ -8,7 +8,8 @@ one file serves both packages: the sampling CLIs of ``qiddm_tpu/`` and
 :func:`load_jax_variables` and :func:`export_jax_variables` carry weights
 and state between the flax tree and a port module (``_flax_paths`` maps
 each by layer kind: Dense kernels, conv kernels, BatchNorm scales and
-statistics, a lazy PCA). A noisy model's explicit intensity
+statistics, a lazy PCA, at any depth of nesting, as the U-Net's blocks
+have it). A noisy model's explicit intensity
 travels as the flax ``noise_cfg/intensity`` variable (a float32 scalar),
 which the port keeps as ``net.module.noise_intensity``.
 """
@@ -54,7 +55,9 @@ def load_checkpoint(path) -> Dict[str, Any]:
 
 def _flax_paths(net) -> Dict[str, tuple]:
     """{port state name: (flax path, layout)} for ``net.module``'s
-    parameters and buffers, by layer kind:
+    parameters and buffers, each under its module's dotted path as nested
+    flax scopes (the U-Net's ``down0.conv1`` is ``down0/conv1``), by layer
+    kind:
 
     * a ``Linear`` weight (out, in) <-> params/<name>/kernel (in, out),
       layout "linear" (transposed);
@@ -63,8 +66,14 @@ def _flax_paths(net) -> Dict[str, tuple]:
     * a BatchNorm's weight and bias <-> params/<name>/{scale,bias}, its
       running statistics <-> batch_stats/<name>/{mean,var};
     * a lazy PCA's buffers <-> pca_state/{mean,components};
-    * anything else (``qweights``, a Linear's bias) under its own name,
-      layout None."""
+    * anything else (a dense or QConv2d ``qweights``, a Linear's bias)
+      under its own name, layout None.
+
+    So a U-Net maps as its flax tree nests: ``params/down{i}/conv{j}/
+    Conv_0/{kernel,bias}`` (classical) or ``params/down{i}/conv{j}/
+    qweights`` (quantum), ``params/.../bn{j}/{scale,bias}`` and
+    ``batch_stats/.../bn{j}/{mean,var}``, ``up{i}/up_conv``,
+    ``final_conv`` and the simple blocks' ``qconv``/``up_qconv``/``bn``."""
     out = {}
     for mname, mod in net.module.named_modules():
         mods = tuple(mname.split(".")) if mname else ()

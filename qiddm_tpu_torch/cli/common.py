@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import inspect
 import pathlib
 import pickle
 import signal
@@ -181,17 +182,22 @@ def build_model(model_args: Sequence, seed: int = 0, device="cuda",
     """Instantiate a registered model from a ['Name', arg, ...] list on
     ``device``: the card by default, through ``resolve_device``, which
     raises without CUDA; pass ``device="cpu"`` for the plain PyTorch path.
-    ``init_batch`` (training images, (b, 1, h, w)) reaches every model:
-    the lazily fitted PCA (``QIDDM_PP_old``) fits on it, as the JAX
-    drivers' models do (``qiddm_tpu/cli/common.py:161-180``)."""
+    ``init_batch`` (training images, (b, 1, h, w)) reaches a model whose
+    constructor takes it: the lazily fitted PCA (``QIDDM_PP_old``) fits
+    on it, as the JAX drivers' models do
+    (``qiddm_tpu/cli/common.py:161-180``); the conv and U-Net classes take
+    none."""
     name = model_args[0]
     if name not in MODEL_REGISTRY:
         raise SystemExit(f"unknown model {name!r}; ported: "
                          + ", ".join(sorted(MODEL_REGISTRY)))
     params = [int(a) if isinstance(a, str) and a.isdigit() else a
               for a in model_args[1:]]
-    return MODEL_REGISTRY[name](*params, seed=seed, init_batch=init_batch,
-                                device=resolve_device(device))
+    ctor = MODEL_REGISTRY[name]
+    kwargs = {"seed": seed, "device": resolve_device(device)}
+    if "init_batch" in inspect.signature(ctor.__init__).parameters:
+        kwargs["init_batch"] = init_batch
+    return ctor(*params, **kwargs)
 
 
 def load_dataset(args):

@@ -1,6 +1,11 @@
 """qiddm_tpu_torch.nn — the ported denoisers behind the reference's public
 names (counterpart of ``qiddm_tpu/nn``)."""
 
+from .conv import (  # noqa: F401
+    DeepConvDirectedMulti,
+    DeepConvDirectedSingle,
+    DeepConvUndirected,
+)
 from .core import Reupload as ReuploadModule  # noqa: F401
 from .qdense import (  # noqa: F401
     QIDDM_A_differN_NEW,
@@ -32,4 +37,11 @@ from .qdense import (  # noqa: F401
     differN_old_conv,
     differN_old_pca,
 )
+from .qconv import QConv2d, QConv2dMedium, QConv2dSlow  # noqa: F401
 from .shim import DenoiserShim  # noqa: F401
+from .unet import (  # noqa: F401
+    UNetUndirected,
+    UNetUndirectedS,
+    UnetDirected,
+    UnetDirectedS,
+)

@@ -47,43 +47,52 @@ class TorchConv(torch.nn.Conv2d):
 
 
 class FlaxBatchNorm(torch.nn.Module):
-    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the batch
-    axis of (batch, features).
+    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5, axis=axis)``: one
+    scale, bias and pair of running statistics for each index of the
+    feature axis ``axis``, reduced over every other axis: dim 0 of
+    (batch, features) with the default ``axis=-1``, (N, H, W) of an NCHW
+    image batch with ``axis=1`` (the U-Net's).
 
     In training it normalises by the batch's mean and *biased* variance,
     computed as flax does (E[x^2] - E[x]^2, clipped at 0), and moves the
     running statistics ``ra = 0.9 ra + 0.1 batch`` with that same biased
     variance, once a call; in eval it normalises by the running statistics.
-    ``torch.nn.BatchNorm1d`` is not this: its running variance takes the
-    unbiased estimate. ``weight``/``bias`` are flax's ``scale``/``bias``,
-    the buffers ``running_mean``/``running_var`` its ``batch_stats``
-    ``mean``/``var``."""
+    ``torch.nn.BatchNorm1d`` and ``BatchNorm2d`` are not this: their
+    running variance takes the unbiased estimate. ``weight``/``bias`` are
+    flax's ``scale``/``bias``, the buffers ``running_mean``/``running_var``
+    its ``batch_stats`` ``mean``/``var``."""
 
     def __init__(self, features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, axis: int = -1):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.axis = momentum, eps, axis
         self.weight = torch.nn.Parameter(torch.ones(features))
         self.bias = torch.nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axis = self.axis % x.ndim
+        reduced = tuple(d for d in range(x.ndim) if d != axis)
         if self.training:
-            mean = x.mean(dim=0)
-            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            mean = x.mean(dim=reduced)
+            var = torch.clamp((x * x).mean(dim=reduced) - mean * mean,
+                              min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)
                 self.running_var.mul_(m).add_((1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
+        shape = [1] * x.ndim
+        shape[axis] = -1
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((x - mean.reshape(shape)) * mul.reshape(shape)
+                + self.bias.reshape(shape))
 
     def extra_repr(self) -> str:
         return (f"{self.weight.shape[0]}, momentum={self.momentum}, "
-                f"eps={self.eps}")
+                f"eps={self.eps}, axis={self.axis}")
 
 
 def flatten_img(x: torch.Tensor) -> torch.Tensor:

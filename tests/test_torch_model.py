@@ -130,7 +130,14 @@ SMALL_MODELS = {
     "QIDDM_LL_old": (64, 3, 2, 2), "QIDDM_L": (64, 3, 2, 2),
     "QIDDM_bias_false": (64, 3, 2, 2), "QIDDM_L_B": (64, 3, 2, 2),
     "QIDDM_CL_new": (64, 3, 2, 2), "QIDDM_CL_old": (64, 3, 2, 2),
-    "QIDDM_PP_noise": (64, 3, 2, 2), "QIDDM_PP_old": (64, 3, 2, 2)}
+    "QIDDM_PP_noise": (64, 3, 2, 2), "QIDDM_PP_old": (64, 3, 2, 2),
+    "UNetUndirected": (2, 2, 1, 0, (8, 8)),
+    "UNetUndirectedS": (2, 2, 1, 0, (8, 8)),
+    "UnetDirected": (2, 2, 0, 0, (8, 8)),
+    "UnetDirectedS": (2, 2, 1, 0, (8, 8)),
+    "DeepConvUndirected": ([1, 2, 1], (8, 8)),
+    "DeepConvDirectedMulti": ([1, 2, 1], (8, 8)),
+    "DeepConvDirectedSingle": ([1, 2, 1], (8, 8))}
 
 
 def test_small_models_cover_every_class():
@@ -156,5 +163,7 @@ def test_model_classes_default_to_the_card(name):
     assert {p.device.type for p in net.parameters()} == {"cpu"}
     img = torch.rand(10, 1, 8, 8, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        out = net(img)
+        # the directed conv classes take their labels beside the images
+        out = (net(img, torch.arange(10)) if getattr(net, "directed", False)
+               else net(img))
     assert out.shape == img.shape and torch.isfinite(out).all()

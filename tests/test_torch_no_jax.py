@@ -22,7 +22,10 @@ def test_importing_every_module_leaves_jax_out():
             "qiddm_tpu_torch.sim.wide_kernel",
             "qiddm_tpu_torch.tools.vpu_ceiling",
             "qiddm_tpu_torch.tools.wide_probe",
-            "qiddm_tpu_torch.tools.probe_kernels"} <= set(mods)
+            "qiddm_tpu_torch.tools.probe_kernels",
+            "qiddm_tpu_torch.tools.unet_precision",
+            "qiddm_tpu_torch.nn.unet", "qiddm_tpu_torch.nn.qconv",
+            "qiddm_tpu_torch.nn.conv", "qiddm_tpu_torch.nn.utils"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from qiddm_tpu import ckpt as jckpt
+from qiddm_tpu.cli import common as jcommon
 from qiddm_tpu import nn as jnn
 from qiddm_tpu.diffusion import Diffusion as JDiffusion
 from qiddm_tpu.nn import qdense as jqdense
@@ -457,7 +458,10 @@ def test_every_jax_class_is_in_the_port_registry():
         if isinstance(obj, type) and issubclass(obj, jnn.DenoiserShim)
         and obj.__module__ == jqdense.__name__ and not name.startswith("_")}
     assert len(jax_classes) == 28
-    assert jax_classes == set(tcommon.MODEL_REGISTRY)
+    assert jax_classes <= set(tcommon.MODEL_REGISTRY)
+    # and the rest of the JAX drivers' registry: the U-Net and conv classes
+    assert set(jcommon.MODEL_REGISTRY) == set(tcommon.MODEL_REGISTRY)
+    assert len(tcommon.MODEL_REGISTRY) == 35
 
 
 def test_unknown_options_raise_value_error():
