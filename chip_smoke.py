@@ -408,7 +408,40 @@ any failure exits non-zero and no phase's failure is caught:
 38. the classical U-Net (run after phase 37): UNetUndirected 3 8 0, the
    reference's strongest classical baseline (bench_unet's default, cuDNN
    convolutions), as phase 37 at 10 epochs, but with the sampled
-   iterations held against the CPU's float32 step within 1e-4.
+   iterations held against the CPU's float32 step within 1e-4;
+39. the rebuttal drivers (run after phase 17): qiddm_tpu_torch.cli.fruit_360
+   with its default models, QDenseUndirected_old_noise 60 64 (12 wires,
+   depth 60, a CNOT ring: #5/#6) and QIDDM_LL_noise 4096 6 14 2 (#1/#2),
+   its three labels on the 64x64 texture fallback (--ds-size 60, so every
+   label has images, 1 epoch; each label's training split augmented to
+   100 images), then qiddm_tpu_torch.cli.bloodmnist (Qdense at 10 wires)
+   on one label at 28x28, both at batch 1, tau 10, --device cuda: finite
+   SSIM scores (PSNR and cosine NaN: the rebuttal drivers score SSIM
+   only), exactly one #5 and one #6 launch a Qdense step and one #5 an
+   iteration of its 5 sampling iterations (two #1 and two #2 an LL step,
+   two #1 an iteration), no other kernel; both Qdense widths' 3 training
+   steps held against the CPU within 1e-4 and their sampling step by step
+   (phase_train_parity, phase_sample); #6's shared memory at depth 60
+   printed; the SSIM scores, training and sampling images/s and the
+   phase's wall printed;
+40. the FashionMNIST and EMNIST drivers at their defaults but 1 epoch:
+   qiddm_tpu_torch.cli.fashion_exm on the seeded fashion_28.npz (tau_test
+   20) and qiddm_tpu_torch.cli.emnist_exm on a seeded emnist_letters_28.npz
+   (26 classes, tau_test 5), both default models (QIDDM_LL_noise 784 6 14
+   2 and QNN_noise 784 8 14), the EMNIST run under --profile: finite
+   scores, the launches of every step and iteration counted exactly, and
+   the profile's Chrome trace naming #1 and #2;
+41. the sweep: qiddm_tpu_torch.cli.mnist_ray at full width (hidden 6, N 2,
+   batch 8, tau 10) on the seeded mnist_28.npz: --num-samples 4 --L-min 14
+   --L-max 14 --epochs 2 (one group of 4 trials; the halving at epoch 1
+   must stop 3 of them), then --L-min 16 --L-max 16 (L*k = 32, the
+   sweep's deepest) at 1 epoch; the launches counted exactly: a training
+   step's 80 rows are at least 2^6, so it composes each block's unitaries
+   (plain torch matmuls, as the JAX package composes them in XLA) and
+   launches no port kernel, and each scoring iteration (15 rows) 2 #1; the
+   tune_results artifacts checked against their schema, and trial 0's
+   first three steps (its seed and learning rate) held against the CPU
+   within 1e-4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -454,7 +487,9 @@ from qiddm_tpu_torch.ckpt import (export_jax_variables, load_checkpoint,
                                   load_jax_variables, save_checkpoint)
 from qiddm_tpu_torch import data as data_mod
 from qiddm_tpu_torch.cli import common
-from qiddm_tpu_torch.cli import fashion_noise, mnist_exm, noise_common
+from qiddm_tpu_torch.cli import (bloodmnist, emnist_exm, fashion_exm,
+                                 fashion_noise, fruit_360, mnist_exm,
+                                 mnist_ray, noise_common)
 from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
 from qiddm_tpu_torch.noise import add_normal_noise_multiple
@@ -509,7 +544,11 @@ CASES = ([(w, b, 28, 2) for w in (1, 4, 6, 8, 10) for b in (1, 16, 80)]
          # QIDDM-A's (10 wires, L*k = 9 x 2) at its training batch (8
          # images x tau 10) and sampling batch, and the k = 3 classes'
          # (QIDDM_bias_false, QIDDM_L_B at 784 8 6 2) at batch 1 x tau 10
-         + [(10, 80, 18, 2), (10, 16, 18, 2), (8, 10, 18, 3)])
+         + [(10, 80, 18, 2), (10, 16, 18, 2), (8, 10, 18, 3)]
+         # the sweep's (mnist_ray: 6 wires, batch 8 x tau 10 = 80 rows,
+         # L*k = 2L for L 6-16; 15 start images to score): its shallowest
+         # and deepest, and the deepest at the scoring batch
+         + [(6, 80, 12, 2), (6, 80, 32, 2), (6, 15, 32, 2)])
 # the backward walk's launch plan at its edges (gate_kernel.chain_bwd_plan;
 # #2 at L*k = 28, #4 at 12): the last batch of one sample a CTA and the
 # first of two, the largest batch one cluster holds (32 samples up to 7
@@ -526,7 +565,10 @@ FWD_PLAN_EDGES = [(1, 1), (2, 3), (3, 5), (5, 31), (6, 133), (7, 127),
                   (8, 1), (8, 9), (8, 255), (9, 511), (10, 1023)]
 SEL_CASES = ([(w, b, 14, ring) for w in (1, 2, 4, 6, 8, 10)
               for b in (1, 10, 16, 80) for ring in ("cz", "cnot")]
-             + [(6, 16, 60, "cnot")])
+             + [(6, 16, 60, "cnot")]
+             # the rebuttal drivers' Qdense (QDenseUndirected_old_noise 60
+             # side) at 28x28 and 64x64: batch 1 x tau 10 and 10 samples
+             + [(10, 10, 60, "cnot"), (12, 10, 60, "cnot")])
 # the trajectory route's widths, at path A's batch (100 trajectories x 10
 # images) and depth (k = 2 a spectrum layer), and at QNN's depth
 WIDE_SEL_CASES = [(w, b, depth, ring) for w in (11, 12) for b in (1, 10, 1000)
@@ -670,6 +712,18 @@ P5_CARD_SHAPES = [(64, 1024, 10), (16, 64, 3), (8, 64, 2), (100, 128, 5),
 FMA_TOL = 1e-5      # relative: fmaf against a float64 product and sum, rounded
 PEAK_CAP = 1.05     # no measured rate above 1.05 x PEAK_FLOPS
 FMA_RATIO = (1.8, 2.2)  # time at 2 x iters over time at iters
+# the rebuttal drivers (phase 39): --ds-size so that every label of the
+# textures has images (at the default 5 a label may have none, and the run
+# raises, as the JAX package's does), 1 epoch; the training split of each
+# label augmented to this many images; 5 sampling iterations
+REBUTTAL_DS, REBUTTAL_AUGMENTED, REBUTTAL_ITERS = 60, 100, 5
+# the driver's sampling batch, the rows of every forward while sampling
+DRIVER_IMAGES = 10
+# the sweep (phase 41): mnist_ray's batch 8 x tau 10, its 15 start images
+# scored for 5 iterations; 40 training images of LABEL (80% of 50)
+SWEEP_BATCH, SWEEP_SCORE_ITERS = 8, 5
+SWEEP_RESULT_KEYS = {"loss", "ssim", "training_iteration", "time_total_s",
+                     "node_ip", "trial_id", "early_stopped"}
 PAIRS = 20          # each kernel against its library call, in turns
 WIDE_PAIRED = (16, 10, 28)  # #9-#12's (w, B, L*k) in the pairs
 
@@ -2144,10 +2198,12 @@ def _grads64(net, x: torch.Tensor, state: torch.Tensor,
 
 def phase_train_parity(tmp: pathlib.Path, margs: list, images: int = 1,
                        lr: float | None = None, held_grads: bool = True,
-                       exact: bool = False) -> tuple:
+                       exact: bool = False, seed: int = SEED,
+                       x: torch.Tensor | None = None) -> tuple:
     """Three Adam steps of ``margs`` on the card, ``images`` images per
-    step, from seeded weights and noise, at ``lr`` (the driver's rate for
-    the model if None). Before each step the CPU plain path takes the
+    step, from weights seeded with ``seed`` and seeded noise, at ``lr``
+    (the driver's rate for the model if None), on the batches ``x`` (3,
+    images, pixels), by default LABEL's images of mnist_28.npz. Before each step the CPU plain path takes the
     card's current weights and buffers and evaluates the same batch with
     the same noise; the loss, every gradient and every buffer after the
     step (a BatchNorm's running statistics) must agree. With ``exact`` the
@@ -2171,13 +2227,15 @@ def phase_train_parity(tmp: pathlib.Path, margs: list, images: int = 1,
     fit keeps rounding noise for the rest; independent random images have
     nearly equal singular values, so which ones the 8 components keep would
     be left to rounding on either device (ROADMAP Queue 3)."""
-    z = np.load(tmp / "data" / "mnist_28.npz")
-    x = torch.as_tensor(z["x"][z["y"] == LABEL][:3 * images] / 255.0,
-                        dtype=torch.float32).reshape(3, images, -1)
-    x = x * (0.7 ** torch.arange(images, dtype=torch.float32))[:, None]
-    nets = {d: common.build_model(margs, seed=SEED, device=d)
+    if x is None:
+        z = np.load(tmp / "data" / "mnist_28.npz")
+        x = torch.as_tensor(z["x"][z["y"] == LABEL][:3 * images] / 255.0,
+                            dtype=torch.float32).reshape(3, images, -1)
+        x = x * (0.7 ** torch.arange(images, dtype=torch.float32))[:, None]
+    nets = {d: common.build_model(margs, seed=seed, device=d)
             for d in ("cuda", "cpu")}
-    diffs = {d: Diffusion(net).train() for d, net in nets.items()}
+    diffs = {d: Diffusion(net, shape=net.img_shape).train()
+             for d, net in nets.items()}
     gens = {d: torch.Generator().manual_seed(SEED) for d in nets}
     if lr is None:
         lr = common.DEFAULT_LRS.get(margs[0], common.FALLBACK_LR)
@@ -3178,9 +3236,31 @@ def phase_times(dev, smi: str) -> tuple[dict, dict, dict]:
             walks[key][0],
             lambda: gate_kernel.gate_chain_bwd_plain(*args, k, w)
         ) + bound_gate(w, b, n_layers, k, True)
+    # the sweep's deepest block (mnist_ray at L 16: L*k = 32) at its
+    # training batch (8 images x tau 10)
+    w, b, n = 6, 80, 32
+    pr, pi, mats = chain_inputs(rng, w, b, n, dev)
+    g8 = gate_kernel._to_g8(mats)
+    walks["fwd6_80_32"] = (functools.partial(
+        gate_kernel._gate_chain_cuda, pr, pi, g8, signs, k, w),
+        _fwd_plan_line(w, b))
+    times["fwd6_80_32"] = _paired_ms(
+        walks["fwd6_80_32"][0],
+        lambda: gate_kernel.gate_chain_planes_plain(pr, pi, mats, k, w)
+    ) + bound_gate(w, b, n, k, False)
+    args = bwd_inputs(rng, w, b, n, k, dev)
+    walks["bwd6_80_32"] = (functools.partial(
+        gate_kernel._gate_chain_bwd_cuda, *args, k, w), _plan_line(w, b))
+    times["bwd6_80_32"] = _paired_ms(
+        walks["bwd6_80_32"][0],
+        lambda: gate_kernel.gate_chain_bwd_plain(*args, k, w)
+    ) + bound_gate(w, b, n, k, True)
+    # (the rebuttal drivers' Qdense at 28x28 and 64x64: depth 60, a CNOT
+    # ring, batch 1 x tau 10)
     for w, depth, b, ring in ((8, 14, 10, "cz"), (8, 14, 16, "cz"),
                               (6, 60, 10, "cnot"), (12, 2, 1000, "cz"),
-                              (12, 2, 1000, "cnot")):
+                              (12, 2, 1000, "cnot"), (10, 60, 10, "cnot"),
+                              (12, 60, 10, "cnot")):
         (g8, fr, fi, gr, gi), (sr, si) = sel_bwd_inputs(rng, w, b, depth,
                                                         ring, dev)
         key = f"{w}_{depth}_{b}_{ring}"
@@ -3194,7 +3274,7 @@ def phase_times(dev, smi: str) -> tuple[dict, dict, dict]:
             lambda: sel_kernel.sel_chain_bwd_plain(g8, fr, fi, gr, gi, w,
                                                    ring)
         ) + bound_sel(w, b, depth, ring, True)
-        if w == 12:  # path A's shape: the rows kernel on the same states
+        if (w, depth) == (12, 2):  # path A's: the rows kernel, same states
             x = torch.view_as_real(torch.complex(sr, si).T.contiguous())
             times[f"sel_rows_fwd{key}"] = _paired_ms(
                 lambda: sel_kernel._sel_rows_cuda(x, g8, w, ring),
@@ -4253,6 +4333,263 @@ def phase_probe_times(dev, smi: str) -> tuple[dict, dict, dict]:
     return times, library, pairs
 
 
+def _exact(counts: dict, want: dict, what: str) -> None:
+    """Fails unless ``counts`` hold exactly ``want`` launches of each of
+    its counters and none of any other kernel (dg's batch sums, helper
+    launches after #2, #4 or #6, are not held here)."""
+    others = {c: n for c, n in counts.items()
+              if n and c not in want and not c.endswith("_sums")}
+    wrong = {c: (counts[c], n) for c, n in want.items() if counts[c] != n}
+    if wrong or others:
+        fail(f"{what}: launches (counted, wanted) {wrong}, other counters "
+             f"{others}")
+
+
+def _rates(printed: str) -> tuple[list, list]:
+    """The training and sampling images/s a driver printed."""
+    train = [float(v) for v in re.findall(
+        r"trained \d+ epochs in [0-9.]+s incl\. set-up \(([0-9.]+) "
+        r"images/s\)", printed)]
+    sample = [float(v) for v in re.findall(
+        r"sampled \d+ images x \d+ iterations on \S+ in [0-9.]+ s "
+        r"\(([0-9.]+) images/s\)", printed)]
+    return train, sample
+
+
+def _run_driver(tmp: pathlib.Path, module, argv: list) -> tuple:
+    """``module.main(argv)`` in ``tmp`` from counts of 0; returns its
+    results, launch counts and printed output."""
+    printed = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(printed), contextlib.chdir(tmp):
+        results = module.main(argv)
+    counts = read_counts()
+    print(printed.getvalue().strip())
+    return results, counts, printed.getvalue()
+
+
+def _driver_scores(name: str, results: dict, labels: int,
+                   psnr_cos: bool) -> None:
+    """Each model's scores: ``labels`` finite SSIM values, and PSNR and
+    cosine finite, or NaN under a protocol without them."""
+    for model, entry in results.items():
+        print(f"{name} {model}: SSIM {entry['ssim']}, PSNR {entry['psnr']}, "
+              f"cosine {entry['cos']}, epoch losses {entry['loss']}")
+        others = entry["psnr"] + entry["cos"]
+        if (len(entry["ssim"]) != labels
+                or not all(math.isfinite(v) for v in entry["ssim"])
+                or not all(math.isfinite(v) == psnr_cos for v in others)):
+            fail(f"{name} {model}: scores {entry}")
+
+
+def phase_rebuttal(tmp: pathlib.Path, smi: str) -> dict:
+    """Phase 39: fruit_360 (three labels, 64x64, Qdense at 12 wires) and
+    bloodmnist (one label, 28x28, Qdense at 10 wires) through their
+    drivers on cuda with their default models, then each Qdense width's
+    training held against the CPU step by step and its sampling held
+    iteration by iteration. Returns the launch counts of the drivers'
+    runs."""
+    t_phase = time.perf_counter()
+    for w in (10, 12):
+        plan = sel_kernel.sel_bwd_plan(w, TAU)
+        smem = gate_kernel._library().sel_chain_bwd_smem_bytes(
+            w, 60, plan.samples, 0)
+        print(f"rebuttal: #6 at (w={w}, B={TAU}, depth 60, cnot) takes "
+              f"{smem} B of shared memory a CTA (limit "
+              f"{gate_kernel._MAX_SMEM_BYTES}); {_sel_plan_line(w, TAU)}")
+    runs = {}
+    for module, labels, side in ((fruit_360, 3, 64), (bloodmnist, 1, 28)):
+        name = module.__name__.rsplit(".", 1)[-1]
+        argv = ["--ds-size", str(REBUTTAL_DS), "--epochs", "1", "--device",
+                "cuda", "--save-path", f"{tmp}/{name}_", "--load-path",
+                f"{tmp}/{name}_"]
+        results, counts, printed = _run_driver(tmp, module, argv)
+        args = module.parse_args([])
+        qdense, ll = args.model
+        if (qdense[:3] != ["QDenseUndirected_old_noise", "60", str(side)]
+                or ll[:2] != ["QIDDM_LL_noise", str(side * side)]):
+            fail(f"{name}'s default models are {args.model}")
+        sizes = re.findall(r"After augmentation, x_train shape: \((\d+),",
+                           printed)
+        if sizes != [str(REBUTTAL_AUGMENTED)] * labels:
+            fail(f"{name}: augmented training sets {sizes}")
+        steps = labels * REBUTTAL_AUGMENTED
+        iters = labels * REBUTTAL_ITERS
+        _exact(counts, {"sel": steps + iters, "sel_bwd": steps,
+                        "gate": 2 * (steps + iters), "gate_bwd": 2 * steps},
+               f"{name}: {steps} steps and {iters} sampling iterations of "
+               f"each model")
+        plan = sel_kernel.sel_bwd_plan(12 if side == 64 else 10, TAU)
+        if counts["sel_bwd_sums"] != (0 if plan.in_launch else steps):
+            fail(f"{name}: {counts['sel_bwd_sums']} second launches for "
+                 f"#6's dg batch sum in {steps} steps, against the plan "
+                 f"{plan}")
+        _driver_scores(name, results, labels, psnr_cos=False)
+        train, sample = _rates(printed)
+        print(f"rebuttal {name} ({smi}): training {train} images/s (a model "
+              f"a label, Qdense first; batch 1, tau {TAU}, "
+              f"{REBUTTAL_AUGMENTED} images, first epoch incl. set-up), "
+              f"sampling {sample} images/s ({DRIVER_IMAGES} images x "
+              f"{REBUTTAL_ITERS} iterations); launches {counts}")
+        runs[name] = counts
+        # the Qdense width held against the CPU: 3 training steps on the
+        # driver's data, its sampling iteration by iteration
+        x_all, _, _, _ = common.load_dataset(
+            module.parse_args(["--ds-size", str(REBUTTAL_DS)]))
+        x = torch.as_tensor(x_all[:3], dtype=torch.float32).reshape(3, 1, -1)
+        _, parity = phase_train_parity(tmp, qdense, 1, x=x)
+        _exact(parity, {"sel": 3, "sel_bwd": 3},
+               f"{' '.join(qdense)}'s 3 held steps")
+        with torch.no_grad():
+            phase_sample(tmp, qdense, side, "sel", 1, 3)
+    print(f"rebuttal phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"({smi})")
+    return runs
+
+
+def write_letters(data_dir: pathlib.Path) -> None:
+    """A seeded stand-in for EMNIST letters: 520 28x28 uint8 images,
+    labels 0-25 in turn, as ``emnist_letters_28.npz``."""
+    rng = np.random.default_rng(SEED + 9)
+    x = (rng.uniform(size=(520, 28, 28)) ** 2 * 255).astype(np.uint8)
+    np.savez(data_dir / "emnist_letters_28.npz", x=x, y=np.arange(520) % 26)
+
+
+def phase_exm(tmp: pathlib.Path, smi: str) -> dict:
+    """Phase 40: fashion_exm and emnist_exm at their defaults but 1 epoch
+    on cuda (both default models), emnist_exm under --profile. Returns the
+    launch counts of the runs."""
+    write_letters(tmp / "data")
+    runs = {}
+    for module, data, label, classes, iters in (
+            (fashion_exm, "fashion_28.npz", 4, 10, 2 * TAU),
+            (emnist_exm, "emnist_letters_28.npz", 2, 26, 5)):
+        name = module.__name__.rsplit(".", 1)[-1]
+        argv = ["--epochs", "1", "--device", "cuda", "--save-path",
+                f"{tmp}/{name}_", "--load-path", f"{tmp}/{name}_"]
+        trace = tmp / f"{name}_trace"
+        if module is emnist_exm:
+            argv += ["--profile", str(trace)]
+        results, counts, printed = _run_driver(tmp, module, argv)
+        z = np.load(tmp / "data" / data)
+        n_label = int((z["y"][:500] == label).sum())
+        steps = int(n_label * 0.8)
+        if z["y"].max() + 1 != classes:
+            fail(f"{data} holds {z['y'].max() + 1} classes")
+        _exact(counts, {"gate": 2 * (steps + iters), "gate_bwd": 2 * steps,
+                        "sel": steps + iters, "sel_bwd": steps},
+               f"{name}: {steps} steps and {iters} sampling iterations of "
+               f"each default model")
+        _driver_scores(name, results, 1, psnr_cos=True)
+        train, sample = _rates(printed)
+        print(f"{name} ({smi}): training {train} images/s (batch 1, tau "
+              f"{TAU}, {steps} images, first epoch incl. set-up), sampling "
+              f"{sample} images/s ({DRIVER_IMAGES} images x {iters} "
+              f"iterations); launches {counts}")
+        if module is emnist_exm:
+            traces = sorted(trace.glob("trace_*.json"))
+            if len(traces) != 2:  # one a model's training run
+                fail(f"--profile wrote {traces}")
+            names = {e.get("name", "") for t in traces
+                     for e in json.loads(t.read_text())["traceEvents"]}
+            kernels = sorted(n for n in names if "chain" in n)
+            print(f"{name} --profile: {len(traces)} Chrome traces, the "
+                  f"chain kernels named: {kernels}")
+            for k in ("gate_chain_fwd", "gate_chain_bwd"):
+                if not any(k in n for n in names):
+                    fail(f"the --profile trace names no {k} kernel")
+        runs[name] = counts
+    return runs
+
+
+def _check_trials(root: pathlib.Path, trials: int, epochs: int,
+                  stopped: int) -> list:
+    """The tune_results artifacts of one sweep group: ``trials`` trial
+    directories with params.json, result.json (SWEEP_RESULT_KEYS) and
+    progress.csv, ``stopped`` of them stopped by a rung at epoch 1, the
+    others trained ``epochs`` epochs with a checkpoint the sampling CLI's
+    loader reads. Returns the results."""
+    dirs = sorted(p for p in root.iterdir() if p.is_dir())
+    recs = []
+    for td in dirs:
+        params = json.loads((td / "params.json").read_text())
+        rec = json.loads((td / "result.json").read_text())
+        lines = (td / "progress.csv").read_text().splitlines()
+        ckpts = list(td.glob("*.pt"))
+        if (set(rec) != SWEEP_RESULT_KEYS
+                or set(params) != {"lr", "batch_size", "epochs", "T"}
+                or lines[0] != "training_iteration,loss"
+                or len(lines) - 1 != rec["training_iteration"]
+                or not math.isfinite(rec["loss"])
+                or not math.isfinite(rec["ssim"])
+                or len(ckpts) != (0 if rec["early_stopped"] else 1)):
+            fail(f"sweep artifacts of {td}: {params}, {rec}, {lines[:2]}, "
+                 f"{ckpts}")
+        if ckpts:
+            load_checkpoint(ckpts[0])["model_state_dict"]
+        recs.append(rec)
+    its = sorted(r["training_iteration"] for r in recs)
+    want = sorted([1] * stopped + [epochs] * (trials - stopped))
+    if len(dirs) != trials or its != want:
+        fail(f"sweep {root}: {len(dirs)} trials trained {its} epochs, want "
+             f"{want}")
+    return recs
+
+
+def phase_ray(tmp: pathlib.Path, n_train: int, smi: str) -> dict:
+    """Phase 41: mnist_ray at full width on cuda: one group of 4 trials at
+    L 14 for 2 epochs (the halving at epoch 1 keeps one), then 4 trials at
+    L 16 for 1 epoch; trial 0 of the first held against the CPU. A
+    training step's batch (8 images x tau 10 = 80 rows) is at least
+    2^6, so the engine composes each block's unitaries (no port kernel,
+    as the JAX package composes them); the scoring's 15 rows run #1.
+    Returns the launch counts of the two runs."""
+    t_phase = time.perf_counter()
+    steps_epoch = -(-n_train // SWEEP_BATCH)
+    runs = {}
+    for L, epochs, trials, kept in ((14, 2, 4, 1), (16, 1, 4, 4)):
+        local = tmp / f"tune_L{L}"
+        argv = ["--num-samples", str(trials), "--L-min", str(L), "--L-max",
+                str(L), "--epochs", str(epochs), "--device", "cuda",
+                "--local-dir", str(local)]
+        (rows, best), counts, printed = _run_driver(tmp, mnist_ray, argv)
+        args = mnist_ray.parse_args(argv)
+        if (args.hidden, args.N, args.batch_size, args.tau) != (6, 2,
+                                                                SWEEP_BATCH,
+                                                                TAU):
+            fail(f"mnist_ray's defaults {args}")
+        if len(rows) != trials or best["ssim"] != max(r["ssim"]
+                                                      for r in rows):
+            fail(f"mnist_ray rows {rows}, best {best}")
+        # every trial trains the first segment; the kept ones the rest
+        steps = steps_epoch * (trials + kept * (epochs - 1))
+        scored = SWEEP_SCORE_ITERS * (trials + (kept if epochs > 1 else 0))
+        _exact(counts, {"gate": 2 * scored, "gate_bwd": 0},
+               f"mnist_ray L={L}: {steps} steps on the composed-unitary "
+               f"route and {scored} scoring iterations")
+        recs = _check_trials(local / f"train_mnist28_L{L}", trials, epochs,
+                             trials - kept)
+        walls = re.findall(r"trained epochs \d+-\d+ one after another on "
+                           r"\S+ in ([0-9.]+) s \(([0-9.]+) training "
+                           r"images/s\)", printed)
+        print(f"mnist_ray L={L} (L*k = {2 * L}; {smi}): {trials} trials, "
+              f"{epochs} epoch(s), kept {kept}; segments (wall s, training "
+              f"images/s incl. scoring set-up) {walls}; results "
+              f"{[(r['loss'], r['ssim'], r['early_stopped']) for r in recs]};"
+              f" launches {counts}")
+        runs[f"L{L}"] = counts
+    # trial 0 of the L 14 group: its seed (--seed + 0) and learning rate
+    trial0 = next((tmp / "tune_L14" / "train_mnist28_L14").glob(
+        "trial_00000_*"))
+    lr = json.loads((trial0 / "params.json").read_text())["lr"]
+    seed = mnist_ray.parse_args([]).seed
+    _, parity = phase_train_parity(tmp, MODEL, SWEEP_BATCH, lr, seed=seed)
+    _exact(parity, {"gate": 0, "gate_bwd": 0}, "the sweep's 3 held steps")
+    print(f"mnist_ray phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"({smi})")
+    return runs
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -4352,6 +4689,9 @@ def main() -> None:
                     if not cache.is_file():
                         fail(f"no trajectory cache {cache}")
         phase_sweep_parity(tmp, "traj_", TRAJ_SWEEP_MODELS, N_TRAJ)
+        rebuttal_counts = phase_rebuttal(tmp, smi)
+        exm_counts = phase_exm(tmp, smi)
+        ray_counts = phase_ray(tmp, n_train, smi)
     bench_counts, bench_rates = phase_wide_bench(smi)
     with torch.no_grad():
         times, library, pairs = phase_times(dev, smi)
@@ -4410,7 +4750,8 @@ def main() -> None:
               f"{sample_rate:.1f} sampled images/s, no port kernel ({smi})")
     runs = [*sampled.values(), trained, pl_trained, wide_trained, qa_counts,
             zoo_counts, swept, traj_counts, traj_swept, mono_model,
-            unitary_counts,
+            unitary_counts, *rebuttal_counts.values(), *exm_counts.values(),
+            *ray_counts.values(),
             *(c for by_width in bench_counts.values()
               for c in by_width.values())]
     launches = {c: sum(r[c] for r in runs) for c in trained}
@@ -4432,7 +4773,9 @@ def main() -> None:
           f"(while sampling, by model {sweep_sampling}), 12-wire trajectory "
           f"sampling {traj_counts}, trajectory sweep {traj_swept} (while "
           f"sampling, by model {traj_sampling}), the CNOT-ring route "
-          f"{unitary_counts}")
+          f"{unitary_counts}, the rebuttal drivers {rebuttal_counts}, "
+          f"fashion_exm and emnist_exm {exm_counts}, the sweep "
+          f"{ray_counts}")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"

@@ -1,18 +1,21 @@
 """Shared driver logic (counterpart of ``qiddm_tpu/cli/common.py``).
 
 The reference drivers' argparse surface and per-label loop: load, split
-80/20, build, resume, train, save, sample (src/mnist_exm.py:334-503), and
-the noise drivers' pieces: ``with_noise`` (the test-time swap to a noisy
-circuit), the sampler-output caches (``save_outp``/``load_outp``) and the
-scoring protocols of ``test``. Models and datasets resolve by name through
-registries instead of ``eval``. PNG dumps and plots need matplotlib and are
-not ported (ROADMAP Queue 1 item 10); the flags for the vmapped, profiled
-and orbax runs are rejected before any work, naming their ROADMAP item.
+80/20, augment (the rebuttal drivers), build, resume, train, save, sample
+and score (src/mnist_exm.py:334-503), and the noise drivers' pieces:
+``with_noise`` (the test-time swap to a noisy circuit), the sampler-output
+caches (``save_outp``/``load_outp``) and the scoring protocols of
+``test``. Models and datasets resolve by name through registries instead
+of ``eval``. ``--profile LOGDIR`` writes a ``torch.profiler`` trace of each
+training run. PNG dumps and plots need matplotlib and are not ported
+(ROADMAP Queue 1 item 10); the flags for the vmapped and orbax runs are
+rejected before any work, naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import inspect
@@ -20,18 +23,21 @@ import pathlib
 import pickle
 import signal
 import sys
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import data as data_mod
+from .. import metrics
 from .. import nn as nn_mod
 from ..ckpt import load_diffusion, save_diffusion
 from ..config import resolve_device
 from ..diffusion import Diffusion
 from ..logging_utils import initial_log  # noqa: F401  (re-export for drivers)
 from ..noise import add_normal_noise_multiple
+from ..profiler import device_trace
 from ..train import train_diffusion_scan
 
 MODEL_REGISTRY = {
@@ -106,7 +112,8 @@ def build_parser(description: str, *, default_models, default_data: str,
     p.add_argument("--vmap-labels", action="store_true",
                    help="Train all labels at once (not ported).")
     p.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
-                   help="Capture a device trace (not ported).")
+                   help="Write a torch.profiler trace of each training "
+                        "run (CPU and CUDA activity) into LOGDIR.")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="Also checkpoint every N epochs (preemption safety; "
                         "0 = only at the end like the reference).")
@@ -138,13 +145,12 @@ def build_parser(description: str, *, default_models, default_data: str,
 def validate_args(args) -> None:
     """Fail fast, before any data or device work: unported flags, unknown
     or unported models (each is built once on the CPU, so an unported
-    option raises here) and datasets, and ``--device cuda`` on a host
+    option raises here), unknown datasets, and ``--device cuda`` on a host
     without CUDA. ``--add_noise`` and ``--noise_intensity`` pass: the JAX
     drivers read neither (the noise drivers sweep their own settings), and
     every model takes its ``add_noise`` code as a ctor argument."""
     unported = {
         "--vmap-labels": (args.vmap_labels, "ROADMAP Queue 1 item 11"),
-        "--profile": (args.profile, "ROADMAP Queue 1 item 10"),
         "--ckpt-backend orbax": (args.ckpt_backend == "orbax",
                                  "ROADMAP Queue 1 item 10"),
     }
@@ -163,8 +169,7 @@ def validate_args(args) -> None:
             raise SystemExit(f"model {' '.join(map(str, m))} is not ported "
                              f"to qiddm_tpu_torch yet: {err}") from err
     if args.data not in DATA_REGISTRY:
-        raise SystemExit(f"dataset {args.data!r} is not ported to "
-                         f"qiddm_tpu_torch yet ({_NOT_PORTED}); ported: "
+        raise SystemExit(f"unknown dataset {args.data!r}; available: "
                          + ", ".join(sorted(DATA_REGISTRY)))
     resolve_device(args.device)
 
@@ -206,6 +211,31 @@ def load_dataset(args):
     return np.asarray(x), np.asarray(y), h, w
 
 
+def augment_rotation(x_train, y_train, height, width, target_size: int,
+                     seed: int = 0):
+    """Random +-15 degree rotations (scipy's ``ndimage.rotate``, linear,
+    zero outside) of randomly picked images, clipped to [0, 1] and
+    appended until ``target_size`` images (reference
+    src/bloodmnist.py:335-342, :413-460); numpy and scipy only, so the
+    same bits as the JAX package's."""
+    from scipy.ndimage import rotate
+
+    n = len(x_train)
+    if n >= target_size or n == 0:
+        return x_train, y_train
+    rng = np.random.default_rng(seed)
+    extra_x, extra_y = [], []
+    for _ in range(target_size - n):
+        i = int(rng.integers(0, n))
+        img = x_train[i].reshape(height, width)
+        ang = float(rng.uniform(-15, 15))
+        rot = rotate(img, ang, reshape=False, order=1, mode="constant")
+        extra_x.append(np.clip(rot, 0.0, 1.0).reshape(-1))
+        extra_y.append(y_train[i])
+    return (np.concatenate([x_train, np.stack(extra_x)]),
+            np.concatenate([y_train, np.asarray(extra_y)]))
+
+
 def make_first_x(args, n: int = 10) -> torch.Tensor:
     """The sampler's start images: U[0, 1) * 0.75 + 0.5 from a CPU
     generator seeded with ``seed + 1``."""
@@ -222,7 +252,8 @@ def train(diff, args, x_train, start_epoch: int, loss_values: List[float]):
     when 0); segment s draws from the seed ``seed + epochs done`` and Adam's
     moments carry over between segments. SIGTERM/SIGINT is deferred to the
     next segment boundary, where the state is checkpointed and the process
-    exits 128+signum; rerunning the same command resumes from there.
+    exits 128+signum; rerunning the same command resumes from there. With
+    ``--profile LOGDIR`` the run is recorded by ``device_trace``.
     """
     print("Training model")
     remaining = args.epochs - start_epoch
@@ -245,28 +276,33 @@ def train(diff, args, x_train, start_epoch: int, loss_values: List[float]):
         save_diffusion(diff, args.save_path, args.label, loss_values,
                        epochs_done)
 
+    trace = (device_trace(args.profile) if args.profile
+             else contextlib.nullcontext())
     try:
-        done = start_epoch
-        opt_state = None  # threaded across segments: Adam moments persist
-        while remaining > 0:
-            seg = min(remaining, ckpt_every) if ckpt_every else remaining
-            losses, wall, opt_state = train_diffusion_scan(
-                diff, x_train, epochs=seg, batch_size=args.batch_size,
-                lr=args.lr, T=args.tau, warmup=False, key=args.seed + done,
-                opt_state=opt_state, return_opt_state=True)
-            loss_values = list(loss_values) + [float(v) for v in losses]
-            done += seg
-            remaining -= seg
-            print(f"trained {seg} epochs in {wall:.3f}s incl. set-up "
-                  f"({len(x_train) * seg / max(wall, 1e-9):.0f} images/s)")
-            if caught["sig"] is not None:
-                _save(done)
-                print(f"[preempt] checkpoint saved at epoch {done}/"
-                      f"{args.epochs}; rerun the same command to resume",
-                      file=sys.stderr)
-                raise SystemExit(128 + caught["sig"])
-            if ckpt_every and remaining > 0:
-                _save(done)
+        with trace:
+            done = start_epoch
+            opt_state = None  # threaded across segments: Adam moments persist
+            while remaining > 0:
+                seg = min(remaining, ckpt_every) if ckpt_every else remaining
+                losses, wall, opt_state = train_diffusion_scan(
+                    diff, x_train, epochs=seg, batch_size=args.batch_size,
+                    lr=args.lr, T=args.tau, warmup=False,
+                    key=args.seed + done, opt_state=opt_state,
+                    return_opt_state=True)
+                loss_values = list(loss_values) + [float(v) for v in losses]
+                done += seg
+                remaining -= seg
+                print(f"trained {seg} epochs in {wall:.3f}s incl. set-up "
+                      f"({len(x_train) * seg / max(wall, 1e-9):.0f} "
+                      f"images/s)")
+                if caught["sig"] is not None:
+                    _save(done)
+                    print(f"[preempt] checkpoint saved at epoch {done}/"
+                          f"{args.epochs}; rerun the same command to resume",
+                          file=sys.stderr)
+                    raise SystemExit(128 + caught["sig"])
+                if ckpt_every and remaining > 0:
+                    _save(done)
     finally:
         for s, h in prev_handlers.items():
             signal.signal(s, h)
@@ -315,36 +351,56 @@ def set_noise_intensity(net, value: float) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class ScoreProtocol:
-    """How ``test()`` scales the generated and the real images, per driver
-    (the fields of ``qiddm_tpu/cli/common.py:358-389`` whose values differ
-    between the two ported drivers):
+    """How ``test()`` post-processes the sampled images before scoring,
+    and what the drivers score, per driver
+    (``qiddm_tpu/cli/common.py:358-389``):
 
-    * mnist_exm (src/mnist_exm.py:206-261): generated min-max renormalized
-      to [0, 1] per step, real (x_test) min-max to [0, 1];
-    * the noise drivers (src/mnist_noise.py:240-262): generated kept in
-      [0, 255], real (x_test) min-max then x255 and clamped.
+    * mnist_exm (src/mnist_exm.py:206-261, 471-480): generated min-max
+      renormalized to [0, 1] per step, real (x_test) min-max to [0, 1],
+      (gen 5, real 80), PSNR and cosine beside SSIM;
+    * fashion_exm / emnist_exm (src/fashion_exm.py:216-260, 459-468 /
+      src/emnist_exm.py:206-250, 441-450): generated kept in [0, 255], real
+      (x_test) min-max then x255 and clamped, (1, 10) / (1, 20);
+    * the rebuttal drivers (src/bloodmnist.py:206-288, 523-524): generated
+      in [0, 255], real from the augmented **x_train** min-max x255, SSIM
+      only, (10, 20);
+    * the noise drivers (src/mnist_noise.py:240-262, 513-526): as fashion,
+      (1, 2).
     """
     renorm_generated: bool = True
     real_255: bool = False
+    real_from_train: bool = False
+    gen_count: int = 5
+    real_count: int = 80
+    psnr_cos: bool = True
 
 
 MNIST_PROTOCOL = ScoreProtocol()
-NOISE_PROTOCOL = ScoreProtocol(renorm_generated=False, real_255=True)
+FASHION_PROTOCOL = ScoreProtocol(False, True, False, 1, 10, True)
+EMNIST_PROTOCOL = ScoreProtocol(False, True, False, 1, 20, True)
+REBUTTAL_PROTOCOL = ScoreProtocol(False, True, True, 10, 20, False)
+NOISE_PROTOCOL = ScoreProtocol(False, True, False, 1, 2, True)
 
 
-def test(diff, args, x_test, first_x, tau_test: int = 15,
+def test(diff, args, x_train, x_test, first_x, tau_test: int = 15,
          save_images: bool = True, grid=None,
          protocol: ScoreProtocol = MNIST_PROTOCOL):
     """Reference test() (src/mnist_exm.py:206-291): sample ``tau_test``
     iterations (or take the sampler's ``grid``, (iters*h, b*w), from a
     cache), clamp and scale to [0, 255], renormalize as ``protocol`` says;
-    returns (generated (iters+1, b, 1, h, w), real) as numpy. PNG dumps
-    are not ported."""
+    the real images are ``x_test``, or ``x_train`` under the protocol's
+    ``real_from_train``. Returns (generated (iters+1, b, 1, h, w), real) as
+    numpy. PNG dumps are not ported."""
     print("Testing model")
     s = args.img_size
     if grid is None:
+        t0 = time.perf_counter()
         grid = diff.eval().sample(first_x=first_x.to(diff.net.device),
-                                  n_iters=tau_test, only_last=False)
+                                  n_iters=tau_test, only_last=False).cpu()
+        wall = time.perf_counter() - t0
+        print(f"sampled {len(first_x)} images x {tau_test} iterations on "
+              f"{diff.net.device} in {wall:.3f} s "
+              f"({len(first_x) / max(wall, 1e-9):.2f} images/s)")
     grid = torch.as_tensor(np.asarray(grid.cpu() if torch.is_tensor(grid)
                                       else grid))
     outp = torch.clamp(torch.clamp(grid, 0.0, 1.0) * 255.0, 0.0, 255.0)
@@ -358,7 +414,8 @@ def test(diff, args, x_test, first_x, tau_test: int = 15,
             gmin = g.reshape(len(g), -1).min(1)[:, None, None, None]
             gmax = g.reshape(len(g), -1).max(1)[:, None, None, None]
             gen[step] = (g - gmin) / (gmax - gmin + 1e-7)
-    real = np.asarray(x_test).reshape(-1, 1, s, s)
+    real_src = x_train if protocol.real_from_train else x_test
+    real = np.asarray(real_src).reshape(-1, 1, s, s)
     rmin = real.reshape(len(real), -1).min(1)[:, None, None, None]
     rmax = real.reshape(len(real), -1).max(1)[:, None, None, None]
     real = (real - rmin) / (rmax - rmin + 1e-7)
@@ -408,13 +465,20 @@ def load_outp(diff, load_path, noise_intensity, backend: str = "dm"):
         return None
 
 
-def run_labels(args, labels, *, tau_test: int = 15):
+def run_labels(args, labels, *, augment_to: Optional[int] = None,
+               tau_test: int = 15,
+               protocol: ScoreProtocol = MNIST_PROTOCOL):
     """The reference drivers' main loop (src/mnist_exm.py:334-503): per
-    label, load, split 80/20, and per model build, resume, train, save and
-    sample. Returns ``{model key: {"loss": [...], "generated": [...],
-    "real": [...]}}``, one entry per label in each list. The scores are in
-    ``metrics.py``; the driver's plots need matplotlib and are not ported:
-    one line says so."""
+    label, load, split 80/20, augment the training split to ``augment_to``
+    images by rotation (the rebuttal drivers), and per model build,
+    resume, train, save, sample and score as ``protocol`` says. Returns
+    ``{model key: {"loss", "generated", "real", "ssim", "psnr", "cos"}}``,
+    one entry per label in each list: the epoch losses, the sampled and
+    real images (``test``), and the last iteration's scores over the
+    protocol's (gen, real) pair counts, NaN for PSNR and cosine under a
+    protocol without them (the rebuttal drivers score SSIM only). A label
+    with no images raises ``ValueError``, as in the JAX package. The
+    drivers' plots need matplotlib and are not ported: one line says so."""
     validate_args(args)
     device = resolve_device(args.device)
     original_save, original_load = args.save_path, args.load_path
@@ -425,8 +489,10 @@ def run_labels(args, labels, *, tau_test: int = 15):
         return margs[0] if names.count(margs[0]) == 1 else f"{margs[0]}#{i}"
 
     results: Dict[str, Dict[str, list]] = {
-        model_key(i, m): {"loss": [], "generated": [], "real": []}
+        model_key(i, m): {k: [] for k in ("loss", "generated", "real",
+                                          "ssim", "psnr", "cos")}
         for i, m in enumerate(args.model)}
+    gc, rc = protocol.gen_count, protocol.real_count
     for label in labels:
         args.label = label
         print(args)
@@ -441,9 +507,15 @@ def run_labels(args, labels, *, tau_test: int = 15):
                 f"label {label} has no images in dataset {args.data!r} "
                 f"(available labels: {sorted(set(int(v) for v in y_all))})")
         x_lab = x_lab[: int(len(x_lab) * args.reduced_size)]
+        y_lab = y_lab[: len(x_lab)]
         print(f"description of dataset: len of x_train: {x_lab.shape}\n")
         cutoff = int(len(x_lab) * 0.8)
         x_train, x_test = x_lab[:cutoff], x_lab[cutoff:]
+        y_train = y_lab[:cutoff]
+        if augment_to:
+            x_train, y_train = augment_rotation(
+                x_train, y_train, height, width, augment_to, args.seed)
+            print(f"After augmentation, x_train shape: {x_train.shape}")
         first_x = make_first_x(args)
         if args.batch_size > len(x_train):
             print(f"Warning: batch size ({args.batch_size}) is bigger than "
@@ -468,13 +540,27 @@ def run_labels(args, labels, *, tau_test: int = 15):
                   f"left {args.epochs - start_epoch}")
             loss_values = train(diff, args, x_train, start_epoch,
                                 loss_values)
-            generated, real = test(diff, args, x_test, first_x,
-                                   tau_test=tau_test)
+            generated, real = test(diff, args, x_train, x_test, first_x,
+                                   tau_test=tau_test, protocol=protocol)
+            # the results keep each score's last iteration only
+            last = generated[-1:]
+            nan = float("nan")
+            scores = {"ssim": float(metrics.ssim_iterations(
+                last, real, gc, rc)[-1])}
+            scores["psnr"] = (float(metrics.psnr_iterations(
+                last, real, gc, rc)[-1]) if protocol.psnr_cos else nan)
+            scores["cos"] = (float(metrics.cosine_iterations(
+                last, real, gc, rc)[-1]) if protocol.psnr_cos else nan)
+            print(f"label {label} {diff.save_name()}: last iteration's SSIM "
+                  f"{scores['ssim']:.6f}, PSNR {scores['psnr']:.6f}, cosine "
+                  f"{scores['cos']:.6f} (gen {gc}, real {rc})")
             entry = results[model_key(mi, model_args)]
             entry["loss"].append(loss_values)
             entry["generated"].append(generated)
             entry["real"].append(real)
+            for k, v in scores.items():
+                entry[k].append(v)
     args.save_path, args.load_path = original_save, original_load
-    print(f"the SSIM/PSNR/cosine plots and histograms are not ported "
+    print(f"the loss/SSIM/PSNR/cosine plots and histograms are not ported "
           f"({_NOT_PORTED})")
     return results

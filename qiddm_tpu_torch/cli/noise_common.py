@@ -184,7 +184,7 @@ def _run_noise_sweep(args, *, noise_types, intensities, tau_test,
                 print(f"\nTest for add_noise: {add_noise}, "
                       f"intensity {intensity}")
                 generated, real = common.test(
-                    diff, args, x_test, first_x,
+                    diff, args, x_train, x_test, first_x,
                     tau_test=tau_test, save_images=False,
                     grid=grids[intensity], protocol=common.NOISE_PROTOCOL)
                 # the results keep each score's last iteration only, so

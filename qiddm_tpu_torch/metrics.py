@@ -11,8 +11,12 @@ runs scipy's ``sqrtm`` on the host, as in the JAX package.
 
 Inputs: generated images (iters, n_gen, 1, H, W) and real images
 (n_real, 1, H, W); each ``*_iterations`` returns one score per iteration,
-the mean over every (generated, real) pair. The plots (``show_metrics``)
-need matplotlib and are not ported.
+the mean over every (generated, real) pair. The reference's dict API
+(``get_ssim``, ``get_psnr``, ``get_cosine_similarity``, ``get_fid`` and
+``map_model_name``; ``qiddm_tpu/metrics.py:204-269``) scores a dict of
+models at once. The plots (``show_metrics``, ``show_histogram``) need
+matplotlib and are not ported: where the JAX package would plot, one line
+says so.
 """
 
 from __future__ import annotations
@@ -148,3 +152,68 @@ def fid_iterations(generated_images, real_images, gen_img_count=None,
     return np.asarray([calculate_fid(gen[it], real, gen.shape[1],
                                      real.shape[0])
                        for it in range(gen.shape[0])])
+
+
+def map_model_name(model_name):
+    """The papers' name of a model (reference src/metrics.py:24-59)."""
+    mapping = {
+        "UNetUndirected": "U-net",
+        "differN_noise": "QIDDMA",
+        "QDenseUndirected_old_noise": "Qdense",
+        "QIDDM_PL_noise": "QIDDML",
+        "QNN_noise": "QNN",
+    }
+    if model_name is None:
+        return model_name
+    if model_name in mapping:
+        return mapping[model_name]
+    low = model_name.lower()
+    for part, name in (("differn", "QIDDMA"), ("qdenseundirected", "Qdense"),
+                       ("qiddm_pl", "QIDDML"), ("qnn", "QNN"),
+                       ("unet_undirected", "U-net")):
+        if part in low:
+            return name
+    return model_name
+
+
+def _dict_metric(metric_fn, generated_images_dict, real_images_dict, args,
+                 gen_img_count, real_img_count, name):
+    """``{model: [score per iteration]}`` of ``metric_fn`` over a dict of
+    generated grids and their real images. Given ``args``, the JAX package
+    also plots the curves: here one line says that is not ported."""
+    values = {
+        model: [float(v) for v in metric_fn(
+            gen, real_images_dict[model], gen_img_count, real_img_count)]
+        for model, gen in generated_images_dict.items()}
+    if args is not None:
+        print(f"the {name} plot needs matplotlib and is not ported "
+              f"(ROADMAP Queue 1 item 10)")
+    return values
+
+
+def get_ssim(generated_images_dict, real_images_dict, args=None,
+             gen_img_count=None, real_img_count=None):
+    return _dict_metric(ssim_iterations, generated_images_dict,
+                        real_images_dict, args, gen_img_count,
+                        real_img_count, "SSIM")
+
+
+def get_psnr(generated_images_dict, real_images_dict, args=None,
+             gen_img_count=None, real_img_count=None):
+    return _dict_metric(psnr_iterations, generated_images_dict,
+                        real_images_dict, args, gen_img_count,
+                        real_img_count, "PSNR")
+
+
+def get_cosine_similarity(generated_images_dict, real_images_dict, args=None,
+                          gen_img_count=None, real_img_count=None):
+    return _dict_metric(cosine_iterations, generated_images_dict,
+                        real_images_dict, args, gen_img_count,
+                        real_img_count, "Cosine Similarity")
+
+
+def get_fid(generated_images_dict, real_images_dict, args=None,
+            gen_img_count=None, real_img_count=None):
+    return _dict_metric(fid_iterations, generated_images_dict,
+                        real_images_dict, args, gen_img_count,
+                        real_img_count, "fid")

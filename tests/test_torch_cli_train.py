@@ -8,6 +8,7 @@ with the port's to <= 1e-4 (a 3 -> 64 linear over two blocks of 4 gate
 layers in float32, through independent formulations of the circuit).
 """
 
+import json
 import pathlib
 import sys
 
@@ -70,8 +71,7 @@ def test_mnist_8x8_and_digits_fallback_match_jax():
         want = jdata._digits_fallback(28, "mnist")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert set(tdata.ALL_LOADERS) == {"mnist_8x8", "mnist_28x28",
-                                      "fashion_28x28"}
+    assert set(tdata.ALL_LOADERS) == set(jdata.ALL_LOADERS)
 
 
 def _hide_disk_data(monkeypatch, tmp_path):
@@ -207,11 +207,24 @@ def test_checkpoint_every_saves_each_segment(driver_env, monkeypatch):
     ["--profile", "trace"],
     ["--noise-backend", "traj"],
     ["--add_noise", "1", "--noise-backend", "traj"],
-    ["--data", "emnist_28x28"],
+    ["--data", "no_such_dataset"],
 ], ids=["orbax", "QNN_noise", "vmap", "profile", "traj", "add_noise",
         "dataset"])
 def test_unported_runs_are_rejected_before_any_work(driver_env, monkeypatch,
                                                     extra):
+    """The unported flags are rejected before any data is loaded; so is an
+    unknown dataset (every JAX loader is ported). ``--profile`` is ported:
+    a CPU run writes a torch.profiler trace of its training."""
+    if extra[0] == "--profile":
+        tmnist.main(_driver_args(driver_env, "--epochs", "1",
+                                 "--profile", str(driver_env / "trace")))
+        traces = list((driver_env / "trace").glob("trace_*.json"))
+        assert len(traces) == 1
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        assert any(e.get("name") == "aten::backward" or "Backward" in
+                   e.get("name", "") for e in events)
+        return
+
     def no_data(args):
         raise AssertionError("data loaded before the run was rejected")
 
@@ -225,7 +238,8 @@ def test_unported_runs_are_rejected_before_any_work(driver_env, monkeypatch,
         tcommon.validate_args(args)
         assert args.noise_backend == "traj" and args.n_traj == 100
         return
-    with pytest.raises(SystemExit, match="not ported"):
+    match = "unknown dataset" if extra[0] == "--data" else "not ported"
+    with pytest.raises(SystemExit, match=match):
         tmnist.main(argv + extra)
     assert not list(driver_env.rglob("*.pt"))
 

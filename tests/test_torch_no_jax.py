@@ -25,7 +25,16 @@ def test_importing_every_module_leaves_jax_out():
             "qiddm_tpu_torch.tools.probe_kernels",
             "qiddm_tpu_torch.tools.unet_precision",
             "qiddm_tpu_torch.nn.unet", "qiddm_tpu_torch.nn.qconv",
-            "qiddm_tpu_torch.nn.conv", "qiddm_tpu_torch.nn.utils"} <= set(mods)
+            "qiddm_tpu_torch.nn.conv", "qiddm_tpu_torch.nn.utils",
+            "qiddm_tpu_torch.sweep", "qiddm_tpu_torch.profiler",
+            "qiddm_tpu_torch.cli.fashion_exm",
+            "qiddm_tpu_torch.cli.emnist_exm",
+            "qiddm_tpu_torch.cli.rebuttal_common",
+            "qiddm_tpu_torch.cli.bloodmnist",
+            "qiddm_tpu_torch.cli.PneumoniaMNIST",
+            "qiddm_tpu_torch.cli.fruit_360", "qiddm_tpu_torch.cli.logo2kplus",
+            "qiddm_tpu_torch.cli.mnist_ray",
+            "qiddm_tpu_torch.cli.fashion_ray"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

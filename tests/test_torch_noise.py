@@ -555,7 +555,7 @@ def test_test_under_the_noise_protocol_matches_jax():
         want = jcommon.test(None, Args, x_train, x_test, None, tau_test=2,
                             save_images=False, grid=grid,
                             protocol=getattr(jcommon, f"{proto}_PROTOCOL"))
-        got = tcommon.test(None, Args, x_test, None, tau_test=2,
+        got = tcommon.test(None, Args, x_train, x_test, None, tau_test=2,
                            save_images=False, grid=grid,
                            protocol=getattr(tcommon, f"{proto}_PROTOCOL"))
         for g, w in zip(got, want):
