@@ -170,7 +170,8 @@ any failure exits non-zero and no phase's failure is caught:
    card with the driver's generator, recorded, and held against the cached
    grid, and on the CPU plain path with those draws and picks within 1e-4
    (QIDDM_PL_noise1 step by step, as in phase 13);
-18. times: median of 20 runs of each kernel and of its plain version (the
+18. times: median of 20 runs of each kernel and of its plain version (of 3
+   where a plain call takes 10 ms or more), better of two rounds (the
    gate-chain forward at w=6, B=16, L*k=28 and its backward at B=10 and
    B=16 and at QIDDM-A's w=10, B=80, L*k=28 (#1-#4 also behind a spin
    kernel, with their plans); the SEL chain forward and backward at w=8, depth 14, B=10 and 16,
@@ -441,7 +442,44 @@ any failure exits non-zero and no phase's failure is caught:
    launches no port kernel, and each scoring iteration (15 rows) 2 #1; the
    tune_results artifacts checked against their schema, and trial 0's
    first three steps (its seed and learning rate) held against the CPU
-   within 1e-4.
+   within 1e-4;
+42-46. the simulator past the kernels' widths, the routes no kernel takes,
+   which the JAX package runs in XLA (engine.ROUTE_CALLS counts their
+   calls: "wide" the grouped chain, "adjoint" the per-gate adjoint chain,
+   "gates" sel_apply_gates, "amp_xla" the PyTorch amplitude-damping pass):
+42. QNN_noise 784 16 14 through mnist_exm (batch 1, tau 10, one epoch) and
+   sampled through the CLI: sel_chain_wide at 16 wires, one call a step and
+   an iteration, no #5/#6 launch; 3 training steps and the sampled batch
+   held against the CPU within 1e-4;
+43. QIDDM_PL_noise1 784 12 6 2 through mnist_exm --batch_size 8 (80 rows,
+   below 2^12) and sampled: the grouped chain's RY encode, 2 calls a step
+   and an iteration, no #3/#4 launch; 3 steps of 8 images held against the
+   CPU, and every sampled iteration step by step given the card's PCA fit
+   of the batch (as phase 36 holds the refit classes);
+44. bench_wide_reupload's block (RZ, CZ, L 14, k 2, batch 8, PauliZ, the
+   MSE, SGD 0.01) at 22 wires, the first width past #11/#12, 5 steps on the
+   grouped chain: steps/s, the peak device memory within 12 states (one is
+   2^22 x 8 x 8 B), no kernel launch, TF32 off; the same block at L 1, k 1,
+   batch 1 against the CPU's float64 (forward 1e-5, gradients 1e-4
+   relative), with the CPU's float32 and the card's TF32 forward printed; a CNOT ring at 16 wires
+   (L 2, k 2, batch 8) on the grouped chain and, under
+   config.set_wide_mode("off"), on the per-gate adjoint chain, the two held
+   within 1e-5 on the card (loss and gradients), steps/s for each;
+45. path A at 14 wires (bench_traj_noisy_sampling(wires=14)):
+   QIDDM_LL_noise 784 14 6 2, amplitude damping 0.05, 10 images x 100
+   trajectories x 15 iterations through Diffusion.sample: sel_apply_gates
+   and the PyTorch amplitude-damping pass 12 times an iteration each, no
+   #5 or #7 launch; images/s; one iteration at 10 trajectories held
+   against the CPU on the card's recorded draws and picks within 1e-4;
+46. (a) the density-matrix backend at 12 wires: QIDDM_LL_noise 784 12 6 2
+   with amplitude damping 0.3, 2 images x 3 iterations: #5 on both sides
+   of rho, 24 launches an iteration, no #8; one image's iteration held
+   within 1e-4 against the same model in complex128 on the card (the dm
+   route's sel_apply_gates; the CPU would take ~3 min), and one spectrum
+   layer (L 1, k 2, one image) against the CPU within 1e-5; (b) QIDDM-A (differN_noise 28 9 2) under
+   config.enable_x64(True): the complex128 grouped chain at 10 wires, a
+   forward and a training step's loss and gradients against the CPU's
+   float64 within 1e-10 and 1e-8 relative; the five phases' walls.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -724,6 +762,18 @@ DRIVER_IMAGES = 10
 SWEEP_BATCH, SWEEP_SCORE_ITERS = 8, 5
 SWEEP_RESULT_KEYS = {"loss", "ssim", "training_iteration", "time_total_s",
                      "node_ip", "trial_id", "early_stopped"}
+# phases 42-46: the routes no kernel takes
+QNN16 = ["QNN_noise", "784", "16", "14"]          # sel_chain_wide
+PL12 = ["QIDDM_PL_noise1", "784", "12", "6", "2"]  # the RY grouped chain
+PL12_BATCH = 8
+# bench_wide_reupload's block past #11/#12: (wires, L, k, batch), 5 steps
+WIDE22, WIDE22_STEPS = (22, 14, 2, 8), 5
+WIDE22_STATES = 12  # the step's peak device memory, in states
+CNOT16, CNOT16_STEPS = (16, 2, 2, 8), 5
+TRAJ14_MODEL = ["QIDDM_LL_noise", "784", "14", "6", "2"]
+TRAJ14_HELD = 10    # trajectories in the CPU hold of one iteration
+DM12_MODEL = ["QIDDM_LL_noise", "784", "12", "6", "2"]
+DM12_STRENGTH, DM12_IMAGES, DM12_ITERS = 0.3, 2, 3
 PAIRS = 20          # each kernel against its library call, in turns
 WIDE_PAIRED = (16, 10, 28)  # #9-#12's (w, B, L*k) in the pairs
 
@@ -747,6 +797,7 @@ def reset_counts() -> None:
     unitary_kernel.UNITARY_LAUNCHES = 0
     unitary_kernel.UNITARY_BWD_LAUNCHES = 0
     probe_kernels.reset_launches()
+    engine.reset_route_calls()
 
 
 def read_counts() -> dict:
@@ -765,7 +816,9 @@ def read_counts() -> dict:
             "wide_mono": wide_kernel.WIDE_MONO_LAUNCHES,
             "wide_mono_bwd": wide_kernel.WIDE_MONO_BWD_LAUNCHES,
             "unitary": unitary_kernel.UNITARY_LAUNCHES,
-            "unitary_bwd": unitary_kernel.UNITARY_BWD_LAUNCHES}
+            "unitary_bwd": unitary_kernel.UNITARY_BWD_LAUNCHES,
+            # calls of the routes no kernel takes (engine.ROUTE_CALLS)
+            **{f"route_{k}": n for k, n in engine.ROUTE_CALLS.items()}}
 
 
 def chain_inputs(rng, wires: int, batch: int, n_layers: int, device):
@@ -1758,7 +1811,8 @@ def _tf32():
 def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
                  per_iter: int, held: int,
                  ckpt: pathlib.Path | None = None,
-                 floor64: bool = False) -> tuple[dict, float]:
+                 floor64: bool = False,
+                 shared_fit: bool = False) -> tuple[dict, float]:
     """Sample ``margs`` through the sampling CLI on cuda, from ``ckpt`` or
     from the seeded model's weights; returns the launch counts of the run
     and the steady images/s. With ``held`` = 0 the CPU plain path is held
@@ -1771,7 +1825,13 @@ def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
     float64 step), and the free-running drift is not computed; the same
     steps on the card with TF32 on must lie outside that limit, and the
     card's float64 steps within X64_TOL of the CPU's: the card runs the same
-    function, and float32 rounding is all that parts the two."""
+    function, and float32 rounding is all that parts the two. With
+    ``shared_fit`` (a model that refits a PCA on every batch) each held
+    iteration is the card's step from the batch against the CPU's given
+    the card's PCA fit of it, as phase_zoo holds the refit classes:
+    cuSOLVER's and LAPACK's float32 ``eigh`` part where the spectrum is
+    close (ROADMAP Queue 3); the CPU's steps from its own fit are printed
+    beside."""
     net = common.build_model(margs, seed=SEED, device="cuda")
     if ckpt is None:
         ckpt = save_checkpoint(tmp / f"{net.save_name()}.pt",
@@ -1825,9 +1885,21 @@ def phase_sample(tmp: pathlib.Path, margs: list, side: int, counter: str,
         cpu_steps = [cpu_net(stack[t]) for t in range(held)]
         err = max((want - stack[t + 1]).abs().max().item()
                   for t, want in enumerate(cpu_steps))
+        if shared_fit:
+            own, err = err, 0.0
+            for t in range(held):
+                x = stack[t].to("cuda")
+                fit = pca_fit(x.reshape(N, -1), net.module.hidden)
+                with _shared_pca(PCAState(fit.mean.cpu(),
+                                          fit.components.cpu())):
+                    want = cpu_net(stack[t])
+                err = max(err, (want - net(x).cpu()).abs().max().item())
+            print(f"sample {margs[0]}: from the CPU's own PCA fit of each "
+                  f"batch {own:.3e}, not held")
         print(f"sample {margs[0]}: each of the first {held} iterations from "
-              f"the card's batch against the CPU plain path max|diff| "
-              f"{err:.3e}")
+              f"the card's batch against the CPU plain path"
+              + (" given the card's PCA fit of the batch" if shared_fit
+                 else "") + f" max|diff| {err:.3e}")
     tol = SAMPLE_TOL
     if floor64:
         cpu64 = copy.deepcopy(cpu_net).double()
@@ -2070,15 +2142,17 @@ def phase_sweep_parity(tmp: pathlib.Path, prefix: str, models: list,
 
 def phase_train(tmp: pathlib.Path, n_train: int, models: list,
                 per_step: dict, default: bool,
-                prefix: str = "") -> tuple[dict, dict]:
+                prefix: str = "", epochs: int = EPOCHS,
+                batch: int = 1) -> tuple[dict, dict]:
     """mnist_exm on ``models`` (its default model list with ``default``,
-    else given with --model), saving under ``tmp``/``prefix``; returns the
-    launch counts of the training run and each model's training images/s
-    in its second epoch. ``per_step`` is the least number of launches of
-    each counter per training step."""
-    argv = ["--epochs", str(EPOCHS), "--checkpoint-every", "1", "--device",
+    else given with --model) for ``epochs`` epochs at ``batch`` images a
+    step, saving under ``tmp``/``prefix``; returns the launch counts of the
+    training run and each model's training images/s in its last epoch.
+    ``per_step`` is the least number of launches of each counter per
+    training step."""
+    argv = ["--epochs", str(epochs), "--checkpoint-every", "1", "--device",
             "cuda", "--save-path", f"{tmp}/{prefix}", "--load-path",
-            f"{tmp}/{prefix}"]
+            f"{tmp}/{prefix}", "--batch_size", str(batch)]
     if not default:
         for margs in models:
             argv += ["--model", *margs]
@@ -2088,7 +2162,7 @@ def phase_train(tmp: pathlib.Path, n_train: int, models: list,
         results = mnist_exm.main(argv)
     counts = read_counts()
     print(printed.getvalue().strip())
-    steps = EPOCHS * n_train
+    steps = epochs * -(-n_train // batch)
     print(f"train: {steps} steps per model, launches {counts}")
     names = [margs[0] for margs in models]
     if sorted(results) != sorted(names):
@@ -2096,8 +2170,8 @@ def phase_train(tmp: pathlib.Path, n_train: int, models: list,
     for name in names:
         losses = results[name]["loss"][0]
         print(f"train: {name} epoch losses {losses}")
-        if len(losses) != EPOCHS or not all(math.isfinite(v) for v in losses):
-            fail(f"{name} epoch losses {losses} are not {EPOCHS} finite "
+        if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
+            fail(f"{name} epoch losses {losses} are not {epochs} finite "
                  f"values")
     for counter, per in per_step.items():
         if counts[counter] < per * steps:
@@ -2117,11 +2191,11 @@ def phase_train(tmp: pathlib.Path, n_train: int, models: list,
             fail(f"the trained {margs[0]} checkpoint did not serve 4 finite "
                  f"images")
     walls = re.findall(r"trained 1 epochs in ([0-9.]+)s", printed.getvalue())
-    if len(walls) != len(models) * EPOCHS:
+    if len(walls) != len(models) * epochs:
         fail(f"mnist_exm printed {len(walls)} epoch times, not "
-             f"{len(models) * EPOCHS}")
-    # the models train in turn, each for EPOCHS epochs
-    rates = {name: n_train / float(walls[(i + 1) * EPOCHS - 1])
+             f"{len(models) * epochs}")
+    # the models train in turn, each for ``epochs`` epochs
+    rates = {name: n_train / float(walls[(i + 1) * epochs - 1])
              for i, name in enumerate(names)}
     return counts, rates
 
@@ -3003,20 +3077,30 @@ def _median_ms(fn, runs: int = 20) -> float:
     return float(np.median(times))
 
 
+# A plain version of SLOW_PLAIN_MS or more a call (the Python walks over
+# the gates take up to 1.5 s) is timed over SLOW_PLAIN_RUNS calls a round:
+# 41 calls of each cost the script over 300 s, and that time only stands
+# beside its kernel's, hundreds of times shorter.
+SLOW_PLAIN_MS = 10.0
+SLOW_PLAIN_RUNS = 3
+
+
 def _paired_ms(kernel, plain) -> tuple[float, float]:
-    """Median-of-20 ms of each, plain-kernel-kernel-plain, better of two
-    rounds."""
-    for fn in (kernel, plain):  # warm up
-        fn()
+    """Median-of-20 ms of each (of SLOW_PLAIN_RUNS for a slow plain
+    version), plain-kernel-kernel-plain, better of two rounds."""
+    kernel()  # warm up; the plain's warm-up call also sizes its runs
+    runs = 20 if _median_ms(plain, 1) < SLOW_PLAIN_MS else SLOW_PLAIN_RUNS
     torch.cuda.synchronize()
-    plain_ms = _median_ms(plain)
+    plain_ms = _median_ms(plain, runs)
     kernel_ms = _median_ms(kernel)
     kernel_ms = min(kernel_ms, _median_ms(kernel))
-    plain_ms = min(plain_ms, _median_ms(plain))
+    plain_ms = min(plain_ms, _median_ms(plain, runs))
     return kernel_ms, plain_ms
 
 
-_HOW = "median of 20, better of two rounds, plain-kernel-kernel-plain"
+_HOW = (f"median of 20 (of {SLOW_PLAIN_RUNS} for a plain version of "
+        f"{SLOW_PLAIN_MS:g} ms or more), better of two rounds, "
+        f"plain-kernel-kernel-plain")
 
 # Arithmetic of the chains, counted from the algorithm, per sample and per
 # d = 2^w amplitudes: a complex 2x2 gate on all d/2 pairs of one wire is
@@ -4590,6 +4674,423 @@ def phase_ray(tmp: pathlib.Path, n_train: int, smi: str) -> dict:
     return runs
 
 
+def _routes(counts: dict) -> dict:
+    """The route counters of ``counts`` that moved."""
+    return {c[len("route_"):]: n for c, n in counts.items()
+            if c.startswith("route_") and n}
+
+
+def _kernels(counts: dict) -> dict:
+    """The kernel launch counters of ``counts`` that moved."""
+    return {c: n for c, n in counts.items()
+            if n and not c.startswith("route_")}
+
+
+def phase_wide_qnn(tmp: pathlib.Path, n_train: int, smi: str) -> tuple:
+    """Phase 42: QNN_noise 784 16 14, past the SEL chain's 12 wires, trained
+    through mnist_exm for one epoch and sampled through the CLI on
+    ``wide.sel_chain_wide``; returns the training and sampling counts and
+    images/s."""
+    t0 = time.perf_counter()
+    counts, rates = phase_train(tmp, n_train, [QNN16], {"route_wide": 1},
+                                default=False, prefix="qnn16_", epochs=1)
+    if _kernels(counts) or set(_routes(counts)) != {"wide"}:
+        fail(f"QNN_noise at 16 wires trained with launches {counts}: not on "
+             f"the grouped chain alone")
+    with torch.no_grad():
+        sampled, rate = phase_sample(tmp, QNN16, 28, "route_wide", 1, 0)
+    if _kernels(sampled) or set(_routes(sampled)) != {"wide"}:
+        fail(f"QNN_noise at 16 wires sampled with launches {sampled}")
+    _, parity = phase_train_parity(tmp, QNN16, 1)
+    if _kernels(parity):
+        fail(f"QNN_noise's held steps launched {_kernels(parity)}")
+    train_rate = rates[QNN16[0]]
+    print(f"phase 42 {' '.join(QNN16)}: sel_chain_wide at 16 wires, no #5/#6 "
+          f"launch; training {train_rate:.1f} images/s in its first epoch "
+          f"(batch 1, tau {TAU}), sampling {rate:.1f} images/s ({N} images x "
+          f"{ITERS} iterations a batch); phase wall "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+    return counts, sampled, train_rate, rate
+
+
+def phase_wide_pl(tmp: pathlib.Path, n_train: int, smi: str) -> tuple:
+    """Phase 43: QIDDM_PL_noise1 784 12 6 2 at batch 8 (80 rows < 2^12):
+    past the RY chain's 10 wires, the grouped chain's RY encode; trained
+    through mnist_exm for one epoch, sampled and held step by step (the
+    PCA is refit on every batch)."""
+    t0 = time.perf_counter()
+    counts, rates = phase_train(tmp, n_train, [PL12], {"route_wide": 2},
+                                default=False, prefix="pl12_", epochs=1,
+                                batch=PL12_BATCH)
+    if _kernels(counts) or set(_routes(counts)) != {"wide"}:
+        fail(f"QIDDM_PL_noise1 at 12 wires trained with launches {counts}: "
+             f"not on the grouped chain alone")
+    with torch.no_grad():
+        sampled, rate = phase_sample(tmp, PL12, 28, "route_wide", 2, ITERS,
+                                     shared_fit=True)
+    if _kernels(sampled) or set(_routes(sampled)) != {"wide"}:
+        fail(f"QIDDM_PL_noise1 at 12 wires sampled with launches {sampled}")
+    _, parity = phase_train_parity(tmp, PL12, PL12_BATCH)
+    if _kernels(parity):
+        fail(f"QIDDM_PL_noise1's held steps launched {_kernels(parity)}")
+    train_rate = rates[PL12[0]]
+    print(f"phase 43 {' '.join(PL12)}: the RY grouped chain at 12 wires, no "
+          f"#3/#4 launch; training {train_rate:.1f} images/s in its first "
+          f"epoch (batch {PL12_BATCH}, tau {TAU}), sampling {rate:.1f} "
+          f"images/s; phase wall {time.perf_counter() - t0:.1f} s ({smi})")
+    return counts, sampled, train_rate, rate
+
+
+def _block_step(x, tgt, imprimitive: str):
+    """bench_wide_reupload's step: the block's PauliZ readout, the MSE to
+    ``tgt``, autograd and an SGD step at 0.01. Returns (new weights, loss,
+    gradient)."""
+    def step(w):
+        w = w.detach().requires_grad_(True)
+        out = engine.reupload_block(x, w, encode="rz",
+                                    imprimitive=imprimitive,
+                                    readout="expvalz")
+        loss = ((out - tgt) ** 2).mean()
+        loss.backward()
+        return (w - 0.01 * w.grad).detach(), loss.detach(), w.grad
+    return step
+
+
+def _block_inputs(wires, L, k, b, device="cuda"):
+    gen = torch.Generator().manual_seed(SEED)
+    w = (torch.randn((L, k, wires, 3), generator=gen) * 0.4).to(device)
+    x = torch.rand((b, wires), generator=gen).to(device)
+    tgt = torch.rand((b, wires), generator=gen).to(device)
+    return w, x, tgt
+
+
+def _timed_steps(step, w, n: int) -> tuple:
+    """``n`` steps after a warm one, from counts of 0; returns (weights,
+    losses, counts, wall s, peak device bytes in the timed steps)."""
+    w, _, _ = step(w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        w, loss, _ = step(w)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    return (w, [v.item() for v in losses], counts, wall,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_wide_block(smi: str) -> tuple:
+    """Phase 44: bench_wide_reupload's block at 22 wires on the grouped
+    chain (steps/s, peak memory, the CPU hold at L 1, k 1, batch 1, TF32
+    off) and a CNOT ring at 16 wires on the grouped and the per-gate
+    adjoint chains."""
+    t0_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 products: the grouped chain would "
+             "round its products to TF32")
+    wires, L, k, b = WIDE22
+    w, x, tgt = _block_inputs(wires, L, k, b)
+    base = torch.cuda.memory_allocated()
+    w_end, losses, counts, wall, peak = _timed_steps(
+        _block_step(x, tgt, "cz"), w, WIDE22_STEPS)
+    state = b * 2**wires * 8
+    rate = WIDE22_STEPS / wall
+    print(f"phase 44 wide block w={wires} (L={L}, k={k}, batch {b}, RZ, CZ, "
+          f"PauliZ, MSE, SGD 0.01): {WIDE22_STEPS} steps in {wall:.3f} s, "
+          f"{rate:.3f} steps/s; losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"peak device memory {peak / 2**20:.1f} MiB = {peak / state:.2f} "
+          f"states of {state / 2**20:.1f} MiB ({(peak - base) / state:.2f} "
+          f"above the {base / 2**20:.1f} MiB held before the steps; autograd "
+          f"through the gates would keep L*k*w = {L * k * wires}); launches "
+          f"{counts} ({smi})")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"the {wires}-wire block's losses are not finite: {losses}")
+    if _kernels(counts) or _routes(counts) != {"wide": WIDE22_STEPS}:
+        fail(f"the {wires}-wire block ran {counts}, not {WIDE22_STEPS} "
+             f"grouped chains and no kernel")
+    if not peak <= WIDE22_STATES * state:
+        fail(f"the {wires}-wire step's peak device memory {peak} B is above "
+             f"{WIDE22_STATES} states ({WIDE22_STATES * state} B)")
+    # the same block at L 1, k 1, batch 1 against the CPU plain path in
+    # float64 (the readout sums 2^22 float32 terms: the CPU's own float32
+    # sum is printed beside as its floor)
+    outs, grads = {}, {}
+    for dev, x64 in (("cuda", False), ("cpu", False), ("cpu", True)):
+        dtype = torch.float64 if x64 else torch.float32
+        ww = w[:1, :1].detach().to(dev, dtype).requires_grad_(True)
+        config.enable_x64(x64)
+        try:
+            out = engine.reupload_block(x[:1].to(dev, dtype), ww,
+                                        readout="expvalz")
+            ((out - tgt[:1].to(dev, dtype)) ** 2).mean().backward()
+        finally:
+            config.enable_x64(False)
+        outs[dev, x64] = out.detach().cpu().double()
+        grads[dev, x64] = ww.grad.cpu().double()
+    exact = ("cpu", True)
+    fwd_err = (outs["cuda", False] - outs[exact]).abs().max().item()
+    floor = (outs["cpu", False] - outs[exact]).abs().max().item()
+    grad_err = _rel(grads["cuda", False], grads[exact])
+    with torch.no_grad(), _tf32():
+        control = (engine.reupload_block(x[:1], w[:1, :1], readout="expvalz")
+                   .cpu().double() - outs[exact]).abs().max().item()
+    print(f"phase 44 wide block w={wires} at L 1, k 1, batch 1 against the "
+          f"CPU plain path's float64: forward max|diff| {fwd_err:.3e} (held "
+          f"within {KERNEL_TOL}; the CPU's float32 {floor:.3e}), gradient "
+          f"max|diff| / max(1, max|cpu|) {grad_err:.3e} (within "
+          f"{TRAIN_TOL}); control, the card's forward with TF32 on, "
+          f"{control:.3e}")
+    if not control > KERNEL_TOL:
+        fail(f"phase 44's control passed the hold: the card's forward with "
+             f"TF32 on lies {control:.3e} <= {KERNEL_TOL} from float64, so "
+             f"the hold cannot tell TF32 from float32")
+    if not (fwd_err <= KERNEL_TOL and grad_err <= TRAIN_TOL):
+        fail(f"the {wires}-wire block on the card differs from the CPU: "
+             f"forward {fwd_err:.3e}, gradient {grad_err:.3e}")
+    del w, w_end, x, tgt, outs, grads
+    # a CNOT ring at 16 wires: the grouped chain, then the per-gate adjoint
+    # chain (wide_mode "off"), from the same weights
+    wires, L, k, b = CNOT16
+    w, x, tgt = _block_inputs(wires, L, k, b)
+    step = _block_step(x, tgt, "cnot")
+    runs, rates = {}, {}
+    for mode, route in (("auto", "wide"), ("off", "adjoint")):
+        config.set_wide_mode(mode)
+        try:
+            _, loss, grad = step(w)
+            torch.cuda.synchronize()
+            reset_counts()
+            step(w)
+            one = read_counts()
+            _, losses, counts, wall, _ = _timed_steps(step, w, CNOT16_STEPS)
+        finally:
+            config.set_wide_mode("auto")
+        runs[route] = (loss.item(), grad.cpu())
+        rates[route] = CNOT16_STEPS / wall
+        print(f"phase 44 CNOT ring w={wires} (L={L}, k={k}, batch {b}) on "
+              f"the {route} route (wide_mode {mode!r}): {rates[route]:.3f} "
+              f"steps/s; launches {counts} ({smi})")
+        if _kernels(one) or _routes(one) != {route: 1}:
+            fail(f"the {wires}-wire CNOT block under wide_mode {mode!r} ran "
+                 f"{one}, not one {route} chain and no kernel")
+    loss_err = abs(runs["wide"][0] - runs["adjoint"][0])
+    grad_err = _rel(runs["adjoint"][1], runs["wide"][1])
+    print(f"phase 44 CNOT ring w={wires}: the per-gate adjoint chain against "
+          f"the grouped chain on the card, loss |diff| {loss_err:.3e}, "
+          f"gradient max|diff| / max(1, max|grouped|) {grad_err:.3e} (held "
+          f"within {KERNEL_TOL}); phase wall "
+          f"{time.perf_counter() - t0_phase:.1f} s")
+    if not (loss_err <= KERNEL_TOL and grad_err <= KERNEL_TOL):
+        fail(f"the adjoint and grouped chains differ on the card: loss "
+             f"{loss_err:.3e}, gradients {grad_err:.3e}")
+    return counts, rate, peak / state, rates
+
+
+def phase_traj14(smi: str) -> tuple:
+    """Phase 45: path A at 14 wires (bench_traj_noisy_sampling(wires=14)),
+    past #5's and #7's 12: sel_apply_gates and the PyTorch
+    amplitude-damping pass. Returns the launch counts, images/s and the
+    CPU hold's max |diff|."""
+    t0_phase = time.perf_counter()
+    net = common.build_model(TRAJ14_MODEL, seed=SEED, device="cuda")
+    noisy = common.with_noise(net, TRAJ_CODE, TRAJ_STRENGTH,
+                              noise_trajectories=N_TRAJ)
+    diff = Diffusion(noisy, prediction_goal="data", shape=(28, 28))
+    gen = torch.Generator().manual_seed(SEED + 3)
+    first_x = (torch.rand((TRAJ_IMAGES, 1, 28, 28), generator=gen) * 0.75
+               + 0.5).to("cuda")
+    walls, counts = [], None
+    for _ in range(2):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = diff.sample(first_x=first_x, n_iters=TRAJ_ITERS,
+                              only_last=True, traj_rng=g)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if counts is None:
+            counts = read_counts()
+    rate = TRAJ_IMAGES / walls[-1]
+    per_run = TRAJ_PER_ITER * TRAJ_ITERS
+    print(f"phase 45 traj sample {' '.join(TRAJ14_MODEL)}: {TRAJ_IMAGES} "
+          f"images x {TRAJ_ITERS} iterations x {N_TRAJ} trajectories "
+          f"(amplitude damping {TRAJ_STRENGTH}; {N_TRAJ * TRAJ_IMAGES} rows "
+          f"of 2^14 amplitudes) in {walls[0]:.3f} s first, {walls[1]:.3f} s "
+          f"again: {rate:.2f} images/s; launches {counts} ({smi})")
+    if not torch.isfinite(out).all():
+        fail("the 14-wire trajectory samples are not finite")
+    if _kernels(counts) or _routes(counts) != {"gates": per_run,
+                                               "amp_xla": per_run}:
+        fail(f"14-wire trajectory sampling ran {counts}, not {per_run} "
+             f"sel_apply_gates and amplitude-damping passes and no kernel")
+    # one iteration at TRAJ14_HELD trajectories, the CPU on the card's draws
+    held = common.with_noise(net, TRAJ_CODE, TRAJ_STRENGTH,
+                             noise_trajectories=TRAJ14_HELD)
+    rec = RecordedDraws(torch.Generator(device="cuda").manual_seed(SEED + 6))
+    with torch.no_grad():
+        card = held(first_x, traj_rng=rec).cpu()
+    cpu = common.build_model(TRAJ14_MODEL, device="cpu")
+    cpu.load_state_dict(net.state_dict())
+    cpu = common.with_noise(cpu, TRAJ_CODE, TRAJ_STRENGTH,
+                            noise_trajectories=TRAJ14_HELD)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu(first_x.cpu(), traj_rng=ReplayDraws(
+            [d.cpu() for d in rec.draws], [p.cpu() for p in rec.picks]))
+    err = (card - want).abs().max().item()
+    print(f"phase 45: one iteration at {TRAJ14_HELD} trajectories, the card "
+          f"against the CPU plain path on the card's draws and picks "
+          f"max|diff| {err:.3e} (held within {SAMPLE_TOL}; the CPU took "
+          f"{time.perf_counter() - t0:.1f} s); phase wall "
+          f"{time.perf_counter() - t0_phase:.1f} s")
+    if not err <= SAMPLE_TOL:
+        fail(f"14-wire trajectory sampling on the card differs from the CPU: "
+             f"{err:.3e} > {SAMPLE_TOL}")
+    return counts, rate, err
+
+
+def phase_dm12(smi: str) -> tuple:
+    """Phase 46 (a): the density-matrix backend at 12 wires, #5 on both
+    sides of rho past #8's 10 wires; returns the launch counts and
+    images/s."""
+    t0_phase = time.perf_counter()
+    net = common.build_model(DM12_MODEL, seed=SEED, device="cuda")
+    noisy = common.with_noise(net, TRAJ_CODE, DM12_STRENGTH)
+    diff = Diffusion(noisy, prediction_goal="data", shape=(28, 28))
+    gen = torch.Generator().manual_seed(SEED + 4)
+    first_x = (torch.rand((DM12_IMAGES, 1, 28, 28), generator=gen) * 0.75
+               + 0.5).to("cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = diff.sample(first_x=first_x, n_iters=DM12_ITERS, only_last=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    # 2 blocks x 6 spectrum layers, the SEL chain on both sides of rho
+    want_sel = 2 * 6 * 2 * DM12_ITERS
+    print(f"phase 46a dm {' '.join(DM12_MODEL)}: {DM12_IMAGES} images x "
+          f"{DM12_ITERS} iterations (amplitude damping {DM12_STRENGTH}; rho "
+          f"{DM12_IMAGES * 4**12 * 8 / 2**20:.0f} MiB) in {wall:.3f} s, "
+          f"{DM12_IMAGES / wall:.3f} images/s ({DM12_ITERS} iterations); "
+          f"launches {counts} ({smi})")
+    if not torch.isfinite(out).all():
+        fail("the 12-wire dm samples are not finite")
+    if (_kernels(counts) != {"sel": want_sel}) or _routes(counts):
+        fail(f"12-wire dm sampling ran {counts}, not {want_sel} #5 launches "
+             f"and nothing else")
+    # one image's iteration against the same model in complex128 on the
+    # card: the density matrix's SEL chains through sel_apply_gates there,
+    # code apart from #5 (on the CPU plain path the iteration takes ~3 min)
+    config.enable_x64(True)
+    try:
+        with torch.no_grad():
+            exact = copy.deepcopy(noisy).double()(first_x[:1].double())
+    finally:
+        config.enable_x64(False)
+    reset_counts()
+    with torch.no_grad():
+        card = noisy(first_x[:1])
+    one = read_counts()
+    err = (card.double() - exact).abs().max().item()
+    # one spectrum layer of the block (L 1, k 2, one image) against the CPU
+    # plain path: #5 on both sides of rho and the channel at 12 wires
+    gen = torch.Generator().manual_seed(SEED + 9)
+    wires = int(DM12_MODEL[2])
+    x = torch.rand((1, wires), generator=gen)
+    w = torch.randn((1, 2, wires, 3), generator=gen) * 0.4
+    noise = engine.NoiseModel("amplitude_damping", DM12_STRENGTH, "encode")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = engine.reupload_block(x.cuda(), w.cuda(), noise=noise).cpu()
+        want = engine.reupload_block(x, w, noise=noise)
+    layer_err = (got - want).abs().max().item()
+    print(f"phase 46a: one image's iteration, float32 on the card (#5 "
+          f"launches {one['sel']}) against complex128 on the card "
+          f"(sel_apply_gates on both sides of rho) max|diff| {err:.3e} "
+          f"(held within {SAMPLE_TOL}); one spectrum layer at {wires} wires "
+          f"against the CPU plain path, probabilities max|diff| "
+          f"{layer_err:.3e} (within {KERNEL_TOL}; "
+          f"{time.perf_counter() - t0:.1f} s); phase wall "
+          f"{time.perf_counter() - t0_phase:.1f} s")
+    if one["sel"] != want_sel // DM12_ITERS:
+        fail(f"one image's 12-wire dm iteration launched {one}")
+    # #5 at the route's shape (both sides of rho: the b * d column states,
+    # a spectrum layer's k = 2 layers), CUDA events over single calls
+    cols = DM12_IMAGES * 2**wires
+    sr, si, mats = sel_inputs(np.random.default_rng(SEED + 12), wires, cols,
+                              2, "cuda")
+    with torch.no_grad():
+        ms = _median_ms(lambda: sel_kernel.sel_chain_planes(
+            sr, si, mats, wires, "cz"))
+    bound, by = bound_sel(wires, cols, 2, "cz", False)
+    print(f"phase 46a: #5 at the dm route's ({wires}, {cols}, depth 2, CZ): "
+          f"{ms:.4f} ms a call (median of 20, CUDA events), bound "
+          f"{bound:.3e} ms ({by}), {bound / ms:.3f} of it ({smi})")
+    if not (err <= SAMPLE_TOL and layer_err <= KERNEL_TOL):
+        fail(f"12-wire dm on the card differs from its float64 route or the "
+             f"CPU: iteration {err:.3e}, layer {layer_err:.3e}")
+    return counts, DM12_IMAGES / wall
+
+
+def _loss_grads64(net, x: torch.Tensor, device: str) -> tuple:
+    """``net``'s training loss (tau 10, seeded noise) and gradients in
+    float64 on ``device``."""
+    net64 = copy.deepcopy(net).to(device, torch.float64)
+    loss, _ = Diffusion(net64).train().loss_fn(
+        x.to(device, torch.float64), TAU,
+        generator=torch.Generator().manual_seed(SEED))
+    loss.backward()
+    return loss.item(), _grads(net64)
+
+
+def phase_x64_qiddm_a(tmp: pathlib.Path, smi: str) -> dict:
+    """Phase 46 (b): QIDDM-A (differN_noise 28 9 2) under
+    config.enable_x64(True), the complex128 grouped chain at 10 wires: a
+    forward and a training step's loss and gradients, the card against the
+    CPU plain path in float64."""
+    t0 = time.perf_counter()
+    z = np.load(tmp / "data" / "mnist_28.npz")
+    x = torch.as_tensor(z["x"][z["y"] == LABEL][:QIDDM_A_BATCH] / 255.0,
+                        dtype=torch.float64).reshape(QIDDM_A_BATCH, -1)
+    net = common.build_model(QIDDM_A, seed=SEED, device="cpu")
+    config.enable_x64(True)
+    try:
+        with torch.no_grad():
+            fwd = {dev: copy.deepcopy(net).to(dev, torch.float64)(
+                x.reshape(-1, 1, 28, 28).to(dev)).cpu()
+                for dev in ("cuda", "cpu")}
+        reset_counts()
+        card_loss, card = _loss_grads64(net, x, "cuda")
+        counts = read_counts()
+        cpu_loss, cpu = _loss_grads64(net, x, "cpu")
+    finally:
+        config.enable_x64(False)
+    fwd_err = (fwd["cuda"] - fwd["cpu"]).abs().max().item()
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = _grad_err(card, cpu)
+    print(f"phase 46b QIDDM-A {' '.join(QIDDM_A)} in complex128 (the grouped "
+          f"chain at 10 wires): forward of {QIDDM_A_BATCH} images max|diff| "
+          f"{fwd_err:.3e} (held within {X64_TOL}); a training step (tau "
+          f"{TAU}), loss relative {loss_err:.3e}, gradients max relative "
+          f"{grad_err:.3e} (within {GRAD64_TOL}); launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+    if _kernels(counts) or set(_routes(counts)) != {"wide"}:
+        fail(f"QIDDM-A in complex128 ran {counts}, not the grouped chain "
+             f"alone")
+    if not (fwd_err <= X64_TOL and loss_err <= X64_TOL
+            and grad_err <= GRAD64_TOL):
+        fail(f"QIDDM-A in complex128 on the card differs from the CPU: "
+             f"forward {fwd_err:.3e}, loss {loss_err:.3e}, gradients "
+             f"{grad_err:.3e}")
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -4692,6 +5193,16 @@ def main() -> None:
         rebuttal_counts = phase_rebuttal(tmp, smi)
         exm_counts = phase_exm(tmp, smi)
         ray_counts = phase_ray(tmp, n_train, smi)
+        t_wide = time.perf_counter()
+        qnn16 = phase_wide_qnn(tmp, n_train, smi)
+        pl12 = phase_wide_pl(tmp, n_train, smi)
+        block_counts, block_rate, block_states, cnot_rates = (
+            phase_wide_block(smi))
+        traj14_counts, traj14_rate, _ = phase_traj14(smi)
+        dm12_counts, dm12_rate = phase_dm12(smi)
+        x64_counts = phase_x64_qiddm_a(tmp, smi)
+        wide_wall = time.perf_counter() - t_wide
+        print(f"phases 42-46 wall {wide_wall:.1f} s ({smi})")
     bench_counts, bench_rates = phase_wide_bench(smi)
     with torch.no_grad():
         times, library, pairs = phase_times(dev, smi)
@@ -4748,10 +5259,24 @@ def main() -> None:
     for label, (train_rate, sample_rate) in unet_rates.items():
         print(f"U-Net {label}: {train_rate:.1f} training images/s, "
               f"{sample_rate:.1f} sampled images/s, no port kernel ({smi})")
+    for label, (_, _, train_rate, sample_rate) in (("QNN_noise 784 16 14",
+                                                    qnn16),
+                                                   (" ".join(PL12), pl12)):
+        print(f"past the kernels' widths, {label}: {train_rate:.1f} training "
+              f"images/s (first epoch), {sample_rate:.1f} sampled images/s "
+              f"({smi})")
+    print(f"past the kernels' widths: the {WIDE22[0]}-wire block "
+          f"{block_rate:.3f} steps/s, peak {block_states:.2f} states; the "
+          f"{CNOT16[0]}-wire CNOT block {cnot_rates['wide']:.3f} steps/s "
+          f"grouped, {cnot_rates['adjoint']:.3f} per-gate adjoint; path A at "
+          f"14 wires {traj14_rate:.2f} images/s; dm at 12 wires "
+          f"{dm12_rate:.3f} images/s over {DM12_ITERS} iterations ({smi})")
+    past_widths = [*qnn16[:2], *pl12[:2], block_counts, traj14_counts,
+                   dm12_counts, x64_counts]
     runs = [*sampled.values(), trained, pl_trained, wide_trained, qa_counts,
             zoo_counts, swept, traj_counts, traj_swept, mono_model,
             unitary_counts, *rebuttal_counts.values(), *exm_counts.values(),
-            *ray_counts.values(),
+            *ray_counts.values(), *past_widths,
             *(c for by_width in bench_counts.values()
               for c in by_width.values())]
     launches = {c: sum(r[c] for r in runs) for c in trained}
@@ -4775,7 +5300,8 @@ def main() -> None:
           f"sampling, by model {traj_sampling}), the CNOT-ring route "
           f"{unitary_counts}, the rebuttal drivers {rebuttal_counts}, "
           f"fashion_exm and emnist_exm {exm_counts}, the sweep "
-          f"{ray_counts}")
+          f"{ray_counts}, past the kernels' widths (phases 42-46) "
+          f"{past_widths}")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"

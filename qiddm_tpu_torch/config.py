@@ -3,8 +3,9 @@
 Counterpart of ``qiddm_tpu/config.py:150-208, 343-414``: the complex/real
 dtype switch (complex64 by default, complex128 for tight parity work), the
 width caps of the hand-written kernels (and the wide chain's group width),
-the wide chain's kernel variant and the density-matrix backend's two
-strategy switches.
+the wide chain's kernel variant, the two modes that pick among the routes
+no kernel takes (``adjoint_mode``, ``wide_mode``) and the density-matrix
+backend's two strategy switches.
 
 TF32 is switched off for every float32 product this package issues. The
 JAX simulator pins ``precision="highest"`` on its contractions because
@@ -96,6 +97,63 @@ def set_wide_kernel_variant(variant: str) -> None:
 
 def wide_kernel_variant() -> str:
     return _WIDE_KERNEL_VARIANT
+
+
+# Routes no kernel of the port takes (qiddm_tpu/config.py:240-292): the
+# calls at a batch below 2**wires that fall outside every kernel's widths or
+# dtype (an RY encode above 10 wires, a block above 20, a CNOT ring or
+# complex128 above 8, the SEL chains above 12 or in complex128). Where a
+# kernel takes a call, the kernel runs whatever these modes say: they choose
+# among the plain-PyTorch routes the JAX package runs in XLA, and none of
+# them switches a kernel off (as set_wide_kernel_mode is not ported above).
+#
+# adjoint_mode picks how those routes differentiate:
+# * "auto": the adjoint chains of sim/wide.py (a backward that rebuilds the
+#   states through the inverse gates, O(1) residuals) where autograd's
+#   L*k*w stored states are the memory ceiling, by the JAX package's TPU
+#   rule (qiddm_tpu/sim/engine.py::_use_adjoint, _use_wide): the grouped
+#   chain from 9 wires, the per-gate chain (under wide_mode "off") past 10;
+#   elsewhere, under autograd, the per-layer unitaries (re-upload blocks,
+#   up to 8 wires) or the gate-by-gate sel_apply_gates;
+# * "on": the adjoint chains at every width;
+# * "off": autograd everywhere: sel_apply_gates, or the per-layer
+#   unitaries up to 8 wires (the A/B and debugging route).
+_ADJOINT_MODE = "auto"
+
+
+def set_adjoint_mode(mode: str) -> None:
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(mode)
+    global _ADJOINT_MODE
+    _ADJOINT_MODE = mode
+
+
+def adjoint_mode() -> str:
+    return _ADJOINT_MODE
+
+
+# wide_mode picks the grouped-Kronecker chain (sim/wide.py: a sublayer's w
+# rotations composed into ceil(w / 7) group matrices, one product each)
+# over the per-gate adjoint chain (the same chain with one-wire groups: w
+# passes a sublayer):
+# * "auto": the grouped chain from 9 wires, the JAX package's TPU rule
+#   (qiddm_tpu/sim/engine.py::_use_wide with wide_min_wires 9);
+# * "on": the grouped chain at every width;
+# * "off": the per-gate adjoint chain.
+# adjoint_mode "off" turns the grouped chain off too: both are adjoint
+# backwards.
+_WIDE_MODE = "auto"
+
+
+def set_wide_mode(mode: str) -> None:
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(mode)
+    global _WIDE_MODE
+    _WIDE_MODE = mode
+
+
+def wide_mode() -> str:
+    return _WIDE_MODE
 
 
 # Density-matrix backend (qiddm_tpu/config.py:370-414). Channel

@@ -6,7 +6,10 @@ trajectory pass (``amp_damp_kernel``), the wide (11-20 wire) chain's
 grouped sublayer (``wide_kernel``, with ``wide``) and the chain that streams
 dense layer unitaries (``unitary_kernel``, CNOT-ring re-upload blocks up to
 8 wires) as hand-written CUDA kernels, and the Monte-Carlo trajectory noise
-backend (``trajectories``)."""
+backend (``trajectories``). Past the kernels' widths and in complex128 the
+routes the JAX package runs in XLA are plain PyTorch: the grouped chain
+(``wide``), the per-gate adjoint chain (``wide`` with one-wire groups) and
+``sel_apply_gates`` (``sel``); ``ROUTE_CALLS`` counts their calls."""
 
 from .amp_damp_kernel import amp_damp, amp_damp_plain  # noqa: F401
 from .engine import qdense_circuit, qnn_circuit, reupload_block  # noqa: F401
@@ -28,10 +31,14 @@ from .ry_kernel import (  # noqa: F401
     ry_chain_planes,
     ry_chain_planes_plain,
 )
+# ROUTE_CALLS is a dict updated in place: this name stays current
 from .sel import (  # noqa: F401
+    ROUTE_CALLS,
     cnot_ring_perm,
     cz_ring_signs,
     sel_layer_unitaries,
+    reset_route_calls,
+    sel_apply_gates,
     sel_ranges,
     sel_unitaries,
     sel_unitary,
@@ -77,7 +84,13 @@ from .unitary_kernel import (  # noqa: F401
     unitary_chain_planes,
     unitary_chain_planes_plain,
 )
-from .wide import group_gates, group_sizes  # noqa: F401
+from .wide import (  # noqa: F401
+    group_gates,
+    group_sizes,
+    max_group_bits,
+    reupload_chain_wide,
+    sel_chain_wide,
+)
 # the launch counters are read from the module, wide_kernel.WIDE_LAUNCHES
 # and wide_kernel.WIDE_BWD_LAUNCHES: a name imported here would keep the
 # value it had at import

@@ -6,9 +6,11 @@ depolarizing, phase damping). States are ``(batch, 2**w, 2**w)`` complex
 density matrices; wire 0 is the most significant bit of both indices.
 
 Memory: rho squares the qubit cost, ``batch * 4**w`` complex amplitudes
-(8 bytes each in complex64: 0.5 MB per sample at 8 wires, 8 MB at 10). The
-noise sweeps run a few test images at w <= 10; a guard raises above 12
-wires (128 MB per sample).
+(8 bytes each in complex64: 0.5 MB per sample at 8 wires, 8 MB at 10, 128 MB
+at 12). The noise sweeps run a few test images at w <= 10; the engine runs
+up to ``MAX_DM_WIRES`` = 12 (qiddm_tpu/sim/density.py:23), past which
+``from_statevector`` and ``zero_density`` raise ``ValueError``, as the JAX
+package's do.
 """
 
 from __future__ import annotations

@@ -13,20 +13,27 @@ models).
 Clean circuits take one of two statevector routes, chosen from the batch
 size:
 
-* batch < 2**wires: a gate chain on (d, B) float32 planes —
-  ``gate_kernel.gate_chain_planes`` (RZ) and ``ry_kernel.ry_chain_planes``
-  (RY) for the re-uploading blocks with a CZ ring up to 10 wires,
-  ``wide_kernel.wide_chain_planes`` (the grouped chain, RZ) for 11-20
-  wires, whose kernels ``config.wide_kernel_variant()`` picks (#11/#12 a
-  wire group at a time, or #9/#10 a whole chain in one launch),
-  ``sel_kernel.sel_chain_planes`` for the SEL chains (both rings);
-  the CUDA kernels on the card (forward, and the adjoint backward under
-  autograd), their plain versions on the CPU. The re-uploading blocks the
-  gate chains do not take up to 8 wires — a CNOT ring, or complex128 —
-  run per-layer unitaries (``sel_layer_unitaries``): a complex64 RZ block
-  through the unitary-streaming chain ``unitary_kernel.
-  unitary_chain_planes`` (#13/#14), an RY block or complex128 by complex
-  matmuls, as the JAX package's XLA scan runs them;
+* batch < 2**wires: a gate chain. Where a kernel takes the call, on
+  (d, B) float32 planes (complex64 only): ``gate_kernel.gate_chain_planes``
+  (RZ) and ``ry_kernel.ry_chain_planes`` (RY) for the re-uploading blocks
+  with a CZ ring up to 10 wires, ``wide_kernel.wide_chain_planes`` (RZ, CZ)
+  for 11-20 wires, whose kernels ``config.wide_kernel_variant()`` picks
+  (#11/#12 a wire group at a time, or #9/#10 a whole chain in one launch),
+  ``unitary_kernel.unitary_chain_planes`` (#13/#14) for an RZ block with a
+  CNOT ring up to 8 wires, and ``sel_kernel.sel_chain_planes`` for the SEL
+  chains up to 12 wires (both rings); the CUDA kernels on the card
+  (forward, and the adjoint backward under autograd), their plain versions
+  on the CPU. Every other call (an RY encode above 10 wires, a block above
+  20, a CNOT ring or complex128, the SEL chains above 12 wires or in
+  complex128) takes the routes the JAX package runs in XLA, in plain
+  PyTorch, as its TPU predicates pick them (:func:`_use_wide`,
+  :func:`_use_adjoint`; ``config.wide_mode()``, ``config.adjoint_mode()``):
+  the grouped chain from 9 wires (``wide.reupload_chain_wide``,
+  ``wide.sel_chain_wide``), past 10 wires the per-gate adjoint chain where
+  the grouped one is off (``wide.*_adjoint``), and where neither takes a
+  call, the per-layer unitaries (re-uploading blocks up to 8 wires) or
+  ``sel.sel_apply_gates`` under autograd. ``ROUTE_CALLS`` counts their
+  calls;
 * batch >= 2**wires: the layers composed into one unitary per block and
   applied with complex matmuls, which pays once the batch exceeds the
   state dimension; autograd differentiates it, as XLA does in JAX.
@@ -35,8 +42,10 @@ A :class:`NoiseModel` with a non-unitary channel (amplitude damping,
 depolarizing, phase damping) switches the circuit to the density-matrix
 backend (``sim/density.py``): in ``config.dm_unitary_mode()`` "gates" the
 re-uploading block runs whole in the density-matrix kernel
-(``dm_kernel.dm_chain``) where it is eligible, else every SEL block goes
-through the SEL chain on both sides of rho; "matmul" sandwiches rho between
+(``dm_kernel.dm_chain``, complex64 up to 10 wires) where it is eligible,
+else every SEL block goes through the SEL chain on both sides of rho (the
+SEL-chain kernel in complex64 up to the dm cap of 12 wires,
+``sel_apply_gates`` in complex128); "matmul" sandwiches rho between
 composed unitaries. The unitary kinds stay on the statevector routes: the
 rotation-angle error shifts the encoding angles, and a trailing phase shift
 leaves the probabilities as they are.
@@ -44,15 +53,16 @@ leaves the probabilities as they are.
 With ``n_traj`` and a random source ``traj_rng`` (a ``torch.Generator`` on
 the circuit's device), a non-unitary channel takes the Monte-Carlo
 trajectory backend instead (``sim/trajectories.py``): ``n_traj`` statevector
-trajectories per sample, the amplitude-damping pass in its kernel, the SEL
-layers through the SEL-chain kernel or composed unitaries; without a
+trajectories per sample, the amplitude-damping pass in its kernel (complex64
+up to 12 wires; past that its PyTorch counterpart), the SEL layers through
+the SEL-chain kernel, composed or per-layer unitaries or
+``sel_apply_gates``; without a
 non-unitary channel ``n_traj`` changes nothing, as in the JAX package.
 
-The mesh-sharded statevector and the routes the kernels do not take at a
-batch below ``2**wires`` (an RY encode above 10 wires, any block above 20,
-a CNOT ring or complex128 above 8, the SEL chains above 12 or in
-complex128) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+The mesh-sharded statevector raises ``NotImplementedError`` naming the
+ROADMAP item that ports it; density matrices above
+``density.MAX_DM_WIRES`` = 12 wires raise ``ValueError``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -70,11 +80,17 @@ from .dm_kernel import KIND_IDS, dm_chain
 from .gate_kernel import gate_chain_planes
 from .gates import WEIGHT_MAPS, rot_matrix, ry_matrix
 from .ry_kernel import ry_chain_planes
-from .sel import sel_layer_unitaries, sel_unitaries, sel_unitary
+from .sel import (  # noqa: F401  (ROUTE_CALLS: the routes' counters)
+    ROUTE_CALLS,
+    reset_route_calls,
+    sel_apply_gates,
+    sel_layer_unitaries,
+    sel_unitaries,
+    sel_unitary,
+)
 from .sel_kernel import sel_chain_planes
 from .statevector import (
     amplitude_embed,
-    amplitude_rows,
     apply_ry_all,
     apply_unitary,
     expval_z,
@@ -93,10 +109,21 @@ from .trajectories import (
 )
 from .unitary_kernel import MAX_WIRES as UNITARY_MAX_WIRES
 from .unitary_kernel import unitary_chain_planes
+from .wide import (
+    reupload_chain_adjoint,
+    reupload_chain_wide,
+    sel_chain_adjoint,
+    sel_chain_wide,
+)
 from .wide_kernel import wide_chain_planes
 
 _ENCODES = ("rz", "rz_halfpi", "ry")
 _IMPRIMITIVES = ("cz", "cnot")
+# Where wide_mode and adjoint_mode "auto" take the grouped and the per-gate
+# adjoint chains on the TPU: from the JAX package's wide_min_wires, and
+# past its pallas_max_wires (qiddm_tpu/config.py)
+_WIDE_MIN_WIRES = 9
+_PALLAS_MAX_WIRES = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,83 +247,126 @@ def _check_encode(encode: str) -> None:
         raise ValueError(f"unknown encode {encode!r} (known: {_ENCODES})")
 
 
-# What each plane-kernel route lacks past its limits: (widest, what a wider
-# call needs, what a complex128 call needs), each naming its ROADMAP step.
-_ROUTE_GAPS = {
-    "gate": (_config.KERNEL_MAX_WIRES,
-             "an RY encode above 10 wires (the wide chain's RY encode) is "
-             "ROADMAP Queue 1 item 5, step 3", None),
-    "wide": (_config.WIDE_KERNEL_MAX_WIRES,
-             "blocks above 20 wires (the per-gate adjoint chain) are ROADMAP "
-             "Queue 1 item 5, step 6", None),
-    "dm": (_config.KERNEL_MAX_WIRES,
-           "density matrices above 10 wires (the gate-by-gate "
-           "sel_apply_gates route) are ROADMAP Queue 1 item 5, step 7",
-           "the dm kernel and the SEL chain run float32 planes; complex128 "
-           "density matrices (sel_apply_gates) are ROADMAP Queue 1 item 5, "
-           "step 7"),
-    "sel": (_config.SEL_KERNEL_MAX_WIRES,
-            "QNN/Qdense above 12 wires (sel_chain_wide) are ROADMAP Queue 1 "
-            "item 5, step 4",
-            "the SEL chain runs float32 planes; complex128 QNN/Qdense "
-            "circuits below 2**wires (sel_apply_gates) are ROADMAP Queue 1 "
-            "item 5, step 7"),
-}
+def _use_wide(wires: int) -> bool:
+    """The grouped chain for a call no kernel takes (the JAX package's
+    ``_use_wide(wires, True)``): ``config.wide_mode()`` "on" always, "auto"
+    from 9 wires, "off" never; never under ``adjoint_mode()`` "off"."""
+    if _config.adjoint_mode() == "off":
+        return False
+    mode = _config.wide_mode()
+    return mode == "on" or (mode == "auto" and wires >= _WIDE_MIN_WIRES)
 
 
-def _check_chain_route(route: str, wires: int, batch: int, cdtype) -> None:
-    """Raise ``NotImplementedError`` naming what is missing unless the
-    plane kernels of ``route`` take the call: at most its widest, and
-    float32 planes (complex64)."""
-    widest, wider, x64 = _ROUTE_GAPS[route]
-    if wires > widest:
-        raise NotImplementedError(f"{wires} wires at batch {batch}: {wider}")
-    if cdtype != torch.complex64:
-        raise NotImplementedError(x64)
+def _use_adjoint(wires: int) -> bool:
+    """The per-gate adjoint chain for a call no kernel takes and the
+    grouped chain does not (the JAX package's ``_use_adjoint(wires,
+    True)``): ``config.adjoint_mode()`` "on" always, "auto" past 10 wires,
+    "off" never."""
+    mode = _config.adjoint_mode()
+    return mode == "on" or (mode == "auto" and wires > _PALLAS_MAX_WIRES)
 
 
-def _reupload_per_layer(x_enc, block_weights, *, encode: str,
-                        imprimitive: str, readout: str, cdtype):
-    """The per-layer-unitary route of :func:`reupload_block` (batch below
-    ``2**wires``, up to 8 wires), for the blocks the gate chains do not
-    take: a CNOT ring, or complex128. The layers' dense unitaries
-    (``sel_layer_unitaries``, (L, k, d, d)) are applied one by one, as the
-    JAX package's per-layer branch does (``engine.py:519-551``): a
-    complex64 RZ block through the unitary-streaming chain
-    ``unitary_chain_planes`` (#13/#14 on the card, its plain version on the
-    CPU), an RY block or complex128 by complex matmuls. The latter are not
-    a fallback: they are the counterpart of a JAX route that runs no
-    Pallas kernel either (its XLA scan)."""
+def _sel_xla(states, w, imprimitive: str):
+    """The SEL chain (full-depth range cycle) on (B, 2**w) complex states
+    where no kernel takes it: the grouped chain, the per-gate adjoint chain
+    or ``sel_apply_gates`` under autograd, by :func:`_use_wide` and
+    :func:`_use_adjoint` (``qiddm_tpu/sim/engine.py:256-267``). ``w`` is in
+    the states' real dtype."""
+    wires = w.shape[1]
+    if _use_wide(wires):
+        return sel_chain_wide(states, w, imprimitive)
+    if _use_adjoint(wires):
+        return sel_chain_adjoint(states, w, imprimitive)
+    return sel_apply_gates(states, w, imprimitive)
+
+
+def _reupload_xla(x_enc, block_weights, *, encode: str, imprimitive: str,
+                  cdtype):
+    """The re-uploading block at a batch below ``2**wires`` where no kernel
+    takes it, as the JAX package's ladder runs it in XLA
+    (``engine.py:478-551``): the grouped chain, the per-gate adjoint chain,
+    then, where neither takes the call, the per-layer unitaries up to 8
+    wires and ``sel_apply_gates`` a spectrum layer (the ranges restart each
+    layer) above. Returns the final states."""
     L, k, wires, _ = block_weights.shape
-    batch = x_enc.shape[0]
-    if wires > UNITARY_MAX_WIRES:
-        raise NotImplementedError(
-            f"{imprimitive} ring, {cdtype}, {wires} wires at batch {batch} "
-            f"< 2**wires: the per-layer-unitary route stops at "
-            f"{UNITARY_MAX_WIRES} wires; a wider CNOT ring (the wide chain's "
-            f"CNOT gathers) and complex128 (sel_apply_gates) are ROADMAP "
-            f"Queue 1 item 5, steps 3 and 7")
+    kw = {"encode": encode, "imprimitive": imprimitive, "cdtype": cdtype}
+    if _use_wide(wires):
+        return reupload_chain_wide(x_enc, block_weights, **kw)
+    if _use_adjoint(wires):
+        return reupload_chain_adjoint(x_enc, block_weights, **kw)
     rdtype = cdtype.to_real()
-    lus = sel_layer_unitaries(block_weights.to(rdtype), imprimitive)
-    if cdtype == torch.complex64 and encode != "ry":
-        pr, pi = rz_phase_planes(x_enc, wires)
-        flat = lus.reshape(L * k, 2**wires, 2**wires)
-        sr, si = unitary_chain_planes(pr, pi, flat.real.contiguous(),
-                                      flat.imag.contiguous(), k)
-        if readout == "probs":
-            return probs_from_planes(sr, si)
-        return expval_z_from_planes(sr, si)
     x_enc = x_enc.to(rdtype)
+    block_weights = block_weights.to(rdtype)
     phases = None if encode == "ry" else rz_phases(x_enc, wires)
-    states = zero_state(batch, wires, dtype=cdtype, device=x_enc.device)
+    lus = (sel_layer_unitaries(block_weights, imprimitive)
+           if wires <= UNITARY_MAX_WIRES else None)
+    states = zero_state(x_enc.shape[0], wires, dtype=cdtype,
+                        device=x_enc.device)
     for l in range(L):
         states = (apply_ry_all(states, x_enc) if phases is None
                   else states * phases)
-        for li in range(k):
-            states = apply_unitary(states, lus[l, li])
+        if lus is None:
+            states = sel_apply_gates(states, block_weights[l], imprimitive)
+        else:
+            for li in range(k):
+                states = apply_unitary(states, lus[l, li])
+    return states
+
+
+def _readout(states, readout: str):
+    return probs(states) if readout == "probs" else expval_z(states)
+
+
+def _reupload_kernel(x_enc, block_weights, *, encode: str, readout: str):
+    """The plane-kernel routes of a complex64 CZ block below ``2**wires``:
+    the RY chain (#3/#4) up to 10 wires, the RZ gate chain (#1/#2) up to
+    10 and the wide chain (#11/#12 or #9/#10) at 11-20."""
+    L, k, wires, _ = block_weights.shape
+    flat = block_weights.reshape(L * k, wires, 3)
+    mats = rot_matrix(flat[..., 0], flat[..., 1], flat[..., 2])
+    if encode == "ry":
+        sr, si = ry_chain_planes(x_enc, mats, k, wires)
+    else:
+        pr, pi = rz_phase_planes(x_enc, wires)
+        chain = (wide_chain_planes if wires > _config.KERNEL_MAX_WIRES
+                 else gate_chain_planes)
+        sr, si = chain(pr, pi, mats, k, wires)
     if readout == "probs":
-        return probs(states)
-    return expval_z(states)
+        return probs_from_planes(sr, si)
+    return expval_z_from_planes(sr, si)
+
+
+def _kernel_takes_block(wires: int, encode: str, imprimitive: str,
+                        cdtype) -> str:
+    """Which kernel route takes a block below ``2**wires``: "planes" (the
+    gate, RY or wide chain), "unitary" (#13/#14, a complex64 RZ block with
+    a CNOT ring up to 8 wires) or "" (none: the XLA routes)."""
+    if cdtype != torch.complex64:
+        return ""
+    if imprimitive == "cz":
+        widest = (_config.KERNEL_MAX_WIRES if encode == "ry"
+                  else _config.WIDE_KERNEL_MAX_WIRES)
+        return "planes" if wires <= widest else ""
+    if encode != "ry" and wires <= UNITARY_MAX_WIRES:
+        return "unitary"
+    return ""
+
+
+def _reupload_per_layer(x_enc, block_weights, *, readout: str):
+    """The unitary-streaming route of :func:`reupload_block` (a complex64 RZ
+    block with a CNOT ring, below ``2**wires``, up to 8 wires): the layers'
+    dense unitaries (``sel_layer_unitaries``, (L, k, d, d)) through
+    ``unitary_chain_planes`` (#13/#14 on the card, its plain version on the
+    CPU), the JAX package's per-layer branch (``engine.py:519-551``)."""
+    L, k, wires, _ = block_weights.shape
+    lus = sel_layer_unitaries(block_weights, "cnot")
+    pr, pi = rz_phase_planes(x_enc, wires)
+    flat = lus.reshape(L * k, 2**wires, 2**wires)
+    sr, si = unitary_chain_planes(pr, pi, flat.real.contiguous(),
+                                  flat.imag.contiguous(), k)
+    if readout == "probs":
+        return probs_from_planes(sr, si)
+    return expval_z_from_planes(sr, si)
 
 
 def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
@@ -338,24 +408,15 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
                             readout=readout, cdtype=cdtype)
 
     if batch < 2**wires:
-        if imprimitive == "cnot" or cdtype != torch.complex64:
-            return _reupload_per_layer(x_enc, block_weights, encode=encode,
-                                       imprimitive=imprimitive,
-                                       readout=readout, cdtype=cdtype)
-        # RZ above the gate chain's 10 wires: the grouped wide chain
-        wide = encode != "ry" and wires > _config.KERNEL_MAX_WIRES
-        _check_chain_route("wide" if wide else "gate", wires, batch, cdtype)
-        flat = block_weights.reshape(L * k, wires, 3)
-        mats = rot_matrix(flat[..., 0], flat[..., 1], flat[..., 2])
-        if encode == "ry":
-            sr, si = ry_chain_planes(x_enc, mats, k, wires)
-        else:
-            pr, pi = rz_phase_planes(x_enc, wires)
-            chain = wide_chain_planes if wide else gate_chain_planes
-            sr, si = chain(pr, pi, mats, k, wires)
-        if readout == "probs":
-            return probs_from_planes(sr, si)
-        return expval_z_from_planes(sr, si)
+        route = _kernel_takes_block(wires, encode, imprimitive, cdtype)
+        if route == "planes":
+            return _reupload_kernel(x_enc, block_weights, encode=encode,
+                                    readout=readout)
+        if route == "unitary":
+            return _reupload_per_layer(x_enc, block_weights, readout=readout)
+        return _readout(_reupload_xla(x_enc, block_weights, encode=encode,
+                                      imprimitive=imprimitive,
+                                      cdtype=cdtype), readout)
 
     rdtype = cdtype.to_real()
     us = sel_unitaries(block_weights.to(rdtype), imprimitive)
@@ -376,13 +437,23 @@ def _dm_readout(rho, readout: str):
 
 
 def _two_sided_sel(rho, w, wires: int, imprimitive: str):
-    """U rho U^dagger for the SEL chain of ``w`` (depth, wires, 3): the
-    SEL-chain kernel (its plain version on the CPU) on the b*d column
-    states, twice; differentiable through its adjoint backward."""
-    mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
-    return dm.apply_chain_two_sided(
-        rho, lambda sr, si: sel_chain_planes(sr, si, mats, wires,
-                                             imprimitive))
+    """U rho U^dagger for the SEL chain of ``w`` (depth, wires, 3) on the
+    b*d column states, twice: in complex64 the SEL-chain kernel (#5/#6 on
+    the card, up to its 12 wires; its plain version on the CPU), in
+    complex128 ``sel_apply_gates``, as the JAX package's XLA route
+    (``engine.py:627-632``). Differentiable either way."""
+    if rho.dtype == torch.complex64:
+        mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
+        return dm.apply_chain_two_sided(
+            rho, lambda sr, si: sel_chain_planes(sr, si, mats, wires,
+                                                 imprimitive))
+    w = w.to(rho.real.dtype)
+
+    def gates(sr, si):
+        out = sel_apply_gates(torch.complex(sr, si).T, w, imprimitive)
+        return out.real.T, out.imag.T
+
+    return dm.apply_chain_two_sided(rho, gates)
 
 
 def _apply_1q_batched_unitary(rho, gate, wire: int, wires: int):
@@ -403,26 +474,29 @@ def _reupload_dm(x_enc, block_weights, *, encode: str, imprimitive: str,
     does not record (the kernel has no backward; the JAX package routes by
     the same condition, ``engine.py:593-599``); otherwise every spectrum
     layer encodes, applies the channel and runs its SEL chain (either ring)
-    on both sides of rho through the SEL-chain kernel, which
-    differentiates. "matmul" sandwiches rho between the composed per-layer
-    unitaries.
+    on both sides of rho (:func:`_two_sided_sel`: the SEL-chain kernel in
+    complex64, which differentiates, ``sel_apply_gates`` in complex128).
+    The dm kernel takes up to 10 wires, the SEL chain up to
+    ``density.MAX_DM_WIRES`` = 12, past which rho raises ``ValueError``, as
+    in the JAX package. "matmul" sandwiches rho between the composed
+    per-layer unitaries.
 
     Memory: rho is (batch, 4**wires) complex, ``batch * 4**w * 8`` bytes in
-    complex64 on the input's device (0.5 MB a sample at w=8, 8 MB at the
-    kernels' widest, w=10); the two-sided route holds a few such tensors
-    per layer, and autograd keeps each layer's.
+    complex64 on the input's device (0.5 MB a sample at w=8, 8 MB at w=10,
+    128 MB at w=12); the two-sided route holds a few such tensors per
+    layer, and autograd keeps each layer's.
     """
     L, k, wires, _ = block_weights.shape
     batch = x_enc.shape[0]
     dim = 2**wires
     rdtype = cdtype.to_real()
     dm_gates = _config.dm_unitary_mode() == "gates"
-    if dm_gates:
-        _check_chain_route("dm", wires, batch, cdtype)
+    dm._guard(wires)
     x_enc = x_enc.to(rdtype)
     phases = rz_phases(x_enc, wires) if encode != "ry" else None
     if (dm_gates and imprimitive == "cz" and noise.placement == "encode"
-            and noise.kind in KIND_IDS
+            and noise.kind in KIND_IDS and cdtype == torch.complex64
+            and wires <= _config.KERNEL_MAX_WIRES
             and not _records_grad(x_enc, block_weights, noise.strength)):
         flat = block_weights.reshape(L * k, wires, 3)
         mats = rot_matrix(flat[..., 0], flat[..., 1], flat[..., 2])
@@ -462,18 +536,23 @@ def _reupload_dm(x_enc, block_weights, *, encode: str, imprimitive: str,
     return _dm_readout(rho, readout)
 
 
-def _sel_small_batch(sr, si, w, imprimitive: str, cdtype):
-    """Small-batch SEL application (batch < 2**wires) on (d, B) float32
-    start-state planes: the SEL-chain kernel (its plain version on the
-    CPU), complex64 only, up to ``SEL_KERNEL_MAX_WIRES`` wires. Returns the
-    output planes.
+def _sel_small_batch(states, w, imprimitive: str, cdtype):
+    """Small-batch SEL application (batch < 2**wires) on (B, d) ``cdtype``
+    start states; returns the (B, d) output states.
 
-    The JAX package picks among the Pallas kernel, the grouped-Kronecker
-    and per-gate adjoint chains and a gate-by-gate ``lax.scan`` by backend
-    and width; the port has the kernel route only, and the others raise."""
-    _check_chain_route("sel", w.shape[1], sr.shape[1], cdtype)
-    mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
-    return sel_chain_planes(sr, si, mats, w.shape[1], imprimitive)
+    Complex64 up to ``SEL_KERNEL_MAX_WIRES`` wires takes the SEL-chain
+    kernel (#5/#6 on the card, its plain version on the CPU) on the states'
+    (d, B) planes; everything else, :func:`_sel_xla` (the grouped or
+    per-gate adjoint chain, or ``sel_apply_gates``), the routes the JAX
+    package runs in XLA."""
+    wires = w.shape[1]
+    if cdtype == torch.complex64 and wires <= _config.SEL_KERNEL_MAX_WIRES:
+        mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
+        sr, si = sel_chain_planes(states.real.T.contiguous(),
+                                  states.imag.T.contiguous(), mats, wires,
+                                  imprimitive)
+        return torch.complex(sr, si).T
+    return _sel_xla(states, w.to(cdtype.to_real()), imprimitive)
 
 
 # ---------------------------------------------------------------------------
@@ -511,12 +590,11 @@ def qdense_circuit(x: torch.Tensor, weights: torch.Tensor, *, wires: int,
         # batch < state dim: the gate-level chain, O(depth w B d) against
         # the composed route's O(depth d^3); the ranges cycle over the
         # full depth
-        sr = amplitude_rows(x.to(torch.float32), wires, pad_with).T.contiguous()
-        sr, si = _sel_small_batch(sr, torch.zeros_like(sr), w, imprimitive,
-                                  cdtype)
+        states = amplitude_embed(x.to(cdtype.to_real()), wires, pad_with,
+                                 dtype=cdtype)
+        states = _sel_small_batch(states, w, imprimitive, cdtype)
         if not _needs_dm(noise):
-            return probs_from_planes(sr, si)
-        states = torch.complex(sr, si).T
+            return probs(states)
     rho = _apply_noise_all_wires(dm.from_statevector(states), noise, cdtype)
     return dm.probs(rho)
 
@@ -572,7 +650,6 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
         if noise.placement == "encode":
             rho = _apply_noise_all_wires(rho, noise, cdtype)
         if _config.dm_unitary_mode() == "gates":
-            _check_chain_route("dm", wires, batch, cdtype)
             rho = _two_sided_sel(rho, w, wires, imprimitive)
         else:
             rho = dm.apply_unitary(rho, sel_unitary(w.to(rdtype),
@@ -580,27 +657,13 @@ def qnn_circuit(x: torch.Tensor, weights: torch.Tensor, *,
         if noise.placement == "end":
             rho = _apply_noise_all_wires(rho, noise, cdtype)
         return _dm_readout(rho, readout)
-    if batch >= 2**wires:
-        if encode == "ry":
-            states = ry_product_state(x.to(rdtype), wires, dtype=cdtype)
-        else:
-            states = zero_state(batch, wires, dtype=cdtype, device=x.device)
-            states = states * rz_phases(x.to(rdtype), wires)
-        states = apply_unitary(states, sel_unitary(w.to(rdtype), imprimitive))
-        return probs(states) if readout == "probs" else expval_z(states)
     if encode == "ry":
-        # the RY product state is real
-        sr = ry_product_state(x.to(torch.float32), wires,
-                              dtype=torch.float32).T.contiguous()
-        si = torch.zeros_like(sr)
+        states = ry_product_state(x.to(rdtype), wires, dtype=cdtype)
     else:
-        # |0...0> times the RZ phases keeps only row 0, whose phase angle
-        # is -sum_j x_j / 2: the start planes are built directly
-        angle = -0.5 * x.to(torch.float32).sum(dim=1)
-        rest = angle.new_zeros((2**wires - 1, batch))
-        sr = torch.cat([torch.cos(angle)[None], rest])
-        si = torch.cat([torch.sin(angle)[None], rest])
-    sr, si = _sel_small_batch(sr, si, w, imprimitive, cdtype)
-    if readout == "probs":
-        return probs_from_planes(sr, si)
-    return expval_z_from_planes(sr, si)
+        states = zero_state(batch, wires, dtype=cdtype, device=x.device)
+        states = states * rz_phases(x.to(rdtype), wires)
+    if batch >= 2**wires:
+        states = apply_unitary(states, sel_unitary(w.to(rdtype), imprimitive))
+    else:
+        states = _sel_small_batch(states, w, imprimitive, cdtype)
+    return _readout(states, readout)

@@ -16,7 +16,20 @@ import numpy as np
 import torch
 
 from .gates import rot_matrix
-from .statevector import bit_table
+from .statevector import apply_1q
+
+# Calls of the routes no kernel takes (the JAX package runs them in XLA),
+# since the last reset: "gates" (sel_apply_gates), "adjoint" (the per-gate
+# adjoint chains), "wide" (the grouped chains), "amp_xla" (the trajectory
+# backend's amplitude-damping pass in PyTorch). chip_smoke.py reads them to
+# show which route ran. A dict mutated in place: engine.ROUTE_CALLS is the
+# same object.
+ROUTE_CALLS = {"gates": 0, "adjoint": 0, "wide": 0, "amp_xla": 0}
+
+
+def reset_route_calls() -> None:
+    for key in ROUTE_CALLS:
+        ROUTE_CALLS[key] = 0
 
 
 def sel_ranges(n_layers: int, n_wires: int) -> list[int]:
@@ -30,17 +43,17 @@ def sel_ranges(n_layers: int, n_wires: int) -> list[int]:
 def cz_ring_signs(wires: int, rng: int) -> np.ndarray:
     """Diagonal of the CZ ring ``prod_j CZ(j, (j+rng) % wires)``.
 
-    CZ gates commute, so the ring is the product of their +-1 diagonals.
+    CZ gates commute, so the ring is the product of their +-1 diagonals:
+    -1 where an odd number of the pairs (j, j+rng) have both bits set.
     Returns (2**wires,) float64 of +-1.
     """
-    bits = bit_table(wires).astype(np.int64)
-    signs = np.ones(2**wires, dtype=np.int64)
-    if wires == 1 or rng == 0:
-        return signs.astype(np.float64)
-    for j in range(wires):
-        k = (j + rng) % wires
-        signs *= 1 - 2 * (bits[:, j] & bits[:, k])
-    return signs.astype(np.float64)
+    idx = np.arange(2**wires, dtype=np.int64)
+    parity = np.zeros_like(idx)
+    if wires > 1 and rng != 0:
+        for j in range(wires):
+            k = (j + rng) % wires
+            parity ^= (idx >> (wires - 1 - j)) & (idx >> (wires - 1 - k)) & 1
+    return (1 - 2 * parity).astype(np.float64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,23 +62,47 @@ def cnot_ring_perm(wires: int, rng: int) -> np.ndarray:
 
     The ring applies ``CNOT(j, (j+rng) % wires)`` for j = 0..wires-1 *in
     order* (later gates see earlier gates' flips). Each basis state maps to
-    exactly one basis state: target_bit ^= control_bit sequentially.
+    exactly one basis state: target_bit ^= control_bit sequentially, here
+    on every basis index at once.
 
     Returns ``inv`` such that ``(U_ring @ M) == M[inv, :]`` for any matrix M.
     """
     dim = 2**wires
     if wires == 1 or rng == 0:
         return np.arange(dim)
-    f = np.empty(dim, dtype=np.int64)
-    for i in range(dim):
-        b = [(i >> (wires - 1 - j)) & 1 for j in range(wires)]
-        for j in range(wires):
-            k = (j + rng) % wires
-            b[k] ^= b[j]
-        f[i] = sum(bj << (wires - 1 - j) for j, bj in enumerate(b))
+    f = np.arange(dim, dtype=np.int64)
+    for j in range(wires):
+        k = (j + rng) % wires
+        f ^= ((f >> (wires - 1 - j)) & 1) << (wires - 1 - k)
     inv = np.empty(dim, dtype=np.int64)
     inv[f] = np.arange(dim)
     return inv
+
+
+@functools.lru_cache(maxsize=None)
+def ring_row(wires: int, rng: int, imprimitive: str, device: torch.device,
+             dtype: torch.dtype) -> torch.Tensor:
+    """One ring of range ``rng`` as a tensor on ``device``, made once: the
+    CZ ring's signs in the real ``dtype`` of the states, or the CNOT ring's
+    gather indices (int64). A copy from the host on every call would wait
+    for the device."""
+    if imprimitive == "cz":
+        return torch.as_tensor(cz_ring_signs(wires, rng), dtype=dtype,
+                               device=device)
+    if imprimitive == "cnot":
+        return torch.as_tensor(cnot_ring_perm(wires, rng), device=device)
+    raise ValueError(f"unknown imprimitive {imprimitive!r}")
+
+
+def apply_ring(states: torch.Tensor, row: torch.Tensor,
+               imprimitive: str) -> torch.Tensor:
+    """A ring row on (B, 2**w) states: the CZ signs' multiply or the CNOT
+    gather. The same call undoes a ring with its inverse row (a CZ row is
+    its own inverse; a CNOT row's inverse is the inverse permutation), which
+    is also the ring's adjoint."""
+    if imprimitive == "cz":
+        return states * row
+    return states.index_select(1, row)
 
 
 def _batched_kron_chain(mats: torch.Tensor) -> torch.Tensor:
@@ -150,3 +187,28 @@ def sel_unitaries(weights: torch.Tensor,
     for l in range(1, layer_u.shape[1]):
         u = layer_u[:, l] @ u
     return u
+
+
+def sel_apply_gates(states: torch.Tensor, weights: torch.Tensor,
+                    imprimitive: str = "cnot") -> torch.Tensor:
+    """Apply SEL gate by gate (counterpart of ``qiddm_tpu/sim/sel.py:197``).
+
+    states: (B, 2**w) complex; weights: (depth, wires, 3). Per layer, the
+    rotation on every wire (``apply_1q``), then the ring: the CZ signs'
+    multiply or the CNOT gather. The range cycles over the full depth (one
+    deep template). Plain PyTorch, differentiated by autograd, which keeps
+    every intermediate state: O(depth * wires) of them.
+    """
+    ROUTE_CALLS["gates"] += 1
+    layers, wires, _ = weights.shape
+    mats = rot_matrix(weights[..., 0], weights[..., 1],
+                      weights[..., 2]).to(states.dtype)
+    rdtype = states.real.dtype
+    for l, rng in enumerate(sel_ranges(layers, wires)):
+        for j in range(wires):
+            states = apply_1q(states, mats[l, j], j, wires)
+        if wires > 1:
+            states = apply_ring(
+                states, ring_row(wires, rng, imprimitive, states.device,
+                                 rdtype), imprimitive)
+    return states

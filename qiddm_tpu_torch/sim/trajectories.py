@@ -17,18 +17,23 @@ Unravelings per channel kind (conventions of ``channels.py``):
 * ``depolarizing(p)``: I/X/Y/Z with probabilities ``(1-p, p/3, p/3, p/3)``,
   a per-wire single-qubit gate per sample.
 * ``amplitude_damping(g)``: norm-weighted Kraus sampling, one pass over all
-  wires in order: kernel #7, ``amp_damp_kernel.amp_damp``.
+  wires in order: kernel #7, ``amp_damp_kernel.amp_damp``, for complex64
+  states up to its 12 wires; past that, or in complex128, its PyTorch
+  counterpart :func:`_amp_damp_xla` (the JAX package's XLA pass), chosen by
+  width and dtype alone.
 
 Trajectories are flattened into the batch, as in the JAX package: row
 ``t * B + b`` is trajectory t of sample b (:func:`_tile_traj`), so the SEL
 layers are shared by all trajectories and only the channel draws are
-per-row. The SEL step takes the engine's rule: at ``n_traj * B >= 2**w`` the
-composed per-layer unitaries applied with one complex matmul each (the JAX
-package leaves that product to XLA too), below it the SEL-chain kernel #5
-on the (N, d) rows as they are (``sel_kernel.sel_chain_rows``: no
-transpose), one call per spectrum layer, whose ring ranges
-restart at each call as the JAX tiled route relies on. Both stop at
-``config.SEL_KERNEL_MAX_WIRES`` (12) wires.
+per-row. The SEL step (:func:`_sel_route`): complex64 up to 12 wires takes
+the engine's rule, at ``n_traj * B >= 2**w`` the composed per-layer
+unitaries applied with one complex matmul each (the JAX package leaves that
+product to XLA too), below it the SEL-chain kernel #5 on the (N, d) rows as
+they are (``sel_kernel.sel_chain_rows``: no transpose), one call per
+spectrum layer, whose ring ranges restart at each call as the JAX tiled
+route relies on. Past 12 wires, or in complex128, the JAX package's XLA
+routes: the per-layer unitaries up to 10 wires (composed from ``2**w``
+rows) and ``sel.sel_apply_gates`` above.
 
 Random draws. JAX keys cannot be matched bit for bit, so the port draws from
 a ``torch.Generator`` on the states' device: (w, N) uniforms for amplitude
@@ -55,7 +60,13 @@ import torch
 from .. import config as _config
 from .amp_damp_kernel import amp_damp
 from .gates import WEIGHT_MAPS, rot_matrix
-from .sel import sel_unitaries, sel_unitary
+from .sel import (
+    ROUTE_CALLS,
+    sel_apply_gates,
+    sel_layer_unitaries,
+    sel_unitaries,
+    sel_unitary,
+)
 from .sel_kernel import sel_chain_rows
 from .statevector import (
     amplitude_embed,
@@ -247,10 +258,58 @@ def apply_channel_trajectory(states: torch.Tensor, kind: str, strength, rng):
         return states
     if kind == "amplitude_damping":
         u = draws.uniform((wires, n), states.device)
-        out, picks = amp_damp(states, u, strength, picks=draws.forced_picks())
+        forced = draws.forced_picks()
+        if (states.dtype == torch.complex64
+                and wires <= _config.SEL_KERNEL_MAX_WIRES):
+            out, picks = amp_damp(states, u, strength, picks=forced)
+        else:
+            out, picks = _amp_damp_xla(states, u, strength, picks=forced)
         draws.took(picks)
         return out
     raise ValueError(f"no trajectory unraveling for channel {kind!r}")
+
+
+def _amp_damp_xla(states, u, strength, picks=None):
+    """The amplitude-damping pass in plain PyTorch, for the states kernel #7
+    does not take: past its 12 wires, or in complex128 (counterpart of
+    ``qiddm_tpu/sim/trajectories.py::_amp_damp_xla``, which the JAX package
+    runs in XLA there). Wire by wire in order, ``p1 = g * P(wire = 1)`` of
+    the state the earlier wires left; ``K1 / sqrt(p1)`` where ``u < p1``,
+    else ``K0 / sqrt(1 - p1)``. Differentiable by autograd.
+
+    ``P(wire = 1)`` is summed in float64, as #7 and its twin sum it (a
+    float32 sum's order could flip a pick near ``u == p1``); the branch
+    coefficients are in the states' real dtype. ``picks`` (w, N), when
+    given, are followed instead of ``u < p1`` (a replay). Returns the new
+    states and the picks taken, (w, N) uint8.
+    """
+    n, d = states.shape
+    wires = int(math.log2(d))
+    rdtype = states.real.dtype
+    g = torch.as_tensor(strength, dtype=rdtype, device=states.device)
+    sqg = torch.sqrt(torch.clamp(g, min=0.0))
+    sq1g = torch.sqrt(torch.clamp(1.0 - g, min=0.0))
+    taken = []
+    for j in range(wires):
+        v = states.reshape(n, 2**j, 2, d >> (j + 1))
+        s0, s1 = v[:, :, 0], v[:, :, 1]
+        p1d = g.double() * (s1.real.double() ** 2
+                            + s1.imag.double() ** 2).sum(dim=(1, 2))
+        pick = (picks[j].to(torch.bool) if picks is not None
+                else u[j].double() < p1d)
+        p1 = p1d.to(rdtype)
+        # each branch's renormalization, the unused one's argument set to 1
+        # so that no infinite derivative meets a zero cotangent in backward
+        inv1 = torch.rsqrt(torch.where(pick, p1.clamp(min=1e-30), 1.0))
+        inv0 = torch.rsqrt(torch.where(pick, 1.0,
+                                       (1.0 - p1).clamp(min=1e-30)))
+        n0 = torch.where(pick[:, None, None], (sqg * inv1)[:, None, None] * s1,
+                         inv0[:, None, None] * s0)
+        n1 = torch.where(pick, 0.0, sq1g * inv0)[:, None, None] * s1
+        states = torch.stack([n0, n1], dim=2).reshape(n, d)
+        taken.append(pick)
+    ROUTE_CALLS["amp_xla"] += 1
+    return states, torch.stack(taken).to(torch.uint8)
 
 
 # --- circuits ----------------------------------------------------------------
@@ -264,35 +323,37 @@ def _mean_over_traj(out: torch.Tensor, n_traj: int) -> torch.Tensor:
     return out.reshape((n_traj, -1) + tuple(out.shape[1:])).mean(dim=0)
 
 
-def _check_width(wires: int) -> None:
-    if wires > _config.SEL_KERNEL_MAX_WIRES:
-        raise NotImplementedError(
-            f"the trajectory backend at {wires} wires (above "
-            f"{_config.SEL_KERNEL_MAX_WIRES}) needs the wide gate-level "
-            f"routes: ROADMAP Queue 1 item 5")
-
-
-def _chain_route(n: int, wires: int, cdtype) -> bool:
-    """The engine's rule: the SEL-chain kernel below ``2**wires`` states,
-    composed unitaries from there on."""
-    if n >= 2**wires:
-        return False
-    if cdtype != torch.complex64:
-        raise NotImplementedError(
-            "the SEL-chain kernel runs complex64 states; the complex128 "
-            "gate-level route is ROADMAP Queue 1 item 5")
-    return True
+def _sel_route(n: int, wires: int, cdtype) -> str:
+    """How the SEL layers of ``n`` trajectory rows run. Complex64 up to the
+    kernel's 12 wires: "composed" unitaries from ``2**wires`` rows (the
+    engine's rule), else "rows", the SEL-chain kernel #5 on the rows. Past
+    that, or in complex128, the JAX package's XLA routes: up to 10 wires
+    "composed" from ``2**wires`` rows, else "layers", the per-layer
+    unitaries (``_unitary_route``); above 10, "gates", ``sel_apply_gates``
+    (``trajectories.py:277-299``)."""
+    if cdtype == torch.complex64 and wires <= _config.SEL_KERNEL_MAX_WIRES:
+        return "composed" if n >= 2**wires else "rows"
+    if wires <= _config.KERNEL_MAX_WIRES:
+        return "composed" if n >= 2**wires else "layers"
+    return "gates"
 
 
 def _sel_chain(states, w, imprimitive: str, cdtype):
-    """SEL(depth) on the trajectory-expanded batch: the SEL-chain kernel
-    (ranges cycling over the full depth) or one composed unitary."""
+    """SEL(depth) on the trajectory-expanded batch (ranges cycling over the
+    full depth), by :func:`_sel_route`."""
     wires = w.shape[1]
-    if _chain_route(states.shape[0], wires, cdtype):
+    route = _sel_route(states.shape[0], wires, cdtype)
+    if route == "rows":
         mats = rot_matrix(w[..., 0], w[..., 1], w[..., 2])
         return sel_chain_rows(states, mats, wires, imprimitive)
-    u = sel_unitary(w.to(cdtype.to_real()), imprimitive).to(cdtype)
-    return apply_unitary(states, u)
+    w = w.to(cdtype.to_real())
+    if route == "gates":
+        return sel_apply_gates(states, w, imprimitive)
+    if route == "layers":
+        for u in sel_layer_unitaries(w, imprimitive):
+            states = apply_unitary(states, u)
+        return states
+    return apply_unitary(states, sel_unitary(w, imprimitive))
 
 
 def reupload_block_trajectories(x_enc, block_weights, *, rng, n_traj: int,
@@ -315,24 +376,35 @@ def reupload_block_trajectories(x_enc, block_weights, *, rng, n_traj: int,
     if cdtype is None:
         cdtype = _config.complex_dtype()
     L, k, wires, _ = block_weights.shape
-    _check_width(wires)
     rdtype = cdtype.to_real()
     n = n_traj * x_enc.shape[0]
     xT = _tile_traj(x_enc.to(rdtype), n_traj)
     states = zero_state(n, wires, dtype=cdtype, device=x_enc.device)
     phases = rz_phases(xT, wires) if encode in ("rz", "rz_halfpi") else None
-    if _chain_route(n, wires, cdtype):
+    route = _sel_route(n, wires, cdtype)
+    if route == "rows":
         def apply_sel(s, l):
             # one kernel call per spectrum layer: its ring ranges restart,
             # as sel_unitaries' do per block
             w_l = block_weights[l]
             mats = rot_matrix(w_l[..., 0], w_l[..., 1], w_l[..., 2])
             return sel_chain_rows(s, mats, wires, imprimitive)
-    else:
-        us = sel_unitaries(block_weights.to(rdtype), imprimitive).to(cdtype)
+    elif route == "gates":
+        wr = block_weights.to(rdtype)
 
         def apply_sel(s, l):
-            return apply_unitary(s, us[l])
+            # the ranges restart each spectrum layer here too
+            return sel_apply_gates(s, wr[l], imprimitive)
+    else:
+        us = (sel_unitaries if route == "composed" else sel_layer_unitaries)(
+            block_weights.to(rdtype), imprimitive).to(cdtype)
+
+        def apply_sel(s, l):
+            if route == "composed":
+                return apply_unitary(s, us[l])
+            for u in us[l]:
+                s = apply_unitary(s, u)
+            return s
 
     for l in range(L):
         states = (states * phases if phases is not None
@@ -357,10 +429,9 @@ def qdense_circuit_trajectories(x, weights, *, rng, n_traj: int, noise,
     draws = _source(rng)
     if cdtype is None:
         cdtype = _config.complex_dtype()
-    _check_width(wires)
     w = WEIGHT_MAPS[weight_map](weights)
-    states = amplitude_embed(_tile_traj(x, n_traj), wires, pad_with,
-                             dtype=cdtype)
+    states = amplitude_embed(_tile_traj(x.to(cdtype.to_real()), n_traj),
+                             wires, pad_with, dtype=cdtype)
     states = _sel_chain(states, w, imprimitive, cdtype)
     states = apply_channel_trajectory(states, noise.kind, noise.strength,
                                       draws)
@@ -378,7 +449,6 @@ def qnn_circuit_trajectories(x, weights, *, rng, n_traj: int, noise,
     if cdtype is None:
         cdtype = _config.complex_dtype()
     wires = x.shape[-1]
-    _check_width(wires)
     rdtype = cdtype.to_real()
     w = WEIGHT_MAPS[weight_map](weights)
     xT = _tile_traj(x.to(rdtype), n_traj)

@@ -65,7 +65,7 @@ def test_seed_fixes_weights():
 def test_unported_options_raise():
     """Noise is ported (add_noise 1-4 build and run), and so is the
     Monte-Carlo trajectory backend, which raises without a random source
-    and above 12 wires, naming the wide routes' ROADMAP item."""
+    and runs past the SEL-chain kernel's 12 wires on ``sel_apply_gates``."""
     from qiddm_tpu_torch.sim import engine as tengine
 
     net = QIDDM_LL_noise(64, 4, 3, 2, 1, device="cpu")
@@ -78,9 +78,13 @@ def test_unported_options_raise():
     out = tengine.reupload_block(torch.zeros(2, 4), torch.zeros(3, 2, 4, 3),
                                  noise=noise, n_traj=8, traj_rng=gen)
     assert out.shape == (2, 16) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tengine.reupload_block(torch.zeros(2, 13), torch.zeros(1, 2, 13, 3),
-                               noise=noise, n_traj=8, traj_rng=gen)
+    tengine.reset_route_calls()
+    out = tengine.reupload_block(torch.zeros(2, 13), torch.zeros(1, 2, 13, 3),
+                                 noise=noise, n_traj=8, traj_rng=gen)
+    assert out.shape == (2, 2**13) and torch.isfinite(out).all()
+    # zero angles leave |0...0>; phase damping changes no probability
+    assert torch.allclose(out[:, 0], torch.ones(2))
+    assert tengine.ROUTE_CALLS["gates"] == 1
 
 
 def test_jax_checkpoint_round_trips_through_port(tmp_path):

@@ -193,19 +193,36 @@ def test_unported_circuit_options_raise(call, kwargs, match):
 
 
 def test_chain_route_limits_raise():
-    """The SEL chain takes up to 12 wires (the trajectory route's width);
-    wider circuits at a small batch raise naming the wide routes."""
+    """The SEL chain takes up to 12 wires (the trajectory route's width) in
+    complex64. Past it the grouped chain runs (``wide.sel_chain_wide``,
+    13 wires, against the JAX package's adjoint chain), and complex128
+    below 9 wires ``sel_apply_gates`` (against the complex64 kernel
+    route)."""
     out = tengine.qnn_circuit(torch.zeros(2, 11), torch.zeros(1, 11, 3))
     assert out.shape == (2, 11) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tengine.qnn_circuit(torch.zeros(2, 13), torch.zeros(1, 13, 3))
+    rng = _rng(8)
+    x = rng.normal(size=(2, 13)).astype(np.float32)
+    w = (rng.normal(size=(2, 13, 3)) * 0.4).astype(np.float32)
+    tengine.reset_route_calls()
+    with torch.no_grad():
+        got = tengine.qnn_circuit(torch.as_tensor(x), torch.as_tensor(w),
+                                  readout="probs").numpy()
+    assert tengine.ROUTE_CALLS["wide"] == 1
+    want = np.asarray(jsim.qnn_circuit(jnp.asarray(x), jnp.asarray(w),
+                                       readout="probs"))
+    np.testing.assert_allclose(got, want, atol=CIRCUIT_TOL)
+    xd = torch.as_tensor(rng.uniform(size=(2, 8)), dtype=torch.float32)
+    wd = torch.as_tensor(rng.normal(size=(3, 3, 3)), dtype=torch.float32)
+    want = tengine.qdense_circuit(xd, wd, wires=3)
     tconfig.enable_x64(True)
     try:
-        with pytest.raises(NotImplementedError, match="float32 planes"):
-            tengine.qdense_circuit(torch.zeros(2, 8), torch.zeros(1, 3, 3),
-                                   wires=3)
+        tengine.reset_route_calls()
+        got = tengine.qdense_circuit(xd, wd, wires=3)
+        assert tengine.ROUTE_CALLS["gates"] == 1
     finally:
         tconfig.enable_x64(False)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=CIRCUIT_TOL)
 
 
 # --- models ------------------------------------------------------------------

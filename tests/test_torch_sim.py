@@ -114,13 +114,15 @@ _DAMPING = tengine.NoiseModel("amplitude_damping", 0.1, "encode")
 
 @pytest.mark.parametrize("kwargs,item", [
     # the trajectory backend: a channel with n_traj needs a random source
-    # and runs up to 12 wires; without a channel n_traj changes nothing
+    # and runs at any width; without a channel n_traj changes nothing
     ({"noise": _DAMPING, "n_traj": 4}, "random source"),
     ({"n_traj": 4}, None),
     ({"mesh": object()}, "item 11"),
+    # the routes ROADMAP item 5 ported run, each on its route: 13 wires on
+    # sel_apply_gates and the PyTorch amplitude-damping pass, a CNOT ring
+    # past the per-layer route's 8 wires on the grouped chain
     ({"encode": "ry", "noise": _DAMPING, "n_traj": 4, "wires": 13},
      "item 5"),
-    # a CNOT ring takes the per-layer-unitary route up to 8 wires
     ({"imprimitive": "cnot", "wires": 9}, "item 5"),
 ])
 def test_reupload_block_unported_options_raise(kwargs, item):
@@ -137,6 +139,14 @@ def test_reupload_block_unported_options_raise(kwargs, item):
         out = tengine.reupload_block(
             x, w, traj_rng=torch.Generator().manual_seed(0), **kwargs)
         assert out.shape == (2, 8) and torch.isfinite(out).all()
+    elif item == "item 5":
+        tengine.reset_route_calls()
+        out = tengine.reupload_block(
+            x, w, traj_rng=torch.Generator().manual_seed(0), **kwargs)
+        assert out.shape == (2, 2**wires) and torch.isfinite(out).all()
+        want = ({"gates": 1, "amp_xla": 1} if "noise" in kwargs
+                else {"wide": 1})
+        assert {k: v for k, v in tengine.ROUTE_CALLS.items() if v} == want
     else:
         with pytest.raises(NotImplementedError, match=item):
             tengine.reupload_block(
@@ -187,28 +197,32 @@ def test_ry_pieces_match_jax():
 
 
 def test_x64_switch_runs_composed_route_in_complex128():
-    """complex128 runs the composed route at batch >= 2^w and the
-    per-layer-unitary route below it, up to 8 wires; both agree with the
-    complex64 result, and a 9-wire block below 2^9 raises naming item 5."""
+    """complex128 runs the composed route at batch >= 2^w, the per-layer
+    unitaries below it up to 8 wires and the grouped chain from 9 (the JAX
+    package's TPU route); all agree with the complex64 result."""
     from qiddm_tpu_torch import config
 
     rng = _rng(5)
     x = torch.as_tensor(rng.normal(size=(20, 4)), dtype=torch.float32)
     w = torch.as_tensor(rng.normal(size=(3, 2, 4, 3)) * 0.4,
                         dtype=torch.float32)
+    x9 = torch.as_tensor(rng.normal(size=(5, 9)), dtype=torch.float32)
+    w9 = torch.as_tensor(rng.normal(size=(2, 2, 9, 3)) * 0.4,
+                         dtype=torch.float32)
     want = tsim.reupload_block(x, w, readout="probs")
     want_small = tsim.reupload_block(x[:5], w, readout="probs")
+    want9 = tsim.reupload_block(x9, w9, readout="probs")
     config.enable_x64(True)
     try:
         assert config.complex_dtype() == torch.complex128
         assert config.real_dtype() == torch.float64
         got = tsim.reupload_block(x, w, readout="probs")
         got_small = tsim.reupload_block(x[:5], w, readout="probs")
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tsim.reupload_block(torch.zeros(5, 9), torch.zeros(1, 2, 9, 3))
+        tengine.reset_route_calls()
+        got9 = tsim.reupload_block(x9, w9, readout="probs")
+        assert tengine.ROUTE_CALLS["wide"] == 1
     finally:
         config.enable_x64(False)
-    assert got.dtype == got_small.dtype == torch.float64
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=CHAIN_TOL)
-    np.testing.assert_allclose(got_small.numpy(), want_small.numpy(),
-                               atol=CHAIN_TOL)
+    assert got.dtype == got_small.dtype == got9.dtype == torch.float64
+    for g, want_ in ((got, want), (got_small, want_small), (got9, want9)):
+        np.testing.assert_allclose(g.numpy(), want_.numpy(), atol=CHAIN_TOL)

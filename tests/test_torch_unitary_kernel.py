@@ -348,13 +348,35 @@ def test_engine_routes_cnot_rz_blocks_to_the_unitary_chain(monkeypatch):
                                      "cdtype": torch.complex128}])
 def test_engine_route_limits_raise_naming_item_5(kwargs):
     """The per-layer route stops at 8 wires (the kernels' 256 amplitudes):
-    a CNOT ring or complex128 at 9 wires and a batch below 2^9 raises."""
+    a CNOT ring or complex128 at 9 wires and a batch below 2^9 takes the
+    grouped chain instead (ROADMAP item 5), and agrees with the per-gate
+    adjoint chain (``adjoint_mode("on")``; "auto" takes it only past 10
+    wires) and with ``sel_apply_gates`` under autograd (``wide_mode("off")``
+    or ``adjoint_mode("off")`` at 9 wires)."""
     out = tengine.reupload_block(torch.zeros(3, 8), torch.zeros(1, 2, 8, 3),
                                  **kwargs)
     assert out.shape == (3, 256) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tengine.reupload_block(torch.zeros(3, 9), torch.zeros(1, 2, 9, 3),
-                               **kwargs)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(3, 9)), dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=(2, 2, 9, 3)) * 0.5,
+                        dtype=torch.float32)
+    runs = {}
+    for wide, adjoint, route in (("auto", "auto", "wide"),
+                                 ("off", "auto", "gates"),
+                                 ("off", "on", "adjoint"),
+                                 ("auto", "off", "gates")):
+        tconfig.set_wide_mode(wide)
+        tconfig.set_adjoint_mode(adjoint)
+        tengine.reset_route_calls()
+        try:
+            runs[wide, adjoint] = tengine.reupload_block(x, w, **kwargs)
+        finally:
+            tconfig.set_wide_mode("auto")
+            tconfig.set_adjoint_mode("auto")
+        assert tengine.ROUTE_CALLS[route] >= 1
+    for got in runs.values():
+        _assert_rel(got.numpy(), runs["auto", "auto"].numpy(), X64_TOL
+                    if "cdtype" in kwargs else TOL)
     with pytest.raises(ValueError, match="unknown imprimitive"):
         tengine.reupload_block(torch.zeros(3, 4), torch.zeros(1, 2, 4, 3),
                                imprimitive="cy")

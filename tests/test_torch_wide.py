@@ -251,11 +251,29 @@ def test_function_cpu_backward_matches_autograd_of_plain():
 
 def test_unported_wide_options_raise():
     """The wide SEL chain (the JAX package's ``sel_chain_wide``, QNN and
-    Qdense above 12 wires) is not ported: both circuits raise naming
-    item 5 at 13 wires and a batch below 2^13."""
+    Qdense above 12 wires) is ported: both circuits run it at 13 wires and
+    a batch below 2^13, and match the JAX package's grouped chain."""
     w = 13
-    with pytest.raises(NotImplementedError, match="item 5"):
-        engine.qnn_circuit(torch.zeros(2, w), torch.zeros(1, w, 3))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        engine.qdense_circuit(torch.zeros(2, 16), torch.zeros(1, w, 3),
-                              wires=w)
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, w)).astype(np.float32)
+    xd = rng.uniform(size=(2, 16)).astype(np.float32)
+    wq = (rng.normal(size=(2, w, 3)) * 0.5).astype(np.float32)
+    from qiddm_tpu import sim as jsim
+
+    jconfig.set_wide_mode("on")
+    try:
+        want = (np.asarray(jsim.qnn_circuit(jnp.asarray(x), jnp.asarray(wq),
+                                            readout="probs")),
+                np.asarray(jsim.qdense_circuit(jnp.asarray(xd),
+                                               jnp.asarray(wq), wires=w)))
+    finally:
+        jconfig.set_wide_mode("auto")
+    engine.reset_route_calls()
+    with torch.no_grad():
+        got = (engine.qnn_circuit(torch.as_tensor(x), torch.as_tensor(wq),
+                                  readout="probs"),
+               engine.qdense_circuit(torch.as_tensor(xd),
+                                     torch.as_tensor(wq), wires=w))
+    assert engine.ROUTE_CALLS["wide"] == 2
+    for g, want_ in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), want_, atol=STATE_TOL)

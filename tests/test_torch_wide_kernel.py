@@ -101,8 +101,9 @@ def test_other_devices_and_wrong_shapes_raise():
 
 
 def test_engine_routes_rz_at_11_to_20_wires_to_the_wide_chain(monkeypatch):
-    """RZ blocks above the gate chain's 10 wires take the wide chain; 10
-    wires, an RY encode, 21 wires and complex128 do not."""
+    """RZ blocks above the gate chain's 10 wires take the wide chain's
+    kernels; 10 wires do not, and an RY encode, 21 wires and complex128
+    take the grouped chain in PyTorch (``wide.reupload_chain_wide``)."""
     calls = []
     real = engine.wide_chain_planes
 
@@ -119,9 +120,14 @@ def test_engine_routes_rz_at_11_to_20_wires_to_the_wide_chain(monkeypatch):
     assert calls == [11, 12]
     for w, kwargs in ((11, {"encode": "ry"}), (21, {}),
                       (11, {"cdtype": torch.complex128})):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            engine.reupload_block(torch.zeros(2, w), torch.zeros(1, 2, w, 3),
-                                  **kwargs)
+        engine.reset_route_calls()
+        with torch.no_grad():
+            out = engine.reupload_block(torch.zeros(1, w),
+                                        torch.zeros(1, 2, w, 3),
+                                        readout="expvalz", **kwargs)
+        # zero angles leave |0...0>: every PauliZ expectation is 1
+        assert torch.allclose(out, torch.ones_like(out))
+        assert engine.ROUTE_CALLS["wide"] == 1
     assert calls == [11, 12]
 
 
