@@ -479,7 +479,34 @@ any failure exits non-zero and no phase's failure is caught:
    layer (L 1, k 2, one image) against the CPU within 1e-5; (b) QIDDM-A (differN_noise 28 9 2) under
    config.enable_x64(True): the complex128 grouped chain at 10 wires, a
    forward and a training step's loss and gradients against the CPU's
-   float64 within 1e-10 and 1e-8 relative; the five phases' walls.
+   float64 within 1e-10 and 1e-8 relative; the five phases' walls;
+47. AOT serving artifacts (qiddm_tpu_torch/export.py; the forward kernels
+   are torch.library operators, qiddm::*, sim/ops.py): (1) phase 10's
+   QIDDM_LL_noise 784 6 14 2 checkpoint exported through the sampling CLI
+   (--export, 16 x 15) and served with --from-export, 3 batches, against
+   the live CLI within 1e-6, #1 launched 2 an iteration by both; the
+   artifact's and the live sampler's images/s at batch 16, in turns; the
+   trained sampler at batch 16 (#1) and 1024 (the composed-unitary route)
+   against the CPU, an iteration at a time from the card's batches and
+   free-running, printed; (2) the JAX bench's AOT row
+   (bench.py:322-345, fresh seeded weights): batch 1024, 15 iterations,
+   the composed route (no port kernel), against the live sampler within
+   1e-6, against the CPU free-running within 1e-4 and an iteration at a
+   time within 1e-5, images/s of both in turns; (3) a bundle of buckets
+   1, 8 and 64 serving n = 5, 16 and 100, each against the live sampler
+   within 1e-4 (printed against 1e-5), n = 100 (the 64-bucket, composed)
+   also against the CPU; (4) an artifact for each other operator, seeded
+   weights, against the live sampler within 1e-5 with the same launches:
+   QIDDM-A (#1 at 10 wires, the PCA refit inside the program), QNN_noise
+   784 8 14 (#5), QIDDM_PL_noise1 784 8 6 2 (#3), the dm-noise
+   QIDDM_LL_noise 784 6 14 2 at amplitude damping 0.3, 2 images x 3
+   iterations (#8), QIDDM_LL_noise 784 16 14 2 under both wide variants,
+   2 iterations (#11, #9), and phase 27's CNOT block at the block level
+   (#13); (5) the model built and exported on the CPU with
+   platforms=("cuda",), run on the card against its live sampler within
+   1e-5; (6) a trajectory model refused; then the host us a call of #1
+   through its launch function, its torch.library operator and a
+   torch.library.custom_op registration of the same function, in turns.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -521,6 +548,7 @@ import numpy as np
 import torch
 
 from qiddm_tpu_torch import config
+from qiddm_tpu_torch import export as export_mod
 from qiddm_tpu_torch.ckpt import (export_jax_variables, load_checkpoint,
                                   load_jax_variables, save_checkpoint)
 from qiddm_tpu_torch import data as data_mod
@@ -535,7 +563,7 @@ from qiddm_tpu_torch.nn import core as nn_core
 from qiddm_tpu_torch.pca import (PCAState, pca_fit, pca_fit_transform,
                                  pca_transform)
 from qiddm_tpu_torch.sim import (amp_damp_kernel, dm_kernel, engine,
-                                 gate_kernel, ry_kernel, sel_kernel,
+                                 gate_kernel, ops, ry_kernel, sel_kernel,
                                  unitary_kernel, wide, wide_kernel)
 from qiddm_tpu_torch.sim.gates import rot_matrix
 from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
@@ -776,6 +804,33 @@ DM12_MODEL = ["QIDDM_LL_noise", "784", "12", "6", "2"]
 DM12_STRENGTH, DM12_IMAGES, DM12_ITERS = 0.3, 2, 3
 PAIRS = 20          # each kernel against its library call, in turns
 WIDE_PAIRED = (16, 10, 28)  # #9-#12's (w, B, L*k) in the pairs
+# phase 47: AOT serving artifacts (qiddm_tpu_torch/export.py). An artifact
+# calls the live sampler's operators in the same order: held to 1e-6 where
+# both run one batch on one device; 1e-5 for one iteration against the CPU
+# and for the other operators' artifacts; a free-running batch on another
+# route (a padded bucket, the CPU) to SAMPLE_TOL, as every sampled batch
+# here, its figure printed against 1e-5
+EXPORT_TOL, STEP_TOL = 1e-6, 1e-5
+EXPORT_REPS = 5     # rounds of 4 timed batches, in turns
+AOT_BATCH, AOT_REPS = 1024, 3  # bench.py:322-345's AOT serving row
+BUNDLE_BUCKETS, BUNDLE_NS = (1, 8, 64), (5, 16, 100)
+CROSS_ITERS = 5     # the CPU-emitted CUDA artifact's iterations
+# (label, model, image side, with_noise args, wide variant, batch,
+# iterations, operator, its counter): one artifact for each other forward
+# operator, seeded weights
+EXPORT_MODELS = [
+    ("QIDDM-A " + " ".join(QIDDM_A), QIDDM_A, 28, None, "scan", N, 3,
+     "gate_chain", "gate"),
+    (" ".join(QNN_MODEL), QNN_MODEL, 28, None, "scan", N, 3, "sel_chain",
+     "sel"),
+    (" ".join(PL_MODEL), PL_MODEL, 28, None, "scan", N, 3, "ry_chain", "ry"),
+    ("dm " + " ".join(MODEL) + f" amplitude damping {SWEEP_CHECK}", MODEL,
+     28, (2, SWEEP_CHECK), "scan", 2, 3, "dm_chain", "dm"),
+    (" ".join(WIDE_MODEL) + " (scan)", WIDE_MODEL, 28, None, "scan", N, 2,
+     "wide_chain", "wide"),
+    (" ".join(WIDE_MODEL) + " (monolith)", WIDE_MODEL, 28, None, "monolith",
+     N, 2, "wide_mono", "wide_mono"),
+]
 
 
 def fail(msg: str) -> None:
@@ -5091,6 +5146,336 @@ def phase_x64_qiddm_a(tmp: pathlib.Path, smi: str) -> dict:
     return counts
 
 
+# --- phase 47: AOT serving artifacts ------------------------------------------
+
+def _sampler_of(margs, device, ckpt=None, seed: int = SEED):
+    """A Diffusion of ``margs`` on ``device``: the checkpoint's weights, or
+    seeded random ones."""
+    net = common.build_model(margs, seed=seed, device=device)
+    if ckpt is not None:
+        load_jax_variables(net, load_checkpoint(ckpt)["model_state_dict"])
+    return Diffusion(net=net, shape=(28, 28)).eval()
+
+
+def _start(n: int, seed: int, device, side: int = 28) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(
+        (rng.uniform(size=(n, 1, side, side)) * 0.75 + 0.5).astype(
+            np.float32), device=device)
+
+
+def _counted(fn) -> tuple:
+    """``fn()`` from counts of 0, synchronised: (its result, the counters
+    that moved)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c: n for c, n in read_counts().items() if n}
+
+
+def _turns(live, artifact, images: int, reps: int) -> tuple[float, float]:
+    """Steady images/s of the live sampler and of an artifact, timed in
+    turns (live, artifact, artifact, live) over ``reps`` rounds after one
+    warm call each, host clock to a synchronise."""
+    for fn in (live, artifact):
+        fn()
+    torch.cuda.synchronize()
+    walls = {"live": [], "artifact": []}
+    for _ in range(reps):
+        for name, fn in (("live", live), ("artifact", artifact),
+                         ("artifact", artifact), ("live", live)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    return (images / float(np.median(walls["live"])),
+            images / float(np.median(walls["artifact"])))
+
+
+def _held_artifact(what: str, got, want, tol: float) -> float:
+    err = (got.float().cpu() - want.float().cpu()).abs().max().item()
+    if not (math.isfinite(err) and err <= tol):
+        fail(f"{what}: the artifact is {err:.3e} from its reference "
+             f"(> {tol})")
+    return err
+
+
+def _against(err: float) -> str:
+    within = "within" if err <= STEP_TOL else "over"
+    return f"{err:.3e} ({within} {STEP_TOL})"
+
+
+def _op_overhead(reps: int = 500) -> dict:
+    """Host us a call of #1 at (6, 16, 28) through its launch function,
+    through ``qiddm::gate_chain`` (torch.library.Library, the port's
+    registration) and through the same launch function registered with
+    torch.library.custom_op; in turns, twice."""
+    dev = torch.device("cuda", 0)
+    pr, pi, mats = chain_inputs(np.random.default_rng(SEED + 47), 6, 16, 28,
+                                dev)
+    g8 = gate_kernel._to_g8(mats)
+    signs = gate_kernel._sign_planes_on(2, 6, dev)
+
+    @torch.library.custom_op("qiddm_probe::gate_chain", mutates_args=())
+    def custom(pr: torch.Tensor, pi: torch.Tensor, g8: torch.Tensor, k: int,
+               wires: int) -> tuple[torch.Tensor, torch.Tensor]:
+        return gate_kernel._gate_chain_cuda(pr, pi, g8, signs, k, wires)
+
+    @custom.register_fake
+    def _(pr, pi, g8, k, wires):
+        return torch.empty_like(pr), torch.empty_like(pi)
+
+    calls = {
+        "direct": lambda: gate_kernel._gate_chain_cuda(pr, pi, g8, signs, 2,
+                                                       6),
+        "library": lambda: ops.gate_chain(pr, pi, g8, 2, 6),
+        "custom_op": lambda: torch.ops.qiddm_probe.gate_chain(pr, pi, g8, 2,
+                                                              6),
+    }
+    us = {name: [] for name in calls}
+    for name, fn in calls.items():
+        fn()
+    for _ in range(2):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            us[name].append(1e6 * (time.perf_counter() - t0) / reps)
+    return us
+
+
+class _Block(torch.nn.Module):
+    """#13's path at the block level: reupload_block with a CNOT ring, its
+    weights a program input."""
+
+    def forward(self, inputs, x):
+        return engine.reupload_block(x, inputs[0], encode="rz",
+                                     imprimitive="cnot")
+
+
+def phase_export(tmp: pathlib.Path, smi: str) -> dict:
+    """AOT serving artifacts (qiddm_tpu_torch/export.py) on the card: the
+    CLI's --export and --from-export on the trained MODEL checkpoint, the
+    JAX bench's AOT row, a bundle, one artifact for each other forward
+    operator, a CPU-emitted CUDA artifact and the trajectory refusal.
+    Returns the launch counts of every artifact and live run."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    name = common.build_model(MODEL, device="cpu").save_name()
+    ckpt = tmp / f"{LABEL}/noise_0/{name}_{LABEL}.pt"
+    total = {c: 0 for c in read_counts()}
+    through = {}  # op -> launches through artifacts
+
+    def add(counts, artifact_op=None, counter=None):
+        for c, n in counts.items():
+            total[c] += n
+        if artifact_op:
+            through[artifact_op] = through.get(artifact_op, 0) + counts.get(
+                counter, 0)
+
+    # (1) the CLI round trip at batch N, ITERS iterations
+    art = tmp / "aot_ll.qta"
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        sample_cli.main(["--ckpt", str(ckpt), "--model", *MODEL, "--n",
+                         str(N), "--iters", str(ITERS), "--device", "cuda",
+                         "--export", str(art)])
+    t_export = time.perf_counter() - t0
+    print(printed.getvalue().strip() + f" in {t_export:.2f} s")
+    serve = ["--n", str(N), "--device", "cuda", "--format", "npz",
+             "--batches", str(BATCHES)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        served, got = _counted(lambda: sample_cli.main(
+            ["--from-export", str(art), *serve, "--out", str(tmp / "aot_s")]))
+        direct, live = _counted(lambda: sample_cli.main(
+            ["--ckpt", str(ckpt), "--model", *MODEL, "--iters", str(ITERS),
+             *serve, "--out", str(tmp / "aot_d")]))
+    add(got, "gate_chain", "gate")
+    add(live)
+    want = {"gate": 2 * ITERS * BATCHES}
+    if got != want or live != want:
+        fail(f"--from-export launched {got}, the live sampler {live}; both "
+             f"should launch {want}")
+    err = float(np.abs(served - direct).max())
+    print(f"export: --from-export {N} x {ITERS} iterations x {BATCHES} "
+          f"batches against the live CLI: max|diff| {err:.3e}, launches "
+          f"{got} (live {live})")
+    if not err <= EXPORT_TOL:
+        fail(f"--from-export is {err:.3e} from the live sampler "
+             f"(> {EXPORT_TOL})")
+    diff = _sampler_of(MODEL, dev, ckpt)
+    fn = export_mod.load_sampler(art.read_bytes())
+    x16 = _start(N, SEED + 47, dev)
+    live16, art16 = _turns(
+        lambda: diff.sample_fn(x16, ITERS, only_last=True),
+        lambda: fn(x16), N, EXPORT_REPS)
+    print(f"export: {' '.join(MODEL)} at batch {N}, {ITERS} iterations: "
+          f"live {live16:.1f} images/s, artifact {art16:.1f} images/s "
+          f"({art16 / live16:.3f}x; in turns; {smi})")
+
+    # the trained sampler on the card against the CPU, on the gate chain
+    # (batch N) and the composed route (AOT_BATCH >= 2^6): each iteration
+    # from the card's batch, and free-running; printed, not held (the
+    # fresh weights' AOT row below is held)
+    trained_cpu = _sampler_of(MODEL, "cpu", ckpt)
+    for batch in (N, AOT_BATCH):
+        x = _start(batch, SEED + 48, dev)
+        stack = diff.sample_stack_fn(x, ITERS)
+        e_step = max((trained_cpu.sample_fn(stack[t].cpu(), 1,
+                                            only_last=True)
+                      - stack[t + 1].cpu()).abs().max().item()
+                     for t in range(ITERS))
+        e_free = (trained_cpu.sample_fn(x.cpu(), ITERS, only_last=True)
+                  - stack[-1].cpu()).abs().max().item()
+        print(f"export: the trained {' '.join(MODEL)} at batch {batch} on "
+              f"the card against the CPU: {e_step:.3e} at worst an "
+              f"iteration from the card's batch, {e_free:.3e} free-running "
+              f"over {ITERS} iterations")
+
+    # (2) the JAX bench's AOT row (bench.py:322-345, fresh weights): batch
+    # 1024, the composed-unitary route, held against the CPU too
+    diff = _sampler_of(MODEL, dev)
+    cpu = _sampler_of(MODEL, "cpu")
+    t0 = time.perf_counter()
+    blob = export_mod.export_sampler(diff, batch=AOT_BATCH, n_iters=ITERS)
+    t_aot = time.perf_counter() - t0
+    fn = export_mod.load_sampler(blob)
+    out, got = _counted(lambda: fn(x))
+    add(got)
+    if got:
+        fail(f"the batch-{AOT_BATCH} artifact launched {got}: the composed "
+             f"route runs no port kernel")
+    stack = diff.sample_stack_fn(x, ITERS)
+    e_live = _held_artifact("AOT row", out, stack[-1], EXPORT_TOL)
+    e_cpu = _held_artifact("AOT row against the CPU", out, cpu.sample_fn(
+        x.cpu(), ITERS, only_last=True), SAMPLE_TOL)
+    # the composed route's own error: each iteration on the CPU from the
+    # card's batch, against the card's next
+    e_step = max(_held_artifact(
+        f"AOT row iteration {t} on the CPU", cpu.sample_fn(
+            stack[t].cpu(), 1, only_last=True), stack[t + 1], STEP_TOL)
+        for t in range(ITERS))
+    live_r, art_r = _turns(lambda: diff.sample_fn(x, ITERS, only_last=True),
+                           lambda: fn(x), AOT_BATCH, AOT_REPS)
+    print(f"export: AOT row {' '.join(MODEL)} at batch {AOT_BATCH}, {ITERS} "
+          f"iterations (composed route, exported in {t_aot:.2f} s, "
+          f"{len(blob) / 1e6:.2f} MB): artifact {art_r:.1f} images/s, live "
+          f"{live_r:.1f} images/s ({art_r / live_r:.3f}x; in turns; {smi}); "
+          f"max|diff| {e_live:.3e} against the live sampler, "
+          f"{_against(e_cpu)} against the CPU's over {ITERS} iterations, "
+          f"{e_step:.3e} at worst an iteration from the card's batch")
+
+    # (3) a bundle of buckets BUNDLE_BUCKETS serving BUNDLE_NS
+    t0 = time.perf_counter()
+    blob = export_mod.export_sampler_bundle(diff, batches=BUNDLE_BUCKETS,
+                                            n_iters=ITERS)
+    t_bundle = time.perf_counter() - t0
+    serve_fn = export_mod.load_sampler_bundle(blob)
+    for n in BUNDLE_NS:
+        x = _start(n, SEED + 49 + n, dev)
+        out, got = _counted(lambda: serve_fn(x))
+        add(got, "gate_chain", "gate")
+        e = _held_artifact(f"bundle n={n}", out,
+                           diff.sample_fn(x, ITERS, only_last=True),
+                           SAMPLE_TOL)
+        line = (f"export: bundle {list(BUNDLE_BUCKETS)} (exported in "
+                f"{t_bundle:.2f} s) n={n}: max|diff| {_against(e)} against "
+                f"the live sampler, launches {got}")
+        if n > BUNDLE_BUCKETS[-2]:
+            e = _held_artifact(f"bundle n={n} against the CPU", out,
+                               cpu.sample_fn(x.cpu(), ITERS, only_last=True),
+                               SAMPLE_TOL)
+            line += (f", {_against(e)} against the CPU (the 64-bucket, "
+                     f"composed)")
+        print(line)
+
+    # (4) one artifact for each other forward operator, against the live
+    # sampler on the card, each counter moving as the live run's does
+    for what, margs, side, noise, variant, batch, iters, op, counter in (
+            EXPORT_MODELS):
+        config.set_wide_kernel_variant(variant)
+        try:
+            d = _sampler_of(margs, dev, seed=SEED + 5)
+            if noise:
+                d.net = common.with_noise(d.net, *noise)
+            t0 = time.perf_counter()
+            fn = export_mod.load_sampler(export_mod.export_sampler(
+                d, batch=batch, n_iters=iters))
+            t_op = time.perf_counter() - t0
+            x = _start(batch, SEED + 50, dev, side)
+            out, got = _counted(lambda: fn(x))
+            want, live = _counted(
+                lambda: d.sample_fn(x, iters, only_last=True))
+        finally:
+            config.set_wide_kernel_variant("scan")
+        add(got, op, counter)
+        add(live)
+        if got != live or not got.get(counter):
+            fail(f"{what}: the artifact launched {got}, the live sampler "
+                 f"{live}")
+        e = _held_artifact(what, out, want, STEP_TOL)
+        print(f"export: {what} ({batch} x {iters} iterations, export and "
+              f"load {t_op:.2f} s): qiddm::{op} launches {got} (live "
+              f"{live}), max|diff| {e:.3e}")
+    w, L, k, b = UNITARY_PATH[1]
+    weights, x, _ = unitary_inputs(np.random.default_rng(SEED + 51), w, b, L,
+                                   k, "cnot", dev)
+    seg = export_mod._program_segment(_Block(), ([weights], x), dev)
+    call = export_mod._bind(seg, [weights], 1)[0]
+    out, got = _counted(lambda: call(x))
+    with torch.no_grad():
+        want, live = _counted(lambda: engine.reupload_block(
+            x, weights, encode="rz", imprimitive="cnot"))
+    add(got, "unitary_chain", "unitary")
+    add(live)
+    if got != {"unitary": 1} or live != got:
+        fail(f"#13's block artifact launched {got}, the live block {live}")
+    e = _held_artifact("#13's block", out, want, STEP_TOL)
+    print(f"export: reupload_block CNOT (w={w}, L={L}, k={k}, B={b}) at the "
+          f"block level: qiddm::unitary_chain launches {got}, max|diff| "
+          f"{e:.3e}")
+
+    # (5) a CUDA artifact emitted from the CPU
+    t0 = time.perf_counter()
+    blob = export_mod.export_sampler(cpu, batch=N, n_iters=CROSS_ITERS,
+                                     platforms=("cuda",))
+    t_cross = time.perf_counter() - t0
+    fn = export_mod.load_sampler(blob)
+    x = _start(N, SEED + 52, dev)
+    out, got = _counted(lambda: fn(x))
+    add(got, "gate_chain", "gate")
+    if got != {"gate": 2 * CROSS_ITERS}:
+        fail(f"the CPU-emitted CUDA artifact launched {got}")
+    e = _held_artifact("CPU-emitted CUDA artifact", out, diff.sample_fn(
+        x, CROSS_ITERS, only_last=True), STEP_TOL)
+    print(f"export: {' '.join(MODEL)} built and exported on the CPU for cuda "
+          f"in {t_cross:.2f} s, run on the card: launches {got}, max|diff| "
+          f"{e:.3e} against the card's live sampler")
+
+    # (6) trajectory models are not exportable
+    traj = _sampler_of(MODEL, dev, ckpt)
+    traj.net = common.with_noise(traj.net, 2, 0.05, noise_trajectories=16)
+    try:
+        export_mod.export_sampler(traj, batch=2, n_iters=2)
+    except ValueError as e:
+        if "trajectory" not in str(e):
+            raise
+        print(f"export: a trajectory model refused: {e}")
+    else:
+        fail("a trajectory model was exported")
+
+    us = _op_overhead()
+    print(f"export: host us a call of #1 at (6, 16, 28), in turns: "
+          + ", ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)}"
+                      for k, vs in us.items()) + f" ({smi})")
+    print(f"export: launches through artifacts by operator {through}")
+    print(f"phase 47 wall {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -5152,6 +5537,7 @@ def main() -> None:
         for margs, images in ((MODEL, 1), (QNN_MODEL, 1), (PL_MODEL, 10),
                               (WIDE_MODEL, 1)):
             phase_train_parity(tmp, margs, images)
+        export_counts = phase_export(tmp, smi)
         phase_profile_ll(tmp, smi)
         phase_profile_qnn(tmp, smi)
         phase_profile_pl(tmp, smi)
@@ -5275,7 +5661,8 @@ def main() -> None:
                    dm12_counts, x64_counts]
     runs = [*sampled.values(), trained, pl_trained, wide_trained, qa_counts,
             zoo_counts, swept, traj_counts, traj_swept, mono_model,
-            unitary_counts, *rebuttal_counts.values(), *exm_counts.values(),
+            unitary_counts, export_counts, *rebuttal_counts.values(),
+            *exm_counts.values(),
             *ray_counts.values(), *past_widths,
             *(c for by_width in bench_counts.values()
               for c in by_width.values())]
@@ -5283,6 +5670,7 @@ def main() -> None:
     # each wide row counts its own width's runs: the 16-wire model and
     # bench block, and the 20-wire bench block
     wide16 = (sampled[" ".join(WIDE_MODEL)], wide_trained, mono_model,
+              export_counts,
               *(by_width[16] for by_width in bench_counts.values()))
     for c in ("wide", "wide_bwd", "wide_mono", "wide_mono_bwd"):
         launches[f"{c}16"] = sum(r[c] for r in wide16)
@@ -5301,7 +5689,8 @@ def main() -> None:
           f"{unitary_counts}, the rebuttal drivers {rebuttal_counts}, "
           f"fashion_exm and emnist_exm {exm_counts}, the sweep "
           f"{ray_counts}, past the kernels' widths (phases 42-46) "
-          f"{past_widths}")
+          f"{past_widths}, the AOT artifacts and their live runs (phase 47) "
+          f"{export_counts}")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"

@@ -42,6 +42,13 @@ def _net_mode(net, train: bool):
         net.train(was)
 
 
+def stack_to_grid(outp: torch.Tensor) -> torch.Tensor:
+    """The reference's grid ``(I*h, b*w)`` of an ``(I, b, 1, h, w)`` stack
+    of sampled batches: iterations down, images across."""
+    i, b, _, h, w = outp.shape
+    return outp[:, :, 0].permute(0, 2, 1, 3).reshape(i * h, b * w)
+
+
 class Diffusion:
     """Torch-like wrapper pairing a denoiser shim with a noise schedule.
 
@@ -214,9 +221,7 @@ class Diffusion:
                                       traj_rng)
         if only_last:
             return last
-        outp = torch.stack([first_x] + xs[::step])  # (I, b, 1, H, W)
-        i, b, _, h, w = outp.shape
-        return outp[:, :, 0].permute(0, 2, 1, 3).reshape(i * h, b * w)
+        return stack_to_grid(torch.stack([first_x] + xs[::step]))
 
     def sample_stack_fn(self, first_x: torch.Tensor, n_iters: int, *,
                         noise_factor: float = 1.0,

@@ -99,3 +99,6 @@ from .wide_kernel import (  # noqa: F401
     wide_chain_planes,
     wide_chain_planes_plain,
 )
+# registers the forward kernels' operators (qiddm::*), which the kernel
+# modules' autograd Functions call
+from . import ops  # noqa: E402,F401

@@ -11,7 +11,8 @@ have an adjoint backward, whenever autograd records.
 ``dm_chain`` is the entry the engine calls. It picks the path by the device
 of its input: a CPU tensor runs :func:`dm_chain_plain`; a CUDA tensor
 launches the kernel of ``csrc/dm_chain.cu`` or raises. Nothing falls back
-from the kernel to its plain version. The kernel is built into the one
+from the kernel to its plain version, and the choice is the operator
+``qiddm::dm_chain``'s (``sim/ops.py``). The kernel is built into the one
 library of ``gate_kernel.py``.
 
 The kernel spreads each sample's rho over a thread-block cluster of CTAs,
@@ -144,7 +145,10 @@ def dm_chain_plain(enc, rot_mats, k: int, wires: int, kind: str, strength,
         s = s.to(torch.complex64).reshape(b, wires, 1, 1, 1, 1, 1)
     else:
         ph = enc.to(torch.complex64)
-        E = ph[:, :, None] * ph.conj()[:, None, :]
+        # conj_physical: the CPU implementation of qiddm::dm_chain may run
+        # below the dispatcher's Conjugate key (under AOTAutograd), where
+        # a lazy conj() would be read as unconjugated
+        E = ph[:, :, None] * ph.conj_physical()[:, None, :]
     signs = []
     for r in sel_ranges(k, wires):
         sg = torch.as_tensor(cz_ring_signs(wires, r), dtype=torch.float32,
@@ -162,7 +166,7 @@ def dm_chain_plain(enc, rot_mats, k: int, wires: int, kind: str, strength,
         for li in range(k):
             for j in range(wires):
                 u = mats[l * k + li, j]
-                uc = u.conj()
+                uc = u.conj_physical()
                 rho = _mix(rho, ((u[0, 0], u[0, 1]), (u[1, 0], u[1, 1])), j, 0)
                 rho = _mix(rho, ((uc[0, 0], uc[0, 1]), (uc[1, 0], uc[1, 1])),
                            j, 1)
@@ -243,12 +247,10 @@ class _DmChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, enc, rot_mats, strength, k: int, wires: int, kind: str,
                 ry: bool):
-        if rot_mats.device.type == "cuda":
-            if torch.is_tensor(strength):
-                strength = strength.to(torch.float32).reshape(()).contiguous()
-            return _dm_chain_cuda(enc, _to_g8(rot_mats), strength, k, wires,
-                                  KIND_IDS[kind], ry)
-        return dm_chain_plain(enc, rot_mats, k, wires, kind, strength, ry=ry)
+        tensor = torch.is_tensor(strength)
+        return torch.ops.qiddm.dm_chain.default(
+            enc, _to_g8(rot_mats), strength if tensor else None,
+            0.0 if tensor else float(strength), k, wires, KIND_IDS[kind], ry)
 
     @staticmethod
     def backward(ctx, grad):

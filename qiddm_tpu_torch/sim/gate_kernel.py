@@ -8,7 +8,9 @@ input, in the forward and in the backward pass alike: a CPU tensor runs the
 plain versions (:func:`gate_chain_planes_plain`,
 :func:`gate_chain_bwd_plain`); a CUDA tensor launches the kernels of
 ``csrc/gate_chain.cu`` or raises. Nothing falls back from a kernel to its
-plain version.
+plain version. The forward goes through the operator ``qiddm::gate_chain``
+(``sim/ops.py``), whose CUDA and CPU implementations are the two paths,
+so ``torch.export`` can trace it.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, from
 the sources in this checkout, into ``build/qiddm_tpu_torch/`` next to the
@@ -539,11 +541,7 @@ class _GateChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pr, pi, g8, k: int, wires: int):
-        signs = _sign_planes_on(k, wires, pr.device)
-        if pr.device.type == "cuda":
-            sr, si = _gate_chain_cuda(pr, pi, g8, signs, k, wires)
-        else:
-            sr, si = _chain_plain(pr, pi, g8, signs, k, wires)
+        sr, si = torch.ops.qiddm.gate_chain.default(pr, pi, g8, k, wires)
         ctx.save_for_backward(pr, pi, g8, sr, si)
         ctx.k, ctx.wires = k, wires
         return sr, si

@@ -13,7 +13,8 @@ autograd Function, which picks the path by the device of its input, in the
 forward and in the backward pass alike: a CPU tensor runs the plain versions
 (:func:`ry_chain_planes_plain`, :func:`ry_chain_bwd_plain`); a CUDA tensor
 launches the kernels of ``csrc/ry_chain.cu`` or raises. Nothing falls back
-from a kernel to its plain version. The kernels are built into the one
+from a kernel to its plain version. The forward goes through the operator
+``qiddm::ry_chain`` (``sim/ops.py``). The kernels are built into the one
 library of ``gate_kernel.py``.
 """
 
@@ -205,11 +206,7 @@ class _RyChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cs, g8, k: int, wires: int):
-        signs = _sign_planes_on(k, wires, cs.device)
-        if cs.device.type == "cuda":
-            sr, si = _ry_chain_cuda(cs, g8, signs, k, wires)
-        else:
-            sr, si = _ry_plain(cs, g8, signs, k, wires)
+        sr, si = torch.ops.qiddm.ry_chain.default(cs, g8, k, wires)
         ctx.save_for_backward(cs, g8, sr, si)
         ctx.k, ctx.wires = k, wires
         return sr, si

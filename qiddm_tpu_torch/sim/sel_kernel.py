@@ -29,8 +29,9 @@ in the backward pass alike: a CPU tensor runs the plain versions
 (:func:`sel_chain_planes_plain`, :func:`sel_chain_rows_plain`,
 :func:`sel_chain_bwd_plain`); a CUDA tensor launches the kernels of
 ``csrc/sel_chain.cu`` or raises. Nothing falls back from a kernel to its
-plain version. The kernels are built into the one library of
-``gate_kernel.py`` and take up to ``config.SEL_KERNEL_MAX_WIRES`` (12)
+plain version; the planes' forward goes through the operator
+``qiddm::sel_chain`` (``sim/ops.py``). The kernels are built into the one
+library of ``gate_kernel.py`` and take up to ``config.SEL_KERNEL_MAX_WIRES`` (12)
 wires.
 """
 
@@ -329,10 +330,8 @@ class _SelChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sr, si, g8, wires: int, imprimitive: str):
-        if sr.device.type == "cuda":
-            out_r, out_i = _sel_chain_cuda(sr, si, g8, wires, imprimitive)
-        else:
-            out_r, out_i = _sel_plain(sr, si, g8, wires, imprimitive)
+        out_r, out_i = torch.ops.qiddm.sel_chain.default(sr, si, g8, wires,
+                                                         imprimitive)
         ctx.save_for_backward(g8, out_r, out_i)
         ctx.wires, ctx.imprimitive = wires, imprimitive
         return out_r, out_i

@@ -16,8 +16,9 @@ its input, in the forward and in the backward pass alike: a CPU tensor runs
 the plain versions (:func:`unitary_chain_planes_plain`,
 :func:`unitary_chain_bwd_plain`); a CUDA tensor launches the kernels of
 ``csrc/unitary_chain.cu`` (#13 forward, #14 backward) or raises. Nothing
-falls back from a kernel to its plain version. The kernels are built into
-the one library of ``gate_kernel.py``.
+falls back from a kernel to its plain version. The forward goes through the
+operator ``qiddm::unitary_chain`` (``sim/ops.py``). The kernels are built
+into the one library of ``gate_kernel.py``.
 
 Layout: the phases and the states are (d, B) float32 planes, as for the
 port's other chains (``statevector.rz_phase_planes`` builds the phases,
@@ -349,10 +350,7 @@ class _UnitaryChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pr, pi, ur, ui, k: int):
-        if _on_card(pr.device):
-            sr, si = _unitary_chain_cuda(pr, pi, ur, ui, k)
-        else:
-            sr, si = unitary_chain_planes_plain(pr, pi, ur, ui, k)
+        sr, si = torch.ops.qiddm.unitary_chain.default(pr, pi, ur, ui, k)
         ctx.save_for_backward(pr, pi, ur, ui, sr, si)
         ctx.k = k
         return sr, si

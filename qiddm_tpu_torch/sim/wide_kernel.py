@@ -22,7 +22,9 @@ raises: ``"scan"`` (the default) the per-group kernels #11/#12 of
 ``csrc/wide_chain.cu``, ``"monolith"`` the cooperative kernels #9/#10 of
 ``csrc/wide_mono.cu``, all built into the one library of ``gate_kernel.py``.
 Both variants compute the same function, whose plain version is the one
-above. Nothing falls back from a kernel to another or to its plain
+above. The forward goes through the variant's operator, ``qiddm::wide_chain``
+or ``qiddm::wide_mono`` (``sim/ops.py``), whose CPU implementations are both
+that plain version. Nothing falls back from a kernel to another or to its plain
 version.
 
 The Function takes and returns real planes. JAX transposes a complex-linear
@@ -327,14 +329,12 @@ class _WideChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k: int, wires: int, pr, pi, *gplanes):
         route = _route(pr.device)
-        if route == "monolith":
-            sr, si = _wide_mono_cuda(pr, pi, gplanes, k, wires)
-        elif route == "scan":
-            sr, si = _wide_chain_cuda(pr, pi, gplanes, k, wires)
-        else:
-            sr, si = _chain_plain(pr, pi, gplanes,
-                                  _gk._sign_planes_on(k, wires, pr.device),
-                                  k, wires)
+        # both operators run the plain chain on the CPU: a trace on the CPU
+        # records the variant's operator, as one on the card does
+        op = (torch.ops.qiddm.wide_mono.default
+              if _config.wide_kernel_variant() == "monolith"
+              else torch.ops.qiddm.wide_chain.default)
+        sr, si = op(pr, pi, list(gplanes), k, wires)
         ctx.save_for_backward(pr, pi, sr, si, *gplanes)
         ctx.k, ctx.wires, ctx.route = k, wires, route
         return sr, si

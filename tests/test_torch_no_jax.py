@@ -34,7 +34,8 @@ def test_importing_every_module_leaves_jax_out():
             "qiddm_tpu_torch.cli.PneumoniaMNIST",
             "qiddm_tpu_torch.cli.fruit_360", "qiddm_tpu_torch.cli.logo2kplus",
             "qiddm_tpu_torch.cli.mnist_ray",
-            "qiddm_tpu_torch.cli.fashion_ray"} <= set(mods)
+            "qiddm_tpu_torch.cli.fashion_ray", "qiddm_tpu_torch.export",
+            "qiddm_tpu_torch.sim.ops"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -116,11 +116,8 @@ def test_cli_cuda_without_a_card_raises(tmp_path, nets):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("flag", [["--export", "s.shlo"],
-                                  ["--export-platforms", "tpu"],
-                                  ["--from-export", "s.shlo"],
-                                  ["--export-batches", "1,8"],
-                                  ["--mesh-devices", "2"]])
+# the AOT flags serve now (tests/test_torch_export.py); the mesh stays
+@pytest.mark.parametrize("flag", [["--mesh-devices", "2"]])
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit, match="not ported"):
         tsample.main(["--model", "QIDDM_LL_noise", "784", "6", "14", "2",

@@ -383,9 +383,10 @@ def test_engine_route_limits_raise_naming_item_5(kwargs):
 
 
 def test_card_route_calls_only_the_kernel_launchers(monkeypatch):
-    """With every tensor taken for a card tensor (the route patched), the
-    Function calls the #13 and #14 launchers once each, and never the plain
-    versions; the results are the plain ones."""
+    """With every tensor taken for a card tensor (the route patched, and
+    the forward operator ``qiddm::unitary_chain`` handing CPU tensors to
+    the #13 launcher), the Function calls the #13 and #14 launchers once
+    each, and never the plain versions; the results are the plain ones."""
     args = _planes(4, 3, 2, 6, "cnot", seed=2)
 
     def run():
@@ -415,7 +416,13 @@ def test_card_route_calls_only_the_kernel_launchers(monkeypatch):
     monkeypatch.setattr(unitary_kernel, "_unitary_chain_bwd_cuda", bwd)
     monkeypatch.setattr(unitary_kernel, "unitary_chain_planes_plain", never)
     monkeypatch.setattr(unitary_kernel, "unitary_chain_bwd_plain", never)
-    got = run()
+    lib = torch.library.Library("qiddm", "IMPL")
+    lib.impl("unitary_chain",
+             lambda *a: unitary_kernel._unitary_chain_cuda(*a), "CPU")
+    try:
+        got = run()
+    finally:
+        lib._destroy()
     assert calls == ["fwd", "bwd"]
     assert torch.equal(got[0], want[0])
     for g, q in zip(got[1], want[1]):

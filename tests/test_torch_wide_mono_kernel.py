@@ -2,7 +2,8 @@
 cooperative launch) and #10 (its adjoint walk in one launch) in
 qiddm_tpu_torch: the kernel-variant switch, the route the autograd Function
 takes for each variant and device (on the CPU, with the card faked by
-patching the route), and on the card the kernels against their plain
+patching the route and handing CPU tensors to the forward operators' card
+launchers), and on the card the kernels against their plain
 versions and bit for bit against #11/#12, the Function's launches,
 repeat-bit equality, the index width, the launch geometry, a broken build
 that makes the forward and ``backward()`` raise, and rejected inputs.
@@ -21,6 +22,7 @@ does not import JAX, so on the card they run with
 --noconftest``.
 """
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -142,16 +144,34 @@ def test_cpu_variants_give_identical_plain_results(variant, w, B, n_layers,
     assert _counts() == before
 
 
+@contextlib.contextmanager
+def _card_ops():
+    """Fake the card for the forward operators ``qiddm::wide_chain`` and
+    ``qiddm::wide_mono``: CPU tensors go to their card launchers (looked up
+    on ``wide_kernel`` at call time) in place of the plain chain, until the
+    block ends."""
+    lib = torch.library.Library("qiddm", "IMPL")
+    for op, launcher in (("wide_chain", "_wide_chain_cuda"),
+                         ("wide_mono", "_wide_mono_cuda")):
+        lib.impl(op, lambda *a, _l=launcher: getattr(wide_kernel, _l)(*a),
+                 "CPU")
+    try:
+        yield
+    finally:
+        lib._destroy()
+
+
 @pytest.mark.parametrize("name,launchers", [
     ("monolith", ("_wide_mono_cuda", "_wide_mono_bwd_cuda")),
     ("scan", ("_wide_chain_cuda", "_wide_chain_bwd_cuda")),
 ])
 def test_card_route_calls_only_its_variants_launchers(variant, monkeypatch,
                                                       name, launchers):
-    """With every tensor taken for a card tensor (the route patched), the
-    Function calls the chosen variant's two launchers once each, and never
-    the other variant's or the plain versions; the backward keeps the
-    forward's route when the variant changes in between."""
+    """With every tensor taken for a card tensor (the route patched, the
+    forward operators on the card's launchers), the Function calls the
+    chosen variant's two launchers once each, and never the other
+    variant's or the plain versions; the backward keeps the forward's route
+    when the variant changes in between."""
     w, k = 11, 2
     pr, pi, mats = _args(w, 3, 4, seed=2)
     want = _grads(pr, pi, mats, k, w)
@@ -183,9 +203,10 @@ def test_card_route_calls_only_its_variants_launchers(variant, monkeypatch,
     monkeypatch.setattr(wide_kernel, launchers[1], bwd)
     variant(name)
     leaves = [t.detach().clone().requires_grad_(True) for t in (pr, pi, mats)]
-    sr, si = wide_kernel.wide_chain_planes(*leaves, k, w)
-    variant("scan" if name == "monolith" else "monolith")
-    ((sr * sr + si * si).T[:, :50].square()).sum().backward()
+    with _card_ops():
+        sr, si = wide_kernel.wide_chain_planes(*leaves, k, w)
+        variant("scan" if name == "monolith" else "monolith")
+        ((sr * sr + si * si).T[:, :50].square()).sum().backward()
     assert calls == ["fwd", "bwd"]
     assert torch.equal(sr.detach(), want[0])
     for leaf, q in zip(leaves, want[2]):
