@@ -486,9 +486,17 @@ any failure exits non-zero and no phase's failure is caught:
    (--export, 16 x 15) and served with --from-export, 3 batches, against
    the live CLI within 1e-6, #1 launched 2 an iteration by both; the
    artifact's and the live sampler's images/s at batch 16, in turns; the
-   trained sampler at batch 16 (#1) and 1024 (the composed-unitary route)
-   against the CPU, an iteration at a time from the card's batches and
-   free-running, printed; (2) the JAX bench's AOT row
+   trained sampler at batch 16 and 1024 under config.enable_x64(True) (the
+   complex128 routes, as phase 46b) on the card against the CPU: each
+   iteration from the card's batch held within 1e-10; the free-running
+   runs over 15 iterations printed by iteration beside the CPU's own
+   float64 run from the batch moved by one ulp (the trained map amplifies
+   a difference ~30-100x an iteration: not held); in float32 each of the
+   card's iterations from the CPU's float64 batch held against the CPU's
+   float64 step within max(1e-4, 8 x the CPU's float32 floor, its float32
+   step against its float64 step), with TF32 on as the control that must
+   fail, and the free-running float32 figures printed beside the CPU's
+   own; (2) the JAX bench's AOT row
    (bench.py:322-345, fresh seeded weights): batch 1024, 15 iterations,
    the composed route (no port kernel), against the live sampler within
    1e-6, against the CPU free-running within 1e-4 and an iteration at a
@@ -506,7 +514,31 @@ any failure exits non-zero and no phase's failure is caught:
    platforms=("cuda",), run on the card against its live sampler within
    1e-5; (6) a trajectory model refused; then the host us a call of #1
    through its launch function, its torch.library operator and a
-   torch.library.custom_op registration of the same function, in turns.
+   torch.library.custom_op registration of the same function, in turns;
+48. the application layer at QIDDM_LL_noise 784 6 14 2 (after phase 47):
+   (a) the torch-style training call, Diffusion.attach_optimizer(Adam at
+   the driver's rate) and the reference's loop opt.zero_grad(); diff(x=...,
+   T=10); opt.step() for 3 calls at batch 1 on the seeded mnist_28.npz:
+   losses and parameters bit-equal to make_train_step's on the same draws
+   (the outer step moves nothing), each call's loss and make_train_step's
+   gradients within 1e-4 of the CPU's at the card's weights, exactly 2 #1
+   and 2 #2 launches a call, loss_only moving nothing; (b) the net saved
+   as the reference's .pt (save_reference_checkpoint, its keys printed),
+   loaded into a fresh model on the card, 16 images x 15 iterations on #1
+   bit-equal to the trained net's; (c) mnist_exm --model QIDDM_LL_noise
+   784 6 14 2 --ckpt-backend orbax (a torch.distributed.checkpoint
+   directory, .dcp) and the same under pt, 2 epochs, --checkpoint-every 1:
+   restored variables and losses bit-equal (else the first differing
+   tensor named); a run cut at epoch 1 and resumed to 2, its first loss
+   the same; cli.sample --ckpt <.dcp> bit-equal to the .pt's; (d)
+   parameter_shift_grad of sum(reupload_block(x, w, rz, cz, expvalz) @
+   coeff) at 6 wires, L 14, k 2, 16 inputs: exactly 1,008 #1 launches (2P),
+   within 2e-4 of torch.autograd through #1/#2, chunks of 64 within 1e-6
+   of unchunked; (e) circuit_to_qasm -> repeat_qasm (ancilla reset, 3
+   reps) at 10 wires, depth 4: run_qasm on the card in complex128 within
+   1e-12 of the native engine on the host (run_qasm_native), and
+   sample_from_qasm's 10,000 shots (seed 0) equal to the native draw of
+   the host's probabilities.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -549,8 +581,11 @@ import torch
 
 from qiddm_tpu_torch import config
 from qiddm_tpu_torch import export as export_mod
+from qiddm_tpu_torch import native
 from qiddm_tpu_torch.ckpt import (export_jax_variables, load_checkpoint,
-                                  load_jax_variables, save_checkpoint)
+                                  load_diffusion, load_jax_variables,
+                                  load_reference_checkpoint, save_checkpoint,
+                                  save_reference_checkpoint)
 from qiddm_tpu_torch import data as data_mod
 from qiddm_tpu_torch.cli import common
 from qiddm_tpu_torch.cli import (bloodmnist, emnist_exm, fashion_exm,
@@ -565,7 +600,9 @@ from qiddm_tpu_torch.pca import (PCAState, pca_fit, pca_fit_transform,
 from qiddm_tpu_torch.sim import (amp_damp_kernel, dm_kernel, engine,
                                  gate_kernel, ops, ry_kernel, sel_kernel,
                                  unitary_kernel, wide, wide_kernel)
+from qiddm_tpu_torch.sim import qasm
 from qiddm_tpu_torch.sim.gates import rot_matrix
+from qiddm_tpu_torch.sim.gradients import parameter_shift_grad
 from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
 from qiddm_tpu_torch.sim.statevector import rz_phase_planes, rz_phases
 from qiddm_tpu_torch.sim.trajectories import RecordedDraws, ReplayDraws
@@ -831,6 +868,15 @@ EXPORT_MODELS = [
     (" ".join(WIDE_MODEL) + " (monolith)", WIDE_MODEL, 28, None, "monolith",
      N, 2, "wide_mono", "wide_mono"),
 ]
+# phase 48: the application layer at MODEL's width. The training call runs
+# APP_CALLS calls at batch 1; the parameter shift differentiates
+# reupload_block at (wires, L, k, inputs), 16 inputs below 2^6 rows so #1,
+# within tests/test_gradients.py's bound, chunked in PSHIFT_CHUNK; the QASM
+# circuit is (wires, depth, reps) with the ancilla reset
+APP_CALLS = 3
+PSHIFT, PSHIFT_CHUNK = (6, 14, 2, 16), 64
+PSHIFT_TOL, CHUNK_TOL = 2e-4, 1e-6
+QASM, QASM_SHOTS, QASM_TOL = (10, 4, 3), 10_000, 1e-12
 
 
 def fail(msg: str) -> None:
@@ -5148,6 +5194,110 @@ def phase_x64_qiddm_a(tmp: pathlib.Path, smi: str) -> dict:
 
 # --- phase 47: AOT serving artifacts ------------------------------------------
 
+def _curve(a: torch.Tensor, b: torch.Tensor) -> list:
+    """max |diff| of two (iters + 1, ...) stacks at each iteration."""
+    return [(a[t].cpu() - b[t].cpu()).abs().max().item()
+            for t in range(1, len(a))]
+
+
+def _spread(card, cpu, x, iters: int) -> tuple[float, list]:
+    """(each iteration from ``card``'s batch run by ``cpu``, at worst; the
+    free-running runs' max |diff| at each of ``iters`` iterations) of two
+    samplers from the batch ``x`` on the card."""
+    stack = card.sample_stack_fn(x, iters)
+    step = max((cpu.sample_fn(stack[t].cpu(), 1, only_last=True)
+                - stack[t + 1].cpu()).abs().max().item()
+               for t in range(iters))
+    return step, _curve(stack, cpu.sample_stack_fn(x.cpu(), iters))
+
+
+def _fmt(curve: list) -> str:
+    return "[" + ", ".join(f"{v:.1e}" for v in curve) + "]"
+
+
+def trained_x64(ckpt: pathlib.Path, smi: str) -> None:
+    """The trained MODEL sampler (phase 10's checkpoint) at batch N on the
+    gate chain and AOT_BATCH on the composed route, the card against the
+    CPU. Under config.enable_x64(True) (complex128, the routes no kernel
+    takes, as phase 46b) each iteration from the card's batch is held
+    within X64_TOL of the CPU's. The free-running runs over ITERS are
+    printed, not held, beside their floor, the CPU's own float64 run
+    against itself from the start batch moved by one float64 ulp: the
+    trained map amplifies a difference ~30-100x an iteration, so after a
+    few iterations no precision holds two free-running runs together.
+    In float32 each of the card's iterations from the CPU's float64 batch
+    is held against the CPU's float64 step within max(SAMPLE_TOL,
+    FLOOR_FACTOR x the CPU's float32 floor, its float32 step against that
+    float64 step), as phase_sample's ``floor64`` holds the U-Net; the
+    card's steps with TF32 on are the control, which must fail the hold.
+    The card's float32 run against the CPU's float32 run, an iteration and
+    free-running, is printed beside the floor."""
+    samplers = {d: _sampler_of(MODEL, d, ckpt) for d in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(SEED + 48)
+    for batch in (N, AOT_BATCH):
+        x = _start(batch, SEED + 48, torch.device("cuda", 0))
+        step32, free32 = _spread(samplers["cuda"], samplers["cpu"], x, ITERS)
+        sign = torch.where(torch.rand(x.shape, generator=gen) < 0.5, -1.0,
+                           1.0).double()
+        config.enable_x64(True)
+        try:
+            s64 = {d: copy.deepcopy(s) for d, s in samplers.items()}
+            for d, s in s64.items():
+                s.net = s.net.to(d, torch.float64)
+            step64, free64 = _spread(s64["cuda"], s64["cpu"], x.double(),
+                                     ITERS)
+            stack = s64["cpu"].sample_stack_fn(x.double().cpu(), ITERS)
+            ulp64 = _curve(stack, s64["cpu"].sample_stack_fn(
+                x.double().cpu() * (1.0 + 2.0**-52 * sign), ITERS))
+        finally:
+            config.enable_x64(False)
+        # the CPU's float32 floor: its float32 run against its own float64
+        # run, an iteration from each float64 batch and free-running from x
+        cpu32 = samplers["cpu"]
+        floor_step = max((cpu32.sample_fn(stack[t].float(), 1,
+                                          only_last=True).double()
+                          - stack[t + 1]).abs().max().item()
+                         for t in range(ITERS))
+        floor_free = _curve(stack, cpu32.sample_stack_fn(x.cpu(), ITERS))
+
+        def card_err():
+            return max((samplers["cuda"].sample_fn(
+                stack[t].float().to(x.device), 1, only_last=True).double()
+                .cpu() - stack[t + 1]).abs().max().item()
+                for t in range(ITERS))
+
+        held32 = card_err()
+        with _tf32():
+            control = card_err()
+        tol32 = max(SAMPLE_TOL, FLOOR_FACTOR * floor_step)
+        print(f"export: the trained {' '.join(MODEL)} at batch {batch}, the "
+              f"card against the CPU: in float64 {step64:.3e} at worst an "
+              f"iteration from the card's batch (held within {X64_TOL}); "
+              f"free-running by iteration {_fmt(free64)}, beside the CPU's "
+              f"own float64 run from the batch moved by one ulp "
+              f"{_fmt(ulp64)} (printed); in float32 against the CPU's "
+              f"float64 step {held32:.3e} at worst an iteration, held within "
+              f"{tol32:.3e}: {FLOOR_FACTOR} x the CPU's float32 floor (its "
+              f"float32 step against its float64 step) {floor_step:.3e} "
+              f"(the card at {held32 / floor_step:.3f} x), or {SAMPLE_TOL}; "
+              f"control, the card's steps with TF32 on, {control:.3e}; "
+              f"against the CPU's float32 run {step32:.3e} an iteration and "
+              f"{_fmt(free32)} free-running, beside the CPU's float32 run "
+              f"against its float64 run {_fmt(floor_free)} ({smi})")
+        if not step64 <= X64_TOL:
+            fail(f"the trained {' '.join(MODEL)} at batch {batch} in "
+                 f"float64 on the card differs from the CPU by "
+                 f"{step64:.3e} an iteration (> {X64_TOL})")
+        if not held32 <= tol32:
+            fail(f"the trained {' '.join(MODEL)} at batch {batch} in "
+                 f"float32 on the card is {held32:.3e} from the CPU's "
+                 f"float64 step (> {tol32:.3e})")
+        if not control > tol32:
+            fail(f"the trained {' '.join(MODEL)} at batch {batch}: the "
+                 f"float32 hold does not tell TF32 from float32: "
+                 f"{control:.3e} <= {tol32:.3e}")
+
+
 def _sampler_of(margs, device, ckpt=None, seed: int = SEED):
     """A Diffusion of ``margs`` on ``device``: the checkpoint's weights, or
     seeded random ones."""
@@ -5317,26 +5467,12 @@ def phase_export(tmp: pathlib.Path, smi: str) -> dict:
           f"({art16 / live16:.3f}x; in turns; {smi})")
 
     # the trained sampler on the card against the CPU, on the gate chain
-    # (batch N) and the composed route (AOT_BATCH >= 2^6): each iteration
-    # from the card's batch, and free-running; printed, not held (the
-    # fresh weights' AOT row below is held)
-    trained_cpu = _sampler_of(MODEL, "cpu", ckpt)
-    for batch in (N, AOT_BATCH):
-        x = _start(batch, SEED + 48, dev)
-        stack = diff.sample_stack_fn(x, ITERS)
-        e_step = max((trained_cpu.sample_fn(stack[t].cpu(), 1,
-                                            only_last=True)
-                      - stack[t + 1].cpu()).abs().max().item()
-                     for t in range(ITERS))
-        e_free = (trained_cpu.sample_fn(x.cpu(), ITERS, only_last=True)
-                  - stack[-1].cpu()).abs().max().item()
-        print(f"export: the trained {' '.join(MODEL)} at batch {batch} on "
-              f"the card against the CPU: {e_step:.3e} at worst an "
-              f"iteration from the card's batch, {e_free:.3e} free-running "
-              f"over {ITERS} iterations")
+    # (batch N) and the composed route (AOT_BATCH >= 2^6): held in float64
+    trained_x64(ckpt, smi)
 
     # (2) the JAX bench's AOT row (bench.py:322-345, fresh weights): batch
     # 1024, the composed-unitary route, held against the CPU too
+    x = _start(AOT_BATCH, SEED + 48, dev)
     diff = _sampler_of(MODEL, dev)
     cpu = _sampler_of(MODEL, "cpu")
     t0 = time.perf_counter()
@@ -5475,6 +5611,293 @@ def phase_export(tmp: pathlib.Path, smi: str) -> dict:
     print(f"phase 47 wall {time.perf_counter() - t_phase:.1f} s ({smi})")
     return total
 
+# --- phase 48: the application layer ------------------------------------------
+
+def _first_difference(a: dict, b: dict) -> str:
+    """The first tensor of two state dicts that differs, or ""."""
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            return (f"{k} (max|diff| "
+                    f"{(a[k] - b[k]).abs().max().item():.3e})")
+    return ""
+
+
+def _state_of(net) -> dict:
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def _app_call(tmp: pathlib.Path, smi: str) -> tuple:
+    """(a) The torch-style training call on the card: the reference's loop
+    ``opt.zero_grad(); diff(x=..., T=TAU); opt.step()`` for APP_CALLS calls
+    at batch 1, against make_train_step on the same draws (losses and
+    parameters bit-equal) and against the CPU plain path at the card's
+    weights (losses and make_train_step's gradients within TRAIN_TOL);
+    exactly 2 #1 and 2 #2 launches a call; loss_only moves nothing.
+    Returns the trained Diffusion, its losses and the calls' launches."""
+    z = np.load(tmp / "data" / "mnist_28.npz")
+    x = torch.as_tensor(z["x"][z["y"] == LABEL][:APP_CALLS] / 255.0,
+                        dtype=torch.float32).reshape(APP_CALLS, 1, 28, 28)
+    lr = common.DEFAULT_LRS[MODEL[0]]
+    diffs = {name: Diffusion(common.build_model(MODEL, seed=SEED,
+                                                device=dev), shape=(28, 28))
+             for name, dev in (("call", "cuda"), ("step", "cuda"),
+                               ("cpu", "cpu"))}
+    opt = torch.optim.Adam(diffs["call"].parameters(), lr=lr)
+    diffs["call"].attach_optimizer(opt).train()
+    step = diffs["step"].make_train_step(
+        torch.optim.Adam(diffs["step"].parameters(), lr=lr), TAU)
+    counts = {c: 0 for c in read_counts()}
+    losses, loss_err, grad_err = [], 0.0, 0.0
+    for i in range(APP_CALLS):
+        cpu = diffs["cpu"]
+        cpu.net.load_state_dict(diffs["call"].net.state_dict())
+        cpu.net.zero_grad()
+        want, _ = cpu.loss_fn(x[i].reshape(1, -1), TAU,
+                              generator=torch.Generator().manual_seed(i))
+        want.backward()
+        xi = x[i:i + 1].to("cuda")
+        reset_counts()
+        opt.zero_grad()
+        (got,) = diffs["call"](x=xi, T=TAU)
+        opt.step()
+        torch.cuda.synchronize()
+        for c, n in read_counts().items():
+            counts[c] += n
+        ref = step(xi.reshape(1, -1), torch.Generator().manual_seed(i))
+        losses.append(got.item())
+        if got.item() != abs(ref.item()):
+            fail(f"training call {i + 1}: loss {got.item()!r}, "
+                 f"make_train_step's {ref.item()!r}")
+        moved = _first_difference(_state_of(diffs["call"].net),
+                                  _state_of(diffs["step"].net))
+        if moved:
+            fail(f"training call {i + 1}: the parameters differ from "
+                 f"make_train_step's at {moved}")
+        if any(p.grad is not None for p in diffs["call"].parameters()):
+            fail(f"training call {i + 1} left a gradient for the outer "
+                 f"opt.step()")
+        loss_err = max(loss_err, abs(got.item() - want.item())
+                       / abs(want.item()))
+        grad_err = max(grad_err, _grad_err(_grads(diffs["step"].net),
+                                           _grads(cpu.net)))
+    counts = {c: n for c, n in counts.items() if n}
+    per_call = {"gate": 2 * APP_CALLS, "gate_bwd": 2 * APP_CALLS}
+    if counts != per_call:
+        fail(f"{APP_CALLS} training calls launched {counts}, not "
+             f"{per_call}")
+    if not (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL):
+        fail(f"the training call on the card differs from the CPU: losses "
+             f"{loss_err:.3e}, gradients {grad_err:.3e} > {TRAIN_TOL}")
+    before = _state_of(diffs["call"].net)
+    probe = Diffusion(diffs["call"].net, shape=(28, 28)).train()
+    (only,) = probe(x=x[:1].to("cuda"), T=TAU, loss_only=True)
+    cpu.net.load_state_dict(before)
+    (cpu_only,) = diffs["cpu"].train()(x=x[:1], T=TAU, loss_only=True)
+    only_err = abs(only.item() - cpu_only.item()) / cpu_only.item()
+    if _first_difference(before, _state_of(diffs["call"].net)) or not (
+            only_err <= TRAIN_TOL):
+        fail(f"loss_only moved a parameter or differs from the CPU by "
+             f"{only_err:.3e}")
+    print(f"phase 48 (a) {' '.join(MODEL)}: {APP_CALLS} calls of the "
+          f"reference loop (opt.zero_grad(); diff(x=..., T={TAU}); "
+          f"opt.step()) at batch 1, lr {lr}: losses {losses}, bit-equal to "
+          f"make_train_step's with its parameters (the outer step moved "
+          f"nothing); against the CPU at the card's weights losses max "
+          f"relative {loss_err:.3e}, gradients {grad_err:.3e} (within "
+          f"{TRAIN_TOL}); launches {counts}; loss_only {only.item():.6f}, "
+          f"{only_err:.3e} from the CPU's, no parameter moved ({smi})")
+    return diffs["call"], losses, counts
+
+
+def _app_reference_pt(tmp: pathlib.Path, diff, losses, smi: str) -> dict:
+    """(b) The reference's .pt: (a)'s net saved by save_reference_checkpoint
+    and loaded by load_reference_checkpoint into a fresh model on the
+    card; N images x ITERS iterations on #1 from both, bit-equal. Returns
+    the reloaded sampler's launches."""
+    path = save_reference_checkpoint(diff.net, tmp / "reference_ll.pt",
+                                     losses, APP_CALLS)
+    keys = list(torch.load(path, weights_only=True)["model_state_dict"])
+    fresh = common.build_model(MODEL, seed=SEED + 48, device="cuda")
+    meta = load_reference_checkpoint(fresh, path)
+    x = _start(N, SEED + 53, torch.device("cuda", 0))
+    want = diff.eval().sample_fn(x, ITERS, only_last=True)
+    got, counts = _counted(lambda: Diffusion(fresh, shape=(28, 28))
+                           .eval().sample_fn(x, ITERS, only_last=True))
+    if not torch.equal(got, want) or counts != {"gate": 2 * ITERS}:
+        fail(f"the reloaded reference .pt sampled {counts}, max|diff| "
+             f"{(got - want).abs().max().item():.3e} from the trained net")
+    print(f"phase 48 (b) reference .pt {path.name}: keys {keys}, "
+          f"(loss_values, epochs) {meta}; {N} images x {ITERS} iterations "
+          f"from the reloaded model bit-equal to the trained net's, "
+          f"launches {counts} ({smi})")
+    return counts
+
+
+def _app_driver(tmp: pathlib.Path, prefix: str, backend: str,
+                epochs: int) -> None:
+    argv = ["--model", *MODEL, "--epochs", str(epochs), "--checkpoint-every",
+            "1", "--ckpt-backend", backend, "--device", "cuda",
+            "--save-path", f"{tmp}/{prefix}", "--load-path",
+            f"{tmp}/{prefix}"]
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.chdir(tmp):
+        mnist_exm.main(argv)
+
+
+def _app_dcp(tmp: pathlib.Path, smi: str) -> dict:
+    """(c) --ckpt-backend orbax (a DCP directory) through mnist_exm at
+    MODEL, 2 epochs with --checkpoint-every 1 (the mid-training save in
+    the background), against the same run under pt: the restored
+    variables and the losses bit-equal; an interrupted run (1 epoch, then
+    resumed to 2) whose first epoch's loss is the same; then cli.sample
+    --ckpt <.dcp> against --ckpt <.pt>, bit-equal. Returns the launches of
+    the two sampling runs."""
+    t0 = time.perf_counter()
+    name = common.build_model(MODEL, device="cpu").save_name()
+    for prefix, backend, epochs in (("dcp_", "orbax", EPOCHS),
+                                    ("pt_", "pt", EPOCHS),
+                                    ("cut_", "orbax", 1),
+                                    ("cut_", "orbax", EPOCHS)):
+        _app_driver(tmp, prefix, backend, epochs)
+    t_runs = time.perf_counter() - t0
+    dcp = tmp / f"dcp_{LABEL}/noise_0/{name}_{LABEL}.dcp"
+    pt = tmp / f"pt_{LABEL}/noise_0/{name}_{LABEL}.pt"
+    loaded = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for what, path in (("dcp", dcp), ("pt", pt),
+                           ("cut", tmp / f"cut_{LABEL}/noise_0")):
+            d = Diffusion(common.build_model(MODEL, seed=SEED + 9,
+                                             device="cuda"), shape=(28, 28))
+            loaded[what] = (load_diffusion(d, path, LABEL), _state_of(d.net))
+    (dcp_losses, dcp_epochs), dcp_state = loaded["dcp"]
+    (pt_losses, _), pt_state = loaded["pt"]
+    (cut_losses, cut_epochs), _ = loaded["cut"]
+    differs = _first_difference(dcp_state, pt_state)
+    if differs or dcp_losses != pt_losses or dcp_epochs != EPOCHS:
+        fail(f"the orbax (DCP) run and the pt run differ: first tensor "
+             f"{differs or 'none'}, losses {dcp_losses} against "
+             f"{pt_losses}, epochs {dcp_epochs}")
+    if cut_epochs != EPOCHS or cut_losses[0] != pt_losses[0]:
+        fail(f"the interrupted DCP run resumed to {cut_epochs} epochs with "
+             f"losses {cut_losses}; its first must be {pt_losses[0]!r}")
+    served = {}
+    for what, path in (("dcp", dcp), ("pt", pt)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            served[what] = _counted(lambda: sample_cli.main(
+                ["--ckpt", str(path), "--model", *MODEL, "--n", str(N),
+                 "--iters", str(ITERS), "--device", "cuda", "--format",
+                 "npz", "--out", str(tmp / f"app_{what}")]))
+    if not np.array_equal(served["dcp"][0], served["pt"][0]):
+        fail("cli.sample from the .dcp differs from the .pt: max|diff| "
+             f"{np.abs(served['dcp'][0] - served['pt'][0]).max():.3e}")
+    counts = {c: served["dcp"][1].get(c, 0) + served["pt"][1].get(c, 0)
+              for c in read_counts()}
+    print(f"phase 48 (c) mnist_exm --ckpt-backend orbax against pt "
+          f"({EPOCHS} epochs, --checkpoint-every 1): {dcp.name} and "
+          f"{pt.name} restore bit-equal variables, losses {dcp_losses} "
+          f"equal; interrupted at epoch 1 and resumed: losses {cut_losses} "
+          f"(the first equal); cli.sample --ckpt {dcp.name} bit-equal to "
+          f"the .pt's, {N} x {ITERS}, launches {served['dcp'][1]}; the four "
+          f"driver runs {t_runs:.1f} s ({smi})")
+    return counts
+
+
+def _app_shift(smi: str) -> dict:
+    """(d) parameter_shift_grad of a linear functional of PauliZ
+    expectations, reupload_block at PSHIFT's (wires, L, k, inputs) on #1
+    (fewer inputs than 2^wires), against torch.autograd through #1/#2
+    within PSHIFT_TOL, with exactly 2P #1 launches; chunked against
+    unchunked within CHUNK_TOL. Returns the unchunked run's launches."""
+    wires, L, k, b = PSHIFT
+    rng = np.random.default_rng(SEED + 54)
+    dev = torch.device("cuda", 0)
+    w = torch.as_tensor(rng.normal(size=(L, k, wires, 3)) * 0.4,
+                        dtype=torch.float32, device=dev)
+    x = torch.as_tensor(rng.normal(size=(b, wires)), dtype=torch.float32,
+                        device=dev)
+    coeff = torch.as_tensor(rng.normal(size=(wires,)), dtype=torch.float32,
+                            device=dev)
+
+    def f(w):
+        ev = engine.reupload_block(x, w, encode="rz", imprimitive="cz",
+                                   readout="expvalz")
+        return torch.sum(ev @ coeff)
+
+    t0 = time.perf_counter()
+    shift, counts = _counted(lambda: parameter_shift_grad(f, w))
+    t_shift = time.perf_counter() - t0
+    chunked, chunk_counts = _counted(
+        lambda: parameter_shift_grad(f, w, chunk=PSHIFT_CHUNK))
+    wr = w.clone().requires_grad_(True)
+    (auto,), auto_counts = _counted(
+        lambda: torch.autograd.grad(f(wr), wr))
+    err = (shift - auto).abs().max().item()
+    chunk_err = (shift - chunked).abs().max().item()
+    want = {"gate": 2 * w.numel()}
+    print(f"phase 48 (d) parameter shift at (wires, L, k, inputs) "
+          f"{PSHIFT}: {w.numel()} parameters, launches {counts} in "
+          f"{t_shift:.2f} s (chunks of {PSHIFT_CHUNK}: {chunk_counts}); "
+          f"against autograd through #1/#2 ({auto_counts}) max|diff| "
+          f"{err:.3e} (within {PSHIFT_TOL}), chunked against unchunked "
+          f"{chunk_err:.3e} (within {CHUNK_TOL}) ({smi})")
+    if counts != want or chunk_counts != want or auto_counts != {
+            "gate": 1, "gate_bwd": 1}:
+        fail(f"parameter shift launched {counts} and {chunk_counts}, "
+             f"autograd {auto_counts}; want {want}")
+    if not (err <= PSHIFT_TOL and chunk_err <= CHUNK_TOL):
+        fail(f"parameter shift is {err:.3e} from autograd, chunked "
+             f"{chunk_err:.3e} from unchunked")
+    return counts
+
+
+def _app_qasm(smi: str) -> None:
+    """(e) circuit_to_qasm -> repeat_qasm (ancilla reset) at QASM's
+    (wires, depth, reps): run_qasm on the card in complex128 within
+    QASM_TOL of the native engine on the host; sample_from_qasm's
+    QASM_SHOTS counts equal to the native draw of the host's
+    probabilities. The host reference computes the gates (the C++
+    engine) and the resets (a numpy projection) apart from the card's
+    run; the QASM parse is the same code in both, held against the JAX
+    package's on the CPU by tests/test_torch_qasm.py."""
+    wires, depth, reps = QASM
+    rng = np.random.default_rng(SEED + 55)
+    w = rng.normal(size=(depth, wires, 3)).astype(np.float32)
+    inp = rng.normal(size=wires).astype(np.float32)
+    text = qasm.repeat_qasm(qasm.circuit_to_qasm(w, wires, inp), wires, True,
+                            reps)
+    t0 = time.perf_counter()
+    probs = qasm.run_qasm(text)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    host = qasm.run_qasm_native(text)
+    err = float(np.abs(probs.cpu().numpy() - host).max())
+    counts = qasm.sample_from_qasm(text, shots=QASM_SHOTS, seed=0)
+    want = native.sample_counts(qasm.qiskit_order(host), QASM_SHOTS, 0)
+    print(f"phase 48 (e) QASM at {wires} wires, depth {depth}, {reps} reps "
+          f"with the ancilla reset ({len(text.splitlines())} lines): "
+          f"run_qasm on {probs.device} in {t_card:.3f} s, max|diff| "
+          f"{err:.3e} from the native engine (within {QASM_TOL}); "
+          f"{QASM_SHOTS} shots, counts equal to the native draw: "
+          f"{bool(np.array_equal(counts, want))} ({smi})")
+    if probs.device.type != "cuda" or not err <= QASM_TOL:
+        fail(f"run_qasm on {probs.device} is {err:.3e} from the native "
+             f"engine")
+    if not np.array_equal(counts, want):
+        fail("sample_from_qasm's counts differ from the native draw")
+
+
+def phase_app(tmp: pathlib.Path, smi: str) -> dict:
+    """Phase 48: the application layer at MODEL's full width on the card
+    (after phase 47): (a)-(e) above. Returns the launches of its runs."""
+    t0 = time.perf_counter()
+    diff, losses, call_counts = _app_call(tmp, smi)
+    runs = [call_counts, _app_reference_pt(tmp, diff, losses, smi),
+            _app_dcp(tmp, smi), _app_shift(smi)]
+    _app_qasm(smi)
+    total = {c: sum(r.get(c, 0) for r in runs) for c in read_counts()}
+    print(f"phase 48 wall {time.perf_counter() - t0:.1f} s, launches "
+          f"{ {c: n for c, n in total.items() if n} } ({smi})")
+    return total
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -5538,6 +5961,7 @@ def main() -> None:
                               (WIDE_MODEL, 1)):
             phase_train_parity(tmp, margs, images)
         export_counts = phase_export(tmp, smi)
+        app_counts = phase_app(tmp, smi)
         phase_profile_ll(tmp, smi)
         phase_profile_qnn(tmp, smi)
         phase_profile_pl(tmp, smi)
@@ -5661,7 +6085,8 @@ def main() -> None:
                    dm12_counts, x64_counts]
     runs = [*sampled.values(), trained, pl_trained, wide_trained, qa_counts,
             zoo_counts, swept, traj_counts, traj_swept, mono_model,
-            unitary_counts, export_counts, *rebuttal_counts.values(),
+            unitary_counts, export_counts, app_counts,
+            *rebuttal_counts.values(),
             *exm_counts.values(),
             *ray_counts.values(), *past_widths,
             *(c for by_width in bench_counts.values()
@@ -5690,7 +6115,7 @@ def main() -> None:
           f"fashion_exm and emnist_exm {exm_counts}, the sweep "
           f"{ray_counts}, past the kernels' widths (phases 42-46) "
           f"{past_widths}, the AOT artifacts and their live runs (phase 47) "
-          f"{export_counts}")
+          f"{export_counts}, the application layer (phase 48) {app_counts}")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"

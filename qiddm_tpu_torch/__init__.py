@@ -14,7 +14,14 @@ families with every projection option, the QNN family and the Qdense
 baseline), the U-Nets with quantum or classical convolutions and the
 DeepConv baselines (``nn/unet.py``, ``nn/qconv.py``, ``nn/conv.py``; plain
 PyTorch, as the JAX package computes them outside any Pallas kernel), and
-the noise drivers; ROADMAP.md lists the rest.
+the noise drivers, the sweeps and every experiment driver, the AOT
+serving artifacts (``export``), and the application layer around them: the
+torch-style training call (``Diffusion.attach_optimizer``), the
+reference's ``.pt`` state dicts and a ``torch.distributed.checkpoint``
+counterpart of the orbax backend (``ckpt``), parameter-shift gradients
+(``sim.gradients``), the QASM bridge (``sim.qasm``) with the native C++
+engine on the host (``native``), and the plots (``metrics``); ROADMAP.md
+lists the rest.
 """
 
 from . import config  # noqa: F401

@@ -7,9 +7,12 @@ and score (src/mnist_exm.py:334-503), and the noise drivers' pieces:
 caches (``save_outp``/``load_outp``) and the scoring protocols of
 ``test``. Models and datasets resolve by name through registries instead
 of ``eval``. ``--profile LOGDIR`` writes a ``torch.profiler`` trace of each
-training run. PNG dumps and plots need matplotlib and are not ported
-(ROADMAP Queue 1 item 10); the flags for the vmapped and orbax runs are
-rejected before any work, naming their ROADMAP item.
+training run. ``--ckpt-backend orbax`` checkpoints as a
+``torch.distributed.checkpoint`` directory (``<save_name>_<label>.dcp``,
+``ckpt.save_dcp``), the mid-training saves of ``--checkpoint-every`` in
+the background. The PNG dumps and plots need matplotlib: where it cannot
+be imported (the card's machine has none), one line says so. The flag for
+the vmapped run is rejected before any work, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,9 +63,6 @@ DEFAULT_LRS = {
     "QNN_noise": 0.01011,
 }
 FALLBACK_LR = 0.01
-
-_NOT_PORTED = "ROADMAP Queue 1 item 10"
-
 
 def build_parser(description: str, *, default_models, default_data: str,
                  default_img_size: int, default_label: int = 0,
@@ -120,7 +120,9 @@ def build_parser(description: str, *, default_models, default_data: str,
     p.add_argument("--ckpt-backend", type=str, default="pt",
                    choices=["pt", "orbax"],
                    help="Checkpoint format: 'pt' (the shared pickle "
-                        "layout); 'orbax' is not ported.")
+                        "layout) or 'orbax' (a torch.distributed.checkpoint "
+                        "directory, <save_name>_<label>.dcp; periodic "
+                        "saves run in the background).")
     p.add_argument("--noise-backend", type=str, default="dm",
                    choices=["dm", "traj"],
                    help="Channel simulation at noisy test time: 'dm' (the "
@@ -149,15 +151,9 @@ def validate_args(args) -> None:
     without CUDA. ``--add_noise`` and ``--noise_intensity`` pass: the JAX
     drivers read neither (the noise drivers sweep their own settings), and
     every model takes its ``add_noise`` code as a ctor argument."""
-    unported = {
-        "--vmap-labels": (args.vmap_labels, "ROADMAP Queue 1 item 11"),
-        "--ckpt-backend orbax": (args.ckpt_backend == "orbax",
-                                 "ROADMAP Queue 1 item 10"),
-    }
-    for flag, (given, item) in unported.items():
-        if given:
-            raise SystemExit(f"{flag} is not ported to qiddm_tpu_torch "
-                             f"yet ({item})")
+    if args.vmap_labels:
+        raise SystemExit("--vmap-labels is not ported to qiddm_tpu_torch "
+                         "yet (ROADMAP Queue 1 item 11)")
     for m in args.model:
         if m[0] not in MODEL_REGISTRY:
             raise SystemExit(f"model {m[0]!r} is not ported to "
@@ -246,18 +242,24 @@ def make_first_x(args, n: int = 10) -> torch.Tensor:
 
 def train(diff, args, x_train, start_epoch: int, loss_values: List[float]):
     """Reference train() (src/mnist_exm.py:148-203): Adam over the
-    remaining epochs, checkpoint at ``<save_path>/<save_name>_<label>.pt``.
+    remaining epochs, checkpoint at ``<save_path>/<save_name>_<label>.pt``
+    (or ``.dcp`` under ``--ckpt-backend orbax``).
 
     Training runs in segments of ``--checkpoint-every`` epochs (all at once
     when 0); segment s draws from the seed ``seed + epochs done`` and Adam's
     moments carry over between segments. SIGTERM/SIGINT is deferred to the
     next segment boundary, where the state is checkpointed and the process
-    exits 128+signum; rerunning the same command resumes from there. With
-    ``--profile LOGDIR`` the run is recorded by ``device_trace``.
+    exits 128+signum; rerunning the same command resumes from there. Under
+    ``--ckpt-backend orbax`` the mid-training saves run in the background
+    (``qiddm_tpu/cli/common.py:283-355``); each is joined before the next
+    save and before this returns. With ``--profile LOGDIR`` the run is
+    recorded by ``device_trace``.
     """
     print("Training model")
     remaining = args.epochs - start_epoch
     ckpt_every = args.checkpoint_every
+    backend = args.ckpt_backend
+    pending = None  # the last background save, joined before the next
     caught = {"sig": None}
 
     def _defer_to_boundary(signum, frame):
@@ -272,9 +274,16 @@ def train(diff, args, x_train, start_epoch: int, loss_values: List[float]):
         except ValueError:  # not the main thread (e.g. under a test runner)
             pass
 
-    def _save(epochs_done):
-        save_diffusion(diff, args.save_path, args.label, loss_values,
-                       epochs_done)
+    def _save(epochs_done, async_save=False):
+        nonlocal pending
+        if pending is not None:
+            pending.wait_until_finished()
+            pending = None
+        out = save_diffusion(diff, args.save_path, args.label, loss_values,
+                             epochs_done, backend=backend,
+                             async_save=async_save)
+        if async_save:
+            pending = out
 
     trace = (device_trace(args.profile) if args.profile
              else contextlib.nullcontext())
@@ -302,7 +311,7 @@ def train(diff, args, x_train, start_epoch: int, loss_values: List[float]):
                           file=sys.stderr)
                     raise SystemExit(128 + caught["sig"])
                 if ckpt_every and remaining > 0:
-                    _save(done)
+                    _save(done, async_save=(backend == "orbax"))
     finally:
         for s, h in prev_handlers.items():
             signal.signal(s, h)
@@ -390,7 +399,9 @@ def test(diff, args, x_train, x_test, first_x, tau_test: int = 15,
     cache), clamp and scale to [0, 255], renormalize as ``protocol`` says;
     the real images are ``x_test``, or ``x_train`` under the protocol's
     ``real_from_train``. Returns (generated (iters+1, b, 1, h, w), real) as
-    numpy. PNG dumps are not ported."""
+    numpy. With ``save_images`` and a save path it dumps the PNGs
+    (:func:`_dump_images`), or says in one line that matplotlib is
+    missing."""
     print("Testing model")
     s = args.img_size
     if grid is None:
@@ -422,8 +433,39 @@ def test(diff, args, x_train, x_test, first_x, tau_test: int = 15,
     if protocol.real_255:
         real = np.clip(real * 255.0, 0.0, 255.0)
     if save_images and args.save_path:
-        print(f"PNG dumps are not ported ({_NOT_PORTED})")
+        if metrics.plots_available():
+            _dump_images(args, x_train, gen, outp, diff)
+        else:
+            print(metrics.NO_PLOTS.format(what="the PNG dumps"))
     return gen, real
+
+
+def _dump_images(args, x_train, generated, grid, diff):
+    """The reference's PNG dumps (``qiddm_tpu/cli/common.py:434-450``): up
+    to 100 training images under ``image_0/``, every sampled image's steps
+    under ``image_<i>/`` and the sampler's grid as
+    ``<save_name>_<label>.png``."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    s = args.img_size
+    base = pathlib.Path(args.save_path)
+    img0 = base / "image_0"
+    img0.mkdir(parents=True, exist_ok=True)
+    for i in range(min(len(x_train), 100)):
+        plt.imsave(img0 / f"train_image_{i + 1}.png",
+                   np.asarray(x_train[i]).reshape(s, s), cmap="gray")
+    for i in range(generated.shape[1]):
+        folder = base / f"image_{i + 1}"
+        folder.mkdir(parents=True, exist_ok=True)
+        for j in range(generated.shape[0]):
+            plt.imsave(folder / f"step_{j + 1}.png", generated[j, i, 0],
+                       cmap="gray")
+    plt.imshow(grid, cmap="gray")
+    plt.axis("off")
+    plt.savefig(base / f"{diff.save_name()}_{args.label}.png")
+    plt.close()
 
 
 def _outp_path(diff, path, noise_intensity, backend: str) -> pathlib.Path:
@@ -477,8 +519,11 @@ def run_labels(args, labels, *, augment_to: Optional[int] = None,
     real images (``test``), and the last iteration's scores over the
     protocol's (gen, real) pair counts, NaN for PSNR and cosine under a
     protocol without them (the rebuttal drivers score SSIM only). A label
-    with no images raises ``ValueError``, as in the JAX package. The
-    drivers' plots need matplotlib and are not ported: one line says so."""
+    with no images raises ``ValueError``, as in the JAX package. Where
+    matplotlib can be imported, each label's loss and score curves are
+    plotted and, over several labels, the histograms
+    (:func:`_plot_label`, :func:`_plot_histograms`); elsewhere one line
+    says they are skipped."""
     validate_args(args)
     device = resolve_device(args.device)
     original_save, original_load = args.save_path, args.load_path
@@ -524,6 +569,7 @@ def run_labels(args, labels, *, augment_to: Optional[int] = None,
             args.batch_size = max(len(x_train), 1)
 
         init_batch = x_train[:32].reshape(-1, 1, height, width)
+        curves = {"loss": {}, "generated": {}, "real": {}}
         for mi, model_args in enumerate(args.model):
             model_name = model_args[0]
             net = build_model(model_args, seed=args.seed, device=device,
@@ -534,8 +580,9 @@ def run_labels(args, labels, *, augment_to: Optional[int] = None,
             diff = Diffusion(net, add_normal_noise_multiple, args.target,
                              (height, width))
             print("parameters:%d\n" % net.num_params())
-            loss_values, start_epoch = load_diffusion(diff, args.load_path,
-                                                      label)
+            loss_values, start_epoch = load_diffusion(
+                diff, args.load_path, label,
+                backend="auto" if args.ckpt_backend == "pt" else "orbax")
             print(f"epoch start from {start_epoch}, "
                   f"left {args.epochs - start_epoch}")
             loss_values = train(diff, args, x_train, start_epoch,
@@ -555,12 +602,50 @@ def run_labels(args, labels, *, augment_to: Optional[int] = None,
                   f"{scores['ssim']:.6f}, PSNR {scores['psnr']:.6f}, cosine "
                   f"{scores['cos']:.6f} (gen {gc}, real {rc})")
             entry = results[model_key(mi, model_args)]
+            curves["loss"][model_key(mi, model_args)] = loss_values
+            curves["generated"][f"{diff.save_name()}#{mi}"] = generated
+            curves["real"][f"{diff.save_name()}#{mi}"] = real
             entry["loss"].append(loss_values)
             entry["generated"].append(generated)
             entry["real"].append(real)
             for k, v in scores.items():
                 entry[k].append(v)
+        if metrics.plots_available():
+            _plot_label(args, curves, protocol)
     args.save_path, args.load_path = original_save, original_load
-    print(f"the loss/SSIM/PSNR/cosine plots and histograms are not ported "
-          f"({_NOT_PORTED})")
+    if not metrics.plots_available():
+        print(metrics.NO_PLOTS.format(
+            what="the loss/SSIM/PSNR/cosine plots and histograms"))
+    elif len(list(labels)) > 1 and args.save_path:
+        _plot_histograms(args, results, protocol)
     return results
+
+
+def _plot_label(args, curves, protocol: ScoreProtocol) -> None:
+    """One label's plots (``qiddm_tpu/cli/common.py:734-752``): the loss
+    curves and the score of every sampling iteration, SSIM and, under a
+    protocol with them, PSNR and cosine, over the protocol's pair counts.
+    The last model's name and parameters name the loss plot."""
+    margs = args.model[-1]
+    metrics.show_metrics(curves["loss"], "LOSS", args, model_name=margs[0],
+                         model_params=margs[1:], is_loss=True)
+    gc, rc = protocol.gen_count, protocol.real_count
+    scorers = [metrics.get_ssim]
+    if protocol.psnr_cos:
+        scorers += [metrics.get_psnr, metrics.get_cosine_similarity]
+    for scorer in scorers:
+        scorer(curves["generated"], curves["real"], args, gen_img_count=gc,
+               real_img_count=rc)
+
+
+def _plot_histograms(args, results, protocol: ScoreProtocol) -> None:
+    """The cross-label comparison histograms of the last iteration's
+    scores (reference src/mnist_exm.py:498-502): of the scores the
+    protocol takes. (The JAX package also draws PSNR's and cosine's for
+    the rebuttal drivers, whose NaN scores matplotlib refuses as axis
+    limits.)"""
+    for metric_name in ("ssim", "psnr", "cos")[:3 if protocol.psnr_cos
+                                               else 1]:
+        metrics.show_histogram(
+            {m: results[m][metric_name] for m in results},
+            metric_name.upper(), args)

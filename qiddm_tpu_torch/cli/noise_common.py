@@ -15,8 +15,9 @@ rebuilt and nothing is read back to the host between values. With
 ``--n-traj`` Monte-Carlo trajectories, drawing from a generator on the
 net's device seeded ``seed + 17`` afresh for every intensity (the JAX
 package passes one key to every intensity's sampler), and the caches carry
-the ``_traj`` tag. The metric-vs-intensity plots need matplotlib and are not
-ported.
+the ``_traj`` tag. The metric-vs-intensity curves of each channel type are
+plotted where matplotlib can be imported; elsewhere one line says they are
+skipped.
 """
 
 from __future__ import annotations
@@ -149,8 +150,9 @@ def _run_noise_sweep(args, *, noise_types, intensities, tau_test,
         args.lr = common.model_lr(args, model_name)
         diff = Diffusion(net, add_normal_noise_multiple, args.target,
                          (height, width))
-        loss_values, start_epoch = load_diffusion(diff, args.load_path,
-                                                  label)
+        loss_values, start_epoch = load_diffusion(
+            diff, args.load_path, label,
+            backend="auto" if args.ckpt_backend == "pt" else "orbax")
         loss_values = common.train(diff, args, x_train, start_epoch,
                                    loss_values)
         trained[mi] = (model_name, diff, loss_values)
@@ -202,8 +204,18 @@ def _run_noise_sweep(args, *, noise_types, intensities, tau_test,
             print(f"noise sweep {diff.save_name()}: scored "
                   f"{len(intensities)} intensities in "
                   f"{time.perf_counter() - t0:.3f} s on the host")
-        print(f"noise type {add_noise} "
-              f"({NOISE_TYPE_LABELS.get(add_noise, 'noise intensity')}): "
-              f"the metric-vs-intensity plots need matplotlib and are not "
-              f"ported (ROADMAP Queue 1 item 10)")
+        # metric-vs-intensity plots (reference src/mnist_noise.py:537-540)
+        xlabel = NOISE_TYPE_LABELS.get(add_noise, "noise intensity")
+        if not metrics.plots_available():
+            print(metrics.NO_PLOTS.format(
+                what=f"noise type {add_noise} ({xlabel}): the "
+                     f"metric-vs-intensity plots"))
+            continue
+        for metric_name in ("ssim", "psnr", "cos", "fid"):
+            curve_dict = {m: results[m][add_noise][metric_name]
+                          for m in results}
+            metrics.show_metrics(curve_dict, metric_name.upper(), args,
+                                 model_name=f"noise{add_noise}",
+                                 model_params=[metric_name],
+                                 xlabel=xlabel, x_values=list(intensities))
     return results

@@ -1,7 +1,8 @@
 """Standalone sampling / serving driver (counterpart of
 ``qiddm_tpu/cli/sample.py``).
 
-Loads a checkpoint (the JAX package's pickle layout, qiddm_tpu_torch/ckpt.py)
+Loads a checkpoint (the JAX package's pickle layout, or the ``.dcp``
+directory that ``--ckpt-backend orbax`` writes; qiddm_tpu_torch/ckpt.py)
 and generates images on the chosen device:
 
   python -m qiddm_tpu_torch.cli.sample --ckpt QIDDM_LL_noise=6_L=14_N=2_4.pt \
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import export as export_mod
-from ..ckpt import load_checkpoint, load_jax_variables
+from ..ckpt import load_variables
 from ..config import resolve_device
 from ..diffusion import Diffusion
 from . import common
@@ -149,8 +150,10 @@ def main(argv=None):
                              "an AOT bundle; it needs --export PATH")
         net = common.build_model(list(args.model), seed=args.seed,
                                  device=device)
-        load_jax_variables(net,
-                           load_checkpoint(args.ckpt)["model_state_dict"])
+        try:
+            load_variables(net, args.ckpt)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
         diff = Diffusion(net=net, prediction_goal=args.target,
                          shape=(s, s)).eval()
     if args.export:

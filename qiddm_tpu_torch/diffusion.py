@@ -42,6 +42,22 @@ def _net_mode(net, train: bool):
         net.train(was)
 
 
+@contextlib.contextmanager
+def _buffers_kept(net):
+    """Give every buffer of ``net`` its value from before the block back
+    afterwards: a train-mode BatchNorm updates its running statistics in
+    place, even under ``torch.no_grad``, where the JAX loss returns them as
+    new variables that a loss-only call throws away
+    (``qiddm_tpu/diffusion.py:303``)."""
+    saved = [(b, b.detach().clone()) for b in net.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)
+
+
 def stack_to_grid(outp: torch.Tensor) -> torch.Tensor:
     """The reference's grid ``(I*h, b*w)`` of an ``(I, b, 1, h, w)`` stack
     of sampled batches: iterations down, images across."""
@@ -187,6 +203,84 @@ class Diffusion:
             return torch.stack(losses).reshape(epochs, n_batches).sum(dim=1)
 
         return run
+
+    # --- the torch-style call ----------------------------------------------
+    def attach_optimizer(self, optimizer):
+        """Make the torch-style train call train (counterpart of
+        ``qiddm_tpu/diffusion.py:261-278``).
+
+        The reference's ``forward`` runs ``.backward()`` itself
+        (src/models.py:67) and its driver steps the optimizer around it:
+        ``opt.zero_grad(); diff(x=..., T=...); opt.step()``. With
+        ``optimizer`` attached, every train-mode ``diff(x=..., T=...)`` runs
+        one loss, backward and ``optimizer.step()`` on the net's parameters
+        and then sets every ``.grad`` to None, so the driver's own
+        ``opt.step()`` finds no gradient and moves nothing (Adam skips a
+        parameter whose grad is None): a verbatim reference loop trains one
+        step per call. Prefer :meth:`make_train_step` or
+        ``train.train_diffusion`` for new training loops."""
+        self._optimizer = optimizer
+        self._call_count = 0
+        return self
+
+    def _clear_grads(self, optimizer) -> None:
+        optimizer.zero_grad(set_to_none=True)
+        for p in self.parameters():
+            p.grad = None
+
+    def __call__(self, x=None, generator: Optional[torch.Generator] = None,
+                 **kwargs):
+        """Train mode: one training call on the image batch ``x`` with
+        ``T`` (default 10) noise steps (``qiddm_tpu/diffusion.py:280-336``).
+        Returns ``(|loss|,)``, or ``(|per_elem|, |recon|)`` with
+        ``verbose=True``. With an attached optimizer the call steps it; its
+        noise comes from ``generator``, by default a CPU generator seeded
+        with the number of earlier calls (the JAX call's
+        ``PRNGKey(call_count)``). Without one it raises ``RuntimeError``,
+        unless ``loss_only=True``: then it returns the loss alone, noise
+        from seed 0 unless ``generator`` is given, and moves nothing: no
+        parameter, and no buffer (a BatchNorm's running statistics).
+
+        Eval mode: ``self.sample(first_x=x, **kwargs)``."""
+        if not self.training:
+            return self.sample(first_x=x, generator=generator, **kwargs)
+        T = int(kwargs.get("T", 10))
+        x_flat = torch.as_tensor(x, dtype=torch.float32).reshape(
+            len(x), -1).to(self.net.device)
+        optimizer = getattr(self, "_optimizer", None)
+        if optimizer is None:
+            if not kwargs.get("loss_only", False):
+                raise RuntimeError(
+                    "Diffusion called in train mode without an attached "
+                    "optimizer: unlike the reference (whose forward calls "
+                    ".backward() internally, src/models.py:67), this would "
+                    "return a loss and train NOTHING. Either "
+                    "diff.attach_optimizer(torch.optim.Adam("
+                    "diff.parameters(), lr)) to make this call step the "
+                    "parameters, pass loss_only=True for pure loss "
+                    "evaluation, or use train_diffusion()/"
+                    "make_train_step() for real training loops.")
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            with torch.no_grad(), _buffers_kept(self.net):
+                loss, (per_elem, recon) = self.loss_fn(x_flat, T,
+                                                       generator=generator)
+        else:
+            if generator is None:
+                generator = torch.Generator().manual_seed(self._call_count)
+            self._call_count += 1
+            loss, (per_elem, recon) = self.loss_fn(x_flat, T,
+                                                   generator=generator)
+            self._clear_grads(optimizer)
+            loss.backward()
+            optimizer.step()
+            # the driver's own opt.step() after this call must find no grad
+            self._clear_grads(optimizer)
+        if kwargs.get("verbose", False):
+            return per_elem.detach().abs(), recon.detach().abs()
+        return (loss.detach().abs(),)
+
+    forward = __call__
 
     # --- sampling -----------------------------------------------------------
     @torch.no_grad()

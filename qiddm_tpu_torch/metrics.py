@@ -14,14 +14,33 @@ Inputs: generated images (iters, n_gen, 1, H, W) and real images
 the mean over every (generated, real) pair. The reference's dict API
 (``get_ssim``, ``get_psnr``, ``get_cosine_similarity``, ``get_fid`` and
 ``map_model_name``; ``qiddm_tpu/metrics.py:204-269``) scores a dict of
-models at once. The plots (``show_metrics``, ``show_histogram``) need
-matplotlib and are not ported: where the JAX package would plot, one line
-says so.
+models at once and, given the drivers' ``args``, plots each curve. The
+plots (``show_metrics``, ``show_images``, ``show_histogram``;
+``qiddm_tpu/metrics.py:272-383``) draw with matplotlib's Agg backend and
+raise ``ImportError`` without it, as the JAX ones do; the drivers ask
+:func:`plots_available` once and, where it is false (the card's machine
+has no matplotlib), print one line instead of plotting.
 """
 
 from __future__ import annotations
 
+import functools
+import pathlib
+
 import numpy as np
+
+# what the drivers print in place of a plot on a host without matplotlib
+NO_PLOTS = "{what}: skipped, matplotlib cannot be imported on this host"
+
+
+@functools.lru_cache(maxsize=None)
+def plots_available() -> bool:
+    """Whether matplotlib can be imported (asked once a process)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 def _valid_mean7(img: np.ndarray) -> np.ndarray:
@@ -179,15 +198,17 @@ def map_model_name(model_name):
 def _dict_metric(metric_fn, generated_images_dict, real_images_dict, args,
                  gen_img_count, real_img_count, name):
     """``{model: [score per iteration]}`` of ``metric_fn`` over a dict of
-    generated grids and their real images. Given ``args``, the JAX package
-    also plots the curves: here one line says that is not ported."""
+    generated grids and their real images; given ``args``, also the plot
+    of the curves (:func:`show_metrics`), as ``qiddm_tpu/metrics.py:
+    183-193``."""
     values = {
         model: [float(v) for v in metric_fn(
             gen, real_images_dict[model], gen_img_count, real_img_count)]
         for model, gen in generated_images_dict.items()}
     if args is not None:
-        print(f"the {name} plot needs matplotlib and is not ported "
-              f"(ROADMAP Queue 1 item 10)")
+        show_metrics(values, name, args,
+                     model_name=list(generated_images_dict)[-1]
+                     if generated_images_dict else None)
     return values
 
 
@@ -217,3 +238,115 @@ def get_fid(generated_images_dict, real_images_dict, args=None,
     return _dict_metric(fid_iterations, generated_images_dict,
                         real_images_dict, args, gen_img_count,
                         real_img_count, "fid")
+
+
+def _pyplot():
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def show_metrics(values_dict, name, args, model_name=None, model_params=None,
+                 colors=None, legend_labels=None, xlabel=None, ylabel=None,
+                 is_loss=False, marker_size=7, line_width=3, x_values=None):
+    """Line plot per model (reference src/metrics.py:104-153), saved as
+    ``<args.save_path>/<name>_<info>_<args.label>.png`` when ``args`` has a
+    save path.
+
+    ``x_values``: explicit x coordinates (e.g. the physical noise
+    intensities of a sweep); default is the index.
+    """
+    plt = _pyplot()
+    colors = colors or ["#1f77b4", "#ff7f0e", "#2ca02c", "#d62728",
+                        "#9467bd", "#7f7f7f"]
+    legend_labels = [map_model_name(l) for l in
+                     (legend_labels or list(values_dict.keys()))]
+    xlabel = xlabel or ("Epochs" if is_loss else "Denoising steps")
+    markers = ["o", "s", "^", "d", "x", "*", "+", "v", "<", ">", "p", "h"]
+    plt.figure(figsize=(8, 6))
+    for idx, (_, values) in enumerate(values_dict.items()):
+        kw = dict(linestyle="-", color=colors[idx % len(colors)],
+                  linewidth=line_width,
+                  label=legend_labels[idx % len(legend_labels)])
+        if not is_loss:
+            kw.update(marker=markers[idx % len(markers)],
+                      markersize=marker_size)
+        xs = x_values if x_values is not None else range(len(values))
+        plt.plot(xs, values, **kw)
+    plt.title(name, fontsize=24)
+    plt.xlabel(xlabel, fontsize=22)
+    plt.ylabel(ylabel or name, fontsize=22)
+    plt.grid(True)
+    plt.legend(fontsize=18)
+    if args is not None and getattr(args, "save_path", None):
+        info = (f"{model_name}_{'_'.join(map(str, model_params))}"
+                if model_name and model_params else str(model_name))
+        sp = pathlib.Path(args.save_path) / f"{name}_{info}_{args.label}.png"
+        sp.parent.mkdir(parents=True, exist_ok=True)
+        plt.tight_layout()
+        plt.savefig(sp, dpi=300)
+        print(f"{name} plot saved to {sp}")
+    plt.close()
+
+
+def show_images(images, num_images=5, img_size=(8, 8), save_path=None):
+    """Row of grayscale images (reference src/metrics.py:358-372)."""
+    plt = _pyplot()
+    num = min(num_images, len(images))
+    fig, axes = plt.subplots(1, num, figsize=(15, 3))
+    if num == 1:
+        axes = [axes]
+    for i in range(num):
+        img = images[i]
+        img = img.detach().cpu().numpy() if hasattr(img, "detach") else img
+        axes[i].imshow(np.asarray(img).reshape(img_size), cmap="gray")
+        axes[i].axis("off")
+    if save_path:
+        plt.savefig(save_path)
+    plt.close(fig)
+
+
+def show_histogram(score_dict, metric, args, model_name=None,
+                   model_params=None, filename=None):
+    """Grouped bar chart across labels (reference src/metrics.py:62-101),
+    saved as ``<args.save_path>/<metric>_<info>_<args.label>.png`` when
+    ``args`` has a save path."""
+    plt = _pyplot()
+    models = list(score_dict.keys())
+    scores = np.array(list(score_dict.values()))
+    num_models = len(models)
+    num_labels = len(scores[0])
+    x = np.arange(num_labels)
+    bar_width = 0.5 / num_models
+    colors = ["#9FABB9", "#D4E1F5", "#7EA6E0", "#D3E2B7", "#7CB862",
+              "#FFCE9F", "#9467bd", "#7f7f7f"]
+    plt.figure(figsize=(12, 6))
+    for i, model in enumerate(models):
+        label = map_model_name(model)
+        for j in range(num_labels):
+            plt.bar(x[j] + i * bar_width, scores[i, j], width=bar_width,
+                    color=colors[i % len(colors)],
+                    label=label if j == 0 else "")
+    plt.title(f"{metric} of Models Across Labels", fontsize=18)
+    plt.xlabel(f"{getattr(args, 'data', '')} Labels" if args is not None
+               else "Labels", fontsize=16)
+    plt.ylabel(metric, fontsize=16)
+    # reference xtick/ylim protocol (src/metrics.py:85-91): 'Label i' ticks
+    # centered under each bar group, y capped at 1.1x the max score
+    plt.xticks(x + bar_width * (num_models - 1) / 2,
+               [f"Label {i}" for i in range(num_labels)], fontsize=14)
+    plt.yticks(fontsize=14)
+    plt.legend(fontsize=14, markerscale=1.5)
+    max_score = np.max(scores) if scores.size else 1.0
+    plt.ylim(0, max_score * 1.1)
+    if args is not None and getattr(args, "save_path", None):
+        info = (f"{map_model_name(model_name)}_"
+                f"{'_'.join(map(str, model_params))}"
+                if model_name and model_params else "unknown_model")
+        sp = pathlib.Path(args.save_path) / f"{metric}_{info}_{args.label}.png"
+        sp.parent.mkdir(parents=True, exist_ok=True)
+        plt.tight_layout()
+        plt.savefig(sp, dpi=300)
+    plt.close()

@@ -2,9 +2,8 @@
 alignment of feature maps and the two label embeddings.
 
 Reference: nn/utils.py (autocrop:7, autopad:22, sinusoidal label
-embedding:42-55, binary-split embedding:58-71). The QASM bridge that the
-JAX module keeps here reaches its QASM simulator, which is not ported:
-those three functions raise, naming the ROADMAP item.
+embedding:42-55, binary-split embedding:58-71), and the QASM bridge the
+reference keeps here (nn/utils.py:77-129), through ``sim/qasm.py``.
 """
 
 from __future__ import annotations
@@ -14,9 +13,6 @@ import warnings
 
 import torch
 import torch.nn.functional as F
-
-_QASM = "the QASM bridge is ROADMAP Queue 1 item 10"
-
 
 def autocrop(x: torch.Tensor, y: torch.Tensor):
     """Center-crop y to x's spatial size (reference nn/utils.py:7-19)."""
@@ -80,13 +76,25 @@ def _get_label_embedding_2(labels, width: int, height: int, *,
 get_label_embedding = _get_label_embedding_1
 
 
+# --- QASM bridge (reference nn/utils.py:77-129 keeps these here) -----------
+
 def circuit_to_qasm(weights, wires, inp):
-    raise NotImplementedError(_QASM)
+    from ..sim import qasm
+
+    return qasm.circuit_to_qasm(weights, wires, inp)
 
 
 def repeat_qasm(qasm_str, wires, ancilla, reps):
-    raise NotImplementedError(_QASM)
+    from ..sim import qasm
+
+    return qasm.repeat_qasm(qasm_str, wires, ancilla, reps)
 
 
-def sample_from_qiskit(qasm_str, backend="statevector_simulator", shots=None):
-    raise NotImplementedError(_QASM)
+def sample_from_qiskit(qasm_str, backend="statevector_simulator", shots=None,
+                       device="cuda"):
+    """Name kept for parity with reference nn/utils.py:114; runs the
+    circuit on ``device`` (the card by default) and draws the shots with
+    the native engine instead of qiskit-aer."""
+    from ..sim import qasm
+
+    return qasm.sample_from_qasm(qasm_str, shots=shots, device=device)

@@ -9,7 +9,11 @@ dense layer unitaries (``unitary_kernel``, CNOT-ring re-upload blocks up to
 backend (``trajectories``). Past the kernels' widths and in complex128 the
 routes the JAX package runs in XLA are plain PyTorch: the grouped chain
 (``wide``), the per-gate adjoint chain (``wide`` with one-wire groups) and
-``sel_apply_gates`` (``sel``); ``ROUTE_CALLS`` counts their calls."""
+``sel_apply_gates`` (``sel``); ``ROUTE_CALLS`` counts their calls. The
+submodules ``gradients`` (parameter-shift gradients through
+``torch.func.vmap``) and ``qasm`` (the QASM bridge: OPENQASM text, a
+complex128 statevector run on the card, shots drawn by the native engine)
+are the JAX package's ``sim/gradients.py`` and ``sim/qasm.py``."""
 
 from .amp_damp_kernel import amp_damp, amp_damp_plain  # noqa: F401
 from .engine import qdense_circuit, qnn_circuit, reupload_block  # noqa: F401
@@ -102,3 +106,4 @@ from .wide_kernel import (  # noqa: F401
 # registers the forward kernels' operators (qiddm::*), which the kernel
 # modules' autograd Functions call
 from . import ops  # noqa: E402,F401
+from . import gradients, qasm  # noqa: E402,F401

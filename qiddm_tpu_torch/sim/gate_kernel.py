@@ -537,14 +537,23 @@ class _GateChain(torch.autograd.Function):
     carries ``dg`` back to the complex rotations through :func:`_to_g8`'s
     ``.real``/``.imag`` and no conjugation is written by hand. Saves
     ``(pr, pi, g8, sr, si)``, as ``_gate_chain_fwd`` does on the TPU; the
-    backward rebuilds the states from the output."""
+    backward rebuilds the states from the output.
+
+    In the ``setup_context`` form, with a generated vmap rule, so
+    ``torch.func.vmap`` passes through it to the operator's batching rule
+    (``sim/ops.py``), which launches #1 once for each weight set."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, pr, pi, g8, k: int, wires: int):
-        sr, si = torch.ops.qiddm.gate_chain.default(pr, pi, g8, k, wires)
-        ctx.save_for_backward(pr, pi, g8, sr, si)
+    def forward(pr, pi, g8, k: int, wires: int):
+        return torch.ops.qiddm.gate_chain.default(pr, pi, g8, k, wires)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pr, pi, g8, k, wires = inputs
+        ctx.save_for_backward(pr, pi, g8, *output)
         ctx.k, ctx.wires = k, wires
-        return sr, si
 
     @staticmethod
     @once_differentiable

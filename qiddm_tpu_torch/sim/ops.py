@@ -20,6 +20,12 @@ trajectory-only kernels (the SEL chain on rows, the amplitude-damping
 pass) are not operators: a trajectory sampler draws fresh noise on every
 call and is never exported.
 
+``qiddm::gate_chain`` and ``qiddm::sel_chain`` also have a batching rule
+(``torch.library.register_vmap``), so ``torch.func.vmap`` of a circuit
+over its weights (``sim/gradients.py``'s parameter shift) reaches them: the
+rule runs the operator once for each member of the vmapped dimension, so
+on the card #1 (or #5) launches once for each weight set.
+
 The operators are registered with the low-level ``torch.library.Library``
 (``define``, ``impl`` for each device, ``register_fake``), the cheaper of
 the two registrations: ``chip_smoke.py``'s phase 47 times #1 through its
@@ -174,6 +180,22 @@ _register("unitary_chain",
           _uk._unitary_chain_cuda, _planes_like)
 
 
+def _each_member(op):
+    """A batching rule that runs ``op`` once for each member of the
+    vmapped dimension and stacks the outputs along dimension 0."""
+
+    def rule(info, in_dims, *args):
+        outs = []
+        for i in range(info.batch_size):
+            one = [a if d is None else a.select(d, i).contiguous()
+                   for a, d in zip(args, in_dims)]
+            outs.append(op(*one))
+        return (tuple(torch.stack(o) for o in zip(*outs)),
+                (0,) * len(outs[0]))
+
+    return rule
+
+
 gate_chain = torch.ops.qiddm.gate_chain.default
 ry_chain = torch.ops.qiddm.ry_chain.default
 sel_chain = torch.ops.qiddm.sel_chain.default
@@ -187,3 +209,6 @@ OPS = {"gate_chain": gate_chain, "ry_chain": ry_chain,
        "sel_chain": sel_chain, "dm_chain": dm_chain,
        "wide_chain": wide_chain, "wide_mono": wide_mono,
        "unitary_chain": unitary_chain}
+for _name in ("gate_chain", "sel_chain"):
+    torch.library.register_vmap(f"{NAMESPACE}::{_name}",
+                                _each_member(OPS[_name]), lib=LIB)

@@ -326,15 +326,21 @@ class _SelChain(torch.autograd.Function):
     """``(sr, si, g8) -> (or, oi)`` on real float32 planes, so autograd
     carries ``dg`` back to the complex rotations through :func:`_to_g8`'s
     ``.real``/``.imag``. Saves ``(g8, or, oi)``, as ``_sel_chain_fwd`` does
-    on the TPU; the backward rebuilds the states from the output."""
+    on the TPU; the backward rebuilds the states from the output. In the
+    ``setup_context`` form with a generated vmap rule, as ``_GateChain``."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, sr, si, g8, wires: int, imprimitive: str):
-        out_r, out_i = torch.ops.qiddm.sel_chain.default(sr, si, g8, wires,
-                                                         imprimitive)
-        ctx.save_for_backward(g8, out_r, out_i)
+    def forward(sr, si, g8, wires: int, imprimitive: str):
+        return torch.ops.qiddm.sel_chain.default(sr, si, g8, wires,
+                                                 imprimitive)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, g8, wires, imprimitive = inputs
+        ctx.save_for_backward(g8, *output)
         ctx.wires, ctx.imprimitive = wires, imprimitive
-        return out_r, out_i
 
     @staticmethod
     @once_differentiable

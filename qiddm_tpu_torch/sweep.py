@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from . import metrics
-from .ckpt import export_jax_variables, save_checkpoint
+from .ckpt import export_jax_variables, save_checkpoint, save_dcp
 from .diffusion import Diffusion
 
 
@@ -71,15 +71,14 @@ def sweep_lr(make_net: Callable[[int], object], lrs: Sequence[float],
     spaced epochs or ``(epoch, keep_frac)`` pairs (``asha_rungs(epochs)``
     gives AsyncHyperBand's grace 1, reduction 4). ``first_x`` (the
     sampler's start images for the SSIM) defaults to 15 uniform images
-    drawn from ``seed + 7``. ``mesh`` (trials over a device mesh) and the
-    orbax checkpoints are not ported and raise."""
+    drawn from ``seed + 7``. ``ckpt_backend`` "orbax" writes each finished
+    trial's checkpoint as a DCP directory (``ckpt.save_dcp``). ``mesh``
+    (trials over a device mesh) is not ported and raises."""
     if mesh is not None:
         raise NotImplementedError(
             "sweep trials over a device mesh: ROADMAP Queue 1 item 11")
-    if ckpt_backend != "pt":
-        raise NotImplementedError(
-            f"the {ckpt_backend!r} checkpoint backend: ROADMAP Queue 1 "
-            f"item 10")
+    if ckpt_backend not in ("pt", "orbax"):
+        raise ValueError(f"unknown checkpoint backend {ckpt_backend!r}")
     n_trials = len(lrs)
     h, w = shape
     nets = [make_net(seed + t) for t in range(n_trials)]
@@ -144,7 +143,8 @@ def sweep_lr(make_net: Callable[[int], object], lrs: Sequence[float],
     if local_dir is not None:
         result.trial_dirs = _write_artifacts(
             local_dir, exp_name, result, {int(t): nets[t] for t in live},
-            dict(batch_size=bs, epochs=epochs, T=T), t_start, last_epoch)
+            dict(batch_size=bs, epochs=epochs, T=T), t_start, last_epoch,
+            ckpt_backend)
     return result
 
 
@@ -231,12 +231,13 @@ def _score_ssim(diffs, first_x, sample_iters, real_for_ssim, x_train,
 
 
 def _write_artifacts(local_dir, exp_name, result: SweepResult, alive: dict,
-                     cfg, t_start, last_epoch):
+                     cfg, t_start, last_epoch, ckpt_backend: str = "pt"):
     """The tune_results layout (reference tune_results/...):
     ``<local_dir>/<exp_name>/<trial>/params.json``, ``result.json``,
     ``progress.csv``, and for each trial in ``alive`` ({trial: net}, those
     that trained every epoch) a checkpoint named with its final loss and
-    SSIM, in the JAX package's layout. ``training_iteration`` is the
+    SSIM, in the JAX package's layout (``.pt``) or, under ``ckpt_backend``
+    "orbax", as a DCP directory (``.dcp``). ``training_iteration`` is the
     epochs a trial trained (a trial stopped at a rung stops early);
     ``time_total_s`` is the whole sweep's wall."""
     base = pathlib.Path(local_dir) / exp_name
@@ -268,8 +269,12 @@ def _write_artifacts(local_dir, exp_name, result: SweepResult, alive: dict,
             net = alive[t]
             stem = (f"{net.save_name()}_"
                     f"{result.final_loss[t]:.4f}_{result.ssim[t]:.4f}")
-            save_checkpoint(td / f"{stem}.pt", export_jax_variables(net),
-                            list(map(float, result.loss_curves[t])),
-                            cfg["epochs"])
+            losses = list(map(float, result.loss_curves[t]))
+            if ckpt_backend == "orbax":
+                save_dcp(td / f"{stem}.dcp", export_jax_variables(net),
+                         loss_values=losses, epochs=cfg["epochs"])
+            else:
+                save_checkpoint(td / f"{stem}.pt", export_jax_variables(net),
+                                losses, cfg["epochs"])
         dirs.append(str(td))
     return dirs

@@ -187,9 +187,9 @@ def test_checkpoint_every_saves_each_segment(driver_env, monkeypatch):
     saved = []
     real_save = tcommon.save_diffusion
 
-    def spy(diff, path, label, losses, epochs):
+    def spy(diff, path, label, losses, epochs, **kw):
         saved.append((epochs, list(losses)))
-        return real_save(diff, path, label, losses, epochs)
+        return real_save(diff, path, label, losses, epochs, **kw)
 
     monkeypatch.setattr(tcommon, "save_diffusion", spy)
     tmnist.main(_driver_args(tmp, "--checkpoint-every", "1"))
@@ -212,9 +212,18 @@ def test_checkpoint_every_saves_each_segment(driver_env, monkeypatch):
         "dataset"])
 def test_unported_runs_are_rejected_before_any_work(driver_env, monkeypatch,
                                                     extra):
-    """The unported flags are rejected before any data is loaded; so is an
+    """The unported flag is rejected before any data is loaded; so is an
     unknown dataset (every JAX loader is ported). ``--profile`` is ported:
-    a CPU run writes a torch.profiler trace of its training."""
+    a CPU run writes a torch.profiler trace of its training. So is
+    ``--ckpt-backend orbax``: a CPU run checkpoints as a DCP directory
+    (tests/test_torch_dcp.py holds it against the pt backend)."""
+    if extra[0] == "--ckpt-backend":
+        tmnist.main(_driver_args(driver_env, "--epochs", "1", *extra))
+        dcps = list(driver_env.rglob("*.dcp"))
+        assert len(dcps) == 1 and dcps[0].is_dir()
+        assert pathlib.Path(str(dcps[0]) + ".meta.json").is_file()
+        assert not list(driver_env.rglob("*.pt"))
+        return
     if extra[0] == "--profile":
         tmnist.main(_driver_args(driver_env, "--epochs", "1",
                                  "--profile", str(driver_env / "trace")))

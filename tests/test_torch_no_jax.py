@@ -35,7 +35,9 @@ def test_importing_every_module_leaves_jax_out():
             "qiddm_tpu_torch.cli.fruit_360", "qiddm_tpu_torch.cli.logo2kplus",
             "qiddm_tpu_torch.cli.mnist_ray",
             "qiddm_tpu_torch.cli.fashion_ray", "qiddm_tpu_torch.export",
-            "qiddm_tpu_torch.sim.ops"} <= set(mods)
+            "qiddm_tpu_torch.sim.ops", "qiddm_tpu_torch.native",
+            "qiddm_tpu_torch.native.qsim", "qiddm_tpu_torch.sim.qasm",
+            "qiddm_tpu_torch.sim.gradients"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -54,3 +56,6 @@ def test_no_source_names_jax_or_the_jax_package():
                  if "import jax" in p.read_text()
                  or "qiddm_tpu." in p.read_text()]
     assert offenders == []
+    # the native engine is the port's own copy, built from its own source
+    assert (PKG / "native" / "qsim.cpp").is_file()
+    assert "qsim.cpp" in (PKG / "native" / "qsim.py").read_text()

@@ -264,11 +264,23 @@ def test_label_embeddings_match_jax():
 
 
 def test_qasm_bridge_raises_naming_its_item():
-    for call in (lambda: tutils.circuit_to_qasm(None, 2, None),
-                 lambda: tutils.repeat_qasm("", 2, 0, 1),
-                 lambda: tutils.sample_from_qiskit("")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    """The QASM bridge is ported (sim/qasm.py; tests/test_torch_qasm.py
+    holds it in full): the reference's three names give the JAX bridge's
+    text and counts. What is left to raise is the card's absence: the
+    circuit runs on the card by default, and a host without one names the
+    device it was asked for."""
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(2, 3, 3)).astype(np.float32)
+    x = rng.normal(size=3).astype(np.float32)
+    text = tutils.repeat_qasm(tutils.circuit_to_qasm(w, 3, x), 3, True, 2)
+    assert text == jutils.repeat_qasm(jutils.circuit_to_qasm(w, 3, x), 3,
+                                      True, 2)
+    np.testing.assert_array_equal(
+        tutils.sample_from_qiskit(text, shots=500, device="cpu"),
+        jutils.sample_from_qiskit(text, shots=500))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tutils.sample_from_qiskit(text, shots=500)
 
 
 @pytest.mark.parametrize("h,w", [(2, 2), (7, 7), (14, 14), (7, 2), (3, 5)])

@@ -207,17 +207,37 @@ def test_each_trial_equals_that_trial_trained_alone(tmp_path):
                                    want)
 
 
-def test_mesh_and_orbax_are_not_ported():
+def test_mesh_and_orbax_are_not_ported(tmp_path):
+    """The mesh is still item 11's and raises before any work; so does an
+    unknown checkpoint backend. The orbax backend is ported: each finished
+    trial's checkpoint is a DCP directory holding what the pt backend's
+    holds (tests/test_torch_dcp.py holds the rest)."""
     kw = dict(shape=(8, 8), epochs=1, batch_size=2, T=2)
 
-    def make_net(s):
+    def refuse(s):
         raise AssertionError("a net was built before the refusal")
 
     with pytest.raises(NotImplementedError, match="item 11"):
-        tsweep.sweep_lr(make_net, [0.01], _images(2), mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsweep.sweep_lr(make_net, [0.01], _images(2), ckpt_backend="orbax",
+        tsweep.sweep_lr(refuse, [0.01], _images(2), mesh=object(), **kw)
+    with pytest.raises(ValueError, match="backend"):
+        tsweep.sweep_lr(refuse, [0.01], _images(2), ckpt_backend="zarr",
                         **kw)
+
+    def make_net(s):
+        return tnn.QIDDM_LL_noise(*ARGS, 0, seed=s, device="cpu")
+
+    for backend in ("orbax", "pt"):
+        tsweep.sweep_lr(make_net, [0.01], _images(4), ckpt_backend=backend,
+                        local_dir=str(tmp_path), exp_name=backend, **kw)
+    (dcp,) = (tmp_path / "orbax").rglob("*.dcp")
+    (pt,) = (tmp_path / "pt").rglob("*.pt")
+    assert dcp.name[:-len(".dcp")] == pt.name[:-len(".pt")]
+    got = tckpt.load_dcp(dcp, like=tckpt.export_jax_variables(make_net(0)))
+    want = tckpt.load_checkpoint(pt)
+    assert got["meta"] == {"loss_values": want["loss_values"],
+                           "epochs": want["epochs"]}
+    jax.tree_util.tree_map(np.testing.assert_array_equal, got["variables"],
+                           want["model_state_dict"])
 
 
 def test_sweep_drivers_keep_the_jax_drivers_flags():
