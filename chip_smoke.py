@@ -538,7 +538,35 @@ any failure exits non-zero and no phase's failure is caught:
    reps) at 10 wires, depth 4: run_qasm on the card in complex128 within
    1e-12 of the native engine on the host (run_qasm_native), and
    sample_from_qasm's 10,000 shots (seed 0) equal to the native draw of
-   the host's probabilities.
+   the host's probabilities;
+49. the mesh (qiddm_tpu_torch/parallel, sim/sharded.py) on one card, after
+   phase 48, no process group before it and none after it: (b) first
+   cli.sample --mesh-devices 1 on phase 10's QIDDM_LL_noise 784 6 14 2
+   checkpoint, 16 x 15 (the CLI forms a one-rank NCCL group and destroys
+   it), the same bits and #1 launches as the command without the flag,
+   and --mesh-devices 2 refused with the device-count ValueError before
+   any group is formed; then on one one-rank NCCL group, through
+   qiddm_tpu_torch/tools/mesh_check.py's checks (which torchrun runs on N
+   cards), after one all-reduce that sets the communicator up, timed: (a)
+   train_diffusion_scan(mesh=make_mesh(1)) of QIDDM_LL_noise 784 6 14 2 at
+   batch 1, tau 10, 2 epochs over the seeded 40 images of the label,
+   losses and weights the same bits as without the mesh (the runs in
+   turns: none, mesh, mesh, none), the same #1/#2 launches, one all-reduce
+   a step, every step's loss from the same weights the same bits, the
+   step times, and a witness without a mesh (each step's rows summed as 4
+   ranks would take them) printed; Diffusion.sample(mesh=...) 16 x 15 the
+   same bits and #1 launches as without it; (c)
+   engine.reupload_block(mesh=...) at QIDDM_LL_noise(784, 16, 14, 2)'s
+   block (16 wires, L 14, k 2, 10 rows), expvalz and probs, within 1e-4 of
+   #11/#12 and the adjoint gradients within 2e-3 relative, launching no
+   kernel, and its steps/s; at 12 wires (L 6, k 2) an RY/CNOT
+   block against the grouped chain, and amplitude damping on 8
+   trajectories against the dense trajectory backend (#7) on one
+   generator seed's draws, within 1e-4; (d) sweep_lr over a one-rank
+   "trial" mesh, 2 trials for 1 epoch, losses, SSIMs and each trial's DCP
+   checkpoint the same bits as the sweep without a mesh, and the trials'
+   stacked weights restored from DCP onto the "trial" placement, the same
+   bits.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. In the record, a wide row's
@@ -578,14 +606,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from qiddm_tpu_torch import config
 from qiddm_tpu_torch import export as export_mod
 from qiddm_tpu_torch import native
 from qiddm_tpu_torch.ckpt import (export_jax_variables, load_checkpoint,
-                                  load_diffusion, load_jax_variables,
+                                  load_dcp, load_diffusion,
+                                  load_jax_variables,
                                   load_reference_checkpoint, save_checkpoint,
-                                  save_reference_checkpoint)
+                                  save_dcp, save_reference_checkpoint)
 from qiddm_tpu_torch import data as data_mod
 from qiddm_tpu_torch.cli import common
 from qiddm_tpu_torch.cli import (bloodmnist, emnist_exm, fashion_exm,
@@ -595,6 +625,7 @@ from qiddm_tpu_torch.cli import sample as sample_cli
 from qiddm_tpu_torch.diffusion import Diffusion
 from qiddm_tpu_torch.noise import add_normal_noise_multiple
 from qiddm_tpu_torch.nn import core as nn_core
+from qiddm_tpu_torch.parallel import NamedSharding, distributed, make_mesh
 from qiddm_tpu_torch.pca import (PCAState, pca_fit, pca_fit_transform,
                                  pca_transform)
 from qiddm_tpu_torch.sim import (amp_damp_kernel, dm_kernel, engine,
@@ -606,8 +637,10 @@ from qiddm_tpu_torch.sim.gradients import parameter_shift_grad
 from qiddm_tpu_torch.sim.sel import sel_layer_unitaries
 from qiddm_tpu_torch.sim.statevector import rz_phase_planes, rz_phases
 from qiddm_tpu_torch.sim.trajectories import RecordedDraws, ReplayDraws
-from qiddm_tpu_torch.tools import probe_kernels, vpu_ceiling, wide_probe
+from qiddm_tpu_torch.tools import mesh_check, probe_kernels, vpu_ceiling
+from qiddm_tpu_torch.tools import wide_probe
 from qiddm_tpu_torch.tools import common as tools_common
+from qiddm_tpu_torch.sweep import sweep_lr
 
 SEED = 0
 KERNEL_TOL = 1e-5   # unit-norm f32 states over up to 60 layers
@@ -877,6 +910,18 @@ APP_CALLS = 3
 PSHIFT, PSHIFT_CHUNK = (6, 14, 2, 16), 64
 PSHIFT_TOL, CHUNK_TOL = 2e-4, 1e-6
 QASM, QASM_SHOTS, QASM_TOL = (10, 4, 3), 10_000, 1e-12
+# phase 49: the mesh on a one-rank NCCL group. Training and the sweep take
+# the seeded mnist_28.npz's first MESH_IMAGES images of LABEL (the sweep's
+# 80%); the witness without a mesh splits each step's rows as
+# MESH_WITNESS_SPLIT ranks would; the route's blocks are (wires, L):
+# QIDDM_LL_noise(784, 16, 14, 2)'s and QIDDM_LL_noise(784, 12, 6, 2)'s at
+# mesh_check's k 2 and 10 rows, held against the routes without a mesh
+# within MESH_TOL and, gradients, within MESH_GRAD_TOL relative
+# (results/onchip_parity.json's bar)
+MESH_IMAGES, MESH_TRAJ, MESH_WITNESS_SPLIT = 40, 8, 4
+MESH16, MESH12 = (16, 14), (12, 6)
+MESH_TOL, MESH_GRAD_TOL = mesh_check.ROUTE_TOL, mesh_check.GRAD_TOL
+MESH_SWEEP_LRS = [0.0255, 0.05]
 
 
 def fail(msg: str) -> None:
@@ -5899,6 +5944,261 @@ def phase_app(tmp: pathlib.Path, smi: str) -> dict:
     return total
 
 
+# --- phase 49: the mesh ---------------------------------------------------------
+
+def _mesh_images(tmp: pathlib.Path) -> torch.Tensor:
+    """The seeded mnist_28.npz's first MESH_IMAGES images of LABEL, flat."""
+    z = np.load(tmp / "data" / "mnist_28.npz")
+    x = z["x"][z["y"] == LABEL][:MESH_IMAGES] / 255.0
+    return torch.as_tensor(x, dtype=torch.float32).reshape(len(x), -1)
+
+
+def _mesh_sampling(tmp: pathlib.Path, smi: str) -> dict:
+    """(b) The sampling CLI on phase 10's checkpoint at N x ITERS with
+    --mesh-devices 1 (the CLI forms a one-rank NCCL group and destroys
+    it) against the same command without the flag: the same bits and
+    launches; --mesh-devices 2 raises the device-count ValueError (the
+    command's exit 1) before any group is formed. Returns the mesh run's
+    launches."""
+    name = common.build_model(MODEL, device="cpu").save_name()
+    base = ["--ckpt", str(tmp / f"{LABEL}/noise_0/{name}_{LABEL}.pt"),
+            "--model", *MODEL, "--n", str(N), "--iters", str(ITERS),
+            "--device", "cuda", "--format", "npz"]
+    imgs, counts = {}, {}
+    for flag in ([], ["--mesh-devices", "1"]):
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            imgs[len(flag)] = sample_cli.main(
+                base + ["--out", str(tmp / f"mesh_served{len(flag)}"), *flag])
+        counts[len(flag)] = read_counts()
+        if dist.is_initialized():
+            fail("the sampling CLI left its process group behind")
+    print(f"phase 49 (b) {printed.getvalue().strip()}")
+    if not np.array_equal(imgs[0], imgs[2]):
+        fail(f"--mesh-devices 1 differs from the run without a mesh by "
+             f"{np.abs(imgs[0] - imgs[2]).max():.3e}")
+    if counts[0] != counts[2] or counts[2]["gate"] != 2 * ITERS:
+        fail(f"--mesh-devices 1 launched {counts[2]}, without it "
+             f"{counts[0]}")
+    try:
+        sample_cli.main(base + ["--out", str(tmp / "mesh_served_2"),
+                                "--mesh-devices", "2"])
+        fail("--mesh-devices 2 ran on one card")
+    except ValueError as err:
+        refused = str(err)
+    if ("requested a 2-device mesh but only 1 device(s)" not in refused
+            or dist.is_initialized()):
+        fail(f"--mesh-devices 2: {refused!r}, group left "
+             f"{dist.is_initialized()}")
+    print(f"phase 49 (b) cli.sample --mesh-devices 1: {N} x {ITERS} the "
+          f"same bits as without the flag, #1 {counts[2]['gate']} launches "
+          f"each; --mesh-devices 2: {refused} ({smi})")
+    return counts[2]
+
+
+def _take_counts() -> dict:
+    """The launches since the counts were last set to 0; sets them to 0."""
+    counts = read_counts()
+    reset_counts()
+    return counts
+
+
+def _mesh_training(tmp: pathlib.Path, mesh, smi: str) -> dict:
+    """(a) mesh_check.check_training on the one-rank NCCL data mesh: MODEL
+    at batch 1, tau TAU, EPOCHS epochs over MESH_IMAGES images, against the
+    run without a mesh from the same seed, the runs in turns (none, mesh,
+    mesh, none): the same losses, weights and #1/#2 launches, one
+    all-reduce a step; every step's loss from the same weights the same
+    bits too. The witness without a mesh (the loss summed over the rows
+    MESH_WITNESS_SPLIT ranks would take) is printed, not held. Then
+    mesh_check.check_sampling: the same bits and launches. Returns the
+    mesh runs' launches."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = mesh_check.check_training(mesh, dev, MODEL, _mesh_images(tmp),
+                                  EPOCHS, split=MESH_WITNESS_SPLIT,
+                                  counts=_take_counts)
+    steps = EPOCHS * MESH_IMAGES
+    runs, ms = t["launches"], t["step_ms"]
+    mc, fixed = runs["mesh"][0], t["fixed_weights"]
+    if not t["bit_equal"] or fixed["loss_rel"] or fixed["grad_rel"]:
+        fail(f"training over the one-rank mesh differs from the run "
+             f"without it: {t['run']}, from the same weights {fixed}")
+    if (any(c != mc for c in runs["mesh"] + runs["one_device"])
+            or mc["gate"] < 2 * steps or mc["gate_bwd"] < 2 * steps):
+        fail(f"the mesh runs launched {runs['mesh']}, the runs without it "
+             f"{runs['one_device']}")
+    if t["collectives"]["all_reduce"] != steps:
+        fail(f"{t['collectives']['all_reduce']} all-reduces in {steps} "
+             f"steps")
+    run = t["run"]
+    print(f"phase 49 (a) {' '.join(MODEL)} over a one-rank NCCL data mesh: "
+          f"{steps} steps (batch 1, tau {TAU}), epoch losses "
+          f"{run['losses']['mesh']} the same bits as without the mesh, "
+          f"weights the same bits, from the same weights every step's loss "
+          f"and the gradients the same bits, #1 {mc['gate']} and #2 "
+          f"{mc['gate_bwd']} launches each run; collectives "
+          f"{t['collectives']}; a step (ms, host clock, in turns) without "
+          f"the mesh {ms['one_device'][0]:.3f}, with it {ms['mesh'][0]:.3f} "
+          f"and {ms['mesh'][1]:.3f}, without {ms['one_device'][1]:.3f} "
+          f"({smi})")
+    print(f"phase 49 (a) witness without a mesh, the loss summed over the "
+          f"rows of {run['split']} ranks: epoch losses "
+          f"{run['losses']['row_split']}, {run['row_split_rel']:.3e} "
+          f"relative from the plain run's (printed, not held)")
+    s = mesh_check.check_sampling(mesh, dev, MODEL, counts=_take_counts)
+    sc = s["launches"]["mesh"]
+    if s["err"] or sc != s["launches"]["one_device"] or not sc["gate"]:
+        fail(f"sampling over the one-rank mesh: {s}")
+    print(f"phase 49 (a) Diffusion.sample over the one-rank mesh: "
+          f"{mesh_check.SAMPLE} x {mesh_check.ITERS} the same bits and #1 "
+          f"launches ({sc['gate']}) as without it, "
+          f"{s['images_per_s']['mesh']:.1f} images/s against "
+          f"{s['images_per_s']['one_device']:.1f} (host clock)")
+    return {c: mc[c] + sc[c] for c in mc}
+
+
+def _mesh_traj_rng() -> torch.Generator:
+    """The trajectories' generator on the card: the same seed for the
+    mesh and the dense backend, so the same draws."""
+    return torch.Generator(device="cuda").manual_seed(SEED + 49)
+
+
+def _mesh_route(mesh, smi: str) -> None:
+    """(c) mesh_check.check_route on the card: at MESH16
+    (QIDDM_LL_noise(784, 16, 14, 2)'s block) both readouts against #11/#12
+    within MESH_TOL, the adjoint gradients within MESH_GRAD_TOL relative,
+    and the route's steps/s; at MESH12 an RY/CNOT block against the
+    grouped chain, and an amplitude-damping trajectory estimate against
+    the dense trajectory backend (#7) on one generator seed's draws."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    wires, L = MESH16
+    for readout, r in mesh_check.check_route(
+            mesh, dev, wires, L, counts=_take_counts).items():
+        c_mesh, c_one = r["launches"]["mesh"], r["launches"]["one_device"]
+        if _kernels(c_mesh) or not (c_one["wide"] and c_one["wide_bwd"]):
+            fail(f"the mesh route launched {_kernels(c_mesh)}, the route "
+                 f"without it {_kernels(c_one)}")
+        print(f"phase 49 (c) mesh route w={wires} (L {L}, k "
+              f"{mesh_check.K}, {mesh_check.ROWS} rows) {readout}: "
+              f"{r['err']:.3e} from #11/#12 (<= {MESH_TOL}), gradients "
+              f"{r['grad_rel']:.3e} relative (<= {MESH_GRAD_TOL})")
+        if not (r["err"] <= MESH_TOL and r["grad_rel"] <= MESH_GRAD_TOL):
+            fail(f"the {wires}-wire mesh route differs from #11/#12")
+    rates = mesh_check.route_rates(mesh, dev, wires, L)
+    print(f"phase 49 (c) mesh route w={wires}: "
+          f"{rates['steps_per_s_mesh']:.3f} steps/s (fwd + adjoint bwd, "
+          f"host clock) against {rates['steps_per_s_one_device']:.3f} "
+          f"through #11/#12; collectives a step "
+          f"{rates['collectives_a_step']} ({smi})")
+
+    wires, L = MESH12
+    r = mesh_check.check_route(mesh, dev, wires, L, readouts=("expvalz",),
+                               encode="ry", imprimitive="cnot")["expvalz"]
+    x, w, _ = mesh_check.route_inputs(wires, L, dev)
+    damp = engine.NoiseModel("amplitude_damping", TRAJ_STRENGTH, "encode")
+    traj = {}
+    for name, m in (("mesh", mesh), ("dense", None)):
+        reset_counts()
+        with torch.no_grad():
+            traj[name] = (engine.reupload_block(
+                x, w, noise=damp, readout="expvalz", mesh=m, n_traj=MESH_TRAJ,
+                traj_rng=_mesh_traj_rng()), read_counts())
+    terr = float((traj["mesh"][0] - traj["dense"][0]).abs().max())
+    print(f"phase 49 (c) mesh route w={wires} (L {L}, k {mesh_check.K}, "
+          f"{mesh_check.ROWS} rows): RY/CNOT {r['err']:.3e} from the grouped "
+          f"chain, gradients {r['grad_rel']:.3e} relative; amplitude damping "
+          f"{TRAJ_STRENGTH}, {MESH_TRAJ} trajectories, {terr:.3e} from the "
+          f"dense backend (#7 {traj['dense'][1]['amp']} launches) on the "
+          f"same draws")
+    if not (r["err"] <= MESH_TOL and r["grad_rel"] <= MESH_GRAD_TOL
+            and terr <= MESH_TOL and traj["dense"][1]["amp"] == L
+            and not traj["mesh"][1]["amp"]):
+        fail(f"the {wires}-wire mesh route differs from the dense routes")
+
+
+def _mesh_sweep(tmp: pathlib.Path, smi: str) -> None:
+    """(d) sweep_lr over a one-rank NCCL "trial" mesh against the sweep
+    without a mesh (losses, SSIMs and each trial's DCP checkpoint, the
+    same bits), then the trials' weights stacked, saved and restored onto
+    the "trial" placement: the same bits."""
+    trials = make_mesh(1, ("trial",))
+    x = _mesh_images(tmp)
+    kw = dict(shape=(28, 28), epochs=1, batch_size=SWEEP_BATCH, T=TAU,
+              sample_iters=SWEEP_SCORE_ITERS, seed=SEED, ckpt_backend="orbax")
+    like = export_jax_variables(common.build_model(MODEL, device="cpu"))
+    res, saved = {}, {}
+    for name, m in (("mesh", trials), ("plain", None)):
+        res[name] = sweep_lr(
+            lambda s: common.build_model(MODEL, seed=s, device="cuda"),
+            MESH_SWEEP_LRS, x, mesh=m, local_dir=str(tmp / f"sweep_{name}"),
+            **kw)
+        saved[name] = [load_dcp(path, like)["variables"] for path in sorted(
+            (tmp / f"sweep_{name}").glob("sweep/trial_*/*.dcp"))]
+    got, want = res["mesh"], res["plain"]
+    if not (np.array_equal(got.loss_curves, want.loss_curves)
+            and np.array_equal(got.ssim, want.ssim)
+            and "trial" in (got.param_sharding or "")):
+        fail(f"the sweep over a one-rank trial mesh: {got} against {want}")
+    flat = [_flat_tree(v) for v in saved["mesh"]]
+    if len(flat) != len(MESH_SWEEP_LRS) or any(
+            not all(np.array_equal(a, b) for a, b in zip(f, _flat_tree(g)))
+            for f, g in zip(flat, saved["plain"])):
+        fail("the trials' checkpoints differ between the mesh and no mesh")
+    stacked = _stack_trees(saved["mesh"])
+    save_dcp(tmp / "mesh_trials.dcp", stacked)
+    back = load_dcp(tmp / "mesh_trials.dcp", stacked,
+                    sharding=NamedSharding(trials, "trial"))["variables"]
+    leaves = [t.to_local().cpu().numpy() for t in _flat_tree(back)]
+    if not all(np.array_equal(a, b)
+               for a, b in zip(leaves, _flat_tree(stacked))):
+        fail("the DCP restore onto the trial placement differs")
+    print(f"phase 49 (d) sweep_lr, {len(MESH_SWEEP_LRS)} trials at "
+          f"{' '.join(MODEL)}, 1 epoch, over a one-rank trial mesh: losses "
+          f"{got.loss_curves.ravel().tolist()}, SSIMs {got.ssim.tolist()} and "
+          f"checkpoints the same bits as without the mesh, weights "
+          f"{got.param_sharding}; a DCP restore onto the trial placement "
+          f"({_flat_tree(back)[0].placements}) the same bits ({smi})")
+
+
+def _flat_tree(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _flat_tree(tree[k])]
+    return [tree]
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def phase_mesh(tmp: pathlib.Path, smi: str) -> dict:
+    """Phase 49: the mesh on one card (after phase 48): (b), then on one
+    one-rank NCCL group (a), (c), (d); the group is destroyed before the
+    phase ends. Returns the launches of the mesh's main-path runs."""
+    t0 = time.perf_counter()
+    if dist.is_initialized():
+        fail("a process group exists before phase 49")
+    sampled = _mesh_sampling(tmp, smi)
+    mesh = make_mesh(1)
+    try:
+        first = mesh_check.first_all_reduce_ms(
+            mesh, torch.device("cuda", torch.cuda.current_device()))
+        print(f"phase 49 the new group's first all-reduce (the NCCL "
+              f"communicator's set-up) {first:.3f} ms, host clock")
+        trained = _mesh_training(tmp, mesh, smi)
+        _mesh_route(mesh, smi)
+        _mesh_sweep(tmp, smi)
+    finally:
+        distributed.shutdown()
+    if dist.is_initialized():
+        fail("phase 49 left its process group behind")
+    total = {c: sampled[c] + trained[c] for c in sampled}
+    print(f"phase 49 wall {time.perf_counter() - t0:.1f} s, launches "
+          f"{ {c: n for c, n in total.items() if n} } ({smi})")
+    return total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -5962,6 +6262,7 @@ def main() -> None:
             phase_train_parity(tmp, margs, images)
         export_counts = phase_export(tmp, smi)
         app_counts = phase_app(tmp, smi)
+        mesh_counts = phase_mesh(tmp, smi)
         phase_profile_ll(tmp, smi)
         phase_profile_qnn(tmp, smi)
         phase_profile_pl(tmp, smi)
@@ -6085,7 +6386,7 @@ def main() -> None:
                    dm12_counts, x64_counts]
     runs = [*sampled.values(), trained, pl_trained, wide_trained, qa_counts,
             zoo_counts, swept, traj_counts, traj_swept, mono_model,
-            unitary_counts, export_counts, app_counts,
+            unitary_counts, export_counts, app_counts, mesh_counts,
             *rebuttal_counts.values(),
             *exm_counts.values(),
             *ray_counts.values(), *past_widths,
@@ -6115,7 +6416,8 @@ def main() -> None:
           f"fashion_exm and emnist_exm {exm_counts}, the sweep "
           f"{ray_counts}, past the kernels' widths (phases 42-46) "
           f"{past_widths}, the AOT artifacts and their live runs (phase 47) "
-          f"{export_counts}, the application layer (phase 48) {app_counts}")
+          f"{export_counts}, the application layer (phase 48) {app_counts}, "
+          f"the mesh (phase 49) {mesh_counts}")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s ({smi})")
     csrc = "qiddm_tpu_torch/csrc/"
     tpu = "qiddm_tpu/sim/pallas_gate_kernel.py:"

@@ -604,40 +604,91 @@ def save_dcp(path, variables, *, loss_values=None, epochs: int = 0,
     return handle
 
 
-def load_dcp(path, like) -> Dict[str, Any]:
+def _placed_like(like, sharding):
+    """Empty DTensors shaped as ``like``'s arrays, each on its placement:
+    ``sharding`` is one ``parallel.NamedSharding`` for every leaf or a tree
+    of them matching ``like``. Each rank allocates only its own rows."""
+    from torch.distributed.tensor import DTensor
+
+    from .parallel.mesh import local_rows
+
+    if isinstance(like, Mapping):
+        return {k: _placed_like(v, sharding[k] if isinstance(
+            sharding, Mapping) else sharding) for k, v in like.items()}
+    a = np.asarray(like)
+    shape = list(a.shape)
+    if sharding.axis is not None:
+        rows = local_rows(shape[0], sharding.mesh, sharding.axis)
+        shape[0] = rows.stop - rows.start
+    local = torch.empty(shape, dtype=torch.from_numpy(a.ravel()[:0]).dtype,
+                        device=sharding.mesh.device_type)
+    return DTensor.from_local(local, sharding.mesh, sharding.placements(),
+                              run_check=False, shape=torch.Size(a.shape),
+                              stride=torch.empty(a.shape,
+                                                 device="meta").stride())
+
+
+def load_dcp(path, like, sharding=None) -> Dict[str, Any]:
     """Read a :func:`save_dcp` checkpoint into the structure of ``like``
     (a flax numpy tree giving every array's shape and dtype); returns
-    ``{"variables": <numpy tree>, "meta": {"loss_values", "epochs"}}``."""
+    ``{"variables": <numpy tree>, "meta": {"loss_values", "epochs"}}``.
+
+    ``sharding`` (one ``parallel.NamedSharding`` or a matching tree of
+    them; the JAX ``load_orbax(sharding=...)``): every rank of its mesh
+    calls this, and each array is restored straight onto its placement,
+    each rank reading only its own rows; ``variables`` then holds
+    DTensors."""
     import json
 
     path = pathlib.Path(path).absolute()
-    state = {"variables": _host_snapshot(like)}
-    _dcp().load(state, checkpoint_id=str(path), no_dist=True)
+    if sharding is None:
+        state = {"variables": _host_snapshot(like)}
+        _dcp().load(state, checkpoint_id=str(path), no_dist=True)
+    else:
+        state = {"variables": _placed_like(like, sharding)}
+        _dcp().load(state, checkpoint_id=str(path))
 
-    def to_numpy(tree):
+    def unpack(tree):
         if isinstance(tree, Mapping):
-            return {k: to_numpy(v) for k, v in tree.items()}
-        return tree.numpy()
+            return {k: unpack(v) for k, v in tree.items()}
+        return tree if sharding is not None else tree.numpy()
 
     meta_file = _meta_path(path)
     meta = (json.loads(meta_file.read_text()) if meta_file.exists()
             else {"loss_values": [], "epochs": 0})
-    return {"variables": to_numpy(state["variables"]), "meta": meta}
+    return {"variables": unpack(state["variables"]), "meta": meta}
 
 
-def load_dcp_into(net, path) -> Dict[str, Any]:
+def load_dcp_into(net, path, sharding=None) -> Dict[str, Any]:
     """Load a DCP checkpoint into ``net``'s parameters and buffers; returns
-    its meta."""
-    out = load_dcp(path, like=export_jax_variables(net))
-    load_jax_variables(net, out["variables"])
+    its meta. With ``sharding`` (replicated placements: one net holds no
+    shard), every rank of its mesh restores through the process group."""
+    out = load_dcp(path, like=export_jax_variables(net), sharding=sharding)
+    variables = out["variables"]
+    if sharding is not None:
+        from torch.distributed.tensor import Replicate
+
+        def local(tree):
+            if isinstance(tree, Mapping):
+                return {k: local(v) for k, v in tree.items()}
+            if not all(isinstance(pl, Replicate) for pl in tree.placements):
+                raise ValueError(
+                    f"a net holds whole arrays: restore it onto replicated "
+                    f"placements, not {tree.placements}")
+            return tree.to_local().cpu().numpy()
+
+        variables = local(variables)
+    load_jax_variables(net, variables)
     return out["meta"]
 
 
-def load_variables(net, path) -> Dict[str, Any]:
+def load_variables(net, path, sharding=None) -> Dict[str, Any]:
     """Load one checkpoint into ``net``: a ``.dcp`` directory (the port's
     backend "orbax") or a ``.pt`` file. Returns what it holds beside the
     variables (``loss_values``, ``epochs``). The JAX package's ``.orbax``
-    directory (tensorstores) raises ``ValueError`` naming the format."""
+    directory (tensorstores) raises ``ValueError`` naming the format.
+    ``sharding`` applies to a ``.dcp`` (:func:`load_dcp_into`), as the JAX
+    package's applies to orbax only."""
     path = pathlib.Path(path)
     if path.suffix == ".orbax":
         raise ValueError(
@@ -647,7 +698,7 @@ def load_variables(net, path) -> Dict[str, Any]:
             f"(<save_name>_<label>{_DCP_SUFFIX}) instead; pass that or a .pt "
             f"file")
     if path.suffix == _DCP_SUFFIX or path.is_dir():
-        return load_dcp_into(net, path)
+        return load_dcp_into(net, path, sharding)
     ckpt = load_checkpoint(path)
     load_jax_variables(net, ckpt["model_state_dict"])
     return ckpt
@@ -678,8 +729,8 @@ def save_diffusion(diff, save_path, label, loss_values, epochs,
                            [float(v) for v in loss_values], epochs)
 
 
-def load_diffusion(diff, load_path, label,
-                   backend: str = "auto") -> Tuple[List[float], int]:
+def load_diffusion(diff, load_path, label, backend: str = "auto",
+                   sharding=None) -> Tuple[List[float], int]:
     """Driver-level load; returns (loss_values, start_epoch) and keeps the
     fresh model when nothing is found (reference src/mnist_exm.py:294-323).
     ``load_path`` is a directory, a ``.pt`` file or a ``.dcp`` directory.
@@ -687,7 +738,10 @@ def load_diffusion(diff, load_path, label,
     backend "auto" prefers ``<save_name>_<label>.dcp``, then the ``.pt``;
     "orbax" reads only the ``.dcp``, "pt" only the ``.pt``. A directory
     holding only the JAX package's ``.orbax`` checkpoint raises
-    ``ValueError`` naming that format, which the port cannot read."""
+    ``ValueError`` naming that format, which the port cannot read.
+    ``sharding`` (a replicated ``parallel.NamedSharding``; ``.dcp`` only,
+    as the JAX package's is orbax only) restores through the mesh's
+    process group, every rank calling."""
     if backend not in _BACKENDS:
         raise ValueError(f"unknown checkpoint backend {backend!r}")
     name = f"{diff.save_name()}_{label}"
@@ -706,7 +760,7 @@ def load_diffusion(diff, load_path, label,
     if not path.exists():
         print("Failed to load model: File not found.\n")
         return [], 0
-    meta = load_variables(diff.net, path)
+    meta = load_variables(diff.net, path, sharding)
     print("Model loaded successfully"
           + (" (dcp)" if path.suffix == _DCP_SUFFIX else "") + ".\n")
     return meta.get("loss_values", []), meta.get("epochs", 0)

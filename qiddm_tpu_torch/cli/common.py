@@ -153,7 +153,7 @@ def validate_args(args) -> None:
     every model takes its ``add_noise`` code as a ctor argument."""
     if args.vmap_labels:
         raise SystemExit("--vmap-labels is not ported to qiddm_tpu_torch "
-                         "yet (ROADMAP Queue 1 item 11)")
+                         "yet (ROADMAP Queue 1 item 12)")
     for m in args.model:
         if m[0] not in MODEL_REGISTRY:
             raise SystemExit(f"model {m[0]!r} is not ported to "

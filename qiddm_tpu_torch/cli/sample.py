@@ -26,6 +26,14 @@ AOT serving (``qiddm_tpu_torch/export.py``), with the JAX CLI's rules:
 artifact from a CPU host. ``--from-export`` replaces ``--model``/``--ckpt``,
 pins the iterations and noise factor the artifact was exported with, and
 raises unless ``--device`` names the artifact's device.
+
+Data-parallel serving (``--mesh-devices N``) splits each batch over N
+ranks, one device each (``qiddm_tpu_torch/parallel``): ``--mesh-devices 1``
+on one card needs no launcher; N > 1 runs under ``torchrun
+--nproc-per-node N`` on a host with N cards (NCCL takes one rank a GPU),
+or with ``--device cpu`` on N CPU ranks (gloo). Every rank samples its
+rows, all ranks get the whole batch, and rank 0 writes the images. N
+above the ranks there are raises before any work.
 """
 
 from __future__ import annotations
@@ -37,11 +45,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import export as export_mod
 from ..ckpt import load_variables
 from ..config import resolve_device
 from ..diffusion import Diffusion
+from ..parallel import make_mesh
+from ..parallel.distributed import process_index, shutdown
 from . import common
 
 
@@ -82,7 +93,9 @@ def parse_args(argv):
                         "--model/--ckpt (no model code or checkpoint "
                         "needed)")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="not ported: serving over a device mesh")
+                   help="shard each batch over this many devices, one rank "
+                        "each (data-parallel serving; 0 = one device "
+                        "without a mesh; N > 1 under torchrun)")
     return p.parse_args(argv)
 
 
@@ -133,11 +146,21 @@ def _export(args, diff) -> None:
 
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    if args.mesh_devices:
-        raise SystemExit("--mesh-devices: data-parallel serving over a mesh "
-                         "(ROADMAP Queue 1 item 11, its mesh half) is not "
-                         "ported to qiddm_tpu_torch yet")
     device = resolve_device(args.device)
+    if args.mesh_devices and args.from_export:
+        raise SystemExit("--from-export artifacts pin their sharding at "
+                         "export time; --mesh-devices does not apply")
+    formed = not dist.is_initialized()
+    mesh = (make_mesh(args.mesh_devices, ("data",), device=device)
+            if args.mesh_devices and not args.export else None)
+    try:
+        return _serve(args, device, mesh)
+    finally:
+        if formed:  # the group this call formed goes with it
+            shutdown()
+
+
+def _serve(args, device, mesh):
     s = args.img_size
     sampler = diff = None
     if args.from_export:
@@ -160,8 +183,6 @@ def main(argv=None):
         _export(args, diff)
         return None
 
-    out_dir = pathlib.Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator().manual_seed(args.seed)
     all_imgs = []
     t_first = t_rest = None
@@ -174,7 +195,7 @@ def main(argv=None):
         else:
             imgs = diff.sample(n_iters=args.iters, first_x=first_x,
                                only_last=True,
-                               noise_factor=args.noise_factor)
+                               noise_factor=args.noise_factor, mesh=mesh)
         imgs = imgs.cpu().numpy()  # waits for the device
         dt = time.perf_counter() - t0
         if b == 0:
@@ -183,7 +204,10 @@ def main(argv=None):
             t_rest = (t_rest or 0) + dt
         all_imgs.append(imgs)
     imgs = np.concatenate(all_imgs)
-
+    if process_index() != 0:  # every rank holds the images; rank 0 writes
+        return imgs
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
     if args.format in ("npz", "both"):
         np.savez_compressed(out_dir / "samples.npz", images=imgs)
     if args.format in ("png", "both"):
@@ -196,7 +220,9 @@ def main(argv=None):
                        cmap="gray")
     iters = ("artifact-pinned iters" if sampler is not None
              else f"{args.iters} iters")
-    msg = (f"generated {len(imgs)} images ({iters}) on {device} "
+    where = (f"{device}, split over {args.mesh_devices} rank(s)" if mesh
+             is not None else f"{device}")
+    msg = (f"generated {len(imgs)} images ({iters}) on {where} "
            f"-> {out_dir}; first batch {t_first:.3f}s (incl one-time set-up)")
     if args.batches > 1:
         steady = (args.batches - 1) * args.n / t_rest

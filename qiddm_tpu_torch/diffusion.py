@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from .noise import add_normal_noise_multiple
+from .parallel.mesh import all_reduce_, axis_size, gather_rows, local_rows
 
 
 @contextlib.contextmanager
@@ -63,6 +64,26 @@ def stack_to_grid(outp: torch.Tensor) -> torch.Tensor:
     of sampled batches: iterations down, images across."""
     i, b, _, h, w = outp.shape
     return outp[:, :, 0].permute(0, 2, 1, 3).reshape(i * h, b * w)
+
+
+def _check_rows_independent(net, mesh, train: bool) -> None:
+    """A data mesh of several ranks needs a net whose rows do not meet:
+    a PCA refit on every batch, or a BatchNorm in training, would see one
+    rank's rows where the JAX package's partitioner computes them over the
+    whole batch. A one-rank mesh takes any net."""
+    if axis_size(mesh, "data") == 1:
+        return
+    for m in net.modules():
+        refit = getattr(m, "down", None) == "pca" and not getattr(
+            m, "pca_lazy", True)
+        norm = train and "BatchNorm" in type(m).__name__
+        if refit or norm:
+            raise NotImplementedError(
+                f"{type(m).__name__} couples the rows of a batch "
+                f"({'its PCA refit' if refit else 'its batch statistics'}),"
+                f" so a data mesh of {axis_size(mesh, 'data')} ranks would "
+                f"change its result; run it on a one-rank mesh or without "
+                f"one")
 
 
 class Diffusion:
@@ -106,14 +127,18 @@ class Diffusion:
     # --- training -----------------------------------------------------------
     def _chain_loss(self, x_flat: torch.Tensor, T: int, *,
                     generator: Optional[torch.Generator],
-                    valid: Optional[torch.Tensor] = None):
+                    valid: Optional[torch.Tensor] = None,
+                    rows: Optional[slice] = None):
         """The tau-chain training loss shared by every train path.
 
         Builds the noisy chain, pairs step t+1 -> t, runs the denoiser on
         the expanded batch and takes the MSE for the active goal (reference
         src/models.py:44-104). With ``valid`` (a per-row 0/1 vector), padded
         rows get zero weight and the mean normalizes by the real count.
-        Returns (loss, (per_elem, recon)).
+        ``rows`` keeps only those rows of the expanded batch (a data-parallel
+        rank's share): the chain is drawn whole, and the loss is their part
+        of the whole batch's weighted mean. Returns (loss, (per_elem,
+        recon)).
         """
         tau = T + 1
         chain = self.add_noise(generator, x_flat, tau, 3.0)  # (B*tau, P)
@@ -121,6 +146,9 @@ class Diffusion:
         img = (-1, 1, self.width, self.height)  # "(w h)" pixel order
         noisy = c[:, 1:, :].reshape(img)
         clean = c[:, :-1, :].reshape(img)
+        row_numel = noisy[0].numel()
+        if rows is not None:
+            noisy, clean = noisy[rows], clean[rows]
         with _net_mode(self.net, True):
             recon = self.net(noisy)
         if self.prediction_goal == "data":
@@ -130,10 +158,12 @@ class Diffusion:
         if valid is None:
             loss = per_elem.mean()
         else:
-            wgt = valid.repeat_interleave(tau - 1)[:, None, None, None]
+            wgt = valid.repeat_interleave(tau - 1)
+            if rows is not None:
+                wgt = wgt[rows]
             denom = (torch.clamp(valid.sum(), min=1.0) * (tau - 1)
-                     * per_elem[0].numel())
-            loss = (per_elem * wgt).sum() / denom
+                     * row_numel)
+            loss = (per_elem * wgt[:, None, None, None]).sum() / denom
         return loss, (per_elem, recon)
 
     def loss_fn(self, x_flat: torch.Tensor, T: int, *,
@@ -146,6 +176,61 @@ class Diffusion:
         optimizer.zero_grad(set_to_none=False)
         loss.backward()
         optimizer.step()
+
+    def _dp_update(self, optimizer, xb, T: int, generator, valid,
+                   mesh) -> torch.Tensor:
+        """One data-parallel step over the mesh's ``data`` dim: every rank
+        draws the whole batch's noise, keeps its rows of the tau-expanded
+        batch (``parallel.mesh.local_rows``; a rank may have none) and
+        backpropagates its part of the weighted mean; one all-reduce sums
+        the gradients and the loss, so every rank steps the same Adam
+        update. A parameter without a gradient on every rank keeps none,
+        as in a one-process step. Returns the whole batch's loss."""
+        rows = local_rows(len(xb) * T, mesh, "data")
+        has_rows = rows.stop > rows.start
+        optimizer.zero_grad(set_to_none=False)
+        if has_rows:
+            loss, _ = self._chain_loss(xb, T, generator=generator,
+                                       valid=valid, rows=rows)
+            loss.backward()
+            loss = loss.detach()
+        else:  # draw the noise all the same: the generators stay in step
+            self.add_noise(generator, xb, T + 1, 3.0)
+            loss = torch.zeros((), device=xb.device)
+        params = [p for p in self.net.parameters() if p.requires_grad]
+        # the graph, not the data, decides which parameters get a gradient,
+        # so a rank with rows knows the flags on the host; an empty rank
+        # reads the others' back from the device
+        flags = tuple(has_rows and p.grad is not None for p in params)
+        buf = torch.cat(
+            [(p.grad if p.grad is not None else torch.zeros_like(p))
+             .reshape(-1) for p in params]
+            + [self._flags_on(flags, xb.device), loss.reshape(1)])
+        all_reduce_(buf, mesh, "data")
+        off, n = 0, len(params)
+        if not has_rows:
+            flags = (buf[-1 - n:-1] > 0).tolist()
+        for i, p in enumerate(params):
+            g = buf[off:off + p.numel()].view_as(p)
+            off += p.numel()
+            if flags[i]:
+                if p.grad is None:
+                    p.grad = g.clone()
+                else:
+                    p.grad.copy_(g)
+        optimizer.step()
+        return buf[-1]
+
+    def _flags_on(self, flags: tuple, device) -> torch.Tensor:
+        """The 0/1 gradient flags as a tensor on ``device``, made once a
+        pattern: a copy from the host's pageable memory each step would
+        wait for the step's backward kernels before the all-reduce."""
+        cache = self.__dict__.setdefault("_flag_tensors", {})
+        key = (flags, str(device))
+        if key not in cache:
+            cache[key] = torch.tensor([float(f) for f in flags],
+                                      device=device)
+        return cache[key]
 
     def make_train_step(self, optimizer, T: int):
         """``step(x_flat, generator) -> loss``: one loss, backward and
@@ -177,10 +262,15 @@ class Diffusion:
         epoch's loss is the SUM of its batches' mean losses (reference
         src/mnist_exm.py:176-185). ``batches`` replaces the drawn order with
         an (epochs * n_batches, batch_size) index tensor, -1 marking pads.
+
+        With ``mesh`` (its ``data`` dim), every rank calls ``run`` with the
+        same generator seed and data: each draws the whole batch order and
+        noise and trains on its rows of the tau-expanded batch
+        (:meth:`_dp_update`). The losses are the one-process run's up to
+        the order of the reduction; on a one-rank mesh they are its bits.
         """
         if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh: ROADMAP Queue 1 item 11")
+            _check_rows_independent(self.net, mesh, train=True)
 
         def run(generator, x_train: torch.Tensor, n_train: int,
                 batches: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -196,9 +286,13 @@ class Diffusion:
             for idx in batches:
                 valid = (idx >= 0).to(x_train.dtype).to(x_train.device)
                 xb = x_train[torch.clamp(idx, min=0).to(x_train.device)]
-                loss, _ = self._chain_loss(xb, T, generator=generator,
-                                           valid=valid)
-                self._update(optimizer, loss)
+                if mesh is None:
+                    loss, _ = self._chain_loss(xb, T, generator=generator,
+                                               valid=valid)
+                    self._update(optimizer, loss)
+                else:
+                    loss = self._dp_update(optimizer, xb, T, generator,
+                                           valid, mesh)
                 losses.append(loss.detach())
             return torch.stack(losses).reshape(epochs, n_batches).sum(dim=1)
 
@@ -305,39 +399,71 @@ class Diffusion:
                 xs.append(x)
         return x, xs
 
+    def _stack(self, first_x, n_iters, noise_factor, traj_rng, mesh,
+               only_last: bool):
+        """The (iters+1, b, ...) stack of the start and every iteration, or
+        the last batch alone. With ``mesh``, the image batch splits over its
+        ``data`` dim (``parallel.mesh.local_rows``), each rank denoises its
+        rows with the replicated parameters, and one all-gather gives every
+        rank the whole result."""
+        if mesh is None:
+            last, xs = self._denoise_scan(first_x, n_iters, noise_factor,
+                                          traj_rng)
+            return last if only_last else torch.stack([first_x] + xs)
+        _check_rows_independent(self.net, mesh, train=False)
+        if traj_rng is not None and axis_size(mesh, "data") > 1:
+            raise NotImplementedError(
+                "trajectory sampling over a data mesh of several ranks: "
+                "each rank would draw its rows' branches apart from the "
+                "one-process draws; sample on a one-rank mesh or without one")
+        n = first_x.shape[0]
+        mine = first_x[local_rows(n, mesh, "data")]
+        if mine.shape[0]:
+            last, xs = self._denoise_scan(mine, n_iters, noise_factor,
+                                          traj_rng)
+            local = last if only_last else torch.stack([mine] + xs)
+        else:
+            local = (mine if only_last
+                     else mine[None].expand(n_iters + 1, *mine.shape))
+        return gather_rows(local, n, mesh, "data", dim=0 if only_last else 1)
+
     def sample_fn(self, first_x: torch.Tensor, n_iters: int, *,
                   only_last: bool = False, step: int = 1,
-                  noise_factor: float = 1.0, traj_rng=None) -> torch.Tensor:
+                  noise_factor: float = 1.0, traj_rng=None,
+                  mesh=None) -> torch.Tensor:
         """first_x: (b, 1, w, h). Returns the last batch (``only_last``) or
         the reference's grid ``(iters*h, b*w)`` of the start and every
-        ``step``-th iteration."""
-        last, xs = self._denoise_scan(first_x, n_iters, noise_factor,
-                                      traj_rng)
+        ``step``-th iteration. ``mesh``: data-parallel sampling over its
+        ``data`` dim (:meth:`_stack`)."""
+        out = self._stack(first_x, n_iters, noise_factor, traj_rng, mesh,
+                          only_last)
         if only_last:
-            return last
-        return stack_to_grid(torch.stack([first_x] + xs[::step]))
+            return out
+        return stack_to_grid(torch.cat([out[:1], out[1:][::step]]))
 
     def sample_stack_fn(self, first_x: torch.Tensor, n_iters: int, *,
-                        noise_factor: float = 1.0,
-                        traj_rng=None) -> torch.Tensor:
+                        noise_factor: float = 1.0, traj_rng=None,
+                        mesh=None) -> torch.Tensor:
         """The raw (iters+1, b, 1, h, w) stack of the start and every
         iteration."""
-        _, xs = self._denoise_scan(first_x, n_iters, noise_factor, traj_rng)
-        return torch.stack([first_x] + xs)
+        return self._stack(first_x, n_iters, noise_factor, traj_rng, mesh,
+                           False)
 
     def sample(self, n_iters: int, first_x: Optional[torch.Tensor] = None,
                labels=None, show_progress: bool = False,
                only_last: bool = False, step: int = 1,
                noise_factor: float = 1.0,
                generator: Optional[torch.Generator] = None,
-               traj_rng: Optional[torch.Generator] = None) -> torch.Tensor:
+               traj_rng: Optional[torch.Generator] = None,
+               mesh=None) -> torch.Tensor:
         """Sample from ``first_x``, or from 10 uniform images drawn on the
         CPU from ``generator`` (seed 0 if none) and moved to the net's
         device. ``labels`` and ``show_progress`` are the reference's
         arguments and change nothing, as in the JAX package. ``traj_rng``,
         a generator on the net's device, feeds the trajectory noise backend
         of a net with ``noise_trajectories``: the same seed gives the same
-        samples."""
+        samples. ``mesh`` splits the batch over its ``data`` dim, every rank
+        calling with the same arguments and getting the whole result."""
         if first_x is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
@@ -345,4 +471,4 @@ class Diffusion:
                                  generator=generator).to(self.net.device)
         return self.sample_fn(first_x, n_iters, only_last=only_last,
                               step=step, noise_factor=noise_factor,
-                              traj_rng=traj_rng)
+                              traj_rng=traj_rng, mesh=mesh)

@@ -369,11 +369,40 @@ def _reupload_per_layer(x_enc, block_weights, *, readout: str):
     return expval_z_from_planes(sr, si)
 
 
+def _reupload_mesh(x_enc, block_weights, mesh, axis: str, *, encode: str,
+                   imprimitive: str, noise: Optional[NoiseModel],
+                   readout: str, cdtype, n_traj: int, traj_rng):
+    """The mesh route of :func:`reupload_block` (``engine.py:366-392`` of
+    the JAX package): the sharded program applies the halfpi scaling
+    itself, so the encode-placement over-rotation is divided by that scale
+    first, to land after it as on the dense route."""
+    from .sharded import reupload_block_sharded
+
+    if _needs_dm(noise) and not n_traj:
+        raise NotImplementedError(
+            "noise channels on the mesh-sharded statevector path need the "
+            "trajectory backend: pass n_traj=.../traj_rng=... "
+            "(sim/trajectories.py)")
+    if (noise is not None and noise.kind == "rot_angle"
+            and noise.placement == "encode"):
+        scale = math.pi * 0.5 if encode == "rz_halfpi" else 1.0
+        x_enc = x_enc + noise.strength / scale
+    traj = {}
+    if _needs_dm(noise):
+        traj = {"noise_kind": noise.kind, "noise_strength": noise.strength,
+                "traj_rng": traj_rng, "n_traj": n_traj,
+                "noise_placement": noise.placement}
+    return reupload_block_sharded(x_enc, block_weights, mesh, axis=axis,
+                                  imprimitive=imprimitive, encode=encode,
+                                  readout=readout, dtype=cdtype, **traj)
+
+
 def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
                    encode: str = "rz", imprimitive: str = "cz",
                    noise: Optional[NoiseModel] = None,
                    readout: str = "probs", cdtype=None, mesh=None,
-                   n_traj: int = 0, traj_rng=None) -> torch.Tensor:
+                   mesh_axis: str = "data", n_traj: int = 0,
+                   traj_rng=None) -> torch.Tensor:
     """One N-block: L x (encode -> SEL(k)) -> readout.
 
     x_enc: (batch, wires) encoding angles, re-uploaded in every spectrum
@@ -382,10 +411,12 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
     (batch, wires). A non-unitary ``noise`` takes the density-matrix route
     (:func:`_reupload_dm`), or with ``n_traj`` the trajectory backend,
     drawing from ``traj_rng``.
+
+    With ``mesh`` (a ``DeviceMesh``, ``parallel.make_mesh``), the
+    statevector is split over ``mesh[mesh_axis]`` (``sim/sharded.py``),
+    every rank calling with the same arguments; the result is on every
+    rank. A non-unitary channel there needs the trajectory backend.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded statevector: ROADMAP Queue 1 item 11")
     _check_encode(encode)
     if imprimitive not in _IMPRIMITIVES:
         raise ValueError(f"unknown imprimitive {imprimitive!r}")
@@ -393,6 +424,11 @@ def reupload_block(x_enc: torch.Tensor, block_weights: torch.Tensor, *,
         raise ValueError(f"unknown readout {readout!r}")
     if cdtype is None:
         cdtype = _config.complex_dtype()
+    if mesh is not None:
+        return _reupload_mesh(x_enc, block_weights, mesh, mesh_axis,
+                              encode=encode, imprimitive=imprimitive,
+                              noise=noise, readout=readout, cdtype=cdtype,
+                              n_traj=n_traj, traj_rng=traj_rng)
     L, k, wires, _ = block_weights.shape
     batch = x_enc.shape[0]
     x_enc = _encode_angles(x_enc, encode, noise)

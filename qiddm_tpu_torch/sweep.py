@@ -21,6 +21,16 @@ Trial t is built by ``make_net(seed + t)`` and draws its batch order and
 noise from a CPU generator seeded from ``(seed, t)``, carried across its
 segments; so a trial gives the same weights whether it trains in a sweep
 or alone (``trial_generator``).
+
+Over a mesh with a ``trial`` dim the trials split over its ranks, ragged
+counts padded as the JAX package pads them: rank r owns trials r * per to
+(r + 1) * per - 1, per = ceil(trials / ranks), and trains its live ones
+one after another; a survivor of a rung stays on its rank (the JAX package
+re-shards the survivors; here a rank whose trials were all stopped idles).
+Losses, scores and the trained weights come back to every rank through
+``parallel.distributed.to_host``; only rank 0 writes the artifacts. A
+``data`` dim of the mesh splits each trial's training batch as in
+``Diffusion.make_multi_epoch_fn``.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ import torch
 from . import metrics
 from .ckpt import export_jax_variables, save_checkpoint, save_dcp
 from .diffusion import Diffusion
+from .parallel.distributed import process_index, to_host
+from .parallel.mesh import axis_size, has_axis, placements
 
 
 @dataclass
@@ -48,6 +60,9 @@ class SweepResult:
     best_by_loss: int = 0
     best_by_ssim: int = 0
     trial_dirs: List[str] = field(default_factory=list)
+    # the placement of the trained trials' stacked weights over a mesh with
+    # a "trial" dim (None without one)
+    param_sharding: Optional[str] = None
 
 
 def trial_generator(seed: int, trial: int) -> torch.Generator:
@@ -72,11 +87,9 @@ def sweep_lr(make_net: Callable[[int], object], lrs: Sequence[float],
     gives AsyncHyperBand's grace 1, reduction 4). ``first_x`` (the
     sampler's start images for the SSIM) defaults to 15 uniform images
     drawn from ``seed + 7``. ``ckpt_backend`` "orbax" writes each finished
-    trial's checkpoint as a DCP directory (``ckpt.save_dcp``). ``mesh``
-    (trials over a device mesh) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sweep trials over a device mesh: ROADMAP Queue 1 item 11")
+    trial's checkpoint as a DCP directory (``ckpt.save_dcp``). ``mesh``: a
+    ``trial`` dim splits the trials over its ranks, a ``data`` dim each
+    trial's batch (every rank calls with the same arguments)."""
     if ckpt_backend not in ("pt", "orbax"):
         raise ValueError(f"unknown checkpoint backend {ckpt_backend!r}")
     n_trials = len(lrs)
@@ -99,6 +112,8 @@ def sweep_lr(make_net: Callable[[int], object], lrs: Sequence[float],
                                  seed + 7)) * 0.75 + 0.5
     first_x = torch.as_tensor(first_x).to(device)
 
+    trials = _TrialSplit(mesh, n_trials)
+    inner = mesh if has_axis(mesh, "data") else None
     # a single trial is never dropped at a rung: it trains in one segment
     plan = _rung_plan(epochs, rungs if n_trials > 1 else None)
     loss_curves = np.zeros((n_trials, epochs), np.float32)
@@ -109,11 +124,13 @@ def sweep_lr(make_net: Callable[[int], object], lrs: Sequence[float],
     t_start = time.time()
     for seg_epochs, keep_frac in plan:
         t0 = time.perf_counter()
-        for t in live:
+        seg = torch.zeros((trials.rows, seg_epochs), device=device)
+        for t in trials.mine(live):
             run = diffs[t].make_multi_epoch_fn(optimizers[t], T, bs,
-                                               seg_epochs)
-            loss_curves[t, epochs_done:epochs_done + seg_epochs] = (
-                run(gens[t], x, n_train).cpu().numpy())
+                                               seg_epochs, mesh=inner)
+            seg[trials.row(t)] = run(gens[t], x, n_train)
+        loss_curves[live, epochs_done:epochs_done + seg_epochs] = (
+            trials.gather(seg)[live])
         wall = time.perf_counter() - t0
         epochs_done += seg_epochs
         last_epoch[live] = epochs_done
@@ -124,8 +141,13 @@ def sweep_lr(make_net: Callable[[int], object], lrs: Sequence[float],
               f"training images/s)")
         # every live trial's SSIM, the sweep's selection metric
         # (src/mnist_ray.py:207, mode="max")
-        cur = _score_ssim([diffs[t] for t in live], first_x, sample_iters,
-                          real_for_ssim, x_train, (h, w))
+        mine = trials.mine(live)
+        scores = torch.zeros((trials.rows,), device=device)
+        if mine:
+            scores[[trials.row(t) for t in mine]] = torch.as_tensor(
+                _score_ssim([diffs[t] for t in mine], first_x, sample_iters,
+                            real_for_ssim, x_train, (h, w)), device=device)
+        cur = trials.gather(scores)[live]
         ssims[live] = cur
         if keep_frac is not None and keep_frac < 1.0 and len(live) > 1:
             live = np.sort(live[_keep(cur, keep_frac)])
@@ -139,13 +161,72 @@ def sweep_lr(make_net: Callable[[int], object], lrs: Sequence[float],
         lrs=list(map(float, lrs)), loss_curves=loss_curves,
         final_loss=final_loss, ssim=ssims,
         best_by_loss=int(np.argmin(final_loss)),
-        best_by_ssim=int(np.argmax(ssims)))
-    if local_dir is not None:
+        best_by_ssim=int(np.argmax(ssims)),
+        param_sharding=trials.share_weights(nets))
+    if local_dir is not None and process_index() == 0:
         result.trial_dirs = _write_artifacts(
             local_dir, exp_name, result, {int(t): nets[t] for t in live},
             dict(batch_size=bs, epochs=epochs, T=T), t_start, last_epoch,
             ckpt_backend)
     return result
+
+
+class _TrialSplit:
+    """The trials' split over a mesh's ``trial`` dim: rank r owns the
+    padded rows r * per .. (r + 1) * per - 1, row t holding trial t; no
+    ``trial`` dim, one rank owns them all."""
+
+    def __init__(self, mesh, n_trials: int):
+        self.mesh = mesh if has_axis(mesh, "trial") else None
+        self.n = n_trials
+        ranks = axis_size(mesh, "trial") if self.mesh is not None else 1
+        self.per = -(-n_trials // ranks)
+        self.rows = self.per if self.mesh is not None else n_trials
+        self.lo = (mesh.get_local_rank("trial") * self.per
+                   if self.mesh is not None else 0)
+
+    def mine(self, live) -> list:
+        return [int(t) for t in live if self.lo <= t < self.lo + self.rows]
+
+    def row(self, t: int) -> int:
+        return t - self.lo
+
+    def _stacked(self, block: torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(block, self.mesh,
+                                  placements(self.mesh, "trial"),
+                                  run_check=False)
+
+    def gather(self, block: torch.Tensor) -> np.ndarray:
+        """Every trial's row of the ranks' blocks, on every rank (an
+        all-gather every rank enters)."""
+        if self.mesh is None:
+            return block.cpu().numpy()
+        return to_host(self._stacked(block))[:self.n]
+
+    def share_weights(self, nets) -> Optional[str]:
+        """Give every rank every trial's trained weights (each rank trained
+        only its own); returns the stacked weights' placement."""
+        if self.mesh is None:
+            return None
+        states = [{k: v for k, v in net.state_dict().items()
+                   if v.is_floating_point()} for net in nets]
+        sizes = [v.numel() for v in states[0].values()]
+        block = torch.zeros((self.per, sum(sizes)), dtype=torch.float64,
+                            device=nets[0].device)
+        for t in self.mine(range(self.n)):
+            block[self.row(t)] = torch.cat(
+                [v.reshape(-1).double() for v in states[t].values()])
+        stacked = self._stacked(block)
+        flat = torch.as_tensor(to_host(stacked))
+        with torch.no_grad():
+            for t, state in enumerate(states):
+                for v, part in zip(state.values(),
+                                   torch.split(flat[t], sizes)):
+                    v.copy_(part.reshape(v.shape).to(v.dtype))
+        return (f"{tuple(stacked.placements)} over mesh dims "
+                f"{stacked.device_mesh.mesh_dim_names}")
 
 
 def params_count(nets) -> int:

@@ -69,10 +69,11 @@ def train_diffusion_scan(diff, x_train, *, epochs: int, batch_size: int,
     run: the wall excludes first-use set-up (kernel build, allocator
     warm-up) but the device trains twice. Drivers pass ``warmup=False``:
     one run, timed. The wall ends when the device has finished.
+
+    With ``mesh`` (every rank calling with the same arguments), the
+    tau-expanded batch of every step splits over its ``data`` dim and the
+    gradients are summed over it (``Diffusion.make_multi_epoch_fn``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh: ROADMAP Queue 1 item 11")
     key = 0 if key is None else int(key)
     x = _flat_on_device(diff, x_train)
     n_train = len(x)
@@ -82,12 +83,14 @@ def train_diffusion_scan(diff, x_train, *, epochs: int, batch_size: int,
         start = (copy.deepcopy(diff.net.state_dict()),
                  copy.deepcopy(opt_state))
         optimizer = _adam(diff, lr, opt_state)
-        diff.make_multi_epoch_fn(optimizer, T, batch_size, epochs)(
+        diff.make_multi_epoch_fn(optimizer, T, batch_size, epochs,
+                                 mesh=mesh)(
             torch.Generator().manual_seed(key), x, n_train).cpu()
         diff.net.load_state_dict(start[0])
         opt_state = start[1]
     optimizer = _adam(diff, lr, opt_state)
-    run = diff.make_multi_epoch_fn(optimizer, T, batch_size, epochs)
+    run = diff.make_multi_epoch_fn(optimizer, T, batch_size, epochs,
+                                   mesh=mesh)
     t0 = time.time()
     epoch_losses = run(torch.Generator().manual_seed(key), x, n_train)
     epoch_losses = epoch_losses.cpu().numpy()  # waits for the device

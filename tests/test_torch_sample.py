@@ -116,9 +116,15 @@ def test_cli_cuda_without_a_card_raises(tmp_path, nets):
     assert not (tmp_path / "out").exists()
 
 
-# the AOT flags serve now (tests/test_torch_export.py); the mesh stays
+# the AOT flags serve now (tests/test_torch_export.py), and so does the
+# mesh (tests/test_torch_parallel.py): --mesh-devices above the ranks there
+# are raises before any work, naming the count
 @pytest.mark.parametrize("flag", [["--mesh-devices", "2"]])
-def test_cli_rejects_unported_flags(flag):
-    with pytest.raises(SystemExit, match="not ported"):
+def test_cli_rejects_unported_flags(flag, monkeypatch):
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(ValueError, match="requested a 2-device mesh but "
+                                         "only 1 device"):
         tsample.main(["--model", "QIDDM_LL_noise", "784", "6", "14", "2",
                       "--ckpt", "x.pt", "--device", "cpu", *flag])
+    assert not torch.distributed.is_initialized()

@@ -117,7 +117,8 @@ _DAMPING = tengine.NoiseModel("amplitude_damping", 0.1, "encode")
     # and runs at any width; without a channel n_traj changes nothing
     ({"noise": _DAMPING, "n_traj": 4}, "random source"),
     ({"n_traj": 4}, None),
-    ({"mesh": object()}, "item 11"),
+    # ROADMAP item 11's mesh half: a one-rank mesh runs the sharded route
+    ({"mesh": "one rank"}, "item 11"),
     # the routes ROADMAP item 5 ported run, each on its route: 13 wires on
     # sel_apply_gates and the PyTorch amplitude-damping pass, a CNOT ring
     # past the per-layer route's 8 wires on the grouped chain
@@ -139,6 +140,23 @@ def test_reupload_block_unported_options_raise(kwargs, item):
         out = tengine.reupload_block(
             x, w, traj_rng=torch.Generator().manual_seed(0), **kwargs)
         assert out.shape == (2, 8) and torch.isfinite(out).all()
+    elif item == "item 11":
+        from qiddm_tpu_torch.parallel import distributed, make_mesh
+
+        rng = _rng(11)
+        x = torch.as_tensor(rng.uniform(size=(2, wires)), dtype=torch.float32)
+        w = torch.as_tensor(rng.normal(size=(1, 2, wires, 3)),
+                            dtype=torch.float32)
+        mesh = make_mesh(1, device="cpu")
+        try:
+            for readout in ("probs", "expvalz"):
+                got = tengine.reupload_block(x, w, readout=readout,
+                                             mesh=mesh)
+                want = tengine.reupload_block(x, w, readout=readout)
+                assert got.shape == want.shape
+                assert torch.allclose(got, want, atol=1e-6)
+        finally:
+            distributed.shutdown()
     elif item == "item 5":
         tengine.reset_route_calls()
         out = tengine.reupload_block(
@@ -147,10 +165,6 @@ def test_reupload_block_unported_options_raise(kwargs, item):
         want = ({"gates": 1, "amp_xla": 1} if "noise" in kwargs
                 else {"wide": 1})
         assert {k: v for k, v in tengine.ROUTE_CALLS.items() if v} == want
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            tengine.reupload_block(
-                x, w, traj_rng=torch.Generator().manual_seed(0), **kwargs)
 
 
 def test_reupload_block_ry_runs_the_ry_chain_below_2_to_the_w(monkeypatch):

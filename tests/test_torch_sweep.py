@@ -208,17 +208,33 @@ def test_each_trial_equals_that_trial_trained_alone(tmp_path):
 
 
 def test_mesh_and_orbax_are_not_ported(tmp_path):
-    """The mesh is still item 11's and raises before any work; so does an
-    unknown checkpoint backend. The orbax backend is ported: each finished
-    trial's checkpoint is a DCP directory holding what the pt backend's
-    holds (tests/test_torch_dcp.py holds the rest)."""
+    """The mesh (ROADMAP item 11) is ported: a one-rank "trial" mesh gives
+    the mesh-free sweep's bits (tests/test_torch_parallel.py holds 4
+    ranks). An unknown checkpoint backend raises before any work. The
+    orbax backend is ported: each finished trial's checkpoint is a DCP
+    directory holding what the pt backend's holds (tests/test_torch_dcp.py
+    holds the rest)."""
+    from qiddm_tpu_torch.parallel import distributed, make_mesh
+
     kw = dict(shape=(8, 8), epochs=1, batch_size=2, T=2)
 
     def refuse(s):
         raise AssertionError("a net was built before the refusal")
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsweep.sweep_lr(refuse, [0.01], _images(2), mesh=object(), **kw)
+    def make(s):
+        return tnn.QIDDM_LL_noise(64, 3, 2, 1, 0, seed=s, device="cpu")
+
+    mesh = make_mesh(1, ("trial",), device="cpu")
+    try:
+        got = tsweep.sweep_lr(make, [0.01, 0.02], _images(4), mesh=mesh,
+                              sample_iters=2, **kw)
+    finally:
+        distributed.shutdown()
+    want = tsweep.sweep_lr(make, [0.01, 0.02], _images(4), sample_iters=2,
+                           **kw)
+    np.testing.assert_array_equal(got.loss_curves, want.loss_curves)
+    np.testing.assert_array_equal(got.ssim, want.ssim)
+    assert "trial" in got.param_sharding
     with pytest.raises(ValueError, match="backend"):
         tsweep.sweep_lr(refuse, [0.01], _images(2), ckpt_backend="zarr",
                         **kw)

@@ -308,6 +308,21 @@ def test_train_diffusion_resumes_at_start_epoch():
     losses = ttrain.train_diffusion(diff, x, epochs=3, batch_size=3,
                                     lr=0.0255, T=3, key=1, start_epoch=1)
     assert len(losses) == 2 and all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttrain.train_diffusion_scan(diff, x, epochs=1, batch_size=2,
-                                    lr=0.1, T=3, mesh=object())
+    # the mesh (ROADMAP item 11): a one-rank mesh trains the same bits
+    from qiddm_tpu_torch.parallel import distributed, make_mesh
+
+    runs = []
+    mesh = make_mesh(1, device="cpu")
+    try:
+        for m in (mesh, None):
+            net = QIDDM_LL_noise(*MODEL, seed=2, device="cpu")
+            got, _ = ttrain.train_diffusion_scan(
+                TDiffusion(net, shape=(8, 8)), x, epochs=1, batch_size=2,
+                lr=0.1, T=3, mesh=m, warmup=False)
+            runs.append((got, [p.detach().clone()
+                               for p in net.parameters()]))
+    finally:
+        distributed.shutdown()
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
